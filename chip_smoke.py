@@ -5,28 +5,43 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX. Phases, each printing its result:
+It imports nothing of JAX and nothing of nbody_tpu. Phases, each printing
+its result:
   1. device: the card, its compute capability (9.0 required), CUDA, nvcc,
      and nvidia-smi's name and power limit;
-  2. build: the CUDA kernels with nvcc from nbody_tpu_torch/csrc;
-  3. kernels against their plain PyTorch versions on the card, at
-     N in {1000, 4099, 65536}, one i-vs-j case with M != N, block sizes 128
-     and 256, random masses, vel.w and damping 0.5 at N in {4099, 65536},
-     and their times at N=65536;
+  2. build: the CUDA kernels with nvcc from nbody_tpu_torch/csrc, one nvcc
+     per source, started together;
+  3. the one-sided kernels against their plain PyTorch versions on the
+     card, at N in {1000, 4099, 65536}, one i-vs-j case with M != N, block
+     sizes 128 and 256, random masses, vel.w and damping 0.5 at N in
+     {4099, 65536}, and their times at N=65536;
+  3s. the each-pair-once kernels against their plain versions: the
+     triangle at N in {1000, 4099}, the blocked composition at N=65536 and
+     at N=135168 (the main path's shapes), the rectangle at (777, 4099) and
+     (cap, cap), random masses, vel.w and damping 0.5 through a step at
+     N in {4099, 65536}; run-to-run bit equality; momentum; their times;
   4. QA, the reference's rule, through Compute.compare_results at N=16384;
   5. the main path at full size: Compute.run_benchmark at N=65536, beside
      the plain version's time per step;
+  5s. the each-pair-once main path: QA at N=16384 through
+     Compute(variant="sym") with Euler and with leapfrog, run_benchmark(10)
+     at N=65536, and steps at N=135168, above the composition's cap;
+  5t. sym against one-sided steps through Compute at N=65536 and 135168,
+     in turns;
   6. placement="host" against placement="device", bit for bit;
-  7. the CLI in subprocesses: --qatest and --benchmark.
-Phases 4 and 5 are the main path's run: the kernels' launch counters are
-set to 0 before it and read after it, and each kernel must have launched.
-Any failure raises, and the script exits nonzero. The last lines are one
-JSON object per kernel and then the result line.
+  7. the CLI in subprocesses: --qatest, --benchmark, and --variant sym
+     with --integrator leapfrog --qatest and with --benchmark.
+Phases 4-5 are the one-sided main path's run and 5s the sym path's: the
+kernels' launch counters are set to 0 before each and read after it, and
+each kernel of that path must have launched. Any failure raises, and the
+script exits nonzero. The last lines are the card, one JSON object listing
+every kernel, and the result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -38,12 +53,34 @@ sys.path.insert(0, str(ROOT))
 
 N_MAIN = 65536  # BASELINE.json configs[1] and bench.py's N
 N_QA = 16384  # nbody_tpu's per-core default N
-KERNEL_SOURCE = "nbody_tpu_torch/csrc/nbody_kernels.cu"
+N_BIG = 4 * 256 * 132  # the CLI's default N on an H100, above the sym cap
+# the card's peak fp32 rate outside the tensor cores and its memory rate
+# (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "accel": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "sym": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
+           "sym_cross": "nbody_tpu_torch/csrc/symmetric_kernels.cu"}
+REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
+            "accel": "nbody_tpu/ops/pallas_kernel.py:272",
+            "sym": "nbody_tpu/ops/symmetric_kernel.py:107",
+            "sym_cross": "nbody_tpu/ops/symmetric_kernel.py:334"}
+NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
+         "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32"}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke failed: {what}")
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for the work: the larger of operations over the fp32
+    peak and bytes over the memory rate, and which of the two it is."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def nvidia_smi_line() -> str:
@@ -79,8 +116,28 @@ def phase_build() -> None:
     lib = _build.build()
     _build.load_library()
     secs = time.perf_counter() - t0
-    print(f"[2 build] {lib.relative_to(ROOT)} "
+    print(f"[2 build] {lib.relative_to(ROOT)} from "
+          f"{', '.join(s.name for s in _build.SOURCES)} "
           f"{'already built' if existed else 'built'} in {secs:.1f} s")
+
+
+def shell_state(torch, n, *, seed=42, random_w=False):
+    """Shell ICs at the tuned scales on the card; with random_w, masses from
+    [0.5, 2] and a random vel.w, which shell ICs (unit masses, vel.w = 0)
+    cannot tell from a kernel that weights a pair by the wrong mass."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
+
+    demo = DEMO_PARAMS[0]
+    scales = tuned_scales(n) or (demo.cluster_scale, demo.velocity_scale)
+    pos, vel = ic.generate(NBodyConfig.SHELL, n, *scales, seed=seed)
+    if random_w:
+        rng = np.random.default_rng(7)
+        pos[:, 3] = rng.uniform(0.5, 2.0, n)
+        vel[:, 3] = rng.standard_normal(n)
+    dev = torch.device("cuda", 0)
+    return torch.tensor(pos, device=dev), torch.tensor(vel, device=dev)
 
 
 def phase_kernels(torch) -> dict:
@@ -96,9 +153,7 @@ def phase_kernels(torch) -> dict:
     the last cases draw masses from [0.5, 2], a random vel.w and damping
     0.5: a kernel that weights a pair by m_i, drops the damping or zeroes
     vel.w fails them."""
-    import numpy as np
-
-    from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
+    from nbody_tpu_torch import DEMO_PARAMS
     from nbody_tpu_torch.ops import cuda_kernel as ck
     from nbody_tpu_torch.ops import reference
     from nbody_tpu_torch.utils.timing import elapsed_ms
@@ -112,15 +167,9 @@ def phase_kernels(torch) -> dict:
     cases.append((777, 4099, 256, False, damp))  # i-vs-j, M != N
     cases += [(4099, 4099, 256, True, 0.5), (N_MAIN, N_MAIN, 256, True, 0.5)]
     for m, n, bs, rand_w, dmp in cases:
-        scales = tuned_scales(n) or (demo.cluster_scale, demo.velocity_scale)
-        pos, vel = ic.generate(NBodyConfig.SHELL, n, *scales, seed=42)
-        if rand_w:
-            rng = np.random.default_rng(7)
-            pos[:, 3] = rng.uniform(0.5, 2.0, n)
-            vel[:, 3] = rng.standard_normal(n)
-        pj = torch.tensor(pos, device=dev)
+        pj, vj = shell_state(torch, n, random_w=rand_w)
         pi = pj[:m].contiguous()
-        vi = torch.tensor(vel[:m], device=dev)
+        vi = vj[:m].contiguous()
 
         a_k = ck.compute_accel_cuda(pi, pj, soft, block_size=bs)
         a_r = reference.compute_accel_vs(pi, pj, soft)
@@ -148,10 +197,7 @@ def phase_kernels(torch) -> dict:
         err["step"] = max(err["step"], e_p, e_v)
 
     # times at the main path's shape: N=65536, the default block of 256
-    pos, vel = ic.generate(NBodyConfig.SHELL, N_MAIN, demo.cluster_scale,
-                           demo.velocity_scale, seed=42)
-    p = torch.tensor(pos, device=dev)
-    v = torch.tensor(vel, device=dev)
+    p, v = shell_state(torch, N_MAIN)
     out = (torch.empty_like(p), torch.empty_like(v))
     reps, plain_reps = 20, 3
 
@@ -171,7 +217,12 @@ def phase_kernels(torch) -> dict:
         for _ in range(plain_reps):
             reference.compute_accel(p, soft)
 
-    times = {}
+    times, bounds = {}, {}
+    # 20 flops a pair by the reference's count; each input read once, each
+    # output written once
+    flops = 20.0 * N_MAIN * N_MAIN
+    bounds["step"] = bound_ms(flops, 4 * N_MAIN * 16)
+    bounds["accel"] = bound_ms(flops, N_MAIN * 16 + N_MAIN * 12)
     for name, kernel, plain in (("step", step_kernel, step_plain),
                                 ("accel", accel_kernel, accel_plain)):
         kernel()
@@ -180,45 +231,171 @@ def phase_kernels(torch) -> dict:
         t_p = elapsed_ms(plain, dev) / plain_reps
         times[name] = (t_k, t_p)
         print(f"[3 kernels] {name} at N={N_MAIN}, block 256: kernel {t_k:.3f} ms, "
-              f"plain {t_p:.3f} ms per call")
-    return {"err": err, "times": times}
+              f"plain {t_p:.3f} ms per call, bound {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]})")
+    return {"err": err, "times": times, "bounds": bounds}
 
 
-def phase_qa(torch, ck) -> None:
+def phase_sym_kernels(torch) -> dict:
+    """The each-pair-once kernels against their plain versions, with the
+    one-sided bounds: only the order of the sums differs, so the force is
+    held to 1e-4 * max|a| + 1e-4 and a step carries it as in phase 3."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    demo = DEMO_PARAMS[0]
+    dt, soft = demo.time_step, demo.softening
+    cap, tile = ck.sym_default_dispatch(N_MAIN)
+    err = {"sym": 0.0, "sym_cross": 0.0}
+
+    def held(name, got, want, what):
+        tol = 1e-4 * want.abs().max().item() + 1e-4
+        e = (got - want).abs().max().item()
+        print(f"[3s sym] {what}: max|d|={e:.3e} (tol {tol:.3e})")
+        check(bool(torch.isfinite(got).all()), f"non-finite output at {what}")
+        check(e <= tol, f"{name} kernel disagrees at {what}")
+        err[name] = max(err[name], e)
+        return tol
+
+    for n in (1000, 4099):
+        p, _ = shell_state(torch, n)
+        held("sym", ck.sym_accel_cuda(p, soft, tile=tile),
+             reference.compute_accel_symmetric(p, soft), f"triangle N={n} tile={tile}")
+    # the blocked composition: N=65536 cut into two blocks of 32768 (two
+    # triangles, one rectangle), and the default dispatch at N=135168
+    for n, c in ((N_MAIN, N_MAIN // 2), (N_BIG, cap)):
+        p, _ = shell_state(torch, n)
+        held("sym_cross",
+             ck.compute_accel_symmetric_blocked_cuda(p, soft, block_cap=c, tile=tile),
+             reference.compute_accel_symmetric_blocked(p, soft, block_cap=c, tile_j=tile),
+             f"blocked N={n} cap={c} tile={tile}")
+    for bi, bj in ((777, 4099), (cap, cap)):
+        pi, _ = shell_state(torch, bi, seed=3)
+        pj, _ = shell_state(torch, bj)
+        a_k, r_k = ck.sym_cross_cuda(pi, pj, soft, tile=tile)
+        a_r, r_r = reference.sym_cross(pi, pj, soft)
+        held("sym_cross", a_k, a_r, f"rectangle ({bi},{bj}) action")
+        held("sym_cross", r_k, r_r, f"rectangle ({bi},{bj}) reaction")
+    # random masses, vel.w and damping 0.5 through the sym step at the
+    # default dispatch, against the plain composition
+    for n in (4099, N_MAIN):
+        p, v = shell_state(torch, n, random_w=True)
+        a_k = ck.compute_accel_symmetric_blocked_cuda(p, soft)
+        a_r = reference.compute_accel_symmetric_blocked(p, soft, block_cap=cap, tile_j=tile)
+        tol_a = held("sym", a_k, a_r, f"N={n} random masses")
+        out_k = (torch.empty_like(p), torch.empty_like(v))
+        reference.integrate_into(p, v, a_k, dt, 0.5, out_k)
+        p_r, v_r = reference.integrate(p, v, a_r, dt, 0.5)
+        e_p = (out_k[0] - p_r).abs().max().item()
+        e_v = (out_k[1] - v_r).abs().max().item()
+        w_kept = bool(torch.equal(out_k[0][:, 3], p[:, 3]) and torch.equal(out_k[1][:, 3], v[:, 3]))
+        print(f"[3s sym] step N={n} damping 0.5: max|dpos|={e_p:.3e} "
+              f"(tol {1e-5 + dt * dt * tol_a:.3e}) max|dvel|={e_v:.3e} "
+              f"(tol {1e-5 + dt * tol_a:.3e}); w-lanes kept: {w_kept}")
+        check(e_p <= 1e-5 + dt * dt * tol_a and e_v <= 1e-5 + dt * tol_a,
+              f"sym step disagrees at N={n}")
+        check(w_kept, f"sym step changed pos.w or vel.w at N={n}")
+        # momentum: each pair adds +m_i m_j c d and -m_i m_j c d, so
+        # sum m a = 0 up to the rounding of the per-body sums, which grows
+        # as sqrt(N): the JAX suite's 1e-6 of sum |m a| at N=384
+        # (tests/test_symmetric.py:58-66), scaled by sqrt(N / 384)
+        ma = p[:, 3:4].double() * a_k.double()
+        net = ma.sum(0).abs().max().item() / ma.abs().sum().item()
+        mbound = 1e-6 * math.sqrt(n / 384)
+        print(f"[3s sym] momentum N={n}: |sum m a| / sum |m a| = {net:.3e} "
+              f"(bound {mbound:.3e})")
+        check(net <= mbound, f"sym momentum not conserved at N={n}")
+    # run-to-run: no atomics, so the same bits every call
+    for n in (N_MAIN, N_BIG):
+        p, _ = shell_state(torch, n)
+        a1 = ck.compute_accel_symmetric_blocked_cuda(p, soft)
+        a2 = ck.compute_accel_symmetric_blocked_cuda(p, soft)
+        same = bool(torch.equal(a1, a2))
+        print(f"[3s sym] N={n}: repeat call bit-equal: {same}")
+        check(same, f"the sym force differs between two calls at N={n}")
+
+    # times at the main path's shapes: the triangle of N=65536 (one block
+    # under the cap) and the rectangle of the two blocks of N=135168
+    _, blk = reference.sym_blocking(N_BIG, tile, cap)
+    p, _ = shell_state(torch, N_MAIN)
+    pb, _ = shell_state(torch, N_BIG)
+    pi, pj = pb[:blk], pb[blk:2 * blk]
+    reps, plain_reps = 20, 2
+    runs = {
+        "sym": (lambda: ck.sym_accel_cuda(p, soft, tile=tile),
+                lambda: reference.compute_accel_symmetric(p, soft)),
+        "sym_cross": (lambda: ck.sym_cross_cuda(pi, pj, soft, tile=tile),
+                      lambda: reference.sym_cross(pi, pj, soft)),
+    }
+    # 28 flops a pair for both sides (symmetric_kernel.py:285)
+    bounds = {"sym": bound_ms(28.0 * N_MAIN * (N_MAIN - 1) / 2, N_MAIN * (16 + 12)),
+              "sym_cross": bound_ms(28.0 * pi.shape[0] * pj.shape[0],
+                                    (pi.shape[0] + pj.shape[0]) * 16
+                                    + pi.shape[0] * 16 + pj.shape[0] * 12)}
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        kernel()
+        plain()
+        t_k = elapsed_ms(lambda: [kernel() for _ in range(reps)], dev) / reps
+        t_p = elapsed_ms(lambda: [plain() for _ in range(plain_reps)], dev) / plain_reps
+        times[name] = (t_k, t_p)
+        shape = f"N={N_MAIN}" if name == "sym" else f"({pi.shape[0]},{pj.shape[0]})"
+        print(f"[3s sym] {name} at {shape}, tile {tile}: kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms per call, bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
-    before = dict(ck.LAUNCHES)
-    compute = Compute(num_bodies=N_QA, device="cuda", log=lambda s: print(f"[4 QA] {s}"))
+    compute = Compute(num_bodies=N_QA, device="cuda", variant=variant,
+                      integrator=integrator, log=lambda s: print(f"[{tag}] {s}"))
+    check(compute.system.variant == variant, f"variant {compute.system.variant} != {variant}")
     passed = compute.compare_results()
-    check(passed, "QA compare against the CPU oracle failed")
-    check(ck.LAUNCHES["step"] > before["step"], "QA step did not launch the step kernel")
-    check(ck.LAUNCHES["accel"] > before["accel"], "QA force check did not launch the accel kernel")
+    check(passed, f"QA compare against the CPU oracle failed ({variant}, {integrator})")
 
 
-def phase_main(torch, smi: str) -> None:
+def phase_main(torch, smi: str, variant: str, n: int, steps: int, tag: str) -> float:
+    """run_benchmark through Compute; returns ms per step."""
     from nbody_tpu_torch.compute import Compute
 
-    compute = Compute(num_bodies=N_MAIN, device="cuda", log=lambda s: print(f"[5 main] {s}"))
-    res = compute.run_benchmark(10)
+    compute = Compute(num_bodies=n, device="cuda", variant=variant,
+                      log=lambda s: print(f"[{tag}] {s}"))
+    res = compute.run_benchmark(steps)
     check(compute.system.backend == "cuda", "the main path did not select the CUDA backend")
     pos, vel = compute.system.state
-    check(tuple(pos.shape) == (N_MAIN, 4), f"state shape {tuple(pos.shape)}")
+    check(tuple(pos.shape) == (n, 4), f"state shape {tuple(pos.shape)}")
     check(bool(torch.isfinite(pos).all() and torch.isfinite(vel).all()),
           "non-finite state after the benchmark")
     ms = res["milliseconds"] / res["iterations"]
-    print(f"[5 main] kernel: {ms:.3f} ms per step, "
+    print(f"[{tag}] {variant} N={n}: {ms:.3f} ms per step, "
           f"{res['interactions_per_second_e9']:.3f} G interactions/s, "
           f"{res['gflops']:.3f} GFLOP/s at 20 flops per interaction [{smi}]")
+    return ms
 
 
 def phase_plain_main(smi: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
-    plain = Compute(num_bodies=N_MAIN, device="cuda", backend="torch",
+    plain = Compute(num_bodies=N_MAIN, device="cuda", backend="torch", variant="vpu",
                     log=lambda s: print(f"[5 main, plain] {s}"))
     res = plain.run_benchmark(3)
     print(f"[5 main] plain PyTorch: {res['milliseconds'] / res['iterations']:.3f} ms "
           f"per step [{smi}]")
+
+
+def phase_step_times(torch, smi: str) -> None:
+    """sym against one-sided steps through Compute, in turns (vpu, sym,
+    sym, vpu), at N=65536 and the CLI's default N."""
+    for n in (N_MAIN, N_BIG):
+        ms = {"vpu": [], "sym": []}
+        for variant in ("vpu", "sym", "sym", "vpu"):
+            ms[variant].append(phase_main(torch, smi, variant, n, 10, "5t times"))
+        print(f"[5t times] N={n}: one-sided {min(ms['vpu']):.3f} ms, sym "
+              f"{min(ms['sym']):.3f} ms per step (best of two, in turns) [{smi}]")
 
 
 def phase_host(torch) -> None:
@@ -235,17 +412,20 @@ def phase_host(torch) -> None:
     dev.synchronize()
     same = bool((dev.positions == host.positions).all() and
                 (dev.velocities == host.velocities).all())
-    print(f"[6 host] 5 steps at N={N_QA}: host placement equals device placement "
-          f"bit for bit: {same}")
+    print(f"[6 host] 5 steps at N={N_QA}, variant {dev.variant}: host placement equals "
+          f"device placement bit for bit: {same}")
     check(same, "placement='host' differs from placement='device'")
 
 
 def phase_cli() -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    rate = "billion interactions per second"
     runs = ((["--qatest", "--numbodies", "4096"], "-> OK"),
-            (["--benchmark", "--numbodies", str(N_MAIN), "-i", "10"],
-             "billion interactions per second"))
+            (["--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate),
+            (["--variant", "sym", "--integrator", "leapfrog", "--qatest",
+              "--numbodies", "4096"], "-> OK"),
+            (["--variant", "sym", "--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate))
     for args, expect in runs:
         cmd = [sys.executable, "-m", "nbody_tpu_torch.cli", *args]
         proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -256,6 +436,19 @@ def phase_cli() -> None:
             print(proc.stderr, file=sys.stderr)
         check(proc.returncode == 0, f"{' '.join(args)} exited {proc.returncode}")
         check(expect in proc.stdout, f"{' '.join(args)} printed no {expect!r}")
+
+
+def run_path(ck, kernels, drive) -> dict:
+    """Drive one path with every launch counter at 0 just before it; return
+    the counts just after, and fail unless each of `kernels` launched."""
+    for k in ck.LAUNCHES:
+        ck.LAUNCHES[k] = 0
+    drive()
+    launches = dict(ck.LAUNCHES)
+    print(f"[main] kernel launches on the path of {', '.join(kernels)}: {launches}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k!r} was not launched on its main path")
+    return launches
 
 
 def main() -> int:
@@ -277,36 +470,47 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     kern = phase_kernels(torch)
+    sym_kern = phase_sym_kernels(torch)
 
-    # the main path's run: counters from 0, read right after
-    for k in ck.LAUNCHES:
-        ck.LAUNCHES[k] = 0
-    phase_qa(torch, ck)
-    phase_main(torch, smi)
-    launches = dict(ck.LAUNCHES)
-    print(f"[5 main] kernel launches on the main path: {launches}")
-    for k, count in launches.items():
-        check(count > 0, f"kernel {k!r} was not launched on the main path")
+    def one_sided_path():
+        phase_qa(torch, ck, "vpu", "euler", "4 QA")
+        phase_main(torch, smi, "vpu", N_MAIN, 10, "5 main")
+
+    def sym_path():
+        phase_qa(torch, ck, "sym", "euler", "5s QA")
+        phase_qa(torch, ck, "sym", "leapfrog", "5s QA")
+        phase_main(torch, smi, "sym", N_MAIN, 10, "5s main")
+        phase_main(torch, smi, "sym", N_BIG, 3, "5s main")
+
+    launches = run_path(ck, ("step", "accel"), one_sided_path)
+    sym_launches = run_path(ck, ("sym", "sym_cross"), sym_path)
+    for k in ("sym", "sym_cross"):
+        launches[k] = sym_launches[k]
     phase_plain_main(smi)
+    phase_step_times(torch, smi)
 
     phase_host(torch)
     phase_cli()
-    check("jax" not in sys.modules, "JAX was imported")
+    bad = sorted(m for m in sys.modules if m in ("jax", "nbody_tpu")
+                 or m.startswith(("jax.", "nbody_tpu.")))
+    check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    replaces = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
-                "accel": "nbody_tpu/ops/pallas_kernel.py:272"}
-    names = {"step": "nbody_step_f32", "accel": "nbody_accel_f32"}
+    found = {key: {**kern[key], **sym_kern[key]} for key in ("err", "times", "bounds")}
     kernels = [{
-        "name": names[k],
+        "name": NAMES[k],
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": replaces[k],
+        "source": SOURCES[k],
+        "replaces": REPLACES[k],
         "launches": launches[k],
-        "max_abs_err": kern["err"][k],
-        "ms": kern["times"][k][0],
-        "plain_ms": kern["times"][k][1],
-    } for k in ("step", "accel")]
+        "max_abs_err": found["err"][k],
+        "ms": found["times"][k][0],
+        "plain_ms": found["times"][k][1],
+        "bound_ms": found["bounds"][k][0],
+        "bound_by": found["bounds"][k][1],
+        # no single PyTorch call computes softened all-pairs gravity
+        "library_ms": None,
+    } for k in ("step", "accel", "sym", "sym_cross")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

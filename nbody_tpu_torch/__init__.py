@@ -1,8 +1,9 @@
 """nbody_tpu_torch — the PyTorch / CUDA port of nbody_tpu for NVIDIA Hopper.
 
-The JAX package ``nbody_tpu`` stays the reference. This package imports its
-plain-numpy modules (parameters, configurations, initial conditions, the CPU
-oracle, checkpoints) and never JAX. Its hot path is hand-written CUDA for
+The JAX package ``nbody_tpu`` stays the reference. This package imports
+nothing of it and never JAX: it keeps its own copies of the plain-numpy
+modules (parameters, configurations, initial conditions, the CPU oracle,
+checkpoints and tipsy files). Its hot path is hand-written CUDA for
 sm_90a (``nbody_tpu_torch/csrc``), built with nvcc at first use.
 
 State convention, the same as ``nbody_tpu``'s: ``pos`` is an ``(N, 4)``
@@ -10,9 +11,9 @@ float32 tensor with columns ``x, y, z, mass`` and ``vel`` is ``(N, 4)`` with
 columns ``vx, vy, vz, 0``.
 """
 
-from nbody_tpu import ic
-from nbody_tpu.config import NBodyConfig
-from nbody_tpu.params import DEMO_PARAMS, NBodyParams, tuned_scales
+from nbody_tpu_torch import ic
+from nbody_tpu_torch.config import NBodyConfig
+from nbody_tpu_torch.params import DEMO_PARAMS, NBodyParams, tuned_scales
 
 __all__ = [
     "NBodyParams",

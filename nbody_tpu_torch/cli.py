@@ -3,9 +3,9 @@
 
 The reference's flags that the port's first slice runs
 (nbody.cpp:275-285): --benchmark, --compare / --qatest, --numbodies,
--i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus --seed and
---variant. Other nbody_tpu flags are not accepted until their slice lands
-(ROADMAP.md).
+-i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus --seed,
+--variant {auto,vpu,sym} and --integrator {euler,leapfrog}. Other nbody_tpu
+flags are not accepted until their slice lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -45,9 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the plain PyTorch path on the host CPU")
     p.add_argument("--tipsy", type=str, default=None, help="load a tipsy galaxy file")
     p.add_argument("--seed", type=int, default=42, help="initial-condition RNG seed")
-    p.add_argument("--variant", choices=["auto", "vpu"], default="auto",
-                   help="force kernel: vpu = the one-sided all-pairs kernel; "
-                        "auto resolves to it")
+    p.add_argument("--variant", choices=["auto", "vpu", "sym"], default="auto",
+                   help="force kernel: vpu = the one-sided all-pairs kernel, "
+                        "sym = each pair once (Newton's third law); auto = "
+                        "the one measured faster on the card, vpu with --cpu")
+    p.add_argument("--integrator", choices=["euler", "leapfrog"], default="euler",
+                   help="damped semi-implicit Euler (the reference's) or "
+                        "drift-kick-drift leapfrog")
     return p
 
 
@@ -78,7 +82,7 @@ def _main(argv=None) -> int:
 
     tipsy_state = None
     if args.tipsy:
-        from nbody_tpu.io import read_tipsy_file
+        from nbody_tpu_torch.io import read_tipsy_file
 
         tpos, tvel = read_tipsy_file(args.tipsy)
         tipsy_state = (tpos.astype(np.float32), tvel.astype(np.float32))
@@ -90,6 +94,7 @@ def _main(argv=None) -> int:
         block_size=args.block_size,
         placement="host" if args.hostmem else "device",
         variant=args.variant,
+        integrator=args.integrator,
         seed=args.seed,
         tipsy_state=tipsy_state,
     )
@@ -98,7 +103,8 @@ def _main(argv=None) -> int:
              if system.device.type == "cuda" else "cpu")
     print(f"nbody_tpu_torch: {compute.num_bodies} bodies on {where} "
           f"[{system.backend} kernel"
-          + (", host memory" if args.hostmem else "") + ", fp32]")
+          + (", host memory" if args.hostmem else "") + ", fp32]"
+          + f" force {system.variant}, integrator {system.integrator}")
 
     if args.benchmark:
         compute.run_benchmark(args.iterations)

@@ -16,9 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nbody_tpu.config import NBodyConfig
-from nbody_tpu.oracle import accel_numpy, native_available, step_best
-from nbody_tpu.params import (
+from nbody_tpu_torch.config import NBodyConfig
+from nbody_tpu_torch.oracle import accel_numpy, native_available, step_best
+from nbody_tpu_torch.params import (
     DEMO_PARAMS,
     DEMO_TIME_S,
     flops_per_interaction,
@@ -52,7 +52,7 @@ def default_num_bodies(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
 
 def _oracle_accel(pos: np.ndarray, softening: float) -> np.ndarray:
     if native_available():
-        from nbody_tpu.oracle.native import accel_native
+        from nbody_tpu_torch.oracle.native import accel_native
 
         return accel_native(pos, softening)
     return accel_numpy(pos, softening)
@@ -68,6 +68,7 @@ class Compute:
         block_size: Optional[int] = None,
         placement: str = "device",
         variant: str = "auto",
+        integrator: str = "euler",
         cycle_demo: bool = True,
         seed: int = 42,
         tipsy_state: Optional[tuple] = None,
@@ -105,6 +106,7 @@ class Compute:
             block_size=block_size,
             placement=placement,
             variant=variant,
+            integrator=integrator,
             seed=seed,
             state=tipsy_state,
         )

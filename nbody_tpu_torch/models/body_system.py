@@ -1,7 +1,8 @@
 """BodySystem: simulation state on a torch device, and stepping.
 
-Counterpart of ``nbody_tpu/models/body_system.py`` for the port's first
-slice: fp32, damped semi-implicit Euler, one device, the one-sided kernel.
+Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
+far: fp32, one device, damped semi-implicit Euler or leapfrog, the one-sided
+force (``variant="vpu"``) or the each-pair-once force (``variant="sym"``).
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -9,9 +10,20 @@ fused kernel never writes the array it reads the j-bodies from. (The JAX
 package gets the same effect from a donated ``lax.scan``.)
 
 Backends:
-  * "cuda"  — the hand-written CUDA step kernel (``ops/cuda_kernel.py``)
-  * "torch" — the plain PyTorch step (``ops/reference.py``), on any device
+  * "cuda"  — the hand-written CUDA kernels (``ops/cuda_kernel.py``)
+  * "torch" — the plain PyTorch versions (``ops/reference.py``), on any device
   * "auto"  — "cuda" on a CUDA device, else "torch"
+
+Variants (the force):
+  * "vpu"  — one-sided all-pairs; Euler runs the fused step kernel
+  * "sym"  — each pair once, the blocked triangle + rectangle composition
+    (``sym_default_dispatch``); the O(N) update is plain torch, written into
+    the other ping-pong buffer, as the JAX package leaves it to XLA
+  * "auto" — AUTO_VARIANT_CUDA on a CUDA device, else "vpu" (the JAX package
+    resolves to its Pallas sym path only on the TPU)
+
+Integrators: "euler" (damped semi-implicit) and "leapfrog" (drift-kick-drift
+around one force evaluation of the variant's force).
 
 Placements (the reference's BodySystemCUDA variants):
   * "device" — state stays in device memory between calls
@@ -22,32 +34,32 @@ Placements (the reference's BodySystemCUDA variants):
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from nbody_tpu import ic
-from nbody_tpu.config import NBodyConfig
-from nbody_tpu.params import NBodyParams
+from nbody_tpu_torch import ic
+from nbody_tpu_torch.config import NBodyConfig
+from nbody_tpu_torch.io.checkpoint import load_checkpoint as _load_npz
 from nbody_tpu_torch.ops import reference
 from nbody_tpu_torch.ops.cuda_kernel import (
     DEFAULT_BLOCK_SIZE,
     check_block_size,
     compute_accel_cuda,
+    compute_accel_symmetric_blocked_cuda,
     nbody_step_cuda,
+    sym_default_dispatch,
 )
 from nbody_tpu_torch.ops.energy import total_energy as _total_energy
+from nbody_tpu_torch.params import NBodyParams
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
 # Options of nbody_tpu that later slices of the port bring, and the
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
-    "sym": "Queue 1 #3 (main path, each pair once)",
     "fp64": "Queue 1 #5 (fp64)",
-    "leapfrog": "Queue 1 #6 (leapfrog + Hermite)",
-    "hermite": "Queue 1 #6 (leapfrog + Hermite)",
+    "hermite": "Queue 1 #6 (Hermite)",
     "ds": "Queue 1 #8 (double-single precision)",
     "pm": "Queue 1 #10 (PM / P3M)",
     "p3m": "Queue 1 #10 (PM / P3M)",
@@ -55,6 +67,14 @@ LATER_SLICES = {
     "mxu": "Queue 2 #3 (_mxu_step_kernel)",
     "mxu_bf16": "Queue 2 #3 (_mxu_step_kernel)",
 }
+
+
+# What variant="auto" runs on a CUDA device: the variant measured faster at
+# N=65536 on an NVIDIA H100 80GB HBM3, 700 W power limit (PERF.md):
+# the sym force 1.780 ms against the one-sided step's 3.536 ms
+# (scripts/torch_sym_dispatch.py), and the steps through Compute in
+# chip_smoke.py.
+AUTO_VARIANT_CUDA = "sym"
 
 
 def not_ported(option: str, value) -> ValueError:
@@ -102,13 +122,9 @@ def state_from_numpy(pos, vel, *, device, num_bodies: Optional[int] = None):
 
 
 def load_checkpoint(path, *, device):
-    """Read an npz checkpoint written by ``nbody_tpu.io.save_checkpoint``;
-    returns (pos, vel, params, meta) with the state on `device`."""
-    from nbody_tpu.io.checkpoint import load_checkpoint as _load_npz
-
-    if os.path.isdir(path):
-        raise ValueError(f"{path} is an orbax checkpoint directory, which needs "
-                         "JAX; save an npz checkpoint instead")
+    """Read an npz checkpoint written by ``nbody_tpu.io.save_checkpoint``
+    (through the port's own reader); returns (pos, vel, params, meta) with
+    the state on `device`."""
     pos, vel, params, meta = _load_npz(path)
     pos, vel = state_from_numpy(pos, vel, device=resolve_device(device))
     return pos, vel, params, meta
@@ -151,13 +167,15 @@ class BodySystem:
             backend = "cuda" if self.device.type == "cuda" else "torch"
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(f"backend='cuda' needs a CUDA device; got {self.device}")
-        if variant in ("sym", "mxu", "mxu_bf16"):
+        if variant in ("mxu", "mxu_bf16"):
             raise not_ported("variant", variant)
-        if variant not in ("auto", "vpu"):
+        if variant not in ("auto", "vpu", "sym"):
             raise ValueError(f"unknown kernel variant {variant!r}")
-        if integrator in ("leapfrog", "hermite"):
+        if variant == "auto":
+            variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
+        if integrator == "hermite":
             raise not_ported("integrator", integrator)
-        if integrator != "euler":
+        if integrator not in ("euler", "leapfrog"):
             raise ValueError(f"unknown integrator {integrator!r}")
         if dtype == torch.float64:
             raise not_ported("dtype", "fp64")
@@ -167,8 +185,7 @@ class BodySystem:
             raise ValueError(f"unknown placement {placement!r}")
 
         self.backend = backend
-        # the one-sided kernel until the each-pair-once slice lands
-        self.variant = "vpu"
+        self.variant = variant
         self.integrator = integrator
         self.dtype = torch.float32
         self.placement = placement
@@ -240,7 +257,7 @@ class BodySystem:
 
     def reset(self, params: NBodyParams, config: NBodyConfig, *,
               seed: Optional[int] = None) -> None:
-        """Regenerate the initial conditions with nbody_tpu.ic from the seed."""
+        """Regenerate the initial conditions with the port's ic from the seed."""
         self.params = params
         self.config = config
         if seed is not None:
@@ -252,18 +269,35 @@ class BodySystem:
 
     # ---- stepping ----
 
+    def _accel(self, pos: torch.Tensor) -> torch.Tensor:
+        """Acceleration (N,3) of `pos` with this system's backend and force
+        variant."""
+        soft = self.params.softening
+        if self.variant == "sym":
+            if self.backend == "cuda":
+                return compute_accel_symmetric_blocked_cuda(pos, soft)
+            cap, tile = sym_default_dispatch(pos.shape[0])
+            return reference.compute_accel_symmetric_blocked(
+                pos, soft, block_cap=cap, tile_j=tile)
+        if self.backend == "cuda":
+            return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
+        return reference.compute_accel(pos, soft)
+
     def _step(self, dt: float) -> None:
         p = self.params
         cur, nxt = self._cur, 1 - self._cur
         pos, vel = self._pos[cur], self._vel[cur]
         out = (self._pos[nxt], self._vel[nxt])
-        if self.backend == "cuda":
+        if self.integrator == "leapfrog":
+            new_pos, new_vel = reference.nbody_step_leapfrog(
+                pos, vel, dt, p.softening, p.damping, accel_fn=self._accel)
+            out[0].copy_(new_pos)
+            out[1].copy_(new_vel)
+        elif self.variant == "vpu" and self.backend == "cuda":
             nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
                             block_size=self.block_size, out=out)
         else:
-            new_pos, new_vel = reference.nbody_step(pos, vel, dt, p.softening, p.damping)
-            out[0].copy_(new_pos)
-            out[1].copy_(new_vel)
+            reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         self._cur = nxt
 
     def update(self, dt: Optional[float] = None) -> None:
@@ -289,14 +323,12 @@ class BodySystem:
 
     def accelerations(self) -> torch.Tensor:
         """Acceleration (N,3) of the current state with this system's backend
-        (the CUDA force kernel or the plain version), on the device."""
+        and force variant (a CUDA force kernel or the plain version), on the
+        device."""
         pos = self._pos[self._cur]
         if self.placement == "host":
             pos.copy_(self._host_pos)
-        soft = self.params.softening
-        if self.backend == "cuda":
-            return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
-        return reference.compute_accel(pos, soft)
+        return self._accel(pos)
 
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""

@@ -4,8 +4,9 @@ plain C interface, loaded with ctypes.
 The library is built from ``nbody_tpu_torch/csrc/*.cu`` at the first CUDA
 launch, into ``build/nbody_tpu_torch/`` beside the package, under a name
 that carries a hash of the sources and the flags, so an edited source
-builds anew. The build writes a temporary file and renames it into place,
-as ``nbody_tpu/oracle/build.py`` does, so a process that has an older
+builds anew. Each source is compiled by its own nvcc, all started
+together, and the objects are linked into one library. The build writes a
+temporary file and renames it into place, so a process that has an older
 library mapped keeps a valid file.
 """
 
@@ -21,14 +22,14 @@ import subprocess
 
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
-SOURCES = (CSRC / "nbody_kernels.cu",)
+SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) that
 # later kernels use exist only for the 'a' target
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -62,8 +63,25 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libnbody_kernels_{_digest()}.so"
 
 
-def nvcc_command(nvcc: str, out: pathlib.Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: pathlib.Path) -> tuple[list[list[str]], list[str]]:
+    """(one compile command per source, the link command) that build `out`;
+    the objects go beside it."""
+    objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *(str(o) for o in objs)]
+    return compiles, link
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{text}")
 
 
 def build() -> pathlib.Path:
@@ -74,16 +92,16 @@ def build() -> pathlib.Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cmd = nvcc_command(nvcc, tmp)
+    compiles, link = nvcc_commands(nvcc, tmp)
+    objs = [pathlib.Path(c[c.index("-o") + 1]) for c in compiles]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+        _run_all(compiles)
+        _run_all([link])
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 
@@ -97,6 +115,11 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_step_f32.restype = ctypes.c_int
     lib.nbody_accel_f32.argtypes = [ptr, ptr, ptr, i64, i64, f32, i64, ptr]
     lib.nbody_accel_f32.restype = ctypes.c_int
+    lib.nbody_sym_accel_f32.argtypes = [ptr, i64, f32, i64, ptr, ptr, ptr]
+    lib.nbody_sym_accel_f32.restype = ctypes.c_int
+    lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
+                                        ptr, ptr, ptr]
+    lib.nbody_sym_cross_f32.restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,9 +1,14 @@
-"""Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``).
+"""Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
+``csrc/symmetric_kernels.cu``).
 
 Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` /
 ``compute_accel_pallas`` (``nbody_tpu/ops/pallas_kernel.py``), with the
 reference's ``block_size`` (threads per block, and j-bodies per shared-memory
-tile) in place of the Pallas ``tile_i`` / ``tile_j``.
+tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
+``compute_accel_symmetric`` / ``_sym_cross`` /
+``compute_accel_symmetric_blocked`` (``nbody_tpu/ops/symmetric_kernel.py``),
+with one square ``tile`` of 128, 256, 512 or 1024 bodies, and the measured
+``sym_default_dispatch``.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
@@ -26,7 +31,9 @@ from nbody_tpu_torch.ops import reference
 
 DEFAULT_BLOCK_SIZE = 256
 
-LAUNCHES = {"step": 0, "accel": 0}
+LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0}
+
+SYM_TILES = (128, 256, 512, 1024)
 
 
 def check_block_size(block_size: int) -> int:
@@ -151,3 +158,140 @@ def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLO
     _raise_on_error(lib, err, "nbody_accel_f32 launch")
     LAUNCHES["accel"] += 1
     return acc
+
+
+# ---- each pair once: csrc/symmetric_kernels.cu ----
+
+# The dispatch table of the blocked composition, measured on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit by scripts/torch_sym_dispatch.py (PERF.md,
+# Findings), force ms per call at N = 65536 / 135168 / 262144:
+#   tile 1024, one triangle        1.780 / 7.371 / 27.348
+#   tile 1024, cap 131072          1.780 / 7.456 / 27.564
+#   tile 1024, cap 65536           1.780 / 7.746 / 28.359
+#   tile 512,  one triangle        1.922 / 8.027 / 30.389
+#   tile 256 / 128, cap 65536      2.269 / 3.844 at 65536
+# The widest tile wins everywhere (ROWS = 8 i-bodies a thread amortise the
+# shuffles). One triangle is fastest, but its scratch grows as 12 N^2 / tile
+# bytes (13 GB at N = 2^20); cap 131072 costs at most 1.2 % at the measured
+# N and bounds each launch's scratch at 201 MB.
+DEFAULT_SYM_TILE = 1024
+SYM_BLOCK_CAP = 131072
+
+
+def sym_default_dispatch(n: int) -> tuple[int, int]:
+    """``(block_cap, tile)`` of the each-pair-once force at N bodies: the
+    fixed table above, the same at every N so far measured."""
+    del n
+    return SYM_BLOCK_CAP, DEFAULT_SYM_TILE
+
+
+def check_sym_tile(tile: int) -> int:
+    t = int(tile)
+    if t not in SYM_TILES:
+        raise ValueError(f"tile must be one of {SYM_TILES}; got {tile}")
+    return t
+
+
+def _check_out(name: str, t, shape: tuple, device, inputs) -> None:
+    """An output tensor: float32, this exact shape, contiguous, 16-byte
+    aligned, on `device`, and overlapping none of `inputs`."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+        raise TypeError(f"{name} must be a float32 torch.Tensor")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}; got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned (storage offset {t.storage_offset()})")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    for src in inputs:
+        if _overlaps(t, src):
+            raise ValueError(f"{name} overlaps an input")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sym_accel_cuda(pos, softening, *, tile: int = DEFAULT_SYM_TILE, out=None):
+    """(N,4) -> (N,3): the set's acceleration on itself, each pair once over
+    the triangle j > i (the kernel of ``_sym_kernel``). ``out`` is an
+    optional preallocated (N,3) tensor that must not overlap pos."""
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_state("pos", pos, device)
+    tile = check_sym_tile(tile)
+    n = pos.shape[0]
+    if out is None:
+        out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    _check_out("out", out, (n, 3), device, (pos,))
+    if device.type != "cuda":
+        out.copy_(reference.compute_accel_symmetric(pos, softening))
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch = torch.empty((_cdiv(n, tile), 3, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_sym_accel_f32(
+            pos.data_ptr(), n, ctypes.c_float(float(softening) ** 2), tile,
+            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_sym_accel_f32 launch")
+    LAUNCHES["sym"] += 1
+    return out
+
+
+def sym_cross_cuda(pos_i, pos_j, softening, *, tile: int = DEFAULT_SYM_TILE, out=None):
+    """The rectangle of the i-set (Bi,4) and the j-set (Bj,4), each pair once
+    and with no mask (the kernel of ``_sym_cross_kernel``): returns
+    (acc_i (Bi,4) with w = 0, react_j (3,Bj)), the JAX package's layout.
+    ``out=(acc_i, react_j)`` are preallocated tensors of those shapes."""
+    device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
+    _check_state("pos_i", pos_i, device)
+    _check_state("pos_j", pos_j, device)
+    tile = check_sym_tile(tile)
+    bi, bj = pos_i.shape[0], pos_j.shape[0]
+    if out is None:
+        out = (torch.empty((bi, 4), dtype=torch.float32, device=device),
+               torch.empty((3, bj), dtype=torch.float32, device=device))
+    acc_i, react_j = out
+    _check_out("out[0]", acc_i, (bi, 4), device, (pos_i, pos_j))
+    _check_out("out[1]", react_j, (3, bj), device, (pos_i, pos_j, acc_i))
+    if device.type != "cuda":
+        a, r = reference.sym_cross(pos_i, pos_j, softening)
+        acc_i.copy_(a)
+        react_j.copy_(r)
+        return acc_i, react_j
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch_i = torch.empty((_cdiv(bj, tile), 3, bi), dtype=torch.float32, device=device)
+    scratch_j = torch.empty((_cdiv(bi, tile), 3, bj), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_sym_cross_f32(
+            pos_i.data_ptr(), bi, pos_j.data_ptr(), bj,
+            ctypes.c_float(float(softening) ** 2), tile,
+            scratch_i.data_ptr(), scratch_j.data_ptr(), acc_i.data_ptr(),
+            react_j.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_sym_cross_f32 launch")
+    LAUNCHES["sym_cross"] += 1
+    return acc_i, react_j
+
+
+def compute_accel_symmetric_blocked_cuda(pos, softening, *, block_cap: int | None = None,
+                                         tile: int | None = None):
+    """(N,4) -> (N,3), each pair once at any N: one triangle launch for
+    N <= block_cap, else k triangle and k(k-1)/2 cross launches summed in a
+    fixed order (``reference.compose_symmetric_blocked``). Defaults from
+    ``sym_default_dispatch``."""
+    cap, t = sym_default_dispatch(pos.shape[0])
+    cap = cap if block_cap is None else int(block_cap)
+    t = check_sym_tile(t if tile is None else tile)
+    return reference.compose_symmetric_blocked(
+        pos, softening, block_cap=cap, tile_j=t,
+        triangle=lambda p, soft: sym_accel_cuda(p, soft, tile=t),
+        cross=lambda p_i, p_j, soft: sym_cross_cuda(p_i, p_j, soft, tile=t))

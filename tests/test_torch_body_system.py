@@ -1,18 +1,28 @@
-"""nbody_tpu_torch.models.BodySystem against nbody_tpu's BodySystem."""
+"""nbody_tpu_torch.models.BodySystem against nbody_tpu's BodySystem.
+
+The port keeps its own copies of the numpy modules, so each package gets
+its own NBodyParams and NBodyConfig; the two are compared by value."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from nbody_tpu import DEMO_PARAMS, NBodyConfig, ic
 from nbody_tpu.io import save_checkpoint
 from nbody_tpu.models import BodySystem as JaxBodySystem
-from nbody_tpu.params import tuned_scales
+from nbody_tpu.params import NBodyParams as JaxNBodyParams
 
+from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
 from nbody_tpu_torch.models import BodySystem, load_checkpoint, state_from_numpy
 from nbody_tpu_torch.ops import cuda_kernel
 
 N = 1024
+
+
+def _jax(params):
+    """The JAX package's NBodyParams of the same values."""
+    return JaxNBodyParams(**dataclasses.asdict(params))
 
 
 @pytest.fixture
@@ -37,7 +47,7 @@ def test_update_many_matches_jax_xla(params, state):
     pos, vel = state
     pos_t, vel_t = state_from_numpy(pos, vel, device="cpu")
     ours = BodySystem(N, params, device="cpu", state=(pos_t, vel_t))
-    ref = JaxBodySystem(N, params, backend="xla", state=(pos, vel))
+    ref = JaxBodySystem(N, _jax(params), backend="xla", state=(pos, vel))
     ours.update_many(5)
     ref.update_many(5)
     np.testing.assert_allclose(ours.positions, ref.positions, atol=1e-5)
@@ -116,12 +126,13 @@ def test_reset_matches_ic_generate(params):
 def test_load_checkpoint_written_by_jax_package(tmp_path, params, state):
     pos, vel = state
     path = tmp_path / "ckpt.npz"
-    save_checkpoint(path, pos, vel, params, step=17, config=NBodyConfig.SHELL)
+    save_checkpoint(path, pos, vel, _jax(params), step=17)
     p, v, loaded, meta = load_checkpoint(path, device="cpu")
     assert isinstance(p, torch.Tensor) and p.device.type == "cpu"
     np.testing.assert_array_equal(p.numpy(), pos)
     np.testing.assert_array_equal(v.numpy(), vel)
-    assert loaded == params and meta["step"] == 17
+    assert dataclasses.asdict(loaded) == dataclasses.asdict(params)
+    assert meta["step"] == 17
     with pytest.raises(ValueError, match="orbax"):
         load_checkpoint(tmp_path, device="cpu")
 
@@ -137,7 +148,7 @@ def test_update_params_takes_effect(params, state):
 
 def test_total_energy_matches_jax(params, state):
     s = BodySystem(N, params, device="cpu", state=state)
-    ref = JaxBodySystem(N, params, backend="xla", state=state)
+    ref = JaxBodySystem(N, _jax(params), backend="xla", state=state)
     np.testing.assert_allclose(s.total_energy(), ref.total_energy(), rtol=1e-5)
 
 
@@ -154,10 +165,8 @@ def test_cpu_backend_launches_no_kernel(params, state):
     ({"mesh": object()}, "#13"),
     ({"backend": "pm"}, "#10"),
     ({"backend": "p3m"}, "#10"),
-    ({"integrator": "leapfrog"}, "#6"),
     ({"integrator": "hermite"}, "#6"),
     ({"dtype": torch.float64}, "#5"),
-    ({"variant": "sym"}, "#3"),
     ({"variant": "mxu"}, "Queue 2 #3"),
     ({"variant": "mxu_bf16"}, "Queue 2 #3"),
 ])

@@ -57,30 +57,38 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--fp64"], ["--variant", "sym"], ["--devices", "2"],
-                                  ["--kernel", "xla"], ["--render"]])
+@pytest.mark.parametrize("flag", [["--fp64"], ["--devices", "2"], ["--kernel", "xla"],
+                                  ["--render"], ["--integrator", "hermite"],
+                                  ["--variant", "mxu"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])
     assert e.value.code == 2
 
 
-def test_port_imports_no_jax():
-    """A fresh interpreter imports the port and runs its CLI without JAX."""
+def test_port_imports_no_jax(tmp_path):
+    """A fresh interpreter imports the port and runs its CLI on the sym +
+    leapfrog path and on a tipsy file without JAX and without any module
+    of nbody_tpu: the port keeps its own copies."""
     code = (
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
-        "nbody_tpu_torch.models\n"
-        "from nbody_tpu_torch import Compute, BodySystem\n"
-        "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu'])\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "nbody_tpu_torch.models, nbody_tpu_torch.io, nbody_tpu_torch.oracle\n"
+        "from nbody_tpu_torch import Compute, BodySystem, NBodyConfig, ic\n"
+        "from nbody_tpu_torch.io import write_tipsy_file\n"
+        "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu', "
+        "'--variant', 'sym', '--integrator', 'leapfrog'])\n"
+        "write_tipsy_file(sys.argv[1], *ic.generate(NBodyConfig.SHELL, 100, 1.52, 2.0))\n"
+        "rc |= nbody_tpu_torch.cli.main(['--qatest', '--cpu', '--tipsy', sys.argv[1]])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'nbody_tpu') "
+        "or m.startswith(('jax.', 'jaxlib', 'nbody_tpu.')))\n"
         "assert not bad, bad\n"
         "sys.exit(rc)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "g.tipsy")],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -5,10 +5,10 @@ import types
 import pytest
 import torch
 
-from nbody_tpu import DEMO_PARAMS
 from nbody_tpu.compute import Compute as JaxCompute
 from nbody_tpu.params import gflops, interactions_per_second
 
+from nbody_tpu_torch import DEMO_PARAMS
 from nbody_tpu_torch import compute as compute_mod
 from nbody_tpu_torch.compute import Compute, default_num_bodies
 

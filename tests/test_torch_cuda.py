@@ -8,23 +8,26 @@ not installed, without the suite's conftest:
 
 Tolerances: only the order of the j-sum differs between kernel and plain
 version, so the acceleration is held to 1e-4 * max|a| + 1e-4
-(tests/test_pallas.py:76) and one demo-0 step to 1e-5 at these N.
+(tests/test_pallas.py:76) and one demo-0 step to 1e-5 at these N, or to
+that bound carried through the step where masses are random.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nbody_tpu import DEMO_PARAMS, NBodyConfig, ic
-from nbody_tpu.params import tuned_scales
-
+from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
 from nbody_tpu_torch.compute import Compute
 from nbody_tpu_torch.models import BodySystem
 from nbody_tpu_torch.ops import cuda_kernel, reference
 from nbody_tpu_torch.ops.cuda_kernel import (
+    SYM_TILES,
     compute_accel_cuda,
+    compute_accel_symmetric_blocked_cuda,
     nbody_step_cuda,
     nbody_step_cuda_vs,
+    sym_accel_cuda,
+    sym_cross_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -125,8 +128,8 @@ def test_body_system_kernel_matches_plain_backend(dev):
     n = 4096
     params = DEMO_PARAMS[0].replace(cluster_scale=tuned_scales(n)[0],
                                     velocity_scale=tuned_scales(n)[1])
-    k = BodySystem(n, params, device=dev)
-    t = BodySystem(n, params, device=dev, backend="torch")
+    k = BodySystem(n, params, device=dev, variant="vpu")
+    t = BodySystem(n, params, device=dev, backend="torch", variant="vpu")
     assert k.backend == "cuda" and t.backend == "torch"
     before = cuda_kernel.LAUNCHES["step"]
     k.update_many(3)
@@ -151,8 +154,123 @@ def test_host_placement_is_pinned_and_bit_exact(dev):
 
 
 def test_compute_qa_on_card(dev):
-    c = Compute(num_bodies=4096, device=dev, log=lambda s: None)
+    c = Compute(num_bodies=4096, device=dev, variant="vpu", log=lambda s: None)
     before = dict(cuda_kernel.LAUNCHES)
     assert c.compare_results()
     assert cuda_kernel.LAUNCHES["step"] > before["step"]
     assert cuda_kernel.LAUNCHES["accel"] > before["accel"]
+
+
+def _tol(ref):
+    return 1e-4 * ref.abs().max().item() + 1e-4
+
+
+def _random_w(p, v, seed=7):
+    rng = np.random.default_rng(seed)
+    n = p.shape[0]
+    p[:, 3] = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=p.device)
+    v[:, 3] = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=p.device)
+    return p, v
+
+
+@pytest.mark.parametrize("n", [1, 33, 333, 1000, 4099])
+@pytest.mark.parametrize("tile", [128, 1024])
+def test_sym_triangle_matches_plain(dev, n, tile):
+    p, v = _random_w(*_state(n, dev))
+    before = dict(cuda_kernel.LAUNCHES)
+    a_k = sym_accel_cuda(p, SOFT, tile=tile)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["sym"] == before["sym"] + 1
+    a_r = reference.compute_accel_symmetric(p, SOFT)
+    assert (a_k - a_r).abs().max().item() <= _tol(a_r)
+    # no atomics: a second call gives the same bits
+    assert torch.equal(a_k, sym_accel_cuda(p, SOFT, tile=tile))
+
+
+@pytest.mark.parametrize("bi, bj", [(1, 33), (33, 1), (333, 1000), (1000, 333), (4099, 4099)])
+def test_sym_cross_matches_plain(dev, bi, bj):
+    pi, _ = _random_w(*_state(bi, dev, seed=3))
+    pj, _ = _random_w(*_state(bj, dev))
+    before = cuda_kernel.LAUNCHES["sym_cross"]
+    a_k, r_k = sym_cross_cuda(pi, pj, SOFT)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["sym_cross"] == before + 1
+    a_r, r_r = reference.sym_cross(pi, pj, SOFT)
+    assert a_k.shape == (bi, 4) and r_k.shape == (3, bj)
+    assert (a_k - a_r).abs().max().item() <= _tol(a_r)
+    assert (r_k - r_r).abs().max().item() <= _tol(r_r)
+    assert not a_k[:, 3].any()
+    a2, r2 = sym_cross_cuda(pi, pj, SOFT)
+    assert torch.equal(a_k, a2) and torch.equal(r_k, r2)
+
+
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_sym_step_random_masses_and_damping(dev, n):
+    """The blocked composition (two triangles and a rectangle: a cap of
+    half of N rounded up to the tile), masses from [0.5, 2], a random vel.w
+    and damping 0.5, through a step."""
+    p, v = _random_w(*_state(n, dev))
+    cap = -(-n // 512) * 256
+    before = dict(cuda_kernel.LAUNCHES)
+    a_k = compute_accel_symmetric_blocked_cuda(p, SOFT, block_cap=cap, tile=256)
+    assert cuda_kernel.LAUNCHES["sym"] == before["sym"] + 2
+    assert cuda_kernel.LAUNCHES["sym_cross"] == before["sym_cross"] + 1
+    a_r = reference.compute_accel_symmetric_blocked(p, SOFT, block_cap=cap, tile_j=256)
+    tol_a = _tol(a_r)
+    assert (a_k - a_r).abs().max().item() <= tol_a
+    out = (torch.empty_like(p), torch.empty_like(v))
+    reference.integrate_into(p, v, a_k, DT, 0.5, out)
+    p_r, v_r = reference.integrate(p, v, a_r, DT, 0.5)
+    assert (out[1] - v_r).abs().max().item() <= 1e-5 + DT * tol_a
+    assert (out[0] - p_r).abs().max().item() <= 1e-5 + DT * DT * tol_a
+    assert torch.equal(out[0][:, 3], p[:, 3]) and torch.equal(out[1][:, 3], v[:, 3])
+
+
+def test_sym_bad_out_refused_before_launch(dev):
+    p, _ = _state(256, dev)
+    before = dict(cuda_kernel.LAUNCHES)
+    misaligned = torch.empty(256 * 3 + 1, device=dev)[1:].view(256, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        sym_accel_cuda(p, SOFT, out=misaligned)
+    with pytest.raises(ValueError, match="overlaps"):
+        sym_accel_cuda(p, SOFT, out=p.view(-1)[:768].view(256, 3))
+    buf = torch.empty(1000, device=dev)
+    with pytest.raises(ValueError, match="overlaps"):
+        sym_cross_cuda(p[:100], p[100:], SOFT,
+                       out=(buf[:400].view(100, 4), buf[:468].view(3, 156)))
+    assert cuda_kernel.LAUNCHES == before
+    assert torch.isfinite(sym_accel_cuda(p, SOFT)).all()
+
+
+def test_sym_every_tile_gives_one_force(dev):
+    p, _ = _state(3000, dev)
+    forces = [sym_accel_cuda(p, SOFT, tile=t) for t in SYM_TILES]
+    a_r = reference.compute_accel(p, SOFT)
+    for a in forces:
+        assert (a - a_r).abs().max().item() <= _tol(a_r)
+
+
+def test_body_system_auto_is_sym_on_the_card(dev):
+    n = 4096
+    params = DEMO_PARAMS[0].replace(cluster_scale=tuned_scales(n)[0],
+                                    velocity_scale=tuned_scales(n)[1])
+    s = BodySystem(n, params, device=dev)
+    assert s.variant == "sym" and s.backend == "cuda"
+    t = BodySystem(n, params, device=dev, backend="torch", variant="sym")
+    before = dict(cuda_kernel.LAUNCHES)
+    s.update_many(3)
+    t.update_many(3)
+    assert cuda_kernel.LAUNCHES["sym"] == before["sym"] + 3
+    assert cuda_kernel.LAUNCHES["step"] == before["step"]
+    np.testing.assert_allclose(s.positions, t.positions, atol=3e-5)
+    np.testing.assert_allclose(s.velocities, t.velocities, atol=3e-5)
+
+
+@pytest.mark.parametrize("variant", ["vpu", "sym"])
+def test_compute_leapfrog_qa_on_card(dev, variant):
+    c = Compute(num_bodies=4096, device=dev, variant=variant, integrator="leapfrog",
+                log=lambda s: None)
+    before = dict(cuda_kernel.LAUNCHES)
+    assert c.compare_results()
+    kernel = "sym" if variant == "sym" else "accel"
+    assert cuda_kernel.LAUNCHES[kernel] > before[kernel]

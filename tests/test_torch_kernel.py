@@ -129,12 +129,17 @@ def test_bad_arguments_raise_value_error(random_state_tiny, bad):
 
 
 def test_nvcc_command_targets_sm90a():
-    cmd = _build.nvcc_command("nvcc", _build.library_path())
-    line = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in line
-    assert "-O3" in cmd and "--use_fast_math" not in cmd
-    assert all(str(s) in cmd for s in _build.SOURCES)
-    assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu"]
+    compiles, link = _build.nvcc_commands("nvcc", _build.library_path())
+    # one nvcc per source, started together, then one link
+    assert len(compiles) == len(_build.SOURCES)
+    for cmd, src in zip(compiles, _build.SOURCES):
+        line = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in line and "-c" in cmd
+        assert "-O3" in cmd and "--use_fast_math" not in cmd
+        assert str(src) in cmd
+    assert "-shared" in link and str(_build.library_path()) in link
+    assert all(cmd[cmd.index("-o") + 1] in link for cmd in compiles)
+    assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu"]
 
 
 def test_build_dir_is_under_build():
