@@ -20,6 +20,11 @@ its result:
      at N=135168 (the main path's shapes), the rectangle at (777, 4099) and
      (cap, cap), random masses, vel.w and damping 0.5 through a step at
      N in {4099, 65536}; run-to-run bit equality; momentum; their times;
+  3h. the accel + jerk kernels (one-sided, each-pair-once triangle and
+     rectangle) and the potential kernel against their plain versions, at
+     the cases of 3 and 3s, random masses, vel.w and damping 0.5 through a
+     Hermite step of each variant at N in {4099, 65536}; bit equality;
+     momentum and its derivative; their times;
   4. QA, the reference's rule, through Compute.compare_results at N=16384;
   5. the main path at full size: Compute.run_benchmark at N=65536, beside
      the plain version's time per step;
@@ -28,14 +33,22 @@ its result:
      at N=65536, and steps at N=135168, above the composition's cap;
   5t. sym against one-sided steps through Compute at N=65536 and 135168,
      in turns;
-  6. placement="host" against placement="device", bit for bit;
-  7. the CLI in subprocesses: --qatest, --benchmark, and --variant sym
-     with --integrator leapfrog --qatest and with --benchmark.
-Phases 4-5 are the one-sided main path's run and 5s the sym path's: the
-kernels' launch counters are set to 0 before each and read after it, and
-each kernel of that path must have launched. Any failure raises, and the
-script exits nonzero. The last lines are the card, one JSON object listing
-every kernel, and the result line.
+  5h. the Hermite path: QA at N=16384 with sym and with vpu (position,
+     acceleration and jerk against the oracle), run_benchmark(10) at
+     N=65536 for vpu, sym, sym, vpu in turns and for auto, 3 steps at
+     N=135168 for each variant, drift_check(5) at N=16384, and
+     total_energy() (the potential kernel) at N=65536 beside
+     total_energy(precise=True);
+  6. placement="host" against placement="device", bit for bit, with Euler
+     and with Hermite;
+  7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
+     --integrator leapfrog --qatest and with --benchmark, and --integrator
+     hermite with --qatest and with --drift-check 3.
+Phases 4-5 are the one-sided main path's run, 5s the sym path's and 5h
+the Hermite path's: the kernels' launch counters are set to 0 before each
+and read after it, and each kernel of that path must have launched. Any
+failure raises, and the script exits nonzero. The last lines are the card,
+one JSON object listing every kernel, and the result line.
 """
 
 from __future__ import annotations
@@ -61,13 +74,24 @@ PEAK_BYTES_PER_S = 3.35e12
 SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "accel": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "sym": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
-           "sym_cross": "nbody_tpu_torch/csrc/symmetric_kernels.cu"}
+           "sym_cross": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
+           "accel_jerk": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "potential": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "aj_sym": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu",
+           "aj_sym_cross": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "accel": "nbody_tpu/ops/pallas_kernel.py:272",
             "sym": "nbody_tpu/ops/symmetric_kernel.py:107",
-            "sym_cross": "nbody_tpu/ops/symmetric_kernel.py:334"}
+            "sym_cross": "nbody_tpu/ops/symmetric_kernel.py:334",
+            "accel_jerk": "nbody_tpu/ops/pallas_kernel.py:589",
+            "potential": "nbody_tpu/ops/pallas_kernel.py:707",
+            "aj_sym": "nbody_tpu/ops/symmetric_kernel.py:789",
+            "aj_sym_cross": "nbody_tpu/ops/symmetric_kernel.py:577"}
 NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
-         "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32"}
+         "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
+         "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
+         "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32"}
+HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 
 
 def check(ok: bool, what: str) -> None:
@@ -348,6 +372,146 @@ def phase_sym_kernels(torch) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
+def phase_aj_kernels(torch) -> dict:
+    """The accel + jerk kernels and the potential kernel against their plain
+    versions. Only the order of the sums differs, so each output (the
+    acceleration, the jerk, a reaction, the potential's per-row sums) is
+    held to 1e-4 * max + 1e-4 of its own, the bound of phase 3; a Hermite
+    step carries the bounds into the velocity as dt * da + dt^2 * dj and
+    into the position as dt^2 * da + dt^3 * dj, plus 1e-5."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import energy, reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
+    cap, tile = ck.aj_sym_default_dispatch(N_MAIN)
+    err = {k: 0.0 for k in HERMITE_KERNELS}
+    labels = ("acc", "jerk", "react acc", "react jerk")
+
+    def held(name, got, want, what, names=labels):
+        tols = []
+        for label, g, w in zip(names, got, want):
+            tol = 1e-4 * w.abs().max().item() + 1e-4
+            e = (g - w).abs().max().item()
+            print(f"[3h aj] {what} {label}: max|d|={e:.3e} (tol {tol:.3e})")
+            check(bool(torch.isfinite(g).all()), f"non-finite {label} at {what}")
+            check(e <= tol, f"{name} kernel disagrees ({label}) at {what}")
+            err[name] = max(err[name], e)
+            tols.append(tol)
+        return tols
+
+    cases = [(n, n, bs) for n in (1000, 4099, N_MAIN) for bs in (128, 256)]
+    cases.append((777, 4099, 256))  # i-vs-j, M != N
+    for m, n, bs in cases:
+        pj, vj = shell_state(torch, n)
+        pi, vi = pj[:m].contiguous(), vj[:m].contiguous()
+        held("accel_jerk", ck.compute_accel_jerk_cuda(pi, vi, pj, vj, soft, block_size=bs),
+             reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft), f"one-sided M={m} N={n} block={bs}")
+    for n in (1000, 4099, N_MAIN):
+        p, _ = shell_state(torch, n)
+        held("potential", (ck.potential_energy_per_row_cuda(p, soft),),
+             (energy.potential_energy_per_row(p, soft),), f"potential N={n}", ("per-row sums",))
+    for n in (1000, 4099):
+        p, v = shell_state(torch, n)
+        held("aj_sym", ck.aj_sym_cuda(p, v, soft, tile=tile),
+             reference.compute_accel_jerk_symmetric(p, v, soft), f"triangle N={n} tile={tile}")
+    # the blocked composition: N=65536 cut into two blocks, and the default
+    # dispatch at N=135168
+    for n, c in ((N_MAIN, N_MAIN // 2), (N_BIG, cap)):
+        p, v = shell_state(torch, n)
+        held("aj_sym_cross",
+             ck.compute_accel_jerk_symmetric_blocked_cuda(p, v, soft, block_cap=c, tile=tile),
+             reference.compute_accel_jerk_symmetric_blocked(p, v, soft, block_cap=c, tile_j=tile),
+             f"blocked N={n} cap={c} tile={tile}")
+    for bi, bj in ((777, 4099), (cap, cap)):
+        pi, vi = shell_state(torch, bi, seed=3)
+        pj, vj = shell_state(torch, bj)
+        held("aj_sym_cross", ck.aj_sym_cross_cuda(pi, vi, pj, vj, soft, tile=tile),
+             reference.aj_sym_cross(pi, vi, pj, vj, soft), f"rectangle ({bi},{bj})")
+    # random masses, vel.w and damping 0.5 through one Hermite step of each
+    # variant (the sym one at the default dispatch), against the plain step
+    for n in (4099, N_MAIN):
+        p, v = shell_state(torch, n, random_w=True)
+        for variant, kernel, plain, name in (
+                ("vpu", lambda a, b: ck.compute_accel_jerk_cuda(a, b, a, b, soft),
+                 lambda a, b: reference.compute_accel_jerk(a, b, soft), "accel_jerk"),
+                ("sym", lambda a, b: ck.compute_accel_jerk_symmetric_blocked_cuda(a, b, soft),
+                 lambda a, b: reference.compute_accel_jerk_symmetric_blocked(
+                     a, b, soft, block_cap=cap, tile_j=tile), "aj_sym")):
+            tol_a, tol_j = held(name, kernel(p, v), plain(p, v), f"{variant} N={n} random masses")
+            p_k, v_k = reference.nbody_step_hermite(p, v, dt, soft, 0.5, accel_jerk_fn=kernel)
+            p_r, v_r = reference.nbody_step_hermite(p, v, dt, soft, 0.5, accel_jerk_fn=plain)
+            e_p = (p_k - p_r).abs().max().item()
+            e_v = (v_k - v_r).abs().max().item()
+            tol_v = 1e-5 + dt * tol_a + dt * dt * tol_j
+            tol_p = 1e-5 + dt * dt * tol_a + dt ** 3 * tol_j
+            w_kept = bool(torch.equal(p_k[:, 3], p[:, 3]) and torch.equal(v_k[:, 3], v[:, 3]))
+            print(f"[3h aj] Hermite step {variant} N={n} damping 0.5: max|dpos|={e_p:.3e} "
+                  f"(tol {tol_p:.3e}) max|dvel|={e_v:.3e} (tol {tol_v:.3e}); "
+                  f"w-lanes kept: {w_kept}")
+            check(e_p <= tol_p and e_v <= tol_v, f"Hermite step ({variant}) disagrees at N={n}")
+            check(w_kept, f"Hermite step ({variant}) changed pos.w or vel.w at N={n}")
+            if variant == "sym":
+                # each pair once: sum m a and sum m j vanish to the rounding
+                # of N-term sums, the bound of phase 3s
+                a_k, j_k = kernel(p, v)
+                mbound = 1e-6 * math.sqrt(n / 384)
+                for label, f in (("m a", a_k), ("m j", j_k)):
+                    mf = p[:, 3:4].double() * f.double()
+                    net = mf.sum(0).abs().max().item() / mf.abs().sum().item()
+                    print(f"[3h aj] N={n}: |sum {label}| / sum |{label}| = {net:.3e} "
+                          f"(bound {mbound:.3e})")
+                    check(net <= mbound, f"sym {label} not conserved at N={n}")
+    # run-to-run: no atomics, so the same bits every call
+    for n in (N_MAIN, N_BIG):
+        p, v = shell_state(torch, n)
+        a1 = ck.compute_accel_jerk_symmetric_blocked_cuda(p, v, soft)
+        a2 = ck.compute_accel_jerk_symmetric_blocked_cuda(p, v, soft)
+        same = all(torch.equal(x, y) for x, y in zip(a1, a2))
+        print(f"[3h aj] N={n}: repeat call bit-equal: {same}")
+        check(same, f"the sym accel + jerk differs between two calls at N={n}")
+
+    # times at the main path's shapes: N=65536 (the triangle: one block
+    # under the cap) and the rectangle of two blocks of N=135168
+    _, blk = reference.sym_blocking(N_BIG, tile, cap)
+    p, v = shell_state(torch, N_MAIN)
+    pb, vb = shell_state(torch, N_BIG)
+    pi, vi, pj, vj = pb[:blk], vb[:blk], pb[blk:2 * blk], vb[blk:2 * blk]
+    bi, bj = pi.shape[0], pj.shape[0]
+    runs = {
+        "accel_jerk": (lambda: ck.compute_accel_jerk_cuda(p, v, p, v, soft),
+                       lambda: reference.compute_accel_jerk(p, v, soft)),
+        "aj_sym": (lambda: ck.aj_sym_cuda(p, v, soft, tile=tile),
+                   lambda: reference.compute_accel_jerk_symmetric(p, v, soft)),
+        "aj_sym_cross": (lambda: ck.aj_sym_cross_cuda(pi, vi, pj, vj, soft, tile=tile),
+                         lambda: reference.aj_sym_cross(pi, vi, pj, vj, soft)),
+        "potential": (lambda: ck.potential_energy_per_row_cuda(p, soft),
+                      lambda: energy.potential_energy_per_row(p, soft)),
+    }
+    # flops a pair by the JAX package's counts (48 one-sided, 60 for both
+    # sides of a pair, 12 for the potential); each input read once (pos and
+    # vel, 32 bytes a body), each output written once
+    n = N_MAIN
+    bounds = {"accel_jerk": bound_ms(48.0 * n * n, n * 32 + n * 24),
+              "aj_sym": bound_ms(60.0 * n * (n - 1) / 2, n * 32 + n * 24),
+              "aj_sym_cross": bound_ms(60.0 * bi * bj, (bi + bj) * 32 + bi * 32 + bj * 24),
+              "potential": bound_ms(12.0 * n * (n - 1), n * 16 + n * 4)}
+    reps, plain_reps = 10, 2
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        kernel()
+        plain()
+        t_k = elapsed_ms(lambda: [kernel() for _ in range(reps)], dev) / reps
+        t_p = elapsed_ms(lambda: [plain() for _ in range(plain_reps)], dev) / plain_reps
+        times[name] = (t_k, t_p)
+        shape = f"({bi},{bj})" if name == "aj_sym_cross" else f"N={n}"
+        print(f"[3h aj] {name} at {shape}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
+              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    return {"err": err, "times": times, "bounds": bounds}
+
+
 def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -358,11 +522,12 @@ def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     check(passed, f"QA compare against the CPU oracle failed ({variant}, {integrator})")
 
 
-def phase_main(torch, smi: str, variant: str, n: int, steps: int, tag: str) -> float:
+def phase_main(torch, smi: str, variant: str, n: int, steps: int, tag: str,
+               integrator: str = "euler") -> float:
     """run_benchmark through Compute; returns ms per step."""
     from nbody_tpu_torch.compute import Compute
 
-    compute = Compute(num_bodies=n, device="cuda", variant=variant,
+    compute = Compute(num_bodies=n, device="cuda", variant=variant, integrator=integrator,
                       log=lambda s: print(f"[{tag}] {s}"))
     res = compute.run_benchmark(steps)
     check(compute.system.backend == "cuda", "the main path did not select the CUDA backend")
@@ -371,7 +536,7 @@ def phase_main(torch, smi: str, variant: str, n: int, steps: int, tag: str) -> f
     check(bool(torch.isfinite(pos).all() and torch.isfinite(vel).all()),
           "non-finite state after the benchmark")
     ms = res["milliseconds"] / res["iterations"]
-    print(f"[{tag}] {variant} N={n}: {ms:.3f} ms per step, "
+    print(f"[{tag}] {variant} ({compute.system.variant}) {integrator} N={n}: {ms:.3f} ms per step, "
           f"{res['interactions_per_second_e9']:.3f} G interactions/s, "
           f"{res['gflops']:.3f} GFLOP/s at 20 flops per interaction [{smi}]")
     return ms
@@ -398,26 +563,64 @@ def phase_step_times(torch, smi: str) -> None:
               f"{min(ms['sym']):.3f} ms per step (best of two, in turns) [{smi}]")
 
 
+def phase_hermite_extras(torch, smi: str) -> None:
+    """drift_check(5) at N=16384 with the --drift-check gate, and the
+    potential kernel's total_energy() at N=65536 beside the float64
+    functional (the JAX suite's 1e-4 for float32 against float64,
+    tests/test_energy.py:175)."""
+    from nbody_tpu_torch.cli import drift_failed
+    from nbody_tpu_torch.compute import Compute
+
+    c = Compute(num_bodies=N_QA, device="cuda", integrator="hermite",
+                log=lambda s: print(f"[5h drift] {s}"))
+    t0 = time.perf_counter()
+    drift = c.drift_check(5)
+    print(f"[5h drift] N={N_QA} {c.system.variant}: delta {drift['delta']:.3e} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not drift_failed(drift), f"drift check failed: {drift}")
+    system = Compute(num_bodies=N_MAIN, device="cuda", integrator="hermite",
+                     log=lambda s: None).system
+    system.update_many(3)
+    t0 = time.perf_counter()
+    fast = system.total_energy()
+    t_fast = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    precise = system.total_energy(precise=True)
+    t_precise = time.perf_counter() - t0
+    rel = abs(fast - precise) / abs(precise)
+    print(f"[5h energy] N={N_MAIN} after 3 Hermite steps: total_energy() {fast:.9e} "
+          f"({t_fast * 1e3:.1f} ms), precise {precise:.9e} ({t_precise:.1f} s on the host), "
+          f"relative difference {rel:.3e} (bound 1e-4) [{smi}]")
+    check(math.isfinite(fast) and rel < 1e-4, "total_energy() disagrees with the precise one")
+
+
 def phase_host(torch) -> None:
     from nbody_tpu_torch import DEMO_PARAMS, tuned_scales
     from nbody_tpu_torch.models import BodySystem
 
     cs, vs = tuned_scales(N_QA)
     params = DEMO_PARAMS[0].replace(cluster_scale=cs, velocity_scale=vs)
-    dev = BodySystem(N_QA, params, device="cuda", placement="device", seed=42)
-    host = BodySystem(N_QA, params, device="cuda", placement="host", seed=42)
-    check(host.state[0].is_pinned(), "placement='host' state is not in pinned memory")
-    dev.update_many(5)
-    host.update_many(5)
-    dev.synchronize()
-    same = bool((dev.positions == host.positions).all() and
-                (dev.velocities == host.velocities).all())
-    print(f"[6 host] 5 steps at N={N_QA}, variant {dev.variant}: host placement equals "
-          f"device placement bit for bit: {same}")
-    check(same, "placement='host' differs from placement='device'")
+    for integrator in ("euler", "hermite"):
+        dev = BodySystem(N_QA, params, device="cuda", placement="device", seed=42,
+                         integrator=integrator)
+        host = BodySystem(N_QA, params, device="cuda", placement="host", seed=42,
+                          integrator=integrator)
+        check(host.state[0].is_pinned(), "placement='host' state is not in pinned memory")
+        dev.update_many(5)
+        host.update_many(5)
+        dev.synchronize()
+        same = bool((dev.positions == host.positions).all() and
+                    (dev.velocities == host.velocities).all())
+        print(f"[6 host] 5 {integrator} steps at N={N_QA}, variant {dev.variant}: host "
+              f"placement equals device placement bit for bit: {same}")
+        check(same, f"placement='host' differs from placement='device' ({integrator})")
 
 
 def phase_cli() -> None:
+    """The CLI lines, each in its own process, all started together: a
+    process spends most of its time starting up, and the lines check exit
+    codes and output, not speed (the rates the --benchmark lines print are
+    taken while the runs share the card)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
     rate = "billion interactions per second"
@@ -425,17 +628,35 @@ def phase_cli() -> None:
             (["--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate),
             (["--variant", "sym", "--integrator", "leapfrog", "--qatest",
               "--numbodies", "4096"], "-> OK"),
-            (["--variant", "sym", "--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate))
-    for args, expect in runs:
-        cmd = [sys.executable, "-m", "nbody_tpu_torch.cli", *args]
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        for line in proc.stdout.strip().splitlines():
+            (["--variant", "sym", "--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate),
+            (["--integrator", "hermite", "--qatest", "--numbodies", "4096"], "-> OK"),
+            (["--integrator", "hermite", "--drift-check", "3", "--numbodies", "4096"],
+             "energy drift over 3 steps"))
+    procs = [subprocess.Popen([sys.executable, "-m", "nbody_tpu_torch.cli", *args], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for args, _ in runs]
+    try:
+        outs = [proc.communicate(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (args, expect), proc, (out, err) in zip(runs, procs, outs):
+        for line in out.strip().splitlines():
             print(f"[7 cli] {line}")
-        if proc.returncode != 0 or expect not in proc.stdout:
-            print(proc.stderr, file=sys.stderr)
+        if proc.returncode != 0 or expect not in out:
+            print(err, file=sys.stderr)
         check(proc.returncode == 0, f"{' '.join(args)} exited {proc.returncode}")
-        check(expect in proc.stdout, f"{' '.join(args)} printed no {expect!r}")
+        check(expect in out, f"{' '.join(args)} printed no {expect!r}")
+
+
+def timed(label: str, fn, *args):
+    """fn(*args), printing the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def run_path(ck, kernels, drive) -> dict:
@@ -468,9 +689,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
-    kern = phase_kernels(torch)
-    sym_kern = phase_sym_kernels(torch)
+    timed("2 build", phase_build)
+    kern = timed("3 kernels", phase_kernels, torch)
+    sym_kern = timed("3s sym kernels", phase_sym_kernels, torch)
+    aj_kern = timed("3h accel+jerk and potential kernels", phase_aj_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -482,21 +704,38 @@ def main() -> int:
         phase_main(torch, smi, "sym", N_MAIN, 10, "5s main")
         phase_main(torch, smi, "sym", N_BIG, 3, "5s main")
 
-    launches = run_path(ck, ("step", "accel"), one_sided_path)
-    sym_launches = run_path(ck, ("sym", "sym_cross"), sym_path)
+    def hermite_path():
+        timed("5h QA", lambda: [phase_qa(torch, ck, v, "hermite", "5h QA") for v in ("sym", "vpu")])
+        ms = {"vpu": [], "sym": []}
+        for variant in ("vpu", "sym", "sym", "vpu"):
+            ms[variant].append(phase_main(torch, smi, variant, N_MAIN, 10, "5h main", "hermite"))
+        auto = phase_main(torch, smi, "auto", N_MAIN, 10, "5h main", "hermite")
+        print(f"[5h main] Hermite at N={N_MAIN}: one-sided {min(ms['vpu']):.3f} ms, sym "
+              f"{min(ms['sym']):.3f} ms per step (best of two, in turns), auto {auto:.3f} ms "
+              f"[{smi}]")
+        for variant in ("vpu", "sym", "auto"):
+            phase_main(torch, smi, variant, N_BIG, 3, "5h main", "hermite")
+        timed("5h drift and energy", phase_hermite_extras, torch, smi)
+
+    launches = timed("4-5 one-sided path", run_path, ck, ("step", "accel"), one_sided_path)
+    sym_launches = timed("5s sym path", run_path, ck, ("sym", "sym_cross"), sym_path)
+    hermite_launches = timed("5h Hermite path", run_path, ck, HERMITE_KERNELS, hermite_path)
     for k in ("sym", "sym_cross"):
         launches[k] = sym_launches[k]
-    phase_plain_main(smi)
-    phase_step_times(torch, smi)
+    for k in HERMITE_KERNELS:
+        launches[k] = hermite_launches[k]
+    timed("5 plain", phase_plain_main, smi)
+    timed("5t step times", phase_step_times, torch, smi)
 
-    phase_host(torch)
-    phase_cli()
+    timed("6 host", phase_host, torch)
+    timed("7 cli", phase_cli)
     bad = sorted(m for m in sys.modules if m in ("jax", "nbody_tpu")
                  or m.startswith(("jax.", "nbody_tpu.")))
     check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    found = {key: {**kern[key], **sym_kern[key]} for key in ("err", "times", "bounds")}
+    found = {key: {**kern[key], **sym_kern[key], **aj_kern[key]}
+             for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],
         "route": "cuda",
@@ -508,9 +747,10 @@ def main() -> int:
         "plain_ms": found["times"][k][1],
         "bound_ms": found["bounds"][k][0],
         "bound_by": found["bounds"][k][1],
-        # no single PyTorch call computes softened all-pairs gravity
+        # no single PyTorch call computes softened all-pairs gravity, its
+        # jerk or its potential
         "library_ms": None,
-    } for k in ("step", "accel", "sym", "sym_cross")]
+    } for k in NAMES]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

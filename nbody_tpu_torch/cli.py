@@ -1,15 +1,19 @@
 """Command-line interface of the port: ``nbody-torch`` or
 ``python -m nbody_tpu_torch.cli``.
 
-The reference's flags that the port's first slice runs
+The reference's flags that the port's slices run so far
 (nbody.cpp:275-285): --benchmark, --compare / --qatest, --numbodies,
--i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus --seed,
---variant {auto,vpu,sym} and --integrator {euler,leapfrog}. Other nbody_tpu
-flags are not accepted until their slice lands (ROADMAP.md).
+-i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus nbody_tpu's
+--seed, --variant {auto,vpu,sym}, --integrator {euler,leapfrog,hermite} and
+--drift-check. Other nbody_tpu flags are not accepted until their slice
+lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
 * --compare / --qatest   one-step QA against the CPU oracle; exit code = !passed
+* --drift-check STEPS    energy drift over STEPS steps on the device and on the
+                         CPU oracle; exit code 1 when they differ by more than
+                         max(5e-4, 0.05 |oracle drift|) (nbody_tpu/cli.py:838-841)
 
 The run is on the CUDA card; --cpu selects the plain PyTorch path on the
 host, and nothing else does: without --cpu and without a card the run fails.
@@ -49,10 +53,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force kernel: vpu = the one-sided all-pairs kernel, "
                         "sym = each pair once (Newton's third law); auto = "
                         "the one measured faster on the card, vpu with --cpu")
-    p.add_argument("--integrator", choices=["euler", "leapfrog"], default="euler",
-                   help="damped semi-implicit Euler (the reference's) or "
-                        "drift-kick-drift leapfrog")
+    p.add_argument("--integrator", choices=["euler", "leapfrog", "hermite"], default="euler",
+                   help="damped semi-implicit Euler (the reference's), "
+                        "drift-kick-drift leapfrog, or the 4th-order Hermite "
+                        "predictor-corrector (two accel+jerk evaluations a step)")
+    p.add_argument("--drift-check", type=int, default=None, metavar="STEPS",
+                   help="run STEPS steps on the device and on the CPU oracle "
+                        "from the same state and compare their energy drifts; "
+                        "exit code 1 when they differ beyond the gate")
     return p
+
+
+def drift_failed(drift: dict) -> bool:
+    """The gate of --drift-check (nbody_tpu/cli.py:838-841): the device's
+    drift may differ from the oracle's by max(5e-4, 5 % of the oracle's)."""
+    scale = max(abs(drift["drift_oracle"]), 1e-12)
+    return drift["delta"] > max(5e-4, 0.05 * scale)
 
 
 def main(argv=None) -> int:
@@ -71,9 +87,11 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not (args.benchmark or args.compare or args.qatest):
-        raise ValueError("choose --benchmark or --compare/--qatest (the demo "
-                         "loop comes with ROADMAP.md Queue 1 #9)")
+    if not (args.benchmark or args.compare or args.qatest or args.drift_check is not None):
+        raise ValueError("choose --benchmark, --compare/--qatest or --drift-check "
+                         "(the demo loop comes with ROADMAP.md Queue 1 #9)")
+    if args.drift_check is not None and args.drift_check < 1:
+        raise ValueError(f"--drift-check needs at least 1 step; got {args.drift_check}")
 
     import numpy as np
     import torch
@@ -106,6 +124,11 @@ def _main(argv=None) -> int:
           + (", host memory" if args.hostmem else "") + ", fp32]"
           + f" force {system.variant}, integrator {system.integrator}")
 
+    if args.drift_check is not None:
+        if drift_failed(compute.drift_check(args.drift_check)):
+            print("drift check FAILED", file=sys.stderr)
+            return 1
+        return 0
     if args.benchmark:
         compute.run_benchmark(args.iterations)
         return 0

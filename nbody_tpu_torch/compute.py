@@ -4,8 +4,8 @@ Counterpart of ``nbody_tpu/compute.py`` (the reference's ``Compute``): owns a
 BodySystem, the 7-demo preset state machine with its 10 s auto-cycle, the
 N-bucketed scale tuning, the benchmark (one untimed warm-up step, then CUDA
 events around the timed steps, and the reference's result formulas and
-printout), and the QA compare against the CPU oracle (one dt=0.001 step,
-|dpos| <= 5e-4).
+printout), the QA compare against the CPU oracle (one dt=0.001 step,
+|dpos| <= 5e-4) and the energy-drift check against the oracle.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from nbody_tpu_torch.config import NBodyConfig
 from nbody_tpu_torch.oracle import accel_numpy, native_available, step_best
+from nbody_tpu_torch.oracle.numpy_oracle import accel_jerk_numpy
 from nbody_tpu_torch.params import (
     DEMO_PARAMS,
     DEMO_TIME_S,
@@ -29,6 +30,7 @@ from nbody_tpu_torch.params import (
 from nbody_tpu_torch.models import BodySystem
 from nbody_tpu_torch.models.body_system import resolve_device
 from nbody_tpu_torch.ops.cuda_kernel import DEFAULT_BLOCK_SIZE
+from nbody_tpu_torch.ops.energy import total_energy_precise
 from nbody_tpu_torch.utils.timing import elapsed_ms
 
 QA_TOLERANCE = 5e-4
@@ -37,6 +39,12 @@ QA_DT = 0.001
 # tests/test_pallas.py:76 as a bound on max|da| against the oracle
 QA_ACCEL_RTOL = 1e-4
 QA_ACCEL_ATOL = 1e-4
+# with integrator="hermite" the jerk of the accel + jerk kernel is held to
+# the oracle's by the same rule, 1e-4 * max|j| + 1e-4; the plain version
+# meets it at N=16384 (max|dj| 0.033 against a bound of 0.59, shell ICs,
+# demo 0, float32 native oracle)
+QA_JERK_RTOL = 1e-4
+QA_JERK_ATOL = 1e-4
 
 
 def default_num_bodies(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
@@ -56,6 +64,27 @@ def _oracle_accel(pos: np.ndarray, softening: float) -> np.ndarray:
 
         return accel_native(pos, softening)
     return accel_numpy(pos, softening)
+
+
+def _oracle_accel_jerk(pos: np.ndarray, vel: np.ndarray, softening: float):
+    if native_available():
+        from nbody_tpu_torch.oracle.native import accel_jerk_native
+
+        return accel_jerk_native(pos, vel, softening)
+    return accel_jerk_numpy(pos, vel, softening)
+
+
+def _oracle_rollout(pos, vel, dt, softening, damping, *, steps: int, integrator: str):
+    """`steps` oracle steps from (pos, vel): one native rollout call when
+    the native library is there, else the NumPy oracle step by step."""
+    if native_available():
+        from nbody_tpu_torch.oracle.native import step_native
+
+        return step_native(pos, vel, dt, softening, damping, steps=steps,
+                           integrator=integrator)
+    for _ in range(steps):
+        pos, vel = step_best(pos, vel, dt, softening, damping, integrator=integrator)
+    return pos, vel
 
 
 class Compute:
@@ -197,6 +226,46 @@ class Compute:
             f"= {self.g_flops:.3f} single-precision GFLOP/s at "
             f"{flops_per_interaction(self.fp64_enabled)} flops per interaction")
 
+    # ---- energy drift (the JAX package's --drift-check) ----
+
+    def drift_check(self, steps: int) -> dict:
+        """Energy-drift comparison: `steps` steps at the active dt on the
+        device and on the CPU oracle from the same state; reports both
+        relative drifts and their difference (BASELINE.json config[2]: the
+        device's drift matches the oracle's). The energy functional is
+        ``total_energy_precise`` whatever the state's type: fp32 summation
+        noise at N >= 65k is the order of the drifts. The oracle side is one
+        native rollout of `steps` steps. The state is restored after."""
+        p = self.active_params
+        soft = p.softening
+        device = self.system.device
+        pos0 = self.system.positions
+        vel0 = self.system.velocities
+        e0 = total_energy_precise(pos0, vel0, soft, device=device)
+
+        self.system.update_many(steps, p.time_step)
+        self.system.synchronize()
+        e_dev = total_energy_precise(*self.system.state, soft, device=device)
+
+        op, ov = _oracle_rollout(pos0, vel0, p.time_step, soft, p.damping, steps=steps,
+                                 integrator=self.system.integrator)
+        e_ora = total_energy_precise(op, ov, soft, device=device)
+
+        drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
+        drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
+        oracle = "native C++" if native_available() else "NumPy"
+        self.log(
+            f"energy drift over {steps} steps (dt={p.time_step}): "
+            f"device {drift_dev:.3e} | {oracle} oracle {drift_ora:.3e} | "
+            f"delta {abs(drift_dev - drift_ora):.3e}")
+        self.system.set_state(pos0, vel0)
+        return {
+            "steps": steps,
+            "drift_device": drift_dev,
+            "drift_oracle": drift_ora,
+            "delta": abs(drift_dev - drift_ora),
+        }
+
     # ---- QA compare (the reference's --compare / --qatest) ----
 
     def compare_results(self, tolerance: float = QA_TOLERANCE) -> bool:
@@ -205,28 +274,43 @@ class Compute:
         `tolerance` (the reference's rule). The port also holds the
         acceleration of that state, from the system's force kernel, to the
         oracle's within 1e-4 * max|a| + 1e-4: a wrong force shrinks by dt^2
-        before it reaches the positions."""
+        before it reaches the positions. With integrator="hermite" the
+        acceleration and the jerk come from the accel + jerk kernel, and the
+        jerk is held to the oracle's within 1e-4 * max|j| + 1e-4."""
         pos0 = self.system.positions
         vel0 = self.system.velocities
         p = self.active_params
+        hermite = self.system.integrator == "hermite"
 
-        acc = self.system.accelerations().cpu().numpy()
+        if hermite:
+            acc, jerk = (t.cpu().numpy() for t in self.system.accelerations_and_jerks())
+        else:
+            acc = self.system.accelerations().cpu().numpy()
         self.system.update(QA_DT)
         self.system.synchronize()
         dev_pos = self.system.positions
 
         ref_pos, _ = step_best(pos0, vel0, QA_DT, p.softening, p.damping,
                                integrator=self.system.integrator)
-        ref_acc = _oracle_accel(pos0, p.softening)
         err = float(np.abs(dev_pos[:, :3] - ref_pos[:, :3]).max())
-        acc_err = float(np.abs(acc - ref_acc).max())
-        acc_tol = QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL
-        passed = bool(err <= tolerance and acc_err <= acc_tol)
+        if hermite:
+            ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
+        else:
+            ref_acc = _oracle_accel(pos0, p.softening)
+        checks = [("dpos", err, tolerance),
+                  ("dacc", float(np.abs(acc - ref_acc).max()),
+                   QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL)]
+        if hermite:
+            checks.append(("djerk", float(np.abs(jerk - ref_jerk).max()),
+                           QA_JERK_RTOL * float(np.abs(ref_jerk).max()) + QA_JERK_ATOL))
+        passed = all(e <= tol for _, e, tol in checks)
         oracle = "native C++" if native_available() else "NumPy"
         self.log(
             f"QA compare vs {oracle} oracle: max |dpos| = {err:.3e} "
-            f"(tolerance {tolerance:g}), max |dacc| = {acc_err:.3e} "
-            f"(tolerance {acc_tol:.3e}) -> {'OK' if passed else 'FAILED'}")
+            f"(tolerance {tolerance:g}), "
+            + ", ".join(f"max |{name}| = {e:.3e} (tolerance {tol:.3e})"
+                        for name, e, tol in checks[1:])
+            + f" -> {'OK' if passed else 'FAILED'}")
         # restore the pre-compare state so the compare has no side effect
         self.system.set_state(pos0, vel0)
         return passed

@@ -1,12 +1,17 @@
-// All-pairs Plummer gravity for Hopper (sm_90a): the fused Euler step and
-// the force-only kernel of nbody_tpu_torch.
+// All-pairs Plummer gravity for Hopper (sm_90a), one-sided: the fused Euler
+// step, the force-only kernel, the accel + jerk kernel and the potential
+// kernel of nbody_tpu_torch.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
-//   nbody_step_f32  <- nbody_tpu/ops/pallas_kernel.py::_step_kernel
-//                      (nbody_step_pallas_vs / nbody_step_pallas)
-//   nbody_accel_f32 <- nbody_tpu/ops/pallas_kernel.py::_accel_kernel
-//                      (compute_accel_pallas)
-// Both compute, for the i-set (M bodies) under the j-set (N bodies),
+// Replaces four Pallas TPU kernels of the JAX package:
+//   nbody_step_f32       <- nbody_tpu/ops/pallas_kernel.py::_step_kernel
+//                           (nbody_step_pallas_vs / nbody_step_pallas)
+//   nbody_accel_f32      <- nbody_tpu/ops/pallas_kernel.py::_accel_kernel
+//                           (compute_accel_pallas)
+//   nbody_accel_jerk_f32 <- nbody_tpu/ops/pallas_kernel.py::_accel_jerk_kernel
+//                           (compute_accel_jerk_pallas)
+//   nbody_potential_f32  <- nbody_tpu/ops/pallas_kernel.py::_potential_kernel
+//                           (potential_energy_pallas's per-row sums)
+// The first two compute, for the i-set (M bodies) under the j-set (N bodies),
 //   d = p_j - p_i;  r2 = |d|^2 + eps2;  inv = rsqrtf(r2);  s = m_j * inv^3;
 //   a_i += s * d
 // exactly as pallas_kernel.py:79-87. The self pair adds 0 only because d = 0,
@@ -41,6 +46,22 @@
 //
 // Edges: any M and N. A j-slot past N loads mass 0 (the zero-mass padding
 // of pallas_kernel.py:29-30), and a thread past M writes nothing.
+//
+// Accel + jerk (the Hermite scheme's force evaluation,
+// pallas_kernel.py:618-637), with dv = v_j - v_i over the xyz lanes only
+// (vel.w is not a velocity):
+//   inv2 = inv^2;  s = m_j inv inv2;  rv3 = 3 (d . dv) inv2
+//   a_i += s d;  j_i += s (dv - rv3 d)
+// The self pair adds 0 because d = dv = 0. A pair is 48 flops by the JAX
+// package's count (pallas_kernel.py:697), about 25 FMA-pipe instructions and
+// one rsqrtf; the block stages positions and velocities, 32 bytes a j-body.
+//
+// Potential (pallas_kernel.py:726-742): row i holds
+//   sum_{j != i} m_i m_j rsqrtf(|d|^2 + eps2),
+// the self pair dropped by its global index (a select, since it is inf at
+// eps = 0), not by d = 0. 12 flops a pair by the JAX package's count.
+// Only the self set is taken (M = N), as the JAX kernel takes it; the total
+// -1/2 sum_i is left to the caller, as pallas_kernel.py:792 leaves it to XLA.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
@@ -118,6 +139,85 @@ __global__ void accel_kernel(const float4* __restrict__ pos_i,
   acc[3 * i + 2] = az;
 }
 
+__global__ void accel_jerk_kernel(const float4* __restrict__ pos_i,
+                                  const float4* __restrict__ vel_i,
+                                  const float4* __restrict__ pos_j,
+                                  const float4* __restrict__ vel_j, float* __restrict__ acc,
+                                  float* __restrict__ jerk, const int64_t m, const int64_t n,
+                                  const float eps2) {
+  extern __shared__ float4 tile[];  // block_size positions, then block_size velocities
+  float4* tp = tile;
+  float4* tv = tile + blockDim.x;
+  const int bs = blockDim.x;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * bs + threadIdx.x;
+  const float4 pi = (i < m) ? pos_i[i] : zero;
+  const float4 vi = (i < m) ? vel_i[i] : zero;
+  float ax = 0.f, ay = 0.f, az = 0.f, jx = 0.f, jy = 0.f, jz = 0.f;
+  for (int64_t base = 0; base < n; base += bs) {
+    const int64_t j = base + threadIdx.x;
+    tp[threadIdx.x] = (j < n) ? pos_j[j] : zero;
+    tv[threadIdx.x] = (j < n) ? vel_j[j] : zero;
+    __syncthreads();
+    for (int k = 0; k < bs; ++k) {
+      const float4 pj = tp[k];
+      const float4 vj = tv[k];
+      const float dx = pj.x - pi.x;
+      const float dy = pj.y - pi.y;
+      const float dz = pj.z - pi.z;
+      const float dvx = vj.x - vi.x;
+      const float dvy = vj.y - vi.y;
+      const float dvz = vj.z - vi.z;
+      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+      const float inv = rsqrtf(r2);
+      const float inv2 = inv * inv;
+      const float s = pj.w * (inv * inv2);  // m_j / r^3
+      const float rv3 = 3.f * (dx * dvx + dy * dvy + dz * dvz) * inv2;
+      ax += s * dx;
+      ay += s * dy;
+      az += s * dz;
+      jx += s * (dvx - rv3 * dx);
+      jy += s * (dvy - rv3 * dy);
+      jz += s * (dvz - rv3 * dz);
+    }
+    __syncthreads();
+  }
+  if (i >= m) return;
+  acc[3 * i + 0] = ax;
+  acc[3 * i + 1] = ay;
+  acc[3 * i + 2] = az;
+  jerk[3 * i + 0] = jx;
+  jerk[3 * i + 1] = jy;
+  jerk[3 * i + 2] = jz;
+}
+
+__global__ void potential_kernel(const float4* __restrict__ pos, float* __restrict__ per_row,
+                                 const int64_t n, const float eps2) {
+  extern __shared__ float4 tile[];
+  const int bs = blockDim.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * bs + threadIdx.x;
+  const float4 pi = (i < n) ? pos[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float u = 0.f;
+  for (int64_t base = 0; base < n; base += bs) {
+    const int64_t j = base + threadIdx.x;
+    tile[threadIdx.x] = (j < n) ? pos[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    // the self pair's slot in this tile (out of [0, bs) when it is elsewhere)
+    const int64_t self = i - base;
+    for (int k = 0; k < bs; ++k) {
+      const float4 pj = tile[k];
+      const float dx = pj.x - pi.x;
+      const float dy = pj.y - pi.y;
+      const float dz = pj.z - pi.z;
+      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+      const float pair = pi.w * pj.w * rsqrtf(r2);
+      u += (k == self) ? 0.f : pair;
+    }
+    __syncthreads();
+  }
+  if (i < n) per_row[i] = u;
+}
+
 bool valid_block_size(int64_t bs) { return bs >= 32 && bs <= 1024 && bs % 32 == 0; }
 
 unsigned int num_blocks(int64_t m, int64_t bs) {
@@ -151,6 +251,31 @@ int nbody_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pos_i), static_cast<const float4*>(pos_j),
       static_cast<float*>(acc), m, n, eps2);
+  return cudaGetLastError();
+}
+
+int nbody_accel_jerk_f32(const void* pos_i, const void* vel_i, const void* pos_j,
+                         const void* vel_j, void* acc, void* jerk, int64_t m, int64_t n,
+                         float eps2, int64_t block_size, void* stream) {
+  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const size_t smem = 2 * static_cast<size_t>(block_size) * sizeof(float4);
+  accel_jerk_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
+      static_cast<const float4*>(pos_j), static_cast<const float4*>(vel_j),
+      static_cast<float*>(acc), static_cast<float*>(jerk), m, n, eps2);
+  return cudaGetLastError();
+}
+
+int nbody_potential_f32(const void* pos, void* per_row, int64_t n, float eps2,
+                        int64_t block_size, void* stream) {
+  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
+  potential_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pos), static_cast<float*>(per_row), n, eps2);
   return cudaGetLastError();
 }
 

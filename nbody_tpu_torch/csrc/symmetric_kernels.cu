@@ -73,11 +73,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "sym_common.cuh"
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+namespace {
 
 // One T x T tile pair: rows [row0, row0 + T) of pos_i against columns
 // [col0, col0 + T) of pos_j. Leaves each thread's action on its rows in
@@ -148,15 +146,6 @@ __device__ __forceinline__ void tile_pair(const float4* __restrict__ pos_i, cons
   }
 }
 
-// the warps' reaction sums of local column x, added in warp order
-template <int T>
-__device__ __forceinline__ float warp_sum(const float* red, const int comp, const int x) {
-  float s = red[comp * T + x];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) s += red[(w * 3 + comp) * T + x];
-  return s;
-}
-
 // Triangle of one set: scratch (R, 3, n), R = ceil(n / T).
 template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
@@ -164,16 +153,8 @@ __global__ void __launch_bounds__(kThreads)
                    const float eps2, float* __restrict__ scratch) {
   constexpr int T = kThreads * ROWS;
   __shared__ float red[kWarps * 3 * T];
-  // blockIdx.x -> (r, c), c >= r, in row-major order of the upper triangle
-  int64_t b = blockIdx.x;
-  int64_t r = 0;
-  int64_t len = num_tiles;
-  while (b >= len) {
-    b -= len;
-    ++r;
-    --len;
-  }
-  const int64_t c = r + b;
+  int64_t r, c;
+  triangle_tile(blockIdx.x, num_tiles, r, c);
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
   float ax[ROWS], ay[ROWS], az[ROWS];
@@ -189,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
     const float a[3] = {ax[u], ay[u], az[u]};
 #pragma unroll
     for (int comp = 0; comp < 3; ++comp) {
-      const float re = warp_sum<T>(red, comp, x);
+      const float re = warp_sum<T, 3>(red, comp, x);
       if (r == c) {
         if (row0 + x < n) scratch[(r * 3 + comp) * n + row0 + x] = a[comp] + re;
       } else {
@@ -222,45 +203,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int comp = 0; comp < 3; ++comp) {
       if (row0 + x < bi) act[(c * 3 + comp) * bi + row0 + x] = a[comp];
-      if (col0 + x < bj) react[(r * 3 + comp) * bj + col0 + x] = warp_sum<T>(red, comp, x);
+      if (col0 + x < bj) react[(r * 3 + comp) * bj + col0 + x] = warp_sum<T, 3>(red, comp, x);
     }
   }
-}
-
-// out[x * sx + comp * sc] = sum over t = 0, 1, ... of parts[t][comp][x];
-// with zero_w, out[x * sx + 3 * sc] = 0 as well.
-__global__ void __launch_bounds__(256)
-    sum_partials_kernel(const float* __restrict__ parts, const int64_t nparts, const int64_t n,
-                        float* __restrict__ out, const int64_t sx, const int64_t sc,
-                        const int zero_w) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= 3 * n) return;
-  const int64_t comp = idx / n;
-  const int64_t x = idx - comp * n;
-  float s = 0.f;
-  for (int64_t t = 0; t < nparts; ++t) s += parts[(t * 3 + comp) * n + x];
-  out[x * sx + comp * sc] = s;
-  if (zero_w && comp == 0) out[x * sx + 3 * sc] = 0.f;
-}
-
-int rows_of_tile(int64_t tile) {
-  switch (tile) {
-    case 128: return 1;
-    case 256: return 2;
-    case 512: return 4;
-    case 1024: return 8;
-    default: return 0;
-  }
-}
-
-int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-cudaError_t sum_partials(const float* parts, int64_t nparts, int64_t n, float* out, int64_t sx,
-                         int64_t sc, int zero_w, cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>(cdiv(3 * n, 256));
-  sum_partials_kernel<<<blocks, 256, 0, stream>>>(parts, nparts, n, out, sx, sc, zero_w);
-  return cudaGetLastError();
 }
 
 template <int ROWS>
@@ -304,7 +249,7 @@ int nbody_sym_accel_f32(const void* pos, int64_t n, float eps2, int64_t tile, vo
                     : rows == 4 ? launch_tri<4>(p, n, eps2, sc, s)
                                 : launch_tri<8>(p, n, eps2, sc, s);
   if (err != cudaSuccess) return err;
-  return sum_partials(sc, cdiv(n, tile), n, static_cast<float*>(acc), 3, 1, 0, s);
+  return sum_partials(sc, cdiv(n, tile), 3, n, static_cast<float*>(acc), 3, 1, 0, s);
 }
 
 // acc_i (bi, 4) with w = 0 and react_j (3, bj) of the rectangle
@@ -328,11 +273,11 @@ int nbody_sym_cross_f32(const void* pos_i, int64_t bi, const void* pos_j, int64_
     if (err != cudaSuccess) return err;
   }
   // with an empty other side there are no partials: the sums are 0
-  cudaError_t err = sum_partials(si, bj > 0 ? cdiv(bj, tile) : 0, bi,
+  cudaError_t err = sum_partials(si, bj > 0 ? cdiv(bj, tile) : 0, 3, bi,
                                  static_cast<float*>(acc_i), 4, 1, 1, s);
   if (err != cudaSuccess) return err;
-  return sum_partials(sj, bi > 0 ? cdiv(bi, tile) : 0, bj, static_cast<float*>(react_j), 1, bj,
-                      0, s);
+  return sum_partials(sj, bi > 0 ? cdiv(bi, tile) : 0, 3, bj, static_cast<float*>(react_j), 1,
+                      bj, 0, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """BodySystem: simulation state on a torch device, and stepping.
 
 Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
-far: fp32, one device, damped semi-implicit Euler or leapfrog, the one-sided
-force (``variant="vpu"``) or the each-pair-once force (``variant="sym"``).
+far: fp32, one device, damped semi-implicit Euler, leapfrog or 4th-order
+Hermite, the one-sided force (``variant="vpu"``) or the each-pair-once force
+(``variant="sym"``), and the energy diagnostics.
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -22,8 +23,11 @@ Variants (the force):
   * "auto" — AUTO_VARIANT_CUDA on a CUDA device, else "vpu" (the JAX package
     resolves to its Pallas sym path only on the TPU)
 
-Integrators: "euler" (damped semi-implicit) and "leapfrog" (drift-kick-drift
-around one force evaluation of the variant's force).
+Integrators: "euler" (damped semi-implicit), "leapfrog" (drift-kick-drift
+around one force evaluation of the variant's force) and "hermite" (the
+4th-order P(EC) predictor-corrector, two accel + jerk evaluations of the
+variant a step: the one-sided accel + jerk kernel for "vpu", the
+each-pair-once triangle and rectangle for "sym").
 
 Placements (the reference's BodySystemCUDA variants):
   * "device" — state stays in device memory between calls
@@ -45,13 +49,21 @@ from nbody_tpu_torch.io.checkpoint import load_checkpoint as _load_npz
 from nbody_tpu_torch.ops import reference
 from nbody_tpu_torch.ops.cuda_kernel import (
     DEFAULT_BLOCK_SIZE,
+    aj_sym_default_dispatch,
     check_block_size,
     compute_accel_cuda,
+    compute_accel_jerk_cuda,
+    compute_accel_jerk_symmetric_blocked_cuda,
     compute_accel_symmetric_blocked_cuda,
     nbody_step_cuda,
+    potential_energy_per_row_cuda,
     sym_default_dispatch,
 )
-from nbody_tpu_torch.ops.energy import total_energy as _total_energy
+from nbody_tpu_torch.ops.energy import (
+    kinetic_energy,
+    potential_energy_per_row,
+    total_energy_precise,
+)
 from nbody_tpu_torch.params import NBodyParams
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
@@ -59,7 +71,6 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "fp64": "Queue 1 #5 (fp64)",
-    "hermite": "Queue 1 #6 (Hermite)",
     "ds": "Queue 1 #8 (double-single precision)",
     "pm": "Queue 1 #10 (PM / P3M)",
     "p3m": "Queue 1 #10 (PM / P3M)",
@@ -69,11 +80,13 @@ LATER_SLICES = {
 }
 
 
-# What variant="auto" runs on a CUDA device: the variant measured faster at
-# N=65536 on an NVIDIA H100 80GB HBM3, 700 W power limit (PERF.md):
-# the sym force 1.780 ms against the one-sided step's 3.536 ms
-# (scripts/torch_sym_dispatch.py), and the steps through Compute in
-# chip_smoke.py.
+# What variant="auto" runs on a CUDA device, for every integrator: the
+# variant measured faster at N=65536 on an NVIDIA H100 80GB HBM3, 700 W power
+# limit (PERF.md). Euler and leapfrog: the sym force 1.780 ms against the
+# one-sided step's 3.536 ms (scripts/torch_sym_dispatch.py), and the steps
+# through Compute in chip_smoke.py. Hermite, measured on its own kernels:
+# the sym accel + jerk 4.208 ms against the one-sided 6.178 ms per
+# evaluation (scripts/torch_aj_dispatch.py), 1.39x at N=135168 and 262144.
 AUTO_VARIANT_CUDA = "sym"
 
 
@@ -171,12 +184,10 @@ class BodySystem:
             raise not_ported("variant", variant)
         if variant not in ("auto", "vpu", "sym"):
             raise ValueError(f"unknown kernel variant {variant!r}")
+        if integrator not in ("euler", "leapfrog", "hermite"):
+            raise ValueError(f"unknown integrator {integrator!r}")
         if variant == "auto":
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
-        if integrator == "hermite":
-            raise not_ported("integrator", integrator)
-        if integrator not in ("euler", "leapfrog"):
-            raise ValueError(f"unknown integrator {integrator!r}")
         if dtype == torch.float64:
             raise not_ported("dtype", "fp64")
         if dtype != torch.float32:
@@ -283,14 +294,32 @@ class BodySystem:
             return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
         return reference.compute_accel(pos, soft)
 
+    def _accel_jerk(self, pos: torch.Tensor, vel: torch.Tensor):
+        """(acc, jerk), each (N,3), of `pos`, `vel` with this system's
+        backend and variant: the Hermite scheme's force evaluation."""
+        soft = self.params.softening
+        if self.variant == "sym":
+            if self.backend == "cuda":
+                return compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft)
+            cap, tile = aj_sym_default_dispatch(pos.shape[0])
+            return reference.compute_accel_jerk_symmetric_blocked(
+                pos, vel, soft, block_cap=cap, tile_j=tile)
+        if self.backend == "cuda":
+            return compute_accel_jerk_cuda(pos, vel, pos, vel, soft, block_size=self.block_size)
+        return reference.compute_accel_jerk(pos, vel, soft)
+
     def _step(self, dt: float) -> None:
         p = self.params
         cur, nxt = self._cur, 1 - self._cur
         pos, vel = self._pos[cur], self._vel[cur]
         out = (self._pos[nxt], self._vel[nxt])
-        if self.integrator == "leapfrog":
-            new_pos, new_vel = reference.nbody_step_leapfrog(
-                pos, vel, dt, p.softening, p.damping, accel_fn=self._accel)
+        if self.integrator in ("leapfrog", "hermite"):
+            if self.integrator == "leapfrog":
+                new_pos, new_vel = reference.nbody_step_leapfrog(
+                    pos, vel, dt, p.softening, p.damping, accel_fn=self._accel)
+            else:
+                new_pos, new_vel = reference.nbody_step_hermite(
+                    pos, vel, dt, p.softening, p.damping, accel_jerk_fn=self._accel_jerk)
             out[0].copy_(new_pos)
             out[1].copy_(new_vel)
         elif self.variant == "vpu" and self.backend == "cuda":
@@ -321,14 +350,26 @@ class BodySystem:
             self._host_pos.copy_(self._pos[self._cur])
             self._host_vel.copy_(self._vel[self._cur])
 
+    def _device_state(self):
+        """The current (pos, vel) on the device; with placement='host' the
+        host state is copied into the current device buffers first."""
+        pos, vel = self._pos[self._cur], self._vel[self._cur]
+        if self.placement == "host":
+            pos.copy_(self._host_pos)
+            vel.copy_(self._host_vel)
+        return pos, vel
+
     def accelerations(self) -> torch.Tensor:
         """Acceleration (N,3) of the current state with this system's backend
         and force variant (a CUDA force kernel or the plain version), on the
         device."""
-        pos = self._pos[self._cur]
-        if self.placement == "host":
-            pos.copy_(self._host_pos)
-        return self._accel(pos)
+        return self._accel(self._device_state()[0])
+
+    def accelerations_and_jerks(self):
+        """(acc, jerk), each (N,3), of the current state with this system's
+        backend and variant (the accel + jerk kernels or the plain
+        versions), on the device."""
+        return self._accel_jerk(*self._device_state())
 
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""
@@ -336,8 +377,21 @@ class BodySystem:
 
     # ---- diagnostics ----
 
-    def total_energy(self) -> float:
-        """Kinetic + softened potential energy of the current state (plain
-        PyTorch, in the state's float32)."""
-        pos, vel = self.state
-        return float(_total_energy(pos, vel, self.params.softening))
+    def total_energy(self, *, precise: bool = False) -> float:
+        """Kinetic + softened potential energy of the current state.
+
+        The default is the fast float32 diagnostic: the per-row pair sums of
+        the potential kernel (the plain version with backend='torch'),
+        summed on the device, plus the kinetic term. precise=True is
+        ``total_energy_precise``, the float64 functional for drift
+        comparisons, where fp32 summation noise at N >= 65k is of the order
+        of the drifts themselves."""
+        soft = self.params.softening
+        if precise:
+            return total_energy_precise(*self.state, soft, device=self.device)
+        pos, vel = self._device_state()
+        if self.backend == "cuda":
+            per_row = potential_energy_per_row_cuda(pos, soft)
+        else:
+            per_row = potential_energy_per_row(pos, soft)
+        return float(kinetic_energy(pos, vel) - 0.5 * torch.sum(per_row))

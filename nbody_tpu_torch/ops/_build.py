@@ -3,8 +3,8 @@ plain C interface, loaded with ctypes.
 
 The library is built from ``nbody_tpu_torch/csrc/*.cu`` at the first CUDA
 launch, into ``build/nbody_tpu_torch/`` beside the package, under a name
-that carries a hash of the sources and the flags, so an edited source
-builds anew. Each source is compiled by its own nvcc, all started
+that carries a hash of the sources, their shared headers and the flags, so
+an edited source builds anew. Each source is compiled by its own nvcc, all started
 together, and the objects are linked into one library. The build writes a
 temporary file and renames it into place, so a process that has an older
 library mapped keeps a valid file.
@@ -22,7 +22,9 @@ import subprocess
 
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
-SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu")
+SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
+           CSRC / "symmetric_aj_kernels.cu")
+HEADERS = (CSRC / "sym_common.cuh",)
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) that
@@ -52,7 +54,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -120,6 +122,15 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
                                         ptr, ptr, ptr]
     lib.nbody_sym_cross_f32.restype = ctypes.c_int
+    lib.nbody_accel_jerk_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, f32, i64, ptr]
+    lib.nbody_accel_jerk_f32.restype = ctypes.c_int
+    lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]
+    lib.nbody_potential_f32.restype = ctypes.c_int
+    lib.nbody_aj_sym_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr, ptr, ptr, ptr]
+    lib.nbody_aj_sym_f32.restype = ctypes.c_int
+    lib.nbody_aj_cross_f32.argtypes = [ptr, ptr, i64, ptr, ptr, i64, f32, i64, ptr, ptr,
+                                       ptr, ptr, ptr, ptr, ptr]
+    lib.nbody_aj_cross_f32.restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

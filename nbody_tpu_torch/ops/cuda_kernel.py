@@ -1,21 +1,24 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
-``csrc/symmetric_kernels.cu``).
+``csrc/symmetric_kernels.cu``, ``csrc/symmetric_aj_kernels.cu``).
 
 Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` /
-``compute_accel_pallas`` (``nbody_tpu/ops/pallas_kernel.py``), with the
-reference's ``block_size`` (threads per block, and j-bodies per shared-memory
-tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
+``compute_accel_pallas`` / ``compute_accel_jerk_pallas`` and of the per-row
+sums of ``potential_energy_pallas`` (``nbody_tpu/ops/pallas_kernel.py``),
+with the reference's ``block_size`` (threads per block, and j-bodies per
+shared-memory tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
 ``compute_accel_symmetric`` / ``_sym_cross`` /
-``compute_accel_symmetric_blocked`` (``nbody_tpu/ops/symmetric_kernel.py``),
+``compute_accel_symmetric_blocked`` and their accel + jerk siblings
+``compute_accel_jerk_symmetric`` / ``_aj_sym_cross`` /
+``compute_accel_jerk_symmetric_blocked`` (``nbody_tpu/ops/symmetric_kernel.py``),
 with one square ``tile`` of 128, 256, 512 or 1024 bodies, and the measured
-``sym_default_dispatch``.
+``sym_default_dispatch`` / ``aj_sym_default_dispatch``.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
 a CUDA error. For a CPU tensor it computes the plain version in
-``ops/reference.py``; that is all the CPU path is for. Both paths check
-dtype (float32 only, never cast), shape ``(., 4)``, contiguity, 16-byte
-alignment (the kernels load ``float4``) and device.
+``ops/reference.py`` or ``ops/energy.py``; that is all the CPU path is for.
+Both paths check dtype (float32 only, never cast), shape ``(., 4)``,
+contiguity, 16-byte alignment (the kernels load ``float4``) and device.
 
 ``LAUNCHES`` counts kernel launches per kernel, so a run can show that its
 path went through the kernels; plain-version calls do not count.
@@ -27,11 +30,12 @@ import ctypes
 
 import torch
 
-from nbody_tpu_torch.ops import reference
+from nbody_tpu_torch.ops import energy, reference
 
 DEFAULT_BLOCK_SIZE = 256
 
-LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0}
+LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0,
+            "accel_jerk": 0, "potential": 0, "aj_sym": 0, "aj_sym_cross": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -158,6 +162,70 @@ def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLO
     _raise_on_error(lib, err, "nbody_accel_f32 launch")
     LAUNCHES["accel"] += 1
     return acc
+
+
+def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
+    """A (pos, vel) pair of states: each checked, and the same row count."""
+    _check_state(pos_name, pos, device)
+    _check_state(vel_name, vel, device)
+    if vel.shape[0] != pos.shape[0]:
+        raise ValueError(f"{vel_name} has {vel.shape[0]} rows, {pos_name} {pos.shape[0]}")
+
+
+def compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, softening,
+                            *, block_size: int = DEFAULT_BLOCK_SIZE):
+    """(acc, jerk), each (M,3), on the i-set (M,4) due to the j-set (N,4):
+    the one-sided accel + jerk kernel (``_accel_jerk_kernel``)."""
+    device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
+    _check_pair("pos_i", pos_i, "vel_i", vel_i, device)
+    _check_pair("pos_j", pos_j, "vel_j", vel_j, device)
+    bs = check_block_size(block_size)
+    if device.type != "cuda":
+        return reference.compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, softening)
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    m, n = pos_i.shape[0], pos_j.shape[0]
+    acc = torch.empty((m, 3), dtype=torch.float32, device=device)
+    jerk = torch.empty((m, 3), dtype=torch.float32, device=device)
+    if m == 0:
+        return acc, jerk
+    with torch.cuda.device(device):
+        err = lib.nbody_accel_jerk_f32(
+            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), vel_j.data_ptr(),
+            acc.data_ptr(), jerk.data_ptr(), m, n, ctypes.c_float(float(softening) ** 2),
+            bs, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_accel_jerk_f32 launch")
+    LAUNCHES["accel_jerk"] += 1
+    return acc, jerk
+
+
+def potential_energy_per_row_cuda(pos, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):
+    """(N,) per-row pair-potential sums of the set (N,4), row i holding
+    sum_{j != i} m_i m_j / sqrt(r^2 + eps^2), the self pair dropped by its
+    index: the potential kernel (``_potential_kernel``). The potential
+    energy is -1/2 of their sum."""
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_state("pos", pos, device)
+    bs = check_block_size(block_size)
+    if device.type != "cuda":
+        return energy.potential_energy_per_row(pos, softening)
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    n = pos.shape[0]
+    per_row = torch.empty((n,), dtype=torch.float32, device=device)
+    if n == 0:
+        return per_row
+    with torch.cuda.device(device):
+        err = lib.nbody_potential_f32(
+            pos.data_ptr(), per_row.data_ptr(), n, ctypes.c_float(float(softening) ** 2), bs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_potential_f32 launch")
+    LAUNCHES["potential"] += 1
+    return per_row
 
 
 # ---- each pair once: csrc/symmetric_kernels.cu ----
@@ -291,7 +359,135 @@ def compute_accel_symmetric_blocked_cuda(pos, softening, *, block_cap: int | Non
     cap, t = sym_default_dispatch(pos.shape[0])
     cap = cap if block_cap is None else int(block_cap)
     t = check_sym_tile(t if tile is None else tile)
-    return reference.compose_symmetric_blocked(
-        pos, softening, block_cap=cap, tile_j=t,
-        triangle=lambda p, soft: sym_accel_cuda(p, soft, tile=t),
+    (acc,) = reference.compose_symmetric_blocked(
+        (pos,), softening, block_cap=cap, tile_j=t,
+        triangle=lambda p, soft: (sym_accel_cuda(p, soft, tile=t),),
         cross=lambda p_i, p_j, soft: sym_cross_cuda(p_i, p_j, soft, tile=t))
+    return acc
+
+
+# ---- accel + jerk, each pair once: csrc/symmetric_aj_kernels.cu ----
+
+# The dispatch table of the blocked accel + jerk composition, its own and
+# not the force's: a pair carries 13 values around the warp where the force
+# carries 7, a thread holds 13 floats an i-row where the force holds 7
+# (ptxas: 48 / 64 / 96 / 168 registers at tile 128 / 256 / 512 / 1024, no
+# spills), and the reaction scratch is 6 N^2 / tile floats, twice the
+# force's. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+# scripts/torch_aj_dispatch.py (PERF.md, Findings), ms per call at
+# N = 65536 / 135168 / 262144:
+#   tile 512,  cap 65536           4.208 / 17.654 / 65.255
+#   tile 512,  cap 131072          4.208 / 17.407 / 64.825
+#   tile 512,  one triangle        4.208 / 17.376 / 65.577
+#   tile 1024, cap 65536           4.327 / 19.494 / 68.929
+#   tile 1024, one triangle        4.327 / 17.589 / 65.041
+#   tile 256 / 128, cap 65536      4.495 / 6.312 at 65536
+#   one-sided accel + jerk         6.178 / 24.450 / 90.801 (block 256)
+# Tile 512 (ROWS 4: 96 registers and 48 KB a block, 4 blocks an SM) beats
+# 1024 (ROWS 8: 168 registers and 96 KB, 2 blocks an SM). Cap 65536 bounds
+# a launch's scratch at 201 MB, as the force's table does, for at most
+# 1.4 % against the fastest cap at these N.
+AJ_SYM_TILE = 512
+AJ_SYM_BLOCK_CAP = 65536
+
+
+def aj_sym_default_dispatch(n: int) -> tuple[int, int]:
+    """``(block_cap, tile)`` of the each-pair-once accel + jerk at N bodies:
+    the fixed table above, the same at every N so far measured."""
+    del n
+    return AJ_SYM_BLOCK_CAP, AJ_SYM_TILE
+
+
+def aj_sym_cuda(pos, vel, softening, *, tile: int = AJ_SYM_TILE, out=None):
+    """(N,4), (N,4) -> (acc, jerk), each (N,3): the set's accel + jerk on
+    itself, each pair once over the triangle j > i (the kernel of
+    ``_aj_sym_kernel``). ``out=(acc, jerk)`` are optional preallocated (N,3)
+    tensors that must not overlap the inputs or each other."""
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_pair("pos", pos, "vel", vel, device)
+    tile = check_sym_tile(tile)
+    n = pos.shape[0]
+    if out is None:
+        out = (torch.empty((n, 3), dtype=torch.float32, device=device),
+               torch.empty((n, 3), dtype=torch.float32, device=device))
+    acc, jerk = out
+    _check_out("out[0]", acc, (n, 3), device, (pos, vel))
+    _check_out("out[1]", jerk, (n, 3), device, (pos, vel, acc))
+    if device.type != "cuda":
+        a, j = reference.compute_accel_jerk_symmetric(pos, vel, softening)
+        acc.copy_(a)
+        jerk.copy_(j)
+        return acc, jerk
+    if n == 0:
+        return acc, jerk
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch = torch.empty((_cdiv(n, tile), 6, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_aj_sym_f32(
+            pos.data_ptr(), vel.data_ptr(), n, ctypes.c_float(float(softening) ** 2), tile,
+            scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_aj_sym_f32 launch")
+    LAUNCHES["aj_sym"] += 1
+    return acc, jerk
+
+
+def aj_sym_cross_cuda(pos_i, vel_i, pos_j, vel_j, softening, *, tile: int = AJ_SYM_TILE,
+                      out=None):
+    """The accel + jerk rectangle of the i-set (Bi,4) and the j-set (Bj,4),
+    each pair once and with no mask (the kernel of ``_aj_sym_cross_kernel``):
+    returns (acc_i (Bi,4), jerk_i (Bi,4), both with w = 0, react_acc (3,Bj),
+    react_jerk (3,Bj)), the JAX package's layout. ``out`` holds four
+    preallocated tensors of those shapes."""
+    device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
+    _check_pair("pos_i", pos_i, "vel_i", vel_i, device)
+    _check_pair("pos_j", pos_j, "vel_j", vel_j, device)
+    tile = check_sym_tile(tile)
+    bi, bj = pos_i.shape[0], pos_j.shape[0]
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                    for shape in ((bi, 4), (bi, 4), (3, bj), (3, bj)))
+    inputs = [pos_i, vel_i, pos_j, vel_j]
+    for k, (t, shape) in enumerate(zip(out, ((bi, 4), (bi, 4), (3, bj), (3, bj)))):
+        _check_out(f"out[{k}]", t, shape, device, inputs)
+        inputs.append(t)
+    acc_i, jerk_i, r_acc, r_jerk = out
+    if device.type != "cuda":
+        for t, r in zip(out, reference.aj_sym_cross(pos_i, vel_i, pos_j, vel_j, softening)):
+            t.copy_(r)
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch_i = torch.empty((_cdiv(bj, tile), 6, bi), dtype=torch.float32, device=device)
+    scratch_j = torch.empty((_cdiv(bi, tile), 6, bj), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_aj_cross_f32(
+            pos_i.data_ptr(), vel_i.data_ptr(), bi, pos_j.data_ptr(), vel_j.data_ptr(), bj,
+            ctypes.c_float(float(softening) ** 2), tile, scratch_i.data_ptr(),
+            scratch_j.data_ptr(), acc_i.data_ptr(), jerk_i.data_ptr(), r_acc.data_ptr(),
+            r_jerk.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_aj_cross_f32 launch")
+    LAUNCHES["aj_sym_cross"] += 1
+    return out
+
+
+def compute_accel_jerk_symmetric_blocked_cuda(pos, vel, softening, *,
+                                              block_cap: int | None = None,
+                                              tile: int | None = None):
+    """(N,4), (N,4) -> (acc, jerk), each (N,3), each pair once at any N: one
+    triangle launch for N <= block_cap, else k triangle and k(k-1)/2 cross
+    launches summed in a fixed order (``reference.compose_symmetric_blocked``).
+    Defaults from ``aj_sym_default_dispatch``."""
+    cap, t = aj_sym_default_dispatch(pos.shape[0])
+    cap = cap if block_cap is None else int(block_cap)
+    t = check_sym_tile(t if tile is None else tile)
+    return reference.compose_symmetric_blocked(
+        (pos, vel), softening, block_cap=cap, tile_j=t,
+        triangle=lambda p, v, soft: aj_sym_cuda(p, v, soft, tile=t),
+        cross=lambda p_i, v_i, p_j, v_j, soft: aj_sym_cross_cuda(p_i, v_i, p_j, v_j, soft,
+                                                                  tile=t))

@@ -1,11 +1,12 @@
 """Plain PyTorch all-pairs N-body step: the port's portable path.
 
 Counterpart of ``nbody_tpu/ops/reference.py`` (the XLA path). It runs on any
-torch device and dtype, and it is the plain version that both hand-written
+torch device and dtype, and it is the plain version that the hand-written
 CUDA kernels (``ops/cuda_kernel.py``) are held to, on the CPU in the tests
-and on the card in ``chip_smoke.py``. The second half holds the
-each-pair-once (symmetric) force, its rectangle and blocked composition,
-and the leapfrog step.
+and on the card in ``chip_smoke.py``. It also holds the leapfrog step, the
+accel + jerk evaluation and the Hermite step, and the each-pair-once
+(symmetric) force and accel + jerk with their rectangles and blocked
+composition.
 
 Physics (the reference CUDA sample's bodyBodyInteraction + integrateBodies):
 
@@ -133,6 +134,103 @@ def nbody_step_leapfrog(pos, vel, dt, softening, damping, *, accel_fn=None,
     return torch.cat([p3, pos[:, 3:4]], dim=1), torch.cat([v3, vel[:, 3:4]], dim=1)
 
 
+# ---- accel + jerk (the Hermite scheme's force evaluation) ----
+#
+#   a_i = sum_j m_j d / r^3
+#   j_i = sum_j m_j [ dv / r^3 - 3 (d . dv) d / r^5 ]
+# with d = p_j - p_i, dv = v_j - v_i and the softened r^2. Only the xyz
+# lanes of vel enter: vel.w is not a velocity.
+
+
+def _accel_jerk_rows(rp, rv, pj, vj, mj, eps2):
+    """(acc (C,3), jerk (C,3)) on rows rp, rv (C,3) due to pj, vj (N,3) with
+    masses mj (N,), in the arithmetic of ``_accel_jerk_kernel``."""
+    dx = pj[None, :, 0] - rp[:, 0:1]  # (C, N)
+    dy = pj[None, :, 1] - rp[:, 1:2]
+    dz = pj[None, :, 2] - rp[:, 2:3]
+    dvx = vj[None, :, 0] - rv[:, 0:1]
+    dvy = vj[None, :, 1] - rv[:, 1:2]
+    dvz = vj[None, :, 2] - rv[:, 2:3]
+    r2 = dx * dx + dy * dy + dz * dz + eps2
+    inv = torch.rsqrt(r2)
+    inv2 = inv * inv
+    s = mj[None, :] * (inv * inv2)  # m_j / r^3
+    rv3 = 3.0 * (dx * dvx + dy * dvy + dz * dvz) * inv2
+    acc = torch.stack([(s * dx).sum(1), (s * dy).sum(1), (s * dz).sum(1)], dim=1)
+    jerk = torch.stack([(s * (dvx - rv3 * dx)).sum(1), (s * (dvy - rv3 * dy)).sum(1),
+                        (s * (dvz - rv3 * dz)).sum(1)], dim=1)
+    return acc, jerk
+
+
+def compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, softening,
+                          *, chunk_size: int | None = None):
+    """(acc, jerk), each (M,3), on the i-set (M,4) due to the j-set (N,4)."""
+    m_rows = pos_i.shape[0]
+    if m_rows == 0:
+        return pos_i.new_zeros((0, 3)), pos_i.new_zeros((0, 3))
+    ri, rv = pos_i[:, :3], vel_i[:, :3]
+    pj, vj, mj = pos_j[:, :3], vel_j[:, :3], pos_j[:, 3]
+    eps2 = float(softening) ** 2
+    c, m_pad = _chunk_and_pad(m_rows, chunk_size)
+    if c == m_rows:
+        return _accel_jerk_rows(ri, rv, pj, vj, mj, eps2)
+    if m_pad != m_rows:
+        ri = torch.cat([ri, ri.new_zeros((m_pad - m_rows, 3))])
+        rv = torch.cat([rv, rv.new_zeros((m_pad - m_rows, 3))])
+    parts = [_accel_jerk_rows(a, b, pj, vj, mj, eps2) for a, b in zip(ri.split(c), rv.split(c))]
+    acc = torch.cat([a for a, _ in parts])[:m_rows]
+    jerk = torch.cat([j for _, j in parts])[:m_rows]
+    return acc, jerk
+
+
+def compute_accel_jerk(pos, vel, softening, *, chunk_size: int | None = None):
+    """(acc, jerk), each (N,3), of the set on itself."""
+    return compute_accel_jerk_vs(pos, vel, pos, vel, softening, chunk_size=chunk_size)
+
+
+def hermite_predict(x0, v0, a0, j0, dt):
+    """Hermite P(EC) predictor: the Taylor expansion through the jerk."""
+    xp = x0 + v0 * dt + a0 * (dt * dt / 2) + j0 * (dt * dt * dt / 6)
+    vp = v0 + a0 * dt + j0 * (dt * dt / 2)
+    return xp, vp
+
+
+def hermite_correct(x0, v0, a0, j0, a1, j1, dt, damping):
+    """Hermite P(EC) corrector, with the reference's damping multiplier on
+    the corrected velocity."""
+    v1 = (v0 + (dt / 2) * (a0 + a1) + (dt * dt / 12) * (j0 - j1)) * damping
+    x1 = x0 + (dt / 2) * (v0 + v1) + (dt * dt / 12) * (a0 - a1)
+    return x1, v1
+
+
+def nbody_step_hermite(pos, vel, dt, softening, damping, *, accel_jerk_fn=None,
+                       chunk_size: int | None = None):
+    """4th-order Hermite predictor-corrector step, P(EC), line for line the
+    JAX package's ``ops/reference.py::nbody_step_hermite``:
+
+        predict:  x_p = x + v dt + a0 dt^2/2 + j0 dt^3/6
+                  v_p = v + a0 dt + j0 dt^2/2
+        evaluate: (a1, j1) at the predicted state
+        correct:  v1 = (v + dt/2 (a0+a1) + dt^2/12 (j0-j1)) * damping
+                  x1 = x + dt/2 (v+v1) + dt^2/12 (a0-a1)
+
+    Two accel+jerk evaluations a step, the first at the start of the step:
+    (a1, j1) are not carried into the next step, as the JAX package does
+    not carry them. `accel_jerk_fn(pos4, vel4) -> (acc, jerk)` plugs in a
+    kernel; it defaults to the plain one-sided evaluation."""
+    if accel_jerk_fn is None:
+        def accel_jerk_fn(p4, v4):
+            return compute_accel_jerk(p4, v4, softening, chunk_size=chunk_size)
+
+    x0, v0 = pos[:, :3], vel[:, :3]
+    a0, j0 = accel_jerk_fn(pos, vel)
+    xp, vp = hermite_predict(x0, v0, a0, j0, dt)
+    a1, j1 = accel_jerk_fn(torch.cat([xp, pos[:, 3:4]], dim=1),
+                           torch.cat([vp, vel[:, 3:4]], dim=1))
+    x1, v1 = hermite_correct(x0, v0, a0, j0, a1, j1, dt, damping)
+    return torch.cat([x1, pos[:, 3:4]], dim=1), torch.cat([v1, vel[:, 3:4]], dim=1)
+
+
 # ---- each pair once (Newton's third law) ----
 #
 # Counterparts of nbody_tpu/ops/symmetric_kernel.py's public functions, with
@@ -211,7 +309,7 @@ def sym_blocking(n: int, tile_j: int, block_cap: int) -> tuple[int, int]:
     return k, -(-per // tile_j) * tile_j
 
 
-def compose_symmetric_blocked(pos, softening, *, block_cap: int, tile_j: int,
+def compose_symmetric_blocked(states, softening, *, block_cap: int, tile_j: int,
                               triangle, cross):
     """Each pair once at any N: the triangle of N bodies as k superblock
     triangles plus k(k-1)/2 mask-free cross rectangles,
@@ -219,35 +317,143 @@ def compose_symmetric_blocked(pos, softening, *, block_cap: int, tile_j: int,
         triangle(N) = sum_a triangle(block a) + sum_{a<b} rectangle(a x b),
 
     summed per block in a fixed order (the triangle, then the rectangles
-    in loop order), as ``compute_accel_symmetric_blocked`` of the JAX
-    package does. N <= block_cap is one triangle. The last block is
-    ragged instead of zero-mass padded; padding is inert, so the sums are
-    the same. `triangle(pos, softening)` and `cross(pos_i, pos_j,
-    softening)` are the plain versions or the kernels' wrappers."""
-    n = pos.shape[0]
+    in loop order), as ``compute_accel_symmetric_blocked`` and
+    ``compute_accel_jerk_symmetric_blocked`` of the JAX package do. N <=
+    block_cap is one triangle. The last block is ragged instead of
+    zero-mass padded; padding is inert, so the sums are the same.
+
+    `states` is the tuple of (N,4) arrays a pair reads: (pos,) for the
+    force, (pos, vel) for accel + jerk. `triangle(*states, softening)`
+    returns the tuple of (n,3) fields; `cross(*states_i, *states_j,
+    softening)` returns each field's i-side (Bi,4) and then each field's
+    j-side (3,Bj). Both are the plain versions or the kernels' wrappers.
+    Returns the tuple of (N,3) fields."""
+    n = states[0].shape[0]
     if n <= block_cap:
-        return triangle(pos, softening)
+        return tuple(triangle(*states, softening))
     k, blk = sym_blocking(n, tile_j, block_cap)
-    blocks = [pos[a * blk:min(n, (a + 1) * blk)] for a in range(k)]
-    contrib = [[triangle(b, softening)] for b in blocks]
+    blocks = [tuple(s[a * blk:min(n, (a + 1) * blk)] for s in states) for a in range(k)]
+    contrib = [[tuple(triangle(*b, softening))] for b in blocks]
     for a in range(k):
         for b in range(a + 1, k):
-            acc_i, react_j = cross(blocks[a], blocks[b], softening)
-            contrib[a].append(acc_i[:, :3])
-            contrib[b].append(react_j.t())
-    out = []
-    for parts in contrib:
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
-        out.append(total)
-    return torch.cat(out)
+            sides = cross(*blocks[a], *blocks[b], softening)
+            nf = len(sides) // 2
+            contrib[a].append(tuple(f[:, :3] for f in sides[:nf]))
+            contrib[b].append(tuple(f.t() for f in sides[nf:]))
+    fields = []
+    for f in range(len(contrib[0][0])):
+        out = []
+        for parts in contrib:
+            total = parts[0][f]
+            for p in parts[1:]:
+                total = total + p[f]
+            out.append(total)
+        fields.append(torch.cat(out))
+    return tuple(fields)
 
 
 def compute_accel_symmetric_blocked(pos, softening, *, block_cap: int, tile_j: int = 256,
                                     chunk_size: int | None = None):
     """The plain blocked composition: (N,4) -> (N,3), each pair once."""
-    return compose_symmetric_blocked(
-        pos, softening, block_cap=block_cap, tile_j=tile_j,
-        triangle=functools.partial(compute_accel_symmetric, chunk_size=chunk_size),
+    (acc,) = compose_symmetric_blocked(
+        (pos,), softening, block_cap=block_cap, tile_j=tile_j,
+        triangle=lambda p, soft: (compute_accel_symmetric(p, soft, chunk_size=chunk_size),),
         cross=functools.partial(sym_cross, chunk_size=chunk_size))
+    return acc
+
+
+# ---- accel + jerk, each pair once ----
+#
+# The jerk bracket q = dv/r^3 - 3 (d . dv) d / r^5 is mass-free and
+# antisymmetric under i <-> j (d -> -d, dv -> -dv, d . dv unchanged), so
+# the i-side takes +m_j q and the reaction on j takes -m_i q, as the
+# acceleration's +m_j c d and -m_i c d (symmetric_kernel.py:557-563).
+
+
+def _aj_sym_rows(ri, vi, mi, pj, vj, mj, eps2, keep=None):
+    """((acc, jerk) (C,3) each on the rows, (react_acc, react_jerk) (M,3)
+    each on the columns) of the pairs of rows ri, vi (C,3) x columns pj, vj
+    (M,3), in the arithmetic of ``_aj_sym_kernel``; `keep` (C,M) masks
+    pairs out."""
+    dx = pj[None, :, 0] - ri[:, 0:1]  # (C, M)
+    dy = pj[None, :, 1] - ri[:, 1:2]
+    dz = pj[None, :, 2] - ri[:, 2:3]
+    dvx = vj[None, :, 0] - vi[:, 0:1]
+    dvy = vj[None, :, 1] - vi[:, 1:2]
+    dvz = vj[None, :, 2] - vi[:, 2:3]
+    r2 = dx * dx + dy * dy + dz * dz + eps2
+    inv = torch.rsqrt(r2)
+    inv2 = inv * inv
+    inv3 = inv2 * inv
+    c3p = 3.0 * (dx * dvx + dy * dvy + dz * dvz) * inv2 * inv3  # 3 (d.dv) / r^5
+    if keep is not None:
+        # a select, not a product: the masked self pair is inf at eps = 0
+        zero = torch.zeros((), dtype=inv3.dtype, device=inv3.device)
+        inv3 = torch.where(keep, inv3, zero)
+        c3p = torch.where(keep, c3p, zero)
+    qx = inv3 * dvx - c3p * dx
+    qy = inv3 * dvy - c3p * dy
+    qz = inv3 * dvz - c3p * dz
+    s = mj[None, :] * inv3
+    t = mi[:, None] * inv3
+    mjq = mj[None, :]
+    miq = mi[:, None]
+    acc = torch.stack([(s * dx).sum(1), (s * dy).sum(1), (s * dz).sum(1)], dim=1)
+    jerk = torch.stack([(mjq * qx).sum(1), (mjq * qy).sum(1), (mjq * qz).sum(1)], dim=1)
+    r_acc = -torch.stack([(t * dx).sum(0), (t * dy).sum(0), (t * dz).sum(0)], dim=1)
+    r_jerk = -torch.stack([(miq * qx).sum(0), (miq * qy).sum(0), (miq * qz).sum(0)], dim=1)
+    return acc, jerk, r_acc, r_jerk
+
+
+def compute_accel_jerk_symmetric(pos, vel, softening, *, chunk_size: int | None = None):
+    """(acc, jerk), each (N,3), of the set on itself, each pair once over
+    the strict upper triangle j > i. Row chunk [r0, r1) meets the columns
+    [r0, N)."""
+    n = pos.shape[0]
+    p3, v3, m = pos[:, :3], vel[:, :3], pos[:, 3]
+    eps2 = float(softening) ** 2
+    acc, jerk = pos.new_zeros((n, 3)), pos.new_zeros((n, 3))
+    r_acc, r_jerk = pos.new_zeros((n, 3)), pos.new_zeros((n, 3))
+    c = max(1, min(n, int(chunk_size or DEFAULT_CHUNK)))
+    cols = torch.arange(n, device=pos.device)
+    for r0 in range(0, n, c):
+        r1 = min(n, r0 + c)
+        keep = cols[None, r0:] > cols[r0:r1, None]
+        a, j, ra, rj = _aj_sym_rows(p3[r0:r1], v3[r0:r1], m[r0:r1],
+                                    p3[r0:], v3[r0:], m[r0:], eps2, keep)
+        acc[r0:r1] += a
+        jerk[r0:r1] += j
+        r_acc[r0:] += ra
+        r_jerk[r0:] += rj
+    return acc + r_acc, jerk + r_jerk
+
+
+def aj_sym_cross(pos_i, vel_i, pos_j, vel_j, softening, *, chunk_size: int | None = None):
+    """The mask-free accel + jerk rectangle of two sets, each (i, j) pair
+    once: returns (acc_i (Bi,4), jerk_i (Bi,4), both with w = 0,
+    react_acc (3,Bj), react_jerk (3,Bj)), the layout of the JAX package's
+    ``_aj_sym_cross``; the j-set is AoS (Bj,4)."""
+    bi, bj = pos_i.shape[0], pos_j.shape[0]
+    eps2 = float(softening) ** 2
+    acc, jerk = pos_i.new_zeros((bi, 4)), pos_i.new_zeros((bi, 4))
+    r_acc, r_jerk = pos_i.new_zeros((bj, 3)), pos_i.new_zeros((bj, 3))
+    c = max(1, min(max(bi, 1), int(chunk_size or DEFAULT_CHUNK)))
+    for r0 in range(0, bi, c):
+        r1 = min(bi, r0 + c)
+        a, j, ra, rj = _aj_sym_rows(pos_i[r0:r1, :3], vel_i[r0:r1, :3], pos_i[r0:r1, 3],
+                                    pos_j[:, :3], vel_j[:, :3], pos_j[:, 3], eps2)
+        acc[r0:r1, :3] = a
+        jerk[r0:r1, :3] = j
+        r_acc += ra
+        r_jerk += rj
+    return acc, jerk, r_acc.t(), r_jerk.t()
+
+
+def compute_accel_jerk_symmetric_blocked(pos, vel, softening, *, block_cap: int,
+                                         tile_j: int = 256, chunk_size: int | None = None):
+    """The plain blocked accel + jerk composition: (N,4), (N,4) -> (acc,
+    jerk), each (N,3), each pair once."""
+    return compose_symmetric_blocked(
+        (pos, vel), softening, block_cap=block_cap, tile_j=tile_j,
+        triangle=functools.partial(compute_accel_jerk_symmetric, chunk_size=chunk_size),
+        cross=functools.partial(aj_sym_cross, chunk_size=chunk_size))

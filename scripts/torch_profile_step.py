@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where a step's device time goes: torch.profiler over Compute's steps of
-nbody_tpu_torch on the card, one-sided and each-pair-once.
+nbody_tpu_torch on the card, one-sided and each-pair-once, Euler and Hermite.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 scripts/torch_profile_step.py
 
-For each (variant, N) in {vpu, sym} x {65536, 135168} it builds the
-Compute of the main path, waits one window and warms up one, then records
+For each (variant, N) in {vpu, sym} x {65536, 135168} with Euler, and for
+each variant with Hermite at N=65536, it builds the
+Compute of the path, waits one window and warms up one, then records
 one active window of 10 steps (update_many(10) and a synchronise). It
 prints the device time of each kernel, the host wall time of the window
 (launch of the first step to the end of the synchronise) and the device's
@@ -26,6 +27,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 STEPS = 10
+CONFIGS = [(variant, n, "euler") for variant in ("vpu", "sym") for n in (65536, 135168)]
+CONFIGS += [(variant, 65536, "hermite") for variant in ("vpu", "sym")]
 
 
 def main() -> int:
@@ -40,34 +43,34 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for variant in ("vpu", "sym"):
-        for n in (65536, 135168):
-            c = Compute(num_bodies=n, device="cuda", variant=variant, log=lambda s: None)
-            system = c.system
-            walls = []
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=1, warmup=1, active=1, repeat=1)) as prof:
-                for _ in range(3):
-                    t0 = time.perf_counter()
-                    system.update_many(STEPS)
-                    system.synchronize()
-                    walls.append((time.perf_counter() - t0) * 1e3)
-                    prof.step()
-            kernels = {}
-            for evt in prof.key_averages():
-                # ProfilerStep# is the profiler's own span around the window
-                if (evt.device_type == torch.autograd.DeviceType.CUDA
-                        and not evt.key.startswith("ProfilerStep")):
-                    us = getattr(evt, "device_time_total", None)
-                    if us is None:
-                        us = evt.cuda_time_total
-                    kernels[evt.key] = (us, evt.count)
-            busy_ms = sum(us for us, _ in kernels.values()) / 1e3
-            wall_ms = walls[-1]
-            print(f"{variant} N={n}: {STEPS} steps, host wall {wall_ms:.4f} ms, device "
-                  f"busy {busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]")
-            for key, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
-                print(f"    {us / 1e3:10.4f} ms  {count:4d} calls  {key[:90]}")
+    for variant, n, integrator in CONFIGS:
+        c = Compute(num_bodies=n, device="cuda", variant=variant, integrator=integrator,
+                    log=lambda s: None)
+        system = c.system
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=1, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                system.update_many(STEPS)
+                system.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                prof.step()
+        kernels = {}
+        for evt in prof.key_averages():
+            # ProfilerStep# is the profiler's own span around the window
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not evt.key.startswith("ProfilerStep")):
+                us = getattr(evt, "device_time_total", None)
+                if us is None:
+                    us = evt.cuda_time_total
+                kernels[evt.key] = (us, evt.count)
+        busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+        wall_ms = walls[-1]
+        print(f"{variant} {integrator} N={n}: {STEPS} steps, host wall {wall_ms:.4f} ms, "
+              f"device busy {busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]")
+        for key, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+            print(f"    {us / 1e3:10.4f} ms  {count:4d} calls  {key[:90]}")
     return 0
 
 

@@ -165,7 +165,7 @@ def test_cpu_backend_launches_no_kernel(params, state):
     ({"mesh": object()}, "#13"),
     ({"backend": "pm"}, "#10"),
     ({"backend": "p3m"}, "#10"),
-    ({"integrator": "hermite"}, "#6"),
+    ({"integrator": "hermite", "dtype": torch.float64}, "#5"),
     ({"dtype": torch.float64}, "#5"),
     ({"variant": "mxu"}, "Queue 2 #3"),
     ({"variant": "mxu_bf16"}, "Queue 2 #3"),

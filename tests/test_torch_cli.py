@@ -12,7 +12,7 @@ import torch
 from nbody_tpu import NBodyConfig, ic
 from nbody_tpu.io import write_tipsy_file
 
-from nbody_tpu_torch.cli import build_parser, main
+from nbody_tpu_torch.cli import build_parser, drift_failed, main
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -58,7 +58,7 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--fp64"], ["--devices", "2"], ["--kernel", "xla"],
-                                  ["--render"], ["--integrator", "hermite"],
+                                  ["--render"], ["--energy"],
                                   ["--variant", "mxu"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
@@ -66,10 +66,46 @@ def test_unported_flags_are_rejected(flag):
     assert e.value.code == 2
 
 
+def test_hermite_qatest_on_cpu(capsys):
+    assert main(["--integrator", "hermite", "--qatest", "--numbodies", "512", "--cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "integrator hermite" in out and "max |djerk|" in out and "-> OK" in out
+
+
+@pytest.mark.parametrize("variant", ["vpu", "sym"])
+def test_drift_check_on_cpu_passes(capsys, variant):
+    assert main(["--drift-check", "3", "--numbodies", "256", "--cpu", "--integrator", "hermite",
+                 "--variant", variant]) == 0
+    assert "energy drift over 3 steps" in capsys.readouterr().out
+
+
+def test_drift_check_failure_exits_1(monkeypatch, capsys):
+    from nbody_tpu_torch.compute import Compute
+
+    def failing(self, steps):
+        return {"steps": steps, "drift_device": 1e-2, "drift_oracle": 1e-6, "delta": 1e-2 - 1e-6}
+
+    monkeypatch.setattr(Compute, "drift_check", failing)
+    assert main(["--drift-check", "3", "--numbodies", "64", "--cpu"]) == 1
+    assert "drift check FAILED" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("delta, oracle, failed", [(4e-4, 1e-6, False), (6e-4, 1e-6, True),
+                                                   (4e-3, 0.1, False), (6e-3, 0.1, True)])
+def test_drift_gate_is_the_jax_clis(delta, oracle, failed):
+    # nbody_tpu/cli.py:838-841: fail when delta > max(5e-4, 0.05 |oracle drift|)
+    assert drift_failed({"delta": delta, "drift_oracle": oracle}) is failed
+
+
+def test_drift_check_needs_a_step(capsys):
+    assert main(["--drift-check", "0", "--cpu", "--numbodies", "64"]) == 2
+    assert "--drift-check" in capsys.readouterr().err
+
+
 def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
-    leapfrog path and on a tipsy file without JAX and without any module
-    of nbody_tpu: the port keeps its own copies."""
+    leapfrog path, the sym Hermite drift check and a tipsy file without JAX
+    and without any module of nbody_tpu: the port keeps its own copies."""
     code = (
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
@@ -78,6 +114,8 @@ def test_port_imports_no_jax(tmp_path):
         "from nbody_tpu_torch.io import write_tipsy_file\n"
         "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu', "
         "'--variant', 'sym', '--integrator', 'leapfrog'])\n"
+        "rc |= nbody_tpu_torch.cli.main(['--drift-check', '2', '--numbodies', '128', '--cpu', "
+        "'--variant', 'sym', '--integrator', 'hermite'])\n"
         "write_tipsy_file(sys.argv[1], *ic.generate(NBodyConfig.SHELL, 100, 1.52, 2.0))\n"
         "rc |= nbody_tpu_torch.cli.main(['--qatest', '--cpu', '--tipsy', sys.argv[1]])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'nbody_tpu') "

@@ -9,7 +9,9 @@ not installed, without the suite's conftest:
 Tolerances: only the order of the j-sum differs between kernel and plain
 version, so the acceleration is held to 1e-4 * max|a| + 1e-4
 (tests/test_pallas.py:76) and one demo-0 step to 1e-5 at these N, or to
-that bound carried through the step where masses are random.
+that bound carried through the step where masses are random. The jerk and
+the potential's per-row sums are held to the same rule of their own
+maximum.
 """
 
 import numpy as np
@@ -19,13 +21,19 @@ import torch
 from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
 from nbody_tpu_torch.compute import Compute
 from nbody_tpu_torch.models import BodySystem
-from nbody_tpu_torch.ops import cuda_kernel, reference
+from nbody_tpu_torch.models.body_system import AUTO_VARIANT_CUDA
+from nbody_tpu_torch.ops import cuda_kernel, energy, reference
 from nbody_tpu_torch.ops.cuda_kernel import (
     SYM_TILES,
+    aj_sym_cross_cuda,
+    aj_sym_cuda,
     compute_accel_cuda,
+    compute_accel_jerk_cuda,
+    compute_accel_jerk_symmetric_blocked_cuda,
     compute_accel_symmetric_blocked_cuda,
     nbody_step_cuda,
     nbody_step_cuda_vs,
+    potential_energy_per_row_cuda,
     sym_accel_cuda,
     sym_cross_cuda,
 )
@@ -274,3 +282,169 @@ def test_compute_leapfrog_qa_on_card(dev, variant):
     assert c.compare_results()
     kernel = "sym" if variant == "sym" else "accel"
     assert cuda_kernel.LAUNCHES[kernel] > before[kernel]
+
+
+# ---- accel + jerk and the potential ----
+
+
+def _held(got, want):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= _tol(w)
+
+
+@pytest.mark.parametrize("m, n", [(1, 33), (1000, 1000), (777, 4099), (4099, 777)])
+@pytest.mark.parametrize("block_size", [128, 256])
+def test_accel_jerk_matches_plain(dev, m, n, block_size):
+    pi, vi = _random_w(*_state(m, dev, seed=3))
+    pj, vj = _random_w(*_state(n, dev))
+    before = cuda_kernel.LAUNCHES["accel_jerk"]
+    got = compute_accel_jerk_cuda(pi, vi, pj, vj, SOFT, block_size=block_size)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["accel_jerk"] == before + 1
+    assert got[0].shape == (m, 3) and got[1].shape == (m, 3)
+    _held(got, reference.compute_accel_jerk_vs(pi, vi, pj, vj, SOFT))
+
+
+@pytest.mark.parametrize("n", [1, 33, 333, 1000, 4099])
+@pytest.mark.parametrize("tile", [128, 512, 1024])
+def test_aj_sym_triangle_matches_plain(dev, n, tile):
+    p, v = _random_w(*_state(n, dev))
+    before = cuda_kernel.LAUNCHES["aj_sym"]
+    got = aj_sym_cuda(p, v, SOFT, tile=tile)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["aj_sym"] == before + 1
+    _held(got, reference.compute_accel_jerk_symmetric(p, v, SOFT))
+    # no atomics: a second call gives the same bits
+    again = aj_sym_cuda(p, v, SOFT, tile=tile)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("bi, bj", [(1, 33), (33, 1), (333, 1000), (1000, 333), (4099, 4099)])
+def test_aj_sym_cross_matches_plain(dev, bi, bj):
+    pi, vi = _random_w(*_state(bi, dev, seed=3))
+    pj, vj = _random_w(*_state(bj, dev))
+    before = cuda_kernel.LAUNCHES["aj_sym_cross"]
+    got = aj_sym_cross_cuda(pi, vi, pj, vj, SOFT)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["aj_sym_cross"] == before + 1
+    assert [tuple(t.shape) for t in got] == [(bi, 4), (bi, 4), (3, bj), (3, bj)]
+    _held(got, reference.aj_sym_cross(pi, vi, pj, vj, SOFT))
+    assert not got[0][:, 3].any() and not got[1][:, 3].any()
+    again = aj_sym_cross_cuda(pi, vi, pj, vj, SOFT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_aj_sym_blocked_random_masses_momentum_and_hermite_step(dev, n):
+    """The blocked composition (two triangles and a rectangle), masses from
+    [0.5, 2], a random vel.w and damping 0.5 through one Hermite step; each
+    pair once, so sum m a and sum m j vanish to the rounding of N-term sums
+    (the JAX suite's 1e-6 at N=384, grown with sqrt(N / 384))."""
+    p, v = _random_w(*_state(n, dev))
+    cap = -(-n // 512) * 256
+    before = dict(cuda_kernel.LAUNCHES)
+    got = compute_accel_jerk_symmetric_blocked_cuda(p, v, SOFT, block_cap=cap, tile=256)
+    assert cuda_kernel.LAUNCHES["aj_sym"] == before["aj_sym"] + 2
+    assert cuda_kernel.LAUNCHES["aj_sym_cross"] == before["aj_sym_cross"] + 1
+    want = reference.compute_accel_jerk_symmetric_blocked(p, v, SOFT, block_cap=cap, tile_j=256)
+    _held(got, want)
+    m = p[:, 3:4].double()
+    for field in got:
+        mf = m * field.double()
+        assert mf.sum(0).abs().max().item() / mf.abs().sum().item() <= 1e-6 * (n / 384) ** 0.5
+
+    def aj_kernel(p4, v4):
+        return compute_accel_jerk_symmetric_blocked_cuda(p4, v4, SOFT, block_cap=cap, tile=256)
+
+    p_k, v_k = reference.nbody_step_hermite(p, v, DT, SOFT, 0.5, accel_jerk_fn=aj_kernel)
+    p_r, v_r = reference.nbody_step_hermite(p, v, DT, SOFT, 0.5, accel_jerk_fn=lambda a, b: (
+        reference.compute_accel_jerk_symmetric_blocked(a, b, SOFT, block_cap=cap, tile_j=256)))
+    tol_a = _tol(want[0])
+    # the step carries the acceleration bound into v as dt * da and into p
+    # as dt^2 * da (the jerk terms add dt^2 and dt^3 of the jerk bound)
+    tol_j = _tol(want[1])
+    assert (v_k - v_r).abs().max().item() <= 1e-5 + DT * tol_a + DT * DT * tol_j
+    assert (p_k - p_r).abs().max().item() <= 1e-5 + DT * DT * tol_a + DT ** 3 * tol_j
+    assert torch.equal(p_k[:, 3], p[:, 3]) and torch.equal(v_k[:, 3], v[:, 3])
+
+
+@pytest.mark.parametrize("n", [1, 333, 4099])
+@pytest.mark.parametrize("block_size", [128, 256])
+def test_potential_matches_plain(dev, n, block_size):
+    p, _ = _random_w(*_state(n, dev))
+    before = cuda_kernel.LAUNCHES["potential"]
+    got = potential_energy_per_row_cuda(p, SOFT, block_size=block_size)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["potential"] == before + 1
+    _held((got,), (energy.potential_energy_per_row(p, SOFT),))
+
+
+def test_potential_masks_self_pair_by_index_at_zero_softening(dev):
+    # d = 0 only for the self pair here, which is inf at eps = 0: masked
+    # by its index, it adds nothing, so every row is finite
+    p, _ = _state(256, dev)
+    got = potential_energy_per_row_cuda(p, 0.0)
+    assert torch.isfinite(got).all()
+    _held((got,), (energy.potential_energy_per_row(p, 0.0),))
+
+
+def test_new_wrappers_refuse_bad_arguments_before_launch(dev):
+    p, v = _state(256, dev)
+    before = dict(cuda_kernel.LAUNCHES)
+    bad = torch.zeros(p.numel() + 1, device=dev)[1:].view(-1, 4).copy_(p)
+    with pytest.raises(ValueError, match="aligned"):
+        compute_accel_jerk_cuda(p, bad, p, v, SOFT)
+    with pytest.raises(ValueError, match="aligned"):
+        potential_energy_per_row_cuda(bad, SOFT)
+    with pytest.raises(ValueError, match="rows"):
+        aj_sym_cuda(p, v[:100], SOFT)
+    with pytest.raises(TypeError):
+        aj_sym_cuda(p.double(), v.double(), SOFT)
+    with pytest.raises(ValueError, match="overlaps"):
+        aj_sym_cuda(p, v, SOFT, out=(p.view(-1)[:768].view(256, 3), torch.empty((256, 3), device=dev)))
+    buf = torch.empty(4000, device=dev)
+    with pytest.raises(ValueError, match="overlaps"):
+        aj_sym_cross_cuda(p[:100], v[:100], p[100:], v[100:], SOFT,
+                          out=(buf[:400].view(100, 4), buf[400:800].view(100, 4),
+                               buf[:468].view(3, 156), buf[1000:1468].view(3, 156)))
+    assert cuda_kernel.LAUNCHES == before
+    assert torch.isfinite(aj_sym_cuda(p, v, SOFT)[1]).all()
+
+
+@pytest.mark.parametrize("variant", ["vpu", "sym"])
+def test_compute_hermite_qa_and_drift_on_card(dev, variant):
+    c = Compute(num_bodies=4096, device=dev, variant=variant, integrator="hermite",
+                log=lambda s: None)
+    before = dict(cuda_kernel.LAUNCHES)
+    assert c.compare_results()
+    kernel = "aj_sym" if variant == "sym" else "accel_jerk"
+    assert cuda_kernel.LAUNCHES[kernel] > before[kernel]
+    drift = c.drift_check(3)
+    assert drift["delta"] <= max(5e-4, 0.05 * abs(drift["drift_oracle"]))
+
+
+def test_hermite_host_placement_is_bit_exact_and_auto_is_measured(dev):
+    n = 2048
+    params = DEMO_PARAMS[0]
+    d = BodySystem(n, params, device=dev, placement="device", integrator="hermite")
+    h = BodySystem(n, params, device=dev, placement="host", integrator="hermite")
+    assert d.variant == h.variant == AUTO_VARIANT_CUDA
+    d.update_many(3)
+    h.update_many(3)
+    d.synchronize()
+    np.testing.assert_array_equal(d.positions, h.positions)
+    np.testing.assert_array_equal(d.velocities, h.velocities)
+
+
+def test_total_energy_kernel_against_precise(dev):
+    n = 4096
+    params = DEMO_PARAMS[0].replace(cluster_scale=tuned_scales(n)[0],
+                                    velocity_scale=tuned_scales(n)[1])
+    s = BodySystem(n, params, device=dev)
+    before = cuda_kernel.LAUNCHES["potential"]
+    fast = s.total_energy()
+    assert cuda_kernel.LAUNCHES["potential"] == before + 1
+    precise = s.total_energy(precise=True)
+    # f32 pair terms and f32 sums against the float64 functional
+    assert abs(fast - precise) / abs(precise) < 1e-4

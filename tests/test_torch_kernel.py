@@ -139,7 +139,8 @@ def test_nvcc_command_targets_sm90a():
         assert str(src) in cmd
     assert "-shared" in link and str(_build.library_path()) in link
     assert all(cmd[cmd.index("-o") + 1] in link for cmd in compiles)
-    assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu"]
+    assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu",
+                                                "symmetric_aj_kernels.cu"]
 
 
 def test_build_dir_is_under_build():
