@@ -41,14 +41,35 @@ its result:
      total_energy(precise=True);
   6. placement="host" against placement="device", bit for bit, with Euler
      and with Hermite;
+  3d. the double-single kernels (one-sided step and leapfrog, triangle,
+     rectangle) against their plain versions at N in {4099, 16384}, with
+     masses drawn in float64 from [0.5, 2], a random vel.w and damping 0.5,
+     the triangle at both tiles of the dispatch table (256 and 512), the
+     rectangle through the composition forced by a small cap; at N=69632,
+     above the cap, the composition at its default dispatch (two tile-512
+     triangles and one rectangle) and the rectangle alone: each output
+     within 1e-12 * max + 1e-14 of the plain version, each force within
+     1e-10 * max|a| of the float64 oracle's, repeat calls bit-equal; their
+     times at N in {16384, 65536} and the rectangle's at the main path's
+     shape;
+  5d. the ds path through Compute(precision="ds"): QA at N=16384 against
+     the float64 oracle for Euler auto (sym), Euler one_sided and leapfrog,
+     run_benchmark at N=16384 beside the fp32 step and at N=69632, above
+     the ds composition's cap, drift_check(10) at N=16384 and
+     drift_check(60) at N=4096 with the two-tier gate; the ds Euler update
+     kernel (glue, not in the kernels line) must have launched too;
+  6. placement="host" against placement="device", bit for bit, with Euler
+     and with Hermite;
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
-     --integrator leapfrog --qatest and with --benchmark, and --integrator
-     hermite with --qatest and with --drift-check 3.
-Phases 4-5 are the one-sided main path's run, 5s the sym path's and 5h
-the Hermite path's: the kernels' launch counters are set to 0 before each
-and read after it, and each kernel of that path must have launched. Any
-failure raises, and the script exits nonzero. The last lines are the card,
-one JSON object listing every kernel, and the result line.
+     --integrator leapfrog --qatest and with --benchmark, --integrator
+     hermite with --qatest and with --drift-check 3, and --precision ds with
+     --qatest, --benchmark, --integrator leapfrog --qatest and
+     --drift-check 10.
+Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
+Hermite path's and 5d the ds path's: the kernels' launch counters are set
+to 0 before each and read after it, and each kernel of that path must have
+launched. Any failure raises, and the script exits nonzero. The last lines
+are the card, one JSON object listing every kernel, and the result line.
 """
 
 from __future__ import annotations
@@ -67,6 +88,7 @@ sys.path.insert(0, str(ROOT))
 N_MAIN = 65536  # BASELINE.json configs[1] and bench.py's N
 N_QA = 16384  # nbody_tpu's per-core default N
 N_BIG = 4 * 256 * 132  # the CLI's default N on an H100, above the sym cap
+N_DS_BIG = 65536 + 4096  # above the ds composition's cap: two blocks
 # the card's peak fp32 rate outside the tensor cores and its memory rate
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -78,7 +100,11 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "accel_jerk": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "potential": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "aj_sym": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu",
-           "aj_sym_cross": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu"}
+           "aj_sym_cross": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu",
+           "ds_step": "nbody_tpu_torch/csrc/ds_kernels.cu",
+           "ds_leapfrog": "nbody_tpu_torch/csrc/ds_kernels.cu",
+           "ds_sym": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
+           "ds_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "accel": "nbody_tpu/ops/pallas_kernel.py:272",
             "sym": "nbody_tpu/ops/symmetric_kernel.py:107",
@@ -86,12 +112,26 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "accel_jerk": "nbody_tpu/ops/pallas_kernel.py:589",
             "potential": "nbody_tpu/ops/pallas_kernel.py:707",
             "aj_sym": "nbody_tpu/ops/symmetric_kernel.py:789",
-            "aj_sym_cross": "nbody_tpu/ops/symmetric_kernel.py:577"}
+            "aj_sym_cross": "nbody_tpu/ops/symmetric_kernel.py:577",
+            "ds_step": "nbody_tpu/ops/ds_kernel.py:222",
+            "ds_leapfrog": "nbody_tpu/ops/ds_kernel.py:575",
+            "ds_sym": "nbody_tpu/ops/ds_kernel.py:1059",
+            "ds_sym_cross": "nbody_tpu/ops/ds_kernel.py:1339"}
 NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
-         "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32"}
+         "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
+         "ds_step": "nbody_ds_step", "ds_leapfrog": "nbody_ds_leapfrog",
+         "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
+DS_KERNELS = ("ds_step", "ds_leapfrog", "ds_sym", "ds_sym_cross")
+# FP32-pipe instructions a ds pair, read from the kernels' source (the
+# headers of csrc/ds_kernels.cu and csrc/ds_symmetric_kernels.cu): one side
+# of a pair, and both sides; each counts as 2 flops at the fp32 peak
+DS_PAIR_INSTR = 225
+DS_SYM_PAIR_INSTR = 294
+# a half-drift of one body's three coordinates in ds: ds_mul + ds_add each
+DS_DRIFT_INSTR = 60
 
 
 def check(ok: bool, what: str) -> None:
@@ -512,6 +552,243 @@ def phase_aj_kernels(torch) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
+def ds_state(torch, n, *, seed=42):
+    """Shell ICs in float64 with masses from [0.5, 2] (so with a lo part)
+    and a random vel.w, as the four ds planes on the card, and the float64
+    positions."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
+    from nbody_tpu_torch.ops import ds
+
+    demo = DEMO_PARAMS[0]
+    scales = tuned_scales(n) or (demo.cluster_scale, demo.velocity_scale)
+    pos, vel = ic.generate(NBodyConfig.SHELL, n, *scales, seed=seed, dtype=np.float64)
+    rng = np.random.default_rng(7)
+    pos[:, 3] = rng.uniform(0.5, 2.0, n)
+    vel[:, 3] = rng.standard_normal(n)
+    dev = torch.device("cuda", 0)
+    planes = tuple(t.to(dev) for t in (*ds.ds_from_f64(pos), *ds.ds_from_f64(vel)))
+    return planes, pos
+
+
+def phase_ds_kernels(torch) -> dict:
+    """The double-single kernels against their plain versions (ops/ds.py).
+    Both are ds-grade and differ only in the order of the ds sums and in
+    the float32 rsqrt seed (the card's rsqrtf against PyTorch's), so each
+    output, as hi + lo in float64, is held to 1e-12 * max + 1e-14 of the
+    plain one, and each force to 1e-10 * max|a| of the float64 oracle's,
+    which a float32-grade force misses by three orders. The one-sided
+    kernels give their force as one step from zero velocity with dt = 1 and
+    damping 1 (v' = a exactly). Masses from [0.5, 2], a random vel.w and
+    damping 0.5 catch a kernel that drops m.lo, the damping or vel.w."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.compute import _oracle_accel
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import ds, reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
+    err = {k: 0.0 for k in DS_KERNELS}
+
+    def held(name, got, want, what):
+        for k, (g, w) in enumerate(zip(got, want)):
+            g64, w64 = ds.ds_to_f64(*g), ds.ds_to_f64(*w)
+            tol = 1e-12 * np.abs(w64).max() + 1e-14
+            e = float(np.abs(g64 - w64).max())
+            print(f"[3d ds] {what} [{k}]: max|d|={e:.3e} (tol {tol:.3e})")
+            check(bool(np.isfinite(g64).all()), f"non-finite output at {what}")
+            check(e <= tol, f"{name} kernel disagrees with its plain version at {what}")
+            err[name] = max(err[name], e)
+
+    def oracle(name, acc, ref, what):
+        e = float(np.abs(ds.ds_to_f64(*acc)[:, :3] - ref).max()) / float(np.abs(ref).max())
+        print(f"[3d ds] {what} force against the float64 oracle: max|da|/max|a| = {e:.3e} "
+              "(bound 1e-10)")
+        check(e <= 1e-10, f"{name} force is not fp64-grade at {what}")
+
+    def repeat(name, fn, what):
+        same = all(torch.equal(a, b) for a, b in zip(fn(), fn()))
+        print(f"[3d ds] {what}: repeat call bit-equal: {same}")
+        check(same, f"{name} differs between two calls at {what}")
+
+    def steps(t):
+        return [t[:2], t[2:]]
+
+    for n in (4099, N_QA):
+        planes, pos64 = ds_state(torch, n)
+        ref = _oracle_accel(pos64, soft)
+        zero = torch.zeros_like(planes[2])
+        scal = ds.scal_ds(dt, soft, 0.5)
+        lscal = ds.scal_ds_leapfrog(dt, soft, 0.5)
+        cap, tile = ck.ds_sym_default_dispatch(n)
+        small_cap = 2048 if n < N_QA else 4096
+        bs = ck.ds_default_block_size(n)
+        tri_plain = ds.ds_accel_symmetric(planes[0], planes[1], scal)
+        runs = (
+            ("ds_step", lambda: ck.nbody_step_ds_cuda(*planes, scal, block_size=bs),
+             lambda: ds.nbody_step_ds(*planes, scal),
+             lambda: ck.nbody_step_ds_cuda(planes[0], planes[1], zero, zero,
+                                           ds.scal_ds(1.0, soft, 1.0), block_size=bs)[2:],
+             f"step N={n} block {bs} damping 0.5"),
+            ("ds_leapfrog", lambda: ck.nbody_step_ds_leapfrog_cuda(*planes, lscal, block_size=bs),
+             lambda: ds.nbody_step_ds_leapfrog(*planes, lscal),
+             lambda: ck.nbody_step_ds_leapfrog_cuda(planes[0], planes[1], zero, zero,
+                                                    ds.scal_ds_leapfrog(1.0, soft, 1.0),
+                                                    block_size=bs)[2:],
+             f"leapfrog N={n} block {bs} damping 0.5"),
+            # the triangle at every tile of the dispatch table
+            *(("ds_sym", lambda t=t: ck.ds_sym_accel_cuda(planes[0], planes[1], scal, tile=t),
+               lambda: tri_plain, None, f"triangle N={n} tile {t}") for t in ck.DS_SYM_TILES),
+            ("ds_sym_cross", lambda: ck.compute_accel_ds_symmetric_blocked_cuda(
+                planes[0], planes[1], scal, block_cap=small_cap, tile=tile),
+             lambda: ds.ds_accel_symmetric_blocked(planes[0], planes[1], scal,
+                                                   block_cap=small_cap, tile_j=tile), None,
+             f"blocked N={n} cap {small_cap} tile {tile}"),
+        )
+        for name, kernel, plain, force, what in runs:
+            got = kernel()
+            want = plain()
+            if len(got) == 4:
+                held(name, steps(got), steps(want), what)
+                kept = all(torch.equal(g[:, 3], p[:, 3]) for g, p in zip(got, planes))
+                print(f"[3d ds] {what}: mass and vel.w kept in both planes: {kept}")
+                check(kept, f"{name} changed a w lane at {what}")
+            else:
+                held(name, [got], [want], what)
+            oracle(name, got if force is None else force(), ref, what)
+            repeat(name, kernel, what)
+        del planes, zero, tri_plain
+
+    # the main path above the cap, N_DS_BIG at its default dispatch: two
+    # tile-512 triangles and one rectangle, composed in ds
+    cap, tile = ck.ds_sym_default_dispatch(N_DS_BIG)
+    _, blk = reference.sym_blocking(N_DS_BIG, tile, cap)
+    big, big64 = ds_state(torch, N_DS_BIG)
+    bi, bj = blk, N_DS_BIG - blk
+    rect = (big[0][:bi], big[1][:bi], big[0][bi:], big[1][bi:])
+    scal = ds.scal_ds(dt, soft, 1.0)
+    lscal = ds.scal_ds_leapfrog(dt, soft, 1.0)
+    what = f"blocked N={N_DS_BIG} cap {cap} tile {tile} (default dispatch)"
+
+    def composed():
+        return ck.compute_accel_ds_symmetric_blocked_cuda(big[0], big[1], scal)
+
+    acc = composed()
+    held("ds_sym_cross", [acc], [ds.ds_accel_symmetric_blocked(big[0], big[1], scal,
+                                                               block_cap=cap, tile_j=tile)], what)
+    oracle("ds_sym_cross", acc, _oracle_accel(big64, soft), what)
+    repeat("ds_sym_cross", composed, what)
+    del acc, big64
+
+    # times: the one-sided kernels and the triangle at N = 16384 (the ds
+    # default N, whose times go into the kernels line) and 65536; the
+    # rectangle at the shape of the main path above the cap, two blocks of
+    # N_DS_BIG; the plain versions once each at those shapes, the plain
+    # rectangle's output kept to hold the kernel's to
+    rect_plain = []
+    times, bounds = {}, {}
+    for n in (N_QA, N_MAIN):
+        planes, _ = ds_state(torch, n)
+        out = tuple(torch.empty_like(planes[0]) for _ in range(4))
+        bs = ck.ds_default_block_size(n)
+        _, t = ck.ds_sym_default_dispatch(n)
+        runs = {
+            "ds_step": (lambda: ck.nbody_step_ds_cuda(*planes, scal, block_size=bs, out=out),
+                        lambda: ds.nbody_step_ds(*planes, scal)),
+            "ds_leapfrog": (lambda: ck.nbody_step_ds_leapfrog_cuda(*planes, lscal, block_size=bs,
+                                                                   out=out),
+                            lambda: ds.nbody_step_ds_leapfrog(*planes, lscal)),
+            "ds_sym": (lambda: ck.ds_sym_accel_cuda(planes[0], planes[1], scal, tile=t),
+                       lambda: ds.ds_accel_symmetric(planes[0], planes[1], scal)),
+        }
+        if n == N_QA:
+            runs["ds_sym_cross"] = (lambda: ck.ds_sym_cross_cuda(*rect, scal, tile=tile),
+                                    lambda: rect_plain.append(ds.ds_sym_cross(*rect, scal)))
+        pairs = float(n) * n
+        # each input read once, each output written once: 16 bytes a plane
+        # row, 12 an acceleration row
+        shape_bounds = {
+            "ds_step": bound_ms(2 * DS_PAIR_INSTR * pairs, 8 * n * 16),
+            "ds_leapfrog": bound_ms(2 * (DS_PAIR_INSTR * pairs + 2 * DS_DRIFT_INSTR * n),
+                                    8 * n * 16),
+            "ds_sym": bound_ms(2 * DS_SYM_PAIR_INSTR * n * (n - 1) / 2, 2 * n * 16 + 2 * n * 12),
+            "ds_sym_cross": bound_ms(2 * DS_SYM_PAIR_INSTR * float(bi) * bj,
+                                     2 * (bi + bj) * 16 + 2 * bi * 16 + 2 * bj * 12),
+        }
+        reps = 10 if n == N_QA else 3
+        for name, (kernel, plain) in runs.items():
+            kernel()
+            torch.cuda.synchronize()
+            t_k = elapsed_ms(lambda: [kernel() for _ in range(reps)], dev) / reps
+            t_p = elapsed_ms(plain, dev) if n == N_QA else None
+            shape = f"({bi},{bj})" if name == "ds_sym_cross" else f"N={n}"
+            b = shape_bounds[name]
+            print(f"[3d ds] {name} at {shape}: kernel {t_k:.3f} ms"
+                  + (f", plain {t_p:.3f} ms" if t_p is not None else "")
+                  + f" per call, bound {b[0]:.3f} ms ({b[1]})")
+            if n == N_QA:
+                times[name] = (t_k, t_p)
+                bounds[name] = b
+        del planes, out, runs
+    what = f"rectangle ({bi},{bj}) tile {tile}"
+    held("ds_sym_cross", steps(ck.ds_sym_cross_cuda(*rect, scal, tile=tile)),
+         steps(rect_plain[0]), what)
+    repeat("ds_sym_cross", lambda: ck.ds_sym_cross_cuda(*rect, scal, tile=tile), what)
+    del big, rect, rect_plain
+    torch.cuda.empty_cache()
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def phase_ds_main(torch, smi: str) -> None:
+    """The ds path through Compute(precision="ds"): QA for Euler auto (sym),
+    Euler one_sided and leapfrog at N=16384, benchmarks at 16384 (beside
+    the fp32 step) and above the cap, and the two-tier drift check."""
+    from nbody_tpu_torch.cli import drift_failed
+    from nbody_tpu_torch.compute import Compute
+
+    for variant, integrator, resolved in (("auto", "euler", "sym"),
+                                          ("one_sided", "euler", "one_sided"),
+                                          ("auto", "leapfrog", "one_sided")):
+        c = Compute(num_bodies=N_QA, device="cuda", precision="ds", variant=variant,
+                    integrator=integrator, log=lambda s: print(f"[5d QA] {s}"))
+        check(c.system.variant == resolved, f"ds variant {c.system.variant} != {resolved}")
+        check(c.compare_results(), f"ds QA against the float64 oracle failed ({variant}, "
+                                   f"{integrator})")
+    ms = {}
+    for tag, n, steps, kw in (("ds auto", N_QA, 10, {"precision": "ds"}),
+                              ("fp32 auto", N_QA, 10, {}),
+                              ("ds one_sided", N_QA, 10, {"precision": "ds",
+                                                          "variant": "one_sided"}),
+                              ("ds leapfrog", N_QA, 10, {"precision": "ds",
+                                                         "integrator": "leapfrog"}),
+                              ("ds auto", N_DS_BIG, 3, {"precision": "ds"})):
+        c = Compute(num_bodies=n, device="cuda", log=lambda s: print(f"[5d main] {s}"), **kw)
+        res = c.run_benchmark(steps)
+        check(c.system.backend == "cuda", "the ds path did not select the CUDA backend")
+        pos, vel = c.system.state
+        check(tuple(pos.shape) == (n, 4) and bool(torch.isfinite(pos).all()
+                                                  and torch.isfinite(vel).all()),
+              f"bad state after the {tag} benchmark at N={n}")
+        ms[(tag, n)] = res["milliseconds"] / res["iterations"]
+        print(f"[5d main] {tag} ({c.system.variant}, {c.system.integrator}) N={n}: "
+              f"{ms[(tag, n)]:.3f} ms per step [{smi}]")
+    print(f"[5d main] N={N_QA}: ds Euler {ms[('ds auto', N_QA)]:.3f} ms against fp32 "
+          f"{ms[('fp32 auto', N_QA)]:.3f} ms per step, "
+          f"{ms[('ds auto', N_QA)] / ms[('fp32 auto', N_QA)]:.1f}x [{smi}]")
+    for n, steps in ((N_QA, 10), (4096, 60)):
+        c = Compute(num_bodies=n, device="cuda", precision="ds",
+                    log=lambda s: print(f"[5d drift] {s}"))
+        t0 = time.perf_counter()
+        drift = c.drift_check(steps)
+        print(f"[5d drift] N={n}, {steps} steps: horizon delta {drift['horizon_delta']:.3e}, "
+              f"delta {drift['delta']:.3e} in {time.perf_counter() - t0:.1f} s")
+        check(not drift_failed(drift), f"ds drift check failed at N={n}: {drift}")
+
+
 def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -631,7 +908,11 @@ def phase_cli() -> None:
             (["--variant", "sym", "--benchmark", "--numbodies", str(N_MAIN), "-i", "10"], rate),
             (["--integrator", "hermite", "--qatest", "--numbodies", "4096"], "-> OK"),
             (["--integrator", "hermite", "--drift-check", "3", "--numbodies", "4096"],
-             "energy drift over 3 steps"))
+             "energy drift over 3 steps"),
+            (["--precision", "ds", "--qatest"], "-> OK"),
+            (["--precision", "ds", "--benchmark", "-i", "10"], "double-single-precision"),
+            (["--precision", "ds", "--integrator", "leapfrog", "--qatest"], "-> OK"),
+            (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"))
     procs = [subprocess.Popen([sys.executable, "-m", "nbody_tpu_torch.cli", *args], cwd=ROOT,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for args, _ in runs]
@@ -693,6 +974,7 @@ def main() -> int:
     kern = timed("3 kernels", phase_kernels, torch)
     sym_kern = timed("3s sym kernels", phase_sym_kernels, torch)
     aj_kern = timed("3h accel+jerk and potential kernels", phase_aj_kernels, torch)
+    ds_kern = timed("3d ds kernels", phase_ds_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -720,10 +1002,16 @@ def main() -> int:
     launches = timed("4-5 one-sided path", run_path, ck, ("step", "accel"), one_sided_path)
     sym_launches = timed("5s sym path", run_path, ck, ("sym", "sym_cross"), sym_path)
     hermite_launches = timed("5h Hermite path", run_path, ck, HERMITE_KERNELS, hermite_path)
+    # the ds Euler update kernel is glue, not a TPU kernel's port: it must
+    # launch on the ds path but is not in the kernels line
+    ds_launches = timed("5d ds path", run_path, ck, (*DS_KERNELS, "ds_integrate"),
+                        lambda: phase_ds_main(torch, smi))
     for k in ("sym", "sym_cross"):
         launches[k] = sym_launches[k]
     for k in HERMITE_KERNELS:
         launches[k] = hermite_launches[k]
+    for k in DS_KERNELS:
+        launches[k] = ds_launches[k]
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
 
@@ -734,7 +1022,7 @@ def main() -> int:
     check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    found = {key: {**kern[key], **sym_kern[key], **aj_kern[key]}
+    found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],
@@ -748,7 +1036,7 @@ def main() -> int:
         "bound_ms": found["bounds"][k][0],
         "bound_by": found["bounds"][k][1],
         # no single PyTorch call computes softened all-pairs gravity, its
-        # jerk or its potential
+        # jerk or its potential, in float32 or in ds
         "library_ms": None,
     } for k in NAMES]
     print(smi)

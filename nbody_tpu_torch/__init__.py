@@ -23,6 +23,7 @@ __all__ = [
     "ic",
     "Compute",
     "BodySystem",
+    "DSBodySystem",
 ]
 
 __version__ = "0.1.0"
@@ -34,8 +35,8 @@ def __getattr__(name):
         from nbody_tpu_torch.compute import Compute
 
         return Compute
-    if name == "BodySystem":
-        from nbody_tpu_torch.models import BodySystem
+    if name in ("BodySystem", "DSBodySystem"):
+        from nbody_tpu_torch import models
 
-        return BodySystem
+        return getattr(models, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

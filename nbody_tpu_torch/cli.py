@@ -4,9 +4,10 @@
 The reference's flags that the port's slices run so far
 (nbody.cpp:275-285): --benchmark, --compare / --qatest, --numbodies,
 -i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus nbody_tpu's
---seed, --variant {auto,vpu,sym}, --integrator {euler,leapfrog,hermite} and
---drift-check. Other nbody_tpu flags are not accepted until their slice
-lands (ROADMAP.md).
+--seed, --variant {auto,vpu,sym}, --integrator {euler,leapfrog,hermite},
+--drift-check and --precision {fp32,ds} (fp64 is parsed, as nbody_tpu parses
+it, and refused until its slice lands). Other nbody_tpu flags are not
+accepted until their slice lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -14,6 +15,13 @@ Modes:
 * --drift-check STEPS    energy drift over STEPS steps on the device and on the
                          CPU oracle; exit code 1 when they differ by more than
                          max(5e-4, 0.05 |oracle drift|) (nbody_tpu/cli.py:838-841)
+                         and, with --precision ds, by more than
+                         max(1e-9, 1e-7 |oracle drift|) over the first 50 steps
+                         (nbody_tpu/cli.py:338-376)
+
+--precision ds runs the double-single (fp64-grade) kernels, default N 16384
+(BASELINE.json configs[2]), with Euler or leapfrog, QA against the float64
+oracle at |dpos| <= 1e-10 and the force at 1e-10 of its largest value.
 
 The run is on the CUDA card; --cpu selects the plain PyTorch path on the
 host, and nothing else does: without --cpu and without a card the run fails.
@@ -57,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="damped semi-implicit Euler (the reference's), "
                         "drift-kick-drift leapfrog, or the 4th-order Hermite "
                         "predictor-corrector (two accel+jerk evaluations a step)")
+    p.add_argument("--precision", choices=["fp32", "fp64", "ds"], default="fp32",
+                   help="fp32 (default) or ds, the double-single kernels: fp64-grade "
+                        "accuracy from pairs of float32s (default N 16384); fp64 is "
+                        "not ported yet")
     p.add_argument("--drift-check", type=int, default=None, metavar="STEPS",
                    help="run STEPS steps on the device and on the CPU oracle "
                         "from the same state and compare their energy drifts; "
@@ -66,8 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def drift_failed(drift: dict) -> bool:
     """The gate of --drift-check (nbody_tpu/cli.py:838-841): the device's
-    drift may differ from the oracle's by max(5e-4, 5 % of the oracle's)."""
+    drift may differ from the oracle's by max(5e-4, 5 % of the oracle's).
+    A ds drift check also reports its parity horizon (``horizon_delta``),
+    where the drifts must agree to max(1e-9, 1e-7 of the oracle's)
+    (nbody_tpu/cli.py:362)."""
     scale = max(abs(drift["drift_oracle"]), 1e-12)
+    if "horizon_delta" in drift and drift["horizon_delta"] > max(
+            1e-9, 1e-7 * abs(drift["horizon_drift_oracle"])):
+        return True
     return drift["delta"] > max(5e-4, 0.05 * scale)
 
 
@@ -93,6 +111,20 @@ def _main(argv=None) -> int:
     if args.drift_check is not None and args.drift_check < 1:
         raise ValueError(f"--drift-check needs at least 1 step; got {args.drift_check}")
 
+    ds = args.precision == "ds"
+    if args.precision == "fp64":
+        from nbody_tpu_torch.models.body_system import not_ported
+
+        raise not_ported("--precision", "fp64", key="fp64")
+    if ds:
+        # the scope of nbody_tpu's ds modes (cli.py:447-495) that concerns
+        # the port's slices so far
+        if args.hostmem:
+            raise ValueError("--precision ds keeps its state on the device (no --hostmem), "
+                             "as nbody_tpu does")
+        if args.variant not in ("auto", "sym"):
+            raise ValueError(f"--precision ds variants are auto/sym (got {args.variant})")
+
     import numpy as np
     import torch
 
@@ -103,16 +135,18 @@ def _main(argv=None) -> int:
         from nbody_tpu_torch.io import read_tipsy_file
 
         tpos, tvel = read_tipsy_file(args.tipsy)
-        tipsy_state = (tpos.astype(np.float32), tvel.astype(np.float32))
+        dtype = np.float64 if ds else np.float32
+        tipsy_state = (tpos.astype(dtype), tvel.astype(dtype))
         print(f"Read {tipsy_state[0].shape[0]} bodies from {args.tipsy}")
 
     compute = Compute(
-        num_bodies=args.numbodies,
+        num_bodies=args.numbodies or (16384 if ds else None),
         device="cpu" if args.cpu else "cuda",
         block_size=args.block_size,
         placement="host" if args.hostmem else "device",
         variant=args.variant,
         integrator=args.integrator,
+        precision=args.precision,
         seed=args.seed,
         tipsy_state=tipsy_state,
     )
@@ -121,7 +155,8 @@ def _main(argv=None) -> int:
              if system.device.type == "cuda" else "cpu")
     print(f"nbody_tpu_torch: {compute.num_bodies} bodies on {where} "
           f"[{system.backend} kernel"
-          + (", host memory" if args.hostmem else "") + ", fp32]"
+          + (", host memory" if args.hostmem else "")
+          + (", double-single (fp64-grade)]" if ds else ", fp32]")
           + f" force {system.variant}, integrator {system.integrator}")
 
     if args.drift_check is not None:

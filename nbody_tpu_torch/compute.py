@@ -6,6 +6,10 @@ N-bucketed scale tuning, the benchmark (one untimed warm-up step, then CUDA
 events around the timed steps, and the reference's result formulas and
 printout), the QA compare against the CPU oracle (one dt=0.001 step,
 |dpos| <= 5e-4) and the energy-drift check against the oracle.
+
+``precision="ds"`` owns a ``DSBodySystem`` (double-single, fp64-grade)
+behind the same facade, as ``nbody_tpu/compute.py:135-168`` does; its QA
+and drift checks hold it to the float64 oracle at ds-grade bounds.
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ from nbody_tpu_torch.params import (
     interactions_per_second,
     tuned_scales,
 )
-from nbody_tpu_torch.models import BodySystem
-from nbody_tpu_torch.models.body_system import resolve_device
+from nbody_tpu_torch.models import BodySystem, DSBodySystem
+from nbody_tpu_torch.models.body_system import not_ported, resolve_device
 from nbody_tpu_torch.ops.cuda_kernel import DEFAULT_BLOCK_SIZE
-from nbody_tpu_torch.ops.energy import total_energy_precise
+from nbody_tpu_torch.ops.ds import ds_to_f64
+from nbody_tpu_torch.ops.energy import total_energy_f64, total_energy_precise
 from nbody_tpu_torch.utils.timing import elapsed_ms
 
 QA_TOLERANCE = 5e-4
@@ -45,6 +50,16 @@ QA_ACCEL_ATOL = 1e-4
 # demo 0, float32 native oracle)
 QA_JERK_RTOL = 1e-4
 QA_JERK_ATOL = 1e-4
+# precision="ds" is held to the float64 oracle at the ds grade: |dpos| <=
+# 1e-10 after the QA step (nbody_tpu/cli.py:402), and the force of the
+# state within 1e-10 * max|a| + 1e-12, which a float32-grade force misses
+# by three orders while its dt^2-shrunk position error would pass
+DS_QA_TOLERANCE = 1e-10
+DS_QA_ACCEL_RTOL = 1e-10
+DS_QA_ACCEL_ATOL = 1e-12
+# the steps over which the ds drift check holds ds-grade parity with the
+# oracle before chaos amplifies rounding differences (nbody_tpu/cli.py:338-349)
+DS_PARITY_HORIZON = 50
 
 
 def default_num_bodies(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
@@ -98,12 +113,21 @@ class Compute:
         placement: str = "device",
         variant: str = "auto",
         integrator: str = "euler",
+        precision: Optional[str] = None,
         cycle_demo: bool = True,
         seed: int = 42,
         tipsy_state: Optional[tuple] = None,
         log=print,
     ):
         device = resolve_device(device)
+        precision = "fp32" if precision is None else precision
+        if precision == "fp64":
+            raise not_ported("precision", "fp64")
+        if precision not in ("fp32", "ds"):
+            raise ValueError(f"unknown precision {precision!r}")
+        if precision == "ds" and placement != "device":
+            raise ValueError("precision='ds' keeps state on device (no placement='host')")
+        self.precision = precision
         self.log = log
         self.paused = False
         self.fp64_enabled = False
@@ -127,18 +151,31 @@ class Compute:
             self.active_params = self.active_params.replace(
                 cluster_scale=scales[0], velocity_scale=scales[1])
 
-        self.system = BodySystem(
-            num_bodies,
-            self.active_params,
-            device=device,
-            backend=backend,
-            block_size=block_size,
-            placement=placement,
-            variant=variant,
-            integrator=integrator,
-            seed=seed,
-            state=tipsy_state,
-        )
+        if precision == "ds":
+            self.system = DSBodySystem(
+                num_bodies,
+                self.active_params,
+                device=device,
+                backend=backend,
+                block_size=block_size,
+                variant=variant,
+                integrator=integrator,
+                seed=seed,
+                state=tipsy_state,
+            )
+        else:
+            self.system = BodySystem(
+                num_bodies,
+                self.active_params,
+                device=device,
+                backend=backend,
+                block_size=block_size,
+                placement=placement,
+                variant=variant,
+                integrator=integrator,
+                seed=seed,
+                state=tipsy_state,
+            )
         self.num_bodies = self.system.num_bodies
         self._demo_reset_time = time.monotonic()
 
@@ -193,7 +230,10 @@ class Compute:
     def compute_perf_stats(self, steps_per_second: float) -> None:
         self.interactions_per_second = interactions_per_second(
             self.num_bodies, steps_per_second)
-        self.g_flops = gflops(self.num_bodies, steps_per_second, self.fp64_enabled)
+        # ds reports at the fp64 convention, 30 flops an interaction: its
+        # result is fp64-grade (nbody_tpu/compute.py:321-326)
+        self.g_flops = gflops(self.num_bodies, steps_per_second,
+                              self.fp64_enabled or self.precision == "ds")
 
     def run_benchmark(self, nb_iterations: int) -> dict:
         """The reference's benchmark: one untimed warm-up step (which also
@@ -222,9 +262,11 @@ class Compute:
             f"{self.num_bodies} bodies, total time for {nb_iterations} "
             f"iterations: {milliseconds:.3f} ms")
         self.log(f"= {self.interactions_per_second:.3f} billion interactions per second")
+        ds = self.precision == "ds"
         self.log(
-            f"= {self.g_flops:.3f} single-precision GFLOP/s at "
-            f"{flops_per_interaction(self.fp64_enabled)} flops per interaction")
+            f"= {self.g_flops:.3f} {'double-single' if ds else 'single'}-precision GFLOP/s at "
+            f"{flops_per_interaction(self.fp64_enabled or ds)} flops per interaction"
+            + (" (fp64-convention)" if ds else ""))
 
     # ---- energy drift (the JAX package's --drift-check) ----
 
@@ -235,7 +277,10 @@ class Compute:
         device's drift matches the oracle's). The energy functional is
         ``total_energy_precise`` whatever the state's type: fp32 summation
         noise at N >= 65k is the order of the drifts. The oracle side is one
-        native rollout of `steps` steps. The state is restored after."""
+        native rollout of `steps` steps. The state is restored after.
+        With precision="ds" see ``_drift_check_ds``."""
+        if self.precision == "ds":
+            return self._drift_check_ds(steps)
         p = self.active_params
         soft = p.softening
         device = self.system.device
@@ -266,6 +311,48 @@ class Compute:
             "delta": abs(drift_dev - drift_ora),
         }
 
+    def _drift_check_ds(self, steps: int) -> dict:
+        """The ds drift check, ``nbody_tpu``'s two-tier gate
+        (cli.py:338-376): the device and the float64 oracle (one native
+        rollout in float64) step from the same float64 state, first for
+        the parity horizon, min(steps, DS_PARITY_HORIZON), where the
+        trajectories still shadow each other and the drifts must agree at
+        the ds grade (``horizon_delta``), then on to `steps`, where chaos
+        has amplified the rounding differences and the fp32 path's scale
+        gate applies (``delta``). ``cli.drift_failed`` reads both. The state
+        is restored bit for bit after."""
+        if steps < 1:
+            raise ValueError(f"the drift check needs at least 1 step; got {steps}")
+        p = self.active_params
+        soft = p.softening
+        planes0 = self.system.get_ds_state()
+        op, ov = self.system.positions, self.system.velocities
+        e0 = total_energy_f64(op, ov, soft)
+        oracle = "native C++" if native_available() else "NumPy"
+        out = {"steps": steps}
+        done = 0
+        for key, upto in (("horizon_", min(steps, DS_PARITY_HORIZON)), ("", steps)):
+            n = upto - done
+            if n > 0:
+                self.system.update_many(n, p.time_step)
+                self.system.synchronize()
+                op, ov = _oracle_rollout(op, ov, p.time_step, soft, p.damping, steps=n,
+                                         integrator=self.system.integrator)
+                e_dev = total_energy_f64(self.system.positions, self.system.velocities, soft)
+                e_ora = total_energy_f64(op, ov, soft)
+                drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
+                drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
+                done = upto
+                self.log(f"energy drift over {upto} steps (dt={p.time_step}): ds "
+                         f"{drift_dev:.6e} | float64 {oracle} oracle {drift_ora:.6e} | delta "
+                         f"{abs(drift_dev - drift_ora):.3e}")
+            out[f"{key}steps"] = upto
+            out[f"{key}drift_device"] = drift_dev
+            out[f"{key}drift_oracle"] = drift_ora
+            out[f"{key}delta"] = abs(drift_dev - drift_ora)
+        self.system.set_ds_state(*planes0)
+        return out
+
     # ---- QA compare (the reference's --compare / --qatest) ----
 
     def compare_results(self, tolerance: float = QA_TOLERANCE) -> bool:
@@ -276,7 +363,10 @@ class Compute:
         oracle's within 1e-4 * max|a| + 1e-4: a wrong force shrinks by dt^2
         before it reaches the positions. With integrator="hermite" the
         acceleration and the jerk come from the accel + jerk kernel, and the
-        jerk is held to the oracle's within 1e-4 * max|j| + 1e-4."""
+        jerk is held to the oracle's within 1e-4 * max|j| + 1e-4. With
+        precision="ds" see ``_compare_results_ds``."""
+        if self.precision == "ds":
+            return self._compare_results_ds()
         pos0 = self.system.positions
         vel0 = self.system.velocities
         p = self.active_params
@@ -313,4 +403,33 @@ class Compute:
             + f" -> {'OK' if passed else 'FAILED'}")
         # restore the pre-compare state so the compare has no side effect
         self.system.set_state(pos0, vel0)
+        return passed
+
+    def _compare_results_ds(self) -> bool:
+        """The ds QA: one dt=QA_DT step on the device and on the float64
+        oracle from the same float64 state, |dpos| <= DS_QA_TOLERANCE
+        (``nbody_tpu/cli.py:402``), and the ds force of that state, from the
+        system's kernels, within DS_QA_ACCEL_RTOL * max|a| + DS_QA_ACCEL_ATOL
+        of the oracle's float64 force: after one step a float32-grade force
+        moves positions by only dt^2 * 1e-7 * max|a|, under the position
+        bound. The state is restored bit for bit after."""
+        p = self.active_params
+        planes0 = self.system.get_ds_state()
+        pos0, vel0 = self.system.positions, self.system.velocities
+        acc = ds_to_f64(*self.system.accelerations())
+        self.system.update(QA_DT)
+        self.system.synchronize()
+        err = float(np.abs(self.system.positions[:, :3] - step_best(
+            pos0, vel0, QA_DT, p.softening, p.damping,
+            integrator=self.system.integrator)[0][:, :3]).max())
+        ref_acc = _oracle_accel(pos0, p.softening)
+        acc_err = float(np.abs(acc - ref_acc).max())
+        acc_tol = DS_QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + DS_QA_ACCEL_ATOL
+        passed = err <= DS_QA_TOLERANCE and acc_err <= acc_tol
+        oracle = "native C++" if native_available() else "NumPy"
+        self.log(
+            f"ds QA compare vs float64 {oracle} oracle: max |dpos| = {err:.3e} "
+            f"(tolerance {DS_QA_TOLERANCE:g}), max |dacc| = {acc_err:.3e} "
+            f"(tolerance {acc_tol:.3e}) -> {'OK' if passed else 'FAILED'}")
+        self.system.set_ds_state(*planes0)
         return passed

@@ -71,7 +71,7 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "fp64": "Queue 1 #5 (fp64)",
-    "ds": "Queue 1 #8 (double-single precision)",
+    "ds_hermite": "Queue 2 #14, #17, #18 (ds Hermite)",
     "pm": "Queue 1 #10 (PM / P3M)",
     "p3m": "Queue 1 #10 (PM / P3M)",
     "mesh": "Queue 1 #13 (parallel/)",
@@ -90,9 +90,12 @@ LATER_SLICES = {
 AUTO_VARIANT_CUDA = "sym"
 
 
-def not_ported(option: str, value) -> ValueError:
-    """The error for an nbody_tpu option that a later slice of the port brings."""
-    key = value if isinstance(value, str) and value in LATER_SLICES else option
+def not_ported(option: str, value, *, key: Optional[str] = None) -> ValueError:
+    """The error for an nbody_tpu option that a later slice of the port
+    brings; `key` names its LATER_SLICES entry when neither the value nor
+    the option does."""
+    if key is None:
+        key = value if isinstance(value, str) and value in LATER_SLICES else option
     return ValueError(
         f"{option}={value!r} is not ported to nbody_tpu_torch yet; "
         f"ROADMAP.md {LATER_SLICES[key]} brings it")

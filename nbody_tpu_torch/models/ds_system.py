@@ -1,0 +1,274 @@
+"""DSBodySystem: double-single (fp64-grade) simulation state on a torch
+device, and stepping.
+
+Counterpart of ``nbody_tpu/models/ds_system.py`` on one device. The state is
+four (N,4) float32 planes, pos_hi, pos_lo, vel_hi and vel_lo, each value the
+unevaluated sum hi + lo (a ~49-bit significand); the public accessors speak
+float64. As in ``BodySystem``, two sets of planes are preallocated and a
+step reads one set and writes the other (the reference's ping-pong buffers).
+
+Backends:
+  * "cuda"  — the hand-written ds kernels (``ops/cuda_kernel.py``)
+  * "torch" — their plain versions (``ops/ds.py``), on any device
+  * "auto"  — "cuda" on a CUDA device, else "torch"
+
+Variants, resolved as ``nbody_tpu`` resolves them (ds_system.py:120-149):
+  * "sym"       — Euler with each pair once: the blocked ds triangle and
+    rectangle composition (``ds_sym_default_dispatch``), then the ds Euler
+    update (one glue kernel on the card)
+  * "one_sided" — the fused one-sided ds step; leapfrog has only this form
+  * "auto"      — "sym" for Euler, "one_sided" for leapfrog
+The autotuner's cache that ``nbody_tpu`` consults for "auto" is not ported:
+the measured table of ``ds_sym_default_dispatch`` takes its place.
+
+Integrators: "euler" (damped semi-implicit) and "leapfrog" (the fused
+drift-kick-drift kernel). ds Hermite and a mesh come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nbody_tpu_torch import ic
+from nbody_tpu_torch.config import NBodyConfig
+from nbody_tpu_torch.models.body_system import _as_numpy, not_ported, resolve_device
+from nbody_tpu_torch.ops import ds
+from nbody_tpu_torch.ops.cuda_kernel import (
+    check_block_size,
+    compute_accel_ds_symmetric_blocked_cuda,
+    ds_default_block_size,
+    ds_integrate_cuda,
+    ds_sym_default_dispatch,
+    nbody_step_ds_cuda,
+    nbody_step_ds_leapfrog_cuda,
+    potential_energy_per_row_cuda,
+)
+from nbody_tpu_torch.ops.energy import kinetic_energy, potential_energy_per_row, total_energy_f64
+from nbody_tpu_torch.params import NBodyParams
+from nbody_tpu_torch.utils.timing import synchronize as _synchronize
+
+
+class DSBodySystem:
+    """Owns ds (hi/lo float32 plane) state and advances it with the ds
+    kernels. Public state in and out is float64."""
+
+    def __init__(
+        self,
+        num_bodies: int,
+        params: NBodyParams,
+        *,
+        device="cuda",
+        backend: str = "auto",
+        block_size: Optional[int] = None,
+        integrator: str = "euler",
+        variant: str = "auto",
+        mesh=None,
+        config: NBodyConfig = NBodyConfig.SHELL,
+        seed: int = 42,
+        state: Optional[tuple] = None,
+    ):
+        self.device = resolve_device(device)
+        if mesh is not None:
+            raise not_ported("mesh", mesh)
+        if backend not in ("auto", "cuda", "torch"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "auto":
+            backend = "cuda" if self.device.type == "cuda" else "torch"
+        if backend == "cuda" and self.device.type != "cuda":
+            raise ValueError(f"backend='cuda' needs a CUDA device; got {self.device}")
+        if integrator == "hermite":
+            raise not_ported("precision='ds' with integrator", "hermite", key="ds_hermite")
+        if integrator not in ("euler", "leapfrog"):
+            raise ValueError(f"unknown integrator {integrator!r}")
+        if variant not in ("auto", "sym", "one_sided"):
+            raise ValueError(f"unknown ds variant {variant!r}")
+        if variant == "sym" and integrator != "euler":
+            raise ValueError("variant='sym' applies to the euler ds step (the fused "
+                             "leapfrog kernel is one-sided)")
+        if variant == "auto":
+            variant = "sym" if integrator == "euler" else "one_sided"
+
+        self.backend = backend
+        self.variant = variant
+        self.integrator = integrator
+        self.num_bodies = int(num_bodies)
+        self.block_size = (ds_default_block_size(self.num_bodies) if block_size is None
+                           else check_block_size(block_size))
+        self.params = params
+        self.config = config
+        self.seed = seed
+
+        def planes():
+            return [torch.empty((self.num_bodies, 4), dtype=torch.float32, device=self.device)
+                    for _ in range(4)]
+
+        # [current, next] sets of (pos_hi, pos_lo, vel_hi, vel_lo)
+        self._planes = [planes(), planes()]
+        self._cur = 0
+        if state is not None:
+            self.set_state(*state)
+        else:
+            self.reset(params, config, seed=seed)
+
+    # ---- state ----
+
+    def set_state(self, pos, vel) -> None:
+        """Replace the state from float64 (N,4) arrays or tensors, split
+        exactly into hi + lo; fewer rows than num_bodies are padded with
+        zero-mass bodies at the origin."""
+        p64, v64 = (np.asarray(_as_numpy(a), np.float64) for a in (pos, vel))
+        if p64.ndim != 2 or p64.shape[1] != 4 or v64.shape != p64.shape:
+            raise ValueError(f"state must be two (N, 4) arrays; got {p64.shape} and {v64.shape}")
+        pad = self.num_bodies - p64.shape[0]
+        if pad < 0:
+            raise ValueError(f"state has {p64.shape[0]} bodies > allocated {self.num_bodies}")
+        if pad:
+            p64 = np.pad(p64, ((0, pad), (0, 0)))
+            v64 = np.pad(v64, ((0, pad), (0, 0)))
+        self.set_ds_state(*ds.ds_from_f64(p64), *ds.ds_from_f64(v64))
+
+    def get_ds_state(self):
+        """The raw (pos_hi, pos_lo, vel_hi, vel_lo) float32 planes as host
+        numpy arrays: the bit-exact checkpoint payload, in the layout of
+        ``nbody_tpu``'s ``DSBodySystem.get_ds_state``."""
+        return tuple(t.detach().to("cpu", copy=True).numpy() for t in self._planes[self._cur])
+
+    def set_ds_state(self, pos_hi, pos_lo, vel_hi, vel_lo) -> None:
+        """Restore raw hi/lo planes bit for bit (``get_ds_state``'s inverse;
+        planes from ``nbody_tpu``'s ``get_ds_state`` load unchanged)."""
+        for dst, src in zip(self._planes[self._cur], (pos_hi, pos_lo, vel_hi, vel_lo)):
+            src = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src))
+            if src.dtype != torch.float32 or tuple(src.shape) != (self.num_bodies, 4):
+                raise ValueError(f"ds planes must be float32 (N, 4) with N={self.num_bodies}; "
+                                 f"got {src.dtype} {tuple(src.shape)}")
+            dst.copy_(src)
+
+    @property
+    def state(self):
+        """The current (pos_hi, vel_hi) float32 device tensors, which carry
+        the float32-visible state (``nbody_tpu``'s ``DSBodySystem.state``);
+        valid until the next step."""
+        planes = self._planes[self._cur]
+        return planes[0], planes[2]
+
+    @property
+    def positions(self) -> np.ndarray:
+        """(N, 4) float64 [x, y, z, m], hi + lo, on the host."""
+        planes = self._planes[self._cur]
+        return ds.ds_to_f64(planes[0], planes[1])
+
+    @property
+    def velocities(self) -> np.ndarray:
+        planes = self._planes[self._cur]
+        return ds.ds_to_f64(planes[2], planes[3])
+
+    # ---- parameters ----
+
+    def update_params(self, params: NBodyParams) -> None:
+        """Live parameter update: dt, softening and damping enter each
+        launch through the scalar block, so nothing is rebuilt."""
+        self.params = params
+
+    def reset(self, params: NBodyParams, config: NBodyConfig, *,
+              seed: Optional[int] = None) -> None:
+        """Regenerate the initial conditions from the seed, in float64."""
+        self.params = params
+        self.config = config
+        if seed is not None:
+            self.seed = seed
+        pos, vel = ic.generate(config, self.num_bodies, params.cluster_scale,
+                               params.velocity_scale, seed=self.seed, dtype=np.float64)
+        self.set_state(pos, vel)
+
+    # ---- stepping ----
+
+    def _scal(self, dt: float, damping: Optional[float] = None) -> torch.Tensor:
+        p = self.params
+        damping = p.damping if damping is None else damping
+        if self.integrator == "leapfrog":
+            return ds.scal_ds_leapfrog(dt, p.softening, damping)
+        return ds.scal_ds(dt, p.softening, damping)
+
+    def _sym_accel(self, pos_hi, pos_lo, scal):
+        if self.backend == "cuda":
+            return compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal)
+        cap, tile = ds_sym_default_dispatch(pos_hi.shape[0])
+        return ds.ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, block_cap=cap, tile_j=tile)
+
+    def _fused_step(self, planes, scal, out) -> None:
+        """The one-sided fused step (Euler or leapfrog) from `planes` into
+        `out`, with the backend's kernel or plain version."""
+        euler = self.integrator == "euler"
+        if self.backend == "cuda":
+            step = nbody_step_ds_cuda if euler else nbody_step_ds_leapfrog_cuda
+            step(*planes, scal, block_size=self.block_size, out=out)
+            return
+        step = ds.nbody_step_ds if euler else ds.nbody_step_ds_leapfrog
+        for t, r in zip(out, step(*planes, scal)):
+            t.copy_(r)
+
+    def _step(self, scal) -> None:
+        cur, nxt = self._cur, 1 - self._cur
+        planes, out = self._planes[cur], self._planes[nxt]
+        if self.variant == "sym":
+            acc = self._sym_accel(planes[0], planes[1], scal)
+            if self.backend == "cuda":
+                ds_integrate_cuda(*planes, *acc, scal, out=out)
+            else:
+                for t, r in zip(out, ds.ds_integrate(*planes, acc, scal)):
+                    t.copy_(r)
+        else:
+            self._fused_step(planes, scal, out)
+        self._cur = nxt
+
+    def update(self, dt: Optional[float] = None) -> None:
+        """Advance one step (dt defaults to params.time_step)."""
+        self.update_many(1, dt)
+
+    def update_many(self, steps: int, dt: Optional[float] = None) -> None:
+        """Advance `steps` steps: the launches of each step queued on the
+        current stream, with no host synchronisation in between."""
+        scal = self._scal(self.params.time_step if dt is None else dt)
+        for _ in range(steps):
+            self._step(scal)
+
+    def accelerations(self):
+        """(acc_hi, acc_lo), each (N,3), of the current state on the device,
+        with this system's kernels (or plain versions). For "sym" that is
+        the each-pair-once composition. The one-sided variants have no
+        force-only kernel in this slice, so their fused step gives the
+        force: one step from zero velocities with dt = 1 and damping = 1
+        leaves v' = a exactly in ds (the leapfrog half-drift moves nothing
+        at zero velocity); the next step's buffers hold the result."""
+        planes = self._planes[self._cur]
+        if self.variant == "sym":
+            return self._sym_accel(planes[0], planes[1], self._scal(1.0, 1.0))
+        zero = torch.zeros_like(planes[2])
+        out = self._planes[1 - self._cur]
+        self._fused_step((planes[0], planes[1], zero, zero.clone()), self._scal(1.0, 1.0), out)
+        return out[2][:, :3], out[3][:, :3]
+
+    def synchronize(self) -> None:
+        """Wait for every queued step to finish."""
+        _synchronize(self.device)
+
+    # ---- diagnostics ----
+
+    def total_energy(self, *, precise: bool = True) -> float:
+        """Kinetic + softened potential energy of the current state. ds
+        states are precision anchors, so the float64 functional on the
+        host (``total_energy_f64`` of the float64 state) is the default, as
+        in ``nbody_tpu``; precise=False is the float32 diagnostic of the hi
+        planes (the potential kernel with backend='cuda')."""
+        soft = self.params.softening
+        if precise:
+            return total_energy_f64(self.positions, self.velocities, soft)
+        pos, vel = self.state
+        if self.backend == "cuda":
+            per_row = potential_energy_per_row_cuda(pos, soft)
+        else:
+            per_row = potential_energy_per_row(pos, soft)
+        return float(kinetic_energy(pos, vel) - 0.5 * torch.sum(per_row))

@@ -23,8 +23,9 @@ import subprocess
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
-           CSRC / "symmetric_aj_kernels.cu")
-HEADERS = (CSRC / "sym_common.cuh",)
+           CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
+           CSRC / "ds_symmetric_kernels.cu")
+HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) that
@@ -131,6 +132,17 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_aj_cross_f32.argtypes = [ptr, ptr, i64, ptr, ptr, i64, f32, i64, ptr, ptr,
                                        ptr, ptr, ptr, ptr, ptr]
     lib.nbody_aj_cross_f32.restype = ctypes.c_int
+    # the ds entry points take the (2, 4) scalar block as a host pointer
+    lib.nbody_ds_step.argtypes = [ptr] * 10 + [i64, i64, ptr, i64, ptr]
+    lib.nbody_ds_step.restype = ctypes.c_int
+    lib.nbody_ds_leapfrog.argtypes = [ptr] * 12 + [i64, i64, ptr, i64, ptr]
+    lib.nbody_ds_leapfrog.restype = ctypes.c_int
+    lib.nbody_ds_sym_accel.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr]
+    lib.nbody_ds_sym_accel.restype = ctypes.c_int
+    lib.nbody_ds_sym_cross.argtypes = [ptr, ptr, i64, ptr, ptr, i64, ptr, i64] + [ptr] * 7
+    lib.nbody_ds_sym_cross.restype = ctypes.c_int
+    lib.nbody_ds_integrate.argtypes = [ptr] * 10 + [i64, ptr, ptr]
+    lib.nbody_ds_integrate.restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
-``csrc/symmetric_kernels.cu``, ``csrc/symmetric_aj_kernels.cu``).
+``csrc/symmetric_kernels.cu``, ``csrc/symmetric_aj_kernels.cu``, and the
+double-single ``csrc/ds_kernels.cu`` and ``csrc/ds_symmetric_kernels.cu``).
 
 Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` /
 ``compute_accel_pallas`` / ``compute_accel_jerk_pallas`` and of the per-row
@@ -11,12 +12,16 @@ shared-memory tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
 ``compute_accel_jerk_symmetric`` / ``_aj_sym_cross`` /
 ``compute_accel_jerk_symmetric_blocked`` (``nbody_tpu/ops/symmetric_kernel.py``),
 with one square ``tile`` of 128, 256, 512 or 1024 bodies, and the measured
-``sym_default_dispatch`` / ``aj_sym_default_dispatch``.
+``sym_default_dispatch`` / ``aj_sym_default_dispatch``; and of the ds
+kernels of ``nbody_tpu/ops/ds_kernel.py`` (``_ds_step_kernel``,
+``_ds_leapfrog_kernel``, ``_ds_sym_kernel``, ``_ds_sym_cross_kernel``) with
+their ``ds_sym_default_dispatch``.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
 a CUDA error. For a CPU tensor it computes the plain version in
-``ops/reference.py`` or ``ops/energy.py``; that is all the CPU path is for.
+``ops/reference.py``, ``ops/energy.py`` or ``ops/ds.py``; that is all the
+CPU path is for.
 Both paths check dtype (float32 only, never cast), shape ``(., 4)``,
 contiguity, 16-byte alignment (the kernels load ``float4``) and device.
 
@@ -30,12 +35,14 @@ import ctypes
 
 import torch
 
-from nbody_tpu_torch.ops import energy, reference
+from nbody_tpu_torch.ops import ds, energy, reference
 
 DEFAULT_BLOCK_SIZE = 256
 
 LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0,
-            "accel_jerk": 0, "potential": 0, "aj_sym": 0, "aj_sym_cross": 0}
+            "accel_jerk": 0, "potential": 0, "aj_sym": 0, "aj_sym_cross": 0,
+            "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
+            "ds_integrate": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -491,3 +498,276 @@ def compute_accel_jerk_symmetric_blocked_cuda(pos, vel, softening, *,
         triangle=lambda p, v, soft: aj_sym_cuda(p, v, soft, tile=t),
         cross=lambda p_i, v_i, p_j, v_j, soft: aj_sym_cross_cuda(p_i, v_i, p_j, v_j, soft,
                                                                   tile=t))
+
+
+# ---- double-single: csrc/ds_kernels.cu, csrc/ds_symmetric_kernels.cu ----
+#
+# A ds state is four (N,4) float32 planes pos_hi, pos_lo, vel_hi, vel_lo;
+# `scal` is the (2,4) float32 host block of ops/ds.py::scal_ds (Euler) or
+# scal_ds_leapfrog (leapfrog), which the kernels read as hi/lo pairs.
+
+_PLANES = ("pos_hi", "pos_lo", "vel_hi", "vel_lo")
+
+
+def _check_scal(scal) -> None:
+    if (not isinstance(scal, torch.Tensor) or scal.dtype != torch.float32
+            or tuple(scal.shape) != (2, 4) or scal.device.type != "cpu"
+            or not scal.is_contiguous()):
+        raise ValueError("scal must be the contiguous (2, 4) float32 CPU tensor of "
+                         "ops/ds.py::scal_ds or scal_ds_leapfrog")
+
+
+def _check_planes(names, planes, device) -> None:
+    """ds planes: each a state (_check_state), all with one row count."""
+    for name, t in zip(names, planes):
+        _check_state(name, t, device)
+    for name, t in zip(names[1:], planes[1:]):
+        if t.shape[0] != planes[0].shape[0]:
+            raise ValueError(f"{name} has {t.shape[0]} rows, {names[0]} {planes[0].shape[0]}")
+
+
+def _ds_outs(out, shapes, device, inputs):
+    """Preallocated outputs, or new ones, checked against `inputs` and each
+    other."""
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=torch.float32, device=device) for shape in shapes)
+    if len(out) != len(shapes):
+        raise ValueError(f"out must hold {len(shapes)} tensors; got {len(out)}")
+    inputs = list(inputs)
+    for k, (t, shape) in enumerate(zip(out, shapes)):
+        _check_out(f"out[{k}]", t, shape, device, inputs)
+        inputs.append(t)
+    return tuple(out)
+
+
+def nbody_step_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal,
+                          *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """One ds Euler step of the i-set (M,4 planes) under the j-set
+    (jpos_hi, jpos_lo (N,4)): the kernel of ``_ds_step_kernel``. Returns the
+    four new (M,4) planes; ``out`` holds four preallocated ones, which must
+    not overlap any input."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_planes(("jpos_hi", "jpos_lo"), (jpos_hi, jpos_lo), device)
+    _check_scal(scal)
+    bs = check_block_size(block_size)
+    m, n = pos_hi.shape[0], jpos_hi.shape[0]
+    out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, jpos_hi, jpos_lo))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.nbody_step_ds_vs(*planes, jpos_hi, jpos_lo, scal)):
+            t.copy_(r)
+        return out
+    if m == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_step(
+            *(t.data_ptr() for t in (*planes, jpos_hi, jpos_lo, *out)), m, n, scal.data_ptr(),
+            bs, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_step launch")
+    LAUNCHES["ds_step"] += 1
+    return out
+
+
+def nbody_step_ds_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal,
+                       *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """One ds Euler step of the set on itself (``nbody_step_pallas_ds``)."""
+    return nbody_step_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, pos_hi, pos_lo, scal,
+                                 block_size=block_size, out=out)
+
+
+def nbody_step_ds_leapfrog_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo,
+                                   jvel_hi, jvel_lo, scal,
+                                   *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """One fused ds drift-kick-drift step of the i-set under the j-set,
+    both half-drifted from the start of the step: the kernel of
+    ``_ds_leapfrog_kernel``. `scal` from ``scal_ds_leapfrog``. Returns the
+    four new (M,4) planes."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_planes(tuple("j" + name for name in _PLANES), jplanes, device)
+    _check_scal(scal)
+    bs = check_block_size(block_size)
+    m, n = pos_hi.shape[0], jpos_hi.shape[0]
+    out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, *jplanes))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.nbody_step_ds_leapfrog_vs(*planes, *jplanes, scal)):
+            t.copy_(r)
+        return out
+    if m == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_leapfrog(
+            *(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, scal.data_ptr(), bs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_leapfrog launch")
+    LAUNCHES["ds_leapfrog"] += 1
+    return out
+
+
+def nbody_step_ds_leapfrog_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal,
+                                *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """One fused ds DKD step of the set on itself
+    (``nbody_step_pallas_ds_leapfrog``)."""
+    return nbody_step_ds_leapfrog_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, pos_hi, pos_lo,
+                                          vel_hi, vel_lo, scal, block_size=block_size, out=out)
+
+
+# The dispatch tables of the ds kernels, their own: a ds pair costs ~225
+# FP32-pipe instructions one-sided and ~294 for both sides (against 12 and
+# 16 in fp32), a ds pair carries 14 values around the warp, and ptxas gives
+# 56 / 72 / 128 / 177 registers at ROWS 1 / 2 / 4 / 8 (no spills). Measured
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+# scripts/torch_ds_dispatch.py (PERF.md, Findings), ms per call at
+# N = 16384 / 32768 / 65536 / 131072:
+#   ds step, block 128                4.029 / 10.224 / 37.011 / 139.302
+#   ds step, block 256                5.121 / 10.227 / 35.135 / 136.329
+#   ds sym, tile 256, one triangle    1.473 /  5.625 / 22.026 /  87.711
+#   ds sym, tile 512, one triangle    1.687 /  5.749 / 21.732 /  85.184
+#   ds sym, tile 512, cap 65536           - /      - / 21.732 /  87.090
+#   ds sym, tile 128 / 1024, one triangle: 1.556 / 3.897 at 16384
+# A thread owns one i-body (one-sided) or ROWS of them (sym), so up to
+# N = 32768 the smaller block and tile put more blocks on the 132 SMs; from
+# 65536 on the wider ones win. Cap 65536 bounds a launch's scratch
+# (ceil(N/512) * 6 * N floats) at 201 MB, as the fp32 tables do, for 2.2 %
+# against one triangle at N = 131072.
+DS_SMALL_N = 32768
+DS_BLOCK_SIZES = (128, 256)  # at N <= DS_SMALL_N, above
+DS_SYM_TILES = (256, 512)  # at N <= DS_SMALL_N, above
+DS_SYM_BLOCK_CAP = 65536
+
+
+def ds_default_block_size(n: int) -> int:
+    """The one-sided ds kernels' block size at N bodies: the table above."""
+    return DS_BLOCK_SIZES[n > DS_SMALL_N]
+
+
+def ds_sym_default_dispatch(n: int) -> tuple[int, int]:
+    """``(block_cap, tile)`` of the each-pair-once ds force at N bodies:
+    the table above."""
+    return DS_SYM_BLOCK_CAP, DS_SYM_TILES[n > DS_SMALL_N]
+
+
+def ds_sym_accel_cuda(pos_hi, pos_lo, scal, *, tile: int = DS_SYM_TILES[1]):
+    """(N,4) hi/lo planes -> (acc_hi, acc_lo), each (N,3): the set's ds
+    acceleration on itself, each pair once over the triangle j > i, the
+    i-side and the reaction merged in ds (the kernel of ``_ds_sym_kernel``)."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    _check_planes(_PLANES[:2], (pos_hi, pos_lo), device)
+    _check_scal(scal)
+    tile = check_sym_tile(tile)
+    n = pos_hi.shape[0]
+    out = _ds_outs(None, [(n, 3)] * 2, device, (pos_hi, pos_lo))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_accel_symmetric(pos_hi, pos_lo, scal)):
+            t.copy_(r)
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch = torch.empty((_cdiv(n, tile), 6, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_sym_accel(
+            pos_hi.data_ptr(), pos_lo.data_ptr(), n, scal.data_ptr(), tile, scratch.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_sym_accel launch")
+    LAUNCHES["ds_sym"] += 1
+    return out
+
+
+def ds_sym_cross_cuda(pos_hi_i, pos_lo_i, pos_hi_j, pos_lo_j, scal, *,
+                      tile: int = DS_SYM_TILES[1]):
+    """The ds rectangle of the i-set (Bi,4 planes) and the j-set (Bj,4
+    planes), each pair once and with no mask (the kernel of
+    ``_ds_sym_cross_kernel``): returns (acc_hi (Bi,4), acc_lo (Bi,4), both
+    with w = 0, react_hi (3,Bj), react_lo (3,Bj))."""
+    device = pos_hi_i.device if isinstance(pos_hi_i, torch.Tensor) else None
+    _check_planes(("pos_hi_i", "pos_lo_i"), (pos_hi_i, pos_lo_i), device)
+    _check_planes(("pos_hi_j", "pos_lo_j"), (pos_hi_j, pos_lo_j), device)
+    _check_scal(scal)
+    tile = check_sym_tile(tile)
+    bi, bj = pos_hi_i.shape[0], pos_hi_j.shape[0]
+    out = _ds_outs(None, [(bi, 4), (bi, 4), (3, bj), (3, bj)], device,
+                   (pos_hi_i, pos_lo_i, pos_hi_j, pos_lo_j))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_sym_cross(pos_hi_i, pos_lo_i, pos_hi_j, pos_lo_j, scal)):
+            t.copy_(r)
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch_i = torch.empty((_cdiv(bj, tile), 6, bi), dtype=torch.float32, device=device)
+    scratch_j = torch.empty((_cdiv(bi, tile), 6, bj), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_sym_cross(
+            pos_hi_i.data_ptr(), pos_lo_i.data_ptr(), bi, pos_hi_j.data_ptr(),
+            pos_lo_j.data_ptr(), bj, scal.data_ptr(), tile, scratch_i.data_ptr(),
+            scratch_j.data_ptr(), *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_sym_cross launch")
+    LAUNCHES["ds_sym_cross"] += 1
+    return out
+
+
+def compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal, *,
+                                            block_cap: int | None = None,
+                                            tile: int | None = None):
+    """(N,4) hi/lo planes -> (acc_hi, acc_lo), each (N,3), each pair once at
+    any N: one triangle launch for N <= block_cap, else k triangle and
+    k(k-1)/2 cross launches summed in ds in a fixed order
+    (``reference.compose_symmetric_blocked`` with ``ds_add``). Defaults from
+    ``ds_sym_default_dispatch``."""
+    cap, t = ds_sym_default_dispatch(pos_hi.shape[0])
+    cap = cap if block_cap is None else int(block_cap)
+    t = check_sym_tile(t if tile is None else tile)
+    return reference.compose_symmetric_blocked(
+        (pos_hi, pos_lo), scal, block_cap=cap, tile_j=t,
+        triangle=lambda ph, pl, sc: ds_sym_accel_cuda(ph, pl, sc, tile=t),
+        cross=lambda pih, pil, pjh, pjl, sc: ds_sym_cross_cuda(pih, pil, pjh, pjl, sc, tile=t),
+        add=ds.ds_add)
+
+
+def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, out=None):
+    """The damped Euler update in ds after the each-pair-once force (one
+    launch of ``ds_integrate_kernel``, csrc/ds_symmetric_kernels.cu; glue,
+    not a TPU kernel): the four new (N,4) planes from the state and the ds
+    acceleration (N,3). Its plain version is ``ds.ds_integrate``."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_scal(scal)
+    n = pos_hi.shape[0]
+    for name, t in (("acc_hi", acc_hi), ("acc_lo", acc_lo)):
+        _check_out(name, t, (n, 3), device, ())
+    out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, acc_hi, acc_lo))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_integrate(*planes, (acc_hi, acc_lo), scal)):
+            t.copy_(r)
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_integrate(
+            *(t.data_ptr() for t in (*planes, acc_hi, acc_lo, *out)), n, scal.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_integrate launch")
+    LAUNCHES["ds_integrate"] += 1
+    return out

@@ -24,6 +24,7 @@ same shape and no divisor of N is searched for.
 from __future__ import annotations
 
 import functools
+import operator
 
 import torch
 
@@ -309,8 +310,12 @@ def sym_blocking(n: int, tile_j: int, block_cap: int) -> tuple[int, int]:
     return k, -(-per // tile_j) * tile_j
 
 
+def _add_fields(x, y):
+    return tuple(map(operator.add, x, y))
+
+
 def compose_symmetric_blocked(states, softening, *, block_cap: int, tile_j: int,
-                              triangle, cross):
+                              triangle, cross, add=_add_fields):
     """Each pair once at any N: the triangle of N bodies as k superblock
     triangles plus k(k-1)/2 mask-free cross rectangles,
 
@@ -323,11 +328,14 @@ def compose_symmetric_blocked(states, softening, *, block_cap: int, tile_j: int,
     zero-mass padded; padding is inert, so the sums are the same.
 
     `states` is the tuple of (N,4) arrays a pair reads: (pos,) for the
-    force, (pos, vel) for accel + jerk. `triangle(*states, softening)`
-    returns the tuple of (n,3) fields; `cross(*states_i, *states_j,
-    softening)` returns each field's i-side (Bi,4) and then each field's
-    j-side (3,Bj). Both are the plain versions or the kernels' wrappers.
-    Returns the tuple of (N,3) fields."""
+    force, (pos, vel) for accel + jerk, (pos_hi, pos_lo) for the ds force.
+    `triangle(*states, softening)` returns the tuple of (n,3) fields;
+    `cross(*states_i, *states_j, softening)` returns each field's i-side
+    (Bi,4) and then each field's j-side (3,Bj). Both are the plain versions
+    or the kernels' wrappers; `softening` is passed to them as it is (the ds
+    force takes its scalar block there). `add(total, part)` adds two tuples
+    of fields: field by field with ``operator.add`` by default, ``ds_add``
+    on the (hi, lo) pair for ds. Returns the tuple of (N,3) fields."""
     n = states[0].shape[0]
     if n <= block_cap:
         return tuple(triangle(*states, softening))
@@ -340,16 +348,13 @@ def compose_symmetric_blocked(states, softening, *, block_cap: int, tile_j: int,
             nf = len(sides) // 2
             contrib[a].append(tuple(f[:, :3] for f in sides[:nf]))
             contrib[b].append(tuple(f.t() for f in sides[nf:]))
-    fields = []
-    for f in range(len(contrib[0][0])):
-        out = []
-        for parts in contrib:
-            total = parts[0][f]
-            for p in parts[1:]:
-                total = total + p[f]
-            out.append(total)
-        fields.append(torch.cat(out))
-    return tuple(fields)
+    totals = []
+    for parts in contrib:
+        total = parts[0]
+        for p in parts[1:]:
+            total = add(total, p)
+        totals.append(total)
+    return tuple(torch.cat([t[f] for t in totals]) for f in range(len(totals[0])))
 
 
 def compute_accel_symmetric_blocked(pos, softening, *, block_cap: int, tile_j: int = 256,

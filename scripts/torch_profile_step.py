@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where a step's device time goes: torch.profiler over Compute's steps of
-nbody_tpu_torch on the card, one-sided and each-pair-once, Euler and Hermite.
+nbody_tpu_torch on the card, one-sided and each-pair-once, Euler and Hermite,
+float32 and double-single.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 scripts/torch_profile_step.py
 
-For each (variant, N) in {vpu, sym} x {65536, 135168} with Euler, and for
-each variant with Hermite at N=65536, it builds the
+For each (variant, N) in {vpu, sym} x {65536, 135168} with Euler, for
+each variant with Hermite at N=65536, and for precision="ds" with Euler
+(auto, the ds triangle) at N in {16384, 69632} and leapfrog at 16384, it
+builds the
 Compute of the path, waits one window and warms up one, then records
 one active window of 10 steps (update_many(10) and a synchronise). It
 prints the device time of each kernel, the host wall time of the window
@@ -27,8 +30,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 STEPS = 10
-CONFIGS = [(variant, n, "euler") for variant in ("vpu", "sym") for n in (65536, 135168)]
-CONFIGS += [(variant, 65536, "hermite") for variant in ("vpu", "sym")]
+CONFIGS = [(variant, n, "euler", "fp32") for variant in ("vpu", "sym") for n in (65536, 135168)]
+CONFIGS += [(variant, 65536, "hermite", "fp32") for variant in ("vpu", "sym")]
+CONFIGS += [("auto", n, "euler", "ds") for n in (16384, 69632)]
+CONFIGS += [("auto", 16384, "leapfrog", "ds")]
 
 
 def main() -> int:
@@ -43,9 +48,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for variant, n, integrator in CONFIGS:
+    for variant, n, integrator, precision in CONFIGS:
         c = Compute(num_bodies=n, device="cuda", variant=variant, integrator=integrator,
-                    log=lambda s: None)
+                    precision=precision, log=lambda s: None)
         system = c.system
         walls = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -67,7 +72,7 @@ def main() -> int:
                 kernels[evt.key] = (us, evt.count)
         busy_ms = sum(us for us, _ in kernels.values()) / 1e3
         wall_ms = walls[-1]
-        print(f"{variant} {integrator} N={n}: {STEPS} steps, host wall {wall_ms:.4f} ms, "
+        print(f"{precision} {variant} {integrator} N={n}: {STEPS} steps, host wall {wall_ms:.4f} ms, "
               f"device busy {busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]")
         for key, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
             print(f"    {us / 1e3:10.4f} ms  {count:4d} calls  {key[:90]}")

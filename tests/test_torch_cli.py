@@ -104,18 +104,22 @@ def test_drift_check_needs_a_step(capsys):
 
 def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
-    leapfrog path, the sym Hermite drift check and a tipsy file without JAX
-    and without any module of nbody_tpu: the port keeps its own copies."""
+    leapfrog path, the sym Hermite drift check, the ds path and a tipsy file
+    without JAX and without any module of nbody_tpu: the port keeps its own
+    copies."""
     code = (
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
-        "nbody_tpu_torch.models, nbody_tpu_torch.io, nbody_tpu_torch.oracle\n"
+        "nbody_tpu_torch.models, nbody_tpu_torch.io, nbody_tpu_torch.oracle, "
+        "nbody_tpu_torch.models.ds_system, nbody_tpu_torch.ops.ds\n"
         "from nbody_tpu_torch import Compute, BodySystem, NBodyConfig, ic\n"
         "from nbody_tpu_torch.io import write_tipsy_file\n"
         "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu', "
         "'--variant', 'sym', '--integrator', 'leapfrog'])\n"
         "rc |= nbody_tpu_torch.cli.main(['--drift-check', '2', '--numbodies', '128', '--cpu', "
         "'--variant', 'sym', '--integrator', 'hermite'])\n"
+        "rc |= nbody_tpu_torch.cli.main(['--precision', 'ds', '--qatest', '--numbodies', '128', "
+        "'--cpu', '--integrator', 'leapfrog'])\n"
         "write_tipsy_file(sys.argv[1], *ic.generate(NBodyConfig.SHELL, 100, 1.52, 2.0))\n"
         "rc |= nbody_tpu_torch.cli.main(['--qatest', '--cpu', '--tipsy', sys.argv[1]])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'nbody_tpu') "

@@ -448,3 +448,151 @@ def test_total_energy_kernel_against_precise(dev):
     precise = s.total_energy(precise=True)
     # f32 pair terms and f32 sums against the float64 functional
     assert abs(fast - precise) / abs(precise) < 1e-4
+
+
+# ---- double-single (csrc/ds_kernels.cu, csrc/ds_symmetric_kernels.cu) ----
+#
+# Each ds output, as hi + lo in float64, is held to its plain version
+# (ops/ds.py) within 1e-12 * max + 1e-14: both are ds-grade, and only the
+# order of the ds sums and the float32 rsqrt seed (the card's rsqrtf against
+# PyTorch's) differ. Each force is held to the float64 oracle's within
+# 1e-10 * max|a|, which a float32-grade force misses by three orders.
+
+
+def _ds_planes(n, dev, seed=42):
+    """Shell ICs in float64 with masses from [0.5, 2] (so with a lo part)
+    and a random vel.w, as four planes on `dev`, and the float64 state."""
+    from nbody_tpu_torch.ops import ds
+
+    demo = DEMO_PARAMS[0]
+    scales = tuned_scales(n) or (demo.cluster_scale, demo.velocity_scale)
+    pos, vel = ic.generate(NBodyConfig.SHELL, n, *scales, seed=seed, dtype=np.float64)
+    rng = np.random.default_rng(7)
+    pos[:, 3] = rng.uniform(0.5, 2.0, n)
+    vel[:, 3] = rng.standard_normal(n)
+    planes = tuple(t.to(dev) for t in (*ds.ds_from_f64(pos), *ds.ds_from_f64(vel)))
+    return planes, pos
+
+
+def _ds_held(got, want):
+    from nbody_tpu_torch.ops import ds
+
+    for g, w in zip(got, want):
+        g64, w64 = ds.ds_to_f64(*g), ds.ds_to_f64(*w)
+        assert np.isfinite(g64).all()
+        assert np.abs(g64 - w64).max() <= 1e-12 * np.abs(w64).max() + 1e-14
+
+
+def _ds_oracle_held(acc, pos64):
+    from nbody_tpu_torch.compute import _oracle_accel
+    from nbody_tpu_torch.ops import ds
+
+    ref = _oracle_accel(pos64, SOFT)
+    assert np.abs(ds.ds_to_f64(*acc)[:, :3] - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kernel", ["ds_step", "ds_leapfrog", "ds_sym", "ds_sym_cross",
+                                    "ds_sym_512", "ds_sym_cross_512"])
+def test_ds_kernels_match_plain_and_oracle(dev, kernel):
+    from nbody_tpu_torch.ops import ds
+
+    # the sym pair at tile 256 and, with the suffix, at 512: the two tiles
+    # of ds_sym_default_dispatch
+    tile = 512 if kernel.endswith("_512") else 256
+    kernel = kernel.removesuffix("_512")
+    n = 4099
+    planes, pos64 = _ds_planes(n, dev)
+    # damping 0.5: a kernel that drops the damping fails the step checks
+    scal = (ds.scal_ds_leapfrog if kernel == "ds_leapfrog" else ds.scal_ds)(DT, SOFT, 0.5)
+    before = dict(cuda_kernel.LAUNCHES)
+    zero = torch.zeros_like(planes[2])
+    if kernel == "ds_step":
+        got = cuda_kernel.nbody_step_ds_cuda(*planes, scal)
+        want = ds.nbody_step_ds(*planes, scal)
+        # one step from zero velocity with dt = 1, damping 1 leaves v' = a
+        acc = cuda_kernel.nbody_step_ds_cuda(planes[0], planes[1], zero, zero, ds.scal_ds(1.0, SOFT, 1.0))[2:]
+    elif kernel == "ds_leapfrog":
+        got = cuda_kernel.nbody_step_ds_leapfrog_cuda(*planes, scal)
+        want = ds.nbody_step_ds_leapfrog(*planes, scal)
+        acc = cuda_kernel.nbody_step_ds_leapfrog_cuda(planes[0], planes[1], zero, zero,
+                                                      ds.scal_ds_leapfrog(1.0, SOFT, 1.0))[2:]
+    elif kernel == "ds_sym":
+        got = cuda_kernel.ds_sym_accel_cuda(planes[0], planes[1], scal, tile=tile)
+        want = ds.ds_accel_symmetric(planes[0], planes[1], scal)
+        acc = got
+    else:
+        # a small cap forces the composition: 3 triangles and 3 rectangles
+        got = cuda_kernel.compute_accel_ds_symmetric_blocked_cuda(
+            planes[0], planes[1], scal, block_cap=1536, tile=tile)
+        want = ds.ds_accel_symmetric_blocked(planes[0], planes[1], scal, block_cap=1536,
+                                             tile_j=tile)
+        acc = got
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES[kernel] > before[kernel]
+    pairs = lambda t: [t[:2], t[2:]] if len(t) == 4 else [t]  # noqa: E731
+    _ds_held(pairs(got), pairs(want))
+    _ds_oracle_held(acc, pos64)
+    if len(got) == 4:
+        # mass and vel.w carried through from both planes
+        for g, p in zip(got, planes):
+            assert torch.equal(g[:, 3], p[:, 3])
+
+
+def test_ds_sym_pair_repeats_bit_for_bit(dev):
+    from nbody_tpu_torch.ops import ds
+
+    planes, _ = _ds_planes(4099, dev)
+    scal = ds.scal_ds(DT, SOFT, 1.0)
+    for kw in ({}, {"block_cap": 1536, "tile": 256}):
+        a = cuda_kernel.compute_accel_ds_symmetric_blocked_cuda(planes[0], planes[1], scal, **kw)
+        b = cuda_kernel.compute_accel_ds_symmetric_blocked_cuda(planes[0], planes[1], scal, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("integrator, variant", [("euler", "sym"), ("euler", "one_sided"),
+                                                 ("leapfrog", "auto")])
+def test_ds_system_kernels_against_plain_backend(dev, monkeypatch, integrator, variant):
+    from nbody_tpu_torch.models import DSBodySystem
+
+    # a small cap, so the sym path composes triangles and rectangles
+    monkeypatch.setattr(cuda_kernel, "DS_SYM_BLOCK_CAP", 1024)
+    params = DEMO_PARAMS[0].replace(damping=0.5)
+    a = DSBodySystem(2500, params, device=dev, integrator=integrator, variant=variant)
+    b = DSBodySystem(2500, params, device=dev, backend="torch", integrator=integrator,
+                     variant=variant)
+    a.update_many(3, DT)
+    b.update_many(3, DT)
+    a.synchronize()
+    for x, y in ((a.positions, b.positions), (a.velocities, b.velocities)):
+        assert np.abs(x - y).max() <= 1e-12 * np.abs(y).max() + 1e-14
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_compute_ds_qa_and_drift_on_card(dev, integrator):
+    c = Compute(num_bodies=4096, device=dev, precision="ds", integrator=integrator,
+                log=lambda s: None)
+    before = dict(cuda_kernel.LAUNCHES)
+    assert c.compare_results()
+    kernel = "ds_sym" if integrator == "euler" else "ds_leapfrog"
+    assert cuda_kernel.LAUNCHES[kernel] > before[kernel]
+    from nbody_tpu_torch.cli import drift_failed
+
+    assert not drift_failed(c.drift_check(5))
+
+
+def test_ds_wrappers_refuse_bad_arguments_before_launch(dev):
+    from nbody_tpu_torch.ops import ds
+
+    planes, _ = _ds_planes(256, dev)
+    scal = ds.scal_ds(DT, SOFT, 1.0)
+    before = dict(cuda_kernel.LAUNCHES)
+    bad = torch.zeros(planes[0].numel() + 1, device=dev)[1:].view(-1, 4).copy_(planes[0])
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernel.nbody_step_ds_cuda(bad, *planes[1:], scal)
+    with pytest.raises(ValueError, match="scal"):
+        cuda_kernel.ds_sym_accel_cuda(planes[0], planes[1], scal.to(dev))
+    with pytest.raises(ValueError, match="rows"):
+        cuda_kernel.nbody_step_ds_leapfrog_cuda(planes[0], planes[1][:100], *planes[2:], scal)
+    with pytest.raises(ValueError, match="overlaps"):
+        cuda_kernel.nbody_step_ds_cuda(*planes, scal, out=(planes[0], *planes[1:]))
+    assert cuda_kernel.LAUNCHES == before

@@ -140,7 +140,9 @@ def test_nvcc_command_targets_sm90a():
     assert "-shared" in link and str(_build.library_path()) in link
     assert all(cmd[cmd.index("-o") + 1] in link for cmd in compiles)
     assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu",
-                                                "symmetric_aj_kernels.cu"]
+                                                "symmetric_aj_kernels.cu", "ds_kernels.cu",
+                                                "ds_symmetric_kernels.cu"]
+    assert [h.name for h in _build.HEADERS] == ["sym_common.cuh", "ds_common.cuh"]
 
 
 def test_build_dir_is_under_build():
