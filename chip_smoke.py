@@ -58,17 +58,32 @@ its result:
      the ds composition's cap, drift_check(10) at N=16384 and
      drift_check(60) at N=4096 with the two-tier gate; the ds Euler update
      kernel (glue, not in the kernels line) must have launched too;
-  6. placement="host" against placement="device", bit for bit, with Euler
-     and with Hermite;
+  3dh. the double-single accel + jerk kernels (one-sided, triangle,
+     rectangle) and the Hermite predictor and corrector against their plain
+     versions at N in {4099, 16384}, masses from [0.5, 2] in float64, a
+     random vel.w and damping 0.5, the triangle at both tiles of the
+     dispatch table, the composition forced by a small cap, and at
+     N=36864, above the cap, the default dispatch against the float64
+     oracle: each output within 1e-12 * max + 1e-14 of plain, each force
+     and jerk within 1e-10 * max of the oracle's, the glue bit-equal to
+     plain, repeat calls bit-equal; their times at N=16384 and the
+     rectangle's at the main path's shape;
+  5dh. the ds Hermite path through Compute(precision="ds",
+     integrator="hermite"): QA (position, force and jerk against the
+     float64 oracle) for auto (sym) and one_sided at N=16384,
+     run_benchmark(10) at 16384 for both beside the fp32 Hermite step, 3
+     steps at N=36864, above the cap, drift_check(10) at 16384 and (60) at
+     4096; the predictor and corrector kernels (glue, not in the kernels
+     line) must have launched too;
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
      --integrator leapfrog --qatest and with --benchmark, --integrator
      hermite with --qatest and with --drift-check 3, and --precision ds with
-     --qatest, --benchmark, --integrator leapfrog --qatest and
-     --drift-check 10.
+     --qatest, --benchmark, --integrator leapfrog --qatest, --drift-check 10,
+     and --integrator hermite --qatest (N=4096) and --benchmark.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
-Hermite path's and 5d the ds path's: the kernels' launch counters are set
-to 0 before each and read after it, and each kernel of that path must have
-launched. Any failure raises, and the script exits nonzero. The last lines
+Hermite path's, 5d the ds path's and 5dh the ds Hermite path's: the
+kernels' launch counters are set to 0 before each and read after it, and
+each kernel of that path must have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
 """
 
@@ -89,6 +104,7 @@ N_MAIN = 65536  # BASELINE.json configs[1] and bench.py's N
 N_QA = 16384  # nbody_tpu's per-core default N
 N_BIG = 4 * 256 * 132  # the CLI's default N on an H100, above the sym cap
 N_DS_BIG = 65536 + 4096  # above the ds composition's cap: two blocks
+N_DS_AJ_BIG = 32768 + 4096  # above the ds accel + jerk composition's cap: two blocks
 # the card's peak fp32 rate outside the tensor cores and its memory rate
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -104,7 +120,10 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_step": "nbody_tpu_torch/csrc/ds_kernels.cu",
            "ds_leapfrog": "nbody_tpu_torch/csrc/ds_kernels.cu",
            "ds_sym": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
-           "ds_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu"}
+           "ds_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
+           "ds_accel_jerk": "nbody_tpu_torch/csrc/ds_aj_kernels.cu",
+           "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
+           "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "accel": "nbody_tpu/ops/pallas_kernel.py:272",
             "sym": "nbody_tpu/ops/symmetric_kernel.py:107",
@@ -116,15 +135,24 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_step": "nbody_tpu/ops/ds_kernel.py:222",
             "ds_leapfrog": "nbody_tpu/ops/ds_kernel.py:575",
             "ds_sym": "nbody_tpu/ops/ds_kernel.py:1059",
-            "ds_sym_cross": "nbody_tpu/ops/ds_kernel.py:1339"}
+            "ds_sym_cross": "nbody_tpu/ops/ds_kernel.py:1339",
+            "ds_accel_jerk": "nbody_tpu/ops/ds_kernel.py:756",
+            "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
+            "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839"}
 NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
          "ds_step": "nbody_ds_step", "ds_leapfrog": "nbody_ds_leapfrog",
-         "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross"}
+         "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
+         "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
+         "ds_aj_sym_cross": "nbody_ds_aj_cross"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 DS_KERNELS = ("ds_step", "ds_leapfrog", "ds_sym", "ds_sym_cross")
+DS_AJ_KERNELS = ("ds_accel_jerk", "ds_aj_sym", "ds_aj_sym_cross")
+# the ds Hermite step's glue kernels: they must launch on its path, but are
+# not ports of a TPU kernel and stay out of the kernels line
+DS_HERMITE_GLUE = ("ds_hermite_predict", "ds_hermite_correct")
 # FP32-pipe instructions a ds pair, read from the kernels' source (the
 # headers of csrc/ds_kernels.cu and csrc/ds_symmetric_kernels.cu): one side
 # of a pair, and both sides; each counts as 2 flops at the fp32 peak
@@ -132,6 +160,10 @@ DS_PAIR_INSTR = 225
 DS_SYM_PAIR_INSTR = 294
 # a half-drift of one body's three coordinates in ds: ds_mul + ds_add each
 DS_DRIFT_INSTR = 60
+# ds accel + jerk: one side of a pair, and both sides (the headers of
+# csrc/ds_aj_kernels.cu and csrc/ds_symmetric_aj_kernels.cu)
+DS_AJ_PAIR_INSTR = 452
+DS_AJ_SYM_PAIR_INSTR = 608
 
 
 def check(ok: bool, what: str) -> None:
@@ -789,6 +821,213 @@ def phase_ds_main(torch, smi: str) -> None:
         check(not drift_failed(drift), f"ds drift check failed at N={n}: {drift}")
 
 
+def phase_ds_aj_kernels(torch) -> dict:
+    """The double-single accel + jerk kernels and the Hermite glue against
+    their plain versions (ops/ds.py), by the rules of phase 3d: each output
+    within 1e-12 * max + 1e-14 of the plain one, each force and jerk within
+    1e-10 * max of the float64 oracle's, repeat calls bit-equal, the
+    predictor and corrector bit-equal to theirs with the mass and vel.w
+    kept in both planes. Masses from [0.5, 2] in float64 and a random vel.w;
+    damping 0.5 in the scalar block. The triangle at both tiles the kernels
+    take, the composition forced by a small cap, and the default dispatch
+    above the cap against the oracle (its plain version would take a
+    minute); the rectangle against plain at a ragged (4096, 4099) and at
+    the main path's shape above the cap, where it is also timed."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.compute import _oracle_accel_jerk
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import ds, reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
+    scal = ds.scal_ds_hermite(dt, soft, 0.5)
+    err = {k: 0.0 for k in DS_AJ_KERNELS}
+
+    def held(name, got, want, what):
+        for k in range(0, len(got), 2):
+            g64, w64 = ds.ds_to_f64(*got[k:k + 2]), ds.ds_to_f64(*want[k:k + 2])
+            tol = 1e-12 * np.abs(w64).max() + 1e-14
+            e = float(np.abs(g64 - w64).max())
+            print(f"[3dh ds aj] {what} [{k // 2}]: max|d|={e:.3e} (tol {tol:.3e})")
+            check(bool(np.isfinite(g64).all()), f"non-finite output at {what}")
+            check(e <= tol, f"{name} kernel disagrees with its plain version at {what}")
+            err[name] = max(err[name], e)
+
+    def oracle(name, fields, ref, what):
+        for label, k, r in (("force", 0, ref[0]), ("jerk", 2, ref[1])):
+            e = float(np.abs(ds.ds_to_f64(*fields[k:k + 2])[:, :3] - r).max() / np.abs(r).max())
+            print(f"[3dh ds aj] {what} {label} against the float64 oracle: max|d|/max = "
+                  f"{e:.3e} (bound 1e-10)")
+            check(e <= 1e-10, f"{name} {label} is not fp64-grade at {what}")
+
+    def repeat(name, fn, what):
+        same = all(torch.equal(a, b) for a, b in zip(fn(), fn()))
+        print(f"[3dh ds aj] {what}: repeat call bit-equal: {same}")
+        check(same, f"{name} differs between two calls at {what}")
+
+    for n in (4099, N_QA):
+        planes, pos64 = ds_state(torch, n)
+        ref = _oracle_accel_jerk(pos64, ds.ds_to_f64(*planes[2:]), soft)
+        small_cap = 2048 if n < N_QA else 4096
+        bs = ck.ds_default_block_size(n)
+        _, tile = ck.ds_aj_sym_default_dispatch(n)
+        tri_plain = ds.ds_accel_jerk_symmetric(*planes, scal)
+        runs = (
+            ("ds_accel_jerk", lambda: ck.compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
+                                                                     block_size=bs),
+             lambda: ds.ds_accel_jerk_vs(*planes, *planes, scal), f"one-sided N={n} block {bs}"),
+            # the triangle at every tile the kernels take
+            *(("ds_aj_sym", lambda t=t: ck.ds_aj_sym_cuda(*planes, scal, tile=t),
+               lambda: tri_plain, f"triangle N={n} tile {t}") for t in ck.DS_AJ_TILES),
+            ("ds_aj_sym_cross", lambda: ck.compute_accel_jerk_ds_symmetric_blocked_cuda(
+                *planes, scal, block_cap=small_cap, tile=tile),
+             lambda: ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=small_cap,
+                                                        tile_j=tile),
+             f"blocked N={n} cap {small_cap} tile {tile}"),
+        )
+        for name, kernel, plain, what in runs:
+            got = kernel()
+            held(name, got, plain(), what)
+            oracle(name, got, ref, what)
+            repeat(name, kernel, what)
+        # the glue, from the one-sided kernel's (N,4) fields and the
+        # composition's (N,3) ones: bit-equal to the plain versions
+        for what, aj in (("one-sided", lambda st: ck.compute_accel_jerk_ds_cuda_vs(
+                              *st, *st, scal, block_size=bs)),
+                         ("sym", lambda st: ck.compute_accel_jerk_ds_symmetric_blocked_cuda(
+                             *st, scal))):
+            f0 = aj(planes)
+            pred = ck.ds_hermite_predict_cuda(*planes, *f0, scal)
+            f1 = aj(pred)
+            new = ck.ds_hermite_correct_cuda(*planes, *f0, *f1, scal)
+            same = (all(torch.equal(a, b) for a, b in zip(
+                        pred, ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal)))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        new, ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:],
+                                                   scal))))
+            kept = all(torch.equal(a[:, 3], b[:, 3]) for a, b in zip((*pred, *new),
+                                                                     (*planes, *planes)))
+            print(f"[3dh ds aj] predictor and corrector N={n} ({what} fields): bit-equal to "
+                  f"plain: {same}; mass and vel.w kept in both planes: {kept}")
+            check(same and kept, f"the ds Hermite glue disagrees at N={n} ({what})")
+        del planes, tri_plain
+
+    # the main path above the cap at its default dispatch: two triangles
+    # and one rectangle, composed in ds, against the float64 oracle
+    cap, tile = ck.ds_aj_sym_default_dispatch(N_DS_AJ_BIG)
+    _, blk = reference.sym_blocking(N_DS_AJ_BIG, tile, cap)
+    big, big64 = ds_state(torch, N_DS_AJ_BIG)
+    what = f"blocked N={N_DS_AJ_BIG} cap {cap} tile {tile} (default dispatch)"
+
+    def composed():
+        return ck.compute_accel_jerk_ds_symmetric_blocked_cuda(*big, scal)
+
+    oracle("ds_aj_sym_cross", composed(),
+           _oracle_accel_jerk(big64, ds.ds_to_f64(*big[2:]), soft), what)
+    repeat("ds_aj_sym_cross", composed, what)
+    bi, bj = blk, N_DS_AJ_BIG - blk
+    rect = tuple(t[:bi] for t in big) + tuple(t[bi:] for t in big)
+    # the rectangle against plain at (4096, 4099), in the layout of a
+    # composition's cross block
+    sub = tuple(t[:4096] for t in big) + tuple(t[4096:8195] for t in big)
+    held("ds_aj_sym_cross", ck.ds_aj_sym_cross_cuda(*sub, scal, tile=tile),
+         ds.ds_aj_sym_cross(*sub, scal), f"rectangle (4096,4099) tile {tile}")
+    del big64
+
+    # times: the one-sided kernel and the triangle at N = 16384 (the ds
+    # default N), the rectangle at the main path's shape above the cap;
+    # the plain versions once each, the plain rectangle's output kept to
+    # hold the kernel's to at that shape
+    rect_plain = []
+    planes, _ = ds_state(torch, N_QA)
+    out = tuple(torch.empty_like(planes[0]) for _ in range(4))
+    bs = ck.ds_default_block_size(N_QA)
+    _, t16 = ck.ds_aj_sym_default_dispatch(N_QA)
+    n = N_QA
+    runs = {
+        "ds_accel_jerk": (lambda: ck.compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
+                                                                   block_size=bs, out=out),
+                          lambda: ds.ds_accel_jerk_vs(*planes, *planes, scal)),
+        "ds_aj_sym": (lambda: ck.ds_aj_sym_cuda(*planes, scal, tile=t16),
+                      lambda: ds.ds_accel_jerk_symmetric(*planes, scal)),
+        "ds_aj_sym_cross": (lambda: ck.ds_aj_sym_cross_cuda(*rect, scal, tile=tile),
+                            lambda: rect_plain.append(ds.ds_aj_sym_cross(*rect, scal))),
+    }
+    # each input read once (four planes of 16 bytes a row), each output
+    # written once (four fields of 16 or 12 bytes a row)
+    bounds = {
+        "ds_accel_jerk": bound_ms(2 * DS_AJ_PAIR_INSTR * float(n) * n, 4 * n * 16 + 4 * n * 16),
+        "ds_aj_sym": bound_ms(2 * DS_AJ_SYM_PAIR_INSTR * n * (n - 1) / 2,
+                              4 * n * 16 + 4 * n * 12),
+        "ds_aj_sym_cross": bound_ms(2 * DS_AJ_SYM_PAIR_INSTR * float(bi) * bj,
+                                    4 * (bi + bj) * 16 + 4 * bi * 16 + 4 * bj * 12),
+    }
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        kernel()
+        torch.cuda.synchronize()
+        t_k = elapsed_ms(lambda: [kernel() for _ in range(5)], dev) / 5
+        t_p = elapsed_ms(plain, dev)
+        times[name] = (t_k, t_p)
+        shape = f"({bi},{bj})" if name == "ds_aj_sym_cross" else f"N={n}"
+        print(f"[3dh ds aj] {name} at {shape}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per "
+              f"call, bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    what = f"rectangle ({bi},{bj}) tile {tile}"
+    held("ds_aj_sym_cross", ck.ds_aj_sym_cross_cuda(*rect, scal, tile=tile), rect_plain[0], what)
+    repeat("ds_aj_sym_cross", lambda: ck.ds_aj_sym_cross_cuda(*rect, scal, tile=tile), what)
+    del big, rect, sub, rect_plain, planes, out, runs
+    torch.cuda.empty_cache()
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def phase_ds_hermite_main(torch, smi: str) -> None:
+    """The ds Hermite path through Compute(precision="ds",
+    integrator="hermite"): QA against the float64 oracle (position, force
+    and jerk) for auto (sym) and one_sided at N=16384, run_benchmark(10) at
+    16384 for both beside the fp32 Hermite step, 3 steps above the ds
+    accel + jerk composition's cap, and the two-tier drift check."""
+    from nbody_tpu_torch.cli import drift_failed
+    from nbody_tpu_torch.compute import Compute
+
+    for variant, resolved in (("auto", "sym"), ("one_sided", "one_sided")):
+        c = Compute(num_bodies=N_QA, device="cuda", precision="ds", integrator="hermite",
+                    variant=variant, log=lambda s: print(f"[5dh QA] {s}"))
+        check(c.system.variant == resolved, f"ds Hermite variant {c.system.variant} != {resolved}")
+        check(c.compare_results(), f"ds Hermite QA against the float64 oracle failed ({variant})")
+    ms = {}
+    for tag, n, steps, kw in (("ds auto", N_QA, 10, {"precision": "ds"}),
+                              ("fp32 auto", N_QA, 10, {}),
+                              ("ds one_sided", N_QA, 10, {"precision": "ds",
+                                                          "variant": "one_sided"}),
+                              ("ds auto", N_DS_AJ_BIG, 3, {"precision": "ds"})):
+        c = Compute(num_bodies=n, device="cuda", integrator="hermite",
+                    log=lambda s: print(f"[5dh main] {s}"), **kw)
+        res = c.run_benchmark(steps)
+        check(c.system.backend == "cuda", "the ds Hermite path did not select the CUDA backend")
+        pos, vel = c.system.state
+        check(tuple(pos.shape) == (n, 4) and bool(torch.isfinite(pos).all()
+                                                  and torch.isfinite(vel).all()),
+              f"bad state after the {tag} Hermite benchmark at N={n}")
+        ms[(tag, n)] = res["milliseconds"] / res["iterations"]
+        print(f"[5dh main] {tag} ({c.system.variant}, hermite) N={n}: {ms[(tag, n)]:.3f} ms per "
+              f"step [{smi}]")
+    print(f"[5dh main] N={N_QA}: ds Hermite {ms[('ds auto', N_QA)]:.3f} ms (one_sided "
+          f"{ms[('ds one_sided', N_QA)]:.3f}) against fp32 Hermite "
+          f"{ms[('fp32 auto', N_QA)]:.3f} ms per step, "
+          f"{ms[('ds auto', N_QA)] / ms[('fp32 auto', N_QA)]:.1f}x [{smi}]")
+    for n, steps in ((N_QA, 10), (4096, 60)):
+        c = Compute(num_bodies=n, device="cuda", precision="ds", integrator="hermite",
+                    log=lambda s: print(f"[5dh drift] {s}"))
+        t0 = time.perf_counter()
+        drift = c.drift_check(steps)
+        print(f"[5dh drift] N={n}, {steps} steps: horizon delta {drift['horizon_delta']:.3e}, "
+              f"delta {drift['delta']:.3e} in {time.perf_counter() - t0:.1f} s")
+        check(not drift_failed(drift), f"ds Hermite drift check failed at N={n}: {drift}")
+
+
 def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -912,7 +1151,11 @@ def phase_cli() -> None:
             (["--precision", "ds", "--qatest"], "-> OK"),
             (["--precision", "ds", "--benchmark", "-i", "10"], "double-single-precision"),
             (["--precision", "ds", "--integrator", "leapfrog", "--qatest"], "-> OK"),
-            (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"))
+            (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"),
+            (["--precision", "ds", "--integrator", "hermite", "--qatest", "--numbodies", "4096"],
+             "-> OK"),
+            (["--precision", "ds", "--integrator", "hermite", "--benchmark", "-i", "10"],
+             "double-single-precision"))
     procs = [subprocess.Popen([sys.executable, "-m", "nbody_tpu_torch.cli", *args], cwd=ROOT,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for args, _ in runs]
@@ -975,6 +1218,7 @@ def main() -> int:
     sym_kern = timed("3s sym kernels", phase_sym_kernels, torch)
     aj_kern = timed("3h accel+jerk and potential kernels", phase_aj_kernels, torch)
     ds_kern = timed("3d ds kernels", phase_ds_kernels, torch)
+    ds_aj_kern = timed("3dh ds accel+jerk kernels", phase_ds_aj_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -1006,12 +1250,17 @@ def main() -> int:
     # launch on the ds path but is not in the kernels line
     ds_launches = timed("5d ds path", run_path, ck, (*DS_KERNELS, "ds_integrate"),
                         lambda: phase_ds_main(torch, smi))
+    ds_hermite_launches = timed("5dh ds Hermite path", run_path, ck,
+                                (*DS_AJ_KERNELS, *DS_HERMITE_GLUE),
+                                lambda: phase_ds_hermite_main(torch, smi))
     for k in ("sym", "sym_cross"):
         launches[k] = sym_launches[k]
     for k in HERMITE_KERNELS:
         launches[k] = hermite_launches[k]
     for k in DS_KERNELS:
         launches[k] = ds_launches[k]
+    for k in DS_AJ_KERNELS:
+        launches[k] = ds_hermite_launches[k]
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
 
@@ -1022,7 +1271,8 @@ def main() -> int:
     check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key]}
+    found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
+                   **ds_aj_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],

@@ -20,8 +20,9 @@ Modes:
                          (nbody_tpu/cli.py:338-376)
 
 --precision ds runs the double-single (fp64-grade) kernels, default N 16384
-(BASELINE.json configs[2]), with Euler or leapfrog, QA against the float64
-oracle at |dpos| <= 1e-10 and the force at 1e-10 of its largest value.
+(BASELINE.json configs[2]), with Euler, leapfrog or Hermite, QA against the
+float64 oracle at |dpos| <= 1e-10 and the force (and with Hermite the jerk)
+at 1e-10 of its largest value.
 
 The run is on the CUDA card; --cpu selects the plain PyTorch path on the
 host, and nothing else does: without --cpu and without a card the run fails.
@@ -67,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "predictor-corrector (two accel+jerk evaluations a step)")
     p.add_argument("--precision", choices=["fp32", "fp64", "ds"], default="fp32",
                    help="fp32 (default) or ds, the double-single kernels: fp64-grade "
-                        "accuracy from pairs of float32s (default N 16384); fp64 is "
-                        "not ported yet")
+                        "accuracy from pairs of float32s (default N 16384), with every "
+                        "integrator; fp64 is not ported yet")
     p.add_argument("--drift-check", type=int, default=None, metavar="STEPS",
                    help="run STEPS steps on the device and on the CPU oracle "
                         "from the same state and compare their energy drifts; "

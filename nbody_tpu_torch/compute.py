@@ -53,7 +53,8 @@ QA_JERK_ATOL = 1e-4
 # precision="ds" is held to the float64 oracle at the ds grade: |dpos| <=
 # 1e-10 after the QA step (nbody_tpu/cli.py:402), and the force of the
 # state within 1e-10 * max|a| + 1e-12, which a float32-grade force misses
-# by three orders while its dt^2-shrunk position error would pass
+# by three orders while its dt^2-shrunk position error would pass; with
+# integrator="hermite" the jerk too, within 1e-10 * max|j| + 1e-12
 DS_QA_TOLERANCE = 1e-10
 DS_QA_ACCEL_RTOL = 1e-10
 DS_QA_ACCEL_ATOL = 1e-12
@@ -412,24 +413,40 @@ class Compute:
         system's kernels, within DS_QA_ACCEL_RTOL * max|a| + DS_QA_ACCEL_ATOL
         of the oracle's float64 force: after one step a float32-grade force
         moves positions by only dt^2 * 1e-7 * max|a|, under the position
-        bound. The state is restored bit for bit after."""
+        bound. With integrator="hermite" the force and the jerk come from
+        the accel + jerk kernels, and the jerk is held to the float64
+        oracle's by the same rule of its own maximum. The state is restored
+        bit for bit after."""
         p = self.active_params
         planes0 = self.system.get_ds_state()
         pos0, vel0 = self.system.positions, self.system.velocities
-        acc = ds_to_f64(*self.system.accelerations())
+        hermite = self.system.integrator == "hermite"
+        if hermite:
+            fields = self.system.accelerations_and_jerks()
+            acc, jerk = ds_to_f64(*fields[:2]), ds_to_f64(*fields[2:])
+            ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
+        else:
+            acc = ds_to_f64(*self.system.accelerations())
+            ref_acc = _oracle_accel(pos0, p.softening)
         self.system.update(QA_DT)
         self.system.synchronize()
         err = float(np.abs(self.system.positions[:, :3] - step_best(
             pos0, vel0, QA_DT, p.softening, p.damping,
             integrator=self.system.integrator)[0][:, :3]).max())
-        ref_acc = _oracle_accel(pos0, p.softening)
-        acc_err = float(np.abs(acc - ref_acc).max())
-        acc_tol = DS_QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + DS_QA_ACCEL_ATOL
-        passed = err <= DS_QA_TOLERANCE and acc_err <= acc_tol
+        fields = [("dacc", acc, ref_acc)]
+        if hermite:
+            fields.append(("djerk", jerk, ref_jerk))
+        checks = [("dpos", err, DS_QA_TOLERANCE)] + [
+            (name, float(np.abs(got - ref).max()),
+             DS_QA_ACCEL_RTOL * float(np.abs(ref).max()) + DS_QA_ACCEL_ATOL)
+            for name, got, ref in fields]
+        passed = all(e <= tol for _, e, tol in checks)
         oracle = "native C++" if native_available() else "NumPy"
         self.log(
             f"ds QA compare vs float64 {oracle} oracle: max |dpos| = {err:.3e} "
-            f"(tolerance {DS_QA_TOLERANCE:g}), max |dacc| = {acc_err:.3e} "
-            f"(tolerance {acc_tol:.3e}) -> {'OK' if passed else 'FAILED'}")
+            f"(tolerance {DS_QA_TOLERANCE:g}), "
+            + ", ".join(f"max |{name}| = {e:.3e} (tolerance {tol:.3e})"
+                        for name, e, tol in checks[1:])
+            + f" -> {'OK' if passed else 'FAILED'}")
         self.system.set_ds_state(*planes0)
         return passed

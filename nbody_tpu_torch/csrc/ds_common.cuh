@@ -1,7 +1,8 @@
 // Double-single ("ds") arithmetic on the device: every value is an
 // unevaluated sum hi + lo of two floats (a ~49-bit significand), carried
-// through error-free transformations. Shared by ds_kernels.cu and
-// ds_symmetric_kernels.cu; the counterpart of ops/ds.py and of
+// through error-free transformations. Shared by every ds source
+// (ds_kernels.cu, ds_symmetric_kernels.cu, ds_aj_kernels.cu,
+// ds_symmetric_aj_kernels.cu); the counterpart of ops/ds.py and of
 // nbody_tpu/ops/ds_kernel.py:75-153.
 //
 // Why intrinsics. The error terms below are exact only if every sum and
@@ -89,17 +90,33 @@ __device__ __forceinline__ dsf ds_rsqrt(const dsf x) {
   return ds_mul_f32(ds_mul(y, corr), 0.5f);
 }
 
-// the pair geometry in the op order of ds_kernel.py:206-212: d = p_j - p_i,
-// r2 = (dx^2 + dy^2) + (dz^2 + eps2), inv3 = (inv * inv) * inv
-__device__ __forceinline__ void ds_pair(const dsf xj, const dsf yj, const dsf zj, const dsf xi,
-                                        const dsf yi, const dsf zi, const dsf eps2, dsf& dx,
-                                        dsf& dy, dsf& dz, dsf& inv3) {
+// the pair geometry in the op order of ds_kernel.py:206-212 and :795-805:
+// d = p_j - p_i, r2 = (dx^2 + dy^2) + (dz^2 + eps2), inv2 = inv * inv,
+// inv3 = inv2 * inv
+__device__ __forceinline__ void ds_pair2(const dsf xj, const dsf yj, const dsf zj, const dsf xi,
+                                         const dsf yi, const dsf zi, const dsf eps2, dsf& dx,
+                                         dsf& dy, dsf& dz, dsf& inv2, dsf& inv3) {
   dx = ds_sub(xj, xi);
   dy = ds_sub(yj, yi);
   dz = ds_sub(zj, zi);
   const dsf r2 = ds_add(ds_add(ds_mul(dx, dx), ds_mul(dy, dy)), ds_add(ds_mul(dz, dz), eps2));
   const dsf inv = ds_rsqrt(r2);
-  inv3 = ds_mul(ds_mul(inv, inv), inv);
+  inv2 = ds_mul(inv, inv);
+  inv3 = ds_mul(inv2, inv);
+}
+
+// the force's geometry: ds_pair2 without inv2
+__device__ __forceinline__ void ds_pair(const dsf xj, const dsf yj, const dsf zj, const dsf xi,
+                                        const dsf yi, const dsf zi, const dsf eps2, dsf& dx,
+                                        dsf& dy, dsf& dz, dsf& inv3) {
+  dsf inv2;
+  ds_pair2(xj, yj, zj, xi, yi, zi, eps2, dx, dy, dz, inv2, inv3);
+}
+
+// (ax bx + ay by) + az bz, the op order of ds_kernel.py:807-808
+__device__ __forceinline__ dsf ds_dot3(const dsf ax, const dsf ay, const dsf az, const dsf bx,
+                                       const dsf by, const dsf bz) {
+  return ds_add(ds_add(ds_mul(ax, bx), ds_mul(ay, by)), ds_mul(az, bz));
 }
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -135,6 +152,24 @@ ds_scalars read_scalars(const float* scal) {
   s.eps2 = make_ds(scal[1], scal[5]);
   s.damping = make_ds(scal[2], scal[6]);
   s.dt_half = make_ds(scal[3], scal[7]);
+  return s;
+}
+
+// The Hermite block, (2, 8) floats: the hi and lo parts of [dt, eps^2,
+// damping, dt/2, dt^2/2, dt^3/6, dt^2/12, 0] (ops/ds.py::scal_ds_hermite)
+struct ds_hermite_scalars {
+  dsf dt, eps2, damping, dt_half, dt2_2, dt3_6, dt2_12;
+};
+
+ds_hermite_scalars read_hermite_scalars(const float* scal) {
+  ds_hermite_scalars s;
+  s.dt = make_ds(scal[0], scal[8]);
+  s.eps2 = make_ds(scal[1], scal[9]);
+  s.damping = make_ds(scal[2], scal[10]);
+  s.dt_half = make_ds(scal[3], scal[11]);
+  s.dt2_2 = make_ds(scal[4], scal[12]);
+  s.dt3_6 = make_ds(scal[5], scal[13]);
+  s.dt2_12 = make_ds(scal[6], scal[14]);
   return s;
 }
 

@@ -61,8 +61,7 @@
 
 #include <cuda_runtime.h>
 
-#include "ds_common.cuh"
-#include "sym_common.cuh"
+#include "ds_sym_common.cuh"
 
 namespace {
 
@@ -145,25 +144,6 @@ __device__ __forceinline__ void ds_tile_pair(
   }
 }
 
-// the warps' ds reaction sums of component comp (0..2) at local column x,
-// ds-added in warp order
-template <int T>
-__device__ __forceinline__ dsf ds_warp_sum(const float* red, const int comp, const int x) {
-  dsf s = make_ds(red[comp * T + x], red[(3 + comp) * T + x]);
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    s = ds_add(s, make_ds(red[(w * kComps + comp) * T + x], red[(w * kComps + 3 + comp) * T + x]));
-  }
-  return s;
-}
-
-// parts[(t * 6 + plane * 3 + comp) * n + x] = the (hi, lo) slot of a ds value
-__device__ __forceinline__ void put(float* parts, const int64_t t, const int comp,
-                                    const int64_t n, const int64_t x, const dsf v) {
-  parts[(t * kComps + comp) * n + x] = v.hi;
-  parts[(t * kComps + 3 + comp) * n + x] = v.lo;
-}
-
 // Triangle of one set: scratch (R, 6, n), R = ceil(n / T).
 template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
@@ -191,12 +171,12 @@ __global__ void __launch_bounds__(kThreads)
     const dsf a[3] = {ax[u], ay[u], az[u]};
 #pragma unroll
     for (int comp = 0; comp < 3; ++comp) {
-      const dsf re = ds_warp_sum<T>(red, comp, x);
+      const dsf re = ds_warp_sum<T, kComps>(red, comp, x);
       if (r == c) {
-        if (row0 + x < n) put(scratch, r, comp, n, row0 + x, ds_add(a[comp], re));
+        if (row0 + x < n) ds_put<kComps>(scratch, r, comp, n, row0 + x, ds_add(a[comp], re));
       } else {
-        if (row0 + x < n) put(scratch, c, comp, n, row0 + x, a[comp]);
-        if (col0 + x < n) put(scratch, r, comp, n, col0 + x, re);
+        if (row0 + x < n) ds_put<kComps>(scratch, c, comp, n, row0 + x, a[comp]);
+        if (col0 + x < n) ds_put<kComps>(scratch, r, comp, n, col0 + x, re);
       }
     }
   }
@@ -224,44 +204,12 @@ __global__ void __launch_bounds__(kThreads)
     const dsf a[3] = {ax[u], ay[u], az[u]};
 #pragma unroll
     for (int comp = 0; comp < 3; ++comp) {
-      if (row0 + x < bi) put(act, c, comp, bi, row0 + x, a[comp]);
-      if (col0 + x < bj) put(react, r, comp, bj, col0 + x, ds_warp_sum<T>(red, comp, x));
+      if (row0 + x < bi) ds_put<kComps>(act, c, comp, bi, row0 + x, a[comp]);
+      if (col0 + x < bj) {
+        ds_put<kComps>(react, r, comp, bj, col0 + x, ds_warp_sum<T, kComps>(red, comp, x));
+      }
     }
   }
-}
-
-// out_hi/out_lo[x * sx + comp * sc] = the ds sum over t = 0, 1, ... of the
-// slots of (comp, x), comp < 3, in tile order; with zero_w, the w lane
-// (x * sx + 3 * sc) is 0 as well. No parts: the sum is 0.
-__global__ void __launch_bounds__(256)
-    ds_sum_partials_kernel(const float* __restrict__ parts, const int64_t nparts, const int64_t n,
-                           float* __restrict__ out_hi, float* __restrict__ out_lo,
-                           const int64_t sx, const int64_t sc, const int zero_w) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= 3 * n) return;
-  const int64_t comp = idx / n;
-  const int64_t x = idx - comp * n;
-  dsf s = make_ds(0.f, 0.f);
-  if (nparts > 0) s = make_ds(parts[comp * n + x], parts[(3 + comp) * n + x]);
-  for (int64_t t = 1; t < nparts; ++t) {
-    s = ds_add(s, make_ds(parts[(t * kComps + comp) * n + x], parts[(t * kComps + 3 + comp) * n + x]));
-  }
-  out_hi[x * sx + comp * sc] = s.hi;
-  out_lo[x * sx + comp * sc] = s.lo;
-  if (zero_w && comp == 0) {
-    out_hi[x * sx + 3 * sc] = 0.f;
-    out_lo[x * sx + 3 * sc] = 0.f;
-  }
-}
-
-cudaError_t ds_sum_partials(const float* parts, int64_t nparts, int64_t n, float* out_hi,
-                            float* out_lo, int64_t sx, int64_t sc, int zero_w,
-                            cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>(cdiv(3 * n, 256));
-  ds_sum_partials_kernel<<<blocks, 256, 0, stream>>>(parts, nparts, n, out_hi, out_lo, sx, sc,
-                                                      zero_w);
-  return cudaGetLastError();
 }
 
 // The damped Euler update in ds (ds_kernel.py:1271-1301), one thread a body:
@@ -341,7 +289,7 @@ int nbody_ds_sym_accel(const void* pos_hi, const void* pos_lo, int64_t n, const 
                     : rows == 4 ? launch_tri<4>(ph, pl, n, eps2, sc, s)
                                 : launch_tri<8>(ph, pl, n, eps2, sc, s);
   if (err != cudaSuccess) return err;
-  return ds_sum_partials(sc, cdiv(n, tile), n, static_cast<float*>(acc_hi),
+  return ds_sum_partials(sc, cdiv(n, tile), kComps, n, static_cast<float*>(acc_hi),
                          static_cast<float*>(acc_lo), 3, 1, 0, s);
 }
 
@@ -370,12 +318,13 @@ int nbody_ds_sym_cross(const void* pos_hi_i, const void* pos_lo_i, int64_t bi,
     if (err != cudaSuccess) return err;
   }
   // with an empty other side there are no partials: the sums are 0
-  cudaError_t err = ds_sum_partials(si, bj > 0 ? cdiv(bj, tile) : 0, bi,
+  cudaError_t err = ds_sum_partials(si, bj > 0 ? cdiv(bj, tile) : 0, kComps, bi,
                                     static_cast<float*>(acc_hi), static_cast<float*>(acc_lo), 4, 1,
                                     1, s);
   if (err != cudaSuccess) return err;
-  return ds_sum_partials(sj, bi > 0 ? cdiv(bi, tile) : 0, bj, static_cast<float*>(react_hi),
-                         static_cast<float*>(react_lo), 1, bj, 0, s);
+  return ds_sum_partials(sj, bi > 0 ? cdiv(bi, tile) : 0, kComps, bj,
+                         static_cast<float*>(react_hi), static_cast<float*>(react_lo), 1, bj, 0,
+                         s);
 }
 
 // the four new planes of the set (n, 4) after the ds Euler update with the

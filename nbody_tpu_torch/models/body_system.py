@@ -71,7 +71,6 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "fp64": "Queue 1 #5 (fp64)",
-    "ds_hermite": "Queue 2 #14, #17, #18 (ds Hermite)",
     "pm": "Queue 1 #10 (PM / P3M)",
     "p3m": "Queue 1 #10 (PM / P3M)",
     "mesh": "Queue 1 #13 (parallel/)",

@@ -13,16 +13,22 @@ Backends:
   * "auto"  — "cuda" on a CUDA device, else "torch"
 
 Variants, resolved as ``nbody_tpu`` resolves them (ds_system.py:120-149):
-  * "sym"       — Euler with each pair once: the blocked ds triangle and
+  * "sym"       — each pair once: for Euler the blocked ds triangle and
     rectangle composition (``ds_sym_default_dispatch``), then the ds Euler
-    update (one glue kernel on the card)
-  * "one_sided" — the fused one-sided ds step; leapfrog has only this form
-  * "auto"      — "sym" for Euler, "one_sided" for leapfrog
+    update (one glue kernel on the card); for Hermite the blocked ds
+    accel + jerk composition (``ds_aj_sym_default_dispatch``)
+  * "one_sided" — the fused one-sided ds step, or for Hermite the one-sided
+    ds accel + jerk kernel; leapfrog has only this form
+  * "auto"      — "sym" for Euler and Hermite, "one_sided" for leapfrog
 The autotuner's cache that ``nbody_tpu`` consults for "auto" is not ported:
-the measured table of ``ds_sym_default_dispatch`` takes its place.
+the measured tables of ``ds_sym_default_dispatch`` and
+``ds_aj_sym_default_dispatch`` take its place.
 
-Integrators: "euler" (damped semi-implicit) and "leapfrog" (the fused
-drift-kick-drift kernel). ds Hermite and a mesh come with later slices.
+Integrators: "euler" (damped semi-implicit), "leapfrog" (the fused
+drift-kick-drift kernel) and "hermite" (4th-order P(EC): two ds accel +
+jerk evaluations a step around the ds predictor and corrector, one glue
+kernel each on the card, as ``nbody_step_pallas_ds_hermite``). A mesh
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -39,7 +45,12 @@ from nbody_tpu_torch.ops import ds
 from nbody_tpu_torch.ops.cuda_kernel import (
     check_block_size,
     compute_accel_ds_symmetric_blocked_cuda,
+    compute_accel_jerk_ds_cuda_vs,
+    compute_accel_jerk_ds_symmetric_blocked_cuda,
+    ds_aj_sym_default_dispatch,
     ds_default_block_size,
+    ds_hermite_correct_cuda,
+    ds_hermite_predict_cuda,
     ds_integrate_cuda,
     ds_sym_default_dispatch,
     nbody_step_ds_cuda,
@@ -79,17 +90,15 @@ class DSBodySystem:
             backend = "cuda" if self.device.type == "cuda" else "torch"
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(f"backend='cuda' needs a CUDA device; got {self.device}")
-        if integrator == "hermite":
-            raise not_ported("precision='ds' with integrator", "hermite", key="ds_hermite")
-        if integrator not in ("euler", "leapfrog"):
+        if integrator not in ("euler", "leapfrog", "hermite"):
             raise ValueError(f"unknown integrator {integrator!r}")
         if variant not in ("auto", "sym", "one_sided"):
             raise ValueError(f"unknown ds variant {variant!r}")
-        if variant == "sym" and integrator != "euler":
-            raise ValueError("variant='sym' applies to the euler ds step (the fused "
-                             "leapfrog kernel is one-sided)")
+        if variant == "sym" and integrator == "leapfrog":
+            raise ValueError("variant='sym' applies to the euler and hermite ds steps (the "
+                             "fused leapfrog kernel is one-sided)")
         if variant == "auto":
-            variant = "sym" if integrator == "euler" else "one_sided"
+            variant = "one_sided" if integrator == "leapfrog" else "sym"
 
         self.backend = backend
         self.variant = variant
@@ -105,8 +114,10 @@ class DSBodySystem:
             return [torch.empty((self.num_bodies, 4), dtype=torch.float32, device=self.device)
                     for _ in range(4)]
 
-        # [current, next] sets of (pos_hi, pos_lo, vel_hi, vel_lo)
+        # [current, next] sets of (pos_hi, pos_lo, vel_hi, vel_lo), and for
+        # Hermite the predicted state's
         self._planes = [planes(), planes()]
+        self._pred = planes() if integrator == "hermite" else None
         self._cur = 0
         if state is not None:
             self.set_state(*state)
@@ -190,6 +201,8 @@ class DSBodySystem:
         damping = p.damping if damping is None else damping
         if self.integrator == "leapfrog":
             return ds.scal_ds_leapfrog(dt, p.softening, damping)
+        if self.integrator == "hermite":
+            return ds.scal_ds_hermite(dt, p.softening, damping)
         return ds.scal_ds(dt, p.softening, damping)
 
     def _sym_accel(self, pos_hi, pos_lo, scal):
@@ -210,10 +223,41 @@ class DSBodySystem:
         for t, r in zip(out, step(*planes, scal)):
             t.copy_(r)
 
+    def _accel_jerk(self, planes, scal):
+        """(acc_hi, acc_lo, jerk_hi, jerk_lo) of the state `planes` with
+        this system's variant and backend: (N,3) each from the each-pair-once
+        composition, (N,4) from the one-sided kernel."""
+        if self.variant == "sym":
+            if self.backend == "cuda":
+                return compute_accel_jerk_ds_symmetric_blocked_cuda(*planes, scal)
+            cap, tile = ds_aj_sym_default_dispatch(self.num_bodies)
+            return ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=cap, tile_j=tile)
+        if self.backend == "cuda":
+            return compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
+                                                 block_size=self.block_size)
+        return ds.ds_accel_jerk_vs(*planes, *planes, scal)
+
+    def _hermite_step(self, planes, scal, out) -> None:
+        """One ds Hermite P(EC) step from `planes` into `out`: accel + jerk,
+        the predictor into the predicted planes, accel + jerk there, the
+        corrector; on the card four launches (one-sided) or eight and more
+        (each pair once) and no host synchronisation."""
+        f0 = self._accel_jerk(planes, scal)
+        if self.backend == "cuda":
+            pred = ds_hermite_predict_cuda(*planes, *f0, scal, out=self._pred)
+            ds_hermite_correct_cuda(*planes, *f0, *self._accel_jerk(pred, scal), scal, out=out)
+            return
+        pred = ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal)
+        f1 = self._accel_jerk(pred, scal)
+        for t, r in zip(out, ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:], scal)):
+            t.copy_(r)
+
     def _step(self, scal) -> None:
         cur, nxt = self._cur, 1 - self._cur
         planes, out = self._planes[cur], self._planes[nxt]
-        if self.variant == "sym":
+        if self.integrator == "hermite":
+            self._hermite_step(planes, scal, out)
+        elif self.variant == "sym":
             acc = self._sym_accel(planes[0], planes[1], scal)
             if self.backend == "cuda":
                 ds_integrate_cuda(*planes, *acc, scal, out=out)
@@ -237,19 +281,30 @@ class DSBodySystem:
 
     def accelerations(self):
         """(acc_hi, acc_lo), each (N,3), of the current state on the device,
-        with this system's kernels (or plain versions). For "sym" that is
-        the each-pair-once composition. The one-sided variants have no
+        with this system's kernels (or plain versions). With Hermite, the
+        accel + jerk kernels'. For "sym" that is the each-pair-once
+        composition. The one-sided Euler and leapfrog variants have no
         force-only kernel in this slice, so their fused step gives the
         force: one step from zero velocities with dt = 1 and damping = 1
         leaves v' = a exactly in ds (the leapfrog half-drift moves nothing
         at zero velocity); the next step's buffers hold the result."""
         planes = self._planes[self._cur]
+        if self.integrator == "hermite":
+            return self.accelerations_and_jerks()[:2]
         if self.variant == "sym":
             return self._sym_accel(planes[0], planes[1], self._scal(1.0, 1.0))
         zero = torch.zeros_like(planes[2])
         out = self._planes[1 - self._cur]
         self._fused_step((planes[0], planes[1], zero, zero.clone()), self._scal(1.0, 1.0), out)
         return out[2][:, :3], out[3][:, :3]
+
+    def accelerations_and_jerks(self):
+        """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (N,3), of the current
+        state on the device, with this system's variant of the accel + jerk
+        kernels (or plain versions), as ``BodySystem.accelerations_and_jerks``
+        in ds."""
+        fields = self._accel_jerk(self._planes[self._cur], self._scal(1.0, 1.0))
+        return tuple(f[:, :3] for f in fields)
 
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""

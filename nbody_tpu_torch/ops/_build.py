@@ -24,8 +24,9 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
            CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
-           CSRC / "ds_symmetric_kernels.cu")
-HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh")
+           CSRC / "ds_symmetric_kernels.cu", CSRC / "ds_aj_kernels.cu",
+           CSRC / "ds_symmetric_aj_kernels.cu")
+HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh", CSRC / "ds_sym_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) that
@@ -143,6 +144,17 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_sym_cross.restype = ctypes.c_int
     lib.nbody_ds_integrate.argtypes = [ptr] * 10 + [i64, ptr, ptr]
     lib.nbody_ds_integrate.restype = ctypes.c_int
+    lib.nbody_ds_accel_jerk.argtypes = [ptr] * 12 + [i64, i64, ptr, i64, ptr]
+    lib.nbody_ds_accel_jerk.restype = ctypes.c_int
+    lib.nbody_ds_aj_sym.argtypes = [ptr] * 4 + [i64, ptr, i64] + [ptr] * 6
+    lib.nbody_ds_aj_sym.restype = ctypes.c_int
+    lib.nbody_ds_aj_cross.argtypes = ([ptr] * 4 + [i64] + [ptr] * 4 + [i64, ptr, i64]
+                                      + [ptr] * 11)
+    lib.nbody_ds_aj_cross.restype = ctypes.c_int
+    lib.nbody_ds_hermite_predict.argtypes = [ptr] * 8 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
+    lib.nbody_ds_hermite_predict.restype = ctypes.c_int
+    lib.nbody_ds_hermite_correct.argtypes = [ptr] * 12 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
+    lib.nbody_ds_hermite_correct.restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

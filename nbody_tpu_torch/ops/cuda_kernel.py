@@ -1,6 +1,7 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
 ``csrc/symmetric_kernels.cu``, ``csrc/symmetric_aj_kernels.cu``, and the
-double-single ``csrc/ds_kernels.cu`` and ``csrc/ds_symmetric_kernels.cu``).
+double-single ``csrc/ds_kernels.cu``, ``csrc/ds_symmetric_kernels.cu``,
+``csrc/ds_aj_kernels.cu`` and ``csrc/ds_symmetric_aj_kernels.cu``).
 
 Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` /
 ``compute_accel_pallas`` / ``compute_accel_jerk_pallas`` and of the per-row
@@ -15,7 +16,9 @@ with one square ``tile`` of 128, 256, 512 or 1024 bodies, and the measured
 ``sym_default_dispatch`` / ``aj_sym_default_dispatch``; and of the ds
 kernels of ``nbody_tpu/ops/ds_kernel.py`` (``_ds_step_kernel``,
 ``_ds_leapfrog_kernel``, ``_ds_sym_kernel``, ``_ds_sym_cross_kernel``) with
-their ``ds_sym_default_dispatch``.
+their ``ds_sym_default_dispatch``, and of the ds Hermite step's
+(``_ds_accel_jerk_kernel``, ``_ds_aj_sym_kernel``, ``_ds_aj_sym_cross_kernel``)
+with ``ds_aj_sym_default_dispatch``.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
@@ -42,7 +45,8 @@ DEFAULT_BLOCK_SIZE = 256
 LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0,
             "accel_jerk": 0, "potential": 0, "aj_sym": 0, "aj_sym_cross": 0,
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
-            "ds_integrate": 0}
+            "ds_integrate": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0, "ds_aj_sym_cross": 0,
+            "ds_hermite_predict": 0, "ds_hermite_correct": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -260,10 +264,10 @@ def sym_default_dispatch(n: int) -> tuple[int, int]:
     return SYM_BLOCK_CAP, DEFAULT_SYM_TILE
 
 
-def check_sym_tile(tile: int) -> int:
+def check_sym_tile(tile: int, tiles: tuple = SYM_TILES) -> int:
     t = int(tile)
-    if t not in SYM_TILES:
-        raise ValueError(f"tile must be one of {SYM_TILES}; got {tile}")
+    if t not in tiles:
+        raise ValueError(f"tile must be one of {tiles}; got {tile}")
     return t
 
 
@@ -509,12 +513,14 @@ def compute_accel_jerk_symmetric_blocked_cuda(pos, vel, softening, *,
 _PLANES = ("pos_hi", "pos_lo", "vel_hi", "vel_lo")
 
 
-def _check_scal(scal) -> None:
+def _check_scal(scal, widths=(4,)) -> None:
+    """`scal`: a contiguous (2, w) float32 CPU block of ops/ds.py, w in `widths`."""
     if (not isinstance(scal, torch.Tensor) or scal.dtype != torch.float32
-            or tuple(scal.shape) != (2, 4) or scal.device.type != "cpu"
-            or not scal.is_contiguous()):
-        raise ValueError("scal must be the contiguous (2, 4) float32 CPU tensor of "
-                         "ops/ds.py::scal_ds or scal_ds_leapfrog")
+            or scal.dim() != 2 or scal.shape[0] != 2 or scal.shape[1] not in widths
+            or scal.device.type != "cpu" or not scal.is_contiguous()):
+        shapes = " or ".join(f"(2, {w})" for w in widths)
+        raise ValueError(f"scal must be the contiguous {shapes} float32 CPU tensor of "
+                         "ops/ds.py::scal_ds, scal_ds_leapfrog or scal_ds_hermite")
 
 
 def _check_planes(names, planes, device) -> None:
@@ -770,4 +776,258 @@ def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, o
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_ds_integrate launch")
     LAUNCHES["ds_integrate"] += 1
+    return out
+
+
+# ---- double-single accel + jerk and the Hermite glue:
+# csrc/ds_aj_kernels.cu, csrc/ds_symmetric_aj_kernels.cu ----
+#
+# The accel + jerk kernels read eps^2 from column 1 of a ds scalar block,
+# (2,4) or the (2,8) of ops/ds.py::scal_ds_hermite; the predictor and
+# corrector take the (2,8) block.
+
+DS_AJ_TILES = (128, 256)  # ROWS 1, 2; ROWS 4 and 8 are not built
+
+# The dispatch tables of the ds accel + jerk kernels, their own: a pair
+# costs ~452 FP32-pipe instructions one-sided and ~608 for both sides, a
+# pair carries 26 values around the warp, and ptxas gives 96 / 128 / 168
+# registers at ROWS 1 / 2 / 4 (the last spilling 8 bytes) and 62 one-sided.
+# Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+# scripts/torch_ds_aj_dispatch.py (PERF.md, Findings), ms per call at
+# N = 16384 / 32768 / 65536:
+#   one-sided, block 128              7.404 / 19.446 / 73.439
+#   one-sided, block 256              9.801 / 19.507 / 69.775
+#   sym, tile 128, one triangle       3.208 / 12.195 /      -
+#   sym, tile 256, one triangle       3.336 / 12.417 / 48.212
+#   sym, tile 256, cap 32768              - /      - / 48.037
+#   sym, tile 512, one triangle       4.283 / 14.038 / 53.162
+# and above the cap, composed at cap 32768, at N = 36864 / 65536, with the
+# composition's rectangle alone at (N/2, N/2):
+#   sym, tile 128, cap 32768          15.863 / 48.537   rectangle 8.054 / 24.537
+#   sym, tile 256, cap 32768          15.818 / 48.020   rectangle 7.768 / 23.481
+# Up to N = 32768 tile 128 (ROWS 1: 96 registers, 24 KB a block, twice the
+# blocks of ROWS 2) wins the triangle; above the cap the rectangle, which
+# has blocks enough at either tile, runs 4 % faster at tile 256 (it shuffles
+# half as often a pair), and so does the composition. The one-sided kernel takes
+# the ds step's ds_default_block_size. ROWS 4's registers and 96 KB a block
+# lost everywhere and it is not built. Cap 32768 bounds a launch's scratch
+# (ceil(N/T) * 12 * N floats) at 403 MB and costs nothing at N = 65536.
+DS_AJ_SYM_TILES = (128, 256)  # at N <= DS_SMALL_N, above
+DS_AJ_SYM_BLOCK_CAP = 32768
+
+
+def ds_aj_sym_default_dispatch(n: int) -> tuple[int, int]:
+    """``(block_cap, tile)`` of the each-pair-once ds accel + jerk at N
+    bodies: the table above."""
+    return DS_AJ_SYM_BLOCK_CAP, DS_AJ_SYM_TILES[n > DS_SMALL_N]
+
+
+def _eps_block(scal) -> torch.Tensor:
+    """The (2,4) head of a checked ds scalar block: the layout the
+    accel + jerk kernels read (eps^2 in column 1)."""
+    return scal if scal.shape[1] == 4 else scal[:, :4].contiguous()
+
+
+def compute_accel_jerk_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi,
+                                  jvel_lo, scal, *, block_size: int | None = None, out=None):
+    """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (M,4) with w = 0: the ds
+    accel + jerk of the i-set (M,4 planes) under the j-set (N,4 planes),
+    the kernel of ``_ds_accel_jerk_kernel``. ``block_size`` defaults to
+    ``ds_default_block_size``; ``out`` holds four preallocated (M,4)
+    tensors, which must not overlap any input."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_planes(tuple("j" + name for name in _PLANES), jplanes, device)
+    _check_scal(scal, (4, 8))
+    m, n = pos_hi.shape[0], jpos_hi.shape[0]
+    bs = check_block_size(ds_default_block_size(m) if block_size is None else block_size)
+    out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, *jplanes))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_accel_jerk_vs(*planes, *jplanes, scal)):
+            t.copy_(r)
+        return out
+    if m == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    head = _eps_block(scal)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_accel_jerk(
+            *(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, head.data_ptr(), bs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_accel_jerk launch")
+    LAUNCHES["ds_accel_jerk"] += 1
+    return out
+
+
+def ds_aj_sym_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal, *, tile: int = DS_AJ_SYM_TILES[1]):
+    """(N,4) hi/lo planes -> (acc_hi, acc_lo, jerk_hi, jerk_lo), each
+    (N,3): the set's ds accel + jerk on itself, each pair once over the
+    triangle j > i, the i-side and the reaction merged in ds (the kernel of
+    ``_ds_aj_sym_kernel``)."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_scal(scal, (4, 8))
+    tile = check_sym_tile(tile, DS_AJ_TILES)
+    n = pos_hi.shape[0]
+    out = _ds_outs(None, [(n, 3)] * 4, device, planes)
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_accel_jerk_symmetric(*planes, scal)):
+            t.copy_(r)
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    head = _eps_block(scal)
+    scratch = torch.empty((_cdiv(n, tile), 12, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_aj_sym(
+            *(t.data_ptr() for t in planes), n, head.data_ptr(), tile, scratch.data_ptr(),
+            *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_aj_sym launch")
+    LAUNCHES["ds_aj_sym"] += 1
+    return out
+
+
+def ds_aj_sym_cross_cuda(pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i, pos_hi_j, pos_lo_j, vel_hi_j,
+                         vel_lo_j, scal, *, tile: int = DS_AJ_SYM_TILES[1]):
+    """The ds accel + jerk rectangle of the i-set (Bi,4 planes) and the
+    j-set (Bj,4 planes), each pair once and with no mask (the kernel of
+    ``_ds_aj_sym_cross_kernel``): returns (acc_hi, acc_lo, jerk_hi, jerk_lo),
+    each (Bi,4) with w = 0, then (react_acc_hi, react_acc_lo,
+    react_jerk_hi, react_jerk_lo), each (3,Bj)."""
+    device = pos_hi_i.device if isinstance(pos_hi_i, torch.Tensor) else None
+    iplanes = (pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i)
+    jplanes = (pos_hi_j, pos_lo_j, vel_hi_j, vel_lo_j)
+    _check_planes(tuple(name + "_i" for name in _PLANES), iplanes, device)
+    _check_planes(tuple(name + "_j" for name in _PLANES), jplanes, device)
+    _check_scal(scal, (4, 8))
+    tile = check_sym_tile(tile, DS_AJ_TILES)
+    bi, bj = pos_hi_i.shape[0], pos_hi_j.shape[0]
+    out = _ds_outs(None, [(bi, 4)] * 4 + [(3, bj)] * 4, device, (*iplanes, *jplanes))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_aj_sym_cross(*iplanes, *jplanes, scal)):
+            t.copy_(r)
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    head = _eps_block(scal)
+    scratch_i = torch.empty((_cdiv(bj, tile), 12, bi), dtype=torch.float32, device=device)
+    scratch_j = torch.empty((_cdiv(bi, tile), 12, bj), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_aj_cross(
+            *(t.data_ptr() for t in iplanes), bi, *(t.data_ptr() for t in jplanes), bj,
+            head.data_ptr(), tile, scratch_i.data_ptr(), scratch_j.data_ptr(),
+            *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_aj_cross launch")
+    LAUNCHES["ds_aj_sym_cross"] += 1
+    return out
+
+
+def compute_accel_jerk_ds_symmetric_blocked_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal, *,
+                                                 block_cap: int | None = None,
+                                                 tile: int | None = None):
+    """(N,4) hi/lo planes -> (acc_hi, acc_lo, jerk_hi, jerk_lo), each
+    (N,3), each pair once at any N: one triangle launch for N <= block_cap,
+    else k triangle and k(k-1)/2 cross launches, each block's parts ds-added
+    in a fixed order (``reference.compose_symmetric_blocked``). Defaults
+    from ``ds_aj_sym_default_dispatch``."""
+    cap, t = ds_aj_sym_default_dispatch(pos_hi.shape[0])
+    cap = cap if block_cap is None else int(block_cap)
+    t = check_sym_tile(t if tile is None else tile, DS_AJ_TILES)
+    return reference.compose_symmetric_blocked(
+        (pos_hi, pos_lo, vel_hi, vel_lo), scal, block_cap=cap, tile_j=t,
+        triangle=lambda *a: ds_aj_sym_cuda(*a, tile=t),
+        cross=lambda *a: ds_aj_sym_cross_cuda(*a, tile=t),
+        add=ds.ds_add_aj)
+
+
+def _field_width(names, fields, n: int, device) -> int:
+    """The row width, 3 or 4, of the ds acceleration and jerk fields of a
+    Hermite step: each a float32 (n,3) or (n,4) tensor like the first."""
+    first = fields[0]
+    width = first.shape[1] if isinstance(first, torch.Tensor) and first.dim() == 2 else 0
+    if width not in (3, 4):
+        raise ValueError(f"{names[0]} must have shape (N, 3) or (N, 4)")
+    for name, t in zip(names, fields):
+        _check_out(name, t, (n, width), device, ())
+    return width
+
+
+def ds_hermite_predict_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, jerk_hi, jerk_lo,
+                            scal, *, out=None):
+    """The ds Hermite predictor (one launch of ``ds_hermite_predict_kernel``,
+    csrc/ds_aj_kernels.cu; glue, not a TPU kernel): the four predicted
+    (N,4) planes from the state and its ds acceleration and jerk, (N,3) or
+    (N,4) each, mass and vel.w carried. `scal` from ``scal_ds_hermite``.
+    Its plain version is ``ds.ds_hermite_predict``."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    fields = (acc_hi, acc_lo, jerk_hi, jerk_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_scal(scal, (8,))
+    n = pos_hi.shape[0]
+    width = _field_width(("acc_hi", "acc_lo", "jerk_hi", "jerk_lo"), fields, n, device)
+    out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, *fields))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_hermite_predict(*planes, fields[:2], fields[2:], scal)):
+            t.copy_(r)
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_hermite_predict(
+            *(t.data_ptr() for t in (*planes, *fields)), width, *(t.data_ptr() for t in out), n,
+            scal.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_hermite_predict launch")
+    LAUNCHES["ds_hermite_predict"] += 1
+    return out
+
+
+def ds_hermite_correct_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc0_hi, acc0_lo, jerk0_hi,
+                            jerk0_lo, acc1_hi, acc1_lo, jerk1_hi, jerk1_lo, scal, *, out=None):
+    """The ds Hermite corrector (one launch of ``ds_hermite_correct_kernel``,
+    csrc/ds_aj_kernels.cu; glue, not a TPU kernel): the four new (N,4)
+    planes from the start-of-step state, its (acc0, jerk0) and the predicted
+    state's (acc1, jerk1). Its plain version is ``ds.ds_hermite_correct``."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    fields = (acc0_hi, acc0_lo, jerk0_hi, jerk0_lo, acc1_hi, acc1_lo, jerk1_hi, jerk1_lo)
+    _check_planes(_PLANES, planes, device)
+    _check_scal(scal, (8,))
+    n = pos_hi.shape[0]
+    width = _field_width(("acc0_hi", "acc0_lo", "jerk0_hi", "jerk0_lo", "acc1_hi", "acc1_lo",
+                          "jerk1_hi", "jerk1_lo"), fields, n, device)
+    out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, *fields))
+    if device.type != "cuda":
+        pairs = [fields[k:k + 2] for k in range(0, 8, 2)]
+        for t, r in zip(out, ds.ds_hermite_correct(*planes, *pairs, scal)):
+            t.copy_(r)
+        return out
+    if n == 0:
+        return out
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_hermite_correct(
+            *(t.data_ptr() for t in (*planes, *fields)), width, *(t.data_ptr() for t in out), n,
+            scal.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_hermite_correct launch")
+    LAUNCHES["ds_hermite_correct"] += 1
     return out

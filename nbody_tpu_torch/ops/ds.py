@@ -5,8 +5,9 @@ Counterpart of ``nbody_tpu/ops/ds_kernel.py``'s arithmetic (``_two_sum`` to
 port runs: every value is an unevaluated sum hi + lo of two float32s (a
 ~49-bit significand), carried through error-free transformations. These are
 the versions the hand-written kernels (``csrc/ds_kernels.cu``,
-``csrc/ds_symmetric_kernels.cu``) are held to, on the CPU in the tests and on
-the card in ``chip_smoke.py``.
+``csrc/ds_symmetric_kernels.cu``, ``csrc/ds_aj_kernels.cu``,
+``csrc/ds_symmetric_aj_kernels.cu``) are held to, on the CPU in the tests
+and on the card in ``chip_smoke.py``.
 
 Every operation is a separate eager PyTorch op, so each intermediate is
 rounded to float32 where the transformation expects it: no ``addcmul``,
@@ -18,12 +19,14 @@ Python floats, which would be split in double precision.
 State layout, the JAX package's: four (N,4) float32 planes pos_hi, pos_lo,
 vel_hi, vel_lo (columns x, y, z, mass / vx, vy, vz, w), and a (2,4) float32
 ``scal`` block, row 0 the hi and row 1 the lo parts of [dt, eps^2, damping,
-dt/2] (``scal_ds`` / ``scal_ds_leapfrog``).
+dt/2] (``scal_ds`` / ``scal_ds_leapfrog``), or for Hermite the (2,8) block
+of ``scal_ds_hermite``.
 
 Physics, per pair in ds (``_ds_accumulate_tile``, ds_kernel.py:190-219):
     d = p_j - p_i;  r2 = (dx^2 + dy^2) + (dz^2 + eps^2)
     inv = ds_rsqrt(r2);  inv3 = (inv * inv) * inv;  a_i += (m_j * inv3) * d
-and the damped Euler update v' = (v + a dt) * damping, p' = p + v' dt.
+and the damped Euler update v' = (v + a dt) * damping, p' = p + v' dt; the
+Hermite step adds the jerk and the predictor-corrector (ds_kernel.py:756-1032).
 """
 
 from __future__ import annotations
@@ -179,8 +182,8 @@ def ds_sum(x, dim: int):
 # ---- the scalar block ----
 
 
-def _scal_block(values) -> torch.Tensor:
-    vals = np.zeros((2, 4), np.float32)
+def _scal_block(values, width: int = 4) -> torch.Tensor:
+    vals = np.zeros((2, width), np.float32)
     for c, v in enumerate(values):
         hi = np.float32(v)
         vals[0, c] = hi
@@ -201,11 +204,21 @@ def scal_ds_leapfrog(dt, softening, damping) -> torch.Tensor:
     return _scal_block((dt, float(softening) ** 2, damping, float(dt) / 2.0))
 
 
-def _scal(scal, device):
-    """The four ds scalars of `scal` as pairs of 0-d float32 tensors on
-    `device`: (dt, eps2, damping, dt/2)."""
+def scal_ds_hermite(dt, softening, damping) -> torch.Tensor:
+    """(2,8) hi/lo block of [dt, eps^2, damping, dt/2, dt^2/2, dt^3/6,
+    dt^2/12, 0], every power of dt computed in float64 on the host and split
+    exactly, so the ds predictor and corrector see full-precision
+    coefficients (``ds_kernel.py::_scal_ds_hermite``)."""
+    d = np.float64(dt)
+    return _scal_block((d, np.float64(softening) ** 2, np.float64(damping), d / 2.0,
+                        d * d / 2.0, d * d * d / 6.0, d * d / 12.0), width=8)
+
+
+def _scal(scal, device, cols=(0, 1, 2, 3)):
+    """The ds scalars in columns `cols` of `scal` as pairs of 0-d float32
+    tensors on `device`; by default (dt, eps2, damping, dt/2)."""
     s = scal.to(device=device, dtype=torch.float32)
-    return tuple((s[0, c], s[1, c]) for c in range(4))
+    return tuple((s[0, c], s[1, c]) for c in cols)
 
 
 def _col(hi, lo, c):
@@ -219,14 +232,21 @@ def _chunk_rows(n_cols: int) -> int:
 # ---- the pair arithmetic ----
 
 
-def _pair_terms(xi, yi, zi, xj, yj, zj, eps2):
-    """(dx, dy, dz, inv3) of rows (C,1) against columns (1,N), each ds."""
+def _pair_geometry(xi, yi, zi, xj, yj, zj, eps2):
+    """(dx, dy, dz, inv2, inv3) of rows (C,1) against columns (1,N), each
+    ds: inv2 = inv * inv and inv3 = inv2 * inv."""
     dx = ds_sub(xj, xi)
     dy = ds_sub(yj, yi)
     dz = ds_sub(zj, zi)
     r2 = ds_add(ds_add(ds_mul(dx, dx), ds_mul(dy, dy)), ds_add(ds_mul(dz, dz), eps2))
     inv = ds_rsqrt(r2)
-    inv3 = ds_mul(ds_mul(inv, inv), inv)
+    inv2 = ds_mul(inv, inv)
+    return dx, dy, dz, inv2, ds_mul(inv2, inv)
+
+
+def _pair_terms(xi, yi, zi, xj, yj, zj, eps2):
+    """(dx, dy, dz, inv3) of rows (C,1) against columns (1,N), each ds."""
+    dx, dy, dz, _, inv3 = _pair_geometry(xi, yi, zi, xj, yj, zj, eps2)
     return dx, dy, dz, inv3
 
 
@@ -419,3 +439,232 @@ def ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, *, block_cap: int, tile_j: 
         (pos_hi, pos_lo), scal, block_cap=block_cap, tile_j=tile_j,
         triangle=ds_accel_symmetric, cross=ds_sym_cross,
         add=ds_add)
+
+
+# ---- accel + jerk in ds (the Hermite scheme's force evaluation) ----
+#
+#   a_i = sum_j m_j d / r^3,   j_i = sum_j m_j [dv / r^3 - 3 (d . dv) d / r^5]
+# with d = p_j - p_i, dv = v_j - v_i (vel.w is not a velocity) and the
+# softened r^2, every step in ds.
+
+
+def _three(device):
+    return _f32(3.0, device)
+
+
+def _ds_dot(a, b):
+    """(a0 b0 + a1 b1) + a2 b2 in ds, the op order of ds_kernel.py:807-808."""
+    return ds_add(ds_add(ds_mul(a[0], b[0]), ds_mul(a[1], b[1])), ds_mul(a[2], b[2]))
+
+
+def _stack_pairs(parts):
+    return torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1)
+
+
+def _ds_accel_jerk_rows(ph, pl, vh, vl, jph, jpl, jvh, jvl, eps2):
+    """(acc (hi, lo), jerk (hi, lo)), each (C,3), on the rows (C,4 planes)
+    due to the columns (N,4 planes), in the arithmetic of
+    ``_ds_accel_jerk_kernel`` (ds_kernel.py:795-823)."""
+    dx, dy, dz, inv2, inv3 = _pair_geometry(*(_rows(ph, pl, c) for c in range(3)),
+                                            *(_cols(jph, jpl, c) for c in range(3)), eps2)
+    d = (dx, dy, dz)
+    dv = tuple(ds_sub(_cols(jvh, jvl, c), _rows(vh, vl, c)) for c in range(3))
+    s = ds_mul(_cols(jph, jpl, 3), inv3)  # m_j / r^3
+    c3 = ds_mul_f32(ds_mul(ds_mul(s, _ds_dot(d, dv)), inv2), _three(ph.device))
+    acc = [ds_sum(ds_mul(s, dc), 1) for dc in d]
+    jerk = [ds_sum(ds_sub(ds_mul(s, dvc), ds_mul(c3, dc)), 1) for dvc, dc in zip(dv, d)]
+    return _stack_pairs(acc), _stack_pairs(jerk)
+
+
+def ds_accel_jerk_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal):
+    """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (M,4) with column 3 zero:
+    the ds accel + jerk of the i-set (M,4 planes) under the j-set (N,4
+    planes), in the i-vs-j form of ``compute_accel_jerk_pallas_ds``
+    (``_ds_accel_jerk_kernel``), chunked over i-rows. `scal` is any (2, >=2)
+    hi/lo block with eps^2 in column 1."""
+    m = pos_hi.shape[0]
+    (eps2,) = _scal(scal, pos_hi.device, (1,))
+    out = tuple(pos_hi.new_zeros((m, 4)) for _ in range(4))
+    if m == 0 or jpos_hi.shape[0] == 0:
+        return out
+    c = _chunk_rows(jpos_hi.shape[0])
+    for r0 in range(0, m, c):
+        rows = slice(r0, r0 + c)
+        acc, jerk = _ds_accel_jerk_rows(pos_hi[rows], pos_lo[rows], vel_hi[rows], vel_lo[rows],
+                                        jpos_hi, jpos_lo, jvel_hi, jvel_lo, eps2)
+        for t, v in zip(out, (*acc, *jerk)):
+            t[rows, :3] = v
+    return out
+
+
+def _ds_aj_sym_rows(ih, il, ivh, ivl, jh, jl, jvh, jvl, eps2, keep=None):
+    """((acc, jerk) on the rows, each a (hi, lo) pair of (C,3); (react_acc,
+    react_jerk) on the columns, pairs of (M,3)) of the pairs rows (C,4
+    planes) x columns (M,4 planes), in the arithmetic of ``_ds_aj_sym_kernel``
+    (ds_kernel.py:1629-1691): the mass-free bracket
+    q = inv3 dv - 3 (d . dv) inv2 inv3 d is odd in d, so the i-side takes
+    +m_j inv3 d and +m_j q, the reaction -m_i inv3 d and -m_i q. `keep`
+    (C,M) masks pairs out by a select on inv3 and the c3 term, so a masked
+    inf or NaN (the self pair at eps = 0) is dropped."""
+    dx, dy, dz, inv2, inv3 = _pair_geometry(*(_rows(ih, il, c) for c in range(3)),
+                                            *(_cols(jh, jl, c) for c in range(3)), eps2)
+    d = (dx, dy, dz)
+    dv = tuple(ds_sub(_cols(jvh, jvl, c), _rows(ivh, ivl, c)) for c in range(3))
+    c3p = ds_mul_f32(ds_mul(ds_mul(_ds_dot(d, dv), inv2), inv3), _three(ih.device))
+    if keep is not None:
+        inv3 = ds_where(keep, inv3)
+        c3p = ds_where(keep, c3p)
+    q = [ds_sub(ds_mul(inv3, dvc), ds_mul(c3p, dc)) for dvc, dc in zip(dv, d)]
+    mj, mi = _cols(jh, jl, 3), _rows(ih, il, 3)
+    s = ds_mul(mj, inv3)
+    t = ds_mul(mi, inv3)
+    acc = [ds_sum(ds_mul(s, dc), 1) for dc in d]
+    jerk = [ds_sum(ds_mul(mj, qc), 1) for qc in q]
+    r_acc = [ds_neg(ds_sum(ds_mul(t, dc), 0)) for dc in d]
+    r_jerk = [ds_neg(ds_sum(ds_mul(mi, qc), 0)) for qc in q]
+    return tuple(_stack_pairs(p) for p in (acc, jerk, r_acc, r_jerk))
+
+
+def ds_add_aj(x, y):
+    """ds_add of two (acc_hi, acc_lo, jerk_hi, jerk_lo) tuples, field by field."""
+    return (*ds_add(x[:2], y[:2]), *ds_add(x[2:], y[2:]))
+
+
+def ds_accel_jerk_symmetric(pos_hi, pos_lo, vel_hi, vel_lo, scal):
+    """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (N,3): the set's ds accel +
+    jerk on itself, each pair once over the strict upper triangle j > i,
+    the i-side and the reaction merged in ds (``compute_accel_jerk_pallas_ds_sym``,
+    ds_kernel.py:1728-1815). Row chunk [r0, r1) meets the columns [r0, N)."""
+    n = pos_hi.shape[0]
+    (eps2,) = _scal(scal, pos_hi.device, (1,))
+    act = [pos_hi.new_zeros((n, 3)) for _ in range(4)]
+    react = [pos_hi.new_zeros((n, 3)) for _ in range(4)]
+    c = _chunk_rows(n)
+    idx = torch.arange(n, device=pos_hi.device)
+    for r0 in range(0, n, c):
+        r1 = min(n, r0 + c)
+        keep = idx[None, r0:] > idx[r0:r1, None]
+        parts = _ds_aj_sym_rows(pos_hi[r0:r1], pos_lo[r0:r1], vel_hi[r0:r1], vel_lo[r0:r1],
+                                pos_hi[r0:], pos_lo[r0:], vel_hi[r0:], vel_lo[r0:], eps2, keep)
+        for k, (h, lo) in enumerate(parts[:2]):
+            act[2 * k][r0:r1] = h
+            act[2 * k + 1][r0:r1] = lo
+        for k, r in enumerate(parts[2:]):
+            rh, rl = ds_add((react[2 * k][r0:], react[2 * k + 1][r0:]), r)
+            react[2 * k][r0:] = rh
+            react[2 * k + 1][r0:] = rl
+    return ds_add_aj(act, react)
+
+
+def ds_aj_sym_cross(pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i, pos_hi_j, pos_lo_j, vel_hi_j,
+                    vel_lo_j, scal):
+    """The mask-free ds accel + jerk rectangle of the i-set (Bi,4 planes)
+    and the j-set (Bj,4 planes), each pair once (``_ds_aj_sym_cross``,
+    ds_kernel.py:1974-2016): returns (acc_hi, acc_lo, jerk_hi, jerk_lo),
+    each (Bi,4) with w = 0, then (react_acc_hi, react_acc_lo,
+    react_jerk_hi, react_jerk_lo), each (3,Bj); the j-set is AoS."""
+    bi, bj = pos_hi_i.shape[0], pos_hi_j.shape[0]
+    (eps2,) = _scal(scal, pos_hi_i.device, (1,))
+    act = [pos_hi_i.new_zeros((bi, 4)) for _ in range(4)]
+    react = tuple(pos_hi_i.new_zeros((bj, 3)) for _ in range(4))
+    c = _chunk_rows(bj)
+    for r0 in range(0, bi if bj else 0, c):
+        r1 = min(bi, r0 + c)
+        parts = _ds_aj_sym_rows(pos_hi_i[r0:r1], pos_lo_i[r0:r1], vel_hi_i[r0:r1],
+                                vel_lo_i[r0:r1], pos_hi_j, pos_lo_j, vel_hi_j, vel_lo_j, eps2)
+        for k, v in enumerate((*parts[0], *parts[1])):
+            act[k][r0:r1, :3] = v
+        react = ds_add_aj(react, (*parts[2], *parts[3]))
+    return (*act, *(r.t() for r in react))
+
+
+def ds_accel_jerk_symmetric_blocked(pos_hi, pos_lo, vel_hi, vel_lo, scal, *, block_cap: int,
+                                    tile_j: int = 256):
+    """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (N,3), each pair once at any
+    N: k superblock triangles and k(k-1)/2 rectangles, each block's parts
+    ds-added in the JAX order, the triangle and then the rectangles in loop
+    order (``compute_accel_jerk_pallas_ds_sym_blocked``, ds_kernel.py:2019-2105,
+    through ``reference.compose_symmetric_blocked``)."""
+    return compose_symmetric_blocked(
+        (pos_hi, pos_lo, vel_hi, vel_lo), scal, block_cap=block_cap, tile_j=tile_j,
+        triangle=ds_accel_jerk_symmetric, cross=ds_aj_sym_cross, add=ds_add_aj)
+
+
+# ---- the ds Hermite predictor-corrector (ds_kernel.py:936-1032) ----
+
+
+def hermite_planes(hi, lo):
+    """(N,4) hi/lo AoS (or an (N,3) field) -> the (N,3) coordinate planes
+    as a ds pair."""
+    return hi[:, :3], lo[:, :3]
+
+
+def hermite_assemble(vec, w_hi, w_lo):
+    """A ds pair of (N,3) planes and the carried (N,1) w column, hi and lo
+    -> (N,4) hi/lo AoS."""
+    return torch.cat([vec[0], w_hi], 1), torch.cat([vec[1], w_lo], 1)
+
+
+def hermite_predict(x0, v0, a0, j0, scal):
+    """x_p = x + v dt + a0 dt^2/2 + j0 dt^3/6, v_p = v + a0 dt + j0 dt^2/2
+    on ds pairs of (N,3) planes; `scal` from ``scal_ds_hermite``."""
+    dt, dt2_2, dt3_6 = _scal(scal, x0[0].device, (0, 4, 5))
+    xp = ds_add(ds_add(x0, ds_mul(v0, dt)), ds_add(ds_mul(a0, dt2_2), ds_mul(j0, dt3_6)))
+    vp = ds_add(v0, ds_add(ds_mul(a0, dt), ds_mul(j0, dt2_2)))
+    return xp, vp
+
+
+def hermite_correct(x0, v0, a0, j0, a1, j1, scal):
+    """v1 = (v + dt/2 (a0 + a1) + dt^2/12 (j0 - j1)) damping,
+    x1 = x + dt/2 (v + v1) + dt^2/12 (a0 - a1). Returns (x1, v1)."""
+    damping, dt_half, dt2_12 = _scal(scal, x0[0].device, (2, 3, 6))
+    v1 = ds_mul(ds_add(v0, ds_add(ds_mul(ds_add(a0, a1), dt_half),
+                                  ds_mul(ds_sub(j0, j1), dt2_12))), damping)
+    x1 = ds_add(x0, ds_add(ds_mul(ds_add(v0, v1), dt_half), ds_mul(ds_sub(a0, a1), dt2_12)))
+    return x1, v1
+
+
+def _assemble_state(x, v, pos_hi, pos_lo, vel_hi, vel_lo):
+    """The four (N,4) planes of positions x and velocities v (ds (N,3)),
+    the mass and vel.w carried from the given planes, hi and lo."""
+    return (*hermite_assemble(x, pos_hi[:, 3:4], pos_lo[:, 3:4]),
+            *hermite_assemble(v, vel_hi[:, 3:4], vel_lo[:, 3:4]))
+
+
+def ds_hermite_predict(pos_hi, pos_lo, vel_hi, vel_lo, acc, jerk, scal):
+    """The four predicted (N,4) planes from the state and its ds acc and
+    jerk, (hi, lo) pairs of (N,3) or (N,4): the plain version of the
+    predictor kernel, mass and vel.w carried."""
+    xp, vp = hermite_predict(hermite_planes(pos_hi, pos_lo), hermite_planes(vel_hi, vel_lo),
+                             hermite_planes(*acc), hermite_planes(*jerk), scal)
+    return _assemble_state(xp, vp, pos_hi, pos_lo, vel_hi, vel_lo)
+
+
+def ds_hermite_correct(pos_hi, pos_lo, vel_hi, vel_lo, acc0, jerk0, acc1, jerk1, scal):
+    """The four corrected (N,4) planes from the start-of-step state, its
+    (acc0, jerk0) and the predicted state's (acc1, jerk1): the plain
+    version of the corrector kernel."""
+    x1, v1 = hermite_correct(hermite_planes(pos_hi, pos_lo), hermite_planes(vel_hi, vel_lo),
+                             *(hermite_planes(*f) for f in (acc0, jerk0, acc1, jerk1)), scal)
+    return _assemble_state(x1, v1, pos_hi, pos_lo, vel_hi, vel_lo)
+
+
+def nbody_step_ds_hermite(pos_hi, pos_lo, vel_hi, vel_lo, scal, *, sym: bool = False,
+                          block_cap: int | None = None, tile_j: int = 256):
+    """One 4th-order Hermite P(EC) step in ds (``nbody_step_pallas_ds_hermite``,
+    ds_kernel.py:981-1032): accel + jerk at the start, the predictor, accel
+    + jerk at the predicted state, the corrector. `sym` takes each pair once
+    (the triangle, or the blocked composition when `block_cap` is given),
+    else the one-sided evaluation. `scal` from ``scal_ds_hermite``."""
+    def aj(*state):
+        if not sym:
+            return ds_accel_jerk_vs(*state, *state, scal)
+        if block_cap is None:
+            return ds_accel_jerk_symmetric(*state, scal)
+        return ds_accel_jerk_symmetric_blocked(*state, scal, block_cap=block_cap, tile_j=tile_j)
+
+    planes = (pos_hi, pos_lo, vel_hi, vel_lo)
+    a0h, a0l, j0h, j0l = aj(*planes)
+    pred = ds_hermite_predict(*planes, (a0h, a0l), (j0h, j0l), scal)
+    a1h, a1l, j1h, j1l = aj(*pred)
+    return ds_hermite_correct(*planes, (a0h, a0l), (j0h, j0l), (a1h, a1l), (j1h, j1l), scal)

@@ -8,15 +8,18 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 scripts/torch_profile_step.py
 
 For each (variant, N) in {vpu, sym} x {65536, 135168} with Euler, for
-each variant with Hermite at N=65536, and for precision="ds" with Euler
-(auto, the ds triangle) at N in {16384, 69632} and leapfrog at 16384, it
-builds the
-Compute of the path, waits one window and warms up one, then records
-one active window of 10 steps (update_many(10) and a synchronise). It
-prints the device time of each kernel, the host wall time of the window
-(launch of the first step to the end of the synchronise) and the device's
-idle share, 1 - (sum of kernel times) / wall; the kernels run on one
-stream, so they never overlap. Then the nvidia-smi name and power limit.
+each variant with Hermite at N=65536, for precision="ds" with Euler (auto,
+the ds triangle) at N in {16384, 69632} and leapfrog at 16384, and for ds
+Hermite (auto, the ds accel + jerk triangle, and one_sided) at 16384 and
+auto at 36864, above its cap, it builds the Compute of the path, waits one
+window and warms up one, then records one active window of 10 steps
+(update_many(10) and a synchronise). It prints the device time of each
+kernel, the host wall time of the window (launch of the first step to the
+end of the synchronise), the device's idle share, 1 - (sum of kernel
+times) / wall, and the glue's share of the device time (the kernels other
+than the force evaluations: partial sums, updates, predictor and
+corrector, elementwise ops); the kernels run on one stream, so they never
+overlap. Then the nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ CONFIGS = [(variant, n, "euler", "fp32") for variant in ("vpu", "sym") for n in 
 CONFIGS += [(variant, 65536, "hermite", "fp32") for variant in ("vpu", "sym")]
 CONFIGS += [("auto", n, "euler", "ds") for n in (16384, 69632)]
 CONFIGS += [("auto", 16384, "leapfrog", "ds")]
+CONFIGS += [(variant, 16384, "hermite", "ds") for variant in ("auto", "one_sided")]
+CONFIGS += [("auto", 36864, "hermite", "ds")]
+# the kernels that evaluate forces; every other kernel of a step is glue
+FORCE_KERNELS = ("step_kernel", "accel_kernel", "accel_jerk_kernel", "tri_kernel",
+                 "cross_kernel", "leapfrog_kernel")
 
 
 def main() -> int:
@@ -71,9 +79,12 @@ def main() -> int:
                     us = evt.cuda_time_total
                 kernels[evt.key] = (us, evt.count)
         busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+        glue_ms = sum(us for key, (us, _) in kernels.items()
+                      if not any(f in key for f in FORCE_KERNELS)) / 1e3
         wall_ms = walls[-1]
         print(f"{precision} {variant} {integrator} N={n}: {STEPS} steps, host wall {wall_ms:.4f} ms, "
-              f"device busy {busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]")
+              f"device busy {busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f}, glue share "
+              f"{glue_ms / busy_ms:.4f} [{smi}]")
         for key, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
             print(f"    {us / 1e3:10.4f} ms  {count:4d} calls  {key[:90]}")
     return 0

@@ -596,3 +596,125 @@ def test_ds_wrappers_refuse_bad_arguments_before_launch(dev):
     with pytest.raises(ValueError, match="overlaps"):
         cuda_kernel.nbody_step_ds_cuda(*planes, scal, out=(planes[0], *planes[1:]))
     assert cuda_kernel.LAUNCHES == before
+
+
+# ---- double-single Hermite: csrc/ds_aj_kernels.cu, csrc/ds_symmetric_aj_kernels.cu ----
+#
+# The ds accel + jerk kernels and the Hermite glue by the rules of the ds
+# kernels above: each output within 1e-12 * max + 1e-14 of its plain
+# version, each force and jerk within 1e-10 * max of the float64 oracle's.
+
+
+def _ds_aj_oracle_held(fields, pos64, vel64):
+    from nbody_tpu_torch.compute import _oracle_accel_jerk
+    from nbody_tpu_torch.ops import ds
+
+    for got, ref in zip((fields[:2], fields[2:]), _oracle_accel_jerk(pos64, vel64, SOFT)):
+        assert np.abs(ds.ds_to_f64(*got)[:, :3] - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kernel", ["ds_accel_jerk", "ds_aj_sym", "ds_aj_sym_128",
+                                    "ds_aj_sym_cross", "ds_aj_sym_cross_128"])
+def test_ds_aj_kernels_match_plain_and_oracle(dev, kernel):
+    from nbody_tpu_torch.ops import ds
+
+    tile = int(kernel.rsplit("_", 1)[1]) if kernel[-1].isdigit() else 256
+    kernel = kernel.removesuffix(f"_{tile}")
+    n = 4099
+    planes, pos64 = _ds_planes(n, dev)
+    vel64 = ds.ds_to_f64(*planes[2:])
+    scal = ds.scal_ds_hermite(DT, SOFT, 0.5)
+    before = dict(cuda_kernel.LAUNCHES)
+    if kernel == "ds_accel_jerk":
+        def run():
+            return cuda_kernel.compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal)
+        want = ds.ds_accel_jerk_vs(*planes, *planes, scal)
+    elif kernel == "ds_aj_sym":
+        def run():
+            return cuda_kernel.ds_aj_sym_cuda(*planes, scal, tile=tile)
+        want = ds.ds_accel_jerk_symmetric(*planes, scal)
+    else:
+        # a small cap forces the composition: 3 triangles and 3 rectangles
+        def run():
+            return cuda_kernel.compute_accel_jerk_ds_symmetric_blocked_cuda(
+                *planes, scal, block_cap=1536, tile=tile)
+        want = ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=1536, tile_j=tile)
+    got = run()
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES[kernel] > before[kernel]
+    _ds_held([got[:2], got[2:]], [want[:2], want[2:]])
+    _ds_aj_oracle_held(got, pos64, vel64)
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))  # no atomics
+
+
+def test_ds_hermite_glue_matches_plain_bit_for_bit(dev):
+    from nbody_tpu_torch.ops import ds
+
+    planes, _ = _ds_planes(4099, dev)
+    scal = ds.scal_ds_hermite(DT, SOFT, 0.5)
+    for aj in (lambda s: cuda_kernel.compute_accel_jerk_ds_cuda_vs(*s, *s, scal),
+               lambda s: cuda_kernel.compute_accel_jerk_ds_symmetric_blocked_cuda(*s, scal)):
+        f0 = aj(planes)
+        before = dict(cuda_kernel.LAUNCHES)
+        pred = cuda_kernel.ds_hermite_predict_cuda(*planes, *f0, scal)
+        f1 = aj(pred)
+        new = cuda_kernel.ds_hermite_correct_cuda(*planes, *f0, *f1, scal)
+        for key in ("ds_hermite_predict", "ds_hermite_correct"):
+            assert cuda_kernel.LAUNCHES[key] == before[key] + 1
+        # the same ds operations in the same order, none contracted
+        for got, want in ((pred, ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal)),
+                          (new, ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:],
+                                                      scal))):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for g, p in zip(new, planes):  # mass and vel.w carried in both planes
+            assert torch.equal(g[:, 3], p[:, 3])
+
+
+@pytest.mark.parametrize("variant", ["sym", "one_sided"])
+def test_ds_hermite_system_kernels_against_plain_backend(dev, monkeypatch, variant):
+    from nbody_tpu_torch.models import DSBodySystem
+
+    # a small cap, so the sym path composes triangles and rectangles
+    monkeypatch.setattr(cuda_kernel, "DS_AJ_SYM_BLOCK_CAP", 1024)
+    params = DEMO_PARAMS[0].replace(damping=0.5)
+    a = DSBodySystem(2500, params, device=dev, integrator="hermite", variant=variant)
+    b = DSBodySystem(2500, params, device=dev, backend="torch", integrator="hermite",
+                     variant=variant)
+    a.update_many(3, DT)
+    b.update_many(3, DT)
+    a.synchronize()
+    for x, y in ((a.positions, b.positions), (a.velocities, b.velocities)):
+        assert np.abs(x - y).max() <= 1e-12 * np.abs(y).max() + 1e-14
+
+
+@pytest.mark.parametrize("variant", ["auto", "one_sided"])
+def test_compute_ds_hermite_qa_and_drift_on_card(dev, variant):
+    from nbody_tpu_torch.cli import drift_failed
+
+    c = Compute(num_bodies=4096, device=dev, precision="ds", integrator="hermite",
+                variant=variant, log=lambda s: None)
+    before = dict(cuda_kernel.LAUNCHES)
+    assert c.compare_results()
+    kernel = "ds_aj_sym" if variant == "auto" else "ds_accel_jerk"
+    for key in (kernel, "ds_hermite_predict", "ds_hermite_correct"):
+        assert cuda_kernel.LAUNCHES[key] > before[key]
+    assert not drift_failed(c.drift_check(5))
+
+
+def test_ds_aj_wrappers_refuse_bad_arguments_before_launch(dev):
+    from nbody_tpu_torch.ops import ds
+
+    planes, _ = _ds_planes(256, dev)
+    scal = ds.scal_ds_hermite(DT, SOFT, 1.0)
+    fields = cuda_kernel.ds_aj_sym_cuda(*planes, scal)
+    before = dict(cuda_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="tile"):
+        cuda_kernel.ds_aj_sym_cuda(*planes, scal, tile=512)
+    with pytest.raises(ValueError, match="scal"):
+        cuda_kernel.ds_hermite_predict_cuda(*planes, *fields, ds.scal_ds(DT, SOFT, 1.0))
+    with pytest.raises(ValueError, match="rows"):
+        cuda_kernel.compute_accel_jerk_ds_cuda_vs(planes[0], planes[1][:100], *planes[2:],
+                                                  *planes, scal)
+    with pytest.raises(ValueError, match="overlaps"):
+        cuda_kernel.ds_hermite_correct_cuda(*planes, *fields, *fields, scal, out=planes)
+    assert cuda_kernel.LAUNCHES == before

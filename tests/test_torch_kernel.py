@@ -141,8 +141,13 @@ def test_nvcc_command_targets_sm90a():
     assert all(cmd[cmd.index("-o") + 1] in link for cmd in compiles)
     assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu",
                                                 "symmetric_aj_kernels.cu", "ds_kernels.cu",
-                                                "ds_symmetric_kernels.cu"]
-    assert [h.name for h in _build.HEADERS] == ["sym_common.cuh", "ds_common.cuh"]
+                                                "ds_symmetric_kernels.cu", "ds_aj_kernels.cu",
+                                                "ds_symmetric_aj_kernels.cu"]
+    assert [h.name for h in _build.HEADERS] == ["sym_common.cuh", "ds_common.cuh",
+                                                "ds_sym_common.cuh"]
+    # every source and header in csrc/ is built and hashed
+    assert sorted(p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")) == \
+        sorted(p.name for p in (*_build.SOURCES, *_build.HEADERS))
 
 
 def test_build_dir_is_under_build():
