@@ -75,15 +75,33 @@ its result:
      steps at N=36864, above the cap, drift_check(10) at 16384 and (60) at
      4096; the predictor and corrector kernels (glue, not in the kernels
      line) must have launched too;
+  3m. the tensor-core step kernels (mxu: 3xTF32, mxu_bf16) against their
+     plain versions under the mxu error model (reference.mxu_step_tolerance)
+     at (M, N) in {(1000, 1000), (777, 4099), (4099, 777), (4099, 4099),
+     (65536, 65536)}, random masses, vel.w and damping 0.5 at three of them,
+     repeat calls bit-equal; the rollout kernel against k launches of the
+     step kernel, bit for bit, and one rollout step against the plain step;
+     their times at N=65536, the rollout's k=10 both ways in turns;
+  5m. the tensor-core path through Compute(variant="mxu" / "mxu_bf16"): QA
+     at N=16384 (the mxu force held to the oracle's under the one-sided
+     rule plus its error model), run_benchmark(10) at N=65536 in turns with
+     vpu, drift_check(10) with the --drift-check gate at N=16384 and 4096
+     (mxu_bf16 at 4096 recorded, not gated: it fails there, as nbody_tpu's
+     own kernel does), and the relative energy drift of vpu, mxu and
+     mxu_bf16 over 1000 steps at N=4096, recorded without a gate;
+  5r. nbody_rollout_cuda as a user calls it, 10 steps at N=65536, equal to
+     the system's 10 one-sided steps bit for bit;
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
      --integrator leapfrog --qatest and with --benchmark, --integrator
-     hermite with --qatest and with --drift-check 3, and --precision ds with
-     --qatest, --benchmark, --integrator leapfrog --qatest, --drift-check 10,
-     and --integrator hermite --qatest (N=4096) and --benchmark.
+     hermite with --qatest and with --drift-check 3, --variant mxu --qatest,
+     --variant mxu_bf16 --benchmark, and --precision ds with --qatest,
+     --benchmark, --integrator leapfrog --qatest, --drift-check 10, and
+     --integrator hermite --qatest (N=4096) and --benchmark.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
-Hermite path's, 5d the ds path's and 5dh the ds Hermite path's: the
-kernels' launch counters are set to 0 before each and read after it, and
-each kernel of that path must have launched. Any failure raises, and the script exits nonzero. The last lines
+Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
+tensor-core path's and 5r the rollout's: the kernels' launch counters are
+set to 0 before each and read after it, and each kernel of that path must
+have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
 """
 
@@ -105,11 +123,15 @@ N_QA = 16384  # nbody_tpu's per-core default N
 N_BIG = 4 * 256 * 132  # the CLI's default N on an H100, above the sym cap
 N_DS_BIG = 65536 + 4096  # above the ds composition's cap: two blocks
 N_DS_AJ_BIG = 32768 + 4096  # above the ds accel + jerk composition's cap: two blocks
+N_MXU_DRIFT = 4096  # the 1000-step energy-drift record of the mxu variants
 # the card's peak fp32 rate outside the tensor cores and its memory rate
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "step_t": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "mxu_step": "nbody_tpu_torch/csrc/mxu_kernels.cu",
+           "mxu_bf16_step": "nbody_tpu_torch/csrc/mxu_kernels.cu",
            "accel": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "sym": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
            "sym_cross": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
@@ -125,6 +147,9 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
+            "step_t": "nbody_tpu/ops/pallas_kernel.py:202",
+            "mxu_step": "nbody_tpu/ops/pallas_kernel.py:171",
+            "mxu_bf16_step": "nbody_tpu/ops/pallas_kernel.py:171",
             "accel": "nbody_tpu/ops/pallas_kernel.py:272",
             "sym": "nbody_tpu/ops/symmetric_kernel.py:107",
             "sym_cross": "nbody_tpu/ops/symmetric_kernel.py:334",
@@ -139,7 +164,9 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_accel_jerk": "nbody_tpu/ops/ds_kernel.py:756",
             "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
             "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839"}
-NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
+NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
+         "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
+         "accel": "nbody_accel_f32",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
@@ -148,6 +175,16 @@ NAMES = {"step": "nbody_step_f32", "accel": "nbody_accel_f32",
          "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
+MXU_KERNELS = ("mxu_step", "mxu_bf16_step")
+# FP32-pipe instructions an mxu pair, read from csrc/mxu_kernels.cu: s is 3
+# FADD, 3 FMUL + 3 FADD, 2 FMUL (11); the 3xTF32 split of the thread's A
+# value is cvt, FADD, cvt (3), of its B values 6 per 4 pairs (1.5); bf16
+# packs two A values a cvt (0.5) and its B values 2 per 8 pairs (0.25).
+# Each counts as 2 flops at the fp32 peak; rsqrtf goes to the SFU.
+MXU_PAIR_INSTR = {"mxu_step": 15.5, "mxu_bf16_step": 11.75}
+# the mma work: 16 flops a pair (n = 8) and pass, three TF32 passes or one
+# bf16 pass, at the card's dense tensor rates (NVIDIA's H100 SXM data sheet)
+MXU_TENSOR = {"mxu_step": (3 * 16.0, 495e12), "mxu_bf16_step": (16.0, 989e12)}
 DS_KERNELS = ("ds_step", "ds_leapfrog", "ds_sym", "ds_sym_cross")
 DS_AJ_KERNELS = ("ds_accel_jerk", "ds_aj_sym", "ds_aj_sym_cross")
 # the ds Hermite step's glue kernels: they must launch on its path, but are
@@ -581,6 +618,146 @@ def phase_aj_kernels(torch) -> dict:
         shape = f"({bi},{bj})" if name == "aj_sym_cross" else f"N={n}"
         print(f"[3h aj] {name} at {shape}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
               f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def mxu_bound_ms(key: str, pairs: float, nbytes: float) -> tuple[float, str]:
+    """The least time of an mxu step: the larger of its FP32-pipe
+    instructions (MXU_PAIR_INSTR, 2 flops each) over the fp32 peak, its mma
+    flops over the tensor-core rate, and its bytes over the memory rate."""
+    t_fp32 = 2.0 * MXU_PAIR_INSTR[key] * pairs / PEAK_FP32_FLOPS * 1e3
+    flops, rate = MXU_TENSOR[key]
+    t_ops = max(t_fp32, flops * pairs / rate * 1e3)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_mxu_kernels(torch) -> dict:
+    """3m. The tensor-core step kernels against their plain versions, the
+    same mxu algebra (ops/reference.py, float32 products with TF32 off),
+    under the mxu error model: positions and velocities within
+    reference.mxu_step_tolerance (MXU_ERROR_COEF * E carried through the
+    update), w lanes copied, repeat calls bit-equal; ragged shapes, odd N,
+    M != N, masses from [0.5, 2], a random vel.w and damping 0.5, and
+    N=65536. The rollout kernel against k launches of the step kernel, bit
+    for bit, and one rollout step against the plain step at phase 3's
+    bound. Times at N=65536; the rollout's k=10 both ways, in turns."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain mxu step would round its own product")
+    dev = torch.device("cuda", 0)
+    demo = DEMO_PARAMS[0]
+    dt, soft, damp = demo.time_step, demo.softening, demo.damping
+    err = {k: 0.0 for k in (*MXU_KERNELS, "step_t")}
+    # (M, N, masses and vel.w drawn at random, damping)
+    cases = [(1000, 1000, False, damp), (777, 4099, False, damp), (4099, 777, True, 0.5),
+             (4099, 4099, True, 0.5), (N_MAIN, N_MAIN, True, 0.5)]
+    for m, n, rand_w, dmp in cases:
+        pj, vj = shell_state(torch, n, random_w=rand_w)
+        pi, vi = (pj, vj) if m == n else shell_state(torch, m, seed=3, random_w=rand_w)
+        what = f"M={m} N={n} damping={dmp}" + (", random masses and vel.w" if rand_w else "")
+        for variant, key in zip(reference.MXU_VARIANTS, MXU_KERNELS):
+            got = ck.nbody_step_mxu_cuda_vs(pi, vi, pj, dt, soft, dmp, variant=variant)
+            again = ck.nbody_step_mxu_cuda_vs(pi, vi, pj, dt, soft, dmp, variant=variant)
+            want = reference.nbody_step_mxu_vs(pi, vi, pj, dt, soft, dmp,
+                                               mxu_dtype=reference.MXU_DTYPES[variant])
+            torch.cuda.synchronize()
+            tol_p, tol_v = reference.mxu_step_tolerance(pi, vi, pj, want, dt, soft, dmp,
+                                                        variant=variant)
+            dp = (got[0][:, :3] - want[0][:, :3]).abs()
+            dv = (got[1][:, :3] - want[1][:, :3]).abs()
+            ratio = max((dp / tol_p).max().item(), (dv / tol_v).max().item())
+            same = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+            kept = bool(torch.equal(got[0][:, 3], pi[:, 3]) and torch.equal(got[1][:, 3], vi[:, 3]))
+            print(f"[3m mxu] {variant} {what}: max|dpos|={dp.max().item():.3e} "
+                  f"max|dvel|={dv.max().item():.3e}, max error / bound = {ratio:.3e}; "
+                  f"repeat bit-equal: {same}; w-lanes kept: {kept}")
+            check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+                  f"non-finite {variant} output at {what}")
+            check(ratio <= 1.0, f"{variant} kernel disagrees with its plain version at {what}")
+            check(same, f"{variant} kernel differs between two calls at {what}")
+            check(kept, f"{variant} kernel changed pos.w or vel.w at {what}")
+            err[key] = max(err[key], dp.max().item(), dv.max().item())
+        del pj, vj, pi, vi, got, again, want, tol_p, tol_v, dp, dv
+
+    # the rollout: k launches of step_t against k of the step kernel, and
+    # one step against the plain step with phase 3's bound
+    for n, bs, k in ((4099, 128, 3), (4099, 256, 3), (N_MAIN, 256, 10)):
+        p, v = shell_state(torch, n, random_w=True)
+        gp, gv = ck.nbody_rollout_cuda(p, v, dt, soft, 0.5, steps=k, block_size=bs)
+        sp, sv = p, v
+        for _ in range(k):
+            sp, sv = ck.nbody_step_cuda(sp, sv, dt, soft, 0.5, block_size=bs)
+        same = bool(torch.equal(gp, sp) and torch.equal(gv, sv))
+        op, ov = ck.nbody_rollout_cuda(p, v, dt, soft, 0.5, steps=1, block_size=bs)
+        rp, rv = reference.nbody_step(p, v, dt, soft, 0.5)
+        tol_a = 1e-4 * reference.compute_accel(p, soft).abs().max().item() + 1e-4
+        e_p = (op - rp).abs().max().item()
+        e_v = (ov - rv).abs().max().item()
+        print(f"[3m rollout] N={n} block {bs}: {k} steps equal {k} step-kernel launches bit for "
+              f"bit: {same}; one step against plain max|dpos|={e_p:.3e} (tol "
+              f"{1e-5 + dt * dt * tol_a:.3e}) max|dvel|={e_v:.3e} (tol {1e-5 + dt * tol_a:.3e})")
+        check(same, f"the rollout differs from {k} step launches at N={n} block {bs}")
+        check(e_p <= 1e-5 + dt * dt * tol_a and e_v <= 1e-5 + dt * tol_a,
+              f"the rollout step disagrees with plain at N={n}")
+        err["step_t"] = max(err["step_t"], e_p, e_v)
+
+    # times at the main path's shape: N=65536, shell ICs, demo 0
+    p, v = shell_state(torch, N_MAIN)
+    bufs = [(torch.empty_like(p), torch.empty_like(v)) for _ in range(2)]
+    pairs = float(N_MAIN) * N_MAIN
+    reps, plain_reps = 20, 2
+    times, bounds = {}, {}
+    for variant, key in zip(reference.MXU_VARIANTS, MXU_KERNELS):
+        def kernel(variant=variant):
+            for _ in range(reps):
+                ck.nbody_step_mxu_cuda(p, v, dt, soft, damp, variant=variant, out=bufs[0])
+
+        def plain(variant=variant):
+            for _ in range(plain_reps):
+                reference.nbody_step_mxu(p, v, dt, soft, damp,
+                                         mxu_dtype=reference.MXU_DTYPES[variant])
+
+        kernel()
+        plain()
+        t_k = elapsed_ms(kernel, dev) / reps
+        t_p = elapsed_ms(plain, dev) / plain_reps
+        times[key] = (t_k, t_p)
+        # each input read once, each output written once
+        bounds[key] = mxu_bound_ms(key, pairs, 4 * N_MAIN * 16)
+        print(f"[3m mxu] {key} at N={N_MAIN}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
+              f"bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
+
+    def steps10():
+        a, b = p, v
+        for k in range(10):
+            a, b = ck.nbody_step_cuda(a, b, dt, soft, damp, out=bufs[k % 2])
+
+    def roll10():
+        ck.nbody_rollout_cuda(p, v, dt, soft, damp, steps=10)
+
+    def plain_step():
+        reference.nbody_step(p, v, dt, soft, damp)
+
+    steps10()
+    roll10()
+    plain_step()
+    ms = {"steps": [], "rollout": []}
+    for name in ("steps", "rollout", "rollout", "steps"):
+        ms[name].append(elapsed_ms(steps10 if name == "steps" else roll10, dev) / 10)
+    t_plain = elapsed_ms(plain_step, dev)
+    times["step_t"] = (min(ms["rollout"]), t_plain)
+    # a step: 20 flops a pair; pos, vel and the planes read once, the new
+    # pos, vel and planes written once
+    bounds["step_t"] = bound_ms(20.0 * pairs, 6 * N_MAIN * 16)
+    print(f"[3m rollout] N={N_MAIN}, 10 steps, in turns (steps, rollout, rollout, steps): "
+          f"step kernel {ms['steps'][0]:.4f} / {ms['steps'][1]:.4f} ms, rollout "
+          f"{ms['rollout'][0]:.4f} / {ms['rollout'][1]:.4f} ms per step; plain step "
+          f"{t_plain:.3f} ms; bound {bounds['step_t'][0]:.3f} ms ({bounds['step_t'][1]})")
     return {"err": err, "times": times, "bounds": bounds}
 
 
@@ -1058,6 +1235,78 @@ def phase_main(torch, smi: str, variant: str, n: int, steps: int, tag: str,
     return ms
 
 
+def phase_mxu_main(torch, smi: str) -> None:
+    """5m. The tensor-core path through Compute(variant="mxu" / "mxu_bf16"):
+    QA at N=16384 (position, and the mxu force against the oracle under the
+    one-sided rule plus the error model), run_benchmark(10) at N=65536 in
+    turns with vpu, drift_check(10) with the --drift-check gate, and the
+    relative energy drift of vpu, mxu and mxu_bf16 over 1000 steps at
+    N=4096 with the float64 functional, recorded without a gate."""
+    from nbody_tpu_torch.cli import drift_failed
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+
+    for variant in ("mxu", "mxu_bf16"):
+        phase_qa(torch, ck, variant, "euler", "5m QA")
+    ms = {"vpu": [], "mxu": [], "mxu_bf16": []}
+    for variant in ("vpu", "mxu", "mxu_bf16", "mxu_bf16", "mxu", "vpu"):
+        ms[variant].append(phase_main(torch, smi, variant, N_MAIN, 10, "5m main"))
+    print(f"[5m main] Euler at N={N_MAIN}, best of two in turns: vpu {min(ms['vpu']):.3f}, "
+          f"mxu {min(ms['mxu']):.3f}, mxu_bf16 {min(ms['mxu_bf16']):.3f} ms per step [{smi}]")
+    # the --drift-check gate, 10 steps; at N=4096 mxu_bf16's drift departs
+    # from the oracle's past the gate, as nbody_tpu's own kernel does (its
+    # bf16 roundings leave s_ii |p_i| 2^-9 of the self pair uncancelled): it
+    # is recorded there, not gated
+    for variant, n, gated in (("mxu", N_QA, True), ("mxu_bf16", N_QA, True),
+                              ("mxu", N_MXU_DRIFT, True), ("mxu_bf16", N_MXU_DRIFT, False)):
+        c = Compute(num_bodies=n, device="cuda", variant=variant,
+                    log=lambda s: print(f"[5m drift] {s}"))
+        drift = c.drift_check(10)
+        failed = drift_failed(drift)
+        print(f"[5m drift] {variant} N={n}: delta {drift['delta']:.3e}, the gate "
+              f"{'fails' if failed else 'holds'}" + ("" if gated else " (recorded, not gated)"))
+        check(not (gated and failed), f"{variant} drift check failed at N={n}: {drift}")
+    for variant in ("vpu", "mxu", "mxu_bf16"):
+        system = Compute(num_bodies=N_MXU_DRIFT, device="cuda", variant=variant,
+                         log=lambda s: None).system
+        e0 = system.total_energy(precise=True)
+        system.update_many(1000)
+        system.synchronize()
+        e1 = system.total_energy(precise=True)
+        check(math.isfinite(e1), f"non-finite energy after 1000 {variant} steps")
+        print(f"[5m drift] {variant} N={N_MXU_DRIFT}, 1000 Euler steps at dt "
+              f"{system.params.time_step}: relative energy drift {(e1 - e0) / abs(e0):.6e} "
+              f"(float64 functional, no gate) [{smi}]")
+
+
+def phase_rollout_main(torch, smi: str) -> None:
+    """5r. nbody_rollout_cuda as a user calls it (no system path does): 10
+    steps at N=65536 from a BodySystem's state equal that system's 10
+    update steps (the one-sided step kernel) bit for bit."""
+    from nbody_tpu_torch import DEMO_PARAMS, tuned_scales
+    from nbody_tpu_torch.models import BodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+
+    demo = DEMO_PARAMS[0]
+    cs, vs = tuned_scales(N_MAIN) or (demo.cluster_scale, demo.velocity_scale)
+    params = demo.replace(cluster_scale=cs, velocity_scale=vs)
+    system = BodySystem(N_MAIN, params, device="cuda", variant="vpu", seed=42)
+    p0, v0 = (t.clone() for t in system.state)
+    t0 = time.perf_counter()
+    pos, vel = ck.nbody_rollout_cuda(p0, v0, params.time_step, params.softening,
+                                     params.damping, steps=10)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    system.update_many(10)
+    system.synchronize()
+    same = bool(torch.equal(pos, system.state[0]) and torch.equal(vel, system.state[1]))
+    print(f"[5r rollout] N={N_MAIN}, 10 steps in {secs * 1e3:.3f} ms of host wall: equal to "
+          f"BodySystem(variant='vpu').update_many(10) bit for bit: {same} [{smi}]")
+    check(bool(torch.isfinite(pos).all() and torch.isfinite(vel).all()),
+          "non-finite rollout state")
+    check(same, "the rollout differs from the system's steps")
+
+
 def phase_plain_main(smi: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -1148,6 +1397,9 @@ def phase_cli() -> None:
             (["--integrator", "hermite", "--qatest", "--numbodies", "4096"], "-> OK"),
             (["--integrator", "hermite", "--drift-check", "3", "--numbodies", "4096"],
              "energy drift over 3 steps"),
+            (["--variant", "mxu", "--qatest", "--numbodies", "4096"], "-> OK"),
+            (["--variant", "mxu_bf16", "--benchmark", "--numbodies", str(N_MAIN), "-i", "10"],
+             rate),
             (["--precision", "ds", "--qatest"], "-> OK"),
             (["--precision", "ds", "--benchmark", "-i", "10"], "double-single-precision"),
             (["--precision", "ds", "--integrator", "leapfrog", "--qatest"], "-> OK"),
@@ -1219,6 +1471,7 @@ def main() -> int:
     aj_kern = timed("3h accel+jerk and potential kernels", phase_aj_kernels, torch)
     ds_kern = timed("3d ds kernels", phase_ds_kernels, torch)
     ds_aj_kern = timed("3dh ds accel+jerk kernels", phase_ds_aj_kernels, torch)
+    mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -1253,6 +1506,13 @@ def main() -> int:
     ds_hermite_launches = timed("5dh ds Hermite path", run_path, ck,
                                 (*DS_AJ_KERNELS, *DS_HERMITE_GLUE),
                                 lambda: phase_ds_hermite_main(torch, smi))
+    mxu_launches = timed("5m mxu path", run_path, ck, MXU_KERNELS,
+                         lambda: phase_mxu_main(torch, smi))
+    rollout_launches = timed("5r rollout", run_path, ck, ("step_t",),
+                             lambda: phase_rollout_main(torch, smi))
+    for k in MXU_KERNELS:
+        launches[k] = mxu_launches[k]
+    launches["step_t"] = rollout_launches["step_t"]
     for k in ("sym", "sym_cross"):
         launches[k] = sym_launches[k]
     for k in HERMITE_KERNELS:
@@ -1272,7 +1532,7 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
-                   **ds_aj_kern[key]}
+                   **ds_aj_kern[key], **mxu_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],
@@ -1286,7 +1546,8 @@ def main() -> int:
         "bound_ms": found["bounds"][k][0],
         "bound_by": found["bounds"][k][1],
         # no single PyTorch call computes softened all-pairs gravity, its
-        # jerk or its potential, in float32 or in ds
+        # jerk or its potential, in float32 or in ds (the mxu step's s is
+        # no library call's input either)
         "library_ms": None,
     } for k in NAMES]
     print(smi)

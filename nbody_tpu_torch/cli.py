@@ -4,10 +4,10 @@
 The reference's flags that the port's slices run so far
 (nbody.cpp:275-285): --benchmark, --compare / --qatest, --numbodies,
 -i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus nbody_tpu's
---seed, --variant {auto,vpu,sym}, --integrator {euler,leapfrog,hermite},
---drift-check and --precision {fp32,ds} (fp64 is parsed, as nbody_tpu parses
-it, and refused until its slice lands). Other nbody_tpu flags are not
-accepted until their slice lands (ROADMAP.md).
+--seed, --variant {auto,vpu,sym,mxu,mxu_bf16}, --integrator
+{euler,leapfrog,hermite}, --drift-check and --precision {fp32,ds} (fp64 is
+parsed, as nbody_tpu parses it, and refused until its slice lands). Other
+nbody_tpu flags are not accepted until their slice lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -58,10 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the plain PyTorch path on the host CPU")
     p.add_argument("--tipsy", type=str, default=None, help="load a tipsy galaxy file")
     p.add_argument("--seed", type=int, default=42, help="initial-condition RNG seed")
-    p.add_argument("--variant", choices=["auto", "vpu", "sym"], default="auto",
+    p.add_argument("--variant", choices=["auto", "vpu", "sym", "mxu", "mxu_bf16"],
+                   default="auto",
                    help="force kernel: vpu = the one-sided all-pairs kernel, "
-                        "sym = each pair once (Newton's third law); auto = "
-                        "the one measured faster on the card, vpu with --cpu")
+                        "sym = each pair once (Newton's third law); mxu* "
+                        "reduce the force on the tensor cores in the Euler "
+                        "step (leapfrog and hermite keep the one-sided "
+                        "kernels): mxu in f32 grade, mxu_bf16 with bf16 "
+                        "operands, which is not faithful to energy (at "
+                        "N=4096 its drift fails the --drift-check gate); "
+                        "auto = the one measured faster on the card, vpu "
+                        "with --cpu")
     p.add_argument("--integrator", choices=["euler", "leapfrog", "hermite"], default="euler",
                    help="damped semi-implicit Euler (the reference's), "
                         "drift-kick-drift leapfrog, or the 4th-order Hermite "

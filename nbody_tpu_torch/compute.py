@@ -8,8 +8,9 @@ printout), the QA compare against the CPU oracle (one dt=0.001 step,
 |dpos| <= 5e-4) and the energy-drift check against the oracle.
 
 ``precision="ds"`` owns a ``DSBodySystem`` (double-single, fp64-grade)
-behind the same facade, as ``nbody_tpu/compute.py:135-168`` does; its QA
-and drift checks hold it to the float64 oracle at ds-grade bounds.
+behind the same facade, as ``nbody_tpu/compute.py:135-168`` does, with its
+mapping of variants; its QA and drift checks hold it to the float64 oracle
+at ds-grade bounds.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from nbody_tpu_torch.params import (
 )
 from nbody_tpu_torch.models import BodySystem, DSBodySystem
 from nbody_tpu_torch.models.body_system import not_ported, resolve_device
+from nbody_tpu_torch.ops import reference
 from nbody_tpu_torch.ops.cuda_kernel import DEFAULT_BLOCK_SIZE
 from nbody_tpu_torch.ops.ds import ds_to_f64
 from nbody_tpu_torch.ops.energy import total_energy_f64, total_energy_precise
@@ -128,6 +130,14 @@ class Compute:
             raise ValueError(f"unknown precision {precision!r}")
         if precision == "ds" and placement != "device":
             raise ValueError("precision='ds' keeps state on device (no placement='host')")
+        if precision == "ds":
+            # nbody_tpu/compute.py:143-158: every variant but sym and one_sided
+            # runs the ds default
+            if variant not in ("auto", "vpu", "sym", "one_sided"):
+                raise ValueError(
+                    f"precision='ds' variants are 'auto'/'sym'/"
+                    f"'one_sided' (got {variant!r})")
+            variant = variant if variant in ("sym", "one_sided") else "auto"
         self.precision = precision
         self.log = log
         self.paused = False
@@ -362,7 +372,10 @@ class Compute:
         `tolerance` (the reference's rule). The port also holds the
         acceleration of that state, from the system's force kernel, to the
         oracle's within 1e-4 * max|a| + 1e-4: a wrong force shrinks by dt^2
-        before it reaches the positions. With integrator="hermite" the
+        before it reaches the positions. With variant="mxu" / "mxu_bf16" and
+        Euler the force is the mxu step's, held element by element to that
+        bound plus its error model (MXU_ERROR_COEF[variant] * E, logged as
+        the largest ratio of error to bound). With integrator="hermite" the
         acceleration and the jerk come from the accel + jerk kernel, and the
         jerk is held to the oracle's within 1e-4 * max|j| + 1e-4. With
         precision="ds" see ``_compare_results_ds``."""
@@ -388,19 +401,28 @@ class Compute:
             ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
         else:
             ref_acc = _oracle_accel(pos0, p.softening)
-        checks = [("dpos", err, tolerance),
-                  ("dacc", float(np.abs(acc - ref_acc).max()),
-                   QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL)]
+        acc_err = np.abs(acc - ref_acc)
+        acc_tol = QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL
+        mxu = self.system.mxu_force
+        if mxu is None:
+            checks = [("max |dacc|", float(acc_err.max()), acc_tol)]
+        else:
+            # the one-sided rule plus the mxu error model, element by element
+            p0 = torch.as_tensor(pos0, device=self.system.device)
+            bound = acc_tol + reference.MXU_ERROR_COEF[mxu] * (
+                reference.mxu_error_scale(p0, p0, p.softening).cpu().numpy())
+            checks = [(f"max |dacc| / ({acc_tol:.3e} + {mxu} error model)",
+                       float((acc_err / bound).max()), 1.0)]
         if hermite:
-            checks.append(("djerk", float(np.abs(jerk - ref_jerk).max()),
+            checks.append(("max |djerk|", float(np.abs(jerk - ref_jerk).max()),
                            QA_JERK_RTOL * float(np.abs(ref_jerk).max()) + QA_JERK_ATOL))
-        passed = all(e <= tol for _, e, tol in checks)
+        passed = err <= tolerance and all(e <= tol for _, e, tol in checks)
         oracle = "native C++" if native_available() else "NumPy"
         self.log(
             f"QA compare vs {oracle} oracle: max |dpos| = {err:.3e} "
             f"(tolerance {tolerance:g}), "
-            + ", ".join(f"max |{name}| = {e:.3e} (tolerance {tol:.3e})"
-                        for name, e, tol in checks[1:])
+            + ", ".join(f"{label} = {e:.3e} (tolerance {tol:.3e})"
+                        for label, e, tol in checks)
             + f" -> {'OK' if passed else 'FAILED'}")
         # restore the pre-compare state so the compare has no side effect
         self.system.set_state(pos0, vel0)

@@ -1,10 +1,12 @@
 // All-pairs Plummer gravity for Hopper (sm_90a), one-sided: the fused Euler
-// step, the force-only kernel, the accel + jerk kernel and the potential
-// kernel of nbody_tpu_torch.
+// step and its transposed-carry twin, the force-only kernel, the accel + jerk
+// kernel and the potential kernel of nbody_tpu_torch.
 //
-// Replaces four Pallas TPU kernels of the JAX package:
+// Replaces five Pallas TPU kernels of the JAX package:
 //   nbody_step_f32       <- nbody_tpu/ops/pallas_kernel.py::_step_kernel
 //                           (nbody_step_pallas_vs / nbody_step_pallas)
+//   nbody_step_t_f32     <- nbody_tpu/ops/pallas_kernel.py::_step_kernel_t
+//                           (def :202, pallas_call :557; nbody_rollout_pallas)
 //   nbody_accel_f32      <- nbody_tpu/ops/pallas_kernel.py::_accel_kernel
 //                           (compute_accel_pallas)
 //   nbody_accel_jerk_f32 <- nbody_tpu/ops/pallas_kernel.py::_accel_jerk_kernel
@@ -63,6 +65,22 @@
 // Only the self set is taken (M = N), as the JAX kernel takes it; the total
 // -1/2 sum_i is left to the caller, as pallas_kernel.py:792 leaves it to XLA.
 //
+// The transposed-carry step (step_t_kernel): the step kernel's arithmetic
+// through the same template (fused_step), with the j-side read from the four
+// (N,) planes x, y, z, m of the current positions instead of the (N,4)
+// array, and the new positions written a second time into the planes of the
+// next step (ping-ponged by the caller: a launch never writes the planes it
+// reads). The j order and every operation are those of step_kernel, so k
+// launches equal k step launches bit for bit. On the TPU the planes saved
+// an XLA transpose a step (0.61 ms at N=65536) and still lost to the plain
+// scan, a recorded negative result. On Hopper the bound is the step
+// kernel's (arithmetic; a pair's j-body is one shared-memory broadcast
+// either way): staging a tile from the planes is four coalesced 4-byte
+// loads a body instead of one 16-byte load, and each step writes 16 more
+// bytes a body, O(N) against O(N^2) pair work, so it can neither win nor
+// lose by more than that. No path of the port calls it, as no path of the
+// JAX package calls nbody_rollout_pallas.
+//
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
 // (float4 loads), acc (M,3). The caller makes the arrays' device current; the
@@ -76,15 +94,31 @@
 
 namespace {
 
-__device__ __forceinline__ void accumulate_all_j(const float4 pi,
-                                                 const float4* __restrict__ pos_j,
+// The j-side loaders: the (N,4) array of the step and force kernels, and the
+// (4, N) planes x, y, z, m that the rollout carries. Both give the same
+// float4, so the staged tile, and every bit after it, is the same.
+struct AosJ {
+  const float4* __restrict__ p;
+  __device__ __forceinline__ float4 operator()(const int64_t j) const { return p[j]; }
+};
+
+struct PlanesJ {
+  const float* __restrict__ t;  // (4, ld): x, y, z, m
+  int64_t ld;
+  __device__ __forceinline__ float4 operator()(const int64_t j) const {
+    return make_float4(t[j], t[ld + j], t[2 * ld + j], t[3 * ld + j]);
+  }
+};
+
+template <class JLoad>
+__device__ __forceinline__ void accumulate_all_j(const float4 pi, const JLoad load_j,
                                                  const int64_t n, const float eps2,
                                                  float4* tile, float& ax, float& ay,
                                                  float& az) {
   const int bs = blockDim.x;
   for (int64_t base = 0; base < n; base += bs) {
     const int64_t j = base + threadIdx.x;
-    tile[threadIdx.x] = (j < n) ? pos_j[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    tile[threadIdx.x] = (j < n) ? load_j(j) : make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     for (int k = 0; k < bs; ++k) {
       const float4 pj = tile[k];
@@ -102,6 +136,39 @@ __device__ __forceinline__ void accumulate_all_j(const float4 pi,
   }
 }
 
+// The fused Euler step of one i-body, shared by step_kernel and
+// step_t_kernel so that the two give the same bits; with `new_post`, the new
+// position is also written into the (4, m) planes.
+template <class JLoad>
+__device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
+                                           const float4* __restrict__ vel_i,
+                                           const JLoad load_j, float4* __restrict__ new_pos,
+                                           float4* __restrict__ new_vel,
+                                           float* __restrict__ new_post, const int64_t m,
+                                           const int64_t n, const float dt, const float eps2,
+                                           const float damping) {
+  extern __shared__ float4 tile[];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // threads past M still stage j-tiles for the rest of the block
+  const float4 pi = (i < m) ? pos_i[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float ax = 0.f, ay = 0.f, az = 0.f;
+  accumulate_all_j(pi, load_j, n, eps2, tile, ax, ay, az);
+  if (i >= m) return;
+  const float4 vi = vel_i[i];
+  const float vx = (vi.x + ax * dt) * damping;
+  const float vy = (vi.y + ay * dt) * damping;
+  const float vz = (vi.z + az * dt) * damping;
+  const float4 np = make_float4(pi.x + vx * dt, pi.y + vy * dt, pi.z + vz * dt, pi.w);
+  new_vel[i] = make_float4(vx, vy, vz, vi.w);
+  new_pos[i] = np;
+  if (new_post != nullptr) {
+    new_post[i] = np.x;
+    new_post[m + i] = np.y;
+    new_post[2 * m + i] = np.z;
+    new_post[3 * m + i] = np.w;
+  }
+}
+
 __global__ void step_kernel(const float4* __restrict__ pos_i,
                             const float4* __restrict__ vel_i,
                             const float4* __restrict__ pos_j,
@@ -109,19 +176,20 @@ __global__ void step_kernel(const float4* __restrict__ pos_i,
                             float4* __restrict__ new_vel, const int64_t m,
                             const int64_t n, const float dt, const float eps2,
                             const float damping) {
-  extern __shared__ float4 tile[];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // threads past M still stage j-tiles for the rest of the block
-  const float4 pi = (i < m) ? pos_i[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  accumulate_all_j(pi, pos_j, n, eps2, tile, ax, ay, az);
-  if (i >= m) return;
-  const float4 vi = vel_i[i];
-  const float vx = (vi.x + ax * dt) * damping;
-  const float vy = (vi.y + ay * dt) * damping;
-  const float vz = (vi.z + az * dt) * damping;
-  new_vel[i] = make_float4(vx, vy, vz, vi.w);
-  new_pos[i] = make_float4(pi.x + vx * dt, pi.y + vy * dt, pi.z + vz * dt, pi.w);
+  fused_step(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2, damping);
+}
+
+// One step of the transposed-carry rollout (nbody_tpu's _step_kernel_t):
+// the j-side from the planes `post` (4, n) of the current positions, the new
+// positions written twice, as (n,4) and as the planes `new_post` (4, n) that
+// the next step reads. The i-set is the whole set; `new_post` must not be
+// `post`, which other blocks are still reading.
+__global__ void step_t_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
+                              const float* __restrict__ post, float4* __restrict__ new_pos,
+                              float4* __restrict__ new_vel, float* __restrict__ new_post,
+                              const int64_t n, const float dt, const float eps2,
+                              const float damping) {
+  fused_step(pos, vel, PlanesJ{post, n}, new_pos, new_vel, new_post, n, n, dt, eps2, damping);
 }
 
 __global__ void accel_kernel(const float4* __restrict__ pos_i,
@@ -132,7 +200,7 @@ __global__ void accel_kernel(const float4* __restrict__ pos_i,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const float4 pi = (i < m) ? pos_i[i] : make_float4(0.f, 0.f, 0.f, 0.f);
   float ax = 0.f, ay = 0.f, az = 0.f;
-  accumulate_all_j(pi, pos_j, n, eps2, tile, ax, ay, az);
+  accumulate_all_j(pi, AosJ{pos_j}, n, eps2, tile, ax, ay, az);
   if (i >= m) return;
   acc[3 * i + 0] = ax;
   acc[3 * i + 1] = ay;
@@ -239,6 +307,20 @@ int nbody_step_f32(const void* pos_i, const void* vel_i, const void* pos_j,
       static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
       static_cast<const float4*>(pos_j), static_cast<float4*>(new_pos),
       static_cast<float4*>(new_vel), m, n, dt, eps2, damping);
+  return cudaGetLastError();
+}
+
+int nbody_step_t_f32(const void* pos, const void* vel, const void* post, void* new_pos,
+                     void* new_vel, void* new_post, int64_t n, float dt, float eps2,
+                     float damping, int64_t block_size, void* stream) {
+  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
+  step_t_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pos), static_cast<const float4*>(vel),
+      static_cast<const float*>(post), static_cast<float4*>(new_pos),
+      static_cast<float4*>(new_vel), static_cast<float*>(new_post), n, dt, eps2, damping);
   return cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
 far: fp32, one device, damped semi-implicit Euler, leapfrog or 4th-order
-Hermite, the one-sided force (``variant="vpu"``) or the each-pair-once force
-(``variant="sym"``), and the energy diagnostics.
+Hermite, the one-sided force (``variant="vpu"``), the each-pair-once force
+(``variant="sym"``) or the force reduction on the tensor cores
+(``variant="mxu"`` / ``"mxu_bf16"``, Euler), and the energy diagnostics.
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -20,8 +21,14 @@ Variants (the force):
   * "sym"  — each pair once, the blocked triangle + rectangle composition
     (``sym_default_dispatch``); the O(N) update is plain torch, written into
     the other ping-pong buffer, as the JAX package leaves it to XLA
+  * "mxu" / "mxu_bf16" — Euler runs the fused step with the force reduced
+    as a matrix product on the tensor cores (``csrc/mxu_kernels.cu``), in
+    f32 grade or with bf16 operands; leapfrog and Hermite keep the one-sided
+    kernels, as the JAX package's do (its mxu variants reach only
+    ``nbody_step_pallas``). mxu_bf16 is not faithful to energy.
   * "auto" — AUTO_VARIANT_CUDA on a CUDA device, else "vpu" (the JAX package
-    resolves to its Pallas sym path only on the TPU)
+    resolves to its Pallas sym path only on the TPU, and to an mxu variant
+    only from its TPU autotuner's cache, ROADMAP.md Queue 1 #12)
 
 Integrators: "euler" (damped semi-implicit), "leapfrog" (drift-kick-drift
 around one force evaluation of the variant's force) and "hermite" (the
@@ -56,6 +63,7 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     compute_accel_jerk_symmetric_blocked_cuda,
     compute_accel_symmetric_blocked_cuda,
     nbody_step_cuda,
+    nbody_step_mxu_cuda,
     potential_energy_per_row_cuda,
     sym_default_dispatch,
 )
@@ -74,8 +82,6 @@ LATER_SLICES = {
     "pm": "Queue 1 #10 (PM / P3M)",
     "p3m": "Queue 1 #10 (PM / P3M)",
     "mesh": "Queue 1 #13 (parallel/)",
-    "mxu": "Queue 2 #3 (_mxu_step_kernel)",
-    "mxu_bf16": "Queue 2 #3 (_mxu_step_kernel)",
 }
 
 
@@ -182,9 +188,7 @@ class BodySystem:
             backend = "cuda" if self.device.type == "cuda" else "torch"
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(f"backend='cuda' needs a CUDA device; got {self.device}")
-        if variant in ("mxu", "mxu_bf16"):
-            raise not_ported("variant", variant)
-        if variant not in ("auto", "vpu", "sym"):
+        if variant not in ("auto", "vpu", "sym", *reference.MXU_VARIANTS):
             raise ValueError(f"unknown kernel variant {variant!r}")
         if integrator not in ("euler", "leapfrog", "hermite"):
             raise ValueError(f"unknown integrator {integrator!r}")
@@ -310,6 +314,27 @@ class BodySystem:
             return compute_accel_jerk_cuda(pos, vel, pos, vel, soft, block_size=self.block_size)
         return reference.compute_accel_jerk(pos, vel, soft)
 
+    def _mxu_step(self, pos, vel, dt, damping, out) -> None:
+        """The mxu Euler step of (pos, vel) into out: the tensor-core kernel,
+        or its plain version with backend='torch'."""
+        soft = self.params.softening
+        if self.backend == "cuda":
+            nbody_step_mxu_cuda(pos, vel, dt, soft, damping, variant=self.variant, out=out)
+            return
+        new_pos, new_vel = reference.nbody_step_mxu(
+            pos, vel, dt, soft, damping, mxu_dtype=reference.MXU_DTYPES[self.variant])
+        out[0].copy_(new_pos)
+        out[1].copy_(new_vel)
+
+    @property
+    def mxu_force(self) -> Optional[str]:
+        """The mxu variant whose algebra ``accelerations()`` computes (Euler
+        with variant mxu or mxu_bf16), else None (the one-sided or sym
+        force)."""
+        if self.integrator == "euler" and self.variant in reference.MXU_VARIANTS:
+            return self.variant
+        return None
+
     def _step(self, dt: float) -> None:
         p = self.params
         cur, nxt = self._cur, 1 - self._cur
@@ -327,6 +352,8 @@ class BodySystem:
         elif self.variant == "vpu" and self.backend == "cuda":
             nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
                             block_size=self.block_size, out=out)
+        elif self.variant in reference.MXU_VARIANTS:
+            self._mxu_step(pos, vel, dt, p.damping, out)
         else:
             reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         self._cur = nxt
@@ -364,8 +391,18 @@ class BodySystem:
     def accelerations(self) -> torch.Tensor:
         """Acceleration (N,3) of the current state with this system's backend
         and force variant (a CUDA force kernel or the plain version), on the
-        device."""
-        return self._accel(self._device_state()[0])
+        device. For the mxu variants with Euler it is the mxu step's own
+        force: there is no force-only mxu kernel, so one fused step from zero
+        velocities with dt = 1 and damping = 1, into the other ping-pong
+        buffers, leaves v' = a exactly."""
+        pos = self._device_state()[0]
+        if self.mxu_force is None:
+            return self._accel(pos)
+        nxt = 1 - self._cur
+        out = (self._pos[nxt], self._vel[nxt])
+        self._mxu_step(pos, torch.zeros_like(pos), 1.0, 1.0, out)
+        # a copy: the next step writes these buffers
+        return out[1][:, :3].clone()
 
     def accelerations_and_jerks(self):
         """(acc, jerk), each (N,3), of the current state with this system's

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
            CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
            CSRC / "ds_symmetric_kernels.cu", CSRC / "ds_aj_kernels.cu",
-           CSRC / "ds_symmetric_aj_kernels.cu")
+           CSRC / "ds_symmetric_aj_kernels.cu", CSRC / "mxu_kernels.cu")
 HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh", CSRC / "ds_sym_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
@@ -117,6 +117,11 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_step_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
                                    f32, f32, f32, i64, ptr]
     lib.nbody_step_f32.restype = ctypes.c_int
+    lib.nbody_step_t_f32.argtypes = [ptr] * 6 + [i64, f32, f32, f32, i64, ptr]
+    lib.nbody_step_t_f32.restype = ctypes.c_int
+    for name in ("nbody_mxu_step_f32", "nbody_mxu_step_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
+        getattr(lib, name).restype = ctypes.c_int
     lib.nbody_accel_f32.argtypes = [ptr, ptr, ptr, i64, i64, f32, i64, ptr]
     lib.nbody_accel_f32.restype = ctypes.c_int
     lib.nbody_sym_accel_f32.argtypes = [ptr, i64, f32, i64, ptr, ptr, ptr]

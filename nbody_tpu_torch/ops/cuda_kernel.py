@@ -1,11 +1,14 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
-``csrc/symmetric_kernels.cu``, ``csrc/symmetric_aj_kernels.cu``, and the
-double-single ``csrc/ds_kernels.cu``, ``csrc/ds_symmetric_kernels.cu``,
+``csrc/mxu_kernels.cu``, ``csrc/symmetric_kernels.cu``,
+``csrc/symmetric_aj_kernels.cu``, and the double-single
+``csrc/ds_kernels.cu``, ``csrc/ds_symmetric_kernels.cu``,
 ``csrc/ds_aj_kernels.cu`` and ``csrc/ds_symmetric_aj_kernels.cu``).
 
-Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` /
-``compute_accel_pallas`` / ``compute_accel_jerk_pallas`` and of the per-row
-sums of ``potential_energy_pallas`` (``nbody_tpu/ops/pallas_kernel.py``),
+Counterparts of ``nbody_step_pallas_vs`` / ``nbody_step_pallas`` (the
+vpu and, on the tensor cores, the mxu / mxu_bf16 variants) /
+``nbody_rollout_pallas`` / ``compute_accel_pallas`` /
+``compute_accel_jerk_pallas`` and of the per-row sums of
+``potential_energy_pallas`` (``nbody_tpu/ops/pallas_kernel.py``),
 with the reference's ``block_size`` (threads per block, and j-bodies per
 shared-memory tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
 ``compute_accel_symmetric`` / ``_sym_cross`` /
@@ -42,8 +45,9 @@ from nbody_tpu_torch.ops import ds, energy, reference
 
 DEFAULT_BLOCK_SIZE = 256
 
-LAUNCHES = {"step": 0, "accel": 0, "sym": 0, "sym_cross": 0,
-            "accel_jerk": 0, "potential": 0, "aj_sym": 0, "aj_sym_cross": 0,
+LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 0,
+            "sym": 0, "sym_cross": 0, "accel_jerk": 0, "potential": 0, "aj_sym": 0,
+            "aj_sym_cross": 0,
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
             "ds_integrate": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0, "ds_aj_sym_cross": 0,
             "ds_hermite_predict": 0, "ds_hermite_correct": 0}
@@ -92,21 +96,17 @@ def _raise_on_error(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
-                       *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
-    """Fused step of the i-set (M,4) under forces from the j-set (N,4).
-
-    Returns (new_pos, new_vel), each (M,4). ``out=(new_pos, new_vel)`` writes
-    into preallocated tensors, which must not overlap any input: every
-    thread block reads all of pos_j while others write their new positions.
-    """
+def _step_outs(pos_i, vel_i, pos_j, out):
+    """Check the inputs of a fused step and its out=(new_pos, new_vel),
+    allocated when None; returns (device, new_pos, new_vel). The outputs
+    must not overlap any input: every thread block reads all of pos_j while
+    others write their new positions."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     for name, t in (("pos_i", pos_i), ("vel_i", vel_i), ("pos_j", pos_j)):
         _check_state(name, t, device)
     if vel_i.shape[0] != pos_i.shape[0]:
         raise ValueError(f"vel_i has {vel_i.shape[0]} rows, pos_i {pos_i.shape[0]}")
-    bs = check_block_size(block_size)
-    m, n = pos_i.shape[0], pos_j.shape[0]
+    m = pos_i.shape[0]
     if out is None:
         out = (torch.empty_like(pos_i), torch.empty_like(vel_i))
     new_pos, new_vel = out
@@ -119,7 +119,19 @@ def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
                 raise ValueError(f"{name} overlaps an input of the step")
     if _overlaps(new_pos, new_vel):
         raise ValueError("out[0] and out[1] overlap")
+    return device, new_pos, new_vel
 
+
+def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
+                       *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """Fused step of the i-set (M,4) under forces from the j-set (N,4).
+
+    Returns (new_pos, new_vel), each (M,4). ``out=(new_pos, new_vel)`` writes
+    into preallocated tensors, which must not overlap any input.
+    """
+    device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out)
+    bs = check_block_size(block_size)
+    m, n = pos_i.shape[0], pos_j.shape[0]
     if device.type != "cuda":
         p, v = reference.nbody_step_vs(pos_i, vel_i, pos_j, dt, softening, damping)
         new_pos.copy_(p)
@@ -147,6 +159,101 @@ def nbody_step_cuda(pos, vel, dt, softening, damping,
     """Single-device fused step: forces of the whole set on itself."""
     return nbody_step_cuda_vs(pos, vel, pos, dt, softening, damping,
                               block_size=block_size, out=out)
+
+
+# ---- the force reduction on the tensor cores: csrc/mxu_kernels.cu ----
+
+# variant -> (C entry point, LAUNCHES key)
+MXU_KERNELS = {"mxu": ("nbody_mxu_step_f32", "mxu_step"),
+               "mxu_bf16": ("nbody_mxu_step_bf16", "mxu_bf16_step")}
+
+
+def nbody_step_mxu_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping, *, variant: str,
+                           out=None):
+    """The fused Euler step of the i-set (M,4) under the j-set (N,4), the
+    force reduced as a matrix product on the tensor cores (the kernel of
+    ``_mxu_step_kernel``): ``variant="mxu"`` in f32 grade (3xTF32),
+    ``"mxu_bf16"`` with bf16 operands and f32 sums. Returns (new_pos,
+    new_vel); ``out`` as for ``nbody_step_cuda_vs``. A CPU tensor takes the
+    plain version, ``reference.nbody_step_mxu_vs``."""
+    entry, key = MXU_KERNELS[reference.check_mxu_variant(variant)]
+    device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out)
+    m, n = pos_i.shape[0], pos_j.shape[0]
+    if device.type != "cuda":
+        p, v = reference.nbody_step_mxu_vs(pos_i, vel_i, pos_j, dt, softening, damping,
+                                           mxu_dtype=reference.MXU_DTYPES[variant])
+        new_pos.copy_(p)
+        new_vel.copy_(v)
+        return new_pos, new_vel
+    if m == 0:
+        return new_pos, new_vel
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(),
+            new_pos.data_ptr(), new_vel.data_ptr(), m, n,
+            ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
+            ctypes.c_float(float(damping)), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, f"{entry} launch")
+    LAUNCHES[key] += 1
+    return new_pos, new_vel
+
+
+def nbody_step_mxu_cuda(pos, vel, dt, softening, damping, *, variant: str, out=None):
+    """Single-device mxu step: forces of the whole set on itself."""
+    return nbody_step_mxu_cuda_vs(pos, vel, pos, dt, softening, damping, variant=variant,
+                                  out=out)
+
+
+def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
+                       block_size: int = DEFAULT_BLOCK_SIZE):
+    """`steps` fused one-sided Euler steps that carry the j-side as the
+    planes (4, N) of the positions from step to step (the kernel of
+    ``_step_kernel_t``; the counterpart of ``nbody_rollout_pallas``): the
+    positions are transposed once, before the first step, and each launch
+    writes the planes the next one reads. Equals `steps` launches of
+    ``nbody_step_cuda`` at the same block size bit for bit. Returns the new
+    (pos, vel), each (N,4); the inputs are not written (steps=0 returns
+    them, as ``reference.rollout`` does). No path of the port calls it: on
+    the TPU it was measured slower than the step scan (a recorded negative
+    result), and PERF.md has its time on the card."""
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_pair("pos", pos, "vel", vel, device)
+    bs = check_block_size(block_size)
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0; got {steps}")
+    if device.type != "cuda":
+        return reference.rollout(pos, vel, dt, softening, damping, steps=steps)
+    n = pos.shape[0]
+    if steps == 0 or n == 0:
+        return pos, vel
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    bufs = [(torch.empty_like(pos), torch.empty_like(vel)) for _ in range(2)]
+    # copies, never views: a step writes the planes the step before read,
+    # and (4, 1) pos.t() would be pos itself
+    planes = [torch.empty((4, n), dtype=torch.float32, device=device) for _ in range(2)]
+    planes[0].copy_(pos.t())
+    cur = (pos, vel)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for k in range(steps):
+            nxt = bufs[k % 2]
+            err = lib.nbody_step_t_f32(
+                cur[0].data_ptr(), cur[1].data_ptr(), planes[k % 2].data_ptr(),
+                nxt[0].data_ptr(), nxt[1].data_ptr(), planes[1 - k % 2].data_ptr(), n,
+                ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
+                ctypes.c_float(float(damping)), bs, stream)
+            _raise_on_error(lib, err, "nbody_step_t_f32 launch")
+            LAUNCHES["step_t"] += 1
+            cur = nxt
+    return cur
 
 
 def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):

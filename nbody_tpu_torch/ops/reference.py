@@ -101,6 +101,168 @@ def rollout(pos, vel, dt, softening, damping, *, steps: int,
     return pos, vel
 
 
+# ---- the force reduction as a matrix product (variant "mxu" / "mxu_bf16") ----
+#
+# The algebra of nbody_tpu/ops/pallas_kernel.py::_mxu_accumulate_tile and
+# _mxu_step_kernel's finalize (:125-199), which is not the one-sided force
+# in other words:
+#   s_ij  = rsqrt(|p_j - p_i|^2 + eps^2)^3      (no mass, no d, no self mask)
+#   P_j   = [x_j m_j, y_j m_j, z_j m_j, m_j]
+#   acc4  = s @ P;   a_i = acc4[:, :3] - p_i * acc4[:, 3]
+# "mxu" takes the product in float32; "mxu_bf16" rounds s and P to bfloat16
+# (round to nearest even) and sums their products in float32. The product
+# here is a float32 matmul of the (rounded) values: on the card that needs
+# torch.backends.cuda.matmul.allow_tf32 False (PyTorch's default), or the
+# yardstick itself rounds to TF32; a bf16 matmul is avoided because cuBLAS
+# may reduce it in lower precision. A zero-mass body adds exactly 0 to acc4,
+# so the JAX package's zero-mass j-padding needs no counterpart.
+
+MXU_VARIANTS = ("mxu", "mxu_bf16")
+MXU_DTYPES = {"mxu": torch.float32, "mxu_bf16": torch.bfloat16}
+
+# The error model of an mxu force, per row i and component k,
+#   E_ik = sum_j |s_ij| (|P_jk| + |p_ik| |m_j|),
+# and the coefficient C of a bound C * E_ik on the difference of two
+# evaluations of the same algebra (kernel and plain version, or the port and
+# nbody_tpu):
+#   mxu_bf16: 2 * 2^-8. Each side rounds s_ij to bf16 (error <= 2^-8 |s_ij|
+#     each), and the two float32 s_ij may differ in their last bits (rsqrtf
+#     against torch.rsqrt), so the two may round to neighbouring bf16
+#     values, at most 2^-7 |s_ij| apart; P_j is rounded identically. The
+#     float32 sums add < 2^-15 relative, below that.
+#   mxu: 16 * 2^-20. The float32 s_ij differ by a few ulp (<= 2^-21); the
+#     card's 3xTF32 products drop terms of <= 3 * 2^-22 relative; the
+#     rounding of the float32 sums grows as a random walk over the j-tiles
+#     (sqrt(N/128) * 2^-24 <= 2^-19.5 at N=65536), on each side. About
+#     4 * 2^-20 in all; C keeps a factor 4 above it.
+# Against the oracle's one-sided force, the same model bounds what the
+# algebra adds, on top of the one-sided rule (compute.py).
+MXU_ERROR_COEF = {"mxu": 16 * 2.0 ** -20, "mxu_bf16": 2 * 2.0 ** -8}
+
+
+def check_mxu_variant(variant: str) -> str:
+    if variant not in MXU_VARIANTS:
+        raise ValueError(f"unknown mxu variant {variant!r}; expected one of {MXU_VARIANTS}")
+    return variant
+
+
+def _mxu_fold(pos_j):
+    """P (N,4) = [x m, y m, z m, m] of the j-set, in float32."""
+    m = pos_j[:, 3:4]
+    return torch.cat([pos_j[:, :3] * m, m], dim=1)
+
+
+def _mxu_s_rows(rows_p, all_p, eps2):
+    """s (C,N) = rsqrt(|p_j - p_i|^2 + eps^2)^3 of rows_p (C,3) against
+    all_p (N,3), in the arithmetic of _mxu_accumulate_tile."""
+    dx = all_p[None, :, 0] - rows_p[:, 0:1]
+    dy = all_p[None, :, 1] - rows_p[:, 1:2]
+    dz = all_p[None, :, 2] - rows_p[:, 2:3]
+    r2 = dx * dx + dy * dy + dz * dz + eps2
+    inv = torch.rsqrt(r2)
+    return inv * inv * inv
+
+
+def _check_no_tf32(t) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the plain mxu step takes a float32 product; on the card that needs "
+            "torch.backends.cuda.matmul.allow_tf32 = False (PyTorch's default)")
+
+
+def _by_row_chunks(fn, rows, chunk_size):
+    """fn over the (C,3) row chunks of rows (M,3), zero-padded to equal
+    chunks, concatenated and cut back to M rows."""
+    m_rows = rows.shape[0]
+    c, m_pad = _chunk_and_pad(m_rows, chunk_size)
+    if m_pad != m_rows:
+        rows = torch.cat([rows, rows.new_zeros((m_pad - m_rows, 3))])
+    return torch.cat([fn(r) for r in rows.split(c)])[:m_rows]
+
+
+def _mxu_rows(rows_p, pos_j, eps2, variant, *, chunk_size):
+    """acc4 (C,4) = s @ P of the rows rows_p (C,3), chunked over the rows."""
+    P = _mxu_fold(pos_j)
+    if variant == "mxu_bf16":
+        P = P.to(torch.bfloat16).float()
+    _check_no_tf32(P)
+    p3 = pos_j[:, :3]
+
+    def acc4(r):
+        s = _mxu_s_rows(r, p3, eps2)
+        if variant == "mxu_bf16":
+            s = s.to(torch.bfloat16).float()
+        return s @ P
+
+    return _by_row_chunks(acc4, rows_p, chunk_size)
+
+
+def compute_accel_mxu_vs(pos_i, pos_j, softening, *, variant: str,
+                         chunk_size: int | None = None):
+    """Acceleration (M,3) on the i-set (M,4) due to the j-set (N,4) in the
+    mxu algebra: acc4[:, :3] - p_i * acc4[:, 3]."""
+    check_mxu_variant(variant)
+    if pos_i.shape[0] == 0:
+        return pos_i.new_zeros((0, 3))
+    eps2 = float(softening) ** 2
+    sp = _mxu_rows(pos_i[:, :3], pos_j, eps2, variant, chunk_size=chunk_size)
+    return sp[:, :3] - pos_i[:, :3] * sp[:, 3:4]
+
+
+def nbody_step_mxu_vs(pos_i, vel_i, pos_j, dt, softening, damping, *, mxu_dtype,
+                      chunk_size: int | None = None):
+    """The fused Euler step of ``_mxu_step_kernel``: the i-set (M,4) under
+    the j-set (N,4), the force reduced as a matrix product. `mxu_dtype` is
+    torch.float32 (variant "mxu") or torch.bfloat16 ("mxu_bf16")."""
+    variant = {v: k for k, v in MXU_DTYPES.items()}.get(mxu_dtype)
+    if variant is None:
+        raise ValueError(f"mxu_dtype must be torch.float32 or torch.bfloat16; got {mxu_dtype}")
+    acc = compute_accel_mxu_vs(pos_i, pos_j, softening, variant=variant,
+                               chunk_size=chunk_size)
+    return integrate(pos_i, vel_i, acc, dt, damping)
+
+
+def nbody_step_mxu(pos, vel, dt, softening, damping, *, mxu_dtype,
+                   chunk_size: int | None = None):
+    """Single-device mxu step: the whole set on itself."""
+    return nbody_step_mxu_vs(pos, vel, pos, dt, softening, damping, mxu_dtype=mxu_dtype,
+                             chunk_size=chunk_size)
+
+
+def mxu_error_scale(pos_i, pos_j, softening, *, chunk_size: int | None = None):
+    """E (M,3), E_ik = sum_j |s_ij| (|P_jk| + |p_ik| |m_j|), with the float32
+    s of the plain version: the scale of the mxu error model
+    (MXU_ERROR_COEF)."""
+    if pos_i.shape[0] == 0:
+        return pos_i.new_zeros((0, 3))
+    absP = _mxu_fold(pos_j).abs()
+    _check_no_tf32(absP)
+    p3 = pos_j[:, :3]
+    eps2 = float(softening) ** 2
+
+    def scale(r):
+        sp = _mxu_s_rows(r, p3, eps2).abs() @ absP
+        return sp[:, :3] + r.abs() * sp[:, 3:4]
+
+    return _by_row_chunks(scale, pos_i[:, :3], chunk_size)
+
+
+def mxu_step_tolerance(pos_i, vel_i, pos_j, step, dt, softening, damping, *, variant: str):
+    """(tol_pos, tol_vel), each (M,3): the bound on the difference of two
+    evaluations of the mxu step from the same state, given one of them,
+    step = (new_pos, new_vel). The force's MXU_ERROR_COEF[variant] * E is
+    carried through v' = (v + a dt) damping and p' = p + v' dt, plus 2^-22
+    of each operand of the update for its own rounding (once the forces
+    differ, the two may round apart; |a| <= E bounds the a dt operand)."""
+    e = mxu_error_scale(pos_i, pos_j, softening)
+    new_pos, new_vel = step
+    ulp = 2.0 ** -22
+    tol_vel = (abs(float(damping)) * float(dt) * MXU_ERROR_COEF[check_mxu_variant(variant)] * e
+               + ulp * (vel_i[:, :3].abs() + float(dt) * e + new_vel[:, :3].abs()))
+    tol_pos = float(dt) * tol_vel + ulp * (pos_i[:, :3].abs() + new_pos[:, :3].abs())
+    return tol_pos, tol_vel
+
+
 def integrate_into(pos, vel, acc, dt, damping, out) -> None:
     """`integrate` written into out=(new_pos, new_vel), preallocated (N,4)
     tensors that do not overlap the inputs: the step of the ping-pong

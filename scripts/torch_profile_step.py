@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 scripts/torch_profile_step.py
 
 For each (variant, N) in {vpu, sym} x {65536, 135168} with Euler, for
-each variant with Hermite at N=65536, for precision="ds" with Euler (auto,
+each variant with Hermite at N=65536, for the tensor-core variants (mxu,
+mxu_bf16) with Euler at N=65536, for precision="ds" with Euler (auto,
 the ds triangle) at N in {16384, 69632} and leapfrog at 16384, and for ds
 Hermite (auto, the ds accel + jerk triangle, and one_sided) at 16384 and
 auto at 36864, above its cap, it builds the Compute of the path, waits one
@@ -35,6 +36,7 @@ sys.path.insert(0, str(ROOT))
 STEPS = 10
 CONFIGS = [(variant, n, "euler", "fp32") for variant in ("vpu", "sym") for n in (65536, 135168)]
 CONFIGS += [(variant, 65536, "hermite", "fp32") for variant in ("vpu", "sym")]
+CONFIGS += [(variant, 65536, "euler", "fp32") for variant in ("mxu", "mxu_bf16")]
 CONFIGS += [("auto", n, "euler", "ds") for n in (16384, 69632)]
 CONFIGS += [("auto", 16384, "leapfrog", "ds")]
 CONFIGS += [(variant, 16384, "hermite", "ds") for variant in ("auto", "one_sided")]

@@ -59,7 +59,7 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--fp64"], ["--devices", "2"], ["--kernel", "xla"],
                                   ["--render"], ["--energy"],
-                                  ["--variant", "mxu"]])
+                                  ["--config", "plummer"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])

@@ -718,3 +718,122 @@ def test_ds_aj_wrappers_refuse_bad_arguments_before_launch(dev):
     with pytest.raises(ValueError, match="overlaps"):
         cuda_kernel.ds_hermite_correct_cuda(*planes, *fields, *fields, scal, out=planes)
     assert cuda_kernel.LAUNCHES == before
+
+
+# ---- the tensor-core step (csrc/mxu_kernels.cu) and the rollout ----
+#
+# Kernel and plain version evaluate the same mxu algebra: each is held to
+# the other under the mxu error model (reference.mxu_step_tolerance:
+# MXU_ERROR_COEF[variant] * E carried through the update, E_ik = sum_j
+# |s_ij| (|P_jk| + |p_ik| m_j)): bf16 may round an s to the neighbouring
+# value, f32 (3xTF32) differs in the last bits. The w lanes are copied.
+# The rollout repeats the step kernel's arithmetic and j order: bit-equal.
+
+MXU_VARIANTS = ("mxu", "mxu_bf16")
+
+
+def _mxu_held(pi, vi, pj, got, want, damping, variant):
+    tol_p, tol_v = reference.mxu_step_tolerance(pi, vi, pj, want, DT, SOFT, damping,
+                                                variant=variant)
+    rp = ((got[0][:, :3] - want[0][:, :3]).abs() / tol_p).max().item()
+    rv = ((got[1][:, :3] - want[1][:, :3]).abs() / tol_v).max().item()
+    assert rp <= 1.0 and rv <= 1.0, (rp, rv)
+    assert torch.equal(got[0][:, 3], pi[:, 3]) and torch.equal(got[1][:, 3], vi[:, 3])
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+@pytest.mark.parametrize("m, n", [(1, 33), (33, 1), (333, 1000), (1000, 1000), (777, 4099),
+                                  (4099, 777), (4099, 4099)])
+def test_mxu_step_matches_plain(dev, variant, m, n):
+    pj, _ = _state(n, dev)
+    pi, vi = _state(m, dev, seed=3)
+    before = cuda_kernel.LAUNCHES[cuda_kernel.MXU_KERNELS[variant][1]]
+    got = cuda_kernel.nbody_step_mxu_cuda_vs(pi, vi, pj, DT, SOFT, DAMP, variant=variant)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES[cuda_kernel.MXU_KERNELS[variant][1]] == before + 1
+    want = reference.nbody_step_mxu_vs(pi, vi, pj, DT, SOFT, DAMP,
+                                       mxu_dtype=reference.MXU_DTYPES[variant])
+    _mxu_held(pi, vi, pj, got, want, DAMP, variant)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_mxu_step_random_masses_damping_and_repeats(dev, variant, n):
+    p, v = _random_w(*_state(n, dev))
+    got = cuda_kernel.nbody_step_mxu_cuda(p, v, DT, SOFT, 0.5, variant=variant)
+    again = cuda_kernel.nbody_step_mxu_cuda(p, v, DT, SOFT, 0.5, variant=variant)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = reference.nbody_step_mxu(p, v, DT, SOFT, 0.5, mxu_dtype=reference.MXU_DTYPES[variant])
+    _mxu_held(p, v, p, got, want, 0.5, variant)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+def test_mxu_body_system_and_compute_on_card(dev, variant):
+    n = 4096
+    params = DEMO_PARAMS[0].replace(cluster_scale=tuned_scales(n)[0],
+                                    velocity_scale=tuned_scales(n)[1])
+    k = BodySystem(n, params, device=dev, variant=variant)
+    t = BodySystem(n, params, device=dev, backend="torch", variant=variant)
+    p0, v0 = (x.clone() for x in k.state)
+    acc = k.accelerations()
+    assert k.backend == "cuda" and k.mxu_force == variant
+    key = cuda_kernel.MXU_KERNELS[variant][1]
+    before = cuda_kernel.LAUNCHES[key]
+    k.update()
+    t.update()
+    assert cuda_kernel.LAUNCHES[key] == before + 1
+    _mxu_held(p0, v0, p0, k.state, t.state, params.damping, variant)
+    # the QA's force is the kernel's own: within the error model of plain's
+    want = reference.compute_accel_mxu_vs(p0, p0, params.softening, variant=variant)
+    bound = reference.MXU_ERROR_COEF[variant] * reference.mxu_error_scale(
+        p0, p0, params.softening)
+    assert ((acc - want).abs() <= bound).all()
+    c = Compute(num_bodies=n, device=dev, variant=variant, log=lambda s: None)
+    before = cuda_kernel.LAUNCHES[key]
+    assert c.compare_results()
+    assert cuda_kernel.LAUNCHES[key] == before + 2
+
+
+def test_mxu_launch_error_raises_and_counts_nothing(dev, monkeypatch):
+    from nbody_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    p, v = _state(64, dev)
+    out = (torch.empty_like(p), torch.empty_like(v))
+    stream = torch.cuda.current_stream().cuda_stream
+    # the entry points refuse a negative size without launching
+    for entry, _ in cuda_kernel.MXU_KERNELS.values():
+        assert getattr(lib, entry)(p.data_ptr(), v.data_ptr(), p.data_ptr(), out[0].data_ptr(),
+                                   out[1].data_ptr(), -1, 64, 0.0, 0.0, 1.0, stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "nbody_error_string":
+                return lambda err: b"invalid argument"
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    before = dict(cuda_kernel.LAUNCHES)
+    for variant in MXU_VARIANTS:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            cuda_kernel.nbody_step_mxu_cuda(p, v, DT, SOFT, DAMP, variant=variant)
+    with pytest.raises(RuntimeError, match="nbody_step_t_f32"):
+        cuda_kernel.nbody_rollout_cuda(p, v, DT, SOFT, DAMP, steps=2)
+    assert cuda_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4099])
+@pytest.mark.parametrize("block_size", [128, 256])
+def test_rollout_equals_step_launches_bit_for_bit(dev, n, block_size):
+    p, v = _random_w(*_state(n, dev))
+    before = dict(cuda_kernel.LAUNCHES)
+    gp, gv = cuda_kernel.nbody_rollout_cuda(p, v, DT, SOFT, 0.5, steps=5,
+                                            block_size=block_size)
+    assert cuda_kernel.LAUNCHES["step_t"] == before["step_t"] + 5
+    sp, sv = p, v
+    for _ in range(5):
+        sp, sv = nbody_step_cuda(sp, sv, DT, SOFT, 0.5, block_size=block_size)
+    assert torch.equal(gp, sp) and torch.equal(gv, sv)
+    # the inputs are not written
+    q, w = _random_w(*_state(n, dev))
+    assert torch.equal(p, q) and torch.equal(v, w)

@@ -545,6 +545,34 @@ def test_compute_precision_refusals():
         Compute(num_bodies=64, device="cpu", precision="bf16")
 
 
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("variant", ["auto", "vpu", "sym", "one_sided", "mxu", "mxu_bf16"])
+def test_compute_ds_maps_variants_as_nbody_tpu(integrator, variant):
+    # nbody_tpu/compute.py:143-158: every variant but sym and one_sided runs
+    # the ds default, and any other raises Compute's error; the two
+    # DSBodySystems word their own refusal (sym with leapfrog) differently
+    from nbody_tpu.compute import Compute as JaxCompute
+
+    def resolve(make):
+        try:
+            return make().system.variant
+        except ValueError as e:
+            return e
+
+    ref = resolve(lambda: JaxCompute(num_bodies=64, precision="ds", variant=variant,
+                                     integrator=integrator, interpret=True,
+                                     log=lambda s: None))
+    got = resolve(lambda: Compute(num_bodies=64, device="cpu", precision="ds",
+                                  variant=variant, integrator=integrator,
+                                  log=lambda s: None))
+    if isinstance(ref, str):
+        assert got == ref
+    else:
+        assert isinstance(got, ValueError)
+        if "variants are" in str(ref):
+            assert str(got) == str(ref)
+
+
 def test_benchmark_reports_the_fp64_convention():
     lines = []
     c = Compute(num_bodies=128, device="cpu", precision="ds", log=lines.append)
