@@ -91,15 +91,44 @@ its result:
      mxu_bf16 over 1000 steps at N=4096, recorded without a gate;
   5r. nbody_rollout_cuda as a user calls it, 10 steps at N=65536, equal to
      the system's 10 one-sided steps bit for bit;
+  3p. the P3M short-range pair kernel against the plain short-range sum
+     (reference.p3m_short_range) on the card at rtol 1e-4 / atol 2e-4, the
+     bound between nbody_tpu's Pallas and XLA short-range engines
+     (tests/test_p3m.py:367), on shell N=65536 at G=64 with the auto-sized
+     capacity and its blk, and on the same with masses from [0.5, 2] and 77
+     zero-mass bodies at the origin (N not a multiple of blk) at blk 128,
+     256 and 512; the overflow against p3m_overflow_count; repeat calls and
+     two whole p3m_accel calls (deposit, FFT, kernel) bit-equal; the
+     kernel's time at N=65536, its bound and the plain version's time;
+  5p. the P3M path through Compute(kernel="p3m"): QA at N=16384 (positions
+     gated, as nbody_tpu gates them), the P3M force at N=65536, G=64 against
+     the exact each-pair-once force (median relative error < 0.008, 90th
+     percentile < 0.02, the envelope of tests/test_p3m.py:36-37),
+     run_benchmark(3) at N=1,048,576, G=64 for Euler and leapfrog (README's
+     nbody --kernel p3m --numbodies 1000000 --benchmark) at the auto
+     capacity, which demo 0 outgrows within a step: a replay of its steps
+     (bit-equal to the benchmark's) prints the massive bodies each timed
+     force evaluation dropped, and the same run at the capacity auto-sizing
+     gives those states' largest occupancy must keep its contract; a
+     collapsing demo-0 state at N=65536 through update_many(10), which must
+     warn naming its first breached step. After the path (its launches not
+     counted): the pair kernel against the plain sum on the Euler run's
+     timed state that dropped the most, at its auto capacity, on a sample of
+     i-rows (random, the busiest cell's kept bodies, dropped bodies) against
+     all N, at rtol 1e-4 / atol 2e-4, dropped bodies 0; one Euler force
+     evaluation of the contract-keeping run split by CUDA events into its
+     stages (sort and tables, deposit, FFT solve, gather, pair kernel,
+     update), with live entries, tiles and the kernel's bound;
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
      --integrator leapfrog --qatest and with --benchmark, --integrator
      hermite with --qatest and with --drift-check 3, --variant mxu --qatest,
      --variant mxu_bf16 --benchmark, and --precision ds with --qatest,
      --benchmark, --integrator leapfrog --qatest, --drift-check 10, and
-     --integrator hermite --qatest (N=4096) and --benchmark.
+     --integrator hermite --qatest (N=4096) and --benchmark, and --kernel
+     p3m --numbodies 65536 --benchmark -i 3.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
-tensor-core path's and 5r the rollout's: the kernels' launch counters are
+tensor-core path's, 5r the rollout's and 5p the P3M path's: the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
 have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
@@ -124,6 +153,19 @@ N_BIG = 4 * 256 * 132  # the CLI's default N on an H100, above the sym cap
 N_DS_BIG = 65536 + 4096  # above the ds composition's cap: two blocks
 N_DS_AJ_BIG = 32768 + 4096  # above the ds accel + jerk composition's cap: two blocks
 N_MXU_DRIFT = 4096  # the 1000-step energy-drift record of the mxu variants
+N_P3M_BIG = 1 << 20  # README's nbody --kernel p3m --numbodies 1000000, rounded to 2^20
+P3M_GRID = 64  # the CLI's --pm-grid default
+P3M_RTOL, P3M_ATOL = 1e-4, 2e-4  # tests/test_p3m.py:367, Pallas against XLA short range
+# FP32-pipe instructions the short-range function needs a pair, with FMA:
+# 7 to test a candidate pair of neighbouring cells (3 FADD for d, FMUL + 2
+# FFMA for r2, the compare), 19 more for a pair within rcut (FADD of eps2,
+# 2 FMUL for inv^3, FMUL for y, 10 FFMA of Horner's rule, FFMA for inv^3 -
+# s_lr, FMUL by m_j, 3 FFMA for the sums); each counts as 2 flops at the
+# fp32 peak, rsqrtf goes to the SFU. The kernel spends 9 / 31, its terms
+# rounded unfused as its plain version rounds them (csrc/p3m_kernels.cu):
+# a cost of that choice, reported beside the bound and not in it.
+P3M_CANDIDATE_INSTR, P3M_NEAR_INSTR = 7, 19
+P3M_KERNEL_INSTR = (9, 31)
 # the card's peak fp32 rate outside the tensor cores and its memory rate
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -145,7 +187,8 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
            "ds_accel_jerk": "nbody_tpu_torch/csrc/ds_aj_kernels.cu",
            "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
-           "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu"}
+           "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
+           "p3m_sr": "nbody_tpu_torch/csrc/p3m_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "step_t": "nbody_tpu/ops/pallas_kernel.py:202",
             "mxu_step": "nbody_tpu/ops/pallas_kernel.py:171",
@@ -163,7 +206,8 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_sym_cross": "nbody_tpu/ops/ds_kernel.py:1339",
             "ds_accel_jerk": "nbody_tpu/ops/ds_kernel.py:756",
             "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
-            "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839"}
+            "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839",
+            "p3m_sr": "nbody_tpu/ops/p3m_kernel.py:250"}
 NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
          "accel": "nbody_accel_f32",
@@ -173,7 +217,7 @@ NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "ds_step": "nbody_ds_step", "ds_leapfrog": "nbody_ds_leapfrog",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
          "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
-         "ds_aj_sym_cross": "nbody_ds_aj_cross"}
+         "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 MXU_KERNELS = ("mxu_step", "mxu_bf16_step")
 # FP32-pipe instructions an mxu pair, read from csrc/mxu_kernels.cu: s is 3
@@ -1205,6 +1249,331 @@ def phase_ds_hermite_main(torch, smi: str) -> None:
         check(not drift_failed(drift), f"ds Hermite drift check failed at N={n}: {drift}")
 
 
+def auto_capacity(occ: int) -> int:
+    """BodySystem's auto-sized cell capacity for a largest massive cell
+    occupancy: occ + 50 %, rounded up to a multiple of 8."""
+    return max(8, -(-int(occ * 1.5 + 1) // 8) * 8)
+
+
+def p3m_capacity(pos) -> int:
+    """BodySystem's auto-sized cell capacity of a state at G=64."""
+    from nbody_tpu_torch.ops import p3m
+
+    return auto_capacity(int(p3m.p3m_max_occupancy(pos, grid=P3M_GRID)))
+
+
+def p3m_bound_ms(work: dict, n: int, instr=(P3M_CANDIDATE_INSTR, P3M_NEAR_INSTR)):
+    """The short-range function's bound for this run's data (p3m.pair_work):
+    the candidate pairs' test and the near pairs' terms, at 2 flops an FP32
+    instruction, against the O(N) bytes of the function (the state in, the
+    (N, 3) force out). Pairs of padding rows, and the terms of far pairs,
+    are work this kernel does and the function does not need; `instr`
+    P3M_KERNEL_INSTR gives what the kernel's unfused rounding costs."""
+    flops = 2.0 * (instr[0] * work["candidates"] + instr[1] * work["near"])
+    return bound_ms(flops, n * 16 + n * 12)
+
+
+def p3m_check(torch, acc, plain, what: str) -> float:
+    """Hold pair-kernel forces to the plain short-range sum at rtol 1e-4 /
+    atol 2e-4; return the largest absolute error."""
+    diff = (acc - plain).abs()
+    e = diff.max().item()
+    ratio = (diff / (P3M_ATOL + P3M_RTOL * plain.abs())).max().item()
+    print(f"[p3m check] {what}: max|da|={e:.3e} (max|a| {plain.abs().max().item():.3e}), "
+          f"largest error over rtol {P3M_RTOL:g} / atol {P3M_ATOL:g}: {ratio:.3f}")
+    check(bool(torch.isfinite(acc).all()), f"non-finite pair kernel output ({what})")
+    check(ratio <= 1.0, f"pair kernel disagrees with the plain sum ({what})")
+    return e
+
+
+def phase_p3m_kernels(torch) -> dict:
+    """3p. The pair kernel against the plain short-range sum: every term is
+    rounded alike (csrc/p3m_kernels.cu), so only the order of the sums
+    differs, and the force is held at rtol 1e-4, atol 2e-4, nbody_tpu's
+    bound between its two short-range engines."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m, reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    soft = DEMO_PARAMS[0].softening
+    shell, _ = shell_state(torch, N_MAIN)
+    masses, _ = shell_state(torch, N_MAIN, random_w=True)
+    padded = torch.cat([masses, torch.zeros((77, 4), device=dev)])
+    err = 0.0
+    for name, pos, blks in (("shell", shell, (None,)),
+                            ("masses from [0.5, 2] and 77 zero-mass bodies", padded,
+                             ck.P3M_BLKS)):
+        n = pos.shape[0]
+        cap = p3m_capacity(pos)
+        plain = reference.p3m_short_range(pos, soft, grid=P3M_GRID, capacity=cap)
+        overflow = int(p3m.p3m_overflow_count(pos, grid=P3M_GRID, capacity=cap))
+        for blk in blks:
+            acc, ovf = ck.p3m_short_range_cuda(pos, soft, grid=P3M_GRID, capacity=cap, blk=blk)
+            again, _ = ck.p3m_short_range_cuda(pos, soft, grid=P3M_GRID, capacity=cap, blk=blk)
+            torch.cuda.synchronize()
+            what = (f"{name}, N={n}, G={P3M_GRID}, capacity {cap}, "
+                    f"blk {p3m.p3m_kernel_blk(cap) if blk is None else blk}")
+            e = p3m_check(torch, acc, plain, what)
+            print(f"[3p p3m kernel] overflow {int(ovf)} (probe {overflow}); repeat bit-equal: "
+                  f"{torch.equal(acc, again)}")
+            check(int(ovf) == overflow, f"overflow {int(ovf)} != probe {overflow} ({what})")
+            check(torch.equal(acc, again), f"pair kernel repeat differs ({what})")
+            err = max(err, e)
+    cap = p3m_capacity(padded)
+    whole = [p3m.p3m_accel(padded, soft, grid=P3M_GRID, capacity=cap)[0] for _ in range(2)]
+    same = torch.equal(*whole)
+    print(f"[3p p3m kernel] two whole p3m_accel calls (deposit, FFT solve, pair kernel) "
+          f"bit-equal: {same}")
+    check(same, "two p3m_accel calls on one state differ")
+
+    # the kernel alone on the main path's tables: shell N=65536, G=64
+    cap = p3m_capacity(shell)
+    tables = p3m.pair_tables(shell, soft, grid=P3M_GRID, capacity=cap,
+                             blk=p3m.p3m_kernel_blk(cap))
+    reps, plain_reps = 20, 2
+
+    def kernel():
+        for _ in range(reps):
+            ck.p3m_sr_pairs_cuda(tables)
+
+    def plain():
+        for _ in range(plain_reps):
+            reference.p3m_short_range(shell, soft, grid=P3M_GRID, capacity=cap)
+
+    kernel()
+    plain()
+    t_k = elapsed_ms(kernel, dev) / reps
+    t_p = elapsed_ms(plain, dev) / plain_reps
+    work = p3m.pair_work(tables)
+    bound = p3m_bound_ms(work, N_MAIN)
+    own = p3m_bound_ms(work, N_MAIN, P3M_KERNEL_INSTR)
+    print(f"[3p p3m kernel] shell N={N_MAIN}, G={P3M_GRID}, capacity {cap}, blk {tables.blk}: "
+          f"{work['entries']} live entries, {work['tiles']} tiles "
+          f"({work['tiles'] * tables.blk ** 2:.4e} row pairs), {work['candidates']:.4e} candidate "
+          f"and {work['near']:.4e} near pairs; kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
+          f"bound {bound[0]:.3f} ms ({bound[1]}, {P3M_CANDIDATE_INSTR} / {P3M_NEAR_INSTR} "
+          f"instructions a candidate / near pair); {own[0]:.3f} ms at the kernel's unfused "
+          f"rounding ({P3M_KERNEL_INSTR[0]} / {P3M_KERNEL_INSTR[1]})")
+    return {"err": {"p3m_sr": err}, "times": {"p3m_sr": (t_k, t_p)},
+            "bounds": {"p3m_sr": bound}}
+
+
+def p3m_benchmark(torch, integrator: str, smi: str, capacity=None):
+    """run_benchmark(3) of Compute(kernel="p3m") at N=1,048,576, G=64:
+    (Compute, the contract warnings it gave, its first state)."""
+    import warnings
+
+    from nbody_tpu_torch.compute import Compute
+
+    c = Compute(num_bodies=N_P3M_BIG, device="cuda", kernel="p3m", integrator=integrator,
+                p3m_capacity=capacity, log=lambda s: print(f"[5p main] {s}"))
+    start = tuple(t.clone() for t in c.system.state)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = c.run_benchmark(3)
+    msgs = [str(m.message) for m in caught if "contract broken" in str(m.message)]
+    pos, vel = c.system.state
+    check(c.system.backend == "cuda", "the P3M path did not select the CUDA backend")
+    check(tuple(pos.shape) == (N_P3M_BIG, 4) and bool(
+        torch.isfinite(pos).all() and torch.isfinite(vel).all()),
+        f"bad state after the P3M {integrator} benchmark")
+    ms = res["milliseconds"] / res["iterations"]
+    print(f"[5p main] P3M {integrator} N={N_P3M_BIG}, G={P3M_GRID}, capacity "
+          f"{c.system.p3m_capacity}: {ms:.3f} ms per step [{smi}]; "
+          + (msgs[0] if msgs else "the contract held"))
+    return c, msgs, start
+
+
+def p3m_replay(torch, system, start, steps: int) -> list:
+    """Step `system` again from `start`, one step at a time; return the
+    largest massive occupancy, the overflow count and the positions of each
+    state a step starts from and of the last. The last state must equal the
+    system's present one bit for bit (the same state gives the same bits)."""
+    import warnings
+
+    from nbody_tpu_torch.ops import p3m
+
+    end = tuple(t.clone() for t in system.state)
+    system.set_state(*start)
+    seen = []
+    for k in range(steps + 1):
+        pos = system.state[0]
+        seen.append((int(p3m.p3m_max_occupancy(pos, grid=P3M_GRID)),
+                     int(p3m.p3m_overflow_count(pos, grid=P3M_GRID,
+                                                capacity=system.p3m_capacity)),
+                     pos.clone()))
+        if k < steps:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                system.update()
+    check(all(torch.equal(a, b) for a, b in zip(system.state, end)),
+          "the replayed P3M steps differ from the benchmark's")
+    return seen
+
+
+def phase_p3m_main(torch, smi: str) -> dict:
+    """5p. The P3M path through Compute(kernel="p3m") and BodySystem.
+    Returns the N=1,048,576 Euler systems for the checks after the path."""
+    import warnings
+
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.models import BodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m
+
+    qa = Compute(num_bodies=N_QA, device="cuda", kernel="p3m",
+                 log=lambda s: print(f"[5p QA] {s}"))
+    check(qa.compare_results(), "P3M QA against the CPU oracle failed")
+
+    # accuracy: the P3M force against the exact each-pair-once force
+    system = Compute(num_bodies=N_MAIN, device="cuda", kernel="p3m", log=lambda s: None).system
+    a = system.accelerations()
+    ref = ck.compute_accel_symmetric_blocked_cuda(system.state[0], system.params.softening)
+    rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-12)).cpu().numpy()
+    med, p90 = float(np.median(rel)), float(np.percentile(rel, 90))
+    print(f"[5p accuracy] N={N_MAIN}, G={P3M_GRID}, capacity {system.p3m_capacity}: P3M force "
+          f"against the exact sym force, relative error median {med:.3e} (bound 0.008), "
+          f"90th percentile {p90:.3e} (bound 0.02) [{smi}]")
+    check(med < 0.008 and p90 < 0.02, "the P3M force is outside nbody_tpu's envelope")
+
+    # README's run at the auto capacity: demo 0 outgrows it within a step,
+    # so its timed steps drop short-range pairs; a replay counts the massive
+    # bodies each force evaluation dropped. The same run at the capacity
+    # auto-sizing gives the largest occupancy of those states keeps its
+    # contract: the time of the whole computation.
+    systems = {}
+    for integrator in ("euler", "leapfrog"):
+        c, _, start = p3m_benchmark(torch, integrator, smi)
+        seen = p3m_replay(torch, c.system, start, 4)
+        print(f"[5p main] P3M {integrator}, capacity {c.system.p3m_capacity}: massive bodies "
+              f"dropped by the warm-up and the 3 timed steps {[o for _, o, _ in seen[:4]]} "
+              f"(largest occupancy {[occ for occ, _, _ in seen]}, the last state included)")
+        check(seen[0][1] == 0, "the auto capacity does not hold the first state")
+        keep = auto_capacity(max(occ for occ, _, _ in seen))
+        k, msgs, _ = p3m_benchmark(torch, integrator, smi, capacity=keep)
+        check(not msgs, f"the P3M {integrator} run at capacity {keep} broke its contract")
+        print(f"[5p main] P3M {integrator}: auto capacity {c.system.p3m_capacity}, blk "
+              f"{p3m.p3m_kernel_blk(c.system.p3m_capacity)}; contract-keeping capacity {keep}, "
+              f"blk {p3m.p3m_kernel_blk(keep)}")
+        if integrator == "euler":
+            # the timed state that dropped the most, for the check after the path
+            worst = max(seen[1:4], key=lambda x: x[1])[2]
+            systems = {"worst": (worst, c.system), "keep": k.system}
+        del seen
+
+    # the breach report: demo 0 collapses below the mesh scale within steps
+    breach = BodySystem(N_MAIN, DEMO_PARAMS[0], device="cuda", kernel="p3m", seed=42)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        breach.update_many(10)
+    msgs = [str(m.message) for m in caught if "contract broken" in str(m.message)]
+    print(f"[5p breach] demo 0, N={N_MAIN}, capacity {breach.p3m_capacity}, update_many(10): "
+          + (msgs[0] if msgs else "no warning"))
+    check(len(msgs) == 1 and "first breach at step" in msgs[0],
+          "the collapsing demo-0 rollout did not report its breach")
+    return systems
+
+
+def phase_p3m_big(torch, systems: dict, smi: str) -> float:
+    """5p, after the path (these launches are not the path's): the pair
+    kernel against the plain sum on the timed state of the N=1,048,576
+    Euler benchmark that dropped the most, at its auto capacity, sampled
+    i-rows against all N bodies; and one Euler step of the
+    contract-keeping run split by CUDA events between stages. Returns the
+    sample's largest absolute error."""
+    import numpy as np
+
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m, pm, reference
+
+    # the timed state that dropped the most, at the auto capacity: random
+    # rows, kept bodies of the cell with the longest j-block loop, and
+    # dropped bodies
+    pos, system = systems["worst"]
+    soft, cap = system.params.softening, system.p3m_capacity
+    tables = p3m.pair_tables(pos, soft, grid=P3M_GRID, capacity=cap,
+                             blk=p3m.p3m_kernel_blk(cap))
+    nid, nvalid = p3m._neighbor_stencil(tables.gc, pos.device)
+    jblocks = torch.where(nvalid, tables.tpc.long()[nid], 0).sum(dim=1)
+    jblocks = torch.where(tables.tpc > 0, jblocks, 0)
+    busiest = int(jblocks.argmax())
+    cell = p3m._cells(pos, P3M_GRID)[-1]
+    rng = np.random.default_rng(0)
+    gone = tables.body_row >= tables.padded.shape[0]
+    in_busiest = torch.nonzero((cell == busiest) & ~gone).flatten().cpu().numpy()
+    out = torch.nonzero(gone).flatten().cpu().numpy()
+    rows = np.concatenate([rng.choice(N_P3M_BIG, 2048, replace=False),
+                           rng.choice(in_busiest, min(1024, len(in_busiest)), replace=False),
+                           rng.choice(out, min(512, len(out)), replace=False)])
+    rows = torch.tensor(np.unique(rows), device=pos.device)
+    acc = p3m.short_range_from_tables(ck.p3m_sr_pairs_cuda(tables), tables)[rows]
+    plain = reference.p3m_short_range(pos, soft, grid=P3M_GRID, capacity=cap, rows=rows)
+    dropped = tables.body_row[rows] >= tables.padded.shape[0]
+    what = (f"N={N_P3M_BIG} timed Euler state, G={P3M_GRID}, capacity {cap}, blk {tables.blk}, "
+            f"overflow {int(tables.overflow)}: {len(rows)} sampled rows ({int(dropped.sum())} "
+            f"dropped), {len(in_busiest)} kept bodies in the busiest cell, "
+            f"{int(jblocks[busiest])} j-blocks a block there")
+    err = p3m_check(torch, acc, plain, what)
+    check(int(dropped.sum()) > 0 and bool((acc[dropped] == 0).all())
+          and bool((plain[dropped] == 0).all()), "dropped bodies must get a short range of 0")
+
+    # one Euler force evaluation and update, split by CUDA events between
+    # stages, on the contract-keeping run's state and capacity
+    system = systems["keep"]
+    soft, cap = system.params.softening, system.p3m_capacity
+    blk = p3m.p3m_kernel_blk(cap)
+    pos, vel = system.state
+    stages = ("sort and tables", "deposit", "FFT solve", "gather", "pair kernel",
+              "map back and update")
+    out = (torch.empty_like(pos), torch.empty_like(vel))
+    times = {k: 0.0 for k in stages}
+    reps = 3
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        tables = p3m.pair_tables(pos, soft, grid=P3M_GRID, capacity=cap, blk=blk)
+        ev[1].record()
+        pos3, mass = pos[:, :3], pos[:, 3]
+        lo, h = pm._fit_box(pos3, P3M_GRID)
+        idx, w = pm._cic_indices_weights(pos3, lo, h, P3M_GRID)
+        rho = pm._deposit(idx, w, mass, P3M_GRID)
+        ev[2].record()
+        grids = pm._solve_force_grids(rho, h, P3M_GRID, p3m.SIGMA_CELLS * h,
+                                      sigma_cells=p3m.SIGMA_CELLS)
+        ev[3].record()
+        acc_lr = pm._gather(grids, idx, w)
+        ev[4].record()
+        acc_pad = ck.p3m_sr_pairs_cuda(tables)
+        ev[5].record()
+        acc = acc_lr + p3m.short_range_from_tables(acc_pad, tables)
+        reference.integrate_into(pos, vel, acc, system.params.time_step,
+                                 system.params.damping, out)
+        ev[6].record()
+        torch.cuda.synchronize()
+        if r:  # the first round is a warm-up
+            for k, name in enumerate(stages):
+                times[name] += ev[k].elapsed_time(ev[k + 1]) / reps
+    total = sum(times.values())
+    check(int(tables.overflow) == 0, "the split's state does not keep its contract")
+    print(f"[5p split] one Euler step at N={N_P3M_BIG}, G={P3M_GRID}, capacity {cap} "
+          f"(overflow 0; mean of {reps} after one warm-up): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; total {total:.3f} ms [{smi}]")
+    work = p3m.pair_work(tables)
+    bound = p3m_bound_ms(work, N_P3M_BIG)
+    own = p3m_bound_ms(work, N_P3M_BIG, P3M_KERNEL_INSTR)
+    print(f"[5p split] pair kernel at N={N_P3M_BIG}: {work['entries']} live entries, "
+          f"{work['tiles']} tiles, {work['candidates']:.4e} candidate and {work['near']:.4e} "
+          f"near pairs; {times['pair kernel']:.3f} ms against its bound {bound[0]:.3f} ms "
+          f"({bound[1]}; {own[0]:.3f} ms at the kernel's unfused rounding) [{smi}]")
+    return err
+
+
 def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -1404,6 +1773,8 @@ def phase_cli() -> None:
             (["--precision", "ds", "--benchmark", "-i", "10"], "double-single-precision"),
             (["--precision", "ds", "--integrator", "leapfrog", "--qatest"], "-> OK"),
             (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"),
+            (["--kernel", "p3m", "--numbodies", str(N_MAIN), "--benchmark", "-i", "3"],
+             "pairwise-equivalent rate"),
             (["--precision", "ds", "--integrator", "hermite", "--qatest", "--numbodies", "4096"],
              "-> OK"),
             (["--precision", "ds", "--integrator", "hermite", "--benchmark", "-i", "10"],
@@ -1472,6 +1843,7 @@ def main() -> int:
     ds_kern = timed("3d ds kernels", phase_ds_kernels, torch)
     ds_aj_kern = timed("3dh ds accel+jerk kernels", phase_ds_aj_kernels, torch)
     mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
+    p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -1510,6 +1882,14 @@ def main() -> int:
                          lambda: phase_mxu_main(torch, smi))
     rollout_launches = timed("5r rollout", run_path, ck, ("step_t",),
                              lambda: phase_rollout_main(torch, smi))
+    p3m_systems = {}
+    p3m_launches = timed("5p p3m path", run_path, ck, ("p3m_sr",),
+                         lambda: p3m_systems.update(phase_p3m_main(torch, smi)))
+    launches["p3m_sr"] = p3m_launches["p3m_sr"]
+    p3m_big_err = timed("5p p3m kernel at N=1M and split", phase_p3m_big, torch,
+                        p3m_systems, smi)
+    p3m_kern["err"]["p3m_sr"] = max(p3m_kern["err"]["p3m_sr"], p3m_big_err)
+    del p3m_systems
     for k in MXU_KERNELS:
         launches[k] = mxu_launches[k]
     launches["step_t"] = rollout_launches["step_t"]
@@ -1532,7 +1912,7 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
-                   **ds_aj_kern[key], **mxu_kern[key]}
+                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],
@@ -1547,7 +1927,7 @@ def main() -> int:
         "bound_by": found["bounds"][k][1],
         # no single PyTorch call computes softened all-pairs gravity, its
         # jerk or its potential, in float32 or in ds (the mxu step's s is
-        # no library call's input either)
+        # no library call's input either), nor a cell-list short-range sum
         "library_ms": None,
     } for k in NAMES]
     print(smi)

@@ -4,7 +4,8 @@ Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
 far: fp32, one device, damped semi-implicit Euler, leapfrog or 4th-order
 Hermite, the one-sided force (``variant="vpu"``), the each-pair-once force
 (``variant="sym"``) or the force reduction on the tensor cores
-(``variant="mxu"`` / ``"mxu_bf16"``, Euler), and the energy diagnostics.
+(``variant="mxu"`` / ``"mxu_bf16"``, Euler), the P3M fast mode
+(``kernel="p3m"``, Euler and leapfrog), and the energy diagnostics.
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -35,6 +36,20 @@ around one force evaluation of the variant's force) and "hermite" (the
 4th-order P(EC) predictor-corrector, two accel + jerk evaluations of the
 variant a step: the one-sided accel + jerk kernel for "vpu", the
 each-pair-once triangle and rectangle for "sym").
+
+Kernels (the algorithm; the JAX package's ``backend`` "pallas" / "xla" /
+"pm" / "p3m", the CLI's ``--kernel``; here ``backend`` already names the
+implementation, so the algorithm has its own keyword):
+  * "auto" — the all-pairs force of the variant above
+  * "p3m"  — PM long range + exact short range (``ops/p3m.py``), CIC with
+    the optimal influence, on a ``pm_grid``^3 mesh, with Euler or leapfrog;
+    the variant is ignored, as in the JAX package. The short range runs the
+    pair kernel (``csrc/p3m_kernels.cu``) with backend "cuda", its plain
+    version with "torch". ``p3m_capacity`` is the cell capacity: None
+    auto-sizes it from the first state (max occupancy + 50 %, a multiple
+    of 8), and every state set raises when a cell overflows it; each step
+    of ``update_many`` probes the contract on the device and a call that
+    breached it warns once, naming the first breached step.
 
 Placements (the reference's BodySystemCUDA variants):
   * "device" — state stays in device memory between calls
@@ -67,6 +82,7 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     potential_energy_per_row_cuda,
     sym_default_dispatch,
 )
+from nbody_tpu_torch.ops.p3m import p3m_accel, p3m_max_occupancy, p3m_overflow_count
 from nbody_tpu_torch.ops.energy import (
     kinetic_energy,
     potential_energy_per_row,
@@ -79,8 +95,7 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "fp64": "Queue 1 #5 (fp64)",
-    "pm": "Queue 1 #10 (PM / P3M)",
-    "p3m": "Queue 1 #10 (PM / P3M)",
+    "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list)",
     "mesh": "Queue 1 #13 (parallel/)",
 }
 
@@ -171,6 +186,9 @@ class BodySystem:
         placement: str = "device",
         variant: str = "auto",
         integrator: str = "euler",
+        kernel: str = "auto",
+        pm_grid: int = 64,
+        p3m_capacity: Optional[int] = None,
         dtype=torch.float32,
         mesh=None,
         config: NBodyConfig = NBodyConfig.SHELL,
@@ -180,8 +198,16 @@ class BodySystem:
         self.device = resolve_device(device)
         if mesh is not None:
             raise not_ported("mesh", mesh)
-        if backend in ("pm", "p3m"):
+        if backend == "pm":
             raise not_ported("backend", backend)
+        if backend == "p3m":
+            raise ValueError(
+                "backend='p3m' names an algorithm; the port's backend is the "
+                "implementation ('cuda', 'torch' or 'auto'): pass kernel='p3m'")
+        if kernel == "pm":
+            raise not_ported("kernel", kernel)
+        if kernel not in ("auto", "p3m"):
+            raise ValueError(f"unknown kernel {kernel!r}")
         if backend not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
@@ -192,6 +218,11 @@ class BodySystem:
             raise ValueError(f"unknown kernel variant {variant!r}")
         if integrator not in ("euler", "leapfrog", "hermite"):
             raise ValueError(f"unknown integrator {integrator!r}")
+        if integrator == "hermite" and kernel == "p3m":
+            raise ValueError(
+                "integrator='hermite' needs the jerk of the exact pairwise "
+                "force, which the mesh solvers do not provide; use euler "
+                "or leapfrog with kernel='p3m'")
         if variant == "auto":
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
         if dtype == torch.float64:
@@ -204,6 +235,10 @@ class BodySystem:
         self.backend = backend
         self.variant = variant
         self.integrator = integrator
+        self.kernel = kernel
+        self.pm_grid = int(pm_grid)
+        self.p3m_capacity = None if p3m_capacity is None else int(p3m_capacity)
+        self._p3m_contract_warned = False
         self.dtype = torch.float32
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
@@ -247,6 +282,24 @@ class BodySystem:
         else:
             self._pos[self._cur].copy_(p)
             self._vel[self._cur].copy_(v)
+        if self.kernel == "p3m":
+            self._probe_p3m_capacity(p)
+
+    def _probe_p3m_capacity(self, pos) -> None:
+        """Fail fast when the cell capacity cannot hold this state (an
+        overflowing cell drops short-range pairs): the JAX package's
+        ``_probe_p3m_capacity``. p3m_capacity=None auto-sizes from the first
+        state: the largest massive occupancy + 50 %, rounded up to a multiple
+        of 8. Zero-mass padding is inert and not counted."""
+        if self.p3m_capacity is None:
+            occ = int(p3m_max_occupancy(pos, grid=self.pm_grid))
+            self.p3m_capacity = max(8, -(-int(occ * 1.5 + 1) // 8) * 8)
+        overflow = int(p3m_overflow_count(pos, grid=self.pm_grid, capacity=self.p3m_capacity))
+        if overflow:
+            raise ValueError(
+                f"p3m cell capacity {self.p3m_capacity} overflows for "
+                f"{overflow} bodies of this state; raise p3m_capacity "
+                f"(--p3m-capacity) or the mesh resolution (--pm-grid)")
 
     @property
     def state(self):
@@ -290,6 +343,9 @@ class BodySystem:
         """Acceleration (N,3) of `pos` with this system's backend and force
         variant."""
         soft = self.params.softening
+        if self.kernel == "p3m":
+            return p3m_accel(pos, soft, grid=self.pm_grid, capacity=self.p3m_capacity,
+                             backend=self.backend)[0]
         if self.variant == "sym":
             if self.backend == "cuda":
                 return compute_accel_symmetric_blocked_cuda(pos, soft)
@@ -331,7 +387,8 @@ class BodySystem:
         """The mxu variant whose algebra ``accelerations()`` computes (Euler
         with variant mxu or mxu_bf16), else None (the one-sided or sym
         force)."""
-        if self.integrator == "euler" and self.variant in reference.MXU_VARIANTS:
+        if (self.kernel == "auto" and self.integrator == "euler"
+                and self.variant in reference.MXU_VARIANTS):
             return self.variant
         return None
 
@@ -349,6 +406,8 @@ class BodySystem:
                     pos, vel, dt, p.softening, p.damping, accel_jerk_fn=self._accel_jerk)
             out[0].copy_(new_pos)
             out[1].copy_(new_vel)
+        elif self.kernel == "p3m":
+            reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         elif self.variant == "vpu" and self.backend == "cuda":
             nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
                             block_size=self.block_size, out=out)
@@ -365,19 +424,55 @@ class BodySystem:
     def update_many(self, steps: int, dt: Optional[float] = None) -> None:
         """Advance `steps` steps: one launch per step, queued on the current
         stream with no host synchronisation in between. With
-        placement='host' the state is copied in once and back once."""
+        placement='host' the state is copied in once and back once.
+
+        With kernel='p3m' each step also probes the capacity contract on the
+        device (``p3m_overflow_count`` of the new state > 0, no FFT, no pair
+        math), and a device int keeps the first breached step; it is read
+        once, after the steps. A breach warns once per breach episode, as
+        the JAX package's probed rollout does (``update_many``,
+        ``nbody_tpu/models/body_system.py:907-960``)."""
         dt = self.params.time_step if dt is None else dt
         host = self.placement == "host"
         if host:
             self._pos[self._cur].copy_(self._host_pos, non_blocking=True)
             self._vel[self._cur].copy_(self._host_vel, non_blocking=True)
-        for _ in range(steps):
+        probed = self.kernel == "p3m" and steps > 0
+        if probed:
+            first = torch.full((), -1, dtype=torch.int64, device=self.device)
+        for i in range(steps):
             self._step(dt)
+            if probed:
+                breach = p3m_overflow_count(self._pos[self._cur], grid=self.pm_grid,
+                                            capacity=self.p3m_capacity) > 0
+                first = torch.where((first < 0) & breach, i, first)
         if host:
             # a copy into pageable or pinned host memory without
             # non_blocking waits for the steps to finish
             self._host_pos.copy_(self._pos[self._cur])
             self._host_vel.copy_(self._vel[self._cur])
+        if probed:
+            self._report_p3m_breach(int(first), steps)
+
+    def _report_p3m_breach(self, first: int, steps: int) -> None:
+        """Warn once per breach episode: `first` is the first breached step
+        of a call of `steps` steps, or -1 when the contract held."""
+        if first < 0:
+            self._p3m_contract_warned = False
+            return
+        if self._p3m_contract_warned:
+            return
+        import warnings
+
+        warnings.warn(
+            f"p3m contract broken mid-rollout: first breach at step {first} of "
+            f"{steps} — short-range terms have been dropped since. Re-create the "
+            "system (the capacity auto-sizes from its first state), or raise "
+            "--p3m-capacity / --pm-grid (refresh_p3m_contract and "
+            "--p3m-auto-refresh: ROADMAP.md Queue 1 #16).",
+            stacklevel=3,
+        )
+        self._p3m_contract_warned = True
 
     def _device_state(self):
         """The current (pos, vel) on the device; with placement='host' the

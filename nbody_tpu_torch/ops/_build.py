@@ -25,7 +25,8 @@ CSRC = PKG / "csrc"
 SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
            CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
            CSRC / "ds_symmetric_kernels.cu", CSRC / "ds_aj_kernels.cu",
-           CSRC / "ds_symmetric_aj_kernels.cu", CSRC / "mxu_kernels.cu")
+           CSRC / "ds_symmetric_aj_kernels.cu", CSRC / "mxu_kernels.cu",
+           CSRC / "p3m_kernels.cu")
 HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh", CSRC / "ds_sym_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
@@ -160,6 +161,8 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_hermite_predict.restype = ctypes.c_int
     lib.nbody_ds_hermite_correct.argtypes = [ptr] * 12 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
     lib.nbody_ds_hermite_correct.restype = ctypes.c_int
+    lib.nbody_p3m_sr_f32.argtypes = [ptr] * 7 + [i64, i64, i64, ptr]
+    lib.nbody_p3m_sr_f32.restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,13 +21,16 @@ kernels of ``nbody_tpu/ops/ds_kernel.py`` (``_ds_step_kernel``,
 ``_ds_leapfrog_kernel``, ``_ds_sym_kernel``, ``_ds_sym_cross_kernel``) with
 their ``ds_sym_default_dispatch``, and of the ds Hermite step's
 (``_ds_accel_jerk_kernel``, ``_ds_aj_sym_kernel``, ``_ds_aj_sym_cross_kernel``)
-with ``ds_aj_sym_default_dispatch``.
+with ``ds_aj_sym_default_dispatch``; and of the P3M short-range pair
+kernel ``_sr_pair_kernel`` (``nbody_tpu/ops/p3m_kernel.py``) in
+``csrc/p3m_kernels.cu``, over the tables of ``ops/p3m.py``.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
 a CUDA error. For a CPU tensor it computes the plain version in
 ``ops/reference.py``, ``ops/energy.py`` or ``ops/ds.py``; that is all the
-CPU path is for.
+CPU path is for (``p3m_sr_pairs_cuda``, whose padded rows have no plain
+counterpart, raises instead).
 Both paths check dtype (float32 only, never cast), shape ``(., 4)``,
 contiguity, 16-byte alignment (the kernels load ``float4``) and device.
 
@@ -50,7 +53,7 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "aj_sym_cross": 0,
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
             "ds_integrate": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0, "ds_aj_sym_cross": 0,
-            "ds_hermite_predict": 0, "ds_hermite_correct": 0}
+            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -1138,3 +1141,69 @@ def ds_hermite_correct_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc0_hi, acc0_lo, je
     _raise_on_error(lib, err, "nbody_ds_hermite_correct launch")
     LAUNCHES["ds_hermite_correct"] += 1
     return out
+
+
+# ---- the P3M short-range pair sum: csrc/p3m_kernels.cu ----
+
+P3M_BLKS = (128, 256, 512)
+
+
+def p3m_sr_pairs_cuda(tables):
+    """One launch of the pair kernel ``nbody_p3m_sr_f32`` over the tables of
+    ``p3m.pair_tables``: the (M + blk, 4) short-range sums of the padded
+    rows (w = 0; rows of inert i-rows hold nothing of use). CUDA tensors
+    only: the CPU has no counterpart of the padded rows' sums (its plain
+    version of the whole short range is ``reference.p3m_short_range``)."""
+    padded = tables.padded
+    device = padded.device
+    _check_state("padded", padded, device)
+    if tables.blk not in P3M_BLKS:
+        raise ValueError(f"blk must be one of {P3M_BLKS}; got {tables.blk}")
+    if device.type != "cuda":
+        raise ValueError("p3m_sr_pairs_cuda launches the CUDA pair kernel; the tables are on "
+                         f"{device}")
+    ints = (tables.ablk, tables.tpc, tables.e_cell, tables.e_t)
+    for t in ints:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
+            raise ValueError("the pair tables' index arrays must be contiguous int32 on "
+                             f"{device}")
+    if tables.meta.dtype != torch.float32 or tables.meta.shape != (4,):
+        raise ValueError("the pair tables' meta must be (4,) float32")
+    acc_pad = torch.empty_like(padded)
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_p3m_sr_f32(
+            padded.data_ptr(), acc_pad.data_ptr(), *(t.data_ptr() for t in ints),
+            tables.meta.data_ptr(), tables.e_cell.shape[0], tables.gc, tables.blk,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_p3m_sr_f32 launch")
+    LAUNCHES["p3m_sr"] += 1
+    return acc_pad
+
+
+def p3m_short_range_cuda(pos, softening, *, grid: int = 64, capacity: int = 128,
+                         blk: int | None = None):
+    """The P3M short-range force of the (N, 4) state: ((N, 3) accelerations,
+    overflow count as a 0-d tensor). On a CUDA tensor: the tables
+    (``p3m.pair_tables``, torch ops on the card), one launch of the pair
+    kernel, and the padded rows mapped back to the bodies (dropped bodies
+    get 0); no host synchronisation. On a CPU tensor: the plain version,
+    ``reference.p3m_short_range``, and ``p3m.p3m_overflow_count``. ``blk``
+    defaults to ``p3m.p3m_kernel_blk(capacity)``."""
+    from nbody_tpu_torch.ops import p3m
+
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_state("pos", pos, device)
+    blk = p3m.p3m_kernel_blk(capacity) if blk is None else int(blk)
+    if blk not in P3M_BLKS:
+        raise ValueError(f"blk must be one of {P3M_BLKS}; got {blk}")
+    if device.type != "cuda":
+        return (reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity),
+                p3m.p3m_overflow_count(pos, grid=grid, capacity=capacity))
+    if pos.shape[0] == 0:
+        return pos.new_zeros((0, 3)), torch.zeros((), dtype=torch.int64, device=device)
+    tables = p3m.pair_tables(pos, softening, grid=grid, capacity=capacity, blk=blk)
+    return p3m.short_range_from_tables(p3m_sr_pairs_cuda(tables), tables), tables.overflow

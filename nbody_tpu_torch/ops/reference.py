@@ -6,7 +6,7 @@ CUDA kernels (``ops/cuda_kernel.py``) are held to, on the CPU in the tests
 and on the card in ``chip_smoke.py``. It also holds the leapfrog step, the
 accel + jerk evaluation and the Hermite step, and the each-pair-once
 (symmetric) force and accel + jerk with their rectangles and blocked
-composition.
+composition, and the P3M short-range force (``p3m_short_range``).
 
 Physics (the reference CUDA sample's bodyBodyInteraction + integrateBodies):
 
@@ -24,6 +24,7 @@ same shape and no divisor of N is searched for.
 from __future__ import annotations
 
 import functools
+import math
 import operator
 
 import torch
@@ -624,3 +625,73 @@ def compute_accel_jerk_symmetric_blocked(pos, vel, softening, *, block_cap: int,
         (pos, vel), softening, block_cap=block_cap, tile_j=tile_j,
         triangle=functools.partial(compute_accel_jerk_symmetric, chunk_size=chunk_size),
         cross=functools.partial(aj_sym_cross, chunk_size=chunk_size))
+
+
+# ---- the P3M short-range force (the plain version of csrc/p3m_kernels.cu) ----
+
+# pair elements a chunk of i-rows may hold, so a (chunk, N) intermediate
+# stays near 64 MB in float32
+_P3M_CHUNK_ELEMS = 1 << 24
+
+
+def p3m_short_range(pos, softening, *, grid: int, capacity: int, rows=None):
+    """The P3M short-range force (N, 3) of the (N, 4) state, as a masked
+    all-pairs sum in chunks of i-rows, independent of the pair kernel's
+    padded layout; with ``rows`` (an index tensor) only those bodies'
+    forces, (len(rows), 3), each against all N bodies. Pair (i, j) counts
+    when
+
+      * both bodies are kept: among the first `capacity` of their cell in
+        the stable (cell, massless last) order of the reference
+        (``nbody_tpu/ops/p3m.py:179-190``);
+      * j's cell is in i's 27-stencil (cell coordinates differ by at most 1);
+      * r^2 < rcut^2,
+
+    and adds (rsqrt(r^2 + eps^2)^3 - s_lr(r^2)) * m_j * d, s_lr the
+    polynomial ``p3m._SLR_POLY`` by Horner's rule in y = r^2 / (2 sigma^2),
+    times 1/(sqrt2 sigma)^3 (``nbody_tpu/ops/p3m_kernel.py::_s_lr_kernel``
+    divides by (sqrt2 sigma)^3; the pair kernel multiplies, and rounds every
+    term as this function does, each op on its own). A dropped body gets 0.
+    The mask is a select: where r^2 overflows, s_lr is inf."""
+    from nbody_tpu_torch.ops import p3m  # p3m imports this module
+
+    n = pos.shape[0]
+    pos3, mass, lo, h, rcut, gc, cell = p3m._cells(pos, grid)
+    if n == 0:
+        return pos3.new_zeros((0, 3))
+    order = torch.argsort(cell * 2 + (mass <= 0).to(torch.int64), stable=True)
+    sorted_cell = cell[order]
+    rank = torch.arange(n, device=pos.device) - torch.searchsorted(sorted_cell, sorted_cell)
+    kept = torch.empty(n, dtype=torch.bool, device=pos.device)
+    kept[order] = rank < capacity
+    cxyz = torch.stack([cell // (gc * gc), (cell // gc) % gc, cell % gc], dim=1)
+
+    eps2 = p3m.soft2_f32(softening)
+    rcut2 = rcut * rcut
+    sigma = p3m.SIGMA_CELLS * h
+    inv_2s2 = 1.0 / (2.0 * sigma * sigma)
+    sq2s = math.sqrt(2.0) * sigma
+    inv_sq2s3 = 1.0 / (sq2s * sq2s * sq2s)
+
+    def block(ri, ci, keep_i):
+        dx = pos3[None, :, 0] - ri[:, 0:1]  # (C, N)
+        dy = pos3[None, :, 1] - ri[:, 1:2]
+        dz = pos3[None, :, 2] - ri[:, 2:3]
+        r2 = dx * dx + dy * dy + dz * dz
+        inv = torch.rsqrt(r2 + eps2)
+        y = r2 * inv_2s2
+        g = torch.full_like(y, p3m._SLR_POLY[-1])
+        for c in p3m._SLR_POLY[-2::-1]:
+            g = g * y + c
+        near = ((ci[:, None, :] - cxyz[None, :, :]).abs() <= 1).all(dim=2)
+        near &= kept[None, :] & keep_i[:, None] & (r2 < rcut2)
+        s = torch.where(near, inv * inv * inv - g * inv_sq2s3, 0.0) * mass[None, :]
+        return torch.stack([(s * dx).sum(1), (s * dy).sum(1), (s * dz).sum(1)], dim=1)
+
+    pi, ci, ki = pos3, cxyz, kept
+    if rows is not None:
+        pi, ci, ki = pos3[rows], cxyz[rows], kept[rows]
+        if pi.shape[0] == 0:
+            return pos3.new_zeros((0, 3))
+    c = max(1, min(pi.shape[0], _P3M_CHUNK_ELEMS // n))
+    return torch.cat([block(*args) for args in zip(pi.split(c), ci.split(c), ki.split(c))])

@@ -164,7 +164,7 @@ def test_cpu_backend_launches_no_kernel(params, state):
 @pytest.mark.parametrize("kw, item", [
     ({"mesh": object()}, "#13"),
     ({"backend": "pm"}, "#10"),
-    ({"backend": "p3m"}, "#10"),
+    ({"kernel": "pm"}, "#10"),
     ({"integrator": "hermite", "dtype": torch.float64}, "#5"),
     ({"dtype": torch.float64}, "#5"),
 ])
@@ -172,6 +172,18 @@ def test_later_slices_raise_naming_roadmap_item(params, kw, item):
     with pytest.raises(ValueError, match="ROADMAP.md") as e:
         BodySystem(64, params, device="cpu", **kw)
     assert item in str(e.value)
+
+
+def test_p3m_kernel_is_ported(params):
+    # backend="p3m" was refused, naming ROADMAP item #10, until the P3M slice
+    # was ported; the algorithm now has its own keyword (the port's backend
+    # is the implementation), and backend="p3m" points to it
+    s = BodySystem(64, params, device="cpu", kernel="p3m")
+    assert s.backend == "torch" and s.kernel == "p3m" and s.p3m_capacity >= 8
+    s.update_many(2)
+    assert np.isfinite(s.positions).all()
+    with pytest.raises(ValueError, match="kernel='p3m'"):
+        BodySystem(64, params, device="cpu", backend="p3m")
 
 
 @pytest.mark.parametrize("variant", ["mxu", "mxu_bf16"])

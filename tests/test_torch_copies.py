@@ -111,3 +111,40 @@ def test_checkpoint_reader_reads_nbody_tpu_checkpoints(tmp_path):
     assert meta["step"] == 5 and NBodyConfig(meta["config"]) is NBodyConfig.EXPAND
     with pytest.raises(ValueError, match="orbax"):
         load_checkpoint(tmp_path)
+
+
+@pytest.mark.parametrize("grid", [8, 16])
+def test_optimal_influence_table_equals_nbody_tpu(grid, monkeypatch, tmp_path):
+    """The port's copy of the numpy influence table, bit for bit, with both
+    disk caches off and both lru caches bypassed: each side computes."""
+    from nbody_tpu.ops import pm as jax_pm
+
+    from nbody_tpu_torch.ops import p3m, pm
+
+    monkeypatch.setenv("NBODY_NO_COMPILE_CACHE", "1")
+    ours = pm._optimal_influence_factor.__wrapped__(grid, p3m.SIGMA_CELLS, 2)
+    theirs = jax_pm._optimal_influence_factor.__wrapped__(grid, p3m.SIGMA_CELLS, 2)
+    assert ours.dtype == theirs.dtype == np.float32
+    np.testing.assert_array_equal(ours, theirs)
+    # the port's disk cache is its own directory, and a cached table reads back
+    monkeypatch.delenv("NBODY_NO_COMPILE_CACHE")
+    monkeypatch.setenv("NBODY_COMPILE_CACHE_DIR", str(tmp_path))
+    pm._optimal_influence_factor.__wrapped__(grid, p3m.SIGMA_CELLS, 2)
+    cached = list(tmp_path.rglob("*.npy"))
+    assert [c.relative_to(tmp_path).parts[:2] for c in cached] == [("nbody_tpu_torch", "influence")]
+    np.testing.assert_array_equal(np.load(cached[0]), theirs)
+
+
+def test_p3m_constants_equal_nbody_tpu():
+    from nbody_tpu.ops import p3m as jax_p3m
+    from nbody_tpu.ops import p3m_kernel as jax_p3m_kernel
+
+    from nbody_tpu_torch.ops import p3m
+
+    assert p3m._SLR_POLY == jax_p3m_kernel._SLR_POLY
+    assert (p3m.SIGMA_CELLS, p3m.RCUT_SIGMAS) == (jax_p3m.SIGMA_CELLS, jax_p3m.RCUT_SIGMAS)
+    for grid in (8, 16, 32, 64, 100, 128):
+        assert p3m._cell_grid_size(grid) == jax_p3m._cell_grid_size(grid)
+    # the ladder only: nbody_tpu's tuner has no cache here, so it resolves the same
+    for cap in (8, 128, 192, 193, 440, 4096, 4097, 6816):
+        assert p3m.p3m_kernel_blk(cap) == jax_p3m_kernel.p3m_kernel_blk(cap)

@@ -837,3 +837,64 @@ def test_rollout_equals_step_launches_bit_for_bit(dev, n, block_size):
     # the inputs are not written
     q, w = _random_w(*_state(n, dev))
     assert torch.equal(p, q) and torch.equal(v, w)
+
+
+# ---- the P3M short-range pair kernel (csrc/p3m_kernels.cu) ----
+# held to the plain short-range sum at rtol 1e-4, atol 2e-4, nbody_tpu's
+# bound between its Pallas and XLA short-range engines (tests/test_p3m.py:367)
+
+
+def _p3m_state(n, dev, pads=0):
+    """Shell ICs with masses from [0.5, 2] and `pads` zero-mass bodies at
+    the origin."""
+    p, _ = _random_w(*_state(n, dev))
+    return torch.cat([p, torch.zeros((pads, 4), device=dev)])
+
+
+@pytest.mark.parametrize("blk", cuda_kernel.P3M_BLKS)
+@pytest.mark.parametrize("n, pads, grid, cap", [(4099, 77, 32, None), (16384, 0, 64, None),
+                                                (4099, 0, 32, 8)])
+def test_p3m_pair_kernel_matches_plain(dev, blk, n, pads, grid, cap):
+    from nbody_tpu_torch.ops import p3m
+
+    p = _p3m_state(n, dev, pads)
+    if cap is None:  # BodySystem's auto size
+        cap = max(8, -(-int(int(p3m.p3m_max_occupancy(p, grid=grid)) * 1.5 + 1) // 8) * 8)
+    before = dict(cuda_kernel.LAUNCHES)
+    acc, ovf = cuda_kernel.p3m_short_range_cuda(p, SOFT, grid=grid, capacity=cap, blk=blk)
+    again, _ = cuda_kernel.p3m_short_range_cuda(p, SOFT, grid=grid, capacity=cap, blk=blk)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["p3m_sr"] == before["p3m_sr"] + 2
+    plain = reference.p3m_short_range(p, SOFT, grid=grid, capacity=cap)
+    torch.testing.assert_close(acc, plain, rtol=1e-4, atol=2e-4)
+    assert torch.equal(acc, again)
+    assert int(ovf) == int(p3m.p3m_overflow_count(p, grid=grid, capacity=cap))
+    assert (int(ovf) > 0) == (cap == 8)
+
+
+def test_p3m_accel_repeats_bit_for_bit_and_matches_torch(dev):
+    from nbody_tpu_torch.ops import p3m
+
+    p = _p3m_state(16384, dev, 77)
+    a1, o1 = p3m.p3m_accel(p, SOFT, grid=64, capacity=256)
+    a2, o2 = p3m.p3m_accel(p, SOFT, grid=64, capacity=256)
+    assert torch.equal(a1, a2) and int(o1) == int(o2) == 0
+    plain, _ = p3m.p3m_accel(p, SOFT, grid=64, capacity=256, backend="torch")
+    torch.testing.assert_close(a1, plain, rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_p3m_body_system_on_the_card(dev, integrator):
+    params = DEMO_PARAMS[0]
+    pos, vel = ic.generate(NBodyConfig.SHELL, 8192, params.cluster_scale,
+                           params.velocity_scale, seed=3)
+    before = cuda_kernel.LAUNCHES["p3m_sr"]
+    card = BodySystem(8192, params, device="cuda", kernel="p3m", integrator=integrator,
+                      state=(pos, vel))
+    plain = BodySystem(8192, params, device="cuda", backend="torch", kernel="p3m",
+                       integrator=integrator, state=(pos, vel))
+    card.update_many(3)
+    plain.update_many(3)
+    assert cuda_kernel.LAUNCHES["p3m_sr"] == before + 3
+    np.testing.assert_allclose(card.positions, plain.positions, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card.velocities, plain.velocities, rtol=1e-4, atol=1e-4)

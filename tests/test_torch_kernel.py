@@ -142,7 +142,8 @@ def test_nvcc_command_targets_sm90a():
     assert [s.name for s in _build.SOURCES] == ["nbody_kernels.cu", "symmetric_kernels.cu",
                                                 "symmetric_aj_kernels.cu", "ds_kernels.cu",
                                                 "ds_symmetric_kernels.cu", "ds_aj_kernels.cu",
-                                                "ds_symmetric_aj_kernels.cu", "mxu_kernels.cu"]
+                                                "ds_symmetric_aj_kernels.cu", "mxu_kernels.cu",
+                                                "p3m_kernels.cu"]
     assert [h.name for h in _build.HEADERS] == ["sym_common.cuh", "ds_common.cuh",
                                                 "ds_sym_common.cuh"]
     # every source and header in csrc/ is built and hashed
