@@ -119,6 +119,24 @@ its result:
      evaluation of the contract-keeping run split by CUDA events into its
      stages (sort and tables, deposit, FFT solve, gather, pair kernel,
      update), with live entries, tiles and the kernel's bound;
+  3da. the ds accel-only kernel of the sharded ring step against its plain
+     version at (M, N) in {(4099, 4099), (4099, 16384), (4099, 65536)},
+     each at the block the main path gives N (128, 128, 256), i-set and
+     j-set two states, masses from [0.5, 2] and a random vel.w: within
+     1e-12 * max + 1e-14 of plain and 1e-10 * max|a| of the float64
+     oracle, its (M,4) rows' w = 0, a repeat bit-equal, the kernel then the
+     ds Euler update equal to the fused ds step on the same j-set bit for
+     bit; its times at N=16384 and 65536;
+  5x. the body-sharded path on a one-rank NCCL mesh (make_mesh(1)), only
+     mesh systems in its count, each run of which must launch its own
+     strategy's kernels: Compute(precision="ds", mesh=, strategy="ring")
+     QA for Euler, leapfrog and Hermite and strategy="allgather" QA at
+     N=16384, fp32 allgather and ring QA and run_benchmark(10) at N=65536,
+     ds ring Euler run_benchmark at 16384 and 65536, ten ds ring Euler and
+     leapfrog and three Hermite steps; after it, outside the count, the
+     single-device step times beside the mesh's and the same steps on one
+     device: the ring Euler equal bit for bit (leapfrog and Hermite within
+     5e-9, bit equality reported);
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
      --integrator leapfrog --qatest and with --benchmark, --integrator
      hermite with --qatest and with --drift-check 3, --variant mxu --qatest,
@@ -128,7 +146,8 @@ its result:
      p3m --numbodies 65536 --benchmark -i 3.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
-tensor-core path's, 5r the rollout's and 5p the P3M path's: the kernels' launch counters are
+tensor-core path's, 5r the rollout's, 5p the P3M path's and 5x the
+sharded path's: the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
 have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
@@ -183,6 +202,7 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "aj_sym_cross": "nbody_tpu_torch/csrc/symmetric_aj_kernels.cu",
            "ds_step": "nbody_tpu_torch/csrc/ds_kernels.cu",
            "ds_leapfrog": "nbody_tpu_torch/csrc/ds_kernels.cu",
+           "ds_accel": "nbody_tpu_torch/csrc/ds_kernels.cu",
            "ds_sym": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
            "ds_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_kernels.cu",
            "ds_accel_jerk": "nbody_tpu_torch/csrc/ds_aj_kernels.cu",
@@ -202,6 +222,7 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "aj_sym_cross": "nbody_tpu/ops/symmetric_kernel.py:577",
             "ds_step": "nbody_tpu/ops/ds_kernel.py:222",
             "ds_leapfrog": "nbody_tpu/ops/ds_kernel.py:575",
+            "ds_accel": "nbody_tpu/ops/ds_kernel.py:363",
             "ds_sym": "nbody_tpu/ops/ds_kernel.py:1059",
             "ds_sym_cross": "nbody_tpu/ops/ds_kernel.py:1339",
             "ds_accel_jerk": "nbody_tpu/ops/ds_kernel.py:756",
@@ -215,6 +236,7 @@ NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
          "ds_step": "nbody_ds_step", "ds_leapfrog": "nbody_ds_leapfrog",
+         "ds_accel": "nbody_ds_accel",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
          "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32"}
@@ -996,6 +1018,115 @@ def phase_ds_kernels(torch) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
+def oracle_accel_vs(pos_i64, pos_j64, soft):
+    """The float64 oracle's force on the i-set under the j-set: the oracle's
+    self force of the two sets together, the i-bodies massless, so that only
+    the j-set pulls them."""
+    import numpy as np
+
+    from nbody_tpu_torch.compute import _oracle_accel
+
+    ghosts = pos_i64.copy()
+    ghosts[:, 3] = 0.0
+    return _oracle_accel(np.concatenate([ghosts, pos_j64]), soft)[:len(pos_i64)]
+
+
+def phase_ds_accel_kernel(torch) -> dict:
+    """3da. The ds accel-only kernel of the ring step (ds_accel) against its
+    plain version (ds.ds_accel_vs) at (M, N) = (4099, 4099), (4099, 16384)
+    and (4099, 65536), each at the block that the main path gives N bodies
+    (ds_default_block_size: 128, 128 and 256), i-set and j-set two
+    different states, M not a multiple of the block, masses from [0.5, 2]
+    and a random vel.w, by phase 3d's rules (1e-12 * max + 1e-14 of plain,
+    1e-10 * max|a| of the float64 oracle, a repeat bit-equal), its (M,4)
+    rows' w = 0; the kernel then the ds Euler update equals the fused ds
+    step (ds_step) at the same block on the same j-set bit for bit; its
+    times at N = 16384 and 65536."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import ds
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
+    err = 0.0
+    scal = ds.scal_ds(dt, soft, 0.5)
+    i_planes, i64 = ds_state(torch, 4099, seed=42)
+    for n in (4099, N_QA, N_MAIN):
+        j_planes, j64 = ds_state(torch, n, seed=43)
+        bs = ck.ds_default_block_size(n)
+        what = f"ds_accel ({len(i64)}, {n}) block {bs}"
+        out = tuple(torch.full((len(i64), 4), 7.0, device=dev) for _ in range(2))
+
+        def kernel():
+            return ck.compute_accel_ds_cuda_vs(i_planes[0], i_planes[1], j_planes[0],
+                                               j_planes[1], scal, block_size=bs, out=out)
+
+        got = tuple(t.clone() for t in kernel())
+        want = ds.ds_accel_vs(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal)
+        g64, w64 = ds.ds_to_f64(*got), ds.ds_to_f64(*want)
+        tol = 1e-12 * np.abs(w64).max() + 1e-14
+        e = float(np.abs(g64 - w64).max())
+        err = max(err, e)
+        print(f"[3da ds accel] {what}: max|d| against plain {e:.3e} (tol {tol:.3e})")
+        check(bool(np.isfinite(g64).all()) and e <= tol,
+              f"ds_accel kernel disagrees with its plain version at {what}")
+        ref = oracle_accel_vs(i64, j64, soft)
+        e_or = float(np.abs(g64 - ref).max()) / float(np.abs(ref).max())
+        print(f"[3da ds accel] {what}: force against the float64 oracle max|da|/max|a| = "
+              f"{e_or:.3e} (bound 1e-10)")
+        check(e_or <= 1e-10, f"ds_accel force is not fp64-grade at {what}")
+        w_zero = all(bool((o[:, 3] == 0).all()) for o in out)
+        same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+        print(f"[3da ds accel] {what}: w lanes 0: {w_zero}; repeat call bit-equal: {same}")
+        check(w_zero and same, f"ds_accel rows or repeat at {what}")
+        # a ring hop's blocks against the fused step, on the same j-set
+        hop = ck.ds_integrate_cuda(*i_planes, *kernel(), scal)
+        fused = ck.nbody_step_ds_cuda_vs(*i_planes, j_planes[0], j_planes[1], scal,
+                                         block_size=bs)
+        bits = all(torch.equal(a, b) for a, b in zip(hop, fused))
+        print(f"[3da ds accel] {what}: ds_accel + ds_integrate equals the fused ds step bit "
+              f"for bit: {bits}")
+        check(bits, f"ds_accel + ds_integrate differs from the fused ds step at {what}")
+        del j_planes, out
+    times, bounds = {}, {}
+    for n in (N_QA, N_MAIN):
+        planes, _ = ds_state(torch, n)
+        bs = ck.ds_default_block_size(n)
+        out = tuple(torch.empty_like(planes[0]) for _ in range(4))
+        # the accel kernel in turns with the fused step kernel, whose j-loop
+        # it shares: accel, step, step, accel
+        calls = {"ds_accel": lambda: ck.compute_accel_ds_cuda_vs(
+                     planes[0], planes[1], planes[0], planes[1], scal, block_size=bs,
+                     out=out[:2]),
+                 "ds_step": lambda: ck.nbody_step_ds_cuda(*planes, scal, block_size=bs,
+                                                           out=out)}
+        reps = 10 if n == N_QA else 3
+        ms = {name: [] for name in calls}
+        for name in ("ds_accel", "ds_step", "ds_step", "ds_accel"):
+            calls[name]()
+            torch.cuda.synchronize()
+            ms[name].append(elapsed_ms(lambda: [calls[name]() for _ in range(reps)], dev) / reps)
+        t_k = min(ms["ds_accel"])
+        t_p = (elapsed_ms(lambda: ds.ds_accel_vs(planes[0], planes[1], planes[0], planes[1],
+                                                 scal), dev) if n == N_QA else None)
+        # each input read once (four planes), each output written once (two
+        # (N,4) planes)
+        b = bound_ms(2 * DS_PAIR_INSTR * float(n) * n, 4 * n * 16 + 2 * n * 16)
+        print(f"[3da ds accel] ds_accel at N={n} block {bs}: kernel {t_k:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in ms['ds_accel'])}; the step kernel in turns "
+              f"{', '.join(f'{t:.3f}' for t in ms['ds_step'])})"
+              + (f", plain {t_p:.3f} ms" if t_p is not None else "")
+              + f" per call, bound {b[0]:.3f} ms ({b[1]})")
+        if n == N_QA:
+            times["ds_accel"], bounds["ds_accel"] = (t_k, t_p), b
+        del planes, out
+    torch.cuda.empty_cache()
+    return {"err": {"ds_accel": err}, "times": times, "bounds": bounds}
+
+
 def phase_ds_main(torch, smi: str) -> None:
     """The ds path through Compute(precision="ds"): QA for Euler auto (sym),
     Euler one_sided and leapfrog at N=16384, benchmarks at 16384 (beside
@@ -1247,6 +1378,148 @@ def phase_ds_hermite_main(torch, smi: str) -> None:
         print(f"[5dh drift] N={n}, {steps} steps: horizon delta {drift['horizon_delta']:.3e}, "
               f"delta {drift['delta']:.3e} in {time.perf_counter() - t0:.1f} s")
         check(not drift_failed(drift), f"ds Hermite drift check failed at N={n}: {drift}")
+
+
+def phase_sharded_main(torch, smi: str) -> dict:
+    """5x. The body-sharded path (parallel/) on a one-rank NCCL mesh,
+    make_mesh(1): hop 0 of the ring and an all-gather of world size 1, the
+    real collectives and kernels. Compute(precision="ds", mesh=,
+    strategy="ring") QA for Euler, leapfrog and Hermite at N=16384 and
+    strategy="allgather" QA; fp32 allgather and ring QA and
+    run_benchmark(10) at N=65536; ds ring Euler run_benchmark at 16384 and
+    65536; ten ds ring Euler and leapfrog steps and three Hermite steps.
+    Only mesh systems run here, and each run must itself launch the kernels
+    of its strategy (a count taken around it). Returns the step times and
+    the final ds states, which phase_sharded_single holds against the
+    single device."""
+    import torch.distributed as dist
+
+    from nbody_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1)
+    try:
+        check(dist.get_backend() == "nccl", f"the CUDA mesh runs {dist.get_backend()}, not nccl")
+        print(f"[5x sharded] one-rank mesh on {mesh.device} over NCCL "
+              f"{torch.cuda.nccl.version()}")
+        return sharded_path(torch, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+# the kernels that each mesh run of 5x must launch itself: the ds ring's
+# force is ds_accel (Euler adds the ds_integrate update), its Hermite the ds
+# accel + jerk kernel; the allgather Euler steps are the fused step kernels
+# on the gathered j-set, the fp32 ring the one-sided force kernel
+SHARDED_KERNELS = {
+    ("ds", "ring", "euler"): ("ds_accel", "ds_integrate"),
+    ("ds", "ring", "leapfrog"): ("ds_accel",),
+    ("ds", "ring", "hermite"): ("ds_accel_jerk", *DS_HERMITE_GLUE),
+    ("ds", "allgather", "euler"): ("ds_step",),
+    ("fp32", "allgather", "euler"): ("step",),
+    ("fp32", "ring", "euler"): ("accel",),
+}
+
+
+def launched_by(ck, key, fn):
+    """fn(), failing unless it launched each kernel of SHARDED_KERNELS[key]."""
+    before = dict(ck.LAUNCHES)
+    out = fn()
+    for k in SHARDED_KERNELS[key]:
+        check(ck.LAUNCHES[k] > before[k], f"the sharded {'/'.join(key)} run did not launch "
+              f"{k!r}")
+    return out
+
+
+def sharded_path(torch, smi: str, mesh) -> dict:
+    from nbody_tpu_torch import DEMO_PARAMS, tuned_scales
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.models import DSBodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+
+    for kw in ({"integrator": "euler", "strategy": "ring"},
+               {"integrator": "leapfrog", "strategy": "ring"},
+               {"integrator": "hermite", "strategy": "ring"},
+               {"integrator": "euler", "strategy": "allgather"}):
+        c = Compute(num_bodies=N_QA, device="cuda", precision="ds", mesh=mesh,
+                    log=lambda s: print(f"[5x QA] {s}"), **kw)
+        check(c.system.strategy == kw["strategy"] and c.system.variant == "one_sided",
+              f"ds mesh system {c.system.strategy}/{c.system.variant}")
+        check(launched_by(ck, ("ds", kw["strategy"], kw["integrator"]), c.compare_results),
+              f"sharded ds QA failed ({kw})")
+    ms = {}
+    for tag, n, kw in (("fp32 allgather", N_MAIN, {"strategy": "allgather"}),
+                       ("fp32 ring", N_MAIN, {"strategy": "ring"}),
+                       ("ds ring", N_QA, {"precision": "ds", "strategy": "ring"}),
+                       ("ds ring", N_MAIN, {"precision": "ds", "strategy": "ring"})):
+        c = Compute(num_bodies=n, device="cuda", mesh=mesh,
+                    log=lambda s: print(f"[5x main] {s}"), **kw)
+        key = (kw.get("precision", "fp32"), kw["strategy"], "euler")
+        if key[0] == "fp32":
+            check(launched_by(ck, key, c.compare_results),
+                  f"sharded fp32 QA failed ({tag}) at N={n}")
+        res = launched_by(ck, key, lambda: c.run_benchmark(10 if n == N_QA or key[0] == "fp32"
+                                                           else 3))
+        pos, vel = c.system.state
+        check(tuple(pos.shape) == (n, 4) and bool(torch.isfinite(pos).all()
+                                                  and torch.isfinite(vel).all()),
+              f"bad state after the {tag} benchmark at N={n}")
+        ms[(tag, n)] = res["milliseconds"] / res["iterations"]
+        print(f"[5x main] {tag} N={n}: {ms[(tag, n)]:.3f} ms per step [{smi}]")
+    params = DEMO_PARAMS[0].replace(**dict(zip(("cluster_scale", "velocity_scale"),
+                                               tuned_scales(N_QA))))
+    states = {}
+    for integrator, steps in SHARDED_BIT_STEPS:
+        a = DSBodySystem(N_QA, params, device="cuda", integrator=integrator, mesh=mesh,
+                         strategy="ring")
+        launched_by(ck, ("ds", "ring", integrator), lambda: a.update_many(steps))
+        a.synchronize()
+        states[integrator] = a.get_ds_state()
+    return {"ms": ms, "params": params, "states": states}
+
+
+# the ds ring runs of 5x held to the single device: (integrator, steps)
+SHARDED_BIT_STEPS = (("euler", 10), ("leapfrog", 10), ("hermite", 3))
+
+
+def phase_sharded_single(torch, smi: str, mesh_runs: dict) -> None:
+    """5x, the single-device side, after the mesh runs and outside their
+    count: the one-device fp32 vpu and ds one-sided step times beside the
+    mesh's, and the same ds steps from the same state on one device, which
+    the mesh's ring must equal bit for bit in Euler and within 5e-9 in
+    leapfrog and Hermite."""
+    import numpy as np
+
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.models import DSBodySystem
+    from nbody_tpu_torch.ops import ds
+
+    ms = mesh_runs["ms"]
+    for tag, n, kw in (("fp32 vpu, one device", N_MAIN, {"variant": "vpu"}),
+                       ("ds one_sided, one device", N_QA,
+                        {"precision": "ds", "variant": "one_sided"}),
+                       ("ds one_sided, one device", N_MAIN,
+                        {"precision": "ds", "variant": "one_sided"})):
+        c = Compute(num_bodies=n, device="cuda", log=lambda s: print(f"[5x single] {s}"), **kw)
+        res = c.run_benchmark(10 if n == N_QA or "precision" not in kw else 3)
+        t = res["milliseconds"] / res["iterations"]
+        others = ", ".join(f"{k[0]} {v:.3f} ms" for k, v in ms.items() if k[1] == n
+                           and k[0].split()[0] == tag.split()[0])
+        print(f"[5x single] {tag} N={n}: {t:.3f} ms per step; on the mesh {others} "
+              f"[{smi}]")
+    for integrator, steps in SHARDED_BIT_STEPS:
+        b = DSBodySystem(N_QA, mesh_runs["params"], device="cuda", integrator=integrator,
+                         variant="one_sided")
+        b.update_many(steps)
+        b.synchronize()
+        got, want = mesh_runs["states"][integrator], b.get_ds_state()
+        bits = all(bool((x == y).all()) for x, y in zip(got, want))
+        e = max(float(np.abs(ds.ds_to_f64(got[i], got[i + 1])
+                             - ds.ds_to_f64(want[i], want[i + 1])).max()) for i in (0, 2))
+        print(f"[5x bits] {steps} ds ring {integrator} steps at N={N_QA} on the mesh against "
+              f"single-device one_sided: bit-equal {bits}, max|d| {e:.3e} (bound 5e-9)")
+        check(e < 5e-9, f"sharded ds ring {integrator} departs from the single device")
+        if integrator == "euler":
+            check(bits, "ten ds ring Euler steps differ from ten one-sided steps")
 
 
 def auto_capacity(occ: int) -> int:
@@ -1844,6 +2117,7 @@ def main() -> int:
     ds_aj_kern = timed("3dh ds accel+jerk kernels", phase_ds_aj_kernels, torch)
     mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
     p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
+    ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -1901,6 +2175,14 @@ def main() -> int:
         launches[k] = ds_launches[k]
     for k in DS_AJ_KERNELS:
         launches[k] = ds_hermite_launches[k]
+    # only mesh systems run in the sharded path's count, and each of its
+    # runs is checked for its own kernels (SHARDED_KERNELS)
+    mesh_runs = {}
+    sharded_launches = timed("5x sharded path", run_path, ck,
+                             sorted({k for ks in SHARDED_KERNELS.values() for k in ks}),
+                             lambda: mesh_runs.update(phase_sharded_main(torch, smi)))
+    launches["ds_accel"] = sharded_launches["ds_accel"]
+    timed("5x single-device comparisons", phase_sharded_single, torch, smi, mesh_runs)
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
 
@@ -1912,7 +2194,7 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
-                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key]}
+                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **ds_accel_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],

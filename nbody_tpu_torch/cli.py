@@ -30,6 +30,14 @@ the CUDA pair kernel), Euler or leapfrog, fp32: its QA gates positions only
 and its --drift-check is reported, not gated, as in nbody_tpu (its force
 differs from the all-pairs oracle's by the mesh error, by design).
 
+--devices D shards the bodies over D ranks, one a device, with --strategy
+allgather, ring or auto (nbody_tpu's cost model), for fp32 and ds: start
+it as ``torchrun --nproc_per_node D nbody-torch --devices D ...`` (NCCL on
+the cards, gloo with --cpu). --devices 1 builds no mesh, as in nbody_tpu. A
+--devices that differs from the number of ranks exits 2; so do --mesh-rows
+and --strategy sym / ring_fused, which are not ported yet. Only rank 0
+prints; every rank exits with rank 0's verdict.
+
 The run is on the CUDA card; --cpu selects the plain PyTorch path on the
 host, and nothing else does: without --cpu and without a card the run fails.
 """
@@ -37,6 +45,7 @@ host, and nothing else does: without --cpu and without a card the run fails.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -95,6 +104,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="p3m neighbor-cell capacity (bodies per cell); "
                         "default auto-sizes from the initial state's max "
                         "occupancy +50%% headroom; overflow at init raises")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard bodies over this many devices (a 1-D mesh of ranks, one a "
+                        "device; start D ranks with torchrun --nproc_per_node D)")
+    p.add_argument("--strategy", choices=["auto", "allgather", "ring", "ring_fused", "sym"],
+                   default="auto",
+                   help="multi-device communication strategy: allgather (one all-gather, "
+                        "one fused kernel), ring (the j-shard travels the ring, a force "
+                        "kernel a hop), auto (nbody_tpu's cost model by shard size); "
+                        "ring_fused and sym are not ported yet")
+    p.add_argument("--mesh-rows", type=int, default=None,
+                   help="with --devices D: the 2-D (rows x D/rows) decomposition "
+                        "(not ported yet)")
     p.add_argument("--drift-check", type=int, default=None, metavar="STEPS",
                    help="run STEPS steps on the device and on the CPU oracle "
                         "from the same state and compare their energy drifts; "
@@ -119,6 +140,9 @@ def main(argv=None) -> int:
     """Entry point with the reference's exit codes (nbody.cpp:396-408):
     0 ok / QA pass, 1 QA fail, 2 usage or configuration error, 3 runtime
     error."""
+    import torch.distributed as dist
+
+    started = dist.is_available() and dist.is_initialized()
     try:
         return _main(argv)
     except (ValueError, KeyError, FileNotFoundError) as e:
@@ -127,6 +151,30 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"runtime error: {e}", file=sys.stderr)
         return 3
+    finally:
+        if not started and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh(args):
+    """The body mesh of --devices, or None: with D > 1 the ranks' process
+    group is started from torchrun's environment, and D must be its size."""
+    from nbody_tpu_torch.models.body_system import not_ported
+
+    if args.mesh_rows is not None:
+        raise not_ported("--mesh-rows", args.mesh_rows, key="mesh")
+    if args.strategy in ("ring_fused", "sym"):
+        raise not_ported("--strategy", args.strategy)
+    if args.devices is not None and args.devices < 1:
+        raise ValueError(f"--devices must be at least 1; got {args.devices}")
+    if args.devices is None or args.devices == 1:
+        return None
+    from nbody_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    device = "cpu" if args.cpu else "cuda"
+    if "WORLD_SIZE" in os.environ:
+        initialize_multihost(device=device)
+    return make_mesh(args.devices, device="cpu" if args.cpu else None)
 
 
 def _main(argv=None) -> int:
@@ -157,6 +205,9 @@ def _main(argv=None) -> int:
 
     from nbody_tpu_torch.compute import Compute
 
+    mesh = _mesh(args)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+
     tipsy_state = None
     if args.tipsy:
         from nbody_tpu_torch.io import read_tipsy_file
@@ -164,7 +215,7 @@ def _main(argv=None) -> int:
         tpos, tvel = read_tipsy_file(args.tipsy)
         dtype = np.float64 if ds else np.float32
         tipsy_state = (tpos.astype(dtype), tvel.astype(dtype))
-        print(f"Read {tipsy_state[0].shape[0]} bodies from {args.tipsy}")
+        say(f"Read {tipsy_state[0].shape[0]} bodies from {args.tipsy}")
 
     compute = Compute(
         num_bodies=args.numbodies or (16384 if ds else None),
@@ -179,28 +230,32 @@ def _main(argv=None) -> int:
         p3m_capacity=args.p3m_capacity,
         seed=args.seed,
         tipsy_state=tipsy_state,
+        mesh=mesh,
+        strategy=args.strategy,
+        log=say,
     )
     system = compute.system
     where = (torch.cuda.get_device_name(system.device)
              if system.device.type == "cuda" else "cpu")
-    print(f"nbody_tpu_torch: {compute.num_bodies} bodies on {where} "
-          f"[{system.backend} kernel"
-          + (", host memory" if args.hostmem else "")
-          + (", double-single (fp64-grade)]" if ds else ", fp32]")
-          + (f" force p3m (grid {system.pm_grid}, cell capacity {system.p3m_capacity})"
-             if p3m else f" force {system.variant}")
-          + f", integrator {system.integrator}")
+    say(f"nbody_tpu_torch: {compute.num_bodies} bodies on {where}"
+        + (f", {mesh.size}-device mesh [{system.strategy}]" if mesh is not None else "")
+        + f" [{system.backend} kernel"
+        + (", host memory" if args.hostmem else "")
+        + (", double-single (fp64-grade)]" if ds else ", fp32]")
+        + (f" force p3m (grid {system.pm_grid}, cell capacity {system.p3m_capacity})"
+           if p3m else f" force {system.variant}")
+        + f", integrator {system.integrator}")
 
     if args.drift_check is not None:
         drift = compute.drift_check(args.drift_check)
         if p3m:
             # nbody_tpu/cli.py:829-834: the mesh solver's drift differs from
             # the all-pairs oracle's by design, so it is reported, not gated
-            print("(mesh-solver drift differs from the all-pairs oracle by design; "
-                  "exit-code gate applies to exact kernels only)")
+            say("(mesh-solver drift differs from the all-pairs oracle by design; "
+                "exit-code gate applies to exact kernels only)")
             return 0
         if drift_failed(drift):
-            print("drift check FAILED", file=sys.stderr)
+            say("drift check FAILED", file=sys.stderr)
             return 1
         return 0
     if args.benchmark:

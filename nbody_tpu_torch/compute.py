@@ -17,6 +17,12 @@ whose force differs from the all-pairs oracle's by its mesh error by
 design: as in ``nbody_tpu``, its QA gates the positions only (the force
 error is reported), its benchmark rate is the pairwise-equivalent one, and
 the CLI reports its drift without gating it.
+
+``mesh=`` and ``strategy=`` pass through to the system
+(``nbody_tpu/compute.py:162-163,179-180``): every rank of the mesh builds
+the same ``Compute`` and makes the same calls. The QA and drift checks step
+the device on every rank, run the oracle on rank 0 alone, and give rank 0's
+verdict to every rank, so that all of them take the same branch.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nbody_tpu_torch.config import NBodyConfig
 from nbody_tpu_torch.oracle import accel_numpy, native_available, step_best
@@ -129,6 +136,8 @@ class Compute:
         cycle_demo: bool = True,
         seed: int = 42,
         tipsy_state: Optional[tuple] = None,
+        mesh=None,
+        strategy: str = "auto",
         log=print,
     ):
         device = resolve_device(device)
@@ -165,12 +174,15 @@ class Compute:
         self.fps = 0.0
         self._tipsy_state = tipsy_state
         self.steps_taken = 0
+        self.mesh = mesh
 
         if tipsy_state is not None:
             num_bodies = tipsy_state[0].shape[0]
         elif num_bodies is None:
+            # a mesh defaults to proportionally more work (nbody_tpu's rule)
             num_bodies = default_num_bodies(
-                device, DEFAULT_BLOCK_SIZE if block_size is None else block_size)
+                device, DEFAULT_BLOCK_SIZE if block_size is None else block_size
+            ) * (1 if mesh is None else mesh.size)
 
         scales = tuned_scales(num_bodies)
         if scales is not None:
@@ -188,6 +200,8 @@ class Compute:
                 integrator=integrator,
                 seed=seed,
                 state=tipsy_state,
+                mesh=mesh,
+                strategy=strategy,
             )
         else:
             self.system = BodySystem(
@@ -204,9 +218,21 @@ class Compute:
                 p3m_capacity=p3m_capacity,
                 seed=seed,
                 state=tipsy_state,
+                mesh=mesh,
+                strategy=strategy,
             )
         self.num_bodies = self.system.num_bodies
         self._demo_reset_time = time.monotonic()
+
+    def _from_rank0(self, judge):
+        """judge() on rank 0 of the mesh (its oracle work runs there alone),
+        its result given to every rank; judge() itself without a mesh."""
+        if self.mesh is None:
+            return judge()
+        box = [judge() if self.mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.group,
+                                   device=self.mesh.device)
+        return box[0]
 
     # ---- demo state machine ----
 
@@ -319,30 +345,34 @@ class Compute:
         device = self.system.device
         pos0 = self.system.positions
         vel0 = self.system.velocities
-        e0 = total_energy_precise(pos0, vel0, soft, device=device)
 
         self.system.update_many(steps, p.time_step)
         self.system.synchronize()
-        e_dev = total_energy_precise(*self.system.state, soft, device=device)
+        state = self.system.state
 
-        op, ov = _oracle_rollout(pos0, vel0, p.time_step, soft, p.damping, steps=steps,
-                                 integrator=self.system.integrator)
-        e_ora = total_energy_precise(op, ov, soft, device=device)
+        def judge():
+            e0 = total_energy_precise(pos0, vel0, soft, device=device)
+            e_dev = total_energy_precise(*state, soft, device=device)
+            op, ov = _oracle_rollout(pos0, vel0, p.time_step, soft, p.damping, steps=steps,
+                                     integrator=self.system.integrator)
+            e_ora = total_energy_precise(op, ov, soft, device=device)
+            drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
+            drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
+            oracle = "native C++" if native_available() else "NumPy"
+            self.log(
+                f"energy drift over {steps} steps (dt={p.time_step}): "
+                f"device {drift_dev:.3e} | {oracle} oracle {drift_ora:.3e} | "
+                f"delta {abs(drift_dev - drift_ora):.3e}")
+            return {
+                "steps": steps,
+                "drift_device": drift_dev,
+                "drift_oracle": drift_ora,
+                "delta": abs(drift_dev - drift_ora),
+            }
 
-        drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
-        drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
-        oracle = "native C++" if native_available() else "NumPy"
-        self.log(
-            f"energy drift over {steps} steps (dt={p.time_step}): "
-            f"device {drift_dev:.3e} | {oracle} oracle {drift_ora:.3e} | "
-            f"delta {abs(drift_dev - drift_ora):.3e}")
+        out = self._from_rank0(judge)
         self.system.set_state(pos0, vel0)
-        return {
-            "steps": steps,
-            "drift_device": drift_dev,
-            "drift_oracle": drift_ora,
-            "delta": abs(drift_dev - drift_ora),
-        }
+        return out
 
     def _drift_check_ds(self, steps: int) -> dict:
         """The ds drift check, ``nbody_tpu``'s two-tier gate
@@ -359,30 +389,43 @@ class Compute:
         p = self.active_params
         soft = p.softening
         planes0 = self.system.get_ds_state()
-        op, ov = self.system.positions, self.system.velocities
-        e0 = total_energy_f64(op, ov, soft)
-        oracle = "native C++" if native_available() else "NumPy"
-        out = {"steps": steps}
+        pos0, vel0 = self.system.positions, self.system.velocities
+        # the device's states at the ends of the two tiers
+        tiers = []
         done = 0
         for key, upto in (("horizon_", min(steps, DS_PARITY_HORIZON)), ("", steps)):
-            n = upto - done
-            if n > 0:
-                self.system.update_many(n, p.time_step)
+            if upto > done:
+                self.system.update_many(upto - done, p.time_step)
                 self.system.synchronize()
-                op, ov = _oracle_rollout(op, ov, p.time_step, soft, p.damping, steps=n,
-                                         integrator=self.system.integrator)
-                e_dev = total_energy_f64(self.system.positions, self.system.velocities, soft)
-                e_ora = total_energy_f64(op, ov, soft)
-                drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
-                drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
+                tiers.append((key, upto, upto - done,
+                              (self.system.positions, self.system.velocities)))
                 done = upto
-                self.log(f"energy drift over {upto} steps (dt={p.time_step}): ds "
-                         f"{drift_dev:.6e} | float64 {oracle} oracle {drift_ora:.6e} | delta "
-                         f"{abs(drift_dev - drift_ora):.3e}")
-            out[f"{key}steps"] = upto
-            out[f"{key}drift_device"] = drift_dev
-            out[f"{key}drift_oracle"] = drift_ora
-            out[f"{key}delta"] = abs(drift_dev - drift_ora)
+            else:
+                tiers.append((key, upto, 0, None))
+
+        def judge():
+            e0 = total_energy_f64(pos0, vel0, soft)
+            oracle = "native C++" if native_available() else "NumPy"
+            op, ov = pos0, vel0
+            out = {"steps": steps}
+            for key, upto, n, dev in tiers:
+                if n > 0:
+                    op, ov = _oracle_rollout(op, ov, p.time_step, soft, p.damping, steps=n,
+                                             integrator=self.system.integrator)
+                    e_dev = total_energy_f64(*dev, soft)
+                    e_ora = total_energy_f64(op, ov, soft)
+                    drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0
+                    drift_ora = (e_ora - e0) / abs(e0) if e0 else 0.0
+                    self.log(f"energy drift over {upto} steps (dt={p.time_step}): ds "
+                             f"{drift_dev:.6e} | float64 {oracle} oracle {drift_ora:.6e} | "
+                             f"delta {abs(drift_dev - drift_ora):.3e}")
+                out[f"{key}steps"] = upto
+                out[f"{key}drift_device"] = drift_dev
+                out[f"{key}drift_oracle"] = drift_ora
+                out[f"{key}delta"] = abs(drift_dev - drift_ora)
+            return out
+
+        out = self._from_rank0(judge)
         self.system.set_ds_state(*planes0)
         return out
 
@@ -412,6 +455,7 @@ class Compute:
         p = self.active_params
         hermite = self.system.integrator == "hermite"
 
+        jerk = None
         if hermite:
             acc, jerk = (t.cpu().numpy() for t in self.system.accelerations_and_jerks())
         else:
@@ -420,44 +464,48 @@ class Compute:
         self.system.synchronize()
         dev_pos = self.system.positions
 
-        ref_pos, _ = step_best(pos0, vel0, QA_DT, p.softening, p.damping,
-                               integrator=self.system.integrator)
-        err = float(np.abs(dev_pos[:, :3] - ref_pos[:, :3]).max())
-        if hermite:
-            ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
-        else:
-            ref_acc = _oracle_accel(pos0, p.softening)
-        acc_err = np.abs(acc - ref_acc)
-        acc_tol = QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL
-        mxu = self.system.mxu_force
-        p3m = self.kernel == "p3m"
-        if p3m:
-            rel = (np.sqrt((acc_err ** 2).sum(1))
-                   / np.maximum(np.sqrt((ref_acc ** 2).sum(1)), 1e-12))
-            checks = []
-            report = (f", p3m force against the all-pairs force (not gated): median |da|/|a| "
-                      f"= {np.median(rel):.3e}, max {rel.max():.3e}")
-        elif mxu is None:
-            checks = [("max |dacc|", float(acc_err.max()), acc_tol)]
-        else:
-            # the one-sided rule plus the mxu error model, element by element
-            p0 = torch.as_tensor(pos0, device=self.system.device)
-            bound = acc_tol + reference.MXU_ERROR_COEF[mxu] * (
-                reference.mxu_error_scale(p0, p0, p.softening).cpu().numpy())
-            checks = [(f"max |dacc| / ({acc_tol:.3e} + {mxu} error model)",
-                       float((acc_err / bound).max()), 1.0)]
-        if hermite:
-            checks.append(("max |djerk|", float(np.abs(jerk - ref_jerk).max()),
-                           QA_JERK_RTOL * float(np.abs(ref_jerk).max()) + QA_JERK_ATOL))
-        passed = err <= tolerance and all(e <= tol for _, e, tol in checks)
-        oracle = "native C++" if native_available() else "NumPy"
-        self.log(
-            f"QA compare vs {oracle} oracle: max |dpos| = {err:.3e} "
-            f"(tolerance {tolerance:g})"
-            + "".join(f", {label} = {e:.3e} (tolerance {tol:.3e})"
-                      for label, e, tol in checks)
-            + (report if p3m else "")
-            + f" -> {'OK' if passed else 'FAILED'}")
+        def judge():
+            ref_pos, _ = step_best(pos0, vel0, QA_DT, p.softening, p.damping,
+                                   integrator=self.system.integrator)
+            err = float(np.abs(dev_pos[:, :3] - ref_pos[:, :3]).max())
+            if hermite:
+                ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
+            else:
+                ref_acc = _oracle_accel(pos0, p.softening)
+            acc_err = np.abs(acc - ref_acc)
+            acc_tol = QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL
+            mxu = self.system.mxu_force
+            p3m = self.kernel == "p3m"
+            if p3m:
+                rel = (np.sqrt((acc_err ** 2).sum(1))
+                       / np.maximum(np.sqrt((ref_acc ** 2).sum(1)), 1e-12))
+                checks = []
+                report = (f", p3m force against the all-pairs force (not gated): median "
+                          f"|da|/|a| = {np.median(rel):.3e}, max {rel.max():.3e}")
+            elif mxu is None:
+                checks = [("max |dacc|", float(acc_err.max()), acc_tol)]
+            else:
+                # the one-sided rule plus the mxu error model, element by element
+                p0 = torch.as_tensor(pos0, device=self.system.device)
+                bound = acc_tol + reference.MXU_ERROR_COEF[mxu] * (
+                    reference.mxu_error_scale(p0, p0, p.softening).cpu().numpy())
+                checks = [(f"max |dacc| / ({acc_tol:.3e} + {mxu} error model)",
+                           float((acc_err / bound).max()), 1.0)]
+            if hermite:
+                checks.append(("max |djerk|", float(np.abs(jerk - ref_jerk).max()),
+                               QA_JERK_RTOL * float(np.abs(ref_jerk).max()) + QA_JERK_ATOL))
+            passed = err <= tolerance and all(e <= tol for _, e, tol in checks)
+            oracle = "native C++" if native_available() else "NumPy"
+            self.log(
+                f"QA compare vs {oracle} oracle: max |dpos| = {err:.3e} "
+                f"(tolerance {tolerance:g})"
+                + "".join(f", {label} = {e:.3e} (tolerance {tol:.3e})"
+                          for label, e, tol in checks)
+                + (report if p3m else "")
+                + f" -> {'OK' if passed else 'FAILED'}")
+            return passed
+
+        passed = self._from_rank0(judge)
         # restore the pre-compare state so the compare has no side effect
         self.system.set_state(pos0, vel0)
         return passed
@@ -480,29 +528,35 @@ class Compute:
         if hermite:
             fields = self.system.accelerations_and_jerks()
             acc, jerk = ds_to_f64(*fields[:2]), ds_to_f64(*fields[2:])
-            ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
         else:
             acc = ds_to_f64(*self.system.accelerations())
-            ref_acc = _oracle_accel(pos0, p.softening)
         self.system.update(QA_DT)
         self.system.synchronize()
-        err = float(np.abs(self.system.positions[:, :3] - step_best(
-            pos0, vel0, QA_DT, p.softening, p.damping,
-            integrator=self.system.integrator)[0][:, :3]).max())
-        fields = [("dacc", acc, ref_acc)]
-        if hermite:
-            fields.append(("djerk", jerk, ref_jerk))
-        checks = [("dpos", err, DS_QA_TOLERANCE)] + [
-            (name, float(np.abs(got - ref).max()),
-             DS_QA_ACCEL_RTOL * float(np.abs(ref).max()) + DS_QA_ACCEL_ATOL)
-            for name, got, ref in fields]
-        passed = all(e <= tol for _, e, tol in checks)
-        oracle = "native C++" if native_available() else "NumPy"
-        self.log(
-            f"ds QA compare vs float64 {oracle} oracle: max |dpos| = {err:.3e} "
-            f"(tolerance {DS_QA_TOLERANCE:g}), "
-            + ", ".join(f"max |{name}| = {e:.3e} (tolerance {tol:.3e})"
-                        for name, e, tol in checks[1:])
-            + f" -> {'OK' if passed else 'FAILED'}")
+        dev_pos = self.system.positions
+
+        def judge():
+            err = float(np.abs(dev_pos[:, :3] - step_best(
+                pos0, vel0, QA_DT, p.softening, p.damping,
+                integrator=self.system.integrator)[0][:, :3]).max())
+            if hermite:
+                ref_acc, ref_jerk = _oracle_accel_jerk(pos0, vel0, p.softening)
+                fields = [("dacc", acc, ref_acc), ("djerk", jerk, ref_jerk)]
+            else:
+                fields = [("dacc", acc, _oracle_accel(pos0, p.softening))]
+            checks = [("dpos", err, DS_QA_TOLERANCE)] + [
+                (name, float(np.abs(got - ref).max()),
+                 DS_QA_ACCEL_RTOL * float(np.abs(ref).max()) + DS_QA_ACCEL_ATOL)
+                for name, got, ref in fields]
+            passed = all(e <= tol for _, e, tol in checks)
+            oracle = "native C++" if native_available() else "NumPy"
+            self.log(
+                f"ds QA compare vs float64 {oracle} oracle: max |dpos| = {err:.3e} "
+                f"(tolerance {DS_QA_TOLERANCE:g}), "
+                + ", ".join(f"max |{name}| = {e:.3e} (tolerance {tol:.3e})"
+                            for name, e, tol in checks[1:])
+                + f" -> {'OK' if passed else 'FAILED'}")
+            return passed
+
+        passed = self._from_rank0(judge)
         self.system.set_ds_state(*planes0)
         return passed

@@ -1,12 +1,16 @@
 // Double-single (fp64-grade) all-pairs Plummer gravity for Hopper (sm_90a),
-// one-sided: the fused ds Euler step and the fused ds drift-kick-drift
-// (leapfrog) step of nbody_tpu_torch.
+// one-sided: the fused ds Euler step, the fused ds drift-kick-drift
+// (leapfrog) step and the ds acceleration alone of nbody_tpu_torch.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   nbody_ds_step     <- nbody_tpu/ops/ds_kernel.py::_ds_step_kernel
 //                        (nbody_step_pallas_ds_vs / nbody_step_pallas_ds)
 //   nbody_ds_leapfrog <- nbody_tpu/ops/ds_kernel.py::_ds_leapfrog_kernel
 //                        (nbody_step_pallas_ds_leapfrog_vs)
+//   nbody_ds_accel    <- nbody_tpu/ops/ds_kernel.py::_ds_accel_kernel
+//                        (compute_accel_pallas_ds): the force of an i-set
+//                        under one j-set, as the body-sharded ring step
+//                        calls it once a hop (parallel/sharded.py)
 // Every value is a pair hi + lo of floats, in the arithmetic of
 // ds_common.cuh. For the i-set (M bodies) under the j-set (N bodies), per
 // pair (ds_kernel.py:206-219):
@@ -18,7 +22,11 @@
 // p_half = p + v dt/2, takes the force at the half-step positions, and
 // ends with v' = (v + a dt) * damping, p' = p_half + v' dt/2
 // (ds_kernel.py:575-655). Mass and vel.w are carried through from both
-// planes. The self pair adds 0 because d = 0 exactly in ds.
+// planes. The self pair adds 0 because d = 0 exactly in ds. The accel
+// kernel stores the ds acceleration as (M, 4) hi and lo rows with w = 0,
+// the JAX kernel's layout (ds_kernel.py:391-392); it runs the step
+// kernel's j-loop (ds_accumulate), so its force followed by the ds Euler
+// update (ds_integrate_kernel) gives the fused step's bits.
 //
 // State: four (N, 4) float planes pos_hi, pos_lo, vel_hi, vel_lo, AoS
 // [x, y, z, m] / [vx, vy, vz, w]. dt, eps^2, damping and dt/2 come as hi/lo
@@ -39,9 +47,12 @@
 // products as ds_mul at 9, 3 ds_add at 11 for r2, ds_rsqrt at 45 and one
 // rsqrtf, m_j inv3 at 9, and 3 ds_mul + ds_add at 20 into the sums) against
 // 12 and one rsqrtf for the fp32 kernel; the JAX package counts 400 flops
-// a pair for the step and 450 for leapfrog with Dekker's product
-// (ds_kernel.py:354,745). Memory is no limit: 32 bytes a staged j-body for
-// block_size pairs a thread.
+// a pair for the step, 450 for leapfrog and 380 for the force alone with
+// Dekker's product (ds_kernel.py:354,745,451). Memory is no limit: 32 bytes
+// a staged j-body for block_size pairs a thread. One thread an i-body
+// leaves few warps an SM when M is small (a ring hop's shard): splitting
+// the j-range across blocks, with a fixed-order ds sum of the partials,
+// is the known remedy (PERF.md, Open questions), not taken here.
 //
 // Edges: any M and N. A j-slot past N loads zeros in both planes, so mass 0
 // and no force; a thread past M stages j-tiles and writes nothing.
@@ -154,6 +165,24 @@ __global__ void ds_leapfrog_kernel(
                 new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
 }
 
+__global__ void ds_accel_kernel(const float4* __restrict__ pos_hi,
+                                const float4* __restrict__ pos_lo,
+                                const float4* __restrict__ jpos_hi,
+                                const float4* __restrict__ jpos_lo, float4* __restrict__ acc_hi,
+                                float4* __restrict__ acc_lo, const int64_t m, const int64_t n,
+                                const ds_scalars s) {
+  extern __shared__ float4 tile[];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const float4 ph = (i < m) ? pos_hi[i] : zero4();
+  const float4 pl = (i < m) ? pos_lo[i] : zero4();
+  dsf ax = make_ds(0.f, 0.f), ay = ax, az = ax;
+  ds_accumulate<false>(ph, pl, jpos_hi, jpos_lo, nullptr, nullptr, n, s, tile, tile + blockDim.x,
+                       ax, ay, az);
+  if (i >= m) return;
+  acc_hi[i] = make_float4(ax.hi, ay.hi, az.hi, 0.f);
+  acc_lo[i] = make_float4(ax.lo, ay.lo, az.lo, 0.f);
+}
+
 bool valid_block_size(int64_t bs) { return bs >= 32 && bs <= 1024 && bs % 32 == 0; }
 
 unsigned int num_blocks(int64_t m, int64_t bs) {
@@ -203,6 +232,22 @@ int nbody_ds_leapfrog(const void* pos_hi, const void* pos_lo, const void* vel_hi
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
       static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, n,
       read_scalars(scal));
+  return cudaGetLastError();
+}
+
+// the ds acceleration of the i-set (m, 4) under the j-set (n, 4), as (m, 4)
+// hi and lo rows with w = 0; `scal` needs only eps^2 (column 1)
+int nbody_ds_accel(const void* pos_hi, const void* pos_lo, const void* jpos_hi,
+                   const void* jpos_lo, void* acc_hi, void* acc_lo, int64_t m, int64_t n,
+                   const float* scal, int64_t block_size, void* stream) {
+  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const size_t smem = 2 * static_cast<size_t>(block_size) * sizeof(float4);
+  ds_accel_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
+      static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
+      static_cast<float4*>(acc_hi), static_cast<float4*>(acc_lo), m, n, read_scalars(scal));
   return cudaGetLastError();
 }
 

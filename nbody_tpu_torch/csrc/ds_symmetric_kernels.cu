@@ -214,17 +214,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // The damped Euler update in ds (ds_kernel.py:1271-1301), one thread a body:
 // v' = (v + a dt) * damping, p' = p + v' dt, mass and vel.w carried through.
+// The acceleration's rows are `stride` floats apart: 3 for the (n, 3)
+// fields of the each-pair-once composition, 4 for the (n, 4) rows of the ds
+// accel kernel (ds_kernels.cu).
 __global__ void __launch_bounds__(256)
     ds_integrate_kernel(const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
                         const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
                         const float* __restrict__ acc_hi, const float* __restrict__ acc_lo,
-                        float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
-                        float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo,
-                        const int64_t n, const dsf dt, const dsf damping) {
+                        const int64_t stride, float4* __restrict__ new_pos_hi,
+                        float4* __restrict__ new_pos_lo, float4* __restrict__ new_vel_hi,
+                        float4* __restrict__ new_vel_lo, const int64_t n, const dsf dt,
+                        const dsf damping) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* ah = acc_hi + 3 * i;
-  const float* al = acc_lo + 3 * i;
+  const float* ah = acc_hi + stride * i;
+  const float* al = acc_lo + stride * i;
   ds_kick_drift(pos_hi[i], pos_lo[i], vel_hi[i], vel_lo[i], make_ds(ah[0], al[0]),
                 make_ds(ah[1], al[1]), make_ds(ah[2], al[2]), dt, damping, dt, new_pos_hi + i,
                 new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
@@ -328,19 +332,20 @@ int nbody_ds_sym_cross(const void* pos_hi_i, const void* pos_lo_i, int64_t bi,
 }
 
 // the four new planes of the set (n, 4) after the ds Euler update with the
-// ds acceleration acc_hi, acc_lo (n, 3)
+// ds acceleration acc_hi, acc_lo: n rows of 3 floats, `stride` (3 or 4)
+// floats apart
 int nbody_ds_integrate(const void* pos_hi, const void* pos_lo, const void* vel_hi,
-                       const void* vel_lo, const void* acc_hi, const void* acc_lo,
+                       const void* vel_lo, const void* acc_hi, const void* acc_lo, int64_t stride,
                        void* new_pos_hi, void* new_pos_lo, void* new_vel_hi, void* new_vel_lo,
                        int64_t n, const float* scal, void* stream) {
-  if (n < 0) return cudaErrorInvalidValue;
+  if (n < 0 || (stride != 3 && stride != 4)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const ds_scalars sc = read_scalars(scal);
   ds_integrate_kernel<<<static_cast<unsigned>(cdiv(n, 256)), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
-      static_cast<const float*>(acc_hi), static_cast<const float*>(acc_lo),
+      static_cast<const float*>(acc_hi), static_cast<const float*>(acc_lo), stride,
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
       static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), n, sc.dt, sc.damping);
   return cudaGetLastError();

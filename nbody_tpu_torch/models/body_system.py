@@ -1,11 +1,12 @@
 """BodySystem: simulation state on a torch device, and stepping.
 
 Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
-far: fp32, one device, damped semi-implicit Euler, leapfrog or 4th-order
-Hermite, the one-sided force (``variant="vpu"``), the each-pair-once force
+far: fp32, damped semi-implicit Euler, leapfrog or 4th-order Hermite, the
+one-sided force (``variant="vpu"``), the each-pair-once force
 (``variant="sym"``) or the force reduction on the tensor cores
 (``variant="mxu"`` / ``"mxu_bf16"``, Euler), the P3M fast mode
-(``kernel="p3m"``, Euler and leapfrog), and the energy diagnostics.
+(``kernel="p3m"``, Euler and leapfrog, one device), the energy diagnostics,
+and a 1-D body mesh (``mesh=``, ``strategy=``, below).
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -56,6 +57,17 @@ Placements (the reference's BodySystemCUDA variants):
   * "host"   — state lives in host memory (pinned when the device is a CUDA
     card); each ``update`` / ``update_many`` call copies it to the device
     once, steps there, and copies it back: the HostMemory body system.
+    One device only: a mesh with placement="host" raises.
+
+Meshes (``parallel/``): with ``mesh=make_mesh(D)`` each of the D ranks
+holds N/D bodies (N rounded up to a multiple of D with zero-mass bodies, as
+``nbody_tpu`` rounds it) and steps them with ``make_sharded_step``, by
+``strategy`` "allgather", "ring" or "auto" (``choose_strategy``). On a mesh
+``variant="auto"`` is "vpu" and the variant reaches only the allgather Euler
+step, as in ``nbody_tpu``. The accessors speak of the whole system on every
+rank: ``state``, ``positions``, ``velocities``, ``accelerations()`` and
+``accelerations_and_jerks()`` gather; ``set_state`` takes the whole state
+and each rank keeps its rows. Every rank must make the same calls.
 """
 
 from __future__ import annotations
@@ -96,7 +108,10 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 LATER_SLICES = {
     "fp64": "Queue 1 #5 (fp64)",
     "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list)",
-    "mesh": "Queue 1 #13 (parallel/)",
+    "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps)",
+    "sym": "Queue 1 #13 (the rest of parallel/: strategy='sym', each pair once across the mesh)",
+    "ring_fused": "Queue 2 #20 (the ring kernel of ops/ring_kernel.py)",
+    "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
 }
 
 
@@ -172,6 +187,30 @@ def _as_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def check_mesh(mesh, device: torch.device, strategy: str, *, axes_error: str | None = None,
+               strategy_error: str | None = None) -> int:
+    """Validate a body mesh for a system on `device` and its `strategy`, by
+    ``nbody_tpu``'s rules; return the mesh size. `axes_error` and
+    `strategy_error` replace the messages for a mesh of other than one or
+    two axes and for a strategy other than auto / allgather / ring (the ds
+    system's texts, which also refuse ring_fused and sym as fp32 paths)."""
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if len(names) not in (1, 2):
+        raise ValueError(axes_error or f"a system shards over a 1-D body mesh "
+                         f"(parallel.make_mesh); got axes {names}")
+    if len(names) == 2:
+        raise not_ported("mesh", "2-D")
+    if strategy not in ("auto", "allgather", "ring"):
+        if strategy_error:
+            raise ValueError(strategy_error)
+        if strategy in ("ring_fused", "sym"):
+            raise not_ported("strategy", strategy)
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if mesh.device != device:
+        raise ValueError(f"the mesh's shards live on {mesh.device}, the system on {device}")
+    return int(mesh.size)
+
+
 class BodySystem:
     """Owns the (pos, vel) state and advances it with the selected backend."""
 
@@ -191,13 +230,13 @@ class BodySystem:
         p3m_capacity: Optional[int] = None,
         dtype=torch.float32,
         mesh=None,
+        strategy: str = "auto",
         config: NBodyConfig = NBodyConfig.SHELL,
         seed: int = 42,
         state: Optional[tuple] = None,
     ):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise not_ported("mesh", mesh)
+        ndev = 1 if mesh is None else check_mesh(mesh, self.device, strategy)
         if backend == "pm":
             raise not_ported("backend", backend)
         if backend == "p3m":
@@ -223,6 +262,20 @@ class BodySystem:
                 "integrator='hermite' needs the jerk of the exact pairwise "
                 "force, which the mesh solvers do not provide; use euler "
                 "or leapfrog with kernel='p3m'")
+        if mesh is not None:
+            # nbody_tpu/models/body_system.py:184-189, 229-236
+            if kernel == "p3m":
+                raise not_ported("mesh with kernel", "p3m", key="mesh")
+            if variant == "sym":
+                raise ValueError(
+                    "variant='sym' is single-device (the reaction "
+                    "accumulator is chip-local); for the each-pair-once "
+                    "saving on a mesh use strategy='sym' instead")
+            if placement == "host":
+                raise ValueError("placement='host' is a single-device placement; a mesh keeps "
+                                 "each shard in its device's memory")
+            if variant == "auto":
+                variant = "vpu"
         if variant == "auto":
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
         if dtype == torch.float64:
@@ -243,12 +296,24 @@ class BodySystem:
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
                            else check_block_size(block_size))
-        self.num_bodies = int(num_bodies)
+        # N rounded up so the body shards divide evenly (nbody_tpu's rule)
+        self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.params = params
         self.config = config
         self.seed = seed
+        self.mesh = mesh
+        self.strategy = strategy
+        self._sharded = None
+        if mesh is not None:
+            from nbody_tpu_torch.parallel import choose_strategy, make_sharded_step
 
-        shape = (self.num_bodies, 4)
+            if strategy == "auto":
+                self.strategy = choose_strategy(self.num_bodies, ndev)
+            self._sharded = make_sharded_step(
+                mesh, backend=backend, strategy=self.strategy, block_size=self.block_size,
+                variant=variant, integrator=integrator)
+
+        shape = (self.num_bodies // ndev, 4)
 
         def empty():
             return torch.empty(shape, dtype=torch.float32, device=self.device)
@@ -271,12 +336,18 @@ class BodySystem:
 
     def set_state(self, pos, vel) -> None:
         """Replace the state; arrays or tensors of (N,4), zero-mass padded up
-        to num_bodies."""
+        to num_bodies. On a mesh each rank keeps its own rows."""
         host = self.placement == "host"
         p, v = state_from_numpy(_as_numpy(pos), _as_numpy(vel),
-                                device="cpu" if host else self.device,
+                                device="cpu" if host or self.mesh is not None else self.device,
                                 num_bodies=self.num_bodies)
-        if host:
+        if self.mesh is not None:
+            from nbody_tpu_torch.parallel import shard_rows
+
+            rows = shard_rows(self.mesh, self.num_bodies)
+            self._pos[self._cur].copy_(p[rows])
+            self._vel[self._cur].copy_(v[rows])
+        elif host:
             self._host_pos.copy_(p)
             self._host_vel.copy_(v)
         else:
@@ -301,13 +372,22 @@ class BodySystem:
                 f"{overflow} bodies of this state; raise p3m_capacity "
                 f"(--p3m-capacity) or the mesh resolution (--pm-grid)")
 
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        from nbody_tpu_torch.parallel import all_gather_rows
+
+        return all_gather_rows(self.mesh, t)
+
     @property
     def state(self):
         """The current (pos, vel) tensors: the device buffers, valid until the
-        next step, or the host tensors for placement='host'."""
+        next step, or the host tensors for placement='host'; on a mesh the
+        whole state, gathered on the device."""
         if self.placement == "host":
             return self._host_pos, self._host_vel
-        return self._pos[self._cur], self._vel[self._cur]
+        pos, vel = self._pos[self._cur], self._vel[self._cur]
+        if self.mesh is not None:
+            return self._gather(pos), self._gather(vel)
+        return pos, vel
 
     @property
     def positions(self) -> np.ndarray:
@@ -388,7 +468,8 @@ class BodySystem:
         with variant mxu or mxu_bf16), else None (the one-sided or sym
         force)."""
         if (self.kernel == "auto" and self.integrator == "euler"
-                and self.variant in reference.MXU_VARIANTS):
+                and self.variant in reference.MXU_VARIANTS
+                and (self.mesh is None or self.strategy == "allgather")):
             return self.variant
         return None
 
@@ -397,7 +478,10 @@ class BodySystem:
         cur, nxt = self._cur, 1 - self._cur
         pos, vel = self._pos[cur], self._vel[cur]
         out = (self._pos[nxt], self._vel[nxt])
-        if self.integrator in ("leapfrog", "hermite"):
+        if self.mesh is not None:
+            for t, r in zip(out, self._sharded(pos, vel, dt, p.softening, p.damping)):
+                t.copy_(r)
+        elif self.integrator in ("leapfrog", "hermite"):
             if self.integrator == "leapfrog":
                 new_pos, new_vel = reference.nbody_step_leapfrog(
                     pos, vel, dt, p.softening, p.damping, accel_fn=self._accel)
@@ -489,8 +573,16 @@ class BodySystem:
         device. For the mxu variants with Euler it is the mxu step's own
         force: there is no force-only mxu kernel, so one fused step from zero
         velocities with dt = 1 and damping = 1, into the other ping-pong
-        buffers, leaves v' = a exactly."""
+        buffers, leaves v' = a exactly. On a mesh: each shard's force by the
+        mesh's strategy (the mxu one through the sharded step alike),
+        gathered."""
         pos = self._device_state()[0]
+        if self.mesh is not None:
+            soft = self.params.softening
+            if self.mxu_force is None:
+                return self._gather(self._sharded.accel(pos, soft))
+            vel = self._sharded(pos, torch.zeros_like(pos), 1.0, soft, 1.0)[1]
+            return self._gather(vel[:, :3].contiguous())
         if self.mxu_force is None:
             return self._accel(pos)
         nxt = 1 - self._cur
@@ -503,6 +595,9 @@ class BodySystem:
         """(acc, jerk), each (N,3), of the current state with this system's
         backend and variant (the accel + jerk kernels or the plain
         versions), on the device."""
+        if self.mesh is not None:
+            fields = self._sharded.accel_jerk(*self._device_state(), self.params.softening)
+            return tuple(self._gather(f) for f in fields)
         return self._accel_jerk(*self._device_state())
 
     def synchronize(self) -> None:
@@ -523,7 +618,7 @@ class BodySystem:
         soft = self.params.softening
         if precise:
             return total_energy_precise(*self.state, soft, device=self.device)
-        pos, vel = self._device_state()
+        pos, vel = self.state if self.mesh is not None else self._device_state()
         if self.backend == "cuda":
             per_row = potential_energy_per_row_cuda(pos, soft)
         else:

@@ -1,7 +1,7 @@
 """DSBodySystem: double-single (fp64-grade) simulation state on a torch
 device, and stepping.
 
-Counterpart of ``nbody_tpu/models/ds_system.py`` on one device. The state is
+Counterpart of ``nbody_tpu/models/ds_system.py``. The state is
 four (N,4) float32 planes, pos_hi, pos_lo, vel_hi and vel_lo, each value the
 unevaluated sum hi + lo (a ~49-bit significand); the public accessors speak
 float64. As in ``BodySystem``, two sets of planes are preallocated and a
@@ -27,8 +27,17 @@ the measured tables of ``ds_sym_default_dispatch`` and
 Integrators: "euler" (damped semi-implicit), "leapfrog" (the fused
 drift-kick-drift kernel) and "hermite" (4th-order P(EC): two ds accel +
 jerk evaluations a step around the ds predictor and corrector, one glue
-kernel each on the card, as ``nbody_step_pallas_ds_hermite``). A mesh
-comes with a later slice.
+kernel each on the card, as ``nbody_step_pallas_ds_hermite``).
+
+Meshes: with ``mesh=make_mesh(D)`` (a 1-D body mesh of ``parallel/``) each
+rank holds N/D bodies, N rounded up to a multiple of D, and steps them with
+``make_sharded_ds_step`` by ``strategy`` "allgather" (the planes gather,
+one fused one-sided kernel), "ring" (the ds accel-only kernel a hop) or
+"auto" (``choose_strategy``); the sharded step is one-sided, so
+``variant="auto"`` is "one_sided" there and "sym" raises, as in
+``nbody_tpu``. ``positions``, ``velocities``, ``state``, ``get_ds_state()``
+and the force accessors give the whole system on every rank;
+``set_state`` / ``set_ds_state`` take it and each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -40,10 +49,11 @@ import torch
 
 from nbody_tpu_torch import ic
 from nbody_tpu_torch.config import NBodyConfig
-from nbody_tpu_torch.models.body_system import _as_numpy, not_ported, resolve_device
+from nbody_tpu_torch.models.body_system import _as_numpy, check_mesh, resolve_device
 from nbody_tpu_torch.ops import ds
 from nbody_tpu_torch.ops.cuda_kernel import (
     check_block_size,
+    compute_accel_ds_cuda_vs,
     compute_accel_ds_symmetric_blocked_cuda,
     compute_accel_jerk_ds_cuda_vs,
     compute_accel_jerk_ds_symmetric_blocked_cuda,
@@ -77,13 +87,22 @@ class DSBodySystem:
         integrator: str = "euler",
         variant: str = "auto",
         mesh=None,
+        strategy: str = "auto",
         config: NBodyConfig = NBodyConfig.SHELL,
         seed: int = 42,
         state: Optional[tuple] = None,
     ):
         self.device = resolve_device(device)
+        ndev = 1
         if mesh is not None:
-            raise not_ported("mesh", mesh)
+            # nbody_tpu/models/ds_system.py:66-106
+            ndev = check_mesh(
+                mesh, self.device, strategy,
+                axes_error="DSBodySystem shards over a 1-D body mesh (make_sharded_ds_step) or "
+                f"a 2-D rows×cols mesh (make_sharded_ds_step_2d); got "
+                f"{tuple(getattr(mesh, 'axis_names', ()))}",
+                strategy_error="DSBodySystem strategy must be 'auto', 'allgather', or "
+                f"'ring' (got {strategy!r}); ring_fused/sym are fp32 mesh paths")
         if backend not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
@@ -97,21 +116,39 @@ class DSBodySystem:
         if variant == "sym" and integrator == "leapfrog":
             raise ValueError("variant='sym' applies to the euler and hermite ds steps (the "
                              "fused leapfrog kernel is one-sided)")
+        if variant == "sym" and mesh is not None:
+            raise ValueError(
+                "variant='sym' applies to the euler/hermite ds steps on "
+                "a single device (the sharded ds step is one-sided)")
         if variant == "auto":
-            variant = "one_sided" if integrator == "leapfrog" else "sym"
+            variant = "one_sided" if integrator == "leapfrog" or mesh is not None else "sym"
 
         self.backend = backend
         self.variant = variant
         self.integrator = integrator
-        self.num_bodies = int(num_bodies)
+        # N rounded up so the body shards divide evenly (nbody_tpu's rule)
+        self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.block_size = (ds_default_block_size(self.num_bodies) if block_size is None
                            else check_block_size(block_size))
         self.params = params
         self.config = config
         self.seed = seed
+        self.mesh = mesh
+        self.strategy = "allgather"
+        self._sharded = None
+        if mesh is not None:
+            from nbody_tpu_torch.parallel import choose_strategy, make_sharded_ds_step
+
+            self.strategy = (choose_strategy(self.num_bodies, ndev) if strategy == "auto"
+                             else strategy)
+            # one-sided kernels on the shard: their block size is the shard's
+            self._sharded = make_sharded_ds_step(
+                mesh, backend=backend, integrator=integrator, strategy=self.strategy,
+                block_size=block_size)
+        nloc = self.num_bodies // ndev
 
         def planes():
-            return [torch.empty((self.num_bodies, 4), dtype=torch.float32, device=self.device)
+            return [torch.empty((nloc, 4), dtype=torch.float32, device=self.device)
                     for _ in range(4)]
 
         # [current, next] sets of (pos_hi, pos_lo, vel_hi, vel_lo), and for
@@ -141,21 +178,38 @@ class DSBodySystem:
             v64 = np.pad(v64, ((0, pad), (0, 0)))
         self.set_ds_state(*ds.ds_from_f64(p64), *ds.ds_from_f64(v64))
 
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """`t`, a field of this rank's bodies, for the whole system: on a
+        mesh gathered from every rank, else `t` itself."""
+        if self.mesh is None:
+            return t
+        from nbody_tpu_torch.parallel import all_gather_rows
+
+        return all_gather_rows(self.mesh, t)
+
+    def _whole_planes(self):
+        return [self._whole(t) for t in self._planes[self._cur]]
+
     def get_ds_state(self):
         """The raw (pos_hi, pos_lo, vel_hi, vel_lo) float32 planes as host
         numpy arrays: the bit-exact checkpoint payload, in the layout of
         ``nbody_tpu``'s ``DSBodySystem.get_ds_state``."""
-        return tuple(t.detach().to("cpu", copy=True).numpy() for t in self._planes[self._cur])
+        return tuple(t.detach().to("cpu", copy=True).numpy() for t in self._whole_planes())
 
     def set_ds_state(self, pos_hi, pos_lo, vel_hi, vel_lo) -> None:
         """Restore raw hi/lo planes bit for bit (``get_ds_state``'s inverse;
         planes from ``nbody_tpu``'s ``get_ds_state`` load unchanged)."""
+        rows = slice(None)
+        if self.mesh is not None:
+            from nbody_tpu_torch.parallel import shard_rows
+
+            rows = shard_rows(self.mesh, self.num_bodies)
         for dst, src in zip(self._planes[self._cur], (pos_hi, pos_lo, vel_hi, vel_lo)):
             src = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src))
             if src.dtype != torch.float32 or tuple(src.shape) != (self.num_bodies, 4):
                 raise ValueError(f"ds planes must be float32 (N, 4) with N={self.num_bodies}; "
                                  f"got {src.dtype} {tuple(src.shape)}")
-            dst.copy_(src)
+            dst.copy_(src[rows])
 
     @property
     def state(self):
@@ -163,18 +217,18 @@ class DSBodySystem:
         the float32-visible state (``nbody_tpu``'s ``DSBodySystem.state``);
         valid until the next step."""
         planes = self._planes[self._cur]
-        return planes[0], planes[2]
+        return self._whole(planes[0]), self._whole(planes[2])
 
     @property
     def positions(self) -> np.ndarray:
         """(N, 4) float64 [x, y, z, m], hi + lo, on the host."""
         planes = self._planes[self._cur]
-        return ds.ds_to_f64(planes[0], planes[1])
+        return ds.ds_to_f64(self._whole(planes[0]), self._whole(planes[1]))
 
     @property
     def velocities(self) -> np.ndarray:
         planes = self._planes[self._cur]
-        return ds.ds_to_f64(planes[2], planes[3])
+        return ds.ds_to_f64(self._whole(planes[2]), self._whole(planes[3]))
 
     # ---- parameters ----
 
@@ -255,7 +309,10 @@ class DSBodySystem:
     def _step(self, scal) -> None:
         cur, nxt = self._cur, 1 - self._cur
         planes, out = self._planes[cur], self._planes[nxt]
-        if self.integrator == "hermite":
+        if self.mesh is not None:
+            for t, r in zip(out, self._sharded(*planes, scal)):
+                t.copy_(r)
+        elif self.integrator == "hermite":
             self._hermite_step(planes, scal, out)
         elif self.variant == "sym":
             acc = self._sym_accel(planes[0], planes[1], scal)
@@ -283,28 +340,32 @@ class DSBodySystem:
         """(acc_hi, acc_lo), each (N,3), of the current state on the device,
         with this system's kernels (or plain versions). With Hermite, the
         accel + jerk kernels'. For "sym" that is the each-pair-once
-        composition. The one-sided Euler and leapfrog variants have no
-        force-only kernel in this slice, so their fused step gives the
-        force: one step from zero velocities with dt = 1 and damping = 1
-        leaves v' = a exactly in ds (the leapfrog half-drift moves nothing
-        at zero velocity); the next step's buffers hold the result."""
+        composition; for the one-sided Euler and leapfrog variants the ds
+        accel kernel (``compute_accel_ds_cuda_vs``); on a mesh each shard's
+        force by the mesh's strategy, gathered."""
         planes = self._planes[self._cur]
+        scal = self._scal(1.0, 1.0)
         if self.integrator == "hermite":
             return self.accelerations_and_jerks()[:2]
+        if self.mesh is not None:
+            acc = self._sharded.accel(planes[0], planes[1], scal)
+            return tuple(self._whole(a) for a in acc)
         if self.variant == "sym":
-            return self._sym_accel(planes[0], planes[1], self._scal(1.0, 1.0))
-        zero = torch.zeros_like(planes[2])
-        out = self._planes[1 - self._cur]
-        self._fused_step((planes[0], planes[1], zero, zero.clone()), self._scal(1.0, 1.0), out)
-        return out[2][:, :3], out[3][:, :3]
+            return self._sym_accel(planes[0], planes[1], scal)
+        if self.backend == "cuda":
+            return compute_accel_ds_cuda_vs(planes[0], planes[1], planes[0], planes[1], scal,
+                                            block_size=self.block_size)
+        return ds.ds_accel_vs(planes[0], planes[1], planes[0], planes[1], scal)
 
     def accelerations_and_jerks(self):
         """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (N,3), of the current
         state on the device, with this system's variant of the accel + jerk
         kernels (or plain versions), as ``BodySystem.accelerations_and_jerks``
-        in ds."""
-        fields = self._accel_jerk(self._planes[self._cur], self._scal(1.0, 1.0))
-        return tuple(f[:, :3] for f in fields)
+        in ds; on a mesh each shard's by the mesh's strategy, gathered."""
+        planes, scal = self._planes[self._cur], self._scal(1.0, 1.0)
+        if self.mesh is not None:
+            return tuple(self._whole(f[:, :3]) for f in self._sharded.accel_jerk(*planes, scal))
+        return tuple(f[:, :3] for f in self._accel_jerk(planes, scal))
 
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""

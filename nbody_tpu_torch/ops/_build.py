@@ -148,8 +148,10 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_sym_accel.restype = ctypes.c_int
     lib.nbody_ds_sym_cross.argtypes = [ptr, ptr, i64, ptr, ptr, i64, ptr, i64] + [ptr] * 7
     lib.nbody_ds_sym_cross.restype = ctypes.c_int
-    lib.nbody_ds_integrate.argtypes = [ptr] * 10 + [i64, ptr, ptr]
+    lib.nbody_ds_integrate.argtypes = [ptr] * 6 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
     lib.nbody_ds_integrate.restype = ctypes.c_int
+    lib.nbody_ds_accel.argtypes = [ptr] * 6 + [i64, i64, ptr, i64, ptr]
+    lib.nbody_ds_accel.restype = ctypes.c_int
     lib.nbody_ds_accel_jerk.argtypes = [ptr] * 12 + [i64, i64, ptr, i64, ptr]
     lib.nbody_ds_accel_jerk.restype = ctypes.c_int
     lib.nbody_ds_aj_sym.argtypes = [ptr] * 4 + [i64, ptr, i64] + [ptr] * 6

@@ -18,7 +18,8 @@ shared-memory tile) in place of the Pallas ``tile_i`` / ``tile_j``; and of
 with one square ``tile`` of 128, 256, 512 or 1024 bodies, and the measured
 ``sym_default_dispatch`` / ``aj_sym_default_dispatch``; and of the ds
 kernels of ``nbody_tpu/ops/ds_kernel.py`` (``_ds_step_kernel``,
-``_ds_leapfrog_kernel``, ``_ds_sym_kernel``, ``_ds_sym_cross_kernel``) with
+``_ds_leapfrog_kernel``, ``_ds_accel_kernel``, ``_ds_sym_kernel``,
+``_ds_sym_cross_kernel``) with
 their ``ds_sym_default_dispatch``, and of the ds Hermite step's
 (``_ds_accel_jerk_kernel``, ``_ds_aj_sym_kernel``, ``_ds_aj_sym_cross_kernel``)
 with ``ds_aj_sym_default_dispatch``; and of the P3M short-range pair
@@ -52,7 +53,8 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "sym": 0, "sym_cross": 0, "accel_jerk": 0, "potential": 0, "aj_sym": 0,
             "aj_sym_cross": 0,
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
-            "ds_integrate": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0, "ds_aj_sym_cross": 0,
+            "ds_integrate": 0, "ds_accel": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0,
+            "ds_aj_sym_cross": 0,
             "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
@@ -857,18 +859,40 @@ def compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal, *,
         add=ds.ds_add)
 
 
+def _acc_stride(names, fields, n: int, device) -> int:
+    """The row stride, 3 or 4 floats, of ds acceleration fields (N,3): each
+    contiguous, or the (N,3) view of a contiguous (N,4) tensor (the rows of
+    ``compute_accel_ds_cuda_vs``), all with one stride."""
+    strides = set()
+    for name, t in zip(names, fields):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 torch.Tensor")
+        if tuple(t.shape) != (n, 3):
+            raise ValueError(f"{name} must have shape {(n, 3)}; got {tuple(t.shape)}")
+        stride = 3 if n <= 1 and t.is_contiguous() else t.stride(0)
+        if t.stride(1) != 1 or stride not in (3, 4):
+            raise ValueError(f"{name} must have rows of 3 floats, 3 or 4 floats apart")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        strides.add(stride)
+    if len(strides) > 1:
+        raise ValueError(f"{', '.join(names)} must have one row stride")
+    return strides.pop() if strides else 3
+
+
 def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, out=None):
-    """The damped Euler update in ds after the each-pair-once force (one
+    """The damped Euler update in ds after a force-only evaluation (one
     launch of ``ds_integrate_kernel``, csrc/ds_symmetric_kernels.cu; glue,
     not a TPU kernel): the four new (N,4) planes from the state and the ds
-    acceleration (N,3). Its plain version is ``ds.ds_integrate``."""
+    acceleration (N,3), whose rows may be 3 floats apart (the each-pair-once
+    composition) or 4 (the ds accel kernel). Its plain version is
+    ``ds.ds_integrate``."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     _check_planes(_PLANES, planes, device)
     _check_scal(scal)
     n = pos_hi.shape[0]
-    for name, t in (("acc_hi", acc_hi), ("acc_lo", acc_lo)):
-        _check_out(name, t, (n, 3), device, ())
+    stride = _acc_stride(("acc_hi", "acc_lo"), (acc_hi, acc_lo), n, device)
     out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, acc_hi, acc_lo))
     if device.type != "cuda":
         for t, r in zip(out, ds.ds_integrate(*planes, (acc_hi, acc_lo), scal)):
@@ -882,11 +906,51 @@ def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, o
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.nbody_ds_integrate(
-            *(t.data_ptr() for t in (*planes, acc_hi, acc_lo, *out)), n, scal.data_ptr(),
+            *(t.data_ptr() for t in (*planes, acc_hi, acc_lo)), stride,
+            *(t.data_ptr() for t in out), n, scal.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_ds_integrate launch")
     LAUNCHES["ds_integrate"] += 1
     return out
+
+
+def compute_accel_ds_cuda_vs(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, *,
+                             block_size: int | None = None, out=None):
+    """(acc_hi, acc_lo), each (M,3): the ds acceleration of the i-set (M,4
+    planes) under the j-set (N,4 planes), the kernel of
+    ``_ds_accel_kernel`` (``compute_accel_pallas_ds``). The kernel writes
+    (M,4) rows with w = 0 into ``out``, two preallocated (M,4) tensors that
+    must not overlap any input (allocated when None), and this returns their
+    (M,3) views, the shape of its plain version ``ds.ds_accel_vs``; rows 4
+    floats apart, as ``ds_integrate_cuda`` takes them. `scal` is a (2,4) or
+    (2,8) block of ops/ds.py, eps^2 in column 1. ``block_size`` defaults to
+    ``ds_default_block_size``."""
+    device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
+    _check_planes(_PLANES[:2], (pos_hi, pos_lo), device)
+    _check_planes(("jpos_hi", "jpos_lo"), (jpos_hi, jpos_lo), device)
+    _check_scal(scal, (4, 8))
+    m, n = pos_hi.shape[0], jpos_hi.shape[0]
+    bs = check_block_size(ds_default_block_size(m) if block_size is None else block_size)
+    out = _ds_outs(out, [(m, 4)] * 2, device, (pos_hi, pos_lo, jpos_hi, jpos_lo))
+    if device.type != "cuda":
+        for t, r in zip(out, ds.ds_accel_vs(pos_hi, pos_lo, jpos_hi, jpos_lo, scal)):
+            t[:, :3] = r
+            t[:, 3] = 0.0
+        return out[0][:, :3], out[1][:, :3]
+    if m == 0:
+        return out[0][:, :3], out[1][:, :3]
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    head = _eps_block(scal)
+    with torch.cuda.device(device):
+        err = lib.nbody_ds_accel(
+            *(t.data_ptr() for t in (pos_hi, pos_lo, jpos_hi, jpos_lo, *out)), m, n,
+            head.data_ptr(), bs, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_ds_accel launch")
+    LAUNCHES["ds_accel"] += 1
+    return out[0][:, :3], out[1][:, :3]
 
 
 # ---- double-single accel + jerk and the Hermite glue:

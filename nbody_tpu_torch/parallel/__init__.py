@@ -1,0 +1,47 @@
+"""Body-sharded meshes and steps on torch.distributed.
+
+Counterpart of ``nbody_tpu/parallel``: positions and velocities sharded by
+bodies over a 1-D mesh of ranks, one rank a device, with NCCL collectives
+on the card (gloo on the CPU) each step. It exports what ``nbody_tpu``'s
+package exports; the 2-D decompositions and the sharded adaptive rollouts
+raise, naming the ROADMAP.md item that brings them.
+"""
+
+from nbody_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    make_mesh,
+    make_mesh_2d,
+    pad_to_multiple,
+    shard_rows,
+    shard_state,
+)
+from nbody_tpu_torch.parallel.multihost import initialize_multihost, is_multihost
+from nbody_tpu_torch.parallel.sharded import (
+    choose_strategy,
+    make_sharded_ds_adaptive_rollout,
+    make_sharded_ds_adaptive_rollout_2d,
+    make_sharded_ds_step,
+    make_sharded_ds_step_2d,
+    make_sharded_step,
+    make_sharded_step_2d,
+)
+
+__all__ = [
+    "Mesh",
+    "all_gather_rows",
+    "make_mesh",
+    "make_mesh_2d",
+    "pad_to_multiple",
+    "shard_rows",
+    "shard_state",
+    "choose_strategy",
+    "make_sharded_step",
+    "make_sharded_ds_adaptive_rollout",
+    "make_sharded_ds_adaptive_rollout_2d",
+    "make_sharded_ds_step",
+    "make_sharded_ds_step_2d",
+    "make_sharded_step_2d",
+    "initialize_multihost",
+    "is_multihost",
+]

@@ -1,0 +1,133 @@
+"""The body mesh on torch.distributed, and state sharding helpers.
+
+Counterpart of ``nbody_tpu/parallel/mesh.py``. A JAX mesh is a grid of
+devices that one program addresses; here a mesh is the default process
+group, one process (rank) per device, and each rank holds its own shard of
+the bodies. ``Mesh`` records what a sharded step needs: the axis name, the
+number of ranks, this rank, the group and the device its shard lives on.
+
+A CUDA mesh runs on NCCL, a CPU mesh on gloo; neither falls back to the
+other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+BODY_AXIS = "bodies"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D body mesh: `size` ranks of `group`, this process `rank`, its
+    shard on `device`. ``axis_names`` and ``shape`` read as a JAX mesh's."""
+
+    axis: str
+    size: int
+    rank: int
+    group: object
+    device: torch.device
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis,)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.size}
+
+
+def _backend_for(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def make_mesh(num_devices: int | None = None, *, axis: str = BODY_AXIS, device=None) -> Mesh:
+    """1-D body mesh over the ranks of the default process group, one rank
+    a device. `device` is this rank's device: by default the current CUDA
+    device under NCCL and the CPU under gloo. With no group started and
+    `num_devices` None or 1, a one-rank group is started over a
+    ``HashStore``: NCCL on a CUDA device (the default), gloo on the CPU.
+    Raises, as ``nbody_tpu`` does, when more devices are requested than the
+    group has ranks; fewer is an error too, since a rank is one device."""
+    from nbody_tpu_torch.models.body_system import resolve_device
+
+    if not dist.is_initialized():
+        if num_devices not in (None, 1):
+            raise ValueError(
+                f"requested {num_devices} devices but only 1 available (one process; "
+                f"start {num_devices} with torchrun --nproc_per_node {num_devices})")
+        device = resolve_device("cuda" if device is None else device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(_backend_for(device), store=dist.HashStore(), rank=0,
+                                world_size=1)
+    world = dist.get_world_size()
+    if num_devices is not None and num_devices > world:
+        raise ValueError(f"requested {num_devices} devices but only {world} available")
+    if num_devices is not None and num_devices < world:
+        raise ValueError(
+            f"requested {num_devices} devices but the process group has {world} ranks, "
+            "one a device; start one process per device of the mesh")
+    backend = dist.get_backend()
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device()) if backend == "nccl"
+                  else torch.device("cpu"))
+    device = resolve_device(device)
+    if backend != _backend_for(device):
+        raise ValueError(
+            f"a mesh on {device} needs the {_backend_for(device)} backend; the process "
+            f"group runs {backend}")
+    return Mesh(axis=axis, size=world, rank=dist.get_rank(), group=dist.group.WORLD,
+                device=device)
+
+
+def shard_rows(mesh: Mesh, n: int) -> slice:
+    """The rows of an N-body state that this rank holds. N must divide
+    evenly by the mesh size (pad_to_multiple first; zero-mass padding bodies
+    exert no force)."""
+    if n % mesh.size:
+        raise ValueError(f"N={n} not divisible by {mesh.size} devices; pad first")
+    nloc = n // mesh.size
+    return slice(mesh.rank * nloc, (mesh.rank + 1) * nloc)
+
+
+def shard_state(mesh: Mesh, pos, vel):
+    """This rank's shard of (pos, vel), (N,4) arrays or tensors, as float32
+    tensors on the mesh's device."""
+    rows = shard_rows(mesh, pos.shape[0])
+    return tuple(torch.as_tensor(a[rows], dtype=torch.float32).to(mesh.device).contiguous()
+                 for a in (pos, vel))
+
+
+def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The shards `x` (nloc, ...) of every rank, concatenated in rank order:
+    a tiled all-gather along rows (``jax.lax.all_gather(..., tiled=True)``).
+    Synchronous: on the card, the current stream waits for it."""
+    x = x.contiguous()
+    out = x.new_empty((mesh.size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.group)
+    return out
+
+
+def make_mesh_2d(rows: int, cols: int, *, axes=("rows", "cols")):
+    """The 2-D (rows x cols) mesh of the i-block x j-block decomposition is
+    not ported yet."""
+    from nbody_tpu_torch.models.body_system import not_ported
+
+    raise not_ported("mesh", f"{rows}x{cols}")
+
+
+def pad_to_multiple(pos, vel, multiple: int):
+    """Zero-mass-pad state so N is a multiple (shards and tiles both need it).
+
+    Returns (pos, vel, original_n)."""
+    n = pos.shape[0]
+    n_pad = ((n + multiple - 1) // multiple) * multiple
+    if n_pad == n:
+        return pos, vel, n
+    pad = ((0, n_pad - n), (0, 0))
+    return np.pad(np.asarray(pos), pad), np.pad(np.asarray(vel), pad), n

@@ -1,0 +1,368 @@
+"""Body-sharded N-body steps over a torch.distributed mesh.
+
+Counterpart of the 1-D part of ``nbody_tpu/parallel/sharded.py``: each rank
+holds N/D bodies (its i-shard) and computes their forces from every body.
+Two strategies move the j-bodies:
+
+* ``allgather``: one all-gather of the shards' planes, then one kernel
+  launch of the local i-shard against the whole j-set (for Euler the fused
+  step, for ds leapfrog the fused drift-kick-drift step).
+* ``ring``: the j-shard travels around the ring. Rank r sends to r+1 and
+  receives from r−1 (the reference's ``perm = [(d, (d+1) % D)]``), so at
+  hop k it holds rank (r−k)'s shard. Hop 0, the local shard, runs before
+  any exchange and exactly D−1 exchanges follow. The partial forces are
+  summed in hop order, ``acc + a_k`` in fp32 and ``ds_add(acc, a_k)`` in ds,
+  as the reference sums them, so the bits follow its ring. Each exchange is
+  a paired isend/irecv (``batch_isend_irecv``) into the other of two
+  buffers, posted before the current hop's kernel so that the transfer
+  overlaps it; it is waited on before the received shard is read. A ds
+  ring hop is the ds accel-only kernel (``compute_accel_ds_cuda_vs``), or
+  for Hermite the ds accel + jerk kernel, and the integration runs once
+  after the last hop.
+
+``make_sharded_step`` also takes ``auto``, one of the two by
+``choose_strategy``, as ``nbody_tpu``'s does; the systems resolve ``auto``
+themselves for both precisions. The collectives are
+torch.distributed's synchronous ones (on the card NCCL makes the current
+stream wait for them) and every rank runs the same ones in the same order.
+A step is a function of this rank's shard:
+``step(pos, vel, dt, softening, damping) -> (pos, vel)`` in fp32,
+``step(pos_hi, pos_lo, vel_hi, vel_lo, scal) -> four planes`` in ds, new
+tensors each time. ``backend`` is "cuda" (the hand-written kernels; on a
+CPU tensor their wrappers take the plain versions) or "torch" (the plain
+versions, on any device).
+
+Not ported yet, each naming its ROADMAP.md item: ``strategy="ring_fused"``
+(the one-program ring kernel), ``strategy="sym"`` (each pair once across
+the mesh), the 2-D decompositions and the sharded adaptive rollouts.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from nbody_tpu_torch.ops import cuda_kernel as ck
+from nbody_tpu_torch.ops import ds, reference
+from nbody_tpu_torch.parallel.mesh import Mesh, all_gather_rows
+
+BODY_AXIS = "bodies"
+
+# strategy="auto": nbody_tpu's cost model, copied as it is for parity
+# (nbody_tpu/parallel/sharded.py:49-81). Both strategies move the same
+# bytes; the ring hides the transfer behind the hop's force tile but pays a
+# latency per hop, so it wins once a shard is large enough. The constant is
+# the reference's rule for TPU ICI links (45 GB/s a link, ~5 µs a hop); it
+# was not measured on NVLink or on this card.
+RING_AUTO_MIN_SHARD = 16384
+
+
+def choose_strategy(num_bodies: int, ndev: int) -> str:
+    """'ring' or 'allgather' for a global body count on an ndev ring (the
+    cost model above); ring_fused is never picked."""
+    if ndev <= 1:
+        return "allgather"
+    return "ring" if num_bodies // ndev >= RING_AUTO_MIN_SHARD else "allgather"
+
+
+def _not_ported(option: str, value) -> ValueError:
+    from nbody_tpu_torch.models.body_system import not_ported
+
+    return not_ported(option, value)
+
+
+def _check_backend(backend: str, mesh: Mesh) -> str:
+    if backend == "auto":
+        return "cuda" if mesh.device.type == "cuda" else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
+
+def _ring(mesh: Mesh, shard: torch.Tensor):
+    """The j-shards of the ring in hop order: `shard` (this rank's, hop 0),
+    then at hop k the shard of rank r−k. A generator: the exchange of hop
+    k+1 is posted before hop k's shard is handed out, and waited on after
+    the caller is done with it; the received shards alternate between two
+    buffers, so a buffer is never written while it is read."""
+    d = mesh.size
+    send_to, recv_from = (mesh.rank + 1) % d, (mesh.rank - 1) % d
+    cur, bufs = shard, []
+    for k in range(d):
+        reqs = []
+        if k < d - 1:
+            if len(bufs) < 2:
+                bufs.append(torch.empty_like(shard))
+            nxt = bufs[k % 2]
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, cur, send_to, mesh.group),
+                dist.P2POp(dist.irecv, nxt, recv_from, mesh.group),
+            ])
+        yield cur
+        for req in reqs:
+            req.wait()
+        if reqs:
+            cur = nxt
+
+
+def _gather_planes(mesh: Mesh, *planes) -> torch.Tensor:
+    """The (nloc,4) planes of every rank, gathered in one collective: a
+    (k, N, 4) tensor of the k planes."""
+    packed = torch.stack(planes, 1)  # (nloc, k, 4): one row a body
+    return all_gather_rows(mesh, packed).transpose(0, 1).contiguous()
+
+
+def _ring_sum(mesh: Mesh, shard: torch.Tensor, partial, add):
+    """Σ over the hops of partial(j-shard), summed in hop order by `add`."""
+    total = None
+    for j in _ring(mesh, shard):
+        part = partial(j)
+        total = part if total is None else add(total, part)
+    return total
+
+
+def _resolve(strategy: str, mesh: Mesh, nloc: int) -> str:
+    return choose_strategy(nloc * mesh.size, mesh.size) if strategy == "auto" else strategy
+
+
+class ShardedStep:
+    """The fp32 body-sharded step of ``make_sharded_step``; also gives the
+    force (``accel``) and the Hermite evaluation (``accel_jerk``) of this
+    rank's shard under the whole body set, by the same strategy."""
+
+    def __init__(self, mesh: Mesh, *, backend: str, strategy: str, block_size: int,
+                 variant: str, integrator: str):
+        self.mesh = mesh
+        self.backend = backend
+        self.strategy = strategy
+        self.block_size = block_size
+        self.variant = variant
+        self.integrator = integrator
+
+    def _ring_on(self, pos) -> bool:
+        return _resolve(self.strategy, self.mesh, pos.shape[0]) == "ring"
+
+    def _accel_vs(self, pos_i, pos_j, soft):
+        if self.backend == "cuda":
+            return ck.compute_accel_cuda(pos_i, pos_j, soft, block_size=self.block_size)
+        return reference.compute_accel_vs(pos_i, pos_j, soft)
+
+    def _aj_vs(self, pos_i, vel_i, pos_j, vel_j, soft):
+        if self.backend == "cuda":
+            return ck.compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, soft,
+                                              block_size=self.block_size)
+        return reference.compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, soft)
+
+    def _step_vs(self, pos, vel, pos_j, dt, soft, damp):
+        """The fused Euler step of the i-shard under the gathered j-set, in
+        the variant's kernel (nbody_tpu/parallel/sharded.py:458-467)."""
+        if self.variant in reference.MXU_VARIANTS:
+            if self.backend == "cuda":
+                return ck.nbody_step_mxu_cuda_vs(pos, vel, pos_j, dt, soft, damp,
+                                                 variant=self.variant)
+            return reference.nbody_step_mxu_vs(pos, vel, pos_j, dt, soft, damp,
+                                               mxu_dtype=reference.MXU_DTYPES[self.variant])
+        if self.backend == "cuda":
+            return ck.nbody_step_cuda_vs(pos, vel, pos_j, dt, soft, damp,
+                                         block_size=self.block_size)
+        return reference.nbody_step_vs(pos, vel, pos_j, dt, soft, damp)
+
+    def accel(self, pos, softening):
+        """(nloc,3) acceleration of the shard `pos` from every body."""
+        if self._ring_on(pos):
+            return _ring_sum(self.mesh, pos, lambda j: self._accel_vs(pos, j, softening),
+                             torch.add)
+        return self._accel_vs(pos, all_gather_rows(self.mesh, pos), softening)
+
+    def accel_jerk(self, pos, vel, softening):
+        """(acc, jerk), each (nloc,3), of the shard from every body: the
+        positions and velocities travel together."""
+        if self._ring_on(pos):
+            return _ring_sum(self.mesh, torch.stack((pos, vel)),
+                             lambda j: self._aj_vs(pos, vel, j[0], j[1], softening),
+                             lambda x, y: (x[0] + y[0], x[1] + y[1]))
+        j = _gather_planes(self.mesh, pos, vel)
+        return self._aj_vs(pos, vel, j[0], j[1], softening)
+
+    def __call__(self, pos, vel, dt, softening, damping):
+        if self.integrator == "hermite":
+            return reference.nbody_step_hermite(
+                pos, vel, dt, softening, damping,
+                accel_jerk_fn=lambda p, v: self.accel_jerk(p, v, softening))
+        if self.integrator == "leapfrog":
+            return reference.nbody_step_leapfrog(pos, vel, dt, softening, damping,
+                                                 accel_fn=lambda p: self.accel(p, softening))
+        if self._ring_on(pos):
+            return reference.integrate(pos, vel, self.accel(pos, softening), dt, damping)
+        return self._step_vs(pos, vel, all_gather_rows(self.mesh, pos), dt, softening, damping)
+
+
+def make_sharded_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto",
+                      strategy: str = "allgather", block_size: int | None = None,
+                      variant: str = "vpu", integrator: str = "euler") -> ShardedStep:
+    """The fp32 body-sharded step: (pos, vel, dt, softening, damping) ->
+    (pos, vel), each this rank's (N/D, 4) shard.
+
+    backend: "cuda", "torch" or "auto" (the mesh device's). strategy:
+    "allgather", "ring" or "auto" (``choose_strategy`` by shard size).
+    variant: the kernel of the allgather Euler step, "vpu", "mxu" or
+    "mxu_bf16"; the ring, leapfrog and Hermite run the one-sided force
+    kernels, as in ``nbody_tpu``. integrator: "euler", "leapfrog" (the shard
+    drifts dt/2 first and the half-step positions are the j-side) or
+    "hermite" (two accel + jerk evaluations a step, positions and
+    velocities travelling together)."""
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    if integrator not in ("euler", "leapfrog", "hermite"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if strategy in ("ring_fused", "sym"):
+        raise _not_ported("strategy", strategy)
+    if strategy not in ("allgather", "ring", "auto"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if variant not in ("vpu", *reference.MXU_VARIANTS):
+        raise ValueError(f"unknown kernel variant {variant!r} for a sharded step "
+                         "(vpu, mxu or mxu_bf16)")
+    return ShardedStep(mesh, backend=_check_backend(backend, mesh), strategy=strategy,
+                       block_size=ck.DEFAULT_BLOCK_SIZE if block_size is None
+                       else ck.check_block_size(block_size),
+                       variant=variant, integrator=integrator)
+
+
+class ShardedDSStep:
+    """The ds body-sharded step of ``make_sharded_ds_step``; also gives the
+    ds force (``accel``) and the ds Hermite evaluation (``accel_jerk``) of
+    this rank's shard under the whole body set, by the same strategy."""
+
+    def __init__(self, mesh: Mesh, *, backend: str, strategy: str, block_size: int | None,
+                 integrator: str):
+        self.mesh = mesh
+        self.backend = backend
+        self.strategy = strategy
+        self.block_size = block_size
+        self.integrator = integrator
+
+    def _bs(self, m: int) -> int:
+        return ck.ds_default_block_size(m) if self.block_size is None else self.block_size
+
+    def _accel_vs(self, ph, plo, jh, jl, scal):
+        if self.backend == "cuda":
+            return ck.compute_accel_ds_cuda_vs(ph, plo, jh, jl, scal,
+                                               block_size=self._bs(ph.shape[0]))
+        return ds.ds_accel_vs(ph, plo, jh, jl, scal)
+
+    def _aj_vs(self, planes, jplanes, scal):
+        if self.backend == "cuda":
+            return ck.compute_accel_jerk_ds_cuda_vs(*planes, *jplanes, scal,
+                                                    block_size=self._bs(planes[0].shape[0]))
+        return ds.ds_accel_jerk_vs(*planes, *jplanes, scal)
+
+    def accel(self, ph, plo, scal):
+        """(acc_hi, acc_lo), each (nloc,3), of the shard from every body."""
+        if self.strategy == "ring":
+            return _ring_sum(self.mesh, torch.stack((ph, plo)),
+                             lambda j: self._accel_vs(ph, plo, j[0], j[1], scal), ds.ds_add)
+        j = _gather_planes(self.mesh, ph, plo)
+        return self._accel_vs(ph, plo, j[0], j[1], scal)
+
+    def accel_jerk(self, ph, plo, vh, vlo, scal):
+        """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (nloc,4) with w = 0, of
+        the shard from every body: the four planes travel together."""
+        planes = (ph, plo, vh, vlo)
+        if self.strategy == "ring":
+            return _ring_sum(self.mesh, torch.stack(planes),
+                             lambda j: self._aj_vs(planes, tuple(j), scal), ds.ds_add_aj)
+        return self._aj_vs(planes, tuple(_gather_planes(self.mesh, *planes)), scal)
+
+    def _integrate(self, planes, acc, scal):
+        if self.backend == "cuda":
+            return ck.ds_integrate_cuda(*planes, *acc, scal)
+        return ds.ds_integrate(*planes, acc, scal)
+
+    def _hermite(self, planes, scal):
+        """ds Hermite P(EC): accel + jerk of the shard, the predictor on the
+        shard, accel + jerk of the predicted state (gathered or travelling
+        anew: a prediction exists only where its shard's a0 and j0 are),
+        the corrector."""
+        f0 = self.accel_jerk(*planes, scal)
+        if self.backend == "cuda":
+            pred = ck.ds_hermite_predict_cuda(*planes, *f0, scal)
+            return ck.ds_hermite_correct_cuda(*planes, *f0, *self.accel_jerk(*pred, scal), scal)
+        pred = ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal)
+        f1 = self.accel_jerk(*pred, scal)
+        return ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:], scal)
+
+    def __call__(self, ph, plo, vh, vlo, scal):
+        planes = (ph, plo, vh, vlo)
+        if self.integrator == "hermite":
+            return self._hermite(planes, scal)
+        ring = self.strategy == "ring"
+        if self.integrator == "leapfrog":
+            if ring:
+                # every shard half-drifts once and the drifted positions
+                # travel: two planes on the ring instead of four
+                hh, hl = ds.ds_half_drift(*planes, scal)
+                return ds.ds_leapfrog_finish(hh, hl, vh, vlo, self.accel(hh, hl, scal), scal)
+            j = _gather_planes(self.mesh, *planes)
+            if self.backend == "cuda":
+                return ck.nbody_step_ds_leapfrog_cuda_vs(*planes, *j, scal,
+                                                         block_size=self._bs(ph.shape[0]))
+            return ds.nbody_step_ds_leapfrog_vs(*planes, *j, scal)
+        if ring:
+            return self._integrate(planes, self.accel(ph, plo, scal), scal)
+        j = _gather_planes(self.mesh, ph, plo)
+        if self.backend == "cuda":
+            return ck.nbody_step_ds_cuda_vs(*planes, j[0], j[1], scal,
+                                            block_size=self._bs(ph.shape[0]))
+        return ds.nbody_step_ds_vs(*planes, j[0], j[1], scal)
+
+
+def make_sharded_ds_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto",
+                         block_size: int | None = None, integrator: str = "euler",
+                         strategy: str = "allgather") -> ShardedDSStep:
+    """The double-single (fp64-grade) body-sharded step: (pos_hi, pos_lo,
+    vel_hi, vel_lo, scal) -> the four new planes, each this rank's (N/D, 4)
+    shard; `scal` is the host block of ops/ds.py for the integrator
+    (``scal_ds``, ``scal_ds_leapfrog``, ``scal_ds_hermite``).
+
+    allgather: the planes gather (hi and lo positions for Euler, also the
+    velocities for leapfrog, whose fused kernel half-drifts both sides),
+    one fused one-sided ds kernel launch. ring: one ds accel-only launch a
+    hop, the partials summed in anchored ds (``ds_add``) in hop order, then
+    the ds Euler update or the leapfrog finish once (leapfrog half-drifts
+    every shard once first and the drifted planes travel). Hermite: two
+    rounds a step, each gathering or ring-rotating the four planes with ds
+    (acc, jerk) partials, around the ds predictor and corrector. block_size
+    defaults to ``ds_default_block_size`` of the shard."""
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    if integrator not in ("euler", "leapfrog", "hermite"):
+        raise ValueError(
+            f"make_sharded_ds_step: integrator must be 'euler', "
+            f"'leapfrog', or 'hermite', got {integrator!r}")
+    if strategy not in ("allgather", "ring"):
+        raise ValueError(
+            f"make_sharded_ds_step: strategy must be 'allgather' or "
+            f"'ring', got {strategy!r}")
+    return ShardedDSStep(mesh, backend=_check_backend(backend, mesh), strategy=strategy,
+                         block_size=None if block_size is None
+                         else ck.check_block_size(block_size),
+                         integrator=integrator)
+
+
+def make_sharded_step_2d(*args, **kwargs):
+    """The 2-D (rows x cols) force decomposition: not ported yet."""
+    raise _not_ported("mesh", "2-D")
+
+
+def make_sharded_ds_step_2d(*args, **kwargs):
+    """The ds 2-D (rows x cols) decomposition: not ported yet."""
+    raise _not_ported("mesh", "2-D")
+
+
+def make_sharded_ds_adaptive_rollout(*args, **kwargs):
+    """The sharded ds adaptive rollout: not ported yet (it needs the
+    adaptive steps)."""
+    raise _not_ported("adaptive", True)
+
+
+make_sharded_ds_adaptive_rollout_2d = make_sharded_ds_adaptive_rollout

@@ -4,6 +4,7 @@ The port keeps its own copies of the numpy modules, so each package gets
 its own NBodyParams and NBodyConfig; the two are compared by value."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -162,7 +163,8 @@ def test_cpu_backend_launches_no_kernel(params, state):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"mesh": object()}, "#13"),
+    # a mesh is ported (tests/test_torch_sharded.py); its 2-D form is not
+    ({"mesh": types.SimpleNamespace(axis_names=("rows", "cols"))}, "#13"),
     ({"backend": "pm"}, "#10"),
     ({"kernel": "pm"}, "#10"),
     ({"integrator": "hermite", "dtype": torch.float64}, "#5"),

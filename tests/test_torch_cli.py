@@ -57,13 +57,36 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--fp64"], ["--devices", "2"], ["--kernel", "xla"],
+@pytest.mark.parametrize("flag", [["--fp64"],
+                                  # was --devices 2, which the mesh slice brought
+                                  ["--adaptive-dt"],
+                                  ["--kernel", "xla"],
                                   ["--render"], ["--energy"],
                                   ["--config", "plummer"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("args, message", [
+    (["--devices", "2"], "requested 2 devices but only 1 available"),
+    (["--devices", "2", "--precision", "ds"], "requested 2 devices but only 1 available"),
+    (["--devices", "0"], "--devices must be at least 1"),
+    (["--strategy", "sym"], "ROADMAP.md Queue 1 #13"),
+    (["--strategy", "ring_fused", "--devices", "2"], "ROADMAP.md Queue 2 #20"),
+    (["--mesh-rows", "2", "--devices", "4"], "ROADMAP.md Queue 1 #13"),
+])
+def test_mesh_flags_outside_a_matching_world_exit_2(args, message, capsys):
+    # one process, no torchrun: the world is this process alone
+    assert main(["--qatest", "--numbodies", "64", "--cpu", *args]) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_devices_1_builds_no_mesh(capsys):
+    assert main(["--qatest", "--numbodies", "64", "--cpu", "--devices", "1",
+                 "--strategy", "ring"]) == 0
+    assert "mesh" not in capsys.readouterr().out
 
 
 def test_hermite_qatest_on_cpu(capsys):
@@ -104,9 +127,9 @@ def test_drift_check_needs_a_step(capsys):
 
 def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
-    leapfrog path, the sym Hermite drift check, the ds path and a tipsy file
-    without JAX and without any module of nbody_tpu: the port keeps its own
-    copies."""
+    leapfrog path, the sym Hermite drift check, the ds path and a tipsy file,
+    and a ds ring step on a one-rank gloo mesh, without JAX and without any
+    module of nbody_tpu: the port keeps its own copies."""
     code = (
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
@@ -122,6 +145,12 @@ def test_port_imports_no_jax(tmp_path):
         "'--cpu', '--integrator', 'leapfrog'])\n"
         "write_tipsy_file(sys.argv[1], *ic.generate(NBodyConfig.SHELL, 100, 1.52, 2.0))\n"
         "rc |= nbody_tpu_torch.cli.main(['--qatest', '--cpu', '--tipsy', sys.argv[1]])\n"
+        "from nbody_tpu_torch.parallel import make_mesh\n"
+        "from nbody_tpu_torch.models import DSBodySystem\n"
+        "s = DSBodySystem(64, nbody_tpu_torch.DEMO_PARAMS[0], device='cpu', strategy='ring', "
+        "mesh=make_mesh(1, device='cpu'))\n"
+        "s.update()\n"
+        "assert s.strategy == 'ring' and s.positions.shape == (64, 4)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'nbody_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'nbody_tpu.')))\n"
         "assert not bad, bad\n"

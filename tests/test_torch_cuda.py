@@ -595,7 +595,112 @@ def test_ds_wrappers_refuse_bad_arguments_before_launch(dev):
         cuda_kernel.nbody_step_ds_leapfrog_cuda(planes[0], planes[1][:100], *planes[2:], scal)
     with pytest.raises(ValueError, match="overlaps"):
         cuda_kernel.nbody_step_ds_cuda(*planes, scal, out=(planes[0], *planes[1:]))
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernel.compute_accel_ds_cuda_vs(bad, planes[1], planes[0], planes[1], scal)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_kernel.compute_accel_ds_cuda_vs(planes[0], planes[1][:100], planes[0], planes[1],
+                                             scal)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_kernel.ds_integrate_cuda(*planes, torch.zeros(256, 5, device=dev)[:, :3],
+                                      torch.zeros(256, 5, device=dev)[:, :3], scal)
     assert cuda_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m, n", [(4099, 4099), (777, 4099), (4099, 16384)])
+def test_ds_accel_kernel_matches_plain_and_oracle(dev, m, n):
+    """The ds accel-only kernel of the ring step at i != j shapes, N not a
+    multiple of the block: (M,3) views of (M,4) rows with w = 0, held to
+    plain and to the float64 oracle, a repeat bit-equal."""
+    from nbody_tpu_torch.ops import ds
+
+    planes, pos64 = _ds_planes(n, dev)
+    scal = ds.scal_ds(DT, SOFT, 0.5)
+    before = dict(cuda_kernel.LAUNCHES)
+    out = tuple(torch.full((m, 4), 7.0, device=dev) for _ in range(2))
+    got = cuda_kernel.compute_accel_ds_cuda_vs(planes[0][:m], planes[1][:m], planes[0],
+                                               planes[1], scal, out=out)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["ds_accel"] == before["ds_accel"] + 1
+    assert got[0].shape == (m, 3) and got[0].stride() == (4, 1)
+    assert all(torch.equal(o[:, 3], torch.zeros(m, device=dev)) for o in out)
+    _ds_held([got], [ds.ds_accel_vs(planes[0][:m], planes[1][:m], planes[0], planes[1], scal)])
+    from nbody_tpu_torch.compute import _oracle_accel
+
+    ref = _oracle_accel(pos64, SOFT)[:m]
+    assert np.abs(ds.ds_to_f64(*got) - ref).max() <= 1e-10 * np.abs(ref).max()
+    again = cuda_kernel.compute_accel_ds_cuda_vs(planes[0][:m], planes[1][:m], planes[0],
+                                                 planes[1], scal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("m", [4099, 1000])
+def test_ds_accel_then_integrate_equals_fused_step_bit_for_bit(dev, m):
+    """A ring hop's building blocks, the accel kernel and the ds Euler update
+    kernel, give the fused ds step's bits on the same j-set: both run one
+    ds_accumulate and one ds_kick_drift (nbody_tpu states the same exactness
+    on the TPU, tests/test_ds_kernel.py:252-276)."""
+    from nbody_tpu_torch.ops import ds
+
+    planes, _ = _ds_planes(4099, dev)
+    scal = ds.scal_ds(DT, SOFT, 0.5)
+    i_planes = tuple(t[:m] for t in planes)
+    acc = cuda_kernel.compute_accel_ds_cuda_vs(*i_planes[:2], planes[0], planes[1], scal)
+    got = cuda_kernel.ds_integrate_cuda(*i_planes, *acc, scal)
+    want = cuda_kernel.nbody_step_ds_cuda_vs(*i_planes, planes[0], planes[1], scal)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_ds_accelerations_unchanged_by_the_accel_kernel(dev, integrator):
+    """DSBodySystem.accelerations() of the one-sided variants now launches
+    the ds accel kernel; it gives the bits of the fused step from zero
+    velocity with dt = 1, damping 1, which it used before."""
+    from nbody_tpu_torch.models import DSBodySystem
+    from nbody_tpu_torch.ops import ds
+
+    s = DSBodySystem(4099, DEMO_PARAMS[0], device=dev, integrator=integrator,
+                     variant="one_sided")
+    before = dict(cuda_kernel.LAUNCHES)
+    got = s.accelerations()
+    assert cuda_kernel.LAUNCHES["ds_accel"] == before["ds_accel"] + 1
+    ph, pl = s._planes[s._cur][:2]
+    zero = torch.zeros_like(ph)
+    if integrator == "euler":
+        trick = cuda_kernel.nbody_step_ds_cuda(ph, pl, zero, zero.clone(),
+                                               ds.scal_ds(1.0, SOFT, 1.0))
+    else:
+        trick = cuda_kernel.nbody_step_ds_leapfrog_cuda(ph, pl, zero, zero.clone(),
+                                                        ds.scal_ds_leapfrog(1.0, SOFT, 1.0))
+    assert all(torch.equal(g, t[:, :3]) for g, t in zip(got, trick[2:]))
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "hermite"])
+def test_sharded_ds_ring_on_one_nccl_rank(dev, integrator):
+    """The sharded ds ring step on a one-rank NCCL mesh (hop 0 only, the
+    real collectives of world size 1): Euler equals the single-device
+    one-sided steps bit for bit (the accel kernel + the update kernel are
+    the fused step's bits); leapfrog and Hermite within the ds bound."""
+    from nbody_tpu_torch.models import DSBodySystem
+    from nbody_tpu_torch.parallel import make_mesh
+
+    import torch.distributed as dist
+
+    mesh = make_mesh(1)
+    assert dist.get_backend() == "nccl" and mesh.device == dev
+    params = DEMO_PARAMS[0].replace(damping=0.5)
+    a = DSBodySystem(4099, params, device=dev, integrator=integrator, mesh=mesh,
+                     strategy="ring")
+    b = DSBodySystem(4099, params, device=dev, integrator=integrator, variant="one_sided")
+    before = dict(cuda_kernel.LAUNCHES)
+    a.update_many(3, DT)
+    b.update_many(3, DT)
+    a.synchronize()
+    kernel = "ds_accel_jerk" if integrator == "hermite" else "ds_accel"
+    assert cuda_kernel.LAUNCHES[kernel] >= before[kernel] + 3
+    if integrator == "euler":
+        assert all((x == y).all() for x, y in zip(a.get_ds_state(), b.get_ds_state()))
+    for x, y in ((a.positions, b.positions), (a.velocities, b.velocities)):
+        assert np.abs(x - y).max() < 5e-9
 
 
 # ---- double-single Hermite: csrc/ds_aj_kernels.cu, csrc/ds_symmetric_aj_kernels.cu ----

@@ -25,6 +25,8 @@ the card. Tolerances, with their reasons:
   against the float64 oracle, 1e-12.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -452,8 +454,10 @@ def test_variant_resolution_and_refusals():
     assert DSBodySystem(64, params, device="cpu", integrator="hermite").variant == "sym"
     with pytest.raises(ValueError, match="integrator"):
         DSBodySystem(64, params, device="cpu", integrator="rk4")
+    # a mesh is ported (tests/test_torch_sharded.py); its 2-D form is not
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #13"):
-        DSBodySystem(64, params, device="cpu", mesh=object())
+        DSBodySystem(64, params, device="cpu",
+                     mesh=types.SimpleNamespace(axis_names=("rows", "cols")))
     with pytest.raises(ValueError):
         DSBodySystem(64, params, device="cpu", variant="vpu")
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,0 +1,185 @@
+"""D gloo ranks for tests/test_torch_sharded.py: a pool of processes, one a
+rank of a torch.distributed process group on the CPU, that run the port's
+sharded code on request.
+
+It holds no tests itself: the ranks import this module, which imports
+torch and nbody_tpu_torch only (no JAX, whose import would cost each rank
+seconds).
+Each rank starts its group from a FileStore under the test's temporary
+directory (no fixed port, so parallel test workers cannot collide), runs
+with one intra-op thread, and answers tasks in the order they come: every
+rank runs the same task, so the collectives meet. A task is a function of
+this module, by name, with picklable arguments; a rank returns its result,
+or the traceback of what it raised. A failure or a timeout ends the pool.
+"""
+
+from __future__ import annotations
+
+import datetime
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 120
+
+
+def _rank_main(rank: int, world: int, store_path: str, tasks, results) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        while (task := tasks.get()) is not None:
+            name, args = task
+            try:
+                results.put((rank, True, globals()[name](*args)))
+            except Exception:  # reported to the test, which fails with it
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """`world` gloo ranks; ``run(name, *args)`` runs task `name` on every
+    rank and returns the results in rank order."""
+
+    def __init__(self, world: int, store_path: str):
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_rank_main, daemon=True,
+                                  args=(r, world, store_path, self.tasks[r], self.results))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.broken = None
+
+    def run(self, name: str, *args):
+        if self.broken:
+            raise RuntimeError(f"the rank pool ended earlier: {self.broken}")
+        for q in self.tasks:
+            q.put((name, args))
+        got = {}
+        try:
+            for _ in range(self.world):
+                rank, ok, value = self.results.get(timeout=TIMEOUT_S)
+                if not ok:
+                    raise RuntimeError(f"rank {rank} raised in {name}:\n{value}")
+                got[rank] = value
+        except (RuntimeError, queue.Empty) as e:
+            self.broken = f"{name}: {type(e).__name__}"
+            self.close()
+            raise
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        if not self.broken:
+            for q in self.tasks:
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=10 if not self.broken else 0.1)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+# ---- tasks: each runs on every rank; arrays in and out are numpy ----
+
+
+def _mesh():
+    from nbody_tpu_torch.parallel import make_mesh
+
+    return make_mesh(dist.get_world_size(), device="cpu")
+
+
+def _shard(mesh, a):
+    from nbody_tpu_torch.parallel import shard_rows
+
+    return torch.from_numpy(np.ascontiguousarray(a[shard_rows(mesh, a.shape[0])]))
+
+
+def fp32_step(strategy, integrator, variant, pos, vel, dt, soft, damp):
+    """One fp32 sharded step of the whole (pos, vel); this rank's shard out."""
+    from nbody_tpu_torch.parallel import make_sharded_step
+
+    mesh = _mesh()
+    step = make_sharded_step(mesh, backend="torch", strategy=strategy, integrator=integrator,
+                             variant=variant)
+    p, v = step(_shard(mesh, pos), _shard(mesh, vel), dt, soft, damp)
+    return p.numpy(), v.numpy()
+
+
+def ds_step(strategy, integrator, planes, scal, steps=1):
+    """`steps` ds sharded steps of the whole planes; this rank's shards out."""
+    from nbody_tpu_torch.parallel import make_sharded_ds_step
+
+    mesh = _mesh()
+    step = make_sharded_ds_step(mesh, backend="torch", strategy=strategy,
+                                integrator=integrator)
+    shards = tuple(_shard(mesh, a) for a in planes)
+    for _ in range(steps):
+        shards = step(*shards, torch.from_numpy(scal))
+    return tuple(t.numpy() for t in shards)
+
+
+def ring_order(n_local):
+    """The rank whose shard each hop of the ring brings, read from the
+    shards themselves: rank r's shard is filled with r."""
+    from nbody_tpu_torch.parallel.sharded import _ring
+
+    mesh = _mesh()
+    shard = torch.full((n_local, 4), float(mesh.rank))
+    return [int(j[0, 0]) for j in _ring(mesh, shard)]
+
+
+def system(kind, num_bodies, params, kw, state, steps, ds_planes=None):
+    """A DSBodySystem ("ds") or BodySystem ("fp32") on the mesh from `state`
+    (or the raw `ds_planes`), `steps` steps: (positions, velocities,
+    accelerations, strategy, variant, ds planes or None), all of the whole
+    system."""
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+    from nbody_tpu_torch.ops import ds
+
+    cls = DSBodySystem if kind == "ds" else BodySystem
+    s = cls(num_bodies, params, device="cpu", mesh=_mesh(), state=state, **kw)
+    if ds_planes is not None:
+        s.set_ds_state(*ds_planes)
+    s.update_many(steps)
+    if kind == "ds":
+        acc = ds.ds_to_f64(*s.accelerations())
+        planes = s.get_ds_state()
+    else:
+        acc = s.accelerations().numpy()
+        planes = None
+    return s.positions, s.velocities, acc, s.strategy, s.variant, planes
+
+
+def compute_checks(num_bodies, kw, drift_steps):
+    """Compute on the mesh: the QA verdict and the drift check's result,
+    each as every rank sees it."""
+    from nbody_tpu_torch.compute import Compute
+
+    c = Compute(num_bodies=num_bodies, device="cpu", mesh=_mesh(), log=lambda s: None, **kw)
+    return c.compare_results(), c.drift_check(drift_steps), c.system.positions
+
+
+def make_mesh_error(num_devices):
+    """The error make_mesh raises for a mesh the world does not match."""
+    from nbody_tpu_torch.parallel import make_mesh
+
+    try:
+        make_mesh(num_devices, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def multihost_view():
+    """(initialize_multihost(), is_multihost()) inside a started group."""
+    from nbody_tpu_torch.parallel import initialize_multihost, is_multihost
+
+    return initialize_multihost(device="cpu"), is_multihost()
