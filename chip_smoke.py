@@ -127,11 +127,24 @@ its result:
      oracle, its (M,4) rows' w = 0, a repeat bit-equal, the kernel then the
      ds Euler update equal to the fused ds step on the same j-set bit for
      bit; its times at N=16384 and 65536;
+  3rf. the fused ring kernel (strategy="ring_fused") on states with masses
+     from [0.5, 2], a random vel.w and 77 zero-mass bodies at the origin:
+     at D = 1 (M = 4099, 65536) bit-equal to one accel launch, through the
+     emulated ring (D virtual ranks in one launch) at D = 2 and 4 with
+     shards of 1025 and 16384 every rank bit-equal to the hop-ordered sum
+     of accel launches, all within 1e-4 * max|a| + 1e-4 of the plain
+     version; 200 emulated D = 4 calls bit-equal to the first; its times at
+     D = 1 and emulated D = 4 (N=65536 in all) beside accel, in turns;
+  3ri. the fused ring between two processes on the card through CUDA IPC
+     (scripts/torch_ring_ipc.py), each call bit-equal to the hop-ordered
+     accel launches;
   5x. the body-sharded path on a one-rank NCCL mesh (make_mesh(1)), only
      mesh systems in its count, each run of which must launch its own
      strategy's kernels: Compute(precision="ds", mesh=, strategy="ring")
      QA for Euler, leapfrog and Hermite and strategy="allgather" QA at
-     N=16384, fp32 allgather and ring QA and run_benchmark(10) at N=65536,
+     N=16384, fp32 ring_fused QA for Euler and leapfrog at 16384, fp32
+     allgather, ring and ring_fused QA and run_benchmark(10) at N=65536,
+     ten ring_fused Euler steps at 65536 bit-equal to ten ring steps,
      ds ring Euler run_benchmark at 16384 and 65536, ten ds ring Euler and
      leapfrog and three Hermite steps; after it, outside the count, the
      single-device step times beside the mesh's and the same steps on one
@@ -174,6 +187,7 @@ N_DS_AJ_BIG = 32768 + 4096  # above the ds accel + jerk composition's cap: two b
 N_MXU_DRIFT = 4096  # the 1000-step energy-drift record of the mxu variants
 N_P3M_BIG = 1 << 20  # README's nbody --kernel p3m --numbodies 1000000, rounded to 2^20
 P3M_GRID = 64  # the CLI's --pm-grid default
+SOFT_RING = 0.1  # demo 0's softening, phase 3rf's
 P3M_RTOL, P3M_ATOL = 1e-4, 2e-4  # tests/test_p3m.py:367, Pallas against XLA short range
 # FP32-pipe instructions the short-range function needs a pair, with FMA:
 # 7 to test a candidate pair of neighbouring cells (3 FADD for d, FMUL + 2
@@ -208,7 +222,8 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_accel_jerk": "nbody_tpu_torch/csrc/ds_aj_kernels.cu",
            "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
-           "p3m_sr": "nbody_tpu_torch/csrc/p3m_kernels.cu"}
+           "p3m_sr": "nbody_tpu_torch/csrc/p3m_kernels.cu",
+           "ring_fused": "nbody_tpu_torch/csrc/ring_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "step_t": "nbody_tpu/ops/pallas_kernel.py:202",
             "mxu_step": "nbody_tpu/ops/pallas_kernel.py:171",
@@ -228,7 +243,8 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_accel_jerk": "nbody_tpu/ops/ds_kernel.py:756",
             "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
             "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839",
-            "p3m_sr": "nbody_tpu/ops/p3m_kernel.py:250"}
+            "p3m_sr": "nbody_tpu/ops/p3m_kernel.py:250",
+            "ring_fused": "nbody_tpu/ops/ring_kernel.py:219"}
 NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
          "accel": "nbody_accel_f32",
@@ -239,7 +255,8 @@ NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "ds_accel": "nbody_ds_accel",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
          "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
-         "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32"}
+         "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
+         "ring_fused": "nbody_ring_accel_f32"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 MXU_KERNELS = ("mxu_step", "mxu_bf16_step")
 # FP32-pipe instructions an mxu pair, read from csrc/mxu_kernels.cu: s is 3
@@ -1127,6 +1144,122 @@ def phase_ds_accel_kernel(torch) -> dict:
     return {"err": {"ds_accel": err}, "times": times, "bounds": bounds}
 
 
+def ring_state(torch, n, *, seed=42):
+    """Phase 3rf's input: shell ICs with masses from [0.5, 2], a random
+    vel.w and the last 77 bodies zero-mass at the origin (a ragged ring's
+    padding); (pos, vel) on the card."""
+    pos, vel = shell_state(torch, n, seed=seed, random_w=True)
+    pos[-77:] = 0.0
+    return pos, vel
+
+
+def hop_ordered_accel(torch, ck, shards, block_size=256):
+    """Each rank's force as the unfused ring sums it: one accel launch a
+    hop, hop h from rank r - h, added in hop order (torch.add)."""
+    d = len(shards)
+    out = []
+    for r in range(d):
+        total = ck.compute_accel_cuda(shards[r], shards[r], SOFT_RING, block_size=block_size)
+        for h in range(1, d):
+            total = torch.add(total, ck.compute_accel_cuda(shards[r], shards[(r - h) % d],
+                                                           SOFT_RING, block_size=block_size))
+        out.append(total)
+    return out
+
+
+def phase_ring_kernel(torch) -> dict:
+    """3rf. The fused ring kernel (ring_fused) against the unfused ring's
+    sum and its plain version, on ring_state inputs: at D = 1 (a one-rank
+    ring, no copies) at M = 4099 and 65536 bit-equal to one accel launch at
+    the same block size; through the emulated ring (D virtual ranks in one
+    launch, each with its own slots and flags) at D = 2 and 4 with shards
+    of 1025 and 16384 bodies, every rank bit-equal to the hop-ordered sum of
+    accel launches; all within phase 3's bound (1e-4 * max|a| + 1e-4) of
+    reference.ring_accel_fused_plain; 200 emulated D = 4 calls back to back
+    bit-equal to the first (the flags' epochs: a stale flag would let a hop
+    read a slot early). Times with CUDA events after a warm-up call, in
+    turns: D = 1 at N = 65536 beside accel, and emulated D = 4 at 16384 a
+    rank (65536 in all) beside one accel launch at 65536."""
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    dev = torch.device("cuda", 0)
+    err = 0.0
+    for d, m in ((1, 4099), (1, N_MAIN), (2, 1025), (4, 1025), (2, N_QA), (4, N_QA)):
+        pos, _ = ring_state(torch, d * m)
+        shards = [s.contiguous() for s in pos.split(m)]
+        if d == 1:
+            ring = ck.FusedRing(m, 1, 0, device=dev)
+            got = [ck.ring_accel_fused_cuda(shards[0], SOFT_RING, ring)]
+            ring.close()
+        else:
+            got = ck.ring_accel_fused_emulated_cuda(shards, SOFT_RING)
+        want = hop_ordered_accel(torch, ck, shards)
+        plain = reference.ring_accel_fused_plain(shards, SOFT_RING)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(g, w) for g, w in zip(got, want))
+        e = max((g - q).abs().max().item() for g, q in zip(got, plain))
+        tol = 1e-4 * max(q.abs().max().item() for q in plain) + 1e-4
+        what = f"D={d} M={m}" + (" (emulated)" if d > 1 else "")
+        print(f"[3rf ring kernel] {what}: every rank bit-equal to the hop-ordered accel "
+              f"launches {bits}; max|da| against plain {e:.3e} (tol {tol:.3e})")
+        check(bits, f"ring_fused differs from the hop-ordered accel launches at {what}")
+        check(e <= tol, f"ring_fused disagrees with its plain version at {what}")
+        err = max(err, e)
+        del pos, shards, got, want, plain
+    pos, _ = ring_state(torch, 4 * N_QA)
+    shards = [s.contiguous() for s in pos.split(N_QA)]
+    rings = ck.emulated_ring(dev, 4, N_QA)  # kept across the calls, as a real ring's
+    first = ck.ring_accel_fused_emulated_cuda(shards, SOFT_RING, rings=rings)
+    same = 0
+    for _ in range(200):
+        same += all(torch.equal(a, b) for a, b in zip(
+            ck.ring_accel_fused_emulated_cuda(shards, SOFT_RING, rings=rings), first))
+    print(f"[3rf ring kernel] 200 emulated D=4 M={N_QA} calls back to back: {same} bit-equal "
+          "to the first")
+    check(same == 200, "repeated emulated ring calls differ")
+    whole = pos  # N_MAIN bodies: the D=1 ring, the emulated D=4 ring, accel
+    ring1 = ck.FusedRing(N_MAIN, 1, 0, device=dev)
+    calls = {"accel": lambda: ck.compute_accel_cuda(whole, whole, SOFT_RING),
+             "ring D=1": lambda: ck.ring_accel_fused_cuda(whole, SOFT_RING, ring1),
+             "ring emulated D=4": lambda: ck.ring_accel_fused_emulated_cuda(shards, SOFT_RING,
+                                                                            rings=rings)}
+    reps = 10
+    ms = {k: [] for k in calls}
+    for k in ("accel", "ring D=1", "ring emulated D=4", "ring emulated D=4", "ring D=1",
+              "accel"):
+        calls[k]()
+        torch.cuda.synchronize()
+        ms[k].append(elapsed_ms(lambda: [calls[k]() for _ in range(reps)], dev) / reps)
+    for ring in (ring1, *rings):
+        ring.close()
+    t_p = elapsed_ms(lambda: reference.ring_accel_fused_plain([whole], SOFT_RING), dev)
+    # 20 flops a pair; each input read once, each output written once (a
+    # ring's j-shards are its inputs, moved between ranks, not counted)
+    b = bound_ms(20.0 * N_MAIN * N_MAIN, N_MAIN * 16 + N_MAIN * 12)
+    for k, v in ms.items():
+        print(f"[3rf ring kernel] {k} at N={N_MAIN} in all: "
+              f"{', '.join(f'{t:.3f}' for t in v)} ms per call, bound {b[0]:.3f} ms ({b[1]})")
+    print(f"[3rf ring kernel] plain D=1 at N={N_MAIN}: {t_p:.3f} ms")
+    return {"err": {"ring_fused": err}, "times": {"ring_fused": (min(ms["ring D=1"]), t_p)},
+            "bounds": {"ring_fused": b}}
+
+
+def phase_ring_ipc() -> None:
+    """3ri. The fused ring between two processes on this card, through CUDA
+    IPC (scripts/torch_ring_ipc.py: two gloo ranks on cuda:0, each mapping
+    the other's region with cudaIpcOpenMemHandle as a card mesh does, five
+    calls, each bit-equal to the hop-ordered accel launches); its own
+    launches are in its processes, not in this count."""
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_ring_ipc.py")],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        print(f"[3ri ring ipc] {line}")
+    check(proc.returncode == 0, f"the two-process ring failed (exit {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+
+
 def phase_ds_main(torch, smi: str) -> None:
     """The ds path through Compute(precision="ds"): QA for Euler auto (sym),
     Euler one_sided and leapfrog at N=16384, benchmarks at 16384 (beside
@@ -1417,6 +1550,8 @@ SHARDED_KERNELS = {
     ("ds", "allgather", "euler"): ("ds_step",),
     ("fp32", "allgather", "euler"): ("step",),
     ("fp32", "ring", "euler"): ("accel",),
+    ("fp32", "ring_fused", "euler"): ("ring_fused",),
+    ("fp32", "ring_fused", "leapfrog"): ("ring_fused",),
 }
 
 
@@ -1433,7 +1568,7 @@ def launched_by(ck, key, fn):
 def sharded_path(torch, smi: str, mesh) -> dict:
     from nbody_tpu_torch import DEMO_PARAMS, tuned_scales
     from nbody_tpu_torch.compute import Compute
-    from nbody_tpu_torch.models import DSBodySystem
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
     from nbody_tpu_torch.ops import cuda_kernel as ck
 
     for kw in ({"integrator": "euler", "strategy": "ring"},
@@ -1446,9 +1581,16 @@ def sharded_path(torch, smi: str, mesh) -> dict:
               f"ds mesh system {c.system.strategy}/{c.system.variant}")
         check(launched_by(ck, ("ds", kw["strategy"], kw["integrator"]), c.compare_results),
               f"sharded ds QA failed ({kw})")
+    for integrator in ("euler", "leapfrog"):
+        c = Compute(num_bodies=N_QA, device="cuda", mesh=mesh, strategy="ring_fused",
+                    integrator=integrator, log=lambda s: print(f"[5x QA] {s}"))
+        check(c.system.strategy == "ring_fused", f"fp32 mesh system {c.system.strategy}")
+        check(launched_by(ck, ("fp32", "ring_fused", integrator), c.compare_results),
+              f"sharded fp32 ring_fused QA failed ({integrator})")
     ms = {}
     for tag, n, kw in (("fp32 allgather", N_MAIN, {"strategy": "allgather"}),
                        ("fp32 ring", N_MAIN, {"strategy": "ring"}),
+                       ("fp32 ring_fused", N_MAIN, {"strategy": "ring_fused"}),
                        ("ds ring", N_QA, {"precision": "ds", "strategy": "ring"}),
                        ("ds ring", N_MAIN, {"precision": "ds", "strategy": "ring"})):
         c = Compute(num_bodies=n, device="cuda", mesh=mesh,
@@ -1465,6 +1607,18 @@ def sharded_path(torch, smi: str, mesh) -> dict:
               f"bad state after the {tag} benchmark at N={n}")
         ms[(tag, n)] = res["milliseconds"] / res["iterations"]
         print(f"[5x main] {tag} N={n}: {ms[(tag, n)]:.3f} ms per step [{smi}]")
+    # ten ring_fused Euler steps against ten ring steps from the same state:
+    # the fused force is the ring's accel launches' sum, so the bits agree
+    main_params = DEMO_PARAMS[0]  # no tuned scales at N_MAIN: demo 0's own
+    runs = {}
+    for strategy in ("ring_fused", "ring"):
+        sys_ = BodySystem(N_MAIN, main_params, device="cuda", mesh=mesh, strategy=strategy)
+        launched_by(ck, ("fp32", strategy, "euler"), lambda: sys_.update_many(10))
+        runs[strategy] = sys_.state
+    bits = all(torch.equal(a, b) for a, b in zip(runs["ring_fused"], runs["ring"]))
+    print(f"[5x bits] 10 fp32 ring_fused Euler steps at N={N_MAIN} on the mesh against 10 "
+          f"ring steps: bit-equal {bits}")
+    check(bits, "ten ring_fused Euler steps differ from ten ring steps")
     params = DEMO_PARAMS[0].replace(**dict(zip(("cluster_scale", "velocity_scale"),
                                                tuned_scales(N_QA))))
     states = {}
@@ -2118,6 +2272,8 @@ def main() -> int:
     mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
     p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
     ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
+    ring_kern = timed("3rf ring kernel", phase_ring_kernel, torch)
+    timed("3ri ring between two processes", phase_ring_ipc)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -2182,6 +2338,7 @@ def main() -> int:
                              sorted({k for ks in SHARDED_KERNELS.values() for k in ks}),
                              lambda: mesh_runs.update(phase_sharded_main(torch, smi)))
     launches["ds_accel"] = sharded_launches["ds_accel"]
+    launches["ring_fused"] = sharded_launches["ring_fused"]
     timed("5x single-device comparisons", phase_sharded_single, torch, smi, mesh_runs)
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
@@ -2194,7 +2351,8 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
-                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **ds_accel_kern[key]}
+                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **ds_accel_kern[key],
+                   **ring_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],

@@ -31,11 +31,14 @@ and its --drift-check is reported, not gated, as in nbody_tpu (its force
 differs from the all-pairs oracle's by the mesh error, by design).
 
 --devices D shards the bodies over D ranks, one a device, with --strategy
-allgather, ring or auto (nbody_tpu's cost model), for fp32 and ds: start
-it as ``torchrun --nproc_per_node D nbody-torch --devices D ...`` (NCCL on
-the cards, gloo with --cpu). --devices 1 builds no mesh, as in nbody_tpu. A
---devices that differs from the number of ranks exits 2; so do --mesh-rows
-and --strategy sym / ring_fused, which are not ported yet. Only rank 0
+allgather, ring or auto (nbody_tpu's cost model), for fp32 and ds, or
+ring_fused (fp32 Euler and leapfrog: all D hops of the ring in one launch of
+the fused ring kernel, the ranks on one host; the plain ring with --cpu):
+start it as ``torchrun --nproc_per_node D nbody-torch --devices D ...``
+(NCCL on the cards, gloo with --cpu). --devices 1 builds no mesh, as in
+nbody_tpu. A --devices that differs from the number of ranks exits 2; so do
+--strategy ring_fused with --precision ds (nbody_tpu's text), and
+--mesh-rows and --strategy sym, which are not ported yet. Only rank 0
 prints; every rank exits with rank 0's verdict.
 
 The run is on the CUDA card; --cpu selects the plain PyTorch path on the
@@ -111,8 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="multi-device communication strategy: allgather (one all-gather, "
                         "one fused kernel), ring (the j-shard travels the ring, a force "
-                        "kernel a hop), auto (nbody_tpu's cost model by shard size); "
-                        "ring_fused and sym are not ported yet")
+                        "kernel a hop), ring_fused (fp32 Euler and leapfrog: all hops in "
+                        "one kernel launch that carries the j-shards itself, the ranks on "
+                        "one host), auto (nbody_tpu's cost model by shard size, allgather "
+                        "or ring); sym is not ported yet")
     p.add_argument("--mesh-rows", type=int, default=None,
                    help="with --devices D: the 2-D (rows x D/rows) decomposition "
                         "(not ported yet)")
@@ -163,12 +168,17 @@ def _mesh(args):
 
     if args.mesh_rows is not None:
         raise not_ported("--mesh-rows", args.mesh_rows, key="mesh")
-    if args.strategy in ("ring_fused", "sym"):
+    if args.strategy == "sym":
         raise not_ported("--strategy", args.strategy)
     if args.devices is not None and args.devices < 1:
         raise ValueError(f"--devices must be at least 1; got {args.devices}")
     if args.devices is None or args.devices == 1:
         return None
+    if args.precision == "ds" and args.strategy not in ("auto", "allgather", "ring"):
+        # nbody_tpu/cli.py:283-288
+        raise ValueError("the sharded ds step gathers or ring-rotates the hi/lo planes; use "
+                         "--strategy auto/allgather/ring (ring_fused and sym are fp32 mesh "
+                         "paths)")
     from nbody_tpu_torch.parallel import initialize_multihost, make_mesh
 
     device = "cpu" if args.cpu else "cuda"

@@ -92,16 +92,14 @@
 
 #include <cuda_runtime.h>
 
+#include "allpairs_common.cuh"
+
 namespace {
 
-// The j-side loaders: the (N,4) array of the step and force kernels, and the
-// (4, N) planes x, y, z, m that the rollout carries. Both give the same
-// float4, so the staged tile, and every bit after it, is the same.
-struct AosJ {
-  const float4* __restrict__ p;
-  __device__ __forceinline__ float4 operator()(const int64_t j) const { return p[j]; }
-};
-
+// The j-side loaders: the (N,4) array of the step and force kernels (AosJ,
+// allpairs_common.cuh) and the (4, N) planes x, y, z, m that the rollout
+// carries. Both give the same float4, so the staged tile, and every bit
+// after it, is the same.
 struct PlanesJ {
   const float* __restrict__ t;  // (4, ld): x, y, z, m
   int64_t ld;
@@ -109,32 +107,6 @@ struct PlanesJ {
     return make_float4(t[j], t[ld + j], t[2 * ld + j], t[3 * ld + j]);
   }
 };
-
-template <class JLoad>
-__device__ __forceinline__ void accumulate_all_j(const float4 pi, const JLoad load_j,
-                                                 const int64_t n, const float eps2,
-                                                 float4* tile, float& ax, float& ay,
-                                                 float& az) {
-  const int bs = blockDim.x;
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    tile[threadIdx.x] = (j < n) ? load_j(j) : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    for (int k = 0; k < bs; ++k) {
-      const float4 pj = tile[k];
-      const float dx = pj.x - pi.x;
-      const float dy = pj.y - pi.y;
-      const float dz = pj.z - pi.z;
-      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-      const float inv = rsqrtf(r2);
-      const float s = pj.w * (inv * inv * inv);
-      ax += s * dx;
-      ay += s * dy;
-      az += s * dz;
-    }
-    __syncthreads();
-  }
-}
 
 // The fused Euler step of one i-body, shared by step_kernel and
 // step_t_kernel so that the two give the same bits; with `new_post`, the new

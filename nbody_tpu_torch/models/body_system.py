@@ -62,7 +62,8 @@ Placements (the reference's BodySystemCUDA variants):
 Meshes (``parallel/``): with ``mesh=make_mesh(D)`` each of the D ranks
 holds N/D bodies (N rounded up to a multiple of D with zero-mass bodies, as
 ``nbody_tpu`` rounds it) and steps them with ``make_sharded_step``, by
-``strategy`` "allgather", "ring" or "auto" (``choose_strategy``). On a mesh
+``strategy`` "allgather", "ring", "ring_fused" (Euler and leapfrog, the
+fused ring kernel) or "auto" (``choose_strategy``). On a mesh
 ``variant="auto"`` is "vpu" and the variant reaches only the allgather Euler
 step, as in ``nbody_tpu``. The accessors speak of the whole system on every
 rank: ``state``, ``positions``, ``velocities``, ``accelerations()`` and
@@ -110,7 +111,6 @@ LATER_SLICES = {
     "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list)",
     "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps)",
     "sym": "Queue 1 #13 (the rest of parallel/: strategy='sym', each pair once across the mesh)",
-    "ring_fused": "Queue 2 #20 (the ring kernel of ops/ring_kernel.py)",
     "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
 }
 
@@ -187,23 +187,28 @@ def _as_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def check_mesh(mesh, device: torch.device, strategy: str, *, axes_error: str | None = None,
+# the strategies of an fp32 system on a mesh
+MESH_STRATEGIES = ("auto", "allgather", "ring", "ring_fused")
+
+
+def check_mesh(mesh, device: torch.device, strategy: str, *,
+               strategies: tuple = MESH_STRATEGIES, axes_error: str | None = None,
                strategy_error: str | None = None) -> int:
-    """Validate a body mesh for a system on `device` and its `strategy`, by
-    ``nbody_tpu``'s rules; return the mesh size. `axes_error` and
-    `strategy_error` replace the messages for a mesh of other than one or
-    two axes and for a strategy other than auto / allgather / ring (the ds
-    system's texts, which also refuse ring_fused and sym as fp32 paths)."""
+    """Validate a body mesh for a system on `device` and its `strategy`, one
+    of `strategies`, by ``nbody_tpu``'s rules; return the mesh size.
+    `axes_error` and `strategy_error` replace the messages for a mesh of
+    other than one or two axes and for a strategy outside `strategies` (the
+    ds system's texts, which refuse ring_fused and sym as fp32 paths)."""
     names = tuple(getattr(mesh, "axis_names", ()))
     if len(names) not in (1, 2):
         raise ValueError(axes_error or f"a system shards over a 1-D body mesh "
                          f"(parallel.make_mesh); got axes {names}")
     if len(names) == 2:
         raise not_ported("mesh", "2-D")
-    if strategy not in ("auto", "allgather", "ring"):
+    if strategy not in strategies:
         if strategy_error:
             raise ValueError(strategy_error)
-        if strategy in ("ring_fused", "sym"):
+        if strategy == "sym":
             raise not_ported("strategy", strategy)
         raise ValueError(f"unknown strategy {strategy!r}")
     if mesh.device != device:
@@ -237,6 +242,7 @@ class BodySystem:
     ):
         self.device = resolve_device(device)
         ndev = 1 if mesh is None else check_mesh(mesh, self.device, strategy)
+        requested_backend = backend
         if backend == "pm":
             raise not_ported("backend", backend)
         if backend == "p3m":
@@ -309,8 +315,11 @@ class BodySystem:
 
             if strategy == "auto":
                 self.strategy = choose_strategy(self.num_bodies, ndev)
+            # ring_fused takes "auto" to its kernel's wrapper, which on a CPU
+            # mesh runs the plain ring; "torch" it refuses
             self._sharded = make_sharded_step(
-                mesh, backend=backend, strategy=self.strategy, block_size=self.block_size,
+                mesh, backend=requested_backend if self.strategy == "ring_fused" else backend,
+                strategy=self.strategy, block_size=self.block_size,
                 variant=variant, integrator=integrator)
 
         shape = (self.num_bodies // ndev, 4)

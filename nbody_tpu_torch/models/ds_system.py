@@ -97,7 +97,7 @@ class DSBodySystem:
         if mesh is not None:
             # nbody_tpu/models/ds_system.py:66-106
             ndev = check_mesh(
-                mesh, self.device, strategy,
+                mesh, self.device, strategy, strategies=("auto", "allgather", "ring"),
                 axes_error="DSBodySystem shards over a 1-D body mesh (make_sharded_ds_step) or "
                 f"a 2-D rows×cols mesh (make_sharded_ds_step_2d); got "
                 f"{tuple(getattr(mesh, 'axis_names', ()))}",

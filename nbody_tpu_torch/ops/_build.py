@@ -26,8 +26,9 @@ SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
            CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
            CSRC / "ds_symmetric_kernels.cu", CSRC / "ds_aj_kernels.cu",
            CSRC / "ds_symmetric_aj_kernels.cu", CSRC / "mxu_kernels.cu",
-           CSRC / "p3m_kernels.cu")
-HEADERS = (CSRC / "sym_common.cuh", CSRC / "ds_common.cuh", CSRC / "ds_sym_common.cuh")
+           CSRC / "p3m_kernels.cu", CSRC / "ring_kernels.cu")
+HEADERS = (CSRC / "allpairs_common.cuh", CSRC / "sym_common.cuh", CSRC / "ds_common.cuh",
+           CSRC / "ds_sym_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
 
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) that
@@ -165,6 +166,21 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_hermite_correct.restype = ctypes.c_int
     lib.nbody_p3m_sr_f32.argtypes = [ptr] * 7 + [i64, i64, i64, ptr]
     lib.nbody_p3m_sr_f32.restype = ctypes.c_int
+    lib.nbody_ring_alloc.argtypes = [i64, i64, ctypes.POINTER(ptr)]
+    lib.nbody_ring_free.argtypes = [ptr]
+    lib.nbody_ring_ipc_handle.argtypes = [ptr, ctypes.c_char_p]
+    lib.nbody_ring_ipc_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ptr)]
+    lib.nbody_ring_ipc_close.argtypes = [ptr]
+    lib.nbody_ring_ipc_handle_bytes.argtypes = []
+    lib.nbody_ring_coresident_blocks.argtypes = [i64, ctypes.POINTER(i64)]
+    lib.nbody_ring_accel_f32.argtypes = [ctypes.POINTER(i64), i64, i64, i64, i64, f32, i64,
+                                         ctypes.c_uint64, i64, ptr]
+    lib.nbody_ring_read_error.argtypes = [ptr, i64, i64, ptr, ctypes.POINTER(ctypes.c_uint64)]
+    for name in ("nbody_ring_alloc", "nbody_ring_free", "nbody_ring_ipc_handle",
+                 "nbody_ring_ipc_open", "nbody_ring_ipc_close", "nbody_ring_ipc_handle_bytes",
+                 "nbody_ring_coresident_blocks", "nbody_ring_accel_f32",
+                 "nbody_ring_read_error"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

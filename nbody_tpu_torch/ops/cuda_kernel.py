@@ -24,14 +24,18 @@ their ``ds_sym_default_dispatch``, and of the ds Hermite step's
 (``_ds_accel_jerk_kernel``, ``_ds_aj_sym_kernel``, ``_ds_aj_sym_cross_kernel``)
 with ``ds_aj_sym_default_dispatch``; and of the P3M short-range pair
 kernel ``_sr_pair_kernel`` (``nbody_tpu/ops/p3m_kernel.py``) in
-``csrc/p3m_kernels.cu``, over the tables of ``ops/p3m.py``.
+``csrc/p3m_kernels.cu``, over the tables of ``ops/p3m.py``; and of the
+fused ring kernel ``_kernel`` (``nbody_tpu/ops/ring_kernel.py``) in
+``csrc/ring_kernels.cu``, with its buffers (``FusedRing``), a real ring of
+processes or an emulated ring of D ranks in one launch on one card.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
 a CUDA error. For a CPU tensor it computes the plain version in
 ``ops/reference.py``, ``ops/energy.py`` or ``ops/ds.py``; that is all the
 CPU path is for (``p3m_sr_pairs_cuda``, whose padded rows have no plain
-counterpart, raises instead).
+counterpart, raises instead; ``ring_accel_fused_cuda`` takes a CPU ring's
+exchanges with the plain force).
 Both paths check dtype (float32 only, never cast), shape ``(., 4)``,
 contiguity, 16-byte alignment (the kernels load ``float4``) and device.
 
@@ -42,6 +46,7 @@ path went through the kernels; plain-version calls do not count.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -55,7 +60,7 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
             "ds_integrate": 0, "ds_accel": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0,
             "ds_aj_sym_cross": 0,
-            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0}
+            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "ring_fused": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -1271,3 +1276,267 @@ def p3m_short_range_cuda(pos, softening, *, grid: int = 64, capacity: int = 128,
         return pos.new_zeros((0, 3)), torch.zeros((), dtype=torch.int64, device=device)
     tables = p3m.pair_tables(pos, softening, grid=grid, capacity=capacity, blk=blk)
     return p3m.short_range_from_tables(p3m_sr_pairs_cuda(tables), tables), tables.overflow
+
+
+# ---- the fused ring force: csrc/ring_kernels.cu ----
+
+# the bound of every wait in the ring kernel: past it the kernel gives up
+# and the wrapper raises
+RING_TIMEOUT_S = 10.0
+# the most ranks one launch holds (an emulated ring's D)
+RING_MAX_LAUNCH_RANKS = 16
+_RING_WAITS = {1: "its left neighbour's shard", 2: "its right neighbour's credit for a slot"}
+
+
+def ring_coresident_blocks(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
+    """Blocks of the ring kernel at `block_size` threads that the card holds
+    at once: the most one cooperative launch may have."""
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    out = ctypes.c_int64()
+    with torch.cuda.device(device):
+        err = lib.nbody_ring_coresident_blocks(check_block_size(block_size), ctypes.byref(out))
+    _raise_on_error(lib, err, "nbody_ring_coresident_blocks")
+    return int(out.value)
+
+
+def ring_groups(m: int, launch_ranks: int, block_size: int, device) -> int:
+    """Blocks a rank for shards of m bodies when one launch holds
+    `launch_ranks` ranks: one an i-block, as many as all the ranks' blocks
+    can be resident together. Raises rather than give a grid the card cannot
+    hold, whose spinning blocks would wait on blocks that never run."""
+    fits = ring_coresident_blocks(device, block_size) // launch_ranks
+    if fits < 1:
+        raise RuntimeError(f"{launch_ranks} ring ranks of block size {block_size} do not fit "
+                           "on the card together; the ring kernel's blocks wait on each other")
+    return min(_cdiv(m, block_size), fits)
+
+
+def _release_ring(device, base: int, peers: list) -> None:
+    """Unmap the peers' regions and free a ring's own (a finalizer: the
+    codes are not checked, the process may be ending)."""
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        for p in peers:
+            lib.nbody_ring_ipc_close(p)
+        lib.nbody_ring_free(base)
+
+
+class FusedRing:
+    """One rank's side of a fused ring of `ring_size` ranks for shards of
+    `m` bodies: on a card, its region (two j-slots and the flags of
+    ``csrc/ring_kernels.cu``) from cudaMalloc in the library, not from
+    PyTorch's caching allocator (an IPC handle of a cached block would name
+    its segment's base), and its neighbours' regions once ``connect`` has
+    them; ``calls`` counts its launches, the epoch of the flags. On the CPU
+    it holds no buffers, only ``hops``: a function of a shard that yields
+    the ring's j-shards in hop order (the mesh's exchanges), from which the
+    wrapper takes the plain version. ``close()`` frees the region (so does
+    garbage collection); a ring whose launch failed or timed out is broken
+    and raises on use."""
+
+    def __init__(self, m: int, ring_size: int, rank: int, *, device,
+                 block_size: int = DEFAULT_BLOCK_SIZE, groups: int | None = None,
+                 hops=None):
+        self.m, self.ring_size, self.rank = int(m), int(ring_size), int(rank)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.block_size = check_block_size(block_size)
+        self.calls = 0
+        self.broken = None
+        self.hops = hops
+        if self.m < 1 or not 0 <= self.rank < self.ring_size:
+            raise ValueError(f"a ring needs m >= 1 and 0 <= rank < ring_size; got m={m}, "
+                             f"rank={rank}, ring_size={ring_size}")
+        if self.device.type != "cuda":
+            if hops is None:
+                raise ValueError("a fused ring on the CPU needs `hops`, the mesh's exchanges")
+            self.groups = self.base = None
+            return
+        from nbody_tpu_torch.ops._build import load_library
+
+        lib = load_library()
+        self.groups = (ring_groups(self.m, 1, self.block_size, self.device) if groups is None
+                       else int(groups))
+        base = ctypes.c_void_p()
+        with torch.cuda.device(self.device):
+            err = lib.nbody_ring_alloc(self.m, self.groups, ctypes.byref(base))
+        _raise_on_error(lib, err, "nbody_ring_alloc")
+        self.base = self.left = self.right = base.value
+        self._peers = []  # regions mapped from other processes, unmapped on close
+        self._release = weakref.finalize(self, _release_ring, self.device, self.base,
+                                         self._peers)
+
+    def ipc_handle(self) -> bytes:
+        """The 64-byte CUDA IPC handle of this rank's region."""
+        from nbody_tpu_torch.ops._build import load_library
+
+        lib = load_library()
+        buf = ctypes.create_string_buffer(lib.nbody_ring_ipc_handle_bytes())
+        with torch.cuda.device(self.device):
+            err = lib.nbody_ring_ipc_handle(self.base, buf)
+        _raise_on_error(lib, err, "cudaIpcGetMemHandle")
+        return buf.raw
+
+    def connect(self, left, right) -> None:
+        """Take the neighbours' regions: each a FusedRing of this process (an
+        emulated ring), or the IPC handle of another process's region, which
+        is mapped here (once a peer, also when left and right are one)."""
+        from nbody_tpu_torch.ops._build import load_library
+
+        lib = load_library()
+        opened = {}
+
+        def region(peer):
+            if isinstance(peer, FusedRing):
+                return peer.base
+            if peer not in opened:
+                base = ctypes.c_void_p()
+                with torch.cuda.device(self.device):
+                    err = lib.nbody_ring_ipc_open(bytes(peer), ctypes.byref(base))
+                _raise_on_error(lib, err, "cudaIpcOpenMemHandle")
+                opened[peer] = base.value
+                self._peers.append(base.value)
+            return opened[peer]
+
+        self.left, self.right = region(left), region(right)
+
+    def close(self) -> None:
+        """Free the region now. A launch returns only after the peers' last
+        writes into it, so this is safe between calls; no rank of the ring
+        may launch again."""
+        if self.base is not None:
+            self._release()
+            self.base = None
+            self.broken = "the ring was closed"
+
+
+def _ring_launch(entries, softening, timeout_s: float) -> None:
+    """One launch of the ring kernel over `entries`, (pos, acc, ring) for
+    each rank it holds (the rings of one launch share their count of calls,
+    the epoch); then the launch's error word is read, which synchronises the
+    stream, and a timeout raises."""
+    rings = [ring for _, _, ring in entries]
+    for ring in rings:
+        if ring.broken:
+            raise RuntimeError(f"ring_fused: this ring is unusable ({ring.broken})")
+    r0 = rings[0]
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    rows = []
+    for pos, acc, ring in entries:
+        rows += [pos.data_ptr(), acc.data_ptr(), ring.base, ring.right, ring.left, ring.rank]
+    table = (ctypes.c_int64 * len(rows))(*rows)
+    epoch = r0.calls + 1
+    word = ctypes.c_uint64()
+    with torch.cuda.device(r0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.nbody_ring_accel_f32(
+            table, len(entries), r0.ring_size, r0.m, r0.groups,
+            ctypes.c_float(float(softening) ** 2), r0.block_size, epoch,
+            int(timeout_s * 1e9), stream)
+        for ring in rings:
+            ring.calls = epoch
+        if err:
+            for ring in rings:
+                ring.broken = f"launch {epoch} failed"
+        _raise_on_error(lib, err, "nbody_ring_accel_f32 launch")
+        LAUNCHES["ring_fused"] += 1
+        err = lib.nbody_ring_read_error(r0.base, r0.m, r0.groups, stream, ctypes.byref(word))
+    _raise_on_error(lib, err, "nbody_ring_accel_f32")
+    if word.value:
+        kind, rank, hop = word.value >> 48, (word.value >> 24) & 0xFFFFFF, word.value & 0xFFFFFF
+        for ring in rings:
+            ring.broken = f"launch {epoch} timed out"
+        raise RuntimeError(
+            f"ring_fused: rank {rank} gave up at hop {hop} of launch {epoch} after waiting "
+            f"{timeout_s} s for {_RING_WAITS.get(kind, f'wait kind {kind}')}")
+
+
+def ring_accel_fused_cuda(pos_shard, softening, ring: FusedRing, *,
+                          timeout_s: float = RING_TIMEOUT_S):
+    """The (M,3) acceleration of this rank's (M,4) shard under every shard of
+    the ring, all D hops in one launch of the ring kernel (the kernel of
+    ``ring_kernel.py::_kernel``), the j-shards carried between the ranks'
+    regions inside it; every rank of the ring must call it, once a call. On
+    a CUDA tensor the kernel runs, or this raises (also when a wait of the
+    kernel timed out after `timeout_s`). On a CPU tensor (and a CPU ring)
+    the plain version: the ring's exchanges (``ring.hops``), each hop's force
+    by ``reference.compute_accel_vs``, summed in hop order."""
+    device = pos_shard.device if isinstance(pos_shard, torch.Tensor) else None
+    _check_state("pos_shard", pos_shard, ring.device)
+    if pos_shard.shape[0] != ring.m:
+        raise ValueError(f"the ring carries shards of {ring.m} bodies; pos_shard has "
+                         f"{pos_shard.shape[0]}")
+    if device.type != "cuda":
+        total = None
+        for j in ring.hops(pos_shard):
+            part = reference.compute_accel_vs(pos_shard, j, softening)
+            total = part if total is None else total + part
+        return total
+    acc = torch.empty((ring.m, 3), dtype=torch.float32, device=device)
+    _ring_launch([(pos_shard, acc, ring)], softening, timeout_s)
+    return acc
+
+
+def emulated_ring(device, d: int, m: int, block_size: int = DEFAULT_BLOCK_SIZE) -> list:
+    """The D FusedRings of an emulated ring on one card: D virtual ranks in
+    one launch, each rank's region in that card's memory, rank r's right
+    neighbour r+1 and its left r-1. Pass them to successive calls of
+    ``ring_accel_fused_emulated_cuda``, as a real ring's ranks keep theirs,
+    and close them when done."""
+    device = torch.device(device)
+    groups = ring_groups(m, d, block_size, device)
+    rings = [FusedRing(m, d, r, device=device, block_size=block_size, groups=groups)
+             for r in range(d)]
+    for r, ring in enumerate(rings):
+        ring.connect(rings[(r - 1) % d], rings[(r + 1) % d])
+    return rings
+
+
+def ring_accel_fused_emulated_cuda(shards, softening, *, rings: list | None = None,
+                                   block_size: int = DEFAULT_BLOCK_SIZE,
+                                   timeout_s: float = RING_TIMEOUT_S):
+    """The fused ring on one card: the list of D (M,4) shards (D virtual
+    ranks) to their D (M,3) accelerations, in one cooperative launch of the
+    ring kernel whose block groups are the ranks; it runs the copies, the
+    double buffer, the credits and the hop order of a real ring of D cards.
+    `rings` are the ranks' buffers (``emulated_ring``), kept across calls as
+    a real ring keeps them; without them the call makes its own and frees
+    them after. On a CUDA tensor the kernel runs, or this raises; on CPU
+    tensors the plain version, ``reference.ring_accel_fused_plain``."""
+    shards = list(shards)
+    d = len(shards)
+    if not 1 <= d <= RING_MAX_LAUNCH_RANKS:
+        raise ValueError(f"an emulated ring has 1 to {RING_MAX_LAUNCH_RANKS} ranks; got {d}")
+    device = shards[0].device if isinstance(shards[0], torch.Tensor) else None
+    for k, s in enumerate(shards):
+        _check_state(f"shards[{k}]", s, device)
+        if s.shape[0] != shards[0].shape[0]:
+            raise ValueError(f"the shards must have one length; shards[{k}] has "
+                             f"{s.shape[0]} rows, shards[0] {shards[0].shape[0]}")
+    bs = check_block_size(block_size)
+    if device.type != "cuda":
+        return reference.ring_accel_fused_plain(shards, softening)
+    m = shards[0].shape[0]
+    accs = [torch.empty((m, 3), dtype=torch.float32, device=device) for _ in shards]
+    if m == 0:
+        return accs
+    own = rings is None
+    if own:
+        rings = emulated_ring(device, d, m, bs)
+    elif len(rings) != d or any(r.m != m or r.block_size != bs for r in rings):
+        raise ValueError(f"the rings carry {len(rings)} ranks' shards; the call has {d} shards "
+                         f"of {m} bodies at block size {bs}")
+    try:
+        _ring_launch(list(zip(shards, accs, rings)), softening, timeout_s)
+    finally:
+        if own:
+            for ring in rings:
+                ring.close()
+    return accs

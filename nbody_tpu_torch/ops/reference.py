@@ -74,6 +74,24 @@ def compute_accel(pos, softening, *, chunk_size: int | None = None):
     return compute_accel_vs(pos, pos, softening, chunk_size=chunk_size)
 
 
+def ring_accel_fused_plain(shards, softening):
+    """The fused ring's force on D ranks at once: the list of D (M,4) shards
+    to the list of their D (M,3) accelerations under all D*M bodies. Rank r
+    holds the shard of rank (r-h) mod D at hop h (it receives from r-1), and
+    sums the hops' partial forces in hop order, ``total + partial``: the
+    plain version of ``csrc/ring_kernels.cu``, and the hop order of the
+    unfused ring (``parallel/sharded.py::_ring``)."""
+    shards = list(shards)
+    d = len(shards)
+    out = []
+    for r in range(d):
+        total = compute_accel_vs(shards[r], shards[r], softening)
+        for h in range(1, d):
+            total = total + compute_accel_vs(shards[r], shards[(r - h) % d], softening)
+        out.append(total)
+    return out
+
+
 def integrate(pos, vel, acc, dt, damping):
     """Damped semi-implicit Euler update; the mass and the velocity w-lane
     pass through untouched."""

@@ -2,7 +2,7 @@
 
 Counterpart of the 1-D part of ``nbody_tpu/parallel/sharded.py``: each rank
 holds N/D bodies (its i-shard) and computes their forces from every body.
-Two strategies move the j-bodies:
+Three strategies move the j-bodies:
 
 * ``allgather``: one all-gather of the shards' planes, then one kernel
   launch of the local i-shard against the whole j-set (for Euler the fused
@@ -20,9 +20,22 @@ Two strategies move the j-bodies:
   for Hermite the ds accel + jerk kernel, and the integration runs once
   after the last hop.
 
-``make_sharded_step`` also takes ``auto``, one of the two by
-``choose_strategy``, as ``nbody_tpu``'s does; the systems resolve ``auto``
-themselves for both precisions. The collectives are
+* ``ring_fused`` (fp32 Euler and leapfrog): the same ring, all D hops in
+  one launch of the fused ring kernel (``csrc/ring_kernels.cu``), which
+  carries the j-shards between the ranks' buffers itself: each rank's two
+  j-slots and flags, mapped into its neighbours by CUDA IPC once per shard
+  shape (the handles exchanged with ``all_gather_object``, then a
+  barrier), so the ranks must share one host. Its partial forces are the
+  ring's ``accel`` launches' and are summed in the same order, so its
+  force equals the ring's bit for bit. On a CPU mesh it runs the plain
+  ring, the exchanges of ``ring`` with the plain force. Hermite and
+  ``backend="torch"`` are refused with ``nbody_tpu``'s words; ``close()``
+  frees the buffers.
+
+``make_sharded_step`` also takes ``auto``, one of allgather and ring by
+``choose_strategy``, as ``nbody_tpu``'s does (it never picks
+``ring_fused``); the systems resolve ``auto`` themselves for both
+precisions. The collectives are
 torch.distributed's synchronous ones (on the card NCCL makes the current
 stream wait for them) and every rank runs the same ones in the same order.
 A step is a function of this rank's shard:
@@ -32,12 +45,14 @@ tensors each time. ``backend`` is "cuda" (the hand-written kernels; on a
 CPU tensor their wrappers take the plain versions) or "torch" (the plain
 versions, on any device).
 
-Not ported yet, each naming its ROADMAP.md item: ``strategy="ring_fused"``
-(the one-program ring kernel), ``strategy="sym"`` (each pair once across
-the mesh), the 2-D decompositions and the sharded adaptive rollouts.
+Not ported yet, each naming its ROADMAP.md item: ``strategy="sym"`` (each
+pair once across the mesh), the 2-D decompositions and the sharded
+adaptive rollouts.
 """
 
 from __future__ import annotations
+
+import socket
 
 import torch
 import torch.distributed as dist
@@ -125,6 +140,40 @@ def _resolve(strategy: str, mesh: Mesh, nloc: int) -> str:
     return choose_strategy(nloc * mesh.size, mesh.size) if strategy == "auto" else strategy
 
 
+def open_fused_ring(mesh: Mesh, m: int, block_size: int) -> ck.FusedRing:
+    """This rank's side of the fused ring for shards of m bodies; every rank
+    of the mesh calls it together. On a card: the ranks' hosts and their
+    block counts are gathered (CUDA IPC maps memory only within one host, so
+    a mesh over several hosts is refused; every rank takes the smallest
+    count), the region is made, the ranks' IPC handles are gathered and the
+    neighbours' regions mapped, and a barrier holds every rank until all
+    are mapped. On the CPU: the plain ring, with the exchanges of
+    ``_ring``."""
+    d, r = mesh.size, mesh.rank
+    if mesh.device.type != "cuda":
+        return ck.FusedRing(m, d, r, device=mesh.device, block_size=block_size,
+                            hops=lambda shard: _ring(mesh, shard))
+    seen = [None] * d
+    dist.all_gather_object(seen, (socket.gethostname(),
+                                  ck.ring_groups(m, 1, block_size, mesh.device)),
+                           group=mesh.group)
+    hosts = sorted({host for host, _ in seen})
+    if len(hosts) > 1:
+        raise ValueError(
+            "strategy='ring_fused' maps its neighbours' buffers with CUDA IPC, which works "
+            f"within one host; this mesh spans {len(hosts)} ({', '.join(hosts)}): use "
+            "strategy='ring'")
+    ring = ck.FusedRing(m, d, r, device=mesh.device, block_size=block_size,
+                        groups=min(g for _, g in seen))
+    if d > 1:
+        handles = [None] * d
+        dist.all_gather_object(handles, ring.ipc_handle(), group=mesh.group)
+        ring.connect(handles[(r - 1) % d], handles[(r + 1) % d])
+    device_ids = [mesh.device.index] if dist.get_backend(mesh.group) == "nccl" else None
+    dist.barrier(group=mesh.group, device_ids=device_ids)
+    return ring
+
+
 class ShardedStep:
     """The fp32 body-sharded step of ``make_sharded_step``; also gives the
     force (``accel``) and the Hermite evaluation (``accel_jerk``) of this
@@ -138,9 +187,26 @@ class ShardedStep:
         self.block_size = block_size
         self.variant = variant
         self.integrator = integrator
+        self._rings = {}  # shard length -> FusedRing (ring_fused)
 
     def _ring_on(self, pos) -> bool:
-        return _resolve(self.strategy, self.mesh, pos.shape[0]) == "ring"
+        """Whether the j-shards travel the ring (ring, ring_fused) rather
+        than gather."""
+        return _resolve(self.strategy, self.mesh, pos.shape[0]) in ("ring", "ring_fused")
+
+    def _fused_ring(self, m: int) -> ck.FusedRing:
+        ring = self._rings.get(m)
+        if ring is None:
+            ring = self._rings[m] = open_fused_ring(self.mesh, m, self.block_size)
+        return ring
+
+    def close(self) -> None:
+        """Free the fused ring's buffers (no rank may step again). A ring
+        call returns only after the peers' last writes into this rank's
+        buffers, so no barrier is needed."""
+        for ring in self._rings.values():
+            ring.close()
+        self._rings.clear()
 
     def _accel_vs(self, pos_i, pos_j, soft):
         if self.backend == "cuda":
@@ -169,6 +235,8 @@ class ShardedStep:
 
     def accel(self, pos, softening):
         """(nloc,3) acceleration of the shard `pos` from every body."""
+        if self.strategy == "ring_fused":
+            return ck.ring_accel_fused_cuda(pos, softening, self._fused_ring(pos.shape[0]))
         if self._ring_on(pos):
             return _ring_sum(self.mesh, pos, lambda j: self._accel_vs(pos, j, softening),
                              torch.add)
@@ -176,7 +244,8 @@ class ShardedStep:
 
     def accel_jerk(self, pos, vel, softening):
         """(acc, jerk), each (nloc,3), of the shard from every body: the
-        positions and velocities travel together."""
+        positions and velocities travel together (also for ring_fused, whose
+        kernel computes the force only)."""
         if self._ring_on(pos):
             return _ring_sum(self.mesh, torch.stack((pos, vel)),
                              lambda j: self._aj_vs(pos, vel, j[0], j[1], softening),
@@ -204,7 +273,9 @@ def make_sharded_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto
     (pos, vel), each this rank's (N/D, 4) shard.
 
     backend: "cuda", "torch" or "auto" (the mesh device's). strategy:
-    "allgather", "ring" or "auto" (``choose_strategy`` by shard size).
+    "allgather", "ring", "ring_fused" (the fused ring kernel; Euler and
+    leapfrog, backend "cuda" or "auto", which on a CPU mesh is its plain
+    ring) or "auto" (``choose_strategy`` by shard size).
     variant: the kernel of the allgather Euler step, "vpu", "mxu" or
     "mxu_bf16"; the ring, leapfrog and Hermite run the one-sided force
     kernels, as in ``nbody_tpu``. integrator: "euler", "leapfrog" (the shard
@@ -215,10 +286,21 @@ def make_sharded_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
     if integrator not in ("euler", "leapfrog", "hermite"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    if strategy in ("ring_fused", "sym"):
+    if strategy == "sym":
         raise _not_ported("strategy", strategy)
-    if strategy not in ("allgather", "ring", "auto"):
+    if strategy not in ("allgather", "ring", "ring_fused", "auto"):
         raise ValueError(f"unknown strategy {strategy!r}")
+    if strategy == "ring_fused":
+        # nbody_tpu/parallel/sharded.py:437-443, backend for kernel
+        if backend == "torch":
+            raise ValueError("strategy='ring_fused' is a CUDA kernel; use backend='cuda'")
+        if integrator == "hermite":
+            raise ValueError(
+                "integrator='hermite' supports strategies "
+                "'allgather'/'ring'/'auto' (ring_fused fuses the Euler "
+                "update into its kernel)")
+        # the kernel's wrapper takes the plain ring on a CPU mesh
+        backend = "cuda"
     if variant not in ("vpu", *reference.MXU_VARIANTS):
         raise ValueError(f"unknown kernel variant {variant!r} for a sharded step "
                          "(vpu, mxu or mxu_bf16)")

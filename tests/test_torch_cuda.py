@@ -1003,3 +1003,121 @@ def test_p3m_body_system_on_the_card(dev, integrator):
     assert cuda_kernel.LAUNCHES["p3m_sr"] == before + 3
     np.testing.assert_allclose(card.positions, plain.positions, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card.velocities, plain.velocities, rtol=1e-4, atol=1e-4)
+
+
+# ---- the fused ring: csrc/ring_kernels.cu ----
+#
+# Its partial forces are the accel kernel's and its totals add them in hop
+# order, so it is held bit for bit to the unfused ring's sum of accel
+# launches, and to its plain version by the force bound above.
+
+
+def _ring_shards(d, m, dev):
+    """d shards of m bodies: masses from [0.5, 2], the last 77 bodies
+    zero-mass at the origin."""
+    pos, _ = _state(d * m, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pos[:, 3] = 0.5 + 1.5 * torch.rand(d * m, device=dev, generator=gen)
+    pos[-77:] = 0.0
+    return [s.contiguous() for s in pos.split(m)]
+
+
+def _hop_ordered(shards):
+    d = len(shards)
+    out = []
+    for r in range(d):
+        total = compute_accel_cuda(shards[r], shards[r], SOFT)
+        for h in range(1, d):
+            total = torch.add(total, compute_accel_cuda(shards[r], shards[(r - h) % d], SOFT))
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("d, m", [(1, 4099), (2, 1025), (2, 4099), (4, 1025)])
+def test_ring_fused_equals_hop_ordered_accel_launches(dev, d, m):
+    """D = 1 through a one-rank FusedRing, D > 1 through the emulated ring:
+    every rank's force bit-equal to the hop-ordered accel launches, within
+    the force bound of the plain version, a repeat bit-equal, one launch
+    counted a call."""
+    shards = _ring_shards(d, m, dev)
+    before = cuda_kernel.LAUNCHES["ring_fused"]
+    if d == 1:
+        ring = cuda_kernel.FusedRing(m, 1, 0, device=dev)
+        calls = [lambda: [cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, ring)]] * 2
+    else:
+        rings = cuda_kernel.emulated_ring(dev, d, m)
+        calls = [lambda: cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT)] + [
+            lambda: cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT, rings=rings)]
+    got, again = (c() for c in calls)
+    assert cuda_kernel.LAUNCHES["ring_fused"] == before + 2
+    plain = reference.ring_accel_fused_plain(shards, SOFT)
+    for g, a, w, p in zip(got, again, _hop_ordered(shards), plain):
+        assert torch.equal(g, w) and torch.equal(g, a)
+        assert (g - p).abs().max().item() <= 1e-4 * p.abs().max().item() + 1e-4
+
+
+def test_ring_fused_wait_times_out_and_raises(dev):
+    """A rank of a two-rank ring whose left neighbour never launches: its
+    wait for the neighbour's shard gives up after timeout_s and the wrapper
+    raises; the ring is unusable afterwards."""
+    shards = _ring_shards(2, 1025, dev)
+    lone = cuda_kernel.FusedRing(1025, 2, 0, device=dev)
+    dead = cuda_kernel.FusedRing(1025, 2, 1, device=dev, groups=lone.groups)
+    lone.connect(dead, dead)
+    with pytest.raises(RuntimeError, match="rank 0 gave up at hop 1"):
+        cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, lone, timeout_s=0.2)
+    with pytest.raises(RuntimeError, match="unusable"):
+        cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, lone, timeout_s=0.2)
+    lone.close()
+    dead.close()
+
+
+def test_ring_fused_launch_or_build_failure_raises_with_no_fallback(dev, monkeypatch):
+    from nbody_tpu_torch.ops import _build
+
+    shards = _ring_shards(2, 1025, dev)
+    rings = cuda_kernel.emulated_ring(dev, 2, 1025)
+    lib = _build.load_library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "nbody_ring_accel_f32":
+                return lambda *args: 1  # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    before = dict(cuda_kernel.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nbody_ring_accel_f32 launch failed"):
+        cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT, rings=rings)
+    with pytest.raises(RuntimeError, match="unusable"):
+        cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT, rings=rings)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT)
+    assert cuda_kernel.LAUNCHES == before
+    monkeypatch.undo()
+    for ring in rings:
+        ring.close()
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_ring_fused_steps_on_one_nccl_rank_equal_the_ring(dev, integrator):
+    """Three ring_fused steps on a one-rank NCCL mesh equal three ring steps
+    bit for bit, one ring_fused launch a step."""
+    from nbody_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1)
+    params = DEMO_PARAMS[0].replace(damping=0.5)
+    fused = BodySystem(4099, params, device=dev, integrator=integrator, mesh=mesh,
+                       strategy="ring_fused")
+    ring = BodySystem(4099, params, device=dev, integrator=integrator, mesh=mesh,
+                      strategy="ring")
+    before = cuda_kernel.LAUNCHES["ring_fused"]
+    fused.update_many(3, DT)
+    ring.update_many(3, DT)
+    assert cuda_kernel.LAUNCHES["ring_fused"] == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(fused.state, ring.state))

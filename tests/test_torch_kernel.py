@@ -143,9 +143,9 @@ def test_nvcc_command_targets_sm90a():
                                                 "symmetric_aj_kernels.cu", "ds_kernels.cu",
                                                 "ds_symmetric_kernels.cu", "ds_aj_kernels.cu",
                                                 "ds_symmetric_aj_kernels.cu", "mxu_kernels.cu",
-                                                "p3m_kernels.cu"]
-    assert [h.name for h in _build.HEADERS] == ["sym_common.cuh", "ds_common.cuh",
-                                                "ds_sym_common.cuh"]
+                                                "p3m_kernels.cu", "ring_kernels.cu"]
+    assert [h.name for h in _build.HEADERS] == ["allpairs_common.cuh", "sym_common.cuh",
+                                                "ds_common.cuh", "ds_sym_common.cuh"]
     # every source and header in csrc/ is built and hashed
     assert sorted(p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")) == \
         sorted(p.name for p in (*_build.SOURCES, *_build.HEADERS))

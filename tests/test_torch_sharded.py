@@ -361,8 +361,11 @@ def test_auto_strategy_resolves_as_choose_strategy(n, d):
                         mesh=types.SimpleNamespace(axis_names=("rows", "cols"))), "#13"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), strategy="sym"),
      "#13"),
-    (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
-                        strategy="ring_fused"), "Queue 2 #20"),
+    # the ring_fused refusals, Hermite and backend="torch"; their ids name the
+    # ROADMAP item that brought ring_fused (Queue 2 #20)
+    pytest.param(lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
+                                    strategy="ring_fused", integrator="hermite"),
+                 "ring_fused fuses the Euler update", id="<lambda>-Queue 2 #20_0"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), variant="sym"),
      "single-device"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), kernel="p3m"),
@@ -375,7 +378,10 @@ def test_auto_strategy_resolves_as_choose_strategy(n, d):
                           strategy="ring_fused"), "ring_fused/sym are fp32"),
     (lambda: DSBodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), variant="sym"),
      "single device"),
-    (lambda: make_sharded_step(_fake_mesh(), strategy="ring_fused"), "Queue 2 #20"),
+    pytest.param(lambda: make_sharded_step(_fake_mesh(), strategy="ring_fused",
+                                           backend="torch"),
+                 "strategy='ring_fused' is a CUDA kernel; use backend='cuda'",
+                 id="<lambda>-Queue 2 #20_1"),
     (lambda: make_sharded_step(_fake_mesh(), strategy="sym"), "#13"),
     (lambda: make_sharded_step(_fake_mesh(), integrator="rk4"), "integrator"),
     (lambda: make_sharded_ds_step(_fake_mesh(), strategy="ring_fused"), "'allgather' or"),

@@ -102,15 +102,40 @@ def _shard(mesh, a):
     return torch.from_numpy(np.ascontiguousarray(a[shard_rows(mesh, a.shape[0])]))
 
 
-def fp32_step(strategy, integrator, variant, pos, vel, dt, soft, damp):
-    """One fp32 sharded step of the whole (pos, vel); this rank's shard out."""
+def fp32_step(strategy, integrator, variant, pos, vel, dt, soft, damp, backend="torch",
+              steps=1):
+    """`steps` fp32 sharded steps of the whole (pos, vel); this rank's shard
+    out."""
     from nbody_tpu_torch.parallel import make_sharded_step
 
     mesh = _mesh()
-    step = make_sharded_step(mesh, backend="torch", strategy=strategy, integrator=integrator,
+    step = make_sharded_step(mesh, backend=backend, strategy=strategy, integrator=integrator,
                              variant=variant)
-    p, v = step(_shard(mesh, pos), _shard(mesh, vel), dt, soft, damp)
+    p, v = _shard(mesh, pos), _shard(mesh, vel)
+    for _ in range(steps):
+        p, v = step(p, v, dt, soft, damp)
+    step.close()
     return p.numpy(), v.numpy()
+
+
+def fused_ring_over_hosts(m):
+    """The error open_fused_ring raises on a card mesh whose ranks name
+    different hosts (each rank its own here; the block count is stubbed,
+    since the refusal comes before any buffer is made)."""
+    import dataclasses
+    from unittest import mock
+
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.parallel import sharded
+
+    mesh = dataclasses.replace(_mesh(), device=torch.device("cuda", 0))
+    with mock.patch.object(sharded.socket, "gethostname", lambda: f"host{mesh.rank}"), \
+            mock.patch.object(ck, "ring_groups", lambda *args: 1):
+        try:
+            sharded.open_fused_ring(mesh, m, 256)
+        except ValueError as e:
+            return str(e)
+    return None
 
 
 def ds_step(strategy, integrator, planes, scal, steps=1):
