@@ -150,17 +150,36 @@ its result:
      single-device step times beside the mesh's and the same steps on one
      device: the ring Euler equal bit for bit (leapfrog and Hermite within
      5e-9, bit equality reported);
+  3e. the kernels of the JAX package's three experiment scripts against
+     their plain versions at N in {1000, 4099, 65536}, masses from [0.5, 2],
+     a random vel.w and damping 0.5 at 4099 and 65536: the dual-bank step
+     (blocks 64, 128, 256) and the packed-state step (128, 256) by phase
+     3's bounds, each bit-equal to the step kernel at the same block (the
+     packed one also to a step_t step, its planes to its new positions);
+     the sym triangle's reaction ablations (none, tree_small, full) at
+     tiles 128, 256 and 1024: the action and the full reaction within
+     1e-4 * max|a| + 1e-4 of plain, the tree_small slots within 1e-4 of
+     each tile pair's sum of |terms|, the full total bit-equal to
+     sym_accel_cuda, the three actions bit-equal; repeat calls bit-equal;
+     the production kernels' registers (step, step_t, sym_tri<8>) those of
+     the build before this slice; times at N=65536 in turns beside the
+     kernel each one varies;
+  5e. the ports of the experiment scripts as a user runs them, at N=65536:
+     scripts/torch_r3_dualbank.py, scripts/torch_r3_packed.py and
+     scripts/torch_r4_sym_budget.py 65536, in this process;
   7. the CLI in subprocesses: --qatest, --benchmark, --variant sym with
      --integrator leapfrog --qatest and with --benchmark, --integrator
      hermite with --qatest and with --drift-check 3, --variant mxu --qatest,
      --variant mxu_bf16 --benchmark, and --precision ds with --qatest,
      --benchmark, --integrator leapfrog --qatest, --drift-check 10, and
-     --integrator hermite --qatest (N=4096) and --benchmark, and --kernel
-     p3m --numbodies 65536 --benchmark -i 3.
+     --integrator hermite --qatest (N=4096) and --benchmark, --qatest with
+     --variant mxu_bf16 --hostmem --kernel p3m (flags the ds modes run
+     without, each named), and --kernel p3m --numbodies 65536 --benchmark
+     -i 3.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
-tensor-core path's, 5r the rollout's, 5p the P3M path's and 5x the
-sharded path's: the kernels' launch counters are
+tensor-core path's, 5r the rollout's, 5p the P3M path's, 5x the
+sharded path's and 5e the experiment scripts': the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
 have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
@@ -223,7 +242,12 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "p3m_sr": "nbody_tpu_torch/csrc/p3m_kernels.cu",
-           "ring_fused": "nbody_tpu_torch/csrc/ring_kernels.cu"}
+           "ring_fused": "nbody_tpu_torch/csrc/ring_kernels.cu",
+           "step_dual": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "step_packed": "nbody_tpu_torch/csrc/nbody_kernels.cu",
+           "sym_ablate_full": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
+           "sym_ablate_none": "nbody_tpu_torch/csrc/symmetric_kernels.cu",
+           "sym_ablate_tree_small": "nbody_tpu_torch/csrc/symmetric_kernels.cu"}
 REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "step_t": "nbody_tpu/ops/pallas_kernel.py:202",
             "mxu_step": "nbody_tpu/ops/pallas_kernel.py:171",
@@ -244,7 +268,12 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
             "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839",
             "p3m_sr": "nbody_tpu/ops/p3m_kernel.py:250",
-            "ring_fused": "nbody_tpu/ops/ring_kernel.py:219"}
+            "ring_fused": "nbody_tpu/ops/ring_kernel.py:219",
+            "step_dual": "scripts/tpu_r3_dualbank.py:36",
+            "step_packed": "scripts/tpu_r3_packed.py:33",
+            "sym_ablate_full": "scripts/tpu_r4_sym_budget.py:58",
+            "sym_ablate_none": "scripts/tpu_r4_sym_budget.py:58",
+            "sym_ablate_tree_small": "scripts/tpu_r4_sym_budget.py:58"}
 NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
          "accel": "nbody_accel_f32",
@@ -256,7 +285,11 @@ NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
          "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
-         "ring_fused": "nbody_ring_accel_f32"}
+         "ring_fused": "nbody_ring_accel_f32", "step_dual": "nbody_step_dual_f32",
+         "step_packed": "nbody_step_packed_f32",
+         "sym_ablate_full": "nbody_sym_ablate_f32 (reaction=full)",
+         "sym_ablate_none": "nbody_sym_ablate_f32 (reaction=none)",
+         "sym_ablate_tree_small": "nbody_sym_ablate_f32 (reaction=tree_small)"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 MXU_KERNELS = ("mxu_step", "mxu_bf16_step")
 # FP32-pipe instructions an mxu pair, read from csrc/mxu_kernels.cu: s is 3
@@ -284,6 +317,15 @@ DS_DRIFT_INSTR = 60
 # csrc/ds_aj_kernels.cu and csrc/ds_symmetric_aj_kernels.cu)
 DS_AJ_PAIR_INSTR = 452
 DS_AJ_SYM_PAIR_INSTR = 608
+# the kernels of the JAX package's experiment scripts (phases 3e and 5e)
+EXPERIMENT_KERNELS = ("step_dual", "step_packed", "sym_ablate_full", "sym_ablate_none",
+                      "sym_ablate_tree_small")
+# the production kernels whose template the experiment kernels share, by a
+# piece of their mangled names, and their registers (ptxas -v) in the build
+# before the templates took the experiments' arguments
+PRODUCTION_MANGLED = {"step_kernel": "11step_kernelE", "step_t_kernel": "13step_t_kernelE",
+                      "sym_tri_kernel<8>": "14sym_tri_kernelILi8EE"}
+PRODUCTION_REGISTERS = {"step_kernel": 32, "step_t_kernel": 32, "sym_tri_kernel<8>": 127}
 
 
 def check(ok: bool, what: str) -> None:
@@ -299,15 +341,9 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def phase_device(torch) -> str:
     from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.utils.timing import card_line
 
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -315,7 +351,7 @@ def phase_device(torch) -> str:
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                              check=True, timeout=60).stdout
     release = [ln for ln in version.splitlines() if "release" in ln]
-    smi = nvidia_smi_line()
+    smi = card_line()
     print(f"[1 device] {name}, compute capability {cap[0]}.{cap[1]}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {release[0].strip() if release else version.strip()}")
@@ -2001,6 +2037,237 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
     return err
 
 
+def ptxas_registers(usage: dict, key: str) -> int:
+    """The registers ptxas gives the one kernel whose mangled name holds `key`."""
+    found = [u["registers"] for name, u in usage.items() if key in name]
+    check(len(found) == 1, f"ptxas reported {len(found)} kernels matching {key!r}")
+    return found[0]
+
+
+def phase_experiment_kernels(torch) -> dict:
+    """3e. The kernels of the JAX package's three experiment scripts against
+    their plain versions on the card, at N in {1000, 4099, 65536}, with
+    masses from [0.5, 2], a random vel.w and damping 0.5 at 4099 and 65536:
+    the dual-bank step (reference.nbody_step) at blocks 64, 128 and 256 and
+    the packed-state step (reference.nbody_step_packed) at 128 and 256, by
+    phase 3's bounds, each bit-equal to the step kernel at the same block,
+    the packed one also to one step_t step and its planes to its new
+    positions; the sym triangle's reaction ablations
+    (reference.sym_ablated_accel) at tiles 128, 256 and 1024: the action
+    within 1e-4 * max|a| + 1e-4 of the plain action (max|a| of the whole
+    force), the full reaction likewise, the tree_small slots within 1e-4
+    of each tile pair's sum of |terms| (reference.sym_reaction_slots), the
+    full variant's total bit-equal to sym_accel_cuda at the same tile, and
+    the none and tree_small actions bit-equal to the full one; every
+    repeat call bit-equal. The production kernels' registers (ptxas) must
+    be those of the parent's build (PRODUCTION_REGISTERS). Times at
+    N=65536 in turns beside the kernel each one varies."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import reference
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    for src, kernels in (("nbody_kernels.cu", ("step_kernel", "step_t_kernel")),
+                         ("symmetric_kernels.cu", ("sym_tri_kernel<8>",))):
+        usage = _build.ptxas_usage(src)
+        for line in _build.ptxas_lines(src, usage=usage):
+            print(f"[3e ptxas] {line}")
+        for k in kernels:
+            regs = ptxas_registers(usage, PRODUCTION_MANGLED[k])
+            print(f"[3e ptxas] {k}: {regs} registers (the parent's build: "
+                  f"{PRODUCTION_REGISTERS[k]})")
+            check(regs == PRODUCTION_REGISTERS[k], f"{k} changed its registers: {regs}")
+
+    dev = torch.device("cuda", 0)
+    demo = DEMO_PARAMS[0]
+    dt, soft, damp = demo.time_step, demo.softening, demo.damping
+    err = {k: 0.0 for k in EXPERIMENT_KERNELS}
+    cases = [(1000, False, damp), (4099, True, 0.5), (N_MAIN, True, 0.5)]
+    for n, rand_w, dmp in cases:
+        p, v = shell_state(torch, n, random_w=rand_w)
+        what = f"N={n} damping={dmp}" + (", random masses and vel.w" if rand_w else "")
+        rp, rv = reference.nbody_step(p, v, dt, soft, dmp)
+        tol_a = 1e-4 * reference.compute_accel(p, soft).abs().max().item() + 1e-4
+        tol_v, tol_p = 1e-5 + dt * tol_a, 1e-5 + dt * dt * tol_a
+        state = torch.cat([p, v], dim=1)
+        planes = p.t().contiguous()
+        for bs in (64, 128, 256):
+            sp, sv = ck.nbody_step_cuda(p, v, dt, soft, dmp, block_size=bs)
+            gp, gv = ck.nbody_step_dual_cuda(p, v, dt, soft, dmp, block_size=bs)
+            hp, hv = ck.nbody_step_dual_cuda(p, v, dt, soft, dmp, block_size=bs)
+            e_p, e_v = (gp - rp).abs().max().item(), (gv - rv).abs().max().item()
+            same = bool(torch.equal(gp, sp) and torch.equal(gv, sv))
+            again = bool(torch.equal(gp, hp) and torch.equal(gv, hv))
+            print(f"[3e dual] {what} block {bs}: max|dpos|={e_p:.3e} (tol {tol_p:.3e}) "
+                  f"max|dvel|={e_v:.3e} (tol {tol_v:.3e}); bit-equal to the step kernel: "
+                  f"{same}; repeat bit-equal: {again}")
+            check(e_p <= tol_p and e_v <= tol_v, f"dual step disagrees with plain at {what}")
+            check(same, f"dual step differs from the step kernel at {what} block {bs}")
+            check(again, f"dual step differs between two calls at {what} block {bs}")
+            err["step_dual"] = max(err["step_dual"], e_p, e_v)
+            if bs == 64:
+                continue
+            ns, npl = ck.nbody_step_packed_cuda(state, planes, dt, soft, dmp, block_size=bs)
+            rs, rpl = ck.nbody_step_packed_cuda(state, planes, dt, soft, dmp, block_size=bs)
+            tp, tv = ck.nbody_rollout_cuda(p, v, dt, soft, dmp, steps=1, block_size=bs)
+            want_s, want_pl = reference.nbody_step_packed(state, planes, dt, soft, dmp)
+            e_p = (ns[:, :4] - want_s[:, :4]).abs().max().item()
+            e_v = (ns[:, 4:] - want_s[:, 4:]).abs().max().item()
+            same = bool(torch.equal(ns[:, :4], sp) and torch.equal(ns[:, 4:], sv))
+            same_t = bool(torch.equal(ns[:, :4], tp) and torch.equal(ns[:, 4:], tv))
+            kept = bool(torch.equal(npl, ns[:, :4].t()))
+            again = bool(torch.equal(ns, rs) and torch.equal(npl, rpl))
+            print(f"[3e packed] {what} block {bs}: max|dpos|={e_p:.3e} max|dvel|={e_v:.3e}; "
+                  f"bit-equal to the step kernel: {same}, to step_t: {same_t}; planes are "
+                  f"the new positions: {kept}; repeat bit-equal: {again}")
+            check(e_p <= tol_p and e_v <= tol_v, f"packed step disagrees with plain at {what}")
+            check(same and same_t, f"packed step differs from step / step_t at {what} "
+                  f"block {bs}")
+            check(kept and again, f"packed planes or repeat wrong at {what} block {bs}")
+            err["step_packed"] = max(err["step_packed"], e_p, e_v)
+        del p, v, rp, rv, state, planes
+
+        p, _ = shell_state(torch, n, random_w=rand_w)
+        act, react = reference.sym_ablated_accel(p, soft, reaction="full", tile=128)
+        tol_a = 1e-4 * (act + react.t()).abs().max().item() + 1e-4
+        for tile in ((128, 1024) if n == 1000 else (256, 1024) if n == 4099 else (1024,)):
+            prod = ck.sym_accel_cuda(p, soft, tile=tile)
+            got = {r: ck.sym_ablated_accel_cuda(p, soft, reaction=r, tile=tile)
+                   for r in reference.SYM_REACTIONS}
+            acc_f, react_f, total = ck.sym_ablated_accel_cuda(p, soft, reaction="full",
+                                                              tile=tile, with_total=True)
+            again = {r: ck.sym_ablated_accel_cuda(p, soft, reaction=r, tile=tile)
+                     for r in reference.SYM_REACTIONS}
+            slots, scale = reference.sym_reaction_slots(p, soft, tile=tile)
+            for r in reference.SYM_REACTIONS:
+                acc, rr = got[r]
+                e = (acc - act).abs().max().item()
+                line = f"action max|da|={e:.3e} (tol {tol_a:.3e})"
+                ok = e <= tol_a
+                if r == "full":
+                    e_r = (rr - react).abs().max().item()
+                    line += f", reaction max|d|={e_r:.3e}"
+                    ok = ok and e_r <= tol_a
+                    e = max(e, e_r)
+                elif r == "tree_small":
+                    ratio = ((rr.double() - slots).abs() / (1e-4 * scale + 1e-30)).max().item()
+                    line += f", slots max error / (1e-4 sum|terms|) = {ratio:.3e}"
+                    ok = ok and ratio <= 1.0
+                same = all(torch.equal(a, b) for a, b in zip(got[r], again[r])
+                           if a is not None)
+                eq_full = bool(torch.equal(acc, acc_f))
+                print(f"[3e ablate] {r} {what} tile {tile}: {line}; action bit-equal to "
+                      f"full's: {eq_full}; repeat bit-equal: {same}")
+                check(ok, f"ablation {r} disagrees with plain at {what} tile {tile}")
+                check(same, f"ablation {r} differs between two calls at {what} tile {tile}")
+                # the ablations pin |d|^2's contraction (csrc tile_pair's PIN)
+                check(eq_full, f"ablation {r}'s action differs from full's at {what}")
+                err[f"sym_ablate_{r}"] = max(err[f"sym_ablate_{r}"], e)
+            same = bool(torch.equal(total, prod))
+            print(f"[3e ablate] full {what} tile {tile}: total bit-equal to sym_accel_cuda: "
+                  f"{same}")
+            check(same, f"the full ablation's total differs from sym_accel at {what}")
+
+    # times at N=65536 in turns beside the kernel each one varies
+    p, v = shell_state(torch, N_MAIN)
+    state = torch.cat([p, v], dim=1)
+    planes = p.t().contiguous()
+    bufs = [(torch.empty_like(p), torch.empty_like(v)) for _ in range(2)]
+    reps, k = 20, 10
+
+    def step_roll(step, bs):
+        def run():
+            a, b = p, v
+            for i in range(k):
+                a, b = step(a, b, dt, soft, damp, block_size=bs, out=bufs[i % 2])
+        return run
+
+    def per_step(fn):
+        fn()
+        return elapsed_ms(fn, dev) / k
+
+    dual_ms = {}
+    for bs in (64, 128, 256):
+        ms = {"step": [], "dual": []}
+        for name in ("step", "dual", "dual", "step"):
+            step = ck.nbody_step_cuda if name == "step" else ck.nbody_step_dual_cuda
+            ms[name].append(per_step(step_roll(step, bs)))
+        dual_ms[bs] = min(ms["dual"])
+        print(f"[3e times] N={N_MAIN} block {bs}, 10-step rolls in turns (step, dual, dual, "
+              f"step): step {ms['step'][0]:.4f} / {ms['step'][1]:.4f}, dual "
+              f"{ms['dual'][0]:.4f} / {ms['dual'][1]:.4f} ms per step")
+    rolls = {"step": step_roll(ck.nbody_step_cuda, 256),
+             "step_t": lambda: ck.nbody_rollout_cuda(p, v, dt, soft, damp, steps=k),
+             "packed": lambda: ck.nbody_rollout_packed_cuda(state, dt, soft, damp, steps=k)}
+    ms = {name: [] for name in rolls}
+    for name in ("step", "step_t", "packed", "packed", "step_t", "step"):
+        ms[name].append(per_step(rolls[name]))
+    print(f"[3e times] N={N_MAIN} block 256, 10-step rolls in turns (step, step_t, packed, "
+          f"packed, step_t, step): " + ", ".join(
+              f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in ms.items()) + " ms per step")
+    packed_ms = min(ms["packed"])
+    tile = ck.DEFAULT_SYM_TILE
+    runs = {"sym": lambda: ck.sym_accel_cuda(p, soft, tile=tile),
+            **{r: (lambda r=r: ck.sym_ablated_accel_cuda(p, soft, reaction=r, tile=tile))
+               for r in reference.SYM_REACTIONS}}
+    ms = {name: [] for name in runs}
+    order = ("sym", "none", "tree_small", "full")
+    for name in order + order[::-1]:
+        runs[name]()
+        ms[name].append(elapsed_ms(lambda name=name: [runs[name]() for _ in range(reps)], dev)
+                        / reps)
+    print(f"[3e times] N={N_MAIN} tile {tile}, in turns (sym, none, tree_small, full, full, "
+          f"tree_small, none, sym): " + ", ".join(
+              f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in ms.items()) + " ms per call")
+
+    plain = {"step_dual": lambda: reference.nbody_step(p, v, dt, soft, damp),
+             "step_packed": lambda: reference.nbody_step_packed(state, planes, dt, soft, damp),
+             **{f"sym_ablate_{r}": (lambda r=r: reference.sym_ablated_accel(
+                 p, soft, reaction=r, tile=tile)) for r in reference.SYM_REACTIONS}}
+    times = {"step_dual": dual_ms[256], "step_packed": packed_ms,
+             **{f"sym_ablate_{r}": min(ms[r]) for r in reference.SYM_REACTIONS}}
+    pairs = float(N_MAIN) * N_MAIN
+    half = float(N_MAIN) * (N_MAIN - 1) / 2
+    tiles = -(-N_MAIN // tile)
+    # flops a pair by the reference's counts (20 one side, 28 both sides of
+    # a pair); each input read once, each output written once
+    bounds = {"step_dual": bound_ms(20.0 * pairs, 4 * N_MAIN * 16),
+              "step_packed": bound_ms(20.0 * pairs, N_MAIN * (32 + 16) * 2),
+              "sym_ablate_none": bound_ms(20.0 * half, N_MAIN * (16 + 12)),
+              "sym_ablate_tree_small": bound_ms(28.0 * half, N_MAIN * (16 + 12)
+                                                + tiles * (tiles + 1) // 2 * 12),
+              "sym_ablate_full": bound_ms(28.0 * half, N_MAIN * (16 + 12 + 12))}
+    out = {}
+    for key, fn in plain.items():
+        fn()
+        t_p = elapsed_ms(fn, dev)
+        out[key] = (times[key], t_p)
+        print(f"[3e times] {key} at N={N_MAIN}: kernel {times[key]:.4f} ms, plain {t_p:.3f} "
+              f"ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
+    return {"err": err, "times": out, "bounds": bounds}
+
+
+def phase_experiment_main(torch, smi: str) -> None:
+    """5e. The ports of the three experiment scripts as a user runs them, at
+    N=65536 (their default): scripts/torch_r3_dualbank.py,
+    scripts/torch_r3_packed.py and scripts/torch_r4_sym_budget.py 65536,
+    each in this process, so that their launches count; each must exit 0."""
+    import importlib.util
+
+    for name, argv in (("torch_r3_dualbank", []), ("torch_r3_packed", []),
+                       ("torch_r4_sym_budget", [str(N_MAIN)])):
+        path = ROOT / "scripts" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        t0 = time.perf_counter()
+        code = module.main(argv)
+        print(f"[5e scripts] {path.relative_to(ROOT)} {' '.join(argv)} exited {code} in "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        check(code == 0, f"{path.name} exited {code}")
+
+
 def phase_qa(torch, ck, variant: str, integrator: str, tag: str) -> None:
     from nbody_tpu_torch.compute import Compute
 
@@ -2205,7 +2472,11 @@ def phase_cli() -> None:
             (["--precision", "ds", "--integrator", "hermite", "--qatest", "--numbodies", "4096"],
              "-> OK"),
             (["--precision", "ds", "--integrator", "hermite", "--benchmark", "-i", "10"],
-             "double-single-precision"))
+             "double-single-precision"),
+            # the flags nbody_tpu's ds measurement modes run without
+            (["--precision", "ds", "--variant", "mxu_bf16", "--hostmem", "--kernel", "p3m",
+              "--qatest", "--numbodies", "4096"], "--kernel p3m (the all-pairs ds kernels "
+             "run) has no effect"))
     procs = [subprocess.Popen([sys.executable, "-m", "nbody_tpu_torch.cli", *args], cwd=ROOT,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for args, _ in runs]
@@ -2274,6 +2545,7 @@ def main() -> int:
     ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
     ring_kern = timed("3rf ring kernel", phase_ring_kernel, torch)
     timed("3ri ring between two processes", phase_ring_ipc)
+    exp_kern = timed("3e experiment kernels", phase_experiment_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -2340,6 +2612,10 @@ def main() -> int:
     launches["ds_accel"] = sharded_launches["ds_accel"]
     launches["ring_fused"] = sharded_launches["ring_fused"]
     timed("5x single-device comparisons", phase_sharded_single, torch, smi, mesh_runs)
+    exp_launches = timed("5e experiment scripts", run_path, ck, EXPERIMENT_KERNELS,
+                         lambda: phase_experiment_main(torch, smi))
+    for k in EXPERIMENT_KERNELS:
+        launches[k] = exp_launches[k]
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
 
@@ -2352,7 +2628,7 @@ def main() -> int:
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
                    **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **ds_accel_kern[key],
-                   **ring_kern[key]}
+                   **ring_kern[key], **exp_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{
         "name": NAMES[k],

@@ -23,7 +23,10 @@ Modes:
 --precision ds runs the double-single (fp64-grade) kernels, default N 16384
 (BASELINE.json configs[2]), with Euler, leapfrog or Hermite, QA against the
 float64 oracle at |dpos| <= 1e-10 and the force (and with Hermite the jerk)
-at 1e-10 of its largest value.
+at 1e-10 of its largest value. Like nbody_tpu's ds measurement modes it
+runs without --hostmem, --kernel and a --variant other than auto or sym
+(vpu, mxu and mxu_bf16 run the ds default), and prints one line for each
+such flag that has no effect.
 
 --kernel p3m runs the P3M fast mode (PM long range + exact short range on
 the CUDA pair kernel), Euler or leapfrog, fp32: its QA gates positions only
@@ -187,27 +190,41 @@ def _mesh(args):
     return make_mesh(args.devices, device="cpu" if args.cpu else None)
 
 
+def _ds_ignored_flags(args) -> list:
+    """The flags the ds measurement modes run without, as nbody_tpu's
+    ``_run_ds`` does (cli.py:454-462, 244-427: its DSBodySystem takes no
+    variant, placement or kernel): each is reset to what the ds system runs
+    and named in the returned list. --variant sym is kept; vpu, mxu and
+    mxu_bf16 run the ds default, as ``Compute(precision="ds")`` maps them."""
+    ignored = []
+    if args.variant not in ("auto", "sym"):
+        ignored.append(f"--variant {args.variant} (the ds default, auto, runs)")
+        args.variant = "auto"
+    if args.hostmem:
+        ignored.append("--hostmem (the ds state stays on the device)")
+        args.hostmem = False
+    if args.kernel != "auto":
+        ignored.append(f"--kernel {args.kernel} (the all-pairs ds kernels run)")
+        args.kernel = "auto"
+    return ignored
+
+
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.benchmark or args.compare or args.qatest or args.drift_check is not None):
         raise ValueError("choose --benchmark, --compare/--qatest or --drift-check "
                          "(the demo loop comes with ROADMAP.md Queue 1 #9)")
-    if args.drift_check is not None and args.drift_check < 1:
-        raise ValueError(f"--drift-check needs at least 1 step; got {args.drift_check}")
+    if args.drift_check is not None and args.drift_check < 0:
+        raise ValueError(f"--drift-check takes a number of steps >= 0; got {args.drift_check}")
+    if args.numbodies is not None and args.numbodies < 1:
+        raise ValueError(f"--numbodies must be at least 1; got {args.numbodies}")
 
     ds = args.precision == "ds"
     if args.precision == "fp64":
         from nbody_tpu_torch.models.body_system import not_ported
 
         raise not_ported("--precision", "fp64", key="fp64")
-    if ds:
-        # the scope of nbody_tpu's ds modes (cli.py:447-495) that concerns
-        # the port's slices so far
-        if args.hostmem:
-            raise ValueError("--precision ds keeps its state on the device (no --hostmem), "
-                             "as nbody_tpu does")
-        if args.variant not in ("auto", "sym"):
-            raise ValueError(f"--precision ds variants are auto/sym (got {args.variant})")
+    ignored = _ds_ignored_flags(args) if ds else []
     p3m = args.kernel == "p3m"
 
     import numpy as np
@@ -217,6 +234,9 @@ def _main(argv=None) -> int:
 
     mesh = _mesh(args)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+
+    for flag in ignored:
+        say(f"--precision ds: {flag} has no effect")
 
     tipsy_state = None
     if args.tipsy:
@@ -228,7 +248,7 @@ def _main(argv=None) -> int:
         say(f"Read {tipsy_state[0].shape[0]} bodies from {args.tipsy}")
 
     compute = Compute(
-        num_bodies=args.numbodies or (16384 if ds else None),
+        num_bodies=16384 if ds and args.numbodies is None else args.numbodies,
         device="cpu" if args.cpu else "cuda",
         block_size=args.block_size,
         placement="host" if args.hostmem else "device",

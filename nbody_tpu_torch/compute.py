@@ -226,12 +226,18 @@ class Compute:
 
     def _from_rank0(self, judge):
         """judge() on rank 0 of the mesh (its oracle work runs there alone),
-        its result given to every rank; judge() itself without a mesh."""
+        its result given to every rank; judge() itself without a mesh. The
+        other ranks wait on the mesh's judge group, whose timeout
+        (``parallel.mesh.JUDGE_TIMEOUT``) outlasts any judge, not the body
+        group's, which a long oracle run on rank 0 would outlast."""
         if self.mesh is None:
             return judge()
         box = [judge() if self.mesh.rank == 0 else None]
-        dist.broadcast_object_list(box, src=0, group=self.mesh.group,
-                                   device=self.mesh.device)
+        if self.mesh.judge_group is None:
+            dist.broadcast_object_list(box, src=0, group=self.mesh.group,
+                                       device=self.mesh.device)
+        else:
+            dist.broadcast_object_list(box, src=0, group=self.mesh.judge_group)
         return box[0]
 
     # ---- demo state machine ----
@@ -383,9 +389,10 @@ class Compute:
         the ds grade (``horizon_delta``), then on to `steps`, where chaos
         has amplified the rounding differences and the fp32 path's scale
         gate applies (``delta``). ``cli.drift_failed`` reads both. The state
-        is restored bit for bit after."""
-        if steps < 1:
-            raise ValueError(f"the drift check needs at least 1 step; got {steps}")
+        is restored bit for bit after. steps=0 measures the horizon tier over
+        0 steps (drifts 0), as nbody_tpu's ``_run_ds`` does."""
+        if steps < 0:
+            raise ValueError(f"the drift check takes steps >= 0; got {steps}")
         p = self.active_params
         soft = p.softening
         planes0 = self.system.get_ds_state()
@@ -394,7 +401,7 @@ class Compute:
         tiers = []
         done = 0
         for key, upto in (("horizon_", min(steps, DS_PARITY_HORIZON)), ("", steps)):
-            if upto > done:
+            if upto > done or not tiers:
                 self.system.update_many(upto - done, p.time_step)
                 self.system.synchronize()
                 tiers.append((key, upto, upto - done,
@@ -409,9 +416,10 @@ class Compute:
             op, ov = pos0, vel0
             out = {"steps": steps}
             for key, upto, n, dev in tiers:
-                if n > 0:
-                    op, ov = _oracle_rollout(op, ov, p.time_step, soft, p.damping, steps=n,
-                                             integrator=self.system.integrator)
+                if dev is not None:
+                    if n > 0:
+                        op, ov = _oracle_rollout(op, ov, p.time_step, soft, p.damping,
+                                                 steps=n, integrator=self.system.integrator)
                     e_dev = total_energy_f64(*dev, soft)
                     e_ora = total_energy_f64(op, ov, soft)
                     drift_dev = (e_dev - e0) / abs(e0) if e0 else 0.0

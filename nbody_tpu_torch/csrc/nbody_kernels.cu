@@ -1,8 +1,10 @@
 // All-pairs Plummer gravity for Hopper (sm_90a), one-sided: the fused Euler
-// step and its transposed-carry twin, the force-only kernel, the accel + jerk
-// kernel and the potential kernel of nbody_tpu_torch.
+// step, its transposed-carry, dual-bank and packed-state twins, the
+// force-only kernel, the accel + jerk kernel and the potential kernel of
+// nbody_tpu_torch.
 //
-// Replaces five Pallas TPU kernels of the JAX package:
+// Replaces seven Pallas TPU kernels, five of the JAX package and two of its
+// experiment scripts:
 //   nbody_step_f32       <- nbody_tpu/ops/pallas_kernel.py::_step_kernel
 //                           (nbody_step_pallas_vs / nbody_step_pallas)
 //   nbody_step_t_f32     <- nbody_tpu/ops/pallas_kernel.py::_step_kernel_t
@@ -13,6 +15,10 @@
 //                           (compute_accel_jerk_pallas)
 //   nbody_potential_f32  <- nbody_tpu/ops/pallas_kernel.py::_potential_kernel
 //                           (potential_energy_pallas's per-row sums)
+//   nbody_step_dual_f32  <- scripts/tpu_r3_dualbank.py::_dual_kernel
+//                           (def :36, pallas_call :115; step_dual)
+//   nbody_step_packed_f32 <- scripts/tpu_r3_packed.py::_packed_kernel
+//                           (def :33, pallas_call :81; step_packed)
 // The first two compute, for the i-set (M bodies) under the j-set (N bodies),
 //   d = p_j - p_i;  r2 = |d|^2 + eps2;  inv = rsqrtf(r2);  s = m_j * inv^3;
 //   a_i += s * d
@@ -81,6 +87,30 @@
 // lose by more than that. No path of the port calls it, as no path of the
 // JAX package calls nbody_rollout_pallas.
 //
+// The dual-bank step (step_dual_kernel): the step kernel with two i-bodies a
+// thread, rows u * blockDim.x apart, and two independent accumulator sets
+// (fused_step<2, 1>). On the TPU the script split a 128-row i-tile into two
+// 64-row banks to halve the per-tile boundary cost and keep two dependency
+// chains. On Hopper the chains are the point: each staged j-body, one
+// shared-memory broadcast, feeds two rows, so a pair costs half a broadcast
+// and the FMA pipe has two independent chains to interleave. The bound is
+// the step kernel's (20 flops a pair). Each row sums its j-bodies in the
+// step kernel's order, so at the same block size the two give the same
+// bits. The cost: a block covers 2 * blockDim.x rows, so at N = 65536 and
+// block 256 there are 128 blocks for 132 SMs. Measured there on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py 3e, PERF.md): 3.278 ms against the step
+// kernel's 3.529, 7-10 % ahead at blocks 64 and 128 too.
+//
+// The packed-state step (step_packed_kernel): the step with body i's state
+// as one 32-byte row [pos | vel] of an (N, 8) array (fused_step<1, 2>),
+// read once and written once, and the j-side from the (4, N) planes, whose
+// next copy it writes as step_t_kernel does. On the TPU packing halved the
+// per-i-tile DMA count. On Hopper it changes only the O(N) i-side traffic,
+// so it times what the planes and the row layout cost beside step_kernel
+// and step_t_kernel, with which it agrees bit for bit (the same j order and
+// operations). Measured at N = 65536 on the same card: 3.377 ms, step_t
+// 3.280, the step kernel 3.529.
+//
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
 // (float4 loads), acc (M,3). The caller makes the arrays' device current; the
@@ -108,10 +138,50 @@ struct PlanesJ {
   }
 };
 
-// The fused Euler step of one i-body, shared by step_kernel and
-// step_t_kernel so that the two give the same bits; with `new_post`, the new
-// position is also written into the (4, m) planes.
-template <class JLoad>
+// The one-sided j-loop for ROWS i-bodies a thread (accumulate_all_j's, with
+// ROWS independent accumulator sets): each staged j-body, one shared-memory
+// broadcast, meets the thread's ROWS i-bodies in turn. Each row adds the same
+// terms in the same j order as accumulate_all_j, so its sums have the same
+// bits.
+template <int ROWS, class JLoad>
+__device__ __forceinline__ void accumulate_rows(const float4 (&pi)[ROWS], const JLoad load_j,
+                                                const int64_t n, const float eps2,
+                                                float4* tile, float (&ax)[ROWS],
+                                                float (&ay)[ROWS], float (&az)[ROWS]) {
+  const int bs = blockDim.x;
+  for (int64_t base = 0; base < n; base += bs) {
+    const int64_t j = base + threadIdx.x;
+    tile[threadIdx.x] = (j < n) ? load_j(j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    for (int k = 0; k < bs; ++k) {
+      const float4 pj = tile[k];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const float dx = pj.x - pi[u].x;
+        const float dy = pj.y - pi[u].y;
+        const float dz = pj.z - pi[u].z;
+        const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+        const float inv = rsqrtf(r2);
+        const float s = pj.w * (inv * inv * inv);
+        ax[u] += s * dx;
+        ay[u] += s * dy;
+        az[u] += s * dz;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The fused Euler step of ROWS i-bodies a thread, shared by step_kernel,
+// step_t_kernel, step_dual_kernel and step_packed_kernel so that they give
+// the same bits. A block covers ROWS * blockDim.x rows; row u of a thread is
+// blockIdx.x * ROWS * blockDim.x + u * blockDim.x + threadIdx.x, so each
+// row's loads stay coalesced. Body i's position and velocity are
+// pos_i[STRIDE * i] and vel_i[STRIDE * i] (STRIDE 2: the packed [pos|vel]
+// rows, vel_i = pos_i + 1), and so are the new ones; with `new_post`, the
+// new position is also written into the (4, m) planes. ROWS = 1 runs
+// accumulate_all_j itself.
+template <int ROWS, int STRIDE, class JLoad>
 __device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
                                            const float4* __restrict__ vel_i,
                                            const JLoad load_j, float4* __restrict__ new_pos,
@@ -120,24 +190,41 @@ __device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
                                            const int64_t n, const float dt, const float eps2,
                                            const float damping) {
   extern __shared__ float4 tile[];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // threads past M still stage j-tiles for the rest of the block
-  const float4 pi = (i < m) ? pos_i[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  accumulate_all_j(pi, load_j, n, eps2, tile, ax, ay, az);
-  if (i >= m) return;
-  const float4 vi = vel_i[i];
-  const float vx = (vi.x + ax * dt) * damping;
-  const float vy = (vi.y + ay * dt) * damping;
-  const float vz = (vi.z + az * dt) * damping;
-  const float4 np = make_float4(pi.x + vx * dt, pi.y + vy * dt, pi.z + vz * dt, pi.w);
-  new_vel[i] = make_float4(vx, vy, vz, vi.w);
-  new_pos[i] = np;
-  if (new_post != nullptr) {
-    new_post[i] = np.x;
-    new_post[m + i] = np.y;
-    new_post[2 * m + i] = np.z;
-    new_post[3 * m + i] = np.w;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * blockDim.x + threadIdx.x;
+  float4 pi[ROWS];
+  float ax[ROWS], ay[ROWS], az[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
+    // threads past M still stage j-tiles for the rest of the block
+    pi[u] = (i < m) ? pos_i[STRIDE * i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    ax[u] = 0.f;
+    ay[u] = 0.f;
+    az[u] = 0.f;
+  }
+  if constexpr (ROWS == 1) {
+    accumulate_all_j(pi[0], load_j, n, eps2, tile, ax[0], ay[0], az[0]);
+  } else {
+    accumulate_rows<ROWS>(pi, load_j, n, eps2, tile, ax, ay, az);
+  }
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
+    if (i >= m) return;
+    const float4 vi = vel_i[STRIDE * i];
+    const float vx = (vi.x + ax[u] * dt) * damping;
+    const float vy = (vi.y + ay[u] * dt) * damping;
+    const float vz = (vi.z + az[u] * dt) * damping;
+    const float4 np =
+        make_float4(pi[u].x + vx * dt, pi[u].y + vy * dt, pi[u].z + vz * dt, pi[u].w);
+    new_vel[STRIDE * i] = make_float4(vx, vy, vz, vi.w);
+    new_pos[STRIDE * i] = np;
+    if (new_post != nullptr) {
+      new_post[i] = np.x;
+      new_post[m + i] = np.y;
+      new_post[2 * m + i] = np.z;
+      new_post[3 * m + i] = np.w;
+    }
   }
 }
 
@@ -148,7 +235,22 @@ __global__ void step_kernel(const float4* __restrict__ pos_i,
                             float4* __restrict__ new_vel, const int64_t m,
                             const int64_t n, const float dt, const float eps2,
                             const float damping) {
-  fused_step(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2, damping);
+  fused_step<1, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2,
+                   damping);
+}
+
+// The step of the dual-bank experiment (scripts/tpu_r3_dualbank.py): two
+// i-bodies a thread, two independent accumulator chains, each staged j-body
+// read once from shared memory for both; ceil(m / (2 * blockDim.x)) blocks.
+__global__ void step_dual_kernel(const float4* __restrict__ pos_i,
+                                 const float4* __restrict__ vel_i,
+                                 const float4* __restrict__ pos_j,
+                                 float4* __restrict__ new_pos,
+                                 float4* __restrict__ new_vel, const int64_t m,
+                                 const int64_t n, const float dt, const float eps2,
+                                 const float damping) {
+  fused_step<2, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2,
+                   damping);
 }
 
 // One step of the transposed-carry rollout (nbody_tpu's _step_kernel_t):
@@ -161,7 +263,22 @@ __global__ void step_t_kernel(const float4* __restrict__ pos, const float4* __re
                               float4* __restrict__ new_vel, float* __restrict__ new_post,
                               const int64_t n, const float dt, const float eps2,
                               const float damping) {
-  fused_step(pos, vel, PlanesJ{post, n}, new_pos, new_vel, new_post, n, n, dt, eps2, damping);
+  fused_step<1, 1>(pos, vel, PlanesJ{post, n}, new_pos, new_vel, new_post, n, n, dt, eps2,
+                   damping);
+}
+
+// One step of the packed-state experiment (scripts/tpu_r3_packed.py): body
+// i's row of `state` is 32 bytes, [pos | vel] as two float4, read once and
+// written once into `new_state`; the j-side from the planes `post` (4, n),
+// the new positions also written into the planes `new_post` (4, n), which
+// must not be `post`.
+__global__ void step_packed_kernel(const float4* __restrict__ state,
+                                   const float* __restrict__ post,
+                                   float4* __restrict__ new_state,
+                                   float* __restrict__ new_post, const int64_t n,
+                                   const float dt, const float eps2, const float damping) {
+  fused_step<1, 2>(state, state + 1, PlanesJ{post, n}, new_state, new_state + 1, new_post, n, n,
+                   dt, eps2, damping);
 }
 
 __global__ void accel_kernel(const float4* __restrict__ pos_i,
@@ -293,6 +410,33 @@ int nbody_step_t_f32(const void* pos, const void* vel, const void* post, void* n
       static_cast<const float4*>(pos), static_cast<const float4*>(vel),
       static_cast<const float*>(post), static_cast<float4*>(new_pos),
       static_cast<float4*>(new_vel), static_cast<float*>(new_post), n, dt, eps2, damping);
+  return cudaGetLastError();
+}
+
+int nbody_step_dual_f32(const void* pos_i, const void* vel_i, const void* pos_j,
+                        void* new_pos, void* new_vel, int64_t m, int64_t n, float dt,
+                        float eps2, float damping, int64_t block_size, void* stream) {
+  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
+  step_dual_kernel<<<num_blocks(m, 2 * block_size), static_cast<unsigned int>(block_size),
+                     smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
+      static_cast<const float4*>(pos_j), static_cast<float4*>(new_pos),
+      static_cast<float4*>(new_vel), m, n, dt, eps2, damping);
+  return cudaGetLastError();
+}
+
+int nbody_step_packed_f32(const void* state, const void* post, void* new_state, void* new_post,
+                          int64_t n, float dt, float eps2, float damping, int64_t block_size,
+                          void* stream) {
+  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
+  step_packed_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(state), static_cast<const float*>(post),
+      static_cast<float4*>(new_state), static_cast<float*>(new_post), n, dt, eps2, damping);
   return cudaGetLastError();
 }
 

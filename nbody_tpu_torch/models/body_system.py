@@ -216,6 +216,19 @@ def check_mesh(mesh, device: torch.device, strategy: str, *,
     return int(mesh.size)
 
 
+def device_block_size(block_size, device: torch.device) -> int:
+    """A system's block size on `device`: on a card held to the kernels'
+    rule (``check_block_size``); on the CPU, which has no thread blocks and
+    ignores it (as nbody_tpu's XLA path ignores --blockSize), any positive
+    int."""
+    if device.type == "cuda":
+        return check_block_size(block_size)
+    bs = int(block_size)
+    if bs < 1:
+        raise ValueError(f"block_size must be positive; got {block_size}")
+    return bs
+
+
 class BodySystem:
     """Owns the (pos, vel) state and advances it with the selected backend."""
 
@@ -301,7 +314,7 @@ class BodySystem:
         self.dtype = torch.float32
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
-                           else check_block_size(block_size))
+                           else device_block_size(block_size, self.device))
         # N rounded up so the body shards divide evenly (nbody_tpu's rule)
         self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.params = params
@@ -364,6 +377,15 @@ class BodySystem:
             self._vel[self._cur].copy_(v)
         if self.kernel == "p3m":
             self._probe_p3m_capacity(p)
+
+    def set_positions(self, pos) -> None:
+        """Replace the positions, keeping the velocities (nbody_tpu's
+        ``set_positions``)."""
+        self.set_state(pos, self.velocities)
+
+    def set_velocities(self, vel) -> None:
+        """Replace the velocities, keeping the positions."""
+        self.set_state(self.positions, vel)
 
     def _probe_p3m_capacity(self, pos) -> None:
         """Fail fast when the cell capacity cannot hold this state (an
@@ -612,6 +634,10 @@ class BodySystem:
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""
         _synchronize(self.device)
+
+    # nbody_tpu's names of the same barrier
+    block_until_ready = synchronize
+    hard_sync = synchronize
 
     # ---- diagnostics ----
 

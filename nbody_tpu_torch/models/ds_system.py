@@ -49,10 +49,14 @@ import torch
 
 from nbody_tpu_torch import ic
 from nbody_tpu_torch.config import NBodyConfig
-from nbody_tpu_torch.models.body_system import _as_numpy, check_mesh, resolve_device
+from nbody_tpu_torch.models.body_system import (
+    _as_numpy,
+    check_mesh,
+    device_block_size,
+    resolve_device,
+)
 from nbody_tpu_torch.ops import ds
 from nbody_tpu_torch.ops.cuda_kernel import (
-    check_block_size,
     compute_accel_ds_cuda_vs,
     compute_accel_ds_symmetric_blocked_cuda,
     compute_accel_jerk_ds_cuda_vs,
@@ -129,7 +133,7 @@ class DSBodySystem:
         # N rounded up so the body shards divide evenly (nbody_tpu's rule)
         self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.block_size = (ds_default_block_size(self.num_bodies) if block_size is None
-                           else check_block_size(block_size))
+                           else device_block_size(block_size, self.device))
         self.params = params
         self.config = config
         self.seed = seed
@@ -177,6 +181,15 @@ class DSBodySystem:
             p64 = np.pad(p64, ((0, pad), (0, 0)))
             v64 = np.pad(v64, ((0, pad), (0, 0)))
         self.set_ds_state(*ds.ds_from_f64(p64), *ds.ds_from_f64(v64))
+
+    def set_positions(self, pos) -> None:
+        """Replace the positions, keeping the velocities (nbody_tpu's
+        ``set_positions``)."""
+        self.set_state(pos, self.velocities)
+
+    def set_velocities(self, vel) -> None:
+        """Replace the velocities, keeping the positions."""
+        self.set_state(self.positions, vel)
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         """`t`, a field of this rank's bodies, for the whole system: on a
@@ -370,6 +383,10 @@ class DSBodySystem:
     def synchronize(self) -> None:
         """Wait for every queued step to finish."""
         _synchronize(self.device)
+
+    # nbody_tpu's names of the same barrier
+    block_until_ready = synchronize
+    hard_sync = synchronize
 
     # ---- diagnostics ----
 

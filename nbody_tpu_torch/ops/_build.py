@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -111,6 +112,60 @@ def build() -> pathlib.Path:
     return out
 
 
+def ptxas_usage(source) -> dict:
+    """What ptxas says of each kernel of `source` (a file name in csrc, or a
+    path), compiled once more with -Xptxas -v and the library's flags:
+    {mangled name: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}}, the last four in bytes."""
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+                           str(CSRC / source)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    usage, entry, props, frame = {}, None, None, {}
+    # a kernel's lines come as: Compiling entry function 'K'; Function
+    # properties for K (and for any callee it did not inline); its frame
+    # line; Used ... registers
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            entry, frame = line.split("'")[1], {}
+        elif "Function properties for" in line:
+            props = line.rsplit(" ", 1)[1]
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads", line)) and props == entry:
+            frame = dict(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[entry] = {"registers": int(m.group(1)),
+                            "smem": int(smem.group(1)) if smem else 0,
+                            "stack": 0, "spill_stores": 0, "spill_loads": 0, **frame}
+            entry = None
+    return usage
+
+
+def demangle(names) -> dict:
+    """{mangled: readable} kernel names by the toolkit's cu++filt; each name
+    maps to itself where cu++filt is missing."""
+    names = list(names)
+    filt = pathlib.Path(find_nvcc()).with_name("cu++filt")
+    if not filt.is_file() or not names:
+        return {n: n for n in names}
+    out = subprocess.run([str(filt), *names], capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    return dict(zip(names, (line.replace("(anonymous namespace)::", "") for line in out)))
+
+
+def ptxas_lines(source, *, label: str | None = None, usage: dict | None = None) -> list:
+    """One line per kernel of `source`: its readable name, registers, shared
+    memory, stack frame and spills (``ptxas_usage``, or `usage` where the
+    caller has it), each line led by `label` (by default the file's name)."""
+    usage = ptxas_usage(source) if usage is None else usage
+    names = demangle(usage)
+    label = label or pathlib.Path(source).name
+    return [f"ptxas {label}: {names[k]}: {u['registers']} registers, {u['smem']} bytes smem, "
+            f"{u['stack']} bytes stack frame, {u['spill_stores']} bytes spill stores, "
+            f"{u['spill_loads']} bytes spill loads" for k, u in usage.items()]
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -121,6 +176,11 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_step_f32.restype = ctypes.c_int
     lib.nbody_step_t_f32.argtypes = [ptr] * 6 + [i64, f32, f32, f32, i64, ptr]
     lib.nbody_step_t_f32.restype = ctypes.c_int
+    lib.nbody_step_dual_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                        f32, f32, f32, i64, ptr]
+    lib.nbody_step_dual_f32.restype = ctypes.c_int
+    lib.nbody_step_packed_f32.argtypes = [ptr] * 4 + [i64, f32, f32, f32, i64, ptr]
+    lib.nbody_step_packed_f32.restype = ctypes.c_int
     for name in ("nbody_mxu_step_f32", "nbody_mxu_step_bf16"):
         getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
         getattr(lib, name).restype = ctypes.c_int
@@ -131,6 +191,8 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
                                         ptr, ptr, ptr]
     lib.nbody_sym_cross_f32.restype = ctypes.c_int
+    lib.nbody_sym_ablate_f32.argtypes = [ptr, i64, f32, i64, ctypes.c_int] + [ptr] * 7
+    lib.nbody_sym_ablate_f32.restype = ctypes.c_int
     lib.nbody_accel_jerk_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, f32, i64, ptr]
     lib.nbody_accel_jerk_f32.restype = ctypes.c_int
     lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]

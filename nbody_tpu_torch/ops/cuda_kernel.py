@@ -27,7 +27,13 @@ kernel ``_sr_pair_kernel`` (``nbody_tpu/ops/p3m_kernel.py``) in
 ``csrc/p3m_kernels.cu``, over the tables of ``ops/p3m.py``; and of the
 fused ring kernel ``_kernel`` (``nbody_tpu/ops/ring_kernel.py``) in
 ``csrc/ring_kernels.cu``, with its buffers (``FusedRing``), a real ring of
-processes or an emulated ring of D ranks in one launch on one card.
+processes or an emulated ring of D ranks in one launch on one card; and of
+the three kernels of the JAX package's experiment scripts: the dual-bank
+step (``scripts/tpu_r3_dualbank.py::_dual_kernel``), the packed-state step
+(``scripts/tpu_r3_packed.py::_packed_kernel``) and the sym triangle's
+reaction ablations (``scripts/tpu_r4_sym_budget.py::_ablate_kernel``),
+which the ports of those scripts (``scripts/torch_r3_dualbank.py``,
+``scripts/torch_r3_packed.py``, ``scripts/torch_r4_sym_budget.py``) run.
 
 For a CUDA tensor a wrapper launches its kernel on PyTorch's current stream,
 or raises: when the library cannot be built or loaded, or the launch returns
@@ -60,7 +66,9 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
             "ds_integrate": 0, "ds_accel": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0,
             "ds_aj_sym_cross": 0,
-            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "ring_fused": 0}
+            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "ring_fused": 0,
+            "step_dual": 0, "step_packed": 0, "sym_ablate_full": 0, "sym_ablate_none": 0,
+            "sym_ablate_tree_small": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -264,6 +272,119 @@ def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
             LAUNCHES["step_t"] += 1
             cur = nxt
     return cur
+
+
+# ---- the experiment scripts' one-sided steps: csrc/nbody_kernels.cu ----
+
+
+def nbody_step_dual_cuda(pos, vel, dt, softening, damping, *,
+                         block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """The dual-bank step (the kernel of ``scripts/tpu_r3_dualbank.py``'s
+    ``_dual_kernel``): the fused one-sided Euler step of the set (N,4) on
+    itself with two i-bodies a thread, so a block of `block_size` threads
+    covers 2 * block_size rows. It computes the same function as
+    ``nbody_step_cuda``, whose plain version, ``reference.nbody_step``, is
+    its plain version too; at the same block size each row sums its j-bodies
+    in the step kernel's order. Returns (new_pos, new_vel); ``out`` as for
+    ``nbody_step_cuda``."""
+    device, new_pos, new_vel = _step_outs(pos, vel, pos, out)
+    bs = check_block_size(block_size)
+    if device.type != "cuda":
+        p, v = reference.nbody_step(pos, vel, dt, softening, damping)
+        new_pos.copy_(p)
+        new_vel.copy_(v)
+        return new_pos, new_vel
+    n = pos.shape[0]
+    if n == 0:
+        return new_pos, new_vel
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_step_dual_f32(
+            pos.data_ptr(), vel.data_ptr(), pos.data_ptr(), new_pos.data_ptr(),
+            new_vel.data_ptr(), n, n, ctypes.c_float(float(dt)),
+            ctypes.c_float(float(softening) ** 2), ctypes.c_float(float(damping)), bs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_step_dual_f32 launch")
+    LAUNCHES["step_dual"] += 1
+    return new_pos, new_vel
+
+
+def _check_packed(state, planes, device) -> None:
+    """A packed state (N,8) = [pos | vel] and the (4,N) planes of its
+    positions: float32, contiguous, 16-byte aligned, on `device`."""
+    if not isinstance(state, torch.Tensor) or state.dim() != 2 or state.shape[1] != 8:
+        raise ValueError("state must be an (N, 8) [pos | vel] tensor; got "
+                         f"{tuple(state.shape) if isinstance(state, torch.Tensor) else state}")
+    n = state.shape[0]
+    _check_out("state", state, (n, 8), device, ())
+    _check_out("planes", planes, (4, n), device, ())
+
+
+def nbody_step_packed_cuda(state, planes, dt, softening, damping, *,
+                           block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+    """The packed-state step (the kernel of ``scripts/tpu_r3_packed.py``'s
+    ``_packed_kernel``): the fused one-sided Euler step of the packed state
+    (N,8) = [pos | vel], one 32-byte row a body read once and written once,
+    the j-side from `planes` (4,N), the x, y, z, m planes of the positions.
+    Returns (new_state (N,8), new_planes (4,N)), the planes the next step
+    reads, written by the kernel from the new rows; ``out=(new_state,
+    new_planes)`` are preallocated tensors that overlap no input. The plain
+    version is ``reference.nbody_step_packed``."""
+    device = state.device if isinstance(state, torch.Tensor) else None
+    _check_packed(state, planes, device)
+    bs = check_block_size(block_size)
+    n = state.shape[0]
+    if out is None:
+        out = (torch.empty_like(state), torch.empty_like(planes))
+    new_state, new_planes = out
+    _check_out("out[0]", new_state, (n, 8), device, (state, planes))
+    _check_out("out[1]", new_planes, (4, n), device, (state, planes, new_state))
+    if device.type != "cuda":
+        s_new, p_new = reference.nbody_step_packed(state, planes, dt, softening, damping)
+        new_state.copy_(s_new)
+        new_planes.copy_(p_new)
+        return new_state, new_planes
+    if n == 0:
+        return new_state, new_planes
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.nbody_step_packed_f32(
+            state.data_ptr(), planes.data_ptr(), new_state.data_ptr(), new_planes.data_ptr(),
+            n, ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
+            ctypes.c_float(float(damping)), bs, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_step_packed_f32 launch")
+    LAUNCHES["step_packed"] += 1
+    return new_state, new_planes
+
+
+def nbody_rollout_packed_cuda(state, dt, softening, damping, *, steps: int,
+                              block_size: int = DEFAULT_BLOCK_SIZE):
+    """`steps` packed-state steps from the state (N,8) = [pos | vel]: its
+    planes made once, before the first step, then each launch writes the
+    state and the planes the next one reads, ping-ponged (a launch never
+    writes what it reads). Returns the new state (N,8); the input is not
+    written (steps=0 returns it). The script's ``lax.scan`` of
+    ``step_packed``, whose planes XLA transposed from each new state."""
+    device = state.device if isinstance(state, torch.Tensor) else None
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0; got {steps}")
+    if steps == 0:
+        return state
+    planes = state[:, :4].t().contiguous()
+    _check_packed(state, planes, device)
+    bufs = [(torch.empty_like(state), torch.empty_like(planes)) for _ in range(2)]
+    cur = (state, planes)
+    for k in range(steps):
+        cur = nbody_step_packed_cuda(*cur, dt, softening, damping, block_size=block_size,
+                                     out=bufs[k % 2])
+    return cur[0]
 
 
 def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):
@@ -492,6 +613,64 @@ def compute_accel_symmetric_blocked_cuda(pos, softening, *, block_cap: int | Non
         triangle=lambda p, soft: (sym_accel_cuda(p, soft, tile=t),),
         cross=lambda p_i, p_j, soft: sym_cross_cuda(p_i, p_j, soft, tile=t))
     return acc
+
+
+def sym_ablated_accel_cuda(pos, softening, *, reaction: str, tile: int = DEFAULT_SYM_TILE,
+                           with_total: bool = False):
+    """The sym triangle of the set (N,4) with its reaction tail ablated (the
+    kernel of ``scripts/tpu_r4_sym_budget.py``'s ``_ablate_kernel``, a
+    timing experiment): ``reaction`` "full" (the production tail), "none"
+    (no reaction) or "tree_small" (its arithmetic and shuffles kept, each
+    tile pair's total written to one slot). Returns (acc (N,3), react): acc
+    the action sum_{j>i} m_j c_ij d_ij in every variant; react None for
+    "none", the reaction (3,N) for "full" (acc + react.T is the
+    each-pair-once force), the tile pairs' reaction totals (P,3), P =
+    R(R+1)/2 for R = ceil(N / tile), in the kernel's block order, for
+    "tree_small". ``with_total`` (full only) adds a third output, the force
+    (N,3) summed in ``sym_accel_cuda``'s order, so with its bits. A CPU
+    tensor takes ``reference.sym_ablated_accel`` (and, for the total,
+    ``reference.compute_accel_symmetric``)."""
+    device = pos.device if isinstance(pos, torch.Tensor) else None
+    _check_state("pos", pos, device)
+    tile = check_sym_tile(tile)
+    reaction = reference.check_sym_reaction(reaction)
+    if with_total and reaction != "full":
+        raise ValueError("with_total needs reaction='full'")
+    if device.type != "cuda":
+        acc, react = reference.sym_ablated_accel(pos, softening, reaction=reaction, tile=tile)
+        if with_total:
+            return acc, react, reference.compute_accel_symmetric(pos, softening)
+        return acc, react
+    n = pos.shape[0]
+    tiles = _cdiv(n, tile)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    full, tree = reaction == "full", reaction == "tree_small"
+    acc = empty(n, 3)
+    react = empty(3, n) if full else empty(tiles * (tiles + 1) // 2, 3) if tree else None
+    total = empty(n, 3) if with_total else None
+    outs = (acc, react, total) if with_total else (acc, react)
+    if n == 0:
+        return outs
+
+    from nbody_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    scratch = empty(tiles, 3, n)
+    side = empty(3, n) if full else None
+    with torch.cuda.device(device):
+        err = lib.nbody_sym_ablate_f32(
+            pos.data_ptr(), n, ctypes.c_float(float(softening) ** 2), tile,
+            reference.SYM_REACTIONS.index(reaction), scratch.data_ptr(),
+            side.data_ptr() if full else None, react.data_ptr() if tree else None,
+            acc.data_ptr(), react.data_ptr() if full else None,
+            total.data_ptr() if with_total else None,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "nbody_sym_ablate_f32 launch")
+    LAUNCHES[f"sym_ablate_{reaction}"] += 1
+    return outs
 
 
 # ---- accel + jerk, each pair once: csrc/symmetric_aj_kernels.cu ----

@@ -120,6 +120,17 @@ def rollout(pos, vel, dt, softening, damping, *, steps: int,
     return pos, vel
 
 
+def nbody_step_packed(state, planes, dt, softening, damping, *,
+                      chunk_size: int | None = None):
+    """One step of the packed state (N,8) = [pos | vel], the j-side read
+    from `planes` (4,N), the x, y, z, m planes of the positions (the step of
+    ``scripts/tpu_r3_packed.py``): returns (new_state (N,8), new_planes
+    (4,N)), the planes the next step reads."""
+    new_pos, new_vel = nbody_step_vs(state[:, :4], state[:, 4:], planes.t(), dt, softening,
+                                     damping, chunk_size=chunk_size)
+    return torch.cat([new_pos, new_vel], dim=1), new_pos.t().contiguous()
+
+
 # ---- the force reduction as a matrix product (variant "mxu" / "mxu_bf16") ----
 #
 # The algebra of nbody_tpu/ops/pallas_kernel.py::_mxu_accumulate_tile and
@@ -440,10 +451,11 @@ def _sym_rows(ri, mi, pj, mj, eps2, keep=None):
     return act, react
 
 
-def compute_accel_symmetric(pos, softening, *, chunk_size: int | None = None):
-    """(N,4) -> (N,3) accelerations of the set on itself, each pair once over
-    the strict upper triangle j > i (which drops the self pair). Row chunk
-    [r0, r1) meets the columns [r0, N), so no N x N slab is held."""
+def _sym_sides(pos, softening, *, chunk_size: int | None = None):
+    """(action, reaction), each (N,3), of the set on itself over the strict
+    upper triangle j > i: a_i = sum_{j>i} m_j c_ij d_ij and
+    r_j = -sum_{i<j} m_i c_ij d_ij. Row chunk [r0, r1) meets the columns
+    [r0, N), so no N x N slab is held."""
     n = pos.shape[0]
     p3, m = pos[:, :3], pos[:, 3]
     eps2 = float(softening) ** 2
@@ -457,7 +469,77 @@ def compute_accel_symmetric(pos, softening, *, chunk_size: int | None = None):
         a, r = _sym_rows(p3[r0:r1], m[r0:r1], p3[r0:], m[r0:], eps2, keep)
         act[r0:r1] += a
         react[r0:] += r
+    return act, react
+
+
+def compute_accel_symmetric(pos, softening, *, chunk_size: int | None = None):
+    """(N,4) -> (N,3) accelerations of the set on itself, each pair once over
+    the strict upper triangle j > i (which drops the self pair)."""
+    act, react = _sym_sides(pos, softening, chunk_size=chunk_size)
     return act + react
+
+
+# ---- the reaction ablations of scripts/tpu_r4_sym_budget.py ----
+#
+# A timing experiment: the triangle with its reaction tail "full" (the
+# production one), "none" (dropped) or "tree_small" (its arithmetic kept,
+# each tile pair's total written to one slot: wrong physics by design).
+# The action is the strict upper-triangle sum in every variant.
+
+SYM_REACTIONS = ("full", "none", "tree_small")
+
+
+def check_sym_reaction(reaction: str) -> str:
+    if reaction not in SYM_REACTIONS:
+        raise ValueError(f"reaction must be one of {SYM_REACTIONS}; got {reaction!r}")
+    return reaction
+
+
+def sym_reaction_slots(pos, softening, *, tile: int):
+    """(totals, scale), each (P,3) float64: for each tile pair (r, c),
+    c >= r, of the triangle's T x T tiles, T = `tile`, in row-major order of
+    the upper triangle (the kernel's block order), the reaction total
+    -sum m_i c_ij d_ij over its pairs (j > i on the diagonal), and the sum
+    of the terms' magnitudes, which scales the bound of a float32 sum of
+    them. Each term is computed in float32, as the kernel computes it, and
+    summed in float64."""
+    n = pos.shape[0]
+    t = int(tile)
+    tiles = -(-n // t)
+    eps2 = float(softening) ** 2
+    p3, m = pos[:, :3], pos[:, 3]
+    idx = torch.arange(n, device=pos.device)
+    totals, scale = [], []
+    for r in range(tiles):
+        rows = slice(r * t, min(n, (r + 1) * t))
+        d = p3[None, rows.start:, :] - p3[rows, None, :]  # (Tr, L, 3)
+        c = torch.rsqrt((d * d).sum(-1) + eps2)
+        c = c * c * c
+        keep = idx[None, rows.start:] > idx[rows, None]
+        c = torch.where(keep, c, torch.zeros((), dtype=c.dtype, device=c.device))
+        terms = (-(m[rows, None] * c)[..., None] * d).double()  # (Tr, L, 3)
+        length = terms.shape[1]
+        pad = -length % t
+        terms = torch.nn.functional.pad(terms, (0, 0, 0, pad)).reshape(
+            terms.shape[0], -1, t, 3)
+        totals.append(terms.sum((0, 2)))
+        scale.append(terms.abs().sum((0, 2)))
+    return torch.cat(totals), torch.cat(scale)
+
+
+def sym_ablated_accel(pos, softening, *, reaction: str, tile: int):
+    """The plain version of the ablated triangle: (acc (N,3), react), acc
+    the action a_i = sum_{j>i} m_j c_ij d_ij for every reaction; react is
+    None for "none", the reaction (3,N) for "full" (acc + react.T is
+    ``compute_accel_symmetric``), and for "tree_small" the tile pairs'
+    reaction totals (P,3) of ``sym_reaction_slots`` at `tile`, in float32."""
+    check_sym_reaction(reaction)
+    act, react = _sym_sides(pos, softening)
+    if reaction == "none":
+        return act, None
+    if reaction == "full":
+        return act, react.t().contiguous()
+    return act, sym_reaction_slots(pos, softening, tile=tile)[0].to(pos.dtype)
 
 
 def sym_cross(pos_i, pos_j, softening, *, chunk_size: int | None = None):

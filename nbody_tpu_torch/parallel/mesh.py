@@ -13,24 +13,40 @@ other.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 BODY_AXIS = "bodies"
+# how long the other ranks wait for rank 0's host-side verdict (Compute's QA
+# and drift checks run the oracle on rank 0 alone): beyond any check, so the
+# wait does not end at the process group's own timeout, as the JAX package's
+# single controller never times out on its own oracle. The price: a rank 0
+# that hangs inside a check (not one that raises, whose exit ends the wait)
+# holds the other ranks this long, not the group's timeout
+JUDGE_TIMEOUT = datetime.timedelta(hours=24)
+# the judge group of each default process group, made once: new_group is a
+# collective of every rank, and each group holds its sockets until the
+# default group is destroyed
+_JUDGE_GROUP: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A 1-D body mesh: `size` ranks of `group`, this process `rank`, its
-    shard on `device`. ``axis_names`` and ``shape`` read as a JAX mesh's."""
+    shard on `device`. ``axis_names`` and ``shape`` read as a JAX mesh's.
+    `judge_group` is a gloo group of the same ranks with the timeout
+    JUDGE_TIMEOUT, on which rank 0's verdicts travel (None, as for one
+    rank: on `group`)."""
 
     axis: str
     size: int
     rank: int
     group: object
     device: torch.device
+    judge_group: object = None
 
     @property
     def axis_names(self) -> tuple:
@@ -82,7 +98,19 @@ def make_mesh(num_devices: int | None = None, *, axis: str = BODY_AXIS, device=N
             f"a mesh on {device} needs the {_backend_for(device)} backend; the process "
             f"group runs {backend}")
     return Mesh(axis=axis, size=world, rank=dist.get_rank(), group=dist.group.WORLD,
-                device=device)
+                device=device, judge_group=_judge_group(world))
+
+
+def _judge_group(world: int):
+    """The gloo group of every rank with the timeout JUDGE_TIMEOUT, one per
+    default process group (None for one rank, which waits for no one)."""
+    if world == 1:
+        return None
+    default = dist.group.WORLD
+    if _JUDGE_GROUP.get("for") is not default:
+        _JUDGE_GROUP.update({"for": default, "group": dist.new_group(
+            backend="gloo", timeout=JUDGE_TIMEOUT)})
+    return _JUDGE_GROUP["group"]
 
 
 def shard_rows(mesh: Mesh, n: int) -> slice:

@@ -36,3 +36,23 @@ def elapsed_ms(fn, device) -> float:
         end.record()
         end.synchronize()
         return start.elapsed_time(end)
+
+
+def best_of_ms(fn, device, *, rounds: int = 3) -> float:
+    """The least of `rounds` ``elapsed_ms(fn, device)`` after one untimed
+    warm-up call: a roll of steps timed as the TPU scripts time their
+    ``lax.scan`` rolls, best of a few because noise only slows a round."""
+    fn()
+    return min(elapsed_ms(fn, device) for _ in range(rounds))
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    first card), to stand beside every time taken on it."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

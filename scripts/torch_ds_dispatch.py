@@ -36,19 +36,9 @@ def ptxas_report() -> None:
     ptxas says of each kernel."""
     from nbody_tpu_torch.ops import _build
 
-    nvcc = _build.find_nvcc()
     for src in ("ds_kernels.cu", "ds_symmetric_kernels.cu"):
-        proc = subprocess.run(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null",
-             str(_build.CSRC / src)], capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        for line in proc.stderr.splitlines():
-            if "ptxas info" in line and ("Compiling entry" in line or "Used" in line
-                                         or "spill" in line):
-                print(f"ptxas {src}: {line.split(':', 1)[1].strip()}")
-            elif "bytes stack frame" in line:
-                print(f"ptxas {src}: {line.strip()}")
+        for line in _build.ptxas_lines(src):
+            print(line)
 
 
 def main() -> int:

@@ -96,17 +96,8 @@ def ptxas_report(tmp: pathlib.Path) -> None:
 
     for name, src in (("kernel", _build.CSRC / "p3m_kernels.cu"),
                       ("contracted", contracted_source(tmp))):
-        proc = subprocess.run(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null",
-             str(src)], capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-        for line in proc.stderr.splitlines():
-            if "ptxas info" in line and ("Compiling entry" in line or "Used" in line
-                                         or "spill" in line):
-                print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
-            elif "bytes stack frame" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        for line in _build.ptxas_lines(src, label=name):
+            print(line)
 
 
 def sass_mix(tmp: pathlib.Path) -> None:

@@ -101,6 +101,29 @@ def test_set_state_round_trip_and_padding(params, state):
         s.set_state(np.zeros((N + 1, 4)), np.zeros((N + 1, 4)))
 
 
+def test_set_positions_and_velocities_as_jax(params, state):
+    """set_positions / set_velocities replace one half of the state and keep
+    the other, as nbody_tpu's BodySystem does; block_until_ready and
+    hard_sync are synchronize."""
+    pos, vel = state
+    pos2, vel2 = ic.generate(NBodyConfig.SHELL, N, params.cluster_scale,
+                             params.velocity_scale, seed=12)
+    ours = BodySystem(N, params, device="cpu", state=state)
+    ref = JaxBodySystem(N, _jax(params), backend="xla", state=(pos, vel))
+    for name, value in (("set_positions", pos2), ("set_velocities", vel2)):
+        getattr(ours, name)(value)
+        getattr(ref, name)(value)
+        np.testing.assert_array_equal(ours.positions, ref.positions)
+        np.testing.assert_array_equal(ours.velocities, ref.velocities)
+    np.testing.assert_array_equal(ours.positions, pos2)
+    np.testing.assert_array_equal(ours.velocities, vel2)
+    assert BodySystem.block_until_ready is BodySystem.synchronize
+    assert BodySystem.hard_sync is BodySystem.synchronize
+    ours.update_many(1)
+    ours.block_until_ready()
+    ours.hard_sync()
+
+
 def test_state_from_numpy_pads_and_converts():
     pos = np.ones((3, 4), np.float64)
     vel = np.zeros((3, 4), np.float64)
@@ -196,7 +219,10 @@ def test_mxu_variants_are_ported(params, variant):
 
 
 @pytest.mark.parametrize("kw", [{"backend": "xla"}, {"variant": "bogus"},
-                                {"placement": "mapped"}, {"block_size": 48}])
+                                # a block size off the kernels' rule (48) runs on
+                                # the CPU path, which has no blocks; none runs
+                                # below 1
+                                {"placement": "mapped"}, {"block_size": 0}])
 def test_unknown_options_raise(params, kw):
     with pytest.raises(ValueError):
         BodySystem(64, params, device="cpu", **kw)

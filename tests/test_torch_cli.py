@@ -13,6 +13,7 @@ from nbody_tpu import NBodyConfig, ic
 from nbody_tpu.io import write_tipsy_file
 
 from nbody_tpu_torch.cli import build_parser, drift_failed, main
+from nbody_tpu_torch.ops import cuda_kernel
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -125,8 +126,29 @@ def test_drift_gate_is_the_jax_clis(delta, oracle, failed):
 
 
 def test_drift_check_needs_a_step(capsys):
-    assert main(["--drift-check", "0", "--cpu", "--numbodies", "64"]) == 2
+    """A drift check over 0 steps runs and exits 0, as nbody_tpu's does; a
+    negative count is a usage error."""
+    assert main(["--drift-check", "0", "--cpu", "--numbodies", "64"]) == 0
+    assert "energy drift over 0 steps" in capsys.readouterr().out
+    assert main(["--drift-check", "-1", "--cpu", "--numbodies", "64"]) == 2
     assert "--drift-check" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("n", [0, -5])
+def test_numbodies_below_one_exits_2(n, capsys):
+    assert main(["--qatest", "--cpu", "--numbodies", str(n)]) == 2
+    assert "--numbodies must be at least 1" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("precision", ["fp32", "ds"])
+def test_block_size_is_free_on_the_cpu(precision, capsys):
+    """The CPU path has no thread blocks: --blockSize 100 runs there, as
+    nbody_tpu's XLA path ignores it; the card's kernels still refuse it."""
+    assert main(["--qatest", "--cpu", "--numbodies", "128", "--blockSize", "100",
+                 "--precision", precision]) == 0
+    assert "-> OK" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_kernel.check_block_size(100)
 
 
 def test_port_imports_no_jax(tmp_path):

@@ -1121,3 +1121,63 @@ def test_ring_fused_steps_on_one_nccl_rank_equal_the_ring(dev, integrator):
     ring.update_many(3, DT)
     assert cuda_kernel.LAUNCHES["ring_fused"] == before + 3
     assert all(torch.equal(a, b) for a, b in zip(fused.state, ring.state))
+
+
+# ---- the experiment scripts' kernels: dual-bank, packed, sym ablations ----
+
+
+def _random_w(p, v, seed=7):
+    rng = np.random.default_rng(seed)
+    n = p.shape[0]
+    p[:, 3] = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32, device=p.device)
+    v[:, 3] = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=p.device)
+    return p, v
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4099])
+@pytest.mark.parametrize("block_size", [64, 128, 256])
+def test_dual_and_packed_steps_equal_the_step_kernel_bit_for_bit(dev, n, block_size):
+    p, v = _random_w(*_state(n, dev))
+    before = dict(cuda_kernel.LAUNCHES)
+    sp, sv = nbody_step_cuda(p, v, DT, SOFT, 0.5, block_size=block_size)
+    dp, dv = cuda_kernel.nbody_step_dual_cuda(p, v, DT, SOFT, 0.5, block_size=block_size)
+    state = torch.cat([p, v], dim=1)
+    ns, npl = cuda_kernel.nbody_step_packed_cuda(state, p.t().contiguous(), DT, SOFT, 0.5,
+                                                 block_size=block_size)
+    torch.cuda.synchronize()
+    assert cuda_kernel.LAUNCHES["step_dual"] == before["step_dual"] + 1
+    assert cuda_kernel.LAUNCHES["step_packed"] == before["step_packed"] + 1
+    assert torch.equal(dp, sp) and torch.equal(dv, sv)
+    assert torch.equal(ns[:, :4], sp) and torch.equal(ns[:, 4:], sv)
+    assert torch.equal(npl, sp.t())
+    rp, rv = reference.nbody_step(p, v, DT, SOFT, 0.5)
+    tol = 1e-4 * reference.compute_accel(p, SOFT).abs().max().item() + 1e-4
+    assert (dp - rp).abs().max().item() <= 1e-5 + DT * DT * tol
+    assert (dv - rv).abs().max().item() <= 1e-5 + DT * tol
+
+
+def test_packed_rollout_equals_the_rollout_kernel(dev):
+    p, v = _random_w(*_state(4099, dev))
+    got = cuda_kernel.nbody_rollout_packed_cuda(torch.cat([p, v], dim=1), DT, SOFT, 0.5,
+                                                steps=5)
+    tp, tv = cuda_kernel.nbody_rollout_cuda(p, v, DT, SOFT, 0.5, steps=5)
+    assert torch.equal(got[:, :4], tp) and torch.equal(got[:, 4:], tv)
+
+
+@pytest.mark.parametrize("n, tile", [(1000, 128), (4099, 256), (4099, 1024)])
+def test_sym_ablations_match_plain_and_the_production_triangle(dev, n, tile):
+    p, _ = _random_w(*_state(n, dev))
+    act, react = reference.sym_ablated_accel(p, SOFT, reaction="full", tile=tile)
+    tol = 1e-4 * (act + react.t()).abs().max().item() + 1e-4
+    acc_f, react_f, total = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction="full",
+                                                               tile=tile, with_total=True)
+    acc_n, none = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction="none", tile=tile)
+    acc_t, slots = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction="tree_small",
+                                                      tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(total, sym_accel_cuda(p, SOFT, tile=tile))
+    assert none is None and torch.equal(acc_n, acc_f) and torch.equal(acc_t, acc_f)
+    assert (acc_f - act).abs().max().item() <= tol
+    assert (react_f - react).abs().max().item() <= tol
+    want, scale = reference.sym_reaction_slots(p, SOFT, tile=tile)
+    assert ((slots.double() - want).abs() <= 1e-4 * scale).all()

@@ -597,15 +597,64 @@ def test_cli_precision_ds_on_cpu(capsys):
     assert "energy drift over 2 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("args, says", [
-    (["--precision", "ds", "--hostmem"], "--hostmem"),
-    (["--precision", "ds", "--integrator", "hermite", "--hostmem"], "--hostmem"),
-    (["--precision", "ds", "--variant", "vpu"], "auto/sym"),
-    (["--precision", "fp64"], "ROADMAP.md Queue 1 #5"),
+@pytest.mark.parametrize("args, says, code", [
+    # nbody_tpu's ds measurement modes (_run_ds, cli.py:244-427) run
+    # without these flags; the port says that each has no effect
+    pytest.param(["--precision", "ds", "--hostmem"],
+                 "--hostmem (the ds state stays on the device) has no effect", 0,
+                 id="args0-says0"),
+    pytest.param(["--precision", "ds", "--integrator", "hermite", "--hostmem"],
+                 "--hostmem (the ds state stays on the device) has no effect", 0,
+                 id="args1-says1"),
+    pytest.param(["--precision", "ds", "--variant", "vpu"],
+                 "--variant vpu (the ds default, auto, runs) has no effect", 0,
+                 id="args2-says2"),
+    pytest.param(["--precision", "fp64"], "ROADMAP.md Queue 1 #5", 2, id="args3-says3"),
+    pytest.param(["--precision", "ds", "--variant", "mxu_bf16", "--integrator", "leapfrog"],
+                 "--variant mxu_bf16 (the ds default, auto, runs) has no effect", 0,
+                 id="args4-says4"),
 ])
-def test_cli_precision_refusals_exit_2(capsys, args, says):
-    assert main([*args, "--qatest", "--cpu", "--numbodies", "64"]) == 2
-    assert says in capsys.readouterr().err
+def test_cli_precision_refusals_exit_2(capsys, args, says, code):
+    """--precision fp64 exits 2 (not ported); the flags nbody_tpu's ds
+    measurement modes ignore run the ds QA, which passes, and are named."""
+    assert main([*args, "--qatest", "--cpu", "--numbodies", "64"]) == code
+    out = capsys.readouterr()
+    if code:
+        assert says in out.err
+    else:
+        assert f"--precision ds: {says}" in out.out and "-> OK" in out.out
+        assert "force vpu" not in out.out and "force mxu" not in out.out
+
+
+def test_cli_ds_drift_check_over_0_steps(capsys):
+    """nbody_tpu's ds drift check over 0 steps measures the horizon tier
+    over 0 steps and exits 0."""
+    assert main(["--precision", "ds", "--drift-check", "0", "--cpu", "--numbodies", "64"]) == 0
+    assert "energy drift over 0 steps" in capsys.readouterr().out
+
+
+def test_ds_system_state_setters_and_barriers():
+    """set_positions / set_velocities replace one half of the float64
+    state (nbody_tpu's BodySystem semantics); block_until_ready and
+    hard_sync are the barrier synchronize."""
+    pos, vel = _state64(96, seed=4)
+    pos2, vel2 = _state64(96, seed=5)
+
+    def planes(state):
+        return DSBodySystem(96, _params(), device="cpu", state=state).get_ds_state()
+
+    s = DSBodySystem(96, _params(), device="cpu", state=(pos, vel))
+    s.set_positions(pos2)
+    for got, want in zip(s.get_ds_state(), planes((pos2, vel))):
+        np.testing.assert_array_equal(got, want)
+    s.set_velocities(vel2)
+    for got, want in zip(s.get_ds_state(), planes((pos2, vel2))):
+        np.testing.assert_array_equal(got, want)
+    assert DSBodySystem.block_until_ready is DSBodySystem.synchronize
+    assert DSBodySystem.hard_sync is DSBodySystem.synchronize
+    s.update_many(1)
+    s.block_until_ready()
+    s.hard_sync()
 
 
 def test_cli_ds_default_n_is_baseline_config(monkeypatch):

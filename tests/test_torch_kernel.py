@@ -179,3 +179,42 @@ def test_nvcc_found_through_cuda_home(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\n")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert _build.find_nvcc() == str(nvcc)
+
+
+PTXAS_V = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4waitv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Function properties for _Z1aPf
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 4096 bytes smem, 368 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPf
+    0 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 368 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_kernel_not_its_callees(tmp_path, monkeypatch):
+    """ptxas -v's lines as nvcc prints them: each kernel gets its own frame
+    line, not that of a callee it did not inline; a kernel without shared
+    memory has 0 bytes smem. No cu++filt beside nvcc: names stay mangled."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    (tmp_path / "ptxas.txt").write_text(PTXAS_V)
+    nvcc.write_text(f"#!/bin/sh\ncat {tmp_path / 'ptxas.txt'} >&2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    usage = _build.ptxas_usage(tmp_path / "k.cu")
+    assert usage == {
+        "_Z1aPf": {"registers": 40, "smem": 4096, "stack": 16, "spill_stores": 0,
+                   "spill_loads": 0},
+        "_Z1bPf": {"registers": 255, "smem": 0, "stack": 0, "spill_stores": 12,
+                   "spill_loads": 8}}
+    lines = _build.ptxas_lines("nbody_kernels.cu", label="kernel", usage=usage)
+    assert lines[1] == ("ptxas kernel: _Z1bPf: 255 registers, 0 bytes smem, 0 bytes stack "
+                        "frame, 12 bytes spill stores, 8 bytes spill loads")
+    nvcc.write_text("#!/bin/sh\necho 'error: no' >&2\nexit 1\n")
+    with pytest.raises(RuntimeError, match="nvcc failed on k.cu"):
+        _build.ptxas_usage("k.cu")

@@ -459,7 +459,11 @@ def test_hermite_and_ds_are_refused(capsys):
     with pytest.raises(ValueError, match="precision='ds'"):
         Compute(num_bodies=64, device="cpu", kernel="p3m", precision="ds")
     assert main(["--kernel", "p3m", "--cpu", "--integrator", "hermite", "--qatest"]) == 2
-    assert main(["--kernel", "p3m", "--cpu", "--precision", "ds", "--qatest"]) == 2
+    # the ds measurement modes run without --kernel, as nbody_tpu's _run_ds
+    assert main(["--kernel", "p3m", "--cpu", "--precision", "ds", "--qatest",
+                 "--numbodies", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "--kernel p3m (the all-pairs ds kernels run) has no effect" in out and "-> OK" in out
     with pytest.raises(ValueError, match="ROADMAP.md"):
         BodySystem(64, _params(), device="cpu", kernel="pm")
 

@@ -340,6 +340,24 @@ def test_initialize_multihost_keeps_a_started_group(pools, d):
     assert not is_multihost()  # this process starts no group
 
 
+def test_rank0_judge_may_outlast_the_group_timeout(tmp_path):
+    """Compute's QA and drift checks judge on rank 0 alone while the other
+    ranks wait for the verdict. A group whose collectives time out after
+    2 s still hands on a verdict that took 5 s: the wait is on the mesh's
+    judge group (parallel.mesh.JUDGE_TIMEOUT), not on the body group."""
+    pool = RankPool(2, str(tmp_path / "store"), timeout_s=2)
+    try:
+        res = pool.run("slow_verdict", 5.0)
+    finally:
+        pool.close()
+    assert [verdict for verdict, _ in res] == ["rank 0's verdict"] * 2
+    assert res[1][1] > 4.0  # rank 1 waited past the group's timeout
+
+
+def test_meshes_share_one_judge_group(pools):
+    assert pools[2].run("judge_groups") == [True, True]
+
+
 def test_make_mesh_raises_the_reference_error(pools):
     errors = pools[2].run("make_mesh_error", 4)
     assert errors == ["requested 4 devices but only 2 available"] * 2

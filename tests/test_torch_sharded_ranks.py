@@ -27,10 +27,11 @@ import torch.multiprocessing as mp
 TIMEOUT_S = 120
 
 
-def _rank_main(rank: int, world: int, store_path: str, tasks, results) -> None:
+def _rank_main(rank: int, world: int, store_path: str, timeout_s: float, tasks,
+               results) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     try:
         while (task := tasks.get()) is not None:
             name, args = task
@@ -43,16 +44,18 @@ def _rank_main(rank: int, world: int, store_path: str, tasks, results) -> None:
 
 
 class RankPool:
-    """`world` gloo ranks; ``run(name, *args)`` runs task `name` on every
-    rank and returns the results in rank order."""
+    """`world` gloo ranks, their group's collectives bounded by
+    `timeout_s`; ``run(name, *args)`` runs task `name` on every rank and
+    returns the results in rank order."""
 
-    def __init__(self, world: int, store_path: str):
+    def __init__(self, world: int, store_path: str, timeout_s: float = TIMEOUT_S):
         ctx = mp.get_context("spawn")
         self.world = world
         self.tasks = [ctx.Queue() for _ in range(world)]
         self.results = ctx.Queue()
         self.procs = [ctx.Process(target=_rank_main, daemon=True,
-                                  args=(r, world, store_path, self.tasks[r], self.results))
+                                  args=(r, world, store_path, timeout_s, self.tasks[r],
+                                        self.results))
                       for r in range(world)]
         for p in self.procs:
             p.start()
@@ -190,6 +193,32 @@ def compute_checks(num_bodies, kw, drift_steps):
 
     c = Compute(num_bodies=num_bodies, device="cpu", mesh=_mesh(), log=lambda s: None, **kw)
     return c.compare_results(), c.drift_check(drift_steps), c.system.positions
+
+
+def slow_verdict(judge_s):
+    """Compute's rank-0 verdict when rank 0's judge (the stand-in for a long
+    oracle run) takes `judge_s` seconds while the other ranks wait: (the
+    verdict as this rank got it, the seconds this rank waited)."""
+    import time
+
+    from nbody_tpu_torch.compute import Compute
+
+    c = Compute(num_bodies=64, device="cpu", mesh=_mesh(), log=lambda s: None)
+
+    def judge():
+        time.sleep(judge_s)
+        return "rank 0's verdict"
+
+    t0 = time.monotonic()
+    verdict = c._from_rank0(judge)
+    return verdict, time.monotonic() - t0
+
+
+def judge_groups():
+    """Whether two meshes of this process group share one judge group:
+    new_group runs once a process group, not once a mesh."""
+    a, b = _mesh(), _mesh()
+    return a.judge_group is not None and a.judge_group is b.judge_group
 
 
 def make_mesh_error(num_devices):
