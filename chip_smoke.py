@@ -99,7 +99,8 @@ its result:
      zero-mass bodies at the origin (N not a multiple of blk) at blk 128,
      256 and 512; the overflow against p3m_overflow_count; repeat calls and
      two whole p3m_accel calls (deposit, FFT, kernel) bit-equal; the
-     kernel's time at N=65536, its bound and the plain version's time;
+     kernel's time at N=65536, its work and pruning (p3m.pair_work), its
+     bound (the near pairs) and the plain version's time;
   5p. the P3M path through Compute(kernel="p3m"): QA at N=16384 (positions
      gated, as nbody_tpu gates them), the P3M force at N=65536, G=64 against
      the exact each-pair-once force (median relative error < 0.008, 90th
@@ -118,7 +119,7 @@ its result:
      all N, at rtol 1e-4 / atol 2e-4, dropped bodies 0; one Euler force
      evaluation of the contract-keeping run split by CUDA events into its
      stages (sort and tables, deposit, FFT solve, gather, pair kernel,
-     update), with live entries, tiles and the kernel's bound;
+     update), with the kernel's work, pruning and bound;
   3da. the ds accel-only kernel of the sharded ring step against its plain
      version at (M, N) in {(4099, 4099), (4099, 16384), (4099, 65536)},
      each at the block the main path gives N (128, 128, 256), i-set and
@@ -208,16 +209,19 @@ N_P3M_BIG = 1 << 20  # README's nbody --kernel p3m --numbodies 1000000, rounded 
 P3M_GRID = 64  # the CLI's --pm-grid default
 SOFT_RING = 0.1  # demo 0's softening, phase 3rf's
 P3M_RTOL, P3M_ATOL = 1e-4, 2e-4  # tests/test_p3m.py:367, Pallas against XLA short range
-# FP32-pipe instructions the short-range function needs a pair, with FMA:
-# 7 to test a candidate pair of neighbouring cells (3 FADD for d, FMUL + 2
-# FFMA for r2, the compare), 19 more for a pair within rcut (FADD of eps2,
-# 2 FMUL for inv^3, FMUL for y, 10 FFMA of Horner's rule, FFMA for inv^3 -
-# s_lr, FMUL by m_j, 3 FFMA for the sums); each counts as 2 flops at the
-# fp32 peak, rsqrtf goes to the SFU. The kernel spends 9 / 31, its terms
-# rounded unfused as its plain version rounds them (csrc/p3m_kernels.cu):
-# a cost of that choice, reported beside the bound and not in it.
-P3M_CANDIDATE_INSTR, P3M_NEAR_INSTR = 7, 19
-P3M_KERNEL_INSTR = (9, 31)
+# FP32-pipe instructions the short-range function needs a pair within rcut,
+# with FMA: 7 to test it (3 FADD for d, FMUL + 2 FFMA for r2, the compare)
+# and 19 for its term (FADD of eps2, 2 FMUL for inv^3, FMUL for y, 10 FFMA
+# of Horner's rule, FFMA for inv^3 - s_lr, FMUL by m_j, 3 FFMA for the
+# sums); each counts as 2 flops at the fp32 peak, rsqrtf goes to the SFU.
+# The bound counts the near pairs alone: a kernel that prunes groups of
+# candidate pairs by their boxes never tests most of them. Printed beside
+# it: the candidate-based figure (7 for every candidate pair of
+# neighbouring cells, 19 more a near pair: a cell list that tests each
+# candidate) and the kernel's own rounding (9 + 31 a near pair, its terms
+# unfused as its plain version rounds them, csrc/p3m_kernels.cu).
+P3M_TEST_INSTR, P3M_TERM_INSTR = 7, 19
+P3M_UNFUSED_INSTR = 40
 # the card's peak fp32 rate outside the tensor cores and its memory rate
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -1725,15 +1729,33 @@ def p3m_capacity(pos) -> int:
     return auto_capacity(int(p3m.p3m_max_occupancy(pos, grid=P3M_GRID)))
 
 
-def p3m_bound_ms(work: dict, n: int, instr=(P3M_CANDIDATE_INSTR, P3M_NEAR_INSTR)):
+def p3m_bound_ms(work: dict, n: int, per_near=P3M_TEST_INSTR + P3M_TERM_INSTR,
+                 per_candidate=0):
     """The short-range function's bound for this run's data (p3m.pair_work):
-    the candidate pairs' test and the near pairs' terms, at 2 flops an FP32
-    instruction, against the O(N) bytes of the function (the state in, the
-    (N, 3) force out). Pairs of padding rows, and the terms of far pairs,
-    are work this kernel does and the function does not need; `instr`
-    P3M_KERNEL_INSTR gives what the kernel's unfused rounding costs."""
-    flops = 2.0 * (instr[0] * work["candidates"] + instr[1] * work["near"])
+    `per_near` FP32 instructions a pair within rcut (and `per_candidate` a
+    candidate pair), at 2 flops an instruction, against the O(N) bytes of
+    the function (the state in, the (N, 3) force out)."""
+    flops = 2.0 * (per_candidate * work["candidates"] + per_near * work["near"])
     return bound_ms(flops, n * 16 + n * 12)
+
+
+def p3m_work_line(work: dict, n: int, kernel_ms: float) -> str:
+    """The pair kernel's work on these tables, its pruning and its time
+    beside the bound and the two other figures (see P3M_TEST_INSTR)."""
+    bound = p3m_bound_ms(work, n)
+    cand = p3m_bound_ms(work, n, P3M_TERM_INSTR, P3M_TEST_INSTR)
+    unfused = p3m_bound_ms(work, n, P3M_UNFUSED_INSTR)
+    return (f"{work['clusters']} i-clusters, {work['items']} items (chunks of up to "
+            f"{work['chunk']} j-clusters); {work['cluster_pairs']:.4e} cluster pairs, "
+            f"{work['boxed']:.4e} past the box test ({work['visited']:.4e} row pairs loaded), "
+            f"{work['tested']:.4e} row pairs tested, {work['termed']:.4e} termed; "
+            f"{work['candidates']:.4e} candidate and {work['near']:.4e} near pairs: tested / "
+            f"near {work['tested'] / max(1, work['near']):.3f}, termed / near (the pruning's "
+            f"efficiency) {work['termed'] / max(1, work['near']):.3f}; kernel {kernel_ms:.3f} "
+            f"ms against its bound {bound[0]:.3f} ms ({bound[1]}, {P3M_TEST_INSTR} + "
+            f"{P3M_TERM_INSTR} instructions a near pair; {bound[0] / kernel_ms:.1%}); "
+            f"candidate-based figure {cand[0]:.3f} ms, at the kernel's unfused rounding "
+            f"{unfused[0]:.3f} ms")
 
 
 def p3m_check(torch, acc, plain, what: str) -> float:
@@ -1811,14 +1833,8 @@ def phase_p3m_kernels(torch) -> dict:
     t_p = elapsed_ms(plain, dev) / plain_reps
     work = p3m.pair_work(tables)
     bound = p3m_bound_ms(work, N_MAIN)
-    own = p3m_bound_ms(work, N_MAIN, P3M_KERNEL_INSTR)
     print(f"[3p p3m kernel] shell N={N_MAIN}, G={P3M_GRID}, capacity {cap}, blk {tables.blk}: "
-          f"{work['entries']} live entries, {work['tiles']} tiles "
-          f"({work['tiles'] * tables.blk ** 2:.4e} row pairs), {work['candidates']:.4e} candidate "
-          f"and {work['near']:.4e} near pairs; kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
-          f"bound {bound[0]:.3f} ms ({bound[1]}, {P3M_CANDIDATE_INSTR} / {P3M_NEAR_INSTR} "
-          f"instructions a candidate / near pair); {own[0]:.3f} ms at the kernel's unfused "
-          f"rounding ({P3M_KERNEL_INSTR[0]} / {P3M_KERNEL_INSTR[1]})")
+          f"{p3m_work_line(work, N_MAIN, t_k)}; plain {t_p:.3f} ms per call")
     return {"err": {"p3m_sr": err}, "times": {"p3m_sr": (t_k, t_p)},
             "bounds": {"p3m_sr": bound}}
 
@@ -1955,16 +1971,16 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
     from nbody_tpu_torch.ops import p3m, pm, reference
 
     # the timed state that dropped the most, at the auto capacity: random
-    # rows, kept bodies of the cell with the longest j-block loop, and
-    # dropped bodies
+    # rows, kept bodies of the cell whose i-clusters meet the most
+    # j-clusters, and dropped bodies
     pos, system = systems["worst"]
     soft, cap = system.params.softening, system.p3m_capacity
     tables = p3m.pair_tables(pos, soft, grid=P3M_GRID, capacity=cap,
                              blk=p3m.p3m_kernel_blk(cap))
     nid, nvalid = p3m._neighbor_stencil(tables.gc, pos.device)
-    jblocks = torch.where(nvalid, tables.tpc.long()[nid], 0).sum(dim=1)
-    jblocks = torch.where(tables.tpc > 0, jblocks, 0)
-    busiest = int(jblocks.argmax())
+    jclusters = torch.where(nvalid, tables.ncl.long()[nid], 0).sum(dim=1)
+    jclusters = torch.where(tables.ncl > 0, jclusters, 0)
+    busiest = int(jclusters.argmax())
     cell = p3m._cells(pos, P3M_GRID)[-1]
     rng = np.random.default_rng(0)
     gone = tables.body_row >= tables.padded.shape[0]
@@ -1980,7 +1996,8 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
     what = (f"N={N_P3M_BIG} timed Euler state, G={P3M_GRID}, capacity {cap}, blk {tables.blk}, "
             f"overflow {int(tables.overflow)}: {len(rows)} sampled rows ({int(dropped.sum())} "
             f"dropped), {len(in_busiest)} kept bodies in the busiest cell, "
-            f"{int(jblocks[busiest])} j-blocks a block there")
+            f"{int(jclusters[busiest])} j-clusters an i-cluster's there, in chunks of up to "
+            f"{int(tables.chunk)}")
     err = p3m_check(torch, acc, plain, what)
     check(int(dropped.sum()) > 0 and bool((acc[dropped] == 0).all())
           and bool((plain[dropped] == 0).all()), "dropped bodies must get a short range of 0")
@@ -2028,12 +2045,8 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
           + f"; total {total:.3f} ms [{smi}]")
     work = p3m.pair_work(tables)
-    bound = p3m_bound_ms(work, N_P3M_BIG)
-    own = p3m_bound_ms(work, N_P3M_BIG, P3M_KERNEL_INSTR)
-    print(f"[5p split] pair kernel at N={N_P3M_BIG}: {work['entries']} live entries, "
-          f"{work['tiles']} tiles, {work['candidates']:.4e} candidate and {work['near']:.4e} "
-          f"near pairs; {times['pair kernel']:.3f} ms against its bound {bound[0]:.3f} ms "
-          f"({bound[1]}; {own[0]:.3f} ms at the kernel's unfused rounding) [{smi}]")
+    print(f"[5p split] pair kernel at N={N_P3M_BIG}: "
+          f"{p3m_work_line(work, N_P3M_BIG, times['pair kernel'])} [{smi}]")
     return err
 
 

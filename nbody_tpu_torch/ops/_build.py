@@ -166,6 +166,13 @@ def ptxas_lines(source, *, label: str | None = None, usage: dict | None = None) 
             f"{u['spill_loads']} bytes spill loads" for k, u in usage.items()]
 
 
+def declare_p3m_sr(lib) -> None:
+    """The C signature of ``nbody_p3m_sr_f32`` (csrc/p3m_kernels.cu) on `lib`."""
+    lib.nbody_p3m_sr_f32.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4 + [
+        ctypes.c_void_p]
+    lib.nbody_p3m_sr_f32.restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -226,8 +233,7 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_hermite_predict.restype = ctypes.c_int
     lib.nbody_ds_hermite_correct.argtypes = [ptr] * 12 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
     lib.nbody_ds_hermite_correct.restype = ctypes.c_int
-    lib.nbody_p3m_sr_f32.argtypes = [ptr] * 7 + [i64, i64, i64, ptr]
-    lib.nbody_p3m_sr_f32.restype = ctypes.c_int
+    declare_p3m_sr(lib)
     lib.nbody_ring_alloc.argtypes = [i64, i64, ctypes.POINTER(ptr)]
     lib.nbody_ring_free.argtypes = [ptr]
     lib.nbody_ring_ipc_handle.argtypes = [ptr, ctypes.c_char_p]

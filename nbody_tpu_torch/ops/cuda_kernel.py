@@ -1396,12 +1396,14 @@ def ds_hermite_correct_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc0_hi, acc0_lo, je
 P3M_BLKS = (128, 256, 512)
 
 
-def p3m_sr_pairs_cuda(tables):
-    """One launch of the pair kernel ``nbody_p3m_sr_f32`` over the tables of
-    ``p3m.pair_tables``: the (M + blk, 4) short-range sums of the padded
-    rows (w = 0; rows of inert i-rows hold nothing of use). CUDA tensors
-    only: the CPU has no counterpart of the padded rows' sums (its plain
-    version of the whole short range is ``reference.p3m_short_range``)."""
+def p3m_sr_launch(tables, lib=None):
+    """Check the tables of ``p3m.pair_tables`` and launch ``nbody_p3m_sr_f32``
+    (the pair kernel and its per-row totals) over them on the current
+    stream: the (R, 4) short-range sums of the padded rows (w = 0; rows of
+    inert i-rows hold nothing of use). `lib` is the port's library by
+    default, or another build of the same source
+    (``scripts/torch_p3m_bench.py``). Does not count: see
+    ``p3m_sr_pairs_cuda``."""
     padded = tables.padded
     device = padded.device
     _check_state("padded", padded, device)
@@ -1410,24 +1412,46 @@ def p3m_sr_pairs_cuda(tables):
     if device.type != "cuda":
         raise ValueError("p3m_sr_pairs_cuda launches the CUDA pair kernel; the tables are on "
                          f"{device}")
-    ints = (tables.ablk, tables.tpc, tables.e_cell, tables.e_t)
-    for t in ints:
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
-            raise ValueError("the pair tables' index arrays must be contiguous int32 on "
+    clusters, items, cells = padded.shape[0] // 32, tables.it_cl.shape[0], tables.gc ** 3
+    sizes = {"cfirst": cells, "ncl": cells, "cl_cell": clusters, "it_cl": items,
+             "it_k0": items, "it_k1": items, "cl_item0": clusters, "cl_nitem": clusters}
+    ints = tuple(getattr(tables, name) for name in sizes)
+    for (name, size), t in zip(sizes.items(), ints):
+        if (t.dtype != torch.int32 or not t.is_contiguous() or t.device != device
+                or t.shape != (size,)):
+            raise ValueError(f"the pair tables' {name} must be ({size},) contiguous int32 on "
                              f"{device}")
+    box = tables.box
+    if (padded.shape[0] % 32 or box.shape != (clusters, 8) or box.dtype != torch.float32
+            or not box.is_contiguous() or box.device != device):
+        raise ValueError("the pair tables' box must be (rows / 32, 8) float32, rows a "
+                         "multiple of 32")
     if tables.meta.dtype != torch.float32 or tables.meta.shape != (4,):
         raise ValueError("the pair tables' meta must be (4,) float32")
+    if lib is None:
+        from nbody_tpu_torch.ops._build import load_library
+
+        lib = load_library()
     acc_pad = torch.empty_like(padded)
-
-    from nbody_tpu_torch.ops._build import load_library
-
-    lib = load_library()
+    partial = torch.empty((items, 3, 32), dtype=torch.float64, device=device)
+    next_item = torch.zeros(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.nbody_p3m_sr_f32(
-            padded.data_ptr(), acc_pad.data_ptr(), *(t.data_ptr() for t in ints),
-            tables.meta.data_ptr(), tables.e_cell.shape[0], tables.gc, tables.blk,
+            padded.data_ptr(), box.data_ptr(), *(t.data_ptr() for t in ints),
+            tables.meta.data_ptr(), partial.data_ptr(), next_item.data_ptr(),
+            acc_pad.data_ptr(), items, padded.shape[0], tables.gc, tables.blk,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_p3m_sr_f32 launch")
+    return acc_pad
+
+
+def p3m_sr_pairs_cuda(tables):
+    """One launch of the pair kernel ``nbody_p3m_sr_f32`` over the tables of
+    ``p3m.pair_tables`` (``p3m_sr_launch``), counted: the (R, 4) short-range
+    sums of the padded rows. CUDA tensors only: the CPU has no counterpart
+    of the padded rows' sums (its plain version of the whole short range is
+    ``reference.p3m_short_range``)."""
+    acc_pad = p3m_sr_launch(tables)
     LAUNCHES["p3m_sr"] += 1
     return acc_pad
 

@@ -24,12 +24,15 @@ were dropped (the overflow), which callers treat as a failed assertion.
 
 There is no pair budget. The TPU kernel walks a flat, prefetched list of
 (blk, blk) block pairs, because a Pallas grid needs static block indices,
-and pairs beyond its budget are dropped (``p3m_kernel.py:25-29``). Here one
-thread block takes one (cell, i-subtile) entry and loops over the
-neighbour cells' j-blocks itself, so every pair of kept bodies is summed
-whatever the state: the contract of the reference's own off-TPU engine
-(``p3m_short_range="xla"``), which has no budget either. There is no
-``p3m_pair_count`` and no budget breach; the only contract is capacity.
+and pairs beyond its budget are dropped (``p3m_kernel.py:25-29``). Here
+``pair_tables`` orders each cell's kept bodies by sub-cell, pads the cell
+to whole clusters of 32 rows with a bounding box each, and cuts each
+i-cluster's j-clusters (those of its 27 neighbour cells) into work items of
+bounded length; the kernel skips a j-cluster or j-row only where every pair
+it would sum has r^2 >= rcut^2, so every pair of kept bodies within rcut is
+summed whatever the state: the contract of the reference's own off-TPU
+engine (``p3m_short_range="xla"``), which has no budget either. There is
+no ``p3m_pair_count`` and no budget breach; the only contract is capacity.
 
 Not ported yet (ROADMAP.md Queue 1 #16): plain PM, TSC assignment, the
 naive deconvolution, ``refresh_p3m_contract`` / auto refresh, the XLA
@@ -81,10 +84,11 @@ _CIC_WINDOW_EXP = 2
 
 
 def p3m_kernel_blk(capacity: int) -> int:
-    """Rows of a cell block of the padded layout, and threads of a pair
-    kernel block: the reference's compile-time ladder
-    (``nbody_tpu/ops/p3m_kernel.py:104``), so the padded layout is the same;
-    a tile tuned for the card comes with the port's tuner (ROADMAP.md Queue
+    """Threads of a pair kernel block (blk / 32 warps, each computing its
+    own work items): the reference's compile-time ladder of its block rows
+    (``nbody_tpu/ops/p3m_kernel.py:104``), kept as the ``blk`` keyword's
+    default; the layout no longer depends on it (cells pad to 32 rows). A
+    value tuned for the card comes with the port's tuner (ROADMAP.md Queue
     1 #12)."""
     if capacity > 4096:
         return 512
@@ -124,11 +128,11 @@ def _neighbor_stencil(gc: int, device=None):
     ncell = gc * gc * gc
     cc = torch.arange(ncell, dtype=torch.int64, device=device)
     cx, cy, cz = cc // (gc * gc), (cc // gc) % gc, cc % gc
-    offs = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-                         for dz in (-1, 0, 1)], dtype=torch.int64, device=device)
-    nx = cx[:, None] + offs[None, :, 0]
-    ny = cy[:, None] + offs[None, :, 1]
-    nz = cz[:, None] + offs[None, :, 2]
+    # the offsets made on the device: no copy from the host
+    s = torch.arange(27, dtype=torch.int64, device=device)
+    nx = cx[:, None] + (s // 9 - 1)[None, :]
+    ny = cy[:, None] + ((s // 3) % 3 - 1)[None, :]
+    nz = cz[:, None] + (s % 3 - 1)[None, :]
     nvalid = ((nx >= 0) & (nx < gc) & (ny >= 0) & (ny < gc)
               & (nz >= 0) & (nz < gc))
     return torch.where(nvalid, (nx * gc + ny) * gc + nz, 0), nvalid
@@ -164,25 +168,51 @@ def p3m_overflow_count(pos, *, grid: int = 64, capacity: int = 128):
     return (_massive_occupancy(pos, grid) - int(capacity)).clamp(min=0).sum()
 
 
+# Rows of a cluster of the pair kernel's layout: the lanes of a warp (CL in
+# csrc/p3m_kernels.cu)
+CLUSTER = 32
+# a cell's kept bodies are ordered by the Morton code of their sub-cell on a
+# (2^SUB_BITS)^3 lattice inside the cell (_sub_cell_key spreads 4 bits)
+SUB_BITS = 4
+# the j-range of an i-cluster is cut into work items of at least CHUNK_MIN
+# j-clusters, and of as many more as keep the items within
+# ITEMS_PER_CLUSTER * ceil(N / CLUSTER) beyond one an i-cluster
+CHUNK_MIN = 32
+ITEMS_PER_CLUSTER = 4
+
+
 @dataclasses.dataclass
 class PairTables:
-    """The cell-aligned padded layout of ``_build_pair_tables``
-    (``nbody_tpu/ops/p3m_kernel.py:151``) and the pair kernel's entries.
+    """The pair kernel's layout (``csrc/p3m_kernels.cu``) and its work items.
 
-    ``padded`` (M + blk, 4): each cell's kept bodies start at a block
-    boundary (block ``ablk[c]``, ``tpc[c]`` blocks), inert rows (1e30,
-    1e30, 1e30, 0) in between and after, M = blk * (ncell + ceil(N/blk)).
-    ``e_cell`` / ``e_t`` (L,), L = ncell + ceil(N/blk): entry e is i-block
-    ``e_t[e]`` of cell ``e_cell[e]``, or inert (``e_cell`` -1) past the live
-    ones. ``body_row`` (N,): each body's padded row, M + blk if dropped.
-    ``meta`` (4,) on the device: eps^2, rcut^2, 1/(2 sigma^2), 1/(sqrt2
-    sigma)^3. ``overflow``: dropped massive bodies, a 0-d tensor."""
+    ``padded`` (R, 4), R = CLUSTER * nclb with nclb = ceil(N / CLUSTER) +
+    ncell + 1, a static bound on the clusters whose last one is always
+    inert: the ``nkept[c]`` kept bodies of cell c, in sub-cell Morton order,
+    fill clusters ``cfirst[c]`` .. ``cfirst[c] + ncl[c] - 1``; inert rows
+    (1e30, 1e30, 1e30, 0) elsewhere. ``box`` (nclb, 8): each cluster's (lo,
+    0, hi, 0) over its real rows. ``cl_cell`` (nclb,): each cluster's cell,
+    -1 past the live ones; ``cl_item0`` / ``cl_nitem`` its first work item
+    and its item count. ``it_cl`` / ``it_k0`` / ``it_k1`` (items,): item w is
+    i-cluster ``it_cl[w]`` (-1 past the live items, which come first)
+    against j-clusters [k0, k1) of its 27 neighbour cells, numbered in
+    stencil order; ``chunk`` (0-d) the longest j-range of an item.
+    ``body_row`` (N,): each body's padded row, R if dropped. ``meta`` (4,) on
+    the device: eps^2, rcut^2, 1/(2 sigma^2), 1/(sqrt2 sigma)^3.
+    ``overflow``: dropped massive bodies, a 0-d tensor. ``blk``: the pair
+    kernel's threads a block."""
 
     padded: torch.Tensor
-    ablk: torch.Tensor
-    tpc: torch.Tensor
-    e_cell: torch.Tensor
-    e_t: torch.Tensor
+    box: torch.Tensor
+    cfirst: torch.Tensor
+    ncl: torch.Tensor
+    nkept: torch.Tensor
+    cl_cell: torch.Tensor
+    cl_item0: torch.Tensor
+    cl_nitem: torch.Tensor
+    it_cl: torch.Tensor
+    it_k0: torch.Tensor
+    it_k1: torch.Tensor
+    chunk: torch.Tensor
     body_row: torch.Tensor
     meta: torch.Tensor
     overflow: torch.Tensor
@@ -190,95 +220,173 @@ class PairTables:
     blk: int
 
 
+def _sub_cell_key(pos3, lo, rcut, gc: int):
+    """The Morton code of each body's sub-cell on the 16^3 lattice
+    (SUB_BITS = 4) inside its (clipped) rcut-cell: an order of a cell's
+    bodies in which consecutive ones lie close. Each coordinate's 4 bits
+    spread to every third bit by two shift-or-mask steps, a few device ops
+    for all three axes at once."""
+    t = (pos3 - lo[None, :]) / rcut
+    side = 1 << SUB_BITS
+    sub = torch.floor((t - torch.floor(t).clamp(0, gc - 1)) * side).clamp(0, side - 1)
+    sub = sub.to(torch.int64)
+    sub = (sub | (sub << 4)) & 0x0C3  # bits 0, 1 stay; bits 2, 3 go to 6, 7
+    sub = (sub | (sub << 2)) & 0x249  # bits 0, 1, 6, 7 go to 0, 3, 6, 9
+    return (sub[:, 0] << 2) | (sub[:, 1] << 1) | sub[:, 2]
+
+
 def pair_tables(pos, softening, *, grid: int, capacity: int, blk: int) -> PairTables:
-    """Bin, sort and lay out the state for the short-range pair kernel, in
-    torch ops on pos's device with no host synchronisation. The sort is
-    stable by (cell, massless last), as the reference's ``jnp.argsort``, so
-    a full cell drops the same bodies."""
+    """Bin, sort and lay out the state for the short-range pair kernel and
+    cut its work into items, in torch ops on pos's device with no host
+    synchronisation. Which bodies a cell keeps follows the reference's
+    stable (cell, massless last) order, so a full cell drops the same
+    bodies; the kept ones are then ordered inside their cell by sub-cell."""
     n = pos.shape[0]
     dev = pos.device
+    i64, i32 = torch.int64, torch.int32
     pos3, mass, lo, h, rcut, gc, cell = _cells(pos, grid)
     ncell = gc ** 3
     massive = mass > 0
 
-    order = torch.argsort(cell * 2 + (~massive).to(torch.int64), stable=True)
+    order = torch.argsort(cell * 2 + (~massive).to(i64), stable=True)
     sorted_cell = cell[order]
     bounds = torch.searchsorted(sorted_cell, torch.arange(ncell + 1, device=dev))
     starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
-    rank = torch.arange(n, device=dev) - starts[sorted_cell]
-    overflow = ((rank >= capacity) & massive[order]).sum()
+    kept = torch.arange(n, device=dev) - starts[sorted_cell] < capacity
+    overflow = (~kept & massive[order]).sum()
+    # the kept bodies by (cell, sub-cell), stably; the dropped ones last
+    sub = _sub_cell_key(pos3[order], lo, rcut, gc)
+    key = torch.where(kept, (sorted_cell << (3 * SUB_BITS)) | sub, ncell << (3 * SUB_BITS))
+    again = torch.argsort(key, stable=True)
+    order, kept, sorted_cell = order[again], kept[again], sorted_cell[again]
 
-    tpc = (counts.clamp(max=capacity) + blk - 1) // blk     # blocks per cell
-    cum = torch.cumsum(tpc, 0)                               # inclusive
-    ablk = cum - tpc                                         # first block
-    mb_bound = ncell + -(-n // blk)                          # static block bound
-    m_pad = mb_bound * blk
-
-    kept = rank < capacity
-    body_row_sorted = torch.where(kept, ablk[sorted_cell] * blk + rank, m_pad + blk)
-    padded = torch.zeros((m_pad + blk, 4), dtype=torch.float32, device=dev)
+    nkept = counts.clamp(max=capacity)
+    ncl = (nkept + CLUSTER - 1) // CLUSTER                   # clusters a cell
+    cfirst = torch.cumsum(ncl, 0) - ncl
+    kfirst = torch.cumsum(nkept, 0) - nkept
+    nclb = -(-n // CLUSTER) + ncell + 1                      # static cluster bound
+    rows = nclb * CLUSTER
+    rank = torch.arange(n, device=dev) - kfirst[sorted_cell]
+    body_row_sorted = torch.where(kept, cfirst[sorted_cell] * CLUSTER + rank, rows)
+    # dropped bodies write the inert row into the last (inert) cluster
+    dst = body_row_sorted.clamp(max=rows - 1)
+    padded = torch.zeros((rows, 4), dtype=torch.float32, device=dev)
     padded[:, :3] = 1e30
-    rows = torch.cat([pos3[order], mass[order][:, None]], dim=1)
-    # dropped bodies write the inert row into the last (inert) block
-    padded[body_row_sorted.clamp(max=m_pad + blk - 1)] = torch.where(
-        kept[:, None], rows, padded[-1])
+    padded[dst] = torch.where(kept[:, None],
+                              torch.cat([pos3[order], mass[order][:, None]], dim=1), padded[-1])
+    real = torch.zeros(rows, dtype=torch.bool, device=dev)
+    real[dst] = kept
     body_row = torch.empty_like(body_row_sorted)
     body_row[order] = body_row_sorted
 
-    slot = torch.arange(mb_bound, device=dev)
-    e_cell = torch.searchsorted(cum, slot, right=True).clamp(max=ncell - 1)
-    e_t = slot - ablk[e_cell]
-    e_cell = torch.where(slot < cum[-1], e_cell, -1)
+    # each cluster's box over its real rows (zero-mass bodies included)
+    xyz = padded[:, :3].view(nclb, CLUSTER, 3)
+    inside = real.view(nclb, CLUSTER, 1)
+    box = torch.zeros((nclb, 8), dtype=torch.float32, device=dev)
+    box[:, 0:3] = torch.where(inside, xyz, math.inf).amin(dim=1)
+    box[:, 4:7] = torch.where(inside, xyz, -math.inf).amax(dim=1)
+
+    # work items: each live i-cluster's j-clusters (those of its cell's
+    # stencil, in stencil order) in chunks; sum_k ceil(J_k / chunk) <=
+    # sum_k J_k / chunk + live clusters <= max_items + nclb - 1
+    ccum = torch.cumsum(ncl, 0)
+    cl = torch.arange(nclb, device=dev)
+    live = cl < ccum[-1]
+    cl_cell = torch.searchsorted(ccum, cl, right=True).clamp(max=ncell - 1)
+    nid, nvalid = _neighbor_stencil(gc, dev)
+    jcl = torch.where(nvalid, ncl[nid], 0).sum(dim=1)       # j-clusters of a cell's stencil
+    max_items = ITEMS_PER_CLUSTER * max(1, -(-n // CLUSTER))
+    chunk = (((ncl * jcl).sum() + max_items - 1) // max_items).clamp(min=CHUNK_MIN)
+    jlen = jcl[cl_cell]
+    nitem = torch.where(live, (jlen + chunk - 1) // chunk, 0)
+    icum = torch.cumsum(nitem, 0)
+    item0 = icum - nitem
+    slot = torch.arange(max_items + nclb, device=dev)
+    it_cl = torch.searchsorted(icum, slot, right=True).clamp(max=nclb - 1)
+    alive = slot < icum[-1]
+    it_k0 = torch.where(alive, (slot - item0[it_cl]) * chunk, 0)
+    it_k1 = torch.where(alive, torch.minimum(it_k0 + chunk, jlen[it_cl]), 0)
 
     sigma = SIGMA_CELLS * h
     sq2s = math.sqrt(2.0) * sigma
     # a fill, not a copy from the host: no synchronisation
     meta = torch.stack([h.new_full((), soft2_f32(softening)), rcut * rcut,
                         1.0 / (2.0 * sigma * sigma), 1.0 / (sq2s * sq2s * sq2s)])
-    i32 = torch.int32
-    return PairTables(padded=padded, ablk=ablk.to(i32), tpc=tpc.to(i32),
-                      e_cell=e_cell.to(i32), e_t=e_t.to(i32), body_row=body_row,
-                      meta=meta, overflow=overflow, gc=gc, blk=blk)
+    return PairTables(
+        padded=padded, box=box, cfirst=cfirst.to(i32), ncl=ncl.to(i32), nkept=nkept.to(i32),
+        cl_cell=torch.where(live, cl_cell, -1).to(i32), cl_item0=item0.to(i32),
+        cl_nitem=nitem.to(i32), it_cl=torch.where(alive, it_cl, -1).to(i32),
+        it_k0=it_k0.to(i32), it_k1=it_k1.to(i32), chunk=chunk, body_row=body_row, meta=meta,
+        overflow=overflow, gc=gc, blk=blk)
+
+
+def _box_d2(alo, ahi, blo, bhi):
+    """The box distance^2 as the pair kernel computes it: per axis the
+    float32 gap max(blo - ahi, alo - bhi, 0), then (x^2 + y^2) + z^2, each
+    operation rounded (a lower bound on the rounded r^2 of any pair of
+    points of the two boxes; csrc/p3m_kernels.cu)."""
+    g = torch.maximum(blo - ahi, alo - bhi).clamp(min=0)
+    g2 = g * g
+    return (g2[..., 0] + g2[..., 1]) + g2[..., 2]
 
 
 def pair_work(tables: PairTables) -> dict:
     """What the short-range sum over these tables amounts to, as ints, for
     reports and the pair kernel's bound (synchronises with the device):
 
-      * ``entries``: the pair kernel's thread blocks that do work;
-      * ``tiles``: the (blk, blk) block pairs they sum, the reference's
-        ``p3m_pair_count``; the kernel visits tiles * blk^2 row pairs;
+      * ``clusters`` / ``items``: the live i-clusters and work items;
+        ``chunk``: the longest j-range of an item, in j-clusters;
+      * ``cluster_pairs``: (i-cluster, j-cluster) pairs of neighbouring
+        cells, what the box tests look at; ``boxed``: those the box test
+        keeps, whose j-rows the kernel loads (``visited`` = boxed * 32^2
+        row pairs);
+      * ``tested``: row pairs whose pair test runs, 32 for each (i-cluster,
+        j-row) that the box and the row tests keep;
+      * ``termed``: row pairs whose warp runs the term, 32 for each
+        (i-cluster, j-row) with a pair within rcut;
       * ``candidates``: pairs of kept bodies in neighbouring cells, what a
         cell list must look at (self pairs included);
-      * ``near``: those with r^2 < rcut^2, the pairs whose force term a
-        cell list must compute (r^2 rounded as the kernel rounds it).
-    """
-    nid, nvalid = _neighbor_stencil(tables.gc, tables.tpc.device)
-    tpc = tables.tpc.to(torch.int64)
-    padded, blk = tables.padded, tables.blk
-    # a cell's kept bodies are the first rows of its blocks; inert rows are
-    # at 1e30
-    real = (padded[:, 0] < 1e29).to(torch.int64)
-    first = tables.ablk.to(torch.int64) * blk
-    csum = torch.cat([real.new_zeros(1), torch.cumsum(real, 0)])
-    kept = csum[first + tpc * blk] - csum[first]
-    nkept = torch.where(nvalid, kept[nid], 0).sum(dim=1)
-    out = {"entries": int((tables.e_cell >= 0).sum()),
-           "tiles": int((tpc * torch.where(nvalid, tpc[nid], 0).sum(dim=1)).sum()),
-           "candidates": int((kept * nkept).sum())}
+      * ``near``: those with r^2 < rcut^2, the pairs whose force term the
+        function needs (r^2 rounded as the kernel rounds it).
+
+    termed / near is the pruning's efficiency (1: no pair past rcut is
+    computed)."""
+    cw = CLUSTER
+    padded, box = tables.padded, tables.box
+    dev = padded.device
+    nid, nvalid = _neighbor_stencil(tables.gc, dev)
+    ncl = tables.ncl.to(torch.int64)
+    nkept = tables.nkept.to(torch.int64)
+    out = {"clusters": int(ncl.sum()), "items": int((tables.it_cl >= 0).sum()),
+           "chunk": int(tables.chunk),
+           "cluster_pairs": int((ncl * torch.where(nvalid, ncl[nid], 0).sum(dim=1)).sum()),
+           "candidates": int((nkept * torch.where(nvalid, nkept[nid], 0).sum(dim=1)).sum())}
     rcut2 = tables.meta[1]
-    near = torch.zeros((), dtype=torch.int64, device=padded.device)
-    chunk = 1 << 26
-    for c in torch.nonzero(kept).flatten().tolist():
-        ri = padded[first[c]:first[c] + kept[c], :3]
-        rj = torch.cat([padded[first[n]:first[n] + kept[n], :3]
-                        for n, ok in zip(nid[c].tolist(), nvalid[c].tolist()) if ok])
-        step = max(1, chunk // max(1, rj.shape[0]))
-        for i0 in range(0, ri.shape[0], step):
-            d = rj[None, :, :] - ri[i0:i0 + step, None, :]
-            r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-            near += (r2 < rcut2).sum()
-    out["near"] = int(near)
+    xyz = padded[:, :3]
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)  # boxed, tested, termed, near
+    cf, nc, nk = tables.cfirst.tolist(), ncl.tolist(), nkept.tolist()
+    lane = torch.arange(cw, device=dev)
+    for c in (c for c, m in enumerate(nc) if m):
+        js = [n for n, ok in zip(nid[c].tolist(), nvalid[c].tolist()) if ok and nc[n]]
+        jcl = torch.cat([torch.arange(cf[n], cf[n] + nc[n], device=dev) for n in js])
+        jrow = (jcl[:, None] * cw + lane).flatten()
+        jreal = torch.cat([torch.arange(nc[n] * cw, device=dev) < nk[n] for n in js])
+        jp, jlo, jhi = xyz[jrow], box[jcl, 0:3], box[jcl, 4:7]
+        step = max(1, (1 << 25) // (cw * jrow.shape[0]))
+        for i0 in range(0, nc[c], step):
+            ic = torch.arange(cf[c] + i0, cf[c] + min(nc[c], i0 + step), device=dev)
+            ilo, ihi = box[ic, None, 0:3], box[ic, None, 4:7]
+            keep = _box_d2(ilo, ihi, jlo[None], jhi[None]) < rcut2
+            rowk = (_box_d2(ilo, ihi, jp[None], jp[None]) < rcut2) & keep.repeat_interleave(
+                cw, dim=1)
+            ireal = (ic[:, None] - cf[c]) * cw + lane < nk[c]
+            d = jp[None, None] - xyz[ic[:, None] * cw + lane][:, :, None]
+            r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+            near = (r2 < rcut2) & ireal[:, :, None] & jreal
+            counts += torch.stack([keep.sum(), rowk.sum() * cw, near.any(dim=1).sum() * cw,
+                                   near.sum()])
+    boxed, tested, termed, near = counts.tolist()
+    out.update(boxed=boxed, visited=boxed * cw * cw, tested=tested, termed=termed, near=near)
     return out
 
 

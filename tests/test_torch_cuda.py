@@ -38,6 +38,8 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     sym_cross_cuda,
 )
 
+import p3m_states
+
 pytestmark = pytest.mark.cuda
 
 DT, SOFT, DAMP = 0.016, 0.1, 1.0
@@ -958,11 +960,18 @@ def _p3m_state(n, dev, pads=0):
 
 @pytest.mark.parametrize("blk", cuda_kernel.P3M_BLKS)
 @pytest.mark.parametrize("n, pads, grid, cap", [(4099, 77, 32, None), (16384, 0, 64, None),
-                                                (4099, 0, 32, 8)])
+                                                (4099, 0, 32, 8), ("collapsed", 0, 32, None),
+                                                ("rcut_pairs", 0, 32, None)])
 def test_p3m_pair_kernel_matches_plain(dev, blk, n, pads, grid, cap):
+    """Shell states, and two of tests/p3m_states.py's: a collapsed cell, and
+    pairs at rcut * (1 +- 1e-7) that the kernel's box and row tests meet at
+    their edge."""
     from nbody_tpu_torch.ops import p3m
 
-    p = _p3m_state(n, dev, pads)
+    if isinstance(n, str):
+        p = torch.tensor(p3m_states.state(n, grid), device=dev)
+    else:
+        p = _p3m_state(n, dev, pads)
     if cap is None:  # BodySystem's auto size
         cap = max(8, -(-int(int(p3m.p3m_max_occupancy(p, grid=grid)) * 1.5 + 1) // 8) * 8)
     before = dict(cuda_kernel.LAUNCHES)

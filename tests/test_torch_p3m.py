@@ -36,6 +36,8 @@ from nbody_tpu_torch.models import BodySystem
 from nbody_tpu_torch.ops import cuda_kernel, p3m, pm, reference
 from nbody_tpu_torch.params import NBodyParams
 
+import p3m_states
+
 SOFT = 0.1
 RTOL, ATOL = 1e-4, 2e-4
 
@@ -192,53 +194,142 @@ def test_plain_short_range_of_sampled_rows(cloud, cap):
     assert empty.shape == (0, 3)
 
 
-def _emulate_pair_kernel(tables):
-    """What csrc/p3m_kernels.cu computes, in numpy: one entry per (cell,
-    i-block), its rows against the j-blocks of the 27 neighbours in
-    stencil order, the mask a select."""
-    pad = tables.padded.numpy()
-    out = np.zeros_like(pad)
-    eps2, rcut2, inv_2s2, inv_sq2s3 = tables.meta.numpy()
-    gc, blk = tables.gc, tables.blk
-    ablk, tpc = tables.ablk.numpy(), tables.tpc.numpy()
-    for c, t in zip(tables.e_cell.numpy(), tables.e_t.numpy()):
-        if c < 0:
-            continue
-        r0 = (ablk[c] + t) * blk
-        pi = pad[r0:r0 + blk]
-        acc = np.zeros((blk, 3), np.float32)
-        cx, cy, cz = c // (gc * gc), (c // gc) % gc, c % gc
-        for nx in (cx - 1, cx, cx + 1):
-            for ny in (cy - 1, cy, cy + 1):
-                for nz in (cz - 1, cz, cz + 1):
-                    if min(nx, ny, nz) < 0 or max(nx, ny, nz) >= gc:
-                        continue
+def _box_d2(alo, ahi, blo, bhi):
+    """The kernel's box distance^2, in numpy float32: per axis the rounded
+    gap max(blo - ahi, alo - bhi, 0), then (x^2 + y^2) + z^2."""
+    g = np.maximum(np.maximum(blo - ahi, alo - bhi), np.float32(0))
+    with np.errstate(over="ignore"):
+        g2 = g * g
+        return (g2[..., 0] + g2[..., 1]) + g2[..., 2]
+
+
+def _r2(pj, pi):
+    """(len(pi), len(pj)) r^2 of (., 3) float32 rows, rounded as the kernel
+    rounds it."""
+    with np.errstate(over="ignore"):
+        d = pj[None, :, :] - pi[:, None, :]
+        return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def _stencil_clusters(tables, c):
+    """The j-clusters of cell c's 27 neighbours, in stencil order (dz
+    fastest): the numbering of the items' [k0, k1)."""
+    gc = tables.gc
+    cfirst, ncl = tables.cfirst.numpy(), tables.ncl.numpy()
+    cx, cy, cz = c // (gc * gc), (c // gc) % gc, c % gc
+    out = []
+    for nx in (cx - 1, cx, cx + 1):
+        for ny in (cy - 1, cy, cy + 1):
+            for nz in (cz - 1, cz, cz + 1):
+                if min(nx, ny, nz) >= 0 and max(nx, ny, nz) < gc:
                     nc = (nx * gc + ny) * gc + nz
-                    for u in range(tpc[nc]):
-                        pj = pad[(ablk[nc] + u) * blk:(ablk[nc] + u + 1) * blk]
-                        with np.errstate(over="ignore", invalid="ignore"):
-                            d = pj[None, :, :3] - pi[:, None, :3]
-                            r2 = (d * d).sum(-1)
-                            y = r2 * inv_2s2
-                            g = np.full_like(y, p3m._SLR_POLY[-1])
-                            for coef in p3m._SLR_POLY[-2::-1]:
-                                g = g * y + np.float32(coef)
-                            s = np.where(r2 < rcut2, ((r2 + eps2) ** -1.5 - g * inv_sq2s3)
-                                         * pj[None, :, 3], 0.0)
-                        acc += (s[:, :, None] * d).sum(1)
-        out[r0:r0 + blk, :3] = acc
+                    out.extend(range(cfirst[nc], cfirst[nc] + ncl[nc]))
+    return out
+
+
+def _emulate_pair_kernel(tables):
+    """What csrc/p3m_kernels.cu computes, in numpy: each work item (an
+    i-cluster and the j-clusters [k0, k1) of its stencil) skips the
+    j-clusters whose box distance^2 to the i-cluster's box is >= rcut^2,
+    then the j-rows whose distance^2 to it is; sums each j-cluster's terms
+    (the mask a select) in float32 and the j-clusters in float64; the items
+    of an i-cluster add in item order."""
+    cw = p3m.CLUSTER
+    pad, box = tables.padded.numpy(), tables.box.numpy()
+    eps2, rcut2, inv_2s2, inv_sq2s3 = tables.meta.numpy()
+    it_cl, k0s, k1s = (t.numpy() for t in (tables.it_cl, tables.it_k0, tables.it_k1))
+    cl_cell = tables.cl_cell.numpy()
+    partial = np.zeros((len(it_cl), cw, 3))
+    for w, ic in enumerate(it_cl):
+        if ic < 0:
+            break
+        pi = pad[ic * cw:(ic + 1) * cw]
+        ilo, ihi = box[ic, 0:3], box[ic, 4:7]
+        for jc in _stencil_clusters(tables, cl_cell[ic])[k0s[w]:k1s[w]]:
+            if _box_d2(ilo, ihi, box[jc, 0:3], box[jc, 4:7]) >= rcut2:
+                continue
+            pj = pad[jc * cw:(jc + 1) * cw]
+            pj = pj[_box_d2(ilo, ihi, pj[:, :3], pj[:, :3]) < rcut2]
+            with np.errstate(over="ignore", invalid="ignore"):
+                d = pj[None, :, :3] - pi[:, None, :3]
+                r2 = _r2(pj[:, :3], pi[:, :3])
+                y = r2 * inv_2s2
+                g = np.full_like(y, p3m._SLR_POLY[-1])
+                for coef in p3m._SLR_POLY[-2::-1]:
+                    g = g * y + np.float32(coef)
+                s = np.where(r2 < rcut2, ((r2 + eps2) ** -1.5 - g * inv_sq2s3)
+                             * pj[None, :, 3], 0.0)
+            partial[w] += (s[:, :, None] * d).sum(1, dtype=np.float32)
+    out = np.zeros_like(pad)
+    for k, (t0, nt) in enumerate(zip(tables.cl_item0.numpy(), tables.cl_nitem.numpy())):
+        out[k * cw:(k + 1) * cw, :3] = partial[t0:t0 + nt].sum(0)
     return torch.tensor(out)
+
+
+def _check_layout(tables, pos, cap):
+    """The invariants of the layout (the reference's
+    test_pallas_pair_tables_properties, for clusters): the kept bodies are
+    the reference's, each on its own row, in its cell's clusters; every
+    other row inert; boxes over the real rows; the work items cover each
+    live i-cluster's stencil once, in chunks of at most ``chunk``."""
+    cw = p3m.CLUSTER
+    pos3, mass, _, _, _, gc, cell = (x.numpy() if isinstance(x, torch.Tensor) else x
+                                     for x in p3m._cells(torch.tensor(pos), 32))
+    order = np.argsort(cell * 2 + (mass <= 0), kind="stable")
+    rank = np.arange(len(pos)) - np.searchsorted(cell[order], cell[order])
+    kept = np.empty(len(pos), bool)
+    kept[order] = rank < cap
+    rows = tables.body_row.numpy()
+    padded = tables.padded.numpy()
+    assert padded.shape[0] % cw == 0
+    assert ((rows < padded.shape[0]) == kept).all()
+    live = rows[kept]
+    assert len(np.unique(live)) == len(live)
+    np.testing.assert_array_equal(padded[live], pos[kept])
+    assert (padded[np.setdiff1d(np.arange(len(padded)), live), :3] == 1e30).all()
+    cfirst, ncl, nkept = tables.cfirst.numpy(), tables.ncl.numpy(), tables.nkept.numpy()
+    np.testing.assert_array_equal(nkept, np.minimum(np.bincount(cell, minlength=gc ** 3), cap))
+    np.testing.assert_array_equal(ncl, -(-nkept // cw))
+    kc = cell[kept]
+    assert ((live // cw >= cfirst[kc]) & (live // cw < cfirst[kc] + ncl[kc])).all()
+    # in its cell, a body's row follows the sub-cell order
+    _, _, lo, _, rcut, _, _ = p3m._cells(torch.tensor(pos), 32)
+    sub = p3m._sub_cell_key(torch.tensor(pos3[kept]), lo, rcut, gc).numpy()
+    by_row = np.argsort(live)
+    same = kc[by_row][1:] == kc[by_row][:-1]
+    assert (np.diff(sub[by_row])[same] >= 0).all()
+    box = tables.box.numpy()
+    for k in np.unique(live // cw):
+        real = padded[k * cw:(k + 1) * cw][padded[k * cw:(k + 1) * cw, 0] < 1e29, :3]
+        np.testing.assert_array_equal(box[k, 0:3], real.min(0))
+        np.testing.assert_array_equal(box[k, 4:7], real.max(0))
+    cl_cell, chunk = tables.cl_cell.numpy(), int(tables.chunk)
+    nlive = int(ncl.sum())
+    assert (cl_cell[:nlive] >= 0).all() and (cl_cell[nlive:] == -1).all()
+    it_cl, k0s, k1s = (t.numpy() for t in (tables.it_cl, tables.it_k0, tables.it_k1))
+    items = int((it_cl >= 0).sum())
+    assert (it_cl[items:] == -1).all()
+    assert len(it_cl) == p3m.ITEMS_PER_CLUSTER * -(-len(pos) // cw) + len(cl_cell)
+    for k in range(nlive):
+        t0, nt = tables.cl_item0.numpy()[k], tables.cl_nitem.numpy()[k]
+        assert (it_cl[t0:t0 + nt] == k).all()
+        assert k0s[t0] == 0 and k1s[t0 + nt - 1] == len(_stencil_clusters(tables, cl_cell[k]))
+        np.testing.assert_array_equal(k0s[t0 + 1:t0 + nt], k1s[t0:t0 + nt - 1])
+        assert (k1s[t0:t0 + nt] - k0s[t0:t0 + nt] <= chunk).all()
+    return pos3, cell, kept, gc
 
 
 @pytest.mark.parametrize("blk", [128, 256])
 @pytest.mark.parametrize("cap", [16, 64])
 def test_pair_tables_feed_the_kernel_the_plain_sum(cloud, blk, cap):
-    """The port's padded layout, run through an emulation of the kernel,
-    gives the plain short-range sum; at capacity 16 bodies are dropped. 77
-    zero-mass bodies at the origin share cells and tiles with real ones."""
+    """The port's cluster layout and work items, run through an emulation of
+    the kernel, give the plain short-range sum; at capacity 16 bodies are
+    dropped, at 64 j-ranges split into several items. 77 zero-mass bodies
+    at the origin share cells, clusters and boxes with real ones."""
     pos = np.concatenate([cloud, np.zeros((77, 4), np.float32)])
     t = torch.tensor(pos)
     tables = p3m.pair_tables(t, SOFT, grid=32, capacity=cap, blk=blk)
+    assert tables.blk == blk
     got = p3m.short_range_from_tables(_emulate_pair_kernel(tables), tables)
     want = reference.p3m_short_range(t, SOFT, grid=32, capacity=cap)
     assert np.isfinite(got.numpy()).all()
@@ -246,36 +337,80 @@ def test_pair_tables_feed_the_kernel_the_plain_sum(cloud, blk, cap):
     assert int(tables.overflow) == int(p3m.p3m_overflow_count(t, grid=32, capacity=cap))
     assert (int(tables.overflow) > 0) == (cap == 16)
 
-    # invariants of the layout (the reference's test_pallas_pair_tables_properties)
-    rows = tables.body_row.numpy()
-    m_pad = tables.padded.shape[0] - blk
-    live = rows[rows < m_pad]
-    assert len(np.unique(live)) == len(live)
-    padded = tables.padded.numpy()
-    np.testing.assert_allclose(padded[live, :3], pos[rows < m_pad, :3])
-    assert (padded[np.setdiff1d(np.arange(len(padded)), live), :3] == 1e30).all()
+    pos3, cell, kept, gc = _check_layout(tables, pos, cap)
     work = p3m.pair_work(tables)
-    e_cell = tables.e_cell.numpy()
-    entries = work["entries"]
-    assert (e_cell[:entries] >= 0).all() and (e_cell[entries:] == -1).all()
-    assert entries == int(tables.tpc.sum())
-    assert len(e_cell) == p3m._cell_grid_size(32) ** 3 + -(-len(pos) // blk)
-    assert work["tiles"] >= entries
+    assert work["clusters"] == int(tables.ncl.sum())
+    assert work["items"] == int((tables.it_cl >= 0).sum()) >= work["clusters"]
+    if cap == 64:
+        assert work["items"] > work["clusters"]
+    assert work["near"] <= work["termed"] <= work["tested"] <= work["visited"]
+    assert work["boxed"] <= work["cluster_pairs"]
 
     # the candidate and near pairs, counted over all pairs of kept bodies
-    pos3, mass, _, _, rcut, gc, cell = (x.numpy() if isinstance(x, torch.Tensor) else x
-                                        for x in p3m._cells(t, 32))
-    order = np.argsort(cell * 2 + (mass <= 0), kind="stable")
-    rank = np.arange(len(pos)) - np.searchsorted(cell[order], cell[order])
-    kept = np.empty(len(pos), bool)
-    kept[order] = rank < cap
+    rcut = float(p3m._cells(t, 32)[4])
     cxyz = np.stack([cell // (gc * gc), (cell // gc) % gc, cell % gc], 1)[kept]
-    p = pos3[kept]
     cand = (np.abs(cxyz[:, None, :] - cxyz[None, :, :]) <= 1).all(axis=2)
-    d = p[None, :, :] - p[:, None, :]
-    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    r2 = _r2(pos3[kept], pos3[kept])
     assert work["candidates"] == int(cand.sum())
     assert work["near"] == int((cand & (r2 < np.float32(rcut) ** 2)).sum())
+
+
+def _auto_capacity(t, grid):
+    return max(8, -(-int(int(p3m.p3m_max_occupancy(t, grid=grid)) * 1.5 + 1) // 8) * 8)
+
+
+@pytest.mark.parametrize("kind", p3m_states.KINDS)
+def test_pruning_is_conservative(kind):
+    """Every (i-cluster, j-cluster) pair that the box test skips, and every
+    j-row that the row test skips, has all its pairs' r^2, rounded as the
+    kernel rounds it, >= rcut^2, where the plain version adds +0: so the
+    kernel's pruning is exact. The states (tests/p3m_states.py) meet the
+    tests at their edge: pairs at rcut * (1 +- 1e-7) across cell and
+    cluster borders, a collapsed cell, bodies on cell and box faces, an odd
+    N. pair_work counts the tests' outcomes as this does, and the emulated
+    kernel gives the plain sum."""
+    pos = p3m_states.state(kind)
+    t = torch.tensor(pos)
+    grid = p3m_states.GRID
+    cap = _auto_capacity(t, grid)
+    tables = p3m.pair_tables(t, SOFT, grid=grid, capacity=cap, blk=128)
+    cw = p3m.CLUSTER
+    pad, box = tables.padded.numpy(), tables.box.numpy()
+    rcut2 = tables.meta.numpy()[1]
+    cfirst, nkept, cl_cell = tables.cfirst.numpy(), tables.nkept.numpy(), tables.cl_cell.numpy()
+
+    def real(k):
+        c = cl_cell[k]
+        return pad[k * cw:k * cw + min(cw, nkept[c] - (k - cfirst[c]) * cw), :3]
+
+    edge = np.float32(1e-5) * rcut2
+    skipped = rows_skipped = boxed = tested = edge_skipped = edge_kept = 0
+    for ic in np.nonzero(cl_cell >= 0)[0]:
+        pi, ilo, ihi = real(ic), box[ic, 0:3], box[ic, 4:7]
+        for jc in _stencil_clusters(tables, cl_cell[ic]):
+            pj = real(jc)
+            r2 = _r2(pj, pi)
+            if _box_d2(ilo, ihi, box[jc, 0:3], box[jc, 4:7]) >= rcut2:
+                assert (r2 >= rcut2).all(), (ic, jc, r2.min(), rcut2)
+                skipped += 1
+                edge_skipped += int((r2 < rcut2 + edge).sum())
+                continue
+            out = _box_d2(ilo, ihi, pj, pj) >= rcut2
+            assert (r2[:, out] >= rcut2).all(), (ic, jc, r2[:, out].min(), rcut2)
+            boxed += 1
+            tested += cw * int((~out).sum())
+            rows_skipped += int(out.sum())
+            edge_skipped += int((r2[:, out] < rcut2 + edge).sum())
+            edge_kept += int(((r2[:, ~out] < rcut2) & (r2[:, ~out] >= rcut2 - edge)).sum())
+    assert skipped + rows_skipped > 0
+    if kind in ("rcut_pairs", "collapsed"):  # the tests decide pairs at the cutoff
+        assert edge_skipped > 0 and edge_kept > 0
+    work = p3m.pair_work(tables)
+    assert (work["boxed"], work["tested"]) == (boxed, tested)
+
+    got = p3m.short_range_from_tables(_emulate_pair_kernel(tables), tables)
+    want = reference.p3m_short_range(t, SOFT, grid=grid, capacity=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("cap", [64, 2])
