@@ -24,7 +24,9 @@ its result:
      rectangle) and the potential kernel against their plain versions, at
      the cases of 3 and 3s, random masses, vel.w and damping 0.5 through a
      Hermite step of each variant at N in {4099, 65536}; bit equality;
-     momentum and its derivative; their times;
+     momentum and its derivative; their times, the triangle's also at the
+     N=135168 composition's block, beside the each-pair-once kernels'
+     ptxas registers and spills and their walk's SASS instructions a pair;
   4. QA, the reference's rule, through Compute.compare_results at N=16384;
   5. the main path at full size: Compute.run_benchmark at N=65536, beside
      the plain version's time per step;
@@ -612,8 +614,8 @@ def phase_aj_kernels(torch) -> dict:
     step carries the bounds into the velocity as dt * da + dt^2 * dj and
     into the position as dt^2 * da + dt^3 * dj, plus 1e-5."""
     from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import _build, energy, reference
     from nbody_tpu_torch.ops import cuda_kernel as ck
-    from nbody_tpu_torch.ops import energy, reference
     from nbody_tpu_torch.utils.timing import elapsed_ms
 
     dev = torch.device("cuda", 0)
@@ -706,12 +708,21 @@ def phase_aj_kernels(torch) -> dict:
         check(same, f"the sym accel + jerk differs between two calls at N={n}")
 
     # times at the main path's shapes: N=65536 (the triangle: one block
-    # under the cap) and the rectangle of two blocks of N=135168
+    # under the cap), the triangle and the rectangle of the blocks of
+    # N=135168
     _, blk = reference.sym_blocking(N_BIG, tile, cap)
     p, v = shell_state(torch, N_MAIN)
     pb, vb = shell_state(torch, N_BIG)
     pi, vi, pj, vj = pb[:blk], vb[:blk], pb[blk:2 * blk], vb[blk:2 * blk]
     bi, bj = pi.shape[0], pj.shape[0]
+    kernel_ms, t_blk = [], bound_ms(60.0 * bi * (bi - 1) / 2, bi * 32 + bi * 24)
+    for _ in range(2):
+        ck.aj_sym_cuda(pi, vi, soft, tile=tile)
+        kernel_ms.append(elapsed_ms(lambda: [ck.aj_sym_cuda(pi, vi, soft, tile=tile)
+                                             for _ in range(5)], dev) / 5)
+    print(f"[3h aj] aj_sym at N={bi} (the blocks of N={N_BIG}), tile {tile}: kernel "
+          f"{min(kernel_ms):.3f} ms (rounds {', '.join(f'{t:.3f}' for t in kernel_ms)}), "
+          f"bound {t_blk[0]:.3f} ms ({t_blk[1]})")
     runs = {
         "accel_jerk": (lambda: ck.compute_accel_jerk_cuda(p, v, p, v, soft),
                        lambda: reference.compute_accel_jerk(p, v, soft)),
@@ -741,6 +752,23 @@ def phase_aj_kernels(torch) -> dict:
         shape = f"({bi},{bj})" if name == "aj_sym_cross" else f"N={n}"
         print(f"[3h aj] {name} at {shape}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
               f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    # ptxas and the SASS of the each-pair-once kernels: one more nvcc, after
+    # the timed loops
+    usage, text = _build.sass_of("symmetric_aj_kernels.cu")
+    rows = {128: 1, 256: 2, 512: 4, 1024: 8}[tile]
+    names = _build.demangle(usage)
+    for kind in ("tri", "cross"):
+        key = f"aj_sym_{kind}_kernelILi{rows}E"
+        (mangled, u), = ((k, u) for k, u in usage.items() if key in k)
+        walk = min(_build.sass_loops(text, key),
+                   key=lambda lp: lp["instructions"] / lp["pairs"], default=None)
+        check(walk is not None, f"no rsqrt loop in the SASS of {names[mangled]}")
+        mix = ", ".join(f"{c} {n_ / walk['pairs']:.2f}" for c, n_ in sorted(walk["mix"].items()))
+        print(f"[3h aj] {names[mangled]}: {u['registers']} registers, {u['spill_stores']} / "
+              f"{u['spill_loads']} bytes spill stores / loads, {u['smem']} bytes smem; walk "
+              f"{walk['instructions'] / walk['pairs']:.2f} SASS instructions a pair ({mix})")
+        check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+              f"{names[mangled]} spills registers")
     return {"err": err, "times": times, "bounds": bounds}
 
 

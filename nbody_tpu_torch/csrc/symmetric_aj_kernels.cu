@@ -4,49 +4,84 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   nbody_aj_sym_f32   <- nbody_tpu/ops/symmetric_kernel.py::_aj_sym_kernel
-//                         (compute_accel_jerk_symmetric): the strict upper
-//                         triangle j > i of one set
+//                         (compute_accel_jerk_symmetric, pallas_call :935):
+//                         the strict upper triangle j > i of one set
 //   nbody_aj_cross_f32 <- nbody_tpu/ops/symmetric_kernel.py::_aj_sym_cross_kernel
-//                         (_aj_sym_cross): the mask-free rectangle of two sets
+//                         (_aj_sym_cross, pallas_call :679): the mask-free
+//                         rectangle of two sets
 // For each pair (i, j), evaluated once (symmetric_kernel.py:820-864):
 //   d = p_j - p_i;  dv = v_j - v_i (xyz lanes only: vel.w is not a velocity)
-//   r2 = |d|^2 + eps2;  inv = rsqrtf(r2);  inv3 = inv^3
-//   c3p = 3 (d . dv) inv^2 inv3;  q = inv3 dv - c3p d   (mass-free, odd in d)
+//   r2 = |d|^2 + eps2;  inv = rsqrt(r2);  inv3 = inv^3
 //   a_i += m_j inv3 d    j_i += m_j q      (the action)
 //   a_j -= m_i inv3 d    j_j -= m_i q      (the reaction)
-// The triangle keeps j > i on the diagonal tiles as a select on inv3 and
-// c3p, not a product: the masked self pair is inf at eps = 0.
+// with the jerk bracket q = inv3 dv - 3 (d . dv) inv^5 d.
 //
-// What bounds it on an H100: arithmetic. A pair is 60 flops by the JAX
-// package's count for both sides (symmetric_kernel.py:703), about 38 fp32
-// FMA-pipe instructions and one SFU rsqrtf; the inputs are 32 bytes a body.
+// Algebra. q is taken as inv3 e, e = dv - w d, w = 3 (d . dv) inv^2, so the
+// jerk's action is s e and its reaction -t e with the s = m_j inv3 and
+// t = m_i inv3 of the acceleration: 33 FP32-pipe instructions a pair (6
+// FADD for d and dv, 3 FFMA for r2, 2 FMUL for inv^2 and inv^3, 3 for
+// d . dv, 2 for w, 3 FFMA for e, 2 FMUL for s and t, 12 FFMA for the sums)
+// and one MUFU. The JAX package forms q as inv3 dv - c3p d, c3p = 3 (d . dv)
+// inv^2 inv3; the two round differently, within the 1e-4 * max + 1e-4
+// that the tests and chip_smoke.py hold the kernels to. The triangle keeps
+// j > i on the diagonal tiles as a select on s, t and w, never a product:
+// at eps = 0 the self pair has inv = inf and w = NaN, and 0 * NaN is NaN.
 //
-// Design: that of symmetric_kernels.cu (see there), with a payload of 13
-// values where the force has 7.
-//   * Square tiles of T = 128 * ROWS, ROWS in {1, 2, 4, 8}; a block of 128
-//     threads takes one tile pair from the flat worklist (triangle) or the
-//     2-D grid (rectangle). Each thread keeps its ROWS i-bodies' position,
-//     velocity, acceleration and jerk in registers: 13 floats a row.
-//   * A warp walks the column tile 32 j-bodies at a time; each lane holds
-//     one j-body (position, velocity) and its six reaction sums and passes
-//     all 13 to the next lane after every step (__shfl_sync), so no
-//     shared-memory read-modify-write and no atomics.
-//   * The four warps' reaction sums meet in shared memory, added in warp
-//     order: 4 * 6 * T floats, 96 KB at T = 1024 (dynamic shared memory,
-//     the opt-in above 48 KB), 48 KB at 512.
-//   * Each block writes its action and reaction partials into scratch rows
-//     of 6 components; every (tile, component, body) slot is written once
-//     and a second kernel adds each body's slots in tile order. So repeat
-//     calls give the same bits. Scratch: ceil(N/T) * 6 * N floats, twice
-//     the force's (201 MB at N = 65536 and the default T = 512).
-//   * Registers (ptxas, no spills): 48 / 64 / 96 / 168 a thread at ROWS
-//     1 / 2 / 4 / 8. The tile and the composition's cap are measured
-//     (ops/cuda_kernel.py::aj_sym_default_dispatch, scripts/torch_aj_dispatch.py):
-//     tile 512 (4 blocks an SM), cap 65536; the triangle at N = 65536 takes
-//     4.15 ms on an H100 80GB HBM3 at 700 W, 46 % of the fp32 peak (PERF.md).
+// rsqrt: the PTX rsqrt.approx.ftz.f32, one MUFU.RSQ. rsqrtf without
+// -ftz=true adds a range fix-up for subnormal inputs (a compare and two
+// predicated FMULs a pair). The two give the same bits for every normal r2
+// (scripts/torch_aj_dispatch.py checks every positive normal float on the
+// card); they differ only for a subnormal r2, which needs eps = 0 and
+// |d| < 1.1e-19, where this kernel returns inf (the self pair's value).
 //
-// Precision: fp32 only, rsqrtf as in nbody_kernels.cu; -O3 without
-// --use_fast_math, and nvcc contracts a*b+c into FMAs.
+// What bounds it on an H100: issue of arithmetic. A pair is 60 flops by the
+// JAX package's count for both sides (symmetric_kernel.py:703), i.e. 30
+// FP32-pipe instructions; the walk issues 36.75 SASS instructions a pair at
+// tile 512 (33 FP32-pipe, 1 MUFU, 1.5 SHFL, 0.5 LDS, loop), against 46.00
+// in the kernels it replaced (40 FP32-pipe, 3.25 SHFL, a compare); the
+// inputs are 32 bytes a body.
+//
+// Design (T = 128 * ROWS, ROWS in {1, 2, 4, 8}; a block of 128 threads takes
+// one T x T tile pair from the flat worklist (triangle) or the 2-D grid
+// (rectangle)):
+//   * i-side in registers: ROWS rows a thread, position, velocity, and the
+//     action's 6 sums.
+//   * j-side in shared memory: the column tile is walked in sub-tiles of 128
+//     bodies, each staged once (one body a thread) into shared memory, every
+//     32-body chunk stored twice in a row, so that at step k a lane reads
+//     body (lane + k) & 31 of the chunk at slot lane + k: two 16-byte LDS at
+//     a constant offset from one register, conflict-free.
+//   * Only the 6 reaction sums travel around the warp (__shfl_sync): a lane
+//     carries the sums of the body it holds to the next lane after every
+//     step, and after 32 steps they are back in the lane that stages them.
+//   * Reactions flushed every sub-tile: the 4 warps' sums meet in shared
+//     memory (4 * 6 * 128 floats), and after a __syncthreads() thread x adds
+//     column x's four in warp order and writes the block's reaction slot
+//     (on a diagonal tile it adds it to the action of its own row x, which
+//     is the same body). Shared memory is 20 KB a block, static, at every
+//     ROWS: registers alone set the blocks an SM.
+//   * Registers: the ROWS 4 kernels (tile 512, the default) may take 128
+//     registers, 4 blocks (16 warps) an SM (ptxas: 128 triangle, 121
+//     rectangle, no spills), and the 32-step walk is unrolled twice
+//     (kUnroll): measured faster than 5 blocks at 96 registers, or than
+//     unrolling 4, 8 or 32 steps (the last overflows the instruction cache).
+// Sum order, fixed: an action sums its columns in walk order (sub-tile,
+// chunk, step); a reaction sums its rows in step order, the ROWS rows of a
+// step in row order, then the warps in warp order; each block writes its
+// action and reaction partials into scratch rows of 6 components, every
+// (tile, component, body) slot written once, and a second kernel adds each
+// body's slots in tile order. No atomics: a state gives the same bits on
+// every call. Scratch: ceil(N/T) * 6 * N floats (201 MB at N = 65536 and
+// T = 512).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/torch_aj_dispatch.py,
+// in turns with the kernels this design replaced): the triangle 3.14-3.19 ms
+// at N = 65536 (4.11-4.15 before), 1.52-1.56 at 45056 (1.97-2.00), the
+// rectangle (45056, 45056) 2.91-2.98 (3.82-3.85): 58-62 % of the 60-flop
+// bound. The tile sweep: ops/cuda_kernel.py (AJ_SYM_TILE); PERF.md.
+//
+// Precision: fp32; -O3 without --use_fast_math; the sums are written as
+// fmaf.
 //
 // Edges: any N, Bi, Bj. A slot past the end loads mass 0 (and position and
 // velocity 0) on both sides, so it exerts no action and no reaction, and
@@ -66,27 +101,53 @@
 
 namespace {
 
-constexpr int kComps = 6;  // acceleration xyz, jerk xyz
+constexpr int kComps = 6;            // acceleration xyz, jerk xyz
+constexpr int kSub = kThreads;       // columns a sub-tile, one staged a thread
+constexpr int kChunks = kSub / 32;   // 32-column chunks a sub-tile
+// Steps of the 32-step walk unrolled. On the H100, at tile 512: 2 beat 1, 4, 8
+// and 32 (32 overflows the instruction cache; PERF.md, Findings).
+constexpr int kUnroll = 2;
+
+// The least blocks an SM that ptxas must fit. At ROWS 4 (the default tile),
+// 4 blocks at up to 128 registers beat 5 at 96 on the H100 (PERF.md, Findings).
+template <int ROWS>
+constexpr int min_blocks() {
+  return ROWS == 1 ? 8 : ROWS == 2 ? 6 : ROWS == 4 ? 4 : 3;
+}
+
+struct AjShared {
+  float4 pos[kChunks][64];  // each chunk's 32 j-bodies, twice in a row
+  float4 vel[kChunks][64];
+  float red[kWarps][kComps][kSub];  // the warps' reaction sums of a sub-tile
+};
+
+__device__ __forceinline__ float rsqrt_ftz(const float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // One T x T tile pair: rows [row0, row0 + T) of the i-set against columns
-// [col0, col0 + T) of the j-set. Leaves each thread's action on its rows
-// in act[comp][u] and the warps' reaction sums in red[warp][comp][T].
+// [col0, col0 + T) of the j-set. Leaves each thread's action on its rows in
+// act[comp][u] and writes the block's reaction on column body b to
+// react[comp * react_stride + b]; on a diagonal tile (DIAG: row0 == col0,
+// one set) the reaction goes into the action of the same body instead.
 template <int ROWS, bool DIAG>
-__device__ __forceinline__ void aj_tile_pair(const float4* __restrict__ pos_i,
-                                             const float4* __restrict__ vel_i, const int64_t ni,
-                                             const int64_t row0, const float4* __restrict__ pos_j,
-                                             const float4* __restrict__ vel_j, const int64_t nj,
-                                             const int64_t col0, const float eps2,
-                                             float (&act)[kComps][ROWS], float* red) {
+__device__ __forceinline__ void aj_tile_pair(
+    const float4* __restrict__ pos_i, const float4* __restrict__ vel_i, const int64_t ni,
+    const int64_t row0, const float4* __restrict__ pos_j, const float4* __restrict__ vel_j,
+    const int64_t nj, const int64_t col0, const float eps2, float* __restrict__ react,
+    const int64_t react_stride, float (&act)[kComps][ROWS], AjShared& sh) {
   constexpr int T = kThreads * ROWS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 pi[ROWS];
   float vix[ROWS], viy[ROWS], viz[ROWS];
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int64_t ig = row0 + threadIdx.x + u * kThreads;
+    const int64_t ig = row0 + tid + u * kThreads;
     pi[u] = (ig < ni) ? pos_i[ig] : zero;
     const float4 v = (ig < ni) ? vel_i[ig] : zero;
     vix[u] = v.x;
@@ -96,137 +157,149 @@ __device__ __forceinline__ void aj_tile_pair(const float4* __restrict__ pos_i,
     for (int comp = 0; comp < kComps; ++comp) act[comp][u] = 0.f;
   }
   const int src = (lane + 1) & 31;
-  for (int q = 0; q < T / 32; ++q) {
-    const int jl0 = q * 32;
-    const int64_t jg = col0 + jl0 + lane;
-    float4 pj = (jg < nj) ? pos_j[jg] : zero;
-    const float4 vv = (jg < nj) ? vel_j[jg] : zero;
-    float vjx = vv.x, vjy = vv.y, vjz = vv.z;
-    float re[kComps] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    // step k: this lane holds the j-body that lane (lane + k) & 31 loaded
-#pragma unroll 2
-    for (int k = 0; k < 32; ++k) {
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const float dx = pj.x - pi[u].x;
-        const float dy = pj.y - pi[u].y;
-        const float dz = pj.z - pi[u].z;
-        const float dvx = vjx - vix[u];
-        const float dvy = vjy - viy[u];
-        const float dvz = vjz - viz[u];
-        const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-        const float inv = rsqrtf(r2);
-        const float inv2 = inv * inv;
-        float inv3 = inv2 * inv;
-        float c3p = 3.f * (dx * dvx + dy * dvy + dz * dvz) * inv2 * inv3;
-        if (DIAG) {
-          // strict upper triangle by local index (row0 == col0)
-          const bool keep =
-              (jl0 + ((lane + k) & 31)) > static_cast<int>(threadIdx.x + u * kThreads);
-          inv3 = keep ? inv3 : 0.f;
-          c3p = keep ? c3p : 0.f;
-        }
-        const float qx = inv3 * dvx - c3p * dx;
-        const float qy = inv3 * dvy - c3p * dy;
-        const float qz = inv3 * dvz - c3p * dz;
-        const float s = pj.w * inv3;     // action on i per unit of d
-        const float t = pi[u].w * inv3;  // reaction on j per unit of d
-        act[0][u] += s * dx;
-        act[1][u] += s * dy;
-        act[2][u] += s * dz;
-        act[3][u] += pj.w * qx;
-        act[4][u] += pj.w * qy;
-        act[5][u] += pj.w * qz;
-        re[0] -= t * dx;
-        re[1] -= t * dy;
-        re[2] -= t * dz;
-        re[3] -= pi[u].w * qx;
-        re[4] -= pi[u].w * qy;
-        re[5] -= pi[u].w * qz;
-      }
-      pj.x = __shfl_sync(kFull, pj.x, src);
-      pj.y = __shfl_sync(kFull, pj.y, src);
-      pj.z = __shfl_sync(kFull, pj.z, src);
-      pj.w = __shfl_sync(kFull, pj.w, src);
-      vjx = __shfl_sync(kFull, vjx, src);
-      vjy = __shfl_sync(kFull, vjy, src);
-      vjz = __shfl_sync(kFull, vjz, src);
-#pragma unroll
-      for (int comp = 0; comp < kComps; ++comp) re[comp] = __shfl_sync(kFull, re[comp], src);
+#pragma unroll 1
+  for (int sub = 0; sub < T / kSub; ++sub) {
+    const int js0 = sub * kSub;  // the sub-tile's first local column
+    {
+      const int64_t jg = col0 + js0 + tid;
+      const float4 p = (jg < nj) ? pos_j[jg] : zero;
+      const float4 v = (jg < nj) ? vel_j[jg] : zero;
+      sh.pos[warp][lane] = p;
+      sh.pos[warp][lane + 32] = p;
+      sh.vel[warp][lane] = v;
+      sh.vel[warp][lane + 32] = v;
     }
-    // after 32 passes the sums for j-body jl0 + lane are back in this lane
+    __syncthreads();
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      const float4* jp = &sh.pos[c][lane];
+      const float4* jv = &sh.vel[c][lane];
+      float re[kComps] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      // step k: this lane holds chunk body (lane + k) & 31 and its sums
+#pragma unroll(kUnroll)
+      for (int k = 0; k < 32; ++k) {
+        const float4 pj = jp[k];
+        const float4 vj = jv[k];
+        const int jl = js0 + c * 32 + ((lane + k) & 31);  // local column (DIAG)
 #pragma unroll
-    for (int comp = 0; comp < kComps; ++comp) red[(warp * kComps + comp) * T + jl0 + lane] = re[comp];
+        for (int u = 0; u < ROWS; ++u) {
+          const float dx = pj.x - pi[u].x;
+          const float dy = pj.y - pi[u].y;
+          const float dz = pj.z - pi[u].z;
+          const float dvx = vj.x - vix[u];
+          const float dvy = vj.y - viy[u];
+          const float dvz = vj.z - viz[u];
+          const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
+          const float inv = rsqrt_ftz(r2);
+          const float inv2 = inv * inv;
+          const float inv3 = inv2 * inv;
+          float w = (3.f * inv2) * fmaf(dz, dvz, fmaf(dy, dvy, dx * dvx));
+          float s = pj.w * inv3;     // action on i per unit of d and e
+          float t = pi[u].w * inv3;  // reaction on j per unit of d and e
+          if (DIAG) {
+            // strict upper triangle by local index (row0 == col0)
+            const bool keep = jl > tid + u * kThreads;
+            s = keep ? s : 0.f;
+            t = keep ? t : 0.f;
+            w = keep ? w : 0.f;
+          }
+          const float ex = fmaf(-w, dx, dvx);
+          const float ey = fmaf(-w, dy, dvy);
+          const float ez = fmaf(-w, dz, dvz);
+          act[0][u] = fmaf(s, dx, act[0][u]);
+          act[1][u] = fmaf(s, dy, act[1][u]);
+          act[2][u] = fmaf(s, dz, act[2][u]);
+          act[3][u] = fmaf(s, ex, act[3][u]);
+          act[4][u] = fmaf(s, ey, act[4][u]);
+          act[5][u] = fmaf(s, ez, act[5][u]);
+          re[0] = fmaf(-t, dx, re[0]);
+          re[1] = fmaf(-t, dy, re[1]);
+          re[2] = fmaf(-t, dz, re[2]);
+          re[3] = fmaf(-t, ex, re[3]);
+          re[4] = fmaf(-t, ey, re[4]);
+          re[5] = fmaf(-t, ez, re[5]);
+        }
+#pragma unroll
+        for (int comp = 0; comp < kComps; ++comp) re[comp] = __shfl_sync(kFull, re[comp], src);
+      }
+      // after 32 passes the sums of chunk body `lane` are back in this lane
+#pragma unroll
+      for (int comp = 0; comp < kComps; ++comp) sh.red[warp][comp][c * 32 + lane] = re[comp];
+    }
+    __syncthreads();
+    // column js0 + tid: the four warps' sums in warp order
+#pragma unroll
+    for (int comp = 0; comp < kComps; ++comp) {
+      const float r = warp_sum<kSub, kComps>(&sh.red[0][0][0], comp, tid);
+      if (DIAG) {
+        // the same body as row tid + sub * kThreads of this thread (kSub == kThreads)
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u) {
+          if (u == sub) act[comp][u] += r;
+        }
+      } else if (col0 + js0 + tid < nj) {
+        react[comp * react_stride + col0 + js0 + tid] = r;
+      }
+    }
+    // the next sub-tile's staging and sums come after every thread has
+    // passed the barrier above, so none of this sub-tile's reads is pending
   }
 }
 
-// Triangle of one set: scratch (R, 6, n), R = ceil(n / T).
+// Triangle of one set: scratch (R, 6, n), R = ceil(n / T); slot (t, comp, b)
+// holds body b's sum over the tile pair of its tile and tile t.
 template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<ROWS>())
     aj_sym_tri_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
                       const int64_t n, const int64_t num_tiles, const float eps2,
                       float* __restrict__ scratch) {
   constexpr int T = kThreads * ROWS;
-  extern __shared__ float red[];  // kWarps * kComps * T
+  __shared__ AjShared sh;
   int64_t r, c;
   triangle_tile(blockIdx.x, num_tiles, r, c);
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
   float act[kComps][ROWS];
   if (r == c) {
-    aj_tile_pair<ROWS, true>(pos, vel, n, row0, pos, vel, n, col0, eps2, act, red);
+    aj_tile_pair<ROWS, true>(pos, vel, n, row0, pos, vel, n, col0, eps2, nullptr, n, act, sh);
   } else {
-    aj_tile_pair<ROWS, false>(pos, vel, n, row0, pos, vel, n, col0, eps2, act, red);
+    aj_tile_pair<ROWS, false>(pos, vel, n, row0, pos, vel, n, col0, eps2,
+                              scratch + r * kComps * n, n, act, sh);
   }
-  __syncthreads();
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int x = threadIdx.x + u * kThreads;
+    const int64_t b = row0 + threadIdx.x + u * kThreads;
+    if (b < n) {
 #pragma unroll
-    for (int comp = 0; comp < kComps; ++comp) {
-      const float re = warp_sum<T, kComps>(red, comp, x);
-      if (r == c) {
-        if (row0 + x < n) scratch[(r * kComps + comp) * n + row0 + x] = act[comp][u] + re;
-      } else {
-        if (row0 + x < n) scratch[(c * kComps + comp) * n + row0 + x] = act[comp][u];
-        if (col0 + x < n) scratch[(r * kComps + comp) * n + col0 + x] = re;
-      }
+      for (int comp = 0; comp < kComps; ++comp) scratch[(c * kComps + comp) * n + b] = act[comp][u];
     }
   }
 }
 
 // Rectangle of two sets: act (Cj, 6, bi), react (Ri, 6, bj).
 template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<ROWS>())
     aj_sym_cross_kernel(const float4* __restrict__ pos_i, const float4* __restrict__ vel_i,
                         const int64_t bi, const float4* __restrict__ pos_j,
                         const float4* __restrict__ vel_j, const int64_t bj, const float eps2,
                         float* __restrict__ act_out, float* __restrict__ react_out) {
   constexpr int T = kThreads * ROWS;
-  extern __shared__ float red[];  // kWarps * kComps * T
+  __shared__ AjShared sh;
   const int64_t c = blockIdx.x;
   const int64_t r = blockIdx.y;
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
   float act[kComps][ROWS];
-  aj_tile_pair<ROWS, false>(pos_i, vel_i, bi, row0, pos_j, vel_j, bj, col0, eps2, act, red);
-  __syncthreads();
+  aj_tile_pair<ROWS, false>(pos_i, vel_i, bi, row0, pos_j, vel_j, bj, col0, eps2,
+                            react_out + r * kComps * bj, bj, act, sh);
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int x = threadIdx.x + u * kThreads;
+    const int64_t b = row0 + threadIdx.x + u * kThreads;
+    if (b < bi) {
 #pragma unroll
-    for (int comp = 0; comp < kComps; ++comp) {
-      if (row0 + x < bi) act_out[(c * kComps + comp) * bi + row0 + x] = act[comp][u];
-      if (col0 + x < bj) {
-        react_out[(r * kComps + comp) * bj + col0 + x] = warp_sum<T, kComps>(red, comp, x);
-      }
+      for (int comp = 0; comp < kComps; ++comp) act_out[(c * kComps + comp) * bi + b] = act[comp][u];
     }
   }
-}
-
-template <int ROWS>
-constexpr size_t red_bytes() {
-  return static_cast<size_t>(kWarps) * kComps * kThreads * ROWS * sizeof(float);
 }
 
 template <int ROWS>
@@ -235,12 +308,7 @@ cudaError_t launch_aj_tri(const float4* pos, const float4* vel, int64_t n, float
   const int64_t tiles = cdiv(n, kThreads * ROWS);
   const int64_t blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  // above 48 KB a block's dynamic shared memory needs the opt-in
-  cudaError_t err = cudaFuncSetAttribute(aj_sym_tri_kernel<ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(red_bytes<ROWS>()));
-  if (err != cudaSuccess) return err;
-  aj_sym_tri_kernel<ROWS><<<static_cast<unsigned>(blocks), kThreads, red_bytes<ROWS>(), stream>>>(
+  aj_sym_tri_kernel<ROWS><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       pos, vel, n, tiles, eps2, scratch);
   return cudaGetLastError();
 }
@@ -252,13 +320,9 @@ cudaError_t launch_aj_cross(const float4* pos_i, const float4* vel_i, int64_t bi
   const int64_t ri = cdiv(bi, kThreads * ROWS);
   const int64_t cj = cdiv(bj, kThreads * ROWS);
   if (ri > 65535 || cj > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(aj_sym_cross_kernel<ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(red_bytes<ROWS>()));
-  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(cj), static_cast<unsigned>(ri));
-  aj_sym_cross_kernel<ROWS><<<grid, kThreads, red_bytes<ROWS>(), stream>>>(
-      pos_i, vel_i, bi, pos_j, vel_j, bj, eps2, act, react);
+  aj_sym_cross_kernel<ROWS><<<grid, kThreads, 0, stream>>>(pos_i, vel_i, bi, pos_j, vel_j, bj,
+                                                            eps2, act, react);
   return cudaGetLastError();
 }
 

@@ -112,20 +112,14 @@ def build() -> pathlib.Path:
     return out
 
 
-def ptxas_usage(source) -> dict:
-    """What ptxas says of each kernel of `source` (a file name in csrc, or a
-    path), compiled once more with -Xptxas -v and the library's flags:
-    {mangled name: {"registers", "smem", "stack", "spill_stores",
-    "spill_loads"}}, the last four in bytes."""
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
-                           str(CSRC / source)], capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+def parse_ptxas(text: str) -> dict:
+    """{mangled name: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} from what ``-Xptxas -v`` prints, the last four in bytes."""
     usage, entry, props, frame = {}, None, None, {}
     # a kernel's lines come as: Compiling entry function 'K'; Function
     # properties for K (and for any callee it did not inline); its frame
     # line; Used ... registers
-    for line in proc.stderr.splitlines():
+    for line in text.splitlines():
         if "Compiling entry function" in line:
             entry, frame = line.split("'")[1], {}
         elif "Function properties for" in line:
@@ -140,6 +134,104 @@ def ptxas_usage(source) -> dict:
                             "stack": 0, "spill_stores": 0, "spill_loads": 0, **frame}
             entry = None
     return usage
+
+
+def ptxas_usage(source) -> dict:
+    """What ptxas says of each kernel of `source` (a file name in csrc, or a
+    path), compiled once more with -Xptxas -v and the library's flags
+    (``parse_ptxas``)."""
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+                           str(CSRC / source)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return parse_ptxas(proc.stderr)
+
+
+def sass_of(source) -> tuple[dict, str]:
+    """(``ptxas_usage``, the SASS as ``cuobjdump -sass`` prints it) of
+    `source` compiled once more to a cubin with the library's flags: one
+    nvcc and one cuobjdump."""
+    import tempfile
+
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = pathlib.Path(tmp) / "k.cubin"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
+                               str(cubin), str(CSRC / source)], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        sass = subprocess.run([str(pathlib.Path(nvcc).with_name("cuobjdump")), "-sass",
+                               str(cubin)], capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    return parse_ptxas(proc.stderr), sass
+
+
+# SASS opcodes (the part before the first '.') by the unit or kind that issues them
+SASS_CLASSES = {
+    "fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FFMA32I", "FMUL32I", "FADD32I", "FSWZADD"),
+    "select": ("FSEL", "FSETP", "FSET", "SEL", "FCHK"),
+    "mufu": ("MUFU",),
+    "shfl": ("SHFL",),
+    "shared": ("LDS", "STS", "LDSM"),
+    "global": ("LDG", "STG", "LD", "ST", "LDC", "ATOM", "ATOMG", "RED"),
+    "local": ("LDL", "STL"),
+    "branch": ("BRA", "BAR", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "RET", "CALL", "NOP"),
+}
+
+
+def sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    for cls, ops in SASS_CLASSES.items():
+        if base in ops:
+            return cls
+    return "uniform" if base.startswith("U") else "integer"
+
+
+_SASS_INSTR = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(sass: str, key: str) -> list:
+    """The innermost loops that hold an rsqrt (MUFU.RSQ) of each function of
+    `sass` whose mangled name contains `key`: one dict a loop, {"function",
+    "instructions", "pairs" (its MUFU.RSQ, one a pair), "mix" (instructions
+    by ``sass_class``), "ops" (by opcode)}. A loop is a backward branch and
+    the instructions from its target to it."""
+    import collections
+
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if key in m.group(1) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = _SASS_INSTR.match(line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = []
+    for fname, ins in funcs.items():
+        spans = []
+        for addr, op, args in ins:
+            t = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+            if t and int(t.group(1), 16) <= addr:
+                spans.append((int(t.group(1), 16), addr))
+
+        def body(lo, hi, ins=ins):
+            return [(op, args) for addr, op, args in ins if lo <= addr <= hi]
+
+        rsq = [sp for sp in spans if any(op.startswith("MUFU.RSQ") for op, _ in body(*sp))]
+        for lo, hi in rsq:
+            if any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in rsq):
+                continue  # holds an inner rsqrt loop
+            b = body(lo, hi)
+            out.append({"function": fname, "instructions": len(b),
+                        "pairs": sum(op.startswith("MUFU.RSQ") for op, _ in b),
+                        "mix": dict(collections.Counter(sass_class(op) for op, _ in b)),
+                        "ops": dict(collections.Counter(op for op, _ in b))})
+    return out
 
 
 def demangle(names) -> dict:
@@ -173,6 +265,17 @@ def declare_p3m_sr(lib) -> None:
     lib.nbody_p3m_sr_f32.restype = ctypes.c_int
 
 
+def declare_aj_sym(lib) -> None:
+    """The C signatures of ``nbody_aj_sym_f32`` and ``nbody_aj_cross_f32``
+    (csrc/symmetric_aj_kernels.cu) on `lib`."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    lib.nbody_aj_sym_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr, ptr, ptr, ptr]
+    lib.nbody_aj_sym_f32.restype = ctypes.c_int
+    lib.nbody_aj_cross_f32.argtypes = [ptr, ptr, i64, ptr, ptr, i64, f32, i64, ptr, ptr,
+                                       ptr, ptr, ptr, ptr, ptr]
+    lib.nbody_aj_cross_f32.restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -204,11 +307,7 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_accel_jerk_f32.restype = ctypes.c_int
     lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]
     lib.nbody_potential_f32.restype = ctypes.c_int
-    lib.nbody_aj_sym_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr, ptr, ptr, ptr]
-    lib.nbody_aj_sym_f32.restype = ctypes.c_int
-    lib.nbody_aj_cross_f32.argtypes = [ptr, ptr, i64, ptr, ptr, i64, f32, i64, ptr, ptr,
-                                       ptr, ptr, ptr, ptr, ptr]
-    lib.nbody_aj_cross_f32.restype = ctypes.c_int
+    declare_aj_sym(lib)
     # the ds entry points take the (2, 4) scalar block as a host pointer
     lib.nbody_ds_step.argtypes = [ptr] * 10 + [i64, i64, ptr, i64, ptr]
     lib.nbody_ds_step.restype = ctypes.c_int

@@ -676,24 +676,22 @@ def sym_ablated_accel_cuda(pos, softening, *, reaction: str, tile: int = DEFAULT
 # ---- accel + jerk, each pair once: csrc/symmetric_aj_kernels.cu ----
 
 # The dispatch table of the blocked accel + jerk composition, its own and
-# not the force's: a pair carries 13 values around the warp where the force
-# carries 7, a thread holds 13 floats an i-row where the force holds 7
-# (ptxas: 48 / 64 / 96 / 168 registers at tile 128 / 256 / 512 / 1024, no
-# spills), and the reaction scratch is 6 N^2 / tile floats, twice the
-# force's. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
+# not the force's: the reaction scratch is 6 N^2 / tile floats, twice the
+# force's, and the kernels' registers differ (ptxas, no spills: 56 / 80 /
+# 128 / 168 at tile 128 / 256 / 512 / 1024; 4 blocks an SM at 512). Measured
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
 # scripts/torch_aj_dispatch.py (PERF.md, Findings), ms per call at
 # N = 65536 / 135168 / 262144:
-#   tile 512,  cap 65536           4.208 / 17.654 / 65.255
-#   tile 512,  cap 131072          4.208 / 17.407 / 64.825
-#   tile 512,  one triangle        4.208 / 17.376 / 65.577
-#   tile 1024, cap 65536           4.327 / 19.494 / 68.929
-#   tile 1024, one triangle        4.327 / 17.589 / 65.041
-#   tile 256 / 128, cap 65536      4.495 / 6.312 at 65536
-#   one-sided accel + jerk         6.178 / 24.450 / 90.801 (block 256)
-# Tile 512 (ROWS 4: 96 registers and 48 KB a block, 4 blocks an SM) beats
-# 1024 (ROWS 8: 168 registers and 96 KB, 2 blocks an SM). Cap 65536 bounds
-# a launch's scratch at 201 MB, as the force's table does, for at most
-# 1.4 % against the fastest cap at these N.
+#   tile 512,  cap 65536           3.169 / 13.405 / 49.378
+#   tile 512,  cap 131072          3.169 / 13.207 / 49.092
+#   tile 512,  one triangle        3.169 / 13.224 / 49.931
+#   tile 1024, cap 65536           3.229 / 13.910 / 50.565
+#   tile 1024, one triangle        3.229 / 13.142 / 48.851
+#   tile 256 / 128, cap 65536      3.501 / 5.109 at 65536
+#   one-sided accel + jerk         6.228 / 24.319 / 90.129 (block 256)
+# Tile 512 is the fastest at 65536 and within 2 % of the fastest choice at
+# the larger N; cap 65536 bounds a launch's scratch at 201 MB, as the
+# force's table does.
 AJ_SYM_TILE = 512
 AJ_SYM_BLOCK_CAP = 65536
 
@@ -710,6 +708,13 @@ def aj_sym_cuda(pos, vel, softening, *, tile: int = AJ_SYM_TILE, out=None):
     itself, each pair once over the triangle j > i (the kernel of
     ``_aj_sym_kernel``). ``out=(acc, jerk)`` are optional preallocated (N,3)
     tensors that must not overlap the inputs or each other."""
+    return _aj_sym(pos, vel, softening, tile, out)
+
+
+def _aj_sym(pos, vel, softening, tile, out, lib=None):
+    """``aj_sym_cuda``. `lib` is the port's library by default, or another
+    build of the same source (``scripts/torch_aj_dispatch.py --against``),
+    whose launches are not counted."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
     _check_pair("pos", pos, "vel", vel, device)
     tile = check_sym_tile(tile)
@@ -728,9 +733,11 @@ def aj_sym_cuda(pos, vel, softening, *, tile: int = AJ_SYM_TILE, out=None):
     if n == 0:
         return acc, jerk
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     scratch = torch.empty((_cdiv(n, tile), 6, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nbody_aj_sym_f32(
@@ -738,7 +745,8 @@ def aj_sym_cuda(pos, vel, softening, *, tile: int = AJ_SYM_TILE, out=None):
             scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_aj_sym_f32 launch")
-    LAUNCHES["aj_sym"] += 1
+    if counted:
+        LAUNCHES["aj_sym"] += 1
     return acc, jerk
 
 
@@ -749,6 +757,11 @@ def aj_sym_cross_cuda(pos_i, vel_i, pos_j, vel_j, softening, *, tile: int = AJ_S
     returns (acc_i (Bi,4), jerk_i (Bi,4), both with w = 0, react_acc (3,Bj),
     react_jerk (3,Bj)), the JAX package's layout. ``out`` holds four
     preallocated tensors of those shapes."""
+    return _aj_sym_cross(pos_i, vel_i, pos_j, vel_j, softening, tile, out)
+
+
+def _aj_sym_cross(pos_i, vel_i, pos_j, vel_j, softening, tile, out, lib=None):
+    """``aj_sym_cross_cuda``; `lib` as in ``_aj_sym``."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     _check_pair("pos_i", pos_i, "vel_i", vel_i, device)
     _check_pair("pos_j", pos_j, "vel_j", vel_j, device)
@@ -767,9 +780,11 @@ def aj_sym_cross_cuda(pos_i, vel_i, pos_j, vel_j, softening, *, tile: int = AJ_S
             t.copy_(r)
         return out
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     scratch_i = torch.empty((_cdiv(bj, tile), 6, bi), dtype=torch.float32, device=device)
     scratch_j = torch.empty((_cdiv(bi, tile), 6, bj), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -779,7 +794,8 @@ def aj_sym_cross_cuda(pos_i, vel_i, pos_j, vel_j, softening, *, tile: int = AJ_S
             scratch_j.data_ptr(), acc_i.data_ptr(), jerk_i.data_ptr(), r_acc.data_ptr(),
             r_jerk.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_aj_cross_f32 launch")
-    LAUNCHES["aj_sym_cross"] += 1
+    if counted:
+        LAUNCHES["aj_sym_cross"] += 1
     return out
 
 

@@ -5,30 +5,58 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 scripts/torch_aj_dispatch.py [--quick]
+    python3 scripts/torch_aj_dispatch.py [--quick] [--against DIR] [--no-sweep]
 
 First it prints what ptxas says of every kernel of
 csrc/symmetric_aj_kernels.cu and csrc/nbody_kernels.cu (registers, spills,
-shared memory), then it holds the accel + jerk kernels (one-sided, triangle,
-rectangle) and the potential kernel to their plain versions at small ragged
-shapes for every tile, with masses from [0.5, 2] and a random vel.w:
-acceleration and jerk each within 1e-4 * max + 1e-4, the bound of
-tests/test_pallas.py:76. --quick stops there. Then it times, at N = 65536,
-135168 and 262144 (shell ICs, demo-0 softening), the one-sided accel + jerk
-kernel per block size and the each-pair-once composition per tile and block
-cap, beside the potential kernel: CUDA events over `reps` calls after one
-warm-up call, two rounds taken in turns. Prints one line per measurement and
-the nvidia-smi name and power limit.
+shared memory) and the SASS (cuobjdump) of the each-pair-once kernels'
+walk: the instructions of the innermost loop that holds the rsqrt, by
+class, over the pairs it covers (one MUFU.RSQ a pair). It checks on the
+card that the kernels' rsqrt (PTX rsqrt.approx.ftz.f32) gives the bits of
+rsqrtf for every positive normal float. Then it holds the accel + jerk
+kernels (one-sided, triangle, rectangle) and the potential kernel to their
+plain versions at small ragged shapes for every tile, with masses from
+[0.5, 2] and a random vel.w, and the triangle at softening 0: acceleration
+and jerk each within 1e-4 * max + 1e-4, the bound of tests/test_pallas.py:76.
+--quick stops there.
+
+--against DIR builds DIR/csrc/symmetric_aj_kernels.cu (another checkout's
+kernels, with its DIR/csrc/sym_common.cuh) with the library's nvcc flags
+into a library of its own, launched through the port's wrappers
+(``cuda_kernel._aj_sym(..., lib=)``), prints its ptxas lines and SASS
+count, holds it to plain, and times it in turns with this checkout's
+kernels (DIR, this, this, DIR) at the main path's shapes: the triangle at
+N = 65536 and 45056, the rectangle (45056, 45056), the composition at
+65536 and 135168 under this checkout's dispatch, and one Hermite step
+(``reference.nbody_step_hermite``) on each composition, sampling
+nvidia-smi's SM clock and power beside each timed loop. Then, unless
+--no-sweep, it times at N = 65536, 135168 and 262144 (shell ICs, demo-0
+softening) the one-sided accel + jerk kernel per block size and the
+each-pair-once composition per tile and block cap, beside the potential
+kernel: CUDA events over `reps` calls after one warm-up call, two rounds
+taken in turns. Prints one line per measurement and the nvidia-smi name
+and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import pathlib
+import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+AJ_SOURCE = "symmetric_aj_kernels.cu"
+# (label, a substring of the mangled name) of the kernels whose walk is counted
+WALKS = (("tri", "aj_sym_tri_kernelILi"), ("cross", "aj_sym_cross_kernelILi"))
+SMI_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+              "--format=csv,noheader,nounits"]
 
 
 def ptxas_report() -> None:
@@ -36,28 +64,183 @@ def ptxas_report() -> None:
     says of each kernel."""
     from nbody_tpu_torch.ops import _build
 
-    for src in ("symmetric_aj_kernels.cu", "nbody_kernels.cu"):
+    for src in (AJ_SOURCE, "nbody_kernels.cu"):
         for line in _build.ptxas_lines(src):
             print(line)
 
 
+def walk_counts(label: str, source) -> dict:
+    """Print the ptxas lines of `source` and, for each each-pair-once kernel,
+    its walk's SASS count; returns {kernel name: instructions a pair of
+    its cheapest walk (the off-diagonal one)}."""
+    from nbody_tpu_torch.ops import _build
+
+    usage, sass = _build.sass_of(source)
+    for line in _build.ptxas_lines(source, label=label, usage=usage):
+        print(line)
+    names = _build.demangle(usage)
+    per_pair = {}
+    for _, key in WALKS:
+        for loop in _build.sass_loops(sass, key):
+            pairs = loop["pairs"]
+            mix = ", ".join(f"{k} {v}" for k, v in sorted(loop["mix"].items(),
+                                                          key=lambda kv: -kv[1]))
+            ops = ", ".join(f"{k} {v}" for k, v in sorted(loop["ops"].items(),
+                                                          key=lambda kv: -kv[1])[:14])
+            name = names.get(loop["function"], loop["function"])
+            slots = loop["instructions"] / pairs
+            print(f"sass {label}: {name}: walk loop of {loop['instructions']} instructions "
+                  f"over {pairs} pairs = {slots:.2f} a pair; by class: {mix}; "
+                  f"per pair: " + ", ".join(f"{k} {v / pairs:.2f}" for k, v in
+                                            sorted(loop["mix"].items())) + f"; ops: {ops}")
+            per_pair[name] = min(per_pair.get(name, slots), slots)
+    if not per_pair:
+        print(f"sass {label}: no walk loop found")
+    return per_pair
+
+
+RSQRT_CHECK = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void rsqrt_check(unsigned long long* bad, unsigned long long* first) {
+  const uint32_t lo = 0x00800000u, hi = 0x7f800000u;  // the positive normal floats
+  for (uint64_t b = lo + blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; b < hi;
+       b += (uint64_t)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)b);
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    if (__float_as_uint(y) != __float_as_uint(rsqrtf(x))) {
+      atomicAdd(bad, 1ull);  // a count of a check, no sum of the kernels
+      atomicMin(first, (unsigned long long)b);
+    }
+  }
+}
+extern "C" int run_rsqrt_check(unsigned long long* out) {
+  unsigned long long* d;
+  if (cudaMalloc(&d, 16) != cudaSuccess) return 1;
+  const unsigned long long init[2] = {0ull, ~0ull};
+  cudaMemcpy(d, init, 16, cudaMemcpyHostToDevice);
+  rsqrt_check<<<1056, 256>>>(d, d + 1);
+  cudaError_t err = cudaMemcpy(out, d, 16, cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return err == cudaSuccess ? 0 : 2;
+}
+"""
+
+
+def build_so(source: pathlib.Path, tmp: pathlib.Path) -> ctypes.CDLL:
+    """nvcc `source` with the library's flags into a shared library under
+    `tmp` and load it."""
+    from nbody_tpu_torch.ops import _build
+
+    out = tmp / f"lib{source.stem}.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+                    str(source)], check=True, timeout=900)
+    return ctypes.CDLL(str(out))
+
+
+def against_library(source: pathlib.Path, tmp: pathlib.Path) -> ctypes.CDLL:
+    """Another checkout's csrc/symmetric_aj_kernels.cu, built on its own, with
+    the C signatures the port's wrappers call (``ops/cuda_kernel._aj_sym``)."""
+    from nbody_tpu_torch.ops import _build
+
+    lib = build_so(source, tmp)
+    _build.declare_aj_sym(lib)
+    # the library's error text comes from another source: name the code only
+    lib.nbody_error_string = lambda err: f"code {err}".encode()
+    return lib
+
+
+def rsqrt_check(tmp: pathlib.Path) -> bool:
+    src = tmp / "rsqrt_check.cu"
+    src.write_text(RSQRT_CHECK)
+    lib = build_so(src, tmp)
+    out = (ctypes.c_ulonglong * 2)()
+    rc = lib.run_rsqrt_check(out)
+    bad, first = out[0], out[1]
+    where = f" (first at bits 0x{first:08x})" if bad else ""
+    print(f"rsqrt check: rsqrt.approx.ftz.f32 against rsqrtf over every positive normal "
+          f"float: {bad} differ{where} (rc {rc})")
+    return rc == 0 and bad == 0
+
+
+class Clocks:
+    """nvidia-smi's SM clock (MHz) and power draw (W) sampled every 0.2 s
+    in a thread while the block runs."""
+
+    def __enter__(self):
+        self.samples, self._stop = [], threading.Event()
+
+        def run():
+            while not self._stop.is_set():
+                out = subprocess.run(SMI_CLOCKS, capture_output=True, text=True).stdout
+                try:
+                    clk, draw, _ = (float(x) for x in out.strip().splitlines()[0].split(","))
+                    self.samples.append((clk, draw))
+                except (ValueError, IndexError):
+                    pass
+                self._stop.wait(0.2)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "no nvidia-smi samples"
+        clk = [c for c, _ in self.samples]
+        draw = [d for _, d in self.samples]
+        return (f"SM clock {min(clk):.0f}-{max(clk):.0f} MHz (median "
+                f"{statistics.median(clk):.0f}), power {min(draw):.1f}-{max(draw):.1f} W, "
+                f"{len(clk)} samples")
+
+    def median_mhz(self) -> float | None:
+        return statistics.median(c for c, _ in self.samples) if self.samples else None
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true", help="build, count and check only")
+    ap.add_argument("--against", type=pathlib.Path, default=None,
+                    help="a checkout whose csrc/symmetric_aj_kernels.cu is timed in turns")
+    ap.add_argument("--no-sweep", action="store_true", help="skip the tile and cap sweep")
+    args = ap.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        return run(args, pathlib.Path(tmp))
+
+
+def run(args, tmp: pathlib.Path) -> int:
+
     import numpy as np
     import torch
 
     from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
-    from nbody_tpu_torch.ops import cuda_kernel as ck
     from nbody_tpu_torch.ops import energy, reference
-    from nbody_tpu_torch.utils.timing import elapsed_ms
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.utils.timing import card_line, elapsed_ms
 
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"card: {smi}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas_report()
+    slots = {"this": walk_counts("this", AJ_SOURCE)}
+    other = None
+    if args.against is not None:
+        args.against = args.against.resolve()
+        other_src = args.against / "nbody_tpu_torch" / "csrc" / AJ_SOURCE
+        if not other_src.exists():
+            other_src = args.against / "csrc" / AJ_SOURCE
+        slots["against"] = walk_counts("against", other_src)
+        other = against_library(other_src, tmp)
+    ok = rsqrt_check(tmp)
+
     dev = torch.device("cuda", 0)
     demo = DEMO_PARAMS[0]
     soft = demo.softening
@@ -71,8 +254,6 @@ def main() -> int:
             vel[:, 3] = rng.standard_normal(n)
         return torch.tensor(pos, device=dev), torch.tensor(vel, device=dev)
 
-    ok = True
-
     def held(what, got, want, names=("acc", "jerk", "react acc", "react jerk")):
         nonlocal ok
         for name, g, w in zip(names, got, want):
@@ -81,18 +262,30 @@ def main() -> int:
             ok &= bool(e <= tol and torch.isfinite(g).all())
             print(f"check {what} {name}: max|d|={e:.3e} tol={tol:.3e}")
 
-    for tile in ck.SYM_TILES:
-        for n in (1, 33, 1000, 4099):
-            p, v = state(n, masses=True)
-            got = ck.aj_sym_cuda(p, v, soft, tile=tile)
-            same = all(torch.equal(a, b) for a, b in zip(got, ck.aj_sym_cuda(p, v, soft, tile=tile)))
-            ok &= same
-            held(f"tri tile={tile} N={n} (repeat bit-equal {same})", got,
-                 reference.compute_accel_jerk_symmetric(p, v, soft))
-        for bi, bj in ((777, 4099), (33, 1), (1, 33), (4099, 777)):
-            (pi, vi), (pj, vj) = state(bi, seed=3, masses=True), state(bj, masses=True)
-            held(f"cross tile={tile} ({bi},{bj})", ck.aj_sym_cross_cuda(pi, vi, pj, vj, soft, tile=tile),
-                 reference.aj_sym_cross(pi, vi, pj, vj, soft))
+    libs = {"this": None, **({"against": other} if other else {})}
+    for label, lib in libs.items():
+        def tri(p, v, s, t, lib=lib):
+            return ck._aj_sym(p, v, s, t, None, lib=lib)
+
+        def cross(pi, vi, pj, vj, s, t, lib=lib):
+            return ck._aj_sym_cross(pi, vi, pj, vj, s, t, None, lib=lib)
+
+        for tile in ck.SYM_TILES:
+            for n in (1, 33, 1000, 4099):
+                p, v = state(n, masses=True)
+                got = tri(p, v, soft, tile)
+                same = all(torch.equal(a, b) for a, b in zip(got, tri(p, v, soft, tile)))
+                ok &= same
+                held(f"{label} tri tile={tile} N={n} (repeat bit-equal {same})", got,
+                     reference.compute_accel_jerk_symmetric(p, v, soft))
+            # softening 0: the diagonal's self pair must add exactly 0
+            p, v = state(1000, masses=True)
+            held(f"{label} tri tile={tile} N=1000 softening 0", tri(p, v, 0.0, tile),
+                 reference.compute_accel_jerk_symmetric(p, v, 0.0))
+            for bi, bj in ((777, 4099), (33, 1), (1, 33), (4099, 777)):
+                (pi, vi), (pj, vj) = state(bi, seed=3, masses=True), state(bj, masses=True)
+                held(f"{label} cross tile={tile} ({bi},{bj})", cross(pi, vi, pj, vj, soft, tile),
+                     reference.aj_sym_cross(pi, vi, pj, vj, soft))
     for bs in (128, 256):
         for m, n in ((1000, 1000), (777, 4099), (4099, 777)):
             pi, vi = state(m, seed=3, masses=True)
@@ -109,10 +302,93 @@ def main() -> int:
     print(f"checks {'passed' if ok else 'FAILED'}")
     if not ok:
         return 1
-    if "--quick" in sys.argv:
+    if args.quick:
         return 0
 
     reps = 5
+    cap, tile = ck.aj_sym_default_dispatch(135168)
+
+    def turns(runs: dict, pairs: dict, rounds: int = 2) -> None:
+        """Time each run in turns, `rounds` times each way round (A B B A),
+        with the clock sampled beside; print ms and the issue-bound time of
+        its SASS count at the sampled clock."""
+        for fn in runs.values():
+            fn()
+        times = {k: [] for k in runs}
+        with Clocks() as clocks:
+            for r in range(rounds):
+                order = list(runs) if r % 2 == 0 else list(reversed(runs))
+                for k in order:
+                    times[k].append(elapsed_ms(lambda fn=runs[k]: [fn() for _ in range(reps)],
+                                               dev) / reps)
+        mhz = clocks.median_mhz()
+        for k, ts in times.items():
+            extra = ""
+            if k in pairs and mhz:
+                n_pairs, per_pair = pairs[k]
+                if per_pair:
+                    issue = n_pairs * per_pair / 32 / (sms * 4 * mhz * 1e6) * 1e3
+                    extra = f"; issue bound {issue:.3f} ms at {per_pair:.2f} a pair, {mhz:.0f} MHz"
+            print(f"{k}: {min(ts):.4f} ms per call (rounds: " + ", ".join(f"{t:.4f}" for t in ts)
+                  + f"){extra} [{smi}]")
+        print(f"  clocks beside it: {clocks.summary()}")
+
+    def per_pair_of(label, kind):
+        # the walk's SASS count of this label's ROWS-4 kernel of that kind
+        keys = (f"aj_sym_{kind}_kernel<(int)4>", f"aj_sym_{kind}_kernelILi4E")
+        return next((v for k, v in slots.get(label, {}).items() if any(x in k for x in keys)),
+                    None)
+
+    p65, v65 = state(65536)
+    p135, v135 = state(135168)
+    _, blk = reference.sym_blocking(135168, tile, cap)
+    p45, v45 = p135[:blk], v135[:blk]
+    pj45, vj45 = p135[blk:2 * blk], v135[blk:2 * blk]
+    dt = demo.time_step
+    pairs_tri = {65536: 65536 * 65535 / 2, blk: blk * (blk - 1) / 2}
+
+    def runs_of(label, lib, t):
+        def tri(p, v):
+            return ck._aj_sym(p, v, soft, t, None, lib=lib)
+
+        def cross():
+            return ck._aj_sym_cross(p45, v45, pj45, vj45, soft, t, None, lib=lib)
+
+        def comp(p, v):
+            return reference.compose_symmetric_blocked(
+                (p, v), soft, block_cap=cap, tile_j=t,
+                triangle=lambda a, b, s: ck._aj_sym(a, b, s, t, None, lib=lib),
+                cross=lambda a, b, c, d, s: ck._aj_sym_cross(a, b, c, d, s, t, None, lib=lib))
+
+        return {
+            f"{label} tri N=65536 tile={t}": (lambda: tri(p65, v65), (pairs_tri[65536], "tri")),
+            f"{label} tri N={blk} tile={t}": (lambda: tri(p45, v45), (pairs_tri[blk], "tri")),
+            f"{label} cross ({blk},{blk}) tile={t}": (cross, (blk * blk, "cross")),
+            f"{label} composition N=135168 cap={cap} tile={t}": (lambda: comp(p135, v135), None),
+            f"{label} Hermite step N=65536": (lambda: reference.nbody_step_hermite(
+                p65, v65, dt, soft, 1.0, accel_jerk_fn=lambda a, b: comp(a, b)), None),
+            f"{label} Hermite step N=135168": (lambda: reference.nbody_step_hermite(
+                p135, v135, dt, soft, 1.0, accel_jerk_fn=lambda a, b: comp(a, b)), None),
+        }
+
+    def timed_turns(groups):
+        # groups: [(label, {name: (fn, pairs)})]; the same shape of each group in turns
+        names = [list(g.keys()) for _, g in groups]
+        for idx in range(len(names[0])):
+            runs, pairs = {}, {}
+            for (label, g), ns in zip(groups, names):
+                fn, pr = g[ns[idx]]
+                runs[ns[idx]] = fn
+                if pr is not None:
+                    pairs[ns[idx]] = (pr[0], per_pair_of(label, pr[1]))
+            turns(runs, pairs)
+
+    if other is not None:
+        timed_turns([("against", runs_of("against", other, 512)),
+                     ("this", runs_of("this", None, tile))])
+    if args.no_sweep:
+        return 0
+
     for n in (65536, 135168, 262144):
         p, v = state(n)
         runs = {}
@@ -121,13 +397,13 @@ def main() -> int:
                 runs[f"one-sided accel+jerk block={bs}"] = (
                     lambda bs=bs: ck.compute_accel_jerk_cuda(p, v, p, v, soft, block_size=bs))
         caps = sorted({n, n // 2, 131072, 98304, 65536, 32768})
-        for tile in ck.SYM_TILES:
-            for cap in caps:
-                if cap > n or (tile < 512 and n > 135168):
+        for t in ck.SYM_TILES:
+            for c in caps:
+                if c > n or (t < 512 and n > 135168):
                     continue
-                runs[f"sym accel+jerk tile={tile} cap={cap}"] = (
-                    lambda tile=tile, cap=cap: ck.compute_accel_jerk_symmetric_blocked_cuda(
-                        p, v, soft, block_cap=cap, tile=tile))
+                runs[f"sym accel+jerk tile={t} cap={c}"] = (
+                    lambda t=t, c=c: ck.compute_accel_jerk_symmetric_blocked_cuda(
+                        p, v, soft, block_cap=c, tile=t))
         if n == 65536:
             for bs in (128, 256, 512):
                 runs[f"potential block={bs}"] = (

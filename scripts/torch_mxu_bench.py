@@ -31,7 +31,6 @@ import pathlib
 import re
 import subprocess
 import sys
-import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -58,15 +57,8 @@ def sass_mix() -> None:
     it)."""
     from nbody_tpu_torch.ops import _build
 
-    nvcc = _build.find_nvcc()
-    cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
     for src, labels in SASS_KERNELS:
-        with tempfile.TemporaryDirectory() as tmp:
-            cubin = pathlib.Path(tmp) / "k.cubin"
-            subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", str(cubin),
-                            str(_build.CSRC / src)], check=True, timeout=600)
-            sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
-                                  text=True, check=True, timeout=120).stdout
+        _, sass = _build.sass_of(src)
         kernel, mix = None, {}
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)

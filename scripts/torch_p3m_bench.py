@@ -118,14 +118,7 @@ def sass_mix(tmp: pathlib.Path) -> None:
 def sass_mix_of(name: str, src: pathlib.Path) -> None:
     from nbody_tpu_torch.ops import _build
 
-    nvcc = _build.find_nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = pathlib.Path(tmp) / "k.cubin"
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", str(cubin),
-                        str(src)], check=True, timeout=600)
-        sass = subprocess.run([str(pathlib.Path(nvcc).with_name("cuobjdump")), "-sass",
-                               str(cubin)], capture_output=True, text=True, check=True,
-                              timeout=120).stdout
+    _, sass = _build.sass_of(src)
     kernel, mix = None, {}
     for line in sass.splitlines():
         if "Function : " in line:

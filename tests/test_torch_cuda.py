@@ -337,6 +337,27 @@ def test_aj_sym_cross_matches_plain(dev, bi, bj):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("tile", SYM_TILES)
+def test_aj_sym_triangle_at_zero_softening_adds_nothing_for_the_self_pair(dev, tile):
+    """At softening 0 the self pair has inv = inf: the diagonal tiles drop it
+    by a select, so the triangle stays finite and equals the plain version
+    (which drops it by a select too) at every tile, 77 zero-mass bodies
+    among the rest."""
+    p, v = _random_w(*_state(1000, dev))
+    p[torch.randperm(1000, generator=torch.Generator().manual_seed(3))[:77].to(dev), 3] = 0.0
+    got = aj_sym_cuda(p, v, 0.0, tile=tile)
+    _held(got, reference.compute_accel_jerk_symmetric(p, v, 0.0))
+
+
+@pytest.mark.parametrize("tile", SYM_TILES)
+def test_aj_sym_cross_ragged_at_every_tile(dev, tile):
+    pi, vi = _random_w(*_state(777, dev, seed=3))
+    pj, vj = _random_w(*_state(4099, dev))
+    got = aj_sym_cross_cuda(pi, vi, pj, vj, SOFT, tile=tile)
+    _held(got, reference.aj_sym_cross(pi, vi, pj, vj, SOFT))
+    assert not got[0][:, 3].any() and not got[1][:, 3].any()
+
+
 @pytest.mark.parametrize("n", [4099, 65536])
 def test_aj_sym_blocked_random_masses_momentum_and_hermite_step(dev, n):
     """The blocked composition (two triangles and a rectangle), masses from

@@ -25,6 +25,7 @@ the JAX suite's own:
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -418,9 +419,211 @@ def test_aj_wrappers_refuse_bad_arguments(bad):
 def test_aj_dispatch_table():
     cap, tile = cuda_kernel.aj_sym_default_dispatch(65536)
     assert tile in cuda_kernel.SYM_TILES and cap % tile == 0
+    # the table measured for the kernels of csrc/symmetric_aj_kernels.cu
+    # (ops/cuda_kernel.py): tile 512 at every N, cap 65536
+    assert (cap, tile) == (65536, 512)
+    assert cuda_kernel.aj_sym_default_dispatch(262144) == (cap, tile)
     # one launch's reaction scratch (ceil(N / tile) * 6 * N floats) stays
     # at the force path's 201 MB
     assert -(-cap // tile) * 6 * cap * 4 <= 201 * 2**20
     # the CLI's default N on an H100 is above the cap: the rectangle runs
     k, blk = reference.sym_blocking(4 * 256 * 132, tile, cap)
     assert k >= 2 and blk <= cap
+
+
+# ---- a float32 emulation of csrc/symmetric_aj_kernels.cu ----
+#
+# The kernels' algebra (e = dv - w d, w = 3 (d . dv) inv^2; the jerk's action
+# s e and reaction -t e), the diagonal's select on s, t and w, and the order
+# of their sums: a thread's ROWS rows, a warp's lanes walking each 32-body
+# chunk of a 128-body sub-tile in 32 steps with the reactions passed to the
+# next lane, the four warps' reactions added in warp order every sub-tile,
+# the diagonal's folded into the action of the same body, the tile partials
+# added in tile order. The kernels' fused multiply-adds are emulated as a
+# product and a sum, so the emulation gives the order, not the bits.
+
+KT = 128  # threads a block, and columns a sub-tile
+
+
+def _kernel_pair_terms(pi, vi, pj, vj, eps2, keep=None):
+    """(action (R,C,6), reaction (R,C,6)) terms of rows pi, vi (R,4) and
+    columns pj, vj (C,4) in the kernels' arithmetic; `keep` (R,C) selects."""
+    d = pj[None, :, :3] - pi[:, None, :3]
+    dv = vj[None, :, :3] - vi[:, None, :3]
+    dx, dy, dz = d.unbind(-1)
+    r2 = ((dx * dx + eps2) + dy * dy) + dz * dz
+    inv = torch.rsqrt(r2)
+    inv2 = inv * inv
+    inv3 = inv2 * inv
+    w = (3.0 * inv2) * ((dx * dv[..., 0] + dy * dv[..., 1]) + dz * dv[..., 2])
+    s = pj[None, :, 3] * inv3
+    t = pi[:, None, 3] * inv3
+    if keep is not None:
+        zero = torch.zeros((), dtype=torch.float32)
+        s, t, w = (torch.where(keep, x, zero) for x in (s, t, w))
+    e = dv - w[..., None] * d
+    act = torch.cat([s[..., None] * d, s[..., None] * e], -1)
+    react = -torch.cat([t[..., None] * d, t[..., None] * e], -1)
+    return act, react
+
+
+def _kernel_tile_pair(pi, vi, pj, vj, eps2, rows, diag):
+    """One T x T tile pair (T = 128 rows), inputs zero-padded to T: (the
+    rows' action (T,6), the columns' reaction (T,6)); on the diagonal the
+    reaction is folded into the action and the second is zero."""
+    t_ = KT * rows
+    idx = torch.arange(t_)
+    keep = idx[None, :] > idx[:, None] if diag else None
+    act_t, react_t = _kernel_pair_terms(pi, vi, pj, vj, eps2, keep)
+    lane = idx % 32
+    lanes = torch.arange(32)
+    warp_rows = torch.arange(4)[:, None] * 32 + lanes[None, :]  # (warp, lane)
+    act = torch.zeros((t_, 6))
+    react = torch.zeros((t_, 6))
+    for sub in range(t_ // KT):
+        js0 = sub * KT
+        red = torch.zeros((4, KT, 6))
+        for c in range(KT // 32):
+            re = torch.zeros((4, 32, 6))
+            for k in range(32):
+                act = act + act_t[idx, js0 + c * 32 + (lane + k) % 32]
+                body = js0 + c * 32 + (lanes + k) % 32  # what each lane holds
+                for u in range(rows):
+                    re = re + react_t[warp_rows + u * KT, body[None, :]]
+                re = torch.roll(re, -1, dims=1)  # lane L takes lane L + 1's sums
+            red[:, c * 32:(c + 1) * 32] = re
+        col = ((red[0] + red[1]) + red[2]) + red[3]
+        if diag:
+            act[js0:js0 + KT] = act[js0:js0 + KT] + col
+        else:
+            react[js0:js0 + KT] = col
+    return act, react
+
+
+def _pad(a, m):
+    return torch.cat([a, a.new_zeros((m - a.shape[0], 4))])
+
+
+def _emulate_aj_sym(pos, vel, softening, tile):
+    """The triangle kernel and its partial sums: (acc, jerk), each (N,3)."""
+    n, rows = pos.shape[0], tile // KT
+    tiles = -(-n // tile)
+    p, v = _pad(pos, tiles * tile), _pad(vel, tiles * tile)
+    eps2 = float(softening) ** 2
+    slots = torch.zeros((tiles, tiles * tile, 6))
+    for r in range(tiles):
+        for c in range(r, tiles):
+            rs, cs = slice(r * tile, (r + 1) * tile), slice(c * tile, (c + 1) * tile)
+            act, react = _kernel_tile_pair(p[rs], v[rs], p[cs], v[cs], eps2, rows, r == c)
+            slots[c, rs] = act
+            if r != c:
+                slots[r, cs] = react
+    total = slots[0]
+    for t in range(1, tiles):
+        total = total + slots[t]
+    return total[:n, :3], total[:n, 3:]
+
+
+def _emulate_aj_cross(pos_i, vel_i, pos_j, vel_j, softening, tile):
+    """The rectangle kernel and its partial sums, in the JAX package's
+    layout: (acc_i (Bi,4), jerk_i (Bi,4), both w = 0, react_acc (3,Bj),
+    react_jerk (3,Bj))."""
+    bi, bj, rows = pos_i.shape[0], pos_j.shape[0], tile // KT
+    ri, cj = -(-bi // tile), -(-bj // tile)
+    pi, vi = _pad(pos_i, ri * tile), _pad(vel_i, ri * tile)
+    pj, vj = _pad(pos_j, cj * tile), _pad(vel_j, cj * tile)
+    eps2 = float(softening) ** 2
+    acts = torch.zeros((cj, ri * tile, 6))
+    reacts = torch.zeros((ri, cj * tile, 6))
+    for r in range(ri):
+        for c in range(cj):
+            rs, cs = slice(r * tile, (r + 1) * tile), slice(c * tile, (c + 1) * tile)
+            acts[c, rs], reacts[r, cs] = _kernel_tile_pair(pi[rs], vi[rs], pj[cs], vj[cs],
+                                                           eps2, rows, False)
+    act, react = acts[0], reacts[0]
+    for t in range(1, cj):
+        act = act + acts[t]
+    for t in range(1, ri):
+        react = react + reacts[t]
+    zero = torch.zeros((bi, 1))
+    return (torch.cat([act[:bi, :3], zero], 1), torch.cat([act[:bi, 3:], zero], 1),
+            react[:bj, :3].t(), react[:bj, 3:].t())
+
+
+def _emulation_state(n, seed):
+    """Random ICs, masses from [0.5, 2] with 77 of them zero, a random vel.w."""
+    pos, vel = _state(n, "random", seed=seed, masses=True)
+    pos[np.random.default_rng(seed).choice(n, 77, replace=False), 3] = 0.0
+    return pos, vel
+
+
+def _held_1e4(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max() + 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_aj_sym(n, seed):
+    pos, vel = _emulation_state(n, seed)
+    return tuple(np.asarray(x) for x in jsym.compute_accel_jerk_symmetric(
+        jnp.asarray(pos), jnp.asarray(vel), SOFT, tile_j=128, interpret=True))
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("n", [333, 700, 1001])
+def test_kernel_emulation_triangle_matches_jax(n, tile):
+    """The triangle kernel's arithmetic and order against the JAX package's
+    interpret-mode _aj_sym_kernel, at 1e-4 * max + 1e-4 (the card's bound)."""
+    pos, vel = _emulation_state(n, seed=11)
+    got = _emulate_aj_sym(_t(pos), _t(vel), SOFT, tile)
+    for g, w in zip(got, _jax_aj_sym(n, 11)):
+        _held_1e4(g.numpy(), w)
+    for g, w in zip(got, reference.compute_accel_jerk_symmetric(_t(pos), _t(vel), SOFT)):
+        _held_1e4(g.numpy(), w.numpy())
+    for field in got:  # each pair once
+        mf = pos[:, 3:4].astype(np.float64) * field.numpy()
+        assert np.abs(mf.sum(axis=0)).max() / np.abs(mf).sum() < 1e-6
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_kernel_emulation_rectangle_matches_jax(tile):
+    """The rectangle kernel's arithmetic and order, all four outputs, against
+    the JAX package's interpret-mode _aj_sym_cross_kernel on the same sets
+    padded with zero-mass slots to its tiles (padding is inert)."""
+    pos, vel = _emulation_state(1033, seed=12)
+    pi, vi, pj, vj = pos[:333], vel[:333], pos[333:], vel[333:]
+    got = _emulate_aj_cross(_t(pi), _t(vi), _t(pj), _t(vj), SOFT, tile)
+
+    def padded(a, m):
+        return jnp.asarray(np.concatenate([a, np.zeros((m - a.shape[0], 4), np.float32)]))
+
+    want = jsym._aj_sym_cross(padded(pi, 384), padded(vi, 384), padded(pj, 768).T,
+                              padded(vj, 768).T, SOFT, tile_i=64, tile_j=128, interpret=True)
+    want = (want[0][:333], want[1][:333], want[2][:, :700], want[3][:, :700])
+    assert [tuple(t.shape) for t in got] == [(333, 4), (333, 4), (3, 700), (3, 700)]
+    assert not got[0][:, 3].any() and not got[1][:, 3].any()
+    for g, w in zip(got, want):
+        _held_1e4(g.numpy(), w)
+    for g, w in zip(got, reference.aj_sym_cross(_t(pi), _t(vi), _t(pj), _t(vj), SOFT)):
+        _held_1e4(g.numpy(), w.numpy())
+
+
+def test_kernel_emulation_self_pair_adds_zero_at_softening_0():
+    """At softening 0 the self pair has inv = inf and w = NaN: the kernels'
+    select on s, t and w makes its terms exactly 0, where a 0/1 product
+    would make them NaN, so the triangle stays finite and equals the plain
+    version (which selects inv3 and c3p)."""
+    pos, vel = _emulation_state(333, seed=13)
+    p, v = _t(pos), _t(vel)
+    idx = torch.arange(128)
+    act, react = _kernel_pair_terms(p[:128], v[:128], p[:128], v[:128], 0.0,
+                                    idx[None, :] > idx[:, None])
+    assert torch.equal(act[idx, idx], torch.zeros((128, 6)))
+    assert torch.equal(react[idx, idx], torch.zeros((128, 6)))
+    unmasked, _ = _kernel_pair_terms(p[:128], v[:128], p[:128], v[:128], 0.0)
+    assert torch.isnan((0.0 * unmasked[idx, idx])).all()
+    for tile in (128, 256):
+        got = _emulate_aj_sym(p, v, 0.0, tile)
+        for g, w in zip(got, reference.compute_accel_jerk_symmetric(p, v, 0.0)):
+            _held_1e4(g.numpy(), w.numpy())

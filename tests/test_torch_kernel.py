@@ -218,3 +218,44 @@ def test_ptxas_usage_reads_each_kernel_not_its_callees(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\necho 'error: no' >&2\nexit 1\n")
     with pytest.raises(RuntimeError, match="nvcc failed on k.cu"):
         _build.ptxas_usage("k.cu")
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_117aj_sym_tri_kernelILi4EEEvPK6float4S3_llfPf
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+        /*0010*/                   LDS.128 R4, [R2+0x10] ;
+        /*0020*/                   FADD R8, R4, -R12 ;
+        /*0030*/                   FFMA R9, R8, R8, R3 ;
+        /*0040*/                   MUFU.RSQ R10, R9 ;
+        /*0050*/                   FSEL R10, R10, RZ, P1 ;
+        /*0060*/                   MUFU.RSQ R11, R9 ;
+        /*0070*/                   SHFL.IDX PT, R3, R3, R0, 0x1f ;
+        /*0080*/                   IADD3 R2, R2, 0x20, RZ ;
+        /*0090*/              @!P0 BRA 0x10 ;
+        /*00a0*/                   STS [R5], R3 ;
+        /*00b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00c0*/               @P2 BRA 0x0 ;
+        /*00d0*/                   BRA 0xd0 ;
+        /*00e0*/                   EXIT ;
+\t\tFunction : _Z5otherPf
+        /*0000*/                   MUFU.RSQ R1, R1 ;
+        /*0010*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_loops_counts_the_innermost_rsqrt_loop_by_class():
+    """The walk's count: the innermost backward branch whose body holds a
+    MUFU.RSQ (not the loop around it, not a self-branch after EXIT's
+    padding, not another function), its instructions by class, and its
+    pairs as its MUFU.RSQ."""
+    (loop,) = _build.sass_loops(SASS, "aj_sym_tri_kernelILi4E")
+    assert loop["function"].endswith("aj_sym_tri_kernelILi4EEEvPK6float4S3_llfPf")
+    assert loop["instructions"] == 9 and loop["pairs"] == 2
+    assert loop["mix"] == {"shared": 1, "fp32": 2, "mufu": 2, "select": 1, "shfl": 1,
+                           "integer": 1, "branch": 1}
+    assert loop["ops"]["MUFU.RSQ"] == 2 and loop["ops"]["LDS.128"] == 1
+    assert _build.sass_class("ULDC.64") == "uniform"
+    assert _build.sass_class("STL.64") == "local"
+    assert _build.sass_loops(SASS, "no_such_kernel") == []
