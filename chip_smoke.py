@@ -23,10 +23,14 @@ its result:
   3h. the accel + jerk kernels (one-sided, each-pair-once triangle and
      rectangle) and the potential kernel against their plain versions, at
      the cases of 3 and 3s, random masses, vel.w and damping 0.5 through a
-     Hermite step of each variant at N in {4099, 65536}; bit equality;
+     Hermite step of each variant at N in {4099, 65536}; the one-sided
+     kernel in its j-chunks and in one, at (M, N) from (777, 4099) and
+     (1025, 65537) to the four-card hops (16384, 65536) and (16384, 16384),
+     at blocks 128, 256 and 1024, bit-equal across blocks; bit equality;
      momentum and its derivative; their times, the triangle's also at the
      N=135168 composition's block, beside the each-pair-once kernels'
-     ptxas registers and spills and their walk's SASS instructions a pair;
+     ptxas registers and spills and their walk's SASS instructions a pair,
+     and the one-sided kernel's registers and spills (3dh: the ds one's);
   4. QA, the reference's rule, through Compute.compare_results at N=16384;
   5. the main path at full size: Compute.run_benchmark at N=65536, beside
      the plain version's time per step;
@@ -42,7 +46,7 @@ its result:
      total_energy() (the potential kernel) at N=65536 beside
      total_energy(precise=True);
   6. placement="host" against placement="device", bit for bit, with Euler
-     and with Hermite;
+     and with Hermite (auto and vpu);
   3d. the double-single kernels (one-sided step and leapfrog, triangle,
      rectangle) against their plain versions at N in {4099, 16384}, with
      masses drawn in float64 from [0.5, 2], a random vel.w and damping 0.5,
@@ -68,8 +72,11 @@ its result:
      N=36864, above the cap, the default dispatch against the float64
      oracle: each output within 1e-12 * max + 1e-14 of plain, each force
      and jerk within 1e-10 * max of the oracle's, the glue bit-equal to
-     plain, repeat calls bit-equal; their times at N=16384 and the
-     rectangle's at the main path's shape;
+     plain, repeat calls bit-equal; the one-sided kernel also on the
+     first M rows, (1025, 4099), (4096, 16384) and (4096, 4096), in its
+     j-chunks and in one, at blocks 64, 128 and 256, bit-equal across
+     blocks and held to the rows of the set's oracle; their times at
+     N=16384 and the rectangle's at the main path's shape;
   5dh. the ds Hermite path through Compute(precision="ds",
      integrator="hermite"): QA (position, force and jerk against the
      float64 oracle) for auto (sym) and one_sided at N=16384,
@@ -636,13 +643,29 @@ def phase_aj_kernels(torch) -> dict:
             tols.append(tol)
         return tols
 
-    cases = [(n, n, bs) for n in (1000, 4099, N_MAIN) for bs in (128, 256)]
-    cases.append((777, 4099, 256))  # i-vs-j, M != N
-    for m, n, bs in cases:
+    # the one-sided kernel in its j-chunks (aj_splits) and in one chunk: M
+    # not a multiple of a block's rows, N odd and not a multiple of the
+    # stage or of S, the four-card hops at N = 65536 (M = N / 4 under all N
+    # and under one shard); at every block the same bits, and on a repeat
+    cases = [(1000, 1000), (4099, 4099), (777, 4099), (1025, 65537), (N_MAIN, N_MAIN),
+             (N_MAIN // 4, N_MAIN), (N_MAIN // 4, N_MAIN // 4)]
+    for m, n in cases:
         pj, vj = shell_state(torch, n)
         pi, vi = pj[:m].contiguous(), vj[:m].contiguous()
-        held("accel_jerk", ck.compute_accel_jerk_cuda(pi, vi, pj, vj, soft, block_size=bs),
-             reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft), f"one-sided M={m} N={n} block={bs}")
+        want = reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft)
+        for splits in sorted({ck.aj_splits(m, n), 1}):
+            first = None
+            for bs in (128, 256, 1024):
+                got = ck._accel_jerk(pi, vi, pj, vj, soft, bs, splits=splits)
+                again = ck._accel_jerk(pi, vi, pj, vj, soft, bs, splits=splits)
+                first = got if first is None else first
+                same = all(torch.equal(a, b) for a, b in (*zip(got, again), *zip(got, first)))
+                held("accel_jerk", got, want,
+                     f"one-sided M={m} N={n} splits={splits} block={bs}")
+                check(same, f"the one-sided accel + jerk differs between calls or blocks at "
+                      f"M={m} N={n} splits={splits} block={bs}")
+        print(f"[3h aj] one-sided M={m} N={n}: repeats and blocks 128, 256, 1024 bit-equal at "
+              f"splits {sorted({ck.aj_splits(m, n), 1})}")
     for n in (1000, 4099, N_MAIN):
         p, _ = shell_state(torch, n)
         held("potential", (ck.potential_energy_per_row_cuda(p, soft),),
@@ -769,7 +792,22 @@ def phase_aj_kernels(torch) -> dict:
               f"{walk['instructions'] / walk['pairs']:.2f} SASS instructions a pair ({mix})")
         check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
               f"{names[mangled]} spills registers")
+    spills_checked(_build, "nbody_kernels.cu", "17accel_jerk_kernel", "[3h aj]")
     return {"err": err, "times": times, "bounds": bounds}
+
+
+def spills_checked(build, source: str, key: str, tag: str) -> None:
+    """What ptxas says of each kernel of `source` whose mangled name holds
+    `key` (one more nvcc); fails on a spill."""
+    usage = build.ptxas_usage(source)
+    names = build.demangle(usage)
+    found = [(k, u) for k, u in usage.items() if key in k]
+    check(bool(found), f"no kernel {key} in {source}")
+    for mangled, u in found:
+        print(f"{tag} {names[mangled]}: {u['registers']} registers, {u['spill_stores']} / "
+              f"{u['spill_loads']} bytes spill stores / loads, {u['smem']} bytes smem")
+        check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+              f"{names[mangled]} spills registers")
 
 
 def mxu_bound_ms(key: str, pairs: float, nbytes: float) -> tuple[float, str]:
@@ -1446,6 +1484,34 @@ def phase_ds_aj_kernels(torch) -> dict:
             held(name, got, plain(), what)
             oracle(name, got, ref, what)
             repeat(name, kernel, what)
+        # the one-sided kernel on the first m rows under all n (at N_QA a
+        # four-card hop, under all N and under one shard), in its j-chunks
+        # (ds_aj_splits) and in one: the i-set's float64 oracle is the
+        # rows of the set's; the same bits at every block and on a repeat
+        vel64 = ds.ds_to_f64(*planes[2:])
+        m = 1025 if n < N_QA else N_QA // 4
+        shapes = [(m, n, planes, ref)]
+        if n == N_QA:
+            shard = tuple(t[:m].contiguous() for t in planes)
+            shapes.append((m, m, shard, _oracle_accel_jerk(pos64[:m], vel64[:m], soft)))
+        for m, nj, jplanes, jref in shapes:
+            sub = tuple(t[:m].contiguous() for t in jplanes)
+            want = ds.ds_accel_jerk_vs(*sub, *jplanes, scal)
+            for splits in sorted({ck.ds_aj_splits(m, nj), 1}):
+                first = None
+                for b in (64, 128, 256):
+                    what = f"one-sided ({m},{nj}) splits={splits} block {b}"
+                    got = ck._ds_accel_jerk(*sub, *jplanes, scal, b, None, splits=splits)
+                    again = ck._ds_accel_jerk(*sub, *jplanes, scal, b, None, splits=splits)
+                    first = got if first is None else first
+                    held("ds_accel_jerk", got, want, what)
+                    oracle("ds_accel_jerk", got, (jref[0][:m], jref[1][:m]), what)
+                    check(all(torch.equal(a, c) for a, c in (*zip(got, again),
+                                                              *zip(got, first))),
+                          f"the ds one-sided accel + jerk differs between calls or blocks "
+                          f"at {what}")
+            print(f"[3dh ds aj] one-sided ({m},{nj}): repeats and blocks 64, 128, 256 "
+                  f"bit-equal at splits {sorted({ck.ds_aj_splits(m, nj), 1})}")
         # the glue, from the one-sided kernel's (N,4) fields and the
         # composition's (N,3) ones: bit-equal to the plain versions
         for what, aj in (("one-sided", lambda st: ck.compute_accel_jerk_ds_cuda_vs(
@@ -1533,6 +1599,9 @@ def phase_ds_aj_kernels(torch) -> dict:
     repeat("ds_aj_sym_cross", lambda: ck.ds_aj_sym_cross_cuda(*rect, scal, tile=tile), what)
     del big, rect, sub, rect_plain, planes, out, runs
     torch.cuda.empty_cache()
+    from nbody_tpu_torch.ops import _build
+
+    spills_checked(_build, "ds_aj_kernels.cu", "20ds_accel_jerk_kernel", "[3dh ds aj]")
     return {"err": err, "times": times, "bounds": bounds}
 
 
@@ -2469,11 +2538,11 @@ def phase_host(torch) -> None:
 
     cs, vs = tuned_scales(N_QA)
     params = DEMO_PARAMS[0].replace(cluster_scale=cs, velocity_scale=vs)
-    for integrator in ("euler", "hermite"):
+    for integrator, variant in (("euler", "auto"), ("hermite", "auto"), ("hermite", "vpu")):
         dev = BodySystem(N_QA, params, device="cuda", placement="device", seed=42,
-                         integrator=integrator)
+                         integrator=integrator, variant=variant)
         host = BodySystem(N_QA, params, device="cuda", placement="host", seed=42,
-                          integrator=integrator)
+                          integrator=integrator, variant=variant)
         check(host.state[0].is_pinned(), "placement='host' state is not in pinned memory")
         dev.update_many(5)
         host.update_many(5)

@@ -25,14 +25,23 @@
 // [x, y, z, m] / [vx, vy, vz, w]. Outputs acc_hi, acc_lo, jerk_hi, jerk_lo
 // are (M, 4) with w = 0, the JAX package's layout.
 //
-// Design: the one-sided ds kernel's (ds_kernels.cu). One thread per
-// i-body keeps its position, velocity and six ds sums in registers; each
-// block stages the j-bodies through shared memory as tiles of block_size
-// bodies, four float4 arrays (pos hi/lo, vel hi/lo: 64 bytes a body, 16 KB
-// at block 256), every thread reading each staged body as a broadcast.
-// The j-sum is a ds sum in index order, so repeat calls give the same bits.
+// Design: one thread an i-body keeps its position, velocity and six ds
+// sums in registers; each block stages the j-bodies through shared memory
+// kDsAjStage at a time, four float4 arrays (pos hi/lo, vel hi/lo: 64 bytes
+// a body, 8 KB), every thread reading each staged body as a broadcast.
 // The TPU kernel's (TILE_I, 128) lane accumulators and their pairwise lane
-// reduction have no counterpart: a thread owns a whole row.
+// reduction have no counterpart: a thread owns a row of its j-chunk.
+// A j-split fills the card: one thread an i-body at block 128 gives
+// M / 128 blocks, 128 at the ds default N = 16384 and 32 at a four-card
+// hop (M = 4096), for 132 SMs and a dependent ds chain ~450 instructions
+// long. So the grid is (i-blocks, S): chunk c of the j-range is
+// [c * L, min((c + 1) * L, N)), L = ceil(ceil(N / kDsAjStage) / S) stages,
+// S a pure function of M and N (ops/cuda_kernel.py::ds_aj_splits). With
+// S = 1 a block writes the four outputs; with S > 1 it writes its six ds
+// sums into the partials (S, 12, M), and ds_sum_partials
+// (ds_sym_common.cuh) ds-adds each row's partials in chunk order. Each
+// chunk is a ds sum in j order from 0: the same bits on every card, every
+// call and every block size. No atomics.
 //
 // What bounds it on an H100: the FP32 pipe. A pair is ~452 FP32-pipe
 // instructions read from this source (6 ds_sub at 11 for d and dv, r2 at
@@ -40,10 +49,12 @@
 // 25, 3 ds_mul + ds_add at 20 into the acceleration and 3 (2 ds_mul +
 // ds_sub + ds_add) at 40 into the jerk), against the 225 of the ds force;
 // the JAX package counts 800 flops a pair (ds_kernel.py:901). Memory is no
-// limit: 64 bytes a staged j-body for block_size pairs a thread. One thread
-// an i-body leaves few warps an SM at small N (the ds step's finding), so
-// the block size is measured: the ds step's table fits it
-// (ops/cuda_kernel.py::ds_default_block_size).
+// limit: 64 bytes a staged j-body for blockDim.x pairs, and 48 bytes of
+// partials a row and chunk. The block size is the ds step's
+// (ops/cuda_kernel.py::ds_default_block_size). Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/torch_ds_aj_dispatch.py, in turns with the
+// unsplit kernel): 4.33 ms at N = 16384 (7.27 before), 84 % of the bound;
+// 1.14 ms at (M, N) = (4096, 16384), a four-card hop (7.27 before).
 //
 // The glue kernels are one thread a body, elementwise in ds, the mass and
 // vel.w carried through from both planes; the acceleration and jerk arrays
@@ -51,7 +62,7 @@
 // composition, 4 from the one-sided kernel).
 //
 // Edges: any M and N. A j-slot past N loads zeros in all four planes, so
-// mass 0 and no force; a thread past M stages j-tiles and writes nothing.
+// mass 0 and no force; a thread past M stages j-bodies and writes nothing.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float arrays, planes 16-byte aligned; `scal` is a host pointer
@@ -66,23 +77,33 @@
 #include <cuda_runtime.h>
 
 #include "ds_common.cuh"
+#include "ds_sym_common.cuh"
 
 namespace {
 
+// j-bodies a shared-memory stage of the one-sided kernel (64 bytes a body:
+// 8 KB), the j-split's unit (ops/cuda_kernel.py's DS_AJ_STAGE)
+constexpr int kDsAjStage = 128;
+
+// Row blockIdx.x * blockDim.x + threadIdx.x of the i-set against j-chunk
+// blockIdx.y, `chunk` j-bodies long (a multiple of kDsAjStage). parts ==
+// nullptr: the four (m, 4) output planes; else the chunk's twelve partial
+// components parts[(blockIdx.y * 12 + comp) * m + i]: acc hi xyz, acc lo
+// xyz, jerk hi xyz, jerk lo xyz (ds_sym_common.cuh's layout).
 __global__ void ds_accel_jerk_kernel(
     const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
     const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
     const float4* __restrict__ jpos_hi, const float4* __restrict__ jpos_lo,
     const float4* __restrict__ jvel_hi, const float4* __restrict__ jvel_lo,
     float4* __restrict__ acc_hi, float4* __restrict__ acc_lo, float4* __restrict__ jerk_hi,
-    float4* __restrict__ jerk_lo, const int64_t m, const int64_t n, const dsf eps2) {
-  // block_size bodies each: pos hi, pos lo, vel hi, vel lo
-  extern __shared__ float4 tile[];
+    float4* __restrict__ jerk_lo, const int64_t m, const int64_t n, const int64_t chunk,
+    const dsf eps2, float* __restrict__ parts) {
+  // a stage of j-bodies: pos hi, pos lo, vel hi, vel lo
+  __shared__ float4 th[kDsAjStage];
+  __shared__ float4 tl[kDsAjStage];
+  __shared__ float4 tvh[kDsAjStage];
+  __shared__ float4 tvl[kDsAjStage];
   const int bs = blockDim.x;
-  float4* th = tile;
-  float4* tl = tile + bs;
-  float4* tvh = tile + 2 * bs;
-  float4* tvl = tile + 3 * bs;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * bs + threadIdx.x;
   const float4 ph = (i < m) ? pos_hi[i] : zero4();
   const float4 pl = (i < m) ? pos_lo[i] : zero4();
@@ -91,15 +112,19 @@ __global__ void ds_accel_jerk_kernel(
   const dsf xi = make_ds(ph.x, pl.x), yi = make_ds(ph.y, pl.y), zi = make_ds(ph.z, pl.z);
   const dsf vxi = make_ds(vh.x, vl.x), vyi = make_ds(vh.y, vl.y), vzi = make_ds(vh.z, vl.z);
   dsf ax = make_ds(0.f, 0.f), ay = ax, az = ax, gx = ax, gy = ax, gz = ax;
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    const bool in = j < n;
-    th[threadIdx.x] = in ? jpos_hi[j] : zero4();
-    tl[threadIdx.x] = in ? jpos_lo[j] : zero4();
-    tvh[threadIdx.x] = in ? jvel_hi[j] : zero4();
-    tvl[threadIdx.x] = in ? jvel_lo[j] : zero4();
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t j1 = j0 + chunk < n ? j0 + chunk : n;
+  for (int64_t base = j0; base < j1; base += kDsAjStage) {
+    for (int k = threadIdx.x; k < kDsAjStage; k += bs) {
+      const int64_t j = base + k;
+      const bool in = j < n;
+      th[k] = in ? jpos_hi[j] : zero4();
+      tl[k] = in ? jpos_lo[j] : zero4();
+      tvh[k] = in ? jvel_hi[j] : zero4();
+      tvl[k] = in ? jvel_lo[j] : zero4();
+    }
     __syncthreads();
-    for (int k = 0; k < bs; ++k) {
+    for (int k = 0; k < kDsAjStage; ++k) {
       const float4 qh = th[k], ql = tl[k], wh = tvh[k], wl = tvl[k];
       dsf dx, dy, dz, inv2, inv3;
       ds_pair2(make_ds(qh.x, ql.x), make_ds(qh.y, ql.y), make_ds(qh.z, ql.z), xi, yi, zi, eps2,
@@ -120,10 +145,20 @@ __global__ void ds_accel_jerk_kernel(
     __syncthreads();
   }
   if (i >= m) return;
-  acc_hi[i] = make_float4(ax.hi, ay.hi, az.hi, 0.f);
-  acc_lo[i] = make_float4(ax.lo, ay.lo, az.lo, 0.f);
-  jerk_hi[i] = make_float4(gx.hi, gy.hi, gz.hi, 0.f);
-  jerk_lo[i] = make_float4(gx.lo, gy.lo, gz.lo, 0.f);
+  if (parts == nullptr) {
+    acc_hi[i] = make_float4(ax.hi, ay.hi, az.hi, 0.f);
+    acc_lo[i] = make_float4(ax.lo, ay.lo, az.lo, 0.f);
+    jerk_hi[i] = make_float4(gx.hi, gy.hi, gz.hi, 0.f);
+    jerk_lo[i] = make_float4(gx.lo, gy.lo, gz.lo, 0.f);
+    return;
+  }
+  const int64_t t = blockIdx.y;
+  ds_put<12>(parts, t, 0, m, i, ax);
+  ds_put<12>(parts, t, 1, m, i, ay);
+  ds_put<12>(parts, t, 2, m, i, az);
+  ds_put<12>(parts, t, 6, m, i, gx);
+  ds_put<12>(parts, t, 7, m, i, gy);
+  ds_put<12>(parts, t, 8, m, i, gz);
 }
 
 // component c (0..2) of a float4
@@ -212,30 +247,67 @@ unsigned int num_blocks(int64_t m, int64_t bs) {
   return static_cast<unsigned int>((m + bs - 1) / bs);
 }
 
-}  // namespace
-
-extern "C" {
-
-// acc_hi, acc_lo, jerk_hi, jerk_lo (m, 4), w = 0, of the i-set (m, 4
-// planes) under the j-set (n, 4 planes); `scal` a (2, 4) block, eps^2 in
-// column 1
-int nbody_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel_hi,
-                        const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
-                        const void* jvel_hi, const void* jvel_lo, void* acc_hi, void* acc_lo,
-                        void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, const float* scal,
-                        int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
+// The grid (i-blocks, splits) of ds_accel_jerk_kernel, then with splits > 1
+// the chunk-ordered ds sum of the partials in `parts` (splits * 12 * m
+// floats) into the four outputs.
+int launch_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel_hi,
+                         const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
+                         const void* jvel_hi, const void* jvel_lo, void* acc_hi, void* acc_lo,
+                         void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, dsf eps2,
+                         int64_t block_size, int64_t splits, float* parts,
+                         cudaStream_t stream) {
+  if (!valid_block_size(block_size) || m < 0 || n < 0 || splits > 65535) {
+    return cudaErrorInvalidValue;
+  }
   if (m == 0) return cudaSuccess;
-  const size_t smem = 4 * static_cast<size_t>(block_size) * sizeof(float4);
-  ds_accel_jerk_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const int64_t chunk = cdiv(cdiv(n, kDsAjStage), splits) * kDsAjStage;
+  const dim3 grid(num_blocks(m, block_size), static_cast<unsigned int>(splits));
+  ds_accel_jerk_kernel<<<grid, static_cast<unsigned int>(block_size), 0, stream>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
       static_cast<const float4*>(jvel_hi), static_cast<const float4*>(jvel_lo),
       static_cast<float4*>(acc_hi), static_cast<float4*>(acc_lo), static_cast<float4*>(jerk_hi),
-      static_cast<float4*>(jerk_lo), m, n, read_scalars(scal).eps2);
-  return cudaGetLastError();
+      static_cast<float4*>(jerk_lo), m, n, chunk, eps2, splits > 1 ? parts : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  err = ds_sum_partials(parts, splits, 12, m, static_cast<float*>(acc_hi),
+                        static_cast<float*>(acc_lo), 4, 1, 1, stream);
+  if (err != cudaSuccess) return err;
+  return ds_sum_partials(parts + 6 * m, splits, 12, m, static_cast<float*>(jerk_hi),
+                         static_cast<float*>(jerk_lo), 4, 1, 1, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// acc_hi, acc_lo, jerk_hi, jerk_lo (m, 4), w = 0, of the i-set (m, 4
+// planes) under the j-set (n, 4 planes), one j-chunk (S = 1); `scal` a
+// (2, 4) block, eps^2 in column 1
+int nbody_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel_hi,
+                        const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
+                        const void* jvel_hi, const void* jvel_lo, void* acc_hi, void* acc_lo,
+                        void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, const float* scal,
+                        int64_t block_size, void* stream) {
+  return launch_ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
+                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, read_scalars(scal).eps2,
+                              block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the same in `splits` j-chunks: scratch holds splits * 12 * m floats, the
+// chunks' ds partials, ds-added in chunk order into the four outputs
+int nbody_ds_accel_jerk_split(const void* pos_hi, const void* pos_lo, const void* vel_hi,
+                              const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
+                              const void* jvel_hi, const void* jvel_lo, void* acc_hi,
+                              void* acc_lo, void* jerk_hi, void* jerk_lo, int64_t m, int64_t n,
+                              const float* scal, int64_t block_size, int64_t splits,
+                              void* scratch, void* stream) {
+  if (splits < 1 || scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
+                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, read_scalars(scal).eps2,
+                              block_size, splits, static_cast<float*>(scratch),
+                              static_cast<cudaStream_t>(stream));
 }
 
 // the four predicted planes (n, 4) of the state (n, 4 planes) from its

@@ -55,14 +55,49 @@
 // Edges: any M and N. A j-slot past N loads mass 0 (the zero-mass padding
 // of pallas_kernel.py:29-30), and a thread past M writes nothing.
 //
-// Accel + jerk (the Hermite scheme's force evaluation,
+// Accel + jerk (accel_jerk_kernel, the Hermite scheme's force evaluation,
 // pallas_kernel.py:618-637), with dv = v_j - v_i over the xyz lanes only
 // (vel.w is not a velocity):
-//   inv2 = inv^2;  s = m_j inv inv2;  rv3 = 3 (d . dv) inv2
-//   a_i += s d;  j_i += s (dv - rv3 d)
-// The self pair adds 0 because d = dv = 0. A pair is 48 flops by the JAX
-// package's count (pallas_kernel.py:697), about 25 FMA-pipe instructions and
-// one rsqrtf; the block stages positions and velocities, 32 bytes a j-body.
+//   r2 = fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2)));  inv = rsqrt(r2)
+//   inv2 = inv^2;  s = m_j inv2 inv;  w = 3 inv2 (d . dv)
+//   a_i += s d;  j_i += s (dv - w d)
+// 26 FP32-pipe instructions a pair (6 FADD for d and dv, 3 FFMA for r2, 3
+// FMUL for inv2 and s, 5 for w, 3 FFMA for dv - w d, 6 FFMA for the sums)
+// and one MUFU.RSQ: rsqrt_ftz (sym_common.cuh), the bits of rsqrtf for every
+// normal r2 without its subnormal fix-up. The JAX package forms the jerk as
+// s (dv - rv3 d), rv3 = 3 (d . dv) inv2, which rounds differently, within the
+// 1e-4 * max + 1e-4 that the tests and chip_smoke.py hold the kernel to. The
+// self pair adds 0 because d = dv = 0 (NaN at softening 0, as in the JAX
+// package). A pair is 48 flops by the JAX package's count
+// (pallas_kernel.py:697); the inputs are 32 bytes a body.
+// Design, for the Hopper issue rate rather than the TPU's grid:
+//   * ROWS i-bodies a thread (kAjRows; rows u * blockDim.x apart), each with
+//     its position, velocity and six sums in registers, so one shared-memory
+//     broadcast of a j-body (two LDS.128: position, velocity) serves ROWS
+//     pairs. Blocks above 512 threads take one row a thread: 1024 threads
+//     leave 64 registers a thread.
+//   * The j-side is staged kAjStage bodies at a time (8 KB of shared memory,
+//     whatever the block size), the walk over a stage unrolled kAjUnroll
+//     times.
+//   * A j-split: the grid is (i-tiles, S). Chunk c of the j-range is
+//     [c * L, min((c + 1) * L, N)), L = ceil(ceil(N / kAjStage) / S) stages,
+//     so each chunk is a whole number of stages. S is a pure function of M
+//     and N (ops/cuda_kernel.py::aj_splits): at the i-shapes of a sharded
+//     step (M = N / D) the i-tiles alone leave SMs idle. With S = 1 a block
+//     writes acc and jerk; with S > 1 it writes its six sums into the
+//     partials (S, 6, M), and sum_partials (sym_common.cuh) adds each row's
+//     partials in chunk order. Each row sums its chunk's j-bodies in index
+//     order from 0, so the result depends on (M, N) only: the same bits on
+//     every card, every call and every block size. No atomics.
+//
+// What bounds it on an H100: issue. At ROWS 4 a pair is the 26 FP32-pipe
+// instructions, the MUFU, half an LDS and the loop's share (28.12 SASS
+// instructions); the memory traffic (32 bytes a j-body for blockDim.x * ROWS
+// pairs a thread block, the partials' 24 bytes a row and chunk) is far below
+// the card's rate. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/torch_aj_dispatch.py, in turns with the one-row kernel it
+// replaced): 4.78 ms at (M, N) = (65536, 65536) (6.22 before), 75 % of the
+// issue bound; 1.23 ms at (16384, 65536), a four-card hop (4.22 before).
 //
 // Potential (pallas_kernel.py:726-742): row i holds
 //   sum_{j != i} m_i m_j rsqrtf(|d|^2 + eps2),
@@ -123,8 +158,19 @@
 #include <cuda_runtime.h>
 
 #include "allpairs_common.cuh"
+#include "sym_common.cuh"
 
 namespace {
+
+// The one-sided accel + jerk kernel's constants. i-bodies a thread at blocks
+// of up to 512 threads: on an H100 80GB HBM3, 4 rows (107 registers, 28.12
+// SASS instructions a pair) ran 2.6-3.6 % ahead of 2 (64, 29.25) at every
+// timed shape. j-bodies a shared-memory stage: the j-split's unit
+// (ops/cuda_kernel.py's AJ_STAGE). Steps of a stage's walk unrolled: 2 ran
+// 2.4 % ahead of 1 and within 3 % of 4 (PERF.md, Findings).
+constexpr int kAjRows = 4;
+constexpr int kAjStage = 256;
+constexpr int kAjUnroll = 2;
 
 // The j-side loaders: the (N,4) array of the step and force kernels (AosJ,
 // allpairs_common.cuh) and the (4, N) planes x, y, z, m that the rollout
@@ -296,56 +342,90 @@ __global__ void accel_kernel(const float4* __restrict__ pos_i,
   acc[3 * i + 2] = az;
 }
 
-__global__ void accel_jerk_kernel(const float4* __restrict__ pos_i,
-                                  const float4* __restrict__ vel_i,
-                                  const float4* __restrict__ pos_j,
-                                  const float4* __restrict__ vel_j, float* __restrict__ acc,
-                                  float* __restrict__ jerk, const int64_t m, const int64_t n,
-                                  const float eps2) {
-  extern __shared__ float4 tile[];  // block_size positions, then block_size velocities
-  float4* tp = tile;
-  float4* tv = tile + blockDim.x;
+// Rows [i0, i0 + blockDim.x * ROWS) of the i-set, row u of this thread at
+// i0 + threadIdx.x + u * blockDim.x, against j-chunk blockIdx.y, `chunk`
+// j-bodies long (a multiple of kAjStage). parts == nullptr: acc and jerk
+// (M, 3); else the chunk's partials parts[(blockIdx.y * 6 + comp) * m + i].
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    accel_jerk_kernel(const float4* __restrict__ pos_i, const float4* __restrict__ vel_i,
+                      const float4* __restrict__ pos_j, const float4* __restrict__ vel_j,
+                      const int64_t m, const int64_t n, const int64_t chunk, const float eps2,
+                      float* __restrict__ acc, float* __restrict__ jerk,
+                      float* __restrict__ parts) {
+  __shared__ float4 sp[kAjStage];
+  __shared__ float4 sv[kAjStage];
   const int bs = blockDim.x;
+  const int tid = threadIdx.x;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * bs + threadIdx.x;
-  const float4 pi = (i < m) ? pos_i[i] : zero;
-  const float4 vi = (i < m) ? vel_i[i] : zero;
-  float ax = 0.f, ay = 0.f, az = 0.f, jx = 0.f, jy = 0.f, jz = 0.f;
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    tp[threadIdx.x] = (j < n) ? pos_j[j] : zero;
-    tv[threadIdx.x] = (j < n) ? vel_j[j] : zero;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * bs * ROWS + tid;
+  float px[ROWS], py[ROWS], pz[ROWS], vx[ROWS], vy[ROWS], vz[ROWS];
+  float a[6][ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
+    const float4 p = (i < m) ? pos_i[i] : zero;
+    const float4 v = (i < m) ? vel_i[i] : zero;
+    px[u] = p.x;
+    py[u] = p.y;
+    pz[u] = p.z;
+    vx[u] = v.x;
+    vy[u] = v.y;
+    vz[u] = v.z;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a[c][u] = 0.f;
+  }
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t j1 = j0 + chunk < n ? j0 + chunk : n;
+  for (int64_t base = j0; base < j1; base += kAjStage) {
+    for (int k = tid; k < kAjStage; k += bs) {
+      const int64_t j = base + k;
+      sp[k] = (j < n) ? pos_j[j] : zero;
+      sv[k] = (j < n) ? vel_j[j] : zero;
+    }
     __syncthreads();
-    for (int k = 0; k < bs; ++k) {
-      const float4 pj = tp[k];
-      const float4 vj = tv[k];
-      const float dx = pj.x - pi.x;
-      const float dy = pj.y - pi.y;
-      const float dz = pj.z - pi.z;
-      const float dvx = vj.x - vi.x;
-      const float dvy = vj.y - vi.y;
-      const float dvz = vj.z - vi.z;
-      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-      const float inv = rsqrtf(r2);
-      const float inv2 = inv * inv;
-      const float s = pj.w * (inv * inv2);  // m_j / r^3
-      const float rv3 = 3.f * (dx * dvx + dy * dvy + dz * dvz) * inv2;
-      ax += s * dx;
-      ay += s * dy;
-      az += s * dz;
-      jx += s * (dvx - rv3 * dx);
-      jy += s * (dvy - rv3 * dy);
-      jz += s * (dvz - rv3 * dz);
+#pragma unroll(kAjUnroll)
+    for (int k = 0; k < kAjStage; ++k) {
+      const float4 pj = sp[k];
+      const float4 vj = sv[k];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const float dx = pj.x - px[u];
+        const float dy = pj.y - py[u];
+        const float dz = pj.z - pz[u];
+        const float dvx = vj.x - vx[u];
+        const float dvy = vj.y - vy[u];
+        const float dvz = vj.z - vz[u];
+        const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
+        const float inv = rsqrt_ftz(r2);
+        const float inv2 = inv * inv;
+        const float s = pj.w * (inv2 * inv);  // m_j / r^3
+        const float w = (3.f * inv2) * fmaf(dz, dvz, fmaf(dy, dvy, dx * dvx));
+        a[0][u] = fmaf(s, dx, a[0][u]);
+        a[1][u] = fmaf(s, dy, a[1][u]);
+        a[2][u] = fmaf(s, dz, a[2][u]);
+        a[3][u] = fmaf(s, fmaf(-w, dx, dvx), a[3][u]);
+        a[4][u] = fmaf(s, fmaf(-w, dy, dvy), a[4][u]);
+        a[5][u] = fmaf(s, fmaf(-w, dz, dvz), a[5][u]);
+      }
     }
     __syncthreads();
   }
-  if (i >= m) return;
-  acc[3 * i + 0] = ax;
-  acc[3 * i + 1] = ay;
-  acc[3 * i + 2] = az;
-  jerk[3 * i + 0] = jx;
-  jerk[3 * i + 1] = jy;
-  jerk[3 * i + 2] = jz;
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
+    if (i >= m) continue;
+    if (parts == nullptr) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        acc[3 * i + c] = a[c][u];
+        jerk[3 * i + c] = a[3 + c][u];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) parts[(blockIdx.y * 6 + c) * m + i] = a[c][u];
+    }
+  }
 }
 
 __global__ void potential_kernel(const float4* __restrict__ pos, float* __restrict__ per_row,
@@ -379,6 +459,40 @@ bool valid_block_size(int64_t bs) { return bs >= 32 && bs <= 1024 && bs % 32 == 
 
 unsigned int num_blocks(int64_t m, int64_t bs) {
   return static_cast<unsigned int>((m + bs - 1) / bs);
+}
+
+// The grid (i-tiles, splits) of accel_jerk_kernel, then with splits > 1 the
+// chunk-ordered sum of the partials in `parts` (splits * 6 * m floats).
+int launch_accel_jerk(const void* pos_i, const void* vel_i, const void* pos_j,
+                      const void* vel_j, void* acc, void* jerk, int64_t m, int64_t n, float eps2,
+                      int64_t block_size, int64_t splits, float* parts, cudaStream_t stream) {
+  if (!valid_block_size(block_size) || m < 0 || n < 0 || splits > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (m == 0) return cudaSuccess;
+  const int64_t chunk = cdiv(cdiv(n, kAjStage), splits) * kAjStage;
+  const auto pi = static_cast<const float4*>(pos_i);
+  const auto vi = static_cast<const float4*>(vel_i);
+  const auto pj = static_cast<const float4*>(pos_j);
+  const auto vj = static_cast<const float4*>(vel_j);
+  auto a = static_cast<float*>(acc);
+  auto g = static_cast<float*>(jerk);
+  float* out_parts = splits > 1 ? parts : nullptr;
+  const auto bs = static_cast<unsigned int>(block_size);
+  if (block_size <= 512) {
+    const dim3 grid(num_blocks(m, block_size * kAjRows), static_cast<unsigned int>(splits));
+    accel_jerk_kernel<kAjRows, 512><<<grid, bs, 0, stream>>>(pi, vi, pj, vj, m, n, chunk, eps2,
+                                                             a, g, out_parts);
+  } else {
+    const dim3 grid(num_blocks(m, block_size), static_cast<unsigned int>(splits));
+    accel_jerk_kernel<1, 1024><<<grid, bs, 0, stream>>>(pi, vi, pj, vj, m, n, chunk, eps2, a, g,
+                                                        out_parts);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  err = sum_partials(parts, splits, 6, m, a, 3, 1, 0, stream);
+  if (err != cudaSuccess) return err;
+  return sum_partials(parts + 3 * m, splits, 6, m, g, 3, 1, 0, stream);
 }
 
 }  // namespace
@@ -452,18 +566,25 @@ int nbody_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m,
   return cudaGetLastError();
 }
 
+// acc (m, 3) and jerk (m, 3) of the i-set under the j-set, one j-chunk
+// (S = 1): each block writes its rows' sums
 int nbody_accel_jerk_f32(const void* pos_i, const void* vel_i, const void* pos_j,
                          const void* vel_j, void* acc, void* jerk, int64_t m, int64_t n,
                          float eps2, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(block_size) * sizeof(float4);
-  accel_jerk_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
-      static_cast<const float4*>(pos_j), static_cast<const float4*>(vel_j),
-      static_cast<float*>(acc), static_cast<float*>(jerk), m, n, eps2);
-  return cudaGetLastError();
+  return launch_accel_jerk(pos_i, vel_i, pos_j, vel_j, acc, jerk, m, n, eps2, block_size, 1,
+                           nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the same in `splits` j-chunks: scratch holds splits * 6 * m floats, the
+// chunks' partials, added in chunk order into acc and jerk
+int nbody_accel_jerk_split_f32(const void* pos_i, const void* vel_i, const void* pos_j,
+                               const void* vel_j, void* acc, void* jerk, int64_t m, int64_t n,
+                               float eps2, int64_t block_size, int64_t splits, void* scratch,
+                               void* stream) {
+  if (splits < 1 || scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_accel_jerk(pos_i, vel_i, pos_j, vel_j, acc, jerk, m, n, eps2, block_size,
+                           splits, static_cast<float*>(scratch),
+                           static_cast<cudaStream_t>(stream));
 }
 
 int nbody_potential_f32(const void* pos, void* per_row, int64_t n, float eps2,

@@ -1,7 +1,8 @@
 // Shared pieces of the each-pair-once kernels (symmetric_kernels.cu,
 // symmetric_aj_kernels.cu): the block shape, the tile sizes, the
 // triangle's worklist, the warps' reaction sum and the fixed-order sum of
-// the per-tile partials.
+// the per-tile partials; the last, and the rsqrt of the accel + jerk
+// kernels, also serve the one-sided accel + jerk kernel (nbody_kernels.cu).
 // Everything is in an unnamed namespace, so each source that includes this
 // header has its own copy and the objects link without clashes.
 #pragma once
@@ -29,6 +30,16 @@ int rows_of_tile(int64_t tile) {
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// 1/sqrt(x) as the PTX rsqrt.approx.ftz.f32, one MUFU.RSQ: the bits of
+// rsqrtf for every normal x (scripts/torch_aj_dispatch.py checks every
+// positive normal float on the card) without rsqrtf's range fix-up for a
+// subnormal x (a compare and two predicated FMULs), for which it gives inf
+__device__ __forceinline__ float rsqrt_ftz(const float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // blockIdx.x -> (r, c), c >= r, in row-major order of the upper triangle of
 // num_tiles x num_tiles tile pairs (the TPU's _pair_tables,

@@ -27,12 +27,13 @@
 // j > i on the diagonal tiles as a select on s, t and w, never a product:
 // at eps = 0 the self pair has inv = inf and w = NaN, and 0 * NaN is NaN.
 //
-// rsqrt: the PTX rsqrt.approx.ftz.f32, one MUFU.RSQ. rsqrtf without
-// -ftz=true adds a range fix-up for subnormal inputs (a compare and two
-// predicated FMULs a pair). The two give the same bits for every normal r2
-// (scripts/torch_aj_dispatch.py checks every positive normal float on the
-// card); they differ only for a subnormal r2, which needs eps = 0 and
-// |d| < 1.1e-19, where this kernel returns inf (the self pair's value).
+// rsqrt: rsqrt_ftz (sym_common.cuh), the PTX rsqrt.approx.ftz.f32, one
+// MUFU.RSQ. rsqrtf without -ftz=true adds a range fix-up for subnormal
+// inputs (a compare and two predicated FMULs a pair). The two give the same
+// bits for every normal r2 (scripts/torch_aj_dispatch.py checks every
+// positive normal float on the card); they differ only for a subnormal r2,
+// which needs eps = 0 and |d| < 1.1e-19, where this kernel returns inf (the
+// self pair's value).
 //
 // What bounds it on an H100: issue of arithmetic. A pair is 60 flops by the
 // JAX package's count for both sides (symmetric_kernel.py:703), i.e. 30
@@ -120,12 +121,6 @@ struct AjShared {
   float4 vel[kChunks][64];
   float red[kWarps][kComps][kSub];  // the warps' reaction sums of a sub-tile
 };
-
-__device__ __forceinline__ float rsqrt_ftz(const float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One T x T tile pair: rows [row0, row0 + T) of the i-set against columns
 // [col0, col0 + T) of the j-set. Leaves each thread's action on its rows in

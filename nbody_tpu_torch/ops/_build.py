@@ -276,6 +276,22 @@ def declare_aj_sym(lib) -> None:
     lib.nbody_aj_cross_f32.restype = ctypes.c_int
 
 
+def declare_accel_jerk(lib) -> None:
+    """The C signatures of the one-sided accel + jerk entry points that `lib`
+    has: ``nbody_accel_jerk_f32`` (csrc/nbody_kernels.cu) and
+    ``nbody_ds_accel_jerk`` (csrc/ds_aj_kernels.cu), one j-chunk each, and
+    their ``_split`` forms, which take the chunk count and the partials."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    sigs = {"nbody_accel_jerk_f32": [ptr] * 6 + [i64, i64, f32, i64, ptr],
+            "nbody_accel_jerk_split_f32": [ptr] * 6 + [i64, i64, f32, i64, i64, ptr, ptr],
+            "nbody_ds_accel_jerk": [ptr] * 12 + [i64, i64, ptr, i64, ptr],
+            "nbody_ds_accel_jerk_split": [ptr] * 12 + [i64, i64, ptr, i64, i64, ptr, ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -303,10 +319,9 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_sym_cross_f32.restype = ctypes.c_int
     lib.nbody_sym_ablate_f32.argtypes = [ptr, i64, f32, i64, ctypes.c_int] + [ptr] * 7
     lib.nbody_sym_ablate_f32.restype = ctypes.c_int
-    lib.nbody_accel_jerk_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, f32, i64, ptr]
-    lib.nbody_accel_jerk_f32.restype = ctypes.c_int
     lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]
     lib.nbody_potential_f32.restype = ctypes.c_int
+    declare_accel_jerk(lib)
     declare_aj_sym(lib)
     # the ds entry points take the (2, 4) scalar block as a host pointer
     lib.nbody_ds_step.argtypes = [ptr] * 10 + [i64, i64, ptr, i64, ptr]
@@ -321,8 +336,6 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ds_integrate.restype = ctypes.c_int
     lib.nbody_ds_accel.argtypes = [ptr] * 6 + [i64, i64, ptr, i64, ptr]
     lib.nbody_ds_accel.restype = ctypes.c_int
-    lib.nbody_ds_accel_jerk.argtypes = [ptr] * 12 + [i64, i64, ptr, i64, ptr]
-    lib.nbody_ds_accel_jerk.restype = ctypes.c_int
     lib.nbody_ds_aj_sym.argtypes = [ptr] * 4 + [i64, ptr, i64] + [ptr] * 6
     lib.nbody_ds_aj_sym.restype = ctypes.c_int
     lib.nbody_ds_aj_cross.argtypes = ([ptr] * 4 + [i64] + [ptr] * 4 + [i64, ptr, i64]

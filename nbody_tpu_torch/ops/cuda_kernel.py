@@ -421,10 +421,69 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
         raise ValueError(f"{vel_name} has {vel.shape[0]} rows, {pos_name} {pos.shape[0]}")
 
 
+# The j-split of the one-sided accel + jerk kernels (csrc/nbody_kernels.cu,
+# csrc/ds_aj_kernels.cu). A launch of M i-rows under N j-bodies runs in S
+# j-chunks, each a whole number of the kernel's shared-memory stages; each
+# chunk sums its j-bodies in index order and a second kernel adds the chunks'
+# partials in chunk order, so S, and the bits, depend on (M, N) alone: not on
+# the card, the call or the block size. S is the least power of two whose
+# grid of ceil(M / tile_i) x S blocks reaches `fill` blocks, at most one
+# chunk a stage, then evened out so that no chunk is short or empty; 1 where
+# the i-tiles fill the card on their own. tile_i is a block's i-rows at the
+# default block: 256 threads x 4 rows (kAjRows) in fp32, 128 x 1 in ds.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W by scripts/torch_aj_dispatch.py
+# and scripts/torch_ds_aj_dispatch.py (PERF.md, Findings): equal chunks
+# matter more than their count (fp32 at (65536, 65536): 16 chunks of 16
+# stages 4.763 ms, 18 with a last chunk of one stage 5.039); fp32 at 528
+# blocks (4 an SM of 132, 2 waves of the 2 blocks of 256 threads an SM
+# holds) within 2 % of the best S timed at every shape; ds at 4224, as
+# fewer chunks left 2-11 % at M above 32768, where the ds blocks are 256
+# threads (36864: 24.37 ms at S = 4 against 21.67 at 15).
+AJ_STAGE = 256  # j-bodies a stage: kAjStage of csrc/nbody_kernels.cu
+AJ_TILE_I = 1024
+AJ_FILL_BLOCKS = 528
+DS_AJ_STAGE = 128  # kDsAjStage of csrc/ds_aj_kernels.cu
+DS_AJ_TILE_I = 128
+DS_AJ_FILL_BLOCKS = 4224
+
+
+def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
+    """S, the j-chunks of a one-sided accel + jerk launch (the rule above)."""
+    if m <= 0 or n <= 0:
+        return 1
+    stages, tiles = _cdiv(n, stage), _cdiv(m, tile_i)
+    s = 1
+    while tiles * s < fill and s < stages:
+        s *= 2
+    s = min(s, stages)
+    return _cdiv(stages, _cdiv(stages, s))
+
+
+def aj_splits(m: int, n: int) -> int:
+    """S of the fp32 one-sided accel + jerk kernel at M i-rows, N j-bodies."""
+    return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=AJ_STAGE, fill=AJ_FILL_BLOCKS)
+
+
+def ds_aj_splits(m: int, n: int) -> int:
+    """S of the ds one-sided accel + jerk kernel at M i-rows, N j-bodies."""
+    return one_sided_splits(m, n, tile_i=DS_AJ_TILE_I, stage=DS_AJ_STAGE,
+                            fill=DS_AJ_FILL_BLOCKS)
+
+
 def compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, softening,
                             *, block_size: int = DEFAULT_BLOCK_SIZE):
     """(acc, jerk), each (M,3), on the i-set (M,4) due to the j-set (N,4):
-    the one-sided accel + jerk kernel (``_accel_jerk_kernel``)."""
+    the one-sided accel + jerk kernel (``_accel_jerk_kernel``) in
+    ``aj_splits(M, N)`` j-chunks."""
+    return _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size)
+
+
+def _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size, splits=None, lib=None):
+    """``compute_accel_jerk_cuda`` in `splits` j-chunks (``aj_splits`` by
+    default). `lib` is the port's library by default, or another build of
+    the kernel (``scripts/torch_aj_dispatch.py --against``), whose launches
+    are not counted; with splits = 1 only its one-chunk entry point is
+    called, which every build has."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     _check_pair("pos_i", pos_i, "vel_i", vel_i, device)
     _check_pair("pos_j", pos_j, "vel_j", vel_j, device)
@@ -432,21 +491,29 @@ def compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, softening,
     if device.type != "cuda":
         return reference.compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, softening)
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     m, n = pos_i.shape[0], pos_j.shape[0]
     acc = torch.empty((m, 3), dtype=torch.float32, device=device)
     jerk = torch.empty((m, 3), dtype=torch.float32, device=device)
     if m == 0:
         return acc, jerk
+    s = aj_splits(m, n) if splits is None else int(splits)
+    args = (pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), vel_j.data_ptr(),
+            acc.data_ptr(), jerk.data_ptr(), m, n, ctypes.c_float(float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_accel_jerk_f32(
-            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), vel_j.data_ptr(),
-            acc.data_ptr(), jerk.data_ptr(), m, n, ctypes.c_float(float(softening) ** 2),
-            bs, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_accel_jerk_f32(*args, stream)
+        else:
+            parts = torch.empty((s, 6, m), dtype=torch.float32, device=device)
+            err = lib.nbody_accel_jerk_split_f32(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_accel_jerk_f32 launch")
-    LAUNCHES["accel_jerk"] += 1
+    if counted:
+        LAUNCHES["accel_jerk"] += 1
     return acc, jerk
 
 
@@ -1206,9 +1273,21 @@ def compute_accel_jerk_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_
                                   jvel_lo, scal, *, block_size: int | None = None, out=None):
     """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (M,4) with w = 0: the ds
     accel + jerk of the i-set (M,4 planes) under the j-set (N,4 planes),
-    the kernel of ``_ds_accel_jerk_kernel``. ``block_size`` defaults to
-    ``ds_default_block_size``; ``out`` holds four preallocated (M,4)
-    tensors, which must not overlap any input."""
+    the kernel of ``_ds_accel_jerk_kernel`` in ``ds_aj_splits(M, N)``
+    j-chunks. ``block_size`` defaults to ``ds_default_block_size``; ``out``
+    holds four preallocated (M,4) tensors, which must not overlap any
+    input."""
+    return _ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
+                          scal, block_size, out)
+
+
+def _ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal,
+                   block_size, out, splits=None, lib=None):
+    """``compute_accel_jerk_ds_cuda_vs`` in `splits` j-chunks
+    (``ds_aj_splits`` by default). `lib` is the port's library by default,
+    or another build of the kernel (``scripts/torch_ds_aj_dispatch.py
+    --against``), whose launches are not counted; with splits = 1 only its
+    one-chunk entry point is called, which every build has."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
@@ -1225,16 +1304,24 @@ def compute_accel_jerk_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_
     if m == 0:
         return out
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = ds_aj_splits(m, n) if splits is None else int(splits)
     head = _eps_block(scal)
+    args = (*(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, head.data_ptr(), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_ds_accel_jerk(
-            *(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, head.data_ptr(), bs,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_ds_accel_jerk(*args, stream)
+        else:
+            parts = torch.empty((s, 12, m), dtype=torch.float32, device=device)
+            err = lib.nbody_ds_accel_jerk_split(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_ds_accel_jerk launch")
-    LAUNCHES["ds_accel_jerk"] += 1
+    if counted:
+        LAUNCHES["ds_accel_jerk"] += 1
     return out
 
 

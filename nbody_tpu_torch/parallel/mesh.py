@@ -66,9 +66,13 @@ def make_mesh(num_devices: int | None = None, *, axis: str = BODY_AXIS, device=N
     a device. `device` is this rank's device: by default the current CUDA
     device under NCCL and the CPU under gloo. With no group started and
     `num_devices` None or 1, a one-rank group is started over a
-    ``HashStore``: NCCL on a CUDA device (the default), gloo on the CPU.
-    Raises, as ``nbody_tpu`` does, when more devices are requested than the
-    group has ranks; fewer is an error too, since a rank is one device."""
+    ``HashStore``: NCCL on a CUDA device (the default), gloo on the CPU; a
+    process that started it so destroys it before it exits
+    (``dist.destroy_process_group()``, as the CLI does): a gloo group still
+    alive when the interpreter shuts down can abort the process ("terminate
+    called without an active exception"). Raises, as ``nbody_tpu`` does,
+    when more devices are requested than the group has ranks; fewer is an
+    error too, since a rank is one device."""
     from nbody_tpu_torch.models.body_system import resolve_device
 
     if not dist.is_initialized():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Measure the accel + jerk kernels of nbody_tpu_torch on the card, to fix
-``aj_sym_default_dispatch`` (ops/cuda_kernel.py) and the Hermite row of
+``aj_sym_default_dispatch`` and the one-sided kernel's j-split
+(``aj_splits``, ops/cuda_kernel.py) and the Hermite row of
 ``AUTO_VARIANT_CUDA`` (models/body_system.py).
 
 Run from the repository root on a machine with an NVIDIA GPU:
@@ -9,33 +10,42 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 First it prints what ptxas says of every kernel of
 csrc/symmetric_aj_kernels.cu and csrc/nbody_kernels.cu (registers, spills,
-shared memory) and the SASS (cuobjdump) of the each-pair-once kernels'
-walk: the instructions of the innermost loop that holds the rsqrt, by
-class, over the pairs it covers (one MUFU.RSQ a pair). It checks on the
-card that the kernels' rsqrt (PTX rsqrt.approx.ftz.f32) gives the bits of
-rsqrtf for every positive normal float. Then it holds the accel + jerk
-kernels (one-sided, triangle, rectangle) and the potential kernel to their
-plain versions at small ragged shapes for every tile, with masses from
-[0.5, 2] and a random vel.w, and the triangle at softening 0: acceleration
-and jerk each within 1e-4 * max + 1e-4, the bound of tests/test_pallas.py:76.
---quick stops there.
+shared memory) and the SASS (cuobjdump) of the accel + jerk kernels' walk
+(each-pair-once and one-sided): the instructions of the innermost loop that
+holds the rsqrt, by class, over the pairs it covers (one MUFU.RSQ a pair).
+It checks on the card that the kernels' rsqrt (PTX rsqrt.approx.ftz.f32)
+gives the bits of rsqrtf for every positive normal float. Then it holds the
+accel + jerk kernels (one-sided, triangle, rectangle) and the potential
+kernel to their plain versions at small ragged shapes for every tile, with
+masses from [0.5, 2] and a random vel.w, and the triangle at softening 0:
+acceleration and jerk each within 1e-4 * max + 1e-4, the bound of
+tests/test_pallas.py:76. The one-sided kernel is held at odd M and N, N
+below a stage and not a multiple of it, with one j-chunk and several, at
+blocks 32 to 1024, its repeats and its blocks bit-equal. --quick stops
+there.
 
---against DIR builds DIR/csrc/symmetric_aj_kernels.cu (another checkout's
-kernels, with its DIR/csrc/sym_common.cuh) with the library's nvcc flags
-into a library of its own, launched through the port's wrappers
-(``cuda_kernel._aj_sym(..., lib=)``), prints its ptxas lines and SASS
-count, holds it to plain, and times it in turns with this checkout's
+--against DIR builds DIR/csrc/symmetric_aj_kernels.cu and
+DIR/csrc/nbody_kernels.cu (another checkout's kernels, with their shared
+headers) with the library's nvcc flags into libraries of their own,
+launched through the port's wrappers (``cuda_kernel._aj_sym(..., lib=)``,
+``cuda_kernel._accel_jerk(..., lib=)``; a build without the j-split entry
+point runs one chunk, as it was written), prints their ptxas lines and SASS
+counts, holds them to plain, and times them in turns with this checkout's
 kernels (DIR, this, this, DIR) at the main path's shapes: the triangle at
 N = 65536 and 45056, the rectangle (45056, 45056), the composition at
-65536 and 135168 under this checkout's dispatch, and one Hermite step
-(``reference.nbody_step_hermite``) on each composition, sampling
-nvidia-smi's SM clock and power beside each timed loop. Then, unless
---no-sweep, it times at N = 65536, 135168 and 262144 (shell ICs, demo-0
-softening) the one-sided accel + jerk kernel per block size and the
-each-pair-once composition per tile and block cap, beside the potential
-kernel: CUDA events over `reps` calls after one warm-up call, two rounds
-taken in turns. Prints one line per measurement and the nvidia-smi name
-and power limit.
+65536 and 135168 under this checkout's dispatch, one Hermite step
+(``reference.nbody_step_hermite``) on each composition; the one-sided
+kernel at (M, N) = (65536, 65536), (16384, 65536), (16384, 16384) (a
+four-card allgather and ring hop) and (135168, 135168), and a vpu Hermite
+step at 65536 and 135168; sampling nvidia-smi's SM clock and power beside
+each timed loop. Then, unless --no-sweep, it times at N = 65536, 135168
+and 262144 (shell ICs, demo-0 softening) the one-sided accel + jerk kernel
+per block size and the each-pair-once composition per tile and block cap,
+beside the potential kernel, and the one-sided kernel's j-split at the
+one-sided shapes above per fill (blocks the rule aims at) and block size:
+CUDA events over `reps` calls after one warm-up call, two rounds taken in
+turns. Prints one line per measurement and the nvidia-smi name and power
+limit.
 """
 
 from __future__ import annotations
@@ -53,8 +63,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 AJ_SOURCE = "symmetric_aj_kernels.cu"
+ONE_SIDED_SOURCE = "nbody_kernels.cu"
 # (label, a substring of the mangled name) of the kernels whose walk is counted
 WALKS = (("tri", "aj_sym_tri_kernelILi"), ("cross", "aj_sym_cross_kernelILi"))
+ONE_SIDED_WALKS = (("one-sided", "17accel_jerk_kernel"),)
+# the one-sided kernel's timed shapes (M, N): one card at the main N, a
+# four-card allgather or ring hop at N = 65536 (M = N / 4 under all N, and
+# under one shard), and the CLI's default N on an H100
+ONE_SIDED_SHAPES = ((65536, 65536), (16384, 65536), (16384, 16384), (135168, 135168))
 SMI_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
               "--format=csv,noheader,nounits"]
 
@@ -69,8 +85,8 @@ def ptxas_report() -> None:
             print(line)
 
 
-def walk_counts(label: str, source) -> dict:
-    """Print the ptxas lines of `source` and, for each each-pair-once kernel,
+def walk_counts(label: str, source, walks=WALKS) -> dict:
+    """Print the ptxas lines of `source` and, for each kernel of `walks`,
     its walk's SASS count; returns {kernel name: instructions a pair of
     its cheapest walk (the off-diagonal one)}."""
     from nbody_tpu_torch.ops import _build
@@ -80,7 +96,7 @@ def walk_counts(label: str, source) -> dict:
         print(line)
     names = _build.demangle(usage)
     per_pair = {}
-    for _, key in WALKS:
+    for _, key in walks:
         for loop in _build.sass_loops(sass, key):
             pairs = loop["pairs"]
             mix = ", ".join(f"{k} {v}" for k, v in sorted(loop["mix"].items(),
@@ -140,12 +156,15 @@ def build_so(source: pathlib.Path, tmp: pathlib.Path) -> ctypes.CDLL:
 
 
 def against_library(source: pathlib.Path, tmp: pathlib.Path) -> ctypes.CDLL:
-    """Another checkout's csrc/symmetric_aj_kernels.cu, built on its own, with
-    the C signatures the port's wrappers call (``ops/cuda_kernel._aj_sym``)."""
+    """Another checkout's csrc/symmetric_aj_kernels.cu or csrc/nbody_kernels.cu,
+    built on its own, with the C signatures the port's wrappers call
+    (``ops/cuda_kernel._aj_sym``, ``_accel_jerk``)."""
     from nbody_tpu_torch.ops import _build
 
     lib = build_so(source, tmp)
-    _build.declare_aj_sym(lib)
+    if hasattr(lib, "nbody_aj_sym_f32"):
+        _build.declare_aj_sym(lib)
+    _build.declare_accel_jerk(lib)
     # the library's error text comes from another source: name the code only
     lib.nbody_error_string = lambda err: f"code {err}".encode()
     return lib
@@ -231,14 +250,17 @@ def run(args, tmp: pathlib.Path) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas_report()
     slots = {"this": walk_counts("this", AJ_SOURCE)}
-    other = None
+    one_slots = {"this": walk_counts("this", ONE_SIDED_SOURCE, ONE_SIDED_WALKS)}
+    other = other_one = None
     if args.against is not None:
         args.against = args.against.resolve()
-        other_src = args.against / "nbody_tpu_torch" / "csrc" / AJ_SOURCE
-        if not other_src.exists():
-            other_src = args.against / "csrc" / AJ_SOURCE
-        slots["against"] = walk_counts("against", other_src)
-        other = against_library(other_src, tmp)
+        csrc = args.against / "nbody_tpu_torch" / "csrc"
+        if not csrc.is_dir():
+            csrc = args.against / "csrc"
+        slots["against"] = walk_counts("against", csrc / AJ_SOURCE)
+        one_slots["against"] = walk_counts("against", csrc / ONE_SIDED_SOURCE, ONE_SIDED_WALKS)
+        other = against_library(csrc / AJ_SOURCE, tmp)
+        other_one = against_library(csrc / ONE_SIDED_SOURCE, tmp)
     ok = rsqrt_check(tmp)
 
     dev = torch.device("cuda", 0)
@@ -286,13 +308,30 @@ def run(args, tmp: pathlib.Path) -> int:
                 (pi, vi), (pj, vj) = state(bi, seed=3, masses=True), state(bj, masses=True)
                 held(f"{label} cross tile={tile} ({bi},{bj})", cross(pi, vi, pj, vj, soft, tile),
                      reference.aj_sym_cross(pi, vi, pj, vj, soft))
-    for bs in (128, 256):
-        for m, n in ((1000, 1000), (777, 4099), (4099, 777)):
+    # the one-sided kernel: odd M and N, N below a stage and not a multiple
+    # of it, one j-chunk (1), the rule's (None) and three; every block-size
+    # class (rows a thread: 4 up to 512 threads, 1 above); the same S gives
+    # the same bits at every block and on a repeat
+    for label, lib in {"this": None, **({"against": other_one} if other_one else {})}.items():
+        split = lib is None or hasattr(lib, "nbody_accel_jerk_split_f32")
+        for m, n in ((1000, 1000), (777, 4099), (4099, 777), (1, 33), (33, 1), (1025, 255),
+                     (4099, 65537)):
             pi, vi = state(m, seed=3, masses=True)
             pj, vj = state(n, masses=True)
-            held(f"one-sided block={bs} ({m},{n})",
-                 ck.compute_accel_jerk_cuda(pi, vi, pj, vj, soft, block_size=bs),
-                 reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft))
+            want = reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft)
+            for sp in ((None, 1, 3) if split else (1,)):
+                first = None
+                for bs in (32, 128, 256, 512, 1024):
+                    got = ck._accel_jerk(pi, vi, pj, vj, soft, bs, splits=sp, lib=lib)
+                    again = ck._accel_jerk(pi, vi, pj, vj, soft, bs, splits=sp, lib=lib)
+                    first = got if first is None else first
+                    same = all(torch.equal(a, b) for a, b in zip(got, again)) and all(
+                        torch.equal(a, b) for a, b in zip(got, first))
+                    ok &= same
+                    held(f"{label} one-sided ({m},{n}) splits="
+                         f"{ck.aj_splits(m, n) if sp is None else sp} block={bs} (repeat and "
+                         f"block 32 bit-equal {same})", got, want)
+    for bs in (128, 256):
         for n in (1, 1000, 4099):
             p, _ = state(n, masses=True)
             got = ck.potential_energy_per_row_cuda(p, soft, block_size=bs)
@@ -334,7 +373,10 @@ def run(args, tmp: pathlib.Path) -> int:
         print(f"  clocks beside it: {clocks.summary()}")
 
     def per_pair_of(label, kind):
-        # the walk's SASS count of this label's ROWS-4 kernel of that kind
+        # the walk's SASS count of this label's ROWS-4 kernel of that kind;
+        # of the one-sided kernel, its cheapest walk (at blocks up to 512)
+        if kind == "one":
+            return min(one_slots.get(label, {}).values(), default=None)
         keys = (f"aj_sym_{kind}_kernel<(int)4>", f"aj_sym_{kind}_kernelILi4E")
         return next((v for k, v in slots.get(label, {}).items() if any(x in k for x in keys)),
                     None)
@@ -383,11 +425,52 @@ def run(args, tmp: pathlib.Path) -> int:
                     pairs[ns[idx]] = (pr[0], per_pair_of(label, pr[1]))
             turns(runs, pairs)
 
+    def one_sided_runs(label, lib):
+        # a build without the split entry point runs one chunk, as written
+        sp = None if lib is None or hasattr(lib, "nbody_accel_jerk_split_f32") else 1
+
+        def aj(a, b, c, d):
+            return ck._accel_jerk(a, b, c, d, soft, ck.DEFAULT_BLOCK_SIZE, splits=sp, lib=lib)
+
+        runs = {}
+        for m, n in ONE_SIDED_SHAPES:
+            pj, vj = (p65, v65) if n == 65536 else (p135, v135) if n == 135168 else (
+                p65[:n], v65[:n])
+            pi, vi = pj[:m], vj[:m]
+            runs[f"{label} one-sided ({m},{n}) block=256"] = (
+                lambda pi=pi, vi=vi, pj=pj, vj=vj: aj(pi, vi, pj, vj), (m * n, "one"))
+        for n, (p, v) in ((65536, (p65, v65)), (135168, (p135, v135))):
+            runs[f"{label} vpu Hermite step N={n}"] = (
+                lambda p=p, v=v: reference.nbody_step_hermite(
+                    p, v, dt, soft, 1.0, accel_jerk_fn=lambda a, b: aj(a, b, a, b)), None)
+        return runs
+
     if other is not None:
         timed_turns([("against", runs_of("against", other, 512)),
                      ("this", runs_of("this", None, tile))])
+        timed_turns([("against", one_sided_runs("against", other_one)),
+                     ("this", one_sided_runs("this", None))])
     if args.no_sweep:
         return 0
+
+    # the one-sided kernel's j-split: S by the rule at each fill, per block
+    # size, at each one-sided shape
+    for m, n in ONE_SIDED_SHAPES:
+        pj, vj = (p65, v65) if n == 65536 else (p135, v135) if n == 135168 else (
+            p65[:n], v65[:n])
+        pi, vi = pj[:m], vj[:m]
+        runs = {}
+        for bs in (128, 256, 512):
+            for fill in (264, 528, 1056, 2112, 4224):
+                sp = ck.one_sided_splits(m, n, tile_i=ck.AJ_TILE_I, stage=ck.AJ_STAGE,
+                                         fill=fill)
+                key = f"one-sided ({m},{n}) block={bs} splits={sp}"
+                runs.setdefault(key, (lambda bs=bs, sp=sp: ck._accel_jerk(
+                    pi, vi, pj, vj, soft, bs, splits=sp), (m * n, "one")))
+        turns({k: fn for k, (fn, _) in runs.items()},
+              {k: (pr[0], per_pair_of("this", pr[1])) for k, (_, pr) in runs.items()},
+              rounds=1)
+    del p45, v45, pj45, vj45
 
     for n in (65536, 135168, 262144):
         p, v = state(n)

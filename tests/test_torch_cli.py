@@ -155,7 +155,10 @@ def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
     leapfrog path, the sym Hermite drift check, the ds path and a tipsy file,
     and a ds ring step on a one-rank gloo mesh, without JAX and without any
-    module of nbody_tpu: the port keeps its own copies."""
+    module of nbody_tpu: the port keeps its own copies. It destroys the
+    mesh's process group before it exits, as the CLI does: a gloo group
+    alive at interpreter shutdown aborted such a process now and then
+    (SIGABRT, "terminate called without an active exception")."""
     code = (
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
@@ -177,6 +180,8 @@ def test_port_imports_no_jax(tmp_path):
         "mesh=make_mesh(1, device='cpu'))\n"
         "s.update()\n"
         "assert s.strategy == 'ring' and s.positions.shape == (64, 4)\n"
+        "import torch.distributed\n"
+        "torch.distributed.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'nbody_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'nbody_tpu.')))\n"
         "assert not bad, bad\n"

@@ -308,6 +308,22 @@ def test_accel_jerk_matches_plain(dev, m, n, block_size):
     _held(got, reference.compute_accel_jerk_vs(pi, vi, pj, vj, SOFT))
 
 
+@pytest.mark.parametrize("m, n", [(1025, 4099), (777, 65537), (4096, 16384), (33, 255)])
+def test_accel_jerk_split_matches_plain_and_is_the_same_at_every_block(dev, m, n):
+    """The one-sided kernel in its j-chunks (aj_splits), in one and in three:
+    each within the bound of plain, and at each S the same bits at blocks
+    32, 256 (4 rows a thread) and 1024 (one) and on a repeat."""
+    pi, vi = _random_w(*_state(m, dev, seed=3))
+    pj, vj = _random_w(*_state(n, dev))
+    want = reference.compute_accel_jerk_vs(pi, vi, pj, vj, SOFT)
+    for splits in (None, 1, 3):
+        first = cuda_kernel._accel_jerk(pi, vi, pj, vj, SOFT, 32, splits=splits)
+        _held(first, want)
+        for bs in (256, 1024, 256):
+            got = cuda_kernel._accel_jerk(pi, vi, pj, vj, SOFT, bs, splits=splits)
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
 @pytest.mark.parametrize("n", [1, 33, 333, 1000, 4099])
 @pytest.mark.parametrize("tile", [128, 512, 1024])
 def test_aj_sym_triangle_matches_plain(dev, n, tile):
@@ -739,6 +755,33 @@ def _ds_aj_oracle_held(fields, pos64, vel64):
 
     for got, ref in zip((fields[:2], fields[2:]), _oracle_accel_jerk(pos64, vel64, SOFT)):
         assert np.abs(ds.ds_to_f64(*got)[:, :3] - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("m, n", [(1025, 4099), (4096, 16384), (33, 127)])
+def test_ds_accel_jerk_split_matches_plain_and_oracle(dev, m, n):
+    """The ds one-sided kernel in its j-chunks (ds_aj_splits), in one and in
+    three, on the first m rows of a set: within 1e-12 * max + 1e-14 of
+    plain, the rows of the set's float64 oracle within 1e-10 * max, and at
+    each S the same bits at blocks 64, 128 and 256 and on a repeat."""
+    from nbody_tpu_torch.compute import _oracle_accel_jerk
+    from nbody_tpu_torch.ops import ds
+
+    planes, pos64 = _ds_planes(n, dev)
+    vel64 = ds.ds_to_f64(*planes[2:])
+    sub = tuple(t[:m].contiguous() for t in planes)
+    scal = ds.scal_ds_hermite(DT, SOFT, 0.5)
+    want = ds.ds_accel_jerk_vs(*sub, *planes, scal)
+    ref = _oracle_accel_jerk(pos64, vel64, SOFT)
+    for splits in (None, 1, 3):
+        first = cuda_kernel._ds_accel_jerk(*sub, *planes, scal, 64, None, splits=splits)
+        for k in (0, 2):
+            g64, w64 = ds.ds_to_f64(*first[k:k + 2]), ds.ds_to_f64(*want[k:k + 2])
+            assert np.abs(g64 - w64).max() <= 1e-12 * np.abs(w64).max() + 1e-14
+            r = ref[k // 2][:m]
+            assert np.abs(g64[:, :3] - r).max() <= 1e-10 * np.abs(r).max()
+        for bs in (128, 256, 128):
+            got = cuda_kernel._ds_accel_jerk(*sub, *planes, scal, bs, None, splits=splits)
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 @pytest.mark.parametrize("kernel", ["ds_accel_jerk", "ds_aj_sym", "ds_aj_sym_128",
