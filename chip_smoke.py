@@ -291,12 +291,14 @@ NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
          "accel": "nbody_accel_f32",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
-         "accel_jerk": "nbody_accel_jerk_f32", "potential": "nbody_potential_f32",
+         "accel_jerk": "nbody_accel_jerk_f32, nbody_accel_jerk_split_f32",
+         "potential": "nbody_potential_f32",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
-         "ds_step": "nbody_ds_step", "ds_leapfrog": "nbody_ds_leapfrog",
-         "ds_accel": "nbody_ds_accel",
+         "ds_step": "nbody_ds_step, nbody_ds_step_split", "ds_leapfrog": "nbody_ds_leapfrog",
+         "ds_accel": "nbody_ds_accel, nbody_ds_accel_split",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
-         "ds_accel_jerk": "nbody_ds_accel_jerk", "ds_aj_sym": "nbody_ds_aj_sym",
+         "ds_accel_jerk": "nbody_ds_accel_jerk, nbody_ds_accel_jerk_split",
+         "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
          "ring_fused": "nbody_ring_accel_f32", "step_dual": "nbody_step_dual_f32",
          "step_packed": "nbody_step_packed_f32",
@@ -1155,16 +1157,21 @@ def oracle_accel_vs(pos_i64, pos_j64, soft):
 
 
 def phase_ds_accel_kernel(torch) -> dict:
-    """3da. The ds accel-only kernel of the ring step (ds_accel) against its
-    plain version (ds.ds_accel_vs) at (M, N) = (4099, 4099), (4099, 16384)
-    and (4099, 65536), each at the block that the main path gives N bodies
-    (ds_default_block_size: 128, 128 and 256), i-set and j-set two
-    different states, M not a multiple of the block, masses from [0.5, 2]
-    and a random vel.w, by phase 3d's rules (1e-12 * max + 1e-14 of plain,
-    1e-10 * max|a| of the float64 oracle, a repeat bit-equal), its (M,4)
-    rows' w = 0; the kernel then the ds Euler update equals the fused ds
-    step (ds_step) at the same block on the same j-set bit for bit; its
-    times at N = 16384 and 65536."""
+    """3da. The ds accel-only kernel of the ring step (ds_accel) and the
+    fused ds step (ds_step), which split the j-range alike (ds_splits),
+    against their plain versions (ds.ds_accel_vs, and its force through
+    ds.ds_integrate) at (M, N) = (4099, 4099), (4099, 16384) and (4099,
+    65536), i-set and j-set two different states, M not a multiple of the
+    block, and at (4096, 16384), a four-card shard under its set; each at
+    the rule's S and at S = 1, masses from [0.5, 2] and a random vel.w, by
+    phase 3d's rules (1e-12 * max + 1e-14 of plain; 1e-10 * max|a| of the
+    float64 oracle, the step's force as one step from zero velocity with
+    dt = 1 and damping 1), the same bits at blocks 64, 128 and 256 and on a
+    repeat, the accel kernel's (M,4) rows' w = 0; the accel kernel at the
+    block the main path gives N bodies, then the ds Euler update, equals the
+    fused ds step at the same block on the same j-set bit for bit; both
+    kernels' times in turns at N = 16384 and 65536 and at the four-card
+    shapes (4096, 16384) and (16384, 65536)."""
     import numpy as np
 
     from nbody_tpu_torch import DEMO_PARAMS
@@ -1174,36 +1181,79 @@ def phase_ds_accel_kernel(torch) -> dict:
 
     dev = torch.device("cuda", 0)
     dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
-    err = 0.0
+    err = {"ds_accel": 0.0, "ds_step": 0.0}
     scal = ds.scal_ds(dt, soft, 0.5)
-    i_planes, i64 = ds_state(torch, 4099, seed=42)
-    for n in (4099, N_QA, N_MAIN):
+    unit = ds.scal_ds(1.0, soft, 1.0)
+
+    def held(name, got, want, what):
+        g64, w64 = ds.ds_to_f64(*got), ds.ds_to_f64(*want)
+        tol = 1e-12 * np.abs(w64).max() + 1e-14
+        e = float(np.abs(g64 - w64).max())
+        err[name] = max(err[name], e)
+        print(f"[3da ds accel] {what}: max|d| against plain {e:.3e} (tol {tol:.3e})")
+        check(bool(np.isfinite(g64).all()) and e <= tol,
+              f"{name} kernel disagrees with its plain version at {what}")
+
+    def oracle(name, acc, ref, what):
+        e_or = float(np.abs(ds.ds_to_f64(*acc)[:, :3] - ref).max()) / float(np.abs(ref).max())
+        print(f"[3da ds accel] {what}: force against the float64 oracle max|da|/max|a| = "
+              f"{e_or:.3e} (bound 1e-10)")
+        check(e_or <= 1e-10, f"{name} force is not fp64-grade at {what}")
+
+    odd_planes, odd64 = ds_state(torch, 4099, seed=42)
+    for m, n in ((4099, 4099), (4099, N_QA), (4099, N_MAIN), (N_QA // 4, N_QA)):
         j_planes, j64 = ds_state(torch, n, seed=43)
+        # another state of 4099 bodies, or a four-card shard: the first
+        # quarter of the set under the set
+        i_planes, i64 = ((odd_planes, odd64) if m == 4099 else
+                         (tuple(t[:m].contiguous() for t in j_planes), j64[:m]))
+        m, n = len(i64), len(j64)
         bs = ck.ds_default_block_size(n)
-        what = f"ds_accel ({len(i64)}, {n}) block {bs}"
-        out = tuple(torch.full((len(i64), 4), 7.0, device=dev) for _ in range(2))
+        zero = torch.zeros_like(i_planes[2])
+        want = ds.ds_accel_vs(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal)
+        want_step = ds.ds_integrate(*i_planes, want, scal)
+        ref = oracle_accel_vs(i64, j64, soft)
+        for splits in sorted({ck.ds_splits(m, n), 1}):
+            first = None
+            for b in (64, 128, 256):
+                what = f"({m}, {n}) splits={splits} block {b}"
+                acc = tuple(t.clone() for t in ck._ds_accel(
+                    i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal, b, None,
+                    splits=splits))
+                step = ck._ds_step(*i_planes, j_planes[0], j_planes[1], scal, b, None,
+                                   splits=splits)
+                got = (*acc, *step)
+                if first is None:
+                    first = got
+                    held("ds_accel", acc, want, f"ds_accel {what}")
+                    oracle("ds_accel", acc, ref, f"ds_accel {what}")
+                    held("ds_step", step[:2], want_step[:2], f"ds_step {what} positions")
+                    held("ds_step", step[2:], want_step[2:], f"ds_step {what} velocities")
+                    force = ck._ds_step(i_planes[0], i_planes[1], zero, zero, j_planes[0],
+                                        j_planes[1], unit, b, None, splits=splits)[2:]
+                    oracle("ds_step", force, ref, f"ds_step {what}")
+                    kept = all(torch.equal(g[:, 3], q[:, 3]) for g, q in zip(step, i_planes))
+                    check(kept, f"ds_step changed a w lane at {what}")
+                again = (*ck._ds_accel(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal,
+                                       b, None, splits=splits),
+                         *ck._ds_step(*i_planes, j_planes[0], j_planes[1], scal, b, None,
+                                      splits=splits))
+                check(all(torch.equal(x, y) for x, y in (*zip(got, again), *zip(got, first))),
+                      f"ds_accel or ds_step differs between calls or blocks at {what}")
+            print(f"[3da ds accel] ({m}, {n}) splits={splits}: both kernels' repeats and "
+                  "blocks 64, 128, 256 bit-equal")
+        what = f"ds_accel ({m}, {n}) block {bs}"
+        out = tuple(torch.full((m, 4), 7.0, device=dev) for _ in range(2))
 
         def kernel():
             return ck.compute_accel_ds_cuda_vs(i_planes[0], i_planes[1], j_planes[0],
                                                j_planes[1], scal, block_size=bs, out=out)
 
         got = tuple(t.clone() for t in kernel())
-        want = ds.ds_accel_vs(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal)
-        g64, w64 = ds.ds_to_f64(*got), ds.ds_to_f64(*want)
-        tol = 1e-12 * np.abs(w64).max() + 1e-14
-        e = float(np.abs(g64 - w64).max())
-        err = max(err, e)
-        print(f"[3da ds accel] {what}: max|d| against plain {e:.3e} (tol {tol:.3e})")
-        check(bool(np.isfinite(g64).all()) and e <= tol,
-              f"ds_accel kernel disagrees with its plain version at {what}")
-        ref = oracle_accel_vs(i64, j64, soft)
-        e_or = float(np.abs(g64 - ref).max()) / float(np.abs(ref).max())
-        print(f"[3da ds accel] {what}: force against the float64 oracle max|da|/max|a| = "
-              f"{e_or:.3e} (bound 1e-10)")
-        check(e_or <= 1e-10, f"ds_accel force is not fp64-grade at {what}")
         w_zero = all(bool((o[:, 3] == 0).all()) for o in out)
         same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
-        print(f"[3da ds accel] {what}: w lanes 0: {w_zero}; repeat call bit-equal: {same}")
+        print(f"[3da ds accel] {what} (splits={ck.ds_splits(m, n)}): w lanes 0: {w_zero}; "
+              f"repeat call bit-equal: {same}")
         check(w_zero and same, f"ds_accel rows or repeat at {what}")
         # a ring hop's blocks against the fused step, on the same j-set
         hop = ck.ds_integrate_cuda(*i_planes, *kernel(), scal)
@@ -1213,41 +1263,50 @@ def phase_ds_accel_kernel(torch) -> dict:
         print(f"[3da ds accel] {what}: ds_accel + ds_integrate equals the fused ds step bit "
               f"for bit: {bits}")
         check(bits, f"ds_accel + ds_integrate differs from the fused ds step at {what}")
-        del j_planes, out
+        del j_planes, i_planes, out, zero, want, want_step
+    del odd_planes
     times, bounds = {}, {}
-    for n in (N_QA, N_MAIN):
-        planes, _ = ds_state(torch, n)
-        bs = ck.ds_default_block_size(n)
-        out = tuple(torch.empty_like(planes[0]) for _ in range(4))
+    planes = {n: ds_state(torch, n)[0] for n in (N_QA, N_MAIN)}
+    for m, n in ((N_QA, N_QA), (N_MAIN, N_MAIN), (N_QA // 4, N_QA), (N_QA, N_MAIN)):
+        pj = planes[n]
+        pi = tuple(t[:m] for t in pj)
+        bs = ck.ds_default_block_size(m)
+        out = tuple(torch.empty_like(pi[0]) for _ in range(4))
         # the accel kernel in turns with the fused step kernel, whose j-loop
-        # it shares: accel, step, step, accel
+        # and j-chunks it shares: accel, step, step, accel
         calls = {"ds_accel": lambda: ck.compute_accel_ds_cuda_vs(
-                     planes[0], planes[1], planes[0], planes[1], scal, block_size=bs,
-                     out=out[:2]),
-                 "ds_step": lambda: ck.nbody_step_ds_cuda(*planes, scal, block_size=bs,
-                                                           out=out)}
+                     pi[0], pi[1], pj[0], pj[1], scal, block_size=bs, out=out[:2]),
+                 "ds_step": lambda: ck.nbody_step_ds_cuda_vs(*pi, pj[0], pj[1], scal,
+                                                              block_size=bs, out=out)}
         reps = 10 if n == N_QA else 3
         ms = {name: [] for name in calls}
         for name in ("ds_accel", "ds_step", "ds_step", "ds_accel"):
             calls[name]()
             torch.cuda.synchronize()
             ms[name].append(elapsed_ms(lambda: [calls[name]() for _ in range(reps)], dev) / reps)
-        t_k = min(ms["ds_accel"])
-        t_p = (elapsed_ms(lambda: ds.ds_accel_vs(planes[0], planes[1], planes[0], planes[1],
-                                                 scal), dev) if n == N_QA else None)
-        # each input read once (four planes), each output written once (two
-        # (N,4) planes)
-        b = bound_ms(2 * DS_PAIR_INSTR * float(n) * n, 4 * n * 16 + 2 * n * 16)
-        print(f"[3da ds accel] ds_accel at N={n} block {bs}: kernel {t_k:.3f} ms "
-              f"({', '.join(f'{t:.3f}' for t in ms['ds_accel'])}; the step kernel in turns "
-              f"{', '.join(f'{t:.3f}' for t in ms['ds_step'])})"
-              + (f", plain {t_p:.3f} ms" if t_p is not None else "")
-              + f" per call, bound {b[0]:.3f} ms ({b[1]})")
-        if n == N_QA:
-            times["ds_accel"], bounds["ds_accel"] = (t_k, t_p), b
-        del planes, out
+        plain = {"ds_accel": lambda: ds.ds_accel_vs(pi[0], pi[1], pj[0], pj[1], scal),
+                 "ds_step": lambda: ds.nbody_step_ds_vs(*pi, pj[0], pj[1], scal)}
+        flops = 2 * DS_PAIR_INSTR * float(m) * n
+        # each input read once, each output written once: 16 bytes a plane
+        # row (the accel kernel four planes in and two out, the step six in
+        # and four out)
+        shape_bounds = {"ds_accel": bound_ms(flops, (2 * m + 2 * n) * 16 + 2 * m * 16),
+                        "ds_step": bound_ms(flops, (4 * m + 2 * n) * 16 + 4 * m * 16)}
+        for name in calls:
+            t_k = min(ms[name])
+            t_p = elapsed_ms(plain[name], dev) if (m, n) == (N_QA, N_QA) else None
+            b = shape_bounds[name]
+            print(f"[3da ds accel] {name} at ({m}, {n}) block {bs} splits={ck.ds_splits(m, n)}: "
+                  f"kernel {t_k:.3f} ms ({', '.join(f'{t:.3f}' for t in ms[name])} in turns)"
+                  + (f", plain {t_p:.3f} ms" if t_p is not None else "")
+                  + f" per call, bound {b[0]:.3f} ms ({b[1]}, {100 * b[0] / t_k:.0f} % of it)")
+            if (m, n) == (N_QA, N_QA) and name == "ds_accel":
+                times[name], bounds[name] = (t_k, t_p), b
+        del out
+    del planes
     torch.cuda.empty_cache()
-    return {"err": {"ds_accel": err}, "times": times, "bounds": bounds}
+    return {"err": {"ds_accel": err["ds_accel"]}, "times": times, "bounds": bounds,
+            "step_err": err["ds_step"]}
 
 
 def ring_state(torch, n, *, seed=42):
@@ -2653,6 +2712,7 @@ def main() -> int:
     mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
     p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
     ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
+    ds_kern["err"]["ds_step"] = max(ds_kern["err"]["ds_step"], ds_accel_kern.pop("step_err"))
     ring_kern = timed("3rf ring kernel", phase_ring_kernel, torch)
     timed("3ri ring between two processes", phase_ring_ipc)
     exp_kern = timed("3e experiment kernels", phase_experiment_kernels, torch)

@@ -1,6 +1,8 @@
-// Shared pieces of the each-pair-once double-single kernels
-// (ds_symmetric_kernels.cu, ds_symmetric_aj_kernels.cu): the warps' ds
-// reaction sum, the ds partial slots and their fixed-order ds sum.
+// Shared pieces of the double-single kernels that sum in partials: the
+// warps' ds reaction sum of the each-pair-once kernels
+// (ds_symmetric_kernels.cu, ds_symmetric_aj_kernels.cu), and the ds partial
+// slots and their fixed-order ds sum, which the one-sided kernels' j-chunks
+// (ds_kernels.cu, ds_aj_kernels.cu) use too.
 //
 // A ds field of three components is stored as six float components, the
 // hi parts of x, y, z at components hi, hi + 1, hi + 2 and their lo parts
@@ -40,11 +42,52 @@ __device__ __forceinline__ void ds_put(float* parts, const int64_t t, const int 
   parts[(t * NCOMP + hi + 3) * n + x] = v.lo;
 }
 
-// out_hi/out_lo[x * sx + comp * sc] = the ds sum over t = 0, 1, ... of the
-// slots parts[(t * pstride + comp) * n + x] (hi) and
-// parts[(t * pstride + 3 + comp) * n + x] (lo), comp < 3, in tile order;
-// with zero_w, the w lane (x * sx + 3 * sc) is 0 as well. No parts: the
-// sum is 0.
+// the (hi, lo) slot of component comp < 3 of partial t
+__device__ __forceinline__ dsf ds_slot(const float* __restrict__ parts, const int64_t t,
+                                       const int64_t pstride, const int64_t n, const int64_t comp,
+                                       const int64_t x) {
+  return make_ds(parts[(t * pstride + comp) * n + x], parts[(t * pstride + 3 + comp) * n + x]);
+}
+
+// the ds sum over t = 0, 1, ... of the slots parts[(t * pstride + comp) *
+// n + x] (hi) and parts[(t * pstride + 3 + comp) * n + x] (lo), comp < 3,
+// in tile (or chunk) order, from the first slot; no parts: 0. Unrolled, so
+// that several slots' loads are in flight before their adds.
+__device__ __forceinline__ dsf ds_slot_sum(const float* __restrict__ parts, const int64_t nparts,
+                                           const int64_t pstride, const int64_t n,
+                                           const int64_t comp, const int64_t x) {
+  dsf s = make_ds(0.f, 0.f);
+  if (nparts > 0) s = ds_slot(parts, 0, pstride, n, comp, x);
+#pragma unroll 4
+  for (int64_t t = 1; t < nparts; ++t) s = ds_add(s, ds_slot(parts, t, pstride, n, comp, x));
+  return s;
+}
+
+// ds_slot_sum of components 0, 1 and 2 in one pass: each component's sum
+// in its own order, so the same bits, with three chains and six loads a
+// slot in flight
+__device__ __forceinline__ void ds_slot_sum3(const float* __restrict__ parts,
+                                             const int64_t nparts, const int64_t pstride,
+                                             const int64_t n, const int64_t x, dsf& sx, dsf& sy,
+                                             dsf& sz) {
+  sx = make_ds(0.f, 0.f);
+  sy = sx;
+  sz = sx;
+  if (nparts > 0) {
+    sx = ds_slot(parts, 0, pstride, n, 0, x);
+    sy = ds_slot(parts, 0, pstride, n, 1, x);
+    sz = ds_slot(parts, 0, pstride, n, 2, x);
+  }
+#pragma unroll 4
+  for (int64_t t = 1; t < nparts; ++t) {
+    sx = ds_add(sx, ds_slot(parts, t, pstride, n, 0, x));
+    sy = ds_add(sy, ds_slot(parts, t, pstride, n, 1, x));
+    sz = ds_add(sz, ds_slot(parts, t, pstride, n, 2, x));
+  }
+}
+
+// out_hi/out_lo[x * sx + comp * sc] = ds_slot_sum(..., comp, x), comp < 3;
+// with zero_w, the w lane (x * sx + 3 * sc) is 0 as well
 __global__ void __launch_bounds__(256)
     ds_sum_partials_kernel(const float* __restrict__ parts, const int64_t nparts,
                            const int64_t pstride, const int64_t n, float* __restrict__ out_hi,
@@ -54,12 +97,7 @@ __global__ void __launch_bounds__(256)
   if (idx >= 3 * n) return;
   const int64_t comp = idx / n;
   const int64_t x = idx - comp * n;
-  dsf s = make_ds(0.f, 0.f);
-  if (nparts > 0) s = make_ds(parts[comp * n + x], parts[(3 + comp) * n + x]);
-  for (int64_t t = 1; t < nparts; ++t) {
-    s = ds_add(s, make_ds(parts[(t * pstride + comp) * n + x],
-                          parts[(t * pstride + 3 + comp) * n + x]));
-  }
+  const dsf s = ds_slot_sum(parts, nparts, pstride, n, comp, x);
   out_hi[x * sx + comp * sc] = s.hi;
   out_lo[x * sx + comp * sc] = s.lo;
   if (zero_w && comp == 0) {

@@ -354,8 +354,10 @@ class DSBodySystem:
         with this system's kernels (or plain versions). With Hermite, the
         accel + jerk kernels'. For "sym" that is the each-pair-once
         composition; for the one-sided Euler and leapfrog variants the ds
-        accel kernel (``compute_accel_ds_cuda_vs``); on a mesh each shard's
-        force by the mesh's strategy, gathered."""
+        accel kernel (``compute_accel_ds_cuda_vs``) in the j-chunks of the
+        system's step kernel, so with its bits: ``ds_splits`` for Euler, one
+        for leapfrog; on a mesh each shard's force by the mesh's strategy,
+        gathered."""
         planes = self._planes[self._cur]
         scal = self._scal(1.0, 1.0)
         if self.integrator == "hermite":
@@ -367,7 +369,8 @@ class DSBodySystem:
             return self._sym_accel(planes[0], planes[1], scal)
         if self.backend == "cuda":
             return compute_accel_ds_cuda_vs(planes[0], planes[1], planes[0], planes[1], scal,
-                                            block_size=self.block_size)
+                                            block_size=self.block_size,
+                                            splits=1 if self.integrator == "leapfrog" else None)
         return ds.ds_accel_vs(planes[0], planes[1], planes[0], planes[1], scal)
 
     def accelerations_and_jerks(self):

@@ -292,6 +292,24 @@ def declare_accel_jerk(lib) -> None:
             getattr(lib, name).restype = ctypes.c_int
 
 
+def declare_ds_force(lib) -> None:
+    """The C signatures of the one-sided ds entry points that `lib` has
+    (csrc/ds_kernels.cu): ``nbody_ds_step``, ``nbody_ds_accel`` (one j-chunk
+    each) and their ``_split`` forms, which take the chunk count and the
+    partials, and ``nbody_ds_leapfrog``. Each takes the (2, 4) scalar block
+    as a host pointer."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    sigs = {"nbody_ds_step": [ptr] * 10 + [i64, i64, ptr, i64, ptr],
+            "nbody_ds_step_split": [ptr] * 10 + [i64, i64, ptr, i64, i64, ptr, ptr],
+            "nbody_ds_accel": [ptr] * 6 + [i64, i64, ptr, i64, ptr],
+            "nbody_ds_accel_split": [ptr] * 6 + [i64, i64, ptr, i64, i64, ptr, ptr],
+            "nbody_ds_leapfrog": [ptr] * 12 + [i64, i64, ptr, i64, ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -324,18 +342,13 @@ def load_library() -> ctypes.CDLL:
     declare_accel_jerk(lib)
     declare_aj_sym(lib)
     # the ds entry points take the (2, 4) scalar block as a host pointer
-    lib.nbody_ds_step.argtypes = [ptr] * 10 + [i64, i64, ptr, i64, ptr]
-    lib.nbody_ds_step.restype = ctypes.c_int
-    lib.nbody_ds_leapfrog.argtypes = [ptr] * 12 + [i64, i64, ptr, i64, ptr]
-    lib.nbody_ds_leapfrog.restype = ctypes.c_int
+    declare_ds_force(lib)
     lib.nbody_ds_sym_accel.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr]
     lib.nbody_ds_sym_accel.restype = ctypes.c_int
     lib.nbody_ds_sym_cross.argtypes = [ptr, ptr, i64, ptr, ptr, i64, ptr, i64] + [ptr] * 7
     lib.nbody_ds_sym_cross.restype = ctypes.c_int
     lib.nbody_ds_integrate.argtypes = [ptr] * 6 + [i64] + [ptr] * 4 + [i64, ptr, ptr]
     lib.nbody_ds_integrate.restype = ctypes.c_int
-    lib.nbody_ds_accel.argtypes = [ptr] * 6 + [i64, i64, ptr, i64, ptr]
-    lib.nbody_ds_accel.restype = ctypes.c_int
     lib.nbody_ds_aj_sym.argtypes = [ptr] * 4 + [i64, ptr, i64] + [ptr] * 6
     lib.nbody_ds_aj_sym.restype = ctypes.c_int
     lib.nbody_ds_aj_cross.argtypes = ([ptr] * 4 + [i64] + [ptr] * 4 + [i64, ptr, i64]

@@ -422,7 +422,8 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
 
 
 # The j-split of the one-sided accel + jerk kernels (csrc/nbody_kernels.cu,
-# csrc/ds_aj_kernels.cu). A launch of M i-rows under N j-bodies runs in S
+# csrc/ds_aj_kernels.cu) and of the ds step and force kernels
+# (csrc/ds_kernels.cu). A launch of M i-rows under N j-bodies runs in S
 # j-chunks, each a whole number of the kernel's shared-memory stages; each
 # chunk sums its j-bodies in index order and a second kernel adds the chunks'
 # partials in chunk order, so S, and the bits, depend on (M, N) alone: not on
@@ -438,13 +439,20 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
 # blocks (4 an SM of 132, 2 waves of the 2 blocks of 256 threads an SM
 # holds) within 2 % of the best S timed at every shape; ds at 4224, as
 # fewer chunks left 2-11 % at M above 32768, where the ds blocks are 256
-# threads (36864: 24.37 ms at S = 4 against 21.67 at 15).
+# threads (36864: 24.37 ms at S = 4 against 21.67 at 15). The ds step and
+# force kernels take the ds accel + jerk's tile and fill (their own stage,
+# of the same length, is DS_STAGE): by
+# scripts/torch_ds_dispatch.py (PERF.md, Findings) the rule's S within 1.5 %
+# and 3.9 % (two calls) of the best S swept (fills 264-8448, blocks 64-256)
+# at (16384, 16384), (65536, 65536), (4096, 16384), (4096, 4096) and
+# (16384, 65536).
 AJ_STAGE = 256  # j-bodies a stage: kAjStage of csrc/nbody_kernels.cu
 AJ_TILE_I = 1024
 AJ_FILL_BLOCKS = 528
 DS_AJ_STAGE = 128  # kDsAjStage of csrc/ds_aj_kernels.cu
 DS_AJ_TILE_I = 128
 DS_AJ_FILL_BLOCKS = 4224
+DS_STAGE = 128  # kDsStage of csrc/ds_kernels.cu
 
 
 def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
@@ -468,6 +476,13 @@ def ds_aj_splits(m: int, n: int) -> int:
     """S of the ds one-sided accel + jerk kernel at M i-rows, N j-bodies."""
     return one_sided_splits(m, n, tile_i=DS_AJ_TILE_I, stage=DS_AJ_STAGE,
                             fill=DS_AJ_FILL_BLOCKS)
+
+
+def ds_splits(m: int, n: int) -> int:
+    """S of the ds step and force kernels at M i-rows, N j-bodies: one rule
+    for both, so that the force followed by the ds Euler update gives the
+    fused step's bits."""
+    return one_sided_splits(m, n, tile_i=DS_AJ_TILE_I, stage=DS_STAGE, fill=DS_AJ_FILL_BLOCKS)
 
 
 def compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, softening,
@@ -928,9 +943,20 @@ def _ds_outs(out, shapes, device, inputs):
 def nbody_step_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal,
                           *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
     """One ds Euler step of the i-set (M,4 planes) under the j-set
-    (jpos_hi, jpos_lo (N,4)): the kernel of ``_ds_step_kernel``. Returns the
-    four new (M,4) planes; ``out`` holds four preallocated ones, which must
-    not overlap any input."""
+    (jpos_hi, jpos_lo (N,4)): the kernel of ``_ds_step_kernel`` in
+    ``ds_splits(M, N)`` j-chunks. Returns the four new (M,4) planes;
+    ``out`` holds four preallocated ones, which must not overlap any
+    input."""
+    return _ds_step(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal, block_size, out)
+
+
+def _ds_step(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal, block_size, out,
+             splits=None, lib=None):
+    """``nbody_step_ds_cuda_vs`` in `splits` j-chunks (``ds_splits`` by
+    default). `lib` is the port's library by default, or another build of
+    the kernel (``scripts/torch_ds_dispatch.py --against``), whose launches
+    are not counted; with splits = 1 only its one-chunk entry point is
+    called, which every build has."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     _check_planes(_PLANES, planes, device)
@@ -946,15 +972,24 @@ def nbody_step_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal
     if m == 0:
         return out
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = ds_splits(m, n) if splits is None else int(splits)
+    args = (*(t.data_ptr() for t in (*planes, jpos_hi, jpos_lo, *out)), m, n, scal.data_ptr(),
+            bs)
     with torch.cuda.device(device):
-        err = lib.nbody_ds_step(
-            *(t.data_ptr() for t in (*planes, jpos_hi, jpos_lo, *out)), m, n, scal.data_ptr(),
-            bs, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_ds_step(*args, stream)
+        else:
+            parts = torch.empty((s, 6, m), dtype=torch.float32, device=device)
+            err = lib.nbody_ds_step_split(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_ds_step launch")
-    LAUNCHES["ds_step"] += 1
+    if counted:
+        LAUNCHES["ds_step"] += 1
     return out
 
 
@@ -972,6 +1007,15 @@ def nbody_step_ds_leapfrog_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos
     both half-drifted from the start of the step: the kernel of
     ``_ds_leapfrog_kernel``. `scal` from ``scal_ds_leapfrog``. Returns the
     four new (M,4) planes."""
+    return _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal,
+                        block_size, out)
+
+
+def _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal,
+                 block_size, out, lib=None):
+    """``nbody_step_ds_leapfrog_cuda_vs`` through `lib`: the port's library
+    by default, or another build of the kernel (``scripts/torch_ds_dispatch.py
+    --against``), whose launches are not counted."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
@@ -988,15 +1032,18 @@ def nbody_step_ds_leapfrog_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos
     if m == 0:
         return out
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     with torch.cuda.device(device):
         err = lib.nbody_ds_leapfrog(
             *(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, scal.data_ptr(), bs,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_ds_leapfrog launch")
-    LAUNCHES["ds_leapfrog"] += 1
+    if counted:
+        LAUNCHES["ds_leapfrog"] += 1
     return out
 
 
@@ -1017,15 +1064,20 @@ def nbody_step_ds_leapfrog_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal,
 # N = 16384 / 32768 / 65536 / 131072:
 #   ds step, block 128                4.029 / 10.224 / 37.011 / 139.302
 #   ds step, block 256                5.121 / 10.227 / 35.135 / 136.329
+# and with the j-split (ds_splits):
+#   ds step, block 64 / 128 / 256     2.171 / 2.122 / 2.150 at 16384,
+#                                     32.989 / 32.961 / 33.331 at 65536
 #   ds sym, tile 256, one triangle    1.473 /  5.625 / 22.026 /  87.711
 #   ds sym, tile 512, one triangle    1.687 /  5.749 / 21.732 /  85.184
 #   ds sym, tile 512, cap 65536           - /      - / 21.732 /  87.090
 #   ds sym, tile 128 / 1024, one triangle: 1.556 / 3.897 at 16384
 # A thread owns one i-body (one-sided) or ROWS of them (sym), so up to
 # N = 32768 the smaller block and tile put more blocks on the 132 SMs; from
-# 65536 on the wider ones win. Cap 65536 bounds a launch's scratch
-# (ceil(N/512) * 6 * N floats) at 201 MB, as the fp32 tables do, for 2.2 %
-# against one triangle at N = 131072.
+# 65536 on the wider ones win. The split fills the card at any block: the
+# one-sided block size then moves the step by 2.3 % at most, and stays as
+# the unsplit kernels had it (the ds accel + jerk kernel shares it). Cap
+# 65536 bounds a launch's scratch (ceil(N/512) * 6 * N floats) at 201 MB,
+# as the fp32 tables do, for 2.2 % against one triangle at N = 131072.
 DS_SMALL_N = 32768
 DS_BLOCK_SIZES = (128, 256)  # at N <= DS_SMALL_N, above
 DS_SYM_TILES = (256, 512)  # at N <= DS_SMALL_N, above
@@ -1182,16 +1234,24 @@ def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, o
 
 
 def compute_accel_ds_cuda_vs(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, *,
-                             block_size: int | None = None, out=None):
+                             block_size: int | None = None, out=None,
+                             splits: int | None = None):
     """(acc_hi, acc_lo), each (M,3): the ds acceleration of the i-set (M,4
     planes) under the j-set (N,4 planes), the kernel of
-    ``_ds_accel_kernel`` (``compute_accel_pallas_ds``). The kernel writes
+    ``_ds_accel_kernel`` (``compute_accel_pallas_ds``) in `splits`
+    j-chunks: by default ``ds_splits(M, N)``, the fused ds step's, and 1
+    for the ds leapfrog kernel's sum, which runs in one. The kernel writes
     (M,4) rows with w = 0 into ``out``, two preallocated (M,4) tensors that
     must not overlap any input (allocated when None), and this returns their
     (M,3) views, the shape of its plain version ``ds.ds_accel_vs``; rows 4
     floats apart, as ``ds_integrate_cuda`` takes them. `scal` is a (2,4) or
     (2,8) block of ops/ds.py, eps^2 in column 1. ``block_size`` defaults to
     ``ds_default_block_size``."""
+    return _ds_accel(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, block_size, out, splits)
+
+
+def _ds_accel(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, block_size, out, splits=None, lib=None):
+    """``compute_accel_ds_cuda_vs``, through `lib` as ``_ds_step``."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     _check_planes(_PLANES[:2], (pos_hi, pos_lo), device)
     _check_planes(("jpos_hi", "jpos_lo"), (jpos_hi, jpos_lo), device)
@@ -1207,16 +1267,25 @@ def compute_accel_ds_cuda_vs(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, *,
     if m == 0:
         return out[0][:, :3], out[1][:, :3]
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = ds_splits(m, n) if splits is None else int(splits)
     head = _eps_block(scal)
+    args = (*(t.data_ptr() for t in (pos_hi, pos_lo, jpos_hi, jpos_lo, *out)), m, n,
+            head.data_ptr(), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_ds_accel(
-            *(t.data_ptr() for t in (pos_hi, pos_lo, jpos_hi, jpos_lo, *out)), m, n,
-            head.data_ptr(), bs, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_ds_accel(*args, stream)
+        else:
+            parts = torch.empty((s, 6, m), dtype=torch.float32, device=device)
+            err = lib.nbody_ds_accel_split(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_ds_accel launch")
-    LAUNCHES["ds_accel"] += 1
+    if counted:
+        LAUNCHES["ds_accel"] += 1
     return out[0][:, :3], out[1][:, :3]
 
 

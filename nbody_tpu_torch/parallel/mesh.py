@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import weakref
 
 import numpy as np
 import torch
@@ -27,10 +28,13 @@ BODY_AXIS = "bodies"
 # that hangs inside a check (not one that raises, whose exit ends the wait)
 # holds the other ranks this long, not the group's timeout
 JUDGE_TIMEOUT = datetime.timedelta(hours=24)
-# the judge group of each default process group, made once: new_group is a
-# collective of every rank, and each group holds its sockets until the
-# default group is destroyed
-_JUDGE_GROUP: dict = {}
+# the judge group of each default process group, made once (new_group is a
+# collective of every rank), keyed weakly on the default group: so that
+# dist.destroy_process_group() frees it with the default group. A destroyed
+# gloo group that a reference keeps to the interpreter's shutdown is freed
+# there, and that can abort the process ("terminate called without an
+# active exception"; ROADMAP.md, Queue 3)
+_JUDGE_GROUP: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +115,9 @@ def _judge_group(world: int):
     if world == 1:
         return None
     default = dist.group.WORLD
-    if _JUDGE_GROUP.get("for") is not default:
-        _JUDGE_GROUP.update({"for": default, "group": dist.new_group(
-            backend="gloo", timeout=JUDGE_TIMEOUT)})
-    return _JUDGE_GROUP["group"]
+    if default not in _JUDGE_GROUP:
+        _JUDGE_GROUP[default] = dist.new_group(backend="gloo", timeout=JUDGE_TIMEOUT)
+    return _JUDGE_GROUP[default]
 
 
 def shard_rows(mesh: Mesh, n: int) -> slice:

@@ -689,6 +689,40 @@ def test_ds_accel_then_integrate_equals_fused_step_bit_for_bit(dev, m):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("m, n", [(4099, 4099), (1025, 16384), (4096, 16384), (33, 127)])
+def test_ds_split_step_and_accel_match_plain_and_oracle(dev, m, n):
+    """The ds step and force kernels on the first m rows of a set, in their
+    j-chunks (``ds_splits``), in one and in three: within 1e-12 * max +
+    1e-14 of plain, the force within 1e-10 * max|a| of the set's float64
+    oracle; at each S the same bits at blocks 32 to 1024 and on a repeat,
+    and the force followed by the ds Euler update the step's bits."""
+    from nbody_tpu_torch.compute import _oracle_accel
+    from nbody_tpu_torch.ops import ds
+
+    planes, pos64 = _ds_planes(n, dev)
+    sub = tuple(t[:m].contiguous() for t in planes)
+    scal = ds.scal_ds(DT, SOFT, 0.5)
+    want_acc = ds.ds_accel_vs(sub[0], sub[1], planes[0], planes[1], scal)
+    want = ds.ds_integrate(*sub, want_acc, scal)
+    ref = _oracle_accel(pos64, SOFT)[:m]
+    for splits in (None, 1, 3):
+        first = None
+        for bs in (32, 64, 128, 256, 512, 1024, 128):
+            step = cuda_kernel._ds_step(*sub, planes[0], planes[1], scal, bs, None,
+                                        splits=splits)
+            acc = cuda_kernel._ds_accel(sub[0], sub[1], planes[0], planes[1], scal, bs, None,
+                                        splits=splits)
+            if first is None:
+                first = (*step, *acc)
+                _ds_held([step[:2], step[2:], acc], [want[:2], want[2:], want_acc])
+                assert np.abs(ds.ds_to_f64(*acc) - ref).max() <= 1e-10 * np.abs(ref).max()
+                for g, p in zip(step, sub):
+                    assert torch.equal(g[:, 3], p[:, 3])
+            assert all(torch.equal(a, b) for a, b in zip((*step, *acc), first))
+            hop = cuda_kernel.ds_integrate_cuda(*sub, *acc, scal)
+            assert all(torch.equal(a, b) for a, b in zip(hop, step))
+
+
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_ds_accelerations_unchanged_by_the_accel_kernel(dev, integrator):
     """DSBodySystem.accelerations() of the one-sided variants now launches
