@@ -14,7 +14,10 @@ its result:
   3. the one-sided kernels against their plain PyTorch versions on the
      card, at N in {1000, 4099, 65536}, one i-vs-j case with M != N, block
      sizes 128 and 256, random masses, vel.w and damping 0.5 at N in
-     {4099, 65536}, and their times at N=65536;
+     {4099, 65536}; the step also in its j-chunks (step_splits) and in one
+     at (1025, 65537), (16384, 65536) and (4099, 4099), masses from [0.5,
+     2], a random vel.w and damping 0.5, blocks 128, 256 and 1024
+     bit-equal; their times at N=65536;
   3s. the each-pair-once kernels against their plain versions: the
      triangle at N in {1000, 4099}, the blocked composition at N=65536 and
      at N=135168 (the main path's shapes), the rectangle at (777, 4099) and
@@ -129,14 +132,17 @@ its result:
      evaluation of the contract-keeping run split by CUDA events into its
      stages (sort and tables, deposit, FFT solve, gather, pair kernel,
      update), with the kernel's work, pruning and bound;
-  3da. the ds accel-only kernel of the sharded ring step against its plain
-     version at (M, N) in {(4099, 4099), (4099, 16384), (4099, 65536)},
-     each at the block the main path gives N (128, 128, 256), i-set and
-     j-set two states, masses from [0.5, 2] and a random vel.w: within
-     1e-12 * max + 1e-14 of plain and 1e-10 * max|a| of the float64
-     oracle, its (M,4) rows' w = 0, a repeat bit-equal, the kernel then the
-     ds Euler update equal to the fused ds step on the same j-set bit for
-     bit; its times at N=16384 and 65536;
+  3da. the ds accel-only kernel of the sharded ring step, the fused ds
+     step and the ds leapfrog step, split alike (ds_splits), against their
+     plain versions at (M, N) in {(4099, 4099), (4099, 16384), (4099,
+     65536), (4096, 16384)}, at the rule's S and at S = 1, i-set and j-set
+     two states or a four-card shard, masses from [0.5, 2] and a random
+     vel.w: within 1e-12 * max + 1e-14 of plain and 1e-10 * max|a| of the
+     float64 oracle, the accel kernel's (M,4) rows' w = 0, blocks 64, 128,
+     256 and repeats bit-equal, the leapfrog from rest bit-equal to the
+     accel kernel, the accel kernel then the ds Euler update equal to the
+     fused ds step on the same j-set bit for bit; the three kernels' times
+     in turns at 16384, 65536, (4096, 16384) and (16384, 65536);
   3rf. the fused ring kernel (strategy="ring_fused") on states with masses
      from [0.5, 2], a random vel.w and 77 zero-mass bodies at the origin:
      at D = 1 (M = 4099, 65536) bit-equal to one accel launch, through the
@@ -171,9 +177,10 @@ its result:
      1e-4 * max|a| + 1e-4 of plain, the tree_small slots within 1e-4 of
      each tile pair's sum of |terms|, the full total bit-equal to
      sym_accel_cuda, the three actions bit-equal; repeat calls bit-equal;
-     the production kernels' registers (step, step_t, sym_tri<8>) those of
-     the build before this slice; times at N=65536 in turns beside the
-     kernel each one varies;
+     the production kernels' registers (step and step_t at 4 rows a
+     thread, sym_tri<8>) those of the recorded build, and no spill inside
+     the walk of any instantiation of the four step kernels (SASS); times
+     at N=65536 in turns beside the kernel each one varies;
   5e. the ports of the experiment scripts as a user runs them, at N=65536:
      scripts/torch_r3_dualbank.py, scripts/torch_r3_packed.py and
      scripts/torch_r4_sym_budget.py 65536, in this process;
@@ -201,6 +208,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -287,21 +295,26 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "sym_ablate_full": "scripts/tpu_r4_sym_budget.py:58",
             "sym_ablate_none": "scripts/tpu_r4_sym_budget.py:58",
             "sym_ablate_tree_small": "scripts/tpu_r4_sym_budget.py:58"}
-NAMES = {"step": "nbody_step_f32", "step_t": "nbody_step_t_f32",
+NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
+         "step_t": "nbody_step_t_f32, nbody_step_t_split_f32 (+ step_finish_kernel)",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
          "accel": "nbody_accel_f32",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32, nbody_accel_jerk_split_f32",
          "potential": "nbody_potential_f32",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
-         "ds_step": "nbody_ds_step, nbody_ds_step_split", "ds_leapfrog": "nbody_ds_leapfrog",
-         "ds_accel": "nbody_ds_accel, nbody_ds_accel_split",
+         "ds_step": "nbody_ds_step, nbody_ds_step_split (+ ds_step_finish_kernel)",
+         "ds_leapfrog": "nbody_ds_leapfrog, nbody_ds_leapfrog_split "
+                        "(+ ds_leapfrog_finish_kernel)",
+         "ds_accel": "nbody_ds_accel, nbody_ds_accel_split (+ ds_sum_partials_kernel)",
          "ds_sym": "nbody_ds_sym_accel", "ds_sym_cross": "nbody_ds_sym_cross",
          "ds_accel_jerk": "nbody_ds_accel_jerk, nbody_ds_accel_jerk_split",
          "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
-         "ring_fused": "nbody_ring_accel_f32", "step_dual": "nbody_step_dual_f32",
-         "step_packed": "nbody_step_packed_f32",
+         "ring_fused": "nbody_ring_accel_f32",
+         "step_dual": "nbody_step_dual_f32, nbody_step_dual_split_f32 (+ step_finish_kernel)",
+         "step_packed": "nbody_step_packed_f32, nbody_step_packed_split_f32 "
+                        "(+ step_finish_kernel)",
          "sym_ablate_full": "nbody_sym_ablate_f32 (reaction=full)",
          "sym_ablate_none": "nbody_sym_ablate_f32 (reaction=none)",
          "sym_ablate_tree_small": "nbody_sym_ablate_f32 (reaction=tree_small)"}
@@ -336,11 +349,18 @@ DS_AJ_SYM_PAIR_INSTR = 608
 EXPERIMENT_KERNELS = ("step_dual", "step_packed", "sym_ablate_full", "sym_ablate_none",
                       "sym_ablate_tree_small")
 # the production kernels whose template the experiment kernels share, by a
-# piece of their mangled names, and their registers (ptxas -v) in the build
-# before the templates took the experiments' arguments
-PRODUCTION_MANGLED = {"step_kernel": "11step_kernelE", "step_t_kernel": "13step_t_kernelE",
+# piece of their mangled names, and their registers (ptxas -v): sym_tri's in
+# the build before the templates took the experiments' arguments; the step
+# kernels' (4 rows a thread, blocks up to 512) in the build whose shared walk
+# (fused_step) took several rows a thread and the j-split
+PRODUCTION_MANGLED = {"step_kernel<4, 512>": "11step_kernelILi4ELi512EE",
+                      "step_t_kernel<4, 512>": "13step_t_kernelILi4ELi512EE",
                       "sym_tri_kernel<8>": "14sym_tri_kernelILi8EE"}
-PRODUCTION_REGISTERS = {"step_kernel": 32, "step_t_kernel": 32, "sym_tri_kernel<8>": 127}
+PRODUCTION_REGISTERS = {"step_kernel<4, 512>": 64, "step_t_kernel<4, 512>": 64,
+                        "sym_tri_kernel<8>": 127}
+# the four step kernels by a piece of their mangled names (phase 3e holds
+# every instantiation's walk free of spills)
+STEP_WALKS = ("11step_kernel", "13step_t_kernel", "16step_dual_kernel", "18step_packed_kernel")
 
 
 def check(ok: bool, what: str) -> None:
@@ -462,6 +482,38 @@ def phase_kernels(torch) -> dict:
         check(passthrough, f"step kernel changed pos.w or vel.w at {what}")
         err["accel"] = max(err["accel"], e_a)
         err["step"] = max(err["step"], e_p, e_v)
+
+    # the step in its j-chunks (step_splits) and in one, at an odd shape, a
+    # four-card hop and one card, masses from [0.5, 2], a random vel.w and
+    # damping 0.5: within the bounds above, the same bits at blocks 128,
+    # 256 (4 rows a thread) and 1024 (one)
+    for m, n in ((1025, 65537), (N_QA, N_MAIN), (4099, 4099)):
+        pj, vj = shell_state(torch, n, random_w=True)
+        pi, vi = pj[:m].contiguous(), vj[:m].contiguous()
+        p_r, v_r = reference.nbody_step_vs(pi, vi, pj, dt, soft, 0.5)
+        tol_a = 1e-4 * reference.compute_accel_vs(pi, pj, soft).abs().max().item() + 1e-4
+        tol_v, tol_p = 1e-5 + dt * tol_a, 1e-5 + dt * dt * tol_a
+        for splits in sorted({ck.step_splits(m, n), 1}):
+            first = None
+            for bs in (128, 256, 1024):
+                got = ck.nbody_step_cuda_vs(pi, vi, pj, dt, soft, 0.5, block_size=bs,
+                                            splits=splits)
+                if first is None:
+                    first = got
+                    e_p = (got[0] - p_r).abs().max().item()
+                    e_v = (got[1] - v_r).abs().max().item()
+                    kept = bool(torch.equal(got[0][:, 3], pi[:, 3]) and
+                                torch.equal(got[1][:, 3], vi[:, 3]))
+                    what = f"M={m} N={n} splits={splits}"
+                    print(f"[3 kernels] step {what}: max|dpos|={e_p:.3e} (tol {tol_p:.3e}) "
+                          f"max|dvel|={e_v:.3e} (tol {tol_v:.3e}); w-lanes kept: {kept}")
+                    check(e_p <= tol_p and e_v <= tol_v and kept,
+                          f"split step kernel disagrees at {what}")
+                    err["step"] = max(err["step"], e_p, e_v)
+                check(all(torch.equal(a, b) for a, b in zip(got, first)),
+                      f"step kernel differs between blocks at M={m} N={n} splits={splits}")
+            print(f"[3 kernels] step M={m} N={n} splits={splits}: blocks 128, 256, 1024 "
+                  "bit-equal")
 
     # times at the main path's shape: N=65536, the default block of 256
     p, v = shell_state(torch, N_MAIN)
@@ -1157,8 +1209,9 @@ def oracle_accel_vs(pos_i64, pos_j64, soft):
 
 
 def phase_ds_accel_kernel(torch) -> dict:
-    """3da. The ds accel-only kernel of the ring step (ds_accel) and the
-    fused ds step (ds_step), which split the j-range alike (ds_splits),
+    """3da. The ds accel-only kernel of the ring step (ds_accel), the
+    fused ds step (ds_step) and the ds leapfrog step (ds_leapfrog), which
+    split the j-range alike (ds_splits),
     against their plain versions (ds.ds_accel_vs, and its force through
     ds.ds_integrate) at (M, N) = (4099, 4099), (4099, 16384) and (4099,
     65536), i-set and j-set two different states, M not a multiple of the
@@ -1167,9 +1220,13 @@ def phase_ds_accel_kernel(torch) -> dict:
     phase 3d's rules (1e-12 * max + 1e-14 of plain; 1e-10 * max|a| of the
     float64 oracle, the step's force as one step from zero velocity with
     dt = 1 and damping 1), the same bits at blocks 64, 128 and 256 and on a
-    repeat, the accel kernel's (M,4) rows' w = 0; the accel kernel at the
+    repeat, the accel kernel's (M,4) rows' w = 0; the leapfrog step against
+    ds.nbody_step_ds_leapfrog_vs by the same rule, its force (a step from
+    zero velocity, dt = 1, damping 1, drifts no body) within 1e-10 * max|a|
+    of the oracle and bit-equal to the accel kernel's at the same S and
+    block; the accel kernel at the
     block the main path gives N bodies, then the ds Euler update, equals the
-    fused ds step at the same block on the same j-set bit for bit; both
+    fused ds step at the same block on the same j-set bit for bit; the
     kernels' times in turns at N = 16384 and 65536 and at the four-card
     shapes (4096, 16384) and (16384, 65536)."""
     import numpy as np
@@ -1181,9 +1238,11 @@ def phase_ds_accel_kernel(torch) -> dict:
 
     dev = torch.device("cuda", 0)
     dt, soft = DEMO_PARAMS[0].time_step, DEMO_PARAMS[0].softening
-    err = {"ds_accel": 0.0, "ds_step": 0.0}
+    err = {"ds_accel": 0.0, "ds_step": 0.0, "ds_leapfrog": 0.0}
     scal = ds.scal_ds(dt, soft, 0.5)
     unit = ds.scal_ds(1.0, soft, 1.0)
+    lscal = ds.scal_ds_leapfrog(dt, soft, 0.5)
+    lunit = ds.scal_ds_leapfrog(1.0, soft, 1.0)
 
     def held(name, got, want, what):
         g64, w64 = ds.ds_to_f64(*got), ds.ds_to_f64(*want)
@@ -1212,6 +1271,9 @@ def phase_ds_accel_kernel(torch) -> dict:
         zero = torch.zeros_like(i_planes[2])
         want = ds.ds_accel_vs(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal)
         want_step = ds.ds_integrate(*i_planes, want, scal)
+        want_lf = ds.nbody_step_ds_leapfrog_vs(*i_planes, *j_planes, lscal)
+        j_rest = (j_planes[0], j_planes[1], torch.zeros_like(j_planes[2]),
+                  torch.zeros_like(j_planes[3]))
         ref = oracle_accel_vs(i64, j64, soft)
         for splits in sorted({ck.ds_splits(m, n), 1}):
             first = None
@@ -1222,7 +1284,8 @@ def phase_ds_accel_kernel(torch) -> dict:
                     splits=splits))
                 step = ck._ds_step(*i_planes, j_planes[0], j_planes[1], scal, b, None,
                                    splits=splits)
-                got = (*acc, *step)
+                lf = ck._ds_leapfrog(*i_planes, *j_planes, lscal, b, None, splits=splits)
+                got = (*acc, *step, *lf)
                 if first is None:
                     first = got
                     held("ds_accel", acc, want, f"ds_accel {what}")
@@ -1234,14 +1297,25 @@ def phase_ds_accel_kernel(torch) -> dict:
                     oracle("ds_step", force, ref, f"ds_step {what}")
                     kept = all(torch.equal(g[:, 3], q[:, 3]) for g, q in zip(step, i_planes))
                     check(kept, f"ds_step changed a w lane at {what}")
+                    held("ds_leapfrog", lf[:2], want_lf[:2], f"ds_leapfrog {what} positions")
+                    held("ds_leapfrog", lf[2:], want_lf[2:], f"ds_leapfrog {what} velocities")
+                    kept = all(torch.equal(g[:, 3], q[:, 3]) for g, q in zip(lf, i_planes))
+                    check(kept, f"ds_leapfrog changed a w lane at {what}")
+                    lforce = ck._ds_leapfrog(i_planes[0], i_planes[1], zero, zero, *j_rest,
+                                             lunit, b, None, splits=splits)[2:]
+                    oracle("ds_leapfrog", lforce, ref, f"ds_leapfrog {what}")
+                    check(all(torch.equal(f[:, :3], a) for f, a in zip(lforce, acc)),
+                          f"ds_leapfrog from rest differs from ds_accel at {what}")
                 again = (*ck._ds_accel(i_planes[0], i_planes[1], j_planes[0], j_planes[1], scal,
                                        b, None, splits=splits),
                          *ck._ds_step(*i_planes, j_planes[0], j_planes[1], scal, b, None,
-                                      splits=splits))
+                                      splits=splits),
+                         *ck._ds_leapfrog(*i_planes, *j_planes, lscal, b, None, splits=splits))
                 check(all(torch.equal(x, y) for x, y in (*zip(got, again), *zip(got, first))),
-                      f"ds_accel or ds_step differs between calls or blocks at {what}")
-            print(f"[3da ds accel] ({m}, {n}) splits={splits}: both kernels' repeats and "
-                  "blocks 64, 128, 256 bit-equal")
+                      f"ds_accel, ds_step or ds_leapfrog differs between calls or blocks at "
+                      f"{what}")
+            print(f"[3da ds accel] ({m}, {n}) splits={splits}: the three kernels' repeats and "
+                  "blocks 64, 128, 256 bit-equal; the leapfrog from rest = ds_accel")
         what = f"ds_accel ({m}, {n}) block {bs}"
         out = tuple(torch.full((m, 4), 7.0, device=dev) for _ in range(2))
 
@@ -1263,7 +1337,7 @@ def phase_ds_accel_kernel(torch) -> dict:
         print(f"[3da ds accel] {what}: ds_accel + ds_integrate equals the fused ds step bit "
               f"for bit: {bits}")
         check(bits, f"ds_accel + ds_integrate differs from the fused ds step at {what}")
-        del j_planes, i_planes, out, zero, want, want_step
+        del j_planes, i_planes, out, zero, want, want_step, want_lf, j_rest
     del odd_planes
     times, bounds = {}, {}
     planes = {n: ds_state(torch, n)[0] for n in (N_QA, N_MAIN)}
@@ -1277,21 +1351,26 @@ def phase_ds_accel_kernel(torch) -> dict:
         calls = {"ds_accel": lambda: ck.compute_accel_ds_cuda_vs(
                      pi[0], pi[1], pj[0], pj[1], scal, block_size=bs, out=out[:2]),
                  "ds_step": lambda: ck.nbody_step_ds_cuda_vs(*pi, pj[0], pj[1], scal,
-                                                              block_size=bs, out=out)}
+                                                              block_size=bs, out=out),
+                 "ds_leapfrog": lambda: ck.nbody_step_ds_leapfrog_cuda_vs(
+                     *pi, *pj, lscal, block_size=bs, out=out)}
         reps = 10 if n == N_QA else 3
         ms = {name: [] for name in calls}
-        for name in ("ds_accel", "ds_step", "ds_step", "ds_accel"):
+        for name in ("ds_accel", "ds_step", "ds_leapfrog", "ds_leapfrog", "ds_step", "ds_accel"):
             calls[name]()
             torch.cuda.synchronize()
             ms[name].append(elapsed_ms(lambda: [calls[name]() for _ in range(reps)], dev) / reps)
         plain = {"ds_accel": lambda: ds.ds_accel_vs(pi[0], pi[1], pj[0], pj[1], scal),
-                 "ds_step": lambda: ds.nbody_step_ds_vs(*pi, pj[0], pj[1], scal)}
+                 "ds_step": lambda: ds.nbody_step_ds_vs(*pi, pj[0], pj[1], scal),
+                 "ds_leapfrog": lambda: ds.nbody_step_ds_leapfrog_vs(*pi, *pj, lscal)}
         flops = 2 * DS_PAIR_INSTR * float(m) * n
         # each input read once, each output written once: 16 bytes a plane
         # row (the accel kernel four planes in and two out, the step six in
         # and four out)
         shape_bounds = {"ds_accel": bound_ms(flops, (2 * m + 2 * n) * 16 + 2 * m * 16),
-                        "ds_step": bound_ms(flops, (4 * m + 2 * n) * 16 + 4 * m * 16)}
+                        "ds_step": bound_ms(flops, (4 * m + 2 * n) * 16 + 4 * m * 16),
+                        "ds_leapfrog": bound_ms(flops + 2 * 2 * DS_DRIFT_INSTR * (m + n),
+                                                (4 * m + 4 * n) * 16 + 4 * m * 16)}
         for name in calls:
             t_k = min(ms[name])
             t_p = elapsed_ms(plain[name], dev) if (m, n) == (N_QA, N_QA) else None
@@ -1306,7 +1385,7 @@ def phase_ds_accel_kernel(torch) -> dict:
     del planes
     torch.cuda.empty_cache()
     return {"err": {"ds_accel": err["ds_accel"]}, "times": times, "bounds": bounds,
-            "step_err": err["ds_step"]}
+            "step_err": err["ds_step"], "leapfrog_err": err["ds_leapfrog"]}
 
 
 def ring_state(torch, n, *, seed=42):
@@ -2213,6 +2292,45 @@ def ptxas_registers(usage: dict, key: str) -> int:
     return found[0]
 
 
+def step_walks_checked(build, usage: dict, text: str) -> None:
+    """Each instantiation of the four step kernels (STEP_WALKS) has a walk,
+    the loop around its rsqrt, and no local-memory access (LDL, STL: a
+    spill) inside it; a local access elsewhere in the kernel is printed
+    with where it lies: before or after the walk, and in a loop around it
+    (the stage loop: once a stage), in another loop, or in none (once a
+    launch)."""
+    names = build.demangle(usage)
+    for key in STEP_WALKS:
+        funcs = build.sass_functions(text, key)
+        check(bool(funcs), f"no kernel {key} in the SASS of nbody_kernels.cu")
+        for fname, ins in funcs.items():
+            name = names.get(fname, fname)
+            walks = build.sass_loops(text, fname)
+            check(bool(walks), f"no rsqrt loop in the SASS of {name}")
+            inside = sum(w["mix"].get("local", 0) for w in walks)
+            lo, hi = min(w["span"][0] for w in walks), max(w["span"][1] for w in walks)
+            local = [(a, op) for a, op, _ in ins if build.sass_class(op) == "local"]
+            loops = [(int(t.group(1), 16), a) for a, op, args in ins if op.startswith("BRA")
+                     and (t := re.search(r"0x([0-9a-f]+)", args)) and int(t.group(1), 16) <= a]
+
+            def at(a, lo=lo, hi=hi, loops=loops):
+                side = "before" if a < lo else "after"
+                if any(b <= a <= e and b <= lo and hi <= e for b, e in loops):
+                    return f"{side} the walk, in a loop around it"
+                if any(b <= a <= e for b, e in loops):
+                    return f"{side} the walk, in another loop"
+                return f"{side} the walk, outside every loop"
+
+            where = ", ".join(f"{op} at {a:#x} ({at(a)})" for a, op in local
+                              if not lo <= a <= hi)
+            u = usage.get(fname, {})
+            print(f"[3e sass] {name}: walk {lo:#x}-{hi:#x}, "
+                  f"{min(w['instructions'] / w['pairs'] for w in walks):.2f} SASS instructions "
+                  f"a pair, {inside} local accesses inside; ptxas {u.get('spill_stores')} / "
+                  f"{u.get('spill_loads')} bytes spill stores / loads; outside: {where or 'none'}")
+            check(inside == 0, f"{name} spills inside its walk")
+
+
 def phase_experiment_kernels(torch) -> dict:
     """3e. The kernels of the JAX package's three experiment scripts against
     their plain versions on the card, at N in {1000, 4099, 65536}, with
@@ -2229,7 +2347,8 @@ def phase_experiment_kernels(torch) -> dict:
     full variant's total bit-equal to sym_accel_cuda at the same tile, and
     the none and tree_small actions bit-equal to the full one; every
     repeat call bit-equal. The production kernels' registers (ptxas) must
-    be those of the parent's build (PRODUCTION_REGISTERS). Times at
+    be those of the recorded build (PRODUCTION_REGISTERS), and the step
+    kernels' walks hold no spill (step_walks_checked). Times at
     N=65536 in turns beside the kernel each one varies."""
     from nbody_tpu_torch import DEMO_PARAMS
     from nbody_tpu_torch.ops import _build
@@ -2237,14 +2356,18 @@ def phase_experiment_kernels(torch) -> dict:
     from nbody_tpu_torch.ops import reference
     from nbody_tpu_torch.utils.timing import elapsed_ms
 
-    for src, kernels in (("nbody_kernels.cu", ("step_kernel", "step_t_kernel")),
+    for src, kernels in (("nbody_kernels.cu", ("step_kernel<4, 512>", "step_t_kernel<4, 512>")),
                          ("symmetric_kernels.cu", ("sym_tri_kernel<8>",))):
-        usage = _build.ptxas_usage(src)
+        if src == "nbody_kernels.cu":
+            usage, text = _build.sass_of(src)
+            step_walks_checked(_build, usage, text)
+        else:
+            usage = _build.ptxas_usage(src)
         for line in _build.ptxas_lines(src, usage=usage):
             print(f"[3e ptxas] {line}")
         for k in kernels:
             regs = ptxas_registers(usage, PRODUCTION_MANGLED[k])
-            print(f"[3e ptxas] {k}: {regs} registers (the parent's build: "
+            print(f"[3e ptxas] {k}: {regs} registers (the recorded build: "
                   f"{PRODUCTION_REGISTERS[k]})")
             check(regs == PRODUCTION_REGISTERS[k], f"{k} changed its registers: {regs}")
 
@@ -2713,6 +2836,8 @@ def main() -> int:
     p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
     ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
     ds_kern["err"]["ds_step"] = max(ds_kern["err"]["ds_step"], ds_accel_kern.pop("step_err"))
+    ds_kern["err"]["ds_leapfrog"] = max(ds_kern["err"]["ds_leapfrog"],
+                                        ds_accel_kern.pop("leapfrog_err"))
     ring_kern = timed("3rf ring kernel", phase_ring_kernel, torch)
     timed("3ri ring between two processes", phase_ring_ipc)
     exp_kern = timed("3e experiment kernels", phase_experiment_kernels, torch)

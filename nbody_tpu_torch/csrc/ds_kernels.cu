@@ -39,25 +39,31 @@
 // staged body as a broadcast. The TPU kernel's (TILE_I, 128) lane
 // accumulators and their pairwise lane reduction have no counterpart: a
 // thread owns a row of its j-chunk.
-// The step and accel kernels split the j-range, as the ds accel + jerk
-// kernel does (ds_aj_kernels.cu): one thread an i-body at block 128 gives
-// M / 128 blocks, 128 at the ds default N = 16384 and 32 at a four-card
-// shard (M = 4096), for 132 SMs and a dependent ds chain ~225 FP32-pipe
+// The three kernels split the j-range, as the ds accel + jerk kernel does
+// (ds_aj_kernels.cu): one thread an i-body at block 128 gives M / 128
+// blocks, 128 at the ds default N = 16384 and 32 at a four-card shard
+// (M = 4096), for 132 SMs and a dependent ds chain ~225 FP32-pipe
 // instructions a pair. So their grid is (i-blocks, S): chunk c of the
 // j-range is [c * L, min((c + 1) * L, N)), L = ceil(ceil(N / kDsStage) /
 // S) stages of kDsStage j-bodies whatever the block size, S a pure
-// function of M and N (ops/cuda_kernel.py::ds_splits). With S = 1 a block
-// writes its outputs as the unsplit kernel did; with S > 1 it writes its
-// three ds sums into the partials (S, 6, M), and a second kernel ds-adds
-// each row's partials in chunk order (ds_slot_sum, ds_sym_common.cuh):
-// ds_sum_partials for the force, ds_step_finish_kernel for the step, which
-// then applies the same ds_kick_drift. Each chunk is a ds sum in j order
+// function of M and N (ops/cuda_kernel.py::ds_splits, one rule for all
+// three). The walk is one function, ds_chunk_force; the leapfrog kernel's
+// form half-drifts each j-body once as it is staged (DRIFT), and its i-body
+// once before the walk. With S = 1 a block writes its outputs as the
+// unsplit kernels did; with S > 1 it writes its three ds sums into the
+// partials (S, 6, M), and a second kernel ds-adds each row's partials in
+// chunk order (ds_slot_sum, ds_sym_common.cuh): ds_sum_partials for the
+// force, ds_step_finish_kernel for the step, which then applies the same
+// ds_kick_drift, ds_leapfrog_finish_kernel for the leapfrog step, which
+// drifts the row's i-body again with the same ds_drift (the same bits) and
+// applies the same kick and second drift. Each chunk is a ds sum in j order
 // from 0, so the bits depend on (M, N) alone: not on the card, the call or
-// the block size; no atomics. The force followed by the ds Euler update
-// (ds_integrate_kernel) gives the fused step's bits at every (M, N). The
-// leapfrog kernel keeps the unsplit loop (ds_accumulate): one chunk,
-// staged block_size bodies at a time (8 KB at block 256); it half-drifts
-// each j-body once as it is staged and its i-body once.
+// the block size; no atomics. S = 1 gives the unsplit kernels' bits (the
+// same j order and ds operations; a zero-mass padding slot adds exactly
+// 0). The force followed by the ds Euler update (ds_integrate_kernel) gives
+// the fused step's bits at every (M, N); a leapfrog step from zero
+// velocity drifts no body, so its force is the force kernel's at every
+// (M, N) too.
 //
 // What bounds it on an H100: the FP32 pipe. A pair is ~225 FP32-pipe
 // instructions read from this source (3 ds_sub at 11, 3 squares and 2 inv3
@@ -103,59 +109,24 @@ __device__ __forceinline__ void ds_drift(float4& ph, float4& pl, const float4 vh
   pl = make_float4(x.lo, y.lo, z.lo, pl.w);
 }
 
-// ds acceleration on the i-body at (ph, pl) from the whole j-set, staged in
-// tiles of blockDim.x bodies through th / tl; with DRIFT each staged j-body
-// is first half-drifted by its velocity (jvh, jvl)
-template <bool DRIFT>
-__device__ __forceinline__ void ds_accumulate(const float4 ph, const float4 pl,
-                                              const float4* __restrict__ jph,
-                                              const float4* __restrict__ jpl,
-                                              const float4* __restrict__ jvh,
-                                              const float4* __restrict__ jvl, const int64_t n,
-                                              const ds_scalars s, float4* th, float4* tl,
-                                              dsf& ax, dsf& ay, dsf& az) {
-  const int bs = blockDim.x;
-  const dsf xi = make_ds(ph.x, pl.x);
-  const dsf yi = make_ds(ph.y, pl.y);
-  const dsf zi = make_ds(ph.z, pl.z);
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    float4 h = zero4();
-    float4 l = zero4();
-    if (j < n) {
-      h = jph[j];
-      l = jpl[j];
-      if (DRIFT) ds_drift(h, l, jvh[j], jvl[j], s.dt_half);
-    }
-    th[threadIdx.x] = h;
-    tl[threadIdx.x] = l;
-    __syncthreads();
-    for (int k = 0; k < bs; ++k) {
-      const float4 qh = th[k];
-      const float4 ql = tl[k];
-      dsf dx, dy, dz, inv3;
-      ds_pair(make_ds(qh.x, ql.x), make_ds(qh.y, ql.y), make_ds(qh.z, ql.z), xi, yi, zi, s.eps2,
-              dx, dy, dz, inv3);
-      const dsf sc = ds_mul(make_ds(qh.w, ql.w), inv3);  // m_j / r^3
-      ax = ds_add(ax, ds_mul(sc, dx));
-      ay = ds_add(ay, ds_mul(sc, dy));
-      az = ds_add(az, ds_mul(sc, dz));
-    }
-    __syncthreads();
-  }
-}
-
-// j-bodies a shared-memory stage of the step and accel kernels (32 bytes a
-// body: 4 KB), the j-split's unit (ops/cuda_kernel.py's DS_STAGE)
+// j-bodies a shared-memory stage of the step, accel and leapfrog kernels
+// (32 bytes a body: 4 KB), the j-split's unit (ops/cuda_kernel.py's
+// DS_STAGE)
 constexpr int kDsStage = 128;
 
 // the ds force on the i-body at (ph, pl) from j-chunk blockIdx.y of the
-// j-set, `chunk` j-bodies long (a multiple of kDsStage): ds_accumulate's
-// pair sum, in j order from the chunk's first body, over stages of kDsStage
-// bodies whatever the block size; a slot past n holds zeros, mass 0
+// j-set, `chunk` j-bodies long (a multiple of kDsStage): the ds pair sum, in
+// j order from the chunk's first body, over stages of kDsStage bodies
+// whatever the block size; a slot past n holds zeros, mass 0. With DRIFT
+// each j-body is half-drifted by its velocity (jvh, jvl; s.dt_half) as it is
+// staged, the leapfrog kernel's half-step j-set; without, jvh and jvl are
+// not read.
+template <bool DRIFT>
 __device__ __forceinline__ void ds_chunk_force(const float4 ph, const float4 pl,
                                                const float4* __restrict__ jph,
-                                               const float4* __restrict__ jpl, const int64_t n,
+                                               const float4* __restrict__ jpl,
+                                               const float4* __restrict__ jvh,
+                                               const float4* __restrict__ jvl, const int64_t n,
                                                const int64_t chunk, const ds_scalars s, dsf& ax,
                                                dsf& ay, dsf& az) {
   __shared__ float4 th[kDsStage];
@@ -171,8 +142,20 @@ __device__ __forceinline__ void ds_chunk_force(const float4 ph, const float4 pl,
   for (int64_t base = j0; base < j1; base += kDsStage) {
     for (int k = threadIdx.x; k < kDsStage; k += blockDim.x) {
       const int64_t j = base + k;
-      th[k] = j < n ? jph[j] : zero4();
-      tl[k] = j < n ? jpl[j] : zero4();
+      if constexpr (DRIFT) {
+        float4 h = zero4();
+        float4 l = zero4();
+        if (j < n) {
+          h = jph[j];
+          l = jpl[j];
+          ds_drift(h, l, jvh[j], jvl[j], s.dt_half);
+        }
+        th[k] = h;
+        tl[k] = l;
+      } else {
+        th[k] = j < n ? jph[j] : zero4();
+        tl[k] = j < n ? jpl[j] : zero4();
+      }
     }
     __syncthreads();
     for (int k = 0; k < kDsStage; ++k) {
@@ -214,7 +197,7 @@ __global__ void ds_step_kernel(const float4* __restrict__ pos_hi, const float4* 
   const float4 ph = (i < m) ? pos_hi[i] : zero4();
   const float4 pl = (i < m) ? pos_lo[i] : zero4();
   dsf ax, ay, az;
-  ds_chunk_force(ph, pl, jpos_hi, jpos_lo, n, chunk, s, ax, ay, az);
+  ds_chunk_force<false>(ph, pl, jpos_hi, jpos_lo, nullptr, nullptr, n, chunk, s, ax, ay, az);
   if (i >= m) return;
   if (parts != nullptr) {
     put_force(parts, m, i, ax, ay, az);
@@ -241,6 +224,10 @@ __global__ void __launch_bounds__(128)
                 new_pos_hi + i, new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
 }
 
+// Row i against j-chunk blockIdx.y of the half-drifted j-set: the i-body is
+// drifted once to its half-step position, the chunk's j-bodies as they are
+// staged. parts == nullptr (one chunk): the kick and second drift into the
+// four new planes; else the chunk's partial force
 __global__ void ds_leapfrog_kernel(
     const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
     const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
@@ -248,18 +235,44 @@ __global__ void ds_leapfrog_kernel(
     const float4* __restrict__ jvel_hi, const float4* __restrict__ jvel_lo,
     float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
     float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo, const int64_t m,
-    const int64_t n, const ds_scalars s) {
-  extern __shared__ float4 tile[];
+    const int64_t n, const int64_t chunk, const ds_scalars s, float* __restrict__ parts) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float4 ph = (i < m) ? pos_hi[i] : zero4();
   float4 pl = (i < m) ? pos_lo[i] : zero4();
   const float4 vh = (i < m) ? vel_hi[i] : zero4();
   const float4 vl = (i < m) ? vel_lo[i] : zero4();
   ds_drift(ph, pl, vh, vl, s.dt_half);  // the i-body's half-step position
-  dsf ax = make_ds(0.f, 0.f), ay = ax, az = ax;
-  ds_accumulate<true>(ph, pl, jpos_hi, jpos_lo, jvel_hi, jvel_lo, n, s, tile, tile + blockDim.x,
-                      ax, ay, az);
+  dsf ax, ay, az;
+  ds_chunk_force<true>(ph, pl, jpos_hi, jpos_lo, jvel_hi, jvel_lo, n, chunk, s, ax, ay, az);
   if (i >= m) return;
+  if (parts != nullptr) {
+    put_force(parts, m, i, ax, ay, az);
+    return;
+  }
+  ds_kick_drift(ph, pl, vh, vl, ax, ay, az, s.dt, s.damping, s.dt_half, new_pos_hi + i,
+                new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
+}
+
+// The split leapfrog step's update, one thread a row: the ds sum of the
+// row's `splits` partial forces in chunk order, the i-body drifted to its
+// half-step position again (ds_drift, the same bits as in the walk), then
+// the kick and second drift (ds_kick_drift)
+__global__ void __launch_bounds__(128)
+    ds_leapfrog_finish_kernel(const float* __restrict__ parts, const int64_t splits,
+                              const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
+                              const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
+                              float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
+                              float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo,
+                              const int64_t m, const ds_scalars s) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  dsf ax, ay, az;
+  ds_slot_sum3(parts, splits, 6, m, i, ax, ay, az);
+  float4 ph = pos_hi[i];
+  float4 pl = pos_lo[i];
+  const float4 vh = vel_hi[i];
+  const float4 vl = vel_lo[i];
+  ds_drift(ph, pl, vh, vl, s.dt_half);
   ds_kick_drift(ph, pl, vh, vl, ax, ay, az, s.dt, s.damping, s.dt_half, new_pos_hi + i,
                 new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
 }
@@ -277,7 +290,7 @@ __global__ void ds_accel_kernel(const float4* __restrict__ pos_hi,
   const float4 ph = (i < m) ? pos_hi[i] : zero4();
   const float4 pl = (i < m) ? pos_lo[i] : zero4();
   dsf ax, ay, az;
-  ds_chunk_force(ph, pl, jpos_hi, jpos_lo, n, chunk, s, ax, ay, az);
+  ds_chunk_force<false>(ph, pl, jpos_hi, jpos_lo, nullptr, nullptr, n, chunk, s, ax, ay, az);
   if (i >= m) return;
   if (parts != nullptr) {
     put_force(parts, m, i, ax, ay, az);
@@ -325,6 +338,36 @@ int launch_ds_step(const void* pos_hi, const void* pos_lo, const void* vel_hi, c
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
       static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, s.dt, s.damping);
+  return cudaGetLastError();
+}
+
+// The grid (i-blocks, splits) of ds_leapfrog_kernel, then with splits > 1
+// the update from the partials in `parts` (splits * 6 * m floats)
+int launch_ds_leapfrog(const void* pos_hi, const void* pos_lo, const void* vel_hi,
+                       const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
+                       const void* jvel_hi, const void* jvel_lo, void* new_pos_hi,
+                       void* new_pos_lo, void* new_vel_hi, void* new_vel_lo, int64_t m, int64_t n,
+                       const float* scal, int64_t block_size, int64_t splits, float* parts,
+                       cudaStream_t stream) {
+  if (!valid_split(block_size, m, n, splits, parts)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const ds_scalars s = read_scalars(scal);
+  const dim3 grid(num_blocks(m, block_size), static_cast<unsigned int>(splits));
+  ds_leapfrog_kernel<<<grid, static_cast<unsigned int>(block_size), 0, stream>>>(
+      static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
+      static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
+      static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
+      static_cast<const float4*>(jvel_hi), static_cast<const float4*>(jvel_lo),
+      static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
+      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, n,
+      chunk_of(n, splits), s, splits > 1 ? parts : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  ds_leapfrog_finish_kernel<<<num_blocks(m, 128), 128, 0, stream>>>(
+      parts, splits, static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
+      static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
+      static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
+      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, s);
   return cudaGetLastError();
 }
 
@@ -376,25 +419,29 @@ int nbody_ds_step_split(const void* pos_hi, const void* pos_lo, const void* vel_
 }
 
 // the four new planes of the i-set (m, 4) after one fused ds DKD step under
-// the j-set (n, 4), whose velocities drift it too
+// the j-set (n, 4), whose velocities drift it too, one j-chunk (S = 1)
 int nbody_ds_leapfrog(const void* pos_hi, const void* pos_lo, const void* vel_hi,
                       const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
                       const void* jvel_hi, const void* jvel_lo, void* new_pos_hi,
                       void* new_pos_lo, void* new_vel_hi, void* new_vel_lo, int64_t m, int64_t n,
                       const float* scal, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(block_size) * sizeof(float4);
-  ds_leapfrog_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
-      static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
-      static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
-      static_cast<const float4*>(jvel_hi), static_cast<const float4*>(jvel_lo),
-      static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
-      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, n,
-      read_scalars(scal));
-  return cudaGetLastError();
+  return launch_ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
+                            new_pos_hi, new_pos_lo, new_vel_hi, new_vel_lo, m, n, scal,
+                            block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the same in `splits` j-chunks: scratch holds splits * 6 * m floats, the
+// chunks' ds partials, ds-added in chunk order before the update
+int nbody_ds_leapfrog_split(const void* pos_hi, const void* pos_lo, const void* vel_hi,
+                            const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
+                            const void* jvel_hi, const void* jvel_lo, void* new_pos_hi,
+                            void* new_pos_lo, void* new_vel_hi, void* new_vel_lo, int64_t m,
+                            int64_t n, const float* scal, int64_t block_size, int64_t splits,
+                            void* scratch, void* stream) {
+  return launch_ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
+                            new_pos_hi, new_pos_lo, new_vel_hi, new_vel_lo, m, n, scal,
+                            block_size, splits, static_cast<float*>(scratch),
+                            static_cast<cudaStream_t>(stream));
 }
 
 // the ds acceleration of the i-set (m, 4) under the j-set (n, 4), as (m, 4)

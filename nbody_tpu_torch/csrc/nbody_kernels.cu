@@ -27,26 +27,48 @@
 // The step kernel then applies v = (v + a*dt)*damping, p = p + v*dt and
 // copies pos.w (mass) and vel.w through (pallas_kernel.py:106-122).
 //
-// Design: the reference CUDA sample's own, not the Pallas grid. One thread
-// per i-body keeps its position and its three accumulators in registers;
-// each block of block_size threads stages the j-bodies through shared memory
-// as float4 tiles of block_size bodies, one coalesced 16-byte load per
-// thread, and every thread of the block reads each staged body as a
-// shared-memory broadcast. The Pallas kernel's (TILE_I, 128) lane
-// accumulators, their lane reduction and its VMEM scratch have no
-// counterpart: a thread owns a whole row of the pair matrix.
+// Design. The force kernel (accel_kernel, and the fused ring's per-hop
+// force, ring_kernels.cu) keeps the reference CUDA sample's walk
+// (accumulate_all_j, allpairs_common.cuh): one thread an i-body, the
+// j-bodies staged through shared memory in tiles of block_size float4s,
+// each read by every thread as a broadcast. The step kernel and its three
+// twins (step_t, step_dual, step_packed) share one walk, fused_step, on the
+// one-sided accel + jerk kernel's recipe (below):
+//   * ROWS i-bodies a thread (kStepRows = 4 at blocks of up to 512 threads,
+//     1 above; 2 for step_dual_kernel), rows u * blockDim.x apart, each with
+//     its position and three sums in registers, so one shared-memory
+//     broadcast of a j-body serves ROWS pairs;
+//   * the pair as 3 FADD, 3 FFMA, one MUFU.RSQ (rsqrt_ftz, sym_common.cuh:
+//     rsqrtf's bits for every normal r2, without its subnormal fix-up), 3
+//     FMUL and 3 FFMA into the sums, every operation written out (fmaf) so
+//     that no instantiation contracts differently;
+//   * the j-side staged kStepStage bodies at a time (4 KB) whatever the
+//     block size, the walk over a stage unrolled kStepUnroll times;
+//   * a j-split: the grid is (i-tiles, S), chunk c of the j-range
+//     [c * L, min((c + 1) * L, N)), L a whole number of stages, S a pure
+//     function of M and N (ops/cuda_kernel.py::step_splits). With S = 1 a
+//     block applies the update and writes its layout; with S > 1 it writes
+//     its three sums into the partials (S, 3, M) and step_finish_kernel adds
+//     each row's partials in chunk order, then applies the same update
+//     (euler_update). Each row sums its chunk from 0 in j order, so the bits
+//     depend on (M, N) alone: not on ROWS, the block, the card or the call.
+//     The four twins therefore give one another's bits at every block. No
+//     atomics.
+// The Pallas kernel's (TILE_I, 128) lane accumulators, their lane reduction
+// and its VMEM scratch have no counterpart: a thread owns whole rows of its
+// j-chunk.
 //
-// What bounds it on an H100: arithmetic. A pair is ~20 flops by the
-// reference's count, about 12 fp32 FMA-pipe instructions plus one rsqrtf on
-// the SFU (MUFU), which issues at an eighth of the FMA rate. Memory is no
-// limit: a block reads 16 bytes per j-body from L2 for block_size pairs
-// per thread, and a shared-memory broadcast per pair. The design keeps all
-// per-pair state in registers so the FMA and SFU pipes are all it waits
-// on. Several i-bodies per thread, unrolling and a tensor-core reduction
-// are later work.
+// What bounds the step on an H100: issue. A pair is ~20 flops by the
+// reference's count, 12 FP32-pipe instructions and one MUFU.RSQ (its unit
+// runs at an eighth of the FP32 rate: 8 cycles a warp, under the 12), plus a
+// quarter of an LDS.128 at ROWS 4 and the loop's share. Memory is no limit:
+// 16 bytes a staged j-body for blockDim.x * ROWS pairs, and the partials'
+// 12 bytes a row and chunk. The force kernel, one row a thread with rsqrtf,
+// issues ~17 a pair; its redesign is later work.
 //
-// Precision: fp32 only. rsqrtf is the hardware approximation (at most
-// 2 ulp), which is what the reference CUDA kernel uses; the QA bound
+// Precision: fp32 only. rsqrtf (rsqrt_ftz in the step) is the hardware
+// approximation (at most 2 ulp), which is what the reference CUDA kernel
+// uses; the QA bound
 // (|dpos| <= 5e-4 after one dt=1e-3 step against the CPU oracle) and the
 // kernel-vs-plain bound (1e-4 * max|a| + 1e-4 on the acceleration) cover
 // it. Built with -O3 and without --use_fast_math, so plain divisions and
@@ -129,26 +151,24 @@
 // chains. On Hopper the chains are the point: each staged j-body, one
 // shared-memory broadcast, feeds two rows, so a pair costs half a broadcast
 // and the FMA pipe has two independent chains to interleave. The bound is
-// the step kernel's (20 flops a pair). Each row sums its j-bodies in the
-// step kernel's order, so at the same block size the two give the same
-// bits. The cost: a block covers 2 * blockDim.x rows, so at N = 65536 and
-// block 256 there are 128 blocks for 132 SMs. Measured there on an H100
-// 80GB HBM3 at 700 W (chip_smoke.py 3e, PERF.md): 3.278 ms against the step
-// kernel's 3.529, 7-10 % ahead at blocks 64 and 128 too.
+// the step kernel's (20 flops a pair). Each row sums its j-chunks in the
+// step kernel's order, so the two give the same bits at every block; they
+// differ only in ROWS (times in PERF.md, row 21).
 //
 // The packed-state step (step_packed_kernel): the step with body i's state
-// as one 32-byte row [pos | vel] of an (N, 8) array (fused_step<1, 2>),
+// as one 32-byte row [pos | vel] of an (N, 8) array (fused_step<ROWS, 2>),
 // read once and written once, and the j-side from the (4, N) planes, whose
 // next copy it writes as step_t_kernel does. On the TPU packing halved the
 // per-i-tile DMA count. On Hopper it changes only the O(N) i-side traffic,
 // so it times what the planes and the row layout cost beside step_kernel
 // and step_t_kernel, with which it agrees bit for bit (the same j order and
-// operations). Measured at N = 65536 on the same card: 3.377 ms, step_t
-// 3.280, the step kernel 3.529.
+// operations; times in PERF.md, row 22).
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
-// (float4 loads), acc (M,3). The caller makes the arrays' device current; the
+// (float4 loads), acc (M,3); the `_split` entry points take S and a device
+// scratch for the partials (S * 3 * M floats for the steps, S * 6 * M for
+// accel + jerk). The caller makes the arrays' device current; the
 // kernel runs on the given stream of that device, allocates nothing and does
 // not synchronise. Each entry point returns cudaGetLastError() after the
 // launch.
@@ -172,9 +192,21 @@ constexpr int kAjRows = 4;
 constexpr int kAjStage = 256;
 constexpr int kAjUnroll = 2;
 
+// The step kernels' constants: the accel + jerk walk's recipe without the
+// jerk (12 FP32-pipe instructions a pair against 26, so the loop and the
+// shared-memory read weigh more). i-bodies a thread at blocks of up to 512
+// threads (1 above, as kAjRows; launch_step picks both); step_dual_kernel
+// keeps its 2 at every block. j-bodies a shared-memory stage (4 KB), the
+// j-split's unit (ops/cuda_kernel.py's STEP_STAGE). Steps of a stage's walk
+// unrolled.
+constexpr int kStepRows = 4;
+constexpr int kDualRows = 2;
+constexpr int kStepStage = 256;
+constexpr int kStepUnroll = 4;
+
 // The j-side loaders: the (N,4) array of the step and force kernels (AosJ,
 // allpairs_common.cuh) and the (4, N) planes x, y, z, m that the rollout
-// carries. Both give the same float4, so the staged tile, and every bit
+// carries. Both give the same float4, so the staged j-body, and every bit
 // after it, is the same.
 struct PlanesJ {
   const float* __restrict__ t;  // (4, ld): x, y, z, m
@@ -184,133 +216,170 @@ struct PlanesJ {
   }
 };
 
-// The one-sided j-loop for ROWS i-bodies a thread (accumulate_all_j's, with
-// ROWS independent accumulator sets): each staged j-body, one shared-memory
-// broadcast, meets the thread's ROWS i-bodies in turn. Each row adds the same
-// terms in the same j order as accumulate_all_j, so its sums have the same
-// bits.
-template <int ROWS, class JLoad>
-__device__ __forceinline__ void accumulate_rows(const float4 (&pi)[ROWS], const JLoad load_j,
-                                                const int64_t n, const float eps2,
-                                                float4* tile, float (&ax)[ROWS],
-                                                float (&ay)[ROWS], float (&az)[ROWS]) {
-  const int bs = blockDim.x;
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    tile[threadIdx.x] = (j < n) ? load_j(j) : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    for (int k = 0; k < bs; ++k) {
-      const float4 pj = tile[k];
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const float dx = pj.x - pi[u].x;
-        const float dy = pj.y - pi[u].y;
-        const float dz = pj.z - pi[u].z;
-        const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-        const float inv = rsqrtf(r2);
-        const float s = pj.w * (inv * inv * inv);
-        ax[u] += s * dx;
-        ay[u] += s * dy;
-        az[u] += s * dz;
-      }
-    }
-    __syncthreads();
+// The damped Euler update of row i from its summed acceleration: v = (v +
+// a dt) damping, p = p + v dt, pos.w and vel.w carried; the new state at
+// STRIDE (as fused_step reads it) and, with `new_post`, the new position in
+// the (4, m) planes too. Shared by the one-chunk walk and the finish kernel,
+// so a row's update is the same operations whichever applies it.
+template <int STRIDE>
+__device__ __forceinline__ void euler_update(const float4 pi, const float4 vi, const float ax,
+                                             const float ay, const float az, const float dt,
+                                             const float damping, const int64_t i,
+                                             const int64_t m, float4* __restrict__ new_pos,
+                                             float4* __restrict__ new_vel,
+                                             float* __restrict__ new_post) {
+  const float vx = fmaf(ax, dt, vi.x) * damping;
+  const float vy = fmaf(ay, dt, vi.y) * damping;
+  const float vz = fmaf(az, dt, vi.z) * damping;
+  const float4 np = make_float4(fmaf(vx, dt, pi.x), fmaf(vy, dt, pi.y), fmaf(vz, dt, pi.z), pi.w);
+  new_vel[STRIDE * i] = make_float4(vx, vy, vz, vi.w);
+  new_pos[STRIDE * i] = np;
+  if (new_post != nullptr) {
+    new_post[i] = np.x;
+    new_post[m + i] = np.y;
+    new_post[2 * m + i] = np.z;
+    new_post[3 * m + i] = np.w;
   }
 }
 
-// The fused Euler step of ROWS i-bodies a thread, shared by step_kernel,
-// step_t_kernel, step_dual_kernel and step_packed_kernel so that they give
-// the same bits. A block covers ROWS * blockDim.x rows; row u of a thread is
-// blockIdx.x * ROWS * blockDim.x + u * blockDim.x + threadIdx.x, so each
-// row's loads stay coalesced. Body i's position and velocity are
-// pos_i[STRIDE * i] and vel_i[STRIDE * i] (STRIDE 2: the packed [pos|vel]
-// rows, vel_i = pos_i + 1), and so are the new ones; with `new_post`, the
-// new position is also written into the (4, m) planes. ROWS = 1 runs
-// accumulate_all_j itself.
+// The fused Euler step of ROWS i-bodies a thread against j-chunk blockIdx.y,
+// shared by step_kernel, step_t_kernel, step_dual_kernel and
+// step_packed_kernel so that they give the same bits. A block covers ROWS *
+// blockDim.x rows; row u of a thread is blockIdx.x * ROWS * blockDim.x + u *
+// blockDim.x + threadIdx.x, so each row's loads stay coalesced. Body i's
+// position and velocity are pos_i[STRIDE * i] and vel_i[STRIDE * i] (STRIDE
+// 2: the packed [pos|vel] rows, vel_i = pos_i + 1). The chunk is [blockIdx.y
+// * chunk, min((blockIdx.y + 1) * chunk, n)), `chunk` a multiple of
+// kStepStage; each row sums it from 0 in j order, whatever ROWS and the
+// block, so the sums depend on the chunk alone. parts == nullptr (one
+// chunk): the update (euler_update) and its outputs; else the row's three
+// sums into parts[(blockIdx.y * 3 + comp) * m + i].
 template <int ROWS, int STRIDE, class JLoad>
 __device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
                                            const float4* __restrict__ vel_i,
                                            const JLoad load_j, float4* __restrict__ new_pos,
                                            float4* __restrict__ new_vel,
                                            float* __restrict__ new_post, const int64_t m,
-                                           const int64_t n, const float dt, const float eps2,
-                                           const float damping) {
-  extern __shared__ float4 tile[];
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * blockDim.x + threadIdx.x;
+                                           const int64_t n, const int64_t chunk, const float dt,
+                                           const float eps2, const float damping,
+                                           float* __restrict__ parts) {
+  __shared__ float4 sp[kStepStage];
+  const int bs = blockDim.x;
+  const int tid = threadIdx.x;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * bs + tid;
   float4 pi[ROWS];
   float ax[ROWS], ay[ROWS], az[ROWS];
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
-    // threads past M still stage j-tiles for the rest of the block
-    pi[u] = (i < m) ? pos_i[STRIDE * i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
+    // threads past M still stage j-bodies for the rest of the block
+    pi[u] = (i < m) ? pos_i[STRIDE * i] : zero;
     ax[u] = 0.f;
     ay[u] = 0.f;
     az[u] = 0.f;
   }
-  if constexpr (ROWS == 1) {
-    accumulate_all_j(pi[0], load_j, n, eps2, tile, ax[0], ay[0], az[0]);
-  } else {
-    accumulate_rows<ROWS>(pi, load_j, n, eps2, tile, ax, ay, az);
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t j1 = j0 + chunk < n ? j0 + chunk : n;
+  for (int64_t base = j0; base < j1; base += kStepStage) {
+    for (int k = tid; k < kStepStage; k += bs) {
+      const int64_t j = base + k;
+      sp[k] = (j < n) ? load_j(j) : zero;
+    }
+    __syncthreads();
+#pragma unroll(kStepUnroll)
+    for (int k = 0; k < kStepStage; ++k) {
+      const float4 pj = sp[k];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const float dx = pj.x - pi[u].x;
+        const float dy = pj.y - pi[u].y;
+        const float dz = pj.z - pi[u].z;
+        const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
+        const float inv = rsqrt_ftz(r2);
+        const float s = pj.w * ((inv * inv) * inv);  // m_j / r^3
+        ax[u] = fmaf(s, dx, ax[u]);
+        ay[u] = fmaf(s, dy, ay[u]);
+        az[u] = fmaf(s, dz, az[u]);
+      }
+    }
+    __syncthreads();
   }
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
-    if (i >= m) return;
-    const float4 vi = vel_i[STRIDE * i];
-    const float vx = (vi.x + ax[u] * dt) * damping;
-    const float vy = (vi.y + ay[u] * dt) * damping;
-    const float vz = (vi.z + az[u] * dt) * damping;
-    const float4 np =
-        make_float4(pi[u].x + vx * dt, pi[u].y + vy * dt, pi[u].z + vz * dt, pi[u].w);
-    new_vel[STRIDE * i] = make_float4(vx, vy, vz, vi.w);
-    new_pos[STRIDE * i] = np;
-    if (new_post != nullptr) {
-      new_post[i] = np.x;
-      new_post[m + i] = np.y;
-      new_post[2 * m + i] = np.z;
-      new_post[3 * m + i] = np.w;
+    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
+    if (i >= m) continue;
+    if (parts != nullptr) {
+      parts[(blockIdx.y * 3 + 0) * m + i] = ax[u];
+      parts[(blockIdx.y * 3 + 1) * m + i] = ay[u];
+      parts[(blockIdx.y * 3 + 2) * m + i] = az[u];
+    } else {
+      euler_update<STRIDE>(pi[u], vel_i[STRIDE * i], ax[u], ay[u], az[u], dt, damping, i, m,
+                           new_pos, new_vel, new_post);
     }
   }
 }
 
-__global__ void step_kernel(const float4* __restrict__ pos_i,
-                            const float4* __restrict__ vel_i,
-                            const float4* __restrict__ pos_j,
-                            float4* __restrict__ new_pos,
-                            float4* __restrict__ new_vel, const int64_t m,
-                            const int64_t n, const float dt, const float eps2,
-                            const float damping) {
-  fused_step<1, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2,
-                   damping);
+// The split step's update, one thread a row: the row's `splits` partial
+// sums (splits, 3, m) added in chunk order from 0, then euler_update
+template <int STRIDE>
+__global__ void __launch_bounds__(256)
+    step_finish_kernel(const float* __restrict__ parts, const int64_t splits,
+                       const float4* __restrict__ pos_i, const float4* __restrict__ vel_i,
+                       float4* __restrict__ new_pos, float4* __restrict__ new_vel,
+                       float* __restrict__ new_post, const int64_t m, const float dt,
+                       const float damping) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  float ax = 0.f, ay = 0.f, az = 0.f;
+  for (int64_t t = 0; t < splits; ++t) {
+    ax += parts[(t * 3 + 0) * m + i];
+    ay += parts[(t * 3 + 1) * m + i];
+    az += parts[(t * 3 + 2) * m + i];
+  }
+  euler_update<STRIDE>(pos_i[STRIDE * i], vel_i[STRIDE * i], ax, ay, az, dt, damping, i, m,
+                       new_pos, new_vel, new_post);
+}
+
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    step_kernel(const float4* __restrict__ pos_i, const float4* __restrict__ vel_i,
+                const float4* __restrict__ pos_j, float4* __restrict__ new_pos,
+                float4* __restrict__ new_vel, const int64_t m, const int64_t n,
+                const int64_t chunk, const float dt, const float eps2, const float damping,
+                float* __restrict__ parts) {
+  fused_step<ROWS, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, chunk, dt, eps2,
+                      damping, parts);
 }
 
 // The step of the dual-bank experiment (scripts/tpu_r3_dualbank.py): two
 // i-bodies a thread, two independent accumulator chains, each staged j-body
-// read once from shared memory for both; ceil(m / (2 * blockDim.x)) blocks.
-__global__ void step_dual_kernel(const float4* __restrict__ pos_i,
-                                 const float4* __restrict__ vel_i,
-                                 const float4* __restrict__ pos_j,
-                                 float4* __restrict__ new_pos,
-                                 float4* __restrict__ new_vel, const int64_t m,
-                                 const int64_t n, const float dt, const float eps2,
-                                 const float damping) {
-  fused_step<2, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, dt, eps2,
-                   damping);
+// read once from shared memory for both; ceil(m / (2 * blockDim.x)) i-tiles.
+__global__ void __launch_bounds__(1024)
+    step_dual_kernel(const float4* __restrict__ pos_i, const float4* __restrict__ vel_i,
+                     const float4* __restrict__ pos_j, float4* __restrict__ new_pos,
+                     float4* __restrict__ new_vel, const int64_t m, const int64_t n,
+                     const int64_t chunk, const float dt, const float eps2, const float damping,
+                     float* __restrict__ parts) {
+  fused_step<kDualRows, 1>(pos_i, vel_i, AosJ{pos_j}, new_pos, new_vel, nullptr, m, n, chunk, dt,
+                           eps2, damping, parts);
 }
 
 // One step of the transposed-carry rollout (nbody_tpu's _step_kernel_t):
 // the j-side from the planes `post` (4, n) of the current positions, the new
 // positions written twice, as (n,4) and as the planes `new_post` (4, n) that
-// the next step reads. The i-set is the whole set; `new_post` must not be
-// `post`, which other blocks are still reading.
-__global__ void step_t_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
-                              const float* __restrict__ post, float4* __restrict__ new_pos,
-                              float4* __restrict__ new_vel, float* __restrict__ new_post,
-                              const int64_t n, const float dt, const float eps2,
-                              const float damping) {
-  fused_step<1, 1>(pos, vel, PlanesJ{post, n}, new_pos, new_vel, new_post, n, n, dt, eps2,
-                   damping);
+// the next step reads (by the finish kernel when the step is split). The
+// i-set is the whole set; `new_post` must not be `post`, which other blocks
+// are still reading.
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    step_t_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
+                  const float* __restrict__ post, float4* __restrict__ new_pos,
+                  float4* __restrict__ new_vel, float* __restrict__ new_post, const int64_t n,
+                  const int64_t chunk, const float dt, const float eps2, const float damping,
+                  float* __restrict__ parts) {
+  fused_step<ROWS, 1>(pos, vel, PlanesJ{post, n}, new_pos, new_vel, new_post, n, n, chunk, dt,
+                      eps2, damping, parts);
 }
 
 // One step of the packed-state experiment (scripts/tpu_r3_packed.py): body
@@ -318,13 +387,14 @@ __global__ void step_t_kernel(const float4* __restrict__ pos, const float4* __re
 // written once into `new_state`; the j-side from the planes `post` (4, n),
 // the new positions also written into the planes `new_post` (4, n), which
 // must not be `post`.
-__global__ void step_packed_kernel(const float4* __restrict__ state,
-                                   const float* __restrict__ post,
-                                   float4* __restrict__ new_state,
-                                   float* __restrict__ new_post, const int64_t n,
-                                   const float dt, const float eps2, const float damping) {
-  fused_step<1, 2>(state, state + 1, PlanesJ{post, n}, new_state, new_state + 1, new_post, n, n,
-                   dt, eps2, damping);
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    step_packed_kernel(const float4* __restrict__ state, const float* __restrict__ post,
+                       float4* __restrict__ new_state, float* __restrict__ new_post,
+                       const int64_t n, const int64_t chunk, const float dt, const float eps2,
+                       const float damping, float* __restrict__ parts) {
+  fused_step<ROWS, 2>(state, state + 1, PlanesJ{post, n}, new_state, new_state + 1, new_post, n,
+                      n, chunk, dt, eps2, damping, parts);
 }
 
 __global__ void accel_kernel(const float4* __restrict__ pos_i,
@@ -495,63 +565,193 @@ int launch_accel_jerk(const void* pos_i, const void* vel_i, const void* pos_j,
   return sum_partials(parts + 3 * m, splits, 6, m, g, 3, 1, 0, stream);
 }
 
+
+bool valid_step(int64_t bs, int64_t m, int64_t n, int64_t splits, const void* parts) {
+  return valid_block_size(bs) && m >= 0 && n >= 0 && splits >= 1 && splits <= 65535 &&
+         (splits == 1 || parts != nullptr);
+}
+
+// the j-chunk length, in whole stages, of `splits` chunks of n j-bodies
+int64_t step_chunk(int64_t n, int64_t splits) {
+  return cdiv(cdiv(n, kStepStage), splits) * kStepStage;
+}
+
+// A step on the grid (i-tiles of rows * block_size rows, splits):
+// walk(grid, chunk, parts or nullptr) launches the step kernel, then with
+// splits > 1 step_finish_kernel<STRIDE> adds the partials in `parts`
+// (splits * 3 * m floats) and applies the update.
+template <int STRIDE, class Walk>
+int launch_split(const Walk walk, const int64_t rows, const float4* pos_i, const float4* vel_i,
+                 float4* new_pos, float4* new_vel, float* new_post, int64_t m, int64_t n,
+                 float dt, float damping, int64_t block_size, int64_t splits, float* parts,
+                 cudaStream_t stream) {
+  if (!valid_step(block_size, m, n, splits, parts)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const dim3 grid(num_blocks(m, rows * block_size), static_cast<unsigned int>(splits));
+  walk(grid, step_chunk(n, splits), splits > 1 ? parts : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  step_finish_kernel<STRIDE><<<num_blocks(m, 256), 256, 0, stream>>>(
+      parts, splits, pos_i, vel_i, new_pos, new_vel, new_post, m, dt, damping);
+  return cudaGetLastError();
+}
+
+// launch_split of a step kernel that comes in two instantiations: `four`
+// (<kStepRows, 512>) at blocks of up to 512 threads, `one` (<1, 1024>)
+// above. The one place that picks both the kernel and the rows its grid
+// covers; walk(kernel, grid, chunk, parts or nullptr) launches `kernel`.
+template <int STRIDE, class Kernel, class Walk>
+int launch_step(const Kernel four, const Kernel one, const Walk walk, const float4* pos_i,
+                const float4* vel_i, float4* new_pos, float4* new_vel, float* new_post,
+                int64_t m, int64_t n, float dt, float damping, int64_t block_size,
+                int64_t splits, float* parts, cudaStream_t stream) {
+  const bool many = block_size <= 512;
+  const Kernel kernel = many ? four : one;
+  const auto launch = [&](const dim3 grid, const int64_t chunk, float* out) {
+    walk(kernel, grid, chunk, out);
+  };
+  return launch_split<STRIDE>(launch, many ? kStepRows : 1, pos_i, vel_i, new_pos, new_vel,
+                              new_post, m, n, dt, damping, block_size, splits, parts, stream);
+}
+
+int launch_step_f32(const void* pos_i, const void* vel_i, const void* pos_j, void* new_pos,
+                    void* new_vel, int64_t m, int64_t n, float dt, float eps2, float damping,
+                    int64_t block_size, int64_t splits, float* parts, cudaStream_t stream) {
+  const auto pi = static_cast<const float4*>(pos_i);
+  const auto vi = static_cast<const float4*>(vel_i);
+  const auto pj = static_cast<const float4*>(pos_j);
+  const auto np = static_cast<float4*>(new_pos);
+  const auto nv = static_cast<float4*>(new_vel);
+  const auto bs = static_cast<unsigned int>(block_size);
+  const auto walk = [&](const auto kernel, const dim3 grid, const int64_t chunk, float* out) {
+    kernel<<<grid, bs, 0, stream>>>(pi, vi, pj, np, nv, m, n, chunk, dt, eps2, damping, out);
+  };
+  return launch_step<1>(step_kernel<kStepRows, 512>, step_kernel<1, 1024>, walk, pi, vi, np, nv,
+                        nullptr, m, n, dt, damping, block_size, splits, parts, stream);
+}
+
+int launch_step_t_f32(const void* pos, const void* vel, const void* post, void* new_pos,
+                      void* new_vel, void* new_post, int64_t n, float dt, float eps2,
+                      float damping, int64_t block_size, int64_t splits, float* parts,
+                      cudaStream_t stream) {
+  const auto p = static_cast<const float4*>(pos);
+  const auto v = static_cast<const float4*>(vel);
+  const auto pt = static_cast<const float*>(post);
+  const auto np = static_cast<float4*>(new_pos);
+  const auto nv = static_cast<float4*>(new_vel);
+  const auto npt = static_cast<float*>(new_post);
+  const auto bs = static_cast<unsigned int>(block_size);
+  const auto walk = [&](const auto kernel, const dim3 grid, const int64_t chunk, float* out) {
+    kernel<<<grid, bs, 0, stream>>>(p, v, pt, np, nv, npt, n, chunk, dt, eps2, damping, out);
+  };
+  return launch_step<1>(step_t_kernel<kStepRows, 512>, step_t_kernel<1, 1024>, walk, p, v, np,
+                        nv, npt, n, n, dt, damping, block_size, splits, parts, stream);
+}
+
+int launch_step_dual_f32(const void* pos_i, const void* vel_i, const void* pos_j, void* new_pos,
+                         void* new_vel, int64_t m, int64_t n, float dt, float eps2,
+                         float damping, int64_t block_size, int64_t splits, float* parts,
+                         cudaStream_t stream) {
+  const auto pi = static_cast<const float4*>(pos_i);
+  const auto vi = static_cast<const float4*>(vel_i);
+  const auto pj = static_cast<const float4*>(pos_j);
+  const auto np = static_cast<float4*>(new_pos);
+  const auto nv = static_cast<float4*>(new_vel);
+  const auto bs = static_cast<unsigned int>(block_size);
+  const auto walk = [&](const dim3 grid, const int64_t chunk, float* out) {
+    step_dual_kernel<<<grid, bs, 0, stream>>>(pi, vi, pj, np, nv, m, n, chunk, dt, eps2, damping,
+                                              out);
+  };
+  return launch_split<1>(walk, kDualRows, pi, vi, np, nv, nullptr, m, n, dt, damping,
+                         block_size, splits, parts, stream);
+}
+
+int launch_step_packed_f32(const void* state, const void* post, void* new_state, void* new_post,
+                           int64_t n, float dt, float eps2, float damping, int64_t block_size,
+                           int64_t splits, float* parts, cudaStream_t stream) {
+  const auto st = static_cast<const float4*>(state);
+  const auto pt = static_cast<const float*>(post);
+  const auto ns = static_cast<float4*>(new_state);
+  const auto npt = static_cast<float*>(new_post);
+  const auto bs = static_cast<unsigned int>(block_size);
+  const auto walk = [&](const auto kernel, const dim3 grid, const int64_t chunk, float* out) {
+    kernel<<<grid, bs, 0, stream>>>(st, pt, ns, npt, n, chunk, dt, eps2, damping, out);
+  };
+  return launch_step<2>(step_packed_kernel<kStepRows, 512>, step_packed_kernel<1, 1024>, walk,
+                        st, st + 1, ns, ns + 1, npt, n, n, dt, damping, block_size, splits,
+                        parts, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
+// the new (m, 4) pos and vel of the i-set after one Euler step under the
+// j-set (n, 4), one j-chunk (S = 1)
 int nbody_step_f32(const void* pos_i, const void* vel_i, const void* pos_j,
                    void* new_pos, void* new_vel, int64_t m, int64_t n, float dt,
                    float eps2, float damping, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  step_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
-      static_cast<const float4*>(pos_j), static_cast<float4*>(new_pos),
-      static_cast<float4*>(new_vel), m, n, dt, eps2, damping);
-  return cudaGetLastError();
+  return launch_step_f32(pos_i, vel_i, pos_j, new_pos, new_vel, m, n, dt, eps2, damping,
+                         block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the same in `splits` j-chunks: scratch holds splits * 3 * m floats, the
+// chunks' partial sums, added in chunk order before the update
+int nbody_step_split_f32(const void* pos_i, const void* vel_i, const void* pos_j, void* new_pos,
+                         void* new_vel, int64_t m, int64_t n, float dt, float eps2,
+                         float damping, int64_t block_size, int64_t splits, void* scratch,
+                         void* stream) {
+  return launch_step_f32(pos_i, vel_i, pos_j, new_pos, new_vel, m, n, dt, eps2, damping,
+                         block_size, splits, static_cast<float*>(scratch),
+                         static_cast<cudaStream_t>(stream));
 }
 
 int nbody_step_t_f32(const void* pos, const void* vel, const void* post, void* new_pos,
                      void* new_vel, void* new_post, int64_t n, float dt, float eps2,
                      float damping, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  step_t_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos), static_cast<const float4*>(vel),
-      static_cast<const float*>(post), static_cast<float4*>(new_pos),
-      static_cast<float4*>(new_vel), static_cast<float*>(new_post), n, dt, eps2, damping);
-  return cudaGetLastError();
+  return launch_step_t_f32(pos, vel, post, new_pos, new_vel, new_post, n, dt, eps2, damping,
+                           block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+int nbody_step_t_split_f32(const void* pos, const void* vel, const void* post, void* new_pos,
+                           void* new_vel, void* new_post, int64_t n, float dt, float eps2,
+                           float damping, int64_t block_size, int64_t splits, void* scratch,
+                           void* stream) {
+  return launch_step_t_f32(pos, vel, post, new_pos, new_vel, new_post, n, dt, eps2, damping,
+                           block_size, splits, static_cast<float*>(scratch),
+                           static_cast<cudaStream_t>(stream));
 }
 
 int nbody_step_dual_f32(const void* pos_i, const void* vel_i, const void* pos_j,
                         void* new_pos, void* new_vel, int64_t m, int64_t n, float dt,
                         float eps2, float damping, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  step_dual_kernel<<<num_blocks(m, 2 * block_size), static_cast<unsigned int>(block_size),
-                     smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos_i), static_cast<const float4*>(vel_i),
-      static_cast<const float4*>(pos_j), static_cast<float4*>(new_pos),
-      static_cast<float4*>(new_vel), m, n, dt, eps2, damping);
-  return cudaGetLastError();
+  return launch_step_dual_f32(pos_i, vel_i, pos_j, new_pos, new_vel, m, n, dt, eps2, damping,
+                              block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+int nbody_step_dual_split_f32(const void* pos_i, const void* vel_i, const void* pos_j,
+                              void* new_pos, void* new_vel, int64_t m, int64_t n, float dt,
+                              float eps2, float damping, int64_t block_size, int64_t splits,
+                              void* scratch, void* stream) {
+  return launch_step_dual_f32(pos_i, vel_i, pos_j, new_pos, new_vel, m, n, dt, eps2, damping,
+                              block_size, splits, static_cast<float*>(scratch),
+                              static_cast<cudaStream_t>(stream));
 }
 
 int nbody_step_packed_f32(const void* state, const void* post, void* new_state, void* new_post,
                           int64_t n, float dt, float eps2, float damping, int64_t block_size,
                           void* stream) {
-  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  step_packed_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(state), static_cast<const float*>(post),
-      static_cast<float4*>(new_state), static_cast<float*>(new_post), n, dt, eps2, damping);
-  return cudaGetLastError();
+  return launch_step_packed_f32(state, post, new_state, new_post, n, dt, eps2, damping,
+                                block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+int nbody_step_packed_split_f32(const void* state, const void* post, void* new_state,
+                                void* new_post, int64_t n, float dt, float eps2, float damping,
+                                int64_t block_size, int64_t splits, void* scratch,
+                                void* stream) {
+  return launch_step_packed_f32(state, post, new_state, new_post, n, dt, eps2, damping,
+                                block_size, splits, static_cast<float*>(scratch),
+                                static_cast<cudaStream_t>(stream));
 }
 
 int nbody_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m,

@@ -355,9 +355,9 @@ class DSBodySystem:
         accel + jerk kernels'. For "sym" that is the each-pair-once
         composition; for the one-sided Euler and leapfrog variants the ds
         accel kernel (``compute_accel_ds_cuda_vs``) in the j-chunks of the
-        system's step kernel, so with its bits: ``ds_splits`` for Euler, one
-        for leapfrog; on a mesh each shard's force by the mesh's strategy,
-        gathered."""
+        system's step kernel (``ds_splits``, the rule of all three), so with
+        its force's bits; on a mesh each shard's force by the mesh's
+        strategy, gathered."""
         planes = self._planes[self._cur]
         scal = self._scal(1.0, 1.0)
         if self.integrator == "hermite":
@@ -369,8 +369,7 @@ class DSBodySystem:
             return self._sym_accel(planes[0], planes[1], scal)
         if self.backend == "cuda":
             return compute_accel_ds_cuda_vs(planes[0], planes[1], planes[0], planes[1], scal,
-                                            block_size=self.block_size,
-                                            splits=1 if self.integrator == "leapfrog" else None)
+                                            block_size=self.block_size)
         return ds.ds_accel_vs(planes[0], planes[1], planes[0], planes[1], scal)
 
     def accelerations_and_jerks(self):

@@ -192,14 +192,9 @@ _SASS_INSTR = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def sass_loops(sass: str, key: str) -> list:
-    """The innermost loops that hold an rsqrt (MUFU.RSQ) of each function of
-    `sass` whose mangled name contains `key`: one dict a loop, {"function",
-    "instructions", "pairs" (its MUFU.RSQ, one a pair), "mix" (instructions
-    by ``sass_class``), "ops" (by opcode)}. A loop is a backward branch and
-    the instructions from its target to it."""
-    import collections
-
+def sass_functions(sass: str, key: str) -> dict:
+    """{mangled name: [(address, opcode, operands), ...]} of each function of
+    `sass` whose mangled name contains `key`."""
     funcs, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -211,8 +206,20 @@ def sass_loops(sass: str, key: str) -> list:
         m = _SASS_INSTR.match(line)
         if name and m:
             funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def sass_loops(sass: str, key: str) -> list:
+    """The innermost loops that hold an rsqrt (MUFU.RSQ) of each function of
+    `sass` whose mangled name contains `key`: one dict a loop, {"function",
+    "span" (the addresses of its first and last instruction),
+    "instructions", "pairs" (its MUFU.RSQ, one a pair), "mix" (instructions
+    by ``sass_class``), "ops" (by opcode)}. A loop is a backward branch and
+    the instructions from its target to it."""
+    import collections
+
     out = []
-    for fname, ins in funcs.items():
+    for fname, ins in sass_functions(sass, key).items():
         spans = []
         for addr, op, args in ins:
             t = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
@@ -227,7 +234,7 @@ def sass_loops(sass: str, key: str) -> list:
             if any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in rsq):
                 continue  # holds an inner rsqrt loop
             b = body(lo, hi)
-            out.append({"function": fname, "instructions": len(b),
+            out.append({"function": fname, "span": (lo, hi), "instructions": len(b),
                         "pairs": sum(op.startswith("MUFU.RSQ") for op, _ in b),
                         "mix": dict(collections.Counter(sass_class(op) for op, _ in b)),
                         "ops": dict(collections.Counter(op for op, _ in b))})
@@ -296,14 +303,37 @@ def declare_ds_force(lib) -> None:
     """The C signatures of the one-sided ds entry points that `lib` has
     (csrc/ds_kernels.cu): ``nbody_ds_step``, ``nbody_ds_accel`` (one j-chunk
     each) and their ``_split`` forms, which take the chunk count and the
-    partials, and ``nbody_ds_leapfrog``. Each takes the (2, 4) scalar block
-    as a host pointer."""
+    partials, and ``nbody_ds_leapfrog`` and its ``_split`` form. Each takes
+    the (2, 4) scalar block as a host pointer."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     sigs = {"nbody_ds_step": [ptr] * 10 + [i64, i64, ptr, i64, ptr],
             "nbody_ds_step_split": [ptr] * 10 + [i64, i64, ptr, i64, i64, ptr, ptr],
             "nbody_ds_accel": [ptr] * 6 + [i64, i64, ptr, i64, ptr],
             "nbody_ds_accel_split": [ptr] * 6 + [i64, i64, ptr, i64, i64, ptr, ptr],
-            "nbody_ds_leapfrog": [ptr] * 12 + [i64, i64, ptr, i64, ptr]}
+            "nbody_ds_leapfrog": [ptr] * 12 + [i64, i64, ptr, i64, ptr],
+            "nbody_ds_leapfrog_split": [ptr] * 12 + [i64, i64, ptr, i64, i64, ptr, ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
+def declare_step(lib) -> None:
+    """The C signatures of the fused one-sided Euler step entry points that
+    `lib` has (csrc/nbody_kernels.cu): ``nbody_step_f32``, its rollout,
+    dual-bank and packed-state twins (one j-chunk each), and their
+    ``_split`` forms, which take the chunk count and the partials."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    step = [ptr] * 5 + [i64, i64, f32, f32, f32, i64]
+    step_t = [ptr] * 6 + [i64, f32, f32, f32, i64]
+    packed = [ptr] * 4 + [i64, f32, f32, f32, i64]
+    split = [i64, ptr]
+    sigs = {"nbody_step_f32": step + [ptr], "nbody_step_split_f32": step + split + [ptr],
+            "nbody_step_t_f32": step_t + [ptr], "nbody_step_t_split_f32": step_t + split + [ptr],
+            "nbody_step_dual_f32": step + [ptr],
+            "nbody_step_dual_split_f32": step + split + [ptr],
+            "nbody_step_packed_f32": packed + [ptr],
+            "nbody_step_packed_split_f32": packed + split + [ptr]}
     for name, argtypes in sigs.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
@@ -315,16 +345,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    lib.nbody_step_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                   f32, f32, f32, i64, ptr]
-    lib.nbody_step_f32.restype = ctypes.c_int
-    lib.nbody_step_t_f32.argtypes = [ptr] * 6 + [i64, f32, f32, f32, i64, ptr]
-    lib.nbody_step_t_f32.restype = ctypes.c_int
-    lib.nbody_step_dual_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                        f32, f32, f32, i64, ptr]
-    lib.nbody_step_dual_f32.restype = ctypes.c_int
-    lib.nbody_step_packed_f32.argtypes = [ptr] * 4 + [i64, f32, f32, f32, i64, ptr]
-    lib.nbody_step_packed_f32.restype = ctypes.c_int
+    declare_step(lib)
     for name in ("nbody_mxu_step_f32", "nbody_mxu_step_bf16"):
         getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
         getattr(lib, name).restype = ctypes.c_int

@@ -141,12 +141,23 @@ def _step_outs(pos_i, vel_i, pos_j, out):
 
 
 def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
-                       *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
-    """Fused step of the i-set (M,4) under forces from the j-set (N,4).
+                       *, block_size: int = DEFAULT_BLOCK_SIZE, out=None,
+                       splits: int | None = None):
+    """Fused step of the i-set (M,4) under forces from the j-set (N,4), in
+    `splits` j-chunks (``step_splits(M, N)`` by default).
 
     Returns (new_pos, new_vel), each (M,4). ``out=(new_pos, new_vel)`` writes
     into preallocated tensors, which must not overlap any input.
     """
+    return _step(pos_i, vel_i, pos_j, dt, softening, damping, block_size, out, splits)
+
+
+def _step(pos_i, vel_i, pos_j, dt, softening, damping, block_size, out, splits=None,
+          lib=None):
+    """``nbody_step_cuda_vs`` through `lib`: the port's library by default,
+    or another build of the kernel (``scripts/torch_step_dispatch.py
+    --against``), whose launches are not counted; with splits = 1 only its
+    one-chunk entry point is called, which every build has."""
     device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out)
     bs = check_block_size(block_size)
     m, n = pos_i.shape[0], pos_j.shape[0]
@@ -158,18 +169,39 @@ def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
     if m == 0:
         return new_pos, new_vel
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = step_splits(m, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = lib.nbody_step_f32(
-            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(),
-            new_pos.data_ptr(), new_vel.data_ptr(), m, n,
-            ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
-            ctypes.c_float(float(damping)), bs, torch.cuda.current_stream().cuda_stream)
+        err = _launch_step(lib, "nbody_step", s, m, device, (
+            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), new_pos.data_ptr(),
+            new_vel.data_ptr(), m, n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_f32 launch")
-    LAUNCHES["step"] += 1
+    if counted:
+        LAUNCHES["step"] += 1
     return new_pos, new_vel
+
+
+def _step_scalars(dt, softening, damping):
+    """dt, eps^2 and damping as the step entry points take them."""
+    return (ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
+            ctypes.c_float(float(damping)))
+
+
+def _launch_step(lib, entry: str, s: int, m: int, device, args) -> int:
+    """Launch the fused-step entry point `entry` (``nbody_step``,
+    ``nbody_step_t``, ``nbody_step_dual``, ``nbody_step_packed``) of `lib`
+    on the current stream: ``<entry>_f32`` for one j-chunk, else
+    ``<entry>_split_f32`` with S and a scratch (S, 3, M) for the chunks'
+    partials. Returns its error code."""
+    stream = torch.cuda.current_stream().cuda_stream
+    if s == 1:
+        return getattr(lib, f"{entry}_f32")(*args, stream)
+    parts = torch.empty((s, 3, m), dtype=torch.float32, device=device)
+    return getattr(lib, f"{entry}_split_f32")(*args, s, parts.data_ptr(), stream)
 
 
 def nbody_step_cuda(pos, vel, dt, softening, damping,
@@ -227,17 +259,24 @@ def nbody_step_mxu_cuda(pos, vel, dt, softening, damping, *, variant: str, out=N
 
 
 def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
-                       block_size: int = DEFAULT_BLOCK_SIZE):
+                       block_size: int = DEFAULT_BLOCK_SIZE, splits: int | None = None):
     """`steps` fused one-sided Euler steps that carry the j-side as the
     planes (4, N) of the positions from step to step (the kernel of
     ``_step_kernel_t``; the counterpart of ``nbody_rollout_pallas``): the
     positions are transposed once, before the first step, and each launch
-    writes the planes the next one reads. Equals `steps` launches of
-    ``nbody_step_cuda`` at the same block size bit for bit. Returns the new
-    (pos, vel), each (N,4); the inputs are not written (steps=0 returns
-    them, as ``reference.rollout`` does). No path of the port calls it: on
-    the TPU it was measured slower than the step scan (a recorded negative
-    result), and PERF.md has its time on the card."""
+    writes the planes the next one reads. Each step runs in `splits`
+    j-chunks (``step_splits(N, N)`` by default), so the rollout equals
+    `steps` launches of ``nbody_step_cuda`` at the same S bit for bit, at
+    any block size. Returns the new (pos, vel), each (N,4); the inputs are
+    not written (steps=0 returns them, as ``reference.rollout`` does). No
+    path of the port calls it: on the TPU it was measured slower than the
+    step scan (a recorded negative result), and PERF.md has its time on the
+    card."""
+    return _rollout(pos, vel, dt, softening, damping, steps, block_size, splits)
+
+
+def _rollout(pos, vel, dt, softening, damping, steps, block_size, splits=None, lib=None):
+    """``nbody_rollout_cuda`` through `lib`, as ``_step``."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
     _check_pair("pos", pos, "vel", vel, device)
     bs = check_block_size(block_size)
@@ -250,9 +289,12 @@ def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
     if steps == 0 or n == 0:
         return pos, vel
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = step_splits(n, n) if splits is None else int(splits)
     bufs = [(torch.empty_like(pos), torch.empty_like(vel)) for _ in range(2)]
     # copies, never views: a step writes the planes the step before read,
     # and (4, 1) pos.t() would be pos itself
@@ -260,16 +302,15 @@ def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
     planes[0].copy_(pos.t())
     cur = (pos, vel)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
         for k in range(steps):
             nxt = bufs[k % 2]
-            err = lib.nbody_step_t_f32(
+            err = _launch_step(lib, "nbody_step_t", s, n, device, (
                 cur[0].data_ptr(), cur[1].data_ptr(), planes[k % 2].data_ptr(),
                 nxt[0].data_ptr(), nxt[1].data_ptr(), planes[1 - k % 2].data_ptr(), n,
-                ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
-                ctypes.c_float(float(damping)), bs, stream)
+                *_step_scalars(dt, softening, damping), bs))
             _raise_on_error(lib, err, "nbody_step_t_f32 launch")
-            LAUNCHES["step_t"] += 1
+            if counted:
+                LAUNCHES["step_t"] += 1
             cur = nxt
     return cur
 
@@ -278,15 +319,17 @@ def nbody_rollout_cuda(pos, vel, dt, softening, damping, *, steps: int,
 
 
 def nbody_step_dual_cuda(pos, vel, dt, softening, damping, *,
-                         block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+                         block_size: int = DEFAULT_BLOCK_SIZE, out=None,
+                         splits: int | None = None):
     """The dual-bank step (the kernel of ``scripts/tpu_r3_dualbank.py``'s
     ``_dual_kernel``): the fused one-sided Euler step of the set (N,4) on
     itself with two i-bodies a thread, so a block of `block_size` threads
     covers 2 * block_size rows. It computes the same function as
     ``nbody_step_cuda``, whose plain version, ``reference.nbody_step``, is
-    its plain version too; at the same block size each row sums its j-bodies
-    in the step kernel's order. Returns (new_pos, new_vel); ``out`` as for
-    ``nbody_step_cuda``."""
+    its plain version too. It runs in `splits` j-chunks (``step_splits(N,
+    N)`` by default) and each row sums its chunks in the step kernel's
+    order, so the two give the same bits at any block size. Returns
+    (new_pos, new_vel); ``out`` as for ``nbody_step_cuda``."""
     device, new_pos, new_vel = _step_outs(pos, vel, pos, out)
     bs = check_block_size(block_size)
     if device.type != "cuda":
@@ -301,12 +344,11 @@ def nbody_step_dual_cuda(pos, vel, dt, softening, damping, *,
     from nbody_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    s = step_splits(n, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = lib.nbody_step_dual_f32(
+        err = _launch_step(lib, "nbody_step_dual", s, n, device, (
             pos.data_ptr(), vel.data_ptr(), pos.data_ptr(), new_pos.data_ptr(),
-            new_vel.data_ptr(), n, n, ctypes.c_float(float(dt)),
-            ctypes.c_float(float(softening) ** 2), ctypes.c_float(float(damping)), bs,
-            torch.cuda.current_stream().cuda_stream)
+            new_vel.data_ptr(), n, n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_dual_f32 launch")
     LAUNCHES["step_dual"] += 1
     return new_pos, new_vel
@@ -324,15 +366,18 @@ def _check_packed(state, planes, device) -> None:
 
 
 def nbody_step_packed_cuda(state, planes, dt, softening, damping, *,
-                           block_size: int = DEFAULT_BLOCK_SIZE, out=None):
+                           block_size: int = DEFAULT_BLOCK_SIZE, out=None,
+                           splits: int | None = None):
     """The packed-state step (the kernel of ``scripts/tpu_r3_packed.py``'s
     ``_packed_kernel``): the fused one-sided Euler step of the packed state
     (N,8) = [pos | vel], one 32-byte row a body read once and written once,
     the j-side from `planes` (4,N), the x, y, z, m planes of the positions.
     Returns (new_state (N,8), new_planes (4,N)), the planes the next step
     reads, written by the kernel from the new rows; ``out=(new_state,
-    new_planes)`` are preallocated tensors that overlap no input. The plain
-    version is ``reference.nbody_step_packed``."""
+    new_planes)`` are preallocated tensors that overlap no input. It runs in
+    `splits` j-chunks (``step_splits(N, N)`` by default), as the step
+    kernel, whose bits it gives. The plain version is
+    ``reference.nbody_step_packed``."""
     device = state.device if isinstance(state, torch.Tensor) else None
     _check_packed(state, planes, device)
     bs = check_block_size(block_size)
@@ -353,11 +398,11 @@ def nbody_step_packed_cuda(state, planes, dt, softening, damping, *,
     from nbody_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    s = step_splits(n, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = lib.nbody_step_packed_f32(
+        err = _launch_step(lib, "nbody_step_packed", s, n, device, (
             state.data_ptr(), planes.data_ptr(), new_state.data_ptr(), new_planes.data_ptr(),
-            n, ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
-            ctypes.c_float(float(damping)), bs, torch.cuda.current_stream().cuda_stream)
+            n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_packed_f32 launch")
     LAUNCHES["step_packed"] += 1
     return new_state, new_planes
@@ -422,7 +467,8 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
 
 
 # The j-split of the one-sided accel + jerk kernels (csrc/nbody_kernels.cu,
-# csrc/ds_aj_kernels.cu) and of the ds step and force kernels
+# csrc/ds_aj_kernels.cu), of the fp32 step kernel and its twins
+# (csrc/nbody_kernels.cu) and of the ds step, force and leapfrog kernels
 # (csrc/ds_kernels.cu). A launch of M i-rows under N j-bodies runs in S
 # j-chunks, each a whole number of the kernel's shared-memory stages; each
 # chunk sums its j-bodies in index order and a second kernel adds the chunks'
@@ -445,7 +491,13 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
 # scripts/torch_ds_dispatch.py (PERF.md, Findings) the rule's S within 1.5 %
 # and 3.9 % (two calls) of the best S swept (fills 264-8448, blocks 64-256)
 # at (16384, 16384), (65536, 65536), (4096, 16384), (4096, 4096) and
-# (16384, 65536).
+# (16384, 65536). The ds leapfrog kernel takes ds_splits too, so that a
+# leapfrog step from zero velocity gives the force kernel's bits. The fp32
+# step kernel and its rollout, dual-bank and packed twins take step_splits,
+# on the accel + jerk kernel's tile (256 threads x 4 rows) and fill (by
+# scripts/torch_step_dispatch.py, PERF.md, Findings, within 3.4 % of the
+# best fill swept) and a stage of the same length (STEP_STAGE), one rule for
+# all four so that they give one another's bits.
 AJ_STAGE = 256  # j-bodies a stage: kAjStage of csrc/nbody_kernels.cu
 AJ_TILE_I = 1024
 AJ_FILL_BLOCKS = 528
@@ -453,6 +505,7 @@ DS_AJ_STAGE = 128  # kDsAjStage of csrc/ds_aj_kernels.cu
 DS_AJ_TILE_I = 128
 DS_AJ_FILL_BLOCKS = 4224
 DS_STAGE = 128  # kDsStage of csrc/ds_kernels.cu
+STEP_STAGE = 256  # kStepStage of csrc/nbody_kernels.cu
 
 
 def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
@@ -472,6 +525,12 @@ def aj_splits(m: int, n: int) -> int:
     return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=AJ_STAGE, fill=AJ_FILL_BLOCKS)
 
 
+def step_splits(m: int, n: int) -> int:
+    """S of the fp32 one-sided step kernel and its twins (``step_t``,
+    ``step_dual``, ``step_packed``) at M i-rows, N j-bodies."""
+    return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=STEP_STAGE, fill=AJ_FILL_BLOCKS)
+
+
 def ds_aj_splits(m: int, n: int) -> int:
     """S of the ds one-sided accel + jerk kernel at M i-rows, N j-bodies."""
     return one_sided_splits(m, n, tile_i=DS_AJ_TILE_I, stage=DS_AJ_STAGE,
@@ -479,9 +538,10 @@ def ds_aj_splits(m: int, n: int) -> int:
 
 
 def ds_splits(m: int, n: int) -> int:
-    """S of the ds step and force kernels at M i-rows, N j-bodies: one rule
-    for both, so that the force followed by the ds Euler update gives the
-    fused step's bits."""
+    """S of the ds step, force and leapfrog kernels at M i-rows, N j-bodies:
+    one rule for the three, so that the force followed by the ds Euler
+    update gives the fused step's bits, and a leapfrog step from zero
+    velocity the force's."""
     return one_sided_splits(m, n, tile_i=DS_AJ_TILE_I, stage=DS_STAGE, fill=DS_AJ_FILL_BLOCKS)
 
 
@@ -1005,17 +1065,16 @@ def nbody_step_ds_leapfrog_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos
                                    *, block_size: int = DEFAULT_BLOCK_SIZE, out=None):
     """One fused ds drift-kick-drift step of the i-set under the j-set,
     both half-drifted from the start of the step: the kernel of
-    ``_ds_leapfrog_kernel``. `scal` from ``scal_ds_leapfrog``. Returns the
-    four new (M,4) planes."""
+    ``_ds_leapfrog_kernel`` in ``ds_splits(M, N)`` j-chunks. `scal` from
+    ``scal_ds_leapfrog``. Returns the four new (M,4) planes."""
     return _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal,
                         block_size, out)
 
 
 def _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo, scal,
-                 block_size, out, lib=None):
-    """``nbody_step_ds_leapfrog_cuda_vs`` through `lib`: the port's library
-    by default, or another build of the kernel (``scripts/torch_ds_dispatch.py
-    --against``), whose launches are not counted."""
+                 block_size, out, splits=None, lib=None):
+    """``nbody_step_ds_leapfrog_cuda_vs`` in `splits` j-chunks (``ds_splits``
+    by default), through `lib` as ``_ds_step``."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
@@ -1037,10 +1096,15 @@ def _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel
         from nbody_tpu_torch.ops._build import load_library
 
         lib = load_library()
+    s = ds_splits(m, n) if splits is None else int(splits)
+    args = (*(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, scal.data_ptr(), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_ds_leapfrog(
-            *(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, scal.data_ptr(), bs,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_ds_leapfrog(*args, stream)
+        else:
+            parts = torch.empty((s, 6, m), dtype=torch.float32, device=device)
+            err = lib.nbody_ds_leapfrog_split(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_ds_leapfrog launch")
     if counted:
         LAUNCHES["ds_leapfrog"] += 1
@@ -1239,8 +1303,8 @@ def compute_accel_ds_cuda_vs(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, *,
     """(acc_hi, acc_lo), each (M,3): the ds acceleration of the i-set (M,4
     planes) under the j-set (N,4 planes), the kernel of
     ``_ds_accel_kernel`` (``compute_accel_pallas_ds``) in `splits`
-    j-chunks: by default ``ds_splits(M, N)``, the fused ds step's, and 1
-    for the ds leapfrog kernel's sum, which runs in one. The kernel writes
+    j-chunks: by default ``ds_splits(M, N)``, the fused ds step's and
+    leapfrog step's. The kernel writes
     (M,4) rows with w = 0 into ``out``, two preallocated (M,4) tensors that
     must not overlap any input (allocated when None), and this returns their
     (M,3) views, the shape of its plain version ``ds.ds_accel_vs``; rows 4

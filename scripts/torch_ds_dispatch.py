@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure the double-single kernels of nbody_tpu_torch on the card, to fix
-``ds_sym_default_dispatch``, the ds block size and the one-sided ds step and
-force kernels' j-split (``ds_splits``; ops/cuda_kernel.py).
+``ds_sym_default_dispatch``, the ds block size and the one-sided ds step,
+force and leapfrog kernels' j-split (``ds_splits``; ops/cuda_kernel.py).
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -15,31 +15,34 @@ plain versions (ops/ds.py) at small ragged shapes, for every tile and two
 block sizes, with shell ICs, masses drawn in float64 from [0.5, 2] (so with
 a lo part), a random vel.w and damping 0.5: each output, as hi + lo in
 float64, within 1e-12 * max + 1e-14, repeat calls bit-equal, and each force
-within 1e-10 * max|a| of the float64 oracle's. The split step and force
-kernels are held at odd M and N, N below a stage and not a multiple of it,
-in one j-chunk, the rule's and three, at blocks 32 to 1024, their repeats
-and blocks bit-equal, and the force followed by the ds Euler update
-bit-equal to the step. --quick stops there.
+within 1e-10 * max|a| of the float64 oracle's. The split step, force and
+leapfrog kernels are held at odd M and N, N below a stage and not a multiple
+of it, in one j-chunk, the rule's and three, at blocks 32 to 1024, their
+repeats and blocks bit-equal, the force followed by the ds Euler update
+bit-equal to the step, and a leapfrog step from zero velocity (dt = 1,
+damping 1) bit-equal to the force. --quick stops there.
 
 --against DIR builds DIR/csrc/ds_kernels.cu (another checkout's, with its
 shared headers) with the library's nvcc flags into a library of its own,
 launched through the port's wrappers (``cuda_kernel._ds_step``,
-``_ds_accel``, ``_ds_leapfrog`` with ``lib=``; a build without the j-split
-entry points runs one chunk, as it was written), prints its ptxas lines
-and SASS counts, checks that this checkout's kernels in one chunk, and
-its leapfrog kernel, give DIR's bits at every checked and timed shape, and
-prints whether the two leapfrog kernels' whole SASS is the same. Then it
-times DIR's kernels in turns with this checkout's (DIR, this, this, DIR,
-six rounds) at (M, N) = (16384, 16384), (65536, 65536), (4096, 16384), (4096,
-4096) and (16384, 65536) (one card at the ds default N and at 65536, a
-four-card allgather rank or ring hop at N = 16384, and a four-card ring
-hop at N = 65536), each at ``ds_default_block_size(M)``, with nvidia-smi's
-SM clock sampled beside and the issue bound of each walk's SASS count, and
-a ds ``one_sided`` Euler step and a ds ring Euler step on a one-rank NCCL
-mesh (D = 1) at N = 16384 and 65536, DIR's kernels routed into the systems.
+``_ds_accel``, ``_ds_leapfrog`` with ``lib=``; a build without a j-split
+entry point runs that kernel in one chunk, as it was written), prints its
+ptxas lines and SASS counts, and checks that this checkout's kernels in one
+chunk give DIR's bits at every checked and timed shape. Then it times DIR's
+kernels in turns with this checkout's (DIR, this, this, DIR, six rounds;
+the median and every round printed) at (M, N) = (16384, 16384), (65536,
+65536), (4096, 16384), (4096, 4096) and (16384, 65536) (one card at the ds
+default N and at 65536, a four-card allgather rank or ring hop at N =
+16384, and a four-card ring hop at N = 65536), each at
+``ds_default_block_size(M)``, with nvidia-smi's SM clock sampled beside and
+the issue bound of each walk's SASS count, and a ds ``one_sided`` Euler
+step, a ds ring Euler step on a one-rank NCCL mesh (D = 1) and a ds
+``one_sided`` leapfrog step at N = 16384 and 65536, DIR's kernels routed
+into the systems.
 
-Then, unless --no-sweep, it times the split force kernel per fill and
-block size at those shapes, and at N = 16384, 32768, 65536 and 131072
+Then, unless --no-sweep, it times the split force and leapfrog kernels per
+fill and block size at those shapes, and at N = 16384, 32768, 65536 and
+131072
 (shell ICs, demo-0 softening) the one-sided ds step per block size, the ds
 leapfrog step, and the each-pair-once ds force per tile and block cap,
 beside the fp32 one-sided step and sym force at the same N: CUDA events
@@ -51,7 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import pathlib
-import re
+import statistics
 import subprocess
 import sys
 
@@ -77,28 +80,12 @@ def ptxas_report() -> None:
             print(line)
 
 
-def function_sass(sass: str, key: str) -> list:
-    """The SASS lines of the functions of `sass` whose mangled names contain
-    `key`, as cuobjdump prints them (addresses relative to each function),
-    without the name line, and with the source's hash that nvcc puts in
-    the names of an anonymous namespace's symbols taken out."""
-    lines, keep = [], False
-    for line in sass.splitlines():
-        if "Function : " in line:
-            keep = key in line
-        elif keep:
-            lines.append(re.sub(r"_INTERNAL_[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "_INTERNAL_", line))
-    return lines
-
-
-def walk_counts(label: str, source, sass_of: dict) -> dict:
+def walk_counts(label: str, source) -> dict:
     """Print the ptxas lines of `source` and the SASS count a pair of each
-    one-sided kernel's walk; returns {kernel: the cheapest walk's count}.
-    Keeps the SASS in `sass_of[label]`."""
+    one-sided kernel's walk; returns {kernel: the cheapest walk's count}."""
     from nbody_tpu_torch.ops import _build
 
     usage, sass = _build.sass_of(source)
-    sass_of[label] = sass
     for line in _build.ptxas_lines(source, label=label, usage=usage):
         print(line)
     best = {}
@@ -132,9 +119,10 @@ def against_library(source: pathlib.Path, tmp: pathlib.Path):
 
 @contextlib.contextmanager
 def routed(ck, lib):
-    """The systems' ds step and force calls through `lib` in one j-chunk
-    (the unsplit kernels' form), uncounted, while the block runs."""
-    saved = ck.nbody_step_ds_cuda_vs, ck.compute_accel_ds_cuda_vs
+    """The systems' ds step, force and leapfrog calls through `lib` in one
+    j-chunk (the unsplit kernels' form), uncounted, while the block runs."""
+    saved = (ck.nbody_step_ds_cuda_vs, ck.compute_accel_ds_cuda_vs,
+             ck.nbody_step_ds_leapfrog_cuda_vs)
 
     def step(ph, pl, vh, vl, jh, jl, scal, *, block_size=ck.DEFAULT_BLOCK_SIZE, out=None):
         return ck._ds_step(ph, pl, vh, vl, jh, jl, scal, block_size, out, splits=1, lib=lib)
@@ -142,11 +130,16 @@ def routed(ck, lib):
     def accel(ph, pl, jh, jl, scal, *, block_size=None, out=None, splits=None):
         return ck._ds_accel(ph, pl, jh, jl, scal, block_size, out, splits=1, lib=lib)
 
+    def leapfrog(*planes, block_size=ck.DEFAULT_BLOCK_SIZE, out=None):
+        return ck._ds_leapfrog(*planes, block_size, out, splits=1, lib=lib)
+
     ck.nbody_step_ds_cuda_vs, ck.compute_accel_ds_cuda_vs = step, accel
+    ck.nbody_step_ds_leapfrog_cuda_vs = leapfrog
     try:
         yield
     finally:
-        ck.nbody_step_ds_cuda_vs, ck.compute_accel_ds_cuda_vs = saved
+        (ck.nbody_step_ds_cuda_vs, ck.compute_accel_ds_cuda_vs,
+         ck.nbody_step_ds_leapfrog_cuda_vs) = saved
 
 
 def main() -> int:
@@ -183,14 +176,13 @@ def run(args, tmp: pathlib.Path) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     ptxas_report()
-    sass_of = {}
-    per_pair = {"this": walk_counts("this", SOURCE, sass_of)}
+    per_pair = {"this": walk_counts("this", SOURCE)}
     other = None
     if args.against is not None:
         csrc = args.against.resolve() / "nbody_tpu_torch" / "csrc"
         if not csrc.is_dir():
             csrc = args.against.resolve() / "csrc"
-        per_pair["against"] = walk_counts("against", csrc / SOURCE, sass_of)
+        per_pair["against"] = walk_counts("against", csrc / SOURCE)
         other = against_library(csrc / SOURCE, tmp)
     dev = torch.device("cuda", 0)
     demo = DEMO_PARAMS[0]
@@ -254,32 +246,43 @@ def run(args, tmp: pathlib.Path) -> int:
             got = ck.nbody_step_ds_leapfrog_cuda_vs(*pi, *pj, lscal, block_size=bs)
             want = ds.nbody_step_ds_leapfrog_vs(*pi, *pj, lscal)
             held(f"ds leapfrog block={bs} ({m},{n})", [got[:2], got[2:]], [want[:2], want[2:]])
-    # the split step and force: odd M and N, N below a stage and not a
-    # multiple of it, one j-chunk (1), the rule's (None) and three, at every
-    # block size class; the same S gives the same bits at every block and
-    # on a repeat, and the force then the update gives the step's bits
+    # the split step, force and leapfrog: odd M and N, N below a stage and
+    # not a multiple of it, one j-chunk (1), the rule's (None) and three, at
+    # every block size class; the same S gives the same bits at every block
+    # and on a repeat, the force then the update gives the step's bits, and
+    # a leapfrog step from zero velocity (dt = 1, damping 1) the force's
+    unit_l = ds.scal_ds_leapfrog(1.0, soft, 1.0)
     for m, n in ((1000, 1000), (777, 4099), (4099, 777), (1, 33), (33, 1), (1025, 127)):
         pi = planes(m, seed=3, masses=True)
         pj = planes(n, masses=True)
         want_acc = ds.ds_accel_vs(pi[0], pi[1], pj[0], pj[1], scal)
         want = ds.ds_integrate(*pi, want_acc, scal)
+        want_lf = ds.nbody_step_ds_leapfrog_vs(*pi, *pj, lscal)
+        rest_i = (pi[0], pi[1], torch.zeros_like(pi[2]), torch.zeros_like(pi[3]))
+        rest_j = (pj[0], pj[1], torch.zeros_like(pj[2]), torch.zeros_like(pj[3]))
         for sp in (None, 1, 3):
             s = ck.ds_splits(m, n) if sp is None else sp
             first = None
             for bs in (32, 128, 256, 1024):
-                step = ck._ds_step(*pi, pj[0], pj[1], scal, bs, None, splits=sp)
-                acc = ck._ds_accel(pi[0], pi[1], pj[0], pj[1], scal, bs, None, splits=sp)
-                got = (*step, *acc)
-                again = (*ck._ds_step(*pi, pj[0], pj[1], scal, bs, None, splits=sp),
-                         *ck._ds_accel(pi[0], pi[1], pj[0], pj[1], scal, bs, None, splits=sp))
+                def calls(bs=bs, sp=sp):
+                    return (*ck._ds_step(*pi, pj[0], pj[1], scal, bs, None, splits=sp),
+                            *ck._ds_accel(pi[0], pi[1], pj[0], pj[1], scal, bs, None,
+                                          splits=sp),
+                            *ck._ds_leapfrog(*pi, *pj, lscal, bs, None, splits=sp))
+                got = calls()
+                step, acc, lf = got[:4], got[4:6], got[6:]
                 first = got if first is None else first
-                rep = same(got, again) and same(got, first)
+                rep = same(got, calls()) and same(got, first)
                 ok &= rep
                 what = f"({m},{n}) splits={s} block={bs} (repeat and block 32 bit-equal {rep})"
                 held(f"ds step {what}", [step[:2], step[2:]], [want[:2], want[2:]])
                 held(f"ds accel {what}", [acc], [want_acc])
+                held(f"ds leapfrog {what}", [lf[:2], lf[2:]], [want_lf[:2], want_lf[2:]])
                 bits(f"ds accel + ds_integrate = ds step ({m},{n}) splits={s} block={bs}",
                      ck.ds_integrate_cuda(*pi, *acc, scal), step)
+                rest = ck._ds_leapfrog(*rest_i, *rest_j, unit_l, bs, None, splits=sp)[2:]
+                bits(f"ds leapfrog from rest = ds accel ({m},{n}) splits={s} block={bs}",
+                     [t[:, :3] for t in rest], acc)
     # the ds force against the float64 oracle's, which a float32-grade
     # force misses by three orders
     pos, _ = state64(4099, masses=True)
@@ -297,8 +300,8 @@ def run(args, tmp: pathlib.Path) -> int:
               "(bound 1e-10)")
     states = {n: planes(n) for n in sorted({n for _, n in SHAPES})}
     if other is not None:
-        # this checkout's kernels in one chunk, and its leapfrog kernel, give
-        # DIR's bits: at the ragged shapes and at every timed one
+        # this checkout's kernels in one chunk give DIR's bits: at the
+        # ragged shapes and at every timed one
         cases = [((m, n), planes(m, seed=3, masses=True), planes(n, masses=True))
                  for m, n in ((1000, 1000), (777, 4099), (4099, 777), (33, 1))]
         cases += [((m, n), tuple(t[:m] for t in states[n]), states[n]) for m, n in SHAPES]
@@ -310,16 +313,9 @@ def run(args, tmp: pathlib.Path) -> int:
                     ("accel", lambda lib: ck._ds_accel(pi[0], pi[1], pj[0], pj[1], scal, bs,
                                                        None, splits=1, lib=lib)),
                     ("leapfrog", lambda lib: ck._ds_leapfrog(*pi, *pj, lscal, bs, None,
-                                                             lib=lib))):
+                                                             splits=1, lib=lib))):
                 bits(f"this {kind} at one chunk = against ({m},{n}) block={bs}", fn(None),
                      fn(other))
-        # the leapfrog kernel's whole SASS, not its walk alone
-        lf = [function_sass(sass_of[k], WALKS["ds_leapfrog_kernel"]) for k in ("this", "against")]
-        differ = [(a, b) for a, b in zip(*lf) if a != b]
-        print(f"sass ds_leapfrog_kernel: {len(lf[0])} lines this, {len(lf[1])} against, "
-              f"{len(differ)} differ; identical {bool(lf[0]) and lf[0] == lf[1]}")
-        for a, b in differ[:8]:
-            print(f"  this    {a.strip()}\n  against {b.strip()}")
     torch.cuda.synchronize()
     print(f"checks {'passed' if ok else 'FAILED'}")
     if not ok:
@@ -347,14 +343,16 @@ def run(args, tmp: pathlib.Path) -> int:
             extra = ""
             if pairs.get(k) and pairs[k][1] and mhz:
                 issue = pairs[k][0] * pairs[k][1] / 32 / (sms * 4 * mhz * 1e6) * 1e3
-                extra = f"; issue bound {issue:.3f} ms at {pairs[k][1]:.2f} a pair, {mhz:.0f} MHz"
-            print(f"{k}: {min(ts):.4f} ms per call (rounds: " + ", ".join(f"{t:.4f}" for t in ts)
-                  + f"){extra} [{smi}]")
+                extra = (f"; issue bound {issue:.3f} ms at {pairs[k][1]:.2f} a pair, {mhz:.0f} "
+                         f"MHz ({100 * issue / statistics.median(ts):.1f} %)")
+            print(f"{k}: {min(ts):.4f} ms per call, median {statistics.median(ts):.4f} (rounds: "
+                  + ", ".join(f"{t:.4f}" for t in ts) + f"){extra} [{smi}]")
         print(f"  clocks beside it: {clocks.summary()}")
 
     def kernel_runs(label, lib):
         split = lib is None or hasattr(lib, "nbody_ds_step_split")
         sp = None if split else 1
+        lf_split = lib is None or hasattr(lib, "nbody_ds_leapfrog_split")
         walks = per_pair.get(label, {})
         runs, pairs = {}, {}
         for m, n in SHAPES:
@@ -371,11 +369,11 @@ def run(args, tmp: pathlib.Path) -> int:
             runs[key] = (lambda pi=pi, pj=pj, out=out, bs=bs: ck._ds_step(
                 *pi, pj[0], pj[1], scal, bs, out, splits=sp, lib=lib))
             pairs[key] = (m * n, walks.get("ds_step_kernel"))
-            if m == n:
-                key = f"{label} ds_leapfrog ({m},{n}) block={bs}"
-                runs[key] = (lambda pi=pi, pj=pj, out=out, bs=bs: ck._ds_leapfrog(
-                    *pi, *pj, lscal, bs, out, lib=lib))
-                pairs[key] = (m * n, walks.get("ds_leapfrog_kernel"))
+            key = (f"{label} ds_leapfrog ({m},{n}) block={bs} splits="
+                   f"{ck.ds_splits(m, n) if lf_split else 1}")
+            runs[key] = (lambda pi=pi, pj=pj, out=out, bs=bs: ck._ds_leapfrog(
+                *pi, *pj, lscal, bs, out, splits=None if lf_split else 1, lib=lib))
+            pairs[key] = (m * n, walks.get("ds_leapfrog_kernel"))
         return runs, pairs
 
     if other is not None:
@@ -390,21 +388,30 @@ def run(args, tmp: pathlib.Path) -> int:
         system_steps(torch, ck, other, smi, dev)
     if args.no_sweep:
         return 0
-    # the split force kernel: S by the rule at each fill, per block
+    # the split force and leapfrog kernels: S by the rule at each fill, per
+    # block
     for m, n in SHAPES:
         pj = states[n]
         pi = tuple(t[:m] for t in pj)
-        out = tuple(torch.empty_like(pi[0]) for _ in range(2))
-        runs, pairs = {}, {}
-        for bs in (64, 128, 256):
-            for fill in (264, 528, 1056, 2112, 4224, 8448):
-                sp = ck.one_sided_splits(m, n, tile_i=ck.DS_AJ_TILE_I, stage=ck.DS_STAGE,
-                                         fill=fill)
-                key = f"ds_accel ({m},{n}) block={bs} splits={sp}"
-                runs.setdefault(key, lambda bs=bs, sp=sp: ck._ds_accel(
-                    pi[0], pi[1], pj[0], pj[1], scal, bs, out, splits=sp))
-                pairs[key] = (m * n, per_pair["this"].get("ds_accel_kernel"))
-        turns(runs, pairs)
+        out = tuple(torch.empty_like(pi[0]) for _ in range(4))
+        print(f"sweep ({m},{n}): the rule's S = {ck.ds_splits(m, n)}")
+        for kind, blocks in (("ds_accel", (64, 128, 256)),
+                             ("ds_leapfrog", (64, 128, 256, 512, 1024))):
+            runs, pairs = {}, {}
+            for bs in blocks:
+                for fill in (264, 528, 1056, 2112, 4224, 8448):
+                    sp = ck.one_sided_splits(m, n, tile_i=ck.DS_AJ_TILE_I, stage=ck.DS_STAGE,
+                                             fill=fill)
+                    key = f"{kind} ({m},{n}) block={bs} splits={sp}"
+                    if kind == "ds_accel":
+                        fn = (lambda bs=bs, sp=sp: ck._ds_accel(
+                            pi[0], pi[1], pj[0], pj[1], scal, bs, out[:2], splits=sp))
+                    else:
+                        fn = (lambda bs=bs, sp=sp: ck._ds_leapfrog(
+                            *pi, *pj, lscal, bs, out, splits=sp))
+                    runs.setdefault(key, fn)
+                    pairs[key] = (m * n, per_pair["this"].get(f"{kind}_kernel"))
+            turns(runs, pairs)
     del states
 
     reps = 3
@@ -445,9 +452,10 @@ def run(args, tmp: pathlib.Path) -> int:
 
 
 def system_steps(torch, ck, other, smi: str, dev) -> None:
-    """A ds one_sided Euler step and a ds ring Euler step on a one-rank NCCL
-    mesh at N = 16384 and 65536, DIR's kernels (routed, one chunk) in turns
-    with this checkout's: ms a step over `steps` steps after one."""
+    """A ds one_sided Euler step, a ds ring Euler step on a one-rank NCCL
+    mesh and a ds one_sided leapfrog step at N = 16384 and 65536, DIR's
+    kernels (routed, one chunk) in turns with this checkout's: ms a step
+    over `steps` steps after one, six rounds (DIR, this, this, DIR, ...)."""
     import torch.distributed as dist
 
     from nbody_tpu_torch import DEMO_PARAMS
@@ -458,21 +466,26 @@ def system_steps(torch, ck, other, smi: str, dev) -> None:
     mesh = make_mesh(1)
     try:
         for n, steps in ((16384, 10), (65536, 3)):
-            systems = {"one_sided": DSBodySystem(n, DEMO_PARAMS[0], device=dev,
-                                                 variant="one_sided"),
-                       "ring D=1": DSBodySystem(n, DEMO_PARAMS[0], device=dev, mesh=mesh,
-                                                strategy="ring")}
+            systems = {"one_sided Euler": DSBodySystem(n, DEMO_PARAMS[0], device=dev,
+                                                       variant="one_sided"),
+                       "ring D=1 Euler": DSBodySystem(n, DEMO_PARAMS[0], device=dev, mesh=mesh,
+                                                      strategy="ring"),
+                       "one_sided leapfrog": DSBodySystem(n, DEMO_PARAMS[0], device=dev,
+                                                          variant="one_sided",
+                                                          integrator="leapfrog")}
             for name, system in systems.items():
                 ms = {"against": [], "this": []}
-                for label in ("against", "this", "this", "against"):
+                for label in ("against", "this", "this", "against") * 3:
                     ctx = routed(ck, other) if label == "against" else contextlib.nullcontext()
                     with ctx:
                         system.update_many(1)
                         ms[label].append(elapsed_ms(lambda: system.update_many(steps), dev)
                                          / steps)
-                print(f"ds {name} Euler step N={n}: against "
-                      + ", ".join(f"{t:.4f}" for t in ms["against"]) + " / this "
-                      + ", ".join(f"{t:.4f}" for t in ms["this"]) + f" ms a step [{smi}]")
+                print(f"ds {name} step N={n}: against median "
+                      f"{statistics.median(ms['against']):.4f} ("
+                      + ", ".join(f"{t:.4f}" for t in ms["against"]) + ") / this median "
+                      f"{statistics.median(ms['this']):.4f} ("
+                      + ", ".join(f"{t:.4f}" for t in ms["this"]) + f") ms a step [{smi}]")
             del systems
             torch.cuda.empty_cache()
     finally:

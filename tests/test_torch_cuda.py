@@ -324,6 +324,40 @@ def test_accel_jerk_split_matches_plain_and_is_the_same_at_every_block(dev, m, n
             assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
+@pytest.mark.parametrize("m, n", [(1025, 4099), (777, 65537), (4099, 4099), (33, 255),
+                                  (16384, 65536), (4099, 777)])
+def test_step_split_matches_plain_and_is_the_same_at_every_block(dev, m, n):
+    """The fp32 step kernel in its j-chunks (``step_splits``), in one and in
+    three, at ragged and odd M and N: within the bound of plain carried
+    through the step (masses from [0.5, 2], a random vel.w, damping 0.5), w
+    lanes kept; at each S the same bits at blocks 32 to 1024 (4 rows a thread
+    up to 512, one above) and on repeats; at M = N the rollout, dual and
+    packed twins give the step's bits at the same S and block."""
+    pj, vj = _random_w(*_state(n, dev))
+    pi, vi = (pj, vj) if m == n else _random_w(*_state(m, dev, seed=3))
+    rp, rv = reference.nbody_step_vs(pi, vi, pj, DT, SOFT, 0.5)
+    tol = _tol(reference.compute_accel_vs(pi, pj, SOFT))
+    for splits in (None, 1, 3):
+        first = cuda_kernel._step(pi, vi, pj, DT, SOFT, 0.5, 32, None, splits=splits)
+        assert (first[1] - rv).abs().max().item() <= 1e-5 + DT * tol
+        assert (first[0] - rp).abs().max().item() <= 1e-5 + DT * DT * tol
+        assert torch.equal(first[0][:, 3], pi[:, 3]) and torch.equal(first[1][:, 3], vi[:, 3])
+        for bs in (64, 128, 256, 512, 1024, 256):
+            got = cuda_kernel._step(pi, vi, pj, DT, SOFT, 0.5, bs, None, splits=splits)
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
+            if m == n:
+                roll = cuda_kernel.nbody_rollout_cuda(pi, vi, DT, SOFT, 0.5, steps=1,
+                                                      block_size=bs, splits=splits)
+                dual = cuda_kernel.nbody_step_dual_cuda(pi, vi, DT, SOFT, 0.5, block_size=bs,
+                                                        splits=splits)
+                ns, npl = cuda_kernel.nbody_step_packed_cuda(
+                    torch.cat([pi, vi], 1), pi.t().contiguous(), DT, SOFT, 0.5, block_size=bs,
+                    splits=splits)
+                for twin in (roll, dual, (ns[:, :4], ns[:, 4:])):
+                    assert all(torch.equal(a, b) for a, b in zip(twin, first))
+                assert torch.equal(npl, first[0].t())
+
+
 @pytest.mark.parametrize("n", [1, 33, 333, 1000, 4099])
 @pytest.mark.parametrize("tile", [128, 512, 1024])
 def test_aj_sym_triangle_matches_plain(dev, n, tile):
@@ -721,6 +755,48 @@ def test_ds_split_step_and_accel_match_plain_and_oracle(dev, m, n):
             assert all(torch.equal(a, b) for a, b in zip((*step, *acc), first))
             hop = cuda_kernel.ds_integrate_cuda(*sub, *acc, scal)
             assert all(torch.equal(a, b) for a, b in zip(hop, step))
+
+
+@pytest.mark.parametrize("m, n", [(16384, 16384), (65536, 65536), (4096, 16384), (4096, 4096),
+                                  (16384, 65536)])
+def test_ds_split_leapfrog_matches_plain_and_oracle(dev, m, n):
+    """The ds leapfrog kernel on the first m rows of a set, in its j-chunks
+    (``ds_splits``) and in one: its first rows (4096 at most) within 1e-12 *
+    max + 1e-14 of plain; its force (a step from zero velocity, dt = 1,
+    damping 1, drifts no body) within 1e-10 * max|a| + 1e-12 of the set's
+    float64 oracle and bit-equal to the force kernel's at the same S; at
+    each S the same bits at blocks 64 to 1024 and on a repeat."""
+    from nbody_tpu_torch.compute import _oracle_accel
+    from nbody_tpu_torch.ops import ds
+
+    planes, pos64 = _ds_planes(n, dev)
+    sub = tuple(t[:m] for t in planes)
+    scal = ds.scal_ds_leapfrog(DT, SOFT, 0.5)
+    unit = ds.scal_ds_leapfrog(1.0, SOFT, 1.0)
+    k = min(m, 4096)
+    want = ds.nbody_step_ds_leapfrog_vs(*(t[:k] for t in sub), *planes, scal)
+    ref = _oracle_accel(pos64, SOFT)[:m]
+    zero = torch.zeros_like(planes[2])
+    rest_j = (planes[0], planes[1], zero, zero)
+    rest_i = tuple(t[:m] for t in rest_j)
+    for splits in sorted({cuda_kernel.ds_splits(m, n), 1}):
+        first = None
+        for bs in (128, 64, 256, 512, 1024, 128):
+            got = cuda_kernel._ds_leapfrog(*sub, *planes, scal, bs, None, splits=splits)
+            if first is None:
+                first = got
+                rows = [tuple(t[:k] for t in got[:2]), tuple(t[:k] for t in got[2:])]
+                _ds_held(rows, [want[:2], want[2:]])
+                for g, q in zip(got, sub):
+                    assert torch.equal(g[:, 3], q[:, 3])
+                force = cuda_kernel._ds_leapfrog(*rest_i, *rest_j, unit, bs, None,
+                                                 splits=splits)[2:]
+                a64 = ds.ds_to_f64(*force)[:, :3]
+                assert np.abs(a64 - ref).max() <= 1e-10 * np.abs(ref).max() + 1e-12
+                acc = cuda_kernel._ds_accel(*rest_i[:2], planes[0], planes[1], unit, bs, None,
+                                            splits=splits)
+                assert all(torch.equal(f[:, :3], a) for f, a in zip(force, acc))
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])

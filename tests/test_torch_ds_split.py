@@ -1,21 +1,27 @@
-"""The j-split of the port's one-sided ds step and force kernels
+"""The j-split of the port's one-sided ds step, force and leapfrog kernels
 (``cuda_kernel.ds_splits``, csrc/ds_kernels.cu) against nbody_tpu.
 
 The kernels cut the j-range into S chunks of whole shared-memory stages,
 sum each chunk in j order and ds-add the chunks' partials in chunk order;
-the step then applies its update to that sum. Both kernels take S from one
-rule, so that the force followed by the ds Euler update gives the step's
-bits. On the CPU the split is plain Python, so these tests hold the rule
-itself (S at least 1, chunks that cover [0, N) once and in order, one chunk
-where the i-tiles fill the card) and the arithmetic in that order: the
-plain versions (ops/ds.py) summed over the chunks in chunk order, against
+the steps then apply their update to that sum (the leapfrog step after
+half-drifting both sides). All three take S from one rule, so that the
+force followed by the ds Euler update gives the step's bits, and a
+leapfrog step from zero velocity the force's. On the CPU the split is plain
+Python, so these tests hold the rule itself (S at least 1, chunks that
+cover [0, N) once and in order, one chunk where the i-tiles fill the
+card) and the arithmetic in that order: the plain versions (ops/ds.py)
+summed over the chunks in chunk order, against
 the JAX package's interpret-mode ``compute_accel_pallas_ds`` and
 ``nbody_step_pallas_ds_vs`` (tile_j=128). Tolerances are the JAX suites'
 own, as in tests/test_torch_ds.py: against the interpret path 5e-8 *
 max|a| for the force, |dpos| < 1e-11 and a relative force of 5e-8 through
 a step; against the float64 oracle 1e-11 * max|a|, and through a step
-|dpos| < 1e-12 and 1e-11. The card's bits are held in
-tests/test_torch_cuda.py and chip_smoke.py.
+|dpos| < 1e-12 and 1e-11. The leapfrog step: its force at the half-step
+positions within 1e-10 * max|a| + 1e-12 of the float64 oracle's; its
+positions and velocities within 5e-8 of the interpret-mode
+``nbody_step_pallas_ds_leapfrog_vs`` and 1e-12 of the oracle's DKD step, as
+tests/test_torch_ds.py holds the unsplit plain version. The card's bits are
+held in tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import functools
@@ -30,7 +36,7 @@ import torch
 from nbody_tpu import NBodyConfig as JaxNBodyConfig
 from nbody_tpu import ic as jax_ic
 from nbody_tpu.ops import ds_kernel as jds
-from nbody_tpu.oracle.numpy_oracle import accel_numpy, step_numpy
+from nbody_tpu.oracle.numpy_oracle import accel_numpy, step_numpy, step_numpy_leapfrog
 
 from nbody_tpu_torch.ops import cuda_kernel as ck
 from nbody_tpu_torch.ops import ds
@@ -258,3 +264,98 @@ def test_cpu_force_then_update_is_the_step(splits):
     got = ck.ds_integrate_cuda(*i_planes, *acc, scal)
     want = ck._ds_step(*i_planes, planes[0], planes[1], scal, 256, None, splits=splits)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---- the leapfrog step: both sides half-drifted, the force chunk by chunk ----
+
+
+@functools.lru_cache(maxsize=None)
+def _leapfrog_case(m, n):
+    """The planes of an N-body state, whose first m rows are the i-set; the
+    JAX interpret-mode damped DKD step of the i-set under the whole set;
+    the float64 oracle's force at the half-step positions and its DKD step
+    of those rows."""
+    pos, vel = _state64(n)
+    planes = (*ds.ds_from_f64(pos), *ds.ds_from_f64(vel))
+    scal = ds.scal_ds_leapfrog(DT, SOFT, 0.5)
+    jp = tuple(jnp.asarray(t.numpy()) for t in planes)
+    step = jds.nbody_step_pallas_ds_leapfrog_vs(*(t[:m] for t in jp), *jp,
+                                                jnp.asarray(scal.numpy()), tile_j=128,
+                                                interpret=True)
+    half = pos.copy()
+    half[:, :3] += vel[:, :3] * (DT / 2)
+    op, ov = step_numpy_leapfrog(pos, vel, DT, SOFT, 0.5)
+    return (planes, scal, tuple(np.asarray(a) for a in step), accel_numpy(half, SOFT)[:m],
+            op[:m], ov[:m])
+
+
+def _chunked_leapfrog(planes, m, n, splits, scal):
+    """The plain leapfrog step of the first m rows under the whole set, its
+    force at the half-step positions summed chunk by chunk and ds-added in
+    chunk order, then the kick and second drift; returns (the four new
+    planes, the force)."""
+    hh, hl = ds.ds_half_drift(*(t[:m] for t in planes), scal)
+    jh, jl = ds.ds_half_drift(*planes, scal)
+    acc = None
+    for j0, j1 in _split_bounds(n, splits):
+        part = ds.ds_accel_vs(hh, hl, jh[j0:j1], jl[j0:j1], scal)
+        acc = part if acc is None else ds.ds_add(acc, part)
+    return ds.ds_leapfrog_finish(hh, hl, planes[2][:m], planes[3][:m], acc, scal), acc
+
+
+@pytest.mark.parametrize("m, n, splits", CHUNKED)
+def test_chunked_plain_leapfrog_matches_pallas_and_oracle(m, n, splits):
+    """The split leapfrog kernel's arithmetic in its order: the force at
+    the half-step positions against the float64 oracle's, the step against
+    the interpret-mode DKD step and the oracle's, the mass and vel.w carried
+    through both planes."""
+    planes, scal, want, oracle, op, ov = _leapfrog_case(m, n)
+    s = ck.ds_splits(m, n) if splits is None else splits
+    assert s > 1
+    got, acc = _chunked_leapfrog(planes, m, n, s, scal)
+    a64 = ds.ds_to_f64(*acc)
+    assert a64.shape == (m, 3)
+    assert np.abs(a64 - oracle).max() <= 1e-10 * np.abs(oracle).max() + 1e-12
+    gp, gv = ds.ds_to_f64(*got[:2]), ds.ds_to_f64(*got[2:])
+    for tol, ref_p, ref_v in ((5e-8, jds.ds_to_f64(*want[:2]), jds.ds_to_f64(*want[2:])),
+                              (1e-12, op, ov)):
+        assert np.abs(gp[:, :3] - ref_p[:, :3]).max() < tol
+        assert np.abs(gv[:, :3] - ref_v[:, :3]).max() < tol
+    for g, p in zip(got, planes):
+        assert torch.equal(g[:, 3], p[:m, 3])
+
+
+def test_one_chunk_is_the_unsplit_plain_leapfrog():
+    """S = 1 is the whole j-range in one sum: the plain leapfrog step."""
+    planes, scal, *_ = _leapfrog_case(77, 301)
+    got, _ = _chunked_leapfrog(planes, 77, 301, 1, scal)
+    want = ds.nbody_step_ds_leapfrog_vs(*(t[:77] for t in planes), *planes, scal)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_a_leapfrog_step_from_rest_takes_the_force_at_the_start():
+    """With zero velocities the half drift moves no body (p + 0 dt/2 is p
+    exactly in ds), so the chunked leapfrog force is the chunked force of
+    the split force kernel's arithmetic, bit for bit: the contract that
+    lets ``DSBodySystem.accelerations()`` of a leapfrog system take
+    ``ds_splits`` as the leapfrog step does."""
+    planes, _, *_ = _leapfrog_case(77, 301)
+    zero = torch.zeros_like(planes[2])
+    rest = (planes[0], planes[1], zero, zero)
+    s = ck.ds_splits(77, 301)
+    _, acc = _chunked_leapfrog(rest, 77, 301, s, ds.scal_ds_leapfrog(1.0, SOFT, 1.0))
+    want = _chunked_accel(rest, 77, 301, s, ds.scal_ds(1.0, SOFT, 1.0))
+    assert all(torch.equal(a, w) for a, w in zip(acc, want))
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_cpu_leapfrog_wrapper_takes_the_plain_version_at_any_split(splits):
+    planes, scal, *_ = _leapfrog_case(77, 301)
+    i_planes = tuple(t[:77].contiguous() for t in planes)
+    launches = dict(ck.LAUNCHES)
+    got = ck._ds_leapfrog(*i_planes, *planes, scal, 256, None, splits=splits)
+    want = ds.nbody_step_ds_leapfrog_vs(*i_planes, *planes, scal)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert ck.LAUNCHES == launches
