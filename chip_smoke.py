@@ -17,7 +17,10 @@ its result:
      {4099, 65536}; the step also in its j-chunks (step_splits) and in one
      at (1025, 65537), (16384, 65536) and (4099, 4099), masses from [0.5,
      2], a random vel.w and damping 0.5, blocks 128, 256 and 1024
-     bit-equal; their times at N=65536;
+     bit-equal; the force likewise at (1025, 65537), (16384, 65536) and
+     (16384, 16384), blocks 64 to 1024 and a repeat bit-equal, at the
+     rule's S bit-equal to the velocity of a step from rest (dt = 1,
+     damping 1: the force is the step's sum); their times at N=65536;
   3s. the each-pair-once kernels against their plain versions: the
      triangle at N in {1000, 4099}, the blocked composition at N=65536 and
      at N=135168 (the main path's shapes), the rectangle at (777, 4099) and
@@ -148,7 +151,8 @@ its result:
      at D = 1 (M = 4099, 65536) bit-equal to one accel launch, through the
      emulated ring (D virtual ranks in one launch) at D = 2 and 4 with
      shards of 1025 and 16384 every rank bit-equal to the hop-ordered sum
-     of accel launches, all within 1e-4 * max|a| + 1e-4 of the plain
+     of accel launches (each hop in step_splits(M, M) j-chunks: 17, 16, 5
+     and 64), all within 1e-4 * max|a| + 1e-4 of the plain
      version; 200 emulated D = 4 calls bit-equal to the first; its times at
      D = 1 and emulated D = 4 (N=65536 in all) beside accel, in turns;
   3ri. the fused ring between two processes on the card through CUDA IPC
@@ -179,7 +183,8 @@ its result:
      sym_accel_cuda, the three actions bit-equal; repeat calls bit-equal;
      the production kernels' registers (step and step_t at 4 rows a
      thread, sym_tri<8>) those of the recorded build, and no spill inside
-     the walk of any instantiation of the four step kernels (SASS); times
+     the walk of any instantiation of the four step kernels, the force
+     kernel and the ring kernel, which run the same walk (SASS); times
      at N=65536 in turns beside the kernel each one varies;
   5e. the ports of the experiment scripts as a user runs them, at N=65536:
      scripts/torch_r3_dualbank.py, scripts/torch_r3_packed.py and
@@ -298,7 +303,7 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
 NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
          "step_t": "nbody_step_t_f32, nbody_step_t_split_f32 (+ step_finish_kernel)",
          "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
-         "accel": "nbody_accel_f32",
+         "accel": "nbody_accel_f32, nbody_accel_split_f32 (+ sum_partials_kernel)",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32, nbody_accel_jerk_split_f32",
          "potential": "nbody_potential_f32",
@@ -311,7 +316,7 @@ NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
          "ds_accel_jerk": "nbody_ds_accel_jerk, nbody_ds_accel_jerk_split",
          "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
-         "ring_fused": "nbody_ring_accel_f32",
+         "ring_fused": "nbody_ring_accel_f32 (+ ring_finish_kernel)",
          "step_dual": "nbody_step_dual_f32, nbody_step_dual_split_f32 (+ step_finish_kernel)",
          "step_packed": "nbody_step_packed_f32, nbody_step_packed_split_f32 "
                         "(+ step_finish_kernel)",
@@ -352,15 +357,20 @@ EXPERIMENT_KERNELS = ("step_dual", "step_packed", "sym_ablate_full", "sym_ablate
 # piece of their mangled names, and their registers (ptxas -v): sym_tri's in
 # the build before the templates took the experiments' arguments; the step
 # kernels' (4 rows a thread, blocks up to 512) in the build whose shared walk
-# (fused_step) took several rows a thread and the j-split
+# (walk_chunk, csrc/allpairs_common.cuh) the force and the ring kernel run
+# too (step_t's 64 of the build before it, with 8 bytes spilled outside its
+# walk, became 62 and no spill)
 PRODUCTION_MANGLED = {"step_kernel<4, 512>": "11step_kernelILi4ELi512EE",
                       "step_t_kernel<4, 512>": "13step_t_kernelILi4ELi512EE",
                       "sym_tri_kernel<8>": "14sym_tri_kernelILi8EE"}
-PRODUCTION_REGISTERS = {"step_kernel<4, 512>": 64, "step_t_kernel<4, 512>": 64,
+PRODUCTION_REGISTERS = {"step_kernel<4, 512>": 64, "step_t_kernel<4, 512>": 62,
                         "sym_tri_kernel<8>": 127}
 # the four step kernels by a piece of their mangled names (phase 3e holds
-# every instantiation's walk free of spills)
+# every instantiation's walk free of spills), and the kernels that run
+# their walk: the force (nbody_kernels.cu) and the fused ring (ring_kernels.cu)
 STEP_WALKS = ("11step_kernel", "13step_t_kernel", "16step_dual_kernel", "18step_packed_kernel")
+WALK_SHARERS = {"nbody_kernels.cu": ("12accel_kernel",),
+                "ring_kernels.cu": ("17ring_accel_kernel",)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -514,6 +524,31 @@ def phase_kernels(torch) -> dict:
                       f"step kernel differs between blocks at M={m} N={n} splits={splits}")
             print(f"[3 kernels] step M={m} N={n} splits={splits}: blocks 128, 256, 1024 "
                   "bit-equal")
+
+    # the force in its j-chunks (step_splits) and in one, at an odd shape and
+    # the four-card hop shapes, masses from [0.5, 2]: within the bound above,
+    # the same bits at blocks 64 to 1024 and on a repeat, and at the rule's S
+    # the velocity of a step from rest (dt = 1, damping 1): the step's sums
+    for m, n in ((1025, 65537), (N_QA, N_MAIN), (N_QA, N_QA)):
+        pj, _ = shell_state(torch, n, random_w=True)
+        pi = pj[:m].contiguous()
+        a_r = reference.compute_accel_vs(pi, pj, soft)
+        tol_a = 1e-4 * a_r.abs().max().item() + 1e-4
+        rest = ck.nbody_step_cuda_vs(pi, torch.zeros_like(pi), pj, 1.0, soft, 1.0)[1][:, :3]
+        for splits in sorted({ck.step_splits(m, n), 1}):
+            first = ck._accel(pi, pj, soft, 256, splits=splits)
+            same = all(torch.equal(ck._accel(pi, pj, soft, bs, splits=splits), first)
+                       for bs in (64, 128, 256, 512, 1024))
+            e_a = (first - a_r).abs().max().item()
+            step = bool(torch.equal(first, rest))
+            what = f"M={m} N={n} splits={splits}"
+            print(f"[3 kernels] accel {what}: max|da|={e_a:.3e} (tol {tol_a:.3e}); blocks 64-1024 "
+                  f"and a repeat bit-equal {same}; a step from rest's velocity bit-equal {step}")
+            check(e_a <= tol_a, f"split accel kernel disagrees at {what}")
+            check(same, f"accel kernel differs between blocks or repeats at {what}")
+            check(step or splits != ck.step_splits(m, n),
+                  f"accel kernel differs from the step kernel's sum at {what}")
+            err["accel"] = max(err["accel"], e_a)
 
     # times at the main path's shape: N=65536, the default block of 256
     p, v = shell_state(torch, N_MAIN)
@@ -1445,7 +1480,7 @@ def phase_ring_kernel(torch) -> dict:
         bits = all(torch.equal(g, w) for g, w in zip(got, want))
         e = max((g - q).abs().max().item() for g, q in zip(got, plain))
         tol = 1e-4 * max(q.abs().max().item() for q in plain) + 1e-4
-        what = f"D={d} M={m}" + (" (emulated)" if d > 1 else "")
+        what = f"D={d} M={m} S={ck.step_splits(m, m)}" + (" (emulated)" if d > 1 else "")
         print(f"[3rf ring kernel] {what}: every rank bit-equal to the hop-ordered accel "
               f"launches {bits}; max|da| against plain {e:.3e} (tol {tol:.3e})")
         check(bits, f"ring_fused differs from the hop-ordered accel launches at {what}")
@@ -2292,17 +2327,18 @@ def ptxas_registers(usage: dict, key: str) -> int:
     return found[0]
 
 
-def step_walks_checked(build, usage: dict, text: str) -> None:
-    """Each instantiation of the four step kernels (STEP_WALKS) has a walk,
-    the loop around its rsqrt, and no local-memory access (LDL, STL: a
-    spill) inside it; a local access elsewhere in the kernel is printed
-    with where it lies: before or after the walk, and in a loop around it
-    (the stage loop: once a stage), in another loop, or in none (once a
-    launch)."""
+def step_walks_checked(build, usage: dict, text: str, keys=STEP_WALKS,
+                       source: str = "nbody_kernels.cu") -> None:
+    """Each instantiation of the kernels `keys` of `source` (by default the
+    four step kernels, STEP_WALKS) has a walk, the loop around its rsqrt,
+    and no local-memory access (LDL, STL: a spill) inside it; a local
+    access elsewhere in the kernel is printed with where it lies: before or
+    after the walk, and in a loop around it (the stage loop: once a stage),
+    in another loop, or in none (once a launch)."""
     names = build.demangle(usage)
-    for key in STEP_WALKS:
+    for key in keys:
         funcs = build.sass_functions(text, key)
-        check(bool(funcs), f"no kernel {key} in the SASS of nbody_kernels.cu")
+        check(bool(funcs), f"no kernel {key} in the SASS of {source}")
         for fname, ins in funcs.items():
             name = names.get(fname, fname)
             walks = build.sass_loops(text, fname)
@@ -2357,10 +2393,13 @@ def phase_experiment_kernels(torch) -> dict:
     from nbody_tpu_torch.utils.timing import elapsed_ms
 
     for src, kernels in (("nbody_kernels.cu", ("step_kernel<4, 512>", "step_t_kernel<4, 512>")),
+                         ("ring_kernels.cu", ()),
                          ("symmetric_kernels.cu", ("sym_tri_kernel<8>",))):
-        if src == "nbody_kernels.cu":
+        if src in WALK_SHARERS:
             usage, text = _build.sass_of(src)
-            step_walks_checked(_build, usage, text)
+            if src == "nbody_kernels.cu":
+                step_walks_checked(_build, usage, text)
+            step_walks_checked(_build, usage, text, WALK_SHARERS[src], src)
         else:
             usage = _build.ptxas_usage(src)
         for line in _build.ptxas_lines(src, usage=usage):

@@ -10,7 +10,7 @@
 //   nbody_step_t_f32     <- nbody_tpu/ops/pallas_kernel.py::_step_kernel_t
 //                           (def :202, pallas_call :557; nbody_rollout_pallas)
 //   nbody_accel_f32      <- nbody_tpu/ops/pallas_kernel.py::_accel_kernel
-//                           (compute_accel_pallas)
+//                           (def :272, pallas_call :462; compute_accel_pallas)
 //   nbody_accel_jerk_f32 <- nbody_tpu/ops/pallas_kernel.py::_accel_jerk_kernel
 //                           (compute_accel_jerk_pallas)
 //   nbody_potential_f32  <- nbody_tpu/ops/pallas_kernel.py::_potential_kernel
@@ -19,7 +19,8 @@
 //                           (def :36, pallas_call :115; step_dual)
 //   nbody_step_packed_f32 <- scripts/tpu_r3_packed.py::_packed_kernel
 //                           (def :33, pallas_call :81; step_packed)
-// The first two compute, for the i-set (M bodies) under the j-set (N bodies),
+// The step and force kernels compute, for the i-set (M bodies) under the
+// j-set (N bodies),
 //   d = p_j - p_i;  r2 = |d|^2 + eps2;  inv = rsqrtf(r2);  s = m_j * inv^3;
 //   a_i += s * d
 // exactly as pallas_kernel.py:79-87. The self pair adds 0 only because d = 0,
@@ -27,13 +28,10 @@
 // The step kernel then applies v = (v + a*dt)*damping, p = p + v*dt and
 // copies pos.w (mass) and vel.w through (pallas_kernel.py:106-122).
 //
-// Design. The force kernel (accel_kernel, and the fused ring's per-hop
-// force, ring_kernels.cu) keeps the reference CUDA sample's walk
-// (accumulate_all_j, allpairs_common.cuh): one thread an i-body, the
-// j-bodies staged through shared memory in tiles of block_size float4s,
-// each read by every thread as a broadcast. The step kernel and its three
-// twins (step_t, step_dual, step_packed) share one walk, fused_step, on the
-// one-sided accel + jerk kernel's recipe (below):
+// Design. The step kernel, its three twins (step_t, step_dual,
+// step_packed) and the force kernel (accel_kernel) run one walk, walk_chunk
+// (allpairs_common.cuh), on the one-sided accel + jerk kernel's recipe
+// (below); so do the fused ring's hops (ring_kernels.cu):
 //   * ROWS i-bodies a thread (kStepRows = 4 at blocks of up to 512 threads,
 //     1 above; 2 for step_dual_kernel), rows u * blockDim.x apart, each with
 //     its position and three sums in registers, so one shared-memory
@@ -46,29 +44,31 @@
 //     block size, the walk over a stage unrolled kStepUnroll times;
 //   * a j-split: the grid is (i-tiles, S), chunk c of the j-range
 //     [c * L, min((c + 1) * L, N)), L a whole number of stages, S a pure
-//     function of M and N (ops/cuda_kernel.py::step_splits). With S = 1 a
-//     block applies the update and writes its layout; with S > 1 it writes
-//     its three sums into the partials (S, 3, M) and step_finish_kernel adds
-//     each row's partials in chunk order, then applies the same update
-//     (euler_update). Each row sums its chunk from 0 in j order, so the bits
-//     depend on (M, N) alone: not on ROWS, the block, the card or the call.
-//     The four twins therefore give one another's bits at every block. No
-//     atomics.
+//     function of M and N (ops/cuda_kernel.py::step_splits, one rule for
+//     the step, its twins and the force). With S = 1 a block applies the
+//     update and writes its layout (the force: its sums into acc); with
+//     S > 1 it writes its three sums into the partials (S, 3, M), and a
+//     second kernel adds each row's partials in chunk order from 0
+//     (step_finish_kernel, which then applies the same update, euler_update;
+//     for the force sum_partials, sym_common.cuh). Each row sums its chunk
+//     from 0 in j order, so the bits depend on (M, N) alone: not on ROWS,
+//     the block, the card or the call. The four twins therefore give one
+//     another's bits at every block, and the force's sums are the very
+//     numbers the step kernel adds before its update. No atomics.
 // The Pallas kernel's (TILE_I, 128) lane accumulators, their lane reduction
 // and its VMEM scratch have no counterpart: a thread owns whole rows of its
 // j-chunk.
 //
-// What bounds the step on an H100: issue. A pair is ~20 flops by the
-// reference's count, 12 FP32-pipe instructions and one MUFU.RSQ (its unit
-// runs at an eighth of the FP32 rate: 8 cycles a warp, under the 12), plus a
-// quarter of an LDS.128 at ROWS 4 and the loop's share. Memory is no limit:
-// 16 bytes a staged j-body for blockDim.x * ROWS pairs, and the partials'
-// 12 bytes a row and chunk. The force kernel, one row a thread with rsqrtf,
-// issues ~17 a pair; its redesign is later work.
+// What bounds the step and the force on an H100: issue. A pair is ~20
+// flops by the reference's count, 12 FP32-pipe instructions and one
+// MUFU.RSQ (its unit runs at an eighth of the FP32 rate: 8 cycles a warp,
+// under the 12), plus a quarter of an LDS.128 at ROWS 4 and the loop's
+// share. Memory is no limit: 16 bytes a staged j-body for blockDim.x * ROWS
+// pairs, and the partials' 12 bytes a row and chunk.
 //
-// Precision: fp32 only. rsqrtf (rsqrt_ftz in the step) is the hardware
-// approximation (at most 2 ulp), which is what the reference CUDA kernel
-// uses; the QA bound
+// Precision: fp32 only. rsqrtf (rsqrt_ftz in the step and force kernels,
+// its bits for every normal input) is the hardware approximation (at most 2
+// ulp), which is what the reference CUDA kernel uses; the QA bound
 // (|dpos| <= 5e-4 after one dt=1e-3 step against the CPU oracle) and the
 // kernel-vs-plain bound (1e-4 * max|a| + 1e-4 on the acceleration) cover
 // it. Built with -O3 and without --use_fast_math, so plain divisions and
@@ -167,8 +167,8 @@
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
 // (float4 loads), acc (M,3); the `_split` entry points take S and a device
-// scratch for the partials (S * 3 * M floats for the steps, S * 6 * M for
-// accel + jerk). The caller makes the arrays' device current; the
+// scratch for the partials (S * 3 * M floats for the steps and the force,
+// S * 6 * M for accel + jerk). The caller makes the arrays' device current; the
 // kernel runs on the given stream of that device, allocates nothing and does
 // not synchronise. Each entry point returns cudaGetLastError() after the
 // launch.
@@ -192,22 +192,21 @@ constexpr int kAjRows = 4;
 constexpr int kAjStage = 256;
 constexpr int kAjUnroll = 2;
 
-// The step kernels' constants: the accel + jerk walk's recipe without the
-// jerk (12 FP32-pipe instructions a pair against 26, so the loop and the
-// shared-memory read weigh more). i-bodies a thread at blocks of up to 512
-// threads (1 above, as kAjRows; launch_step picks both); step_dual_kernel
-// keeps its 2 at every block. j-bodies a shared-memory stage (4 KB), the
-// j-split's unit (ops/cuda_kernel.py's STEP_STAGE). Steps of a stage's walk
-// unrolled.
-constexpr int kStepRows = 4;
+// The step and force kernels' walk (walk_chunk, allpairs_common.cuh, with
+// its constants kStepRows, kStepStage, kStepUnroll) is the accel + jerk
+// walk's recipe without the jerk (12 FP32-pipe instructions a pair against
+// 26, so the loop and the shared-memory read weigh more). step_dual_kernel
+// keeps its 2 rows a thread at every block.
 constexpr int kDualRows = 2;
-constexpr int kStepStage = 256;
-constexpr int kStepUnroll = 4;
 
-// The j-side loaders: the (N,4) array of the step and force kernels (AosJ,
-// allpairs_common.cuh) and the (4, N) planes x, y, z, m that the rollout
-// carries. Both give the same float4, so the staged j-body, and every bit
-// after it, is the same.
+// The j-side loaders: the (N,4) array of the step and force kernels and the
+// (4, N) planes x, y, z, m that the rollout carries. Both give the same
+// float4, so the staged j-body, and every bit after it, is the same.
+struct AosJ {
+  const float4* __restrict__ p;
+  __device__ __forceinline__ float4 operator()(const int64_t j) const { return p[j]; }
+};
+
 struct PlanesJ {
   const float* __restrict__ t;  // (4, ld): x, y, z, m
   int64_t ld;
@@ -245,15 +244,13 @@ __device__ __forceinline__ void euler_update(const float4 pi, const float4 vi, c
 // The fused Euler step of ROWS i-bodies a thread against j-chunk blockIdx.y,
 // shared by step_kernel, step_t_kernel, step_dual_kernel and
 // step_packed_kernel so that they give the same bits. A block covers ROWS *
-// blockDim.x rows; row u of a thread is blockIdx.x * ROWS * blockDim.x + u *
-// blockDim.x + threadIdx.x, so each row's loads stay coalesced. Body i's
+// blockDim.x rows from blockIdx.x * ROWS * blockDim.x (load_rows). Body i's
 // position and velocity are pos_i[STRIDE * i] and vel_i[STRIDE * i] (STRIDE
 // 2: the packed [pos|vel] rows, vel_i = pos_i + 1). The chunk is [blockIdx.y
 // * chunk, min((blockIdx.y + 1) * chunk, n)), `chunk` a multiple of
-// kStepStage; each row sums it from 0 in j order, whatever ROWS and the
-// block, so the sums depend on the chunk alone. parts == nullptr (one
-// chunk): the update (euler_update) and its outputs; else the row's three
-// sums into parts[(blockIdx.y * 3 + comp) * m + i].
+// kStepStage, walked by walk_chunk. parts == nullptr (one chunk): the update
+// (euler_update) and its outputs; else the row's three sums into the
+// partials (store_chunk).
 template <int ROWS, int STRIDE, class JLoad>
 __device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
                                            const float4* __restrict__ vel_i,
@@ -263,60 +260,22 @@ __device__ __forceinline__ void fused_step(const float4* __restrict__ pos_i,
                                            const int64_t n, const int64_t chunk, const float dt,
                                            const float eps2, const float damping,
                                            float* __restrict__ parts) {
-  __shared__ float4 sp[kStepStage];
-  const int bs = blockDim.x;
-  const int tid = threadIdx.x;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * bs + tid;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * blockDim.x + threadIdx.x;
   float4 pi[ROWS];
   float ax[ROWS], ay[ROWS], az[ROWS];
-#pragma unroll
-  for (int u = 0; u < ROWS; ++u) {
-    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
-    // threads past M still stage j-bodies for the rest of the block
-    pi[u] = (i < m) ? pos_i[STRIDE * i] : zero;
-    ax[u] = 0.f;
-    ay[u] = 0.f;
-    az[u] = 0.f;
-  }
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t j1 = j0 + chunk < n ? j0 + chunk : n;
-  for (int64_t base = j0; base < j1; base += kStepStage) {
-    for (int k = tid; k < kStepStage; k += bs) {
-      const int64_t j = base + k;
-      sp[k] = (j < n) ? load_j(j) : zero;
-    }
-    __syncthreads();
-#pragma unroll(kStepUnroll)
-    for (int k = 0; k < kStepStage; ++k) {
-      const float4 pj = sp[k];
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const float dx = pj.x - pi[u].x;
-        const float dy = pj.y - pi[u].y;
-        const float dz = pj.z - pi[u].z;
-        const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
-        const float inv = rsqrt_ftz(r2);
-        const float s = pj.w * ((inv * inv) * inv);  // m_j / r^3
-        ax[u] = fmaf(s, dx, ax[u]);
-        ay[u] = fmaf(s, dy, ay[u]);
-        az[u] = fmaf(s, dz, az[u]);
-      }
-    }
-    __syncthreads();
+  load_rows<ROWS, STRIDE>(pos_i, i0, m, pi);
+  walk_chunk<ROWS>(pi, load_j, static_cast<int64_t>(blockIdx.y) * chunk, chunk, n, eps2, ax, ay,
+                   az);
+  if (parts != nullptr) {
+    store_chunk<ROWS>(parts, blockIdx.y, i0, m, ax, ay, az);
+    return;
   }
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int64_t i = i0 + static_cast<int64_t>(u) * bs;
+    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
     if (i >= m) continue;
-    if (parts != nullptr) {
-      parts[(blockIdx.y * 3 + 0) * m + i] = ax[u];
-      parts[(blockIdx.y * 3 + 1) * m + i] = ay[u];
-      parts[(blockIdx.y * 3 + 2) * m + i] = az[u];
-    } else {
-      euler_update<STRIDE>(pi[u], vel_i[STRIDE * i], ax[u], ay[u], az[u], dt, damping, i, m,
-                           new_pos, new_vel, new_post);
-    }
+    euler_update<STRIDE>(pi[u], vel_i[STRIDE * i], ax[u], ay[u], az[u], dt, damping, i, m,
+                         new_pos, new_vel, new_post);
   }
 }
 
@@ -397,19 +356,33 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       n, chunk, dt, eps2, damping, parts);
 }
 
-__global__ void accel_kernel(const float4* __restrict__ pos_i,
-                             const float4* __restrict__ pos_j,
-                             float* __restrict__ acc, const int64_t m,
-                             const int64_t n, const float eps2) {
-  extern __shared__ float4 tile[];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float4 pi = (i < m) ? pos_i[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  accumulate_all_j(pi, AosJ{pos_j}, n, eps2, tile, ax, ay, az);
-  if (i >= m) return;
-  acc[3 * i + 0] = ax;
-  acc[3 * i + 1] = ay;
-  acc[3 * i + 2] = az;
+// The force of ROWS i-bodies a thread against j-chunk blockIdx.y: the step
+// kernel's walk (fused_step without the update), so its sums are the ones
+// the step applies. parts == nullptr (one chunk): the sums into acc (M, 3);
+// else into the partials (store_chunk), which sum_partials adds.
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    accel_kernel(const float4* __restrict__ pos_i, const float4* __restrict__ pos_j,
+                 float* __restrict__ acc, const int64_t m, const int64_t n, const int64_t chunk,
+                 const float eps2, float* __restrict__ parts) {
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ROWS * blockDim.x + threadIdx.x;
+  float4 pi[ROWS];
+  float ax[ROWS], ay[ROWS], az[ROWS];
+  load_rows<ROWS, 1>(pos_i, i0, m, pi);
+  walk_chunk<ROWS>(pi, AosJ{pos_j}, static_cast<int64_t>(blockIdx.y) * chunk, chunk, n, eps2, ax,
+                   ay, az);
+  if (parts != nullptr) {
+    store_chunk<ROWS>(parts, blockIdx.y, i0, m, ax, ay, az);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int64_t i = i0 + static_cast<int64_t>(u) * blockDim.x;
+    if (i >= m) continue;
+    acc[3 * i + 0] = ax[u];
+    acc[3 * i + 1] = ay[u];
+    acc[3 * i + 2] = az[u];
+  }
 }
 
 // Rows [i0, i0 + blockDim.x * ROWS) of the i-set, row u of this thread at
@@ -571,11 +544,6 @@ bool valid_step(int64_t bs, int64_t m, int64_t n, int64_t splits, const void* pa
          (splits == 1 || parts != nullptr);
 }
 
-// the j-chunk length, in whole stages, of `splits` chunks of n j-bodies
-int64_t step_chunk(int64_t n, int64_t splits) {
-  return cdiv(cdiv(n, kStepStage), splits) * kStepStage;
-}
-
 // A step on the grid (i-tiles of rows * block_size rows, splits):
 // walk(grid, chunk, parts or nullptr) launches the step kernel, then with
 // splits > 1 step_finish_kernel<STRIDE> adds the partials in `parts`
@@ -598,20 +566,20 @@ int launch_split(const Walk walk, const int64_t rows, const float4* pos_i, const
 
 // launch_split of a step kernel that comes in two instantiations: `four`
 // (<kStepRows, 512>) at blocks of up to 512 threads, `one` (<1, 1024>)
-// above. The one place that picks both the kernel and the rows its grid
-// covers; walk(kernel, grid, chunk, parts or nullptr) launches `kernel`.
+// above, as rows_a_thread picks; walk(kernel, grid, chunk, parts or nullptr)
+// launches `kernel`.
 template <int STRIDE, class Kernel, class Walk>
 int launch_step(const Kernel four, const Kernel one, const Walk walk, const float4* pos_i,
                 const float4* vel_i, float4* new_pos, float4* new_vel, float* new_post,
                 int64_t m, int64_t n, float dt, float damping, int64_t block_size,
                 int64_t splits, float* parts, cudaStream_t stream) {
-  const bool many = block_size <= 512;
-  const Kernel kernel = many ? four : one;
+  const int rows = rows_a_thread(block_size);
+  const Kernel kernel = rows == kStepRows ? four : one;
   const auto launch = [&](const dim3 grid, const int64_t chunk, float* out) {
     walk(kernel, grid, chunk, out);
   };
-  return launch_split<STRIDE>(launch, many ? kStepRows : 1, pos_i, vel_i, new_pos, new_vel,
-                              new_post, m, n, dt, damping, block_size, splits, parts, stream);
+  return launch_split<STRIDE>(launch, rows, pos_i, vel_i, new_pos, new_vel, new_post, m, n, dt,
+                              damping, block_size, splits, parts, stream);
 }
 
 int launch_step_f32(const void* pos_i, const void* vel_i, const void* pos_j, void* new_pos,
@@ -680,6 +648,32 @@ int launch_step_packed_f32(const void* state, const void* post, void* new_state,
   return launch_step<2>(step_packed_kernel<kStepRows, 512>, step_packed_kernel<1, 1024>, walk,
                         st, st + 1, ns, ns + 1, npt, n, n, dt, damping, block_size, splits,
                         parts, stream);
+}
+
+// The force on the grid (i-tiles of rows_a_thread * block_size rows,
+// splits), then with splits > 1 sum_partials adds the partials in `parts`
+// (splits * 3 * m floats) in chunk order into acc.
+int launch_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m, int64_t n,
+                     float eps2, int64_t block_size, int64_t splits, float* parts,
+                     cudaStream_t stream) {
+  if (!valid_step(block_size, m, n, splits, parts)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const auto pi = static_cast<const float4*>(pos_i);
+  const auto pj = static_cast<const float4*>(pos_j);
+  const auto a = static_cast<float*>(acc);
+  const int rows = rows_a_thread(block_size);
+  const dim3 grid(num_blocks(m, rows * block_size), static_cast<unsigned int>(splits));
+  const auto bs = static_cast<unsigned int>(block_size);
+  const int64_t chunk = step_chunk(n, splits);
+  float* out = splits > 1 ? parts : nullptr;
+  if (rows == kStepRows) {
+    accel_kernel<kStepRows, 512><<<grid, bs, 0, stream>>>(pi, pj, a, m, n, chunk, eps2, out);
+  } else {
+    accel_kernel<1, 1024><<<grid, bs, 0, stream>>>(pi, pj, a, m, n, chunk, eps2, out);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_partials(parts, splits, 3, m, a, 3, 1, 0, stream);
 }
 
 }  // namespace
@@ -754,16 +748,20 @@ int nbody_step_packed_split_f32(const void* state, const void* post, void* new_s
                                 static_cast<cudaStream_t>(stream));
 }
 
+// acc (m, 3) of the i-set under the j-set (n, 4), one j-chunk (S = 1)
 int nbody_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m,
                     int64_t n, float eps2, int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || m < 0 || n < 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  accel_kernel<<<num_blocks(m, block_size), static_cast<unsigned int>(block_size), smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos_i), static_cast<const float4*>(pos_j),
-      static_cast<float*>(acc), m, n, eps2);
-  return cudaGetLastError();
+  return launch_accel_f32(pos_i, pos_j, acc, m, n, eps2, block_size, 1, nullptr,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// the same in `splits` j-chunks: scratch holds splits * 3 * m floats, the
+// chunks' partial sums, added in chunk order into acc
+int nbody_accel_split_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m, int64_t n,
+                          float eps2, int64_t block_size, int64_t splits, void* scratch,
+                          void* stream) {
+  return launch_accel_f32(pos_i, pos_j, acc, m, n, eps2, block_size, splits,
+                          static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
 }
 
 // acc (m, 3) and jerk (m, 3) of the i-set under the j-set, one j-chunk

@@ -11,13 +11,26 @@
 // h it holds the shard of rank (r-h) mod D (the order of the port's unfused
 // ring, parallel/sharded.py::_ring). Hop 0 is the rank's own shard.
 //
-// Sums: each hop's partial force is the force kernel's j-loop
-// (accumulate_all_j, allpairs_common.cuh: one thread per i-body, j-tiles of
-// block_size bodies in shared memory) from zero, and the thread adds it to
-// its running total in hop order, total = total + partial, rounded as one
-// float32 add (__fadd_rn, never contracted). That is what the unfused ring
-// computes with one nbody_accel_f32 launch a hop and torch.add, so at the
-// same block size the two give the same bits. No atomics touch a sum.
+// Sums: hop h's partial force is the force kernel's (nbody_kernels.cu,
+// accel_kernel) at (M, M): S = step_splits(M, M) j-chunks of the visiting
+// shard (ops/cuda_kernel.py; FusedRing passes it), each summed from 0 in j
+// order by the step kernel's walk (walk_chunk, allpairs_common.cuh), then
+// the chunks added in chunk order from 0 (the chunk's own sum when S = 1).
+// The rank's total is hop 0, then total = total + hop h in hop order,
+// rounded as one float32 add (__fadd_rn, never contracted). That is what
+// the unfused ring computes with one nbody_accel_f32 launch a hop and
+// torch.add, so the two give the same bits at any block size. No atomics
+// touch a sum.
+//
+// The work of a hop is items (i-tile, chunk), ceil(M / (ROWS * blockDim.x))
+// tiles times S chunks, many more than the i-tiles alone at the shard sizes
+// of a ring; the G blocks of a rank walk items b, b + G, ... and write each
+// item's chunk sums into the rank's partials (D, S, 3, M), hop h at its own
+// offset (memory the caller allocates, which only the rank's own blocks
+// touch). After the cooperative launch, ring_finish_kernel, an ordinary
+// launch on the same stream, adds each row's partials in chunk and hop
+// order into the (M,3) output. So no block waits on another block of its
+// rank, and the flags carry only the ring's copies and credits.
 //
 // Peers: the kernel addresses the neighbours' buffers only through a table
 // of pointers, one entry per rank of the launch. In a real ring a launch
@@ -43,8 +56,7 @@
 //      end, copies its slice of hop h's shard into the right neighbour's
 //      slot (h+1)%2 with plain stores through the peer pointer, fences at
 //      system scope, and signals arrived (release, system scope);
-//   3. computes hop h for its i-blocks (b, b+G, ...), totals in the (M,3)
-//      output, which each thread alone reads and writes;
+//   3. computes hop h's items b, b+G, ... into the partials;
 //   4. h >= 1: gives its left neighbour the credit for slot h%2 (release).
 // After the last hop a block waits for its right neighbour's credits of that
 // hop, the last writes a peer makes into the region in a call: when a
@@ -67,19 +79,22 @@
 //     that sees the word set ends too. The wrapper reads the word after the
 //     launch and raises;
 //   D = 1: no hop waits, copies or signals;
-//   ragged shards: a thread past M stages j-tiles and writes nothing, a
-//     j-slot past M loads mass 0 (accumulate_all_j).
+//   ragged shards: a thread past M stages its share of each j-stage and
+//     writes nothing, a j-slot past M loads mass 0 (walk_chunk).
 //
-// What bounds it on an H100: the force kernel's arithmetic, 20 flops a pair
-// by the reference's count over (D*M) * M pairs a rank; a hop moves M*16
-// bytes to the right neighbour (NVLink between cards, device memory in an
-// emulated ring), which overlaps the hop's compute of the other blocks. The
+// What bounds it on an H100: the force kernel's issue, 20 flops a pair by
+// the reference's count (the walk's 12 FP32-pipe instructions and one
+// MUFU.RSQ) over (D*M) * M pairs a rank; a hop moves M*16 bytes to the
+// right neighbour (NVLink between cards, device memory in an emulated
+// ring), which overlaps the hop's compute of the other blocks, and writes
+// S*12 bytes a row into the partials, which the finish reads once. The
 // waits cost a warp's poll of G flags a hop.
 //
 // Interface: plain C, loaded with ctypes. The caller makes the card
-// current. nbody_ring_accel_f32 launches on the given stream and does not
-// synchronise; nbody_ring_read_error synchronises the stream and reads a
-// region's error word. Each entry point returns a cudaError_t.
+// current. nbody_ring_accel_f32 launches the ring kernel and its finish on
+// the given stream and does not synchronise; nbody_ring_read_error
+// synchronises the stream and reads a region's error word. Each entry point
+// returns a cudaError_t.
 
 #include <cstdint>
 #include <cstring>
@@ -91,11 +106,12 @@
 namespace {
 
 constexpr int kMaxLaunchRanks = 16;
-constexpr int kTableFields = 6;  // pos, acc, self, right, left, rank
+constexpr int kTableFields = 7;  // pos, acc, parts, self, right, left, rank
 
 struct RankPtrs {
   const float4* pos;  // (M,4) the rank's shard
   float* acc;         // (M,3) its force, out
+  float* parts;       // (D, S, 3, M) its hops' chunk sums, scratch
   char* self;         // its region
   char* right;        // the right neighbour's region
   char* left;         // the left neighbour's region
@@ -202,12 +218,36 @@ struct CgJ {
   __device__ __forceinline__ float4 operator()(const int64_t j) const { return __ldcg(p + j); }
 };
 
+// One work item of a hop: rows [i0 - threadIdx.x, + ROWS * blockDim.x) of
+// the shard `pos` against chunk c of the visiting shard `src`, as the force
+// kernel's block (tile, c) computes it, into the hop's partials. Not
+// inlined: inlined into the ring kernel, whose ring state stays live across
+// it, ptxas scheduled the walk one row's dependency chain at a time (the
+// same 13.56 SASS instructions a pair), and the kernel took 2.64 ms of
+// device time at D = 1, N = 65536 against the force kernel's 2.24 on an
+// H100; as a call it takes the force kernel's time (2.25 against 2.25;
+// scripts/torch_accel_dispatch.py, in turns), at 122 registers.
+template <int ROWS>
+__device__ __noinline__ void ring_item(const float4* __restrict__ pos,
+                                       const float4* __restrict__ src,
+                                       float* __restrict__ parts, const int64_t i0,
+                                       const int64_t c, const int64_t chunk, const int64_t m,
+                                       const float eps2) {
+  float4 pi[ROWS];
+  float ax[ROWS], ay[ROWS], az[ROWS];
+  load_rows<ROWS, 1>(pos, i0, m, pi);
+  walk_chunk<ROWS>(pi, CgJ{src}, c * chunk, chunk, m, eps2, ax, ay, az);
+  store_chunk<ROWS>(parts, c, i0, m, ax, ay, az);
+}
+
 // The table is a __grid_constant__ parameter: a block indexes it by its rank
-// without a copy into local memory.
-__global__ void ring_accel_kernel(const __grid_constant__ LaunchTable tab, const int64_t d,
-                                  const int64_t m, const int64_t g, const float eps2,
-                                  const uint64_t epoch, const int64_t timeout_ns) {
-  extern __shared__ float4 tile[];
+// without a copy into local memory. ROWS and MAX_THREADS as the force
+// kernel's (rows_a_thread picks the instantiation).
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    ring_accel_kernel(const __grid_constant__ LaunchTable tab, const int64_t d, const int64_t m,
+                      const int64_t g, const int64_t splits, const float eps2,
+                      const uint64_t epoch, const int64_t timeout_ns) {
   const RankPtrs rp = tab.r[blockIdx.x / g];
   const int64_t b = blockIdx.x % g;
   const Region me = region(rp.self, m, g);
@@ -216,7 +256,13 @@ __global__ void ring_accel_kernel(const __grid_constant__ LaunchTable tab, const
   // one error word a launch: the first rank's (the only one in a real ring)
   unsigned long long* error = region(tab.r[0].self, m, g).error;
   const int bs = blockDim.x;
-  const int64_t num_iblocks = (m + bs - 1) / bs;
+  const int64_t tiles = (m + ROWS * bs - 1) / (ROWS * bs);
+  const int64_t chunk = step_chunk(m, splits);
+  // item it is (tile it % tiles, chunk it / tiles); a block's items step by
+  // g, so it steps its (tile, chunk) by (g % tiles, g / tiles), no division
+  // in the loop
+  const int64_t dc = g / tiles, dt = g - dc * tiles;
+  const int64_t c0 = b / tiles, t0 = b - c0 * tiles;
   for (int64_t h = 0; h < d; ++h) {
     const int64_t s = h & 1;
     const uint64_t use = use_of_hop(epoch, d, h);
@@ -237,27 +283,20 @@ __global__ void ring_accel_kernel(const __grid_constant__ LaunchTable tab, const
       __syncthreads();
       if (threadIdx.x == 0) st_release_sys(right.arrived + s1 * g + b, use1);
     }
-    for (int64_t ib = b; ib < num_iblocks; ib += g) {
-      const int64_t i = ib * bs + threadIdx.x;
-      const float4 pi = (i < m) ? rp.pos[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-      float ax = 0.f, ay = 0.f, az = 0.f;
-      accumulate_all_j(pi, CgJ{src}, m, eps2, tile, ax, ay, az);
-      if (i < m) {
-        float* a = rp.acc + 3 * i;
-        if (h == 0) {
-          a[0] = ax;
-          a[1] = ay;
-          a[2] = az;
-        } else {
-          a[0] = __fadd_rn(a[0], ax);
-          a[1] = __fadd_rn(a[1], ay);
-          a[2] = __fadd_rn(a[2], az);
-        }
+    // item (tile t, chunk c), as the force kernel's block (t, c)
+    float* const parts = rp.parts + h * splits * 3 * m;
+    for (int64_t c = c0, t = t0; c < splits;) {
+      ring_item<ROWS>(rp.pos, src, parts, t * ROWS * bs + threadIdx.x, c, chunk, m, eps2);
+      c += dc;
+      t += dt;
+      if (t >= tiles) {
+        t -= tiles;
+        ++c;
       }
     }
     if (h > 0) {
-      // this block's reads of slot s (its slice forwarded, every i-block's
-      // j-loop) are done: the left neighbour may write the slot again
+      // this block's reads of slot s (its slice forwarded, its items'
+      // walks) are done: the left neighbour may write the slot again
       __threadfence_system();
       __syncthreads();
       if (threadIdx.x == 0) st_release_sys(left.freed + s * g + b, use);
@@ -273,7 +312,41 @@ __global__ void ring_accel_kernel(const __grid_constant__ LaunchTable tab, const
   }
 }
 
+// The (M,3) force of each rank of the launch (blockIdx.y) from its
+// partials (D, S, 3, M), one thread a row and component: hop h is its
+// chunks' sums added in chunk order from 0, as sum_partials adds the force
+// kernel's (the one chunk's own sum when S = 1, as the force kernel writes
+// it); the total is hop 0, then __fadd_rn(total, hop h) in hop order, as
+// torch.add adds the unfused ring's launches.
+__global__ void __launch_bounds__(256)
+    ring_finish_kernel(const __grid_constant__ LaunchTable tab, const int64_t d, const int64_t m,
+                       const int64_t splits) {
+  const RankPtrs rp = tab.r[blockIdx.y];
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= 3 * m) return;
+  const int64_t comp = idx / m;
+  const int64_t x = idx - comp * m;
+  float total = 0.f;
+  for (int64_t h = 0; h < d; ++h) {
+    const float* p = rp.parts + (h * splits * 3 + comp) * m + x;
+    float hop = p[0];
+    if (splits > 1) {
+      hop = 0.f;
+      for (int64_t c = 0; c < splits; ++c) hop += p[c * 3 * m];
+    }
+    total = (h == 0) ? hop : __fadd_rn(total, hop);
+  }
+  rp.acc[3 * x + comp] = total;
+}
+
 bool valid_block_size(int64_t bs) { return bs >= 32 && bs <= 1024 && bs % 32 == 0; }
+
+// the ring kernel's instantiation at block_size threads
+const void* ring_kernel_at(const int64_t block_size) {
+  return rows_a_thread(block_size) == kStepRows
+             ? reinterpret_cast<const void*>(ring_accel_kernel<kStepRows, 512>)
+             : reinterpret_cast<const void*>(ring_accel_kernel<1, 1024>);
+}
 
 }  // namespace
 
@@ -317,8 +390,9 @@ int nbody_ring_ipc_close(void* base) { return cudaIpcCloseMemHandle(base); }
 int nbody_ring_ipc_handle_bytes() { return static_cast<int>(sizeof(cudaIpcMemHandle_t)); }
 
 // Blocks of the ring kernel at `block_size` threads that the current card
-// holds at once (its SMs times the blocks an SM holds): the most a
-// cooperative launch may have.
+// holds at once (its SMs times the blocks an SM holds, with the walk's
+// static stage and no dynamic shared memory): the most a cooperative launch
+// may have.
 int nbody_ring_coresident_blocks(int64_t block_size, int64_t* out) {
   if (!valid_block_size(block_size)) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -328,43 +402,49 @@ int nbody_ring_coresident_blocks(int64_t block_size, int64_t* out) {
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_accel_kernel, static_cast<int>(block_size),
-        static_cast<size_t>(block_size) * sizeof(float4));
+        &per_sm, ring_kernel_at(block_size), static_cast<int>(block_size), 0);
   if (err == cudaSuccess) *out = static_cast<int64_t>(per_sm) * sms;
   return err;
 }
 
-// One fused ring launch over `launch_ranks` ranks of a ring of `ring_size`:
-// `table` is launch_ranks rows of six int64 (pos, acc, self, right, left,
-// rank), `groups` blocks a rank, `epoch` this call's number (from 1, the
-// same on every rank of the ring), `timeout_ns` the bound of every wait.
+// One fused ring launch over `launch_ranks` ranks of a ring of `ring_size`,
+// then its finish: `table` is launch_ranks rows of seven int64 (pos, acc,
+// parts, self, right, left, rank; parts holds ring_size * splits * 3 * m
+// floats), `groups` blocks a rank, `splits` the j-chunks of a hop, `epoch`
+// this call's number (from 1, the same on every rank of the ring),
+// `timeout_ns` the bound of every wait.
 int nbody_ring_accel_f32(const int64_t* table, int64_t launch_ranks, int64_t ring_size,
-                         int64_t m, int64_t groups, float eps2, int64_t block_size,
-                         uint64_t epoch, int64_t timeout_ns, void* stream) {
+                         int64_t m, int64_t groups, int64_t splits, float eps2,
+                         int64_t block_size, uint64_t epoch, int64_t timeout_ns, void* stream) {
   if (!valid_block_size(block_size) || launch_ranks < 1 || launch_ranks > kMaxLaunchRanks ||
-      ring_size < launch_ranks || m < 1 || groups < 1 || epoch < 1 || timeout_ns < 1)
+      ring_size < launch_ranks || m < 1 || groups < 1 || splits < 1 || epoch < 1 ||
+      timeout_ns < 1)
     return cudaErrorInvalidValue;
   LaunchTable tab;
   std::memset(&tab, 0, sizeof(tab));
   for (int64_t v = 0; v < launch_ranks; ++v) {
     const int64_t* row = table + kTableFields * v;
     tab.r[v] = RankPtrs{reinterpret_cast<const float4*>(row[0]), reinterpret_cast<float*>(row[1]),
-                        reinterpret_cast<char*>(row[2]), reinterpret_cast<char*>(row[3]),
-                        reinterpret_cast<char*>(row[4]), row[5]};
+                        reinterpret_cast<float*>(row[2]), reinterpret_cast<char*>(row[3]),
+                        reinterpret_cast<char*>(row[4]), reinterpret_cast<char*>(row[5]), row[6]};
   }
-  int64_t d = ring_size, mm = m, g = groups, t = timeout_ns;
+  int64_t d = ring_size, mm = m, g = groups, s = splits, t = timeout_ns;
   float e2 = eps2;
   uint64_t ep = epoch;
-  void* args[] = {&tab, &d, &mm, &g, &e2, &ep, &t};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ring_accel_kernel),
-      dim3(static_cast<unsigned int>(launch_ranks * groups)),
-      dim3(static_cast<unsigned int>(block_size)), args,
-      static_cast<size_t>(block_size) * sizeof(float4), static_cast<cudaStream_t>(stream));
+  void* args[] = {&tab, &d, &mm, &g, &s, &e2, &ep, &t};
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      ring_kernel_at(block_size), dim3(static_cast<unsigned int>(launch_ranks * groups)),
+      dim3(static_cast<unsigned int>(block_size)), args, 0, st);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the launch never ran
     return err;
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned int>(cdiv(3 * m, 256)),
+                  static_cast<unsigned int>(launch_ranks));
+  ring_finish_kernel<<<grid, 256, 0, st>>>(tab, ring_size, m, splits);
   return cudaGetLastError();
 }
 

@@ -318,6 +318,19 @@ def declare_ds_force(lib) -> None:
             getattr(lib, name).restype = ctypes.c_int
 
 
+def declare_accel(lib) -> None:
+    """The C signatures of the fp32 force entry points that `lib` has
+    (csrc/nbody_kernels.cu): ``nbody_accel_f32`` (one j-chunk) and its
+    ``_split`` form, which takes the chunk count and the partials."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    sigs = {"nbody_accel_f32": [ptr] * 3 + [i64, i64, f32, i64, ptr],
+            "nbody_accel_split_f32": [ptr] * 3 + [i64, i64, f32, i64, i64, ptr, ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
 def declare_step(lib) -> None:
     """The C signatures of the fused one-sided Euler step entry points that
     `lib` has (csrc/nbody_kernels.cu): ``nbody_step_f32``, its rollout,
@@ -349,8 +362,7 @@ def load_library() -> ctypes.CDLL:
     for name in ("nbody_mxu_step_f32", "nbody_mxu_step_bf16"):
         getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
         getattr(lib, name).restype = ctypes.c_int
-    lib.nbody_accel_f32.argtypes = [ptr, ptr, ptr, i64, i64, f32, i64, ptr]
-    lib.nbody_accel_f32.restype = ctypes.c_int
+    declare_accel(lib)
     lib.nbody_sym_accel_f32.argtypes = [ptr, i64, f32, i64, ptr, ptr, ptr]
     lib.nbody_sym_accel_f32.restype = ctypes.c_int
     lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
@@ -387,8 +399,8 @@ def load_library() -> ctypes.CDLL:
     lib.nbody_ring_ipc_close.argtypes = [ptr]
     lib.nbody_ring_ipc_handle_bytes.argtypes = []
     lib.nbody_ring_coresident_blocks.argtypes = [i64, ctypes.POINTER(i64)]
-    lib.nbody_ring_accel_f32.argtypes = [ctypes.POINTER(i64), i64, i64, i64, i64, f32, i64,
-                                         ctypes.c_uint64, i64, ptr]
+    lib.nbody_ring_accel_f32.argtypes = [ctypes.POINTER(i64), i64, i64, i64, i64, i64, f32,
+                                         i64, ctypes.c_uint64, i64, ptr]
     lib.nbody_ring_read_error.argtypes = [ptr, i64, i64, ptr, ctypes.POINTER(ctypes.c_uint64)]
     for name in ("nbody_ring_alloc", "nbody_ring_free", "nbody_ring_ipc_handle",
                  "nbody_ring_ipc_open", "nbody_ring_ipc_close", "nbody_ring_ipc_handle_bytes",

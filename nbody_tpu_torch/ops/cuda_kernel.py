@@ -433,7 +433,18 @@ def nbody_rollout_packed_cuda(state, dt, softening, damping, *, steps: int,
 
 
 def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):
-    """Acceleration (M,3) on the i-set (M,4) due to the j-set (N,4)."""
+    """Acceleration (M,3) on the i-set (M,4) due to the j-set (N,4): the
+    force kernel (``_accel_kernel``) in ``step_splits(M, N)`` j-chunks, the
+    step kernel's walk, so its sums are the ones the step applies."""
+    return _accel(pos_i, pos_j, softening, block_size)
+
+
+def _accel(pos_i, pos_j, softening, block_size, splits=None, lib=None):
+    """``compute_accel_cuda`` in `splits` j-chunks (``step_splits`` by
+    default). `lib` is the port's library by default, or another build of
+    the kernel (``scripts/torch_accel_dispatch.py --against``), whose
+    launches are not counted; with splits = 1 only its one-chunk entry
+    point is called, which every build has."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     _check_state("pos_i", pos_i, device)
     _check_state("pos_j", pos_j, device)
@@ -441,20 +452,28 @@ def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLO
     if device.type != "cuda":
         return reference.compute_accel_vs(pos_i, pos_j, softening)
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     m, n = pos_i.shape[0], pos_j.shape[0]
     acc = torch.empty((m, 3), dtype=torch.float32, device=device)
     if m == 0:
         return acc
+    s = step_splits(m, n) if splits is None else int(splits)
+    args = (pos_i.data_ptr(), pos_j.data_ptr(), acc.data_ptr(), m, n,
+            ctypes.c_float(float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_accel_f32(
-            pos_i.data_ptr(), pos_j.data_ptr(), acc.data_ptr(), m, n,
-            ctypes.c_float(float(softening) ** 2), bs,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if s == 1:
+            err = lib.nbody_accel_f32(*args, stream)
+        else:
+            parts = torch.empty((s, 3, m), dtype=torch.float32, device=device)
+            err = lib.nbody_accel_split_f32(*args, s, parts.data_ptr(), stream)
     _raise_on_error(lib, err, "nbody_accel_f32 launch")
-    LAUNCHES["accel"] += 1
+    if counted:
+        LAUNCHES["accel"] += 1
     return acc
 
 
@@ -497,7 +516,9 @@ def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
 # on the accel + jerk kernel's tile (256 threads x 4 rows) and fill (by
 # scripts/torch_step_dispatch.py, PERF.md, Findings, within 3.4 % of the
 # best fill swept) and a stage of the same length (STEP_STAGE), one rule for
-# all four so that they give one another's bits.
+# all four so that they give one another's bits; the fp32 force kernel
+# runs their walk and takes the same rule, so its sums are theirs, and the
+# fused ring's hops take it at (M, M), so a hop is the force kernel's.
 AJ_STAGE = 256  # j-bodies a stage: kAjStage of csrc/nbody_kernels.cu
 AJ_TILE_I = 1024
 AJ_FILL_BLOCKS = 528
@@ -505,7 +526,8 @@ DS_AJ_STAGE = 128  # kDsAjStage of csrc/ds_aj_kernels.cu
 DS_AJ_TILE_I = 128
 DS_AJ_FILL_BLOCKS = 4224
 DS_STAGE = 128  # kDsStage of csrc/ds_kernels.cu
-STEP_STAGE = 256  # kStepStage of csrc/nbody_kernels.cu
+STEP_STAGE = 256  # kStepStage of csrc/allpairs_common.cuh
+STEP_ROWS = 4  # kStepRows of csrc/allpairs_common.cuh: rows a thread up to 512 threads
 
 
 def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
@@ -527,7 +549,8 @@ def aj_splits(m: int, n: int) -> int:
 
 def step_splits(m: int, n: int) -> int:
     """S of the fp32 one-sided step kernel and its twins (``step_t``,
-    ``step_dual``, ``step_packed``) at M i-rows, N j-bodies."""
+    ``step_dual``, ``step_packed``), of the force kernel and of a fused
+    ring hop (at M = N) at M i-rows, N j-bodies."""
     return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=STEP_STAGE, fill=AJ_FILL_BLOCKS)
 
 
@@ -1727,6 +1750,19 @@ RING_MAX_LAUNCH_RANKS = 16
 _RING_WAITS = {1: "its left neighbour's shard", 2: "its right neighbour's credit for a slot"}
 
 
+def step_rows(block_size: int) -> int:
+    """i-rows a thread of the step walk's kernels at `block_size` threads
+    (rows_a_thread, csrc/allpairs_common.cuh)."""
+    return STEP_ROWS if block_size <= 512 else 1
+
+
+def ring_items(m: int, block_size: int) -> int:
+    """The work items of a fused ring hop over shards of m bodies: the force
+    kernel's blocks at (m, m), i-tiles of step_rows * block_size rows times
+    ``step_splits(m, m)`` j-chunks."""
+    return _cdiv(m, step_rows(block_size) * block_size) * step_splits(m, m)
+
+
 def ring_coresident_blocks(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
     """Blocks of the ring kernel at `block_size` threads that the card holds
     at once: the most one cooperative launch may have."""
@@ -1742,14 +1778,15 @@ def ring_coresident_blocks(device, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
 
 def ring_groups(m: int, launch_ranks: int, block_size: int, device) -> int:
     """Blocks a rank for shards of m bodies when one launch holds
-    `launch_ranks` ranks: one an i-block, as many as all the ranks' blocks
-    can be resident together. Raises rather than give a grid the card cannot
-    hold, whose spinning blocks would wait on blocks that never run."""
+    `launch_ranks` ranks: one a work item of a hop (``ring_items``), as many
+    as all the ranks' blocks can be resident together. Raises rather than
+    give a grid the card cannot hold, whose spinning blocks would wait on
+    blocks that never run."""
     fits = ring_coresident_blocks(device, block_size) // launch_ranks
     if fits < 1:
         raise RuntimeError(f"{launch_ranks} ring ranks of block size {block_size} do not fit "
                            "on the card together; the ring kernel's blocks wait on each other")
-    return min(_cdiv(m, block_size), fits)
+    return min(ring_items(m, block_size), fits)
 
 
 def _release_ring(device, base: int, peers: list) -> None:
@@ -1770,12 +1807,13 @@ class FusedRing:
     ``csrc/ring_kernels.cu``) from cudaMalloc in the library, not from
     PyTorch's caching allocator (an IPC handle of a cached block would name
     its segment's base), and its neighbours' regions once ``connect`` has
-    them; ``calls`` counts its launches, the epoch of the flags. On the CPU
-    it holds no buffers, only ``hops``: a function of a shard that yields
-    the ring's j-shards in hop order (the mesh's exchanges), from which the
-    wrapper takes the plain version. ``close()`` frees the region (so does
-    garbage collection); a ring whose launch failed or timed out is broken
-    and raises on use."""
+    them; ``calls`` counts its launches, the epoch of the flags; ``splits``
+    is the j-chunks of a hop, ``step_splits(m, m)``, so that a hop is the
+    force kernel's at (m, m). On the CPU it holds no buffers, only
+    ``hops``: a function of a shard that yields the ring's j-shards in hop
+    order (the mesh's exchanges), from which the wrapper takes the plain
+    version. ``close()`` frees the region (so does garbage collection); a
+    ring whose launch failed or timed out is broken and raises on use."""
 
     def __init__(self, m: int, ring_size: int, rank: int, *, device,
                  block_size: int = DEFAULT_BLOCK_SIZE, groups: int | None = None,
@@ -1785,6 +1823,7 @@ class FusedRing:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.block_size = check_block_size(block_size)
+        self.splits = step_splits(self.m, self.m)
         self.calls = 0
         self.broken = None
         self.hops = hops
@@ -1857,8 +1896,10 @@ class FusedRing:
 def _ring_launch(entries, softening, timeout_s: float) -> None:
     """One launch of the ring kernel over `entries`, (pos, acc, ring) for
     each rank it holds (the rings of one launch share their count of calls,
-    the epoch); then the launch's error word is read, which synchronises the
-    stream, and a timeout raises."""
+    the epoch), and its finish, which adds each rank's hops' chunk sums
+    (scratch of D * S * 3 * M floats a rank) into acc; then the launch's
+    error word is read, which synchronises the stream, and a timeout
+    raises."""
     rings = [ring for _, _, ring in entries]
     for ring in rings:
         if ring.broken:
@@ -1867,16 +1908,19 @@ def _ring_launch(entries, softening, timeout_s: float) -> None:
     from nbody_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    parts = torch.empty((len(entries), r0.ring_size, r0.splits, 3, r0.m), dtype=torch.float32,
+                        device=r0.device)
     rows = []
-    for pos, acc, ring in entries:
-        rows += [pos.data_ptr(), acc.data_ptr(), ring.base, ring.right, ring.left, ring.rank]
+    for (pos, acc, ring), part in zip(entries, parts):
+        rows += [pos.data_ptr(), acc.data_ptr(), part.data_ptr(), ring.base, ring.right,
+                 ring.left, ring.rank]
     table = (ctypes.c_int64 * len(rows))(*rows)
     epoch = r0.calls + 1
     word = ctypes.c_uint64()
     with torch.cuda.device(r0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.nbody_ring_accel_f32(
-            table, len(entries), r0.ring_size, r0.m, r0.groups,
+            table, len(entries), r0.ring_size, r0.m, r0.groups, r0.splits,
             ctypes.c_float(float(softening) ** 2), r0.block_size, epoch,
             int(timeout_s * 1e9), stream)
         for ring in rings:

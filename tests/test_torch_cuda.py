@@ -358,6 +358,42 @@ def test_step_split_matches_plain_and_is_the_same_at_every_block(dev, m, n):
                 assert torch.equal(npl, first[0].t())
 
 
+@pytest.mark.parametrize("m, n", [(1025, 65537), (16384, 65536), (16384, 16384)])
+def test_accel_split_is_the_same_at_every_block_and_the_steps_sum(dev, m, n):
+    """The force kernel in its j-chunks (``step_splits``) at an odd shape and
+    the four-card hop shapes: within the bound of plain, the same bits at
+    blocks 64 to 1024 (4 rows a thread up to 512, one above) and on
+    repeats, and the velocity of a step from rest (dt = 1, damping 1) bit
+    for bit: the step kernel sums the same chunks in the same order."""
+    pj, _ = _random_w(*_state(n, dev))
+    pi = pj[:m].contiguous()
+    want = reference.compute_accel_vs(pi, pj, SOFT)
+    first = compute_accel_cuda(pi, pj, SOFT, block_size=64)
+    assert (first - want).abs().max().item() <= _tol(want)
+    for bs in (128, 256, 512, 1024, 256):
+        assert torch.equal(compute_accel_cuda(pi, pj, SOFT, block_size=bs), first)
+    rest = nbody_step_cuda_vs(pi, torch.zeros_like(pi), pj, 1.0, SOFT, 1.0)[1]
+    assert torch.equal(rest[:, :3], first)
+
+
+@pytest.mark.parametrize("m, n", [(1025, 65537), (16384, 65536), (4099, 4099)])
+def test_accel_one_chunk_entry_point_within_the_bound_of_the_split(dev, m, n):
+    """S = 1 (``nbody_accel_f32``) and S = 3 sum the chunks in another
+    grouping than the rule's S: the last bits differ, within the force
+    bound of each other and of plain, each the same at every block."""
+    pj, _ = _random_w(*_state(n, dev))
+    pi = pj[:m].contiguous()
+    want = reference.compute_accel_vs(pi, pj, SOFT)
+    split = cuda_kernel._accel(pi, pj, SOFT, 256)
+    assert cuda_kernel.step_splits(m, n) > 1
+    for s in (1, 3):
+        first = cuda_kernel._accel(pi, pj, SOFT, 32, splits=s)
+        assert (first - split).abs().max().item() <= _tol(want)
+        assert (first - want).abs().max().item() <= _tol(want)
+        for bs in (256, 1024):
+            assert torch.equal(cuda_kernel._accel(pi, pj, SOFT, bs, splits=s), first)
+
+
 @pytest.mark.parametrize("n", [1, 33, 333, 1000, 4099])
 @pytest.mark.parametrize("tile", [128, 512, 1024])
 def test_aj_sym_triangle_matches_plain(dev, n, tile):
@@ -1253,6 +1289,43 @@ def test_ring_fused_wait_times_out_and_raises(dev):
         cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, lone, timeout_s=0.2)
     lone.close()
     dead.close()
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_ring_fused_split_hops_equal_hop_ordered_accel_launches(dev, d):
+    """Shards of 16384 bodies, where a hop runs in step_splits(M, M) = 64
+    j-chunks (items spread over the blocks of a rank, the partials added by
+    the finish): every rank bit-equal to the hop-ordered accel launches, at
+    blocks 128, 256 and 1024."""
+    shards = _ring_shards(d, 16384, dev)
+    want = _hop_ordered(shards)
+    assert cuda_kernel.step_splits(16384, 16384) == 64
+    for bs in (128, 256, 1024):
+        rings = cuda_kernel.emulated_ring(dev, d, 16384, bs)
+        assert rings[0].splits == 64
+        got = cuda_kernel.ring_accel_fused_emulated_cuda(shards, SOFT, rings=rings, block_size=bs)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for ring in rings:
+            ring.close()
+
+
+def test_ring_fused_split_wait_times_out_and_raises(dev):
+    """A rank of a two-rank ring of 16384-body shards (64 chunks a hop, its
+    blocks looping over the items) whose left neighbour never launches:
+    the wait gives up after timeout_s, every block of the launch ends, the
+    finish runs and the wrapper raises; the ring is unusable afterwards."""
+    shards = _ring_shards(2, 16384, dev)
+    lone = cuda_kernel.FusedRing(16384, 2, 0, device=dev)
+    dead = cuda_kernel.FusedRing(16384, 2, 1, device=dev, groups=lone.groups)
+    lone.connect(dead, dead)
+    with pytest.raises(RuntimeError, match="rank 0 gave up at hop 1"):
+        cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, lone, timeout_s=0.2)
+    with pytest.raises(RuntimeError, match="unusable"):
+        cuda_kernel.ring_accel_fused_cuda(shards[0], SOFT, lone, timeout_s=0.2)
+    lone.close()
+    dead.close()
+    # the card is still usable
+    assert torch.isfinite(compute_accel_cuda(shards[0], shards[0], SOFT)).all()
 
 
 def test_ring_fused_launch_or_build_failure_raises_with_no_fallback(dev, monkeypatch):

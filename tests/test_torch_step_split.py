@@ -132,7 +132,7 @@ def test_the_kernels_stage_is_the_rules_stage():
     """The chunks the kernels cut are the ones the rule describes only if
     their stage sizes agree."""
     (found,) = re.findall(r"constexpr int kStepStage = (\d+);",
-                          (CSRC / "nbody_kernels.cu").read_text())
+                          (CSRC / "allpairs_common.cuh").read_text())
     assert int(found) == ck.STEP_STAGE
 
 
