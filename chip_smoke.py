@@ -209,6 +209,7 @@ are the card, one JSON object listing every kernel, and the result line.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -355,7 +356,8 @@ EXPERIMENT_KERNELS = ("step_dual", "step_packed", "sym_ablate_full", "sym_ablate
                       "sym_ablate_tree_small")
 # the production kernels whose template the experiment kernels share, by a
 # piece of their mangled names, and their registers (ptxas -v): sym_tri's in
-# the build before the templates took the experiments' arguments; the step
+# the build whose walk (sym_walk, csrc/symmetric_kernels.cu) the rectangle and
+# the ablations run too (127 with the j-shuffle walk before it); the step
 # kernels' (4 rows a thread, blocks up to 512) in the build whose shared walk
 # (walk_chunk, csrc/allpairs_common.cuh) the force and the ring kernel run
 # too (step_t's 64 of the build before it, with 8 bytes spilled outside its
@@ -364,13 +366,46 @@ PRODUCTION_MANGLED = {"step_kernel<4, 512>": "11step_kernelILi4ELi512EE",
                       "step_t_kernel<4, 512>": "13step_t_kernelILi4ELi512EE",
                       "sym_tri_kernel<8>": "14sym_tri_kernelILi8EE"}
 PRODUCTION_REGISTERS = {"step_kernel<4, 512>": 64, "step_t_kernel<4, 512>": 62,
-                        "sym_tri_kernel<8>": 127}
+                        "sym_tri_kernel<8>": 123}
 # the four step kernels by a piece of their mangled names (phase 3e holds
 # every instantiation's walk free of spills), and the kernels that run
 # their walk: the force (nbody_kernels.cu) and the fused ring (ring_kernels.cu)
 STEP_WALKS = ("11step_kernel", "13step_t_kernel", "16step_dual_kernel", "18step_packed_kernel")
 WALK_SHARERS = {"nbody_kernels.cu": ("12accel_kernel",),
-                "ring_kernels.cu": ("17ring_accel_kernel",)}
+                "ring_kernels.cu": ("17ring_accel_kernel",),
+                # the each-pair-once kernels, one walk (sym_walk)
+                "symmetric_kernels.cu": ("14sym_tri_kernel", "16sym_cross_kernel",
+                                         "17sym_ablate_kernel")}
+
+
+@functools.cache
+def sass_of_source(src: str) -> tuple:
+    """``_build.sass_of(src)``, one nvcc and one cuobjdump a source a run
+    (phases 3s and 3e both read the sym kernels' SASS)."""
+    from nbody_tpu_torch.ops import _build
+
+    return _build.sass_of(src)
+
+
+def sym_walk_lines(tile: int) -> list:
+    """The registers and the walk's SASS count a pair (the innermost loop
+    around MUFU.RSQ, over its MUFU.RSQ) of the triangle and the rectangle at
+    `tile`: the off-diagonal walk and, for the triangle, the diagonal's."""
+    from nbody_tpu_torch.ops import _build
+
+    usage, text = sass_of_source("symmetric_kernels.cu")
+    names = _build.demangle(usage)
+    rows = tile // 128
+    lines = []
+    for key in (f"14sym_tri_kernelILi{rows}EE", f"16sym_cross_kernelILi{rows}EE"):
+        loops = _build.sass_loops(text, key)
+        check(bool(loops), f"no rsqrt loop in the SASS of {key}")
+        per = sorted(w["instructions"] / w["pairs"] for w in loops)
+        regs = ptxas_registers(usage, key)
+        name = names.get(loops[0]["function"], loops[0]["function"])
+        lines.append(f"{name}: {regs} registers, walk {per[0]:.2f} SASS instructions a pair"
+                     + (f" ({per[-1]:.2f} on the diagonal)" if len(per) > 1 else ""))
+    return lines
 
 
 def check(ok: bool, what: str) -> None:
@@ -699,6 +734,8 @@ def phase_sym_kernels(torch) -> dict:
         shape = f"N={N_MAIN}" if name == "sym" else f"({pi.shape[0]},{pj.shape[0]})"
         print(f"[3s sym] {name} at {shape}, tile {tile}: kernel {t_k:.3f} ms, plain "
               f"{t_p:.3f} ms per call, bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    for line in sym_walk_lines(tile):
+        print(f"[3s sass] {line}")
     return {"err": err, "times": times, "bounds": bounds}
 
 
@@ -2396,7 +2433,7 @@ def phase_experiment_kernels(torch) -> dict:
                          ("ring_kernels.cu", ()),
                          ("symmetric_kernels.cu", ("sym_tri_kernel<8>",))):
         if src in WALK_SHARERS:
-            usage, text = _build.sass_of(src)
+            usage, text = sass_of_source(src)
             if src == "nbody_kernels.cu":
                 step_walks_checked(_build, usage, text)
             step_walks_checked(_build, usage, text, WALK_SHARERS[src], src)
@@ -2492,7 +2529,7 @@ def phase_experiment_kernels(torch) -> dict:
                       f"full's: {eq_full}; repeat bit-equal: {same}")
                 check(ok, f"ablation {r} disagrees with plain at {what} tile {tile}")
                 check(same, f"ablation {r} differs between two calls at {what} tile {tile}")
-                # the ablations pin |d|^2's contraction (csrc tile_pair's PIN)
+                # one walk, every operation a rounded intrinsic (csrc sym_walk)
                 check(eq_full, f"ablation {r}'s action differs from full's at {what}")
                 err[f"sym_ablate_{r}"] = max(err[f"sym_ablate_{r}"], e)
             same = bool(torch.equal(total, prod))

@@ -1,8 +1,8 @@
 // Shared pieces of the each-pair-once kernels (symmetric_kernels.cu,
 // symmetric_aj_kernels.cu): the block shape, the tile sizes, the
-// triangle's worklist, the warps' reaction sum and the fixed-order sum of
-// the per-tile partials; the last, and the rsqrt of the accel + jerk
-// kernels, also serve the one-sided accel + jerk kernel (nbody_kernels.cu).
+// triangle's worklist, the warps' reaction sum, the rsqrt of their walks
+// and the fixed-order sum of the per-tile partials; the last two also serve
+// the one-sided kernels (nbody_kernels.cu).
 // Everything is in an unnamed namespace, so each source that includes this
 // header has its own copy and the objects link without clashes.
 #pragma once

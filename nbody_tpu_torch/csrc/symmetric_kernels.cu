@@ -1,6 +1,6 @@
 // Each-pair-once (Newton's third law) Plummer gravity for Hopper (sm_90a):
 // the triangle and the cross-rectangle kernels of nbody_tpu_torch, and the
-// triangle's reaction ablations.
+// triangle's reaction ablations, all on one walk (sym_walk).
 //
 // Replaces two Pallas TPU kernels of the JAX package and one of its
 // experiment scripts:
@@ -14,79 +14,98 @@
 //                          triangle with its reaction tail full, none or
 //                          tree_small, which prices the reaction
 // For each pair (i, j), evaluated once:
-//   d = p_j - p_i;  r2 = |d|^2 + eps2;  inv = rsqrtf(r2);  c = inv^3;
+//   d = p_j - p_i;  r2 = |d|^2 + eps2;  inv = rsqrt(r2);  c = inv^3;
 //   a_i += m_j * c * d   (the action)      a_j -= m_i * c * d   (the reaction)
 // as symmetric_kernel.py:145-170. The triangle keeps j > i on the tiles of
 // the diagonal, which also drops the self pair; every other tile is
 // mask-free because row and column tiles have one size.
 //
-// What bounds it on an H100: arithmetic, not bytes. A pair is 28 flops by
-// the JAX package's count (symmetric_kernel.py:285) for both sides, about
-// 16 fp32 FMA-pipe instructions and one SFU rsqrtf (an eighth of the FMA
-// rate), where the one-sided kernel spends about 12 and one rsqrtf per side.
-// The inputs are 16 bytes a body.
+// Arithmetic, one pair: 3 FADD for d, r2 = fma(dz, dz, fma(dy, dy, fma(dx,
+// dx, eps2))) (3 FFMA, eps2 folded into the first), one MUFU.RSQ, 2 FMUL for
+// c, 2 FMUL for s = m_j c and t = m_i c, 3 FFMA for the action and 3 for the
+// reaction: 16 FP32-pipe instructions. Every operation is written as a
+// rounded intrinsic (__fsub_rn, __fmaf_rn, __fmul_rn), so that nvcc cannot
+// contract one instantiation differently from another: the triangle, the
+// rectangle and the three ablations have one action arithmetic by
+// construction. The diagonal's mask is a select on s and t, never a product:
+// at eps = 0 the self pair has inv = inf, and 0 * inf is NaN.
 //
-// Design. The TPU kernel carries the reaction in VMEM scratch across a
-// sequential grid. Here blocks run in no order, so nothing is carried and
-// nothing is added with atomics: the result has the same bits on every run.
-//   * Square tiles of T = 128 * ROWS bodies, ROWS in {1, 2, 4, 8}. A block of
-//     128 threads takes one (row tile, column tile) pair; each thread owns
-//     ROWS i-bodies and keeps their position and action in registers.
-//   * The triangle's blocks are a flat worklist of the R(R+1)/2 tile pairs
-//     c >= r (the TPU's _pair_tables, symmetric_kernel.py:196-209), one
-//     block each, so every block does the same work and no SM waits on a
-//     long row.
-//   * The reaction stays in registers too. A warp walks the column tile in
-//     chunks of 32 j-bodies; each lane loads one j-body and zeroes its
-//     three reaction sums. For 32 steps every lane meets the j-body it
-//     holds with its ROWS i-bodies, then passes the j-body and its sums to
-//     the next lane down (__shfl_sync): 7 shuffles per ROWS pairs, no
-//     shared-memory read-modify-write. After 32 steps each sum is home.
-//   * The four warps' reaction sums meet in shared memory and are added in
-//     warp order. A block writes its action partial of the row tile into
-//     the scratch row of its column tile, and its reaction partial of the
-//     column tile into the scratch row of its row tile (one partial per
-//     tile pair on the diagonal: action + reaction). Every (tile, body)
-//     slot of the scratch is written exactly once; a second kernel adds
-//     each body's slots in tile order.
-//   * Scratch: ceil(N/T) * 3 * N floats. At N = 65536 and the default
-//     T = 1024 that is 64 * 3 * 65536 * 4 bytes = 50 MB (201 MB at T = 256).
-//     The blocked composition (ops/cuda_kernel.py) caps a launch at 131072
-//     bodies a side, so at most 201 MB for a triangle; the cross kernel
-//     holds two scratches of that size.
-//   * Shared memory: the warps' reaction sums, 4 * 3 * T floats, 48 KB at
-//     T = 1024. Registers (ptxas, no spills): 32 a thread at T = 128, 127
-//     at T = 1024, which with the 48 KB leaves 4 blocks (16 warps) an SM.
-//   * The default tile is 1024 (ops/cuda_kernel.py::sym_default_dispatch,
-//     measured): at N = 65536 the triangle takes 1.78 ms on an H100 80GB
-//     HBM3 at 700 W, 50 % of the fp32 peak (PERF.md).
+// rsqrt: rsqrt_ftz (sym_common.cuh), the PTX rsqrt.approx.ftz.f32, one
+// MUFU.RSQ: the bits of rsqrtf for every normal r2 without its subnormal
+// fix-up (a compare and two predicated FMULs a pair); a subnormal r2 needs
+// eps = 0 and |d| < 1.1e-19, and gives inf (the self pair's value).
+//
+// What bounds it on an H100: issue of arithmetic. A pair is 28 flops by the
+// JAX package's count (symmetric_kernel.py:285) for both sides, i.e. 14
+// FP32-pipe instructions at two flops each; the walk adds the MUFU and, every
+// step of ROWS pairs, one 16-byte LDS and 3 SHFL: 16 + 1 + 4 / ROWS a pair
+// by the source (17.5 at ROWS 8). The inputs are 16 bytes a body.
+//
+// Design (T = 128 * ROWS, ROWS in {1, 2, 4, 8}; a block of 128 threads takes
+// one T x T tile pair from the triangle's flat worklist of the R(R+1)/2 tile
+// pairs c >= r (the TPU's _pair_tables, symmetric_kernel.py:196-209), or
+// from the rectangle's 2-D grid; blocks run in no order, nothing is carried
+// between them and nothing is added with atomics):
+//   * i-side in registers: ROWS rows a thread, each with its position and
+//     its 3 action sums.
+//   * j-side in shared memory: the column tile is walked in sub-tiles of 128
+//     bodies (kSub), each staged once (one body a thread), every 32-body
+//     chunk stored twice in a row, so that at step k a lane reads chunk body
+//     (lane + k) & 31 at slot lane + k: one 16-byte LDS at a constant offset,
+//     conflict-free. No shuffle of the j-body.
+//   * Only the 3 reaction sums travel around the warp (__shfl_sync): a lane
+//     carries the sums of the body it holds to the next lane after every
+//     step, and after 32 steps they are back in the lane that staged it.
+//   * Reactions flushed every sub-tile: the 4 warps' sums meet in shared
+//     memory (4 * 3 * 128 floats, 6 KB), and after a __syncthreads() thread
+//     x adds column x's four in warp order and writes the block's reaction
+//     slot. On a diagonal tile that slot is the one the action of the same
+//     body goes to: the thread that flushes column x owns row x, reads the
+//     slot back after its walk and writes action + reaction there.
+//   * Shared memory: 10 KB a block at every ROWS (the staged chunks and the
+//     warps' sums), so registers alone set the blocks an SM (min_blocks).
+// Sum order, fixed: an action sums its columns in walk order (sub-tile,
+// chunk, step); a reaction sums its rows in step order, the ROWS rows of a
+// step in row order, then the warps in warp order. Each block writes its
+// action partial of the row tile into the scratch row of its column tile,
+// and its reaction partial of the column tile into the scratch row of its
+// row tile (on the diagonal one partial: action + reaction); every (tile,
+// component, body) slot is written once, and a second kernel adds each
+// body's slots in tile order. A state gives the same bits on every call.
+// Scratch: ceil(N/T) * 3 * N floats; 50 MB at N = 65536, T = 1024 (201 MB at
+// T = 256). The blocked composition (ops/cuda_kernel.py) caps a launch at
+// SYM_BLOCK_CAP bodies a side; the cross kernel holds two such scratches.
+// The tile, the cap and the walk's unroll (kUnroll) were set on the card by
+// scripts/torch_sym_dispatch.py (ops/cuda_kernel.py, sym_default_dispatch;
+// PERF.md, Findings).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/torch_sym_dispatch.py,
+// in turns with the j-shuffle walk this design replaced, medians of six): the
+// walk 17.94 SASS instructions a pair at ROWS 8 (22.09 before; 16 FP32-pipe,
+// 1 MUFU, 0.12 LDS, 0.38 SHFL, 0.38 integer, 0.06 branch), 123 registers;
+// the triangle 1.531 ms at N = 65536 (1.819), the rectangle (67584, 67584)
+// 3.158 (3.659): 59-61 % of the 28-flop bound, 75-78 % of the issue bound.
 //
 // The ablations (sym_ablate_kernel, a timing experiment): the triangle's
-// walk with tile_pair's reaction tail R. kFull is the production tail; it
-// keeps a diagonal block's action and reaction apart (the reaction into a
-// (3, N) side array), so the partial sums give the action and the reaction
+// walk with the reaction tail R. kFull is the production tail; it keeps a
+// diagonal block's action and reaction apart (the reaction into a (3, N)
+// side array), so the partial sums give the action and the reaction
 // separately, and also their total in the production order, which equals
-// nbody_sym_accel_f32's bits. kNone drops the reaction: no t, no sums, no
-// shuffles of them, but the same shuffle walk of the j-bodies, so its
-// action has the production's bits. kTreeSmall keeps the reaction
-// arithmetic and its shuffle carry, and drops the warps' shared-memory sum
-// and the per-column scratch write: a lane adds its sums into 3 registers,
-// and a block writes one slot of 3 floats, its reaction total (wrong
-// physics by design). All three pin the contraction of |d|^2 (tile_pair's
-// PIN), so their actions have the triangle's bits. The differences of
-// their times price the reaction's arithmetic with its shuffles
-// (tree_small - none), and its warp sum, scratch write and partial-sum
-// pass (full - tree_small). On an H100 80GB HBM3 at 700 W and N = 65536,
-// tile 1024 (PERF.md, chip_smoke.py 3e): full 1.775 ms as the triangle,
-// none 1.602, tree_small 1.829; the reaction is 10 % of the triangle.
+// nbody_sym_accel_f32's bits. kNone drops the reaction: no t, no reaction
+// sums and no reaction shuffles, on the same staged-j walk. kTreeSmall keeps
+// the reaction's arithmetic and its shuffle carry, and drops the warps'
+// shared-memory sum, the per-sub-tile flush and the per-column scratch
+// write: a lane adds its sums into 3 registers, and a block writes one slot
+// of 3 floats, its reaction total (wrong physics by design). The
+// differences of their times price the reaction's arithmetic with its
+// shuffles (tree_small - none), and its warp sum, scratch write and
+// partial-sum pass (full - tree_small).
 //
-// Precision: fp32 only. rsqrtf is the hardware approximation (at most
-// 2 ulp), as in nbody_kernels.cu. Built with -O3 and without
-// --use_fast_math; nvcc contracts a*b+c into FMAs.
+// Precision: fp32 only; built with -O3 and without --use_fast_math.
 //
-// Edges: any N, Bi, Bj. A slot past the end loads mass 0 on both sides, so
-// it exerts no action (m_j = 0) and no reaction (m_i = 0), and nothing is
-// written for it.
+// Edges: any N, Bi, Bj. A slot past the end loads mass 0 (and position 0) on
+// both sides, so it exerts no action (m_j = 0) and no reaction (m_i = 0),
+// and nothing is written for it.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays; pos (N,4) AoS, 16-byte aligned. The caller
@@ -102,139 +121,175 @@
 
 namespace {
 
-// The reaction tail of tile_pair: the production kernels' (kFull), and the
+constexpr int kSub = kThreads;      // columns a sub-tile, one staged a thread
+constexpr int kChunks = kSub / 32;  // 32-column chunks a sub-tile
+// Steps of the 32-step walk unrolled. On the H100 at tile 1024, 2 beat 1, 4
+// and 8 (scripts/torch_sym_dispatch.py; PERF.md, Findings).
+constexpr int kUnroll = 2;
+
+// The least blocks an SM that ptxas must fit (registers set them: shared
+// memory is 10 KB a block). At ROWS 8, 4 blocks at 123 registers beat 5 at
+// 96 by 4 % on the H100.
+template <int ROWS>
+constexpr int min_blocks() {
+  return ROWS == 8 ? 4 : ROWS == 4 ? 5 : 8;
+}
+
+// The reaction tail of sym_walk: the production kernels' (kFull), and the
 // two ablations of the budget experiment (sym_ablate_kernel): kNone drops
-// the reaction (no t, no reaction sums, no reaction shuffles; the j-bodies
-// still walk the warp), kTreeSmall keeps its arithmetic and its shuffle
-// carry but adds each lane's sums into three registers (rsum) instead of
-// the warps' shared-memory rows.
+// the reaction (no t, no reaction sums, no reaction shuffles), kTreeSmall
+// keeps its arithmetic and its shuffle carry but adds each lane's sums into
+// three registers (rsum) instead of flushing the warps' sums.
 enum class Reaction { kFull, kNone, kTreeSmall };
 
-// One T x T tile pair: rows [row0, row0 + T) of pos_i against columns
-// [col0, col0 + T) of pos_j. Leaves each thread's action on its rows in
-// (ax, ay, az) and, with kFull, the warps' reaction sums in
-// red[warp][comp][T]; with kTreeSmall it adds this lane's reaction sums
-// into rsum[3]. PIN writes |d|^2 + eps2 with rounded intrinsics, as the
-// production kernels' contraction of it comes out of nvcc (measured on
-// the card: the FMUL on dx at ROWS = 1, on dy above): left to nvcc, an
-// ablation's tail can change which product it fuses, and with it the
-// action's bits.
-template <int ROWS, bool DIAG, Reaction R = Reaction::kFull, bool PIN = false>
-__device__ __forceinline__ void tile_pair(const float4* __restrict__ pos_i, const int64_t ni,
-                                          const int64_t row0,
-                                          const float4* __restrict__ pos_j, const int64_t nj,
-                                          const int64_t col0, const float eps2, float (&ax)[ROWS],
-                                          float (&ay)[ROWS], float (&az)[ROWS], float* red,
-                                          float* rsum = nullptr) {
+struct SymShared {
+  float4 pos[kChunks][64];       // each chunk's 32 j-bodies, twice in a row
+  float red[kWarps][3][kSub];    // the warps' reaction sums of a sub-tile
+};
+
+// One T x T tile pair: rows [row0, row0 + T) of the i-set against columns
+// [col0, col0 + T) of the j-set (DIAG: row0 == col0, one set, j > i kept).
+// Leaves each thread's action on its rows in act[comp][u]. With kFull it
+// writes the block's reaction on column body b to react[comp * stride + b]
+// once a sub-tile; with kTreeSmall it adds this lane's reaction sums of the
+// bodies it staged into rsum[3].
+template <int ROWS, bool DIAG, Reaction R>
+__device__ __forceinline__ void sym_walk(const float4* __restrict__ pos_i, const int64_t ni,
+                                         const int64_t row0, const float4* __restrict__ pos_j,
+                                         const int64_t nj, const int64_t col0, const float eps2,
+                                         float* react, const int64_t stride,
+                                         float (&act)[3][ROWS], SymShared& sh,
+                                         float (&rsum)[3]) {
   constexpr int T = kThreads * ROWS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 pi[ROWS];
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int64_t ig = row0 + threadIdx.x + u * kThreads;
-    pi[u] = (ig < ni) ? pos_i[ig] : make_float4(0.f, 0.f, 0.f, 0.f);
-    ax[u] = 0.f;
-    ay[u] = 0.f;
-    az[u] = 0.f;
+    const int64_t ig = row0 + tid + u * kThreads;
+    pi[u] = (ig < ni) ? pos_i[ig] : zero;
+    act[0][u] = 0.f;
+    act[1][u] = 0.f;
+    act[2][u] = 0.f;
   }
   const int src = (lane + 1) & 31;
-  for (int q = 0; q < T / 32; ++q) {
-    const int jl0 = q * 32;
-    const int64_t jg = col0 + jl0 + lane;
-    float4 pj = (jg < nj) ? pos_j[jg] : make_float4(0.f, 0.f, 0.f, 0.f);
-    float rx = 0.f, ry = 0.f, rz = 0.f;
-    // step k: this lane holds the j-body that lane (lane + k) & 31 loaded
-#pragma unroll 4
-    for (int k = 0; k < 32; ++k) {
+#pragma unroll 1
+  for (int sub = 0; sub < T / kSub; ++sub) {
+    const int js0 = sub * kSub;  // the sub-tile's first local column
+    {
+      const int64_t jg = col0 + js0 + tid;
+      const float4 p = (jg < nj) ? pos_j[jg] : zero;
+      sh.pos[warp][lane] = p;
+      sh.pos[warp][lane + 32] = p;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      const float4* jp = &sh.pos[c][lane];
+      float rx = 0.f, ry = 0.f, rz = 0.f;
+      // step k: this lane holds chunk body (lane + k) & 31 and its sums
+#pragma unroll(kUnroll)
+      for (int k = 0; k < 32; ++k) {
+        const float4 pj = jp[k];
 #pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        const float dx = pj.x - pi[u].x;
-        const float dy = pj.y - pi[u].y;
-        const float dz = pj.z - pi[u].z;
-        float r2;
-        if constexpr (!PIN) {
-          r2 = dx * dx + dy * dy + dz * dz + eps2;
-        } else if constexpr (ROWS == 1) {
-          r2 = __fadd_rn(__fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx))), eps2);
-        } else {
-          r2 = __fadd_rn(__fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy))), eps2);
+        for (int u = 0; u < ROWS; ++u) {
+          const float dx = __fsub_rn(pj.x, pi[u].x);
+          const float dy = __fsub_rn(pj.y, pi[u].y);
+          const float dz = __fsub_rn(pj.z, pi[u].z);
+          const float r2 = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmaf_rn(dx, dx, eps2)));
+          const float inv = rsqrt_ftz(r2);
+          const float c3 = __fmul_rn(__fmul_rn(inv, inv), inv);
+          float s = __fmul_rn(pj.w, c3);  // action on i per unit of d
+          float t = 0.f;                  // reaction on j per unit of d
+          if constexpr (R != Reaction::kNone) t = __fmul_rn(pi[u].w, c3);
+          if constexpr (DIAG) {
+            // strict upper triangle by local index (row0 == col0): a select,
+            // not a product, since the masked self pair is inf at eps = 0
+            const bool keep = js0 + c * 32 + ((lane + k) & 31) > tid + u * kThreads;
+            s = keep ? s : 0.f;
+            t = keep ? t : 0.f;
+          }
+          act[0][u] = __fmaf_rn(s, dx, act[0][u]);
+          act[1][u] = __fmaf_rn(s, dy, act[1][u]);
+          act[2][u] = __fmaf_rn(s, dz, act[2][u]);
+          if constexpr (R != Reaction::kNone) {
+            rx = __fmaf_rn(-t, dx, rx);
+            ry = __fmaf_rn(-t, dy, ry);
+            rz = __fmaf_rn(-t, dz, rz);
+          }
         }
-        const float inv = rsqrtf(r2);
-        const float c = inv * inv * inv;
-        float s = pj.w * c;     // action on i per unit of d
-        float t = pi[u].w * c;  // reaction on j per unit of d
-        if (DIAG) {
-          // strict upper triangle by local index (row0 == col0): a select,
-          // not a product, since the masked self pair is inf at eps = 0
-          const bool keep = (jl0 + ((lane + k) & 31)) > static_cast<int>(threadIdx.x + u * kThreads);
-          s = keep ? s : 0.f;
-          t = keep ? t : 0.f;
-        }
-        ax[u] += s * dx;
-        ay[u] += s * dy;
-        az[u] += s * dz;
         if constexpr (R != Reaction::kNone) {
-          rx -= t * dx;
-          ry -= t * dy;
-          rz -= t * dz;
+          rx = __shfl_sync(kFull, rx, src);
+          ry = __shfl_sync(kFull, ry, src);
+          rz = __shfl_sync(kFull, rz, src);
         }
       }
-      pj.x = __shfl_sync(kFull, pj.x, src);
-      pj.y = __shfl_sync(kFull, pj.y, src);
-      pj.z = __shfl_sync(kFull, pj.z, src);
-      pj.w = __shfl_sync(kFull, pj.w, src);
-      if constexpr (R != Reaction::kNone) {
-        rx = __shfl_sync(kFull, rx, src);
-        ry = __shfl_sync(kFull, ry, src);
-        rz = __shfl_sync(kFull, rz, src);
+      // after 32 passes the sums of chunk body `lane` are back in this lane
+      if constexpr (R == Reaction::kFull) {
+        sh.red[warp][0][c * 32 + lane] = rx;
+        sh.red[warp][1][c * 32 + lane] = ry;
+        sh.red[warp][2][c * 32 + lane] = rz;
+      } else if constexpr (R == Reaction::kTreeSmall) {
+        if (col0 + js0 + c * 32 + lane < nj) {  // a slot past the end holds no body
+          rsum[0] += rx;
+          rsum[1] += ry;
+          rsum[2] += rz;
+        }
       }
     }
-    // after 32 passes the sums for j-body jl0 + lane are back in this lane
+    // every warp is past this sub-tile's reads of sh.pos (and, with kFull,
+    // has written its sums) before the flush and the next staging
+    __syncthreads();
     if constexpr (R == Reaction::kFull) {
-      red[(warp * 3 + 0) * T + jl0 + lane] = rx;
-      red[(warp * 3 + 1) * T + jl0 + lane] = ry;
-      red[(warp * 3 + 2) * T + jl0 + lane] = rz;
-    } else if constexpr (R == Reaction::kTreeSmall) {
-      if (jg < nj) {  // a slot past the end holds no body
-        rsum[0] += rx;
-        rsum[1] += ry;
-        rsum[2] += rz;
+      // column js0 + tid: the four warps' sums in warp order; the next
+      // sub-tile writes sh.red only after the barrier that follows its
+      // staging, so every read here comes first
+      const int64_t jg = col0 + js0 + tid;
+      if (jg < nj) {
+#pragma unroll
+        for (int comp = 0; comp < 3; ++comp) {
+          react[comp * stride + jg] = warp_sum<kSub, 3>(&sh.red[0][0][0], comp, tid);
+        }
       }
     }
   }
 }
 
-// Triangle of one set: scratch (R, 3, n), R = ceil(n / T).
+// Triangle of one set: scratch (R, 3, n), R = ceil(n / T); slot (t, comp, b)
+// holds body b's sum over the tile pair of its tile and tile t.
 template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<ROWS>())
     sym_tri_kernel(const float4* __restrict__ pos, const int64_t n, const int64_t num_tiles,
                    const float eps2, float* __restrict__ scratch) {
   constexpr int T = kThreads * ROWS;
-  __shared__ float red[kWarps * 3 * T];
+  __shared__ SymShared sh;
   int64_t r, c;
   triangle_tile(blockIdx.x, num_tiles, r, c);
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
-  float ax[ROWS], ay[ROWS], az[ROWS];
+  float act[3][ROWS];
+  float rsum[3];
+  // the reaction goes to row r's slots; on the diagonal (r == c) those are
+  // the slots of the same bodies' action, read back below
+  float* react = scratch + r * 3 * n;
   if (r == c) {
-    tile_pair<ROWS, true>(pos, n, row0, pos, n, col0, eps2, ax, ay, az, red);
+    sym_walk<ROWS, true, Reaction::kFull>(pos, n, row0, pos, n, col0, eps2, react, n, act, sh,
+                                          rsum);
   } else {
-    tile_pair<ROWS, false>(pos, n, row0, pos, n, col0, eps2, ax, ay, az, red);
+    sym_walk<ROWS, false, Reaction::kFull>(pos, n, row0, pos, n, col0, eps2, react, n, act, sh,
+                                           rsum);
   }
-  __syncthreads();
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int x = threadIdx.x + u * kThreads;
-    const float a[3] = {ax[u], ay[u], az[u]};
+    const int64_t b = row0 + threadIdx.x + u * kThreads;
+    if (b < n) {
 #pragma unroll
-    for (int comp = 0; comp < 3; ++comp) {
-      const float re = warp_sum<T, 3>(red, comp, x);
-      if (r == c) {
-        if (row0 + x < n) scratch[(r * 3 + comp) * n + row0 + x] = a[comp] + re;
-      } else {
-        if (row0 + x < n) scratch[(c * 3 + comp) * n + row0 + x] = a[comp];
-        if (col0 + x < n) scratch[(r * 3 + comp) * n + col0 + x] = re;
+      for (int comp = 0; comp < 3; ++comp) {
+        float* slot = scratch + (c * 3 + comp) * n + b;
+        // this thread flushed column b of the diagonal (kSub == kThreads)
+        *slot = (r == c) ? __fadd_rn(act[comp][u], *slot) : act[comp][u];
       }
     }
   }
@@ -242,27 +297,26 @@ __global__ void __launch_bounds__(kThreads)
 
 // Rectangle of two sets: act (Cj, 3, bi), react (Ri, 3, bj).
 template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<ROWS>())
     sym_cross_kernel(const float4* __restrict__ pos_i, const int64_t bi,
                      const float4* __restrict__ pos_j, const int64_t bj, const float eps2,
-                     float* __restrict__ act, float* __restrict__ react) {
+                     float* __restrict__ act_out, float* __restrict__ react_out) {
   constexpr int T = kThreads * ROWS;
-  __shared__ float red[kWarps * 3 * T];
+  __shared__ SymShared sh;
   const int64_t c = blockIdx.x;
   const int64_t r = blockIdx.y;
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
-  float ax[ROWS], ay[ROWS], az[ROWS];
-  tile_pair<ROWS, false>(pos_i, bi, row0, pos_j, bj, col0, eps2, ax, ay, az, red);
-  __syncthreads();
+  float act[3][ROWS];
+  float rsum[3];
+  sym_walk<ROWS, false, Reaction::kFull>(pos_i, bi, row0, pos_j, bj, col0, eps2,
+                                         react_out + r * 3 * bj, bj, act, sh, rsum);
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int x = threadIdx.x + u * kThreads;
-    const float a[3] = {ax[u], ay[u], az[u]};
+    const int64_t b = row0 + threadIdx.x + u * kThreads;
+    if (b < bi) {
 #pragma unroll
-    for (int comp = 0; comp < 3; ++comp) {
-      if (row0 + x < bi) act[(c * 3 + comp) * bi + row0 + x] = a[comp];
-      if (col0 + x < bj) react[(r * 3 + comp) * bj + col0 + x] = warp_sum<T, 3>(red, comp, x);
+      for (int comp = 0; comp < 3; ++comp) act_out[(c * 3 + comp) * bi + b] = act[comp][u];
     }
   }
 }
@@ -276,41 +330,31 @@ __global__ void __launch_bounds__(kThreads)
 // block's reaction total, its lanes' rsum added in a fixed order, into
 // slots[blockIdx.x][3]; kNone writes no reaction.
 template <int ROWS, Reaction R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<ROWS>())
     sym_ablate_kernel(const float4* __restrict__ pos, const int64_t n, const int64_t num_tiles,
                       const float eps2, float* __restrict__ scratch, float* __restrict__ side,
                       float* __restrict__ slots) {
   constexpr int T = kThreads * ROWS;
-  __shared__ float red[R == Reaction::kFull ? kWarps * 3 * T : kWarps * 3];
+  __shared__ SymShared sh;
+  __shared__ float wsum[kWarps * 3];
   int64_t r, c;
   triangle_tile(blockIdx.x, num_tiles, r, c);
   const int64_t row0 = r * T;
   const int64_t col0 = c * T;
-  float ax[ROWS], ay[ROWS], az[ROWS];
+  float act[3][ROWS];
   float rsum[3] = {0.f, 0.f, 0.f};
   if (r == c) {
-    tile_pair<ROWS, true, R, true>(pos, n, row0, pos, n, col0, eps2, ax, ay, az, red, rsum);
+    sym_walk<ROWS, true, R>(pos, n, row0, pos, n, col0, eps2, side, n, act, sh, rsum);
   } else {
-    tile_pair<ROWS, false, R, true>(pos, n, row0, pos, n, col0, eps2, ax, ay, az, red, rsum);
+    sym_walk<ROWS, false, R>(pos, n, row0, pos, n, col0, eps2, scratch + r * 3 * n, n, act, sh,
+                             rsum);
   }
-  __syncthreads();
 #pragma unroll
   for (int u = 0; u < ROWS; ++u) {
-    const int x = threadIdx.x + u * kThreads;
-    const float a[3] = {ax[u], ay[u], az[u]};
+    const int64_t b = row0 + threadIdx.x + u * kThreads;
+    if (b < n) {
 #pragma unroll
-    for (int comp = 0; comp < 3; ++comp) {
-      if (row0 + x < n) scratch[(c * 3 + comp) * n + row0 + x] = a[comp];
-      if constexpr (R == Reaction::kFull) {
-        const float re = warp_sum<T, 3>(red, comp, x);
-        if (col0 + x < n) {
-          if (r == c) {
-            side[comp * n + col0 + x] = re;
-          } else {
-            scratch[(r * 3 + comp) * n + col0 + x] = re;
-          }
-        }
-      }
+      for (int comp = 0; comp < 3; ++comp) scratch[(c * 3 + comp) * n + b] = act[comp][u];
     }
   }
   if constexpr (R == Reaction::kTreeSmall) {
@@ -321,13 +365,13 @@ __global__ void __launch_bounds__(kThreads)
       float v = rsum[comp];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-      if (lane == 0) red[warp * 3 + comp] = v;
+      if (lane == 0) wsum[warp * 3 + comp] = v;
     }
     __syncthreads();
     if (threadIdx.x < 3) {
-      float v = red[threadIdx.x];
+      float v = wsum[threadIdx.x];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) v += red[w * 3 + threadIdx.x];
+      for (int w = 1; w < kWarps; ++w) v += wsum[w * 3 + threadIdx.x];
       slots[static_cast<int64_t>(blockIdx.x) * 3 + threadIdx.x] = v;
     }
   }

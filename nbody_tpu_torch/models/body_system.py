@@ -117,9 +117,10 @@ LATER_SLICES = {
 
 # What variant="auto" runs on a CUDA device, for every integrator: the
 # variant measured faster at N=65536 on an NVIDIA H100 80GB HBM3, 700 W power
-# limit (PERF.md). Euler and leapfrog: the sym force 1.780 ms against the
-# one-sided step's 3.536 ms (scripts/torch_sym_dispatch.py), and the steps
-# through Compute in chip_smoke.py. Hermite, measured on its own kernels:
+# limit (PERF.md). Euler and leapfrog: a sym Euler step through Compute
+# 1.537 / 6.369 ms against the one-sided vpu step's 2.279 / 9.500 ms at
+# N = 65536 / 135168 (scripts/torch_sym_dispatch.py, medians in turns), and
+# the steps through Compute in chip_smoke.py. Hermite, measured on its own kernels:
 # the sym accel + jerk 4.208 ms against the one-sided 6.178 ms per
 # evaluation (scripts/torch_aj_dispatch.py), 1.39x at N=135168 and 262144.
 AUTO_VARIANT_CUDA = "sym"

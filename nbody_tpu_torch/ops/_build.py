@@ -272,6 +272,19 @@ def declare_p3m_sr(lib) -> None:
     lib.nbody_p3m_sr_f32.restype = ctypes.c_int
 
 
+def declare_sym(lib) -> None:
+    """The C signatures of ``nbody_sym_accel_f32``, ``nbody_sym_cross_f32``
+    and ``nbody_sym_ablate_f32`` (csrc/symmetric_kernels.cu) on `lib`."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    lib.nbody_sym_accel_f32.argtypes = [ptr, i64, f32, i64, ptr, ptr, ptr]
+    lib.nbody_sym_accel_f32.restype = ctypes.c_int
+    lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
+                                        ptr, ptr, ptr]
+    lib.nbody_sym_cross_f32.restype = ctypes.c_int
+    lib.nbody_sym_ablate_f32.argtypes = [ptr, i64, f32, i64, ctypes.c_int] + [ptr] * 7
+    lib.nbody_sym_ablate_f32.restype = ctypes.c_int
+
+
 def declare_aj_sym(lib) -> None:
     """The C signatures of ``nbody_aj_sym_f32`` and ``nbody_aj_cross_f32``
     (csrc/symmetric_aj_kernels.cu) on `lib`."""
@@ -363,13 +376,7 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
         getattr(lib, name).restype = ctypes.c_int
     declare_accel(lib)
-    lib.nbody_sym_accel_f32.argtypes = [ptr, i64, f32, i64, ptr, ptr, ptr]
-    lib.nbody_sym_accel_f32.restype = ctypes.c_int
-    lib.nbody_sym_cross_f32.argtypes = [ptr, i64, ptr, i64, f32, i64, ptr, ptr,
-                                        ptr, ptr, ptr]
-    lib.nbody_sym_cross_f32.restype = ctypes.c_int
-    lib.nbody_sym_ablate_f32.argtypes = [ptr, i64, f32, i64, ctypes.c_int] + [ptr] * 7
-    lib.nbody_sym_ablate_f32.restype = ctypes.c_int
+    declare_sym(lib)
     lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]
     lib.nbody_potential_f32.restype = ctypes.c_int
     declare_accel_jerk(lib)

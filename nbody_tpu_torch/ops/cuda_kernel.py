@@ -646,18 +646,25 @@ def potential_energy_per_row_cuda(pos, softening, *, block_size: int = DEFAULT_B
 
 # The dispatch table of the blocked composition, measured on an NVIDIA H100
 # 80GB HBM3 at a 700 W power limit by scripts/torch_sym_dispatch.py (PERF.md,
-# Findings), force ms per call at N = 65536 / 135168 / 262144:
-#   tile 1024, one triangle        1.780 / 7.371 / 27.348
-#   tile 1024, cap 131072          1.780 / 7.456 / 27.564
-#   tile 1024, cap 65536           1.780 / 7.746 / 28.359
-#   tile 512,  one triangle        1.922 / 8.027 / 30.389
-#   tile 256 / 128, cap 65536      2.269 / 3.844 at 65536
-# The widest tile wins everywhere (ROWS = 8 i-bodies a thread amortise the
-# shuffles). One triangle is fastest, but its scratch grows as 12 N^2 / tile
-# bytes (13 GB at N = 2^20); cap 131072 costs at most 1.2 % at the measured
-# N and bounds each launch's scratch at 201 MB.
+# Findings, PR 18: the walk sym_walk, unrolled twice), force ms per call at
+# N = 65536 / 135168 / 262144, medians of two rounds:
+#   tile 1024, one triangle        1.533 / 6.187 / 22.787
+#   tile 1024, cap 131072          1.533 / 6.421 / 23.444
+#   tile 1024, cap 65536           1.533 / 6.732 / 24.404
+#   tile 512,  cap 131072          1.634 / 6.879 / 25.428
+#   tile 256 / 128, cap 65536      1.979 / 2.926 at 65536
+# The widest tile wins everywhere (ROWS = 8 i-bodies a thread share each
+# staged j-body and its three reaction shuffles). One triangle is fastest,
+# but its scratch grows as 12 N^2 / tile bytes (805 MB at 262144, 13 GB at
+# N = 2^20); cap 131072 costs 3-4 % at 135168 and 262144 and bounds each
+# launch's scratch at 201 MB. The walk unrolled once, 4 or 8 times, or held
+# to 96 registers (5 blocks an SM), ran 1.8-6.0 % behind at 65536.
 DEFAULT_SYM_TILE = 1024
 SYM_BLOCK_CAP = 131072
+# The walk's constants the table was measured with (csrc/symmetric_kernels.cu:
+# kSub, the columns of a staged sub-tile, and kUnroll, the steps unrolled).
+SYM_SUB = 128
+SYM_UNROLL = 2
 
 
 def sym_default_dispatch(n: int) -> tuple[int, int]:
@@ -700,6 +707,13 @@ def sym_accel_cuda(pos, softening, *, tile: int = DEFAULT_SYM_TILE, out=None):
     """(N,4) -> (N,3): the set's acceleration on itself, each pair once over
     the triangle j > i (the kernel of ``_sym_kernel``). ``out`` is an
     optional preallocated (N,3) tensor that must not overlap pos."""
+    return _sym(pos, softening, tile, out)
+
+
+def _sym(pos, softening, tile, out, lib=None):
+    """``sym_accel_cuda``. `lib` is the port's library by default, or another
+    build of the same source (``scripts/torch_sym_dispatch.py --against``),
+    whose launches are not counted."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
     _check_state("pos", pos, device)
     tile = check_sym_tile(tile)
@@ -713,16 +727,19 @@ def sym_accel_cuda(pos, softening, *, tile: int = DEFAULT_SYM_TILE, out=None):
     if n == 0:
         return out
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     scratch = torch.empty((_cdiv(n, tile), 3, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nbody_sym_accel_f32(
             pos.data_ptr(), n, ctypes.c_float(float(softening) ** 2), tile,
             scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_sym_accel_f32 launch")
-    LAUNCHES["sym"] += 1
+    if counted:
+        LAUNCHES["sym"] += 1
     return out
 
 
@@ -731,6 +748,11 @@ def sym_cross_cuda(pos_i, pos_j, softening, *, tile: int = DEFAULT_SYM_TILE, out
     and with no mask (the kernel of ``_sym_cross_kernel``): returns
     (acc_i (Bi,4) with w = 0, react_j (3,Bj)), the JAX package's layout.
     ``out=(acc_i, react_j)`` are preallocated tensors of those shapes."""
+    return _sym_cross(pos_i, pos_j, softening, tile, out)
+
+
+def _sym_cross(pos_i, pos_j, softening, tile, out, lib=None):
+    """``sym_cross_cuda``; `lib` as in ``_sym``."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     _check_state("pos_i", pos_i, device)
     _check_state("pos_j", pos_j, device)
@@ -748,9 +770,11 @@ def sym_cross_cuda(pos_i, pos_j, softening, *, tile: int = DEFAULT_SYM_TILE, out
         react_j.copy_(r)
         return acc_i, react_j
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     scratch_i = torch.empty((_cdiv(bj, tile), 3, bi), dtype=torch.float32, device=device)
     scratch_j = torch.empty((_cdiv(bi, tile), 3, bj), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -760,7 +784,8 @@ def sym_cross_cuda(pos_i, pos_j, softening, *, tile: int = DEFAULT_SYM_TILE, out
             scratch_i.data_ptr(), scratch_j.data_ptr(), acc_i.data_ptr(),
             react_j.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_sym_cross_f32 launch")
-    LAUNCHES["sym_cross"] += 1
+    if counted:
+        LAUNCHES["sym_cross"] += 1
     return acc_i, react_j
 
 
@@ -770,13 +795,18 @@ def compute_accel_symmetric_blocked_cuda(pos, softening, *, block_cap: int | Non
     N <= block_cap, else k triangle and k(k-1)/2 cross launches summed in a
     fixed order (``reference.compose_symmetric_blocked``). Defaults from
     ``sym_default_dispatch``."""
+    return _sym_blocked(pos, softening, block_cap, tile)
+
+
+def _sym_blocked(pos, softening, block_cap, tile, lib=None):
+    """``compute_accel_symmetric_blocked_cuda``; `lib` as in ``_sym``."""
     cap, t = sym_default_dispatch(pos.shape[0])
     cap = cap if block_cap is None else int(block_cap)
     t = check_sym_tile(t if tile is None else tile)
     (acc,) = reference.compose_symmetric_blocked(
         (pos,), softening, block_cap=cap, tile_j=t,
-        triangle=lambda p, soft: (sym_accel_cuda(p, soft, tile=t),),
-        cross=lambda p_i, p_j, soft: sym_cross_cuda(p_i, p_j, soft, tile=t))
+        triangle=lambda p, soft: (_sym(p, soft, t, None, lib),),
+        cross=lambda p_i, p_j, soft: _sym_cross(p_i, p_j, soft, t, None, lib))
     return acc
 
 
@@ -795,6 +825,11 @@ def sym_ablated_accel_cuda(pos, softening, *, reaction: str, tile: int = DEFAULT
     (N,3) summed in ``sym_accel_cuda``'s order, so with its bits. A CPU
     tensor takes ``reference.sym_ablated_accel`` (and, for the total,
     ``reference.compute_accel_symmetric``)."""
+    return _sym_ablated(pos, softening, reaction, tile, with_total)
+
+
+def _sym_ablated(pos, softening, reaction, tile, with_total, lib=None):
+    """``sym_ablated_accel_cuda``; `lib` as in ``_sym``."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
     _check_state("pos", pos, device)
     tile = check_sym_tile(tile)
@@ -820,9 +855,11 @@ def sym_ablated_accel_cuda(pos, softening, *, reaction: str, tile: int = DEFAULT
     if n == 0:
         return outs
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     scratch = empty(tiles, 3, n)
     side = empty(3, n) if full else None
     with torch.cuda.device(device):
@@ -834,7 +871,8 @@ def sym_ablated_accel_cuda(pos, softening, *, reaction: str, tile: int = DEFAULT
             total.data_ptr() if with_total else None,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_sym_ablate_f32 launch")
-    LAUNCHES[f"sym_ablate_{reaction}"] += 1
+    if counted:
+        LAUNCHES[f"sym_ablate_{reaction}"] += 1
     return outs
 
 

@@ -260,6 +260,72 @@ def test_sym_every_tile_gives_one_force(dev):
         assert (a - a_r).abs().max().item() <= _tol(a_r)
 
 
+def _padded_state(n, dev, seed=42, pad=7):
+    """Random masses and the last `pad` bodies zero-mass at the origin."""
+    p, _ = _random_w(*_state(n, dev, seed=seed), seed=seed)
+    p[n - min(pad, n - 1):] = 0.0
+    return p
+
+
+# ---- the sym walk (csrc/symmetric_kernels.cu: sym_walk) at every tile ----
+
+
+@pytest.mark.parametrize("tile", SYM_TILES)
+@pytest.mark.parametrize("n", [1, 127, 129, 1025, 4099])
+def test_sym_walk_triangle_every_tile_and_ragged_n(dev, n, tile):
+    """The triangle on the walk at every tile, at N around a sub-tile and a
+    tile and with zero-mass padding, against plain; a repeat bit-equal."""
+    p = _padded_state(n, dev)
+    a_k = sym_accel_cuda(p, SOFT, tile=tile)
+    a_r = reference.compute_accel_symmetric(p, SOFT)
+    assert torch.isfinite(a_k).all() and (a_k - a_r).abs().max().item() <= _tol(a_r)
+    assert torch.equal(a_k, sym_accel_cuda(p, SOFT, tile=tile))
+
+
+@pytest.mark.parametrize("tile", SYM_TILES)
+@pytest.mark.parametrize("bi, bj", [(777, 4099), (4099, 777), (129, 1), (1, 129), (1025, 2048)])
+def test_sym_walk_rectangle_every_tile_both_outputs(dev, bi, bj, tile):
+    """The rectangle on the walk at every tile and ragged shapes: the action
+    and the reaction against plain, w = 0, a repeat bit-equal."""
+    pi = _padded_state(bi, dev, seed=3)
+    pj = _padded_state(bj, dev)
+    a_k, r_k = sym_cross_cuda(pi, pj, SOFT, tile=tile)
+    a_r, r_r = reference.sym_cross(pi, pj, SOFT)
+    assert (a_k - a_r).abs().max().item() <= _tol(a_r)
+    assert (r_k - r_r).abs().max().item() <= _tol(r_r)
+    assert not a_k[:, 3].any()
+    a2, r2 = sym_cross_cuda(pi, pj, SOFT, tile=tile)
+    assert torch.equal(a_k, a2) and torch.equal(r_k, r2)
+
+
+@pytest.mark.parametrize("tile", SYM_TILES)
+def test_sym_walk_ablation_ties_every_tile(dev, tile):
+    """The three ablations run the triangle's walk: full's total equals the
+    triangle's bits, the none and tree_small actions equal full's, and each
+    repeat is bit-equal, at every tile."""
+    p = _padded_state(2500, dev)
+    prod = sym_accel_cuda(p, SOFT, tile=tile)
+    acc_f, react_f, total = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction="full",
+                                                               tile=tile, with_total=True)
+    assert torch.equal(total, prod)
+    for r in ("none", "tree_small"):
+        acc, _ = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction=r, tile=tile)
+        assert torch.equal(acc, acc_f), r
+    again = cuda_kernel.sym_ablated_accel_cuda(p, SOFT, reaction="full", tile=tile,
+                                               with_total=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (acc_f, react_f, total)))
+
+
+def test_sym_walk_zero_softening_masks_the_self_pair_by_select(dev):
+    """At eps = 0 the diagonal's self pair is inf: a select keeps the
+    triangle finite and equal to plain, at every tile."""
+    p = _padded_state(1000, dev, pad=0)
+    a_r = reference.compute_accel_symmetric(p, 0.0)
+    for tile in SYM_TILES:
+        a_k = sym_accel_cuda(p, 0.0, tile=tile)
+        assert torch.isfinite(a_k).all() and (a_k - a_r).abs().max().item() <= _tol(a_r)
+
+
 def test_body_system_auto_is_sym_on_the_card(dev):
     n = 4096
     params = DEMO_PARAMS[0].replace(cluster_scale=tuned_scales(n)[0],
