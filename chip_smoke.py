@@ -33,10 +33,13 @@ its result:
      kernel in its j-chunks and in one, at (M, N) from (777, 4099) and
      (1025, 65537) to the four-card hops (16384, 65536) and (16384, 16384),
      at blocks 128, 256 and 1024, bit-equal across blocks; bit equality;
-     momentum and its derivative; their times, the triangle's also at the
-     N=135168 composition's block, beside the each-pair-once kernels'
-     ptxas registers and spills and their walk's SASS instructions a pair,
-     and the one-sided kernel's registers and spills (3dh: the ds one's);
+     momentum and its derivative; the potential in its j-chunks
+     (step_splits) at N up to 65537, blocks 128, 256 and 1024 and repeats
+     bit-equal; their times, the triangle's also at the N=135168
+     composition's block, beside the each-pair-once kernels' and the
+     potential's ptxas registers and spills (none allowed) and their walks'
+     SASS instructions a pair, and the one-sided kernel's registers and
+     spills (3dh: the ds one's);
   4. QA, the reference's rule, through Compute.compare_results at N=16384;
   5. the main path at full size: Compute.run_benchmark at N=65536, beside
      the plain version's time per step;
@@ -93,10 +96,12 @@ its result:
   3m. the tensor-core step kernels (mxu: 3xTF32, mxu_bf16) against their
      plain versions under the mxu error model (reference.mxu_step_tolerance)
      at (M, N) in {(1000, 1000), (777, 4099), (4099, 777), (4099, 4099),
-     (65536, 65536)}, random masses, vel.w and damping 0.5 at three of them,
-     repeat calls bit-equal; the rollout kernel against k launches of the
-     step kernel, bit for bit, and one rollout step against the plain step;
-     their times at N=65536, the rollout's k=10 both ways in turns;
+     (16384, 65536), (65536, 65536)}, in their j-chunks (mxu_splits), random
+     masses, vel.w and damping 0.5 at four of them, repeat calls bit-equal;
+     the rollout kernel against k launches of the step kernel, bit for bit,
+     and one rollout step against the plain step; their times at N=65536,
+     the rollout's k=10 both ways in turns; the mxu walks' registers and
+     SASS a pair (a spill fails);
   5m. the tensor-core path through Compute(variant="mxu" / "mxu_bf16"): QA
      at N=16384 (the mxu force held to the oracle's under the one-sided
      rule plus its error model), run_benchmark(10) at N=65536 in turns with
@@ -303,11 +308,13 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "sym_ablate_tree_small": "scripts/tpu_r4_sym_budget.py:58"}
 NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
          "step_t": "nbody_step_t_f32, nbody_step_t_split_f32 (+ step_finish_kernel)",
-         "mxu_step": "nbody_mxu_step_f32", "mxu_bf16_step": "nbody_mxu_step_bf16",
+         "mxu_step": "nbody_mxu_step_f32, nbody_mxu_step_split_f32 (+ mxu_finish_kernel)",
+         "mxu_bf16_step": "nbody_mxu_step_bf16, nbody_mxu_step_split_bf16 (+ mxu_finish_kernel)",
          "accel": "nbody_accel_f32, nbody_accel_split_f32 (+ sum_partials_kernel)",
          "sym": "nbody_sym_accel_f32", "sym_cross": "nbody_sym_cross_f32",
          "accel_jerk": "nbody_accel_jerk_f32, nbody_accel_jerk_split_f32",
-         "potential": "nbody_potential_f32",
+         "potential": "nbody_potential_f32, nbody_potential_split_f32 "
+                      "(+ potential_finish_kernel)",
          "aj_sym": "nbody_aj_sym_f32", "aj_sym_cross": "nbody_aj_cross_f32",
          "ds_step": "nbody_ds_step, nbody_ds_step_split (+ ds_step_finish_kernel)",
          "ds_leapfrog": "nbody_ds_leapfrog, nbody_ds_leapfrog_split "
@@ -326,15 +333,22 @@ NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
          "sym_ablate_tree_small": "nbody_sym_ablate_f32 (reaction=tree_small)"}
 HERMITE_KERNELS = ("accel_jerk", "aj_sym", "aj_sym_cross", "potential")
 MXU_KERNELS = ("mxu_step", "mxu_bf16_step")
-# FP32-pipe instructions an mxu pair, read from csrc/mxu_kernels.cu: s is 3
-# FADD, 3 FMUL + 3 FADD, 2 FMUL (11); the 3xTF32 split of the thread's A
-# value is cvt, FADD, cvt (3), of its B values 6 per 4 pairs (1.5); bf16
-# packs two A values a cvt (0.5) and its B values 2 per 8 pairs (0.25).
-# Each counts as 2 flops at the fp32 peak; rsqrtf goes to the SFU.
-MXU_PAIR_INSTR = {"mxu_step": 15.5, "mxu_bf16_step": 11.75}
-# the mma work: 16 flops a pair (n = 8) and pass, three TF32 passes or one
-# bf16 pass, at the card's dense tensor rates (NVIDIA's H100 SXM data sheet)
-MXU_TENSOR = {"mxu_step": (3 * 16.0, 495e12), "mxu_bf16_step": (16.0, 989e12)}
+# the mma work: 16 flops a (padded) pair (n = 8) and pass, two TF32 passes
+# or one bf16 pass, at the card's dense tensor rates (NVIDIA's H100 SXM data
+# sheet)
+MXU_TENSOR = {"mxu_step": (2 * 16.0, 495e12), "mxu_bf16_step": (16.0, 989e12)}
+# the mxu step's work outside the tensor cores: the JAX package's 20 flops a
+# pair for the whole step (pallas_kernel.py:399-400) less the 8 of the s.P
+# product (4 columns, a multiply and an add each), which the mma does and
+# MXU_TENSOR charges: 12 left, the 3 differences, r2's 6 (3 FFMA), the rsqrt
+# and inv^3's 2 FMUL
+MXU_FP32_FLOPS = 20.0 - 8.0
+# the mxu walks by a piece of their mangled names (csrc/mxu_kernels.cu)
+MXU_WALKS = {"mxu_step": "6Tf32x3", "mxu_bf16_step": "4Bf16"}
+# MUFU.RSQ a clock an SM (the SFU): one a pair in the mxu and potential walks;
+# the H100 SXM's top SM clock, at which PERF.md states issue bounds and floors
+SFU_PER_CLOCK = 16
+NOMINAL_MHZ = 1980
 DS_KERNELS = ("ds_step", "ds_leapfrog", "ds_sym", "ds_sym_cross")
 DS_AJ_KERNELS = ("ds_accel_jerk", "ds_aj_sym", "ds_aj_sym_cross")
 # the ds Hermite step's glue kernels: they must launch on its path, but are
@@ -792,10 +806,22 @@ def phase_aj_kernels(torch) -> dict:
                       f"M={m} N={n} splits={splits} block={bs}")
         print(f"[3h aj] one-sided M={m} N={n}: repeats and blocks 128, 256, 1024 bit-equal at "
               f"splits {sorted({ck.aj_splits(m, n), 1})}")
-    for n in (1000, 4099, N_MAIN):
+    # the potential in its j-chunks (step_splits(N, N)): at blocks 128,
+    # 256 and 1024 (four rows a thread, and one) and on a repeat the same
+    # bits; N = 65537 ends the set one body past a stage
+    for n in (1000, 4099, N_MAIN, N_MAIN + 1):
         p, _ = shell_state(torch, n)
-        held("potential", (ck.potential_energy_per_row_cuda(p, soft),),
-             (energy.potential_energy_per_row(p, soft),), f"potential N={n}", ("per-row sums",))
+        want = energy.potential_energy_per_row(p, soft)
+        first = None
+        for bs in (128, 256, 1024):
+            got = ck.potential_energy_per_row_cuda(p, soft, block_size=bs)
+            first = got if first is None else first
+            held("potential", (got,), (want,), f"potential N={n} block={bs}", ("per-row sums",))
+            check(torch.equal(got, first)
+                  and torch.equal(got, ck.potential_energy_per_row_cuda(p, soft, block_size=bs)),
+                  f"the potential differs between blocks or calls at N={n} block={bs}")
+        print(f"[3h aj] potential N={n} (S={ck.step_splits(n, n)}): blocks 128, 256, 1024 and "
+              f"repeats bit-equal")
     for n in (1000, 4099):
         p, v = shell_state(torch, n)
         held("aj_sym", ck.aj_sym_cuda(p, v, soft, tile=tile),
@@ -890,6 +916,8 @@ def phase_aj_kernels(torch) -> dict:
               "aj_sym": bound_ms(60.0 * n * (n - 1) / 2, n * 32 + n * 24),
               "aj_sym_cross": bound_ms(60.0 * bi * bj, (bi + bj) * 32 + bi * 32 + bj * 24),
               "potential": bound_ms(12.0 * n * (n - 1), n * 16 + n * 4)}
+    sfu_floor = n * n / (SFU_PER_CLOCK * NOMINAL_MHZ * 1e6 * torch.cuda.get_device_properties(
+        0).multi_processor_count) * 1e3
     reps, plain_reps = 10, 2
     times = {}
     for name, (kernel, plain) in runs.items():
@@ -900,26 +928,46 @@ def phase_aj_kernels(torch) -> dict:
         times[name] = (t_k, t_p)
         shape = f"({bi},{bj})" if name == "aj_sym_cross" else f"N={n}"
         print(f"[3h aj] {name} at {shape}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
-              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
-    # ptxas and the SASS of the each-pair-once kernels: one more nvcc, after
-    # the timed loops
-    usage, text = _build.sass_of("symmetric_aj_kernels.cu")
+              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]})"
+              + (f", SFU floor {sfu_floor:.3f} ms at {NOMINAL_MHZ} MHz" if name == "potential"
+                 else ""))
+    # ptxas and the SASS of the each-pair-once kernels and of the potential:
+    # one more nvcc a source, after the timed loops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {128: 1, 256: 2, 512: 4, 1024: 8}[tile]
-    names = _build.demangle(usage)
-    for kind in ("tri", "cross"):
-        key = f"aj_sym_{kind}_kernelILi{rows}E"
-        (mangled, u), = ((k, u) for k, u in usage.items() if key in k)
-        walk = min(_build.sass_loops(text, key),
-                   key=lambda lp: lp["instructions"] / lp["pairs"], default=None)
-        check(walk is not None, f"no rsqrt loop in the SASS of {names[mangled]}")
-        mix = ", ".join(f"{c} {n_ / walk['pairs']:.2f}" for c, n_ in sorted(walk["mix"].items()))
-        print(f"[3h aj] {names[mangled]}: {u['registers']} registers, {u['spill_stores']} / "
+    walk_lines(_build, "symmetric_aj_kernels.cu", f"aj_sym_tri_kernelILi{rows}E", "[3h aj]",
+               n * (n - 1) / 2, sms)
+    walk_lines(_build, "symmetric_aj_kernels.cu", f"aj_sym_cross_kernelILi{rows}E", "[3h aj]",
+               float(bi) * bj, sms)
+    spills_checked(_build, "nbody_kernels.cu", "17accel_jerk_kernel", "[3h aj]")
+    walk_lines(_build, "nbody_kernels.cu", "16potential_kernel", "[3h aj]", n * n, sms)
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def walk_lines(build, source: str, key: str, tag: str, pairs: float, sms: int) -> None:
+    """Print each kernel of `source` whose mangled name holds `key`: its
+    registers and its walk's SASS a pair (the cheapest innermost loop
+    around MUFU.RSQ, over its MUFU.RSQ, by class; a masked, ragged or
+    diagonal twin beside it) with the issue bound of that count for `pairs` pairs on `sms` SMs
+    at the nominal clock; fails on a spill (one more nvcc, shared a run)."""
+    usage, text = sass_of_source(source)
+    names = build.demangle(usage)
+    found = [(k, u) for k, u in usage.items() if key in k]
+    check(bool(found), f"no kernel {key} in {source}")
+    for mangled, u in found:
+        loops = sorted(build.sass_loops(text, mangled),
+                       key=lambda lp: lp["instructions"] / lp["pairs"])
+        check(bool(loops), f"no rsqrt loop in the SASS of {names[mangled]}")
+        per = [lp["instructions"] / lp["pairs"] for lp in loops]
+        mix = ", ".join(f"{c} {k / loops[0]['pairs']:.2f}"
+                        for c, k in sorted(loops[0]["mix"].items()))
+        issue = pairs * per[0] / 32 / (sms * 4 * NOMINAL_MHZ * 1e6) * 1e3
+        print(f"{tag} {names[mangled]}: {u['registers']} registers, {u['spill_stores']} / "
               f"{u['spill_loads']} bytes spill stores / loads, {u['smem']} bytes smem; walk "
-              f"{walk['instructions'] / walk['pairs']:.2f} SASS instructions a pair ({mix})")
+              + " / ".join(f"{x:.2f}" for x in per) + f" SASS instructions a pair ({mix}); "
+              f"issue bound {issue:.3f} ms at {NOMINAL_MHZ} MHz")
         check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
               f"{names[mangled]} spills registers")
-    spills_checked(_build, "nbody_kernels.cu", "17accel_jerk_kernel", "[3h aj]")
-    return {"err": err, "times": times, "bounds": bounds}
 
 
 def spills_checked(build, source: str, key: str, tag: str) -> None:
@@ -937,10 +985,11 @@ def spills_checked(build, source: str, key: str, tag: str) -> None:
 
 
 def mxu_bound_ms(key: str, pairs: float, nbytes: float) -> tuple[float, str]:
-    """The least time of an mxu step: the larger of its FP32-pipe
-    instructions (MXU_PAIR_INSTR, 2 flops each) over the fp32 peak, its mma
-    flops over the tensor-core rate, and its bytes over the memory rate."""
-    t_fp32 = 2.0 * MXU_PAIR_INSTR[key] * pairs / PEAK_FP32_FLOPS * 1e3
+    """The least time of an mxu step, read from the work whatever implements
+    it: the larger of its flops outside the tensor cores (MXU_FP32_FLOPS a
+    pair) over the fp32 peak, its mma flops (MXU_TENSOR) over the
+    tensor-core rate, and its bytes over the memory rate."""
+    t_fp32 = MXU_FP32_FLOPS * pairs / PEAK_FP32_FLOPS * 1e3
     flops, rate = MXU_TENSOR[key]
     t_ops = max(t_fp32, flops * pairs / rate * 1e3)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -970,7 +1019,8 @@ def phase_mxu_kernels(torch) -> dict:
     err = {k: 0.0 for k in (*MXU_KERNELS, "step_t")}
     # (M, N, masses and vel.w drawn at random, damping)
     cases = [(1000, 1000, False, damp), (777, 4099, False, damp), (4099, 777, True, 0.5),
-             (4099, 4099, True, 0.5), (N_MAIN, N_MAIN, True, 0.5)]
+             (4099, 4099, True, 0.5), (N_MAIN // 4, N_MAIN, True, 0.5),
+             (N_MAIN, N_MAIN, True, 0.5)]
     for m, n, rand_w, dmp in cases:
         pj, vj = shell_state(torch, n, random_w=rand_w)
         pi, vi = (pj, vj) if m == n else shell_state(torch, m, seed=3, random_w=rand_w)
@@ -1044,8 +1094,11 @@ def phase_mxu_kernels(torch) -> dict:
         times[key] = (t_k, t_p)
         # each input read once, each output written once
         bounds[key] = mxu_bound_ms(key, pairs, 4 * N_MAIN * 16)
-        print(f"[3m mxu] {key} at N={N_MAIN}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms per call, "
-              f"bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
+        sfu = pairs / (SFU_PER_CLOCK * NOMINAL_MHZ * 1e6
+                       * torch.cuda.get_device_properties(0).multi_processor_count) * 1e3
+        print(f"[3m mxu] {key} at N={N_MAIN} (S={ck.mxu_splits(N_MAIN, N_MAIN)}): kernel "
+              f"{t_k:.3f} ms, plain {t_p:.3f} ms per call, bound {bounds[key][0]:.3f} ms "
+              f"({bounds[key][1]}), SFU floor {sfu:.3f} ms at {NOMINAL_MHZ} MHz")
 
     def steps10():
         a, b = p, v
@@ -1073,6 +1126,12 @@ def phase_mxu_kernels(torch) -> dict:
           f"step kernel {ms['steps'][0]:.4f} / {ms['steps'][1]:.4f} ms, rollout "
           f"{ms['rollout'][0]:.4f} / {ms['rollout'][1]:.4f} ms per step; plain step "
           f"{t_plain:.3f} ms; bound {bounds['step_t'][0]:.3f} ms ({bounds['step_t'][1]})")
+    # ptxas and the SASS of the mxu walks: one more nvcc, after the timed loops
+    from nbody_tpu_torch.ops import _build
+
+    for key in MXU_KERNELS:
+        walk_lines(_build, "mxu_kernels.cu", MXU_WALKS[key], "[3m mxu]", pairs,
+                   torch.cuda.get_device_properties(0).multi_processor_count)
     return {"err": err, "times": times, "bounds": bounds}
 
 

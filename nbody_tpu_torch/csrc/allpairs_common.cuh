@@ -2,10 +2,11 @@
 // its rollout, dual-bank and packed twins, and the force kernel) and
 // ring_kernels.cu (the fused ring's hops): ROWS i-bodies a thread against
 // one j-chunk, the j-bodies staged through shared memory kStepStage at a
-// time. A kernel that walks the same chunk of the same j-bodies for the
-// same i-body gets the same sums, bit for bit, whatever ROWS, its block or
-// its grid, so the force is the sum the step applies and each hop of the
-// fused ring is the force at (M, M).
+// time; and beside it the potential kernel's walk on the same recipe
+// (walk_potential). A kernel that walks the same chunk of the same j-bodies
+// for the same i-body gets the same sums, bit for bit, whatever ROWS, its
+// block or its grid, so the force is the sum the step applies and each hop
+// of the fused ring is the force at (M, M).
 // Everything is in an unnamed namespace, so each source that includes this
 // header has its own copy and the objects link without clashes.
 #pragma once
@@ -103,6 +104,85 @@ __device__ __forceinline__ void walk_chunk(const float4 (&pi)[ROWS], const JLoad
         ax[u] = fmaf(s, dx, ax[u]);
         ay[u] = fmaf(s, dy, ay[u]);
         az[u] = fmaf(s, dz, az[u]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One pair of the potential's walk: `sum` + m_j / sqrt(|d|^2 + eps2), as 3
+// FADD, 3 FFMA (eps2 folded into the first), rsqrt_ftz and one FFMA. Both of
+// walk_potential's loops add a pair through it, so the two round alike.
+__device__ __forceinline__ float potential_pair(const float4 pj, const float4 pi,
+                                                const float eps2, const float sum) {
+  const float dx = pj.x - pi.x;
+  const float dy = pj.y - pi.y;
+  const float dz = pj.z - pi.z;
+  return fmaf(pj.w, rsqrt_ftz(fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)))), sum);
+}
+
+// The potential's walk, on walk_chunk's recipe: u_u = sum_j m_j / sqrt(|d|^2
+// + eps2) over the chunk [j0, min(j0 + chunk, n)) of the set's own bodies,
+// each row's sum from 0 in j order, the self pair dropped by its index:
+//   * ROWS i-bodies a thread, rows u * blockDim.x apart, the j-side staged
+//     kStepStage bodies at a time whatever the block size, the walk over a
+//     stage unrolled 8 times at ROWS 4 and kStepUnroll (4) at ROWS 1 (on an
+//     H100, scripts/torch_mxu_bench.py: 8 ran 7.5 % ahead of 4 at ROWS 4 and
+//     9 % behind at ROWS 1, 2 within 2 % of 4);
+//   * the pair (potential_pair) as 3 FADD, 3 FFMA, one MUFU.RSQ (rsqrt_ftz)
+//     and one FFMA into the row's sum; m_i is left out of the
+//     walk and multiplies the row's sum once (the caller's), which rounds
+//     once where m_i m_j / r would round a pair;
+//   * the self pair masked by its index (k == i - base, a select: at eps = 0
+//     it is inf), and a j-slot past n not walked, only in a stage that holds
+//     one of the block's own rows [own_lo, own_hi) or ends the set; every
+//     other stage runs the walk without the compare. A row's self pair lies
+//     in a stage that holds its row, so it is always masked, and the two
+//     walks add every other pair with the same FFMA: the bits depend on the
+//     chunk alone, not on ROWS or the block.
+// Two distinct bodies at one position still count. Every thread of the
+// block must call it; it ends on a barrier.
+template <int ROWS>
+__device__ __forceinline__ void walk_potential(const float4 (&pi)[ROWS],
+                                               const float4* __restrict__ pos, const int64_t i0,
+                                               const int64_t own_lo, const int64_t own_hi,
+                                               const int64_t j0, const int64_t chunk,
+                                               const int64_t n, const float eps2,
+                                               float (&u)[ROWS]) {
+  __shared__ float4 sp[kStepStage];
+  const int bs = blockDim.x;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) u[r] = 0.f;
+  const int64_t j1 = j0 + chunk < n ? j0 + chunk : n;
+  for (int64_t base = j0; base < j1; base += kStepStage) {
+    for (int k = tid; k < kStepStage; k += bs) {
+      const int64_t j = base + k;
+      sp[k] = (j < n) ? pos[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    if (base + kStepStage <= n && (base + kStepStage <= own_lo || base >= own_hi)) {
+#pragma unroll(ROWS == 1 ? kStepUnroll : 2 * kStepUnroll)
+      for (int k = 0; k < kStepStage; ++k) {
+        const float4 pj = sp[k];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) u[r] = potential_pair(pj, pi[r], eps2, u[r]);
+      }
+    } else {
+      const int valid = static_cast<int>(n - base < kStepStage ? n - base : kStepStage);
+      int self[ROWS];  // the row's slot in this stage, -1 where it lies elsewhere
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int64_t k = i0 + static_cast<int64_t>(r) * bs - base;
+        self[r] = (k >= 0 && k < kStepStage) ? static_cast<int>(k) : -1;
+      }
+      for (int k = 0; k < valid; ++k) {
+        const float4 pj = sp[k];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float sum = potential_pair(pj, pi[r], eps2, u[r]);
+          u[r] = (k == self[r]) ? u[r] : sum;
+        }
       }
     }
     __syncthreads();

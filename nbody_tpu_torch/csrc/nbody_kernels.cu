@@ -127,6 +127,20 @@
 // eps = 0), not by d = 0. 12 flops a pair by the JAX package's count.
 // Only the self set is taken (M = N), as the JAX kernel takes it; the total
 // -1/2 sum_i is left to the caller, as pallas_kernel.py:792 leaves it to XLA.
+// Design (potential_kernel, walk_potential in allpairs_common.cuh), the
+// step's recipe: ROWS rows a thread (rows_a_thread), j staged kStepStage
+// bodies at a time, the pair as 3 FADD, 3 FFMA, rsqrt_ftz and one FFMA into
+// the row's sum of m_j / r, m_i multiplied in once at the end (one rounding
+// where a pair's m_i m_j / r rounds N - 1 times: within 2^-24 of the row,
+// against the 1e-4 relative the kernel is held to); the self mask only in
+// the stages that hold one of the block's own rows (or end the set); the
+// j-split of the step (ops/cuda_kernel.py::step_splits at (N, N)), each
+// chunk's sums into the partials (S, N), potential_finish_kernel adding them
+// in chunk order from 0 and multiplying by m_i. The bits depend on N alone,
+// not on the block (128, 256 or 1024 threads) or the call. What bounds it on
+// an H100: the SFU. A pair is 7 FP32-pipe instructions and one MUFU.RSQ, 16
+// a clock an SM: 1.03 ms at N=65536 on 132 SMs at 1.98 GHz, above the 12
+// flops' 0.769 ms at 67 TFLOP/s.
 //
 // The transposed-carry step (step_t_kernel): the step kernel's arithmetic
 // through the same template (fused_step), with the j-side read from the four
@@ -168,10 +182,10 @@
 // contiguous float32 arrays: pos/vel (M,4) or (N,4) AoS, 16-byte aligned
 // (float4 loads), acc (M,3); the `_split` entry points take S and a device
 // scratch for the partials (S * 3 * M floats for the steps and the force,
-// S * 6 * M for accel + jerk). The caller makes the arrays' device current; the
-// kernel runs on the given stream of that device, allocates nothing and does
-// not synchronise. Each entry point returns cudaGetLastError() after the
-// launch.
+// S * 6 * M for accel + jerk, S * N for the potential). The caller makes the
+// arrays' device current; the kernel runs on the given stream of that
+// device, allocates nothing and does not synchronise. Each entry point
+// returns cudaGetLastError() after the launch.
 
 #include <cstdint>
 
@@ -471,31 +485,47 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-__global__ void potential_kernel(const float4* __restrict__ pos, float* __restrict__ per_row,
-                                 const int64_t n, const float eps2) {
-  extern __shared__ float4 tile[];
-  const int bs = blockDim.x;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * bs + threadIdx.x;
-  const float4 pi = (i < n) ? pos[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  float u = 0.f;
-  for (int64_t base = 0; base < n; base += bs) {
-    const int64_t j = base + threadIdx.x;
-    tile[threadIdx.x] = (j < n) ? pos[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    // the self pair's slot in this tile (out of [0, bs) when it is elsewhere)
-    const int64_t self = i - base;
-    for (int k = 0; k < bs; ++k) {
-      const float4 pj = tile[k];
-      const float dx = pj.x - pi.x;
-      const float dy = pj.y - pi.y;
-      const float dz = pj.z - pi.z;
-      const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-      const float pair = pi.w * pj.w * rsqrtf(r2);
-      u += (k == self) ? 0.f : pair;
+// The potential of ROWS rows a thread against j-chunk blockIdx.y of the set
+// itself (walk_potential). parts == nullptr (one chunk): per_row[i] = m_i *
+// the row's sum; else the sum into the partials parts[blockIdx.y * n + i],
+// which potential_finish_kernel adds. The launch bounds ask for 1024 /
+// MAX_THREADS blocks an SM, up to 64 registers a thread: left to choose,
+// ptxas gave the 1024-thread instantiation 32 and spilled.
+template <int ROWS, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS, 1024 / MAX_THREADS)
+    potential_kernel(const float4* __restrict__ pos, float* __restrict__ per_row,
+                     const int64_t n, const int64_t chunk, const float eps2,
+                     float* __restrict__ parts) {
+  const int64_t own_lo = static_cast<int64_t>(blockIdx.x) * ROWS * blockDim.x;
+  const int64_t i0 = own_lo + threadIdx.x;
+  float4 pi[ROWS];
+  float u[ROWS];
+  load_rows<ROWS, 1>(pos, i0, n, pi);
+  walk_potential<ROWS>(pi, pos, i0, own_lo, own_lo + ROWS * blockDim.x,
+                       static_cast<int64_t>(blockIdx.y) * chunk, chunk, n, eps2, u);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int64_t i = i0 + static_cast<int64_t>(r) * blockDim.x;
+    if (i >= n) continue;
+    if (parts != nullptr) {
+      parts[static_cast<int64_t>(blockIdx.y) * n + i] = u[r];
+    } else {
+      per_row[i] = pi[r].w * u[r];
     }
-    __syncthreads();
   }
-  if (i < n) per_row[i] = u;
+}
+
+// The split potential's rows, one thread a row: the row's `splits` partial
+// sums (splits, n) added in chunk order from 0, times m_i
+__global__ void __launch_bounds__(256)
+    potential_finish_kernel(const float* __restrict__ parts, const int64_t splits,
+                            const float4* __restrict__ pos, float* __restrict__ per_row,
+                            const int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float u = 0.f;
+  for (int64_t c = 0; c < splits; ++c) u += parts[c * n + i];
+  per_row[i] = pos[i].w * u;
 }
 
 bool valid_block_size(int64_t bs) { return bs >= 32 && bs <= 1024 && bs % 32 == 0; }
@@ -676,6 +706,32 @@ int launch_accel_f32(const void* pos_i, const void* pos_j, void* acc, int64_t m,
   return sum_partials(parts, splits, 3, m, a, 3, 1, 0, stream);
 }
 
+// The potential on the grid (i-tiles of rows_a_thread * block_size rows,
+// splits), then with splits > 1 potential_finish_kernel adds the partials in
+// `parts` (splits * n floats) in chunk order.
+int launch_potential_f32(const void* pos, void* per_row, int64_t n, float eps2,
+                         int64_t block_size, int64_t splits, float* parts,
+                         cudaStream_t stream) {
+  if (!valid_step(block_size, n, n, splits, parts)) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const auto p = static_cast<const float4*>(pos);
+  const auto out = static_cast<float*>(per_row);
+  const int rows = rows_a_thread(block_size);
+  const dim3 grid(num_blocks(n, rows * block_size), static_cast<unsigned int>(splits));
+  const auto bs = static_cast<unsigned int>(block_size);
+  const int64_t chunk = step_chunk(n, splits);
+  float* part = splits > 1 ? parts : nullptr;
+  if (rows == kStepRows) {
+    potential_kernel<kStepRows, 512><<<grid, bs, 0, stream>>>(p, out, n, chunk, eps2, part);
+  } else {
+    potential_kernel<1, 1024><<<grid, bs, 0, stream>>>(p, out, n, chunk, eps2, part);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  potential_finish_kernel<<<num_blocks(n, 256), 256, 0, stream>>>(parts, splits, p, out, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -787,13 +843,15 @@ int nbody_accel_jerk_split_f32(const void* pos_i, const void* vel_i, const void*
 
 int nbody_potential_f32(const void* pos, void* per_row, int64_t n, float eps2,
                         int64_t block_size, void* stream) {
-  if (!valid_block_size(block_size) || n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(block_size) * sizeof(float4);
-  potential_kernel<<<num_blocks(n, block_size), static_cast<unsigned int>(block_size), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pos), static_cast<float*>(per_row), n, eps2);
-  return cudaGetLastError();
+  return launch_potential_f32(pos, per_row, n, eps2, block_size, 1, nullptr,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int nbody_potential_split_f32(const void* pos, void* per_row, int64_t n, float eps2,
+                              int64_t block_size, int64_t splits, void* scratch, void* stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_potential_f32(pos, per_row, n, eps2, block_size, splits,
+                              static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
 }
 
 const char* nbody_error_string(int err) {

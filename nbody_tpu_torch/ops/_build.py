@@ -366,19 +366,44 @@ def declare_step(lib) -> None:
             getattr(lib, name).restype = ctypes.c_int
 
 
+def declare_mxu(lib) -> None:
+    """The C signatures of the tensor-core step entry points that `lib` has
+    (csrc/mxu_kernels.cu): ``nbody_mxu_step_f32`` / ``_bf16`` (one j-chunk)
+    and their ``_split`` forms, which take the chunk count and the
+    partials."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    step = [ptr] * 5 + [i64, i64, f32, f32, f32]
+    for kind in ("f32", "bf16"):
+        for name, argtypes in ((f"nbody_mxu_step_{kind}", step + [ptr]),
+                               (f"nbody_mxu_step_split_{kind}", step + [i64, ptr, ptr])):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+
+
+def declare_potential(lib) -> None:
+    """The C signatures of the potential entry points that `lib` has
+    (csrc/nbody_kernels.cu): ``nbody_potential_f32`` (one j-chunk) and its
+    ``_split`` form, which takes the chunk count and the partials."""
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    sigs = {"nbody_potential_f32": [ptr, ptr, i64, f32, i64, ptr],
+            "nbody_potential_split_f32": [ptr, ptr, i64, f32, i64, i64, ptr, ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
     declare_step(lib)
-    for name in ("nbody_mxu_step_f32", "nbody_mxu_step_bf16"):
-        getattr(lib, name).argtypes = [ptr] * 5 + [i64, i64, f32, f32, f32, ptr]
-        getattr(lib, name).restype = ctypes.c_int
+    declare_mxu(lib)
     declare_accel(lib)
     declare_sym(lib)
-    lib.nbody_potential_f32.argtypes = [ptr, ptr, i64, f32, i64, ptr]
-    lib.nbody_potential_f32.restype = ctypes.c_int
+    declare_potential(lib)
     declare_accel_jerk(lib)
     declare_aj_sym(lib)
     # the ds entry points take the (2, 4) scalar block as a host pointer

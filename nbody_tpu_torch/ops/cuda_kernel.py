@@ -176,7 +176,7 @@ def _step(pos_i, vel_i, pos_j, dt, softening, damping, block_size, out, splits=N
         lib = load_library()
     s = step_splits(m, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = _launch_step(lib, "nbody_step", s, m, device, (
+        err = _launch_chunks(lib, "nbody_step_f32", s, (3, m), device, (
             pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), new_pos.data_ptr(),
             new_vel.data_ptr(), m, n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_f32 launch")
@@ -191,17 +191,18 @@ def _step_scalars(dt, softening, damping):
             ctypes.c_float(float(damping)))
 
 
-def _launch_step(lib, entry: str, s: int, m: int, device, args) -> int:
-    """Launch the fused-step entry point `entry` (``nbody_step``,
-    ``nbody_step_t``, ``nbody_step_dual``, ``nbody_step_packed``) of `lib`
-    on the current stream: ``<entry>_f32`` for one j-chunk, else
-    ``<entry>_split_f32`` with S and a scratch (S, 3, M) for the chunks'
-    partials. Returns its error code."""
+def _launch_chunks(lib, entry: str, s: int, parts: tuple, device, args) -> int:
+    """Launch the entry point `entry` of `lib` (a one-chunk name such as
+    ``nbody_step_f32`` or ``nbody_mxu_step_bf16``) on the current stream: as
+    named for one j-chunk, else its ``_split`` twin (``nbody_step_split_f32``,
+    ``nbody_mxu_step_split_bf16``) with S and a scratch (S, *parts) for the
+    chunks' partials. Returns its error code."""
     stream = torch.cuda.current_stream().cuda_stream
     if s == 1:
-        return getattr(lib, f"{entry}_f32")(*args, stream)
-    parts = torch.empty((s, 3, m), dtype=torch.float32, device=device)
-    return getattr(lib, f"{entry}_split_f32")(*args, s, parts.data_ptr(), stream)
+        return getattr(lib, entry)(*args, stream)
+    head, _, dtype = entry.rpartition("_")
+    scratch = torch.empty((s, *parts), dtype=torch.float32, device=device)
+    return getattr(lib, f"{head}_split_{dtype}")(*args, s, scratch.data_ptr(), stream)
 
 
 def nbody_step_cuda(pos, vel, dt, softening, damping,
@@ -213,7 +214,8 @@ def nbody_step_cuda(pos, vel, dt, softening, damping,
 
 # ---- the force reduction on the tensor cores: csrc/mxu_kernels.cu ----
 
-# variant -> (C entry point, LAUNCHES key)
+# variant -> (C entry point of one j-chunk, LAUNCHES key); the split entry
+# point is its _split twin (_launch_chunks)
 MXU_KERNELS = {"mxu": ("nbody_mxu_step_f32", "mxu_step"),
                "mxu_bf16": ("nbody_mxu_step_bf16", "mxu_bf16_step")}
 
@@ -223,9 +225,20 @@ def nbody_step_mxu_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping, *, varia
     """The fused Euler step of the i-set (M,4) under the j-set (N,4), the
     force reduced as a matrix product on the tensor cores (the kernel of
     ``_mxu_step_kernel``): ``variant="mxu"`` in f32 grade (3xTF32),
-    ``"mxu_bf16"`` with bf16 operands and f32 sums. Returns (new_pos,
-    new_vel); ``out`` as for ``nbody_step_cuda_vs``. A CPU tensor takes the
-    plain version, ``reference.nbody_step_mxu_vs``."""
+    ``"mxu_bf16"`` with bf16 operands and f32 sums, in ``mxu_splits(M, N)``
+    j-chunks. Returns (new_pos, new_vel); ``out`` as for
+    ``nbody_step_cuda_vs``. A CPU tensor takes the plain version,
+    ``reference.nbody_step_mxu_vs``."""
+    return _mxu_step(pos_i, vel_i, pos_j, dt, softening, damping, variant, out)
+
+
+def _mxu_step(pos_i, vel_i, pos_j, dt, softening, damping, variant, out, splits=None,
+              lib=None):
+    """``nbody_step_mxu_cuda_vs`` in `splits` j-chunks (``mxu_splits`` by
+    default) through `lib`: the port's library by default, or another build
+    of the kernels (``scripts/torch_mxu_bench.py --against``), whose launches
+    are not counted; with splits = 1 only its one-chunk entry point is
+    called, which every build has."""
     entry, key = MXU_KERNELS[reference.check_mxu_variant(variant)]
     device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out)
     m, n = pos_i.shape[0], pos_j.shape[0]
@@ -238,17 +251,19 @@ def nbody_step_mxu_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping, *, varia
     if m == 0:
         return new_pos, new_vel
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
+    s = mxu_splits(m, n) if splits is None else int(splits)
+    args = (pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), new_pos.data_ptr(),
+            new_vel.data_ptr(), m, n, *_step_scalars(dt, softening, damping))
     with torch.cuda.device(device):
-        err = getattr(lib, entry)(
-            pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(),
-            new_pos.data_ptr(), new_vel.data_ptr(), m, n,
-            ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
-            ctypes.c_float(float(damping)), torch.cuda.current_stream().cuda_stream)
+        err = _launch_chunks(lib, entry, s, (4, m), device, args)
     _raise_on_error(lib, err, f"{entry} launch")
-    LAUNCHES[key] += 1
+    if counted:
+        LAUNCHES[key] += 1
     return new_pos, new_vel
 
 
@@ -304,7 +319,7 @@ def _rollout(pos, vel, dt, softening, damping, steps, block_size, splits=None, l
     with torch.cuda.device(device):
         for k in range(steps):
             nxt = bufs[k % 2]
-            err = _launch_step(lib, "nbody_step_t", s, n, device, (
+            err = _launch_chunks(lib, "nbody_step_t_f32", s, (3, n), device, (
                 cur[0].data_ptr(), cur[1].data_ptr(), planes[k % 2].data_ptr(),
                 nxt[0].data_ptr(), nxt[1].data_ptr(), planes[1 - k % 2].data_ptr(), n,
                 *_step_scalars(dt, softening, damping), bs))
@@ -346,7 +361,7 @@ def nbody_step_dual_cuda(pos, vel, dt, softening, damping, *,
     lib = load_library()
     s = step_splits(n, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = _launch_step(lib, "nbody_step_dual", s, n, device, (
+        err = _launch_chunks(lib, "nbody_step_dual_f32", s, (3, n), device, (
             pos.data_ptr(), vel.data_ptr(), pos.data_ptr(), new_pos.data_ptr(),
             new_vel.data_ptr(), n, n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_dual_f32 launch")
@@ -400,7 +415,7 @@ def nbody_step_packed_cuda(state, planes, dt, softening, damping, *,
     lib = load_library()
     s = step_splits(n, n) if splits is None else int(splits)
     with torch.cuda.device(device):
-        err = _launch_step(lib, "nbody_step_packed", s, n, device, (
+        err = _launch_chunks(lib, "nbody_step_packed_f32", s, (3, n), device, (
             state.data_ptr(), planes.data_ptr(), new_state.data_ptr(), new_planes.data_ptr(),
             n, *_step_scalars(dt, softening, damping), bs))
     _raise_on_error(lib, err, "nbody_step_packed_f32 launch")
@@ -465,12 +480,7 @@ def _accel(pos_i, pos_j, softening, block_size, splits=None, lib=None):
     args = (pos_i.data_ptr(), pos_j.data_ptr(), acc.data_ptr(), m, n,
             ctypes.c_float(float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if s == 1:
-            err = lib.nbody_accel_f32(*args, stream)
-        else:
-            parts = torch.empty((s, 3, m), dtype=torch.float32, device=device)
-            err = lib.nbody_accel_split_f32(*args, s, parts.data_ptr(), stream)
+        err = _launch_chunks(lib, "nbody_accel_f32", s, (3, m), device, args)
     _raise_on_error(lib, err, "nbody_accel_f32 launch")
     if counted:
         LAUNCHES["accel"] += 1
@@ -528,6 +538,19 @@ DS_AJ_FILL_BLOCKS = 4224
 DS_STAGE = 128  # kDsStage of csrc/ds_kernels.cu
 STEP_STAGE = 256  # kStepStage of csrc/allpairs_common.cuh
 STEP_ROWS = 4  # kStepRows of csrc/allpairs_common.cuh: rows a thread up to 512 threads
+# The tensor-core step (csrc/mxu_kernels.cu) takes the rule on its own i-tile
+# (kMxuRows: 4 warps x 4 m16 tiles), stage (kMxuStage: four 128-body tile
+# sums a barrier) and fill: 2112 blocks, 16 an SM of 132, about three waves
+# of the 5 blocks of 128 threads at 96 registers an SM holds. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W by scripts/torch_mxu_bench.py (PERF.md,
+# Findings), S from 1 to four times the rule's in turns: the 3xTF32 step at
+# the rule's S within 1.5 % of the best S timed at 65536 (S = 16: 2.495 ms,
+# 32: 2.457, 1: 2.693), 135168 (S = 4: 10.259, 16: 10.153, 1: 10.562) and
+# the four-card hop (16384, 65536) (S = 64: 0.647, 1: 1.714), within 3 % at
+# 16384^2 (S = 32: 0.187, 16: 0.182); bf16 alike.
+MXU_TILE_I = 256
+MXU_STAGE = 512
+MXU_FILL_BLOCKS = 2112
 
 
 def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
@@ -552,6 +575,12 @@ def step_splits(m: int, n: int) -> int:
     ``step_dual``, ``step_packed``), of the force kernel and of a fused
     ring hop (at M = N) at M i-rows, N j-bodies."""
     return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=STEP_STAGE, fill=AJ_FILL_BLOCKS)
+
+
+def mxu_splits(m: int, n: int) -> int:
+    """S of the tensor-core step kernels (``mxu``, ``mxu_bf16``) at M i-rows,
+    N j-bodies."""
+    return one_sided_splits(m, n, tile_i=MXU_TILE_I, stage=MXU_STAGE, fill=MXU_FILL_BLOCKS)
 
 
 def ds_aj_splits(m: int, n: int) -> int:
@@ -603,12 +632,7 @@ def _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size, splits=None, 
     args = (pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), vel_j.data_ptr(),
             acc.data_ptr(), jerk.data_ptr(), m, n, ctypes.c_float(float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if s == 1:
-            err = lib.nbody_accel_jerk_f32(*args, stream)
-        else:
-            parts = torch.empty((s, 6, m), dtype=torch.float32, device=device)
-            err = lib.nbody_accel_jerk_split_f32(*args, s, parts.data_ptr(), stream)
+        err = _launch_chunks(lib, "nbody_accel_jerk_f32", s, (6, m), device, args)
     _raise_on_error(lib, err, "nbody_accel_jerk_f32 launch")
     if counted:
         LAUNCHES["accel_jerk"] += 1
@@ -618,27 +642,37 @@ def _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size, splits=None, 
 def potential_energy_per_row_cuda(pos, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):
     """(N,) per-row pair-potential sums of the set (N,4), row i holding
     sum_{j != i} m_i m_j / sqrt(r^2 + eps^2), the self pair dropped by its
-    index: the potential kernel (``_potential_kernel``). The potential
-    energy is -1/2 of their sum."""
+    index: the potential kernel (``_potential_kernel``) in ``step_splits(N,
+    N)`` j-chunks, the same bits at every block size. The potential energy
+    is -1/2 of their sum."""
+    return _potential(pos, softening, block_size)
+
+
+def _potential(pos, softening, block_size, splits=None, lib=None):
+    """``potential_energy_per_row_cuda`` in `splits` j-chunks
+    (``step_splits(N, N)`` by default) through `lib`, as ``_mxu_step``."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
     _check_state("pos", pos, device)
     bs = check_block_size(block_size)
     if device.type != "cuda":
         return energy.potential_energy_per_row(pos, softening)
 
-    from nbody_tpu_torch.ops._build import load_library
+    counted = lib is None
+    if counted:
+        from nbody_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+        lib = load_library()
     n = pos.shape[0]
     per_row = torch.empty((n,), dtype=torch.float32, device=device)
     if n == 0:
         return per_row
+    s = step_splits(n, n) if splits is None else int(splits)
+    args = (pos.data_ptr(), per_row.data_ptr(), n, ctypes.c_float(float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        err = lib.nbody_potential_f32(
-            pos.data_ptr(), per_row.data_ptr(), n, ctypes.c_float(float(softening) ** 2), bs,
-            torch.cuda.current_stream().cuda_stream)
+        err = _launch_chunks(lib, "nbody_potential_f32", s, (n,), device, args)
     _raise_on_error(lib, err, "nbody_potential_f32 launch")
-    LAUNCHES["potential"] += 1
+    if counted:
+        LAUNCHES["potential"] += 1
     return per_row
 
 

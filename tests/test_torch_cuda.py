@@ -564,6 +564,36 @@ def test_potential_masks_self_pair_by_index_at_zero_softening(dev):
     _held((got,), (energy.potential_energy_per_row(p, 0.0),))
 
 
+@pytest.mark.parametrize("n", [1000, 4099, 65537])
+def test_potential_blocks_and_splits_give_one_set_of_bits(dev, n):
+    # the split walk: the same bits at blocks 128, 256 and 1024 (one and
+    # four rows a thread) and on a repeat, at the rule's S, at 1 and at 3,
+    # each held to the plain per-row sums
+    p, _ = _random_w(*_state(n, dev))
+    want = energy.potential_energy_per_row(p, SOFT)
+    for splits in (None, 1, 3):
+        first = cuda_kernel._potential(p, SOFT, 128, splits=splits)
+        _held((first,), (want,))
+        for bs in (128, 256, 1024):
+            assert torch.equal(cuda_kernel._potential(p, SOFT, bs, splits=splits), first)
+    assert torch.equal(potential_energy_per_row_cuda(p, SOFT, block_size=1024),
+                       cuda_kernel._potential(p, SOFT, 256))
+
+
+@pytest.mark.parametrize("block_size", [128, 256, 1024])
+def test_potential_self_mask_and_shared_positions_at_every_block(dev, block_size):
+    # eps = 0: the self pair (inf) is dropped by its index in the stages
+    # that hold the block's own rows, whichever block; two distinct bodies
+    # at one position still count at eps > 0
+    p, _ = _random_w(*_state(4099, dev))
+    got = potential_energy_per_row_cuda(p, 0.0, block_size=block_size)
+    assert torch.isfinite(got).all()
+    _held((got,), (energy.potential_energy_per_row(p, 0.0),))
+    p[17] = p[4000]
+    got = potential_energy_per_row_cuda(p, SOFT, block_size=block_size)
+    _held((got,), (energy.potential_energy_per_row(p, SOFT),))
+
+
 def test_new_wrappers_refuse_bad_arguments_before_launch(dev):
     p, v = _state(256, dev)
     before = dict(cuda_kernel.LAUNCHES)
@@ -1148,6 +1178,25 @@ def test_mxu_step_random_masses_damping_and_repeats(dev, variant, n):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     want = reference.nbody_step_mxu(p, v, DT, SOFT, 0.5, mxu_dtype=reference.MXU_DTYPES[variant])
     _mxu_held(p, v, p, got, want, 0.5, variant)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+@pytest.mark.parametrize("m, n", [(1025, 4099), (4099, 1025), (777, 65537), (16384, 65536),
+                                  (65536, 65536)])
+def test_mxu_step_split_and_unsplit(dev, variant, m, n):
+    # the j-split walk at the rule's S (mxu_splits), at one chunk and at
+    # three, ragged and four-card hop shapes: each within the error model of
+    # plain, each repeat bit-equal; masses from [0.5, 2], a random vel.w,
+    # damping 0.5
+    pj, vj = _random_w(*_state(n, dev))
+    pi, vi = pj[:m].contiguous(), vj[:m].contiguous()
+    want = reference.nbody_step_mxu_vs(pi, vi, pj, DT, SOFT, 0.5,
+                                       mxu_dtype=reference.MXU_DTYPES[variant])
+    for splits in (None, 1, 3):
+        got = cuda_kernel._mxu_step(pi, vi, pj, DT, SOFT, 0.5, variant, None, splits=splits)
+        again = cuda_kernel._mxu_step(pi, vi, pj, DT, SOFT, 0.5, variant, None, splits=splits)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _mxu_held(pi, vi, pj, got, want, 0.5, variant)
 
 
 @pytest.mark.parametrize("variant", MXU_VARIANTS)
