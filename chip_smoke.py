@@ -254,6 +254,32 @@ P3M_UNFUSED_INSTR = 40
 # (NVIDIA's H100 SXM data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the native fp64 kernels (csrc/f64_kernels.cu, phases 3f and 5f): they
+# replace no pl.pallas_call (the JAX package's fp64 is its XLA path), so they
+# stay out of the kernels line and print a line of their own before it. Their
+# bound: the JAX package's flops a pair (the fp32 rows' counts: 20 for the
+# step and the force, 48 with the jerk, 12 for the potential) at the card's
+# FP64 rate outside the tensor cores (NVIDIA's H100 SXM data sheet, 700 W),
+# and their issue bound: the walk's FP64 instructions a pair (SASS) at 64
+# FP64 lanes an SM.
+F64_KERNELS = ("step_f64", "accel_f64", "accel_jerk_f64", "potential_f64")
+F64_NAMES = {"step_f64": "nbody_step_f64, nbody_step_split_f64 (+ f64_step_finish_kernel)",
+             "accel_f64": "nbody_accel_f64, nbody_accel_split_f64 (+ f64_sum_partials_kernel)",
+             "accel_jerk_f64": "nbody_accel_jerk_f64, nbody_accel_jerk_split_f64 "
+                               "(+ f64_sum_partials_kernel)",
+             "potential_f64": "nbody_potential_f64, nbody_potential_split_f64 "
+                              "(+ f64_potential_finish_kernel)"}
+F64_REPLACES = {"step_f64": "no pl.pallas_call: nbody_tpu/ops/reference.py:89 (XLA)",
+                "accel_f64": "no pl.pallas_call: nbody_tpu/ops/reference.py:52 (XLA)",
+                "accel_jerk_f64": "no pl.pallas_call: nbody_tpu/ops/reference.py:149 (XLA)",
+                "potential_f64": "no pl.pallas_call: nbody_tpu/ops/energy.py:24 (XLA)"}
+F64_FLOPS = {"step_f64": 20.0, "accel_f64": 20.0, "accel_jerk_f64": 48.0, "potential_f64": 12.0}
+# each double kernel's walk by a piece of its mangled name
+F64_WALKS = {"step_f64": "15f64_step_kernel", "accel_f64": "16f64_accel_kernel",
+             "accel_jerk_f64": "21f64_accel_jerk_kernel", "potential_f64": "20f64_potential_kernel"}
+PEAK_FP64_FLOPS = 34e12
+FP64_LANES = 64
+F64_SOURCE = "nbody_tpu_torch/csrc/f64_kernels.cu"
 SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "step_t": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "mxu_step": "nbody_tpu_torch/csrc/mxu_kernels.cu",
@@ -2424,7 +2450,7 @@ def ptxas_registers(usage: dict, key: str) -> int:
 
 
 def step_walks_checked(build, usage: dict, text: str, keys=STEP_WALKS,
-                       source: str = "nbody_kernels.cu") -> None:
+                       source: str = "nbody_kernels.cu", tag: str = "[3e sass]") -> None:
     """Each instantiation of the kernels `keys` of `source` (by default the
     four step kernels, STEP_WALKS) has a walk, the loop around its rsqrt,
     and no local-memory access (LDL, STL: a spill) inside it; a local
@@ -2456,7 +2482,7 @@ def step_walks_checked(build, usage: dict, text: str, keys=STEP_WALKS,
             where = ", ".join(f"{op} at {a:#x} ({at(a)})" for a, op in local
                               if not lo <= a <= hi)
             u = usage.get(fname, {})
-            print(f"[3e sass] {name}: walk {lo:#x}-{hi:#x}, "
+            print(f"{tag} {name}: walk {lo:#x}-{hi:#x}, "
                   f"{min(w['instructions'] / w['pairs'] for w in walks):.2f} SASS instructions "
                   f"a pair, {inside} local accesses inside; ptxas {u.get('spill_stores')} / "
                   f"{u.get('spill_loads')} bytes spill stores / loads; outside: {where or 'none'}")
@@ -2673,6 +2699,326 @@ def phase_experiment_kernels(torch) -> dict:
         print(f"[3e times] {key} at N={N_MAIN}: kernel {times[key]:.4f} ms, plain {t_p:.3f} "
               f"ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
     return {"err": err, "times": out, "bounds": bounds}
+
+def f64_state(torch, n, *, seed=42):
+    """``shell_state(random_w=True)`` in float64: masses from [0.5, 2] and a
+    random vel.w, exact in either type."""
+    pos, vel = shell_state(torch, n, seed=seed, random_w=True)
+    return pos.double(), vel.double()
+
+
+def oracle_rows_f64(rows, pos64, vel64, soft):
+    """The float64 force, jerk and potential of the set's `rows` (indices)
+    under the whole set, in the NumPy oracle's arithmetic
+    (``oracle/numpy_oracle.py``: 1/r^3 as m / (sqrt(r2) r2), float64
+    throughout), the self pair dropped from the potential by its index.
+    Sampled rows keep the oracle's O(rows * N) cost inside the phase at
+    N = 65537."""
+    import numpy as np
+
+    p3, v3, m = pos64[:, :3], vel64[:, :3], pos64[:, 3]
+    acc, jerk, pot = [], [], []
+    for c in range(0, len(rows), 64):
+        i = rows[c:c + 64]
+        dx = p3[None, :, :] - p3[i, None, :]
+        dv = v3[None, :, :] - v3[i, None, :]
+        r2 = np.einsum("cnk,cnk->cn", dx, dx) + soft * soft
+        r = np.sqrt(r2)
+        s = m[None, :] / (r * r2)
+        w = 3.0 * np.einsum("cnk,cnk->cn", dx, dv) / r2
+        acc.append(np.einsum("cn,cnk->ck", s, dx))
+        jerk.append(np.einsum("cn,cnk->ck", s, dv) - np.einsum("cn,cnk->ck", s * w, dx))
+        inv = m[None, :] / r
+        inv[np.arange(len(i)), i] = 0.0
+        pot.append(m[i] * inv.sum(axis=1))
+    return np.concatenate(acc), np.concatenate(jerk), np.concatenate(pot)
+
+
+def f64_walk_lines(build, pairs: dict, sms: int) -> dict:
+    """Each double kernel's registers, spills and walk (the cheapest
+    innermost loop around MUFU.RSQ64H, over its MUFU.RSQ64H): SASS a pair,
+    FP64 instructions a pair and the issue bound of those at FP64_LANES an
+    SM and the nominal clock for `pairs[key]` pairs; fails on a spill or a
+    local access inside a walk (one more nvcc). Returns {key: FP64
+    instructions a pair} of the 2-row (<= 512 threads) instantiation."""
+    usage, text = sass_of_source("f64_kernels.cu")
+    names = build.demangle(usage)
+    per_pair = {}
+    for key, piece in F64_WALKS.items():
+        found = [(k, u) for k, u in usage.items() if piece in k]
+        check(len(found) == 2, f"{len(found)} instantiations of {piece} in f64_kernels.cu")
+        for mangled, u in found:
+            loops = sorted(build.sass_loops(text, mangled),
+                           key=lambda lp: lp["instructions"] / lp["pairs"])
+            check(bool(loops), f"no rsqrt loop in the SASS of {names[mangled]}")
+            lp = loops[0]
+            fp64 = lp["mix"].get("fp64", 0) / lp["pairs"]
+            issue = pairs[key] * fp64 / (sms * FP64_LANES * NOMINAL_MHZ * 1e6) * 1e3
+            mix = ", ".join(f"{c} {k / lp['pairs']:.2f}" for c, k in sorted(lp["mix"].items()))
+            print(f"[3f sass] {names[mangled]}: {u['registers']} registers, "
+                  f"{u['spill_stores']} / {u['spill_loads']} bytes spill stores / loads, "
+                  f"{u['smem']} bytes smem; walk {lp['instructions'] / lp['pairs']:.2f} SASS "
+                  f"instructions a pair, {fp64:.2f} of them FP64 ({mix}); FP64 issue bound "
+                  f"{issue:.3f} ms at {NOMINAL_MHZ} MHz")
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"{names[mangled]} spills registers")
+            if "ILi2ELi512E" in mangled:
+                per_pair[key] = fp64
+    step_walks_checked(build, usage, text, tuple(F64_WALKS.values()), "f64_kernels.cu",
+                       tag="[3f sass]")
+    return per_pair
+
+
+def phase_f64_kernels(torch) -> dict:
+    """3f. The four double kernels (csrc/f64_kernels.cu) against their plain
+    float64 versions on the card and the float64 oracle: at (M, N) in
+    {(1000, 1000), (4099, 4099), (16384, 16384), (65537, 65537), (16384,
+    65536)} (the last a four-card hop: the i-set the first M bodies of the
+    j-set), masses from [0.5, 2], a random vel.w and damping 0.5; each at
+    blocks 128, 256 and 1024 bit-equal (S from (M, N) alone) and a repeat
+    bit-equal; each output within 1e-12 * max + 1e-14 of plain (both
+    float64: only the sums' order and the fused multiply-adds differ), the
+    mass and vel.w carried bit for bit; the force, the jerk and the
+    potential's rows on up to 512 sampled rows within 1e-10 * max +
+    1e-12 of the float64 oracle's (Compute's fp64 QA rule), which the fp32
+    force at 16384 must fail. Then each walk's registers, spills and SASS
+    and FP64 instructions a pair, and each kernel's time at 16384 and
+    65536 beside its bound and issue bound, and the plain version's at
+    16384."""
+    import numpy as np
+
+    from nbody_tpu_torch.ops import _build, energy, reference
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+
+    soft, dt, damp = SOFT_RING, 0.016, 0.5
+    err = {k: 0.0 for k in F64_KERNELS}
+
+    def run(pi, vi, pj, vj, bs):
+        out = {"accel_f64": (ck.compute_accel_cuda(pi, pj, soft, block_size=bs),),
+               "step_f64": ck.nbody_step_cuda_vs(pi, vi, pj, dt, soft, damp, block_size=bs),
+               "accel_jerk_f64": ck.compute_accel_jerk_cuda(pi, vi, pj, vj, soft,
+                                                            block_size=bs)}
+        if pi.shape[0] == pj.shape[0]:
+            out["potential_f64"] = (ck.potential_energy_per_row_cuda(pi, soft, block_size=bs),)
+        return out
+
+    rng = np.random.default_rng(5)
+    for m, n in ((1000, 1000), (4099, 4099), (N_QA, N_QA), (65537, 65537), (N_QA, N_MAIN)):
+        pj, vj = f64_state(torch, n)
+        pi, vi = pj[:m], vj[:m]
+        what = f"(M, N) = ({m}, {n}), S = {ck.f64_splits(m, n)}"
+        outs = {bs: run(pi, vi, pj, vj, bs) for bs in (128, 256, 1024)}
+        again = run(pi, vi, pj, vj, 256)
+        torch.cuda.synchronize()
+        for key, got in outs[256].items():
+            same = all(torch.equal(a, b) for bs in (128, 1024)
+                       for a, b in zip(got, outs[bs][key]))
+            rep = all(torch.equal(a, b) for a, b in zip(got, again[key]))
+            check(same and rep, f"{key} differs across blocks 128 / 256 / 1024 or repeats at "
+                                f"{what}")
+        # the plain versions in 2048-row chunks: (2048, 65537) float64
+        # temporaries of 1 GB each
+        c = 2048
+        plain = {"accel_f64": (reference.compute_accel_vs(pi, pj, soft, chunk_size=c),),
+                 "step_f64": reference.nbody_step_vs(pi, vi, pj, dt, soft, damp, chunk_size=c),
+                 "accel_jerk_f64": reference.compute_accel_jerk_vs(pi, vi, pj, vj, soft,
+                                                                   chunk_size=c)}
+        if m == n:
+            plain["potential_f64"] = (energy.potential_energy_per_row(pi, soft, chunk_size=c),)
+        worst = []
+        for key, want in plain.items():
+            for g, w in zip(outs[256][key], want):
+                e = float((g - w).abs().max())
+                tol = 1e-12 * float(w.abs().max()) + 1e-14
+                check(g.dtype == torch.float64 and bool(torch.isfinite(g).all()),
+                      f"{key} output is not finite float64 at {what}")
+                check(e <= tol, f"{key} kernel disagrees with its plain version at {what}: "
+                                f"{e:.3e} > {tol:.3e}")
+                err[key] = max(err[key], e)
+                worst.append(e / tol)
+        new_pos, new_vel = outs[256]["step_f64"]
+        check(torch.equal(new_pos[:, 3], pi[:, 3]) and torch.equal(new_vel[:, 3], vi[:, 3]),
+              f"the step changed the mass or vel.w at {what}")
+        rows = np.arange(m) if m <= 512 else np.unique(np.concatenate(
+            [[0, m - 1], rng.choice(m, 510, replace=False)]))
+        p64, v64 = pj.cpu().numpy(), vj.cpu().numpy()
+        o_acc, o_jerk, o_pot = oracle_rows_f64(rows, p64, v64, soft)
+        idx = torch.as_tensor(rows, device=pi.device)
+        fields = [("force", outs[256]["accel_f64"][0], o_acc),
+                  ("accel + jerk's force", outs[256]["accel_jerk_f64"][0], o_acc),
+                  ("jerk", outs[256]["accel_jerk_f64"][1], o_jerk)]
+        if m == n:
+            fields.append(("potential", outs[256]["potential_f64"][0], o_pot))
+        report = []
+        for name, got, ref in fields:
+            e = float(np.abs(got[idx].cpu().numpy() - ref).max())
+            tol = 1e-10 * float(np.abs(ref).max()) + 1e-12
+            check(e <= tol, f"the double {name} is not fp64-grade at {what}: {e:.3e} > {tol:.3e}")
+            report.append(f"{name} {e / float(np.abs(ref).max()):.2e}")
+        print(f"[3f f64] {what}: blocks 128 / 256 / 1024 and a repeat bit-equal; against plain "
+              f"at most {max(worst):.3f} of the bound; against the float64 oracle on "
+              f"{len(rows)} rows, max|d| / max: {', '.join(report)} (bound 1e-10)")
+        if (m, n) == (N_QA, N_QA):
+            f32 = ck.compute_accel_cuda(pi.float(), pj.float(), soft)[idx].double().cpu().numpy()
+            e32 = float(np.abs(f32 - o_acc).max()) / float(np.abs(o_acc).max())
+            print(f"[3f f64] the fp32 force at {what} against the float64 oracle: max|d| / max "
+                  f"{e32:.2e}, which the 1e-10 bound must refuse")
+            check(e32 > 1e-10, "the fp32 force passes the fp64 bound: the check cannot fail")
+        del outs, again, plain
+    p0, v0 = f64_state(torch, 256)
+    check(bool(torch.isnan(ck.compute_accel_cuda(p0, p0, 0.0)).all()
+               and torch.isnan(ck.compute_accel_jerk_cuda(p0, v0, p0, v0, 0.0)[0]).all()),
+          "the double force at eps = 0 is not NaN (the self pair), as plain gives")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_pair = f64_walk_lines(_build, {k: float(N_MAIN) ** 2 for k in F64_KERNELS}, sms)
+    times, bounds = {}, {}
+    for n, reps in ((N_QA, 10), (N_MAIN, 3)):
+        p, v = f64_state(torch, n)
+        calls = {"step_f64": lambda: ck.nbody_step_cuda(p, v, dt, soft, damp),
+                 "accel_f64": lambda: ck.compute_accel_cuda(p, p, soft),
+                 "accel_jerk_f64": lambda: ck.compute_accel_jerk_cuda(p, v, p, v, soft),
+                 "potential_f64": lambda: ck.potential_energy_per_row_cuda(p, soft)}
+        plains = {"step_f64": lambda: reference.nbody_step(p, v, dt, soft, damp),
+                  "accel_f64": lambda: reference.compute_accel(p, soft),
+                  "accel_jerk_f64": lambda: reference.compute_accel_jerk(p, v, soft),
+                  "potential_f64": lambda: energy.potential_energy_per_row(p, soft)}
+        for key, fn in calls.items():
+            ms = timed_ms(torch, fn, reps)
+            pairs = float(n) ** 2
+            # bytes: each input read once, each output written once (32 a
+            # body, 24 a force or jerk row, 8 a potential row)
+            nbytes = {"step_f64": 128, "accel_f64": 56, "accel_jerk_f64": 112,
+                      "potential_f64": 40}[key] * n
+            t_ops = F64_FLOPS[key] * pairs / PEAK_FP64_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            issue = pairs * per_pair[key] / (sms * FP64_LANES * NOMINAL_MHZ * 1e6) * 1e3
+            line = (f"[3f f64] {key} N={n}: {ms:.4f} ms, bound {bound:.4f} ms "
+                    f"({100 * bound / ms:.1f} %), FP64 issue bound {issue:.4f} ms "
+                    f"({100 * issue / ms:.1f} %) at {per_pair[key]:.2f} a pair")
+            if n == N_QA:
+                plain_ms = timed_ms(torch, plains[key], 1)
+                times[key] = (ms, plain_ms)
+                bounds[key] = (bound, "operations" if t_ops >= t_bytes else "bytes")
+                line += f"; plain float64 {plain_ms:.3f} ms"
+            print(line)
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+def timed_ms(torch, fn, reps: int) -> float:
+    """Milliseconds a call of fn() on the card: one untimed call, then CUDA
+    events around `reps` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_f64_main(torch, smi: str) -> None:
+    """5f. The fp64 path through Compute(precision="fp64"): QA at N=16384
+    (positions, and the force or the jerk against the float64 oracle at
+    1e-10 of its largest value) for Euler, leapfrog and Hermite; ten timed
+    steps at N=16384 and 65536 beside the ds one_sided step, in turns (fp64,
+    ds, ds, fp64); the force of both modes and one QA step against the
+    float64 oracle at 16384 (tests/test_ds_kernel.py's bounds: |dpos| <
+    1e-11, the force within 1e-10 of its largest value); drift_check(10) at
+    N=16384 (BASELINE.json configs[2]) with the --drift-check gate, its wall
+    time and the float64 functional's on the card against the host's; and a
+    switch_precision round trip (fp32 sym -> fp64 vpu -> fp32 sym, the state
+    cast each way). The CLI's --fp64 --qatest runs with phase 7's lines."""
+    import numpy as np
+
+    from nbody_tpu_torch.cli import drift_failed
+    from nbody_tpu_torch.compute import QA_DT, Compute, _oracle_accel
+    from nbody_tpu_torch.oracle import step_best
+    from nbody_tpu_torch.ops import energy
+    from nbody_tpu_torch.ops.ds import ds_to_f64
+
+    for integrator in ("euler", "leapfrog", "hermite"):
+        c = Compute(num_bodies=N_QA, device="cuda", precision="fp64", integrator=integrator,
+                    log=lambda s: print(f"[5f QA] {s}"))
+        check(c.system.dtype == torch.float64 and c.system.backend == "cuda"
+              and c.system.variant == "vpu", "the fp64 path did not select the double kernels")
+        check(c.compare_results(), f"fp64 QA against the float64 oracle failed ({integrator})")
+    ms = {}
+    for n in (N_QA, N_MAIN):
+        for mode in ("fp64", "ds", "ds", "fp64"):
+            kw = {"precision": "fp64"} if mode == "fp64" else {"precision": "ds",
+                                                               "variant": "one_sided"}
+            c = Compute(num_bodies=n, device="cuda", log=lambda s: None, **kw)
+            res = c.run_benchmark(10)
+            pos, vel = c.system.state
+            check(tuple(pos.shape) == (n, 4) and bool(torch.isfinite(pos).all()
+                                                      and torch.isfinite(vel).all()),
+                  f"bad state after the {mode} benchmark at N={n}")
+            ms.setdefault((mode, n), []).append(res["milliseconds"] / res["iterations"])
+        f, d = min(ms[("fp64", n)]), min(ms[("ds", n)])
+        print(f"[5f main] N={n}: fp64 Euler {f:.4f} ms, ds one_sided Euler {d:.4f} ms per step "
+              f"(best of two, in turns; runs {ms[('fp64', n)]} / {ms[('ds', n)]}): ds takes "
+              f"{d / f:.2f}x fp64 [{smi}]")
+    p = Compute(num_bodies=N_QA, device="cuda", precision="fp64", log=lambda s: None)
+    q = Compute(num_bodies=N_QA, device="cuda", precision="ds", variant="one_sided",
+                log=lambda s: None)
+    pos0, vel0 = p.system.positions, p.system.velocities
+    q.system.set_state(pos0, vel0)
+    ref_acc = _oracle_accel(pos0, p.active_params.softening)
+    ref_pos = step_best(pos0, vel0, QA_DT, p.active_params.softening,
+                        p.active_params.damping)[0]
+    scale = float(np.abs(ref_acc).max())
+    acc = {"fp64": p.system.accelerations().cpu().numpy(),
+           "ds": ds_to_f64(*q.system.accelerations())}
+    for c in (p, q):
+        c.system.update(QA_DT)
+    dpos = {"fp64": float(np.abs(p.system.positions[:, :3] - ref_pos[:, :3]).max()),
+            "ds": float(np.abs(q.system.positions[:, :3] - ref_pos[:, :3]).max())}
+    for mode in ("fp64", "ds"):
+        da = float(np.abs(acc[mode] - ref_acc).max()) / scale
+        print(f"[5f accuracy] N={N_QA} {mode}: force max|da| / max|a| = {da:.3e} (bound 1e-10), "
+              f"one dt={QA_DT} step max|dpos| = {dpos[mode]:.3e} (bound 1e-11) against the "
+              "float64 oracle")
+        check(da <= 1e-10 and dpos[mode] < 1e-11, f"{mode} is not fp64-grade at N={N_QA}")
+    c = Compute(num_bodies=N_QA, device="cuda", precision="fp64",
+                log=lambda s: print(f"[5f drift] {s}"))
+    t0 = time.perf_counter()
+    drift = c.drift_check(10)
+    t_drift = time.perf_counter() - t0
+    check(not drift_failed(drift), f"fp64 drift check failed: {drift}")
+    pos, vel = c.system.state
+    soft = c.active_params.softening
+    t0 = time.perf_counter()
+    e_card = energy.total_energy_precise(pos, vel, soft)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_host = energy.total_energy_f64(pos, vel, soft)
+    t_host = time.perf_counter() - t0
+    print(f"[5f drift] N={N_QA}, 10 steps: delta {drift['delta']:.3e} in {t_drift:.2f} s; the "
+          f"float64 functional on the card {t_card * 1e3:.1f} ms ({e_card:.15e}), on the host "
+          f"{t_host * 1e3:.1f} ms ({e_host:.15e}), relative difference "
+          f"{abs(e_card - e_host) / abs(e_host):.2e} [{smi}]")
+    check(abs(e_card - e_host) <= 1e-12 * abs(e_host), "the card's float64 functional "
+                                                       "disagrees with the host's")
+    c = Compute(num_bodies=N_QA, device="cuda", variant="sym", log=lambda s: print(f"[5f] {s}"))
+    pos32 = c.system.positions
+    c.switch_precision()
+    check(c.precision == "fp64" and c.system.dtype == torch.float64
+          and c.system.variant == "vpu"
+          and bool(np.array_equal(c.system.positions, pos32.astype(np.float64))),
+          "switch_precision to fp64 did not carry the state")
+    c.system.update_many(2)
+    pos64 = c.system.positions
+    c.switch_precision()
+    check(c.precision == "fp32" and c.system.dtype == torch.float32
+          and c.system.variant == "sym"
+          and bool(np.array_equal(c.system.positions, pos64.astype(np.float32))),
+          "switch_precision back to fp32 did not restore sym and the state")
+    print("[5f] switch_precision: fp32 sym -> fp64 vpu (2 steps) -> fp32 sym, the state cast "
+          "each way")
 
 
 def phase_experiment_main(torch, smi: str) -> None:
@@ -2896,6 +3242,7 @@ def phase_cli() -> None:
             (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"),
             (["--kernel", "p3m", "--numbodies", str(N_MAIN), "--benchmark", "-i", "3"],
              "pairwise-equivalent rate"),
+            (["--fp64", "--qatest", "--numbodies", "4096"], "-> OK"),
             (["--precision", "ds", "--integrator", "hermite", "--qatest", "--numbodies", "4096"],
              "-> OK"),
             (["--precision", "ds", "--integrator", "hermite", "--benchmark", "-i", "10"],
@@ -2976,6 +3323,7 @@ def main() -> int:
     ring_kern = timed("3rf ring kernel", phase_ring_kernel, torch)
     timed("3ri ring between two processes", phase_ring_ipc)
     exp_kern = timed("3e experiment kernels", phase_experiment_kernels, torch)
+    f64_kern = timed("3f fp64 kernels", phase_f64_kernels, torch)
 
     def one_sided_path():
         phase_qa(torch, ck, "vpu", "euler", "4 QA")
@@ -3046,6 +3394,8 @@ def main() -> int:
                          lambda: phase_experiment_main(torch, smi))
     for k in EXPERIMENT_KERNELS:
         launches[k] = exp_launches[k]
+    f64_launches = timed("5f fp64 path", run_path, ck, F64_KERNELS,
+                         lambda: phase_f64_main(torch, smi))
     timed("5 plain", phase_plain_main, smi)
     timed("5t step times", phase_step_times, torch, smi)
 
@@ -3076,6 +3426,21 @@ def main() -> int:
         # no library call's input either), nor a cell-list short-range sum
         "library_ms": None,
     } for k in NAMES]
+    # the double kernels replace no TPU kernel: a line of their own
+    f64_kernels = [{
+        "name": F64_NAMES[k],
+        "route": "cuda",
+        "source": F64_SOURCE,
+        "replaces": F64_REPLACES[k],
+        "launches": f64_launches[k],
+        "max_abs_err": f64_kern["err"][k],
+        "ms": f64_kern["times"][k][0],
+        "plain_ms": f64_kern["times"][k][1],
+        "bound_ms": f64_kern["bounds"][k][0],
+        "bound_by": f64_kern["bounds"][k][1],
+        "library_ms": None,
+    } for k in F64_KERNELS]
+    print(json.dumps({"f64_kernels": f64_kernels}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

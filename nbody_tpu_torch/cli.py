@@ -3,10 +3,9 @@
 
 The reference's flags that the port's slices run so far
 (nbody.cpp:275-285): --benchmark, --compare / --qatest, --numbodies,
--i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, plus nbody_tpu's
---seed, --variant {auto,vpu,sym,mxu,mxu_bf16}, --integrator
-{euler,leapfrog,hermite}, --drift-check, --precision {fp32,ds} (fp64 is
-parsed, as nbody_tpu parses it, and refused until its slice lands) and the
+-i/--iterations, --blockSize, --hostmem, --cpu, --tipsy, --fp64, plus
+nbody_tpu's --seed, --variant {auto,vpu,sym,mxu,mxu_bf16}, --integrator
+{euler,leapfrog,hermite}, --drift-check, --precision {fp32,fp64,ds} and the
 P3M fast mode's --kernel {auto,p3m}, --pm-grid and --p3m-capacity. Other
 nbody_tpu flags are not accepted until their slice lands (ROADMAP.md).
 
@@ -19,6 +18,15 @@ Modes:
                          and, with --precision ds, by more than
                          max(1e-9, 1e-7 |oracle drift|) over the first 50 steps
                          (nbody_tpu/cli.py:338-376)
+
+--fp64 (or --precision fp64) runs in double precision on the double
+all-pairs kernels, with Euler, leapfrog or Hermite; its QA holds the
+positions to 5e-4 and the force (with Hermite also the jerk) to the float64
+oracle at 1e-10 of its largest value, and its --drift-check keeps the fp32
+gate. --variant auto, vpu, mxu and mxu_bf16 run the one-sided double kernels
+(nbody_tpu's fp64 XLA path ignores the variant); sym, --kernel p3m and
+--devices D > 1 are refused in fp64. --fp64 with --precision ds exits 1, in
+nbody_tpu's words (cli.py:449-453).
 
 --precision ds runs the double-single (fp64-grade) kernels, default N 16384
 (BASELINE.json configs[2]), with Euler, leapfrog or Hermite, QA against the
@@ -78,6 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch path on the host CPU")
     p.add_argument("--tipsy", type=str, default=None, help="load a tipsy galaxy file")
+    p.add_argument("--fp64", action="store_true",
+                   help="double precision: the double all-pairs kernels, every integrator")
     p.add_argument("--seed", type=int, default=42, help="initial-condition RNG seed")
     p.add_argument("--variant", choices=["auto", "vpu", "sym", "mxu", "mxu_bf16"],
                    default="auto",
@@ -94,10 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="damped semi-implicit Euler (the reference's), "
                         "drift-kick-drift leapfrog, or the 4th-order Hermite "
                         "predictor-corrector (two accel+jerk evaluations a step)")
-    p.add_argument("--precision", choices=["fp32", "fp64", "ds"], default="fp32",
-                   help="fp32 (default) or ds, the double-single kernels: fp64-grade "
-                        "accuracy from pairs of float32s (default N 16384), with every "
-                        "integrator; fp64 is not ported yet")
+    p.add_argument("--precision", choices=["fp32", "fp64", "ds"], default=None,
+                   help="fp32 (default); fp64 (= --fp64), the double all-pairs kernels; "
+                        "or ds, the double-single kernels: fp64-grade accuracy from "
+                        "pairs of float32s (default N 16384); each with every integrator")
     p.add_argument("--kernel", choices=["auto", "p3m"], default="auto",
                    help="force algorithm: auto = the all-pairs kernels of --variant; "
                         "p3m = PM + exact short-range correction, sub-percent "
@@ -221,9 +231,11 @@ def _main(argv=None) -> int:
 
     ds = args.precision == "ds"
     if args.precision == "fp64":
-        from nbody_tpu_torch.models.body_system import not_ported
-
-        raise not_ported("--precision", "fp64", key="fp64")
+        args.fp64 = True
+    if ds and args.fp64:
+        # nbody_tpu/cli.py:449-453, with its exit code
+        print("error: --precision ds and --fp64 are exclusive", file=sys.stderr)
+        return 1
     ignored = _ds_ignored_flags(args) if ds else []
     p3m = args.kernel == "p3m"
 
@@ -243,7 +255,7 @@ def _main(argv=None) -> int:
         from nbody_tpu_torch.io import read_tipsy_file
 
         tpos, tvel = read_tipsy_file(args.tipsy)
-        dtype = np.float64 if ds else np.float32
+        dtype = np.float64 if ds or args.fp64 else np.float32
         tipsy_state = (tpos.astype(dtype), tvel.astype(dtype))
         say(f"Read {tipsy_state[0].shape[0]} bodies from {args.tipsy}")
 
@@ -255,6 +267,7 @@ def _main(argv=None) -> int:
         variant=args.variant,
         integrator=args.integrator,
         precision=args.precision,
+        fp64=args.fp64,
         kernel=args.kernel,
         pm_grid=args.pm_grid,
         p3m_capacity=args.p3m_capacity,
@@ -271,7 +284,7 @@ def _main(argv=None) -> int:
         + (f", {mesh.size}-device mesh [{system.strategy}]" if mesh is not None else "")
         + f" [{system.backend} kernel"
         + (", host memory" if args.hostmem else "")
-        + (", double-single (fp64-grade)]" if ds else ", fp32]")
+        + (", double-single (fp64-grade)]" if ds else ", fp64]" if args.fp64 else ", fp32]")
         + (f" force p3m (grid {system.pm_grid}, cell capacity {system.p3m_capacity})"
            if p3m else f" force {system.variant}")
         + f", integrator {system.integrator}")

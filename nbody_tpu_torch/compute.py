@@ -7,6 +7,12 @@ events around the timed steps, and the reference's result formulas and
 printout), the QA compare against the CPU oracle (one dt=0.001 step,
 |dpos| <= 5e-4) and the energy-drift check against the oracle.
 
+``precision="fp64"`` (or ``fp64=True``) owns a ``BodySystem(dtype=
+torch.float64)`` on the double kernels, as ``nbody_tpu`` forces its XLA path
+for fp64 (``compute.py:95-105,168-176``); its QA holds the force (and with
+Hermite the jerk) to the float64 oracle at the ds bound beside the position
+rule, and ``switch_precision`` hops between fp32 and fp64.
+
 ``precision="ds"`` owns a ``DSBodySystem`` (double-single, fp64-grade)
 behind the same facade, as ``nbody_tpu/compute.py:135-168`` does, with its
 mapping of variants; its QA and drift checks hold it to the float64 oracle
@@ -130,6 +136,7 @@ class Compute:
         variant: str = "auto",
         integrator: str = "euler",
         precision: Optional[str] = None,
+        fp64: bool = False,
         kernel: str = "auto",
         pm_grid: int = 64,
         p3m_capacity: Optional[int] = None,
@@ -141,11 +148,16 @@ class Compute:
         log=print,
     ):
         device = resolve_device(device)
-        precision = "fp32" if precision is None else precision
-        if precision == "fp64":
-            raise not_ported("precision", "fp64")
-        if precision not in ("fp32", "ds"):
+        # nbody_tpu/compute.py:95-105: `fp64` is the boolean of the
+        # reference-shaped call sites, precision="fp64" the same request
+        if precision is None:
+            precision = "fp64" if fp64 else "fp32"
+        if precision not in ("fp32", "fp64", "ds"):
             raise ValueError(f"unknown precision {precision!r}")
+        if precision == "fp64":
+            fp64 = True
+        elif fp64:
+            raise ValueError(f"fp64=True contradicts precision={precision!r}")
         if precision == "ds" and kernel != "auto":
             # nbody_tpu/compute.py:135-139
             raise ValueError(
@@ -165,7 +177,7 @@ class Compute:
         self.kernel = kernel
         self.log = log
         self.paused = False
-        self.fp64_enabled = False
+        self.fp64_enabled = fp64
         self.cycle_demo = cycle_demo
         self.active_demo = 0
         self.active_params = DEMO_PARAMS[0]
@@ -204,6 +216,13 @@ class Compute:
                 strategy=strategy,
             )
         else:
+            # nbody_tpu forces its XLA path for fp64 (compute.py:170-176),
+            # which is all pairs whatever its backend asked: a p3m request
+            # there silently runs the exact force. The port's fp64 is the
+            # double all-pairs kernels (or their plain versions with
+            # backend="torch"), and BodySystem refuses kernel="p3m" and a
+            # mesh in float64 (not_ported, ROADMAP.md Queue 1 #16 and #13)
+            # rather than run another algorithm than the one asked for.
             self.system = BodySystem(
                 num_bodies,
                 self.active_params,
@@ -216,6 +235,7 @@ class Compute:
                 kernel=kernel,
                 pm_grid=pm_grid,
                 p3m_capacity=p3m_capacity,
+                dtype=torch.float64 if fp64 else torch.float32,
                 seed=seed,
                 state=tipsy_state,
                 mesh=mesh,
@@ -286,6 +306,17 @@ class Compute:
         self.active_params = self.active_params.replace(**kw)
         self.system.update_params(self.active_params)
 
+    def switch_precision(self) -> None:
+        """The reference's Enter key (``nbody_tpu/compute.py:304-313``): the
+        system hops between fp32 and fp64 with the same state; ds has no
+        other precision to hop to, and says so."""
+        if self.precision == "ds":
+            self.log("precision fixed: double-single (fp64-grade) mode")
+            return
+        self.system = self.system.switch_precision()
+        self.fp64_enabled = not self.fp64_enabled
+        self.precision = "fp64" if self.fp64_enabled else "fp32"
+
     # ---- perf ----
 
     def compute_perf_stats(self, steps_per_second: float) -> None:
@@ -324,8 +355,9 @@ class Compute:
             f"iterations: {milliseconds:.3f} ms")
         self.log(f"= {self.interactions_per_second:.3f} billion interactions per second")
         ds = self.precision == "ds"
+        word = {"fp64": "double", "ds": "double-single", "fp32": "single"}[self.precision]
         self.log(
-            f"= {self.g_flops:.3f} {'double-single' if ds else 'single'}-precision GFLOP/s at "
+            f"= {self.g_flops:.3f} {word}-precision GFLOP/s at "
             f"{flops_per_interaction(self.fp64_enabled or ds)} flops per interaction"
             + (" (fp64-convention)" if ds else ""))
         if self.kernel == "p3m":
@@ -340,10 +372,14 @@ class Compute:
         device and on the CPU oracle from the same state; reports both
         relative drifts and their difference (BASELINE.json config[2]: the
         device's drift matches the oracle's). The energy functional is
-        ``total_energy_precise`` whatever the state's type: fp32 summation
-        noise at N >= 65k is the order of the drifts. The oracle side is one
-        native rollout of `steps` steps. The state is restored after.
-        With precision="ds" see ``_drift_check_ds``."""
+        ``total_energy_precise`` on the system's device whatever the
+        state's type (fp32 summation noise at N >= 65k is the order of the
+        drifts): on the card the double potential kernel, so the three
+        energies (start, device, oracle) come from one float64 functional.
+        The oracle side is one native rollout of `steps` steps, in the
+        state's type (float64 for precision="fp64", which keeps
+        ``nbody_tpu``'s fp32 gate, ``cli.py:838-841``). The state is
+        restored after. With precision="ds" see ``_drift_check_ds``."""
         if self.precision == "ds":
             return self._drift_check_ds(steps)
         p = self.active_params
@@ -454,8 +490,13 @@ class Compute:
         and its median and largest relative error are logged, not gated.
         With integrator="hermite" the acceleration and the jerk come from
         the accel + jerk kernel, and the jerk is held to the oracle's within
-        1e-4 * max|j| + 1e-4. With precision="ds" see
-        ``_compare_results_ds``."""
+        1e-4 * max|j| + 1e-4. With precision="fp64" the oracle runs in
+        float64 (the state's type), the positions keep the 5e-4 rule, and
+        the force (and the jerk) are held to the float64 oracle's within
+        DS_QA_ACCEL_RTOL * max + DS_QA_ACCEL_ATOL, the ds grade: one step
+        hides a float32-grade force in the positions, so this is what
+        catches a float32 step inside a double kernel. With precision="ds"
+        see ``_compare_results_ds``."""
         if self.precision == "ds":
             return self._compare_results_ds()
         pos0 = self.system.positions
@@ -481,7 +522,9 @@ class Compute:
             else:
                 ref_acc = _oracle_accel(pos0, p.softening)
             acc_err = np.abs(acc - ref_acc)
-            acc_tol = QA_ACCEL_RTOL * float(np.abs(ref_acc).max()) + QA_ACCEL_ATOL
+            rtol, atol = ((DS_QA_ACCEL_RTOL, DS_QA_ACCEL_ATOL) if self.fp64_enabled
+                          else (QA_ACCEL_RTOL, QA_ACCEL_ATOL))
+            acc_tol = rtol * float(np.abs(ref_acc).max()) + atol
             mxu = self.system.mxu_force
             p3m = self.kernel == "p3m"
             if p3m:
@@ -500,10 +543,13 @@ class Compute:
                 checks = [(f"max |dacc| / ({acc_tol:.3e} + {mxu} error model)",
                            float((acc_err / bound).max()), 1.0)]
             if hermite:
+                jrtol, jatol = ((DS_QA_ACCEL_RTOL, DS_QA_ACCEL_ATOL) if self.fp64_enabled
+                                else (QA_JERK_RTOL, QA_JERK_ATOL))
                 checks.append(("max |djerk|", float(np.abs(jerk - ref_jerk).max()),
-                               QA_JERK_RTOL * float(np.abs(ref_jerk).max()) + QA_JERK_ATOL))
+                               jrtol * float(np.abs(ref_jerk).max()) + jatol))
             passed = err <= tolerance and all(e <= tol for _, e, tol in checks)
-            oracle = "native C++" if native_available() else "NumPy"
+            oracle = ("float64 " if self.fp64_enabled else "") + (
+                "native C++" if native_available() else "NumPy")
             self.log(
                 f"QA compare vs {oracle} oracle: max |dpos| = {err:.3e} "
                 f"(tolerance {tolerance:g})"

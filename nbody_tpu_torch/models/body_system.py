@@ -1,8 +1,9 @@
 """BodySystem: simulation state on a torch device, and stepping.
 
 Counterpart of ``nbody_tpu/models/body_system.py`` for the port's slices so
-far: fp32, damped semi-implicit Euler, leapfrog or 4th-order Hermite, the
-one-sided force (``variant="vpu"``), the each-pair-once force
+far: fp32 or fp64 (``dtype=torch.float64``, below), damped semi-implicit
+Euler, leapfrog or 4th-order Hermite, the one-sided force
+(``variant="vpu"``), the each-pair-once force
 (``variant="sym"``) or the force reduction on the tensor cores
 (``variant="mxu"`` / ``"mxu_bf16"``, Euler), the P3M fast mode
 (``kernel="p3m"``, Euler and leapfrog, one device), the energy diagnostics,
@@ -31,6 +32,16 @@ Variants (the force):
   * "auto" — AUTO_VARIANT_CUDA on a CUDA device, else "vpu" (the JAX package
     resolves to its Pallas sym path only on the TPU, and to an mxu variant
     only from its TPU autotuner's cache, ROADMAP.md Queue 1 #12)
+
+fp64 (``dtype=torch.float64``): the state, its ping-pong and host buffers
+are float64, and every integrator runs on the double kernels
+(``csrc/f64_kernels.cu``) with backend "cuda", on the plain versions in
+float64 with "torch": nbody_tpu's fp64 is its XLA path, so ``variant="auto"``
+resolves to "vpu", "sym" (Pallas-only there) raises, and "mxu" / "mxu_bf16"
+run the one-sided kernels, as that path ignores them. ``kernel="p3m"`` and
+``mesh=`` raise: in float64 they are later slices (ROADMAP.md Queue 1 #16,
+#13). ``switch_precision()`` hops between float32 and float64 with the same
+state, as the reference's Enter key does.
 
 Integrators: "euler" (damped semi-implicit), "leapfrog" (drift-kick-drift
 around one force evaluation of the variant's force) and "hermite" (the
@@ -107,9 +118,10 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # Options of nbody_tpu that later slices of the port bring, and the
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
-    "fp64": "Queue 1 #5 (fp64)",
-    "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list)",
-    "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps)",
+    "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list; "
+          "P3M in float64)",
+    "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps; "
+            "meshes in float64)",
     "sym": "Queue 1 #13 (the rest of parallel/: strategy='sym', each pair once across the mesh)",
     "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
 }
@@ -153,13 +165,16 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def state_from_numpy(pos, vel, *, device, num_bodies: Optional[int] = None):
-    """(pos, vel) float32 (N,4) tensors on `device` from nbody_tpu's numpy
-    state. Fewer bodies than `num_bodies` are padded with zero-mass bodies at
-    the origin, which exert no force (as nbody_tpu's BodySystem does). The
-    arrays are converted to float32 here, the port's state type."""
-    pos = np.asarray(pos, dtype=np.float32)
-    vel = np.asarray(vel, dtype=np.float32)
+def state_from_numpy(pos, vel, *, device, num_bodies: Optional[int] = None,
+                     dtype=torch.float32):
+    """(pos, vel) (N,4) tensors of `dtype` (float32, the port's state type,
+    or float64) on `device` from nbody_tpu's numpy state. Fewer bodies than
+    `num_bodies` are padded with zero-mass bodies at the origin, which exert
+    no force (as nbody_tpu's BodySystem does). The arrays are converted to
+    `dtype` here."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    pos = np.asarray(pos, dtype=np_dtype)
+    vel = np.asarray(vel, dtype=np_dtype)
     if pos.ndim != 2 or pos.shape[1] != 4 or vel.shape != pos.shape:
         raise ValueError(
             f"state must be two (N, 4) arrays; got {pos.shape} and {vel.shape}")
@@ -255,8 +270,15 @@ class BodySystem:
         state: Optional[tuple] = None,
     ):
         self.device = resolve_device(device)
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {dtype}")
+        fp64 = dtype == torch.float64
+        if fp64 and mesh is not None:
+            raise not_ported("mesh with dtype", "float64", key="mesh")
         ndev = 1 if mesh is None else check_mesh(mesh, self.device, strategy)
         requested_backend = backend
+        # the request before resolution, which switch_precision carries
+        self._requested_variant = variant
         if backend == "pm":
             raise not_ported("backend", backend)
         if backend == "p3m":
@@ -277,6 +299,14 @@ class BodySystem:
             raise ValueError(f"unknown kernel variant {variant!r}")
         if integrator not in ("euler", "leapfrog", "hermite"):
             raise ValueError(f"unknown integrator {integrator!r}")
+        if fp64 and kernel == "p3m":
+            raise not_ported("kernel with dtype float64", "p3m", key="pm")
+        if fp64 and variant == "sym":
+            # nbody_tpu/models/body_system.py:176-181: sym is its Pallas
+            # kernel, and its fp64 is the XLA path
+            raise ValueError(
+                "variant='sym' runs the float32 each-pair-once kernels; fp64 runs "
+                "the one-sided double kernels: use variant='auto' or 'vpu'")
         if integrator == "hermite" and kernel == "p3m":
             raise ValueError(
                 "integrator='hermite' needs the jerk of the exact pairwise "
@@ -296,12 +326,12 @@ class BodySystem:
                                  "each shard in its device's memory")
             if variant == "auto":
                 variant = "vpu"
+        if fp64 and variant != "vpu":
+            # nbody_tpu's fp64 XLA path ignores the variant: auto and the
+            # mxu variants run the one-sided force
+            variant = "vpu"
         if variant == "auto":
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
-        if dtype == torch.float64:
-            raise not_ported("dtype", "fp64")
-        if dtype != torch.float32:
-            raise ValueError(f"unsupported dtype {dtype}")
         if placement not in ("device", "host"):
             raise ValueError(f"unknown placement {placement!r}")
 
@@ -312,7 +342,7 @@ class BodySystem:
         self.pm_grid = int(pm_grid)
         self.p3m_capacity = None if p3m_capacity is None else int(p3m_capacity)
         self._p3m_contract_warned = False
-        self.dtype = torch.float32
+        self.dtype = dtype
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
                            else device_block_size(block_size, self.device))
@@ -339,7 +369,7 @@ class BodySystem:
         shape = (self.num_bodies // ndev, 4)
 
         def empty():
-            return torch.empty(shape, dtype=torch.float32, device=self.device)
+            return torch.empty(shape, dtype=dtype, device=self.device)
 
         # [current, next] ping-pong pairs; self._cur indexes the current one
         self._pos = [empty(), empty()]
@@ -347,8 +377,8 @@ class BodySystem:
         self._cur = 0
         if placement == "host":
             pin = self.device.type == "cuda"
-            self._host_pos = torch.empty(shape, dtype=torch.float32, pin_memory=pin)
-            self._host_vel = torch.empty(shape, dtype=torch.float32, pin_memory=pin)
+            self._host_pos = torch.empty(shape, dtype=dtype, pin_memory=pin)
+            self._host_vel = torch.empty(shape, dtype=dtype, pin_memory=pin)
 
         if state is not None:
             self.set_state(*state)
@@ -363,7 +393,7 @@ class BodySystem:
         host = self.placement == "host"
         p, v = state_from_numpy(_as_numpy(pos), _as_numpy(vel),
                                 device="cpu" if host or self.mesh is not None else self.device,
-                                num_bodies=self.num_bodies)
+                                num_bodies=self.num_bodies, dtype=self.dtype)
         if self.mesh is not None:
             from nbody_tpu_torch.parallel import shard_rows
 
@@ -446,7 +476,7 @@ class BodySystem:
             self.seed = seed
         pos, vel = ic.generate(config, self.num_bodies, params.cluster_scale,
                                params.velocity_scale, seed=self.seed,
-                               dtype=np.float32)
+                               dtype=np.float64 if self.dtype == torch.float64 else np.float32)
         self.set_state(pos, vel)
 
     # ---- stepping ----
@@ -640,14 +670,38 @@ class BodySystem:
     block_until_ready = synchronize
     hard_sync = synchronize
 
+    # ---- precision switch (the reference's Enter key) ----
+
+    def switch_precision(self) -> "BodySystem":
+        """A new BodySystem in the other precision (float32 <-> float64) with
+        the same state, cast on the host, as ``nbody_tpu``'s
+        ``switch_precision`` (``body_system.py:1368-1417``). The requested
+        variant is carried across the hop: a sym request runs "auto" in
+        float64 (sym is float32 only) and sym again on the way back, so
+        fp32 -> fp64 -> fp32 restores it."""
+        to64 = self.dtype == torch.float32
+        self.synchronize()
+        requested = self._requested_variant
+        other = BodySystem(
+            self.num_bodies, self.params, device=self.device, backend=self.backend,
+            block_size=self.block_size, placement=self.placement,
+            variant="auto" if to64 and requested == "sym" else requested,
+            integrator=self.integrator, kernel=self.kernel, pm_grid=self.pm_grid,
+            p3m_capacity=self.p3m_capacity, dtype=torch.float64 if to64 else torch.float32,
+            mesh=self.mesh, strategy=self.strategy, config=self.config, seed=self.seed,
+            state=(self.positions, self.velocities))
+        other._requested_variant = requested
+        return other
+
     # ---- diagnostics ----
 
     def total_energy(self, *, precise: bool = False) -> float:
         """Kinetic + softened potential energy of the current state.
 
-        The default is the fast float32 diagnostic: the per-row pair sums of
-        the potential kernel (the plain version with backend='torch'),
-        summed on the device, plus the kinetic term. precise=True is
+        The default is the fast diagnostic in the state's type: the per-row
+        pair sums of the potential kernel (the double one in fp64; the plain
+        version with backend='torch'), summed on the device, plus the kinetic
+        term. precise=True is
         ``total_energy_precise``, the float64 functional for drift
         comparisons, where fp32 summation noise at N >= 65k is of the order
         of the drifts themselves."""

@@ -27,7 +27,7 @@ SOURCES = (CSRC / "nbody_kernels.cu", CSRC / "symmetric_kernels.cu",
            CSRC / "symmetric_aj_kernels.cu", CSRC / "ds_kernels.cu",
            CSRC / "ds_symmetric_kernels.cu", CSRC / "ds_aj_kernels.cu",
            CSRC / "ds_symmetric_aj_kernels.cu", CSRC / "mxu_kernels.cu",
-           CSRC / "p3m_kernels.cu", CSRC / "ring_kernels.cu")
+           CSRC / "p3m_kernels.cu", CSRC / "ring_kernels.cu", CSRC / "f64_kernels.cu")
 HEADERS = (CSRC / "allpairs_common.cuh", CSRC / "sym_common.cuh", CSRC / "ds_common.cuh",
            CSRC / "ds_sym_common.cuh")
 BUILD_DIR = PKG.parent / "build" / "nbody_tpu_torch"
@@ -170,6 +170,7 @@ def sass_of(source) -> tuple[dict, str]:
 # SASS opcodes (the part before the first '.') by the unit or kind that issues them
 SASS_CLASSES = {
     "fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FFMA32I", "FMUL32I", "FADD32I", "FSWZADD"),
+    "fp64": ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"),
     "select": ("FSEL", "FSETP", "FSET", "SEL", "FCHK"),
     "mufu": ("MUFU",),
     "shfl": ("SHFL",),
@@ -394,6 +395,30 @@ def declare_potential(lib) -> None:
             getattr(lib, name).restype = ctypes.c_int
 
 
+def declare_f64(lib) -> None:
+    """The C signatures of the double-precision entry points that `lib` has
+    (csrc/f64_kernels.cu): ``nbody_step_f64``, ``nbody_accel_f64``,
+    ``nbody_accel_jerk_f64`` and ``nbody_potential_f64`` (one j-chunk each)
+    and their ``_split`` forms, which take the chunk count and the
+    partials."""
+    ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    split = [i64, ptr]
+    step = [ptr] * 5 + [i64, i64, f64, f64, f64, i64]
+    accel = [ptr] * 3 + [i64, i64, f64, i64]
+    aj = [ptr] * 6 + [i64, i64, f64, i64]
+    pot = [ptr, ptr, i64, f64, i64]
+    sigs = {"nbody_step_f64": step + [ptr], "nbody_step_split_f64": step + split + [ptr],
+            "nbody_accel_f64": accel + [ptr], "nbody_accel_split_f64": accel + split + [ptr],
+            "nbody_accel_jerk_f64": aj + [ptr],
+            "nbody_accel_jerk_split_f64": aj + split + [ptr],
+            "nbody_potential_f64": pot + [ptr],
+            "nbody_potential_split_f64": pot + split + [ptr]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
@@ -406,6 +431,7 @@ def load_library() -> ctypes.CDLL:
     declare_potential(lib)
     declare_accel_jerk(lib)
     declare_aj_sym(lib)
+    declare_f64(lib)
     # the ds entry points take the (2, 4) scalar block as a host pointer
     declare_ds_force(lib)
     lib.nbody_ds_sym_accel.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr]

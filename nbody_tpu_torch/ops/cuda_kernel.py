@@ -1,5 +1,5 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/nbody_kernels.cu``,
-``csrc/mxu_kernels.cu``, ``csrc/symmetric_kernels.cu``,
+``csrc/mxu_kernels.cu``, ``csrc/f64_kernels.cu``, ``csrc/symmetric_kernels.cu``,
 ``csrc/symmetric_aj_kernels.cu``, and the double-single
 ``csrc/ds_kernels.cu``, ``csrc/ds_symmetric_kernels.cu``,
 ``csrc/ds_aj_kernels.cu`` and ``csrc/ds_symmetric_aj_kernels.cu``).
@@ -42,8 +42,12 @@ a CUDA error. For a CPU tensor it computes the plain version in
 CPU path is for (``p3m_sr_pairs_cuda``, whose padded rows have no plain
 counterpart, raises instead; ``ring_accel_fused_cuda`` takes a CPU ring's
 exchanges with the plain force).
-Both paths check dtype (float32 only, never cast), shape ``(., 4)``,
-contiguity, 16-byte alignment (the kernels load ``float4``) and device.
+Both paths check dtype (never cast), shape ``(., 4)``, contiguity,
+alignment and device. The step, force, accel + jerk and potential wrappers
+take float32 (16-byte aligned: the kernels load ``float4``) or float64
+(32-byte aligned: ``csrc/f64_kernels.cu`` loads two ``double2`` a body),
+one type for all of a call's tensors, and dispatch on it; every other
+wrapper takes float32 only.
 
 ``LAUNCHES`` counts kernel launches per kernel, so a run can show that its
 path went through the kernels; plain-version calls do not count.
@@ -68,7 +72,8 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "ds_aj_sym_cross": 0,
             "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "ring_fused": 0,
             "step_dual": 0, "step_packed": 0, "sym_ablate_full": 0, "sym_ablate_none": 0,
-            "sym_ablate_tree_small": 0}
+            "sym_ablate_tree_small": 0,
+            "step_f64": 0, "accel_f64": 0, "accel_jerk_f64": 0, "potential_f64": 0}
 
 SYM_TILES = (128, 256, 512, 1024)
 
@@ -81,23 +86,47 @@ def check_block_size(block_size: int) -> int:
     return bs
 
 
-def _check_state(name: str, t, device: torch.device) -> None:
+# the state types a wrapper takes: float32 only, or float32 and float64
+# (the step, force, accel + jerk and potential, csrc/f64_kernels.cu)
+FP32 = (torch.float32,)
+FP32_FP64 = (torch.float32, torch.float64)
+
+
+def _check_state(name: str, t, device: torch.device, dtypes: tuple = FP32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
+    if t.dtype not in dtypes:
+        kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise TypeError(
-            f"{name} is {t.dtype}; the CUDA kernels are float32 only (no "
+            f"{name} is {t.dtype}; this kernel takes {kinds} only (no "
             "implicit cast: convert the state explicitly)")
     if t.dim() != 2 or t.shape[1] != 4:
         raise ValueError(f"{name} must have shape (N, 4); got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    align = 32 if t.dtype == torch.float64 else 16
+    if t.data_ptr() % align:
         raise ValueError(
-            f"{name} is not 16-byte aligned (storage offset {t.storage_offset()}); "
-            "the kernels read each body as one float4")
+            f"{name} is not {align}-byte aligned (storage offset {t.storage_offset()}); "
+            "the kernels read each body as one float4 (two double2 in float64)")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _one_dtype(**tensors) -> torch.dtype:
+    """The one state type of a call's tensors; mixed types raise TypeError
+    (nothing is cast)."""
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    if len(set(dtypes.values())) > 1:
+        raise TypeError(f"the tensors of one call must share a type; got "
+                        + ", ".join(f"{k} {v}" for k, v in dtypes.items()))
+    return next(iter(dtypes.values()))
+
+
+def _scalars(dtype, *values):
+    """The float arguments of an entry point of the state type `dtype`."""
+    c = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    return tuple(c(float(v)) for v in values)
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -114,14 +143,14 @@ def _raise_on_error(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def _step_outs(pos_i, vel_i, pos_j, out):
+def _step_outs(pos_i, vel_i, pos_j, out, dtypes: tuple = FP32):
     """Check the inputs of a fused step and its out=(new_pos, new_vel),
     allocated when None; returns (device, new_pos, new_vel). The outputs
     must not overlap any input: every thread block reads all of pos_j while
-    others write their new positions."""
+    others write their new positions. All are of one type of `dtypes`."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
     for name, t in (("pos_i", pos_i), ("vel_i", vel_i), ("pos_j", pos_j)):
-        _check_state(name, t, device)
+        _check_state(name, t, device, dtypes)
     if vel_i.shape[0] != pos_i.shape[0]:
         raise ValueError(f"vel_i has {vel_i.shape[0]} rows, pos_i {pos_i.shape[0]}")
     m = pos_i.shape[0]
@@ -129,7 +158,7 @@ def _step_outs(pos_i, vel_i, pos_j, out):
         out = (torch.empty_like(pos_i), torch.empty_like(vel_i))
     new_pos, new_vel = out
     for name, t in (("out[0]", new_pos), ("out[1]", new_vel)):
-        _check_state(name, t, device)
+        _check_state(name, t, device, dtypes)
         if t.shape[0] != m:
             raise ValueError(f"{name} has {t.shape[0]} rows, expected {m}")
         for src in (pos_i, vel_i, pos_j):
@@ -137,6 +166,7 @@ def _step_outs(pos_i, vel_i, pos_j, out):
                 raise ValueError(f"{name} overlaps an input of the step")
     if _overlaps(new_pos, new_vel):
         raise ValueError("out[0] and out[1] overlap")
+    _one_dtype(pos_i=pos_i, vel_i=vel_i, pos_j=pos_j, new_pos=new_pos, new_vel=new_vel)
     return device, new_pos, new_vel
 
 
@@ -144,7 +174,8 @@ def nbody_step_cuda_vs(pos_i, vel_i, pos_j, dt, softening, damping,
                        *, block_size: int = DEFAULT_BLOCK_SIZE, out=None,
                        splits: int | None = None):
     """Fused step of the i-set (M,4) under forces from the j-set (N,4), in
-    `splits` j-chunks (``step_splits(M, N)`` by default).
+    `splits` j-chunks (``step_splits(M, N)`` by default; float64 states run
+    the double kernel in ``f64_splits(M, N)``).
 
     Returns (new_pos, new_vel), each (M,4). ``out=(new_pos, new_vel)`` writes
     into preallocated tensors, which must not overlap any input.
@@ -158,7 +189,7 @@ def _step(pos_i, vel_i, pos_j, dt, softening, damping, block_size, out, splits=N
     or another build of the kernel (``scripts/torch_step_dispatch.py
     --against``), whose launches are not counted; with splits = 1 only its
     one-chunk entry point is called, which every build has."""
-    device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out)
+    device, new_pos, new_vel = _step_outs(pos_i, vel_i, pos_j, out, FP32_FP64)
     bs = check_block_size(block_size)
     m, n = pos_i.shape[0], pos_j.shape[0]
     if device.type != "cuda":
@@ -174,21 +205,22 @@ def _step(pos_i, vel_i, pos_j, dt, softening, damping, block_size, out, splits=N
         from nbody_tpu_torch.ops._build import load_library
 
         lib = load_library()
-    s = step_splits(m, n) if splits is None else int(splits)
+    f64 = pos_i.dtype == torch.float64
+    entry, key = ("nbody_step_f64", "step_f64") if f64 else ("nbody_step_f32", "step")
+    s = int(splits) if splits is not None else (f64_splits if f64 else step_splits)(m, n)
     with torch.cuda.device(device):
-        err = _launch_chunks(lib, "nbody_step_f32", s, (3, m), device, (
+        err = _launch_chunks(lib, entry, s, (3, m), device, (
             pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), new_pos.data_ptr(),
-            new_vel.data_ptr(), m, n, *_step_scalars(dt, softening, damping), bs))
-    _raise_on_error(lib, err, "nbody_step_f32 launch")
+            new_vel.data_ptr(), m, n, *_step_scalars(dt, softening, damping, pos_i.dtype), bs))
+    _raise_on_error(lib, err, f"{entry} launch")
     if counted:
-        LAUNCHES["step"] += 1
+        LAUNCHES[key] += 1
     return new_pos, new_vel
 
 
-def _step_scalars(dt, softening, damping):
-    """dt, eps^2 and damping as the step entry points take them."""
-    return (ctypes.c_float(float(dt)), ctypes.c_float(float(softening) ** 2),
-            ctypes.c_float(float(damping)))
+def _step_scalars(dt, softening, damping, dtype=torch.float32):
+    """dt, eps^2 and damping as the step entry points of `dtype` take them."""
+    return _scalars(dtype, dt, float(softening) ** 2, damping)
 
 
 def _launch_chunks(lib, entry: str, s: int, parts: tuple, device, args) -> int:
@@ -196,12 +228,14 @@ def _launch_chunks(lib, entry: str, s: int, parts: tuple, device, args) -> int:
     ``nbody_step_f32`` or ``nbody_mxu_step_bf16``) on the current stream: as
     named for one j-chunk, else its ``_split`` twin (``nbody_step_split_f32``,
     ``nbody_mxu_step_split_bf16``) with S and a scratch (S, *parts) for the
-    chunks' partials. Returns its error code."""
+    chunks' partials (float64 for an ``_f64`` entry point, else float32).
+    Returns its error code."""
     stream = torch.cuda.current_stream().cuda_stream
     if s == 1:
         return getattr(lib, entry)(*args, stream)
     head, _, dtype = entry.rpartition("_")
-    scratch = torch.empty((s, *parts), dtype=torch.float32, device=device)
+    scratch = torch.empty((s, *parts), device=device,
+                          dtype=torch.float64 if dtype == "f64" else torch.float32)
     return getattr(lib, f"{head}_split_{dtype}")(*args, s, scratch.data_ptr(), stream)
 
 
@@ -450,7 +484,8 @@ def nbody_rollout_packed_cuda(state, dt, softening, damping, *, steps: int,
 def compute_accel_cuda(pos_i, pos_j, softening, *, block_size: int = DEFAULT_BLOCK_SIZE):
     """Acceleration (M,3) on the i-set (M,4) due to the j-set (N,4): the
     force kernel (``_accel_kernel``) in ``step_splits(M, N)`` j-chunks, the
-    step kernel's walk, so its sums are the ones the step applies."""
+    step kernel's walk, so its sums are the ones the step applies; for
+    float64 states the double force kernel in ``f64_splits(M, N)``."""
     return _accel(pos_i, pos_j, softening, block_size)
 
 
@@ -461,8 +496,9 @@ def _accel(pos_i, pos_j, softening, block_size, splits=None, lib=None):
     launches are not counted; with splits = 1 only its one-chunk entry
     point is called, which every build has."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
-    _check_state("pos_i", pos_i, device)
-    _check_state("pos_j", pos_j, device)
+    _check_state("pos_i", pos_i, device, FP32_FP64)
+    _check_state("pos_j", pos_j, device, FP32_FP64)
+    dtype = _one_dtype(pos_i=pos_i, pos_j=pos_j)
     bs = check_block_size(block_size)
     if device.type != "cuda":
         return reference.compute_accel_vs(pos_i, pos_j, softening)
@@ -473,24 +509,26 @@ def _accel(pos_i, pos_j, softening, block_size, splits=None, lib=None):
 
         lib = load_library()
     m, n = pos_i.shape[0], pos_j.shape[0]
-    acc = torch.empty((m, 3), dtype=torch.float32, device=device)
+    acc = torch.empty((m, 3), dtype=dtype, device=device)
     if m == 0:
         return acc
-    s = step_splits(m, n) if splits is None else int(splits)
+    f64 = dtype == torch.float64
+    entry, key = ("nbody_accel_f64", "accel_f64") if f64 else ("nbody_accel_f32", "accel")
+    s = int(splits) if splits is not None else (f64_splits if f64 else step_splits)(m, n)
     args = (pos_i.data_ptr(), pos_j.data_ptr(), acc.data_ptr(), m, n,
-            ctypes.c_float(float(softening) ** 2), bs)
+            *_scalars(dtype, float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        err = _launch_chunks(lib, "nbody_accel_f32", s, (3, m), device, args)
-    _raise_on_error(lib, err, "nbody_accel_f32 launch")
+        err = _launch_chunks(lib, entry, s, (3, m), device, args)
+    _raise_on_error(lib, err, f"{entry} launch")
     if counted:
-        LAUNCHES["accel"] += 1
+        LAUNCHES[key] += 1
     return acc
 
 
-def _check_pair(pos_name, pos, vel_name, vel, device) -> None:
+def _check_pair(pos_name, pos, vel_name, vel, device, dtypes: tuple = FP32) -> None:
     """A (pos, vel) pair of states: each checked, and the same row count."""
-    _check_state(pos_name, pos, device)
-    _check_state(vel_name, vel, device)
+    _check_state(pos_name, pos, device, dtypes)
+    _check_state(vel_name, vel, device, dtypes)
     if vel.shape[0] != pos.shape[0]:
         raise ValueError(f"{vel_name} has {vel.shape[0]} rows, {pos_name} {pos.shape[0]}")
 
@@ -551,6 +589,12 @@ STEP_ROWS = 4  # kStepRows of csrc/allpairs_common.cuh: rows a thread up to 512 
 MXU_TILE_I = 256
 MXU_STAGE = 512
 MXU_FILL_BLOCKS = 2112
+# The double kernels (csrc/f64_kernels.cu) take the rule on their own
+# i-tile, 256 threads x kF64Rows (2) rows, the fp32 step's stage (256
+# bodies: step_chunk) and fill (528 blocks). One rule for the step and the
+# force, so that the force's sums are the ones the step applies.
+F64_TILE_I = 512
+F64_FILL_BLOCKS = 528
 
 
 def one_sided_splits(m: int, n: int, *, tile_i: int, stage: int, fill: int) -> int:
@@ -577,6 +621,12 @@ def step_splits(m: int, n: int) -> int:
     return one_sided_splits(m, n, tile_i=AJ_TILE_I, stage=STEP_STAGE, fill=AJ_FILL_BLOCKS)
 
 
+def f64_splits(m: int, n: int) -> int:
+    """S of the double step, force, accel + jerk and potential kernels at
+    M i-rows, N j-bodies."""
+    return one_sided_splits(m, n, tile_i=F64_TILE_I, stage=STEP_STAGE, fill=F64_FILL_BLOCKS)
+
+
 def mxu_splits(m: int, n: int) -> int:
     """S of the tensor-core step kernels (``mxu``, ``mxu_bf16``) at M i-rows,
     N j-bodies."""
@@ -601,7 +651,8 @@ def compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, softening,
                             *, block_size: int = DEFAULT_BLOCK_SIZE):
     """(acc, jerk), each (M,3), on the i-set (M,4) due to the j-set (N,4):
     the one-sided accel + jerk kernel (``_accel_jerk_kernel``) in
-    ``aj_splits(M, N)`` j-chunks."""
+    ``aj_splits(M, N)`` j-chunks; for float64 states the double kernel in
+    ``f64_splits(M, N)``."""
     return _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size)
 
 
@@ -612,8 +663,9 @@ def _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size, splits=None, 
     are not counted; with splits = 1 only its one-chunk entry point is
     called, which every build has."""
     device = pos_i.device if isinstance(pos_i, torch.Tensor) else None
-    _check_pair("pos_i", pos_i, "vel_i", vel_i, device)
-    _check_pair("pos_j", pos_j, "vel_j", vel_j, device)
+    _check_pair("pos_i", pos_i, "vel_i", vel_i, device, FP32_FP64)
+    _check_pair("pos_j", pos_j, "vel_j", vel_j, device, FP32_FP64)
+    dtype = _one_dtype(pos_i=pos_i, vel_i=vel_i, pos_j=pos_j, vel_j=vel_j)
     bs = check_block_size(block_size)
     if device.type != "cuda":
         return reference.compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, softening)
@@ -624,18 +676,21 @@ def _accel_jerk(pos_i, vel_i, pos_j, vel_j, softening, block_size, splits=None, 
 
         lib = load_library()
     m, n = pos_i.shape[0], pos_j.shape[0]
-    acc = torch.empty((m, 3), dtype=torch.float32, device=device)
-    jerk = torch.empty((m, 3), dtype=torch.float32, device=device)
+    acc = torch.empty((m, 3), dtype=dtype, device=device)
+    jerk = torch.empty((m, 3), dtype=dtype, device=device)
     if m == 0:
         return acc, jerk
-    s = aj_splits(m, n) if splits is None else int(splits)
+    f64 = dtype == torch.float64
+    entry, key = (("nbody_accel_jerk_f64", "accel_jerk_f64") if f64
+                  else ("nbody_accel_jerk_f32", "accel_jerk"))
+    s = int(splits) if splits is not None else (f64_splits if f64 else aj_splits)(m, n)
     args = (pos_i.data_ptr(), vel_i.data_ptr(), pos_j.data_ptr(), vel_j.data_ptr(),
-            acc.data_ptr(), jerk.data_ptr(), m, n, ctypes.c_float(float(softening) ** 2), bs)
+            acc.data_ptr(), jerk.data_ptr(), m, n, *_scalars(dtype, float(softening) ** 2), bs)
     with torch.cuda.device(device):
-        err = _launch_chunks(lib, "nbody_accel_jerk_f32", s, (6, m), device, args)
-    _raise_on_error(lib, err, "nbody_accel_jerk_f32 launch")
+        err = _launch_chunks(lib, entry, s, (6, m), device, args)
+    _raise_on_error(lib, err, f"{entry} launch")
     if counted:
-        LAUNCHES["accel_jerk"] += 1
+        LAUNCHES[key] += 1
     return acc, jerk
 
 
@@ -643,8 +698,9 @@ def potential_energy_per_row_cuda(pos, softening, *, block_size: int = DEFAULT_B
     """(N,) per-row pair-potential sums of the set (N,4), row i holding
     sum_{j != i} m_i m_j / sqrt(r^2 + eps^2), the self pair dropped by its
     index: the potential kernel (``_potential_kernel``) in ``step_splits(N,
-    N)`` j-chunks, the same bits at every block size. The potential energy
-    is -1/2 of their sum."""
+    N)`` j-chunks (for a float64 set the double kernel in ``f64_splits(N,
+    N)``), the same bits at every block size. The potential energy is -1/2
+    of their sum."""
     return _potential(pos, softening, block_size)
 
 
@@ -652,7 +708,7 @@ def _potential(pos, softening, block_size, splits=None, lib=None):
     """``potential_energy_per_row_cuda`` in `splits` j-chunks
     (``step_splits(N, N)`` by default) through `lib`, as ``_mxu_step``."""
     device = pos.device if isinstance(pos, torch.Tensor) else None
-    _check_state("pos", pos, device)
+    _check_state("pos", pos, device, FP32_FP64)
     bs = check_block_size(block_size)
     if device.type != "cuda":
         return energy.potential_energy_per_row(pos, softening)
@@ -663,16 +719,20 @@ def _potential(pos, softening, block_size, splits=None, lib=None):
 
         lib = load_library()
     n = pos.shape[0]
-    per_row = torch.empty((n,), dtype=torch.float32, device=device)
+    per_row = torch.empty((n,), dtype=pos.dtype, device=device)
     if n == 0:
         return per_row
-    s = step_splits(n, n) if splits is None else int(splits)
-    args = (pos.data_ptr(), per_row.data_ptr(), n, ctypes.c_float(float(softening) ** 2), bs)
+    f64 = pos.dtype == torch.float64
+    entry, key = (("nbody_potential_f64", "potential_f64") if f64
+                  else ("nbody_potential_f32", "potential"))
+    s = int(splits) if splits is not None else (f64_splits if f64 else step_splits)(n, n)
+    args = (pos.data_ptr(), per_row.data_ptr(), n, *_scalars(pos.dtype, float(softening) ** 2),
+            bs)
     with torch.cuda.device(device):
-        err = _launch_chunks(lib, "nbody_potential_f32", s, (n,), device, args)
-    _raise_on_error(lib, err, "nbody_potential_f32 launch")
+        err = _launch_chunks(lib, entry, s, (n,), device, args)
+    _raise_on_error(lib, err, f"{entry} launch")
     if counted:
-        LAUNCHES["potential"] += 1
+        LAUNCHES[key] += 1
     return per_row
 
 

@@ -9,7 +9,9 @@ of the per-row sums; on the card the potential kernel computes them
 
 The float64 functional (``total_energy_f64``, ``total_energy_precise``) is
 what drift checks read: fp32 summation noise at N >= 65k is of the order of
-the drifts themselves.
+the drifts themselves. On the card ``total_energy_precise`` evaluates it
+with the double potential kernel (``csrc/f64_kernels.cu``); on the CPU
+``total_energy_f64`` runs it on the host, and stays the yardstick.
 """
 
 from __future__ import annotations
@@ -113,23 +115,32 @@ def total_energy_f64(pos, vel, softening) -> float:
 def total_energy_precise(pos, vel, softening, *, host_threshold: int = 131072,
                          device=None) -> float:
     """Drift-grade total energy for any state type
-    (``nbody_tpu/ops/energy.py::total_energy_precise``):
+    (``nbody_tpu/ops/energy.py::total_energy_precise``), on `device` (a
+    tensor's own device when `device` is None, else the CPU):
 
-    * N <= host_threshold: the full float64 functional on the host
-      (``total_energy_f64``);
-    * N > host_threshold: float32 pair terms, summed per row on `device`
-      (the potential kernel on a CUDA device, the plain version on the CPU;
-      a tensor's own device when `device` is None, else the CPU), and the
-      rows and the kinetic term accumulated in host float64. That removes
-      the global summation noise, the term that swamps 1e-5-scale drifts at
-      large N."""
-    n = int(pos.shape[0])
-    if n <= host_threshold:
-        return total_energy_f64(pos, vel, softening)
+    * on a CUDA device, at every N: the float64 functional on the card. The
+      state is taken as float64, the per-row pair sums come from the double
+      potential kernel (``potential_energy_per_row_cuda``), and they and the
+      kinetic term are added in float64;
+    * on the CPU, N <= host_threshold: the full float64 functional on the
+      host (``total_energy_f64``);
+    * on the CPU, N > host_threshold: float32 pair terms summed per row by
+      the plain version, and the rows and the kinetic term accumulated in
+      host float64. That removes the global summation noise, the term that
+      swamps 1e-5-scale drifts at large N."""
     from nbody_tpu_torch.ops.cuda_kernel import potential_energy_per_row_cuda
 
     if device is None:
         device = pos.device if isinstance(pos, torch.Tensor) else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda":
+        p64 = torch.as_tensor(pos).to(device=device, dtype=torch.float64).contiguous()
+        v64 = torch.as_tensor(vel).to(device=device, dtype=torch.float64)
+        per_row = potential_energy_per_row_cuda(p64, softening)
+        return float(kinetic_energy(p64, v64)) - 0.5 * float(per_row.sum())
+    n = int(pos.shape[0])
+    if n <= host_threshold:
+        return total_energy_f64(pos, vel, softening)
     p32 = torch.as_tensor(pos).to(device=device, dtype=torch.float32).contiguous()
     per_row = potential_energy_per_row_cuda(p32, softening)
     pe = -0.5 * float(per_row.to("cpu", torch.float64).sum())

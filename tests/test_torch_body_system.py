@@ -190,8 +190,10 @@ def test_cpu_backend_launches_no_kernel(params, state):
     ({"mesh": types.SimpleNamespace(axis_names=("rows", "cols"))}, "#13"),
     ({"backend": "pm"}, "#10"),
     ({"kernel": "pm"}, "#10"),
-    ({"integrator": "hermite", "dtype": torch.float64}, "#5"),
-    ({"dtype": torch.float64}, "#5"),
+    # float64 is ported (tests/test_torch_fp64.py); P3M and a mesh in
+    # float64 are not
+    ({"integrator": "hermite", "dtype": torch.float64, "kernel": "p3m"}, "#16"),
+    ({"dtype": torch.float64, "mesh": types.SimpleNamespace(axis_names=("bodies",))}, "#13"),
 ])
 def test_later_slices_raise_naming_roadmap_item(params, kw, item):
     with pytest.raises(ValueError, match="ROADMAP.md") as e:

@@ -58,7 +58,7 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--fp64"],
+@pytest.mark.parametrize("flag", [["--demo", "1"],  # was --fp64, which the fp64 slice brought
                                   # was --devices 2, which the mesh slice brought
                                   ["--adaptive-dt"],
                                   ["--kernel", "xla"],

@@ -129,9 +129,89 @@ def test_zero_softening_gives_nan_like_the_plain_version(dev):
 
 
 def test_float64_cuda_tensor_raises(dev):
-    p = torch.zeros((8, 4), dtype=torch.float64, device=dev)
+    """float64 runs the double kernels without a cast (the outputs are
+    float64); mixed types and the float32-only wrappers raise TypeError."""
+    p, v = _state(256, dev)
+    p64, v64 = p.double(), v.double()
+    assert all(t.dtype == torch.float64 for t in nbody_step_cuda(p64, v64, DT, SOFT, DAMP))
     with pytest.raises(TypeError):
-        nbody_step_cuda(p, p.clone(), DT, SOFT, DAMP)
+        nbody_step_cuda(p64, v, DT, SOFT, DAMP)
+    with pytest.raises(TypeError):
+        compute_accel_cuda(p64, p, SOFT)
+    with pytest.raises(TypeError):
+        sym_accel_cuda(p64, SOFT)
+
+
+F64_KEYS = ("step_f64", "accel_f64", "accel_jerk_f64", "potential_f64")
+
+
+def _state64(n, dev, seed=7):
+    """A float64 shell state with masses from [0.5, 2] and a random vel.w."""
+    p, v = _state(n, dev, seed=seed)
+    rng = np.random.default_rng(seed)
+    p, v = p.double(), v.double()
+    p[:, 3] = torch.tensor(rng.uniform(0.5, 2.0, n), device=dev)
+    v[:, 3] = torch.tensor(rng.standard_normal(n), device=dev)
+    return p, v
+
+
+@pytest.mark.parametrize("m, n", [(1000, 1000), (1025, 4099), (4099, 4099)])
+def test_f64_kernels_match_plain_and_every_block_gives_the_same_bits(dev, m, n):
+    """The four double kernels against their plain float64 versions at
+    1e-12 of each output's largest value (both float64: only the sums'
+    order and the fused multiply-adds differ), damping 0.5, vel.w carried;
+    blocks 128, 256 and 1024 bit-equal (S from (M, N) alone)."""
+    pj, vj = _state64(n, dev)
+    pi, vi = (pj, vj) if m == n else _state64(m, dev, seed=3)
+    before = dict(cuda_kernel.LAUNCHES)
+    outs = []
+    for bs in (128, 256, 1024):
+        got = [compute_accel_cuda(pi, pj, SOFT, block_size=bs),
+               *nbody_step_cuda_vs(pi, vi, pj, DT, SOFT, 0.5, block_size=bs),
+               *compute_accel_jerk_cuda(pi, vi, pj, vj, SOFT, block_size=bs)]
+        if m == n:
+            got.append(potential_energy_per_row_cuda(pi, SOFT, block_size=bs))
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert all(cuda_kernel.LAUNCHES[k] == before[k] + 3 for k in F64_KEYS[:3])
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+    want = [reference.compute_accel_vs(pi, pj, SOFT),
+            *reference.nbody_step_vs(pi, vi, pj, DT, SOFT, 0.5),
+            *reference.compute_accel_jerk_vs(pi, vi, pj, vj, SOFT)]
+    if m == n:
+        want.append(energy.potential_energy_per_row(pi, SOFT))
+    for g, w in zip(outs[0], want):
+        assert g.dtype == torch.float64
+        assert (g - w).abs().max().item() <= 1e-12 * w.abs().max().item()
+    assert torch.equal(outs[0][1][:, 3], pi[:, 3]) and torch.equal(outs[0][2][:, 3], vi[:, 3])
+
+
+def test_f64_zero_softening_gives_nan_like_the_plain_version(dev):
+    p, v = _state64(256, dev)
+    assert torch.isnan(compute_accel_cuda(p, p, 0.0)).all()
+    assert torch.isnan(compute_accel_jerk_cuda(p, v, p, v, 0.0)[0]).all()
+    assert torch.isnan(reference.compute_accel(p, 0.0)).all()
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "hermite"])
+def test_f64_compute_qa_runs_the_double_kernels(dev, integrator):
+    c = Compute(num_bodies=4096, device=dev, precision="fp64", integrator=integrator,
+                log=lambda s: None)
+    assert c.system.dtype == torch.float64 and c.system.backend == "cuda"
+    before = dict(cuda_kernel.LAUNCHES)
+    assert c.compare_results()
+    key = {"euler": "step_f64", "leapfrog": "accel_f64", "hermite": "accel_jerk_f64"}[integrator]
+    assert cuda_kernel.LAUNCHES[key] > before[key]
+
+
+def test_f64_precise_energy_on_the_card_matches_the_host_functional(dev):
+    p, v = _state64(4099, dev)
+    host = energy.total_energy_f64(p, v, SOFT)
+    before = cuda_kernel.LAUNCHES["potential_f64"]
+    card = energy.total_energy_precise(p, v, SOFT)
+    assert cuda_kernel.LAUNCHES["potential_f64"] == before + 1
+    assert abs(card - host) <= 1e-12 * abs(host)
 
 
 def test_body_system_kernel_matches_plain_backend(dev):

@@ -541,8 +541,12 @@ def test_drift_gate_of_ds_has_two_tiers(drift, failed):
 
 
 def test_compute_precision_refusals():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #5"):
-        Compute(num_bodies=64, device="cpu", precision="fp64")
+    # precision="fp64" is ported (tests/test_torch_fp64.py): it runs, in
+    # float64; ds with fp64=True contradicts it
+    c = Compute(num_bodies=64, device="cpu", precision="fp64", log=lambda s: None)
+    assert c.system.dtype == torch.float64 and c.fp64_enabled
+    with pytest.raises(ValueError, match="contradicts"):
+        Compute(num_bodies=64, device="cpu", precision="ds", fp64=True)
     with pytest.raises(ValueError, match="device"):
         Compute(num_bodies=64, device="cpu", precision="ds", placement="host")
     with pytest.raises(ValueError, match="precision"):
@@ -609,14 +613,18 @@ def test_cli_precision_ds_on_cpu(capsys):
     pytest.param(["--precision", "ds", "--variant", "vpu"],
                  "--variant vpu (the ds default, auto, runs) has no effect", 0,
                  id="args2-says2"),
-    pytest.param(["--precision", "fp64"], "ROADMAP.md Queue 1 #5", 2, id="args3-says3"),
+    # --precision fp64 is ported; beside --fp64, --precision ds exits 1 in
+    # nbody_tpu's words (cli.py:449-453)
+    pytest.param(["--fp64", "--precision", "ds"], "--precision ds and --fp64 are exclusive", 1,
+                 id="args3-says3"),
     pytest.param(["--precision", "ds", "--variant", "mxu_bf16", "--integrator", "leapfrog"],
                  "--variant mxu_bf16 (the ds default, auto, runs) has no effect", 0,
                  id="args4-says4"),
 ])
 def test_cli_precision_refusals_exit_2(capsys, args, says, code):
-    """--precision fp64 exits 2 (not ported); the flags nbody_tpu's ds
-    measurement modes ignore run the ds QA, which passes, and are named."""
+    """--fp64 beside --precision ds exits 1, as in nbody_tpu; the flags
+    nbody_tpu's ds measurement modes ignore run the ds QA, which passes,
+    and are named."""
     assert main([*args, "--qatest", "--cpu", "--numbodies", "64"]) == code
     out = capsys.readouterr()
     if code:

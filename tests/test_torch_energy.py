@@ -161,8 +161,9 @@ def test_potential_wrapper_refuses_bad_arguments(bad):
         with pytest.raises(ValueError, match="shape"):
             cuda_kernel.potential_energy_per_row_cuda(p[:, :3].contiguous(), SOFT)
     elif bad == "dtype":
+        # float32 and float64 (the double kernel) are taken, nothing else
         with pytest.raises(TypeError, match="float32"):
-            cuda_kernel.potential_energy_per_row_cuda(p.double(), SOFT)
+            cuda_kernel.potential_energy_per_row_cuda(p.half(), SOFT)
     elif bad == "block_size":
         with pytest.raises(ValueError, match="block_size"):
             cuda_kernel.potential_energy_per_row_cuda(p, SOFT, block_size=48)

@@ -93,13 +93,19 @@ def test_cpu_tensors_launch_no_kernel(random_state_tiny):
 
 
 def test_float64_raises_not_casts(random_state_tiny):
+    """float64 runs the double kernels' path without a cast (the outputs are
+    float64); mixed types and the float32-only wrappers raise TypeError."""
     pos, vel = random_state_tiny
-    p64 = torch.from_numpy(pos.astype(np.float64))
-    v64 = torch.from_numpy(vel.astype(np.float64))
+    p64 = torch.tensor(pos.astype(np.float64))
+    v64 = torch.tensor(vel.astype(np.float64))
+    assert all(t.dtype == torch.float64 for t in nbody_step_cuda(p64, v64, DT, SOFT, DAMP))
+    assert compute_accel_cuda(p64, p64, SOFT).dtype == torch.float64
+    with pytest.raises(TypeError, match="share a type"):
+        nbody_step_cuda(p64, _t(vel), DT, SOFT, DAMP)
+    with pytest.raises(TypeError, match="share a type"):
+        compute_accel_cuda(p64, _t(pos), SOFT)
     with pytest.raises(TypeError, match="float32"):
-        nbody_step_cuda(p64, v64, DT, SOFT, DAMP)
-    with pytest.raises(TypeError, match="float32"):
-        compute_accel_cuda(p64, p64, SOFT)
+        cuda_kernel.nbody_step_dual_cuda(p64, v64, DT, SOFT, DAMP)
     with pytest.raises(TypeError):
         compute_accel_cuda(pos, pos, SOFT)  # numpy, not a tensor
 
@@ -143,7 +149,8 @@ def test_nvcc_command_targets_sm90a():
                                                 "symmetric_aj_kernels.cu", "ds_kernels.cu",
                                                 "ds_symmetric_kernels.cu", "ds_aj_kernels.cu",
                                                 "ds_symmetric_aj_kernels.cu", "mxu_kernels.cu",
-                                                "p3m_kernels.cu", "ring_kernels.cu"]
+                                                "p3m_kernels.cu", "ring_kernels.cu",
+                                                "f64_kernels.cu"]
     assert [h.name for h in _build.HEADERS] == ["allpairs_common.cuh", "sym_common.cuh",
                                                 "ds_common.cuh", "ds_sym_common.cuh"]
     # every source and header in csrc/ is built and hashed
