@@ -203,10 +203,25 @@ its result:
      --variant mxu_bf16 --hostmem --kernel p3m (flags the ds modes run
      without, each named), and --kernel p3m --numbodies 65536 --benchmark
      -i 3.
+  8. the demo loop, in this process through the CLI's main(), as a user
+     runs it: --config galaxy --numbodies 65536 --frames 30 --render (30
+     PNG frames and metadata.json), the same for 600 frames without
+     --render (the reported fps), --selftest at N=16384 (PASSED), and a ds
+     and an fp64 checkpoint resume at N=16384, 2 + 2 frames bit-equal to 4
+     straight (the ds one through its raw hi/lo planes); after it, outside
+     the count: the rasterizer's card frames against its CPU frames on the
+     same state (|delta| <= 1 level a channel, >= 99.9 % exact; every mode
+     and method at 4099 bodies, 256x192, and sprites_color by both methods
+     at 16384, 512x384), two renders of one state at 65536, 1024x768,
+     bit-equal (scatter, conv and sprites_alpha), the frame's time at
+     65536 and 2^20 bodies, 1024x768, sprites_color, by scatter and by
+     conv (splat 16 and 8, the CLI's default), and at 65536 the demo
+     frame's parts: a sym step, the frame, the HUD and the PNG write.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
 tensor-core path's, 5r the rollout's, 5p the P3M path's, 5x the
-sharded path's and 5e the experiment scripts': the kernels' launch counters are
+sharded path's, 5e the experiment scripts' and 8 the demo loop's (the sym
+kernel must launch there): the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
 have launched. Any failure raises, and the script exits nonzero. The last lines
 are the card, one JSON object listing every kernel, and the result line.
@@ -3270,6 +3285,213 @@ def phase_cli() -> None:
         check(expect in out, f"{' '.join(args)} printed no {expect!r}")
 
 
+N_FRAME_BIG = 1 << 20  # the frame-time cell of a 2^20-body demo
+
+
+def cli_lines(tag: str, argv: list) -> tuple[str, float]:
+    """nbody-torch `argv` in this process (its launches count), its output
+    printed under `tag`; returns the output and the call's seconds."""
+    import contextlib
+    import io
+
+    from nbody_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        print(f"[{tag}] {line}")
+    check(rc == 0, f"nbody-torch {' '.join(argv)} exited {rc}")
+    return out, secs
+
+
+def reported_fps(out: str) -> list:
+    return [float(x) for x in re.findall(r"\| ([\d.]+) fps \|", out)]
+
+
+def call_times(owner, name: str, times: list):
+    """A context manager that records (start, end) host times of each call
+    of owner.name (a function or staticmethod) inside it."""
+    import contextlib
+
+    real = owner.__dict__[name]
+    fn = real.__func__ if isinstance(real, staticmethod) else real
+
+    def timed_call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        times.append((t0, time.perf_counter()))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(owner, name, staticmethod(timed_call) if isinstance(real, staticmethod)
+                else timed_call)
+        try:
+            yield times
+        finally:
+            setattr(owner, name, real)
+
+    return patched()
+
+
+def phase_demo_main(torch, smi: str, tmp: pathlib.Path) -> None:
+    """The demo loop through the CLI (phase 8, in the count)."""
+    from nbody_tpu_torch.io import load_checkpoint, load_checkpoint_ds_planes
+    from nbody_tpu_torch.render import FrameRenderer
+
+    outdir = tmp / "frames"
+    galaxy = ["--config", "galaxy", "--numbodies", str(N_MAIN)]
+    renders, writes = [], []
+    with call_times(FrameRenderer, "render", renders), \
+            call_times(FrameRenderer, "write_png", writes):
+        out, secs = cli_lines("8 demo", [*galaxy, "--frames", "30", "--render", "--outdir",
+                                         str(outdir)])
+    check(len(list(outdir.glob("frame_*.png"))) == 30, "--render did not write 30 PNG frames")
+    meta = json.loads((outdir / "metadata.json").read_text())
+    check(meta["num_bodies"] == N_MAIN and meta["device"] == torch.cuda.get_device_name(0),
+          f"metadata.json: {meta}")
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    # frames 2..30: from the end of the first frame's PNG write to the last's
+    fps = (len(writes) - 1) / (writes[-1][1] - writes[0][1])
+    print(f"[8 demo] --render at N={N_MAIN}: {fps:.1f} fps over frames 2-30 (step, frame, HUD, "
+          f"PNG write), the first frame {1e3 * (renders[0][1] - renders[0][0]):.1f} ms, then "
+          f"frame {1e3 * median([b - a for a, b in renders[1:]]):.3f} ms and PNG write "
+          f"{1e3 * median([b - a for a, b in writes[1:]]):.3f} ms (medians); the CLI call "
+          f"{secs:.3f} s, fps reported {reported_fps(out)} [{smi}]")
+    out, secs = cli_lines("8 demo", [*galaxy, "--frames", "2000"])
+    print(f"[8 demo] no --render at N={N_MAIN}: 2000 frames in {secs:.3f} s of the CLI call, "
+          f"fps reported {reported_fps(out)} [{smi}]")
+    out, _ = cli_lines("8 demo", ["--selftest", "--numbodies", str(N_QA)])
+    check("selftest PASSED" in out, "--selftest did not pass")
+    for precision in ("ds", "fp64"):
+        a, b, c = (str(tmp / f"{precision}_{k}.npz") for k in "abc")
+        common = ["--precision", precision, "--numbodies", str(N_QA), "--no-cycle"]
+        cli_lines("8 demo", [*common, "--frames", "2", "--checkpoint-save", a])
+        cli_lines("8 demo", ["--precision", precision, "--no-cycle", "--frames", "2",
+                             "--checkpoint-load", a, "--checkpoint-save", b])
+        cli_lines("8 demo", [*common, "--frames", "4", "--checkpoint-save", c])
+        resumed, straight = load_checkpoint(b), load_checkpoint(c)
+        same = all((x == y).all() for x, y in zip(resumed[:2], straight[:2]))
+        same &= resumed[3]["step"] == straight[3]["step"] == 4
+        if precision == "ds":
+            same &= all((x == y).all() for x, y in zip(load_checkpoint_ds_planes(b),
+                                                        load_checkpoint_ds_planes(c)))
+        print(f"[8 demo] {precision} resume at N={N_QA}: 2 + 2 frames equal 4 straight bit for "
+              f"bit{' (positions, velocities and the hi/lo planes)' if precision == 'ds' else ''}: "
+              f"{same}")
+        check(same, f"the {precision} checkpoint resume is not bit-exact")
+
+
+def frames_close(a, b) -> tuple[int, float]:
+    d = abs(a.astype("int32") - b.astype("int32"))
+    return int(d.max()), float((d == 0).mean())
+
+
+def phase_demo_frames(torch, smi: str) -> None:
+    """The rasterizer on the card (phase 8, after the count): card frames
+    against CPU frames, repeats bit-equal, frame times."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic, tuned_scales
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.render import Camera, DisplayMode, FrameRenderer
+    from nbody_tpu_torch.ui.hud import draw_hud, hud_lines
+
+    near = (0.0, 0.0, -25.0)  # the shell fills the frame: a test of many lit pixels
+    pos16, _ = ic.generate(NBodyConfig.SHELL, N_QA, *tuned_scales(N_QA), seed=42)
+    cases = [(mode, method, 4099, (256, 192)) for mode in DisplayMode
+             for method in ("scatter", "conv")]
+    cases += [(DisplayMode.SPRITES_COLOR, method, N_QA, (512, 384))
+              for method in ("scatter", "conv")]
+    for mode, method, n, (w, h) in cases:
+        r = FrameRenderer(w, h, splat=16, method=method)
+        host = torch.from_numpy(pos16[:n])
+        card, cpu = (r.render(x, Camera(near), mode=mode, brightness=0.05)
+                     for x in (host.cuda(), host))
+        worst, exact = frames_close(card, cpu)
+        lit = float((cpu > 0).mean())
+        print(f"[8 frames] card against CPU, {mode.value} {method}, N={n}, {w}x{h}: max |delta| "
+              f"{worst}, exact {exact:.6f}, lit {lit:.4f}")
+        check(lit > 0.01 and worst <= 1 and exact >= 0.999,
+              f"the card's {mode.value} {method} frame is not the CPU's")
+
+    origin = DEMO_PARAMS[0].camera_origin
+
+    def shell(n):
+        # tuned_scales has no entry above 32768: demo 0's scales there
+        scales = tuned_scales(n) or (DEMO_PARAMS[0].cluster_scale, DEMO_PARAMS[0].velocity_scale)
+        return torch.tensor(ic.generate(NBodyConfig.SHELL, n, *scales, seed=42)[0], device="cuda")
+
+    pos64 = shell(N_MAIN)
+    for mode, method in ((DisplayMode.SPRITES_COLOR, "scatter"),
+                         (DisplayMode.SPRITES_COLOR, "conv"),
+                         (DisplayMode.SPRITES_ALPHA, "scatter")):
+        r = FrameRenderer(1024, 768, splat=16, method=method)
+        a, b = (r.render(pos64, Camera(near), mode=mode) for _ in range(2))
+        same = bool((a == b).all())
+        print(f"[8 frames] two {mode.value} {method} renders at N={N_MAIN}, 1024x768: bit-equal "
+              f"{same}, lit {float((a > 0).mean()):.4f}")
+        check(same and a.any(), f"two {method} renders of one state differ")
+
+    def median_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    big = shell(N_FRAME_BIG)
+    for n, pos in ((N_MAIN, pos64), (N_FRAME_BIG, big)):
+        splat = 16 if n <= 262144 else 8  # the CLI's default
+        for method in ("scatter", "conv"):
+            r = FrameRenderer(1024, 768, splat=splat, method=method)
+            ms = median_ms(lambda: r.render(pos, Camera(origin)))
+            print(f"[8 frames] frame at N={n}, 1024x768, sprites_color, {method}, splat {splat}: "
+                  f"{ms:.3f} ms (median of 5, the uint8 frame on the host) [{smi}]")
+    del big
+
+    # the demo frame's parts at N=65536, --config galaxy, auto (conv)
+    compute = Compute(device="cuda", tipsy_state=ic.galaxy_collision(N_MAIN, seed=42),
+                      log=lambda s: None)
+    step_ms = median_ms(lambda: compute.update_simulation(None))
+    r = FrameRenderer(1024, 768, splat=16)
+    state = compute.system.state[0]
+    frame_ms = median_ms(lambda: r.render(state, Camera(origin)))
+    frame = r.render(state, Camera(origin))
+    compute.fps = 60.0
+    hud_ms = median_ms(lambda: draw_hud(frame, hud_lines(compute, torch.cuda.get_device_name(0))))
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        png_ms = median_ms(lambda: r.write_png(frame, pathlib.Path(d) / "f.png"))
+    print(f"[8 frames] demo frame at N={N_MAIN} (galaxy, {compute.system.variant}, "
+          f"{'conv' if r.uses_conv(N_MAIN) else 'scatter'}): step {step_ms:.3f} ms, frame "
+          f"{frame_ms:.3f} ms, HUD {hud_ms:.3f} ms, PNG write {png_ms:.3f} ms (medians of 5) "
+          f"[{smi}]")
+    check(np.isfinite(compute.system.positions).all(), "non-finite galaxy state")
+
+
+def phase_demo(torch, ck, smi: str) -> dict:
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        launches = timed("8 demo path", run_path, ck, ("sym",),
+                         lambda: phase_demo_main(torch, smi, pathlib.Path(d)))
+    timed("8 frames", phase_demo_frames, torch, smi)
+    return launches
+
+
 def timed(label: str, fn, *args):
     """fn(*args), printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3401,6 +3623,7 @@ def main() -> int:
 
     timed("6 host", phase_host, torch)
     timed("7 cli", phase_cli)
+    timed("8 demo", phase_demo, torch, ck, smi)
     bad = sorted(m for m in sys.modules if m in ("jax", "nbody_tpu")
                  or m.startswith(("jax.", "nbody_tpu.")))
     check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")

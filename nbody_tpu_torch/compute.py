@@ -327,6 +327,14 @@ class Compute:
         self.g_flops = gflops(self.num_bodies, steps_per_second,
                               self.fp64_enabled or self.precision == "ds")
 
+    def calculate_fps(self, frame_count: int, milliseconds: float,
+                      *, steps_per_frame: int = 1) -> None:
+        """The demo loop's report (``nbody_tpu/compute.py:328-346``): frames
+        a second, and the perf rates per simulation step, not per frame.
+        The block-timestep accounting comes with ROADMAP.md Queue 1 #7."""
+        self.fps = frame_count * 1000.0 / max(milliseconds, 1e-9)
+        self.compute_perf_stats(self.fps * steps_per_frame)
+
     def run_benchmark(self, nb_iterations: int) -> dict:
         """The reference's benchmark: one untimed warm-up step (which also
         builds the kernels), then `nb_iterations` steps timed by CUDA events

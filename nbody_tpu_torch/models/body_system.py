@@ -121,7 +121,7 @@ LATER_SLICES = {
     "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list; "
           "P3M in float64)",
     "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps; "
-            "meshes in float64)",
+            "meshes in float64; the demo loop on a mesh)",
     "sym": "Queue 1 #13 (the rest of parallel/: strategy='sym', each pair once across the mesh)",
     "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
 }

@@ -14,9 +14,9 @@ its 8N contributions in a fixed order on every device: ``index_add_`` on a
 CUDA tensor adds with atomics, whose order changes from run to run, so the
 deposit runs it under ``torch.use_deterministic_algorithms(True)`` (sorted
 indices, each run of equal indices summed in input order) and restores the
-setting after. Plain PM (``--kernel pm``), TSC assignment, the naive
-deconvolution and the slab-decomposed solve are not ported yet (ROADMAP.md
-Queue 1 #16).
+setting after (``utils.ordered.index_add_ordered``). Plain PM (``--kernel
+pm``), TSC assignment, the naive deconvolution and the slab-decomposed solve
+are not ported yet (ROADMAP.md Queue 1 #16).
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import pathlib
 
 import numpy as np
 import torch
+
+from nbody_tpu_torch.utils.ordered import index_add_ordered
 
 # the influence tables' disk cache, beside the port's other build outputs
 _CACHE_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -88,15 +90,7 @@ def _deposit(idx, w, mass, grid: int):
     """CIC scatter-add -> flat (grid^3,) density grid, summed in the same
     order on every run (see the module docstring)."""
     rho = torch.zeros(grid * grid * grid, dtype=torch.float32, device=mass.device)
-    vals = (w * mass[None, :]).reshape(-1)
-    was = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        rho.index_add_(0, idx.reshape(-1), vals)
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn_only)
-    return rho
+    return index_add_ordered(rho, idx.reshape(-1), (w * mass[None, :]).reshape(-1))
 
 
 def _greens_kernel(r2, sigma):

@@ -48,8 +48,12 @@ def test_tipsy_input(tmp_path, capsys):
 
 
 def test_no_mode_is_a_usage_error(capsys):
-    assert main(["--cpu", "--numbodies", "64"]) == 2
-    assert "--benchmark" in capsys.readouterr().err
+    """With no mode flag the demo loop runs, as nbody's does; what is a usage
+    error there is a demo preset out of range (exit 2)."""
+    assert main(["--cpu", "--numbodies", "64", "--frames", "2"]) == 0
+    assert "64 bodies on cpu" in capsys.readouterr().out
+    assert main(["--cpu", "--numbodies", "64", "--demo", "7"]) == 2
+    assert "--demo 7 out of range (presets 0..6)" in capsys.readouterr().err
 
 
 def test_card_required_without_cpu_flag(monkeypatch, capsys):
@@ -58,12 +62,15 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--demo", "1"],  # was --fp64, which the fp64 slice brought
-                                  # was --devices 2, which the mesh slice brought
+# --block-dt, --tile-j, --pm-assignment and --p3m-auto-refresh stand where
+# the run-setup and demo slice brought --demo 1, --render, --energy and
+# --config plummer (as --demo 1 stood for --fp64, and --adaptive-dt for
+# --devices 2, before)
+@pytest.mark.parametrize("flag", [["--block-dt"],
                                   ["--adaptive-dt"],
                                   ["--kernel", "xla"],
-                                  ["--render"], ["--energy"],
-                                  ["--config", "plummer"]])
+                                  ["--tile-j", "64"], ["--pm-assignment", "tsc"],
+                                  ["--p3m-auto-refresh"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])
@@ -153,8 +160,10 @@ def test_block_size_is_free_on_the_cpu(precision, capsys):
 
 def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
-    leapfrog path, the sym Hermite drift check, the ds path and a tipsy file,
-    and a ds ring step on a one-rank gloo mesh, without JAX and without any
+    leapfrog path, the sym Hermite drift check, the ds path, a tipsy file,
+    the demo loop (galaxy, frames, animation, energy, checkpoint, profile)
+    and a resumed selftest, and a ds ring step on a one-rank gloo mesh,
+    without JAX and without any
     module of nbody_tpu: the port keeps its own copies. It destroys the
     mesh's process group before it exits, as the CLI does: a gloo group
     alive at interpreter shutdown aborted such a process now and then
@@ -163,7 +172,10 @@ def test_port_imports_no_jax(tmp_path):
         "import sys\n"
         "import nbody_tpu_torch, nbody_tpu_torch.compute, nbody_tpu_torch.cli, "
         "nbody_tpu_torch.models, nbody_tpu_torch.io, nbody_tpu_torch.oracle, "
-        "nbody_tpu_torch.models.ds_system, nbody_tpu_torch.ops.ds\n"
+        "nbody_tpu_torch.models.ds_system, nbody_tpu_torch.ops.ds, nbody_tpu_torch.render, "
+        "nbody_tpu_torch.ui, nbody_tpu_torch.ui.terminal_view, nbody_tpu_torch.io.apng, "
+        "nbody_tpu_torch.io.avi, nbody_tpu_torch.utils.profiling, "
+        "nbody_tpu_torch.oracle.build\n"
         "from nbody_tpu_torch import Compute, BodySystem, NBodyConfig, ic\n"
         "from nbody_tpu_torch.io import write_tipsy_file\n"
         "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu', "
@@ -174,6 +186,13 @@ def test_port_imports_no_jax(tmp_path):
         "'--cpu', '--integrator', 'leapfrog'])\n"
         "write_tipsy_file(sys.argv[1], *ic.generate(NBodyConfig.SHELL, 100, 1.52, 2.0))\n"
         "rc |= nbody_tpu_torch.cli.main(['--qatest', '--cpu', '--tipsy', sys.argv[1]])\n"
+        "rc |= nbody_tpu_torch.cli.main(['--cpu', '--numbodies', '128', '--frames', '2', "
+        "'--render', '--outdir', sys.argv[2], '--width', '32', '--height', '24', '--config', "
+        "'galaxy', '--energy', '--animate', sys.argv[2] + '/a.avi', '--checkpoint-save', "
+        "sys.argv[2] + '/c.npz', '--profile', sys.argv[2]])\n"
+        "rc |= nbody_tpu_torch.cli.main(['--cpu', '--selftest', '--numbodies', '128', "
+        "'--checkpoint-load', sys.argv[2] + '/c.npz', '--print-params', '--set', "
+        "'time_step=0.01'])\n"
         "from nbody_tpu_torch.parallel import make_mesh\n"
         "from nbody_tpu_torch.models import DSBodySystem\n"
         "s = DSBodySystem(64, nbody_tpu_torch.DEMO_PARAMS[0], device='cpu', strategy='ring', "
@@ -189,7 +208,8 @@ def test_port_imports_no_jax(tmp_path):
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
-    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "g.tipsy")],
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "g.tipsy"),
+                           str(tmp_path / "demo")],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 

@@ -1632,3 +1632,33 @@ def test_sym_ablations_match_plain_and_the_production_triangle(dev, n, tile):
     assert (react_f - react).abs().max().item() <= tol
     want, scale = reference.sym_reaction_slots(p, SOFT, tile=tile)
     assert ((slots.double() - want).abs() <= 1e-4 * scale).all()
+
+
+# ---- the rasterizer and the demo loop on the card ----
+
+@pytest.mark.parametrize("method", ["scatter", "conv"])
+@pytest.mark.parametrize("mode", ["points", "sprites", "sprites_color", "sprites_alpha"])
+def test_frames_on_the_card_repeat_and_match_the_cpu(dev, method, mode):
+    """Two renders of one state on the card give the same bits (the
+    deposits sum in one order), and the card's frame is the CPU's within
+    one level a channel, 99.9 % exact (tests/test_torch_render.py's rule)."""
+    from nbody_tpu_torch.render import Camera, DisplayMode, FrameRenderer
+
+    pos, _ = _state(4099, dev)
+    r = FrameRenderer(width=256, height=192, splat=16, chunk=1000, method=method)
+    frames = [r.render(p, Camera(origin=(0.0, -2.0, -40.0)), mode=DisplayMode(mode))
+              for p in (pos, pos, pos.cpu())]
+    np.testing.assert_array_equal(frames[0], frames[1])
+    d = np.abs(frames[0].astype(np.int32) - frames[2].astype(np.int32))
+    assert frames[0].any() and d.max() <= 1 and (d == 0).mean() >= 0.999
+
+
+def test_demo_loop_on_the_card_runs_the_auto_kernels(dev, tmp_path, capsys):
+    from nbody_tpu_torch.cli import main
+
+    for k in cuda_kernel.LAUNCHES:
+        cuda_kernel.LAUNCHES[k] = 0
+    assert main(["--numbodies", "8192", "--frames", "3", "--render", "--outdir",
+                 str(tmp_path), "--width", "128", "--height", "96", "--no-cycle"]) == 0
+    assert len(list(tmp_path.glob("frame_*.png"))) == 3
+    assert cuda_kernel.LAUNCHES["sym"] >= 3
