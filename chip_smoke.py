@@ -175,6 +175,17 @@ its result:
      single-device step times beside the mesh's and the same steps on one
      device: the ring Euler equal bit for bit (leapfrog and Hermite within
      5e-9, bit equality reported);
+  5y. the rest of parallel/ on the card: strategy="sym" on the one-rank
+     NCCL mesh (QA for Euler, leapfrog and Hermite at 16384, a benchmark at
+     65536, steps at 135168 and 73728, above the caps), float64 allgather
+     and ring QA on it, a 1x1 make_mesh_2d grid in fp32, ds and float64
+     (QA, a benchmark at 65536), each run launching its own kernels and
+     each system's launches a step printed; after it, outside the count,
+     the one-rank sym force and accel + jerk bit-equal to the single-device
+     composition, emulated_sym at D = 2, 3, 4, 8 and at D = 4, N = 2^20
+     (sub-blocked rectangles) and emulated_accel_2d 2x2 and 2x4 within
+     1e-4 * max|a| + 1e-4 of the plain force (the one-sided force kernel at
+     2^20), each bit-equal on a repeat;
   3e. the kernels of the JAX package's three experiment scripts against
      their plain versions at N in {1000, 4099, 65536}, masses from [0.5, 2],
      a random vel.w and damping 0.5 at 4099 and 65536: the dual-bank step
@@ -220,7 +231,8 @@ its result:
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
 tensor-core path's, 5r the rollout's, 5p the P3M path's, 5x the
-sharded path's, 5e the experiment scripts' and 8 the demo loop's (the sym
+sharded path's, 5y the sym, grid and float64 mesh paths', 5e the
+experiment scripts' and 8 the demo loop's (the sym
 kernel must launch there): the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
 have launched. Any failure raises, and the script exits nonzero. The last lines
@@ -2123,6 +2135,207 @@ def phase_sharded_single(torch, smi: str, mesh_runs: dict) -> None:
             check(bits, "ten ds ring Euler steps differ from ten one-sided steps")
 
 
+# the kernels each run of 5y must launch itself, by what the run is
+MESH_MORE_KERNELS = {
+    ("sym", "euler"): ("sym",),
+    ("sym", "leapfrog"): ("sym",),
+    ("sym", "hermite"): ("aj_sym",),
+    ("sym", "euler", "blocked"): ("sym", "sym_cross"),
+    ("sym", "hermite", "blocked"): ("aj_sym", "aj_sym_cross"),
+    ("2d", "euler"): ("accel",),
+    ("2d", "hermite"): ("accel_jerk",),
+    ("2d ds", "euler"): ("ds_accel", "ds_integrate"),
+    ("2d ds", "hermite"): ("ds_accel_jerk", *DS_HERMITE_GLUE),
+    ("2d fp64", "euler"): ("accel_f64",),
+    ("fp64 allgather", "euler"): ("step_f64",),
+    ("fp64 ring", "euler"): ("accel_f64",),
+    ("fp64 allgather", "hermite"): ("accel_jerk_f64",),
+}
+N_SYM_CARDS = 1 << 20  # BASELINE.json configs[3]'s N, rounded to 2^20
+
+
+def ran(ck, key, fn, counts: dict | None = None):
+    """fn(), failing unless it launched each kernel of MESH_MORE_KERNELS[key];
+    with `counts`, the launches it made are kept there under `key`."""
+    before = dict(ck.LAUNCHES)
+    out = fn()
+    made = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES if ck.LAUNCHES[k] > before[k]}
+    for k in MESH_MORE_KERNELS[key]:
+        check(k in made, f"the mesh run {'/'.join(key)} did not launch {k!r}")
+    if counts is not None:
+        counts[key] = made
+    return out
+
+
+def phase_sharded_more_main(torch, smi: str) -> dict:
+    """5y. What parallel/ runs beyond 5x, on one card: strategy="sym" on a
+    one-rank NCCL mesh (make_mesh(1); at D = 1 each pair once is the
+    triangle alone) with QA for Euler, leapfrog and Hermite at N=16384,
+    run_benchmark(10) at 65536 and steps above the composition caps
+    (135168 for the force, 69632 for accel + jerk); a 1x1 make_mesh_2d
+    (the 2-D step's gathers over one-rank line groups and its
+    reduce-scatter of one) with QA for fp32 Euler and Hermite, ds Euler and
+    Hermite, float64 Euler, and run_benchmark(10) at 65536; float64 on the
+    1-D mesh, allgather and ring Euler and allgather Hermite QA (the 5e-4
+    rule and the force at 1e-10 of max|a|). Each run must launch its own
+    kernels. Returns the states and step times that phase_sharded_more
+    holds to the single device, and the launches a step."""
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.models import BodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    out = {"ms": {}, "per_step": {}}
+
+    def per_step(system, key, steps=2):
+        ran(ck, key, lambda: system.update_many(steps), out["per_step"])
+        out["per_step"][key] = {k: v / steps for k, v in out["per_step"][key].items()}
+
+    mesh = make_mesh(1)
+    try:
+        for integrator in ("euler", "leapfrog", "hermite"):
+            c = Compute(num_bodies=N_QA, device="cuda", mesh=mesh, strategy="sym",
+                        integrator=integrator, log=lambda s: print(f"[5y QA] {s}"))
+            check(c.system.strategy == "sym", f"sym mesh system runs {c.system.strategy}")
+            check(ran(ck, ("sym", integrator), c.compare_results),
+                  f"sym on the mesh failed its QA ({integrator})")
+        c = Compute(num_bodies=N_MAIN, device="cuda", mesh=mesh, strategy="sym",
+                    log=lambda s: print(f"[5y main] {s}"))
+        res = ran(ck, ("sym", "euler"), lambda: c.run_benchmark(10))
+        out["ms"]["sym"] = res["milliseconds"] / res["iterations"]
+        for key, n, steps in ((("sym", "euler"), N_MAIN, 10),
+                              (("sym", "euler", "blocked"), N_BIG, 3),
+                              (("sym", "hermite", "blocked"), N_DS_AJ_BIG * 2, 2)):
+            s = BodySystem(n, DEMO_PARAMS[0], device="cuda", mesh=mesh, strategy="sym",
+                           integrator=key[1])
+            per_step(s, key, steps)
+            fields = (s.accelerations_and_jerks() if key[1] == "hermite"
+                      else (s.accelerations(),))
+            out[("sym", n)] = (s.state, s.params.softening, fields)
+        for strategy, integrator in (("allgather", "euler"), ("ring", "euler"),
+                                     ("allgather", "hermite")):
+            c = Compute(num_bodies=N_QA, device="cuda", precision="fp64", mesh=mesh,
+                        strategy=strategy, integrator=integrator,
+                        log=lambda s: print(f"[5y QA] {s}"))
+            check(c.system.dtype == torch.float64 and c.system.strategy == strategy,
+                  f"float64 mesh system {c.system.dtype} {c.system.strategy}")
+            check(ran(ck, (f"fp64 {strategy}", integrator), c.compare_results),
+                  f"float64 {strategy} on the mesh failed its QA ({integrator})")
+            per_step(c.system, (f"fp64 {strategy}", integrator))
+        grid = make_mesh_2d(1, 1)
+        check(grid.size == 1 and grid.axis_names == ("rows", "cols"), "the 1x1 grid")
+        for kw, key in (({}, ("2d", "euler")), ({"integrator": "hermite"}, ("2d", "hermite")),
+                        ({"precision": "ds"}, ("2d ds", "euler")),
+                        ({"precision": "ds", "integrator": "hermite"}, ("2d ds", "hermite")),
+                        ({"precision": "fp64"}, ("2d fp64", "euler"))):
+            c = Compute(num_bodies=N_QA, device="cuda", mesh=grid,
+                        log=lambda s: print(f"[5y QA] {s}"), **kw)
+            check(c.system.strategy == "2d", f"grid system runs {c.system.strategy}")
+            check(ran(ck, key, c.compare_results), f"the 1x1 grid failed its QA ({kw})")
+            per_step(c.system, key)
+        c = Compute(num_bodies=N_MAIN, device="cuda", mesh=grid,
+                    log=lambda s: print(f"[5y main] {s}"))
+        res = ran(ck, ("2d", "euler"), lambda: c.run_benchmark(10))
+        out["ms"]["2d"] = res["milliseconds"] / res["iterations"]
+        for name, ms in out["ms"].items():
+            print(f"[5y main] {name} Euler on the one-rank mesh at N={N_MAIN}: {ms:.3f} ms "
+                  f"per step [{smi}]")
+        for key, made in out["per_step"].items():
+            print(f"[5y launches] {'/'.join(key)}: {made} a step")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_sharded_more(torch, smi: str, runs: dict) -> None:
+    """5y, after the path and outside its count: the one-rank sym mesh's
+    force (and accel + jerk) against the single-device each-pair-once
+    composition, bit for bit; emulated_sym (all D ranks' work in one
+    process, summed in the reduce-scatter's order) at D = 2, 3, 4, 8 and
+    N = 16384, 65536, accel + jerk at D = 2, 4 and N = 16384, and the force
+    at D = 4, N = 2^20 (shards of 262144, above both caps: the sub-blocked
+    rectangles), each held to the force gate (max|d| <= 1e-4 max + 1e-4)
+    against the plain force (at 2^20 against the one-sided force kernel)
+    and bit-equal on a repeat; emulated_accel_2d of 2x2 and 2x4 grids at
+    16384 and 65536 against the plain force, and beside them the
+    single-device sym step time."""
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import reference
+    from nbody_tpu_torch.parallel import emulated_accel_2d, emulated_sym
+
+    for n in (N_MAIN, N_BIG, N_DS_AJ_BIG * 2):
+        (pos, vel), soft, fields = runs[("sym", n)]
+        want = (ck.compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft)
+                if len(fields) == 2 else (ck.compute_accel_symmetric_blocked_cuda(pos, soft),))
+        bits = all(torch.equal(a, b) for a, b in zip(fields, want))
+        print(f"[5y bits] sym on the one-rank mesh at N={n}: its "
+              f"{'accel + jerk' if len(fields) == 2 else 'force'} bit-equal to the single-device "
+              f"composition {bits}")
+        check(bits, f"sym at D = 1 departs from the single-device composition at N={n}")
+
+    def gate(got, want, what):
+        err = float((got - want).abs().max())
+        bound = 1e-4 * float(want.abs().max()) + 1e-4
+        print(f"[5y emulated] {what}: max|d| {err:.3e} (bound {bound:.3e})")
+        check(err <= bound, f"{what} departs from its reference")
+        return err
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for n in (N_QA, N_MAIN):
+        pos, vel = shell_state(torch, n, random_w=True)
+        plain = reference.compute_accel(pos, SOFT_RING)
+        for d in (2, 3, 4, 8):
+            if n % d:
+                pos_d = pos[:n - n % d].contiguous()
+                plain_d = reference.compute_accel(pos_d, SOFT_RING)
+            else:
+                pos_d, plain_d = pos, plain
+            (got, ms), (again, _) = (timed_call(lambda: emulated_sym(pos_d, d, SOFT_RING))
+                                     for _ in range(2))
+            gate(got, plain_d, f"emulated_sym D={d} N={pos_d.shape[0]} force, {ms:.3f} ms")
+            check(torch.equal(got, again), f"emulated_sym D={d} N={n} does not repeat")
+        for rows, cols in ((2, 2), (2, 4)):
+            got = emulated_accel_2d(pos, rows, cols, SOFT_RING)
+            gate(got, plain, f"emulated_accel_2d {rows}x{cols} N={n} force")
+            check(torch.equal(got, emulated_accel_2d(pos, rows, cols, SOFT_RING)),
+                  f"emulated_accel_2d {rows}x{cols} does not repeat")
+    pos, vel = shell_state(torch, N_QA, random_w=True)
+    plain = reference.compute_accel_jerk(pos, vel, SOFT_RING)
+    for d in (2, 4):
+        got = emulated_sym(pos, d, SOFT_RING, vel=vel)
+        for g, w, name in zip(got, plain, ("acc", "jerk")):
+            gate(g, w, f"emulated_sym D={d} N={N_QA} {name}")
+        check(all(torch.equal(a, b) for a, b in zip(got, emulated_sym(pos, d, SOFT_RING,
+                                                                       vel=vel))),
+              f"emulated_sym accel + jerk D={d} does not repeat")
+    pos, _ = shell_state(torch, N_SYM_CARDS, random_w=True)
+    before = dict(ck.LAUNCHES)
+    got, ms = timed_call(lambda: emulated_sym(pos, 4, SOFT_RING))
+    made = {k: ck.LAUNCHES[k] - before[k] for k in ("sym", "sym_cross")}
+    again, ms2 = timed_call(lambda: emulated_sym(pos, 4, SOFT_RING))
+    one_sided, ms_one = timed_call(lambda: ck.compute_accel_cuda(pos, pos, SOFT_RING))
+    gate(got, one_sided, f"emulated_sym D=4 N={N_SYM_CARDS} force ({made} launches, "
+         f"{made['sym'] // 4} triangles and {made['sym_cross'] // 4} rectangles a rank), "
+         f"{ms:.1f} / {ms2:.1f} ms against the one-sided force's {ms_one:.1f} ms [{smi}]")
+    check(made["sym_cross"] >= 4 * 5, "the ranks' rectangles were not sub-blocked at 2^20")
+    check(torch.equal(got, again), "emulated_sym at 2^20 does not repeat")
+    c = Compute(num_bodies=N_MAIN, device="cuda", variant="sym", log=lambda s: None)
+    res = c.run_benchmark(10)
+    print(f"[5y single] sym Euler on one device at N={N_MAIN}: "
+          f"{res['milliseconds'] / res['iterations']:.3f} ms per step; on the one-rank mesh "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in runs["ms"].items()) + f" [{smi}]")
+
+
 def auto_capacity(occ: int) -> int:
     """BodySystem's auto-sized cell capacity for a largest massive cell
     occupancy: occ + 50 %, rounded up to a multiple of 8."""
@@ -3612,6 +3825,14 @@ def main() -> int:
     launches["ds_accel"] = sharded_launches["ds_accel"]
     launches["ring_fused"] = sharded_launches["ring_fused"]
     timed("5x single-device comparisons", phase_sharded_single, torch, smi, mesh_runs)
+    # sym, the 2-D grid and float64 on a mesh: each run checked for its own
+    # kernels (MESH_MORE_KERNELS); the emulated meshes after, outside it
+    more_runs = {}
+    timed("5y sym, 2-D and float64 meshes", run_path, ck,
+          sorted({k for ks in MESH_MORE_KERNELS.values() for k in ks}),
+          lambda: more_runs.update(phase_sharded_more_main(torch, smi)))
+    timed("5y emulated meshes and bit ties", phase_sharded_more, torch, smi, more_runs)
+    del more_runs
     exp_launches = timed("5e experiment scripts", run_path, ck, EXPERIMENT_KERNELS,
                          lambda: phase_experiment_main(torch, smi))
     for k in EXPERIMENT_KERNELS:

@@ -11,8 +11,8 @@ The reference's flags (nbody.cpp:275-285): --benchmark, --compare /
 --checkpoint-save / --checkpoint-load, --metrics, --profile, --version) and
 the demo loop's flags (frames, rendering, viewing, --energy, --autosave,
 --selftest). nbody_tpu's other flags (adaptive and block timesteps, the
-XLA / Pallas / PM kernels and their options, --tile-j, --mesh-rows,
---strategy sym) are not accepted until their slice lands (ROADMAP.md).
+XLA / Pallas / PM kernels and their options, --tile-j) are not accepted
+until their slice lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -37,9 +37,9 @@ all-pairs kernels, with Euler, leapfrog or Hermite; its QA holds the
 positions to 5e-4 and the force (with Hermite also the jerk) to the float64
 oracle at 1e-10 of its largest value, and its --drift-check keeps the fp32
 gate. --variant auto, vpu, mxu and mxu_bf16 run the one-sided double kernels
-(nbody_tpu's fp64 XLA path ignores the variant); sym, --kernel p3m and
---devices D > 1 are refused in fp64. --fp64 with --precision ds exits 1, in
-nbody_tpu's words (cli.py:449-453).
+(nbody_tpu's fp64 XLA path ignores the variant); sym and --kernel p3m are
+refused in fp64, and so are --strategy ring_fused and sym on a mesh. --fp64
+with --precision ds exits 1, in nbody_tpu's words (cli.py:449-453).
 
 --precision ds runs the double-single (fp64-grade) kernels, default N 16384
 (BASELINE.json configs[2]), with Euler, leapfrog or Hermite, QA against the
@@ -56,16 +56,20 @@ and its --drift-check is reported, not gated, as in nbody_tpu (its force
 differs from the all-pairs oracle's by the mesh error, by design).
 
 --devices D shards the bodies over D ranks, one a device, with --strategy
-allgather, ring or auto (nbody_tpu's cost model), for fp32 and ds, or
+allgather, ring or auto (nbody_tpu's cost model), for fp32, fp64 and ds,
 ring_fused (fp32 Euler and leapfrog: all D hops of the ring in one launch of
-the fused ring kernel, the ranks on one host; the plain ring with --cpu):
-start it as ``torchrun --nproc_per_node D nbody-torch --devices D ...``
-(NCCL on the cards, gloo with --cpu). --devices 1 builds no mesh, as in
-nbody_tpu. A --devices that differs from the number of ranks exits 2; so do
---strategy ring_fused with --precision ds (nbody_tpu's text), and
---mesh-rows and --strategy sym, which are not ported yet, and the demo
-loop and --selftest on a mesh (ROADMAP.md Queue 1 #13). Only rank 0 prints;
-every rank exits with rank 0's verdict.
+the fused ring kernel, the ranks on one host; the plain ring with --cpu) or
+sym (fp32: each pair once across the mesh; the plain versions with --cpu,
+where nbody_tpu refuses --cpu, its sym being Pallas-only). --mesh-rows R
+makes the mesh a 2-D R x D/R grid (the i-block x j-block decomposition) for
+fp32, fp64 and ds, with nbody_tpu's checks and words (cli.py:268-300,
+600-660), which exit 1. Start it as ``torchrun --nproc_per_node D
+nbody-torch --devices D ...`` (NCCL on the cards, gloo with --cpu).
+--devices 1 builds no mesh, as in nbody_tpu. A --devices that differs from
+the number of ranks exits 2; so do --strategy ring_fused or sym with
+--precision ds (nbody_tpu's text), and the demo loop and --selftest on a
+mesh (ROADMAP.md Queue 1 #13). Only rank 0 prints; every rank exits with
+rank 0's verdict.
 
 Checkpoints are nbody_tpu's npz files, read and written by either package:
 a resume restores the saved parameters and step counter, a ds resume the
@@ -150,11 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "one fused kernel), ring (the j-shard travels the ring, a force "
                         "kernel a hop), ring_fused (fp32 Euler and leapfrog: all hops in "
                         "one kernel launch that carries the j-shards itself, the ranks on "
-                        "one host), auto (nbody_tpu's cost model by shard size, allgather "
-                        "or ring); sym is not ported yet")
+                        "one host), sym (fp32: each pair once across the mesh, the work "
+                        "split by Newton's third law), auto (nbody_tpu's cost model by "
+                        "shard size, allgather or ring)")
     p.add_argument("--mesh-rows", type=int, default=None,
-                   help="with --devices D: the 2-D (rows x D/rows) decomposition "
-                        "(not ported yet)")
+                   help="with --devices D: the 2-D (rows x D/rows) force decomposition, "
+                        "each rank an i-block x j-block")
     p.add_argument("--drift-check", type=int, default=None, metavar="STEPS",
                    help="run STEPS steps on the device and on the CPU oracle "
                         "from the same state and compare their energy drifts; "
@@ -271,29 +276,66 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
+def _mesh_refusal(args) -> Optional[str]:
+    """What nbody_tpu's CLI refuses of the mesh flags, in its words, to be
+    printed with its exit code 1 (cli.py:268-300 for ds, 600-660 for fp32
+    and fp64); None if nothing. Unlike nbody_tpu it runs --strategy sym with
+    --cpu, on the plain versions (ROADMAP.md Queue 3, deviations)."""
+    multi = (args.devices or 0) > 1
+    if args.mesh_rows is not None and args.mesh_rows < 1:
+        return f"--mesh-rows must be at least 1; got {args.mesh_rows}"
+    if args.precision == "ds":
+        if multi and args.mesh_rows is not None:
+            if args.strategy != "auto":
+                return ("the ds 2-D decomposition is its own communication pattern; leave "
+                        "--strategy auto")
+            if args.devices % args.mesh_rows:
+                return f"--mesh-rows {args.mesh_rows} does not divide --devices {args.devices}"
+        return None
+    if args.mesh_rows is not None and not multi:
+        return "--mesh-rows needs --devices > 1"
+    if args.mesh_rows is not None and args.kernel == "p3m":
+        return ("--mesh-rows (2-D decomposition) applies to the exact kernels; the mesh "
+                "solvers shard over a 1-D body mesh — drop --mesh-rows or use --kernel auto "
+                f"(got --kernel {args.kernel})")
+    if args.strategy == "sym" and multi:
+        if args.kernel == "p3m":
+            return ("--strategy sym runs the Newton's-third-law kernels; use --kernel auto "
+                    f"(got --kernel {args.kernel})")
+        if args.mesh_rows is not None:
+            return "--strategy sym uses the 1-D body mesh; drop --mesh-rows"
+        if args.fp64:
+            return "--strategy sym is a float32 path; it does not combine with --fp64"
+    if args.mesh_rows is not None and args.variant not in ("vpu", "auto"):
+        return ("--mesh-rows uses the accel-only kernels (no mxu variants); leave --variant "
+                f"at vpu/auto (got {args.variant})")
+    if multi and args.mesh_rows is not None and args.devices % args.mesh_rows:
+        return f"--mesh-rows {args.mesh_rows} does not divide --devices {args.devices}"
+    return None
+
+
 def _mesh(args):
     """The body mesh of --devices, or None: with D > 1 the ranks' process
-    group is started from torchrun's environment, and D must be its size."""
-    from nbody_tpu_torch.models.body_system import not_ported
-
-    if args.mesh_rows is not None:
-        raise not_ported("--mesh-rows", args.mesh_rows, key="mesh")
-    if args.strategy == "sym":
-        raise not_ported("--strategy", args.strategy)
+    group is started from torchrun's environment, and D must be its size;
+    with --mesh-rows R the mesh is the R x D/R grid."""
     if args.devices is not None and args.devices < 1:
         raise ValueError(f"--devices must be at least 1; got {args.devices}")
     if args.devices is None or args.devices == 1:
         return None
-    if args.precision == "ds" and args.strategy not in ("auto", "allgather", "ring"):
+    if (args.precision == "ds" and args.mesh_rows is None
+            and args.strategy not in ("auto", "allgather", "ring")):
         # nbody_tpu/cli.py:283-288
         raise ValueError("the sharded ds step gathers or ring-rotates the hi/lo planes; use "
                          "--strategy auto/allgather/ring (ring_fused and sym are fp32 mesh "
                          "paths)")
-    from nbody_tpu_torch.parallel import initialize_multihost, make_mesh
+    from nbody_tpu_torch.parallel import initialize_multihost, make_mesh, make_mesh_2d
 
     device = "cpu" if args.cpu else "cuda"
     if "WORLD_SIZE" in os.environ:
         initialize_multihost(device=device)
+    if args.mesh_rows is not None:
+        return make_mesh_2d(args.mesh_rows, args.devices // args.mesh_rows,
+                            device="cpu" if args.cpu else None)
     return make_mesh(args.devices, device="cpu" if args.cpu else None)
 
 
@@ -394,6 +436,7 @@ def _main(argv=None) -> int:
         print("error: --precision ds and --fp64 are exclusive", file=sys.stderr)
         return 1
     refusal = _ds_demo_refusals(args) if ds and (args.selftest or not measuring) else None
+    refusal = refusal or _mesh_refusal(args)
     if refusal:
         print(f"error: {refusal}", file=sys.stderr)
         return 1

@@ -25,7 +25,9 @@ error is reported), its benchmark rate is the pairwise-equivalent one, and
 the CLI reports its drift without gating it.
 
 ``mesh=`` and ``strategy=`` pass through to the system
-(``nbody_tpu/compute.py:162-163,179-180``): every rank of the mesh builds
+(``nbody_tpu/compute.py:162-163,179-180``): a 1-D mesh of
+``parallel.make_mesh`` or a 2-D one of ``make_mesh_2d``, in fp32, fp64 or
+ds. Every rank of the mesh builds
 the same ``Compute`` and makes the same calls. The QA and drift checks step
 the device on every rank, run the oracle on rank 0 alone, and give rank 0's
 verdict to every rank, so that all of them take the same branch.
@@ -52,7 +54,7 @@ from nbody_tpu_torch.params import (
     tuned_scales,
 )
 from nbody_tpu_torch.models import BodySystem, DSBodySystem
-from nbody_tpu_torch.models.body_system import not_ported, resolve_device
+from nbody_tpu_torch.models.body_system import resolve_device
 from nbody_tpu_torch.ops import reference
 from nbody_tpu_torch.ops.cuda_kernel import DEFAULT_BLOCK_SIZE
 from nbody_tpu_torch.ops.ds import ds_to_f64
@@ -220,9 +222,9 @@ class Compute:
             # which is all pairs whatever its backend asked: a p3m request
             # there silently runs the exact force. The port's fp64 is the
             # double all-pairs kernels (or their plain versions with
-            # backend="torch"), and BodySystem refuses kernel="p3m" and a
-            # mesh in float64 (not_ported, ROADMAP.md Queue 1 #16 and #13)
-            # rather than run another algorithm than the one asked for.
+            # backend="torch"), on one device or a mesh, and BodySystem
+            # refuses kernel="p3m" in float64 (not_ported, ROADMAP.md Queue
+            # 1 #16) rather than run another algorithm than the one asked for.
             self.system = BodySystem(
                 num_bodies,
                 self.active_params,

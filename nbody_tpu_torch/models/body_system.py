@@ -38,10 +38,12 @@ are float64, and every integrator runs on the double kernels
 (``csrc/f64_kernels.cu``) with backend "cuda", on the plain versions in
 float64 with "torch": nbody_tpu's fp64 is its XLA path, so ``variant="auto"``
 resolves to "vpu", "sym" (Pallas-only there) raises, and "mxu" / "mxu_bf16"
-run the one-sided kernels, as that path ignores them. ``kernel="p3m"`` and
-``mesh=`` raise: in float64 they are later slices (ROADMAP.md Queue 1 #16,
-#13). ``switch_precision()`` hops between float32 and float64 with the same
-state, as the reference's Enter key does.
+run the one-sided kernels, as that path ignores them. On a mesh float64
+runs allgather, ring, auto and the 2-D step; the ring_fused and sym
+strategies raise (float32 kernels). ``kernel="p3m"`` raises: in float64 it
+is a later slice (ROADMAP.md Queue 1 #16). ``switch_precision()`` hops
+between float32 and float64 with the same state, as the reference's Enter
+key does.
 
 Integrators: "euler" (damped semi-implicit), "leapfrog" (drift-kick-drift
 around one force evaluation of the variant's force) and "hermite" (the
@@ -74,7 +76,11 @@ Meshes (``parallel/``): with ``mesh=make_mesh(D)`` each of the D ranks
 holds N/D bodies (N rounded up to a multiple of D with zero-mass bodies, as
 ``nbody_tpu`` rounds it) and steps them with ``make_sharded_step``, by
 ``strategy`` "allgather", "ring", "ring_fused" (Euler and leapfrog, the
-fused ring kernel) or "auto" (``choose_strategy``). On a mesh
+fused ring kernel), "sym" (each pair once across the mesh) or "auto"
+(``choose_strategy``). With ``mesh=make_mesh_2d(R, C)`` the R·C ranks run
+``make_sharded_step_2d`` (``strategy`` reads "2d"; the mxu variants and
+P3M raise, and so do the strategies "sym", as in ``nbody_tpu``'s CLI, and
+"ring_fused"). On a mesh
 ``variant="auto"`` is "vpu" and the variant reaches only the allgather Euler
 step, as in ``nbody_tpu``. The accessors speak of the whole system on every
 rank: ``state``, ``positions``, ``velocities``, ``accelerations()`` and
@@ -119,10 +125,8 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list; "
-          "P3M in float64)",
-    "mesh": "Queue 1 #13 (the rest of parallel/: 2-D meshes, the sharded PM and P3M steps; "
-            "meshes in float64; the demo loop on a mesh)",
-    "sym": "Queue 1 #13 (the rest of parallel/: strategy='sym', each pair once across the mesh)",
+          "P3M in float64; the sharded PM and P3M steps)",
+    "mesh": "Queue 1 #13 (the rest of parallel/: the demo loop and --selftest on a mesh)",
     "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
 }
 
@@ -203,30 +207,37 @@ def _as_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-# the strategies of an fp32 system on a mesh
-MESH_STRATEGIES = ("auto", "allgather", "ring", "ring_fused")
+# the strategies of an fp32 system on a 1-D mesh; a float64 one takes the
+# first three (ring_fused and sym are float32 kernels)
+MESH_STRATEGIES = ("auto", "allgather", "ring", "ring_fused", "sym")
 
 
 def check_mesh(mesh, device: torch.device, strategy: str, *,
                strategies: tuple = MESH_STRATEGIES, axes_error: str | None = None,
-               strategy_error: str | None = None) -> int:
-    """Validate a body mesh for a system on `device` and its `strategy`, one
-    of `strategies`, by ``nbody_tpu``'s rules; return the mesh size.
-    `axes_error` and `strategy_error` replace the messages for a mesh of
-    other than one or two axes and for a strategy outside `strategies` (the
-    ds system's texts, which refuse ring_fused and sym as fp32 paths)."""
+               strategy_error: str | None = None, strategy_2d_error: str | None = None) -> int:
+    """Validate a body mesh for a system on `device` and its `strategy` by
+    ``nbody_tpu``'s rules; return the mesh size (rows·cols for a 2-D mesh).
+    On a 1-D mesh the strategy is one of `strategies`; a 2-D mesh is its
+    own communication pattern, which ``nbody_tpu``'s fp32 system runs
+    whatever its strategy (the port refuses sym, as that CLI does, and
+    ring_fused, the 1-D ring's kernel) and its ds system only at "auto"
+    (`strategy_2d_error`, raised for any other). `axes_error`
+    and `strategy_error` replace the messages for a mesh of other than one
+    or two axes and for a strategy outside `strategies` (the ds system's
+    texts, which refuse ring_fused and sym as fp32 paths)."""
     names = tuple(getattr(mesh, "axis_names", ()))
     if len(names) not in (1, 2):
         raise ValueError(axes_error or f"a system shards over a 1-D body mesh "
                          f"(parallel.make_mesh); got axes {names}")
-    if len(names) == 2:
-        raise not_ported("mesh", "2-D")
+    if len(names) == 2 and strategy_2d_error and strategy != "auto":
+        raise ValueError(strategy_2d_error)
     if strategy not in strategies:
-        if strategy_error:
-            raise ValueError(strategy_error)
-        if strategy == "sym":
-            raise not_ported("strategy", strategy)
-        raise ValueError(f"unknown strategy {strategy!r}")
+        raise ValueError(strategy_error or f"unknown strategy {strategy!r}")
+    if len(names) == 2 and strategy in ("ring_fused", "sym"):
+        # nbody_tpu/cli.py:615-618 for sym; ring_fused is the 1-D ring's
+        # kernel likewise, which a grid cannot run
+        raise ValueError(f"strategy={strategy!r} uses the 1-D body mesh; a 2-D mesh is its "
+                         "own decomposition (leave strategy at 'auto')")
     if mesh.device != device:
         raise ValueError(f"the mesh's shards live on {mesh.device}, the system on {device}")
     return int(mesh.size)
@@ -273,12 +284,17 @@ class BodySystem:
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"unsupported dtype {dtype}")
         fp64 = dtype == torch.float64
-        if fp64 and mesh is not None:
-            raise not_ported("mesh with dtype", "float64", key="mesh")
         ndev = 1 if mesh is None else check_mesh(mesh, self.device, strategy)
-        requested_backend = backend
-        # the request before resolution, which switch_precision carries
+        two_d = mesh is not None and len(mesh.axis_names) == 2
+        if fp64 and mesh is not None and strategy in ("ring_fused", "sym"):
+            # nbody_tpu/cli.py:626-631: float32 kernel paths there too
+            raise ValueError(
+                f"strategy={strategy!r} is a float32 kernel path; it does not combine with "
+                "dtype float64 (allgather, ring and auto run the double kernels)")
+        # the requests before resolution, which switch_precision carries
+        self._requested_backend = backend
         self._requested_variant = variant
+        self._requested_strategy = strategy
         if backend == "pm":
             raise not_ported("backend", backend)
         if backend == "p3m":
@@ -313,14 +329,20 @@ class BodySystem:
                 "force, which the mesh solvers do not provide; use euler "
                 "or leapfrog with kernel='p3m'")
         if mesh is not None:
-            # nbody_tpu/models/body_system.py:184-189, 229-236
+            # nbody_tpu/models/body_system.py:184-189, 229-236, 244-264
+            if kernel == "p3m" and two_d:
+                raise ValueError("the mesh solvers shard over a 1-D body mesh; use a 1-D "
+                                 "mesh with kernel='p3m'")
             if kernel == "p3m":
-                raise not_ported("mesh with kernel", "p3m", key="mesh")
+                raise not_ported("mesh with kernel", "p3m", key="pm")
             if variant == "sym":
                 raise ValueError(
                     "variant='sym' is single-device (the reaction "
                     "accumulator is chip-local); for the each-pair-once "
                     "saving on a mesh use strategy='sym' instead")
+            if two_d and variant not in ("vpu", "auto"):
+                raise ValueError("the 2-D decomposition uses the accel-only kernels (no mxu "
+                                 "variants); leave variant at 'vpu'/'auto'")
             if placement == "host":
                 raise ValueError("placement='host' is a single-device placement; a mesh keeps "
                                  "each shard in its device's memory")
@@ -354,15 +376,23 @@ class BodySystem:
         self.mesh = mesh
         self.strategy = strategy
         self._sharded = None
-        if mesh is not None:
+        if two_d:
+            from nbody_tpu_torch.parallel import make_sharded_step_2d
+
+            self.strategy = "2d"
+            self._sharded = make_sharded_step_2d(
+                mesh, axes=mesh.axis_names, backend=backend, block_size=self.block_size,
+                integrator=integrator)
+        elif mesh is not None:
             from nbody_tpu_torch.parallel import choose_strategy, make_sharded_step
 
             if strategy == "auto":
                 self.strategy = choose_strategy(self.num_bodies, ndev)
-            # ring_fused takes "auto" to its kernel's wrapper, which on a CPU
-            # mesh runs the plain ring; "torch" it refuses
+            # ring_fused and sym take "auto" to their kernels' wrappers, which
+            # on a CPU mesh run the plain versions; "torch" they refuse
             self._sharded = make_sharded_step(
-                mesh, backend=requested_backend if self.strategy == "ring_fused" else backend,
+                mesh, backend=(self._requested_backend if self.strategy in ("ring_fused", "sym")
+                               else backend),
                 strategy=self.strategy, block_size=self.block_size,
                 variant=variant, integrator=integrator)
 
@@ -676,21 +706,25 @@ class BodySystem:
         """A new BodySystem in the other precision (float32 <-> float64) with
         the same state, cast on the host, as ``nbody_tpu``'s
         ``switch_precision`` (``body_system.py:1368-1417``). The requested
-        variant is carried across the hop: a sym request runs "auto" in
-        float64 (sym is float32 only) and sym again on the way back, so
-        fp32 -> fp64 -> fp32 restores it."""
+        variant and mesh strategy are carried across the hop: a sym variant,
+        or a ring_fused or sym strategy, runs "auto" in float64 (they are
+        float32 kernels) and again on the way back, so fp32 -> fp64 -> fp32
+        restores them."""
         to64 = self.dtype == torch.float32
         self.synchronize()
         requested = self._requested_variant
+        strategy = self._requested_strategy
         other = BodySystem(
-            self.num_bodies, self.params, device=self.device, backend=self.backend,
+            self.num_bodies, self.params, device=self.device, backend=self._requested_backend,
             block_size=self.block_size, placement=self.placement,
             variant="auto" if to64 and requested == "sym" else requested,
             integrator=self.integrator, kernel=self.kernel, pm_grid=self.pm_grid,
             p3m_capacity=self.p3m_capacity, dtype=torch.float64 if to64 else torch.float32,
-            mesh=self.mesh, strategy=self.strategy, config=self.config, seed=self.seed,
-            state=(self.positions, self.velocities))
+            mesh=self.mesh,
+            strategy="auto" if to64 and strategy in ("ring_fused", "sym") else strategy,
+            config=self.config, seed=self.seed, state=(self.positions, self.velocities))
         other._requested_variant = requested
+        other._requested_strategy = strategy
         return other
 
     # ---- diagnostics ----

@@ -33,7 +33,9 @@ Meshes: with ``mesh=make_mesh(D)`` (a 1-D body mesh of ``parallel/``) each
 rank holds N/D bodies, N rounded up to a multiple of D, and steps them with
 ``make_sharded_ds_step`` by ``strategy`` "allgather" (the planes gather,
 one fused one-sided kernel), "ring" (the ds accel-only kernel a hop) or
-"auto" (``choose_strategy``); the sharded step is one-sided, so
+"auto" (``choose_strategy``); with ``mesh=make_mesh_2d(R, C)`` the R·C ranks
+run ``make_sharded_ds_step_2d`` (``strategy`` must be "auto" and reads
+"2d", as in ``nbody_tpu``); the sharded steps are one-sided, so
 ``variant="auto"`` is "one_sided" there and "sym" raises, as in
 ``nbody_tpu``. ``positions``, ``velocities``, ``state``, ``get_ds_state()``
 and the force accessors give the whole system on every rank;
@@ -106,7 +108,10 @@ class DSBodySystem:
                 f"a 2-D rows×cols mesh (make_sharded_ds_step_2d); got "
                 f"{tuple(getattr(mesh, 'axis_names', ()))}",
                 strategy_error="DSBodySystem strategy must be 'auto', 'allgather', or "
-                f"'ring' (got {strategy!r}); ring_fused/sym are fp32 mesh paths")
+                f"'ring' (got {strategy!r}); ring_fused/sym are fp32 mesh paths",
+                strategy_2d_error="the ds 2-D decomposition is its own communication pattern "
+                "(two-axis gathers + a ds reduce-scatter over cols); leave strategy at 'auto' "
+                "— allgather/ring are 1-D body-mesh strategies")
         if backend not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
@@ -140,7 +145,16 @@ class DSBodySystem:
         self.mesh = mesh
         self.strategy = "allgather"
         self._sharded = None
-        if mesh is not None:
+        if mesh is not None and len(mesh.axis_names) == 2:
+            from nbody_tpu_torch.parallel import make_sharded_ds_step_2d
+
+            self.strategy = "2d"
+            # one-sided kernels on the row block: its block size is the row
+            # block's
+            self._sharded = make_sharded_ds_step_2d(
+                mesh, axes=mesh.axis_names, backend=backend, integrator=integrator,
+                block_size=block_size)
+        elif mesh is not None:
             from nbody_tpu_torch.parallel import choose_strategy, make_sharded_ds_step
 
             self.strategy = (choose_strategy(self.num_bodies, ndev) if strategy == "auto"

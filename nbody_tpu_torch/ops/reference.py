@@ -573,12 +573,13 @@ def sym_blocking(n: int, tile_j: int, block_cap: int) -> tuple[int, int]:
     return k, -(-per // tile_j) * tile_j
 
 
-def _add_fields(x, y):
+def add_fields(x, y):
+    """Two tuples of fields added field by field (``torch.add``)."""
     return tuple(map(operator.add, x, y))
 
 
 def compose_symmetric_blocked(states, softening, *, block_cap: int, tile_j: int,
-                              triangle, cross, add=_add_fields):
+                              triangle, cross, add=add_fields):
     """Each pair once at any N: the triangle of N bodies as k superblock
     triangles plus k(k-1)/2 mask-free cross rectangles,
 

@@ -5,6 +5,9 @@ devices that one program addresses; here a mesh is the default process
 group, one process (rank) per device, and each rank holds its own shard of
 the bodies. ``Mesh`` records what a sharded step needs: the axis name, the
 number of ranks, this rank, the group and the device its shard lives on.
+``Mesh2D`` is the rows x cols grid of the 2-D decomposition: rank r·C + c
+holds body chunk r·C + c, and a 1-D ``Mesh`` along each axis (this rank's
+row, this rank's column) runs that axis's collectives.
 
 A CUDA mesh runs on NCCL, a CPU mesh on gloo; neither falls back to the
 other.
@@ -35,6 +38,9 @@ JUDGE_TIMEOUT = datetime.timedelta(hours=24)
 # there, and that can abort the process ("terminate called without an
 # active exception"; ROADMAP.md, Queue 3)
 _JUDGE_GROUP: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# the line groups of each (rows, cols) grid, made once a default process
+# group for the same reason
+_LINE_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +57,9 @@ class Mesh:
     group: object
     device: torch.device
     judge_group: object = None
+    # the global ranks of the axis's positions, when they are not 0..size-1
+    # (a line of a 2-D mesh); `rank` is this process's position
+    ranks: tuple = ()
 
     @property
     def axis_names(self) -> tuple:
@@ -59,6 +68,45 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return {self.axis: self.size}
+
+    def peer(self, index: int) -> int:
+        """The global rank at position `index` (mod size) of the axis: the
+        address of a point-to-point message."""
+        index %= self.size
+        return self.ranks[index] if self.ranks else index
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A (rows x cols) body mesh of ``size`` = rows·cols ranks: rank r·C + c
+    is (r, c) and holds body chunk r·C + c, as ``P(("rows", "cols"), None)``
+    lays the bodies out. ``along_cols`` is the 1-D mesh of this rank's row
+    (its C ranks, in c order: the row block's chunks, contiguous) and
+    ``along_rows`` that of its column (its R ranks, in r order: the column
+    block's strided chunks). `group` and `judge_group` span every rank, as a
+    1-D mesh's do."""
+
+    axes: tuple
+    rows: int
+    cols: int
+    rank: int
+    group: object
+    device: torch.device
+    along_rows: Mesh
+    along_cols: Mesh
+    judge_group: object = None
+
+    @property
+    def size(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.axes)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axes[0]: self.rows, self.axes[1]: self.cols}
 
 
 def _backend_for(device: torch.device) -> str:
@@ -148,12 +196,44 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def make_mesh_2d(rows: int, cols: int, *, axes=("rows", "cols")):
-    """The 2-D (rows x cols) mesh of the i-block x j-block decomposition is
-    not ported yet."""
-    from nbody_tpu_torch.models.body_system import not_ported
+def make_mesh_2d(rows: int, cols: int, *, axes=("rows", "cols"), device=None) -> Mesh2D:
+    """The 2-D (rows x cols) mesh of the i-block x j-block decomposition
+    (``make_sharded_step_2d``) over the ranks of the default process group,
+    which must number rows·cols (a one-rank group is started as
+    ``make_mesh`` starts it for 1x1). Every rank makes the groups of every
+    row and every column, in the same order (``new_group`` is a collective
+    of every rank), once a default group and grid."""
+    rows, cols = int(rows), int(cols)
+    if rows < 1 or cols < 1:
+        raise ValueError(f"a mesh needs rows, cols >= 1; got {rows}x{cols}")
+    if len(axes) != 2:
+        raise ValueError(f"need a (rows, cols) axis pair, got {axes!r}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if rows * cols > world:
+        raise ValueError(f"requested {rows}x{cols} devices but only {world} available")
+    base = make_mesh(rows * cols, device=device)
+    row_lines, col_lines = _line_groups(rows, cols)
+    r, c = divmod(base.rank, cols)
+    along_cols = Mesh(axis=axes[1], size=cols, rank=c, group=col_lines[r], device=base.device,
+                      ranks=tuple(r * cols + k for k in range(cols)))
+    along_rows = Mesh(axis=axes[0], size=rows, rank=r, group=row_lines[c], device=base.device,
+                      ranks=tuple(k * cols + c for k in range(rows)))
+    return Mesh2D(axes=tuple(axes), rows=rows, cols=cols, rank=base.rank, group=base.group,
+                  device=base.device, along_rows=along_rows, along_cols=along_cols,
+                  judge_group=base.judge_group)
 
-    raise not_ported("mesh", f"{rows}x{cols}")
+
+def _line_groups(rows: int, cols: int) -> tuple:
+    """(row_lines, col_lines): for each column c the group of its R ranks
+    (the "rows" axis), for each row r the group of its C ranks (the "cols"
+    axis); made by every rank, columns first, then rows."""
+    default = dist.group.WORLD
+    grids = _LINE_GROUPS.setdefault(default, {})
+    if (rows, cols) not in grids:
+        row_lines = [dist.new_group([k * cols + c for k in range(rows)]) for c in range(cols)]
+        col_lines = [dist.new_group([r * cols + k for k in range(cols)]) for r in range(rows)]
+        grids[(rows, cols)] = (row_lines, col_lines)
+    return grids[(rows, cols)]
 
 
 def pad_to_multiple(pos, vel, multiple: int):

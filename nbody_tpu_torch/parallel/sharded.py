@@ -1,8 +1,9 @@
 """Body-sharded N-body steps over a torch.distributed mesh.
 
-Counterpart of the 1-D part of ``nbody_tpu/parallel/sharded.py``: each rank
-holds N/D bodies (its i-shard) and computes their forces from every body.
-Three strategies move the j-bodies:
+Counterpart of ``nbody_tpu/parallel/sharded.py`` but for its adaptive
+rollouts (ROADMAP.md Queue 1 #7) and its sharded PM and P3M steps (#16).
+On a 1-D mesh each rank holds N/D bodies (its i-shard) and computes their
+forces from every body. Four strategies move the j-bodies:
 
 * ``allgather``: one all-gather of the shards' planes, then one kernel
   launch of the local i-shard against the whole j-set (for Euler the fused
@@ -19,7 +20,6 @@ Three strategies move the j-bodies:
   ring hop is the ds accel-only kernel (``compute_accel_ds_cuda_vs``), or
   for Hermite the ds accel + jerk kernel, and the integration runs once
   after the last hop.
-
 * ``ring_fused`` (fp32 Euler and leapfrog): the same ring, all D hops in
   one launch of the fused ring kernel (``csrc/ring_kernels.cu``), which
   carries the j-shards between the ranks' buffers itself: each rank's two
@@ -31,23 +31,43 @@ Three strategies move the j-bodies:
   ring, the exchanges of ``ring`` with the plain force. Hermite and
   ``backend="torch"`` are refused with ``nbody_tpu``'s words; ``close()``
   frees the buffers.
+* ``sym`` (fp32 Euler, leapfrog and Hermite): each pair once across the
+  mesh (``parallel/sym.py``). The padded shards are all-gathered once (with
+  the velocities for Hermite), each rank runs its triangle, its offset
+  rectangles and its antipodal quarters on the each-pair-once kernels, and
+  one ``ring_reduce_scatter`` sums the (D, B, 3) contributions (6 planes
+  for Hermite) onto their owners. ``backend="torch"`` is refused, as
+  ``nbody_tpu`` refuses its XLA kernel; on a CPU mesh the kernels'
+  wrappers take their plain versions.
 
 ``make_sharded_step`` also takes ``auto``, one of allgather and ring by
 ``choose_strategy``, as ``nbody_tpu``'s does (it never picks
-``ring_fused``); the systems resolve ``auto`` themselves for both
-precisions. The collectives are
-torch.distributed's synchronous ones (on the card NCCL makes the current
-stream wait for them) and every rank runs the same ones in the same order.
-A step is a function of this rank's shard:
-``step(pos, vel, dt, softening, damping) -> (pos, vel)`` in fp32,
-``step(pos_hi, pos_lo, vel_hi, vel_lo, scal) -> four planes`` in ds, new
-tensors each time. ``backend`` is "cuda" (the hand-written kernels; on a
-CPU tensor their wrappers take the plain versions) or "torch" (the plain
-versions, on any device).
+``ring_fused`` or ``sym``); the systems resolve ``auto`` themselves for
+both precisions.
 
-Not ported yet, each naming its ROADMAP.md item: ``strategy="sym"`` (each
-pair once across the mesh), the 2-D decompositions and the sharded
-adaptive rollouts.
+On a 2-D mesh (``make_mesh_2d``) ``make_sharded_step_2d`` (fp32 or float64)
+and ``make_sharded_ds_step_2d`` gather rank (r, c)'s i-set over its row
+(the contiguous row block) and its j-set over its column (the strided
+column block), run the one-sided force or accel + jerk kernel on the
+block, and ``ring_reduce_scatter`` over the row sums the C column partials
+onto each chunk's owner: ``torch.add`` in fp32 and float64, the anchored
+``ds_add`` in ds.
+
+``ring_reduce_scatter`` is the one reduce-scatter of the package: D−1
+point-to-point hops on the ring of any 1-D mesh, chunk c summed in the
+fixed order P_{c+1} + ... + P_{c}, so its bits depend on D alone, not on
+the collective library's algorithm, and it runs on gloo as on NCCL.
+
+The collectives are torch.distributed's synchronous ones (on the card NCCL
+makes the current stream wait for them) and every rank runs the same ones
+in the same order. A step is a function of this rank's shard:
+``step(pos, vel, dt, softening, damping) -> (pos, vel)`` in fp32 and
+float64, ``step(pos_hi, pos_lo, vel_hi, vel_lo, scal) -> four planes`` in
+ds, new tensors each time. ``backend`` is "cuda" (the hand-written kernels;
+on a CPU tensor their wrappers take the plain versions) or "torch" (the
+plain versions, on any device). A float64 state runs the double kernels
+(``csrc/f64_kernels.cu``) with allgather, ring and auto and on a 2-D mesh;
+``ring_fused`` and ``sym`` are float32 kernel paths and refuse it.
 """
 
 from __future__ import annotations
@@ -59,7 +79,8 @@ import torch.distributed as dist
 
 from nbody_tpu_torch.ops import cuda_kernel as ck
 from nbody_tpu_torch.ops import ds, reference
-from nbody_tpu_torch.parallel.mesh import Mesh, all_gather_rows
+from nbody_tpu_torch.parallel import sym
+from nbody_tpu_torch.parallel.mesh import Mesh, Mesh2D, all_gather_rows
 
 BODY_AXIS = "bodies"
 
@@ -74,16 +95,10 @@ RING_AUTO_MIN_SHARD = 16384
 
 def choose_strategy(num_bodies: int, ndev: int) -> str:
     """'ring' or 'allgather' for a global body count on an ndev ring (the
-    cost model above); ring_fused is never picked."""
+    cost model above); ring_fused and sym are never picked."""
     if ndev <= 1:
         return "allgather"
     return "ring" if num_bodies // ndev >= RING_AUTO_MIN_SHARD else "allgather"
-
-
-def _not_ported(option: str, value) -> ValueError:
-    from nbody_tpu_torch.models.body_system import not_ported
-
-    return not_ported(option, value)
 
 
 def _check_backend(backend: str, mesh: Mesh) -> str:
@@ -101,7 +116,7 @@ def _ring(mesh: Mesh, shard: torch.Tensor):
     the caller is done with it; the received shards alternate between two
     buffers, so a buffer is never written while it is read."""
     d = mesh.size
-    send_to, recv_from = (mesh.rank + 1) % d, (mesh.rank - 1) % d
+    send_to, recv_from = mesh.peer(mesh.rank + 1), mesh.peer(mesh.rank - 1)
     cur, bufs = shard, []
     for k in range(d):
         reqs = []
@@ -120,6 +135,42 @@ def _ring(mesh: Mesh, shard: torch.Tensor):
             cur = nxt
 
 
+def ring_reduce_scatter(mesh: Mesh, fields, add) -> tuple:
+    """The fixed-order reduce-scatter on the ring of a 1-D mesh (the whole
+    1-D mesh, or one line of a 2-D one): `fields` is this rank's tuple of
+    (D·m, k) partials, and this returns its (m, k) chunk of their sum over
+    the D ranks, a tuple of the same fields. The counterpart of
+    ``_make_ds_col_reduce_scatter`` (nbody_tpu/parallel/sharded.py:
+    1239-1279): rank c seeds chunk c−1 with its own partial; at hop s it
+    receives its left neighbour's running sum and adds its own partial of
+    chunk c−s−1, ``add(received, own)``, and sends the sum on. After D−1
+    hops it holds chunk c, summed as P_{c+1} + P_{c+2} + ... + P_{c}
+    (indices mod D), whatever the library's collective algorithms, on gloo
+    as on NCCL. ``add`` adds two tuples of fields: ``reference.add_fields``
+    (``torch.add``) in fp32 and float64, ``ds.ds_add`` / ``ds.ds_add_aj`` in
+    ds. One rank returns the fields as they are."""
+    d = mesh.size
+    if d == 1:
+        return tuple(fields)
+    m = fields[0].shape[0] // d
+    c = mesh.rank
+    send_to, recv_from = mesh.peer(c + 1), mesh.peer(c - 1)
+
+    def chunk(k):
+        k %= d
+        return tuple(f[k * m:(k + 1) * m] for f in fields)
+
+    acc = tuple(t.contiguous() for t in chunk(c - 1))
+    for s in range(1, d):
+        got = tuple(torch.empty_like(t) for t in acc)
+        ops = ([dist.P2POp(dist.isend, t, send_to, mesh.group) for t in acc]
+               + [dist.P2POp(dist.irecv, t, recv_from, mesh.group) for t in got])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        acc = tuple(t.contiguous() for t in add(got, chunk(c - s - 1)))
+    return acc
+
+
 def _gather_planes(mesh: Mesh, *planes) -> torch.Tensor:
     """The (nloc,4) planes of every rank, gathered in one collective: a
     (k, N, 4) tensor of the k planes."""
@@ -134,6 +185,12 @@ def _ring_sum(mesh: Mesh, shard: torch.Tensor, partial, add):
         part = partial(j)
         total = part if total is None else add(total, part)
     return total
+
+
+def _check_1d(mesh, builder_2d: str) -> None:
+    if isinstance(mesh, Mesh2D):
+        raise ValueError(f"a {mesh.rows}x{mesh.cols} mesh is a 2-D decomposition: use "
+                         f"{builder_2d}")
 
 
 def _resolve(strategy: str, mesh: Mesh, nloc: int) -> str:
@@ -191,7 +248,7 @@ class ShardedStep:
 
     def _ring_on(self, pos) -> bool:
         """Whether the j-shards travel the ring (ring, ring_fused) rather
-        than gather."""
+        than gather (allgather, and auto below the cost model's shard)."""
         return _resolve(self.strategy, self.mesh, pos.shape[0]) in ("ring", "ring_fused")
 
     def _fused_ring(self, m: int) -> ck.FusedRing:
@@ -233,8 +290,24 @@ class ShardedStep:
                                          block_size=self.block_size)
         return reference.nbody_step_vs(pos, vel, pos_j, dt, soft, damp)
 
+    def _sym(self, sets, softening) -> torch.Tensor:
+        """Each pair once across the mesh (``parallel/sym.py``): `sets` is
+        this rank's (pos,) or (pos, vel); returns its rows of the summed
+        contributions, (nloc, 3) or (nloc, 6) acc | jerk."""
+        if sets[0].dtype != torch.float32:
+            raise ValueError("strategy='sym' runs the float32 each-pair-once kernels; a "
+                             f"{sets[0].dtype} state takes allgather, ring or auto")
+        mesh, nloc = self.mesh, sets[0].shape[0]
+        b = sym.padded_rows(nloc, mesh.size)
+        gathered = _gather_planes(mesh, *(sym.pad_rows(x, b) for x in sets))
+        contrib = sym.rank_contributions(tuple(gathered), mesh.rank, mesh.size, softening)
+        (total,) = ring_reduce_scatter(mesh, (contrib,), reference.add_fields)
+        return total[:nloc]
+
     def accel(self, pos, softening):
         """(nloc,3) acceleration of the shard `pos` from every body."""
+        if self.strategy == "sym":
+            return self._sym((pos,), softening)
         if self.strategy == "ring_fused":
             return ck.ring_accel_fused_cuda(pos, softening, self._fused_ring(pos.shape[0]))
         if self._ring_on(pos):
@@ -246,6 +319,9 @@ class ShardedStep:
         """(acc, jerk), each (nloc,3), of the shard from every body: the
         positions and velocities travel together (also for ring_fused, whose
         kernel computes the force only)."""
+        if self.strategy == "sym":
+            total = self._sym((pos, vel), softening)
+            return total[:, :3], total[:, 3:]
         if self._ring_on(pos):
             return _ring_sum(self.mesh, torch.stack((pos, vel)),
                              lambda j: self._aj_vs(pos, vel, j[0], j[1], softening),
@@ -261,7 +337,7 @@ class ShardedStep:
         if self.integrator == "leapfrog":
             return reference.nbody_step_leapfrog(pos, vel, dt, softening, damping,
                                                  accel_fn=lambda p: self.accel(p, softening))
-        if self._ring_on(pos):
+        if self.strategy == "sym" or self._ring_on(pos):
             return reference.integrate(pos, vel, self.accel(pos, softening), dt, damping)
         return self._step_vs(pos, vel, all_gather_rows(self.mesh, pos), dt, softening, damping)
 
@@ -269,27 +345,36 @@ class ShardedStep:
 def make_sharded_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto",
                       strategy: str = "allgather", block_size: int | None = None,
                       variant: str = "vpu", integrator: str = "euler") -> ShardedStep:
-    """The fp32 body-sharded step: (pos, vel, dt, softening, damping) ->
-    (pos, vel), each this rank's (N/D, 4) shard.
+    """The fp32 (or float64) body-sharded step: (pos, vel, dt, softening,
+    damping) -> (pos, vel), each this rank's (N/D, 4) shard.
 
     backend: "cuda", "torch" or "auto" (the mesh device's). strategy:
     "allgather", "ring", "ring_fused" (the fused ring kernel; Euler and
     leapfrog, backend "cuda" or "auto", which on a CPU mesh is its plain
-    ring) or "auto" (``choose_strategy`` by shard size).
+    ring), "sym" (each pair once across the mesh, every integrator; backend
+    "cuda" or "auto", the plain versions on a CPU mesh) or "auto"
+    (``choose_strategy`` by shard size).
     variant: the kernel of the allgather Euler step, "vpu", "mxu" or
     "mxu_bf16"; the ring, leapfrog and Hermite run the one-sided force
-    kernels, as in ``nbody_tpu``. integrator: "euler", "leapfrog" (the shard
-    drifts dt/2 first and the half-step positions are the j-side) or
-    "hermite" (two accel + jerk evaluations a step, positions and
-    velocities travelling together)."""
+    kernels and sym its own, as in ``nbody_tpu``. integrator: "euler",
+    "leapfrog" (the shard drifts dt/2 first and the half-step positions are
+    the j-side) or "hermite" (two accel + jerk evaluations a step, positions
+    and velocities travelling together). A float64 state runs the double
+    kernels, but for ring_fused and sym, which are float32 kernels."""
+    _check_1d(mesh, "make_sharded_step_2d")
     if axis != mesh.axis:
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
     if integrator not in ("euler", "leapfrog", "hermite"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    if strategy == "sym":
-        raise _not_ported("strategy", strategy)
-    if strategy not in ("allgather", "ring", "ring_fused", "auto"):
+    if strategy not in ("allgather", "ring", "ring_fused", "auto", "sym"):
         raise ValueError(f"unknown strategy {strategy!r}")
+    if strategy == "sym":
+        # nbody_tpu/parallel/sharded.py:444-447, backend for kernel
+        if backend == "torch":
+            raise ValueError("strategy='sym' runs the Newton's-third-law CUDA kernels; "
+                             "use backend='cuda'")
+        # the kernels' wrappers take their plain versions on a CPU mesh
+        backend = "cuda"
     if strategy == "ring_fused":
         # nbody_tpu/parallel/sharded.py:437-443, backend for kernel
         if backend == "torch":
@@ -415,6 +500,7 @@ def make_sharded_ds_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "a
     rounds a step, each gathering or ring-rotating the four planes with ds
     (acc, jerk) partials, around the ds predictor and corrector. block_size
     defaults to ``ds_default_block_size`` of the shard."""
+    _check_1d(mesh, "make_sharded_ds_step_2d")
     if axis != mesh.axis:
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
     if integrator not in ("euler", "leapfrog", "hermite"):
@@ -431,20 +517,170 @@ def make_sharded_ds_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "a
                          integrator=integrator)
 
 
-def make_sharded_step_2d(*args, **kwargs):
-    """The 2-D (rows x cols) force decomposition: not ported yet."""
-    raise _not_ported("mesh", "2-D")
+class Sharded2DStep(ShardedStep):
+    """The 2-D step of ``make_sharded_step_2d``; also gives the force
+    (``accel``) and the Hermite evaluation (``accel_jerk``) of this rank's
+    chunk under the whole body set."""
+
+    def __init__(self, mesh: Mesh2D, *, backend: str, block_size: int, integrator: str):
+        super().__init__(mesh, backend=backend, strategy="2d", block_size=block_size,
+                         variant="vpu", integrator=integrator)
+
+    def accel(self, pos, softening):
+        """(nloc,3): the row block's force under the column block, summed
+        over the row's C ranks onto their chunks."""
+        i = all_gather_rows(self.mesh.along_cols, pos)
+        j = all_gather_rows(self.mesh.along_rows, pos)
+        (acc,) = ring_reduce_scatter(self.mesh.along_cols, (self._accel_vs(i, j, softening),),
+                                     reference.add_fields)
+        return acc
+
+    def accel_jerk(self, pos, vel, softening):
+        i = _gather_planes(self.mesh.along_cols, pos, vel)
+        j = _gather_planes(self.mesh.along_rows, pos, vel)
+        return ring_reduce_scatter(self.mesh.along_cols,
+                                   self._aj_vs(i[0], i[1], j[0], j[1], softening),
+                                   reference.add_fields)
+
+    def __call__(self, pos, vel, dt, softening, damping):
+        if self.integrator == "euler":
+            return reference.integrate(pos, vel, self.accel(pos, softening), dt, damping)
+        return super().__call__(pos, vel, dt, softening, damping)
 
 
-def make_sharded_ds_step_2d(*args, **kwargs):
-    """The ds 2-D (rows x cols) decomposition: not ported yet."""
-    raise _not_ported("mesh", "2-D")
+def emulated_accel_2d(pos, rows: int, cols: int, softening, *,
+                      block_size: int = ck.DEFAULT_BLOCK_SIZE) -> torch.Tensor:
+    """The force of ``make_sharded_step_2d``'s R x C grid in one process:
+    every rank's block on the one-sided force kernel (its plain version on
+    the CPU) and each row's C partials summed as ``ring_reduce_scatter``
+    sums them. (N,4) -> (N,3); a rank of a real grid gets its chunk's rows
+    of it bit for bit."""
+    n = pos.shape[0]
+    if n % (rows * cols):
+        raise ValueError(f"N={n} not divisible by {rows}x{cols} ranks; pad first")
+    m = n // (rows * cols)
+    out = []
+    for r in range(rows):
+        i_set = pos[r * cols * m:(r + 1) * cols * m]
+        partials = []
+        for c in range(cols):
+            j_set = torch.cat([pos[(k * cols + c) * m:(k * cols + c + 1) * m]
+                               for k in range(rows)])
+            partials.append((ck.compute_accel_cuda(i_set, j_set, softening,
+                                                   block_size=block_size),))
+        out += [chunk[0] for chunk in sym.emulated_reduce_scatter(partials,
+                                                                   reference.add_fields)]
+    return torch.cat(out)
+
+
+def _check_2d(mesh, axes, integrator: str, builder_1d: str) -> None:
+    if not isinstance(mesh, Mesh2D):
+        raise ValueError(f"the 2-D decomposition needs a (rows, cols) mesh "
+                         f"(parallel.make_mesh_2d); got axes "
+                         f"{tuple(getattr(mesh, 'axis_names', ()))}: use {builder_1d}")
+    if tuple(axes) != mesh.axis_names:
+        raise ValueError(f"the mesh's axes are {mesh.axis_names!r}, not {tuple(axes)!r}")
+    if integrator not in ("euler", "leapfrog", "hermite"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+
+
+def make_sharded_step_2d(mesh: Mesh2D, *, axes: tuple = ("rows", "cols"), backend: str = "auto",
+                         block_size: int | None = None,
+                         integrator: str = "euler") -> Sharded2DStep:
+    """The 2-D (rows x cols) force decomposition, the counterpart of
+    ``nbody_tpu/parallel/sharded.py:624-750``: (pos, vel, dt, softening,
+    damping) -> (pos, vel), each this rank's (N/(R·C), 4) chunk, fp32 or
+    float64. Rank (r, c) gathers its i-set (the N/R bodies of row block r)
+    over its row and its j-set (the N/C bodies of column block c) over its
+    column, runs the one-sided force (accel + jerk for Hermite, the
+    velocities gathered beside) on the (N/R x N/C) block, and
+    ``ring_reduce_scatter`` over the row sums the C partials onto each
+    chunk, where ``nbody_tpu`` runs a psum and keeps its chunk's slice: the
+    same sum with half the bytes. Euler integrates the chunk; leapfrog
+    half-drifts it first; Hermite makes two evaluations a step."""
+    _check_2d(mesh, axes, integrator, "make_sharded_step")
+    return Sharded2DStep(mesh, backend=_check_backend(backend, mesh),
+                         block_size=ck.DEFAULT_BLOCK_SIZE if block_size is None
+                         else ck.check_block_size(block_size),
+                         integrator=integrator)
+
+
+class ShardedDS2DStep(ShardedDSStep):
+    """The ds 2-D step of ``make_sharded_ds_step_2d``, with the force and
+    the Hermite evaluation of this rank's chunk as ``ShardedDSStep`` gives
+    them."""
+
+    def __init__(self, mesh: Mesh2D, *, backend: str, block_size: int | None, integrator: str):
+        super().__init__(mesh, backend=backend, strategy="2d", block_size=block_size,
+                         integrator=integrator)
+
+    def accel(self, ph, plo, scal):
+        i = _gather_planes(self.mesh.along_cols, ph, plo)
+        j = _gather_planes(self.mesh.along_rows, ph, plo)
+        return ring_reduce_scatter(self.mesh.along_cols,
+                                   self._accel_vs(i[0], i[1], j[0], j[1], scal), ds.ds_add)
+
+    def accel_jerk(self, ph, plo, vh, vlo, scal):
+        i = _gather_planes(self.mesh.along_cols, ph, plo, vh, vlo)
+        j = _gather_planes(self.mesh.along_rows, ph, plo, vh, vlo)
+        return ring_reduce_scatter(self.mesh.along_cols, self._aj_vs(tuple(i), tuple(j), scal),
+                                   ds.ds_add_aj)
+
+    def __call__(self, ph, plo, vh, vlo, scal):
+        planes = (ph, plo, vh, vlo)
+        if self.integrator == "hermite":
+            return self._hermite(planes, scal)
+        if self.integrator == "leapfrog":
+            # each chunk half-drifts once and the drifted planes gather
+            hh, hl = ds.ds_half_drift(*planes, scal)
+            return ds.ds_leapfrog_finish(hh, hl, vh, vlo, self.accel(hh, hl, scal), scal)
+        return self._integrate(planes, self.accel(ph, plo, scal), scal)
+
+
+def make_sharded_ds_step_2d(mesh: Mesh2D, *, axes: tuple = ("rows", "cols"),
+                            backend: str = "auto", block_size: int | None = None,
+                            integrator: str = "euler") -> ShardedDS2DStep:
+    """The 2-D (rows x cols) decomposition in double-single, the
+    counterpart of ``nbody_tpu/parallel/sharded.py:1282-1414``: (pos_hi,
+    pos_lo, vel_hi, vel_lo, scal) -> the four new planes of this rank's
+    chunk. The planes gather as in ``make_sharded_step_2d`` (hi and lo
+    positions, also the velocities for Hermite) and the one-sided ds force
+    or accel + jerk kernel runs on the block; the C column partials are
+    summed by ``ring_reduce_scatter`` with the anchored ``ds_add``, where a
+    float32 psum would lose the low words. Euler: the ds update once;
+    leapfrog: each chunk half-drifts once and the drifted planes gather;
+    Hermite: two rounds around the ds predictor and corrector. block_size
+    defaults to ``ds_default_block_size`` of the row block."""
+    _check_2d(mesh, axes, integrator, "make_sharded_ds_step")
+    return ShardedDS2DStep(mesh, backend=_check_backend(backend, mesh),
+                           block_size=None if block_size is None
+                           else ck.check_block_size(block_size),
+                           integrator=integrator)
+
+
+def make_sharded_rollout(step_fn, steps: int):
+    """`steps` sharded steps in a row, the counterpart of
+    ``nbody_tpu/parallel/sharded.py:753-765``: rollout(pos, vel, dt,
+    softening, damping) -> (pos, vel) of this rank's shard, each step's
+    launches queued with no host synchronisation in between."""
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0; got {steps}")
+
+    def rollout(pos, vel, dt, softening, damping):
+        for _ in range(steps):
+            pos, vel = step_fn(pos, vel, dt, softening, damping)
+        return pos, vel
+
+    return rollout
 
 
 def make_sharded_ds_adaptive_rollout(*args, **kwargs):
     """The sharded ds adaptive rollout: not ported yet (it needs the
     adaptive steps)."""
-    raise _not_ported("adaptive", True)
+    from nbody_tpu_torch.models.body_system import not_ported
+
+    raise not_ported("adaptive", True)
 
 
 make_sharded_ds_adaptive_rollout_2d = make_sharded_ds_adaptive_rollout

@@ -186,14 +186,20 @@ def test_cpu_backend_launches_no_kernel(params, state):
 
 
 @pytest.mark.parametrize("kw, item", [
-    # a mesh is ported (tests/test_torch_sharded.py); its 2-D form is not
-    ({"mesh": types.SimpleNamespace(axis_names=("rows", "cols"))}, "#13"),
+    # a mesh is ported (tests/test_torch_sharded*.py), its 2-D form and
+    # float64 too (#13); the sharded P3M step is not (#16). The ids of the
+    # cases that named #13 keep it
+    pytest.param({"mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
+                                                device=torch.device("cpu")),
+                  "kernel": "p3m"}, "#16", id="kw0-#13"),
     ({"backend": "pm"}, "#10"),
     ({"kernel": "pm"}, "#10"),
-    # float64 is ported (tests/test_torch_fp64.py); P3M and a mesh in
-    # float64 are not
+    # float64 is ported (tests/test_torch_fp64.py); P3M in float64 is not
     ({"integrator": "hermite", "dtype": torch.float64, "kernel": "p3m"}, "#16"),
-    ({"dtype": torch.float64, "mesh": types.SimpleNamespace(axis_names=("bodies",))}, "#13"),
+    pytest.param({"dtype": torch.float64, "kernel": "p3m",
+                  "mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
+                                                device=torch.device("cpu"))},
+                 "#16", id="kw4-#13"),
 ])
 def test_later_slices_raise_naming_roadmap_item(params, kw, item):
     with pytest.raises(ValueError, match="ROADMAP.md") as e:

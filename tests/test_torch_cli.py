@@ -81,13 +81,17 @@ def test_unported_flags_are_rejected(flag):
     (["--devices", "2"], "requested 2 devices but only 1 available"),
     (["--devices", "2", "--precision", "ds"], "requested 2 devices but only 1 available"),
     (["--devices", "0"], "--devices must be at least 1"),
-    (["--strategy", "sym"], "ROADMAP.md Queue 1 #13"),
+    # --strategy sym and --mesh-rows were refused, naming #13, until that
+    # item brought them; their ids keep it, and they now meet the world
+    pytest.param(["--strategy", "sym", "--devices", "2"],
+                 "requested 2 devices but only 1 available", id="args3-ROADMAP.md Queue 1 #13"),
     # ring_fused with --precision ds, refused in nbody_tpu's words; the id
     # names the ROADMAP item that brought ring_fused
     pytest.param(["--strategy", "ring_fused", "--devices", "2", "--precision", "ds"],
                  "(ring_fused and sym are fp32 mesh paths)",
                  id="args4-ROADMAP.md Queue 2 #20"),
-    (["--mesh-rows", "2", "--devices", "4"], "ROADMAP.md Queue 1 #13"),
+    pytest.param(["--mesh-rows", "2", "--devices", "4"],
+                 "requested 2x2 devices but only 1 available", id="args5-ROADMAP.md Queue 1 #13"),
 ])
 def test_mesh_flags_outside_a_matching_world_exit_2(args, message, capsys):
     # one process, no torchrun: the world is this process alone

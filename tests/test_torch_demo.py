@@ -8,6 +8,7 @@ import io
 import json
 import re
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -28,6 +29,17 @@ def _one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_x64():
+    """nbody_tpu's CLI turns JAX's x64 on for --fp64 and leaves it on, as a
+    process of its own may; after each test it is set back, so that the
+    JAX code of the test files that follow in this worker (the ring
+    kernel's int32 indices) runs as it would alone."""
+    x64 = jax.config.jax_enable_x64
+    yield
+    jax.config.update("jax_enable_x64", x64)
 
 
 # ---- run setup against nbody_tpu's CLI ----

@@ -454,10 +454,12 @@ def test_variant_resolution_and_refusals():
     assert DSBodySystem(64, params, device="cpu", integrator="hermite").variant == "sym"
     with pytest.raises(ValueError, match="integrator"):
         DSBodySystem(64, params, device="cpu", integrator="rk4")
-    # a mesh is ported (tests/test_torch_sharded.py); its 2-D form is not
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #13"):
-        DSBodySystem(64, params, device="cpu",
-                     mesh=types.SimpleNamespace(axis_names=("rows", "cols")))
+    # a mesh is ported (tests/test_torch_sharded*.py), its 2-D form too,
+    # which takes strategy "auto" only, as nbody_tpu's does
+    with pytest.raises(ValueError, match="leave strategy at 'auto'"):
+        DSBodySystem(64, params, device="cpu", strategy="ring",
+                     mesh=types.SimpleNamespace(axis_names=("rows", "cols"), size=4,
+                                                device=torch.device("cpu")))
     with pytest.raises(ValueError):
         DSBodySystem(64, params, device="cpu", variant="vpu")
     with pytest.raises(ValueError, match="CUDA"):

@@ -202,9 +202,10 @@ def test_mxu_variants_run_the_one_sided_force_in_float64(x64, variant):
 
 
 def test_refusals_in_float64(x64):
-    """sym raises in both packages (Pallas-only there, float32-only here);
-    a mesh and kernel="p3m" in float64 are later slices, each naming its
-    ROADMAP.md item."""
+    """sym raises in both packages (Pallas-only there, float32-only here),
+    and so do the ring_fused and sym strategies on a mesh (a float64 mesh
+    runs allgather, ring, auto and the 2-D step, tests/test_torch_sharded_2d.py);
+    kernel="p3m" in float64 is a later slice, naming its ROADMAP.md item."""
     import jax.numpy as jnp
 
     params = _params(256)
@@ -214,8 +215,10 @@ def test_refusals_in_float64(x64):
         JaxBodySystem(256, _jax_params(params), dtype=jnp.float64, backend="xla",
                       variant="sym")
     mesh = types.SimpleNamespace(axis_names=("bodies",), size=1, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #13"):
-        BodySystem(256, params, device="cpu", dtype=torch.float64, mesh=mesh)
+    for strategy in ("ring_fused", "sym"):
+        with pytest.raises(ValueError, match=f"strategy='{strategy}' is a float32 kernel path"):
+            BodySystem(256, params, device="cpu", dtype=torch.float64, mesh=mesh,
+                       strategy=strategy)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
         BodySystem(256, params, device="cpu", dtype=torch.float64, kernel="p3m")
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):

@@ -374,11 +374,24 @@ def test_auto_strategy_resolves_as_choose_strategy(n, d):
         assert s.num_bodies % d == 0
 
 
+def _fake_grid():
+    """A 2-D mesh record with no process groups: enough for the checks a
+    system makes before its first collective."""
+    return types.SimpleNamespace(axis_names=("rows", "cols"), size=4, device=torch.device("cpu"))
+
+
+# The cases whose ids name #13 refused what that item has since brought
+# (2-D meshes, strategy="sym", meshes in float64); they now hold those
+# paths to the refusals that remain on them, in nbody_tpu's words, and keep
+# their ids, as the ring_fused cases keep theirs (Queue 2 #20). The paths
+# themselves run in tests/test_torch_sharded_sym.py and _2d.py.
 @pytest.mark.parametrize("build, match", [
-    (lambda: BodySystem(64, _params(64), device="cpu",
-                        mesh=types.SimpleNamespace(axis_names=("rows", "cols"))), "#13"),
-    (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), strategy="sym"),
-     "#13"),
+    pytest.param(lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_grid(),
+                                    variant="mxu_bf16"),
+                 "the 2-D decomposition uses the accel-only kernels", id="<lambda>-#13_0"),
+    pytest.param(lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
+                                    strategy="sym", dtype=torch.float64),
+                 "strategy='sym' is a float32 kernel path", id="<lambda>-#13_1"),
     # the ring_fused refusals, Hermite and backend="torch"; their ids name the
     # ROADMAP item that brought ring_fused (Queue 2 #20)
     pytest.param(lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
@@ -386,12 +399,14 @@ def test_auto_strategy_resolves_as_choose_strategy(n, d):
                  "ring_fused fuses the Euler update", id="<lambda>-Queue 2 #20_0"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), variant="sym"),
      "single-device"),
-    (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), kernel="p3m"),
-     "#13"),
+    # the sharded P3M step waits on #16
+    pytest.param(lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
+                                    kernel="p3m"), "ROADMAP.md Queue 1 #16", id="<lambda>-#13_2"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), placement="host"),
      "single-device"),
-    (lambda: DSBodySystem(64, _params(64), device="cpu",
-                          mesh=types.SimpleNamespace(axis_names=("rows", "cols"))), "#13"),
+    pytest.param(lambda: DSBodySystem(64, _params(64), device="cpu", mesh=_fake_grid(),
+                                      strategy="allgather"),
+                 "leave strategy at 'auto'", id="<lambda>-#13_3"),
     (lambda: DSBodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
                           strategy="ring_fused"), "ring_fused/sym are fp32"),
     (lambda: DSBodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), variant="sym"),
@@ -400,11 +415,15 @@ def test_auto_strategy_resolves_as_choose_strategy(n, d):
                                            backend="torch"),
                  "strategy='ring_fused' is a CUDA kernel; use backend='cuda'",
                  id="<lambda>-Queue 2 #20_1"),
-    (lambda: make_sharded_step(_fake_mesh(), strategy="sym"), "#13"),
+    pytest.param(lambda: make_sharded_step(_fake_mesh(), strategy="sym", backend="torch"),
+                 "strategy='sym' runs the Newton's-third-law CUDA kernels",
+                 id="<lambda>-#13_4"),
     (lambda: make_sharded_step(_fake_mesh(), integrator="rk4"), "integrator"),
     (lambda: make_sharded_ds_step(_fake_mesh(), strategy="ring_fused"), "'allgather' or"),
-    (lambda: make_mesh_2d(2, 2), "#13"),
-    (lambda: make_sharded_step_2d(), "#13"),
+    pytest.param(lambda: make_mesh_2d(2, 2), "requested 2x2 devices but only 1 available",
+                 id="<lambda>-#13_5"),
+    pytest.param(lambda: make_sharded_step_2d(_fake_mesh()), "parallel.make_mesh_2d",
+                 id="<lambda>-#13_6"),
     (lambda: make_sharded_ds_adaptive_rollout(), "#7"),
 ])
 def test_refusals_name_the_reference_error_or_roadmap_item(build, match):

@@ -1,6 +1,6 @@
-"""D gloo ranks for tests/test_torch_sharded.py: a pool of processes, one a
-rank of a torch.distributed process group on the CPU, that run the port's
-sharded code on request.
+"""D gloo ranks for tests/test_torch_sharded.py, _sharded_sym.py and
+_sharded_2d.py: a pool of processes, one a rank of a torch.distributed
+process group on the CPU, that run the port's sharded code on request.
 
 It holds no tests itself: the ranks import this module, which imports
 torch and nbody_tpu_torch only (no JAX, whose import would cost each rank
@@ -93,10 +93,34 @@ class RankPool:
 # ---- tasks: each runs on every rank; arrays in and out are numpy ----
 
 
-def _mesh():
-    from nbody_tpu_torch.parallel import make_mesh
+def _mesh(rows=None):
+    """The 1-D mesh of every rank, or with `rows` the rows x world/rows grid."""
+    from nbody_tpu_torch.parallel import make_mesh, make_mesh_2d
 
+    if rows is not None:
+        return make_mesh_2d(rows, dist.get_world_size() // rows, device="cpu")
     return make_mesh(dist.get_world_size(), device="cpu")
+
+
+class _caps:
+    """The each-pair-once dispatch constants of ops/cuda_kernel.py set to
+    `caps` (a dict of name -> value, or None) for a block, then restored."""
+
+    def __init__(self, caps):
+        self.caps = caps or {}
+
+    def __enter__(self):
+        from nbody_tpu_torch.ops import cuda_kernel as ck
+
+        self.saved = {k: getattr(ck, k) for k in self.caps}
+        for k, v in self.caps.items():
+            setattr(ck, k, v)
+
+    def __exit__(self, *exc):
+        from nbody_tpu_torch.ops import cuda_kernel as ck
+
+        for k, v in self.saved.items():
+            setattr(ck, k, v)
 
 
 def _shard(mesh, a):
@@ -164,16 +188,17 @@ def ring_order(n_local):
     return [int(j[0, 0]) for j in _ring(mesh, shard)]
 
 
-def system(kind, num_bodies, params, kw, state, steps, ds_planes=None):
-    """A DSBodySystem ("ds") or BodySystem ("fp32") on the mesh from `state`
-    (or the raw `ds_planes`), `steps` steps: (positions, velocities,
-    accelerations, strategy, variant, ds planes or None), all of the whole
-    system."""
+def system(kind, num_bodies, params, kw, state, steps, ds_planes=None, mesh_rows=None):
+    """A DSBodySystem ("ds") or BodySystem ("fp32", or float64 with
+    kw dtype) on the mesh (the grid of `mesh_rows` rows if given) from
+    `state` (or the raw `ds_planes`), `steps` steps: (positions,
+    velocities, accelerations, strategy, variant, ds planes or None), all of
+    the whole system."""
     from nbody_tpu_torch.models import BodySystem, DSBodySystem
     from nbody_tpu_torch.ops import ds
 
     cls = DSBodySystem if kind == "ds" else BodySystem
-    s = cls(num_bodies, params, device="cpu", mesh=_mesh(), state=state, **kw)
+    s = cls(num_bodies, params, device="cpu", mesh=_mesh(mesh_rows), state=state, **kw)
     if ds_planes is not None:
         s.set_ds_state(*ds_planes)
     s.update_many(steps)
@@ -186,12 +211,13 @@ def system(kind, num_bodies, params, kw, state, steps, ds_planes=None):
     return s.positions, s.velocities, acc, s.strategy, s.variant, planes
 
 
-def compute_checks(num_bodies, kw, drift_steps):
-    """Compute on the mesh: the QA verdict and the drift check's result,
-    each as every rank sees it."""
+def compute_checks(num_bodies, kw, drift_steps, mesh_rows=None):
+    """Compute on the mesh (the grid of `mesh_rows` rows if given): the QA
+    verdict and the drift check's result, each as every rank sees it."""
     from nbody_tpu_torch.compute import Compute
 
-    c = Compute(num_bodies=num_bodies, device="cpu", mesh=_mesh(), log=lambda s: None, **kw)
+    c = Compute(num_bodies=num_bodies, device="cpu", mesh=_mesh(mesh_rows), log=lambda s: None,
+                **kw)
     return c.compare_results(), c.drift_check(drift_steps), c.system.positions
 
 
@@ -237,3 +263,141 @@ def multihost_view():
     from nbody_tpu_torch.parallel import initialize_multihost, is_multihost
 
     return initialize_multihost(device="cpu"), is_multihost()
+
+
+def sym_step(integrator, pos, vel, dt, soft, damp, steps=1, caps=None):
+    """strategy="sym": `steps` steps of the whole (pos, vel) and this
+    rank's force fields (acc, or acc and jerk for Hermite) of the initial
+    state; whether those fields and a second run of the steps repeat bit
+    for bit, and whether the fields equal emulated_sym's rows of this rank
+    bit for bit."""
+    from nbody_tpu_torch.parallel import emulated_sym, make_sharded_step, shard_rows
+
+    mesh = _mesh()
+    rows = shard_rows(mesh, pos.shape[0])
+    with _caps(caps):
+        step = make_sharded_step(mesh, strategy="sym", integrator=integrator)
+        p, v = _shard(mesh, pos), _shard(mesh, vel)
+        if integrator == "hermite":
+            fields = step.accel_jerk(p, v, soft)
+            whole = emulated_sym(torch.from_numpy(pos), mesh.size, soft,
+                                 vel=torch.from_numpy(vel))
+            emulated = tuple(f[rows] for f in whole)
+            again = step.accel_jerk(p, v, soft)
+        else:
+            fields = (step.accel(p, soft),)
+            emulated = (emulated_sym(torch.from_numpy(pos), mesh.size, soft)[rows],)
+            again = (step.accel(p, soft),)
+        runs = []
+        for _ in range(2):
+            q, w = p, v
+            for _ in range(steps):
+                q, w = step(q, w, dt, soft, damp)
+            runs.append((q, w))
+    return (runs[0][0].numpy(), runs[0][1].numpy(), tuple(f.numpy() for f in fields),
+            all(torch.equal(a, b) for a, b in zip(fields, emulated)),
+            all(torch.equal(a, b) for a, b in zip(fields, again))
+            and all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])))
+
+
+def rollout(strategy, integrator, pos, vel, dt, soft, damp, steps, mesh_rows=None):
+    """make_sharded_rollout(step, steps) of the whole (pos, vel) and, from
+    the same state, `steps` calls of the step: this rank's shards of both."""
+    from nbody_tpu_torch.parallel import (
+        make_sharded_rollout,
+        make_sharded_step,
+        make_sharded_step_2d,
+    )
+
+    mesh = _mesh(mesh_rows)
+    if mesh_rows is None:
+        step = make_sharded_step(mesh, strategy=strategy, integrator=integrator,
+                                 backend="auto")
+    else:
+        step = make_sharded_step_2d(mesh, integrator=integrator)
+    p, v = _shard(mesh, pos), _shard(mesh, vel)
+    rolled = make_sharded_rollout(step, steps)(p, v, dt, soft, damp)
+    for _ in range(steps):
+        p, v = step(p, v, dt, soft, damp)
+    return tuple(t.numpy() for t in rolled), (p.numpy(), v.numpy())
+
+
+def step_2d(rows, integrator, pos, vel, dt, soft, damp, steps=1):
+    """make_sharded_step_2d on the rows x world/rows grid: `steps` steps of
+    the whole (pos, vel), fp32 or float64 as given; this rank's chunks out,
+    with whether its force equals emulated_accel_2d's rows bit for bit."""
+    from nbody_tpu_torch.parallel import emulated_accel_2d, make_sharded_step_2d, shard_rows
+
+    mesh = _mesh(rows)
+    step = make_sharded_step_2d(mesh, integrator=integrator)
+    p, v = _shard(mesh, pos), _shard(mesh, vel)
+    acc = step.accel(p, soft)
+    bits = torch.equal(acc, emulated_accel_2d(torch.from_numpy(pos), mesh.rows, mesh.cols,
+                                              soft)[shard_rows(mesh, pos.shape[0])])
+    for _ in range(steps):
+        p, v = step(p, v, dt, soft, damp)
+    return p.numpy(), v.numpy(), bits
+
+
+def ds_step_2d(rows, integrator, planes, scal, steps=1):
+    """make_sharded_ds_step_2d on the rows x world/rows grid: `steps` steps
+    of the whole planes; this rank's chunks out."""
+    from nbody_tpu_torch.parallel import make_sharded_ds_step_2d
+
+    mesh = _mesh(rows)
+    step = make_sharded_ds_step_2d(mesh, backend="torch", integrator=integrator)
+    shards = tuple(_shard(mesh, a) for a in planes)
+    for _ in range(steps):
+        shards = step(*shards, torch.from_numpy(scal))
+    return tuple(t.numpy() for t in shards)
+
+
+def reduce_scatter_bits(m, k, seed, rows=None):
+    """ring_reduce_scatter of random partials (each rank's from its own
+    seed, magnitudes spread so that the sum order shows in the bits) against
+    emulated_reduce_scatter of every rank's partials, with torch.add and
+    with ds_add; on a grid along its rows and along its cols. Whether each
+    equals bit for bit."""
+    from nbody_tpu_torch.ops import ds, reference
+    from nbody_tpu_torch.parallel import ring_reduce_scatter
+    from nbody_tpu_torch.parallel.sym import emulated_reduce_scatter
+
+    mesh = _mesh(rows)
+    lines = [mesh] if rows is None else [mesh.along_rows, mesh.along_cols]
+
+    def partial(rank, d):
+        g = torch.Generator().manual_seed(seed + rank)
+        scale = torch.exp(8 * torch.randn(d * m, k, generator=g))
+        hi = (torch.randn(d * m, k, generator=g) * scale).float()
+        return hi, (hi * 2.0 ** -30 * torch.rand(d * m, k, generator=g)).float()
+
+    out = []
+    for line in lines:
+        d = line.size
+        mine = partial(line.peer(line.rank), d)
+        every = [partial(line.peer(r), d) for r in range(d)]
+        for fields, add, cut in (((mine[0],), reference.add_fields, 1), (mine, ds.ds_add, 2)):
+            got = ring_reduce_scatter(line, fields, add)
+            want = emulated_reduce_scatter([e[:cut] for e in every], add)[line.rank]
+            out.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+    return out
+
+
+def mesh_2d_view(rows):
+    """(size, rank, the grid's shape, along_rows' global ranks, along_cols'
+    global ranks) of the rows x world/rows grid, as this rank sees it."""
+    mesh = _mesh(rows)
+    return (mesh.size, mesh.rank, mesh.shape, [mesh.along_rows.peer(i) for i in
+                                               range(mesh.rows)],
+            [mesh.along_cols.peer(i) for i in range(mesh.cols)])
+
+
+def switch_strategy(num_bodies, strategy):
+    """The strategy of a mesh BodySystem, of its float64 switch and of the
+    float32 switch back."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.models import BodySystem
+
+    s = BodySystem(num_bodies, DEMO_PARAMS[0], device="cpu", mesh=_mesh(), strategy=strategy)
+    s64 = s.switch_precision()
+    return s.strategy, s64.strategy, s64.switch_precision().strategy
