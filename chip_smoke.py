@@ -140,6 +140,28 @@ its result:
      evaluation of the contract-keeping run split by CUDA events into its
      stages (sort and tables, deposit, FFT solve, gather, pair kernel,
      update), with the kernel's work, pruning and bound;
+  3q. the pair kernel over a rank's range of its work (the sharded P3M
+     step's launch): on the contract-keeping shell states at N=65536 and
+     2^20, G=64, cut into D = 2, 4 and 8 ranges (p3m.item_range), every
+     range's rows bit-equal to the whole launch's and zero elsewhere, each
+     range's time beside the whole launch's / D; at 65536 the two ranges of
+     D = 2 against their plain version at rtol 1e-4 / atol 2e-4 and the
+     one-range launch of a one-rank mesh timed beside its plain version;
+  5q. the mesh solvers: plain PM (CIC, TSC) and TSC P3M at N=65536 and
+     2^20, G=64, on the card against their plain versions on the CPU (PM
+     and P3M's long range whole at 1e-4 * max|a|, P3M's short range on 256
+     rows at rtol 1e-4 / atol 2e-4) and within nbody_tpu's envelopes
+     against the all-pairs force on 512 rows (PM median < 0.06, P3M median
+     < 0.008 and 90th percentile < 0.02); QA at 16384 of PM (CIC, TSC) and
+     TSC P3M (Euler, leapfrog); run_benchmark(3) at 2^20 of PM and TSC P3M
+     with the auto-refresh; README's demo-0 P3M run at 2^20 with
+     --p3m-auto-refresh, which must give no warning and end within its
+     capacity, its rewinds printed; on a one-rank NCCL mesh the sharded PM
+     and P3M steps (replicated and slab, CIC and TSC, Euler and leapfrog),
+     3 steps at 65536 bit-equal to the single card's, each P3M run
+     launching the ranged pair kernel; the demo loop on that mesh under
+     ring_fused and sym with --render, 5 frames from the first, the last
+     frame equal to rendering the gathered state;
   3da. the ds accel-only kernel of the sharded ring step, the fused ds
      step and the ds leapfrog step, split alike (ds_splits), against their
      plain versions at (M, N) in {(4099, 4099), (4099, 16384), (4099,
@@ -230,7 +252,9 @@ its result:
      frame's parts: a sym step, the frame, the HUD and the PNG write.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
-tensor-core path's, 5r the rollout's, 5p the P3M path's, 5x the
+tensor-core path's, 5r the rollout's, 5p the P3M path's, 5q the mesh
+solvers' and the demo on a mesh (the ranged pair kernel, the fused ring
+and the sym triangle must launch there), 5x the
 sharded path's, 5y the sym, grid and float64 mesh paths', 5e the
 experiment scripts' and 8 the demo loop's (the sym
 kernel must launch there): the kernels' launch counters are
@@ -327,6 +351,7 @@ SOURCES = {"step": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "ds_aj_sym": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "ds_aj_sym_cross": "nbody_tpu_torch/csrc/ds_symmetric_aj_kernels.cu",
            "p3m_sr": "nbody_tpu_torch/csrc/p3m_kernels.cu",
+           "p3m_sr_range": "nbody_tpu_torch/csrc/p3m_kernels.cu",
            "ring_fused": "nbody_tpu_torch/csrc/ring_kernels.cu",
            "step_dual": "nbody_tpu_torch/csrc/nbody_kernels.cu",
            "step_packed": "nbody_tpu_torch/csrc/nbody_kernels.cu",
@@ -353,6 +378,8 @@ REPLACES = {"step": "nbody_tpu/ops/pallas_kernel.py:90",
             "ds_aj_sym": "nbody_tpu/ops/ds_kernel.py:1585",
             "ds_aj_sym_cross": "nbody_tpu/ops/ds_kernel.py:1839",
             "p3m_sr": "nbody_tpu/ops/p3m_kernel.py:250",
+            # the same pallas_call over one device's chunk range of the worklist
+            "p3m_sr_range": "nbody_tpu/ops/p3m_kernel.py:352 (chunk range :313-317, 384-386)",
             "ring_fused": "nbody_tpu/ops/ring_kernel.py:219",
             "step_dual": "scripts/tpu_r3_dualbank.py:36",
             "step_packed": "scripts/tpu_r3_packed.py:33",
@@ -377,6 +404,7 @@ NAMES = {"step": "nbody_step_f32, nbody_step_split_f32 (+ step_finish_kernel)",
          "ds_accel_jerk": "nbody_ds_accel_jerk, nbody_ds_accel_jerk_split",
          "ds_aj_sym": "nbody_ds_aj_sym",
          "ds_aj_sym_cross": "nbody_ds_aj_cross", "p3m_sr": "nbody_p3m_sr_f32",
+         "p3m_sr_range": "nbody_p3m_sr_range_f32",
          "ring_fused": "nbody_ring_accel_f32 (+ ring_finish_kernel)",
          "step_dual": "nbody_step_dual_f32, nbody_step_dual_split_f32 (+ step_finish_kernel)",
          "step_packed": "nbody_step_packed_f32, nbody_step_packed_split_f32 "
@@ -2644,6 +2672,7 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
         rho = pm._deposit(idx, w, mass, P3M_GRID)
         ev[2].record()
         grids = pm._solve_force_grids(rho, h, P3M_GRID, p3m.SIGMA_CELLS * h,
+                                      deconvolve="optimal", window_exp=2,
                                       sigma_cells=p3m.SIGMA_CELLS)
         ev[3].record()
         acc_lr = pm._gather(grids, idx, w)
@@ -2668,6 +2697,301 @@ def phase_p3m_big(torch, systems: dict, smi: str) -> float:
     print(f"[5p split] pair kernel at N={N_P3M_BIG}: "
           f"{p3m_work_line(work, N_P3M_BIG, times['pair kernel'])} [{smi}]")
     return err
+
+
+P3M_RANGE_SPLITS = (2, 4, 8)  # the ranges a state's pair work is cut into (3q)
+# nbody_tpu's accuracy envelopes against the all-pairs force: plain PM's
+# median relative error at G=64 (tests/test_pm.py:36), P3M's median and 90th
+# percentile (tests/test_p3m.py:36-37)
+PM_MEDIAN_BOUND = 0.06
+P3M_MEDIAN_BOUND, P3M_P90_BOUND = 0.008, 0.02
+N_DEMO_MESH_FRAMES = 5  # frames of each demo on the one-rank mesh (5q)
+
+
+def range_rows_equal(torch, ck, tables, d: int) -> tuple:
+    """The pair kernel over the d ranges of the tables' work
+    (p3m.item_range): (every range's rows bit-equal to the whole launch's
+    and zero elsewhere, the ranges' times in ms by CUDA events, the whole
+    launch's time)."""
+    from nbody_tpu_torch.ops import p3m
+
+    whole = ck.p3m_sr_launch(tables)
+    rows = torch.arange(whole.shape[0], device=whole.device) // p3m.CLUSTER
+    ok = True
+    times = []
+    for r in range(d):
+        rng = p3m.item_range(tables, r, d)
+        ck.p3m_sr_launch(tables, rng=rng)  # warm
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = ck.p3m_sr_launch(tables, rng=rng)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+        c0, c1 = rng[2:].tolist()
+        mine = ((rows >= c0) & (rows < c1))[:, None]
+        ok &= torch.equal(torch.where(mine, whole, 0.0), got) and bool(
+            (got[~mine.expand_as(got)] == 0).all())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ck.p3m_sr_launch(tables)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ok, times, ev[0].elapsed_time(ev[1])
+
+
+def phase_p3m_ranges(torch) -> dict:
+    """3q. The pair kernel over a rank's range of its work (the sharded P3M
+    step's launch, nbody_p3m_sr_range_f32): on the contract-keeping shell
+    states at N=65536 and 2^20, G=64, the work cut into D = 2, 4, 8 ranges
+    (p3m.item_range), each range's rows bit-equal to the whole launch's and
+    zero elsewhere; each range's time against the whole launch's / D; at
+    65536 the D = 2 ranges through the wrapper (p3m.short_range_part) against
+    their plain version (the plain short range of the range's rows) at rtol
+    1e-4 / atol 2e-4, and the one-range launch of a one-rank mesh timed
+    beside its plain version."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m
+    from nbody_tpu_torch.utils.timing import elapsed_ms
+
+    soft = DEMO_PARAMS[0].softening
+    err, result = 0.0, {}
+    for n in (N_MAIN, N_P3M_BIG):
+        pos, _ = shell_state(torch, n)
+        cap = p3m_capacity(pos)
+        tables = p3m.pair_tables(pos, soft, grid=P3M_GRID, capacity=cap,
+                                 blk=p3m.p3m_kernel_blk(cap))
+        check(int(tables.overflow) == 0, f"the shell state at N={n} breaks its contract")
+        for d in P3M_RANGE_SPLITS:
+            ok, times, whole = range_rows_equal(torch, ck, tables, d)
+            print(f"[3q p3m ranges] N={n}, G={P3M_GRID}, capacity {cap}, D={d}: the ranges' "
+                  f"rows bit-equal to the whole launch's: {ok}; range times "
+                  + ", ".join(f"{t:.3f}" for t in times)
+                  + f" ms, largest {max(times):.3f} ms against the whole launch's / D "
+                  f"{whole / d:.3f} ms ({whole:.3f} ms)")
+            check(ok, f"the pair kernel's {d} ranges differ from the whole launch (N={n})")
+        if n != N_MAIN:
+            continue
+        for r in range(2):
+            got, ovf = p3m.short_range_part(pos, soft, grid=P3M_GRID, capacity=cap, rank=r,
+                                            ndev=2, tables=tables)
+            plain, _ = p3m.short_range_part(pos, soft, grid=P3M_GRID, capacity=cap, rank=r,
+                                            ndev=2, backend="torch", tables=tables)
+            err = max(err, p3m_check(torch, got, plain, f"range {r} of 2, N={n}"))
+            check(int(ovf) == 0, "overflow on a contract-keeping state")
+        reps = 10
+        one = p3m.item_range(tables, 0, 1)
+
+        def kernel():
+            for _ in range(reps):
+                ck.p3m_sr_range_cuda(tables, one)
+
+        def plain():
+            p3m.short_range_part(pos, soft, grid=P3M_GRID, capacity=cap, rank=0, ndev=1,
+                                 backend="torch", tables=tables)
+
+        kernel()
+        t_k = elapsed_ms(kernel, pos.device) / reps
+        t_p = elapsed_ms(plain, pos.device)
+        work = p3m.pair_work(tables)
+        result = {"err": {"p3m_sr_range": err}, "times": {"p3m_sr_range": (t_k, t_p)},
+                  "bounds": {"p3m_sr_range": p3m_bound_ms(work, n)}}
+        print(f"[3q p3m ranges] the one-range launch of a one-rank mesh at N={n}: "
+              f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {result['bounds']['p3m_sr_range'][0]:.3f} "
+              f"ms ({result['bounds']['p3m_sr_range'][1]})")
+    return result
+
+
+def solver_envelope(torch, pos, acc, soft, what: str, smi: str) -> tuple:
+    """The median and 90th-percentile relative error of `acc` against the
+    exact force (the one-sided force kernel) on 512 sampled rows."""
+    import numpy as np
+
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+
+    rows = torch.tensor(np.random.default_rng(0).choice(pos.shape[0], 512, replace=False),
+                        device=pos.device)
+    ref = ck.compute_accel_cuda(pos[rows].contiguous(), pos, soft)
+    rel = ((acc[rows] - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-12)).cpu().numpy()
+    med, p90 = float(np.median(rel)), float(np.percentile(rel, 90))
+    print(f"[5q envelope] {what}: against the all-pairs force on 512 rows, relative error "
+          f"median {med:.3e}, 90th percentile {p90:.3e} [{smi}]")
+    return med, p90
+
+
+def mesh_solver_forces(torch, smi: str) -> None:
+    """5q, first part: plain PM (CIC and TSC) and TSC P3M at N=65536 and
+    2^20, G=64, on the shell state through BodySystem.accelerations(),
+    against their plain versions on the CPU (the same state: plain PM
+    whole, at 1e-4 * max|a|; P3M's long range whole at 1e-4 * max|a| and its
+    short range on 256 sampled rows at rtol 1e-4 / atol 2e-4) and within
+    nbody_tpu's envelopes against the all-pairs force."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.models import BodySystem
+    from nbody_tpu_torch.ops import p3m, pm, reference
+
+    soft = DEMO_PARAMS[0].softening
+    for n in (N_MAIN, N_P3M_BIG):
+        pos, vel = shell_state(torch, n)
+        cpu = pos.cpu()
+        for kernel, assignment in (("pm", "cic"), ("pm", "tsc"), ("p3m", "tsc")):
+            s = BodySystem(n, DEMO_PARAMS[0], device="cuda", kernel=kernel,
+                           pm_assignment=assignment, state=(pos, vel))
+            acc = s.accelerations()
+            what = f"{kernel} {assignment}, N={n}, G={P3M_GRID}"
+            if kernel == "pm":
+                plain = pm.pm_accel(cpu, grid=P3M_GRID, assignment=assignment)
+                e = (acc.cpu() - plain).abs().max().item()
+                scale = plain.abs().max().item()
+                print(f"[5q plain] {what}: card against the plain version on the CPU, "
+                      f"max|da| {e:.3e} (max|a| {scale:.3e})")
+                check(e <= 1e-4 * scale, f"plain PM on the card differs from the CPU ({what})")
+                med, _ = solver_envelope(torch, pos, acc, soft, what, smi)
+                check(med < PM_MEDIAN_BOUND, f"PM outside nbody_tpu's envelope ({what})")
+                continue
+            cap = s.p3m_capacity
+            lr = p3m.p3m_long_range(cpu, grid=P3M_GRID, assignment=assignment)
+            lr_card = p3m.p3m_long_range(pos, grid=P3M_GRID, assignment=assignment)
+            e = (lr_card.cpu() - lr).abs().max().item()
+            print(f"[5q plain] {what}: long range on the card against the CPU, max|da| {e:.3e} "
+                  f"(max|a| {lr.abs().max().item():.3e})")
+            check(e <= 1e-4 * lr.abs().max().item(), f"P3M long range differs ({what})")
+            rows = torch.tensor(np.random.default_rng(1).choice(n, 256, replace=False))
+            sr = (acc - lr_card).cpu()[rows]
+            plain = reference.p3m_short_range(cpu, soft, grid=P3M_GRID, capacity=cap, rows=rows)
+            p3m_check(torch, sr, plain, f"{what}, short range on 256 rows against the CPU")
+            med, p90 = solver_envelope(torch, pos, acc, soft, what, smi)
+            check(med < P3M_MEDIAN_BOUND and p90 < P3M_P90_BOUND,
+                  f"P3M outside nbody_tpu's envelope ({what})")
+        del pos, vel, cpu
+
+
+def mesh_solver_bits(torch, mesh, ck) -> None:
+    """5q: the sharded PM and P3M steps on the one-rank NCCL mesh
+    (replicated and slab, CIC and TSC, Euler and leapfrog) equal the
+    single-card steps bit for bit, 3 steps at N=65536; every mesh P3M run
+    launches the ranged pair kernel."""
+    import warnings
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.models import BodySystem
+
+    for kernel in ("pm", "p3m"):
+        for assignment in ("cic", "tsc"):
+            for integrator in ("euler", "leapfrog"):
+                kw = {"kernel": kernel, "pm_assignment": assignment, "integrator": integrator}
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")  # demo 0 may outgrow the capacity
+                    one = BodySystem(N_MAIN, DEMO_PARAMS[0], device="cuda", **kw)
+                    one.update_many(3)
+                    for fft in ("replicated", "slab"):
+                        before = ck.LAUNCHES["p3m_sr_range"]
+                        s = BodySystem(N_MAIN, DEMO_PARAMS[0], device="cuda", mesh=mesh,
+                                       pm_fft=fft, p3m_capacity=one.p3m_capacity, **kw)
+                        s.update_many(3)
+                        bits = all(torch.equal(a, b) for a, b in zip(s.state, one.state))
+                        print(f"[5q mesh] {kernel} {assignment} {integrator} {fft}, N={N_MAIN}, "
+                              f"3 steps on the one-rank mesh bit-equal to the single card: "
+                              f"{bits}")
+                        check(bits, f"the one-rank mesh {kernel}/{fft}/{assignment}/"
+                              f"{integrator} steps differ from the single card's")
+                        if kernel == "p3m":
+                            check(ck.LAUNCHES["p3m_sr_range"] > before,
+                                  "the mesh P3M step did not launch the ranged pair kernel")
+
+
+def auto_refresh_run(torch, smi: str) -> None:
+    """5q: README's demo-0 P3M run at N=2^20 (run_benchmark(3)) with the
+    auto-refresh: no contract warning, each rewind printed, and the last
+    state within the last capacity."""
+    import warnings
+
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.ops import p3m
+
+    c = Compute(num_bodies=N_P3M_BIG, device="cuda", kernel="p3m", p3m_auto_refresh=True,
+                log=lambda s: print(f"[5q refresh] {s}"))
+    cap0 = c.system.p3m_capacity
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = c.run_benchmark(3)
+    msgs = [str(m.message) for m in caught if "contract broken" in str(m.message)]
+    s = c.system
+    over = int(p3m.p3m_overflow_count(s.state[0], grid=P3M_GRID, capacity=s.p3m_capacity))
+    print(f"[5q refresh] P3M Euler N={N_P3M_BIG} with --p3m-auto-refresh: capacity {cap0} -> "
+          f"{s.p3m_capacity}, rewinds (step of the call, capacity before, after) "
+          f"{s.p3m_refreshes}; {res['milliseconds'] / res['iterations']:.3f} ms per step "
+          f"(rewinds and re-sizing included); warnings {msgs}; overflow of the last state {over} "
+          f"[{smi}]")
+    check(not msgs and over == 0, "the auto-refreshed P3M run dropped massive bodies")
+
+
+def demo_on_mesh(torch, mesh, smi: str, tmp: pathlib.Path) -> None:
+    """5q: the demo loop on the one-rank mesh under ring_fused and sym,
+    --render, N_DEMO_MESH_FRAMES frames from the first: the PNGs written and
+    the last equal to rendering the gathered last state."""
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.render import Camera, FrameRenderer
+
+    for strategy in ("ring_fused", "sym"):
+        outdir = tmp / f"mesh_{strategy}"
+        args = cli.build_parser().parse_args(
+            ["--numbodies", str(N_MAIN), "--frames", str(N_DEMO_MESH_FRAMES), "--render",
+             "--no-hud", "--no-cycle", "--outdir", str(outdir), "--strategy", strategy])
+        c = Compute(num_bodies=N_MAIN, device="cuda", mesh=mesh, strategy=strategy,
+                    log=lambda s: None)
+        t0 = time.perf_counter()
+        cli._run_demo(c, args, mesh)
+        secs = time.perf_counter() - t0
+        pngs = sorted(outdir.glob("frame_*.png"))
+        check(len(pngs) == N_DEMO_MESH_FRAMES, f"the {strategy} demo wrote {len(pngs)} frames")
+        renderer = FrameRenderer(width=args.width, height=args.height, splat=16)
+        renderer.write_png(renderer.render(c.system.state[0],
+                                           Camera(origin=c.active_params.camera_origin)),
+                           tmp / "want.png")
+        # the PNG encoding is deterministic: equal bytes, equal frames
+        same = (tmp / "want.png").read_bytes() == pngs[-1].read_bytes()
+        print(f"[5q demo] {strategy} on the one-rank mesh, N={N_MAIN}, --render: "
+              f"{len(pngs)} frames in {secs:.3f} s (the first frame included), the last equal "
+              f"to rendering the gathered state: {same} [{smi}]")
+        check(same, f"the {strategy} demo's last frame is not the gathered state's")
+
+
+def phase_mesh_solvers_main(torch, smi: str) -> None:
+    """5q. The mesh solvers and the demo on a mesh (see the docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.parallel import make_mesh
+
+    mesh_solver_forces(torch, smi)
+    for kw in ({"kernel": "pm"}, {"kernel": "pm", "pm_assignment": "tsc"},
+               {"kernel": "p3m", "pm_assignment": "tsc"},
+               {"kernel": "p3m", "pm_assignment": "tsc", "integrator": "leapfrog"}):
+        qa = Compute(num_bodies=N_QA, device="cuda", log=lambda s: print(f"[5q QA] {s}"), **kw)
+        check(qa.compare_results(), f"QA failed ({kw})")
+    for kw in ({"kernel": "pm"}, {"kernel": "p3m", "pm_assignment": "tsc",
+                                  "p3m_auto_refresh": True}):
+        c = Compute(num_bodies=N_P3M_BIG, device="cuda", log=lambda s: None, **kw)
+        res = c.run_benchmark(3)
+        print(f"[5q main] {kw} N={N_P3M_BIG}, G={P3M_GRID}: "
+              f"{res['milliseconds'] / res['iterations']:.3f} ms per step [{smi}]")
+    auto_refresh_run(torch, smi)
+    mesh = make_mesh(1)
+    try:
+        check(dist.get_backend() == "nccl", f"the CUDA mesh runs {dist.get_backend()}")
+        mesh_solver_bits(torch, mesh, ck)
+        with tempfile.TemporaryDirectory() as d:
+            demo_on_mesh(torch, mesh, smi, pathlib.Path(d))
+    finally:
+        dist.destroy_process_group()
 
 
 def ptxas_registers(usage: dict, key: str) -> int:
@@ -3751,6 +4075,7 @@ def main() -> int:
     ds_aj_kern = timed("3dh ds accel+jerk kernels", phase_ds_aj_kernels, torch)
     mxu_kern = timed("3m mxu kernels and rollout", phase_mxu_kernels, torch)
     p3m_kern = timed("3p p3m pair kernel", phase_p3m_kernels, torch)
+    p3m_range_kern = timed("3q p3m pair kernel ranges", phase_p3m_ranges, torch)
     ds_accel_kern = timed("3da ds accel kernel", phase_ds_accel_kernel, torch)
     ds_kern["err"]["ds_step"] = max(ds_kern["err"]["ds_step"], ds_accel_kern.pop("step_err"))
     ds_kern["err"]["ds_leapfrog"] = max(ds_kern["err"]["ds_leapfrog"],
@@ -3805,6 +4130,13 @@ def main() -> int:
                         p3m_systems, smi)
     p3m_kern["err"]["p3m_sr"] = max(p3m_kern["err"]["p3m_sr"], p3m_big_err)
     del p3m_systems
+    # plain PM, TSC P3M, the auto-refresh, the sharded PM and P3M steps and
+    # the demo on the one-rank mesh: the ranged pair kernel, the fused ring
+    # and the sym triangle must launch there
+    mesh_solver_launches = timed("5q mesh solvers and the demo on a mesh", run_path, ck,
+                                 ("p3m_sr", "p3m_sr_range", "ring_fused", "sym"),
+                                 lambda: phase_mesh_solvers_main(torch, smi))
+    launches["p3m_sr_range"] = mesh_solver_launches["p3m_sr_range"]
     for k in MXU_KERNELS:
         launches[k] = mxu_launches[k]
     launches["step_t"] = rollout_launches["step_t"]
@@ -3851,7 +4183,8 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     found = {key: {**kern[key], **sym_kern[key], **aj_kern[key], **ds_kern[key],
-                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **ds_accel_kern[key],
+                   **ds_aj_kern[key], **mxu_kern[key], **p3m_kern[key], **p3m_range_kern[key],
+                   **ds_accel_kern[key],
                    **ring_kern[key], **exp_kern[key]}
              for key in ("err", "times", "bounds")}
     kernels = [{

@@ -5,14 +5,15 @@ The reference's flags (nbody.cpp:275-285): --benchmark, --compare /
 --qatest, --numbodies, -i/--iterations, --blockSize, --hostmem, --cpu,
 --tipsy, --fp64, --fullscreen, plus nbody_tpu's --seed, --variant
 {auto,vpu,sym,mxu,mxu_bf16}, --integrator {euler,leapfrog,hermite},
---drift-check, --precision {fp32,fp64,ds}, the P3M fast mode's --kernel
-{auto,p3m}, --pm-grid and --p3m-capacity, the mesh's --devices and
---strategy, the run setup (--config, --demo, --set, --print-params,
+--drift-check, --precision {fp32,fp64,ds}, the mesh solvers' --kernel
+{auto,pm,p3m}, --pm-grid, --pm-assignment, --pm-fft, --p3m-short-range,
+--p3m-capacity and --p3m-auto-refresh, the mesh's --devices, --strategy and
+--mesh-rows, the run setup (--config, --demo, --set, --print-params,
 --checkpoint-save / --checkpoint-load, --metrics, --profile, --version) and
 the demo loop's flags (frames, rendering, viewing, --energy, --autosave,
 --selftest). nbody_tpu's other flags (adaptive and block timesteps, the
-XLA / Pallas / PM kernels and their options, --tile-j) are not accepted
-until their slice lands (ROADMAP.md).
+XLA / Pallas kernel names, --tile-j) are not accepted until their slice
+lands (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -37,9 +38,10 @@ all-pairs kernels, with Euler, leapfrog or Hermite; its QA holds the
 positions to 5e-4 and the force (with Hermite also the jerk) to the float64
 oracle at 1e-10 of its largest value, and its --drift-check keeps the fp32
 gate. --variant auto, vpu, mxu and mxu_bf16 run the one-sided double kernels
-(nbody_tpu's fp64 XLA path ignores the variant); sym and --kernel p3m are
-refused in fp64, and so are --strategy ring_fused and sym on a mesh. --fp64
-with --precision ds exits 1, in nbody_tpu's words (cli.py:449-453).
+(nbody_tpu's fp64 XLA path ignores the variant); --kernel pm / p3m run the
+exact force there, as nbody_tpu's fp64 does; sym is refused in fp64, and so
+are --strategy ring_fused and sym on a mesh. --fp64 with --precision ds
+exits 1, in nbody_tpu's words (cli.py:449-453).
 
 --precision ds runs the double-single (fp64-grade) kernels, default N 16384
 (BASELINE.json configs[2]), with Euler, leapfrog or Hermite, QA against the
@@ -50,10 +52,15 @@ runs without --hostmem, --kernel and a --variant other than auto or sym
 such flag that has no effect; its demo loop refuses them (exit 1), and
 --selftest, as nbody_tpu's does (cli.py:463-495).
 
---kernel p3m runs the P3M fast mode (PM long range + exact short range on
-the CUDA pair kernel), Euler or leapfrog, fp32: its QA gates positions only
-and its --drift-check is reported, not gated, as in nbody_tpu (its force
-differs from the all-pairs oracle's by the mesh error, by design).
+--kernel pm runs plain particle-mesh (the raw 1/r kernel on the --pm-grid
+mesh) and --kernel p3m the P3M fast mode (PM long range + exact short range
+on the CUDA pair kernel), --pm-assignment cic or tsc, Euler or leapfrog: their
+QA gates positions only and their --drift-check is reported, not gated, as
+in nbody_tpu (their force differs from the all-pairs oracle's by the mesh
+error, by design). --p3m-short-range auto and pallas run the pair kernel;
+xla (nbody_tpu's cell-list engine) exits 2 naming ROADMAP.md Queue 1 #16.
+--p3m-auto-refresh rewinds a run whose cells outgrew the capacity to the
+first breached step and re-sizes the capacity from that state.
 
 --devices D shards the bodies over D ranks, one a device, with --strategy
 allgather, ring or auto (nbody_tpu's cost model), for fp32, fp64 and ds,
@@ -63,13 +70,24 @@ sym (fp32: each pair once across the mesh; the plain versions with --cpu,
 where nbody_tpu refuses --cpu, its sym being Pallas-only). --mesh-rows R
 makes the mesh a 2-D R x D/R grid (the i-block x j-block decomposition) for
 fp32, fp64 and ds, with nbody_tpu's checks and words (cli.py:268-300,
-600-660), which exit 1. Start it as ``torchrun --nproc_per_node D
-nbody-torch --devices D ...`` (NCCL on the cards, gloo with --cpu).
---devices 1 builds no mesh, as in nbody_tpu. A --devices that differs from
-the number of ranks exits 2; so do --strategy ring_fused or sym with
---precision ds (nbody_tpu's text), and the demo loop and --selftest on a
-mesh (ROADMAP.md Queue 1 #13). Only rank 0 prints; every rank exits with
-rank 0's verdict.
+600-660), which exit 1. With --kernel pm / p3m a 1-D mesh runs the sharded
+mesh solver whatever the strategy, --pm-fft replicated (a fixed-order sum of
+the density grid) or slab (the distributed FFT; D must divide 2 * --pm-grid).
+Start it as ``torchrun --nproc_per_node D nbody-torch --devices D ...``
+(NCCL on the cards, gloo with --cpu). --devices 1 builds no mesh, as in
+nbody_tpu. A --devices that differs from the number of ranks exits 2; so do
+--strategy ring_fused or sym with --precision ds (nbody_tpu's text). Only
+rank 0 prints; every rank exits with rank 0's verdict.
+
+The demo loop and --selftest run on a mesh too: every rank steps its shard,
+the state is gathered on every rank before each frame that is drawn, and
+rank 0 renders, writes the PNG / APNG / AVI files, draws the HUD, reports
+and reads the keys. Each frame ends with a broadcast from rank 0 of the
+frame's control state (the keys for the next frame, demo cycling, quit),
+which every rank applies, so that their parameters and states stay one; the
+other ranks wait for rank 0's frame there, in the collective library, and
+not in the fused ring's bounded wait. The process's first deterministic
+``index_add_`` (seconds on a card) is paid before the first step.
 
 Checkpoints are nbody_tpu's npz files, read and written by either package:
 a resume restores the saved parameters and step counter, a ds resume the
@@ -133,18 +151,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fp32 (default); fp64 (= --fp64), the double all-pairs kernels; "
                         "or ds, the double-single kernels: fp64-grade accuracy from "
                         "pairs of float32s (default N 16384); each with every integrator")
-    p.add_argument("--kernel", choices=["auto", "p3m"], default="auto",
+    p.add_argument("--kernel", choices=["auto", "pm", "p3m"], default="auto",
                    help="force algorithm: auto = the all-pairs kernels of --variant; "
-                        "p3m = PM + exact short-range correction, sub-percent "
-                        "forces at PM speed, Euler or leapfrog (it does not pass "
-                        "--qatest's all-pairs force tolerance by design: its QA "
-                        "gates positions only)")
+                        "pm = O(N) particle-mesh far-field solver, resolution-limited "
+                        "accuracy; p3m = PM + exact short-range correction, sub-percent "
+                        "forces at PM speed; pm and p3m take Euler or leapfrog (neither "
+                        "passes --qatest's all-pairs force tolerance by design: their "
+                        "QA gates positions only)")
     p.add_argument("--pm-grid", type=int, default=64,
-                   help="mesh resolution per axis (--kernel p3m)")
+                   help="mesh resolution per axis (--kernel pm/p3m)")
+    p.add_argument("--pm-assignment", choices=["cic", "tsc"], default="cic",
+                   help="mass-assignment scheme for pm/p3m: cic = 8-point "
+                        "trilinear, tsc = 27-point quadratic (~2x lower "
+                        "mesh force error, same FFT cost)")
+    p.add_argument("--pm-fft", choices=["replicated", "slab"], default="replicated",
+                   help="multi-device FFT decomposition for pm/p3m: replicated = "
+                        "a (2G)^3 solve on every device; slab = the distributed FFT "
+                        "over the mesh (D must divide 2 * --pm-grid)")
+    p.add_argument("--p3m-short-range", choices=["auto", "xla", "pallas"], default="auto",
+                   help="p3m short-range engine: auto and pallas = the CUDA pair "
+                        "kernel (on a mesh each device takes a range of its work); "
+                        "xla is not ported (ROADMAP.md Queue 1 #16)")
     p.add_argument("--p3m-capacity", type=int, default=None,
                    help="p3m neighbor-cell capacity (bodies per cell); "
                         "default auto-sizes from the initial state's max "
                         "occupancy +50%% headroom; overflow at init raises")
+    p.add_argument("--p3m-auto-refresh", action="store_true",
+                   help="when a run's per-step probe finds a p3m contract breach "
+                        "(collapsing states outgrow the cell capacity), rewind to "
+                        "the breach step, re-size from that state, and resume "
+                        "instead of warning")
     p.add_argument("--devices", type=int, default=None,
                    help="shard bodies over this many devices (a 1-D mesh of ranks, one a "
                         "device; start D ranks with torchrun --nproc_per_node D)")
@@ -294,12 +330,12 @@ def _mesh_refusal(args) -> Optional[str]:
         return None
     if args.mesh_rows is not None and not multi:
         return "--mesh-rows needs --devices > 1"
-    if args.mesh_rows is not None and args.kernel == "p3m":
+    if args.mesh_rows is not None and args.kernel in ("pm", "p3m"):
         return ("--mesh-rows (2-D decomposition) applies to the exact kernels; the mesh "
                 "solvers shard over a 1-D body mesh — drop --mesh-rows or use --kernel auto "
                 f"(got --kernel {args.kernel})")
     if args.strategy == "sym" and multi:
-        if args.kernel == "p3m":
+        if args.kernel in ("pm", "p3m"):
             return ("--strategy sym runs the Newton's-third-law kernels; use --kernel auto "
                     f"(got --kernel {args.kernel})")
         if args.mesh_rows is not None:
@@ -441,7 +477,7 @@ def _main(argv=None) -> int:
         print(f"error: {refusal}", file=sys.stderr)
         return 1
     ignored = _ds_ignored_flags(args) if ds else []
-    p3m = args.kernel == "p3m"
+    solver = args.kernel if args.kernel in ("pm", "p3m") else None
     if args.autosave is not None:
         # nbody_tpu/cli.py:681-689, with its exit code
         if args.autosave <= 0:
@@ -457,13 +493,8 @@ def _main(argv=None) -> int:
     from nbody_tpu_torch import ic
     from nbody_tpu_torch.compute import Compute
     from nbody_tpu_torch.config import NBodyConfig
-    from nbody_tpu_torch.models.body_system import not_ported
     from nbody_tpu_torch.params import DEMO_PARAMS
 
-    if (args.devices or 0) > 1 and (args.selftest or not measuring):
-        # rank 0's frames and PNG writes would outlast the fused ring's
-        # bounded wait on the other ranks (ROADMAP.md Queue 3)
-        raise not_ported("--devices with the demo loop or --selftest", args.devices, key="mesh")
     mesh = _mesh(args)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
@@ -508,7 +539,11 @@ def _main(argv=None) -> int:
         fp64=args.fp64,
         kernel=args.kernel,
         pm_grid=args.pm_grid,
+        pm_assignment=args.pm_assignment,
+        pm_fft=args.pm_fft,
         p3m_capacity=args.p3m_capacity,
+        p3m_short_range=args.p3m_short_range,
+        p3m_auto_refresh=args.p3m_auto_refresh,
         cycle_demo=not args.no_cycle,
         seed=args.seed,
         tipsy_state=tipsy_state,
@@ -534,8 +569,10 @@ def _main(argv=None) -> int:
         + f" [{system.backend} kernel"
         + (", host memory" if args.hostmem else "")
         + (", double-single (fp64-grade)]" if ds else ", fp64]" if args.fp64 else ", fp32]")
-        + (f" force p3m (grid {system.pm_grid}, cell capacity {system.p3m_capacity})"
-           if p3m else f" force {system.variant}")
+        + (f" force p3m (grid {system.pm_grid}, {system.pm_assignment}, cell capacity "
+           f"{system.p3m_capacity})" if compute.solver == "p3m"
+           else f" force pm (grid {system.pm_grid}, {system.pm_assignment})"
+           if compute.solver == "pm" else f" force {system.variant}")
         + f", integrator {system.integrator}")
 
     if not 0 <= args.demo < len(DEMO_PARAMS):
@@ -576,10 +613,10 @@ def _main(argv=None) -> int:
     status = 0
     with trace(args.profile) as trace_dir:
         if args.selftest:
-            status = _run_selftest(compute)
+            status = _run_selftest(compute, say)
         elif args.drift_check is not None:
             drift = compute.drift_check(args.drift_check)
-            if p3m:
+            if solver:
                 # nbody_tpu/cli.py:829-834: the mesh solver's drift differs from
                 # the all-pairs oracle's by design, so it is reported, not gated
                 say("(mesh-solver drift differs from the all-pairs oracle by design; "
@@ -597,7 +634,7 @@ def _main(argv=None) -> int:
         elif args.compare or args.qatest:
             status = 0 if compute.compare_results() else 1
         else:
-            status = _run_demo(compute, args)
+            status = _run_demo(compute, args, mesh)
     if trace_dir:
         say(f"profiler trace written to {trace_dir}")
     if args.checkpoint_save:
@@ -614,15 +651,49 @@ def _append_metrics(path, record: dict) -> None:
         f.write(json.dumps(record) + "\n")
 
 
-def _run_demo(compute, args) -> int:
+def _warm_ordered_scatter(device) -> None:
+    """Pay the process's first deterministic ``index_add_`` (seconds on a
+    card: the rasterizer's and the deposits' sort) before the first step,
+    so that no rank spends it between two steps of a mesh."""
+    import torch
+
+    from nbody_tpu_torch.utils.ordered import index_add_ordered
+
+    if device.type != "cuda":
+        return
+    n = 4096
+    index_add_ordered(torch.zeros(n, device=device), torch.arange(n, device=device) % 7,
+                      torch.ones(n, device=device))
+    torch.cuda.synchronize(device)
+
+
+def _frame_control(mesh, control):
+    """Rank 0's control state of a frame, (keys, cycle, quit), on every rank
+    of the mesh: one broadcast, on which the other ranks wait for rank 0's
+    frame under the group's timeout."""
+    import torch.distributed as dist
+
+    box = [control if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=mesh.group, device=mesh.device)
+    return box[0]
+
+
+def _run_demo(compute, args, mesh=None) -> int:
     """The demo loop (nbody_tpu/cli.py:880-1098): step, report the HUD stats
     about once a second, optionally render, optionally react to the
     reference's key bindings from stdin. The frames are rendered on the
-    system's device; only the finished uint8 frames reach the host."""
+    system's device; only the finished uint8 frames reach the host.
+
+    On a mesh every rank runs the loop: it steps its shard, joins the
+    gather of the state before a frame that is drawn, and applies each
+    frame's control state, which rank 0 broadcasts at the frame's end (the
+    keys it read, whether the demo cycles, quit). Rank 0 alone renders,
+    writes, reports and reads the keys."""
     import pathlib
     import time
 
-    system = compute.system
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     renderer = camera = None
     want_frames = args.render or args.animate
     if want_frames or args.interactive or args.live:
@@ -635,7 +706,7 @@ def _run_demo(compute, args) -> int:
                 raise ValueError("--camera expects X,Y,Z")
             origin = tuple(parts)
         camera = Camera(origin=origin)
-    if want_frames:
+    if want_frames and rank0:
         from nbody_tpu_torch.render import FrameRenderer
 
         width, height = (1920, 1080) if args.fullscreen else (args.width, args.height)
@@ -647,10 +718,10 @@ def _run_demo(compute, args) -> int:
             outdir = pathlib.Path(args.outdir)
             outdir.mkdir(parents=True, exist_ok=True)
             _write_run_metadata(outdir, compute, args, width, height)
-    anim_frames = [] if args.animate else None
+    anim_frames = [] if args.animate and rank0 else None
 
     live_view = live_renderer = None
-    if args.live:
+    if args.live and rank0:
         # the reference's real-time window, display-server-free: render at
         # terminal resolution (one half-block cell = two pixels) and
         # repaint in place (ui/terminal_view.py)
@@ -672,10 +743,10 @@ def _run_demo(compute, args) -> int:
             controls = Controls(compute, camera,
                                 log=lambda msg: live_log.__setitem__(0, str(msg)))
         else:
-            controls = Controls(compute, camera)
-        print("interactive: space=pause q=quit enter=precision [ ]=demos "
-              "1/2/3/4=reset c=cycle p=mode o=params w/s=zoom a/e=rotate "
-              "H/J/K/L=translate")
+            controls = Controls(compute, camera, log=say)
+        say("interactive: space=pause q=quit enter=precision [ ]=demos "
+            "1/2/3/4=reset c=cycle p=mode o=params w/s=zoom a/e=rotate "
+            "H/J/K/L=translate")
 
     if not args.no_hud:
         from nbody_tpu_torch.ui.hud import draw_hud, hud_lines
@@ -683,38 +754,48 @@ def _run_demo(compute, args) -> int:
     # the float64 functional: relative drift in float32 summation noise is
     # meaningless at N >= 65k
     e0 = compute.system.total_energy(precise=True) if args.energy else None
+    if mesh is not None:
+        _warm_ordered_scatter(compute.system.device)
 
-    def frame_of(r):
-        # compute.system, not `system`: the Enter key swaps the system
+    def frame_of(r, pos):
+        # compute.system, not a local: the Enter key swaps the system
         mode = controls.display_mode if controls is not None else None
         kw = {"mode": mode} if mode is not None else {}
-        s = compute.system
         # ds renders with the fp64 tint: its state is fp64-grade
-        return r.render(s.state[0].to(s.device), camera, fp64=compute.precision != "fp32",
-                        sprite_size=args.sprite_size, brightness=args.brightness, **kw)
+        return r.render(pos.to(compute.system.device), camera,
+                        fp64=compute.precision != "fp32", sprite_size=args.sprite_size,
+                        brightness=args.brightness, **kw)
 
     frames_done = 0
     last_report = time.monotonic()
     frames_since_report = 0
     quit_requested = False
     live_status = ""
+    keys, cycle = [], False  # a mesh's control state of the frame
     try:
         while frames_done < args.frames and not quit_requested:
-            if controls is not None:
-                for key in controls.read_keys():
-                    if not controls.handle(key):
-                        if live_view is None:
-                            print("quit")
-                        quit_requested = True
-            compute.update_simulation(camera, steps=args.steps_per_frame)
+            if controls is not None and mesh is None:
+                keys = controls.read_keys()
+            for key in keys:
+                if not controls.handle(key):
+                    if live_view is None:
+                        say("quit")
+                    quit_requested = True
+            if mesh is None:
+                compute.update_simulation(camera, steps=args.steps_per_frame)
+            else:
+                compute.update_simulation(camera, steps=args.steps_per_frame, cycle=cycle)
             shown = controls is None or controls.display_enabled
+            drawn = shown and (args.live or want_frames)
+            # on a mesh every rank joins the gather; rank 0 draws
+            pos = compute.system.state[0] if drawn else None
             if live_view is not None and shown:
                 status = live_status or "starting..."
                 if live_log[0]:
                     status += "\n" + live_log[0]
-                live_view.show(frame_of(live_renderer), status)
+                live_view.show(frame_of(live_renderer, pos), status)
             if renderer is not None and shown:
-                frame = frame_of(renderer)
+                frame = frame_of(renderer, pos)
                 if not args.no_hud:
                     show_inter = controls.show_interactions if controls else False
                     draw_hud(frame, hud_lines(compute, _device_name(compute.system.device),
@@ -725,11 +806,12 @@ def _run_demo(compute, args) -> int:
                     anim_frames.append(frame)
             frames_done += 1
             if args.autosave and frames_done % args.autosave == 0:
-                # atomic: a crash mid-write must not eat the last good save
-                _save(args.checkpoint_save, compute)
+                # atomic: a crash mid-write must not eat the last good save;
+                # on a mesh every rank gathers, rank 0 writes
+                _save(args.checkpoint_save, compute, write=rank0)
             frames_since_report += 1
             now = time.monotonic()
-            if now - last_report >= 1.0:
+            if rank0 and now - last_report >= 1.0:
                 compute.system.hard_sync()
                 compute.calculate_fps(frames_since_report, (now - last_report) * 1e3,
                                       steps_per_frame=args.steps_per_frame)
@@ -754,6 +836,12 @@ def _run_demo(compute, args) -> int:
                     })
                 last_report = now
                 frames_since_report = 0
+            if mesh is not None:
+                # the frame ends when rank 0's does: its keys, its clock's
+                # demo cycling and its quit reach every rank
+                mine = ((controls.read_keys() if controls is not None and rank0 else []),
+                        compute.cycle_due(), quit_requested) if rank0 else None
+                keys, cycle, quit_requested = _frame_control(mesh, mine)
     finally:
         if live_view is not None:
             live_view.close()  # restore the terminal even on an exception
@@ -762,9 +850,9 @@ def _run_demo(compute, args) -> int:
     if args.energy:
         e1 = compute.system.total_energy(precise=True)
         drift = (e1 - e0) / abs(e0) if e0 else 0.0
-        print(f"energy: E0={e0:.6g} E1={e1:.6g} relative drift={drift:.3e}")
+        say(f"energy: E0={e0:.6g} E1={e1:.6g} relative drift={drift:.3e}")
     if args.render:
-        print(f"wrote {frames_done} frames to {args.outdir}/")
+        say(f"wrote {frames_done} frames to {args.outdir}/")
     if anim_frames:
         if args.animate.lower().endswith(".avi"):
             from nbody_tpu_torch.io.avi import write_avi
@@ -778,26 +866,28 @@ def _run_demo(compute, args) -> int:
     return 0
 
 
-def _run_selftest(compute) -> int:
+def _run_selftest(compute, say=print) -> int:
     """End-to-end health check on the current device (nbody_tpu/cli.py:
     1101-1139): the reference's QA criterion, the energy drift against the
-    oracle over 3 steps, and a render smoke test."""
+    oracle over 3 steps, and a render smoke test. On a mesh every rank runs
+    it (the checks give rank 0's verdicts to all, the render draws the
+    gathered state) and `say` prints on rank 0."""
     import numpy as np
 
     from nbody_tpu_torch.render import Camera, FrameRenderer
 
     failures = []
     if compute.compare_results():
-        print("selftest [1/3] QA compare: PASS")
+        say("selftest [1/3] QA compare: PASS")
     else:
         failures.append("qa-compare")
-        print("selftest [1/3] QA compare: FAIL")
+        say("selftest [1/3] QA compare: FAIL")
 
     if not drift_failed(compute.drift_check(3)):
-        print("selftest [2/3] energy drift vs oracle: PASS")
+        say("selftest [2/3] energy drift vs oracle: PASS")
     else:
         failures.append("drift")
-        print("selftest [2/3] energy drift vs oracle: FAIL")
+        say("selftest [2/3] energy drift vs oracle: FAIL")
 
     system = compute.system
     cam = Camera(origin=compute.active_params.camera_origin)
@@ -805,15 +895,15 @@ def _run_selftest(compute) -> int:
         system.state[0].to(system.device), cam, fp64=compute.fp64_enabled)
     if frame.shape == (120, 160, 3) and np.isfinite(frame.astype(np.float64)).all() \
             and frame.sum() > 0:
-        print("selftest [3/3] render smoke: PASS")
+        say("selftest [3/3] render smoke: PASS")
     else:
         failures.append("render")
-        print("selftest [3/3] render smoke: FAIL")
+        say("selftest [3/3] render smoke: FAIL")
 
     if failures:
-        print(f"selftest FAILED: {', '.join(failures)}")
+        say(f"selftest FAILED: {', '.join(failures)}")
         return 1
-    print("selftest PASSED")
+    say("selftest PASSED")
     return 0
 
 

@@ -18,11 +18,13 @@ behind the same facade, as ``nbody_tpu/compute.py:135-168`` does, with its
 mapping of variants; its QA and drift checks hold it to the float64 oracle
 at ds-grade bounds.
 
-``kernel="p3m"`` owns a ``BodySystem(kernel="p3m")``, the P3M fast mode,
-whose force differs from the all-pairs oracle's by its mesh error by
-design: as in ``nbody_tpu``, its QA gates the positions only (the force
-error is reported), its benchmark rate is the pairwise-equivalent one, and
-the CLI reports its drift without gating it.
+``kernel="pm"`` / ``"p3m"`` owns a ``BodySystem(kernel=...)``, the mesh
+solvers, whose force differs from the all-pairs oracle's by its mesh error
+by design: as in ``nbody_tpu``, their QA gates the positions only (the
+force error is reported), their benchmark rate is the pairwise-equivalent
+one, and the CLI reports their drift without gating it. In fp64 a mesh
+solver request runs the exact all-pairs force on the double kernels, as
+``nbody_tpu``'s Compute forces its XLA path (``compute.py:175``).
 
 ``mesh=`` and ``strategy=`` pass through to the system
 (``nbody_tpu/compute.py:162-163,179-180``): a 1-D mesh of
@@ -141,7 +143,11 @@ class Compute:
         fp64: bool = False,
         kernel: str = "auto",
         pm_grid: int = 64,
+        pm_assignment: str = "cic",
+        pm_fft: str = "replicated",
         p3m_capacity: Optional[int] = None,
+        p3m_short_range: str = "auto",
+        p3m_auto_refresh: bool = False,
         cycle_demo: bool = True,
         seed: int = 42,
         tipsy_state: Optional[tuple] = None,
@@ -175,8 +181,11 @@ class Compute:
                     f"precision='ds' variants are 'auto'/'sym'/"
                     f"'one_sided' (got {variant!r})")
             variant = variant if variant in ("sym", "one_sided") else "auto"
+        if fp64:
+            # nbody_tpu/compute.py:175: fp64 runs the exact force whatever the
+            # kernel asked, its XLA path; the double kernels here
+            kernel = "auto"
         self.precision = precision
-        self.kernel = kernel
         self.log = log
         self.paused = False
         self.fp64_enabled = fp64
@@ -218,13 +227,6 @@ class Compute:
                 strategy=strategy,
             )
         else:
-            # nbody_tpu forces its XLA path for fp64 (compute.py:170-176),
-            # which is all pairs whatever its backend asked: a p3m request
-            # there silently runs the exact force. The port's fp64 is the
-            # double all-pairs kernels (or their plain versions with
-            # backend="torch"), on one device or a mesh, and BodySystem
-            # refuses kernel="p3m" in float64 (not_ported, ROADMAP.md Queue
-            # 1 #16) rather than run another algorithm than the one asked for.
             self.system = BodySystem(
                 num_bodies,
                 self.active_params,
@@ -236,7 +238,11 @@ class Compute:
                 integrator=integrator,
                 kernel=kernel,
                 pm_grid=pm_grid,
+                pm_assignment=pm_assignment,
+                pm_fft=pm_fft,
                 p3m_capacity=p3m_capacity,
+                p3m_short_range=p3m_short_range,
+                p3m_auto_refresh=p3m_auto_refresh,
                 dtype=torch.float64 if fp64 else torch.float32,
                 seed=seed,
                 state=tipsy_state,
@@ -245,6 +251,12 @@ class Compute:
             )
         self.num_bodies = self.system.num_bodies
         self._demo_reset_time = time.monotonic()
+
+    @property
+    def solver(self) -> Optional[str]:
+        """The mesh solver the system runs ("pm" or "p3m"), else None."""
+        kernel = getattr(self.system, "kernel", "auto")
+        return kernel if kernel in ("pm", "p3m") else None
 
     def _from_rank0(self, judge):
         """judge() on rank 0 of the mesh (its oracle work runs there alone),
@@ -286,10 +298,18 @@ class Compute:
     def pause(self) -> None:
         self.paused = not self.paused
 
-    def update_simulation(self, camera=None, steps: int = 1) -> None:
+    def cycle_due(self) -> bool:
+        """Whether demo cycling is on and the current demo has run
+        DEMO_TIME_S by this process's clock."""
+        return self.cycle_demo and time.monotonic() - self._demo_reset_time > DEMO_TIME_S
+
+    def update_simulation(self, camera=None, steps: int = 1, *,
+                          cycle: Optional[bool] = None) -> None:
         """Advance one frame of `steps` steps, after cycling to the next
-        demo every DEMO_TIME_S when cycling is on."""
-        if self.cycle_demo and time.monotonic() - self._demo_reset_time > DEMO_TIME_S:
+        demo every DEMO_TIME_S when cycling is on. `cycle` overrides this
+        process's clock (the demo on a mesh passes rank 0's decision to
+        every rank)."""
+        if self.cycle_due() if cycle is None else cycle:
             self.next_demo(camera)
         if not self.paused:
             self.system.update_many(steps, self.active_params.time_step)
@@ -370,10 +390,11 @@ class Compute:
             f"= {self.g_flops:.3f} {word}-precision GFLOP/s at "
             f"{flops_per_interaction(self.fp64_enabled or ds)} flops per interaction"
             + (" (fp64-convention)" if ds else ""))
-        if self.kernel == "p3m":
-            # the formula assumes O(N^2) work; for the mesh solver it is the
+        if self.solver:
+            # the formula assumes O(N^2) work; for the mesh solvers it is the
             # pairwise-EQUIVALENT rate (nbody_tpu/compute.py:398-405)
-            self.log("  (pairwise-equivalent rate: the p3m solver does O(N) work per step)")
+            self.log(f"  (pairwise-equivalent rate: the {self.solver} solver does "
+                     "O(N) work per step)")
 
     # ---- energy drift (the JAX package's --drift-check) ----
 
@@ -494,8 +515,8 @@ class Compute:
         before it reaches the positions. With variant="mxu" / "mxu_bf16" and
         Euler the force is the mxu step's, held element by element to that
         bound plus its error model (MXU_ERROR_COEF[variant] * E, logged as
-        the largest ratio of error to bound). With kernel="p3m" only the
-        positions are gated, as in ``nbody_tpu`` (``compute.py:455-476``):
+        the largest ratio of error to bound). With kernel="pm" or "p3m" only
+        the positions are gated, as in ``nbody_tpu`` (``compute.py:455-476``):
         the mesh solver's force differs from the all-pairs force by design,
         and its median and largest relative error are logged, not gated.
         With integrator="hermite" the acceleration and the jerk come from
@@ -536,12 +557,12 @@ class Compute:
                           else (QA_ACCEL_RTOL, QA_ACCEL_ATOL))
             acc_tol = rtol * float(np.abs(ref_acc).max()) + atol
             mxu = self.system.mxu_force
-            p3m = self.kernel == "p3m"
-            if p3m:
+            solver = self.solver
+            if solver:
                 rel = (np.sqrt((acc_err ** 2).sum(1))
                        / np.maximum(np.sqrt((ref_acc ** 2).sum(1)), 1e-12))
                 checks = []
-                report = (f", p3m force against the all-pairs force (not gated): median "
+                report = (f", {solver} force against the all-pairs force (not gated): median "
                           f"|da|/|a| = {np.median(rel):.3e}, max {rel.max():.3e}")
             elif mxu is None:
                 checks = [("max |dacc|", float(acc_err.max()), acc_tol)]
@@ -565,7 +586,7 @@ class Compute:
                 f"(tolerance {tolerance:g})"
                 + "".join(f", {label} = {e:.3e} (tolerance {tol:.3e})"
                           for label, e, tol in checks)
-                + (report if p3m else "")
+                + (report if solver else "")
                 + f" -> {'OK' if passed else 'FAILED'}")
             return passed
 

@@ -4,6 +4,10 @@
 //   nbody_p3m_sr_f32 <- nbody_tpu/ops/p3m_kernel.py::_sr_pair_kernel
 //                       (def :250, pallas_call :352 in _short_range_pallas_impl,
 //                       via p3m_short_range_pallas)
+//   nbody_p3m_sr_range_f32 <- the same kernel over one device's range of the
+//                       worklist on a mesh (chunk_lo / nchunk_local,
+//                       p3m_kernel.py:313-317, 384-386, called from
+//                       nbody_tpu/ops/p3m.py:528-545)
 // It computes the short-range force of every kept body over the kept bodies
 // of its 27 neighbour rcut-cells (the stencil of p3m._neighbor_stencil, dz
 // fastest). For each pair, as p3m_kernel.py:272-287:
@@ -89,6 +93,15 @@
 // those whose warp takes the term ("termed"). The bytes are O(N) from
 // device memory; the j-rows are re-read from L2 (the padded rows of a 2^20
 // state are ~17 MB of its 50 MB).
+//
+// A rank's range (nbody_p3m_sr_range_f32; p3m.item_range): on a mesh every
+// rank holds the tables of the whole state and computes the i-clusters
+// [c0, c1) only, whose work items are [item_lo, item_hi). The counter
+// starts at item_lo and the warps stop at item_hi; the totals kernel writes
+// the rows of clusters [c0, c1) and zeros elsewhere. A cluster's items all
+// lie in one range and are totalled in item order, so a range's rows are
+// the whole launch's bit for bit. The range lives on the device (the cuts
+// are computed there), so the launch needs no host synchronisation.
 //
 // blk (128, 256, 512; p3m.p3m_kernel_blk) sets the threads of a block, so
 // blk / 32 warps, each with its own 32 rows of shared memory; the grid is
@@ -204,15 +217,17 @@ __device__ __forceinline__ void cluster_terms(const float4* sj, unsigned rows, f
 // box: two float4 a cluster, (lo, 0) and (hi, 0). Item w: i-cluster it_cl[w]
 // (-1 past the live items, which come first), j-clusters [it_k0, it_k1) of
 // its stencil numbering; its partial sums go to partial[w] as (3, CL)
-// doubles.
+// doubles. `range` (4 ints on the device: item_lo, item_hi, c0, c1) or null
+// for every item; next_item starts at item_lo.
 template <int BLK>
 __global__ void __launch_bounds__(BLK)
     p3m_sr_kernel(const float4* __restrict__ padded, const float4* __restrict__ box,
                   const int* __restrict__ cfirst, const int* __restrict__ ncl,
                   const int* __restrict__ cl_cell, const int* __restrict__ it_cl,
                   const int* __restrict__ it_k0, const int* __restrict__ it_k1,
-                  const float* __restrict__ meta, double* __restrict__ partial,
-                  int* __restrict__ next_item, int items, int gc) {
+                  const float* __restrict__ meta, const int* __restrict__ range,
+                  double* __restrict__ partial, int* __restrict__ next_item, int items,
+                  int gc) {
   static_assert(BLK % CL == 0, "whole warps");
   __shared__ float4 sj_all[BLK];
   const int lane = threadIdx.x & (CL - 1);
@@ -221,12 +236,13 @@ __global__ void __launch_bounds__(BLK)
   const float rcut2 = meta[1];
   const float inv_2s2 = meta[2];
   const float inv_sq2s3 = meta[3];
+  const int item_hi = range != nullptr ? range[1] : items;
 
   for (;;) {
     int w = 0;
     if (lane == 0) w = atomicAdd(next_item, 1);
     w = __shfl_sync(FULL, w, 0);
-    if (w >= items) return;
+    if (w >= item_hi) return;
     const int ic = it_cl[w];
     if (ic < 0) return;  // the live items are a prefix: none is left
     const int k0 = it_k0[w];
@@ -281,17 +297,20 @@ __global__ void __launch_bounds__(BLK)
   }
 }
 
-// acc_pad[r] = the float32 sum of cluster r / CL's items in item order.
+// acc_pad[r] = the float32 sum of cluster r / CL's items in item order; 0
+// for a cluster outside `range`'s [c0, c1) (range null: every cluster).
 __global__ void p3m_sr_total_kernel(const double* __restrict__ partial,
                                     const int* __restrict__ cl_item0,
                                     const int* __restrict__ cl_nitem,
+                                    const int* __restrict__ range,
                                     float4* __restrict__ acc_pad, int64_t rows) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const int64_t cl = r / CL;
   const int lane = static_cast<int>(r % CL);
   const int64_t t0 = cl_item0[cl];
-  const int nt = cl_nitem[cl];
+  const bool mine = range == nullptr || (cl >= range[2] && cl < range[3]);
+  const int nt = mine ? cl_nitem[cl] : 0;
   double x = 0.0, y = 0.0, z = 0.0;
   for (int t = 0; t < nt; ++t) {
     const double* p = partial + (t0 + t) * 3 * CL;
@@ -315,6 +334,7 @@ struct Args {
   const int* cl_item0;
   const int* cl_nitem;
   const float* meta;
+  const int* range;
   double* partial;
   int* next_item;
   float4* acc_pad;
@@ -335,21 +355,45 @@ cudaError_t launch(const Args& a, int64_t items, int64_t rows, int gc, cudaStrea
   if (grid > 0) {
     p3m_sr_kernel<BLK><<<static_cast<unsigned int>(grid), BLK, 0, s>>>(
         a.padded, a.box, a.cfirst, a.ncl, a.cl_cell, a.it_cl, a.it_k0, a.it_k1, a.meta,
-        a.partial, a.next_item, static_cast<int>(items), gc);
+        a.range, a.partial, a.next_item, static_cast<int>(items), gc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   constexpr int TOTAL_THREADS = 256;
   p3m_sr_total_kernel<<<static_cast<unsigned int>((rows + TOTAL_THREADS - 1) / TOTAL_THREADS),
-                        TOTAL_THREADS, 0, s>>>(a.partial, a.cl_item0, a.cl_nitem, a.acc_pad,
-                                               rows);
+                        TOTAL_THREADS, 0, s>>>(a.partial, a.cl_item0, a.cl_nitem, a.range,
+                                               a.acc_pad, rows);
   return cudaGetLastError();
 }
 
+int run(const void* padded, const void* box, const void* cfirst, const void* ncl,
+        const void* cl_cell, const void* it_cl, const void* it_k0, const void* it_k1,
+        const void* cl_item0, const void* cl_nitem, const void* meta, const void* range,
+        void* partial, void* next_item, void* acc_pad, int64_t items, int64_t rows, int64_t gc,
+        int64_t blk, void* stream) {
+  if (items < 0 || items > 0x7fffffff || rows < 0 || rows % CL || gc < 1)
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const Args a{static_cast<const float4*>(padded), static_cast<const float4*>(box),
+               static_cast<const int*>(cfirst),    static_cast<const int*>(ncl),
+               static_cast<const int*>(cl_cell),   static_cast<const int*>(it_cl),
+               static_cast<const int*>(it_k0),     static_cast<const int*>(it_k1),
+               static_cast<const int*>(cl_item0),  static_cast<const int*>(cl_nitem),
+               static_cast<const float*>(meta),    static_cast<const int*>(range),
+               static_cast<double*>(partial),      static_cast<int*>(next_item),
+               static_cast<float4*>(acc_pad)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(gc);
+  switch (blk) {
+    case 128: return launch<128>(a, items, rows, g, s);
+    case 256: return launch<256>(a, items, rows, g, s);
+    case 512: return launch<512>(a, items, rows, g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 }  // namespace
 
 extern "C" {
-
 // acc_pad (rows, 4) of the padded layout padded (rows, 4), rows = CL x the
 // clusters of the tables; box (rows / CL, 8); cfirst / ncl the (gc^3,) first
 // cluster and cluster count of each cell; cl_cell, cl_item0, cl_nitem
@@ -362,24 +406,20 @@ int nbody_p3m_sr_f32(const void* padded, const void* box, const void* cfirst, co
                      const void* it_k1, const void* cl_item0, const void* cl_nitem,
                      const void* meta, void* partial, void* next_item, void* acc_pad,
                      int64_t items, int64_t rows, int64_t gc, int64_t blk, void* stream) {
-  if (items < 0 || items > 0x7fffffff || rows < 0 || rows % CL || gc < 1)
-    return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
-  const Args a{static_cast<const float4*>(padded), static_cast<const float4*>(box),
-               static_cast<const int*>(cfirst),    static_cast<const int*>(ncl),
-               static_cast<const int*>(cl_cell),   static_cast<const int*>(it_cl),
-               static_cast<const int*>(it_k0),     static_cast<const int*>(it_k1),
-               static_cast<const int*>(cl_item0),  static_cast<const int*>(cl_nitem),
-               static_cast<const float*>(meta),    static_cast<double*>(partial),
-               static_cast<int*>(next_item),       static_cast<float4*>(acc_pad)};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int g = static_cast<int>(gc);
-  switch (blk) {
-    case 128: return launch<128>(a, items, rows, g, s);
-    case 256: return launch<256>(a, items, rows, g, s);
-    case 512: return launch<512>(a, items, rows, g, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return run(padded, box, cfirst, ncl, cl_cell, it_cl, it_k0, it_k1, cl_item0, cl_nitem, meta,
+             nullptr, partial, next_item, acc_pad, items, rows, gc, blk, stream);
 }
 
+// The same over a rank's range: `range` the (4,) device ints item_lo,
+// item_hi, c0, c1, and next_item equal to item_lo on entry; the rows of
+// clusters outside [c0, c1) are written 0.
+int nbody_p3m_sr_range_f32(const void* padded, const void* box, const void* cfirst,
+                           const void* ncl, const void* cl_cell, const void* it_cl,
+                           const void* it_k0, const void* it_k1, const void* cl_item0,
+                           const void* cl_nitem, const void* meta, const void* range,
+                           void* partial, void* next_item, void* acc_pad, int64_t items,
+                           int64_t rows, int64_t gc, int64_t blk, void* stream) {
+  return run(padded, box, cfirst, ncl, cl_cell, it_cl, it_k0, it_k1, cl_item0, cl_nitem, meta,
+             range, partial, next_item, acc_pad, items, rows, gc, blk, stream);
+}
 }  // extern "C"

@@ -5,9 +5,9 @@ far: fp32 or fp64 (``dtype=torch.float64``, below), damped semi-implicit
 Euler, leapfrog or 4th-order Hermite, the one-sided force
 (``variant="vpu"``), the each-pair-once force
 (``variant="sym"``) or the force reduction on the tensor cores
-(``variant="mxu"`` / ``"mxu_bf16"``, Euler), the P3M fast mode
-(``kernel="p3m"``, Euler and leapfrog, one device), the energy diagnostics,
-and a 1-D body mesh (``mesh=``, ``strategy=``, below).
+(``variant="mxu"`` / ``"mxu_bf16"``, Euler), the mesh solvers (``kernel=
+"pm"`` and ``"p3m"``, Euler and leapfrog, on one device or a 1-D mesh), the
+energy diagnostics, and a body mesh (``mesh=``, ``strategy=``, below).
 
 State lives in two preallocated pairs of (pos, vel) buffers, the reference's
 ping-pong double buffer: a step reads one pair and writes the other, so the
@@ -40,10 +40,12 @@ float64 with "torch": nbody_tpu's fp64 is its XLA path, so ``variant="auto"``
 resolves to "vpu", "sym" (Pallas-only there) raises, and "mxu" / "mxu_bf16"
 run the one-sided kernels, as that path ignores them. On a mesh float64
 runs allgather, ring, auto and the 2-D step; the ring_fused and sym
-strategies raise (float32 kernels). ``kernel="p3m"`` raises: in float64 it
-is a later slice (ROADMAP.md Queue 1 #16). ``switch_precision()`` hops
+strategies raise (float32 kernels). ``kernel="pm"`` / ``"p3m"`` in float64
+does what ``nbody_tpu``'s BodySystem does: the mesh solver's force from the
+float32 positions, the update in float64. ``switch_precision()`` hops
 between float32 and float64 with the same state, as the reference's Enter
-key does.
+key does; like ``nbody_tpu``'s it runs the exact all-pairs force in float64
+(the double kernels) and the requested kernel again on the way back.
 
 Integrators: "euler" (damped semi-implicit), "leapfrog" (drift-kick-drift
 around one force evaluation of the variant's force) and "hermite" (the
@@ -55,15 +57,24 @@ Kernels (the algorithm; the JAX package's ``backend`` "pallas" / "xla" /
 "pm" / "p3m", the CLI's ``--kernel``; here ``backend`` already names the
 implementation, so the algorithm has its own keyword):
   * "auto" — the all-pairs force of the variant above
-  * "p3m"  — PM long range + exact short range (``ops/p3m.py``), CIC with
-    the optimal influence, on a ``pm_grid``^3 mesh, with Euler or leapfrog;
-    the variant is ignored, as in the JAX package. The short range runs the
-    pair kernel (``csrc/p3m_kernels.cu``) with backend "cuda", its plain
-    version with "torch". ``p3m_capacity`` is the cell capacity: None
-    auto-sizes it from the first state (max occupancy + 50 %, a multiple
-    of 8), and every state set raises when a cell overflows it; each step
-    of ``update_many`` probes the contract on the device and a call that
-    breached it warns once, naming the first breached step.
+  * "pm"   — plain particle-mesh (``ops/pm.py``): the raw 1/r kernel on a
+    ``pm_grid``^3 mesh, ``pm_assignment`` "cic" or "tsc"; plain PyTorch, as
+    the JAX package's PM is XLA
+  * "p3m"  — PM long range + exact short range (``ops/p3m.py``), the
+    optimal influence, ``pm_assignment`` "cic" or "tsc", with Euler or
+    leapfrog; the variant is ignored, as in the JAX package. The short
+    range runs the pair kernel (``csrc/p3m_kernels.cu``) with backend
+    "cuda", its plain version with "torch"; ``p3m_short_range`` "auto" and
+    "pallas" both name it ("xla", the JAX package's cell-list engine, is
+    refused naming ROADMAP.md Queue 1 #16). ``p3m_capacity`` is the cell
+    capacity: None auto-sizes it from the first state (max occupancy +
+    50 %, a multiple of 8), and every state set raises when a cell
+    overflows it. Each step of ``update_many`` probes the contract on the
+    device (no host synchronisation) and keeps the first breached step and
+    its state; after the steps, a breach warns once per episode, naming
+    the step, or with ``p3m_auto_refresh`` rewinds to that state, re-sizes
+    the capacity from it (``refresh_p3m_contract``) and runs the remaining
+    steps (``p3m_refreshes`` lists each rewind).
 
 Placements (the reference's BodySystemCUDA variants):
   * "device" — state stays in device memory between calls
@@ -79,8 +90,12 @@ holds N/D bodies (N rounded up to a multiple of D with zero-mass bodies, as
 fused ring kernel), "sym" (each pair once across the mesh) or "auto"
 (``choose_strategy``). With ``mesh=make_mesh_2d(R, C)`` the R·C ranks run
 ``make_sharded_step_2d`` (``strategy`` reads "2d"; the mxu variants and
-P3M raise, and so do the strategies "sym", as in ``nbody_tpu``'s CLI, and
-"ring_fused"). On a mesh
+the mesh solvers raise, and so do the strategies "sym", as in
+``nbody_tpu``'s CLI, and "ring_fused"). With ``kernel="pm"`` / ``"p3m"`` a
+1-D mesh runs ``make_sharded_pm_step`` / ``make_sharded_p3m_step`` whatever
+the strategy, ``pm_fft`` "replicated" (a fixed-order sum of the density
+grid, a redundant solve a rank) or "slab" (the distributed FFT; D must
+divide 2 * pm_grid). On a mesh
 ``variant="auto"`` is "vpu" and the variant reaches only the allgather Euler
 step, as in ``nbody_tpu``. The accessors speak of the whole system on every
 rank: ``state``, ``positions``, ``velocities``, ``accelerations()`` and
@@ -112,7 +127,14 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     potential_energy_per_row_cuda,
     sym_default_dispatch,
 )
-from nbody_tpu_torch.ops.p3m import p3m_accel, p3m_max_occupancy, p3m_overflow_count
+from nbody_tpu_torch.ops.p3m import (
+    check_short_range,
+    make_sharded_p3m_step,
+    p3m_accel,
+    p3m_max_occupancy,
+    p3m_overflow_count,
+)
+from nbody_tpu_torch.ops.pm import check_assignment, check_slab, make_sharded_pm_step, pm_accel
 from nbody_tpu_torch.ops.energy import (
     kinetic_energy,
     potential_energy_per_row,
@@ -124,10 +146,8 @@ from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 # Options of nbody_tpu that later slices of the port bring, and the
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
-    "pm": "Queue 1 #16 (the rest of #10: plain PM, TSC, refresh and the XLA cell list; "
-          "P3M in float64; the sharded PM and P3M steps)",
-    "mesh": "Queue 1 #13 (the rest of parallel/: the demo loop and --selftest on a mesh)",
-    "adaptive": "Queue 1 #7 (adaptive and block timesteps; their sharded rollouts with #13)",
+    "pm": "Queue 1 #16 (the rest of #10: the XLA cell-list engine, --p3m-short-range xla)",
+    "adaptive": "Queue 1 #7 (adaptive and block timesteps, and their sharded rollouts)",
 }
 
 
@@ -272,7 +292,11 @@ class BodySystem:
         integrator: str = "euler",
         kernel: str = "auto",
         pm_grid: int = 64,
+        pm_assignment: str = "cic",
+        pm_fft: str = "replicated",
         p3m_capacity: Optional[int] = None,
+        p3m_short_range: str = "auto",
+        p3m_auto_refresh: bool = False,
         dtype=torch.float32,
         mesh=None,
         strategy: str = "auto",
@@ -295,16 +319,16 @@ class BodySystem:
         self._requested_backend = backend
         self._requested_variant = variant
         self._requested_strategy = strategy
-        if backend == "pm":
-            raise not_ported("backend", backend)
-        if backend == "p3m":
+        self._requested_kernel = kernel
+        if backend in ("pm", "p3m"):
             raise ValueError(
-                "backend='p3m' names an algorithm; the port's backend is the "
-                "implementation ('cuda', 'torch' or 'auto'): pass kernel='p3m'")
-        if kernel == "pm":
-            raise not_ported("kernel", kernel)
-        if kernel not in ("auto", "p3m"):
+                f"backend={backend!r} names an algorithm; the port's backend is the "
+                f"implementation ('cuda', 'torch' or 'auto'): pass kernel={backend!r}")
+        if kernel not in ("auto", "pm", "p3m"):
             raise ValueError(f"unknown kernel {kernel!r}")
+        mesh_solver = kernel in ("pm", "p3m")
+        check_assignment(pm_assignment)
+        check_short_range(p3m_short_range)
         if backend not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
@@ -315,26 +339,24 @@ class BodySystem:
             raise ValueError(f"unknown kernel variant {variant!r}")
         if integrator not in ("euler", "leapfrog", "hermite"):
             raise ValueError(f"unknown integrator {integrator!r}")
-        if fp64 and kernel == "p3m":
-            raise not_ported("kernel with dtype float64", "p3m", key="pm")
         if fp64 and variant == "sym":
             # nbody_tpu/models/body_system.py:176-181: sym is its Pallas
             # kernel, and its fp64 is the XLA path
             raise ValueError(
                 "variant='sym' runs the float32 each-pair-once kernels; fp64 runs "
                 "the one-sided double kernels: use variant='auto' or 'vpu'")
-        if integrator == "hermite" and kernel == "p3m":
+        if integrator == "hermite" and mesh_solver:
             raise ValueError(
                 "integrator='hermite' needs the jerk of the exact pairwise "
                 "force, which the mesh solvers do not provide; use euler "
-                "or leapfrog with kernel='p3m'")
+                f"or leapfrog with kernel={kernel!r}")
         if mesh is not None:
             # nbody_tpu/models/body_system.py:184-189, 229-236, 244-264
-            if kernel == "p3m" and two_d:
+            if mesh_solver and two_d:
                 raise ValueError("the mesh solvers shard over a 1-D body mesh; use a 1-D "
-                                 "mesh with kernel='p3m'")
-            if kernel == "p3m":
-                raise not_ported("mesh with kernel", "p3m", key="pm")
+                                 "mesh with kernel='pm'/'p3m'")
+            if mesh_solver:
+                check_slab(pm_fft, int(pm_grid), ndev)
             if variant == "sym":
                 raise ValueError(
                     "variant='sym' is single-device (the reaction "
@@ -356,13 +378,20 @@ class BodySystem:
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
         if placement not in ("device", "host"):
             raise ValueError(f"unknown placement {placement!r}")
+        check_slab(pm_fft, int(pm_grid), 1)
 
         self.backend = backend
         self.variant = variant
         self.integrator = integrator
         self.kernel = kernel
         self.pm_grid = int(pm_grid)
+        self.pm_assignment = pm_assignment
+        self.pm_fft = pm_fft
         self.p3m_capacity = None if p3m_capacity is None else int(p3m_capacity)
+        self.p3m_short_range = p3m_short_range
+        self.p3m_auto_refresh = bool(p3m_auto_refresh)
+        # the auto-refresh's rewinds: (step of the call, capacity before, after)
+        self.p3m_refreshes = []
         self._p3m_contract_warned = False
         self.dtype = dtype
         self.placement = placement
@@ -383,6 +412,10 @@ class BodySystem:
             self._sharded = make_sharded_step_2d(
                 mesh, axes=mesh.axis_names, backend=backend, block_size=self.block_size,
                 integrator=integrator)
+        elif mesh is not None and mesh_solver:
+            # built at the first step: P3M's capacity auto-sizes from the
+            # first state, set below
+            pass
         elif mesh is not None:
             from nbody_tpu_torch.parallel import choose_strategy, make_sharded_step
 
@@ -438,6 +471,23 @@ class BodySystem:
             self._vel[self._cur].copy_(v)
         if self.kernel == "p3m":
             self._probe_p3m_capacity(p)
+
+    def _mesh_solver_step(self):
+        """The sharded step of kernel pm / p3m on a 1-D mesh, made at the
+        first step (P3M's with the resolved capacity) and again after a
+        refresh."""
+        if self._sharded is None:
+            if self.kernel == "pm":
+                self._sharded = make_sharded_pm_step(
+                    self.mesh, grid=self.pm_grid, axis=self.mesh.axis,
+                    integrator=self.integrator, assignment=self.pm_assignment,
+                    fft=self.pm_fft)
+            else:
+                self._sharded = make_sharded_p3m_step(
+                    self.mesh, grid=self.pm_grid, capacity=self.p3m_capacity,
+                    axis=self.mesh.axis, integrator=self.integrator,
+                    assignment=self.pm_assignment, fft=self.pm_fft, backend=self.backend)
+        return self._sharded
 
     def set_positions(self, pos) -> None:
         """Replace the positions, keeping the velocities (nbody_tpu's
@@ -513,11 +563,16 @@ class BodySystem:
 
     def _accel(self, pos: torch.Tensor) -> torch.Tensor:
         """Acceleration (N,3) of `pos` with this system's backend and force
-        variant."""
+        variant. The mesh solvers' comes from the float32 positions, in the
+        state's type."""
         soft = self.params.softening
+        if self.kernel == "pm":
+            return pm_accel(pos.to(torch.float32), grid=self.pm_grid,
+                            assignment=self.pm_assignment).to(pos.dtype)
         if self.kernel == "p3m":
-            return p3m_accel(pos, soft, grid=self.pm_grid, capacity=self.p3m_capacity,
-                             backend=self.backend)[0]
+            return p3m_accel(pos.to(torch.float32), soft, grid=self.pm_grid,
+                             capacity=self.p3m_capacity, backend=self.backend,
+                             assignment=self.pm_assignment)[0].to(pos.dtype)
         if self.variant == "sym":
             if self.backend == "cuda":
                 return compute_accel_symmetric_blocked_cuda(pos, soft)
@@ -571,7 +626,8 @@ class BodySystem:
         pos, vel = self._pos[cur], self._vel[cur]
         out = (self._pos[nxt], self._vel[nxt])
         if self.mesh is not None:
-            for t, r in zip(out, self._sharded(pos, vel, dt, p.softening, p.damping)):
+            step = self._sharded if self.kernel == "auto" else self._mesh_solver_step()
+            for t, r in zip(out, step(pos, vel, dt, p.softening, p.damping)):
                 t.copy_(r)
         elif self.integrator in ("leapfrog", "hermite"):
             if self.integrator == "leapfrog":
@@ -582,7 +638,7 @@ class BodySystem:
                     pos, vel, dt, p.softening, p.damping, accel_jerk_fn=self._accel_jerk)
             out[0].copy_(new_pos)
             out[1].copy_(new_vel)
-        elif self.kernel == "p3m":
+        elif self.kernel != "auto":
             reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         elif self.variant == "vpu" and self.backend == "cuda":
             nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
@@ -604,51 +660,91 @@ class BodySystem:
 
         With kernel='p3m' each step also probes the capacity contract on the
         device (``p3m_overflow_count`` of the new state > 0, no FFT, no pair
-        math), and a device int keeps the first breached step; it is read
-        once, after the steps. A breach warns once per breach episode, as
-        the JAX package's probed rollout does (``update_many``,
-        ``nbody_tpu/models/body_system.py:907-960``)."""
+        math; on a mesh of the gathered state), and device tensors keep the
+        first breached step and its state; they are read once, after the
+        steps. A breach warns once per breach episode, as the JAX package's
+        probed rollout does (``update_many``,
+        ``nbody_tpu/models/body_system.py:907-960``), or with
+        p3m_auto_refresh rewinds to the breached state (every step before
+        it kept the contract), re-sizes the capacity from it and runs the
+        remaining steps."""
         dt = self.params.time_step if dt is None else dt
         host = self.placement == "host"
         if host:
             self._pos[self._cur].copy_(self._host_pos, non_blocking=True)
             self._vel[self._cur].copy_(self._host_vel, non_blocking=True)
-        probed = self.kernel == "p3m" and steps > 0
-        if probed:
-            first = torch.full((), -1, dtype=torch.int64, device=self.device)
-        for i in range(steps):
-            self._step(dt)
-            if probed:
-                breach = p3m_overflow_count(self._pos[self._cur], grid=self.pm_grid,
-                                            capacity=self.p3m_capacity) > 0
-                first = torch.where((first < 0) & breach, i, first)
+        done = 0
+        while done < steps:
+            first = self._probed_steps(steps - done, dt)
+            if first < 0:
+                self._p3m_contract_warned = False
+                break
+            if self.p3m_auto_refresh:
+                # resume from the state of the first breached step
+                self._pos[self._cur].copy_(self._snapshot[0])
+                self._vel[self._cur].copy_(self._snapshot[1])
+                before = self.p3m_capacity
+                self.refresh_p3m_contract()
+                self.p3m_refreshes.append((done + first, before, self.p3m_capacity))
+                done += first + 1
+                continue
+            if not self._p3m_contract_warned:
+                import warnings
+
+                warnings.warn(
+                    f"p3m contract broken mid-rollout: first breach at step {done + first} "
+                    f"of {steps} — short-range terms have been dropped since. Call "
+                    "refresh_p3m_contract() and re-run, enable p3m_auto_refresh "
+                    "(--p3m-auto-refresh), or raise --p3m-capacity / --pm-grid.",
+                    stacklevel=2,
+                )
+                self._p3m_contract_warned = True
+            break
+        self._snapshot = None
         if host:
             # a copy into pageable or pinned host memory without
             # non_blocking waits for the steps to finish
             self._host_pos.copy_(self._pos[self._cur])
             self._host_vel.copy_(self._vel[self._cur])
+
+    def _probed_steps(self, steps: int, dt) -> int:
+        """`steps` steps; with kernel='p3m' the first breached step of them
+        (-1 if none, always -1 otherwise), read once after the steps, and
+        with p3m_auto_refresh its state in ``_snapshot``."""
+        probed = self.kernel == "p3m" and steps > 0
         if probed:
-            self._report_p3m_breach(int(first), steps)
+            first = torch.full((), -1, dtype=torch.int64, device=self.device)
+            snap = None
+        for i in range(steps):
+            self._step(dt)
+            if not probed:
+                continue
+            pos = self._pos[self._cur]
+            whole = self._gather(pos) if self.mesh is not None else pos
+            breach = p3m_overflow_count(whole.to(torch.float32), grid=self.pm_grid,
+                                        capacity=self.p3m_capacity) > 0
+            newly = (first < 0) & breach
+            first = torch.where(newly, i, first)
+            if self.p3m_auto_refresh:
+                state = (pos, self._vel[self._cur])
+                snap = ([t.clone() for t in state] if snap is None
+                        else [torch.where(newly, t, k) for t, k in zip(state, snap)])
+        self._snapshot = snap if probed else None
+        return int(first) if probed else -1
 
-    def _report_p3m_breach(self, first: int, steps: int) -> None:
-        """Warn once per breach episode: `first` is the first breached step
-        of a call of `steps` steps, or -1 when the contract held."""
-        if first < 0:
-            self._p3m_contract_warned = False
-            return
-        if self._p3m_contract_warned:
-            return
-        import warnings
-
-        warnings.warn(
-            f"p3m contract broken mid-rollout: first breach at step {first} of "
-            f"{steps} — short-range terms have been dropped since. Re-create the "
-            "system (the capacity auto-sizes from its first state), or raise "
-            "--p3m-capacity / --pm-grid (refresh_p3m_contract and "
-            "--p3m-auto-refresh: ROADMAP.md Queue 1 #16).",
-            stacklevel=3,
-        )
-        self._p3m_contract_warned = True
+    def refresh_p3m_contract(self) -> None:
+        """Re-size the P3M capacity from the current state (the whole state
+        on a mesh, where every rank calls it) and rebuild the sharded step:
+        the answer to the mid-run contract warning, as ``nbody_tpu``'s
+        (``body_system.py:849-860``)."""
+        if self.kernel != "p3m":
+            raise ValueError("refresh_p3m_contract applies to kernel='p3m'")
+        self.p3m_capacity = None
+        if self.mesh is not None:
+            self._sharded = None  # rebuilt at the next step with the new size
+        self._p3m_contract_warned = False
+        pos = self._device_state()[0]
+        self._probe_p3m_capacity(self._gather(pos) if self.mesh is not None else pos)
 
     def _device_state(self):
         """The current (pos, vel) on the device; with placement='host' the
@@ -672,7 +768,8 @@ class BodySystem:
         if self.mesh is not None:
             soft = self.params.softening
             if self.mxu_force is None:
-                return self._gather(self._sharded.accel(pos, soft))
+                sharded = self._sharded if self.kernel == "auto" else self._mesh_solver_step()
+                return self._gather(sharded.accel(pos, soft))
             vel = self._sharded(pos, torch.zeros_like(pos), 1.0, soft, 1.0)[1]
             return self._gather(vel[:, :3].contiguous())
         if self.mxu_force is None:
@@ -709,7 +806,8 @@ class BodySystem:
         variant and mesh strategy are carried across the hop: a sym variant,
         or a ring_fused or sym strategy, runs "auto" in float64 (they are
         float32 kernels) and again on the way back, so fp32 -> fp64 -> fp32
-        restores them."""
+        restores them; kernel "pm" / "p3m" likewise runs the exact force in
+        float64, as ``nbody_tpu``'s hop does."""
         to64 = self.dtype == torch.float32
         self.synchronize()
         requested = self._requested_variant
@@ -718,13 +816,20 @@ class BodySystem:
             self.num_bodies, self.params, device=self.device, backend=self._requested_backend,
             block_size=self.block_size, placement=self.placement,
             variant="auto" if to64 and requested == "sym" else requested,
-            integrator=self.integrator, kernel=self.kernel, pm_grid=self.pm_grid,
-            p3m_capacity=self.p3m_capacity, dtype=torch.float64 if to64 else torch.float32,
+            integrator=self.integrator,
+            # nbody_tpu's float64 hop runs its exact XLA force
+            # (body_system.py:1375-1381): the double kernels here
+            kernel="auto" if to64 else self._requested_kernel, pm_grid=self.pm_grid,
+            pm_assignment=self.pm_assignment, pm_fft=self.pm_fft,
+            p3m_capacity=self.p3m_capacity, p3m_short_range=self.p3m_short_range,
+            p3m_auto_refresh=self.p3m_auto_refresh,
+            dtype=torch.float64 if to64 else torch.float32,
             mesh=self.mesh,
             strategy="auto" if to64 and strategy in ("ring_fused", "sym") else strategy,
             config=self.config, seed=self.seed, state=(self.positions, self.velocities))
         other._requested_variant = requested
         other._requested_strategy = strategy
+        other._requested_kernel = self._requested_kernel
         return other
 
     # ---- diagnostics ----

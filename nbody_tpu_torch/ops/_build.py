@@ -267,10 +267,15 @@ def ptxas_lines(source, *, label: str | None = None, usage: dict | None = None) 
 
 
 def declare_p3m_sr(lib) -> None:
-    """The C signature of ``nbody_p3m_sr_f32`` (csrc/p3m_kernels.cu) on `lib`."""
+    """The C signatures of ``nbody_p3m_sr_f32`` and, where `lib` has it,
+    ``nbody_p3m_sr_range_f32`` (csrc/p3m_kernels.cu) on `lib`."""
     lib.nbody_p3m_sr_f32.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4 + [
         ctypes.c_void_p]
     lib.nbody_p3m_sr_f32.restype = ctypes.c_int
+    if hasattr(lib, "nbody_p3m_sr_range_f32"):
+        lib.nbody_p3m_sr_range_f32.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int64] * 4 + [
+            ctypes.c_void_p]
+        lib.nbody_p3m_sr_range_f32.restype = ctypes.c_int
 
 
 def declare_sym(lib) -> None:

@@ -70,7 +70,8 @@ LAUNCHES = {"step": 0, "step_t": 0, "mxu_step": 0, "mxu_bf16_step": 0, "accel": 
             "ds_step": 0, "ds_leapfrog": 0, "ds_sym": 0, "ds_sym_cross": 0,
             "ds_integrate": 0, "ds_accel": 0, "ds_accel_jerk": 0, "ds_aj_sym": 0,
             "ds_aj_sym_cross": 0,
-            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "ring_fused": 0,
+            "ds_hermite_predict": 0, "ds_hermite_correct": 0, "p3m_sr": 0, "p3m_sr_range": 0,
+            "ring_fused": 0,
             "step_dual": 0, "step_packed": 0, "sym_ablate_full": 0, "sym_ablate_none": 0,
             "sym_ablate_tree_small": 0,
             "step_f64": 0, "accel_f64": 0, "accel_jerk_f64": 0, "potential_f64": 0}
@@ -1787,14 +1788,16 @@ def ds_hermite_correct_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc0_hi, acc0_lo, je
 P3M_BLKS = (128, 256, 512)
 
 
-def p3m_sr_launch(tables, lib=None):
+def p3m_sr_launch(tables, lib=None, rng=None):
     """Check the tables of ``p3m.pair_tables`` and launch ``nbody_p3m_sr_f32``
     (the pair kernel and its per-row totals) over them on the current
     stream: the (R, 4) short-range sums of the padded rows (w = 0; rows of
-    inert i-rows hold nothing of use). `lib` is the port's library by
-    default, or another build of the same source
+    inert i-rows hold nothing of use). With `rng`, a rank's range of
+    ``p3m.item_range`` ((4,) int32 on the device), ``nbody_p3m_sr_range_f32``
+    over that range: the rows of its clusters, zeros elsewhere. `lib` is the
+    port's library by default, or another build of the same source
     (``scripts/torch_p3m_bench.py``). Does not count: see
-    ``p3m_sr_pairs_cuda``."""
+    ``p3m_sr_pairs_cuda`` and ``p3m_sr_range_cuda``."""
     padded = tables.padded
     device = padded.device
     _check_state("padded", padded, device)
@@ -1825,14 +1828,24 @@ def p3m_sr_launch(tables, lib=None):
         lib = load_library()
     acc_pad = torch.empty_like(padded)
     partial = torch.empty((items, 3, 32), dtype=torch.float64, device=device)
-    next_item = torch.zeros(1, dtype=torch.int32, device=device)
+    if rng is None:
+        next_item = torch.zeros(1, dtype=torch.int32, device=device)
+        ranged = ()
+        entry = "nbody_p3m_sr_f32"
+    else:
+        if rng.dtype != torch.int32 or rng.shape != (4,) or rng.device != device:
+            raise ValueError(f"the range must be (4,) int32 on {device}")
+        rng = rng.contiguous()
+        next_item = rng[:1].clone()  # the counter starts at item_lo
+        ranged = (rng.data_ptr(),)
+        entry = "nbody_p3m_sr_range_f32"
     with torch.cuda.device(device):
-        err = lib.nbody_p3m_sr_f32(
+        err = getattr(lib, entry)(
             padded.data_ptr(), box.data_ptr(), *(t.data_ptr() for t in ints),
-            tables.meta.data_ptr(), partial.data_ptr(), next_item.data_ptr(),
+            tables.meta.data_ptr(), *ranged, partial.data_ptr(), next_item.data_ptr(),
             acc_pad.data_ptr(), items, padded.shape[0], tables.gc, tables.blk,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, err, "nbody_p3m_sr_f32 launch")
+    _raise_on_error(lib, err, f"{entry} launch")
     return acc_pad
 
 
@@ -1844,6 +1857,17 @@ def p3m_sr_pairs_cuda(tables):
     ``reference.p3m_short_range``)."""
     acc_pad = p3m_sr_launch(tables)
     LAUNCHES["p3m_sr"] += 1
+    return acc_pad
+
+
+def p3m_sr_range_cuda(tables, rng):
+    """One launch of the pair kernel over a rank's range of the tables'
+    work (``nbody_p3m_sr_range_f32``; `rng` from ``p3m.item_range``),
+    counted: the (R, 4) sums of the range's padded rows, zeros elsewhere,
+    each row bit-equal to the whole launch's. CUDA tensors only: the plain
+    version of a range is ``p3m.short_range_part`` on a CPU tensor."""
+    acc_pad = p3m_sr_launch(tables, rng=rng)
+    LAUNCHES["p3m_sr_range"] += 1
     return acc_pad
 
 

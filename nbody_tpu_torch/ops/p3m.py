@@ -1,13 +1,14 @@
 """P3M (particle-particle particle-mesh): near-exact forces at mesh speed.
 
-Counterpart of ``nbody_tpu/ops/p3m.py`` with CIC assignment and the
-optimal-influence long range, on one device, in float32. The softened
-Plummer force splits into a smooth long-range part solved on the PM mesh
-and an exact short-range correction summed over neighbours only:
+Counterpart of ``nbody_tpu/ops/p3m.py``, in float32, on one device or a
+1-D mesh (``make_sharded_p3m_step``). The softened Plummer force splits
+into a smooth long-range part solved on the PM mesh and an exact
+short-range correction summed over neighbours only:
 
   long-range:  the PM pipeline (``ops/pm.py``) with the Gaussian-smoothed
                kernel erf(r / sqrt(2) sigma) / r, sigma = SIGMA_CELLS mesh
-               cells, in plain PyTorch (deposit, FFT solve, gather);
+               cells, CIC or TSC assignment, the optimal or the naive
+               influence, in plain PyTorch (deposit, FFT solve, gather);
   short-range: s_sr(r) = (r^2 + eps^2)^{-3/2} - s_lr(r), with s_lr the
                degree-10 polynomial _SLR_POLY of the reference's pair kernel
                (``nbody_tpu/ops/p3m_kernel.py:65``), truncated at
@@ -34,9 +35,19 @@ summed whatever the state: the contract of the reference's own off-TPU
 engine (``p3m_short_range="xla"``), which has no budget either. There is
 no ``p3m_pair_count`` and no budget breach; the only contract is capacity.
 
-Not ported yet (ROADMAP.md Queue 1 #16): plain PM, TSC assignment, the
-naive deconvolution, ``refresh_p3m_contract`` / auto refresh, the XLA
-cell-list engine and the sharded forms.
+On a mesh (``make_sharded_p3m_step``, the reference's ``short_range=
+"pallas"`` decomposition) the long range is the sharded PM's (replicated or
+slab, ``pm.long_range``). For the short range every rank all-gathers
+the positions and builds the tables of the whole state, as every TPU chip
+does; it then runs the pair kernel over its own contiguous range of
+i-clusters, cut at cluster boundaries so that the ranks' work items balance
+(``item_range``), and ``parallel.sharded.ring_reduce_scatter`` brings the
+rows to their owners. A padded row's items all run on one rank and are
+totalled in item order, so every rank's rows equal the one-device launch's
+bit for bit.
+
+Not ported yet (ROADMAP.md Queue 1 #16): the XLA cell-list engine
+(``p3m_short_range="xla"``).
 """
 
 from __future__ import annotations
@@ -49,11 +60,12 @@ import torch
 
 from nbody_tpu_torch.ops import cuda_kernel, reference
 from nbody_tpu_torch.ops.pm import (
-    _cic_indices_weights,
-    _deposit,
+    DECONVOLVE,
+    ShardedMeshStep,
     _fit_box,
-    _gather,
-    _solve_force_grids,
+    check_assignment,
+    check_slab,
+    long_range,
 )
 
 # Gaussian split scale, in PM-mesh cells, and the short-range truncation
@@ -78,10 +90,6 @@ _SLR_POLY = (
     -4.625102305643162e-08,
     8.792217886009483e-10,
 )
-
-# CIC's per-axis Fourier window is sinc^2
-_CIC_WINDOW_EXP = 2
-
 
 def p3m_kernel_blk(capacity: int) -> int:
     """Threads of a pair kernel block (blk / 32 warps, each computing its
@@ -398,33 +406,37 @@ def short_range_from_tables(acc_pad, tables: PairTables):
     return torch.where(kept[:, None], acc_pad[tables.body_row.clamp(max=rows - 1), :3], 0.0)
 
 
-def _check_options(assignment: str, influence: str) -> None:
-    if assignment == "cic" and influence == "optimal":
-        return
-    from nbody_tpu_torch.models.body_system import not_ported
-
-    if assignment != "cic":
-        raise not_ported("assignment", assignment, key="pm")
-    raise not_ported("influence", influence, key="pm")
+def check_influence(influence: str) -> str:
+    if influence not in ("naive", "optimal"):
+        raise ValueError(f"unknown influence {influence!r}")
+    return influence
 
 
-def p3m_long_range(pos, *, grid: int = 64):
-    """(N, 3) long-range accelerations: CIC deposit, the smoothed-kernel
-    solve with the optimal-influence correction, CIC gather."""
-    pos3 = pos[:, :3].to(torch.float32)
-    mass = pos[:, 3].to(torch.float32)
-    lo, h = _fit_box(pos3, grid)
-    sigma = SIGMA_CELLS * h
-    idx, w = _cic_indices_weights(pos3, lo, h, grid)
-    rho = _deposit(idx, w, mass, grid)
-    grids = _solve_force_grids(rho, h, grid, sigma, window_exp=_CIC_WINDOW_EXP,
-                               sigma_cells=SIGMA_CELLS)
-    return _gather(grids, idx, w)
+def p3m_long_range(pos, *, grid: int = 64, assignment: str = "cic",
+                   influence: str = "optimal"):
+    """(N, 3) long-range accelerations: the deposit, the smoothed-kernel
+    solve with the influence's correction, the gather."""
+    return long_range(pos, grid=grid, assignment=assignment, sigma_cells=SIGMA_CELLS,
+                      deconvolve=DECONVOLVE[check_influence(influence)])
+
+
+def check_short_range(short_range: str) -> str:
+    """"auto" and "pallas" (the reference's names) both run the pair kernel
+    (its plain version on the CPU); "xla", the reference's cell-list
+    engine, is refused naming the ROADMAP.md item that brings it."""
+    if short_range == "xla":
+        from nbody_tpu_torch.models.body_system import not_ported
+
+        raise not_ported("p3m_short_range", short_range, key="pm")
+    if short_range not in ("auto", "pallas"):
+        raise ValueError(f"unknown short_range {short_range!r}")
+    return short_range
 
 
 def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
               blk: int | None = None, backend: str = "auto",
-              assignment: str = "cic", influence: str = "optimal"):
+              assignment: str = "cic", influence: str = "optimal",
+              short_range: str = "auto"):
     """(N, 4) [x,y,z,m] -> ((N, 3) accelerations, overflow count, a 0-d
     tensor on pos's device).
 
@@ -437,12 +449,14 @@ def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
     ``p3m_kernel_blk(capacity)``."""
     if pos.shape[-1] != 4:
         raise ValueError("p3m_accel expects (N, 4) [x,y,z,m]")
-    _check_options(assignment, influence)
+    check_assignment(assignment)
+    check_influence(influence)
+    check_short_range(short_range)
     if backend == "auto":
         backend = "cuda" if pos.device.type == "cuda" else "torch"
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
-    acc_lr = p3m_long_range(pos, grid=grid)
+    acc_lr = p3m_long_range(pos, grid=grid, assignment=assignment, influence=influence)
     if backend == "cuda":
         acc_sr, overflow = cuda_kernel.p3m_short_range_cuda(
             pos, softening, grid=grid, capacity=capacity, blk=blk)
@@ -453,10 +467,127 @@ def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
 
 
 def nbody_step_p3m(pos, vel, dt, softening, damping, *, grid: int = 64,
-                   capacity: int = 128, blk: int | None = None, backend: str = "auto"):
+                   capacity: int = 128, blk: int | None = None, backend: str = "auto",
+                   assignment: str = "cic", influence: str = "optimal",
+                   short_range: str = "auto"):
     """P3M step with the reference's damped semi-implicit Euler update;
     returns (pos, vel, overflow)."""
     a, overflow = p3m_accel(pos, softening, grid=grid, capacity=capacity, blk=blk,
-                            backend=backend)
-    new_pos, new_vel = reference.integrate(pos, vel, a, dt, damping)
+                            backend=backend, assignment=assignment, influence=influence,
+                            short_range=short_range)
+    new_pos, new_vel = reference.integrate(pos, vel, a.to(pos.dtype), dt, damping)
     return new_pos, new_vel, overflow
+
+
+# ---- a rank's range of the pair kernel's work, and the sharded step ----
+
+
+def item_range(tables: PairTables, rank: int, ndev: int) -> torch.Tensor:
+    """Rank `rank` of `ndev`'s share of the pair kernel's work, a (4,) int32
+    tensor on the tables' device (no host synchronisation): [item_lo,
+    item_hi, c0, c1], the i-clusters [c0, c1) and their work items
+    [cl_item0[c0], cl_item0[c1]). The cuts fall at cluster boundaries,
+    cluster c1 of rank d being the first whose first item is at least
+    (d + 1) / ndev of the live items; the last rank's range ends past the
+    last cluster. Every item of a cluster thus runs on one rank."""
+    if not 0 <= rank < ndev:
+        raise ValueError(f"rank {rank} is not one of {ndev}")
+    item0 = tables.cl_item0.to(torch.int64)
+    nclb = item0.shape[0]
+    total = tables.cl_nitem.to(torch.int64).sum()
+    cuts = torch.searchsorted(item0, torch.stack([total * rank // ndev,
+                                                  total * (rank + 1) // ndev]))
+    if rank == ndev - 1:
+        cuts[1] = nclb
+    item0_ext = torch.cat([item0, total[None]])
+    return torch.cat([item0_ext[cuts], cuts]).to(torch.int32)
+
+
+def short_range_part(pos, softening, *, grid: int, capacity: int, rank: int, ndev: int,
+                     blk: int | None = None, backend: str = "auto", tables=None):
+    """(N, 3): the short-range force of the bodies whose padded rows lie in
+    rank `rank` of `ndev`'s range of i-clusters (``item_range``), 0 for the
+    others; and the overflow. On a CUDA tensor with backend "cuda" or
+    "auto", one ranged launch of the pair kernel
+    (``cuda_kernel.p3m_sr_range_cuda``); else its plain version,
+    ``reference.p3m_short_range`` restricted to those bodies. ``tables``
+    are the state's ``pair_tables`` when the caller has them."""
+    if backend == "auto":
+        backend = "cuda" if pos.device.type == "cuda" else "torch"
+    blk = p3m_kernel_blk(capacity) if blk is None else int(blk)
+    if tables is None:
+        tables = pair_tables(pos, softening, grid=grid, capacity=capacity, blk=blk)
+    rng = item_range(tables, rank, ndev)
+    if backend == "cuda" and pos.device.type == "cuda":
+        acc_pad = cuda_kernel.p3m_sr_range_cuda(tables, rng)
+        return short_range_from_tables(acc_pad, tables), tables.overflow
+    lo_row, hi_row = (int(c) * CLUSTER for c in rng[2:].tolist())
+    sel = torch.nonzero((tables.body_row >= lo_row) & (tables.body_row < hi_row)).flatten()
+    out = pos.new_zeros((pos.shape[0], 3), dtype=torch.float32)
+    out[sel] = reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity, rows=sel)
+    return out, tables.overflow
+
+
+def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,
+                           axis: str = "bodies", assignment: str = "cic",
+                           fft: str = "replicated", influence: str = "optimal",
+                           blk: int | None = None, backend: str = "auto"):
+    """The sharded P3M force: accel(pos_sh, softening) -> (nloc, 3) of this
+    rank's shard, the decomposition of ``_p3m_accel_local_factory``
+    (nbody_tpu/ops/p3m.py:460-545) with its ``short_range="pallas"`` path:
+
+    * long range: ``pm.long_range`` with the smoothed kernel, the
+      influence's correction and the assignment's window (replicated: the
+      shard's force; slab: every body's partial);
+    * short range: the positions all-gathered, ``pair_tables`` of the whole
+      state on every rank, the pair kernel over this rank's range of
+      i-clusters (``short_range_part``);
+    * the partials reach their owners by one ``ring_reduce_scatter``: the
+      short range's (replicated; its long range is the shard's already),
+      or the sum of both (slab), as the reference's psums do.
+
+    backend: "cuda" or "auto" (the pair kernel on a CUDA mesh, its plain
+    version on a CPU one), "torch" (the plain version)."""
+    from nbody_tpu_torch.parallel.mesh import all_gather_rows
+    from nbody_tpu_torch.parallel.sharded import ring_reduce_scatter
+
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    check_assignment(assignment)
+    check_influence(influence)
+    check_slab(fft, grid, mesh.size)
+    if backend not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    deconvolve = DECONVOLVE[influence]
+
+    def accel(pos_sh, softening):
+        pos_all = all_gather_rows(mesh, pos_sh)
+        lr = long_range(pos_sh, grid=grid, assignment=assignment, sigma_cells=SIGMA_CELLS,
+                        deconvolve=deconvolve, mesh=mesh, fft=fft, pos_all=pos_all)
+        sr, _ = short_range_part(pos_all.to(torch.float32), softening, grid=grid,
+                                 capacity=capacity, rank=mesh.rank, ndev=mesh.size, blk=blk,
+                                 backend=backend)
+        if fft == "slab":
+            (acc,) = ring_reduce_scatter(mesh, (lr + sr,), reference.add_fields)
+            return acc
+        (sr,) = ring_reduce_scatter(mesh, (sr,), reference.add_fields)
+        return lr + sr
+
+    return accel
+
+
+def make_sharded_p3m_step(mesh, *, grid: int = 64, capacity: int = 128, axis: str = "bodies",
+                          integrator: str = "euler", assignment: str = "cic",
+                          fft: str = "replicated", influence: str = "optimal",
+                          blk: int | None = None, backend: str = "auto") -> ShardedMeshStep:
+    """Body-sharded P3M step over a 1-D mesh (``nbody_tpu/ops/p3m.py:
+    608-718``): (pos, vel, dt, softening, damping) -> (pos, vel) of this
+    rank's shard, Euler or leapfrog, the force of
+    ``make_sharded_p3m_accel``. The overflow is not returned: callers check
+    the capacity against their states (``BodySystem`` does, at every state
+    set and every step)."""
+    if integrator not in ("euler", "leapfrog"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+    return ShardedMeshStep(mesh, make_sharded_p3m_accel(
+        mesh, grid=grid, capacity=capacity, axis=axis, assignment=assignment, fft=fft,
+        influence=influence, blk=blk, backend=backend), integrator)

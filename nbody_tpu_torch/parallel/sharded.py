@@ -1,7 +1,8 @@
 """Body-sharded N-body steps over a torch.distributed mesh.
 
 Counterpart of ``nbody_tpu/parallel/sharded.py`` but for its adaptive
-rollouts (ROADMAP.md Queue 1 #7) and its sharded PM and P3M steps (#16).
+rollouts (ROADMAP.md Queue 1 #7); the sharded PM and P3M steps live beside
+their solvers, in ``ops/pm.py`` and ``ops/p3m.py``, as in ``nbody_tpu``.
 On a 1-D mesh each rank holds N/D bodies (its i-shard) and computes their
 forces from every body. Four strategies move the j-bodies:
 

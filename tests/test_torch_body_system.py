@@ -185,18 +185,20 @@ def test_cpu_backend_launches_no_kernel(params, state):
     assert cuda_kernel.LAUNCHES == before
 
 
+# A mesh is ported (tests/test_torch_sharded*.py), its 2-D form and float64
+# too (#13); plain PM, the P3M options, P3M in float64 and the sharded PM and
+# P3M steps too (#16, tests/test_torch_pm.py, tests/test_torch_p3m_sharded.py).
+# What is left of #16 (the rest of #10) is the XLA cell-list engine: every
+# case asks for it now, beside what the case asked before, and keeps its id.
 @pytest.mark.parametrize("kw, item", [
-    # a mesh is ported (tests/test_torch_sharded*.py), its 2-D form and
-    # float64 too (#13); the sharded P3M step is not (#16). The ids of the
-    # cases that named #13 keep it
     pytest.param({"mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
                                                 device=torch.device("cpu")),
-                  "kernel": "p3m"}, "#16", id="kw0-#13"),
-    ({"backend": "pm"}, "#10"),
-    ({"kernel": "pm"}, "#10"),
-    # float64 is ported (tests/test_torch_fp64.py); P3M in float64 is not
-    ({"integrator": "hermite", "dtype": torch.float64, "kernel": "p3m"}, "#16"),
-    pytest.param({"dtype": torch.float64, "kernel": "p3m",
+                  "kernel": "p3m", "p3m_short_range": "xla"}, "#16", id="kw0-#13"),
+    pytest.param({"kernel": "pm", "p3m_short_range": "xla"}, "#10", id="kw1-#10"),
+    pytest.param({"kernel": "p3m", "p3m_short_range": "xla"}, "#10", id="kw2-#10"),
+    pytest.param({"dtype": torch.float64, "kernel": "p3m", "p3m_short_range": "xla"}, "#16",
+                 id="kw3-#16"),
+    pytest.param({"dtype": torch.float64, "kernel": "p3m", "p3m_short_range": "xla",
                   "mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
                                                 device=torch.device("cpu"))},
                  "#16", id="kw4-#13"),

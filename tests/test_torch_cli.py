@@ -62,15 +62,17 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-# --block-dt, --tile-j, --pm-assignment and --p3m-auto-refresh stand where
-# the run-setup and demo slice brought --demo 1, --render, --energy and
-# --config plummer (as --demo 1 stood for --fp64, and --adaptive-dt for
-# --devices 2, before)
+# --block-dt, --tile-j, --dt-max and --block-classes stand where the run-setup
+# and demo slice brought --demo 1, --render, --energy and --config plummer
+# (as --demo 1 stood for --fp64, and --adaptive-dt for --devices 2, before);
+# --dt-max and --block-classes (adaptive and block timesteps, ROADMAP.md
+# Queue 1 #7) took the places of --pm-assignment and --p3m-auto-refresh when
+# the mesh solvers' options were ported
 @pytest.mark.parametrize("flag", [["--block-dt"],
                                   ["--adaptive-dt"],
                                   ["--kernel", "xla"],
-                                  ["--tile-j", "64"], ["--pm-assignment", "tsc"],
-                                  ["--p3m-auto-refresh"]])
+                                  ["--tile-j", "64"], ["--dt-max", "0.01"],
+                                  ["--block-classes", "4"]])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])

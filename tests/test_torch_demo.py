@@ -303,8 +303,12 @@ def test_ds_demo_refusals_exit_1_as_nbody_tpus(args, capsys):
 
 @pytest.mark.parametrize("mode", [[], ["--selftest"]])
 def test_demo_on_a_mesh_is_not_ported(mode, capsys):
+    """The demo loop and --selftest on a mesh are ported
+    (tests/test_torch_demo_mesh.py, under torchrun); what is refused is a mesh
+    of more ranks than the process group has: one process exits 2 naming
+    torchrun."""
     assert cli.main([*SMALL, "--devices", "2", "--frames", "1", *mode]) == 2
-    assert "ROADMAP.md Queue 1 #13" in capsys.readouterr().err
+    assert "start 2 with torchrun --nproc_per_node 2" in capsys.readouterr().err
 
 
 def test_demo_needs_a_card_without_cpu(monkeypatch, capsys):

@@ -205,7 +205,8 @@ def test_refusals_in_float64(x64):
     """sym raises in both packages (Pallas-only there, float32-only here),
     and so do the ring_fused and sym strategies on a mesh (a float64 mesh
     runs allgather, ring, auto and the 2-D step, tests/test_torch_sharded_2d.py);
-    kernel="p3m" in float64 is a later slice, naming its ROADMAP.md item."""
+    kernel="p3m" runs in float64 (tests/test_torch_pm.py), and what is still
+    refused is its XLA cell-list engine, naming its ROADMAP.md item."""
     import jax.numpy as jnp
 
     params = _params(256)
@@ -220,9 +221,11 @@ def test_refusals_in_float64(x64):
             BodySystem(256, params, device="cpu", dtype=torch.float64, mesh=mesh,
                        strategy=strategy)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        BodySystem(256, params, device="cpu", dtype=torch.float64, kernel="p3m")
+        BodySystem(256, params, device="cpu", dtype=torch.float64, kernel="p3m",
+                   p3m_short_range="xla")
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        Compute(num_bodies=256, device="cpu", precision="fp64", kernel="p3m")
+        Compute(num_bodies=256, device="cpu", precision="fp64", kernel="p3m",
+                p3m_short_range="xla")
     with pytest.raises(ValueError, match="dtype"):
         BodySystem(256, params, device="cpu", dtype=torch.float16)
 
@@ -381,9 +384,11 @@ def test_cli_fp64_with_ds_exits_1_in_nbody_tpus_words(capsys):
     assert "--precision ds and --fp64 are exclusive" in capsys.readouterr().err
 
 
+# --fp64 --kernel p3m runs the exact force since the mesh solvers' slice,
+# as nbody_tpu's fp64 does; its XLA engine is what is still refused
 @pytest.mark.parametrize("args, says", [
     (["--variant", "sym"], "variant='sym'"),
-    (["--kernel", "p3m"], "ROADMAP.md Queue 1 #16"),
+    (["--kernel", "p3m", "--p3m-short-range", "xla"], "ROADMAP.md Queue 1 #16"),
 ])
 def test_cli_fp64_refusals_exit_2(capsys, args, says):
     assert main(["--fp64", *args, "--qatest", "--cpu", "--numbodies", "64"]) == 2

@@ -468,7 +468,11 @@ def test_p3m_accel_repeats_bit_for_bit(cloud):
     assert torch.equal(a1, a2)
 
 
-@pytest.mark.parametrize("kw", [{"assignment": "tsc"}, {"influence": "naive"}])
+# TSC and the naive influence were refused here until they were ported
+# (tests/test_torch_pm.py); the reference's XLA cell-list engine still is,
+# whatever the assignment
+@pytest.mark.parametrize("kw", [{"short_range": "xla"},
+                                {"short_range": "xla", "assignment": "tsc"}])
 def test_unported_options_raise_naming_roadmap_item(cloud, kw):
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
         p3m.p3m_accel(torch.tensor(cloud), SOFT, **kw)
@@ -599,8 +603,9 @@ def test_hermite_and_ds_are_refused(capsys):
                  "--numbodies", "64"]) == 0
     out = capsys.readouterr().out
     assert "--kernel p3m (the all-pairs ds kernels run) has no effect" in out and "-> OK" in out
+    # plain PM is ported (tests/test_torch_pm.py); the XLA engine is not
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        BodySystem(64, _params(), device="cpu", kernel="pm")
+        BodySystem(64, _params(), device="cpu", kernel="pm", p3m_short_range="xla")
 
 
 def test_compute_qa_gates_positions_only():

@@ -401,3 +401,66 @@ def switch_strategy(num_bodies, strategy):
     s = BodySystem(num_bodies, DEMO_PARAMS[0], device="cpu", mesh=_mesh(), strategy=strategy)
     s64 = s.switch_precision()
     return s.strategy, s64.strategy, s64.switch_precision().strategy
+
+
+def mesh_solver_step(kernel, kw, pos, vel, dt, soft, damp, steps=1):
+    """`steps` sharded PM ("pm") or P3M ("p3m") steps of the whole (pos,
+    vel), `kw` to make_sharded_pm_step / make_sharded_p3m_step, twice from
+    the same state: (this rank's shard, whether the repeat gave its bits)."""
+    from nbody_tpu_torch.ops.p3m import make_sharded_p3m_step
+    from nbody_tpu_torch.ops.pm import make_sharded_pm_step
+
+    mesh = _mesh()
+    make = make_sharded_pm_step if kernel == "pm" else make_sharded_p3m_step
+    step = make(mesh, **kw)
+    runs = []
+    for _ in range(2):
+        p, v = _shard(mesh, pos), _shard(mesh, vel)
+        for _ in range(steps):
+            p, v = step(p, v, dt, soft, damp)
+        runs.append((p.numpy(), v.numpy()))
+    repeat = all(np.array_equal(a, b) for a, b in zip(*runs))
+    return runs[0], repeat
+
+
+def p3m_breach(num_bodies, params, kw, state, steps, auto_refresh):
+    """A P3M BodySystem on the mesh, `steps` steps of `state`: without
+    auto-refresh the first breached step its probe finds; with it (the
+    contract-broken warnings, the capacity before and after, the rewinds,
+    the final positions)."""
+    import warnings
+
+    from nbody_tpu_torch.models import BodySystem
+
+    s = BodySystem(num_bodies, params, device="cpu", mesh=_mesh(), kernel="p3m", state=state,
+                   p3m_auto_refresh=auto_refresh, **kw)
+    if not auto_refresh:
+        return s._probed_steps(steps, params.time_step)
+    cap0 = s.p3m_capacity
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        s.update_many(steps)
+    broken = [str(x.message) for x in w if "contract broken" in str(x.message)]
+    return broken, cap0, s.p3m_capacity, s.p3m_refreshes, s.positions
+
+
+def demo_keys(keys, frames):
+    """The demo loop on the mesh with --interactive, rank 0's stdin replaced
+    by `keys` (one string a frame, read at each frame's end): (the steps
+    taken, paused, the active demo and params, the positions) as this rank
+    ends the loop."""
+    from unittest import mock
+
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.ui import controls
+
+    mesh = _mesh()
+    args = cli.build_parser().parse_args(["--cpu", "--numbodies", "64", "--frames", str(frames),
+                                          "--interactive", "--no-cycle"])
+    c = Compute(num_bodies=64, device="cpu", mesh=mesh, log=lambda s: None)
+    feed = iter(keys)
+    with mock.patch.object(controls.Controls, "read_keys",
+                           staticmethod(lambda: next(feed, "") if mesh.rank == 0 else "")):
+        cli._run_demo(c, args, mesh)
+    return c.steps_taken, c.paused, c.active_demo, c.active_params, c.system.positions
