@@ -208,6 +208,20 @@ its result:
      (sub-blocked rectangles) and emulated_accel_2d 2x2 and 2x4 within
      1e-4 * max|a| + 1e-4 of the plain force (the one-sided force kernel at
      2^20), each bit-equal on a repeat;
+  5a. adaptive and block timesteps, every call under torch.cuda's sync
+     debug mode "error" (the only host reads the counted ones: one stats
+     read an adaptive call, one class-count read a block macro step): fp32
+     sym Euler, leapfrog and Hermite and vpu Euler at N=65536 on --config
+     galaxy, fp64 and ds (one-sided and sym) at 16384, P3M at 2^20 with the
+     auto-refresh, the block ladder (K=4) on the galaxy, each launching its
+     kernels; after it, outside the count, the ds kernels against the
+     parent commit's recorded bits (DS_PARENT_BITS), blocks built on the
+     card by ds_scal_with_dt bit-equal to the host's build, the adaptive
+     steps against their plain versions (ds at the ds rule, 1e-12 * max +
+     1e-14), the block stats equal to plain's, adaptive runs on a
+     one-rank NCCL mesh bit-equal to one card's (sym, allgather), and the
+     times (adaptive against fixed dt; a block macro step against the
+     adaptive leapfrog over the same simulated time);
   3e. the kernels of the JAX package's three experiment scripts against
      their plain versions at N in {1000, 4099, 65536}, masses from [0.5, 2],
      a random vel.w and damping 0.5 at 4099 and 65536: the dual-bank step
@@ -265,6 +279,7 @@ are the card, one JSON object listing every kernel, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -2994,6 +3009,381 @@ def phase_mesh_solvers_main(torch, smi: str) -> None:
         dist.destroy_process_group()
 
 
+# ---- phase 5a: adaptive and block timesteps ----
+
+N_ADAPT_DS = 16384  # the ds and fp64 adaptive runs (BASELINE.json configs[2]'s N)
+BLOCK_CLASSES = 4  # the block ladder's rungs, K
+# ds_bits of the commit before the ds kernels read their scalar block from
+# device memory (9ba1fe0, which read it from the host), on an NVIDIA H100
+# 80GB HBM3 by scripts/torch_ds_scal_bits.py --root DIR: the kernels must
+# reproduce them bit for bit
+DS_PARENT_BITS = {
+    "ds_accel 4096x16384": "1e994c77cea419d1",
+    "ds_accel 4099": "900868b2cd4a8b5b",
+    "ds_accel 4099x16384": "a3dcfbada9299beb",
+    "ds_accel_jerk 4096x16384": "bc82a6c9b1a7bf44",
+    "ds_accel_jerk 4099": "6f2f7d0d8726b980",
+    "ds_accel_jerk 4099x16384": "07e62e0e4dfd3d95",
+    "ds_aj_sym 4099 tile 128": "89ee8cecee84620b",
+    "ds_aj_sym 4099 tile 256": "fc39ffbb08c7df7e",
+    "ds_aj_sym_cross 777x4099 tile 128": "83b57021514da5ef",
+    "ds_aj_sym_cross 777x4099 tile 256": "afe42b50ed054798",
+    "ds_hermite_correct 4099 tile 128": "fbf9398460f9ea75",
+    "ds_hermite_correct 4099 tile 256": "dca532304ba34c24",
+    "ds_hermite_predict 4099 tile 128": "976f729ee2c9af78",
+    "ds_hermite_predict 4099 tile 256": "108e2e9e0c14a64c",
+    "ds_integrate 4099 tile 256": "c7879dfa550a5456",
+    "ds_integrate 4099 tile 512": "6f225f355310fd1e",
+    "ds_leapfrog 4096x16384": "b175c3d214c371a2",
+    "ds_leapfrog 4099": "ee8295060b98bfc8",
+    "ds_leapfrog 4099x16384": "0da49bced6b8a0c1",
+    "ds_step 4096x16384": "acdca43d9928c076",
+    "ds_step 4099": "bd30800cd8822f2b",
+    "ds_step 4099x16384": "624593e4327eb1af",
+    "ds_sym 4099 tile 256": "566b01d6a2df33de",
+    "ds_sym 4099 tile 512": "cf0143c5a81ebe19",
+    "ds_sym_cross 777x4099 tile 256": "cf50e5b9cfa0842a",
+    "ds_sym_cross 777x4099 tile 512": "cbc9d8d6290c9dab",
+}
+
+
+def ds_bits(torch) -> dict:
+    """The bits of every ds entry point on seeded inputs with host-built
+    scalar blocks: a sha256 (16 hex digits) of each launch's outputs, by
+    launch. Only public wrappers and ds's host blocks, so that a checkout
+    from before the device-memory scalar blocks runs it unchanged."""
+    import hashlib
+
+    import numpy as np
+
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import ds
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(24)
+
+    def planes(n):
+        pos = np.c_[rng.uniform(-2, 2, (n, 3)), rng.uniform(0.5, 2.0, n)]
+        vel = np.c_[rng.standard_normal((n, 3)), rng.standard_normal(n)]
+        return tuple(t.to(dev) for t in (*ds.ds_from_f64(pos), *ds.ds_from_f64(vel)))
+
+    def digest(out):
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    euler = ds.scal_ds(1e-3, 0.1, 0.5)
+    leap = ds.scal_ds_leapfrog(1e-3, 0.1, 0.5)
+    herm = ds.scal_ds_hermite(1e-3, 0.1, 0.5)
+    a, b = planes(4099), planes(16384)
+    small = planes(777)
+    got = {}
+    for tag, i, j in (("4099", a, a), ("4099x16384", a, b), ("4096x16384", tuple(
+            t[:4096].contiguous() for t in b), b)):
+        got[f"ds_step {tag}"] = digest(ck.nbody_step_ds_cuda_vs(*i, j[0], j[1], euler))
+        got[f"ds_leapfrog {tag}"] = digest(ck.nbody_step_ds_leapfrog_cuda_vs(*i, *j, leap))
+        got[f"ds_accel {tag}"] = digest(ck.compute_accel_ds_cuda_vs(i[0], i[1], j[0], j[1], euler))
+        got[f"ds_accel_jerk {tag}"] = digest(ck.compute_accel_jerk_ds_cuda_vs(*i, *j, herm))
+    for tile in ck.DS_SYM_TILES:
+        acc = ck.ds_sym_accel_cuda(a[0], a[1], euler, tile=tile)
+        got[f"ds_sym 4099 tile {tile}"] = digest(acc)
+        got[f"ds_sym_cross 777x4099 tile {tile}"] = digest(
+            ck.ds_sym_cross_cuda(small[0], small[1], a[0], a[1], euler, tile=tile))
+        got[f"ds_integrate 4099 tile {tile}"] = digest(ck.ds_integrate_cuda(*a, *acc, euler))
+    for tile in ck.DS_AJ_SYM_TILES:
+        f0 = ck.ds_aj_sym_cuda(*a, herm, tile=tile)
+        got[f"ds_aj_sym 4099 tile {tile}"] = digest(f0)
+        got[f"ds_aj_sym_cross 777x4099 tile {tile}"] = digest(
+            ck.ds_aj_sym_cross_cuda(*small, *a, herm, tile=tile))
+        pred = ck.ds_hermite_predict_cuda(*a, *f0, herm)
+        got[f"ds_hermite_predict 4099 tile {tile}"] = digest(pred)
+        f1 = ck.ds_aj_sym_cuda(*pred, herm, tile=tile)
+        got[f"ds_hermite_correct 4099 tile {tile}"] = digest(
+            ck.ds_hermite_correct_cuda(*a, *f0, *f1, herm))
+    return got
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """A block in which torch.cuda's sync debug mode is "error": any host
+    synchronisation of torch raises, but the counted reads of
+    utils.timing.host_read, which the block wraps to turn the mode off
+    around each read (the library never touches the mode)."""
+    from nbody_tpu_torch.utils import timing
+
+    read = timing.host_read
+
+    def exempt(t, what):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(t, what)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    timing.host_read = exempt
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        timing.host_read = read
+
+
+ADAPTIVE_KERNELS = {
+    ("fp32", "sym", "euler"): ("sym",),
+    ("fp32", "sym", "leapfrog"): ("sym",),
+    ("fp32", "sym", "hermite"): ("aj_sym",),
+    ("fp32", "vpu", "euler"): ("accel",),
+    ("fp64", "vpu", "euler"): ("accel_f64",),
+    ("fp64", "vpu", "hermite"): ("accel_jerk_f64",),
+    ("ds", "one_sided", "euler"): ("accel", "ds_step"),
+    ("ds", "sym", "euler"): ("accel", "ds_sym", "ds_integrate"),
+    ("ds", "one_sided", "leapfrog"): ("accel", "ds_leapfrog"),
+    ("ds", "sym", "hermite"): ("accel_jerk", "ds_aj_sym", "ds_hermite_predict",
+                               "ds_hermite_correct"),
+    ("ds", "one_sided", "hermite"): ("accel_jerk", "ds_accel_jerk"),
+    ("p3m",): ("p3m_sr",),
+    ("block",): ("accel",),
+}
+ADAPTIVE_PATH_KERNELS = sorted({k for ks in ADAPTIVE_KERNELS.values() for k in ks})
+
+
+def phase_adaptive_main(torch, smi: str) -> dict:
+    """5a. The adaptive and block timesteps on the card, each call under
+    torch.cuda's sync debug mode "error" (no_host_sync: the only host
+    reads are the counted stats and class counts): fp32 sym (auto) Euler,
+    leapfrog and Hermite and vpu Euler at N=65536 on --config galaxy (its
+    ICs, demo 0's parameters), fp64 Euler and Hermite and ds one-sided and
+    sym Euler, leapfrog, sym and one-sided Hermite at N=16384, P3M at 2^20
+    and G=64 with the auto-refresh, and the block ladder (K=4) on the
+    galaxy at 65536. Each run must launch its kernels (ADAPTIVE_KERNELS);
+    prints the launches and host reads a step or macro step, and the stats.
+    Returns the systems' states that phase_adaptive holds to the plain
+    versions and the one-rank mesh."""
+    import numpy as np
+
+    from nbody_tpu_torch import DEMO_PARAMS, ic
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.utils import timing
+
+    params = DEMO_PARAMS[0]
+    galaxy = ic.galaxy_collision(N_MAIN, seed=42)
+    dev = torch.device("cuda", 0)
+    out = {"galaxy": galaxy, "stats": {}}
+
+    def run(key, system, steps, call="adaptive"):
+        before = dict(ck.LAUNCHES)
+        reads = dict(timing.HOST_READS)
+        with no_host_sync(torch):
+            if call == "block":
+                st = system.update_many_block(steps, n_classes=BLOCK_CLASSES)
+            else:
+                st = system.update_many_adaptive(steps)
+        made = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES if ck.LAUNCHES[k] > before[k]}
+        read = {k: timing.HOST_READS[k] - reads.get(k, 0) for k in timing.HOST_READS
+                if timing.HOST_READS[k] > reads.get(k, 0)}
+        for k in ADAPTIVE_KERNELS[key]:
+            check(k in made, f"the adaptive run {'/'.join(key)} did not launch {k!r}")
+        check(np.isfinite(system.positions).all(), f"{'/'.join(key)}: non-finite state")
+        per = {k: round(v / steps, 2) for k, v in made.items()}
+        print(f"[5a {call}] {'/'.join(key)} N={system.num_bodies}, {steps} "
+              f"{'macro steps' if call == 'block' else 'steps'}: launches a step {per}, host "
+              f"reads {read}, stats {st}")
+        out["stats"][key] = st
+        return st
+
+    for integrator in ("euler", "leapfrog", "hermite"):
+        s = BodySystem(N_MAIN, params, device=dev, integrator=integrator, state=galaxy)
+        check(s.variant == "sym", f"auto resolved to {s.variant}")
+        st = run(("fp32", "sym", integrator), s, 5)
+        check(st["dt_lo"] <= st["dt_hi"] <= params.time_step, "dt outside its window")
+    run(("fp32", "vpu", "euler"), BodySystem(N_MAIN, params, device=dev, variant="vpu",
+                                             state=galaxy), 5)
+    for integrator in ("euler", "hermite"):
+        run(("fp64", "vpu", integrator),
+            BodySystem(N_ADAPT_DS, params, device=dev, dtype=torch.float64,
+                       integrator=integrator), 3)
+    for variant, integrator in (("one_sided", "euler"), ("sym", "euler"),
+                                ("one_sided", "leapfrog"), ("sym", "hermite"),
+                                ("one_sided", "hermite")):
+        run(("ds", variant, integrator),
+            DSBodySystem(N_ADAPT_DS, params, device=dev, variant=variant,
+                         integrator=integrator), 3)
+    p3m = BodySystem(N_P3M_BIG, params, device=dev, kernel="p3m", pm_grid=P3M_GRID,
+                     p3m_auto_refresh=True)
+    run(("p3m",), p3m, 3)
+    print(f"[5a adaptive] p3m N={N_P3M_BIG} G={P3M_GRID}: capacity {p3m.p3m_capacity}, "
+          f"rewinds {p3m.p3m_refreshes}")
+    del p3m
+    block = BodySystem(N_MAIN, params, device=dev, state=galaxy)
+    st = run(("block",), block, 2, call="block")
+    check(st["rows"] <= st["global_rows"], "the ladder computed more rows than a global dt")
+    print(f"[5a block] galaxy N={N_MAIN}, K={BLOCK_CLASSES}: rows "
+          f"{100.0 * st['rows'] / st['global_rows']:.1f} % of global, k_max {st['k_max']}")
+    out["block"] = block.state
+    return out
+
+
+def phase_adaptive(torch, smi: str, runs: dict) -> None:
+    """5a, after the path and outside its count: (1) the ds kernels against
+    the parent commit's bits (DS_PARENT_BITS), blocks built on the card by
+    ds_scal_with_dt against the host's build, bit for bit, and the kernels
+    that read dt launched on both; (2) the adaptive steps against their
+    plain versions on the card: fp32 sym Euler and Hermite at N=16384 (atol
+    2e-5, stats at rtol 1e-5, the JAX suite's), ds Euler one-sided at 16384
+    with one dt sequence (the stats equal, the state within 1e-12 * max +
+    1e-14, the ds rule), and the block stats at 16384 equal to the plain
+    rollout's;
+    (3) adaptive rollouts on a one-rank NCCL mesh bit-equal to one card's:
+    sym with variant sym, allgather with vpu, Euler and Hermite; (4) times:
+    an adaptive against a fixed-dt sym Euler step at 65536 and ds one-sided
+    Euler step at 16384, in turns, and a block
+    macro step of K=4 against the adaptive path over the same simulated
+    time on the galaxy at 65536."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import ds
+    from nbody_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    params = DEMO_PARAMS[0]
+    bits = ds_bits(torch)
+    if DS_PARENT_BITS:
+        diff = sorted(k for k in DS_PARENT_BITS if bits.get(k) != DS_PARENT_BITS[k])
+        check(not diff, f"ds kernels differ from the parent commit's bits: {diff}")
+        print(f"[5a ds bits] {len(bits)} ds launches bit-equal to the parent commit's")
+    else:
+        print(f"[5a ds bits] {json.dumps(bits)}")
+    # blocks built on the card by ds_scal_with_dt against the host's build
+    # (which the CPU tests hold to nbody_tpu's bit for bit), then each ds
+    # kernel that reads dt launched on both blocks
+    planes, _ = ds_state(torch, 4099)
+    dts = np.random.default_rng(24).uniform(1e-6, 1e-2, 8).astype(np.float32)
+    for integrator, launch in (
+            ("euler", lambda sc: ck.nbody_step_ds_cuda(*planes, sc)),
+            ("leapfrog", lambda sc: ck.nbody_step_ds_leapfrog_cuda(*planes, sc)),
+            ("hermite", lambda sc: ck.ds_hermite_predict_cuda(
+                *planes, *ck.compute_accel_jerk_ds_cuda_vs(*planes, *planes, sc), sc))):
+        base = {"euler": ds.scal_ds, "leapfrog": ds.scal_ds_leapfrog,
+                "hermite": ds.scal_ds_hermite}[integrator](0.0, 0.1, 0.5)
+        for dt in dts:
+            dt = torch.tensor(dt)
+            on_dev = ds.ds_scal_with_dt(base.to(dev), dt.to(dev), integrator=integrator)
+            on_host = ds.ds_scal_with_dt(base, dt, integrator=integrator)
+            check(torch.equal(on_dev.cpu(), on_host),
+                  f"ds {integrator}: the card's ds_scal_with_dt({float(dt)!r}) differs from "
+                  "the host's")
+        same = all(torch.equal(x, y) for x, y in zip(launch(on_dev), launch(on_host)))
+        check(same, f"ds {integrator}: launches on the card's and the host's block differ")
+    print(f"[5a ds bits] ds_scal_with_dt on the card bit-equal to the host's at {len(dts)} dts "
+          "for euler, leapfrog and hermite; ds step, leapfrog and hermite predict launches "
+          "on the card's and the host's block bit-equal")
+
+    # the adaptive steps against their plain versions on the card
+    def pair(make, steps, **kw):
+        got = []
+        for backend in ("cuda", "torch"):
+            s = make(backend)
+            st = s.update_many_adaptive(steps, **kw)
+            got.append((s.positions, s.velocities, st))
+        return got
+
+    for integrator in ("euler", "hermite"):
+        (p, v, st), (pp, vp, stp) = pair(lambda b: BodySystem(
+            N_QA, params, device=dev, backend=b, variant="sym", integrator=integrator), 3)
+        err = max(abs(p - pp).max(), abs(v - vp).max())
+        check(err <= 2e-5, f"sym {integrator} adaptive against plain: {err}")
+        for k in ("t", "dt_lo", "dt_hi"):
+            check(abs(st[k] - stp[k]) <= 1e-5 * abs(stp[k]), f"sym {integrator} stats {k}")
+        print(f"[5a plain] sym {integrator} adaptive, 3 steps at N={N_QA}: max |d| {err:.3e} "
+              f"of plain, dt {st['dt_last']:.6e} / {stp['dt_last']:.6e}")
+    # ds: the plain system picks dt with the card's float32 criterion, so
+    # that both step with one dt sequence and the ds steps (the card's on
+    # its device-built blocks) meet the ds rule, 1e-12 * max + 1e-14
+    got = []
+    for backend in ("cuda", "torch"):
+        s = DSBodySystem(N_ADAPT_DS, params, device=dev, backend=backend, variant="one_sided")
+        if backend == "torch":
+            s._criterion = lambda pl: (ck.compute_accel_cuda(pl[0], pl[0], params.softening),
+                                       None)
+        st = s.update_many_adaptive(2, dt_min=1e-9, dt_max=1.0)
+        got.append((s.positions, s.velocities, st))
+    (p, v, st), (pp, vp, stp) = got
+    check(st == stp, f"ds adaptive stats {st} against plain {stp}")
+    for name, g, w in (("positions", p, pp), ("velocities", v, vp)):
+        e, tol = float(abs(g - w).max()), 1e-12 * float(abs(w).max()) + 1e-14
+        check(bool(np.isfinite(g).all()) and e <= tol,
+              f"ds adaptive {name} against plain: {e:.3e} (tol {tol:.3e})")
+        print(f"[5a plain] ds one-sided Euler adaptive, 2 steps at N={N_ADAPT_DS}: {name} "
+              f"max|d| {e:.3e} (tol {tol:.3e}), dt {st['dt_lo']!r}..{st['dt_hi']!r} equal")
+    blocks = []
+    for backend in ("cuda", "torch"):
+        s = BodySystem(N_QA, params, device=dev, backend=backend,
+                       state=tuple(x[:N_QA] for x in runs["galaxy"]))
+        blocks.append(s.update_many_block(2, n_classes=BLOCK_CLASSES))
+    check(blocks[0] == blocks[1], f"block stats {blocks[0]} against plain {blocks[1]}")
+    print(f"[5a plain] block K={BLOCK_CLASSES}, 2 macro steps at N={N_QA}: stats equal to "
+          f"plain's: {blocks[0]}")
+
+    # a one-rank NCCL mesh against one card, bit for bit
+    mesh = make_mesh(1)
+    try:
+        for strategy, variant in (("sym", "sym"), ("allgather", "vpu")):
+            for integrator in ("euler", "hermite"):
+                got = []
+                for m in (mesh, None):
+                    s = BodySystem(N_QA, params, device=dev, integrator=integrator,
+                                   mesh=m, strategy=strategy if m else "auto",
+                                   variant="auto" if m else variant)
+                    st = s.update_many_adaptive(3)
+                    got.append((s.positions, s.velocities, st))
+                same = (got[0][2] == got[1][2] and (got[0][0] == got[1][0]).all()
+                        and (got[0][1] == got[1][1]).all())
+                check(same, f"one-rank {strategy} mesh adaptive {integrator} differs")
+                print(f"[5a mesh] one-rank {strategy} mesh, {integrator} adaptive: bit-equal to "
+                      f"one card's {variant}")
+    finally:
+        dist.destroy_process_group()
+
+    # times, in turns
+    s = BodySystem(N_MAIN, params, device=dev, state=runs["galaxy"])
+    ms = {"fixed": [], "adaptive": []}
+    for kind in ("fixed", "adaptive", "adaptive", "fixed"):
+        call = (lambda: s.update_many(10)) if kind == "fixed" else (
+            lambda: s.update_many_adaptive(10))
+        ms[kind].append(timed_ms(torch, call, 3) / 10)
+    print(f"[5a times] sym Euler at N={N_MAIN} (galaxy): fixed dt {min(ms['fixed']):.3f} ms, "
+          f"adaptive {min(ms['adaptive']):.3f} ms a step (best of two, in turns) [{smi}]")
+    d = DSBodySystem(N_ADAPT_DS, params, device=dev, variant="one_sided")
+    ms = {"fixed": [], "adaptive": []}
+    for kind in ("fixed", "adaptive", "adaptive", "fixed"):
+        call = (lambda: d.update_many(10)) if kind == "fixed" else (
+            lambda: d.update_many_adaptive(10))
+        ms[kind].append(timed_ms(torch, call, 2) / 10)
+    print(f"[5a times] ds one-sided Euler at N={N_ADAPT_DS}: fixed dt {min(ms['fixed']):.3f} ms, "
+          f"adaptive {min(ms['adaptive']):.3f} ms a step (best of two, in turns) [{smi}]")
+    b = BodySystem(N_MAIN, params, device=dev, state=runs["galaxy"])
+    a = BodySystem(N_MAIN, params, device=dev, state=runs["galaxy"], integrator="leapfrog")
+    probe = BodySystem(N_MAIN, params, device=dev, state=runs["galaxy"], integrator="leapfrog")
+    st = probe.update_many_adaptive(10)
+    span = 2 * params.time_step
+    steps = max(1, math.ceil(span / (st["t"] / st["steps"])))
+    t_block = timed_ms(torch, lambda: b.update_many_block(2, n_classes=BLOCK_CLASSES), 2)
+    t_adapt = timed_ms(torch, lambda: a.update_many_adaptive(steps), 2)
+    bst = b.update_many_block(2, n_classes=BLOCK_CLASSES)
+    print(f"[5a times] galaxy N={N_MAIN}, {span:.3f} of simulated time: block K="
+          f"{BLOCK_CLASSES} {t_block / 2:.3f} ms a macro step ({t_block:.3f} ms), adaptive "
+          f"leapfrog {steps} steps {t_adapt:.3f} ms; block rows "
+          f"{100.0 * bst['rows'] / bst['global_rows']:.1f} % of global [{smi}]")
+
+
 def ptxas_registers(usage: dict, key: str) -> int:
     """The registers ptxas gives the one kernel whose mangled name holds `key`."""
     found = [u["registers"] for name, u in usage.items() if key in name]
@@ -4165,6 +4555,12 @@ def main() -> int:
           lambda: more_runs.update(phase_sharded_more_main(torch, smi)))
     timed("5y emulated meshes and bit ties", phase_sharded_more, torch, smi, more_runs)
     del more_runs
+    adaptive_runs = {}
+    timed("5a adaptive and block path", run_path, ck, ADAPTIVE_PATH_KERNELS,
+          lambda: adaptive_runs.update(phase_adaptive_main(torch, smi)))
+    timed("5a bit ties, plain versions, one-rank mesh and times", phase_adaptive, torch, smi,
+          adaptive_runs)
+    del adaptive_runs
     exp_launches = timed("5e experiment scripts", run_path, ck, EXPERIMENT_KERNELS,
                          lambda: phase_experiment_main(torch, smi))
     for k in EXPERIMENT_KERNELS:

@@ -11,9 +11,10 @@ The reference's flags (nbody.cpp:275-285): --benchmark, --compare /
 --mesh-rows, the run setup (--config, --demo, --set, --print-params,
 --checkpoint-save / --checkpoint-load, --metrics, --profile, --version) and
 the demo loop's flags (frames, rendering, viewing, --energy, --autosave,
---selftest). nbody_tpu's other flags (adaptive and block timesteps, the
-XLA / Pallas kernel names, --tile-j) are not accepted until their slice
-lands (ROADMAP.md).
+--selftest) with its adaptive global timestep (--adaptive-dt [ETA],
+--dt-min, --dt-max) and per-body block timesteps (--block-dt [ETA],
+--block-classes K). nbody_tpu's other flags (the XLA / Pallas kernel names,
+--tile-j) are not accepted (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -147,6 +148,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="damped semi-implicit Euler (the reference's), "
                         "drift-kick-drift leapfrog, or the 4th-order Hermite "
                         "predictor-corrector (two accel+jerk evaluations a step)")
+    # adaptive and block timesteps (nbody_tpu/cli.py:128-150)
+    p.add_argument("--adaptive-dt", nargs="?", const=0.025, type=float,
+                   default=None, metavar="ETA", dest="adaptive_dt",
+                   help="adaptive global timestep (demo mode): dt chosen "
+                        "per step on the device from the step's force — "
+                        "eta*sqrt(softening/max|a|) for euler/leapfrog, "
+                        "Aarseth's eta*min|a|/|j| for hermite. Optional "
+                        "value is eta (default 0.025)")
+    p.add_argument("--dt-min", type=float, default=None,
+                   help="adaptive dt floor (default: dt_max/1024)")
+    p.add_argument("--dt-max", type=float, default=None,
+                   help="adaptive/block dt ceiling (default: the "
+                        "preset's time_step)")
+    p.add_argument("--block-dt", nargs="?", const=0.025, type=float,
+                   default=None, metavar="ETA", dest="block_dt",
+                   help="PER-BODY block timesteps (demo mode): each "
+                        "body integrates at the largest power-of-two "
+                        "rung dt_max/2^k not exceeding its own "
+                        "eta*sqrt(softening/|a_i|) (KDK leapfrog, "
+                        "exact kernels, single device). Optional value "
+                        "is eta (default 0.025)")
+    p.add_argument("--block-classes", type=int, default=4, metavar="K",
+                   help="block-dt ladder depth: K power-of-two rungs "
+                        "(default 4; deepest rung is dt_max/2^(K-1))")
     p.add_argument("--precision", choices=["fp32", "fp64", "ds"], default=None,
                    help="fp32 (default); fp64 (= --fp64), the double all-pairs kernels; "
                         "or ds, the double-single kernels: fp64-grade accuracy from "
@@ -350,6 +375,63 @@ def _mesh_refusal(args) -> Optional[str]:
     return None
 
 
+def _timestep_refusal(args) -> Optional[str]:
+    """What nbody_tpu's CLI refuses of --adaptive-dt, --dt-min, --dt-max,
+    --block-dt and --block-classes, in its words, to be printed with its
+    exit code 1 (cli.py:509-598); None if nothing."""
+    multi = (args.devices or 0) > 1
+    fixed_dt_modes = (("--benchmark", args.benchmark),
+                      ("--compare/--qatest", args.compare or args.qatest),
+                      ("--drift-check", args.drift_check is not None),
+                      ("--selftest", args.selftest))
+    if args.adaptive_dt is not None:
+        for name, on in fixed_dt_modes:
+            if on:
+                return (f"--adaptive-dt is a demo-mode integrator option; {name} measures "
+                        "the fixed-dt path")
+        if multi and args.strategy == "ring_fused":
+            return ("--adaptive-dt supports allgather/ring/auto/sym (ring_fused fuses the "
+                    "fixed-dt update into its kernel)")
+        if args.adaptive_dt <= 0:
+            return "--adaptive-dt eta must be > 0"
+        for name, val in (("--dt-min", args.dt_min), ("--dt-max", args.dt_max)):
+            if val is not None and val <= 0:
+                return f"{name} must be > 0 (got {val})"
+        if args.dt_min is not None and args.dt_max is not None and args.dt_min > args.dt_max:
+            return f"--dt-min {args.dt_min} exceeds --dt-max {args.dt_max}"
+    elif args.dt_min is not None or (args.dt_max is not None and args.block_dt is None):
+        return "--dt-min applies with --adaptive-dt; --dt-max with --adaptive-dt or --block-dt"
+    if args.block_dt is None:
+        return None
+    if args.adaptive_dt is not None:
+        return "--block-dt and --adaptive-dt are exclusive (per-body ladder vs one global dt)"
+    for name, on in fixed_dt_modes:
+        if on:
+            return (f"--block-dt is a demo-mode integrator option; {name} measures the "
+                    "fixed-dt path")
+    if multi:
+        return ("--block-dt is single-device (the sharded composition is rejected on "
+                "measured numbers — the ladder already loses 1.6-4.1x wall to the global "
+                "adaptive scan on one chip and a mesh only adds per-boundary collectives; "
+                "see ARCHITECTURE.md 'Per-body block timesteps'); drop --devices or use "
+                "--adaptive-dt")
+    if args.kernel in ("pm", "p3m"):
+        return ("--block-dt drives the exact kernels; pm/p3m take --adaptive-dt (per-body "
+                "ladders below the mesh force's cell-scale error floor are meaningless)")
+    if args.integrator == "hermite":
+        return ("--block-dt integrates KDK leapfrog per class (no hermite block form); use "
+                "--adaptive-dt for hermite")
+    if args.precision == "ds":
+        return "--block-dt is an fp32 exact-kernel path; --precision ds takes --adaptive-dt"
+    if args.block_dt <= 0:
+        return "--block-dt eta must be > 0"
+    if not 1 <= args.block_classes <= 16:
+        return f"--block-classes must be in [1, 16] (got {args.block_classes})"
+    if args.dt_max is not None and args.dt_max <= 0:
+        return f"--dt-max must be > 0 (got {args.dt_max})"
+    return None
+
+
 def _mesh(args):
     """The body mesh of --devices, or None: with D > 1 the ranks' process
     group is started from torchrun's environment, and D must be its size;
@@ -471,12 +553,24 @@ def _main(argv=None) -> int:
         # nbody_tpu/cli.py:449-453, with its exit code
         print("error: --precision ds and --fp64 are exclusive", file=sys.stderr)
         return 1
+    if ds and measuring and args.adaptive_dt is not None:
+        # nbody_tpu/cli.py:454-461
+        print("error: --adaptive-dt is a demo-mode option; the ds measurement modes are "
+              "fixed-dt", file=sys.stderr)
+        return 1
     refusal = _ds_demo_refusals(args) if ds and (args.selftest or not measuring) else None
     refusal = refusal or _mesh_refusal(args)
+    if ds and measuring and args.block_dt is not None:
+        # nbody_tpu's ds measurement modes run without it (cli.py:454-462)
+        args.block_dt = None
+        ignored_block = ["--block-dt (the ds measurement modes are fixed-dt)"]
+    else:
+        ignored_block = []
+        refusal = refusal or _timestep_refusal(args)
     if refusal:
         print(f"error: {refusal}", file=sys.stderr)
         return 1
-    ignored = _ds_ignored_flags(args) if ds else []
+    ignored = (_ds_ignored_flags(args) if ds else []) + ignored_block
     solver = args.kernel if args.kernel in ("pm", "p3m") else None
     if args.autosave is not None:
         # nbody_tpu/cli.py:681-689, with its exit code
@@ -563,6 +657,21 @@ def _main(argv=None) -> int:
         if planes is not None:
             # the raw hi/lo planes: a bit-exact resume
             compute.system.set_ds_state(*planes)
+    if args.adaptive_dt is not None:
+        # an explicit floor must sit under the effective ceiling (the
+        # starting preset's time_step without --dt-max); demo cycling
+        # re-derives a None ceiling per preset (nbody_tpu/cli.py:749-760)
+        eff_max = args.dt_max if args.dt_max is not None else compute.active_params.time_step
+        if args.dt_min is not None and args.dt_min > eff_max:
+            print(f"error: --dt-min {args.dt_min} exceeds the adaptive ceiling {eff_max} (the "
+                  "preset's time_step; set --dt-max)", file=sys.stderr)
+            return 1
+        compute.set_adaptive(args.adaptive_dt, args.dt_min, args.dt_max)
+    if args.block_dt is not None:
+        if args.integrator == "euler":
+            say("note: --block-dt integrates KDK leapfrog (per-class kicks have no "
+                "semi-implicit Euler form)")
+        compute.set_block(args.block_dt, args.dt_max, args.block_classes)
     system = compute.system
     say(f"nbody_tpu_torch: {compute.num_bodies} bodies on {_device_name(system.device)}"
         + (f", {mesh.size}-device mesh [{system.strategy}]" if mesh is not None else "")
@@ -574,6 +683,11 @@ def _main(argv=None) -> int:
            else f" force pm (grid {system.pm_grid}, {system.pm_assignment})"
            if compute.solver == "pm" else f" force {system.variant}")
         + f", integrator {system.integrator}")
+    if mesh is not None and ds and args.adaptive_dt is not None and args.strategy == "ring":
+        # nbody_tpu/cli.py:776-783: the ds adaptive rollout gathers the
+        # planes whatever the strategy
+        say("note: ds adaptive rollouts run the allgather decomposition ('ring' applies to "
+            "fixed-dt ds stepping only)")
 
     if not 0 <= args.demo < len(DEMO_PARAMS):
         raise ValueError(f"--demo {args.demo} out of range (presets 0..{len(DEMO_PARAMS) - 1})")
@@ -818,7 +932,7 @@ def _run_demo(compute, args, mesh=None) -> int:
                 report = (f"[demo {compute.active_demo}] frame {frames_done}/{args.frames} | "
                           f"{compute.fps:.1f} fps | {compute.interactions_per_second:.2f} "
                           f"G interactions/s | {compute.g_flops:.1f} GFLOP/s "
-                          f"({compute.precision})")
+                          f"({compute.precision})" + _timestep_note(compute))
                 if live_view is not None:
                     # the alternate screen owns stdout: the report becomes
                     # the viewer's status line instead of a print
@@ -826,14 +940,24 @@ def _run_demo(compute, args, mesh=None) -> int:
                 else:
                     print(report)
                 if args.metrics:
-                    _append_metrics(args.metrics, {
+                    record = {
                         "frame": frames_done,
                         "demo": compute.active_demo,
                         "fps": compute.fps,
                         "gflops": compute.g_flops,
                         "interactions_per_second_e9": compute.interactions_per_second,
                         "fp64": compute.fp64_enabled,
-                    })
+                    }
+                    # nbody_tpu/cli.py:1058-1066
+                    if compute.adaptive_stats is not None:
+                        record["dt_last"] = compute.adaptive_stats["dt_last"]
+                        record["sim_t"] = compute.adaptive_stats["t"]
+                    elif compute.block_stats is not None:
+                        record["sim_t"] = compute.block_stats["t"]
+                        record["eval_rows"] = compute.block_stats["rows"]
+                        record["global_rows"] = compute.block_stats["global_rows"]
+                        record["k_max"] = compute.block_stats["k_max"]
+                    _append_metrics(args.metrics, record)
                 last_report = now
                 frames_since_report = 0
             if mesh is not None:
@@ -847,6 +971,12 @@ def _run_demo(compute, args, mesh=None) -> int:
             live_view.close()  # restore the terminal even on an exception
 
     compute.system.block_until_ready()
+    if compute.block_stats is not None:
+        # short runs never reach the report: the run closes with the
+        # ladder's force rows (nbody_tpu/cli.py:1074-1080)
+        st = compute.block_stats
+        frac = st["rows"] / max(st["global_rows"], 1.0)
+        say(f"block-dt: rows={100.0 * frac:.0f}% of global k_max={st['k_max']} t={st['t']:.4f}")
     if args.energy:
         e1 = compute.system.total_energy(precise=True)
         drift = (e1 - e0) / abs(e0) if e0 else 0.0
@@ -864,6 +994,18 @@ def _run_demo(compute, args, mesh=None) -> int:
             write_apng(anim_frames, args.animate, fps=30)
         print(f"wrote {len(anim_frames)}-frame animation to {args.animate}")
     return 0
+
+
+def _timestep_note(compute) -> str:
+    """The demo report's adaptive or block note (nbody_tpu/cli.py:1024-1034)."""
+    if compute.adaptive_stats is not None:
+        st = compute.adaptive_stats
+        return f" | dt={st['dt_last']:.3e} t={st['t']:.4f}"
+    if compute.block_stats is not None:
+        st = compute.block_stats
+        frac = st["rows"] / max(st["global_rows"], 1.0)
+        return f" | rows={100.0 * frac:.0f}% of global k_max={st['k_max']} t={st['t']:.4f}"
+    return ""
 
 
 def _run_selftest(compute, say=print) -> int:

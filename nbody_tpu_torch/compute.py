@@ -26,6 +26,11 @@ one, and the CLI reports their drift without gating it. In fp64 a mesh
 solver request runs the exact all-pairs force on the double kernels, as
 ``nbody_tpu``'s Compute forces its XLA path (``compute.py:175``).
 
+``set_adaptive`` / ``set_block`` make the demo's frames step the adaptive
+global timestep or the block ladder (``nbody_tpu/compute.py:221-290``), their
+stats summed in ``adaptive_stats`` / ``block_stats``; in block mode the rates
+charge the force rows the ladder computed.
+
 ``mesh=`` and ``strategy=`` pass through to the system
 (``nbody_tpu/compute.py:162-163,179-180``): a 1-D mesh of
 ``parallel.make_mesh`` or a 2-D one of ``make_mesh_2d``, in fp32, fp64 or
@@ -58,6 +63,7 @@ from nbody_tpu_torch.params import (
 from nbody_tpu_torch.models import BodySystem, DSBodySystem
 from nbody_tpu_torch.models.body_system import resolve_device
 from nbody_tpu_torch.ops import reference
+from nbody_tpu_torch.ops.adaptive import merge_stats
 from nbody_tpu_torch.ops.cuda_kernel import DEFAULT_BLOCK_SIZE
 from nbody_tpu_torch.ops.ds import ds_to_f64
 from nbody_tpu_torch.ops.energy import total_energy_f64, total_energy_precise
@@ -198,6 +204,11 @@ class Compute:
         self._tipsy_state = tipsy_state
         self.steps_taken = 0
         self.mesh = mesh
+        self.adaptive = None        # {"eta", "dt_min", "dt_max"} when on
+        self.adaptive_stats = None  # accumulated {"t", "dt_last", ...}
+        self.block = None           # {"eta", "dt_max", "n_classes"} when on
+        self.block_stats = None     # accumulated {"t", "rows", ...}
+        self._block_rows_reported = 0.0
 
         if tipsy_state is not None:
             num_bodies = tipsy_state[0].shape[0]
@@ -306,14 +317,64 @@ class Compute:
     def update_simulation(self, camera=None, steps: int = 1, *,
                           cycle: Optional[bool] = None) -> None:
         """Advance one frame of `steps` steps, after cycling to the next
-        demo every DEMO_TIME_S when cycling is on. `cycle` overrides this
-        process's clock (the demo on a mesh passes rank 0's decision to
-        every rank)."""
+        demo every DEMO_TIME_S when cycling is on: fixed dt, or block macro
+        steps when set_block is on, or the adaptive criterion when
+        set_adaptive is on (``nbody_tpu/compute.py:221-238``), a frame's
+        steps in one call, so that an adaptive frame pays its starting
+        force once. `cycle` overrides this process's clock (the demo on a
+        mesh passes rank 0's decision to every rank)."""
         if self.cycle_due() if cycle is None else cycle:
             self.next_demo(camera)
         if not self.paused:
-            self.system.update_many(steps, self.active_params.time_step)
+            if self.block is not None:
+                self.step_block(steps)
+            elif self.adaptive is not None:
+                self.step_adaptive(steps)
+            else:
+                self.system.update_many(steps, self.active_params.time_step)
             self.steps_taken += steps
+
+    def set_adaptive(self, eta: float, dt_min: Optional[float] = None,
+                     dt_max: Optional[float] = None) -> None:
+        """Step frames with the adaptive global timestep
+        (``update_many_adaptive``). dt_min / dt_max None are the call's
+        defaults, which follow the active demo's time_step as demos cycle."""
+        self.adaptive = {"eta": eta, "dt_min": dt_min, "dt_max": dt_max}
+        self.adaptive_stats = None
+
+    def set_block(self, eta: float, dt_max: Optional[float] = None,
+                  n_classes: int = 4) -> None:
+        """Step frames with per-body block timesteps
+        (``BodySystem.update_many_block``): a frame's `steps` become macro
+        steps of dt_max (None: the active demo's time_step), so that a frame
+        spans the fixed-dt demo's simulated time while tight bodies
+        sub-cycle on the ladder."""
+        self.block = {"eta": eta, "dt_max": dt_max, "n_classes": n_classes}
+        self.block_stats = None
+        self._block_rows_reported = 0.0
+
+    def step_block(self, steps: int) -> None:
+        """`steps` block macro steps; their force rows and the global-dt
+        rows accumulate in block_stats."""
+        st = self.system.update_many_block(steps, **self.block)
+        acc = self.block_stats
+        if acc is None:
+            self.block_stats = st
+            return
+        acc["t"] += st["t"]
+        acc["rows"] += st["rows"]
+        acc["global_rows"] += st["global_rows"]
+        acc["k_max"] = max(acc["k_max"], st["k_max"])
+        acc["macro_steps"] += st["macro_steps"]
+
+    def step_adaptive(self, steps: int) -> None:
+        """`steps` adaptive steps; the simulated time sums into
+        adaptive_stats and the dt extrema merge."""
+        st = self.system.update_many_adaptive(steps, **self.adaptive)
+        if self.adaptive_stats is None:
+            self.adaptive_stats = st
+        else:
+            merge_stats(self.adaptive_stats, st)
 
     def reset(self, config: NBodyConfig, seed: Optional[int] = None) -> None:
         if self._tipsy_state is not None:
@@ -352,9 +413,18 @@ class Compute:
     def calculate_fps(self, frame_count: int, milliseconds: float,
                       *, steps_per_frame: int = 1) -> None:
         """The demo loop's report (``nbody_tpu/compute.py:328-346``): frames
-        a second, and the perf rates per simulation step, not per frame.
-        The block-timestep accounting comes with ROADMAP.md Queue 1 #7."""
+        a second, and the perf rates per simulation step, not per frame; in
+        block mode the rates charge the force rows the ladder computed since
+        the last report (each row N interactions), not N^2 a step."""
         self.fps = frame_count * 1000.0 / max(milliseconds, 1e-9)
+        if self.block_stats is not None:
+            rows = self.block_stats["rows"]
+            d_rows = rows - self._block_rows_reported
+            self._block_rows_reported = rows
+            secs = max(milliseconds / 1000.0, 1e-9)
+            self.interactions_per_second = d_rows * float(self.num_bodies) * 1e-9 / secs
+            self.g_flops = self.interactions_per_second * flops_per_interaction(self.fp64_enabled)
+            return
         self.compute_perf_stats(self.fps * steps_per_frame)
 
     def run_benchmark(self, nb_iterations: int) -> dict:

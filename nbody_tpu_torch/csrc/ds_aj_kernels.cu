@@ -65,9 +65,11 @@
 // mass 0 and no force; a thread past M stages j-bodies and writes nothing.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
-// contiguous float arrays, planes 16-byte aligned; `scal` is a host pointer
-// to the (2, 4) block of ops/ds.py (eps^2 in column 1) for the force, and
-// to the (2, 8) block of ops/ds.py::scal_ds_hermite for the glue. The
+// contiguous float arrays, planes 16-byte aligned; `scal` is a device
+// pointer to the (2, 4) block of ops/ds.py (eps^2 in column 1) for the
+// force, and to the (2, 8) block of ops/ds.py::scal_ds_hermite (or
+// ds_scal_with_dt's, built on the device) for the glue, which every kernel
+// reads at its start (ds_common.cuh). The
 // caller makes the arrays' device current; the kernels run on the given
 // stream, allocate nothing and do not synchronise. Each entry point returns
 // cudaGetLastError() after its launch.
@@ -97,7 +99,8 @@ __global__ void ds_accel_jerk_kernel(
     const float4* __restrict__ jvel_hi, const float4* __restrict__ jvel_lo,
     float4* __restrict__ acc_hi, float4* __restrict__ acc_lo, float4* __restrict__ jerk_hi,
     float4* __restrict__ jerk_lo, const int64_t m, const int64_t n, const int64_t chunk,
-    const dsf eps2, float* __restrict__ parts) {
+    const float* __restrict__ scal, float* __restrict__ parts) {
+  const dsf eps2 = read_scalars(scal).eps2;
   // a stage of j-bodies: pos hi, pos lo, vel hi, vel lo
   __shared__ float4 th[kDsAjStage];
   __shared__ float4 tl[kDsAjStage];
@@ -191,10 +194,11 @@ __global__ void __launch_bounds__(256) ds_hermite_predict_kernel(
     const float* __restrict__ acc_hi, const float* __restrict__ acc_lo,
     const float* __restrict__ jerk_hi, const float* __restrict__ jerk_lo, const int64_t astride,
     float4* __restrict__ out_ph, float4* __restrict__ out_pl, float4* __restrict__ out_vh,
-    float4* __restrict__ out_vl, const int64_t n, const dsf dt, const dsf dt2_2,
-    const dsf dt3_6) {
+    float4* __restrict__ out_vl, const int64_t n, const float* __restrict__ scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const ds_hermite_scalars s = read_hermite_scalars(scal);
+  const dsf dt = s.dt, dt2_2 = s.dt2_2, dt3_6 = s.dt3_6;
   const float4 ph = pos_hi[i], pl = pos_lo[i], vh = vel_hi[i], vl = vel_lo[i];
   dsf xp[3], vp[3];
 #pragma unroll
@@ -218,10 +222,11 @@ __global__ void __launch_bounds__(256) ds_hermite_correct_kernel(
     const float* __restrict__ a1_hi, const float* __restrict__ a1_lo,
     const float* __restrict__ j1_hi, const float* __restrict__ j1_lo, const int64_t astride,
     float4* __restrict__ out_ph, float4* __restrict__ out_pl, float4* __restrict__ out_vh,
-    float4* __restrict__ out_vl, const int64_t n, const dsf damping, const dsf dt_half,
-    const dsf dt2_12) {
+    float4* __restrict__ out_vl, const int64_t n, const float* __restrict__ scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const ds_hermite_scalars s = read_hermite_scalars(scal);
+  const dsf damping = s.damping, dt_half = s.dt_half, dt2_12 = s.dt2_12;
   const float4 ph = pos_hi[i], pl = pos_lo[i], vh = vel_hi[i], vl = vel_lo[i];
   dsf x1[3], v1[3];
 #pragma unroll
@@ -253,7 +258,7 @@ unsigned int num_blocks(int64_t m, int64_t bs) {
 int launch_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel_hi,
                          const void* vel_lo, const void* jpos_hi, const void* jpos_lo,
                          const void* jvel_hi, const void* jvel_lo, void* acc_hi, void* acc_lo,
-                         void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, dsf eps2,
+                         void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, const float* scal,
                          int64_t block_size, int64_t splits, float* parts,
                          cudaStream_t stream) {
   if (!valid_block_size(block_size) || m < 0 || n < 0 || splits > 65535) {
@@ -268,7 +273,7 @@ int launch_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel
       static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
       static_cast<const float4*>(jvel_hi), static_cast<const float4*>(jvel_lo),
       static_cast<float4*>(acc_hi), static_cast<float4*>(acc_lo), static_cast<float4*>(jerk_hi),
-      static_cast<float4*>(jerk_lo), m, n, chunk, eps2, splits > 1 ? parts : nullptr);
+      static_cast<float4*>(jerk_lo), m, n, chunk, scal, splits > 1 ? parts : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   err = ds_sum_partials(parts, splits, 12, m, static_cast<float*>(acc_hi),
@@ -291,8 +296,8 @@ int nbody_ds_accel_jerk(const void* pos_hi, const void* pos_lo, const void* vel_
                         void* jerk_hi, void* jerk_lo, int64_t m, int64_t n, const float* scal,
                         int64_t block_size, void* stream) {
   return launch_ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
-                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, read_scalars(scal).eps2,
-                              block_size, 1, nullptr, static_cast<cudaStream_t>(stream));
+                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, scal, block_size, 1,
+                              nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // the same in `splits` j-chunks: scratch holds splits * 12 * m floats, the
@@ -305,8 +310,8 @@ int nbody_ds_accel_jerk_split(const void* pos_hi, const void* pos_lo, const void
                               void* scratch, void* stream) {
   if (splits < 1 || scratch == nullptr) return cudaErrorInvalidValue;
   return launch_ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel_lo,
-                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, read_scalars(scal).eps2,
-                              block_size, splits, static_cast<float*>(scratch),
+                              acc_hi, acc_lo, jerk_hi, jerk_lo, m, n, scal, block_size, splits,
+                              static_cast<float*>(scratch),
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -319,14 +324,13 @@ int nbody_ds_hermite_predict(const void* pos_hi, const void* pos_lo, const void*
                              const float* scal, void* stream) {
   if (n < 0 || astride < 3) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const ds_hermite_scalars sc = read_hermite_scalars(scal);
   ds_hermite_predict_kernel<<<num_blocks(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<const float*>(acc_hi), static_cast<const float*>(acc_lo),
       static_cast<const float*>(jerk_hi), static_cast<const float*>(jerk_lo), astride,
       static_cast<float4*>(out_ph), static_cast<float4*>(out_pl), static_cast<float4*>(out_vh),
-      static_cast<float4*>(out_vl), n, sc.dt, sc.dt2_2, sc.dt3_6);
+      static_cast<float4*>(out_vl), n, scal);
   return cudaGetLastError();
 }
 
@@ -341,7 +345,6 @@ int nbody_ds_hermite_correct(const void* pos_hi, const void* pos_lo, const void*
                              void* out_vl, int64_t n, const float* scal, void* stream) {
   if (n < 0 || astride < 3) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const ds_hermite_scalars sc = read_hermite_scalars(scal);
   ds_hermite_correct_kernel<<<num_blocks(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
@@ -350,7 +353,7 @@ int nbody_ds_hermite_correct(const void* pos_hi, const void* pos_lo, const void*
       static_cast<const float*>(a1_hi), static_cast<const float*>(a1_lo),
       static_cast<const float*>(j1_hi), static_cast<const float*>(j1_lo), astride,
       static_cast<float4*>(out_ph), static_cast<float4*>(out_pl), static_cast<float4*>(out_vh),
-      static_cast<float4*>(out_vl), n, sc.damping, sc.dt_half, sc.dt2_12);
+      static_cast<float4*>(out_vl), n, scal);
   return cudaGetLastError();
 }
 

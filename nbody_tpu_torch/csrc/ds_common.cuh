@@ -140,13 +140,17 @@ __device__ __forceinline__ void ds_kick_drift(const float4 ph, const float4 pl, 
   *out_pl = make_float4(px.lo, py.lo, pz.lo, pl.w);
 }
 
-// The host scalar block, (2, 4) floats: row 0 the hi and row 1 the lo parts
-// of [dt, eps^2, damping, dt/2] (ops/ds.py::scal_ds / scal_ds_leapfrog)
+// The scalar block, (2, 4) floats in device memory: row 0 the hi and row 1
+// the lo parts of [dt, eps^2, damping, dt/2] (ops/ds.py::scal_ds /
+// scal_ds_leapfrog, or ds_scal_with_dt's block built on the device). Every
+// kernel reads it at its start, so a dt chosen on the device (an adaptive
+// step) needs no host round trip; the values, and so the bits, are those a
+// host block passed by value gave.
 struct ds_scalars {
   dsf dt, eps2, damping, dt_half;
 };
 
-ds_scalars read_scalars(const float* scal) {
+__device__ __forceinline__ ds_scalars read_scalars(const float* __restrict__ scal) {
   ds_scalars s;
   s.dt = make_ds(scal[0], scal[4]);
   s.eps2 = make_ds(scal[1], scal[5]);
@@ -155,13 +159,15 @@ ds_scalars read_scalars(const float* scal) {
   return s;
 }
 
-// The Hermite block, (2, 8) floats: the hi and lo parts of [dt, eps^2,
-// damping, dt/2, dt^2/2, dt^3/6, dt^2/12, 0] (ops/ds.py::scal_ds_hermite)
+// The Hermite block, (2, 8) floats in device memory: the hi and lo parts of
+// [dt, eps^2, damping, dt/2, dt^2/2, dt^3/6, dt^2/12, 0]
+// (ops/ds.py::scal_ds_hermite, or ds_scal_with_dt's)
 struct ds_hermite_scalars {
   dsf dt, eps2, damping, dt_half, dt2_2, dt3_6, dt2_12;
 };
 
-ds_hermite_scalars read_hermite_scalars(const float* scal) {
+__device__ __forceinline__ ds_hermite_scalars read_hermite_scalars(
+    const float* __restrict__ scal) {
   ds_hermite_scalars s;
   s.dt = make_ds(scal[0], scal[8]);
   s.eps2 = make_ds(scal[1], scal[9]);

@@ -31,7 +31,9 @@
 //
 // State: four (N, 4) float planes pos_hi, pos_lo, vel_hi, vel_lo, AoS
 // [x, y, z, m] / [vx, vy, vz, w]. dt, eps^2, damping and dt/2 come as hi/lo
-// pairs in a (2, 4) host block (ops/ds.py::scal_ds).
+// pairs in a (2, 4) block in device memory (ops/ds.py::scal_ds, or
+// ds_scal_with_dt's, built on the device by an adaptive step), which every
+// kernel reads at its start.
 //
 // Design. One thread an i-body keeps its position and three ds sums in
 // registers; the block stages the j-bodies through shared memory, hi and
@@ -83,8 +85,8 @@
 // and no force; a thread past M stages j-bodies and writes nothing.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
-// contiguous, 16-byte aligned float arrays; `scal` is a host pointer to the
-// (2, 4) block; the `_split` entry points take S and a device scratch of
+// contiguous, 16-byte aligned float arrays; `scal` is a device pointer to
+// the (2, 4) block; the `_split` entry points take S and a device scratch of
 // S * 6 * M floats for the partials. The caller makes the arrays' device
 // current; the kernels run on the given stream, allocate nothing and do not
 // synchronise. Each entry point returns cudaGetLastError() after its
@@ -192,7 +194,9 @@ __global__ void ds_step_kernel(const float4* __restrict__ pos_hi, const float4* 
                                const float4* __restrict__ jpos_lo, float4* __restrict__ new_pos_hi,
                                float4* __restrict__ new_pos_lo, float4* __restrict__ new_vel_hi,
                                float4* __restrict__ new_vel_lo, const int64_t m, const int64_t n,
-                               const int64_t chunk, const ds_scalars s, float* __restrict__ parts) {
+                               const int64_t chunk, const float* __restrict__ scal,
+                               float* __restrict__ parts) {
+  const ds_scalars s = read_scalars(scal);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const float4 ph = (i < m) ? pos_hi[i] : zero4();
   const float4 pl = (i < m) ? pos_lo[i] : zero4();
@@ -215,12 +219,13 @@ __global__ void __launch_bounds__(128)
                           const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
                           float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
                           float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo,
-                          const int64_t m, const dsf dt, const dsf damping) {
+                          const int64_t m, const float* __restrict__ scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m) return;
+  const ds_scalars s = read_scalars(scal);
   dsf ax, ay, az;
   ds_slot_sum3(parts, splits, 6, m, i, ax, ay, az);
-  ds_kick_drift(pos_hi[i], pos_lo[i], vel_hi[i], vel_lo[i], ax, ay, az, dt, damping, dt,
+  ds_kick_drift(pos_hi[i], pos_lo[i], vel_hi[i], vel_lo[i], ax, ay, az, s.dt, s.damping, s.dt,
                 new_pos_hi + i, new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
 }
 
@@ -235,7 +240,9 @@ __global__ void ds_leapfrog_kernel(
     const float4* __restrict__ jvel_hi, const float4* __restrict__ jvel_lo,
     float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
     float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo, const int64_t m,
-    const int64_t n, const int64_t chunk, const ds_scalars s, float* __restrict__ parts) {
+    const int64_t n, const int64_t chunk, const float* __restrict__ scal,
+    float* __restrict__ parts) {
+  const ds_scalars s = read_scalars(scal);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float4 ph = (i < m) ? pos_hi[i] : zero4();
   float4 pl = (i < m) ? pos_lo[i] : zero4();
@@ -263,9 +270,10 @@ __global__ void __launch_bounds__(128)
                               const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
                               float4* __restrict__ new_pos_hi, float4* __restrict__ new_pos_lo,
                               float4* __restrict__ new_vel_hi, float4* __restrict__ new_vel_lo,
-                              const int64_t m, const ds_scalars s) {
+                              const int64_t m, const float* __restrict__ scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m) return;
+  const ds_scalars s = read_scalars(scal);
   dsf ax, ay, az;
   ds_slot_sum3(parts, splits, 6, m, i, ax, ay, az);
   float4 ph = pos_hi[i];
@@ -284,8 +292,9 @@ __global__ void ds_accel_kernel(const float4* __restrict__ pos_hi,
                                 const float4* __restrict__ jpos_hi,
                                 const float4* __restrict__ jpos_lo, float4* __restrict__ acc_hi,
                                 float4* __restrict__ acc_lo, const int64_t m, const int64_t n,
-                                const int64_t chunk, const ds_scalars s,
+                                const int64_t chunk, const float* __restrict__ scal,
                                 float* __restrict__ parts) {
+  const ds_scalars s = read_scalars(scal);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const float4 ph = (i < m) ? pos_hi[i] : zero4();
   const float4 pl = (i < m) ? pos_lo[i] : zero4();
@@ -322,7 +331,6 @@ int launch_ds_step(const void* pos_hi, const void* pos_lo, const void* vel_hi, c
                    int64_t block_size, int64_t splits, float* parts, cudaStream_t stream) {
   if (!valid_split(block_size, m, n, splits, parts)) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const ds_scalars s = read_scalars(scal);
   const dim3 grid(num_blocks(m, block_size), static_cast<unsigned int>(splits));
   ds_step_kernel<<<grid, static_cast<unsigned int>(block_size), 0, stream>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
@@ -330,14 +338,14 @@ int launch_ds_step(const void* pos_hi, const void* pos_lo, const void* vel_hi, c
       static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
       static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, n,
-      chunk_of(n, splits), s, splits > 1 ? parts : nullptr);
+      chunk_of(n, splits), scal, splits > 1 ? parts : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   ds_step_finish_kernel<<<num_blocks(m, 128), 128, 0, stream>>>(
       parts, splits, static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
-      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, s.dt, s.damping);
+      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, scal);
   return cudaGetLastError();
 }
 
@@ -351,7 +359,6 @@ int launch_ds_leapfrog(const void* pos_hi, const void* pos_lo, const void* vel_h
                        cudaStream_t stream) {
   if (!valid_split(block_size, m, n, splits, parts)) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const ds_scalars s = read_scalars(scal);
   const dim3 grid(num_blocks(m, block_size), static_cast<unsigned int>(splits));
   ds_leapfrog_kernel<<<grid, static_cast<unsigned int>(block_size), 0, stream>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
@@ -360,14 +367,14 @@ int launch_ds_leapfrog(const void* pos_hi, const void* pos_lo, const void* vel_h
       static_cast<const float4*>(jvel_hi), static_cast<const float4*>(jvel_lo),
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
       static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, n,
-      chunk_of(n, splits), s, splits > 1 ? parts : nullptr);
+      chunk_of(n, splits), scal, splits > 1 ? parts : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   ds_leapfrog_finish_kernel<<<num_blocks(m, 128), 128, 0, stream>>>(
       parts, splits, static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
-      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, s);
+      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), m, scal);
   return cudaGetLastError();
 }
 
@@ -384,7 +391,7 @@ int launch_ds_accel(const void* pos_hi, const void* pos_lo, const void* jpos_hi,
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(jpos_hi), static_cast<const float4*>(jpos_lo),
       static_cast<float4*>(acc_hi), static_cast<float4*>(acc_lo), m, n, chunk_of(n, splits),
-      read_scalars(scal), splits > 1 ? parts : nullptr);
+      scal, splits > 1 ? parts : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return ds_sum_partials(parts, splits, 6, m, static_cast<float*>(acc_hi),

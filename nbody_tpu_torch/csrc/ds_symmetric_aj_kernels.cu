@@ -58,8 +58,9 @@
 // mass 0 on both sides and nothing written for it.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
-// contiguous float arrays, planes (N, 4) 16-byte aligned; `scal` is a host
-// pointer to a (2, 4) block of ops/ds.py, eps^2 in column 1. The caller
+// contiguous float arrays, planes (N, 4) 16-byte aligned; `scal` is a
+// device pointer to a (2, 4) block of ops/ds.py, eps^2 in column 1, read by
+// every kernel at its start (ds_common.cuh). The caller
 // allocates the scratch and the outputs, makes the arrays' device current,
 // and passes its stream; nothing here allocates or synchronises. Each entry
 // point returns the first CUDA error of its launches.
@@ -196,9 +197,10 @@ template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
     ds_aj_sym_tri_kernel(const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
                          const float4* __restrict__ vel_hi, const float4* __restrict__ vel_lo,
-                         const int64_t n, const int64_t num_tiles, const dsf eps2,
-                         float* __restrict__ scratch) {
+                         const int64_t n, const int64_t num_tiles,
+                         const float* __restrict__ scal, float* __restrict__ scratch) {
   constexpr int T = kThreads * ROWS;
+  const dsf eps2 = read_scalars(scal).eps2;
   extern __shared__ float red[];  // kWarps * kComps * T
   int64_t r, c;
   triangle_tile(blockIdx.x, num_tiles, r, c);
@@ -237,9 +239,11 @@ __global__ void __launch_bounds__(kThreads)
                            const float4* __restrict__ ivh, const float4* __restrict__ ivl,
                            const int64_t bi, const float4* __restrict__ jh,
                            const float4* __restrict__ jl, const float4* __restrict__ jvh,
-                           const float4* __restrict__ jvl, const int64_t bj, const dsf eps2,
-                           float* __restrict__ act_out, float* __restrict__ react_out) {
+                           const float4* __restrict__ jvl, const int64_t bj,
+                           const float* __restrict__ scal, float* __restrict__ act_out,
+                           float* __restrict__ react_out) {
   constexpr int T = kThreads * ROWS;
+  const dsf eps2 = read_scalars(scal).eps2;
   extern __shared__ float red[];
   const int64_t c = blockIdx.x;
   const int64_t r = blockIdx.y;
@@ -273,7 +277,8 @@ struct Planes {
 };
 
 template <int ROWS>
-cudaError_t launch_tri(const Planes p, int64_t n, dsf eps2, float* scratch, cudaStream_t stream) {
+cudaError_t launch_tri(const Planes p, int64_t n, const float* scal, float* scratch,
+                       cudaStream_t stream) {
   const int64_t tiles = cdiv(n, kThreads * ROWS);
   const int64_t blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -283,13 +288,13 @@ cudaError_t launch_tri(const Planes p, int64_t n, dsf eps2, float* scratch, cuda
                                          static_cast<int>(red_bytes<ROWS>()));
   if (err != cudaSuccess) return err;
   ds_aj_sym_tri_kernel<ROWS><<<static_cast<unsigned>(blocks), kThreads, red_bytes<ROWS>(),
-                               stream>>>(p.ph, p.pl, p.vh, p.vl, n, tiles, eps2, scratch);
+                               stream>>>(p.ph, p.pl, p.vh, p.vl, n, tiles, scal, scratch);
   return cudaGetLastError();
 }
 
 template <int ROWS>
-cudaError_t launch_cross(const Planes pi, int64_t bi, const Planes pj, int64_t bj, dsf eps2,
-                         float* act, float* react, cudaStream_t stream) {
+cudaError_t launch_cross(const Planes pi, int64_t bi, const Planes pj, int64_t bj,
+                         const float* scal, float* act, float* react, cudaStream_t stream) {
   const int64_t ri = cdiv(bi, kThreads * ROWS);
   const int64_t cj = cdiv(bj, kThreads * ROWS);
   if (ri > 65535 || cj > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -299,7 +304,7 @@ cudaError_t launch_cross(const Planes pi, int64_t bi, const Planes pj, int64_t b
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(cj), static_cast<unsigned>(ri));
   ds_aj_sym_cross_kernel<ROWS><<<grid, kThreads, red_bytes<ROWS>(), stream>>>(
-      pi.ph, pi.pl, pi.vh, pi.vl, bi, pj.ph, pj.pl, pj.vh, pj.vl, bj, eps2, act, react);
+      pi.ph, pi.pl, pi.vh, pi.vl, bi, pj.ph, pj.pl, pj.vh, pj.vl, bj, scal, act, react);
   return cudaGetLastError();
 }
 
@@ -334,9 +339,8 @@ int nbody_ds_aj_sym(const void* pos_hi, const void* pos_lo, const void* vel_hi, 
   if (n == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
   const Planes p = planes_of(pos_hi, pos_lo, vel_hi, vel_lo);
-  const dsf eps2 = read_scalars(scal).eps2;
   auto sc = static_cast<float*>(scratch);
-  cudaError_t err = rows == 1 ? launch_tri<1>(p, n, eps2, sc, s) : launch_tri<2>(p, n, eps2, sc, s);
+  cudaError_t err = rows == 1 ? launch_tri<1>(p, n, scal, sc, s) : launch_tri<2>(p, n, scal, sc, s);
   if (err != cudaSuccess) return err;
   return sum_aj(sc, cdiv(n, tile), n, acc_hi, acc_lo, jerk_hi, jerk_lo, 3, 1, 0, s);
 }
@@ -360,9 +364,8 @@ int nbody_ds_aj_cross(const void* pos_hi_i, const void* pos_lo_i, const void* ve
   if (bi > 0 && bj > 0) {
     const Planes pi = planes_of(pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i);
     const Planes pj = planes_of(pos_hi_j, pos_lo_j, vel_hi_j, vel_lo_j);
-    const dsf eps2 = read_scalars(scal).eps2;
-    cudaError_t err = rows == 1 ? launch_cross<1>(pi, bi, pj, bj, eps2, si, sj, s)
-                                : launch_cross<2>(pi, bi, pj, bj, eps2, si, sj, s);
+    cudaError_t err = rows == 1 ? launch_cross<1>(pi, bi, pj, bj, scal, si, sj, s)
+                                : launch_cross<2>(pi, bi, pj, bj, scal, si, sj, s);
     if (err != cudaSuccess) return err;
   }
   // with an empty other side there are no partials: the sums are 0

@@ -52,7 +52,8 @@
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers to
 // contiguous float arrays, pos planes (N, 4) 16-byte aligned; `scal` is a
-// host pointer to the (2, 4) block of ops/ds.py::scal_ds. The caller
+// device pointer to the (2, 4) block of ops/ds.py::scal_ds, read by every
+// kernel at its start (ds_common.cuh). The caller
 // allocates the scratch and the outputs, makes the arrays' device current,
 // and passes its stream; nothing here allocates or synchronises. Each entry
 // point returns the first CUDA error of its launches.
@@ -148,9 +149,10 @@ __device__ __forceinline__ void ds_tile_pair(
 template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
     ds_sym_tri_kernel(const float4* __restrict__ pos_hi, const float4* __restrict__ pos_lo,
-                      const int64_t n, const int64_t num_tiles, const dsf eps2,
+                      const int64_t n, const int64_t num_tiles, const float* __restrict__ scal,
                       float* __restrict__ scratch) {
   constexpr int T = kThreads * ROWS;
+  const dsf eps2 = read_scalars(scal).eps2;
   extern __shared__ float red[];  // kWarps * kComps * T
   int64_t r, c;
   triangle_tile(blockIdx.x, num_tiles, r, c);
@@ -187,9 +189,11 @@ template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
     ds_sym_cross_kernel(const float4* __restrict__ ih, const float4* __restrict__ il,
                         const int64_t bi, const float4* __restrict__ jh,
-                        const float4* __restrict__ jl, const int64_t bj, const dsf eps2,
-                        float* __restrict__ act, float* __restrict__ react) {
+                        const float4* __restrict__ jl, const int64_t bj,
+                        const float* __restrict__ scal, float* __restrict__ act,
+                        float* __restrict__ react) {
   constexpr int T = kThreads * ROWS;
+  const dsf eps2 = read_scalars(scal).eps2;
   extern __shared__ float red[];
   const int64_t c = blockIdx.x;
   const int64_t r = blockIdx.y;
@@ -223,14 +227,15 @@ __global__ void __launch_bounds__(256)
                         const float* __restrict__ acc_hi, const float* __restrict__ acc_lo,
                         const int64_t stride, float4* __restrict__ new_pos_hi,
                         float4* __restrict__ new_pos_lo, float4* __restrict__ new_vel_hi,
-                        float4* __restrict__ new_vel_lo, const int64_t n, const dsf dt,
-                        const dsf damping) {
+                        float4* __restrict__ new_vel_lo, const int64_t n,
+                        const float* __restrict__ scal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const ds_scalars s = read_scalars(scal);
   const float* ah = acc_hi + stride * i;
   const float* al = acc_lo + stride * i;
   ds_kick_drift(pos_hi[i], pos_lo[i], vel_hi[i], vel_lo[i], make_ds(ah[0], al[0]),
-                make_ds(ah[1], al[1]), make_ds(ah[2], al[2]), dt, damping, dt, new_pos_hi + i,
+                make_ds(ah[1], al[1]), make_ds(ah[2], al[2]), s.dt, s.damping, s.dt, new_pos_hi + i,
                 new_pos_lo + i, new_vel_hi + i, new_vel_lo + i);
 }
 
@@ -240,8 +245,8 @@ constexpr size_t red_bytes() {
 }
 
 template <int ROWS>
-cudaError_t launch_tri(const float4* ph, const float4* pl, int64_t n, dsf eps2, float* scratch,
-                       cudaStream_t stream) {
+cudaError_t launch_tri(const float4* ph, const float4* pl, int64_t n, const float* scal,
+                       float* scratch, cudaStream_t stream) {
   const int64_t tiles = cdiv(n, kThreads * ROWS);
   const int64_t blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -251,14 +256,14 @@ cudaError_t launch_tri(const float4* ph, const float4* pl, int64_t n, dsf eps2, 
                                          static_cast<int>(red_bytes<ROWS>()));
   if (err != cudaSuccess) return err;
   ds_sym_tri_kernel<ROWS><<<static_cast<unsigned>(blocks), kThreads, red_bytes<ROWS>(), stream>>>(
-      ph, pl, n, tiles, eps2, scratch);
+      ph, pl, n, tiles, scal, scratch);
   return cudaGetLastError();
 }
 
 template <int ROWS>
 cudaError_t launch_cross(const float4* ih, const float4* il, int64_t bi, const float4* jh,
-                         const float4* jl, int64_t bj, dsf eps2, float* act, float* react,
-                         cudaStream_t stream) {
+                         const float4* jl, int64_t bj, const float* scal, float* act,
+                         float* react, cudaStream_t stream) {
   const int64_t ri = cdiv(bi, kThreads * ROWS);
   const int64_t cj = cdiv(bj, kThreads * ROWS);
   if (ri > 65535 || cj > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -268,7 +273,7 @@ cudaError_t launch_cross(const float4* ih, const float4* il, int64_t bi, const f
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(cj), static_cast<unsigned>(ri));
   ds_sym_cross_kernel<ROWS><<<grid, kThreads, red_bytes<ROWS>(), stream>>>(ih, il, bi, jh, jl, bj,
-                                                                          eps2, act, react);
+                                                                          scal, act, react);
   return cudaGetLastError();
 }
 
@@ -286,12 +291,11 @@ int nbody_ds_sym_accel(const void* pos_hi, const void* pos_lo, int64_t n, const 
   const auto s = static_cast<cudaStream_t>(stream);
   const auto ph = static_cast<const float4*>(pos_hi);
   const auto pl = static_cast<const float4*>(pos_lo);
-  const dsf eps2 = read_scalars(scal).eps2;
   auto sc = static_cast<float*>(scratch);
-  cudaError_t err = rows == 1   ? launch_tri<1>(ph, pl, n, eps2, sc, s)
-                    : rows == 2 ? launch_tri<2>(ph, pl, n, eps2, sc, s)
-                    : rows == 4 ? launch_tri<4>(ph, pl, n, eps2, sc, s)
-                                : launch_tri<8>(ph, pl, n, eps2, sc, s);
+  cudaError_t err = rows == 1   ? launch_tri<1>(ph, pl, n, scal, sc, s)
+                    : rows == 2 ? launch_tri<2>(ph, pl, n, scal, sc, s)
+                    : rows == 4 ? launch_tri<4>(ph, pl, n, scal, sc, s)
+                                : launch_tri<8>(ph, pl, n, scal, sc, s);
   if (err != cudaSuccess) return err;
   return ds_sum_partials(sc, cdiv(n, tile), kComps, n, static_cast<float*>(acc_hi),
                          static_cast<float*>(acc_lo), 3, 1, 0, s);
@@ -314,11 +318,10 @@ int nbody_ds_sym_cross(const void* pos_hi_i, const void* pos_lo_i, int64_t bi,
     const auto il = static_cast<const float4*>(pos_lo_i);
     const auto jh = static_cast<const float4*>(pos_hi_j);
     const auto jl = static_cast<const float4*>(pos_lo_j);
-    const dsf eps2 = read_scalars(scal).eps2;
-    cudaError_t err = rows == 1   ? launch_cross<1>(ih, il, bi, jh, jl, bj, eps2, si, sj, s)
-                      : rows == 2 ? launch_cross<2>(ih, il, bi, jh, jl, bj, eps2, si, sj, s)
-                      : rows == 4 ? launch_cross<4>(ih, il, bi, jh, jl, bj, eps2, si, sj, s)
-                                  : launch_cross<8>(ih, il, bi, jh, jl, bj, eps2, si, sj, s);
+    cudaError_t err = rows == 1   ? launch_cross<1>(ih, il, bi, jh, jl, bj, scal, si, sj, s)
+                      : rows == 2 ? launch_cross<2>(ih, il, bi, jh, jl, bj, scal, si, sj, s)
+                      : rows == 4 ? launch_cross<4>(ih, il, bi, jh, jl, bj, scal, si, sj, s)
+                                  : launch_cross<8>(ih, il, bi, jh, jl, bj, scal, si, sj, s);
     if (err != cudaSuccess) return err;
   }
   // with an empty other side there are no partials: the sums are 0
@@ -340,14 +343,13 @@ int nbody_ds_integrate(const void* pos_hi, const void* pos_lo, const void* vel_h
                        int64_t n, const float* scal, void* stream) {
   if (n < 0 || (stride != 3 && stride != 4)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const ds_scalars sc = read_scalars(scal);
   ds_integrate_kernel<<<static_cast<unsigned>(cdiv(n, 256)), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pos_hi), static_cast<const float4*>(pos_lo),
       static_cast<const float4*>(vel_hi), static_cast<const float4*>(vel_lo),
       static_cast<const float*>(acc_hi), static_cast<const float*>(acc_lo), stride,
       static_cast<float4*>(new_pos_hi), static_cast<float4*>(new_pos_lo),
-      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), n, sc.dt, sc.damping);
+      static_cast<float4*>(new_vel_hi), static_cast<float4*>(new_vel_lo), n, scal);
   return cudaGetLastError();
 }
 

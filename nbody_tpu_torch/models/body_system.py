@@ -83,6 +83,13 @@ Placements (the reference's BodySystemCUDA variants):
     once, steps there, and copies it back: the HostMemory body system.
     One device only: a mesh with placement="host" raises.
 
+Adaptive and block timesteps: ``update_many_adaptive`` steps with one global
+dt chosen on the device from each step's force (``ops/adaptive.py``; every
+force, precision, placement and mesh above but the ring_fused strategy), and
+``update_many_block`` with per-body rungs of a power-of-two ladder
+(``ops/block_timestep.py``; one device, the exact kernels, damping 1), as
+``nbody_tpu``'s do.
+
 Meshes (``parallel/``): with ``mesh=make_mesh(D)`` each of the D ranks
 holds N/D bodies (N rounded up to a multiple of D with zero-mass bodies, as
 ``nbody_tpu`` rounds it) and steps them with ``make_sharded_step``, by
@@ -141,13 +148,13 @@ from nbody_tpu_torch.ops.energy import (
     total_energy_precise,
 )
 from nbody_tpu_torch.params import NBodyParams
+from nbody_tpu_torch.utils import timing
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
 # Options of nbody_tpu that later slices of the port bring, and the
 # ROADMAP.md item that brings each.
 LATER_SLICES = {
     "pm": "Queue 1 #16 (the rest of #10: the XLA cell-list engine, --p3m-short-range xla)",
-    "adaptive": "Queue 1 #7 (adaptive and block timesteps, and their sharded rollouts)",
 }
 
 
@@ -438,6 +445,10 @@ class BodySystem:
         self._pos = [empty(), empty()]
         self._vel = [empty(), empty()]
         self._cur = 0
+        # bumped by every state change: the block rollout's force chain is
+        # valid while it is unchanged (the buffers are rewritten in place)
+        self._version = 0
+        self._block_chain = None
         if placement == "host":
             pin = self.device.type == "cuda"
             self._host_pos = torch.empty(shape, dtype=dtype, pin_memory=pin)
@@ -471,6 +482,7 @@ class BodySystem:
             self._vel[self._cur].copy_(v)
         if self.kernel == "p3m":
             self._probe_p3m_capacity(p)
+        self._version += 1
 
     def _mesh_solver_step(self):
         """The sharded step of kernel pm / p3m on a 1-D mesh, made at the
@@ -505,9 +517,10 @@ class BodySystem:
         state: the largest massive occupancy + 50 %, rounded up to a multiple
         of 8. Zero-mass padding is inert and not counted."""
         if self.p3m_capacity is None:
-            occ = int(p3m_max_occupancy(pos, grid=self.pm_grid))
+            occ = timing.host_read(p3m_max_occupancy(pos, grid=self.pm_grid), "p3m_contract")
             self.p3m_capacity = max(8, -(-int(occ * 1.5 + 1) // 8) * 8)
-        overflow = int(p3m_overflow_count(pos, grid=self.pm_grid, capacity=self.p3m_capacity))
+        overflow = timing.host_read(p3m_overflow_count(pos, grid=self.pm_grid,
+                                                       capacity=self.p3m_capacity), "p3m_contract")
         if overflow:
             raise ValueError(
                 f"p3m cell capacity {self.p3m_capacity} overflows for "
@@ -648,6 +661,16 @@ class BodySystem:
         else:
             reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         self._cur = nxt
+        self._version += 1
+
+    def _advance_to(self, pos, vel) -> None:
+        """Make (pos, vel) the current state: written into the other
+        ping-pong buffers, which become the current ones."""
+        nxt = 1 - self._cur
+        self._pos[nxt].copy_(pos)
+        self._vel[nxt].copy_(vel)
+        self._cur = nxt
+        self._version += 1
 
     def update(self, dt: Optional[float] = None) -> None:
         """Advance one step (dt defaults to params.time_step)."""
@@ -720,10 +743,7 @@ class BodySystem:
             if not probed:
                 continue
             pos = self._pos[self._cur]
-            whole = self._gather(pos) if self.mesh is not None else pos
-            breach = p3m_overflow_count(whole.to(torch.float32), grid=self.pm_grid,
-                                        capacity=self.p3m_capacity) > 0
-            newly = (first < 0) & breach
+            newly = (first < 0) & self._p3m_breach(pos)
             first = torch.where(newly, i, first)
             if self.p3m_auto_refresh:
                 state = (pos, self._vel[self._cur])
@@ -731,6 +751,235 @@ class BodySystem:
                         else [torch.where(newly, t, k) for t, k in zip(state, snap)])
         self._snapshot = snap if probed else None
         return int(first) if probed else -1
+
+    # steps (adaptive) or substeps (block) of one rollout segment, whose stats
+    # are read once: nbody_tpu's segment off the TPU
+    # (models/body_system.py:888-905)
+    _MAX_ROLLOUT_SEGMENT = 1000
+
+    def _p3m_breach(self, pos) -> torch.Tensor:
+        """The P3M contract probe of `pos` (this rank's shard on a mesh) as a
+        device bool: a cell over the capacity (``_probed_steps``' probe)."""
+        whole = self._gather(pos) if self.mesh is not None else pos
+        return p3m_overflow_count(whole.to(torch.float32), grid=self.pm_grid,
+                                  capacity=self.p3m_capacity) > 0
+
+    def update_many_adaptive(self, steps: int, *, eta: float = 0.025,
+                             dt_min: Optional[float] = None,
+                             dt_max: Optional[float] = None) -> dict:
+        """Advance `steps` steps with a global adaptive timestep
+        (``ops/adaptive.py``), ``nbody_tpu``'s ``update_many_adaptive``
+        (``models/body_system.py:993-1113``). The criterion is
+        eta*sqrt(softening/max|a|) for euler and leapfrog (the leapfrog in
+        its KDK form, the acceleration carried between steps) and Aarseth's
+        eta*min|a|/|j| for hermite, clipped to [dt_min, dt_max]; dt_max
+        defaults to params.time_step and dt_min to dt_max/1024. dt stays on
+        the device: the steps are queued with no host synchronisation and
+        each segment of up to 1000 steps reads its stats once
+        (``host_read``, "adaptive_stats"). Returns {"t", "dt_last",
+        "dt_lo", "dt_hi", "steps"}.
+
+        Every force runs: the variant's (sym, vpu; the mxu variants' Euler
+        takes the one-sided force), fp32 or float64, pm and p3m, host
+        placement, and on a mesh every strategy but ring_fused (the fixed-dt
+        update is fused into its kernel) and the 2-D grid. With kernel='p3m'
+        each step probes the contract as ``update_many`` does; a breach warns
+        once, or with p3m_auto_refresh rewinds to the breached step, re-sizes
+        and resumes, accounting the simulated time through that step.
+        Each call evaluates the starting force once (leapfrog), so batch
+        frames into one call."""
+        from nbody_tpu_torch.ops.adaptive import merge_stats, new_totals
+        from nbody_tpu_torch.utils.profiling import annotate
+
+        if self.mesh is not None and self.strategy == "ring_fused":
+            raise ValueError(
+                "strategy='ring_fused' fuses the fixed-dt Euler "
+                "update into its kernel; use allgather/ring/auto "
+                "for adaptive rollouts")
+        p = self.params
+        if dt_max is None:
+            dt_max = p.time_step
+        if dt_min is None:
+            dt_min = dt_max / 1024.0
+        if not (0.0 < dt_min <= dt_max):
+            raise ValueError(f"need 0 < dt_min <= dt_max, got [{dt_min}, {dt_max}]")
+        if not eta > 0.0:   # also rejects NaN
+            raise ValueError(f"need eta > 0, got {eta}")
+        host = self.placement == "host"
+        probed = self.kernel == "p3m"
+        totals = new_totals(dt_max, steps)
+
+        if host:
+            self._pos[self._cur].copy_(self._host_pos, non_blocking=True)
+            self._vel[self._cur].copy_(self._host_vel, non_blocking=True)
+        done = 0
+        while done < steps:
+            seg = min(steps - done, self._MAX_ROLLOUT_SEGMENT)
+            run = self._adaptive_rollout_fn(seg, eta, dt_min, dt_max)
+            with annotate(f"nbody.adaptive_rollout[{seg}]"):
+                out = run(self._pos[self._cur], self._vel[self._cur])
+            if not probed:
+                self._advance_to(*out[:2])
+                merge_stats(totals, timing.host_read(out[2], "adaptive_stats"))
+                done += seg
+                continue
+            npos, nvel, stats, first, bp, bv, bst = out
+            # one read: the stats, the first breached step, the stats through it
+            got = timing.host_read(torch.cat([stats.double(), first.double()[None], bst.double()]),
+                                   "adaptive_stats")
+            first = int(got[4])
+            done += seg
+            if first < 0:
+                self._advance_to(npos, nvel)
+                merge_stats(totals, got[:4])
+                self._p3m_contract_warned = False
+                continue
+            if self.p3m_auto_refresh:
+                # rewind to the state of the first breached step, and account
+                # the simulated time through it
+                self._advance_to(bp, bv)
+                merge_stats(totals, got[5:])
+                before = self.p3m_capacity
+                self.refresh_p3m_contract()
+                self.p3m_refreshes.append((done - seg + first, before, self.p3m_capacity))
+                done -= seg - first - 1
+                continue
+            self._advance_to(npos, nvel)
+            merge_stats(totals, got[:4])
+            if not self._p3m_contract_warned:
+                import warnings
+
+                warnings.warn(
+                    f"p3m contract broken mid-rollout: first breach "
+                    f"at adaptive step {done - seg + first} of "
+                    f"{steps} — short-range terms have been dropped "
+                    "since. Call refresh_p3m_contract() and re-run, "
+                    "enable p3m_auto_refresh (--p3m-auto-refresh), "
+                    "or raise --p3m-capacity / --pm-grid.",
+                    stacklevel=2,
+                )
+                self._p3m_contract_warned = True
+        if host:
+            self._host_pos.copy_(self._pos[self._cur])
+            self._host_vel.copy_(self._vel[self._cur])
+        return totals
+
+    def _adaptive_rollout_fn(self, steps: int, eta: float, dt_min: float, dt_max: float):
+        """The adaptive rollout of this system: its own force closures on
+        one device, the sharded rollouts' on a mesh (the mesh solvers' sharded
+        force on a 1-D mesh), with the P3M probe for kernel='p3m'."""
+        from nbody_tpu_torch.ops.adaptive import make_adaptive_rollout
+
+        p = self.params
+        kw = dict(softening=p.softening, damping=p.damping, eta=eta, dt_min=dt_min,
+                  dt_max=dt_max, steps=steps)
+        probe = self._p3m_breach if self.kernel == "p3m" else None
+        if self.mesh is not None and self.kernel == "auto":
+            from nbody_tpu_torch.parallel.sharded import adaptive_rollout_on
+
+            return adaptive_rollout_on(self._sharded, integrator=self.integrator, **kw)
+        if self.mesh is not None:
+            def accel_fn(p4):
+                return self._mesh_solver_step().accel(p4, p.softening)
+
+            return make_adaptive_rollout(self.integrator, accel_fn=accel_fn, mesh=self.mesh,
+                                         probe_fn=probe, **kw)
+        return make_adaptive_rollout(self.integrator, accel_fn=self._accel,
+                                     accel_jerk_fn=self._accel_jerk, probe_fn=probe, **kw)
+
+    def update_many_block(self, macro_steps: int, *, eta: float = 0.025,
+                          dt_max: Optional[float] = None, n_classes: int = 4) -> dict:
+        """Advance `macro_steps` macro steps of dt_max with per-body block
+        timesteps on a power-of-two ladder (``ops/block_timestep.py``),
+        ``nbody_tpu``'s ``update_many_block`` (``models/body_system.py:
+        1226-1324``): each body at the largest rung dt_max/2^k not exceeding
+        its own eta*sqrt(softening/|a_i|), KDK leapfrog per class. dt_max
+        defaults to params.time_step. Returns {"t", "rows", "global_rows",
+        "k_max", "macro_steps"}, ``nbody_tpu``'s stats: rows is the force
+        rows computed, global_rows what a global dt at the deepest occupied
+        rung would have computed.
+
+        The exact kernels on one device, damping 1 only, as in
+        ``nbody_tpu``: the prefix force is this system's one-sided force
+        (its backend's, in its dtype) at (n_active, N), and each macro step
+        reads its class counts on the host once (``host_read``,
+        "block_counts"). The classifying force is chained across calls
+        while the state is unchanged (a state version, which every state
+        set and step bumps)."""
+        from nbody_tpu_torch.utils.profiling import annotate
+
+        p = self.params
+        if self.mesh is not None:
+            raise ValueError(
+                "block timesteps are single-device (the sharded "
+                "composition is rejected on measured numbers — "
+                "ARCHITECTURE.md 'Per-body block timesteps'); use "
+                "update_many_adaptive on meshes")
+        if self.kernel in ("pm", "p3m"):
+            raise ValueError(
+                "block timesteps drive the exact kernels; pm/p3m take "
+                "update_many_adaptive (per-body ladders below the mesh "
+                "force's cell-scale error floor are meaningless)")
+        if p.damping != 1.0:
+            raise ValueError(
+                "block timesteps need damping=1.0 (a per-kick damping "
+                "is not the reference's per-step multiplier once bodies"
+                " kick at different cadences)")
+        if dt_max is None:
+            dt_max = p.time_step
+        if not dt_max > 0:
+            raise ValueError(f"need dt_max > 0, got {dt_max}")
+        if not eta > 0.0:   # also rejects NaN
+            raise ValueError(f"need eta > 0, got {eta}")
+        if not 1 <= n_classes <= 16:
+            raise ValueError(f"need 1 <= n_classes <= 16, got {n_classes}")
+        totals = {"t": 0.0, "rows": 0.0, "global_rows": 0.0, "k_max": 0,
+                  "macro_steps": macro_steps}
+        s_count = 1 << (n_classes - 1)
+        seg_max = max(1, self._MAX_ROLLOUT_SEGMENT // s_count)
+        pos, vel = self._device_state()
+        chain = self._block_chain
+        if chain is not None and chain[0] == self._version and chain[1] == p.softening:
+            a0 = chain[2]
+        else:
+            # the chain's start force (the system's force), billed to neither
+            # rows column, as nbody_tpu's
+            a0 = self._accel(pos)
+        done = 0
+        while done < macro_steps:
+            seg = min(seg_max, macro_steps - done)
+            run = self._block_rollout_fn(seg, eta, dt_max, n_classes)
+            with annotate(f"nbody.block_rollout[{seg}]"):
+                pos, vel, a0, stats = run(self._pos[self._cur], self._vel[self._cur], a0)
+            self._advance_to(pos, vel)
+            totals["t"] += float(stats[0])
+            totals["rows"] += float(stats[1])
+            totals["global_rows"] += float(stats[2])
+            totals["k_max"] = max(totals["k_max"], int(stats[3]))
+            done += seg
+        if self.placement == "host":
+            self._host_pos.copy_(self._pos[self._cur])
+            self._host_vel.copy_(self._vel[self._cur])
+        self._block_chain = (self._version, p.softening, a0)
+        return totals
+
+    def _block_rollout_fn(self, macro_steps: int, eta: float, dt_max: float, n_classes: int):
+        """The block rollout on this system's one-sided force, the kernel
+        ``nbody_tpu``'s pallas backend plugs into the prefix
+        (``body_system.py:1326-1360``): the fp32 or double force kernel at
+        (n_active, N) with backend 'cuda', the plain version with 'torch'."""
+        from nbody_tpu_torch.ops.block_timestep import make_block_rollout
+
+        soft, bs = self.params.softening, self.block_size
+        if self.backend == "cuda":
+            def accel_vs(pi, pj):
+                return compute_accel_cuda(pi, pj, soft, block_size=bs)
+        else:
+            def accel_vs(pi, pj):
+                return reference.compute_accel_vs(pi, pj, soft)
+
+        return make_block_rollout(softening=soft, eta=eta, dt_max=dt_max, n_classes=n_classes,
+                                  macro_steps=macro_steps, accel_vs_fn=accel_vs)
 
     def refresh_p3m_contract(self) -> None:
         """Re-size the P3M capacity from the current state (the whole state

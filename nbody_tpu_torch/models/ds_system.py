@@ -52,16 +52,19 @@ import torch
 from nbody_tpu_torch import ic
 from nbody_tpu_torch.config import NBodyConfig
 from nbody_tpu_torch.models.body_system import (
+    BodySystem,
     _as_numpy,
     check_mesh,
     device_block_size,
     resolve_device,
 )
-from nbody_tpu_torch.ops import ds
+from nbody_tpu_torch.ops import ds, reference
 from nbody_tpu_torch.ops.cuda_kernel import (
+    compute_accel_cuda,
     compute_accel_ds_cuda_vs,
     compute_accel_ds_symmetric_blocked_cuda,
     compute_accel_jerk_ds_cuda_vs,
+    compute_accel_jerk_cuda,
     compute_accel_jerk_ds_symmetric_blocked_cuda,
     ds_aj_sym_default_dispatch,
     ds_default_block_size,
@@ -359,9 +362,103 @@ class DSBodySystem:
     def update_many(self, steps: int, dt: Optional[float] = None) -> None:
         """Advance `steps` steps: the launches of each step queued on the
         current stream, with no host synchronisation in between."""
-        scal = self._scal(self.params.time_step if dt is None else dt)
+        # the block is uploaded once a call, where the kernels read it
+        scal = ds.scal_on(self._scal(self.params.time_step if dt is None else dt), self.device)
         for _ in range(steps):
             self._step(scal)
+
+    # steps of one adaptive segment, whose stats are read once
+    _MAX_ROLLOUT_SEGMENT = BodySystem._MAX_ROLLOUT_SEGMENT
+
+    def update_many_adaptive(self, steps: int, *, eta: float = 0.025,
+                             dt_min: Optional[float] = None,
+                             dt_max: Optional[float] = None) -> dict:
+        """Adaptive global timestep in ds, ``nbody_tpu``'s
+        ``DSBodySystem.update_many_adaptive`` (``models/ds_system.py:
+        387-480``): each step picks dt from a float32 criterion on the hi
+        planes (the float32 one-sided force, or accel + jerk for Hermite:
+        it only picks dt), rebuilds the scalar block's dt columns on the
+        device (``ds.ds_scal_with_dt``) and runs the system's full ds step
+        on it, the kernels reading the block from device memory: no step
+        waits on the host, and each segment of up to 1000 steps reads its
+        stats once (``host_read``, "adaptive_stats"). Criterion, [dt_min,
+        dt_max] defaults and stats are ``BodySystem.update_many_adaptive``'s.
+        On a 1-D mesh the rollout is allgather whatever the strategy
+        (``make_sharded_ds_adaptive_rollout``: the criterion needs the
+        gathered hi planes anyway), on a 2-D mesh the ds 2-D decomposition
+        (``make_sharded_ds_adaptive_rollout_2d``)."""
+        from nbody_tpu_torch.ops.adaptive import make_ds_adaptive_rollout, merge_stats, new_totals
+        from nbody_tpu_torch.utils import timing
+        from nbody_tpu_torch.utils.profiling import annotate
+
+        p = self.params
+        if dt_max is None:
+            dt_max = p.time_step
+        if dt_min is None:
+            dt_min = dt_max / 1024.0
+        if not (0.0 < dt_min <= dt_max):
+            raise ValueError(f"need 0 < dt_min <= dt_max, got [{dt_min}, {dt_max}]")
+        if not eta > 0.0:   # also rejects NaN
+            raise ValueError(f"need eta > 0, got {eta}")
+        stats = new_totals(dt_max, steps)
+        kw = dict(integrator=self.integrator, softening=p.softening, damping=p.damping,
+                  eta=eta, dt_min=dt_min, dt_max=dt_max)
+        done = 0
+        while done < steps:
+            seg = min(steps - done, self._MAX_ROLLOUT_SEGMENT)
+            with annotate(f"nbody.ds_adaptive_rollout[{seg}]"):
+                if self.mesh is not None:
+                    from nbody_tpu_torch.parallel.sharded import ds_adaptive_rollout_on
+
+                    out = ds_adaptive_rollout_on(self._adaptive_step(), steps=seg, **kw)(
+                        *self._planes[self._cur])
+                    nxt = 1 - self._cur
+                    for t, r in zip(self._planes[nxt], out[:4]):
+                        t.copy_(r)
+                    self._cur = nxt
+                    st = out[4]
+                else:
+                    run = make_ds_adaptive_rollout(
+                        self.integrator, criterion_fn=self._criterion, step_fn=self._scal_step,
+                        base_scal=ds.scal_on(self._scal(0.0), self.device), eta=eta,
+                        softening=p.softening, dt_min=dt_min, dt_max=dt_max, steps=seg)
+                    st = run(self._planes[self._cur])[1]
+            merge_stats(stats, timing.host_read(st, "adaptive_stats"))
+            done += seg
+        return stats
+
+    def _criterion(self, planes):
+        """The float32 force (accel + jerk for Hermite) of the hi planes, the
+        adaptive criterion's input: the one-sided kernel (its plain version
+        with backend 'torch'), as ``nbody_tpu``'s ds rollout takes it."""
+        soft = self.params.softening
+        ph, vh = planes[0], planes[2]
+        if self.integrator == "hermite":
+            if self.backend == "cuda":
+                return compute_accel_jerk_cuda(ph, vh, ph, vh, soft), None
+            return reference.compute_accel_jerk(ph, vh, soft), None
+        if self.backend == "cuda":
+            return compute_accel_cuda(ph, ph, soft), None
+        return reference.compute_accel(ph, soft), None
+
+    def _scal_step(self, planes, scal, ctx=None):
+        """One ds step of the current planes with the scalar block `scal`
+        (on the device); returns the new current planes."""
+        self._step(scal)
+        return self._planes[self._cur]
+
+    def _adaptive_step(self):
+        """The sharded ds step the mesh's adaptive rollout runs on: the 2-D
+        one, or an allgather one on a 1-D mesh."""
+        if self.strategy in ("2d", "allgather"):
+            return self._sharded
+        if getattr(self, "_allgather", None) is None:
+            from nbody_tpu_torch.parallel import make_sharded_ds_step
+
+            self._allgather = make_sharded_ds_step(
+                self.mesh, backend=self.backend, integrator=self.integrator,
+                strategy="allgather", block_size=self._sharded.block_size)
+        return self._allgather
 
     def accelerations(self):
         """(acc_hi, acc_lo), each (N,3), of the current state on the device,

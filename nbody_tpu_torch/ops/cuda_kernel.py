@@ -1117,20 +1117,32 @@ def compute_accel_jerk_symmetric_blocked_cuda(pos, vel, softening, *,
 # ---- double-single: csrc/ds_kernels.cu, csrc/ds_symmetric_kernels.cu ----
 #
 # A ds state is four (N,4) float32 planes pos_hi, pos_lo, vel_hi, vel_lo;
-# `scal` is the (2,4) float32 host block of ops/ds.py::scal_ds (Euler) or
-# scal_ds_leapfrog (leapfrog), which the kernels read as hi/lo pairs.
+# `scal` is the (2,4) float32 block of ops/ds.py::scal_ds (Euler) or
+# scal_ds_leapfrog (leapfrog), (2,8) scal_ds_hermite for the Hermite glue,
+# which the kernels read as hi/lo pairs from device memory at their start: a
+# host block is copied there at each launch (ds.scal_on; a ds system uploads
+# its fixed-dt block once a call), and a block built on the device
+# (ds.ds_scal_with_dt, the adaptive steps') is read where it is, so that a
+# step whose dt was chosen on the device never waits on the host.
 
 _PLANES = ("pos_hi", "pos_lo", "vel_hi", "vel_lo")
 
 
-def _check_scal(scal, widths=(4,)) -> None:
-    """`scal`: a contiguous (2, w) float32 CPU block of ops/ds.py, w in `widths`."""
+def _check_scal(scal, device, widths=(4,), *, head: bool = False) -> torch.Tensor:
+    """`scal`: a contiguous (2, w) float32 block of ops/ds.py, w in
+    `widths`, on the host or on `device`. Returns it on `device` (a host
+    block copied there, ds.scal_on), or with `head` its (2,4) head, the
+    layout of the kernels that read eps^2 alone (column 1)."""
     if (not isinstance(scal, torch.Tensor) or scal.dtype != torch.float32
             or scal.dim() != 2 or scal.shape[0] != 2 or scal.shape[1] not in widths
-            or scal.device.type != "cpu" or not scal.is_contiguous()):
+            or scal.device.type not in ("cpu", device.type) or not scal.is_contiguous()):
         shapes = " or ".join(f"(2, {w})" for w in widths)
-        raise ValueError(f"scal must be the contiguous {shapes} float32 CPU tensor of "
-                         "ops/ds.py::scal_ds, scal_ds_leapfrog or scal_ds_hermite")
+        raise ValueError(f"scal must be the contiguous {shapes} float32 tensor of "
+                         "ops/ds.py::scal_ds, scal_ds_leapfrog or scal_ds_hermite, on the "
+                         "host or the planes' device")
+    if head and scal.shape[1] != 4:
+        scal = scal[:, :4].contiguous()
+    return ds.scal_on(scal, device)
 
 
 def _check_planes(names, planes, device) -> None:
@@ -1177,7 +1189,7 @@ def _ds_step(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, scal, block_size,
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     _check_planes(_PLANES, planes, device)
     _check_planes(("jpos_hi", "jpos_lo"), (jpos_hi, jpos_lo), device)
-    _check_scal(scal)
+    scal = _check_scal(scal, device)
     bs = check_block_size(block_size)
     m, n = pos_hi.shape[0], jpos_hi.shape[0]
     out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, jpos_hi, jpos_lo))
@@ -1236,7 +1248,7 @@ def _ds_leapfrog(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jvel
     jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
     _check_planes(_PLANES, planes, device)
     _check_planes(tuple("j" + name for name in _PLANES), jplanes, device)
-    _check_scal(scal)
+    scal = _check_scal(scal, device)
     bs = check_block_size(block_size)
     m, n = pos_hi.shape[0], jpos_hi.shape[0]
     out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, *jplanes))
@@ -1321,7 +1333,7 @@ def ds_sym_accel_cuda(pos_hi, pos_lo, scal, *, tile: int = DS_SYM_TILES[1]):
     i-side and the reaction merged in ds (the kernel of ``_ds_sym_kernel``)."""
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     _check_planes(_PLANES[:2], (pos_hi, pos_lo), device)
-    _check_scal(scal)
+    scal = _check_scal(scal, device)
     tile = check_sym_tile(tile)
     n = pos_hi.shape[0]
     out = _ds_outs(None, [(n, 3)] * 2, device, (pos_hi, pos_lo))
@@ -1354,7 +1366,7 @@ def ds_sym_cross_cuda(pos_hi_i, pos_lo_i, pos_hi_j, pos_lo_j, scal, *,
     device = pos_hi_i.device if isinstance(pos_hi_i, torch.Tensor) else None
     _check_planes(("pos_hi_i", "pos_lo_i"), (pos_hi_i, pos_lo_i), device)
     _check_planes(("pos_hi_j", "pos_lo_j"), (pos_hi_j, pos_lo_j), device)
-    _check_scal(scal)
+    scal = _check_scal(scal, device)
     tile = check_sym_tile(tile)
     bi, bj = pos_hi_i.shape[0], pos_hi_j.shape[0]
     out = _ds_outs(None, [(bi, 4), (bi, 4), (3, bj), (3, bj)], device,
@@ -1429,7 +1441,7 @@ def ds_integrate_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, scal, *, o
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     _check_planes(_PLANES, planes, device)
-    _check_scal(scal)
+    scal = _check_scal(scal, device)
     n = pos_hi.shape[0]
     stride = _acc_stride(("acc_hi", "acc_lo"), (acc_hi, acc_lo), n, device)
     out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, acc_hi, acc_lo))
@@ -1475,7 +1487,7 @@ def _ds_accel(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, block_size, out, splits=No
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     _check_planes(_PLANES[:2], (pos_hi, pos_lo), device)
     _check_planes(("jpos_hi", "jpos_lo"), (jpos_hi, jpos_lo), device)
-    _check_scal(scal, (4, 8))
+    scal = _check_scal(scal, device, (4, 8), head=True)
     m, n = pos_hi.shape[0], jpos_hi.shape[0]
     bs = check_block_size(ds_default_block_size(m) if block_size is None else block_size)
     out = _ds_outs(out, [(m, 4)] * 2, device, (pos_hi, pos_lo, jpos_hi, jpos_lo))
@@ -1493,9 +1505,8 @@ def _ds_accel(pos_hi, pos_lo, jpos_hi, jpos_lo, scal, block_size, out, splits=No
 
         lib = load_library()
     s = ds_splits(m, n) if splits is None else int(splits)
-    head = _eps_block(scal)
     args = (*(t.data_ptr() for t in (pos_hi, pos_lo, jpos_hi, jpos_lo, *out)), m, n,
-            head.data_ptr(), bs)
+            scal.data_ptr(), bs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         if s == 1:
@@ -1552,12 +1563,6 @@ def ds_aj_sym_default_dispatch(n: int) -> tuple[int, int]:
     return DS_AJ_SYM_BLOCK_CAP, DS_AJ_SYM_TILES[n > DS_SMALL_N]
 
 
-def _eps_block(scal) -> torch.Tensor:
-    """The (2,4) head of a checked ds scalar block: the layout the
-    accel + jerk kernels read (eps^2 in column 1)."""
-    return scal if scal.shape[1] == 4 else scal[:, :4].contiguous()
-
-
 def compute_accel_jerk_ds_cuda_vs(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi,
                                   jvel_lo, scal, *, block_size: int | None = None, out=None):
     """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (M,4) with w = 0: the ds
@@ -1582,7 +1587,7 @@ def _ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jv
     jplanes = (jpos_hi, jpos_lo, jvel_hi, jvel_lo)
     _check_planes(_PLANES, planes, device)
     _check_planes(tuple("j" + name for name in _PLANES), jplanes, device)
-    _check_scal(scal, (4, 8))
+    scal = _check_scal(scal, device, (4, 8), head=True)
     m, n = pos_hi.shape[0], jpos_hi.shape[0]
     bs = check_block_size(ds_default_block_size(m) if block_size is None else block_size)
     out = _ds_outs(out, [(m, 4)] * 4, device, (*planes, *jplanes))
@@ -1599,8 +1604,7 @@ def _ds_accel_jerk(pos_hi, pos_lo, vel_hi, vel_lo, jpos_hi, jpos_lo, jvel_hi, jv
 
         lib = load_library()
     s = ds_aj_splits(m, n) if splits is None else int(splits)
-    head = _eps_block(scal)
-    args = (*(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, head.data_ptr(), bs)
+    args = (*(t.data_ptr() for t in (*planes, *jplanes, *out)), m, n, scal.data_ptr(), bs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         if s == 1:
@@ -1622,7 +1626,7 @@ def ds_aj_sym_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal, *, tile: int = DS_AJ_SY
     device = pos_hi.device if isinstance(pos_hi, torch.Tensor) else None
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     _check_planes(_PLANES, planes, device)
-    _check_scal(scal, (4, 8))
+    scal = _check_scal(scal, device, (4, 8), head=True)
     tile = check_sym_tile(tile, DS_AJ_TILES)
     n = pos_hi.shape[0]
     out = _ds_outs(None, [(n, 3)] * 4, device, planes)
@@ -1636,11 +1640,10 @@ def ds_aj_sym_cuda(pos_hi, pos_lo, vel_hi, vel_lo, scal, *, tile: int = DS_AJ_SY
     from nbody_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    head = _eps_block(scal)
     scratch = torch.empty((_cdiv(n, tile), 12, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nbody_ds_aj_sym(
-            *(t.data_ptr() for t in planes), n, head.data_ptr(), tile, scratch.data_ptr(),
+            *(t.data_ptr() for t in planes), n, scal.data_ptr(), tile, scratch.data_ptr(),
             *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_ds_aj_sym launch")
     LAUNCHES["ds_aj_sym"] += 1
@@ -1659,7 +1662,7 @@ def ds_aj_sym_cross_cuda(pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i, pos_hi_j, pos_l
     jplanes = (pos_hi_j, pos_lo_j, vel_hi_j, vel_lo_j)
     _check_planes(tuple(name + "_i" for name in _PLANES), iplanes, device)
     _check_planes(tuple(name + "_j" for name in _PLANES), jplanes, device)
-    _check_scal(scal, (4, 8))
+    scal = _check_scal(scal, device, (4, 8), head=True)
     tile = check_sym_tile(tile, DS_AJ_TILES)
     bi, bj = pos_hi_i.shape[0], pos_hi_j.shape[0]
     out = _ds_outs(None, [(bi, 4)] * 4 + [(3, bj)] * 4, device, (*iplanes, *jplanes))
@@ -1671,13 +1674,12 @@ def ds_aj_sym_cross_cuda(pos_hi_i, pos_lo_i, vel_hi_i, vel_lo_i, pos_hi_j, pos_l
     from nbody_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    head = _eps_block(scal)
     scratch_i = torch.empty((_cdiv(bj, tile), 12, bi), dtype=torch.float32, device=device)
     scratch_j = torch.empty((_cdiv(bi, tile), 12, bj), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nbody_ds_aj_cross(
             *(t.data_ptr() for t in iplanes), bi, *(t.data_ptr() for t in jplanes), bj,
-            head.data_ptr(), tile, scratch_i.data_ptr(), scratch_j.data_ptr(),
+            scal.data_ptr(), tile, scratch_i.data_ptr(), scratch_j.data_ptr(),
             *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "nbody_ds_aj_cross launch")
     LAUNCHES["ds_aj_sym_cross"] += 1
@@ -1725,7 +1727,7 @@ def ds_hermite_predict_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc_hi, acc_lo, jerk
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     fields = (acc_hi, acc_lo, jerk_hi, jerk_lo)
     _check_planes(_PLANES, planes, device)
-    _check_scal(scal, (8,))
+    scal = _check_scal(scal, device, (8,))
     n = pos_hi.shape[0]
     width = _field_width(("acc_hi", "acc_lo", "jerk_hi", "jerk_lo"), fields, n, device)
     out = _ds_outs(out, [(n, 4)] * 4, device, (*planes, *fields))
@@ -1758,7 +1760,7 @@ def ds_hermite_correct_cuda(pos_hi, pos_lo, vel_hi, vel_lo, acc0_hi, acc0_lo, je
     planes = (pos_hi, pos_lo, vel_hi, vel_lo)
     fields = (acc0_hi, acc0_lo, jerk0_hi, jerk0_lo, acc1_hi, acc1_lo, jerk1_hi, jerk1_lo)
     _check_planes(_PLANES, planes, device)
-    _check_scal(scal, (8,))
+    scal = _check_scal(scal, device, (8,))
     n = pos_hi.shape[0]
     width = _field_width(("acc0_hi", "acc0_lo", "jerk0_hi", "jerk0_lo", "acc1_hi", "acc1_lo",
                           "jerk1_hi", "jerk1_lo"), fields, n, device)

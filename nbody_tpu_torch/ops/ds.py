@@ -214,6 +214,55 @@ def scal_ds_hermite(dt, softening, damping) -> torch.Tensor:
                         d * d / 2.0, d * d * d / 6.0, d * d / 12.0), width=8)
 
 
+_SIXTH = 1.0 / 6.0
+_SIXTH_PAIR = (float(np.float32(_SIXTH)), float(np.float32(_SIXTH - float(np.float32(_SIXTH)))))
+
+
+def ds_scal_with_dt(base, dt, *, integrator: str = "euler") -> torch.Tensor:
+    """The scalar block `base` (``scal_ds`` / ``scal_ds_leapfrog`` /
+    ``scal_ds_hermite`` of the run's softening and damping, on the device
+    the steps run on) with its dt columns rebuilt from the float32 0-d
+    tensor `dt` (``ds_kernel.py::ds_scal_with_dt``): dt itself is exact (hi
+    dt, lo 0), dt/2 too, and for Hermite dt^2/2, dt^3/6 and dt^2/12 are
+    error-free ds products (``_two_prod``, ``ds_mul``). Built on the device
+    from tensors there, with no host copy, so that an adaptive step needs no
+    host round trip."""
+    dt = dt.to(torch.float32)
+    # every value assigned is a tensor on the device: a Python scalar would
+    # be copied from the host, and wait for it
+    z = torch.zeros((), dtype=torch.float32, device=dt.device)
+    out = base.clone()
+    out[0, 0] = dt
+    out[1, 0] = z
+    if integrator == "euler":
+        return out
+    out[0, 3] = dt * 0.5  # exact
+    out[1, 3] = z
+    if integrator == "leapfrog":
+        return out
+    sixth = tuple(torch.full((), v, dtype=torch.float32, device=dt.device) for v in _SIXTH_PAIR)
+    d2h, d2l = _two_prod(dt, dt)  # exact dt^2
+    dt2_2 = (d2h * 0.5, d2l * 0.5)  # /2 exact
+    dt3 = ds_mul((d2h, d2l), (dt, z))
+    for c, (vh, vl) in ((4, dt2_2), (5, ds_mul(dt3, sixth)), (6, ds_mul(dt2_2, sixth))):
+        out[0, c] = vh
+        out[1, c] = vl
+    return out
+
+
+def scal_on(scal, device) -> torch.Tensor:
+    """The scalar block `scal` on `device`, where the ds kernels read it: the
+    block itself if it is there, else its copy there, a host block's by a
+    non-blocking copy from pinned memory, so that no later call waits on
+    the host for it."""
+    device = torch.device(device)
+    if scal.device == device:
+        return scal
+    if scal.device.type == "cpu" and device.type == "cuda":
+        return scal.contiguous().pin_memory().to(device, non_blocking=True)
+    return scal.to(device)
+
+
 def _scal(scal, device, cols=(0, 1, 2, 3)):
     """The ds scalars in columns `cols` of `scal` as pairs of 0-d float32
     tensors on `device`; by default (dt, eps2, damping, dt/2)."""

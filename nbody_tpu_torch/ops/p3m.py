@@ -279,7 +279,7 @@ def pair_tables(pos, softening, *, grid: int, capacity: int, blk: int) -> PairTa
     # dropped bodies write the inert row into the last (inert) cluster
     dst = body_row_sorted.clamp(max=rows - 1)
     padded = torch.zeros((rows, 4), dtype=torch.float32, device=dev)
-    padded[:, :3] = 1e30
+    padded[:, :3].fill_(1e30)
     padded[dst] = torch.where(kept[:, None],
                               torch.cat([pos3[order], mass[order][:, None]], dim=1), padded[-1])
     real = torch.zeros(rows, dtype=torch.bool, device=dev)

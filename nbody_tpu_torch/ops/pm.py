@@ -280,8 +280,12 @@ def _optimal_influence_factor(grid: int, sigma_cells, window_exp: int):
 @functools.lru_cache(maxsize=8)
 def _influence_table(grid: int, sigma_cells, window_exp: int, device: torch.device):
     """The optimal-influence table as a float32 tensor on `device`, copied
-    there once per process."""
-    return torch.from_numpy(_optimal_influence_factor(grid, sigma_cells, window_exp)).to(device)
+    there once per process (from pinned memory, so that the copy does not
+    wait on the host)."""
+    table = torch.from_numpy(_optimal_influence_factor(grid, sigma_cells, window_exp))
+    if torch.device(device).type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table.to(device)
 
 
 def _ipow(x, p: int):
@@ -392,8 +396,10 @@ def _solve_force_grids_slab(rho_slab, h, grid: int, *, mesh=None, sigma=None,
                                   f1=f1, fz=fz, fy=fy, y_slice=(rank * gl, gl))
     k1 = (2.0 * math.pi) * f1
     kz = (2.0 * math.pi) * fz
-    k1[gp // 2] = 0.0
-    kz[gp // 2] = 0.0
+    # fills, not item assignments, which would copy a Python scalar from the
+    # host and wait for it every step
+    k1 = k1.masked_fill(torch.arange(k1.shape[0], device=dev) == gp // 2, 0.0)
+    kz = kz.masked_fill(torch.arange(kz.shape[0], device=dev) == gp // 2, 0.0)
     ky = (2.0 * math.pi) * torch.where((fy * h).abs() >= 0.5 - 1e-7, 0.0, fy)
     kvs = (k1[:, None, None], ky[None, :, None], kz[None, None, :])
     return [_slab_ifft3_real(conv_k * (1j * kv), mesh) for kv in kvs]

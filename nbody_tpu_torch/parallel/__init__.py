@@ -5,8 +5,7 @@ bodies over a 1-D mesh of ranks (``make_mesh``) or a 2-D rows x cols grid
 of them (``make_mesh_2d``), one rank a device, with NCCL collectives on the
 card (gloo on the CPU) each step. It exports what ``nbody_tpu``'s package
 exports, and ``make_sharded_rollout``, ``ring_reduce_scatter``, ``emulated_sym`` and
-``emulated_accel_2d`` beside; the sharded adaptive rollouts raise, naming the
-ROADMAP.md item that brings them.
+``emulated_accel_2d`` beside.
 """
 
 from nbody_tpu_torch.parallel.mesh import (
@@ -23,6 +22,8 @@ from nbody_tpu_torch.parallel.multihost import initialize_multihost, is_multihos
 from nbody_tpu_torch.parallel.sharded import (
     choose_strategy,
     emulated_accel_2d,
+    make_sharded_adaptive_rollout,
+    make_sharded_adaptive_rollout_2d,
     make_sharded_ds_adaptive_rollout,
     make_sharded_ds_adaptive_rollout_2d,
     make_sharded_ds_step,
@@ -45,6 +46,8 @@ __all__ = [
     "shard_state",
     "choose_strategy",
     "make_sharded_step",
+    "make_sharded_adaptive_rollout",
+    "make_sharded_adaptive_rollout_2d",
     "make_sharded_ds_adaptive_rollout",
     "make_sharded_ds_adaptive_rollout_2d",
     "make_sharded_ds_step",

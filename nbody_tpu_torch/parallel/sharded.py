@@ -1,8 +1,9 @@
 """Body-sharded N-body steps over a torch.distributed mesh.
 
-Counterpart of ``nbody_tpu/parallel/sharded.py`` but for its adaptive
-rollouts (ROADMAP.md Queue 1 #7); the sharded PM and P3M steps live beside
-their solvers, in ``ops/pm.py`` and ``ops/p3m.py``, as in ``nbody_tpu``.
+Counterpart of ``nbody_tpu/parallel/sharded.py``; the sharded PM and P3M
+steps live beside their solvers, in ``ops/pm.py`` and ``ops/p3m.py``, as in
+``nbody_tpu``. The adaptive rollouts (below) run ``ops/adaptive.py`` on the
+steps' forces, with one scalar ``all_reduce`` a step for the global dt.
 On a 1-D mesh each rank holds N/D bodies (its i-shard) and computes their
 forces from every body. Four strategies move the j-bodies:
 
@@ -446,12 +447,13 @@ class ShardedDSStep:
             return ck.ds_integrate_cuda(*planes, *acc, scal)
         return ds.ds_integrate(*planes, acc, scal)
 
-    def _hermite(self, planes, scal):
-        """ds Hermite P(EC): accel + jerk of the shard, the predictor on the
-        shard, accel + jerk of the predicted state (gathered or travelling
-        anew: a prediction exists only where its shard's a0 and j0 are),
-        the corrector."""
-        f0 = self.accel_jerk(*planes, scal)
+    def _hermite(self, planes, scal, f0=None):
+        """ds Hermite P(EC): accel + jerk of the shard (`f0` when given),
+        the predictor on the shard, accel + jerk of the predicted state
+        (gathered or travelling anew: a prediction exists only where its
+        shard's a0 and j0 are), the corrector."""
+        if f0 is None:
+            f0 = self.accel_jerk(*planes, scal)
         if self.backend == "cuda":
             pred = ck.ds_hermite_predict_cuda(*planes, *f0, scal)
             return ck.ds_hermite_correct_cuda(*planes, *f0, *self.accel_jerk(*pred, scal), scal)
@@ -676,12 +678,210 @@ def make_sharded_rollout(step_fn, steps: int):
     return rollout
 
 
-def make_sharded_ds_adaptive_rollout(*args, **kwargs):
-    """The sharded ds adaptive rollout: not ported yet (it needs the
-    adaptive steps)."""
-    from nbody_tpu_torch.models.body_system import not_ported
-
-    raise not_ported("adaptive", True)
+# ---- adaptive rollouts (nbody_tpu/parallel/sharded.py:768-1031, 1417-1750) ----
 
 
-make_sharded_ds_adaptive_rollout_2d = make_sharded_ds_adaptive_rollout
+def adaptive_rollout_on(step: ShardedStep, *, integrator: str, softening, damping, eta: float,
+                        dt_min: float, dt_max: float, steps: int):
+    """The adaptive rollout (``ops/adaptive.py``) on the force of a sharded
+    step (``ShardedStep`` or ``Sharded2DStep``): its ``accel`` /
+    ``accel_jerk`` by its strategy, the criterion reduced over every rank of
+    its mesh (one scalar ``all_reduce``, MAX or MIN). run(pos, vel) ->
+    (pos, vel, stats) of this rank's shard, stats the same on every rank."""
+    from nbody_tpu_torch.ops.adaptive import make_adaptive_rollout
+
+    if step.strategy == "ring_fused":
+        raise ValueError(
+            "adaptive rollouts support strategies 'allgather'/'ring'/"
+            "'auto'/'sym' (got 'ring_fused')")
+    return make_adaptive_rollout(
+        integrator, accel_fn=lambda p: step.accel(p, softening),
+        accel_jerk_fn=lambda p, v: step.accel_jerk(p, v, softening), softening=softening,
+        damping=damping, eta=eta, dt_min=dt_min, dt_max=dt_max, steps=steps, mesh=step.mesh)
+
+
+def make_sharded_adaptive_rollout(mesh: Mesh, *, softening, damping, eta: float, dt_min: float,
+                                  dt_max: float, steps: int, axis: str = BODY_AXIS,
+                                  backend: str = "auto", strategy: str = "auto",
+                                  integrator: str = "euler", block_size: int | None = None):
+    """Body-sharded adaptive-timestep rollout, ``nbody_tpu``'s
+    ``make_sharded_adaptive_rollout``: run(pos, vel) -> (pos, vel, stats),
+    pos and vel this rank's (N/D, 4) shard, stats the (4,) [t, dt_last,
+    dt_lo, dt_hi] of ``ops/adaptive.py``, equal on every rank. Each step
+    evaluates the shard's forces as ``make_sharded_step`` does, by
+    `strategy` "allgather", "ring", "auto" or "sym" (each pair once across
+    the mesh), and the global dt takes one scalar ``all_reduce`` (MAX of
+    |a|^2, MIN of |a|/|j| for hermite). ring_fused fuses the fixed-dt Euler
+    update into its kernel and is refused."""
+    if integrator not in ("euler", "leapfrog", "hermite"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if strategy not in ("allgather", "ring", "auto", "sym"):
+        raise ValueError(
+            "adaptive rollouts support strategies 'allgather'/'ring'/"
+            f"'auto'/'sym' (got {strategy!r})")
+    step = make_sharded_step(mesh, axis=axis, backend=backend, strategy=strategy,
+                             block_size=block_size, integrator=integrator)
+    return adaptive_rollout_on(step, integrator=integrator, softening=softening, damping=damping,
+                               eta=eta, dt_min=dt_min, dt_max=dt_max, steps=steps)
+
+
+def make_sharded_adaptive_rollout_2d(mesh: Mesh2D, *, softening, damping, eta: float,
+                                     dt_min: float, dt_max: float, steps: int,
+                                     axes: tuple = ("rows", "cols"), backend: str = "auto",
+                                     integrator: str = "euler", block_size: int | None = None):
+    """The adaptive rollout over the 2-D (rows x cols) decomposition,
+    ``nbody_tpu``'s ``make_sharded_adaptive_rollout_2d``: each step's force
+    (or accel + jerk) is ``make_sharded_step_2d``'s, the column partials
+    summed by ``ring_reduce_scatter``, and the criterion is one scalar
+    ``all_reduce`` over every rank of the grid."""
+    _check_2d(mesh, axes, integrator, "make_sharded_adaptive_rollout")
+    step = make_sharded_step_2d(mesh, axes=axes, backend=backend, block_size=block_size,
+                                integrator=integrator)
+    return adaptive_rollout_on(step, integrator=integrator, softening=softening, damping=damping,
+                               eta=eta, dt_min=dt_min, dt_max=dt_max, steps=steps)
+
+
+def _check_window(dt_min, dt_max) -> None:
+    if not (0.0 < dt_min <= dt_max):
+        raise ValueError(f"need 0 < dt_min <= dt_max, got [{dt_min}, {dt_max}]")
+
+
+def _f32_accel(step, pos_i, pos_j, soft):
+    """The float32 force of the ds criterion, on the hi planes."""
+    if step.backend == "cuda":
+        return ck.compute_accel_cuda(pos_i, pos_j, soft)
+    return reference.compute_accel_vs(pos_i, pos_j, soft)
+
+
+def _f32_aj(step, pos_i, vel_i, pos_j, vel_j, soft):
+    """The float32 accel + jerk of the ds Hermite criterion, on the hi planes."""
+    if step.backend == "cuda":
+        return ck.compute_accel_jerk_cuda(pos_i, vel_i, pos_j, vel_j, soft)
+    return reference.compute_accel_jerk_vs(pos_i, vel_i, pos_j, vel_j, soft)
+
+
+def ds_adaptive_rollout_on(step: ShardedDSStep, *, integrator: str, softening, damping,
+                           eta: float, dt_min: float, dt_max: float, steps: int):
+    """The ds adaptive rollout on a sharded ds step: an allgather
+    ``ShardedDSStep`` (1-D) or a ``ShardedDS2DStep``. run(ph, plo, vh, vlo)
+    -> the four new planes of this rank's shard and the float32 stats.
+
+    1-D: the planes gather once a step (hi and lo positions, with the
+    velocities for leapfrog and Hermite); the float32 criterion runs on the
+    shard's hi rows against the gathered hi planes, so each row's force is
+    the one-device criterion's, then one scalar ``all_reduce``; the ds step
+    reuses the gathered planes (Hermite's second evaluation gathers its
+    predictions). 2-D: the planes gather along the row and the column, the
+    float32 criterion's column partials are summed by
+    ``ring_reduce_scatter`` as the 2-D step's, then one ``all_reduce`` over
+    the grid; Euler and Hermite reuse the gathers, leapfrog half-drifts and
+    gathers the drifted planes."""
+    from nbody_tpu_torch.ops.adaptive import make_ds_adaptive_rollout
+
+    if integrator not in ("euler", "leapfrog", "hermite"):
+        raise ValueError(f"unknown integrator {integrator!r}")
+    _check_window(dt_min, dt_max)
+    soft = softening
+    two_d = isinstance(step, ShardedDS2DStep)
+    mesh = step.mesh
+    base = {"euler": ds.scal_ds, "leapfrog": ds.scal_ds_leapfrog,
+            "hermite": ds.scal_ds_hermite}[integrator](0.0, softening, damping)
+    # the planes the criterion gathers and the step reuses: hi and lo
+    # positions for Euler, all four for Hermite and the 1-D leapfrog (whose
+    # fused kernel half-drifts both sides); the 2-D leapfrog gathers its
+    # drifted planes anew, so its criterion gathers the hi positions alone
+    width = {"euler": 2, "leapfrog": 1 if two_d else 4, "hermite": 4}[integrator]
+
+    def criterion(planes):
+        if two_d:
+            i = _gather_planes(mesh.along_cols, *planes[:width])
+            j = _gather_planes(mesh.along_rows, *planes[:width])
+            if integrator == "hermite":
+                f = ring_reduce_scatter(mesh.along_cols,
+                                        _f32_aj(step, i[0], i[2], j[0], j[2], soft),
+                                        reference.add_fields)
+            else:
+                (f,) = ring_reduce_scatter(mesh.along_cols, (_f32_accel(step, i[0], j[0], soft),),
+                                           reference.add_fields)
+            return f, (i, j)
+        j = _gather_planes(mesh, *planes[:width])
+        if integrator == "hermite":
+            return _f32_aj(step, planes[0], planes[2], j[0], j[2], soft), j
+        return _f32_accel(step, planes[0], j[0], soft), j
+
+    def ds_step(planes, scal, gathered):
+        ph, plo, vh, vlo = planes
+        if integrator == "hermite":
+            if two_d:
+                i, j = gathered
+                f0 = ring_reduce_scatter(mesh.along_cols, step._aj_vs(tuple(i), tuple(j), scal),
+                                         ds.ds_add_aj)
+            else:
+                f0 = step._aj_vs(planes, tuple(gathered), scal)
+            return step._hermite(planes, scal, f0)
+        if two_d:
+            if integrator == "leapfrog":
+                hh, hl = ds.ds_half_drift(*planes, scal)
+                return ds.ds_leapfrog_finish(hh, hl, vh, vlo, step.accel(hh, hl, scal), scal)
+            i, j = gathered
+            acc = ring_reduce_scatter(mesh.along_cols,
+                                      step._accel_vs(i[0], i[1], j[0], j[1], scal), ds.ds_add)
+            return step._integrate(planes, acc, scal)
+        j = gathered
+        bs = step._bs(ph.shape[0])
+        if integrator == "leapfrog":
+            if step.backend == "cuda":
+                return ck.nbody_step_ds_leapfrog_cuda_vs(*planes, *j, scal, block_size=bs)
+            return ds.nbody_step_ds_leapfrog_vs(*planes, *j, scal)
+        if step.backend == "cuda":
+            return ck.nbody_step_ds_cuda_vs(*planes, j[0], j[1], scal, block_size=bs)
+        return ds.nbody_step_ds_vs(*planes, j[0], j[1], scal)
+
+    def run(ph, plo, vh, vlo):
+        roll = make_ds_adaptive_rollout(
+            integrator, criterion_fn=criterion, step_fn=ds_step,
+            base_scal=ds.scal_on(base, ph.device), eta=eta, softening=softening,
+            dt_min=dt_min, dt_max=dt_max, steps=steps, mesh=mesh)
+        planes, stats = roll((ph, plo, vh, vlo))
+        return (*planes, stats)
+
+    return run
+
+
+def make_sharded_ds_adaptive_rollout(mesh: Mesh, *, axis: str = BODY_AXIS,
+                                     integrator: str = "euler", softening, damping, eta: float,
+                                     dt_min: float, dt_max: float, steps: int,
+                                     backend: str = "auto", block_size: int | None = None):
+    """Body-sharded double-single adaptive-timestep rollout, ``nbody_tpu``'s
+    ``make_sharded_ds_adaptive_rollout``: run(pos_hi, pos_lo, vel_hi,
+    vel_lo) -> the four planes of this rank's shard and the float32 stats
+    [t, dt_last, dt_lo, dt_hi], equal on every rank. allgather only, as in
+    ``nbody_tpu`` (the criterion needs the gathered hi planes anyway); the
+    scalar block is rebuilt on the device from each step's dt
+    (``ds.ds_scal_with_dt``), so the ds kernels take it from device memory
+    and no step waits on the host."""
+    _check_1d(mesh, "make_sharded_ds_adaptive_rollout_2d")
+    _check_window(dt_min, dt_max)
+    step = make_sharded_ds_step(mesh, axis=axis, backend=backend, block_size=block_size,
+                                integrator=integrator, strategy="allgather")
+    return ds_adaptive_rollout_on(step, integrator=integrator, softening=softening,
+                                  damping=damping, eta=eta, dt_min=dt_min, dt_max=dt_max,
+                                  steps=steps)
+
+
+def make_sharded_ds_adaptive_rollout_2d(mesh: Mesh2D, *, axes: tuple = ("rows", "cols"),
+                                        integrator: str = "euler", softening, damping,
+                                        eta: float, dt_min: float, dt_max: float, steps: int,
+                                        backend: str = "auto", block_size: int | None = None):
+    """The ds adaptive rollout over the 2-D rows x cols decomposition,
+    ``nbody_tpu``'s ``make_sharded_ds_adaptive_rollout_2d``: the float32
+    criterion's column partials summed by ``ring_reduce_scatter`` (its dt
+    matches one device's to float32 rounding, not bit for bit), the ds
+    physics of ``make_sharded_ds_step_2d``."""
+    _check_2d(mesh, axes, integrator, "make_sharded_ds_adaptive_rollout")
+    _check_window(dt_min, dt_max)
+    step = make_sharded_ds_step_2d(mesh, axes=axes, backend=backend, block_size=block_size,
+                                   integrator=integrator)
+    return ds_adaptive_rollout_on(step, integrator=integrator, softening=softening,
+                                  damping=damping, eta=eta, dt_min=dt_min, dt_max=dt_max,
+                                  steps=steps)

@@ -8,9 +8,22 @@ work is done when the call returns.
 
 from __future__ import annotations
 
+import collections
 import time
 
 import torch
+
+# reads of device values on the host by the adaptive and block rollouts, by
+# what read them (``host_read``)
+HOST_READS: collections.Counter = collections.Counter()
+
+
+def host_read(t: torch.Tensor, what: str) -> list:
+    """`t`'s values on the host as a (nested) list, counted in
+    ``HOST_READS[what]``: the one host synchronisation that an adaptive
+    segment (its stats) or a block macro step (its class counts) makes."""
+    HOST_READS[what] += 1
+    return t.tolist()
 
 
 def synchronize(device) -> None:

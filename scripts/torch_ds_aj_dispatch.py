@@ -23,8 +23,9 @@ j-chunk and several, at blocks 32 to 1024, its repeats and its blocks
 bit-equal. --quick stops there.
 
 --against DIR builds DIR/csrc/ds_aj_kernels.cu (another checkout's, with
-its shared headers) with the library's nvcc flags into a library of its
-own, launched through the port's wrapper (``cuda_kernel._ds_accel_jerk(...,
+its shared headers, whose kernels read their scalar block from device
+memory as this one's do: the wrappers pass a device pointer) with the
+library's nvcc flags into a library of its own, launched through the port's wrapper (``cuda_kernel._ds_accel_jerk(...,
 lib=)``; a build without the j-split entry point runs one chunk, as it was
 written), prints its ptxas lines and SASS count, holds it to plain and the
 oracle, and times it in turns with this checkout's kernel (DIR, this,

@@ -23,7 +23,9 @@ bit-equal to the step, and a leapfrog step from zero velocity (dt = 1,
 damping 1) bit-equal to the force. --quick stops there.
 
 --against DIR builds DIR/csrc/ds_kernels.cu (another checkout's, with its
-shared headers) with the library's nvcc flags into a library of its own,
+shared headers, whose kernels read their scalar block from device memory as
+this one's do: the wrappers pass a device pointer) with the library's nvcc
+flags into a library of its own,
 launched through the port's wrappers (``cuda_kernel._ds_step``,
 ``_ds_accel``, ``_ds_leapfrog`` with ``lib=``; a build without a j-split
 entry point runs that kernel in one chunk, as it was written), prints its

@@ -7,11 +7,13 @@ ring, ring_fused, sym and the 2-D grid.
 Run from the repository root, one process a card:
 
     torchrun --standalone --nproc_per_node D scripts/torch_ring_cards.py \\
-        [--cpu] [--parts ring p3m demo] [--numbodies N ...] [--qa-bodies N]
-        [--rounds R] [--p3m-bodies N] [--demo-bodies N]
+        [--cpu] [--parts ring p3m demo adaptive] [--numbodies N ...]
+        [--qa-bodies N] [--rounds R] [--p3m-bodies N] [--demo-bodies N]
+        [--adaptive-bodies N] [--adaptive-ds-bodies N]
 
---parts picks what runs (all three by default): "ring" the strategies
-below; "p3m" the sharded P3M step; "demo" the demo loop on the mesh.
+--parts picks what runs ("ring", "p3m" and "demo" by default): "ring" the
+strategies below; "p3m" the sharded P3M step; "demo" the demo loop on the
+mesh; "adaptive" the sharded adaptive rollouts.
 
 Every rank joins a mesh of the D ranks (NCCL on the cards, gloo with
 --cpu). For each N (default 65536 and 2^20, shell ICs, demo-0 params):
@@ -43,6 +45,14 @@ largest |dpos| of the mesh's state against one card's after the same steps.
 Then every rank times its share of one force evaluation by CUDA events: the
 tables of the whole state, which every rank builds, and its range of the
 pair kernel (p3m.item_range); the whole launch's time on one card beside.
+
+adaptive (--adaptive-bodies, default 2^20, shell ICs, demo-0 params): the
+sym mesh's adaptive Euler step (update_many_adaptive, one scalar all_reduce
+a step for the global dt) against its fixed-dt step, 5 steps each, in turns
+(fixed, adaptive, adaptive, fixed, --rounds times), rank 0 printing the
+medians in ms a step; then, where D is a square, the ds adaptive and
+fixed-dt Euler steps on the sqrt(D) x sqrt(D) grid at --adaptive-ds-bodies
+(default 65536), 3 steps each, alike. Every rank's stats must be rank 0's.
 
 demo (--demo-bodies, default 65536): the CLI's demo loop in every rank's
 process, nbody-torch --devices D --strategy ring_fused and then sym with
@@ -170,6 +180,57 @@ def p3m_cards(torch, dist, mesh, say, smi, n: int, rounds: int) -> bool:
     return ok
 
 
+def adaptive_cards(torch, dist, mesh, grid, say, smi, n: int, n_ds: int, rounds: int) -> bool:
+    """The adaptive part (module docstring): True when every rank's stats
+    equal rank 0's."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def ms_a_step(fn, steps):
+        sync()
+        t0 = time.perf_counter()
+        fn(steps)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    ok = True
+    runs = [("sym", n, 5, lambda: BodySystem(n, DEMO_PARAMS[0], device=mesh.device, mesh=mesh,
+                                             strategy="sym"))]
+    if grid is not None:
+        runs.append(("ds 2-D grid", n_ds, 3, lambda: DSBodySystem(
+            n_ds, DEMO_PARAMS[0], device=grid.device, mesh=grid)))
+    for name, size, steps, make in runs:
+        s = make()
+        s.update_many(1)
+        s.update_many_adaptive(1)
+        ms = {"fixed": [], "adaptive": []}
+        stats = None
+        for _ in range(rounds):
+            for kind in ("fixed", "adaptive", "adaptive", "fixed"):
+                if kind == "fixed":
+                    ms[kind].append(ms_a_step(s.update_many, steps))
+                    continue
+                box = {}
+                ms[kind].append(ms_a_step(
+                    lambda k: box.update(s.update_many_adaptive(k)), steps))
+                stats = box
+        seen = [None] * mesh.size
+        dist.all_gather_object(seen, stats)
+        same = all(x == seen[0] for x in seen)
+        ok = ok and same
+        say(f"N={size} {name} ({s.strategy}), ms a step, medians of {2 * rounds} in turns: fixed "
+            f"{statistics.median(ms['fixed']):.3f} ({min(ms['fixed']):.3f}-"
+            f"{max(ms['fixed']):.3f}), adaptive {statistics.median(ms['adaptive']):.3f} "
+            f"({min(ms['adaptive']):.3f}-{max(ms['adaptive']):.3f}); last stats {stats}; every "
+            f"rank's stats rank 0's: {same} [{smi}]")
+        del s
+    return ok
+
+
 def demo_cards(dist, mesh, say, n: int, extra: list) -> bool:
     """The demo part (see the docstring); True when every rank returned 0."""
     import tempfile
@@ -196,8 +257,10 @@ def demo_cards(dist, mesh, say, n: int, extra: list) -> bool:
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--cpu", action="store_true")
-    p.add_argument("--parts", nargs="+", choices=["ring", "p3m", "demo"],
+    p.add_argument("--parts", nargs="+", choices=["ring", "p3m", "demo", "adaptive"],
                    default=["ring", "p3m", "demo"])
+    p.add_argument("--adaptive-bodies", type=int, default=1 << 20)
+    p.add_argument("--adaptive-ds-bodies", type=int, default=65536)
     p.add_argument("--p3m-bodies", type=int, default=1 << 20)
     p.add_argument("--demo-bodies", type=int, default=65536)
     p.add_argument("--numbodies", type=int, nargs="+", default=[65536, 1 << 20])
@@ -242,6 +305,9 @@ def main() -> int:
 
     if "p3m" in args.parts and not args.cpu:
         ok = p3m_cards(torch, dist, mesh, say, smi, args.p3m_bodies, args.rounds) and ok
+    if "adaptive" in args.parts:
+        ok = adaptive_cards(torch, dist, mesh, grid, say, smi, args.adaptive_bodies,
+                            args.adaptive_ds_bodies, args.rounds) and ok
     if "demo" in args.parts:
         ok = demo_cards(dist, mesh, say, args.demo_bodies,
                         ["--cpu", "--width", "160", "--height", "120"] if args.cpu else []) and ok

@@ -62,21 +62,71 @@ def test_card_required_without_cpu_flag(monkeypatch, capsys):
     assert "is_available" in capsys.readouterr().err
 
 
-# --block-dt, --tile-j, --dt-max and --block-classes stand where the run-setup
-# and demo slice brought --demo 1, --render, --energy and --config plummer
-# (as --demo 1 stood for --fp64, and --adaptive-dt for --devices 2, before);
-# --dt-max and --block-classes (adaptive and block timesteps, ROADMAP.md
-# Queue 1 #7) took the places of --pm-assignment and --p3m-auto-refresh when
-# the mesh solvers' options were ported
-@pytest.mark.parametrize("flag", [["--block-dt"],
-                                  ["--adaptive-dt"],
-                                  ["--kernel", "xla"],
-                                  ["--tile-j", "64"], ["--dt-max", "0.01"],
-                                  ["--block-classes", "4"]])
+# --block-dt, --adaptive-dt, --dt-max and --block-classes were refused here
+# until adaptive and block timesteps were ported (ROADMAP.md Queue 1 #7):
+# their validation is held below; the two flags that stay refused keep
+# their ids
+@pytest.mark.parametrize("flag", [pytest.param(["--kernel", "xla"], id="flag2"),
+                                  pytest.param(["--tile-j", "64"], id="flag3")])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args(["--qatest", *flag])
     assert e.value.code == 2
+
+
+def test_timestep_flags_parse_as_nbody_tpus():
+    """nbody_tpu/cli.py:128-150: the optional ETA and the defaults."""
+    args = build_parser().parse_args(["--adaptive-dt", "--dt-min", "1e-5", "--dt-max", "0.01"])
+    assert (args.adaptive_dt, args.dt_min, args.dt_max) == (0.025, 1e-5, 0.01)
+    args = build_parser().parse_args(["--block-dt", "0.05", "--block-classes", "5"])
+    assert (args.block_dt, args.block_classes, args.adaptive_dt) == (0.05, 5, None)
+    assert build_parser().parse_args([]).block_classes == 4
+
+
+@pytest.mark.parametrize("args, message", [
+    (["--qatest", "--adaptive-dt"], "--adaptive-dt is a demo-mode integrator option; "
+                                    "--compare/--qatest measures the fixed-dt path"),
+    (["--drift-check", "2", "--adaptive-dt"], "--drift-check measures the fixed-dt path"),
+    (["--benchmark", "--block-dt"], "--block-dt is a demo-mode integrator option; --benchmark"),
+    (["--selftest", "--block-dt"], "--selftest measures the fixed-dt path"),
+    (["--adaptive-dt", "0"], "--adaptive-dt eta must be > 0"),
+    (["--adaptive-dt", "--dt-min", "-1"], "--dt-min must be > 0 (got -1.0)"),
+    (["--adaptive-dt", "--dt-min", "0.1", "--dt-max", "0.01"],
+     "--dt-min 0.1 exceeds --dt-max 0.01"),
+    (["--adaptive-dt", "--dt-min", "0.5"], "--dt-min 0.5 exceeds the adaptive ceiling 0.016"),
+    (["--dt-min", "0.001"], "--dt-min applies with --adaptive-dt"),
+    (["--dt-max", "0.01"], "--dt-max with --adaptive-dt or --block-dt"),
+    (["--block-dt", "--adaptive-dt"], "--block-dt and --adaptive-dt are exclusive"),
+    (["--block-dt", "--kernel", "pm"], "--block-dt drives the exact kernels"),
+    (["--block-dt", "--integrator", "hermite"], "(no hermite block form)"),
+    (["--block-dt", "--precision", "ds"], "--precision ds takes --adaptive-dt"),
+    (["--block-dt", "0"], "--block-dt eta must be > 0"),
+    (["--block-dt", "--block-classes", "17"], "--block-classes must be in [1, 16] (got 17)"),
+    (["--block-dt", "--dt-max", "-2"], "--dt-max must be > 0 (got -2.0)"),
+    (["--block-dt", "--devices", "2"], "--block-dt is single-device"),
+    (["--adaptive-dt", "--devices", "2", "--strategy", "ring_fused"],
+     "(ring_fused fuses the fixed-dt update into its kernel)"),
+    (["--precision", "ds", "--qatest", "--adaptive-dt"],
+     "--adaptive-dt is a demo-mode option; the ds measurement modes are fixed-dt"),
+])
+def test_timestep_flag_refusals_exit_1_in_nbody_tpus_words(args, message, capsys):
+    assert main(["--cpu", "--numbodies", "64", "--frames", "1", *args]) == 1
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args, expect", [
+    (["--adaptive-dt", "0.02", "--integrator", "leapfrog"], "integrator leapfrog"),
+    (["--adaptive-dt", "--integrator", "hermite", "--dt-max", "0.004"], "integrator hermite"),
+    (["--adaptive-dt", "--kernel", "pm", "--pm-grid", "16"], "force pm (grid 16"),
+    (["--adaptive-dt", "--precision", "ds", "--integrator", "leapfrog"], "double-single"),
+    (["--block-dt", "--integrator", "leapfrog", "--set", "velocity_damping=1.0"],
+     "block-dt: rows="),
+    (["--precision", "ds", "--qatest", "--block-dt"],
+     "--precision ds: --block-dt (the ds measurement modes are fixed-dt) has no effect"),
+])
+def test_adaptive_and_block_runs_on_the_cpu(args, expect, capsys):
+    assert main(["--cpu", "--numbodies", "256", "--frames", "2", "--no-cycle", *args]) == 0
+    assert expect in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("args, message", [

@@ -426,7 +426,12 @@ def _fake_grid():
                  id="<lambda>-#13_5"),
     pytest.param(lambda: make_sharded_step_2d(_fake_mesh()), "parallel.make_mesh_2d",
                  id="<lambda>-#13_6"),
-    (lambda: make_sharded_ds_adaptive_rollout(), "#7"),
+    # the sharded ds adaptive rollout raised naming ROADMAP.md Queue 1 #7
+    # until that item brought it; the id keeps it, and the case now holds
+    # nbody_tpu's refusal of an empty dt window
+    pytest.param(lambda: make_sharded_ds_adaptive_rollout(
+        _fake_mesh(), softening=SOFT, damping=DAMP, eta=0.01, dt_min=0.1, dt_max=0.01, steps=2),
+                 r"need 0 < dt_min <= dt_max", id="<lambda>-#7"),
 ])
 def test_refusals_name_the_reference_error_or_roadmap_item(build, match):
     with pytest.raises(ValueError, match=match):

@@ -464,3 +464,58 @@ def demo_keys(keys, frames):
                            staticmethod(lambda: next(feed, "") if mesh.rank == 0 else "")):
         cli._run_demo(c, args, mesh)
     return c.steps_taken, c.paused, c.active_demo, c.active_params, c.system.positions
+
+
+def adaptive(kind, num_bodies, params, kw, state, steps, akw, mesh_rows=None):
+    """A DSBodySystem ("ds") or BodySystem on the mesh (the grid of
+    `mesh_rows` rows if given) from `state`, ``update_many_adaptive(steps,
+    **akw)``: (positions, velocities, stats, strategy) of the whole system."""
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+
+    cls = DSBodySystem if kind == "ds" else BodySystem
+    s = cls(num_bodies, params, device="cpu", mesh=_mesh(mesh_rows), state=state, **kw)
+    stats = s.update_many_adaptive(steps, **akw)
+    return s.positions, s.velocities, stats, s.strategy
+
+
+def adaptive_rollout(kind, kw, state, mesh_rows=None):
+    """The public sharded adaptive rollout of `kind` ("fp32" or "ds", on the
+    1-D mesh or the grid of `mesh_rows` rows) with `kw`, run on this rank's
+    rows of `state` (float64 (pos, vel); split into ds planes for "ds"):
+    (this rank's positions as float64, its stats)."""
+    from nbody_tpu_torch.ops import ds
+    from nbody_tpu_torch.parallel import (
+        make_sharded_adaptive_rollout,
+        make_sharded_adaptive_rollout_2d,
+        make_sharded_ds_adaptive_rollout,
+        make_sharded_ds_adaptive_rollout_2d,
+    )
+
+    mesh = _mesh(mesh_rows)
+    pos, vel = (_shard(mesh, a) for a in state)
+    if kind == "ds":
+        build = (make_sharded_ds_adaptive_rollout if mesh_rows is None
+                 else make_sharded_ds_adaptive_rollout_2d)
+        out = build(mesh, **kw)(*ds.ds_from_f64(pos), *ds.ds_from_f64(vel))
+        return ds.ds_to_f64(out[0], out[1]), out[4].numpy()
+    build = make_sharded_adaptive_rollout if mesh_rows is None else make_sharded_adaptive_rollout_2d
+    p, _, stats = build(mesh, **kw)(pos.float(), vel.float())
+    return p.double().numpy(), stats.numpy()
+
+
+def p3m_adaptive(num_bodies, params, kw, state, steps, auto_refresh, akw):
+    """A P3M BodySystem on the mesh, ``update_many_adaptive(steps, **akw)``
+    of `state`: (the contract-broken warnings, the capacity before and
+    after, the rewinds, the stats, the final positions)."""
+    import warnings
+
+    from nbody_tpu_torch.models import BodySystem
+
+    s = BodySystem(num_bodies, params, device="cpu", mesh=_mesh(), kernel="p3m", state=state,
+                   p3m_auto_refresh=auto_refresh, **kw)
+    cap0 = s.p3m_capacity
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        stats = s.update_many_adaptive(steps, **akw)
+    broken = [str(x.message) for x in w if "contract broken" in str(x.message)]
+    return broken, cap0, s.p3m_capacity, s.p3m_refreshes, stats, s.positions
