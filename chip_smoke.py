@@ -222,6 +222,36 @@ its result:
      one-rank NCCL mesh bit-equal to one card's (sym, allgather), and the
      times (adaptive against fixed dt; a block macro step against the
      adaptive leapfrog over the same simulated time);
+  5g. differentiable stepping (ops/diff.py) at N=16384, shell, demo-0
+     parameters, the scalars card tensors that require grad: the Function's
+     forward (fp32, one under torch.cuda's sync debug mode "error" whose
+     only host read is the scalars' one counted read; with an mxu config;
+     a float64 step), the
+     gradients of sum(p[:, :3]**2) to pos, vel, dt, softening and damping,
+     the second derivative in softening, rollout_diff over 8 steps against
+     a loop of nbody_step_diff (rtol 1e-4, atol 1e-5), the softening fit of
+     examples/fit_softening_torch.py (N=256, 8 steps, 30 Newton iterations,
+     to 5e-3), and make_sharded_step_diff on a one-rank NCCL mesh for
+     allgather, ring and sym; printing the forward and backward ms, the
+     peak memory and the host reads; after it, outside the count: the
+     forward bit-equal to nbody_step_cuda (nbody_step_mxu_cuda with the
+     mxu config), the gradients for given cotangents bit-equal to the
+     card's plain autograd of plain_step (fp32, mxu, float64), the loss's
+     gradients and the second derivative against the plain ones at rtol
+     1e-4 (the loss's cotangent 2p comes from the kernel's forward, whose
+     last bits differ from the plain step's), the mesh's gradients against
+     one card's at rtol 1e-4, atol 1e-5;
+  5n. the tuner (tune.py) with XDG_CACHE_HOME a directory of its own
+     (the whole run's XDG_CACHE_HOME is an empty temporary directory, so
+     that variant="auto" and p3m_kernel_blk find no tuned entry elsewhere):
+     nbody-tune-torch's main() for euler at 65536, autotune of hermite at
+     65536, ds, ds_leapfrog and ds_hermite at 16384 and p3m at 65536
+     (G=64), each candidate's G interactions/s and the winner printed, and
+     a drift-gated euler sweep that puts mxu_bf16 ahead of vpu; the cache
+     file under the card's key; BodySystem / DSBodySystem(variant="auto")
+     taking each cached winner, a step under it bit-equal to a step with
+     the same configuration given explicitly, p3m_kernel_blk giving the
+     cached blk; with the directory removed, the defaults back;
   3e. the kernels of the JAX package's three experiment scripts against
      their plain versions at N in {1000, 4099, 65536}, masses from [0.5, 2],
      a random vel.w and damping 0.5 at 4099 and 65536: the dual-bank step
@@ -269,7 +299,8 @@ Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
 tensor-core path's, 5r the rollout's, 5p the P3M path's, 5q the mesh
 solvers' and the demo on a mesh (the ranged pair kernel, the fused ring
 and the sym triangle must launch there), 5x the
-sharded path's, 5y the sym, grid and float64 mesh paths', 5e the
+sharded path's, 5y the sym, grid and float64 mesh paths', 5g the
+differentiable step's, 5n the tuner's, 5e the
 experiment scripts' and 8 the demo loop's (the sym
 kernel must launch there): the kernels' launch counters are
 set to 0 before each and read after it, and each kernel of that path must
@@ -286,6 +317,7 @@ import math
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -3963,6 +3995,310 @@ def phase_f64_main(torch, smi: str) -> None:
           "each way")
 
 
+N_DIFF = 16384  # BASELINE.json configs[2]'s N: the backward's (C, N) intermediates fit
+DIFF_STRATEGIES = ("allgather", "ring", "sym")
+
+
+def diff_inputs(torch, pos, vel, params):
+    """(pos, vel, dt, softening, damping), each a leaf that requires grad;
+    the scalars 0-d tensors on the card of the state's type."""
+    scal = [torch.tensor(x, dtype=pos.dtype, device=pos.device)
+            for x in (params.time_step, params.softening, params.damping)]
+    return [t.detach().clone().requires_grad_() for t in (pos, vel, *scal)]
+
+
+def diff_loss(p):
+    return (p[:, :3] ** 2).sum()
+
+
+def phase_diff_main(torch, smi: str) -> dict:
+    """5g. The differentiable step through ops/diff.py's entry points, every
+    launch counted: returns what phase_diff holds to its plain versions."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import diff
+    from nbody_tpu_torch.parallel import make_mesh
+    from nbody_tpu_torch.utils import timing
+
+    params = DEMO_PARAMS[0]
+    pos, vel = shell_state(torch, N_DIFF)
+    runs = {"state": (pos, vel)}
+
+    # the forward: float scalars (no host read) against card-tensor scalars
+    ins = diff_inputs(torch, pos, vel, params)
+    vals = (params.time_step, params.softening, params.damping)
+    fwd_ms = timed_ms(torch, lambda: diff.nbody_step_diff(ins[0], ins[1], *vals), 20)
+    fwd_t_ms = timed_ms(torch, lambda: diff.nbody_step_diff(*ins), 20)
+    reads = timing.HOST_READS["diff_scalars"]
+    with no_host_sync(torch):
+        out = diff.nbody_step_diff(*ins)
+    check(timing.HOST_READS["diff_scalars"] == reads + 1,
+          "nbody_step_diff with card-tensor scalars did not read them once")
+    runs["forward"] = [t.detach() for t in out]
+
+    # the backward, timed alone (events after the forward is queued)
+    times = []
+    for _ in range(6):
+        loss = diff_loss(diff.nbody_step_diff(*ins)[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(loss, ins)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    bwd_ms = statistics.median(times[1:])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs["grads"] = torch.autograd.grad(diff_loss(diff.nbody_step_diff(*ins)[0]), ins)
+    peak = torch.cuda.max_memory_allocated() - base
+    rng = torch.Generator(device=pos.device).manual_seed(3)
+    cot = [torch.randn(pos.shape, device=pos.device, generator=rng) for _ in range(2)]
+    runs["cotangents"] = cot
+    runs["cot_grads"] = torch.autograd.grad(diff.nbody_step_diff(*ins), ins, cot)
+    print(f"[5g diff] N={N_DIFF}: forward {fwd_ms:.4f} ms (float scalars), {fwd_t_ms:.4f} ms "
+          f"(card-tensor scalars, one host read a call), backward {bwd_ms:.3f} ms (median of "
+          f"5), peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+          f"(torch.cuda.max_memory_allocated) [{smi}]")
+
+    soft = ins[3]
+    (g,) = torch.autograd.grad(diff_loss(diff.nbody_step_diff(*ins)[0]), soft,
+                               create_graph=True)
+    (h,) = torch.autograd.grad(g, soft)
+    check(bool(torch.isfinite(h)) and float(h) != 0.0, f"second derivative {float(h)}")
+    runs["second"] = float(h)
+
+    # rollout_diff over 8 steps against a loop of nbody_step_diff
+    reads = timing.HOST_READS["diff_scalars"]
+    p0 = pos.clone().requires_grad_()
+    start = time.perf_counter()
+    (g_roll,) = torch.autograd.grad(diff_loss(diff.rollout_diff(p0, vel, *ins[2:],
+                                                                steps=8)[0]), p0)
+    roll_s = time.perf_counter() - start
+    check(timing.HOST_READS["diff_scalars"] == reads + 1,
+          "rollout_diff did not read its scalars once a call")
+    p, v = p0, vel
+    for _ in range(8):
+        p, v = diff.nbody_step_diff(p, v, *ins[2:])
+    (g_loop,) = torch.autograd.grad(diff_loss(p), p0)
+    err = float((g_roll - g_loop).abs().max())
+    check(bool(torch.allclose(g_roll, g_loop, rtol=1e-4, atol=1e-5)),
+          f"rollout_diff's position gradient against the loop's: max |d| {err:.3e}")
+    print(f"[5g diff] rollout_diff, 8 steps at N={N_DIFF}: forward and backward "
+          f"{roll_s:.3f} s; position gradient against a loop of nbody_step_diff max |d| "
+          f"{err:.3e} of max {float(g_loop.abs().max()):.3e} [{smi}]")
+
+    # the fit of examples/fit_softening_torch.py
+    spec = importlib.util.spec_from_file_location(
+        "fit_softening_torch", ROOT / "examples" / "fit_softening_torch.py")
+    fit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fit)
+    start = time.perf_counter()
+    s = fit.fit(pos.device, log=lambda line: print(f"[5g fit] {line}"))
+    print(f"[5g fit] recovered softening {s:.6f} (true {fit.TRUE_SOFTENING}) in "
+          f"{time.perf_counter() - start:.2f} s [{smi}]")
+    check(abs(s - fit.TRUE_SOFTENING) < 5e-3, f"the fit recovered {s}")
+    print(f"[5g diff] host reads of the scalars so far: {timing.HOST_READS['diff_scalars']} "
+          f"(one a call of nbody_step_diff or rollout_diff given card tensors)")
+
+    # the tensor-core step's forward, and a float64 step
+    runs["mxu"] = [t.detach() for t in diff.nbody_step_diff(*ins, (("variant", "mxu"),))]
+    runs["mxu_cot_grads"] = torch.autograd.grad(
+        diff.nbody_step_diff(*ins, (("variant", "mxu"),)), ins, cot)
+    ins64 = diff_inputs(torch, pos.double(), vel.double(), params)
+    runs["f64"] = [t.detach() for t in diff.nbody_step_diff(*ins64)]
+    runs["f64_cot_grads"] = torch.autograd.grad(diff.nbody_step_diff(*ins64), ins64,
+                                                [c.double() for c in cot])
+
+    mesh = make_mesh(1)
+    try:
+        check(dist.get_backend() == "nccl", f"the mesh runs {dist.get_backend()}, not nccl")
+        runs["mesh"] = {}
+        for strategy in DIFF_STRATEGIES:
+            step = diff.make_sharded_step_diff(mesh, strategy=strategy)
+            try:
+                m_ins = diff_inputs(torch, pos, vel, params)
+                runs["mesh"][strategy] = torch.autograd.grad(diff_loss(step(*m_ins)[0]), m_ins)
+            finally:
+                step.close()
+    finally:
+        dist.destroy_process_group()
+    return runs
+
+
+def phase_diff(torch, smi: str, runs: dict) -> None:
+    """5g, outside the count: the Function against the kernels it runs and
+    against the card's plain autograd."""
+    from nbody_tpu_torch import DEMO_PARAMS
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import diff
+
+    params = DEMO_PARAMS[0]
+    vals = (params.time_step, params.softening, params.damping)
+    # the Function's scalars were float32 tensors: the kernels took their values
+    vals32 = [float(torch.tensor(x, dtype=torch.float32)) for x in vals]
+    pos, vel = runs["state"]
+    for got, want in zip(runs["forward"], ck.nbody_step_cuda(pos, vel, *vals32)):
+        check(torch.equal(got, want), "the diff forward is not nbody_step_cuda's bits")
+    for got, want in zip(runs["mxu"], ck.nbody_step_mxu_cuda(pos, vel, *vals32, variant="mxu")):
+        check(torch.equal(got, want), "the mxu diff forward is not nbody_step_mxu_cuda's bits")
+    for got, want in zip(runs["f64"], ck.nbody_step_cuda(pos.double(), vel.double(), *vals)):
+        check(torch.equal(got, want), "the float64 diff forward is not the double kernel's")
+
+    cot = runs["cotangents"]
+    for key, dtype in (("cot_grads", torch.float32), ("mxu_cot_grads", torch.float32),
+                       ("f64_cot_grads", torch.float64)):
+        ins = diff_inputs(torch, pos.to(dtype), vel.to(dtype), params)
+        plain = torch.autograd.grad(diff.plain_step(*ins), ins, [c.to(dtype) for c in cot])
+        for name, a, b in zip(("pos", "vel", "dt", "softening", "damping"), runs[key], plain):
+            check(torch.equal(a, b), f"{key}: the {name} gradient is not the plain "
+                  f"autograd's bits (max |d| {float((a - b).abs().max()):.3e})")
+    print("[5g diff] forwards bit-equal to nbody_step_cuda / nbody_step_mxu_cuda / the double "
+          "kernel; gradients for given cotangents bit-equal to the card's plain autograd "
+          "(fp32, mxu config, float64)")
+
+    ins = diff_inputs(torch, pos, vel, params)
+    plain = torch.autograd.grad(diff_loss(diff.plain_step(*ins)[0]), ins)
+    worst = []
+    for name, a, b in zip(("pos", "vel", "dt", "softening", "damping"), runs["grads"], plain):
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst.append(f"{name} {rel:.2e}")
+        check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
+              f"the loss's {name} gradient against the plain autograd's: {rel:.3e}")
+    soft = ins[3]
+    (g,) = torch.autograd.grad(diff_loss(diff.plain_step(*ins)[0]), soft, create_graph=True)
+    (h,) = torch.autograd.grad(g, soft)
+    check(math.isclose(runs["second"], float(h), rel_tol=1e-4),
+          f"second derivative {runs['second']} against the plain {float(h)}")
+    print(f"[5g diff] the loss's gradients against the plain autograd's, max |d| / max: "
+          f"{', '.join(worst)}; second derivative in softening {runs['second']:.6e} "
+          f"(plain {float(h):.6e})")
+
+    for strategy, grads in runs["mesh"].items():
+        for name, a, b in zip(("pos", "vel", "dt", "softening", "damping"), grads,
+                              runs["grads"]):
+            check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
+                  f"mesh {strategy}: the {name} gradient against one card's "
+                  f"(max |d| {float((a - b).abs().max()):.3e})")
+    print(f"[5g diff] one-rank NCCL mesh, {', '.join(DIFF_STRATEGIES)}: gradients within "
+          f"rtol 1e-4, atol 1e-5 of one card's")
+
+
+N_TUNE_DS = 16384  # BASELINE.json configs[2]'s N, the ds families'
+TUNE_RUNS = (("euler", N_MAIN), ("hermite", N_MAIN), ("ds", N_TUNE_DS),
+             ("ds_leapfrog", N_TUNE_DS), ("ds_hermite", N_TUNE_DS), ("p3m", N_MAIN))
+TUNE_KERNELS = ("step", "mxu_step", "mxu_bf16_step", "sym", "accel_jerk", "aj_sym", "potential",
+                "ds_step", "ds_sym", "ds_integrate", "ds_leapfrog", "ds_accel_jerk", "ds_aj_sym",
+                "p3m_sr")
+
+
+def phase_tune_main(torch, smi: str) -> dict:
+    """5n. The tuner's sweeps, the cache in XDG_CACHE_HOME (set by the
+    caller): nbody-tune-torch's main() for euler, autotune for the rest, and
+    a drift-gated euler sweep with mxu_bf16 ahead of vpu; returns the
+    winners by family."""
+    from nbody_tpu_torch import tune
+
+    def log(line):
+        print(f"[5n tune] {line}")
+
+    winners = {}
+    for family, n in TUNE_RUNS:
+        start = time.perf_counter()
+        if family == "euler":
+            # the console script nbody-tune-torch, in this process
+            check(tune.main(["--family", "euler", "--numbodies", str(n)]) == 0,
+                  "nbody-tune-torch --family euler failed")
+            winners[family] = tune.best_config(n, family="euler")
+        else:
+            winners[family] = tune.autotune(n, family=family, log=log)
+        print(f"[5n tune] {family} at N={n}: {time.perf_counter() - start:.1f} s [{smi}]")
+    gate = []
+    best = tune.autotune(N_MAIN, family="euler", save=False, log=lambda s: (gate.append(s),
+                                                                            log(s)),
+                         candidates=(("mxu_bf16", None, None), ("vpu", 256, None)))
+    check(any("drift gate: vpu anchor" in line for line in gate),
+          "the drift gate did not run for an mxu_bf16 leader")
+    print(f"[5n tune] drift-gated sweep (mxu_bf16, vpu 256) at N={N_MAIN}: {best} [{smi}]")
+    return winners
+
+
+def p3m_ladder_blk(capacity: int) -> int:
+    """ops/p3m.py's ladder, the blk without a tuned entry."""
+    return 512 if capacity > 4096 else 256 if capacity > 192 else 128
+
+
+def phase_tune(torch, smi: str, winners: dict, cache_dir: pathlib.Path) -> None:
+    """5n, outside the count: the cache file, the systems' variant="auto"
+    taking each winner (a step bit-equal to the same configuration given
+    explicitly), p3m_kernel_blk's blk; with the cache removed, the
+    defaults."""
+    import shutil
+
+    from nbody_tpu_torch import DEMO_PARAMS, tune
+    from nbody_tpu_torch.models import BodySystem, DSBodySystem
+    from nbody_tpu_torch.models.body_system import AUTO_VARIANT_CUDA
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m
+
+    path = tune._cache_path()
+    check(path.is_relative_to(cache_dir), f"the cache {path} is not under {cache_dir}")
+    cache = json.loads(path.read_text())
+    key = f"cuda:{torch.cuda.get_device_name()}"
+    check(set(cache) == {key} and set(cache[key]) == set(tune.FAMILIES),
+          f"the cache's keys {sorted(cache)}: {sorted(cache.get(key, {}))}")
+    print(f"[5n tune] {path.relative_to(cache_dir)} holds {key}: "
+          f"{json.dumps(cache[key], sort_keys=True)}")
+    params = DEMO_PARAMS[0]
+    for family, n in TUNE_RUNS:
+        if family == "p3m":
+            continue
+        w = winners[family]
+        kw = tune.system_kwargs(family, (w["variant"], w["block_size"], w["tile"]))
+        kind = DSBodySystem if family in tune.DS_FAMILIES else BodySystem
+        auto = kind(n, params, integrator=kw["integrator"])
+        got = (auto.variant, auto.tile, auto.block_size if kw["block_size"] else None)
+        check(got == (kw["variant"], kw["tile"], kw["block_size"]),
+              f"{family}: variant='auto' runs {got}, the cache's winner {w}")
+        explicit = kind(n, params, **kw)
+        auto.update()
+        explicit.update()
+        if kind is DSBodySystem:
+            pairs = zip(auto.get_ds_state(), explicit.get_ds_state())
+        else:
+            pairs = zip(auto.state, explicit.state)
+        check(all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in pairs),
+              f"{family}: a step of variant='auto' is not the explicit configuration's bits")
+        print(f"[5n tune] {family} at N={n}: variant='auto' takes {kw}, a step bit-equal to it "
+              f"given explicitly")
+    (bucket,) = cache[key]["p3m"]
+    check(p3m.p3m_kernel_blk(int(bucket)) == winners["p3m"]["blk"],
+          f"p3m_kernel_blk({bucket}) is not the cached {winners['p3m']['blk']}")
+
+    shutil.rmtree(cache_dir)
+    p3m._tuned_blk.cache_clear()
+    s = BodySystem(N_MAIN, params)
+    h = BodySystem(N_MAIN, params, integrator="hermite")
+    check((s.variant, s.block_size, s.tile, h.variant, h.tile)
+          == (AUTO_VARIANT_CUDA, ck.DEFAULT_BLOCK_SIZE, None, AUTO_VARIANT_CUDA, None),
+          "without a cache BodySystem does not run its defaults")
+    for integrator in ("euler", "leapfrog", "hermite"):
+        d = DSBodySystem(N_TUNE_DS, params, integrator=integrator)
+        want = ("one_sided" if integrator == "leapfrog" else "sym",
+                ck.ds_default_block_size(N_TUNE_DS), None)
+        check((d.variant, d.block_size, d.tile) == want,
+              f"without a cache DSBodySystem {integrator} runs {(d.variant, d.block_size)}")
+    check(p3m.p3m_kernel_blk(int(bucket)) == p3m_ladder_blk(int(bucket)),
+          "without a cache p3m_kernel_blk is not the ladder's")
+    print(f"[5n tune] p3m_kernel_blk({bucket}) = the cached {winners['p3m']['blk']}; the cache "
+          f"removed, the defaults are back (sym, block 256, the ds tables, blk "
+          f"{p3m_ladder_blk(int(bucket))})")
+
+
 def phase_experiment_main(torch, smi: str) -> None:
     """5e. The ports of the three experiment scripts as a user runs them, at
     N=65536 (their default): scripts/torch_r3_dualbank.py,
@@ -4419,6 +4755,20 @@ def phase_demo(torch, ck, smi: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def cache_home(path: pathlib.Path):
+    """XDG_CACHE_HOME set to `path` for the block, then restored."""
+    old = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = str(path)
+    try:
+        yield path
+    finally:
+        if old is None:
+            del os.environ["XDG_CACHE_HOME"]
+        else:
+            os.environ["XDG_CACHE_HOME"] = old
+
+
 def timed(label: str, fn, *args):
     """fn(*args), printing the seconds it took."""
     t0 = time.perf_counter()
@@ -4448,6 +4798,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    import tempfile
+
+    # BodySystem / DSBodySystem(variant="auto") and p3m_kernel_blk read the
+    # tuner's cache on a card: every phase runs with an empty one, whatever
+    # an earlier nbody-tune-torch left under the user's cache directory
+    with tempfile.TemporaryDirectory() as tmp, cache_home(pathlib.Path(tmp) / "cache"):
+        return run_phases(torch)
+
+
+def run_phases(torch) -> int:
+    """Every phase, in order; the kernels line and the card line."""
     import nbody_tpu_torch
 
     pkg = pathlib.Path(nbody_tpu_torch.__file__).resolve()
@@ -4561,6 +4922,19 @@ def main() -> int:
     timed("5a bit ties, plain versions, one-rank mesh and times", phase_adaptive, torch, smi,
           adaptive_runs)
     del adaptive_runs
+    diff_runs = {}
+    diff_launches = timed("5g differentiable step", run_path, ck, ("step", "mxu_step",
+                                                                   "step_f64", "sym"),
+                          lambda: diff_runs.update(phase_diff_main(torch, smi)))
+    timed("5g bit ties and plain autograd", phase_diff, torch, smi, diff_runs)
+    del diff_runs
+    print(f"[5g diff] launches: step {diff_launches['step']}, mxu_step "
+          f"{diff_launches['mxu_step']}, step_f64 {diff_launches['step_f64']}")
+    with cache_home(pathlib.Path(os.environ["XDG_CACHE_HOME"]) / "5n") as cache:
+        winners = {}
+        timed("5n tuner", run_path, ck, TUNE_KERNELS,
+              lambda: winners.update(phase_tune_main(torch, smi)))
+        timed("5n the cache's consumers", phase_tune, torch, smi, winners, cache)
     exp_launches = timed("5e experiment scripts", run_path, ck, EXPERIMENT_KERNELS,
                          lambda: phase_experiment_main(torch, smi))
     for k in EXPERIMENT_KERNELS:

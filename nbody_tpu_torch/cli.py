@@ -14,7 +14,8 @@ the demo loop's flags (frames, rendering, viewing, --energy, --autosave,
 --selftest) with its adaptive global timestep (--adaptive-dt [ETA],
 --dt-min, --dt-max) and per-body block timesteps (--block-dt [ETA],
 --block-classes K). nbody_tpu's other flags (the XLA / Pallas kernel names,
---tile-j) are not accepted (ROADMAP.md).
+--tile-j: the one-sided kernels tie their j-tile to --blockSize, and
+nbody-tune-torch tunes the sym tile) are not accepted (ROADMAP.md).
 
 Modes:
 * --benchmark            timed run; prints interactions/s and GFLOP/s
@@ -142,8 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels): mxu in f32 grade, mxu_bf16 with bf16 "
                         "operands, which is not faithful to energy (at "
                         "N=4096 its drift fails the --drift-check gate); "
-                        "auto = the one measured faster on the card, vpu "
-                        "with --cpu")
+                        "auto = the tuner's cached winner on this card and N "
+                        "(nbody-tune-torch), else the one measured faster "
+                        "(sym); vpu with --cpu and on a mesh")
     p.add_argument("--integrator", choices=["euler", "leapfrog", "hermite"], default="euler",
                    help="damped semi-implicit Euler (the reference's), "
                         "drift-kick-drift leapfrog, or the 4th-order Hermite "

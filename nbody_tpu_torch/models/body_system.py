@@ -29,9 +29,18 @@ Variants (the force):
     f32 grade or with bf16 operands; leapfrog and Hermite keep the one-sided
     kernels, as the JAX package's do (its mxu variants reach only
     ``nbody_step_pallas``). mxu_bf16 is not faithful to energy.
-  * "auto" — AUTO_VARIANT_CUDA on a CUDA device, else "vpu" (the JAX package
-    resolves to its Pallas sym path only on the TPU, and to an mxu variant
-    only from its TPU autotuner's cache, ROADMAP.md Queue 1 #12)
+  * "auto" — on a CUDA device with backend "cuda", no mesh and fp32 the
+    port's tuner's cached winner for this card and N (``tune.best_config``,
+    the "hermite" family for Hermite, else "euler"; ``nbody-tune-torch``),
+    variant, block size and tile, an explicit ``block_size`` or ``tile``
+    winning with a warning; without an entry AUTO_VARIANT_CUDA and the
+    dispatch tables. Elsewhere "vpu". (The JAX package reads its TPU
+    tuner's cache likewise, and resolves to its Pallas sym path only on the
+    TPU.) An mxu_bf16 winner is cached only past the tuner's drift gate.
+
+``tile`` is the j-tile of the each-pair-once kernels (the force for Euler
+and leapfrog, accel + jerk for Hermite; one of ``SYM_TILES``), None for
+the dispatch table's (``sym_default_dispatch`` / ``aj_sym_default_dispatch``).
 
 fp64 (``dtype=torch.float64``): the state, its ping-pong and host buffers
 are float64, and every integrator runs on the double kernels
@@ -125,6 +134,7 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     DEFAULT_BLOCK_SIZE,
     aj_sym_default_dispatch,
     check_block_size,
+    check_sym_tile,
     compute_accel_cuda,
     compute_accel_jerk_cuda,
     compute_accel_jerk_symmetric_blocked_cuda,
@@ -158,9 +168,10 @@ LATER_SLICES = {
 }
 
 
-# What variant="auto" runs on a CUDA device, for every integrator: the
-# variant measured faster at N=65536 on an NVIDIA H100 80GB HBM3, 700 W power
-# limit (PERF.md). Euler and leapfrog: a sym Euler step through Compute
+# What variant="auto" runs on a CUDA device, for every integrator, where the
+# tuner's cache has no entry for the card and N: the variant measured
+# faster at N=65536 on an NVIDIA H100 80GB HBM3, 700 W power limit
+# (PERF.md). Euler and leapfrog: a sym Euler step through Compute
 # 1.537 / 6.369 ms against the one-sided vpu step's 2.279 / 9.500 ms at
 # N = 65536 / 135168 (scripts/torch_sym_dispatch.py, medians in turns), and
 # the steps through Compute in chip_smoke.py. Hermite, measured on its own kernels:
@@ -294,6 +305,7 @@ class BodySystem:
         device="cuda",
         backend: str = "auto",
         block_size: Optional[int] = None,
+        tile: Optional[int] = None,
         placement: str = "device",
         variant: str = "auto",
         integrator: str = "euler",
@@ -381,6 +393,14 @@ class BodySystem:
             # nbody_tpu's fp64 XLA path ignores the variant: auto and the
             # mxu variants run the one-sided force
             variant = "vpu"
+        if (variant == "auto" and backend == "cuda" and mesh is None and not fp64
+                and kernel == "auto"):
+            from nbody_tpu_torch import tune
+
+            family = "hermite" if integrator == "hermite" else "euler"
+            variant, block_size, tile = tune.resolve_cached(
+                tune.best_config(int(num_bodies), family=family), block_size=block_size,
+                tile=tile)
         if variant == "auto":
             variant = AUTO_VARIANT_CUDA if self.device.type == "cuda" else "vpu"
         if placement not in ("device", "host"):
@@ -404,6 +424,7 @@ class BodySystem:
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
                            else device_block_size(block_size, self.device))
+        self.tile = None if tile is None else check_sym_tile(tile)
         # N rounded up so the body shards divide evenly (nbody_tpu's rule)
         self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.params = params
@@ -588,10 +609,10 @@ class BodySystem:
                              assignment=self.pm_assignment)[0].to(pos.dtype)
         if self.variant == "sym":
             if self.backend == "cuda":
-                return compute_accel_symmetric_blocked_cuda(pos, soft)
+                return compute_accel_symmetric_blocked_cuda(pos, soft, tile=self.tile)
             cap, tile = sym_default_dispatch(pos.shape[0])
             return reference.compute_accel_symmetric_blocked(
-                pos, soft, block_cap=cap, tile_j=tile)
+                pos, soft, block_cap=cap, tile_j=self.tile or tile)
         if self.backend == "cuda":
             return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
         return reference.compute_accel(pos, soft)
@@ -602,10 +623,10 @@ class BodySystem:
         soft = self.params.softening
         if self.variant == "sym":
             if self.backend == "cuda":
-                return compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft)
+                return compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft, tile=self.tile)
             cap, tile = aj_sym_default_dispatch(pos.shape[0])
             return reference.compute_accel_jerk_symmetric_blocked(
-                pos, vel, soft, block_cap=cap, tile_j=tile)
+                pos, vel, soft, block_cap=cap, tile_j=self.tile or tile)
         if self.backend == "cuda":
             return compute_accel_jerk_cuda(pos, vel, pos, vel, soft, block_size=self.block_size)
         return reference.compute_accel_jerk(pos, vel, soft)
@@ -1063,7 +1084,7 @@ class BodySystem:
         strategy = self._requested_strategy
         other = BodySystem(
             self.num_bodies, self.params, device=self.device, backend=self._requested_backend,
-            block_size=self.block_size, placement=self.placement,
+            block_size=self.block_size, tile=self.tile, placement=self.placement,
             variant="auto" if to64 and requested == "sym" else requested,
             integrator=self.integrator,
             # nbody_tpu's float64 hop runs its exact XLA force

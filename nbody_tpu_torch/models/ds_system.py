@@ -20,9 +20,17 @@ Variants, resolved as ``nbody_tpu`` resolves them (ds_system.py:120-149):
   * "one_sided" — the fused one-sided ds step, or for Hermite the one-sided
     ds accel + jerk kernel; leapfrog has only this form
   * "auto"      — "sym" for Euler and Hermite, "one_sided" for leapfrog
-The autotuner's cache that ``nbody_tpu`` consults for "auto" is not ported:
-the measured tables of ``ds_sym_default_dispatch`` and
-``ds_aj_sym_default_dispatch`` take its place.
+On a CUDA device with backend "cuda" and no mesh, "auto" (or an explicit
+variant given no ``block_size`` and no ``tile``) reads the port's tuner's
+winner for this card and N, family "ds", "ds_leapfrog" or "ds_hermite" by
+integrator (``tune.best_config``; ``nbody-tune-torch``), as ``nbody_tpu``
+reads its TPU tuner's (ds_system.py:132-149): its variant (a cached "sym"
+only where sym applies), block size and tile; an entry of the other
+variant gives none of them. Without an entry the measured tables
+(``ds_default_block_size``, ``ds_sym_default_dispatch``,
+``ds_aj_sym_default_dispatch``) apply. ``tile`` is the j-tile of the
+each-pair-once kernels (``SYM_TILES`` for Euler, ``DS_AJ_TILES`` for
+Hermite), None for the tables'.
 
 Integrators: "euler" (damped semi-implicit), "leapfrog" (the fused
 drift-kick-drift kernel) and "hermite" (4th-order P(EC): two ds accel +
@@ -60,6 +68,9 @@ from nbody_tpu_torch.models.body_system import (
 )
 from nbody_tpu_torch.ops import ds, reference
 from nbody_tpu_torch.ops.cuda_kernel import (
+    DS_AJ_TILES,
+    SYM_TILES,
+    check_sym_tile,
     compute_accel_cuda,
     compute_accel_ds_cuda_vs,
     compute_accel_ds_symmetric_blocked_cuda,
@@ -93,6 +104,7 @@ class DSBodySystem:
         device="cuda",
         backend: str = "auto",
         block_size: Optional[int] = None,
+        tile: Optional[int] = None,
         integrator: str = "euler",
         variant: str = "auto",
         mesh=None,
@@ -132,8 +144,17 @@ class DSBodySystem:
             raise ValueError(
                 "variant='sym' applies to the euler/hermite ds steps on "
                 "a single device (the sharded ds step is one-sided)")
+        sym_ok = integrator != "leapfrog" and mesh is None
+        if (backend == "cuda" and mesh is None
+                and (variant == "auto" or (block_size is None and tile is None))):
+            from nbody_tpu_torch import tune
+
+            family = {"euler": "ds", "leapfrog": "ds_leapfrog", "hermite": "ds_hermite"}
+            variant, block_size, tile = tune.resolve_cached(
+                tune.best_config(int(num_bodies), family=family[integrator]),
+                variant=variant, block_size=block_size, tile=tile, sym_ok=sym_ok)
         if variant == "auto":
-            variant = "one_sided" if integrator == "leapfrog" or mesh is not None else "sym"
+            variant = "sym" if sym_ok else "one_sided"
 
         self.backend = backend
         self.variant = variant
@@ -142,6 +163,8 @@ class DSBodySystem:
         self.num_bodies = -(-int(num_bodies) // ndev) * ndev
         self.block_size = (ds_default_block_size(self.num_bodies) if block_size is None
                            else device_block_size(block_size, self.device))
+        self.tile = None if tile is None else check_sym_tile(
+            tile, DS_AJ_TILES if integrator == "hermite" else SYM_TILES)
         self.params = params
         self.config = config
         self.seed = seed
@@ -291,9 +314,10 @@ class DSBodySystem:
 
     def _sym_accel(self, pos_hi, pos_lo, scal):
         if self.backend == "cuda":
-            return compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal)
+            return compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal, tile=self.tile)
         cap, tile = ds_sym_default_dispatch(pos_hi.shape[0])
-        return ds.ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, block_cap=cap, tile_j=tile)
+        return ds.ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, block_cap=cap,
+                                             tile_j=self.tile or tile)
 
     def _fused_step(self, planes, scal, out) -> None:
         """The one-sided fused step (Euler or leapfrog) from `planes` into
@@ -313,9 +337,10 @@ class DSBodySystem:
         composition, (N,4) from the one-sided kernel."""
         if self.variant == "sym":
             if self.backend == "cuda":
-                return compute_accel_jerk_ds_symmetric_blocked_cuda(*planes, scal)
+                return compute_accel_jerk_ds_symmetric_blocked_cuda(*planes, scal, tile=self.tile)
             cap, tile = ds_aj_sym_default_dispatch(self.num_bodies)
-            return ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=cap, tile_j=tile)
+            return ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=cap,
+                                                      tile_j=self.tile or tile)
         if self.backend == "cuda":
             return compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
                                                  block_size=self.block_size)

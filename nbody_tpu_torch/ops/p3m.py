@@ -53,6 +53,7 @@ Not ported yet (ROADMAP.md Queue 1 #16): the XLA cell-list engine
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -93,14 +94,27 @@ _SLR_POLY = (
 
 def p3m_kernel_blk(capacity: int) -> int:
     """Threads of a pair kernel block (blk / 32 warps, each computing its
-    own work items): the reference's compile-time ladder of its block rows
-    (``nbody_tpu/ops/p3m_kernel.py:104``), kept as the ``blk`` keyword's
-    default; the layout no longer depends on it (cells pad to 32 rows). A
-    value tuned for the card comes with the port's tuner (ROADMAP.md Queue
-    1 #12)."""
+    own work items), the ``blk`` keyword's default: the port's tuner's
+    winner for this capacity bucket on this card (``nbody-tune-torch
+    --family p3m``), else the reference's compile-time ladder of its block
+    rows (``nbody_tpu/ops/p3m_kernel.py:104``). The layout no longer
+    depends on it (cells pad to 32 rows)."""
+    tuned = _tuned_blk(int(capacity))
+    if tuned is not None:
+        return tuned
     if capacity > 4096:
         return 512
     return 256 if capacity > 192 else 128
+
+
+@functools.lru_cache(maxsize=64)
+def _tuned_blk(capacity: int):
+    """The tuner's cached blk for `capacity`, or None; memoized (the cache
+    is a file), cleared by ``tune.autotune(save=True)``."""
+    from nbody_tpu_torch import tune
+
+    winner = tune.best_config(capacity, family="p3m")
+    return int(winner["blk"]) if winner and "blk" in winner else None
 
 
 def soft2_f32(softening) -> float:

@@ -53,11 +53,17 @@ def _accel_rows(rows_p, all_p, all_m, eps2):
 
 def compute_accel_vs(pos_i, pos_j, softening, *, chunk_size: int | None = None):
     """Acceleration (M,3) on the i-set (M,4) due to the j-set (N,4)."""
+    return accel_eps2_vs(pos_i, pos_j, float(softening) ** 2, chunk_size=chunk_size)
+
+
+def accel_eps2_vs(pos_i, pos_j, eps2, *, chunk_size: int | None = None):
+    """``compute_accel_vs`` with the squared softening given: a float, or a
+    0-d tensor of the state's type through which autograd differentiates
+    (``ops/diff.py``)."""
     m_rows = pos_i.shape[0]
     ri = pos_i[:, :3]
     p3 = pos_j[:, :3]
     m = pos_j[:, 3]
-    eps2 = float(softening) ** 2
     if m_rows == 0:
         return pos_i.new_zeros((0, 3))
     c, m_pad = _chunk_and_pad(m_rows, chunk_size)

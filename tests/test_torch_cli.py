@@ -218,7 +218,8 @@ def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port and runs its CLI on the sym +
     leapfrog path, the sym Hermite drift check, the ds path, a tipsy file,
     the demo loop (galaxy, frames, animation, energy, checkpoint, profile)
-    and a resumed selftest, and a ds ring step on a one-rank gloo mesh,
+    and a resumed selftest, and a ds ring step on a one-rank gloo mesh
+    (importing also the differentiable step and the tuner),
     without JAX and without any
     module of nbody_tpu: the port keeps its own copies. It destroys the
     mesh's process group before it exits, as the CLI does: a gloo group
@@ -231,7 +232,7 @@ def test_port_imports_no_jax(tmp_path):
         "nbody_tpu_torch.models.ds_system, nbody_tpu_torch.ops.ds, nbody_tpu_torch.render, "
         "nbody_tpu_torch.ui, nbody_tpu_torch.ui.terminal_view, nbody_tpu_torch.io.apng, "
         "nbody_tpu_torch.io.avi, nbody_tpu_torch.utils.profiling, "
-        "nbody_tpu_torch.oracle.build\n"
+        "nbody_tpu_torch.oracle.build, nbody_tpu_torch.ops.diff, nbody_tpu_torch.tune\n"
         "from nbody_tpu_torch import Compute, BodySystem, NBodyConfig, ic\n"
         "from nbody_tpu_torch.io import write_tipsy_file\n"
         "rc = nbody_tpu_torch.cli.main(['--qatest', '--numbodies', '128', '--cpu', "

@@ -519,3 +519,54 @@ def p3m_adaptive(num_bodies, params, kw, state, steps, auto_refresh, akw):
         stats = s.update_many_adaptive(steps, **akw)
     broken = [str(x.message) for x in w if "contract broken" in str(x.message)]
     return broken, cap0, s.p3m_capacity, s.p3m_refreshes, stats, s.positions
+
+
+def diff_grads(strategy, pos, vel, dt, soft, damp):
+    """The gradients of sum(p[:, :3]**2) over the whole state's step,
+    through ``make_sharded_step_diff(strategy=...)``: each rank's loss is
+    its rows' part, and its backward gives the whole loss's gradient of its
+    pos and vel rows and of dt, softening and damping (0-d tensors that
+    require grad)."""
+    from nbody_tpu_torch.ops.diff import make_sharded_step_diff
+
+    mesh = _mesh()
+    step = make_sharded_step_diff(mesh, strategy=strategy)
+    p, v = (_shard(mesh, a).requires_grad_() for a in (pos, vel))
+    scalars = [torch.tensor(x, dtype=torch.float32, requires_grad=True)
+               for x in (dt, soft, damp)]
+    try:
+        out, _ = step(p, v, *scalars)
+        grads = torch.autograd.grad(torch.sum(out[:, :3] ** 2), [p, v, *scalars])
+    finally:
+        step.close()
+    return [g.numpy() for g in grads]
+
+
+def diff_2d_error():
+    """The error make_sharded_step_diff raises on a 2-D mesh."""
+    from nbody_tpu_torch.ops.diff import make_sharded_step_diff
+
+    try:
+        make_sharded_step_diff(_mesh(rows=2))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def diff_second_order_error(pos, vel, dt, soft, damp):
+    """The error a backward of the sharded step raises when it is asked for
+    a graph of the gradient: its collectives are not differentiated."""
+    from nbody_tpu_torch.ops.diff import make_sharded_step_diff
+
+    mesh = _mesh()
+    step = make_sharded_step_diff(mesh, strategy="allgather")
+    p, v = (_shard(mesh, a) for a in (pos, vel))
+    s = torch.tensor(soft, dtype=torch.float32, requires_grad=True)
+    try:
+        out, _ = step(p, v, dt, s, damp)
+        torch.autograd.grad(torch.sum(out[:, :3] ** 2), s, create_graph=True)
+    except RuntimeError as e:
+        return str(e)
+    finally:
+        step.close()
+    return None
