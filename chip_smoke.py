@@ -162,6 +162,18 @@ its result:
      launching the ranged pair kernel; the demo loop on that mesh under
      ring_fused and sym with --render, 5 frames from the first, the last
      frame equal to rendering the gathered state;
+  5c. the cell-list engine (p3m_short_range="xla", plain PyTorch on the
+     card): on shell demo 0 at N=65536, G=64, the auto capacity, its force
+     and the pair kernel's against the exact sym force (median < 0.008,
+     90th percentile < 0.02), the same overflow, two runs and the system's
+     force bit-equal, a force call under sync debug mode "error" with one
+     counted host read and no other; on a one-rank NCCL mesh 2 xla steps
+     (replicated and slab) bit-equal to the single card's; no xla run
+     launches the pair kernel; ms a P3M Euler step, xla against the pair
+     kernel, at 65536
+     (G=64, in turns) and at 2^20 (G=128, the grid nbody_tpu names for the
+     engine; the G=64 intermediates reckoned), with the peak memory and the
+     host reads a step (one, HOST_READS["p3m_xla"]);
   3da. the ds accel-only kernel of the sharded ring step, the fused ds
      step and the ds leapfrog step, split alike (ds_splits), against their
      plain versions at (M, N) in {(4099, 4099), (4099, 16384), (4099,
@@ -278,8 +290,8 @@ its result:
      --benchmark, --integrator leapfrog --qatest, --drift-check 10, and
      --integrator hermite --qatest (N=4096) and --benchmark, --qatest with
      --variant mxu_bf16 --hostmem --kernel p3m (flags the ds modes run
-     without, each named), and --kernel p3m --numbodies 65536 --benchmark
-     -i 3.
+     without, each named), --kernel p3m --numbodies 65536 --benchmark -i 3,
+     and --kernel p3m --p3m-short-range xla --qatest (N=4096).
   8. the demo loop, in this process through the CLI's main(), as a user
      runs it: --config galaxy --numbodies 65536 --frames 30 --render (30
      PNG frames and metadata.json), the same for 600 frames without
@@ -294,6 +306,11 @@ its result:
      65536 and 2^20 bodies, 1024x768, sprites_color, by scatter and by
      conv (splat 16 and 8, the CLI's default), and at 65536 the demo
      frame's parts: a sym step, the frame, the HUD and the PNG write.
+  9. the examples (examples/*_torch.py): each one's card path in a process
+     of its own, all started together (multichip_sim under torchrun
+     --nproc_per_node 1), at the JAX examples' accelerator sizes but the
+     collapsing cluster's (600 steps unattended, 200 manual with the xla
+     engine); each must exit 0.
 Phases 4-5 are the one-sided main path's run, 5s the sym path's, 5h the
 Hermite path's, 5d the ds path's, 5dh the ds Hermite path's, 5m the
 tensor-core path's, 5r the rollout's, 5p the P3M path's, 5q the mesh
@@ -3041,6 +3058,150 @@ def phase_mesh_solvers_main(torch, smi: str) -> None:
         dist.destroy_process_group()
 
 
+# ---- phase 5c: the cell-list engine (short_range="xla") ----
+
+# the engine's float32 intermediates alive at once in a batch, each of
+# about chunk * 27 * capacity elements (p3m._cell_tiles); the 2^20 step is
+# timed at G=128, the grid nbody_tpu/ops/p3m.py:29-31 names for the engine,
+# and reckoned at G=64 (the auto capacity and 5p's contract-keeping 48632)
+XLA_PLANES = 10
+XLA_BIG_GRID = 128
+P3M_KEEP_CAPACITY = 48632
+
+
+def xla_reckoned_bytes(cap: int) -> int:
+    """Bytes of the engine's live intermediates in a batch at capacity
+    `cap`: XLA_PLANES float32 planes of chunk * 27 * cap elements."""
+    from nbody_tpu_torch.ops import p3m
+
+    return XLA_PLANES * 4 * p3m.XLA_CHUNK * 27 * cap
+
+
+def xla_step_record(torch, system, steps: int) -> tuple:
+    """`steps` Euler steps of a P3M system: (ms a step by CUDA events, the
+    peak memory allocated in GiB, the counted p3m_xla host reads a step)."""
+    from nbody_tpu_torch.utils import timing
+
+    system.update_many(1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reads = timing.HOST_READS["p3m_xla"]
+    ms = timed_ms(torch, lambda: system.update_many(1), steps)
+    return (ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+            (timing.HOST_READS["p3m_xla"] - reads) / (steps + 1))
+
+
+def phase_cell_list_main(torch, smi: str) -> None:
+    """5c. The cell-list engine (``p3m_short_range="xla"``), plain PyTorch
+    on the card: see the docstring."""
+    import warnings
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import DEMO_PARAMS, NBodyConfig, ic
+    from nbody_tpu_torch.compute import Compute
+    from nbody_tpu_torch.models import BodySystem
+    from nbody_tpu_torch.ops import cuda_kernel as ck
+    from nbody_tpu_torch.ops import p3m
+    from nbody_tpu_torch.parallel import make_mesh
+    from nbody_tpu_torch.utils import timing
+
+    c = Compute(num_bodies=N_MAIN, device="cuda", kernel="p3m", p3m_short_range="xla",
+                log=lambda s: None)
+    system = c.system
+    check(system.p3m_short_range == "xla", f"the system resolved {system.p3m_short_range!r}")
+    pos, soft, cap = system.state[0], system.params.softening, system.p3m_capacity
+    pairs, ranges = ck.LAUNCHES["p3m_sr"], ck.LAUNCHES["p3m_sr_range"]
+    acc, ovf = p3m.p3m_accel(pos, soft, grid=P3M_GRID, capacity=cap, short_range="xla")
+    again, _ = p3m.p3m_accel(pos, soft, grid=P3M_GRID, capacity=cap, short_range="xla")
+    via_system = system.accelerations()
+    check(ck.LAUNCHES["p3m_sr"] == pairs, "the cell-list engine launched the pair kernel")
+    check(torch.equal(acc, again), "two runs of the cell-list engine differ")
+    check(torch.equal(acc, via_system), "BodySystem's xla force is not the engine's")
+    pair, pair_ovf = p3m.p3m_accel(pos, soft, grid=P3M_GRID, capacity=cap)
+    check(int(ovf) == int(pair_ovf), f"overflow {int(ovf)} against the pair kernel's "
+          f"{int(pair_ovf)}")
+    ref = ck.compute_accel_symmetric_blocked_cuda(pos, soft)
+    for what, a in (("cell-list engine", acc), ("pair kernel", pair)):
+        rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-12)).cpu().numpy()
+        med, p90 = float(np.median(rel)), float(np.percentile(rel, 90))
+        print(f"[5c accuracy] N={N_MAIN}, G={P3M_GRID}, capacity {cap}, overflow {int(ovf)}: "
+              f"the {what}'s P3M force against the exact sym force, relative error median "
+              f"{med:.3e} (bound 0.008), 90th percentile {p90:.3e} (bound 0.02)")
+        check(med < 0.008 and p90 < 0.02, f"the {what}'s force is outside nbody_tpu's envelope")
+    gap = ((acc - pair).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-12)).max().item()
+    print(f"[5c accuracy] the two engines' forces: largest |da| / |a_exact| {gap:.3e} "
+          "(closed form and series against the pair kernel's polynomial)")
+    # a force call makes no host synchronisation but the engine's counted read
+    reads = dict(timing.HOST_READS)
+    with no_host_sync(torch):
+        p3m.p3m_accel(pos, soft, grid=P3M_GRID, capacity=cap, short_range="xla")
+    made = {k: v - reads.get(k, 0) for k, v in timing.HOST_READS.items() if v != reads.get(k, 0)}
+    print(f"[5c reads] an xla force call under sync debug mode \"error\": host reads {made}")
+    check(made == {"p3m_xla": 1}, f"an xla force call read the host {made}")
+
+    # a one-rank NCCL mesh's xla steps equal one card's
+    mesh = make_mesh(1)
+    try:
+        check(dist.get_backend() == "nccl", f"the CUDA mesh runs {dist.get_backend()}")
+        for fft in ("replicated", "slab"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # demo 0 may outgrow the capacity
+                one = BodySystem(N_MAIN, DEMO_PARAMS[0], device="cuda", kernel="p3m",
+                                 p3m_short_range="xla")
+                one.update_many(2)
+                s = BodySystem(N_MAIN, DEMO_PARAMS[0], device="cuda", mesh=mesh, pm_fft=fft,
+                               kernel="p3m", p3m_short_range="xla",
+                               p3m_capacity=one.p3m_capacity)
+                s.update_many(2)
+            bits = all(torch.equal(a, b) for a, b in zip(s.state, one.state))
+            print(f"[5c mesh] xla {fft}, N={N_MAIN}, 2 steps on the one-rank NCCL mesh "
+                  f"bit-equal to the single card: {bits}")
+            check(bits, f"the one-rank mesh's xla {fft} steps differ from the single card's")
+    finally:
+        dist.destroy_process_group()
+    check(ck.LAUNCHES["p3m_sr"] == pairs + 1 and ck.LAUNCHES["p3m_sr_range"] == ranges,
+          "an xla run launched the pair kernel")
+
+    # ms a P3M Euler step, xla against the pair kernel, at 65536 (G=64, in
+    # turns) and 2^20 (G=128, once each)
+    free = torch.cuda.mem_get_info()[0]
+    for n, grid, steps, order in ((N_MAIN, P3M_GRID, 5, ("xla", "pallas", "pallas", "xla")),
+                                  (N_P3M_BIG, XLA_BIG_GRID, 1, ("xla", "pallas"))):
+        params = DEMO_PARAMS[0]  # N > 32768 keeps the preset's scales, as Compute does
+        state = ic.generate(NBodyConfig.SHELL, n, params.cluster_scale, params.velocity_scale,
+                            seed=42)
+        pos = torch.tensor(state[0], device="cuda")
+        if n == N_P3M_BIG:
+            cap64 = auto_capacity(int(p3m.p3m_max_occupancy(pos, grid=P3M_GRID)))
+            for what, c64 in (("the auto capacity", cap64), ("5p's contract-keeping capacity",
+                                                             P3M_KEEP_CAPACITY)):
+                print(f"[5c reckoning] N={n}, G={P3M_GRID}, {what} {c64}: the engine's "
+                      f"intermediates reckon {xla_reckoned_bytes(c64) / 2 ** 30:.1f} GiB a batch "
+                      f"(half the card's free memory {free / 2 ** 31:.1f} GiB): not timed")
+        cap = auto_capacity(int(p3m.p3m_max_occupancy(pos, grid=grid)))
+        need = xla_reckoned_bytes(cap)
+        check(need < free // 2, f"the engine does not fit at N={n}, G={grid}, capacity {cap}")
+        rec = {}
+        for sr in order:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                s = BodySystem(n, DEMO_PARAMS[0], device="cuda", kernel="p3m", pm_grid=grid,
+                               p3m_short_range=sr, p3m_capacity=cap, state=state)
+                rec.setdefault(sr, []).append(xla_step_record(torch, s, steps))
+            del s
+        x, k = rec["xla"], rec["pallas"]
+        print(f"[5c times] P3M Euler step, shell demo 0, N={n}, G={grid}, capacity {cap} "
+              f"(reckoned {need / 2 ** 30:.2f} GiB a batch): xla "
+              + " / ".join(f"{r[0]:.3f}" for r in x) + f" ms (peak {max(r[1] for r in x):.2f} "
+              f"GiB, {x[0][2]:.0f} host read a step), pair kernel "
+              + " / ".join(f"{r[0]:.3f}" for r in k) + f" ms (peak {max(r[1] for r in k):.2f} "
+              f"GiB, {k[0][2]:.0f} p3m_xla reads), {' '.join(order)} [{smi}]")
+        check(all(r[2] == 1 for r in x) and k[0][2] == 0,
+              "the engine's host reads are not one a step")
+
+
 # ---- phase 5a: adaptive and block timesteps ----
 
 N_ADAPT_DS = 16384  # the ds and fp64 adaptive runs (BASELINE.json configs[2]'s N)
@@ -4520,6 +4681,8 @@ def phase_cli() -> None:
             (["--precision", "ds", "--drift-check", "10"], "energy drift over 10 steps"),
             (["--kernel", "p3m", "--numbodies", str(N_MAIN), "--benchmark", "-i", "3"],
              "pairwise-equivalent rate"),
+            (["--kernel", "p3m", "--p3m-short-range", "xla", "--qatest", "--numbodies", "4096"],
+             "short range xla), integrator"),
             (["--fp64", "--qatest", "--numbodies", "4096"], "-> OK"),
             (["--precision", "ds", "--integrator", "hermite", "--qatest", "--numbodies", "4096"],
              "-> OK"),
@@ -4807,6 +4970,68 @@ def main() -> int:
         return run_phases(torch)
 
 
+# ---- phase 9: the examples ----
+
+# examples/<name>_torch.py and its arguments on the card; the sizes are the
+# JAX examples' accelerator sizes but the collapsing cluster's steps (20000
+# would outlast the phase's budget: 2000 took 160 s beside the others)
+EXAMPLE_RUNS = (
+    ("plummer_relaxation", []),
+    ("adaptive_collapse", []),
+    ("collapsing_cluster", ["--steps", "600"]),
+    ("collapsing_cluster", ["--manual", "--short-range", "xla", "--steps", "200"]),
+    ("benchmark_sweep", []),
+    ("galaxy_collision_movie", ["{tmp}/frames"]),
+    ("multichip_sim", []),
+)
+EXAMPLE_TIMEOUT_S = 600
+
+
+def phase_examples(smi: str) -> None:
+    """9. Every example's card path, each in a process of its own, all
+    started together (multichip_sim under torchrun --nproc_per_node 1):
+    each must exit 0. Their times share the card, so none is a measurement."""
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), *filter(None, [env.get("PYTHONPATH")])])
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, (name, args) in enumerate(EXAMPLE_RUNS):
+            script = str(ROOT / "examples" / f"{name}_torch.py")
+            cmd = [sys.executable, script, *(a.format(tmp=tmp) for a in args)]
+            if name == "multichip_sim":
+                cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc_per_node", "1", *cmd[1:]]
+            # files, not pipes: a full pipe would stall a run nobody reads yet
+            logs = tuple(open(pathlib.Path(tmp) / f"{i}.{k}", "w+") for k in ("out", "err"))
+            procs.append((name, args, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=tmp, env=env, stdout=logs[0], stderr=logs[1], text=True), logs))
+        done = {}
+        while len(done) < len(procs) and time.perf_counter() - procs[0][2] < EXAMPLE_TIMEOUT_S:
+            for i, (_, _, _, proc, _) in enumerate(procs):
+                if i not in done and proc.poll() is not None:
+                    done[i] = time.perf_counter()
+            time.sleep(0.2)
+        failed = []
+        for i, (name, args, t0, proc, logs) in enumerate(procs):
+            if i not in done:
+                proc.kill()
+            proc.wait()
+            secs = done.get(i, time.perf_counter()) - t0
+            out, err = (pathlib.Path(f.name).read_text() for f in logs)
+            for f in logs:
+                f.close()
+            for line in out.strip().splitlines()[-4:]:
+                print(f"[9 examples] {name} {' '.join(args)}: {line}")
+            print(f"[9 examples] {name}_torch.py {' '.join(args)}: exit {proc.returncode} after "
+                  f"{secs:.1f} s (run beside the others) [{smi}]")
+            if proc.returncode != 0:
+                print(err[-4000:], file=sys.stderr)
+                failed.append(name)
+    check(not failed, f"examples exited nonzero: {failed}")
+
+
 def run_phases(torch) -> int:
     """Every phase, in order; the kernels line and the card line."""
     import nbody_tpu_torch
@@ -4888,6 +5113,8 @@ def run_phases(torch) -> int:
                                  ("p3m_sr", "p3m_sr_range", "ring_fused", "sym"),
                                  lambda: phase_mesh_solvers_main(torch, smi))
     launches["p3m_sr_range"] = mesh_solver_launches["p3m_sr_range"]
+    # the cell-list engine is plain PyTorch: it launches no kernel of the line
+    timed("5c cell-list engine", phase_cell_list_main, torch, smi)
     for k in MXU_KERNELS:
         launches[k] = mxu_launches[k]
     launches["step_t"] = rollout_launches["step_t"]
@@ -4947,6 +5174,7 @@ def run_phases(torch) -> int:
     timed("6 host", phase_host, torch)
     timed("7 cli", phase_cli)
     timed("8 demo", phase_demo, torch, ck, smi)
+    timed("9 examples", phase_examples, smi)
     bad = sorted(m for m in sys.modules if m in ("jax", "nbody_tpu")
                  or m.startswith(("jax.", "nbody_tpu.")))
     check(not bad, f"modules of JAX or nbody_tpu were imported: {bad}")

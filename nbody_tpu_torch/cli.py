@@ -60,7 +60,8 @@ on the CUDA pair kernel), --pm-assignment cic or tsc, Euler or leapfrog: their
 QA gates positions only and their --drift-check is reported, not gated, as
 in nbody_tpu (their force differs from the all-pairs oracle's by the mesh
 error, by design). --p3m-short-range auto and pallas run the pair kernel;
-xla (nbody_tpu's cell-list engine) exits 2 naming ROADMAP.md Queue 1 #16.
+xla runs nbody_tpu's sorted cell-list engine, in plain PyTorch on the card
+(or the CPU), on one device and on a mesh.
 --p3m-auto-refresh rewinds a run whose cells outgrew the capacity to the
 first breached step and re-sizes the capacity from that state.
 
@@ -198,7 +199,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--p3m-short-range", choices=["auto", "xla", "pallas"], default="auto",
                    help="p3m short-range engine: auto and pallas = the CUDA pair "
                         "kernel (on a mesh each device takes a range of its work); "
-                        "xla is not ported (ROADMAP.md Queue 1 #16)")
+                        "xla = the sorted cell-list engine, plain PyTorch (on a mesh "
+                        "each device takes a round robin of the cells)")
     p.add_argument("--p3m-capacity", type=int, default=None,
                    help="p3m neighbor-cell capacity (bodies per cell); "
                         "default auto-sizes from the initial state's max "
@@ -681,7 +683,8 @@ def _main(argv=None) -> int:
         + (", host memory" if args.hostmem else "")
         + (", double-single (fp64-grade)]" if ds else ", fp64]" if args.fp64 else ", fp32]")
         + (f" force p3m (grid {system.pm_grid}, {system.pm_assignment}, cell capacity "
-           f"{system.p3m_capacity})" if compute.solver == "p3m"
+           f"{system.p3m_capacity}, short range {system.p3m_short_range})"
+           if compute.solver == "p3m"
            else f" force pm (grid {system.pm_grid}, {system.pm_assignment})"
            if compute.solver == "pm" else f" force {system.variant}")
         + f", integrator {system.integrator}")

@@ -74,8 +74,10 @@ implementation, so the algorithm has its own keyword):
     leapfrog; the variant is ignored, as in the JAX package. The short
     range runs the pair kernel (``csrc/p3m_kernels.cu``) with backend
     "cuda", its plain version with "torch"; ``p3m_short_range`` "auto" and
-    "pallas" both name it ("xla", the JAX package's cell-list engine, is
-    refused naming ROADMAP.md Queue 1 #16). ``p3m_capacity`` is the cell
+    "pallas" both name it, and resolve to "pallas" (the JAX package's
+    "auto" is its cell-list engine off a TPU); "xla" runs that engine
+    (``p3m.cell_list_short_range``, plain PyTorch) whatever the backend, on
+    one device and on a mesh. ``p3m_capacity`` is the cell
     capacity: None auto-sizes it from the first state (max occupancy +
     50 %, a multiple of 8), and every state set raises when a cell
     overflows it. Each step of ``update_many`` probes the contract on the
@@ -161,13 +163,6 @@ from nbody_tpu_torch.params import NBodyParams
 from nbody_tpu_torch.utils import timing
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
-# Options of nbody_tpu that later slices of the port bring, and the
-# ROADMAP.md item that brings each.
-LATER_SLICES = {
-    "pm": "Queue 1 #16 (the rest of #10: the XLA cell-list engine, --p3m-short-range xla)",
-}
-
-
 # What variant="auto" runs on a CUDA device, for every integrator, where the
 # tuner's cache has no entry for the card and N: the variant measured
 # faster at N=65536 on an NVIDIA H100 80GB HBM3, 700 W power limit
@@ -178,17 +173,6 @@ LATER_SLICES = {
 # the sym accel + jerk 4.208 ms against the one-sided 6.178 ms per
 # evaluation (scripts/torch_aj_dispatch.py), 1.39x at N=135168 and 262144.
 AUTO_VARIANT_CUDA = "sym"
-
-
-def not_ported(option: str, value, *, key: Optional[str] = None) -> ValueError:
-    """The error for an nbody_tpu option that a later slice of the port
-    brings; `key` names its LATER_SLICES entry when neither the value nor
-    the option does."""
-    if key is None:
-        key = value if isinstance(value, str) and value in LATER_SLICES else option
-    return ValueError(
-        f"{option}={value!r} is not ported to nbody_tpu_torch yet; "
-        f"ROADMAP.md {LATER_SLICES[key]} brings it")
 
 
 def resolve_device(device) -> torch.device:
@@ -415,7 +399,9 @@ class BodySystem:
         self.pm_assignment = pm_assignment
         self.pm_fft = pm_fft
         self.p3m_capacity = None if p3m_capacity is None else int(p3m_capacity)
-        self.p3m_short_range = p3m_short_range
+        # "auto" is the pair kernel on every device, where nbody_tpu's is its
+        # cell-list engine off a TPU (ROADMAP.md, deviations)
+        self.p3m_short_range = "pallas" if p3m_short_range == "auto" else p3m_short_range
         self.p3m_auto_refresh = bool(p3m_auto_refresh)
         # the auto-refresh's rewinds: (step of the call, capacity before, after)
         self.p3m_refreshes = []
@@ -519,7 +505,8 @@ class BodySystem:
                 self._sharded = make_sharded_p3m_step(
                     self.mesh, grid=self.pm_grid, capacity=self.p3m_capacity,
                     axis=self.mesh.axis, integrator=self.integrator,
-                    assignment=self.pm_assignment, fft=self.pm_fft, backend=self.backend)
+                    assignment=self.pm_assignment, fft=self.pm_fft, backend=self.backend,
+                    short_range=self.p3m_short_range)
         return self._sharded
 
     def set_positions(self, pos) -> None:
@@ -606,7 +593,8 @@ class BodySystem:
         if self.kernel == "p3m":
             return p3m_accel(pos.to(torch.float32), soft, grid=self.pm_grid,
                              capacity=self.p3m_capacity, backend=self.backend,
-                             assignment=self.pm_assignment)[0].to(pos.dtype)
+                             assignment=self.pm_assignment,
+                             short_range=self.p3m_short_range)[0].to(pos.dtype)
         if self.variant == "sym":
             if self.backend == "cuda":
                 return compute_accel_symmetric_blocked_cuda(pos, soft, tile=self.tile)

@@ -15,7 +15,10 @@ short-range correction summed over neighbours only:
                r_cut = RCUT_SIGMAS sigma. On a CUDA tensor it runs the
                hand-written pair kernel ``csrc/p3m_kernels.cu`` over the
                tables built here (``pair_tables``); on the CPU its plain
-               version, ``reference.p3m_short_range``.
+               version, ``reference.p3m_short_range``. ``short_range="xla"``
+               runs the reference's sorted cell-list engine instead
+               (``cell_list_short_range``, below), with s_lr in its closed
+               form and Taylor series (``_s_lr``).
 
 The capacity contract is the reference's: bodies sort stably into
 rcut-sized cells by (cell, massless last); a cell keeps its first
@@ -32,8 +35,18 @@ i-cluster's j-clusters (those of its 27 neighbour cells) into work items of
 bounded length; the kernel skips a j-cluster or j-row only where every pair
 it would sum has r^2 >= rcut^2, so every pair of kept bodies within rcut is
 summed whatever the state: the contract of the reference's own off-TPU
-engine (``p3m_short_range="xla"``), which has no budget either. There is
-no ``p3m_pair_count`` and no budget breach; the only contract is capacity.
+engine (``short_range="xla"``), which has no budget either. There is no
+``p3m_pair_count`` and no budget breach; the only contract is capacity.
+
+The cell-list engine (``short_range="xla"``, ``nbody_tpu/ops/p3m.py:
+153-348``) is XLA in the reference, not Pallas, so its port is plain
+PyTorch on any device: the bodies sort into rcut-cells (massive first), a
+worklist of i-subtiles of at most 128 rows a cell is classed by the largest
+of its 27 neighbour occupancies (powers of two up to the capacity), and
+each class runs in batches of dense (rows, 27 * class) tiles. The class
+bounds are read on the host once a force call (``HOST_READS["p3m_xla"]``),
+and each live sorted row is written by the one entry that holds it, so the
+force has the same bits on every run.
 
 On a mesh (``make_sharded_p3m_step``, the reference's ``short_range=
 "pallas"`` decomposition) the long range is the sharded PM's (replicated or
@@ -44,10 +57,10 @@ i-clusters, cut at cluster boundaries so that the ranks' work items balance
 (``item_range``), and ``parallel.sharded.ring_reduce_scatter`` brings the
 rows to their owners. A padded row's items all run on one rank and are
 totalled in item order, so every rank's rows equal the one-device launch's
-bit for bit.
-
-Not ported yet (ROADMAP.md Queue 1 #16): the XLA cell-list engine
-(``p3m_short_range="xla"``).
+bit for bit. With ``short_range="xla"`` every rank builds the cell tables of
+the whole state and runs the cells d, d + D, d + 2D, ... (the reference's
+round robin); its partial, unsorted to body order, reaches the owners by
+the same reduce-scatter.
 """
 
 from __future__ import annotations
@@ -257,6 +270,22 @@ def _sub_cell_key(pos3, lo, rcut, gc: int):
     return (sub[:, 0] << 2) | (sub[:, 1] << 1) | sub[:, 2]
 
 
+def _cell_order(cell, massive, ncell: int, cap: int):
+    """The reference's stable sort of the bodies by (cell, massless last)
+    (``nbody_tpu/ops/p3m.py:179-188``): (order, sorted_cell, starts,
+    counts, kept, overflow). ``kept`` (in the sorted frame) marks the first
+    `cap` bodies of each cell; ``overflow`` (0-d) counts the MASSIVE bodies
+    beyond them. Integers are int64, on the device, with no host
+    synchronisation."""
+    dev = cell.device
+    order = torch.argsort(cell * 2 + (~massive).to(torch.int64), stable=True)
+    sorted_cell = cell[order]
+    bounds = torch.searchsorted(sorted_cell, torch.arange(ncell + 1, device=dev))
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    kept = torch.arange(cell.shape[0], device=dev) - starts[sorted_cell] < cap
+    return order, sorted_cell, starts, counts, kept, (~kept & massive[order]).sum()
+
+
 def pair_tables(pos, softening, *, grid: int, capacity: int, blk: int) -> PairTables:
     """Bin, sort and lay out the state for the short-range pair kernel and
     cut its work into items, in torch ops on pos's device with no host
@@ -265,17 +294,10 @@ def pair_tables(pos, softening, *, grid: int, capacity: int, blk: int) -> PairTa
     bodies; the kept ones are then ordered inside their cell by sub-cell."""
     n = pos.shape[0]
     dev = pos.device
-    i64, i32 = torch.int64, torch.int32
+    i32 = torch.int32
     pos3, mass, lo, h, rcut, gc, cell = _cells(pos, grid)
     ncell = gc ** 3
-    massive = mass > 0
-
-    order = torch.argsort(cell * 2 + (~massive).to(i64), stable=True)
-    sorted_cell = cell[order]
-    bounds = torch.searchsorted(sorted_cell, torch.arange(ncell + 1, device=dev))
-    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
-    kept = torch.arange(n, device=dev) - starts[sorted_cell] < capacity
-    overflow = (~kept & massive[order]).sum()
+    order, sorted_cell, _, counts, kept, overflow = _cell_order(cell, mass > 0, ncell, capacity)
     # the kept bodies by (cell, sub-cell), stably; the dropped ones last
     sub = _sub_cell_key(pos3[order], lo, rcut, gc)
     key = torch.where(kept, (sorted_cell << (3 * SUB_BITS)) | sub, ncell << (3 * SUB_BITS))
@@ -435,32 +457,232 @@ def p3m_long_range(pos, *, grid: int = 64, assignment: str = "cic",
 
 
 def check_short_range(short_range: str) -> str:
-    """"auto" and "pallas" (the reference's names) both run the pair kernel
-    (its plain version on the CPU); "xla", the reference's cell-list
-    engine, is refused naming the ROADMAP.md item that brings it."""
-    if short_range == "xla":
-        from nbody_tpu_torch.models.body_system import not_ported
-
-        raise not_ported("p3m_short_range", short_range, key="pm")
-    if short_range not in ("auto", "pallas"):
+    """"auto" and "pallas" (the reference's names) run the pair kernel (its
+    plain version on the CPU); "xla" the reference's cell-list engine."""
+    if short_range not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown short_range {short_range!r}")
     return short_range
+
+
+# ---- the cell-list engine (short_range="xla"), plain PyTorch ----
+
+# i-rows of a worklist entry, and the smallest j-capacity class
+# (nbody_tpu/ops/p3m.py:205, 264)
+XLA_I_TILE = 128
+XLA_MIN_CLASS = 128
+# the reference's batching bound: a class's batch holds about
+# chunk * 27 * capacity pair elements in each float32 intermediate
+XLA_CHUNK = 2048
+
+
+def _s_lr(r2, sigma):
+    """The long-range force shape s_lr(r), F_lr = m * s_lr * r_vec, in
+    float32 as ``nbody_tpu/ops/p3m.py::_s_lr`` computes it: the closed form
+    [erf(u) - (2/sqrt(pi)) u exp(-u^2)] / r^3, u = r / (sqrt2 sigma), and
+    below u^2 = 0.0625, where the closed form cancels, its Taylor series
+    (2/sqrt(pi)) / (sqrt2 sigma)^3 (2/3 - 2u^2/5 + u^4/7); the same clamps
+    (1e-30). Not the pair kernel's polynomial ``_SLR_POLY``. Written with
+    in-place operations on the (rows, columns) planes, each in the
+    reference's order, to hold few of them at once."""
+    c = 2.0 / math.sqrt(math.pi)
+    sq2s = sigma * math.sqrt(2.0)
+    s2 = sq2s * sq2s
+    u2 = r2 / s2
+    u = u2.clamp(min=1e-30).sqrt_()
+    closed = torch.erf(u)
+    closed.sub_(u.mul_(c).mul_(torch.exp(-u2)))
+    del u
+    closed.div_(r2.clamp(min=1e-30).sqrt_().mul_(r2).clamp_(min=1e-30))
+    series = (u2 * (2.0 / 5.0)).neg_().add_(2.0 / 3.0)
+    series.add_((u2 * (1.0 / 7.0)).mul_(u2)).mul_(c / (s2 * sq2s))
+    return torch.where(u2 < 0.0625, series, closed)
+
+
+def _sorted_cell_tables(pos3, mass, lo, rcut, gc: int, cap: int):
+    """Sort the bodies into rcut-cells and build the contiguous range tables
+    of the cell-list pass (``nbody_tpu/ops/p3m.py::_sorted_cell_tables``):
+    (order, sorted_pos4, starts, counts, n_starts, n_counts, overflow).
+    The sort is stable by cell * 2 + massless, so a cell's massive bodies
+    come first and its zero-mass padding fills the capacity slots last;
+    ``sorted_pos4`` is (N + cap, 4) with cap inert rows (1e30, 1e30, 1e30,
+    0) at the end, so a (start, cap) range stays in bounds; ``n_starts`` /
+    ``n_counts`` (ncell, 27) hold each neighbour cell's range in stencil
+    order, start N and count 0 outside the lattice; ``overflow`` (0-d)
+    counts the MASSIVE bodies beyond their cell's cap slots. Integers are
+    int64, on pos3's device, with no host synchronisation."""
+    n = pos3.shape[0]
+    order, _, starts, counts, _, overflow = _cell_order(
+        _bin_cells(pos3, lo, rcut, gc), mass > 0, gc ** 3, cap)
+    pad = pos3.new_zeros((cap, 4))
+    pad[:, :3].fill_(1e30)
+    sorted_pos4 = torch.cat([torch.cat([pos3[order], mass[order][:, None]], dim=1), pad])
+    nid, nvalid = _neighbor_stencil(gc, pos3.device)
+    n_starts = torch.where(nvalid, starts[nid], n)
+    n_counts = torch.where(nvalid, counts[nid], 0)
+    return order, sorted_pos4, starts, counts, n_starts, n_counts, overflow
+
+
+def _xla_classes(cap: int) -> list:
+    """The j-capacity classes: powers of two from min(128, cap) below cap,
+    then cap itself."""
+    classes, jc = [], min(XLA_MIN_CLASS, cap)
+    while jc < cap:
+        classes.append(jc)
+        jc *= 2
+    return classes + [cap]
+
+
+def _cell_tiles(sorted_pos4, bs, bc, bnst, bnct, *, jcap: int, cap_s: int, eps2: float,
+                sigma, rcut2):
+    """The short-range force of a batch of worklist entries, (b, cap_s, 3):
+    entry e's rows bs[e] .. bs[e] + cap_s (the first bc[e] live) against the
+    first min(bnct[e, k], jcap) rows from bnst[e, k] of its 27 neighbour
+    cells, as the reference's ``one_tile`` (nbody_tpu/ops/p3m.py:283-304):
+    s = rsqrt(r^2 + eps^2)^3 - s_lr(r^2) where r^2 < rcut^2 (a select: far
+    and padding pairs give 0, whatever s_lr is there), each column's mass
+    masked past its cell's count, summed over the 27 * jcap columns."""
+    dev = sorted_pos4.device
+    b = bs.shape[0]
+    lane_i = torch.arange(cap_s, device=dev)
+    lane_j = torch.arange(jcap, device=dev)
+    rows = sorted_pos4[bs[:, None] + lane_i]                       # (b, cap_s, 4)
+    cols = sorted_pos4[bnst[:, :, None] + lane_j]                  # (b, 27, jcap, 4)
+    mj = torch.where(lane_j < bnct.clamp(max=jcap)[:, :, None], cols[..., 3], 0.0)
+    mj = mj.reshape(b, 1, 27 * jcap)
+    pj = cols[..., :3].reshape(b, 1, 27 * jcap, 3)
+    del cols
+    d = [pj[..., k] - rows[:, :, None, k] for k in range(3)]     # (b, cap_s, 27 jcap)
+    r2 = d[0] * d[0]
+    r2.add_(d[1] * d[1]).add_(d[2] * d[2])
+    s = torch.rsqrt(r2 + eps2)
+    s = (s * s).mul_(s)
+    s = torch.where(r2 < rcut2, s.sub_(_s_lr(r2, sigma)), 0.0)
+    del r2
+    s.mul_(mj)
+    acc = torch.stack([(s * dk).sum(dim=-1) for dk in d], dim=-1)
+    ivalid = lane_i < bc.clamp(max=cap_s)[:, None]
+    return torch.where(ivalid[..., None], acc, 0.0)
+
+
+def _short_range_cells(sorted_pos4, starts, counts, n_starts, n_counts, *, eps2: float,
+                       sigma, rcut, cap: int, chunk: int, n: int, i_tile: int = XLA_I_TILE):
+    """The cell-list pass over the given per-cell range tables
+    (``nbody_tpu/ops/p3m.py::_short_range_cells``): (n, 3) forces in the
+    SORTED frame, rows of cells outside the tables zero. The tables may
+    cover any number of cells (all of them, or a rank's round robin, padded
+    cells inert: start n, count 0).
+
+    The worklist has one entry for each i-subtile of at most cap_s =
+    min(i_tile, cap) of a cell's first min(count, cap) rows, static length
+    L = ncl + ceil(n / cap_s) with the live entries first. Each entry is
+    classed by the largest of its 27 neighbour occupancies (``_xla_classes``);
+    the entries sort stably by class, and a class of width jcap runs in
+    batches of b = max(1, min(L, chunk * cap // (cap_s * jcap))) entries
+    (``_cell_tiles``). The reference's ``fori_loop`` runs a data-dependent
+    number of batches a class; here the len(classes) + 1 class bounds are
+    read on the host once a call (``timing.host_read(..., "p3m_xla")``, the
+    call's one synchronisation), and a class's last batch holds only its
+    remaining entries. Each live sorted row belongs to exactly one entry,
+    so the batches write rows (``index_copy_``), never sum them: a lane past
+    its entry's rows writes a scratch row of its own past row n, which is
+    cut off. So a call's bits do not depend on the order of the writes."""
+    from nbody_tpu_torch.utils import timing
+
+    dev = sorted_pos4.device
+    cap_s = min(i_tile, cap)
+    ncl = starts.shape[0]
+    rows_c = counts.clamp(max=cap)
+    t_c = (rows_c + cap_s - 1) // cap_s                     # subtiles a cell
+    big_l = ncl + -(-n // cap_s)                            # static bound on sum(t_c)
+    cum = torch.cumsum(t_c, 0)                              # inclusive
+    slot = torch.arange(big_l, device=dev)
+    cell = torch.searchsorted(cum, slot, right=True).clamp(0, ncl - 1)
+    t_within = slot - (cum[cell] - t_c[cell])
+    live = slot < cum[-1]
+    e_start = torch.where(live, starts[cell] + t_within * cap_s, n)
+    e_count = torch.where(live, rows_c[cell] - t_within * cap_s, 0)
+    e_nst = torch.where(live[:, None], n_starts[cell], n)
+    e_nct = torch.where(live[:, None], n_counts[cell], 0)
+
+    classes = _xla_classes(cap)
+    jmax = e_nct.clamp(max=cap).amax(dim=1)
+    # searchsorted(classes, jmax, side="left"): the classes below jmax
+    ecls = sum((jmax > jc).to(torch.int64) for jc in classes)
+    ecls = torch.where(live, ecls, len(classes))            # inert entries last
+    eorder = torch.argsort(ecls, stable=True)
+    e_start, e_count = e_start[eorder], e_count[eorder]
+    e_nst, e_nct = e_nst[eorder], e_nct[eorder]
+    bounds = torch.searchsorted(ecls[eorder], torch.arange(len(classes) + 1, device=dev))
+    bounds = timing.host_read(bounds, "p3m_xla")
+
+    b_of = {jc: max(1, min(big_l, (chunk * cap) // (cap_s * jc))) for jc in classes}
+    lane_i = torch.arange(cap_s, device=dev)
+    scratch = n + lane_i                                    # + an entry's cap_s * index
+    buf = torch.zeros((n + max(b_of.values()) * cap_s, 3), dtype=torch.float32, device=dev)
+    for k, jcap in enumerate(classes):
+        b = b_of[jcap]
+        for o in range(bounds[k], bounds[k + 1], b):
+            sl = slice(o, min(o + b, bounds[k + 1]))
+            bs, bc = e_start[sl], e_count[sl]
+            acc = _cell_tiles(sorted_pos4, bs, bc, e_nst[sl], e_nct[sl], jcap=jcap,
+                              cap_s=cap_s, eps2=eps2, sigma=sigma, rcut2=rcut * rcut)
+            within = lane_i < bc.clamp(max=cap_s)[:, None]
+            dest = torch.where(within, bs[:, None] + lane_i,
+                               scratch + cap_s * torch.arange(bs.shape[0], device=dev)[:, None])
+            buf.index_copy_(0, dest.reshape(-1), acc.reshape(-1, 3))
+    return buf[:n]
+
+
+def cell_list_short_range(pos, softening, *, grid: int = 64, capacity: int = 128,
+                          chunk: int = XLA_CHUNK, rank: int = 0, ndev: int = 1):
+    """The short-range force (N, 3) of the (N, 4) state by the cell-list
+    engine, in body order, and the overflow (a 0-d tensor): the reference's
+    ``short_range="xla"`` (nbody_tpu/ops/p3m.py:424-432), plain PyTorch on
+    pos's device, one counted host read a call. With ``ndev`` > 1 only the
+    cells rank, rank + ndev, rank + 2 ndev, ... of the gc^3 lattice padded to
+    a multiple of ndev (``_p3m_accel_local_factory``'s round robin): the
+    bodies of other ranks' cells get 0, and the ranks' results sum to the
+    whole force, each row from one rank."""
+    if not 0 <= rank < ndev:
+        raise ValueError(f"rank {rank} is not one of {ndev}")
+    pos3, mass, lo, h, rcut, gc, _ = _cells(pos, grid)
+    n = pos3.shape[0]
+    order, sorted_pos4, starts, counts, n_starts, n_counts, overflow = _sorted_cell_tables(
+        pos3, mass, lo, rcut, gc, int(capacity))
+    if ndev > 1:
+        ncell = gc ** 3
+        ncell_loc = -(-ncell // ndev)
+        cell_ids = rank + ndev * torch.arange(ncell_loc, device=pos3.device)
+        pad = ncell_loc * ndev - ncell
+
+        def mine(x, fill):
+            return torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)])[cell_ids]
+
+        starts, counts = mine(starts, n), mine(counts, 0)
+        n_starts, n_counts = mine(n_starts, n), mine(n_counts, 0)
+    acc_sorted = _short_range_cells(
+        sorted_pos4, starts, counts, n_starts, n_counts, eps2=soft2_f32(softening),
+        sigma=SIGMA_CELLS * h, rcut=rcut, cap=int(capacity), chunk=int(chunk), n=n)
+    return torch.empty_like(acc_sorted).index_copy_(0, order, acc_sorted), overflow
 
 
 def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
               blk: int | None = None, backend: str = "auto",
               assignment: str = "cic", influence: str = "optimal",
-              short_range: str = "auto"):
+              short_range: str = "auto", chunk: int = XLA_CHUNK):
     """(N, 4) [x,y,z,m] -> ((N, 3) accelerations, overflow count, a 0-d
     tensor on pos's device).
 
     Equals the softened all-pairs Plummer force up to the mesh error of the
     smooth field (sub-percent). A nonzero overflow means some short-range
-    pairs were dropped. ``backend="cuda"`` runs the short range on the pair
-    kernel (``cuda_kernel.p3m_short_range_cuda``; the plain version for a
-    CPU tensor), ``"torch"`` on the plain version on any device, ``"auto"``
-    the kernel on a CUDA tensor. ``blk`` defaults to
-    ``p3m_kernel_blk(capacity)``."""
+    pairs were dropped. ``short_range`` "auto" or "pallas" runs the pair
+    kernel, as ``backend`` says: ``"cuda"`` the kernel
+    (``cuda_kernel.p3m_short_range_cuda``; the plain version for a CPU
+    tensor), ``"torch"`` the plain version on any device, ``"auto"`` the
+    kernel on a CUDA tensor; ``blk`` defaults to
+    ``p3m_kernel_blk(capacity)``. ``short_range="xla"`` runs the cell-list
+    engine (``cell_list_short_range``, batched by ``chunk``) on any device,
+    whatever the backend."""
     if pos.shape[-1] != 4:
         raise ValueError("p3m_accel expects (N, 4) [x,y,z,m]")
     check_assignment(assignment)
@@ -471,7 +693,10 @@ def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     acc_lr = p3m_long_range(pos, grid=grid, assignment=assignment, influence=influence)
-    if backend == "cuda":
+    if short_range == "xla":
+        acc_sr, overflow = cell_list_short_range(pos, softening, grid=grid, capacity=capacity,
+                                                 chunk=chunk)
+    elif backend == "cuda":
         acc_sr, overflow = cuda_kernel.p3m_short_range_cuda(
             pos, softening, grid=grid, capacity=capacity, blk=blk)
     else:
@@ -483,12 +708,12 @@ def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
 def nbody_step_p3m(pos, vel, dt, softening, damping, *, grid: int = 64,
                    capacity: int = 128, blk: int | None = None, backend: str = "auto",
                    assignment: str = "cic", influence: str = "optimal",
-                   short_range: str = "auto"):
+                   short_range: str = "auto", chunk: int = XLA_CHUNK):
     """P3M step with the reference's damped semi-implicit Euler update;
     returns (pos, vel, overflow)."""
     a, overflow = p3m_accel(pos, softening, grid=grid, capacity=capacity, blk=blk,
                             backend=backend, assignment=assignment, influence=influence,
-                            short_range=short_range)
+                            short_range=short_range, chunk=chunk)
     new_pos, new_vel = reference.integrate(pos, vel, a.to(pos.dtype), dt, damping)
     return new_pos, new_vel, overflow
 
@@ -545,23 +770,28 @@ def short_range_part(pos, softening, *, grid: int, capacity: int, rank: int, nde
 def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,
                            axis: str = "bodies", assignment: str = "cic",
                            fft: str = "replicated", influence: str = "optimal",
-                           blk: int | None = None, backend: str = "auto"):
+                           blk: int | None = None, backend: str = "auto",
+                           short_range: str = "auto", chunk: int = XLA_CHUNK):
     """The sharded P3M force: accel(pos_sh, softening) -> (nloc, 3) of this
     rank's shard, the decomposition of ``_p3m_accel_local_factory``
-    (nbody_tpu/ops/p3m.py:460-545) with its ``short_range="pallas"`` path:
+    (nbody_tpu/ops/p3m.py:460-586):
 
     * long range: ``pm.long_range`` with the smoothed kernel, the
       influence's correction and the assignment's window (replicated: the
       shard's force; slab: every body's partial);
-    * short range: the positions all-gathered, ``pair_tables`` of the whole
-      state on every rank, the pair kernel over this rank's range of
-      i-clusters (``short_range_part``);
+    * short range, the positions all-gathered: ``short_range`` "auto" or
+      "pallas" (the reference's "pallas" path), ``pair_tables`` of the whole
+      state on every rank and the pair kernel over this rank's range of
+      i-clusters (``short_range_part``); "xla", the cell tables of the whole
+      state on every rank and the cell-list engine over this rank's round
+      robin of cells (``cell_list_short_range``), unsorted to body order;
     * the partials reach their owners by one ``ring_reduce_scatter``: the
       short range's (replicated; its long range is the shard's already),
       or the sum of both (slab), as the reference's psums do.
 
     backend: "cuda" or "auto" (the pair kernel on a CUDA mesh, its plain
-    version on a CPU one), "torch" (the plain version)."""
+    version on a CPU one), "torch" (the plain version); the engine is plain
+    PyTorch whatever the backend."""
     from nbody_tpu_torch.parallel.mesh import all_gather_rows
     from nbody_tpu_torch.parallel.sharded import ring_reduce_scatter
 
@@ -569,6 +799,7 @@ def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
     check_assignment(assignment)
     check_influence(influence)
+    check_short_range(short_range)
     check_slab(fft, grid, mesh.size)
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -578,9 +809,14 @@ def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,
         pos_all = all_gather_rows(mesh, pos_sh)
         lr = long_range(pos_sh, grid=grid, assignment=assignment, sigma_cells=SIGMA_CELLS,
                         deconvolve=deconvolve, mesh=mesh, fft=fft, pos_all=pos_all)
-        sr, _ = short_range_part(pos_all.to(torch.float32), softening, grid=grid,
-                                 capacity=capacity, rank=mesh.rank, ndev=mesh.size, blk=blk,
-                                 backend=backend)
+        if short_range == "xla":
+            sr, _ = cell_list_short_range(pos_all.to(torch.float32), softening, grid=grid,
+                                          capacity=capacity, chunk=chunk, rank=mesh.rank,
+                                          ndev=mesh.size)
+        else:
+            sr, _ = short_range_part(pos_all.to(torch.float32), softening, grid=grid,
+                                     capacity=capacity, rank=mesh.rank, ndev=mesh.size,
+                                     blk=blk, backend=backend)
         if fft == "slab":
             (acc,) = ring_reduce_scatter(mesh, (lr + sr,), reference.add_fields)
             return acc
@@ -593,9 +829,10 @@ def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,
 def make_sharded_p3m_step(mesh, *, grid: int = 64, capacity: int = 128, axis: str = "bodies",
                           integrator: str = "euler", assignment: str = "cic",
                           fft: str = "replicated", influence: str = "optimal",
-                          blk: int | None = None, backend: str = "auto") -> ShardedMeshStep:
+                          blk: int | None = None, backend: str = "auto",
+                          short_range: str = "auto", chunk: int = XLA_CHUNK) -> ShardedMeshStep:
     """Body-sharded P3M step over a 1-D mesh (``nbody_tpu/ops/p3m.py:
-    608-718``): (pos, vel, dt, softening, damping) -> (pos, vel) of this
+    625-718``): (pos, vel, dt, softening, damping) -> (pos, vel) of this
     rank's shard, Euler or leapfrog, the force of
     ``make_sharded_p3m_accel``. The overflow is not returned: callers check
     the capacity against their states (``BodySystem`` does, at every state
@@ -604,4 +841,5 @@ def make_sharded_p3m_step(mesh, *, grid: int = 64, capacity: int = 128, axis: st
         raise ValueError(f"unknown integrator {integrator!r}")
     return ShardedMeshStep(mesh, make_sharded_p3m_accel(
         mesh, grid=grid, capacity=capacity, axis=axis, assignment=assignment, fft=fft,
-        influence=influence, blk=blk, backend=backend), integrator)
+        influence=influence, blk=blk, backend=backend, short_range=short_range,
+        chunk=chunk), integrator)

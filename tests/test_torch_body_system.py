@@ -4,7 +4,6 @@ The port keeps its own copies of the numpy modules, so each package gets
 its own NBodyParams and NBodyConfig; the two are compared by value."""
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -185,28 +184,61 @@ def test_cpu_backend_launches_no_kernel(params, state):
     assert cuda_kernel.LAUNCHES == before
 
 
-# A mesh is ported (tests/test_torch_sharded*.py), its 2-D form and float64
-# too (#13); plain PM, the P3M options, P3M in float64 and the sharded PM and
-# P3M steps too (#16, tests/test_torch_pm.py, tests/test_torch_p3m_sharded.py).
-# What is left of #16 (the rest of #10) is the XLA cell-list engine: every
-# case asks for it now, beside what the case asked before, and keeps its id.
-@pytest.mark.parametrize("kw, item", [
-    pytest.param({"mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
-                                                device=torch.device("cpu")),
-                  "kernel": "p3m", "p3m_short_range": "xla"}, "#16", id="kw0-#13"),
-    pytest.param({"kernel": "pm", "p3m_short_range": "xla"}, "#10", id="kw1-#10"),
-    pytest.param({"kernel": "p3m", "p3m_short_range": "xla"}, "#10", id="kw2-#10"),
-    pytest.param({"dtype": torch.float64, "kernel": "p3m", "p3m_short_range": "xla"}, "#16",
+def _group_less_mesh():
+    """A 2-rank mesh record with no process group: enough for what a system
+    does before its first collective."""
+    from nbody_tpu_torch.parallel import Mesh
+
+    return Mesh(axis="bodies", size=2, rank=0, group=None, device=torch.device("cpu"))
+
+
+# These cases asked for what later slices of the port brought: a mesh and
+# its float64 form (#13), plain PM and P3M in float64 (#10, #16), and last
+# the XLA cell-list engine (#16), which every case asks for. Each now runs
+# as nbody_tpu's BodySystem does, and keeps its id.
+@pytest.mark.parametrize("kw", [
+    pytest.param({"mesh": "2 ranks", "kernel": "p3m", "p3m_short_range": "xla"}, id="kw0-#13"),
+    pytest.param({"kernel": "pm", "p3m_short_range": "xla"}, id="kw1-#10"),
+    pytest.param({"kernel": "p3m", "p3m_short_range": "xla"}, id="kw2-#10"),
+    pytest.param({"dtype": torch.float64, "kernel": "p3m", "p3m_short_range": "xla"},
                  id="kw3-#16"),
     pytest.param({"dtype": torch.float64, "kernel": "p3m", "p3m_short_range": "xla",
-                  "mesh": types.SimpleNamespace(axis_names=("bodies",), size=2,
-                                                device=torch.device("cpu"))},
-                 "#16", id="kw4-#13"),
+                  "mesh": "2 ranks"}, id="kw4-#13"),
 ])
-def test_later_slices_raise_naming_roadmap_item(params, kw, item):
-    with pytest.raises(ValueError, match="ROADMAP.md") as e:
-        BodySystem(64, params, device="cpu", **kw)
-    assert item in str(e.value)
+def test_later_slices_raise_naming_roadmap_item(params, kw):
+    """Once refused naming the ROADMAP.md item that would bring it, each
+    configuration now builds. On one device two steps match nbody_tpu's
+    BodySystem (positions 1e-5, velocities rtol / atol 1e-5, as above;
+    float64 with JAX's x64 on). On a mesh (a record without a process
+    group) the system resolves the engine and builds its sharded step; the
+    steps on gloo ranks are in tests/test_torch_p3m_sharded.py."""
+    import jax
+    import jax.numpy as jnp
+
+    kw = dict(kw)
+    if "mesh" in kw:
+        kw["mesh"] = _group_less_mesh()
+    s = BodySystem(64, params, device="cpu", **kw)
+    assert s.p3m_short_range == "xla" and s.kernel == kw["kernel"]
+    if "mesh" in kw:
+        step = s._mesh_solver_step()
+        assert step.integrator == "euler" and s.p3m_capacity >= 8
+        return
+    fp64 = kw.get("dtype") == torch.float64
+    pos, vel = s.positions, s.velocities
+    jax.config.update("jax_enable_x64", fp64)
+    try:
+        ref = JaxBodySystem(64, _jax(params), backend=kw["kernel"], p3m_short_range="xla",
+                            dtype=jnp.float64 if fp64 else jnp.float32, state=(pos, vel))
+        assert ref.p3m_short_range == "xla" and ref.p3m_capacity == s.p3m_capacity
+        s.update_many(2)
+        ref.update_many(2)
+        ref_pos, ref_vel = np.asarray(ref.positions), np.asarray(ref.velocities)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert s.positions.dtype == ref_pos.dtype
+    np.testing.assert_allclose(s.positions, ref_pos, atol=1e-5)
+    np.testing.assert_allclose(s.velocities, ref_vel, rtol=1e-5, atol=1e-5)
 
 
 def test_p3m_kernel_is_ported(params):

@@ -205,8 +205,11 @@ def test_refusals_in_float64(x64):
     """sym raises in both packages (Pallas-only there, float32-only here),
     and so do the ring_fused and sym strategies on a mesh (a float64 mesh
     runs allgather, ring, auto and the 2-D step, tests/test_torch_sharded_2d.py);
-    kernel="p3m" runs in float64 (tests/test_torch_pm.py), and what is still
-    refused is its XLA cell-list engine, naming its ROADMAP.md item."""
+    kernel="p3m" runs in float64 (tests/test_torch_pm.py), and so does its
+    XLA cell-list engine, refused until it was ported: a step matches
+    nbody_tpu's float64 system (the float32 mesh force under a float64
+    update, rtol / atol 1e-5), and Compute runs the exact double force, as
+    nbody_tpu's fp64 does."""
     import jax.numpy as jnp
 
     params = _params(256)
@@ -220,12 +223,19 @@ def test_refusals_in_float64(x64):
         with pytest.raises(ValueError, match=f"strategy='{strategy}' is a float32 kernel path"):
             BodySystem(256, params, device="cpu", dtype=torch.float64, mesh=mesh,
                        strategy=strategy)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        BodySystem(256, params, device="cpu", dtype=torch.float64, kernel="p3m",
+    s = BodySystem(256, params, device="cpu", dtype=torch.float64, kernel="p3m",
                    p3m_short_range="xla")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        Compute(num_bodies=256, device="cpu", precision="fp64", kernel="p3m",
-                p3m_short_range="xla")
+    ref = JaxBodySystem(256, _jax_params(params), dtype=jnp.float64, backend="p3m",
+                        p3m_short_range="xla", state=(s.positions, s.velocities))
+    s.update_many(1)
+    ref.update_many(1)
+    assert s.positions.dtype == np.float64 and s.p3m_short_range == "xla"
+    np.testing.assert_allclose(s.positions, np.asarray(ref.positions), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s.velocities, np.asarray(ref.velocities), rtol=1e-5, atol=1e-5)
+    c = Compute(num_bodies=256, device="cpu", precision="fp64", kernel="p3m",
+                p3m_short_range="xla", log=lambda line: None)
+    assert c.system.kernel == "auto" and c.system.dtype == torch.float64
+    assert c.compare_results()
     with pytest.raises(ValueError, match="dtype"):
         BodySystem(256, params, device="cpu", dtype=torch.float16)
 
@@ -385,10 +395,12 @@ def test_cli_fp64_with_ds_exits_1_in_nbody_tpus_words(capsys):
 
 
 # --fp64 --kernel p3m runs the exact force since the mesh solvers' slice,
-# as nbody_tpu's fp64 does; its XLA engine is what is still refused
+# as nbody_tpu's fp64 does, and so with --p3m-short-range xla since the
+# cell-list engine was ported (tests/test_torch_pm.py); the second case
+# adds to those flags the refusal that remains, nbody_tpu's of --variant sym
 @pytest.mark.parametrize("args, says", [
     (["--variant", "sym"], "variant='sym'"),
-    (["--kernel", "p3m", "--p3m-short-range", "xla"], "ROADMAP.md Queue 1 #16"),
+    (["--kernel", "p3m", "--p3m-short-range", "xla", "--variant", "sym"], "variant='sym'"),
 ])
 def test_cli_fp64_refusals_exit_2(capsys, args, says):
     assert main(["--fp64", *args, "--qatest", "--cpu", "--numbodies", "64"]) == 2

@@ -469,13 +469,17 @@ def test_p3m_accel_repeats_bit_for_bit(cloud):
 
 
 # TSC and the naive influence were refused here until they were ported
-# (tests/test_torch_pm.py); the reference's XLA cell-list engine still is,
-# whatever the assignment
+# (tests/test_torch_pm.py), and the reference's XLA cell-list engine until
+# #16 brought it (tests/test_torch_p3m_xla.py): the whole force of each
+# configuration now matches nbody_tpu's, at the file's bound for the whole
+# force, on a grid of 27 cells
 @pytest.mark.parametrize("kw", [{"short_range": "xla"},
                                 {"short_range": "xla", "assignment": "tsc"}])
 def test_unported_options_raise_naming_roadmap_item(cloud, kw):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        p3m.p3m_accel(torch.tensor(cloud), SOFT, **kw)
+    ours, ovf = p3m.p3m_accel(torch.tensor(cloud), SOFT, grid=16, capacity=128, **kw)
+    theirs, tovf = jax_p3m.p3m_accel(jnp.asarray(cloud), SOFT, grid=16, capacity=128, **kw)
+    assert int(ovf) == int(tovf)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=RTOL, atol=ATOL)
 
 
 def test_short_range_wrappers_on_the_cpu(cloud):
@@ -603,9 +607,12 @@ def test_hermite_and_ds_are_refused(capsys):
                  "--numbodies", "64"]) == 0
     out = capsys.readouterr().out
     assert "--kernel p3m (the all-pairs ds kernels run) has no effect" in out and "-> OK" in out
-    # plain PM is ported (tests/test_torch_pm.py); the XLA engine is not
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        BodySystem(64, _params(), device="cpu", kernel="pm", p3m_short_range="xla")
+    # plain PM is ported (tests/test_torch_pm.py), and since the XLA engine
+    # was ported too, PM with p3m_short_range="xla" runs, the option unused,
+    # as in nbody_tpu
+    s = BodySystem(64, _params(), device="cpu", kernel="pm", p3m_short_range="xla")
+    s.update_many(1)
+    assert s.kernel == "pm" and np.isfinite(s.positions).all()
 
 
 def test_compute_qa_gates_positions_only():

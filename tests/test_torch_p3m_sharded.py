@@ -6,7 +6,9 @@ kernel="pm" / "p3m", against nbody_tpu's on the CPU.
 The port's side runs 1, 2 and 4 gloo ranks (tests/test_torch_sharded_ranks.py)
 with the plain versions of the kernels; the JAX side runs
 ``make_sharded_pm_step`` / ``make_sharded_p3m_step`` (short_range "xla") on
-D of the virtual CPU devices that tests/conftest.py gives JAX. Inputs are
+D of the virtual CPU devices, against the port's pair kernel and, with
+short_range "xla", its cell-list engine (a rank's partial by
+``p3m.cell_list_short_range``, task ``xla_partial``) that tests/conftest.py gives JAX. Inputs are
 made with numpy from a seed: 388 bodies (odd shards of 97 and 194), masses
 from [0.5, 2], damping 0.5; grid 16 (27 short-range cells, split unevenly
 over any D) and 32 (216 cells). Tolerances, with their reasons:
@@ -129,6 +131,43 @@ def test_sharded_p3m_step_matches_nbody_tpu(pools, d, fft, assignment, integrato
     assert repeat
 
 
+XLA_CASES = [
+    # (D, fft, assignment, integrator): the cell-list engine's round robin
+    # of 27 cells, uneven over D = 2 and 4
+    (1, "replicated", "cic", "euler"), (2, "replicated", "tsc", "euler"),
+    (4, "replicated", "cic", "leapfrog"), (2, "slab", "cic", "leapfrog"),
+    (4, "slab", "tsc", "euler"),
+]
+
+
+@pytest.mark.parametrize("d, fft, assignment, integrator", XLA_CASES)
+def test_sharded_xla_step_matches_nbody_tpu(pools, d, fft, assignment, integrator):
+    """short_range="xla" on both sides: the reference's round robin of
+    cells on D ranks against nbody_tpu's sharded engine step."""
+    kw = {"grid": 16, "capacity": 64, "fft": fft, "assignment": assignment,
+          "integrator": integrator, "short_range": "xla"}
+    (p, v), repeat = _ours(pools, d, "p3m", kw, steps=2)
+    tp, tv = _theirs(d, "p3m", kw, steps=2)
+    tol = SLAB_TOL if fft == "slab" else REPLICATED_TOL
+    np.testing.assert_allclose(p, tp, rtol=tol, atol=tol)
+    np.testing.assert_allclose(v, tv, rtol=tol, atol=tol)
+    assert repeat
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_xla_partials_sum_to_one_device(pools, d):
+    """Each rank's partial holds the rows of its cells, the D partials sum
+    to the one-device engine's force bit for bit, and a sharded step makes
+    one counted host read on each rank."""
+    pos, vel = _state()
+    out = pools[d].run("xla_partial", 16, 64, pos, vel, DT, SOFT, DAMP)
+    whole, _ = p3m.cell_list_short_range(torch.tensor(pos), SOFT, grid=16, capacity=64)
+    parts = [torch.from_numpy(part) for part, _ in out]
+    assert int(torch.stack([(x != 0).any(dim=1) for x in parts]).sum(0).max()) == 1
+    assert torch.equal(sum(parts[1:], parts[0]), whole)
+    assert [reads for _, reads in out] == [1] * d
+
+
 def _one_device(kernel, kw, steps):
     pos, vel = _state()
     p, v = torch.tensor(pos), torch.tensor(vel)
@@ -139,7 +178,8 @@ def _one_device(kernel, kw, steps):
     else:
         def accel(q):
             return p3m.p3m_accel(q, SOFT, grid=grid, capacity=kw["capacity"],
-                                 assignment=assignment)[0]
+                                 assignment=assignment,
+                                 short_range=kw.get("short_range", "auto"))[0]
     for _ in range(steps):
         if kw.get("integrator") == "leapfrog":
             p, v = reference.nbody_step_leapfrog(p, v, DT, SOFT, DAMP, accel_fn=accel)
@@ -148,10 +188,12 @@ def _one_device(kernel, kw, steps):
     return p.numpy(), v.numpy()
 
 
-@pytest.mark.parametrize("kernel", ["pm", "p3m"])
+@pytest.mark.parametrize("kernel", ["pm", "p3m", "p3m-xla"])
 @pytest.mark.parametrize("fft, integrator", [("replicated", "euler"), ("slab", "leapfrog")])
 def test_one_rank_is_one_device_bit_for_bit(pools, kernel, fft, integrator):
     kw = {"grid": 16, "fft": fft, "integrator": integrator, "assignment": "tsc"}
+    if kernel == "p3m-xla":
+        kernel, kw["short_range"] = "p3m", "xla"
     if kernel == "p3m":
         kw["capacity"] = 64
     (p, v), repeat = _ours(pools, 1, kernel, kw, steps=2)
@@ -203,9 +245,11 @@ def test_system_refusals():
     with pytest.raises(ValueError, match="divide the padded grid"):
         BodySystem(66, NBodyParams(), device="cpu", mesh=_fake_mesh(3), kernel="p3m",
                    pm_grid=16, pm_fft="slab")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        BodySystem(64, NBodyParams(), device="cpu", mesh=_fake_mesh(), kernel="p3m",
+    # refused until the XLA cell-list engine was ported; it builds now (and
+    # runs on gloo ranks below)
+    s = BodySystem(64, NBodyParams(), device="cpu", mesh=_fake_mesh(), kernel="p3m",
                    p3m_short_range="xla")
+    assert s.p3m_short_range == "xla" and s._mesh_solver_step().integrator == "euler"
     with pytest.raises(ValueError, match="jerk"):
         BodySystem(64, NBodyParams(), device="cpu", mesh=_fake_mesh(), kernel="pm",
                    integrator="hermite")
@@ -215,7 +259,9 @@ def test_system_refusals():
 
 @pytest.mark.parametrize("kernel, kw", [("pm", {"pm_fft": "slab", "pm_assignment": "tsc"}),
                                         ("p3m", {"pm_fft": "replicated"}),
-                                        ("p3m", {"pm_fft": "slab", "integrator": "leapfrog"})])
+                                        ("p3m", {"pm_fft": "slab", "integrator": "leapfrog"}),
+                                        ("p3m", {"pm_fft": "replicated",
+                                                 "p3m_short_range": "xla"})])
 def test_system_on_a_mesh_matches_nbody_tpu(pools, kernel, kw):
     pos, vel = _state()
     params = NBodyParams(time_step=DT, softening=SOFT, damping=DAMP)
@@ -292,14 +338,16 @@ def test_auto_refresh_on_a_mesh_recovers(pools):
 
 def test_cli_mesh_solvers_under_torchrun(tmp_path):
     """nbody-torch --cpu --devices 2 with --kernel p3m --pm-fft slab
-    --p3m-auto-refresh --qatest and --kernel pm --pm-assignment tsc
-    --integrator leapfrog --qatest under torchrun, started together: each
-    exits 0, and only rank 0 prints."""
+    --p3m-auto-refresh --qatest, --kernel pm --pm-assignment tsc
+    --integrator leapfrog --qatest and --kernel p3m --p3m-short-range xla
+    --qatest under torchrun, started together: each exits 0, and only rank 0
+    prints."""
     repo = pathlib.Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(repo)
     runs = (["--kernel", "p3m", "--pm-fft", "slab", "--p3m-auto-refresh", "--pm-grid", "16"],
-            ["--kernel", "pm", "--pm-assignment", "tsc", "--integrator", "leapfrog"])
+            ["--kernel", "pm", "--pm-assignment", "tsc", "--integrator", "leapfrog"],
+            ["--kernel", "p3m", "--p3m-short-range", "xla", "--pm-grid", "16"])
     procs = [subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "nbody_tpu_torch.cli", "--cpu", "--devices", "2", "--qatest", "--numbodies",

@@ -183,8 +183,11 @@ def test_options_are_checked(cloud):
         pm.pm_accel(t, assignment="pcs")
     with pytest.raises(ValueError, match="influence"):
         p3m.p3m_accel(t, SOFT, influence="none")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 #16"):
-        BodySystem(64, NBodyParams(), device="cpu", kernel="p3m", p3m_short_range="xla")
+    # the XLA cell-list engine was refused until it was ported
+    assert BodySystem(64, NBodyParams(), device="cpu", kernel="p3m",
+                      p3m_short_range="xla").p3m_short_range == "xla"
+    with pytest.raises(ValueError, match="short_range"):
+        BodySystem(64, NBodyParams(), device="cpu", kernel="p3m", p3m_short_range="cells")
     with pytest.raises(ValueError, match="divide the padded grid"):
         pm.check_slab("slab", 16, 3)
     with pytest.raises(ValueError, match="kernel='pm'"):
@@ -345,11 +348,13 @@ def test_cli_pm_and_p3m_options_on_the_cpu(capsys):
     assert "exit-code gate applies to exact kernels only" in capsys.readouterr().out
     assert main(["--kernel", "pm", "--cpu", "--frames", "2", "--numbodies", "256",
                  "--no-cycle"]) == 0
-    # the XLA cell-list engine is the one option still refused
+    # the XLA cell-list engine was refused (exit 2) until it was ported
     assert main(["--kernel", "p3m", "--p3m-short-range", "xla", "--cpu", "--qatest",
-                 "--numbodies", "256"]) == 2
-    assert "ROADMAP.md Queue 1 #16" in capsys.readouterr().err
+                 "--numbodies", "256"]) == 0
+    out = capsys.readouterr().out
+    assert "short range xla" in out and "-> OK" in out
     # fp64 runs the exact force, as nbody_tpu's does, so the force is gated
-    assert main(["--fp64", "--kernel", "p3m", "--cpu", "--qatest", "--numbodies", "256"]) == 0
+    assert main(["--fp64", "--kernel", "p3m", "--p3m-short-range", "xla", "--cpu", "--qatest",
+                 "--numbodies", "256"]) == 0
     out = capsys.readouterr().out
     assert "max |dacc|" in out and "-> OK" in out

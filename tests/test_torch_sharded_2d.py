@@ -345,11 +345,13 @@ def _fake_grid():
      "leave strategy at 'auto'"),
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(),
                         strategy="ring_fused", dtype=torch.float64), "float32 kernel path"),
-    # the sharded P3M step is ported (tests/test_torch_p3m_sharded.py); its
-    # XLA cell-list engine is not
+    # the sharded P3M step with the XLA cell-list engine was refused until it
+    # was ported (it runs in tests/test_torch_p3m_sharded.py): the case now
+    # builds that system in float64 and holds nbody_tpu's refusal of block
+    # timesteps on a mesh
     (lambda: BodySystem(64, _params(64), device="cpu", mesh=_fake_mesh(), kernel="p3m",
-                        p3m_short_range="xla"),
-     "ROADMAP.md Queue 1 #16"),
+                        p3m_short_range="xla", dtype=torch.float64).update_many_block(1),
+     "block timesteps are single-device"),
 ])
 def test_grid_and_float64_refusals(build, match):
     with pytest.raises(ValueError, match=match):

@@ -29,9 +29,17 @@ TIMEOUT_S = 120
 
 def _rank_main(rank: int, world: int, store_path: str, timeout_s: float, tasks,
                results) -> None:
+    """Rank `rank`'s loop. The group connects with TIMEOUT_S, however long
+    the other ranks take to start under a loaded host, and only then are its
+    collectives bounded by `timeout_s`."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+                            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    if timeout_s != TIMEOUT_S:
+        from torch.distributed.distributed_c10d import _set_pg_timeout
+
+        dist.barrier()  # every rank connected, on the start-up bound
+        _set_pg_timeout(datetime.timedelta(seconds=timeout_s))
     try:
         while (task := tasks.get()) is not None:
             name, args = task
@@ -44,9 +52,10 @@ def _rank_main(rank: int, world: int, store_path: str, timeout_s: float, tasks,
 
 
 class RankPool:
-    """`world` gloo ranks, their group's collectives bounded by
-    `timeout_s`; ``run(name, *args)`` runs task `name` on every rank and
-    returns the results in rank order."""
+    """`world` gloo ranks, their group's collectives bounded by `timeout_s`
+    once the group has connected (the connection by TIMEOUT_S);
+    ``run(name, *args)`` runs task `name` on every rank and returns the
+    results in rank order."""
 
     def __init__(self, world: int, store_path: str, timeout_s: float = TIMEOUT_S):
         ctx = mp.get_context("spawn")
@@ -421,6 +430,22 @@ def mesh_solver_step(kernel, kw, pos, vel, dt, soft, damp, steps=1):
         runs.append((p.numpy(), v.numpy()))
     repeat = all(np.array_equal(a, b) for a, b in zip(*runs))
     return runs[0], repeat
+
+
+def xla_partial(grid, capacity, pos, vel, dt, soft, damp):
+    """The cell-list engine on the mesh: this rank's partial of the whole
+    state's short range (its round robin of cells, in body order), and the
+    counted host reads of one sharded Euler step with short_range "xla"."""
+    from nbody_tpu_torch.ops import p3m
+    from nbody_tpu_torch.utils import timing
+
+    mesh = _mesh()
+    part, _ = p3m.cell_list_short_range(torch.from_numpy(pos), soft, grid=grid,
+                                        capacity=capacity, rank=mesh.rank, ndev=mesh.size)
+    step = p3m.make_sharded_p3m_step(mesh, grid=grid, capacity=capacity, short_range="xla")
+    before = timing.HOST_READS["p3m_xla"]
+    step(_shard(mesh, pos), _shard(mesh, vel), dt, soft, damp)
+    return part.numpy(), timing.HOST_READS["p3m_xla"] - before
 
 
 def p3m_breach(num_bodies, params, kw, state, steps, auto_refresh):
