@@ -161,6 +161,7 @@ from nbody_tpu_torch.ops.energy import (
 )
 from nbody_tpu_torch.params import NBodyParams
 from nbody_tpu_torch.utils import timing
+from nbody_tpu_torch.utils.profiling import annotate
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
 # What variant="auto" runs on a CUDA device, for every integrator, where the
@@ -555,11 +556,13 @@ class BodySystem:
     @property
     def positions(self) -> np.ndarray:
         """(N, 4) [x, y, z, m] on the host, a copy."""
-        return self.state[0].detach().to("cpu", copy=True).numpy()
+        with annotate("nbody.readback"):
+            return self.state[0].detach().to("cpu", copy=True).numpy()
 
     @property
     def velocities(self) -> np.ndarray:
-        return self.state[1].detach().to("cpu", copy=True).numpy()
+        with annotate("nbody.readback"):
+            return self.state[1].detach().to("cpu", copy=True).numpy()
 
     # ---- parameters ----
 
@@ -586,50 +589,53 @@ class BodySystem:
         """Acceleration (N,3) of `pos` with this system's backend and force
         variant. The mesh solvers' comes from the float32 positions, in the
         state's type."""
-        soft = self.params.softening
-        if self.kernel == "pm":
-            return pm_accel(pos.to(torch.float32), grid=self.pm_grid,
-                            assignment=self.pm_assignment).to(pos.dtype)
-        if self.kernel == "p3m":
-            return p3m_accel(pos.to(torch.float32), soft, grid=self.pm_grid,
-                             capacity=self.p3m_capacity, backend=self.backend,
-                             assignment=self.pm_assignment,
-                             short_range=self.p3m_short_range)[0].to(pos.dtype)
-        if self.variant == "sym":
+        with annotate("nbody.force"):
+            soft = self.params.softening
+            if self.kernel == "pm":
+                return pm_accel(pos.to(torch.float32), grid=self.pm_grid,
+                                assignment=self.pm_assignment).to(pos.dtype)
+            if self.kernel == "p3m":
+                return p3m_accel(pos.to(torch.float32), soft, grid=self.pm_grid,
+                                 capacity=self.p3m_capacity, backend=self.backend,
+                                 assignment=self.pm_assignment,
+                                 short_range=self.p3m_short_range)[0].to(pos.dtype)
+            if self.variant == "sym":
+                if self.backend == "cuda":
+                    return compute_accel_symmetric_blocked_cuda(pos, soft, tile=self.tile)
+                cap, tile = sym_default_dispatch(pos.shape[0])
+                return reference.compute_accel_symmetric_blocked(
+                    pos, soft, block_cap=cap, tile_j=self.tile or tile)
             if self.backend == "cuda":
-                return compute_accel_symmetric_blocked_cuda(pos, soft, tile=self.tile)
-            cap, tile = sym_default_dispatch(pos.shape[0])
-            return reference.compute_accel_symmetric_blocked(
-                pos, soft, block_cap=cap, tile_j=self.tile or tile)
-        if self.backend == "cuda":
-            return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
-        return reference.compute_accel(pos, soft)
+                return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
+            return reference.compute_accel(pos, soft)
 
     def _accel_jerk(self, pos: torch.Tensor, vel: torch.Tensor):
         """(acc, jerk), each (N,3), of `pos`, `vel` with this system's
         backend and variant: the Hermite scheme's force evaluation."""
-        soft = self.params.softening
-        if self.variant == "sym":
+        with annotate("nbody.force"):
+            soft = self.params.softening
+            if self.variant == "sym":
+                if self.backend == "cuda":
+                    return compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft, tile=self.tile)
+                cap, tile = aj_sym_default_dispatch(pos.shape[0])
+                return reference.compute_accel_jerk_symmetric_blocked(
+                    pos, vel, soft, block_cap=cap, tile_j=self.tile or tile)
             if self.backend == "cuda":
-                return compute_accel_jerk_symmetric_blocked_cuda(pos, vel, soft, tile=self.tile)
-            cap, tile = aj_sym_default_dispatch(pos.shape[0])
-            return reference.compute_accel_jerk_symmetric_blocked(
-                pos, vel, soft, block_cap=cap, tile_j=self.tile or tile)
-        if self.backend == "cuda":
-            return compute_accel_jerk_cuda(pos, vel, pos, vel, soft, block_size=self.block_size)
-        return reference.compute_accel_jerk(pos, vel, soft)
+                return compute_accel_jerk_cuda(pos, vel, pos, vel, soft, block_size=self.block_size)
+            return reference.compute_accel_jerk(pos, vel, soft)
 
     def _mxu_step(self, pos, vel, dt, damping, out) -> None:
         """The mxu Euler step of (pos, vel) into out: the tensor-core kernel,
         or its plain version with backend='torch'."""
         soft = self.params.softening
-        if self.backend == "cuda":
-            nbody_step_mxu_cuda(pos, vel, dt, soft, damping, variant=self.variant, out=out)
-            return
-        new_pos, new_vel = reference.nbody_step_mxu(
-            pos, vel, dt, soft, damping, mxu_dtype=reference.MXU_DTYPES[self.variant])
-        out[0].copy_(new_pos)
-        out[1].copy_(new_vel)
+        with annotate("nbody.force"):
+            if self.backend == "cuda":
+                nbody_step_mxu_cuda(pos, vel, dt, soft, damping, variant=self.variant, out=out)
+                return
+            new_pos, new_vel = reference.nbody_step_mxu(
+                pos, vel, dt, soft, damping, mxu_dtype=reference.MXU_DTYPES[self.variant])
+            out[0].copy_(new_pos)
+            out[1].copy_(new_vel)
 
     @property
     def mxu_force(self) -> Optional[str]:
@@ -663,8 +669,9 @@ class BodySystem:
         elif self.kernel != "auto":
             reference.integrate_into(pos, vel, self._accel(pos), dt, p.damping, out)
         elif self.variant == "vpu" and self.backend == "cuda":
-            nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
-                            block_size=self.block_size, out=out)
+            with annotate("nbody.force"):
+                nbody_step_cuda(pos, vel, dt, p.softening, p.damping,
+                                block_size=self.block_size, out=out)
         elif self.variant in reference.MXU_VARIANTS:
             self._mxu_step(pos, vel, dt, p.damping, out)
         else:
@@ -713,10 +720,11 @@ class BodySystem:
                 break
             if self.p3m_auto_refresh:
                 # resume from the state of the first breached step
-                self._pos[self._cur].copy_(self._snapshot[0])
-                self._vel[self._cur].copy_(self._snapshot[1])
-                before = self.p3m_capacity
-                self.refresh_p3m_contract()
+                with annotate("nbody.p3m.refresh"):
+                    self._pos[self._cur].copy_(self._snapshot[0])
+                    self._vel[self._cur].copy_(self._snapshot[1])
+                    before = self.p3m_capacity
+                    self.refresh_p3m_contract()
                 self.p3m_refreshes.append((done + first, before, self.p3m_capacity))
                 done += first + 1
                 continue
@@ -748,18 +756,23 @@ class BodySystem:
             first = torch.full((), -1, dtype=torch.int64, device=self.device)
             snap = None
         for i in range(steps):
-            self._step(dt)
+            with annotate("nbody.step"):
+                self._step(dt)
             if not probed:
                 continue
-            pos = self._pos[self._cur]
-            newly = (first < 0) & self._p3m_breach(pos)
-            first = torch.where(newly, i, first)
-            if self.p3m_auto_refresh:
-                state = (pos, self._vel[self._cur])
-                snap = ([t.clone() for t in state] if snap is None
-                        else [torch.where(newly, t, k) for t, k in zip(state, snap)])
+            with annotate("nbody.p3m.probe"):
+                pos = self._pos[self._cur]
+                newly = (first < 0) & self._p3m_breach(pos)
+                first = torch.where(newly, i, first)
+                if self.p3m_auto_refresh:
+                    state = (pos, self._vel[self._cur])
+                    snap = ([t.clone() for t in state] if snap is None
+                            else [torch.where(newly, t, k) for t, k in zip(state, snap)])
         self._snapshot = snap if probed else None
-        return int(first) if probed else -1
+        if not probed:
+            return -1
+        with annotate("nbody.p3m.probe"):
+            return timing.host_read(first, "p3m_probe")
 
     # steps (adaptive) or substeps (block) of one rollout segment, whose stats
     # are read once: nbody_tpu's segment off the TPU
@@ -798,7 +811,6 @@ class BodySystem:
         Each call evaluates the starting force once (leapfrog), so batch
         frames into one call."""
         from nbody_tpu_torch.ops.adaptive import merge_stats, new_totals
-        from nbody_tpu_torch.utils.profiling import annotate
 
         if self.mesh is not None and self.strategy == "ring_fused":
             raise ValueError(
@@ -825,7 +837,7 @@ class BodySystem:
         while done < steps:
             seg = min(steps - done, self._MAX_ROLLOUT_SEGMENT)
             run = self._adaptive_rollout_fn(seg, eta, dt_min, dt_max)
-            with annotate(f"nbody.adaptive_rollout[{seg}]"):
+            with annotate("nbody.adaptive_rollout", f"seg={seg}"):
                 out = run(self._pos[self._cur], self._vel[self._cur])
             if not probed:
                 self._advance_to(*out[:2])
@@ -915,8 +927,6 @@ class BodySystem:
         "block_counts"). The classifying force is chained across calls
         while the state is unchanged (a state version, which every state
         set and step bumps)."""
-        from nbody_tpu_torch.utils.profiling import annotate
-
         p = self.params
         if self.mesh is not None:
             raise ValueError(
@@ -958,7 +968,7 @@ class BodySystem:
         while done < macro_steps:
             seg = min(seg_max, macro_steps - done)
             run = self._block_rollout_fn(seg, eta, dt_max, n_classes)
-            with annotate(f"nbody.block_rollout[{seg}]"):
+            with annotate("nbody.block_rollout", f"seg={seg}"):
                 pos, vel, a0, stats = run(self._pos[self._cur], self._vel[self._cur], a0)
             self._advance_to(pos, vel)
             totals["t"] += float(stats[0])
@@ -997,12 +1007,13 @@ class BodySystem:
         (``body_system.py:849-860``)."""
         if self.kernel != "p3m":
             raise ValueError("refresh_p3m_contract applies to kernel='p3m'")
-        self.p3m_capacity = None
-        if self.mesh is not None:
-            self._sharded = None  # rebuilt at the next step with the new size
-        self._p3m_contract_warned = False
-        pos = self._device_state()[0]
-        self._probe_p3m_capacity(self._gather(pos) if self.mesh is not None else pos)
+        with annotate("nbody.p3m.refresh"):
+            self.p3m_capacity = None
+            if self.mesh is not None:
+                self._sharded = None  # rebuilt at the next step with the new size
+            self._p3m_contract_warned = False
+            pos = self._device_state()[0]
+            self._probe_p3m_capacity(self._gather(pos) if self.mesh is not None else pos)
 
     def _device_state(self):
         """The current (pos, vel) on the device; with placement='host' the

@@ -89,6 +89,7 @@ from nbody_tpu_torch.ops.cuda_kernel import (
 )
 from nbody_tpu_torch.ops.energy import kinetic_energy, potential_energy_per_row, total_energy_f64
 from nbody_tpu_torch.params import NBodyParams
+from nbody_tpu_torch.utils.profiling import annotate
 from nbody_tpu_torch.utils.timing import synchronize as _synchronize
 
 
@@ -276,12 +277,14 @@ class DSBodySystem:
     def positions(self) -> np.ndarray:
         """(N, 4) float64 [x, y, z, m], hi + lo, on the host."""
         planes = self._planes[self._cur]
-        return ds.ds_to_f64(self._whole(planes[0]), self._whole(planes[1]))
+        with annotate("nbody.readback"):
+            return ds.ds_to_f64(self._whole(planes[0]), self._whole(planes[1]))
 
     @property
     def velocities(self) -> np.ndarray:
         planes = self._planes[self._cur]
-        return ds.ds_to_f64(self._whole(planes[2]), self._whole(planes[3]))
+        with annotate("nbody.readback"):
+            return ds.ds_to_f64(self._whole(planes[2]), self._whole(planes[3]))
 
     # ---- parameters ----
 
@@ -313,38 +316,42 @@ class DSBodySystem:
         return ds.scal_ds(dt, p.softening, damping)
 
     def _sym_accel(self, pos_hi, pos_lo, scal):
-        if self.backend == "cuda":
-            return compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal, tile=self.tile)
-        cap, tile = ds_sym_default_dispatch(pos_hi.shape[0])
-        return ds.ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, block_cap=cap,
-                                             tile_j=self.tile or tile)
+        with annotate("nbody.force"):
+            if self.backend == "cuda":
+                return compute_accel_ds_symmetric_blocked_cuda(pos_hi, pos_lo, scal, tile=self.tile)
+            cap, tile = ds_sym_default_dispatch(pos_hi.shape[0])
+            return ds.ds_accel_symmetric_blocked(pos_hi, pos_lo, scal, block_cap=cap,
+                                                 tile_j=self.tile or tile)
 
     def _fused_step(self, planes, scal, out) -> None:
         """The one-sided fused step (Euler or leapfrog) from `planes` into
         `out`, with the backend's kernel or plain version."""
-        euler = self.integrator == "euler"
-        if self.backend == "cuda":
-            step = nbody_step_ds_cuda if euler else nbody_step_ds_leapfrog_cuda
-            step(*planes, scal, block_size=self.block_size, out=out)
-            return
-        step = ds.nbody_step_ds if euler else ds.nbody_step_ds_leapfrog
-        for t, r in zip(out, step(*planes, scal)):
-            t.copy_(r)
+        with annotate("nbody.force"):
+            euler = self.integrator == "euler"
+            if self.backend == "cuda":
+                step = nbody_step_ds_cuda if euler else nbody_step_ds_leapfrog_cuda
+                step(*planes, scal, block_size=self.block_size, out=out)
+                return
+            step = ds.nbody_step_ds if euler else ds.nbody_step_ds_leapfrog
+            for t, r in zip(out, step(*planes, scal)):
+                t.copy_(r)
 
     def _accel_jerk(self, planes, scal):
         """(acc_hi, acc_lo, jerk_hi, jerk_lo) of the state `planes` with
         this system's variant and backend: (N,3) each from the each-pair-once
         composition, (N,4) from the one-sided kernel."""
-        if self.variant == "sym":
+        with annotate("nbody.force"):
+            if self.variant == "sym":
+                if self.backend == "cuda":
+                    return compute_accel_jerk_ds_symmetric_blocked_cuda(*planes, scal,
+                                                                        tile=self.tile)
+                cap, tile = ds_aj_sym_default_dispatch(self.num_bodies)
+                return ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=cap,
+                                                          tile_j=self.tile or tile)
             if self.backend == "cuda":
-                return compute_accel_jerk_ds_symmetric_blocked_cuda(*planes, scal, tile=self.tile)
-            cap, tile = ds_aj_sym_default_dispatch(self.num_bodies)
-            return ds.ds_accel_jerk_symmetric_blocked(*planes, scal, block_cap=cap,
-                                                      tile_j=self.tile or tile)
-        if self.backend == "cuda":
-            return compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
-                                                 block_size=self.block_size)
-        return ds.ds_accel_jerk_vs(*planes, *planes, scal)
+                return compute_accel_jerk_ds_cuda_vs(*planes, *planes, scal,
+                                                     block_size=self.block_size)
+            return ds.ds_accel_jerk_vs(*planes, *planes, scal)
 
     def _hermite_step(self, planes, scal, out) -> None:
         """One ds Hermite P(EC) step from `planes` into `out`: accel + jerk,
@@ -352,14 +359,18 @@ class DSBodySystem:
         corrector; on the card four launches (one-sided) or eight and more
         (each pair once) and no host synchronisation."""
         f0 = self._accel_jerk(planes, scal)
-        if self.backend == "cuda":
-            pred = ds_hermite_predict_cuda(*planes, *f0, scal, out=self._pred)
-            ds_hermite_correct_cuda(*planes, *f0, *self._accel_jerk(pred, scal), scal, out=out)
-            return
-        pred = ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal)
+        with annotate("nbody.integrate"):
+            pred = (ds_hermite_predict_cuda(*planes, *f0, scal, out=self._pred)
+                    if self.backend == "cuda"
+                    else ds.ds_hermite_predict(*planes, f0[:2], f0[2:], scal))
         f1 = self._accel_jerk(pred, scal)
-        for t, r in zip(out, ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:], scal)):
-            t.copy_(r)
+        with annotate("nbody.integrate"):
+            if self.backend == "cuda":
+                ds_hermite_correct_cuda(*planes, *f0, *f1, scal, out=out)
+                return
+            for t, r in zip(out, ds.ds_hermite_correct(*planes, f0[:2], f0[2:], f1[:2], f1[2:],
+                                                       scal)):
+                t.copy_(r)
 
     def _step(self, scal) -> None:
         cur, nxt = self._cur, 1 - self._cur
@@ -371,11 +382,12 @@ class DSBodySystem:
             self._hermite_step(planes, scal, out)
         elif self.variant == "sym":
             acc = self._sym_accel(planes[0], planes[1], scal)
-            if self.backend == "cuda":
-                ds_integrate_cuda(*planes, *acc, scal, out=out)
-            else:
-                for t, r in zip(out, ds.ds_integrate(*planes, acc, scal)):
-                    t.copy_(r)
+            with annotate("nbody.integrate"):
+                if self.backend == "cuda":
+                    ds_integrate_cuda(*planes, *acc, scal, out=out)
+                else:
+                    for t, r in zip(out, ds.ds_integrate(*planes, acc, scal)):
+                        t.copy_(r)
         else:
             self._fused_step(planes, scal, out)
         self._cur = nxt
@@ -390,7 +402,8 @@ class DSBodySystem:
         # the block is uploaded once a call, where the kernels read it
         scal = ds.scal_on(self._scal(self.params.time_step if dt is None else dt), self.device)
         for _ in range(steps):
-            self._step(scal)
+            with annotate("nbody.step"):
+                self._step(scal)
 
     # steps of one adaptive segment, whose stats are read once
     _MAX_ROLLOUT_SEGMENT = BodySystem._MAX_ROLLOUT_SEGMENT
@@ -414,8 +427,6 @@ class DSBodySystem:
         (``make_sharded_ds_adaptive_rollout_2d``)."""
         from nbody_tpu_torch.ops.adaptive import make_ds_adaptive_rollout, merge_stats, new_totals
         from nbody_tpu_torch.utils import timing
-        from nbody_tpu_torch.utils.profiling import annotate
-
         p = self.params
         if dt_max is None:
             dt_max = p.time_step
@@ -431,7 +442,7 @@ class DSBodySystem:
         done = 0
         while done < steps:
             seg = min(steps - done, self._MAX_ROLLOUT_SEGMENT)
-            with annotate(f"nbody.ds_adaptive_rollout[{seg}]"):
+            with annotate("nbody.ds_adaptive_rollout", f"seg={seg}"):
                 if self.mesh is not None:
                     from nbody_tpu_torch.parallel.sharded import ds_adaptive_rollout_on
 

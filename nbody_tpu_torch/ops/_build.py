@@ -427,7 +427,10 @@ def declare_f64(lib) -> None:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures (once per process)."""
-    lib = ctypes.CDLL(str(build()))
+    from nbody_tpu_torch.utils.profiling import annotate
+
+    with annotate("nbody.setup.library"):
+        lib = ctypes.CDLL(str(build()))
     ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
     declare_step(lib)
     declare_mxu(lib)

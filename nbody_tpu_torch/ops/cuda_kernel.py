@@ -61,6 +61,7 @@ import weakref
 import torch
 
 from nbody_tpu_torch.ops import ds, energy, reference
+from nbody_tpu_torch.utils.profiling import annotate
 
 DEFAULT_BLOCK_SIZE = 256
 
@@ -1895,7 +1896,8 @@ def p3m_short_range_cuda(pos, softening, *, grid: int = 64, capacity: int = 128,
     if pos.shape[0] == 0:
         return pos.new_zeros((0, 3)), torch.zeros((), dtype=torch.int64, device=device)
     tables = p3m.pair_tables(pos, softening, grid=grid, capacity=capacity, blk=blk)
-    return p3m.short_range_from_tables(p3m_sr_pairs_cuda(tables), tables), tables.overflow
+    with annotate("nbody.p3m.pairs"):
+        return p3m.short_range_from_tables(p3m_sr_pairs_cuda(tables), tables), tables.overflow
 
 
 # ---- the fused ring force: csrc/ring_kernels.cu ----

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.ops import cuda_kernel, reference
+from nbody_tpu_torch.utils.profiling import annotate
 from nbody_tpu_torch.ops.pm import (
     DECONVOLVE,
     ShardedMeshStep,
@@ -292,76 +293,77 @@ def pair_tables(pos, softening, *, grid: int, capacity: int, blk: int) -> PairTa
     synchronisation. Which bodies a cell keeps follows the reference's
     stable (cell, massless last) order, so a full cell drops the same
     bodies; the kept ones are then ordered inside their cell by sub-cell."""
-    n = pos.shape[0]
-    dev = pos.device
-    i32 = torch.int32
-    pos3, mass, lo, h, rcut, gc, cell = _cells(pos, grid)
-    ncell = gc ** 3
-    order, sorted_cell, _, counts, kept, overflow = _cell_order(cell, mass > 0, ncell, capacity)
-    # the kept bodies by (cell, sub-cell), stably; the dropped ones last
-    sub = _sub_cell_key(pos3[order], lo, rcut, gc)
-    key = torch.where(kept, (sorted_cell << (3 * SUB_BITS)) | sub, ncell << (3 * SUB_BITS))
-    again = torch.argsort(key, stable=True)
-    order, kept, sorted_cell = order[again], kept[again], sorted_cell[again]
+    with annotate("nbody.p3m.tables"):
+        n = pos.shape[0]
+        dev = pos.device
+        i32 = torch.int32
+        pos3, mass, lo, h, rcut, gc, cell = _cells(pos, grid)
+        ncell = gc ** 3
+        order, sorted_cell, _, counts, kept, overflow = _cell_order(cell, mass > 0, ncell, capacity)
+        # the kept bodies by (cell, sub-cell), stably; the dropped ones last
+        sub = _sub_cell_key(pos3[order], lo, rcut, gc)
+        key = torch.where(kept, (sorted_cell << (3 * SUB_BITS)) | sub, ncell << (3 * SUB_BITS))
+        again = torch.argsort(key, stable=True)
+        order, kept, sorted_cell = order[again], kept[again], sorted_cell[again]
 
-    nkept = counts.clamp(max=capacity)
-    ncl = (nkept + CLUSTER - 1) // CLUSTER                   # clusters a cell
-    cfirst = torch.cumsum(ncl, 0) - ncl
-    kfirst = torch.cumsum(nkept, 0) - nkept
-    nclb = -(-n // CLUSTER) + ncell + 1                      # static cluster bound
-    rows = nclb * CLUSTER
-    rank = torch.arange(n, device=dev) - kfirst[sorted_cell]
-    body_row_sorted = torch.where(kept, cfirst[sorted_cell] * CLUSTER + rank, rows)
-    # dropped bodies write the inert row into the last (inert) cluster
-    dst = body_row_sorted.clamp(max=rows - 1)
-    padded = torch.zeros((rows, 4), dtype=torch.float32, device=dev)
-    padded[:, :3].fill_(1e30)
-    padded[dst] = torch.where(kept[:, None],
-                              torch.cat([pos3[order], mass[order][:, None]], dim=1), padded[-1])
-    real = torch.zeros(rows, dtype=torch.bool, device=dev)
-    real[dst] = kept
-    body_row = torch.empty_like(body_row_sorted)
-    body_row[order] = body_row_sorted
+        nkept = counts.clamp(max=capacity)
+        ncl = (nkept + CLUSTER - 1) // CLUSTER                   # clusters a cell
+        cfirst = torch.cumsum(ncl, 0) - ncl
+        kfirst = torch.cumsum(nkept, 0) - nkept
+        nclb = -(-n // CLUSTER) + ncell + 1                      # static cluster bound
+        rows = nclb * CLUSTER
+        rank = torch.arange(n, device=dev) - kfirst[sorted_cell]
+        body_row_sorted = torch.where(kept, cfirst[sorted_cell] * CLUSTER + rank, rows)
+        # dropped bodies write the inert row into the last (inert) cluster
+        dst = body_row_sorted.clamp(max=rows - 1)
+        padded = torch.zeros((rows, 4), dtype=torch.float32, device=dev)
+        padded[:, :3].fill_(1e30)
+        padded[dst] = torch.where(kept[:, None],
+                                  torch.cat([pos3[order], mass[order][:, None]], dim=1), padded[-1])
+        real = torch.zeros(rows, dtype=torch.bool, device=dev)
+        real[dst] = kept
+        body_row = torch.empty_like(body_row_sorted)
+        body_row[order] = body_row_sorted
 
-    # each cluster's box over its real rows (zero-mass bodies included)
-    xyz = padded[:, :3].view(nclb, CLUSTER, 3)
-    inside = real.view(nclb, CLUSTER, 1)
-    box = torch.zeros((nclb, 8), dtype=torch.float32, device=dev)
-    box[:, 0:3] = torch.where(inside, xyz, math.inf).amin(dim=1)
-    box[:, 4:7] = torch.where(inside, xyz, -math.inf).amax(dim=1)
+        # each cluster's box over its real rows (zero-mass bodies included)
+        xyz = padded[:, :3].view(nclb, CLUSTER, 3)
+        inside = real.view(nclb, CLUSTER, 1)
+        box = torch.zeros((nclb, 8), dtype=torch.float32, device=dev)
+        box[:, 0:3] = torch.where(inside, xyz, math.inf).amin(dim=1)
+        box[:, 4:7] = torch.where(inside, xyz, -math.inf).amax(dim=1)
 
-    # work items: each live i-cluster's j-clusters (those of its cell's
-    # stencil, in stencil order) in chunks; sum_k ceil(J_k / chunk) <=
-    # sum_k J_k / chunk + live clusters <= max_items + nclb - 1
-    ccum = torch.cumsum(ncl, 0)
-    cl = torch.arange(nclb, device=dev)
-    live = cl < ccum[-1]
-    cl_cell = torch.searchsorted(ccum, cl, right=True).clamp(max=ncell - 1)
-    nid, nvalid = _neighbor_stencil(gc, dev)
-    jcl = torch.where(nvalid, ncl[nid], 0).sum(dim=1)       # j-clusters of a cell's stencil
-    max_items = ITEMS_PER_CLUSTER * max(1, -(-n // CLUSTER))
-    chunk = (((ncl * jcl).sum() + max_items - 1) // max_items).clamp(min=CHUNK_MIN)
-    jlen = jcl[cl_cell]
-    nitem = torch.where(live, (jlen + chunk - 1) // chunk, 0)
-    icum = torch.cumsum(nitem, 0)
-    item0 = icum - nitem
-    slot = torch.arange(max_items + nclb, device=dev)
-    it_cl = torch.searchsorted(icum, slot, right=True).clamp(max=nclb - 1)
-    alive = slot < icum[-1]
-    it_k0 = torch.where(alive, (slot - item0[it_cl]) * chunk, 0)
-    it_k1 = torch.where(alive, torch.minimum(it_k0 + chunk, jlen[it_cl]), 0)
+        # work items: each live i-cluster's j-clusters (those of its cell's
+        # stencil, in stencil order) in chunks; sum_k ceil(J_k / chunk) <=
+        # sum_k J_k / chunk + live clusters <= max_items + nclb - 1
+        ccum = torch.cumsum(ncl, 0)
+        cl = torch.arange(nclb, device=dev)
+        live = cl < ccum[-1]
+        cl_cell = torch.searchsorted(ccum, cl, right=True).clamp(max=ncell - 1)
+        nid, nvalid = _neighbor_stencil(gc, dev)
+        jcl = torch.where(nvalid, ncl[nid], 0).sum(dim=1)       # j-clusters of a cell's stencil
+        max_items = ITEMS_PER_CLUSTER * max(1, -(-n // CLUSTER))
+        chunk = (((ncl * jcl).sum() + max_items - 1) // max_items).clamp(min=CHUNK_MIN)
+        jlen = jcl[cl_cell]
+        nitem = torch.where(live, (jlen + chunk - 1) // chunk, 0)
+        icum = torch.cumsum(nitem, 0)
+        item0 = icum - nitem
+        slot = torch.arange(max_items + nclb, device=dev)
+        it_cl = torch.searchsorted(icum, slot, right=True).clamp(max=nclb - 1)
+        alive = slot < icum[-1]
+        it_k0 = torch.where(alive, (slot - item0[it_cl]) * chunk, 0)
+        it_k1 = torch.where(alive, torch.minimum(it_k0 + chunk, jlen[it_cl]), 0)
 
-    sigma = SIGMA_CELLS * h
-    sq2s = math.sqrt(2.0) * sigma
-    # a fill, not a copy from the host: no synchronisation
-    meta = torch.stack([h.new_full((), soft2_f32(softening)), rcut * rcut,
-                        1.0 / (2.0 * sigma * sigma), 1.0 / (sq2s * sq2s * sq2s)])
-    return PairTables(
-        padded=padded, box=box, cfirst=cfirst.to(i32), ncl=ncl.to(i32), nkept=nkept.to(i32),
-        cl_cell=torch.where(live, cl_cell, -1).to(i32), cl_item0=item0.to(i32),
-        cl_nitem=nitem.to(i32), it_cl=torch.where(alive, it_cl, -1).to(i32),
-        it_k0=it_k0.to(i32), it_k1=it_k1.to(i32), chunk=chunk, body_row=body_row, meta=meta,
-        overflow=overflow, gc=gc, blk=blk)
+        sigma = SIGMA_CELLS * h
+        sq2s = math.sqrt(2.0) * sigma
+        # a fill, not a copy from the host: no synchronisation
+        meta = torch.stack([h.new_full((), soft2_f32(softening)), rcut * rcut,
+                            1.0 / (2.0 * sigma * sigma), 1.0 / (sq2s * sq2s * sq2s)])
+        return PairTables(
+            padded=padded, box=box, cfirst=cfirst.to(i32), ncl=ncl.to(i32), nkept=nkept.to(i32),
+            cl_cell=torch.where(live, cl_cell, -1).to(i32), cl_item0=item0.to(i32),
+            cl_nitem=nitem.to(i32), it_cl=torch.where(alive, it_cl, -1).to(i32),
+            it_k0=it_k0.to(i32), it_k1=it_k1.to(i32), chunk=chunk, body_row=body_row, meta=meta,
+            overflow=overflow, gc=gc, blk=blk)
 
 
 def _box_d2(alo, ahi, blo, bhi):
@@ -645,10 +647,11 @@ def cell_list_short_range(pos, softening, *, grid: int = 64, capacity: int = 128
     whole force, each row from one rank."""
     if not 0 <= rank < ndev:
         raise ValueError(f"rank {rank} is not one of {ndev}")
-    pos3, mass, lo, h, rcut, gc, _ = _cells(pos, grid)
-    n = pos3.shape[0]
-    order, sorted_pos4, starts, counts, n_starts, n_counts, overflow = _sorted_cell_tables(
-        pos3, mass, lo, rcut, gc, int(capacity))
+    with annotate("nbody.p3m.tables"):
+        pos3, mass, lo, h, rcut, gc, _ = _cells(pos, grid)
+        n = pos3.shape[0]
+        order, sorted_pos4, starts, counts, n_starts, n_counts, overflow = _sorted_cell_tables(
+            pos3, mass, lo, rcut, gc, int(capacity))
     if ndev > 1:
         ncell = gc ** 3
         ncell_loc = -(-ncell // ndev)
@@ -660,10 +663,11 @@ def cell_list_short_range(pos, softening, *, grid: int = 64, capacity: int = 128
 
         starts, counts = mine(starts, n), mine(counts, 0)
         n_starts, n_counts = mine(n_starts, n), mine(n_counts, 0)
-    acc_sorted = _short_range_cells(
-        sorted_pos4, starts, counts, n_starts, n_counts, eps2=soft2_f32(softening),
-        sigma=SIGMA_CELLS * h, rcut=rcut, cap=int(capacity), chunk=int(chunk), n=n)
-    return torch.empty_like(acc_sorted).index_copy_(0, order, acc_sorted), overflow
+    with annotate("nbody.p3m.pairs"):
+        acc_sorted = _short_range_cells(
+            sorted_pos4, starts, counts, n_starts, n_counts, eps2=soft2_f32(softening),
+            sigma=SIGMA_CELLS * h, rcut=rcut, cap=int(capacity), chunk=int(chunk), n=n)
+        return torch.empty_like(acc_sorted).index_copy_(0, order, acc_sorted), overflow
 
 
 def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
@@ -700,8 +704,9 @@ def p3m_accel(pos, softening, *, grid: int = 64, capacity: int = 128,
         acc_sr, overflow = cuda_kernel.p3m_short_range_cuda(
             pos, softening, grid=grid, capacity=capacity, blk=blk)
     else:
-        acc_sr = reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity)
-        overflow = p3m_overflow_count(pos, grid=grid, capacity=capacity)
+        with annotate("nbody.p3m.pairs"):
+            acc_sr = reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity)
+            overflow = p3m_overflow_count(pos, grid=grid, capacity=capacity)
     return acc_lr + acc_sr, overflow
 
 
@@ -756,15 +761,17 @@ def short_range_part(pos, softening, *, grid: int, capacity: int, rank: int, nde
     blk = p3m_kernel_blk(capacity) if blk is None else int(blk)
     if tables is None:
         tables = pair_tables(pos, softening, grid=grid, capacity=capacity, blk=blk)
-    rng = item_range(tables, rank, ndev)
-    if backend == "cuda" and pos.device.type == "cuda":
-        acc_pad = cuda_kernel.p3m_sr_range_cuda(tables, rng)
-        return short_range_from_tables(acc_pad, tables), tables.overflow
-    lo_row, hi_row = (int(c) * CLUSTER for c in rng[2:].tolist())
-    sel = torch.nonzero((tables.body_row >= lo_row) & (tables.body_row < hi_row)).flatten()
-    out = pos.new_zeros((pos.shape[0], 3), dtype=torch.float32)
-    out[sel] = reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity, rows=sel)
-    return out, tables.overflow
+    with annotate("nbody.p3m.pairs"):
+        rng = item_range(tables, rank, ndev)
+        if backend == "cuda" and pos.device.type == "cuda":
+            acc_pad = cuda_kernel.p3m_sr_range_cuda(tables, rng)
+            return short_range_from_tables(acc_pad, tables), tables.overflow
+        lo_row, hi_row = (int(c) * CLUSTER for c in rng[2:].tolist())
+        sel = torch.nonzero((tables.body_row >= lo_row) & (tables.body_row < hi_row)).flatten()
+        out = pos.new_zeros((pos.shape[0], 3), dtype=torch.float32)
+        out[sel] = reference.p3m_short_range(pos, softening, grid=grid, capacity=capacity,
+                                             rows=sel)
+        return out, tables.overflow
 
 
 def make_sharded_p3m_accel(mesh, *, grid: int = 64, capacity: int = 128,

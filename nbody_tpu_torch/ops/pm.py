@@ -44,6 +44,7 @@ import torch.distributed as dist
 
 from nbody_tpu_torch.ops import reference
 from nbody_tpu_torch.utils.ordered import index_add_ordered
+from nbody_tpu_torch.utils.profiling import annotate
 
 # the influence tables' disk cache, beside the port's other build outputs
 _CACHE_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -282,10 +283,11 @@ def _influence_table(grid: int, sigma_cells, window_exp: int, device: torch.devi
     """The optimal-influence table as a float32 tensor on `device`, copied
     there once per process (from pinned memory, so that the copy does not
     wait on the host)."""
-    table = torch.from_numpy(_optimal_influence_factor(grid, sigma_cells, window_exp))
-    if torch.device(device).type == "cuda":
-        return table.pin_memory().to(device, non_blocking=True)
-    return table.to(device)
+    with annotate("nbody.pm.influence_table"):
+        table = torch.from_numpy(_optimal_influence_factor(grid, sigma_cells, window_exp))
+        if torch.device(device).type == "cuda":
+            return table.pin_memory().to(device, non_blocking=True)
+        return table.to(device)
 
 
 def _ipow(x, p: int):
@@ -531,26 +533,33 @@ def long_range(pos, *, grid: int, assignment: str = "cic", deconvolve=False,
             pos_all = all_gather_rows(mesh, pos)
         pos3 = pos_all[:, :3].to(torch.float32)
         mass = pos_all[:, 3].to(torch.float32)
-        lo, h = _fit_box(pos3, grid)  # gathered: the same on every rank
-        sigma = None if sigma_cells is None else sigma_cells * h
-        ix, iy, iz, w = comp(pos3, lo, h, grid)
         gl = 2 * grid // mesh.size
         x0 = mesh.rank * gl
-        rho = _deposit_slab(ix, iy, iz, w, mass, grid, x0, gl)
-        grids = _solve_force_grids_slab(rho, h, grid, mesh=mesh, sigma=sigma,
-                                        deconvolve=deconvolve, window_exp=wexp,
-                                        sigma_cells=sigma_cells)
-        return _gather_slab(grids, ix, iy, iz, w, x0, gl, grid)
+        with annotate("nbody.pm.deposit"):
+            lo, h = _fit_box(pos3, grid)  # gathered: the same on every rank
+            sigma = None if sigma_cells is None else sigma_cells * h
+            ix, iy, iz, w = comp(pos3, lo, h, grid)
+            rho = _deposit_slab(ix, iy, iz, w, mass, grid, x0, gl)
+        with annotate("nbody.pm.solve"):
+            grids = _solve_force_grids_slab(rho, h, grid, mesh=mesh, sigma=sigma,
+                                            deconvolve=deconvolve, window_exp=wexp,
+                                            sigma_cells=sigma_cells)
+        with annotate("nbody.pm.gather"):
+            return _gather_slab(grids, ix, iy, iz, w, x0, gl, grid)
     pos3 = pos[:, :3].to(torch.float32)
     mass = pos[:, 3].to(torch.float32)
-    lo, h = _fit_box(pos3, grid, mesh=mesh)
-    sigma = None if sigma_cells is None else sigma_cells * h
-    idx, w = assign(pos3, lo, h, grid)
-    rho = _deposit(idx, w, mass, grid)
-    if mesh is not None:
-        rho = fixed_order_sum(mesh, rho)
-    return _gather(_solve_force_grids(rho, h, grid, sigma=sigma, deconvolve=deconvolve,
-                                      window_exp=wexp, sigma_cells=sigma_cells), idx, w)
+    with annotate("nbody.pm.deposit"):
+        lo, h = _fit_box(pos3, grid, mesh=mesh)
+        sigma = None if sigma_cells is None else sigma_cells * h
+        idx, w = assign(pos3, lo, h, grid)
+        rho = _deposit(idx, w, mass, grid)
+        if mesh is not None:
+            rho = fixed_order_sum(mesh, rho)
+    with annotate("nbody.pm.solve"):
+        grids = _solve_force_grids(rho, h, grid, sigma=sigma, deconvolve=deconvolve,
+                                   window_exp=wexp, sigma_cells=sigma_cells)
+    with annotate("nbody.pm.gather"):
+        return _gather(grids, idx, w)
 
 
 class ShardedMeshStep:

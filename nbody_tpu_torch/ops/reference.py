@@ -29,6 +29,8 @@ import operator
 
 import torch
 
+from nbody_tpu_torch.utils.profiling import annotate
+
 DEFAULT_CHUNK = 4096
 
 
@@ -101,9 +103,10 @@ def ring_accel_fused_plain(shards, softening):
 def integrate(pos, vel, acc, dt, damping):
     """Damped semi-implicit Euler update; the mass and the velocity w-lane
     pass through untouched."""
-    v3 = (vel[:, :3] + acc * dt) * damping
-    p3 = pos[:, :3] + v3 * dt
-    return torch.cat([p3, pos[:, 3:4]], dim=1), torch.cat([v3, vel[:, 3:4]], dim=1)
+    with annotate("nbody.integrate"):
+        v3 = (vel[:, :3] + acc * dt) * damping
+        p3 = pos[:, :3] + v3 * dt
+        return torch.cat([p3, pos[:, 3:4]], dim=1), torch.cat([v3, vel[:, 3:4]], dim=1)
 
 
 def nbody_step_vs(pos_i, vel_i, pos_j, dt, softening, damping,
@@ -304,10 +307,11 @@ def integrate_into(pos, vel, acc, dt, damping, out) -> None:
     tensors that do not overlap the inputs: the step of the ping-pong
     buffers, in five elementwise passes."""
     new_pos, new_vel = out
-    new_vel.copy_(vel)
-    new_vel[:, :3].add_(acc * dt).mul_(damping)
-    new_pos.copy_(pos)
-    new_pos[:, :3].add_(new_vel[:, :3] * dt)
+    with annotate("nbody.integrate"):
+        new_vel.copy_(vel)
+        new_vel[:, :3].add_(acc * dt).mul_(damping)
+        new_pos.copy_(pos)
+        new_pos[:, :3].add_(new_vel[:, :3] * dt)
 
 
 def nbody_step_leapfrog(pos, vel, dt, softening, damping, *, accel_fn=None,
@@ -389,17 +393,19 @@ def compute_accel_jerk(pos, vel, softening, *, chunk_size: int | None = None):
 
 def hermite_predict(x0, v0, a0, j0, dt):
     """Hermite P(EC) predictor: the Taylor expansion through the jerk."""
-    xp = x0 + v0 * dt + a0 * (dt * dt / 2) + j0 * (dt * dt * dt / 6)
-    vp = v0 + a0 * dt + j0 * (dt * dt / 2)
-    return xp, vp
+    with annotate("nbody.integrate"):
+        xp = x0 + v0 * dt + a0 * (dt * dt / 2) + j0 * (dt * dt * dt / 6)
+        vp = v0 + a0 * dt + j0 * (dt * dt / 2)
+        return xp, vp
 
 
 def hermite_correct(x0, v0, a0, j0, a1, j1, dt, damping):
     """Hermite P(EC) corrector, with the reference's damping multiplier on
     the corrected velocity."""
-    v1 = (v0 + (dt / 2) * (a0 + a1) + (dt * dt / 12) * (j0 - j1)) * damping
-    x1 = x0 + (dt / 2) * (v0 + v1) + (dt * dt / 12) * (a0 - a1)
-    return x1, v1
+    with annotate("nbody.integrate"):
+        v1 = (v0 + (dt / 2) * (a0 + a1) + (dt * dt / 12) * (j0 - j1)) * damping
+        x1 = x0 + (dt / 2) * (v0 + v1) + (dt * dt / 12) * (a0 - a1)
+        return x1, v1
 
 
 def nbody_step_hermite(pos, vel, dt, softening, damping, *, accel_jerk_fn=None,

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from nbody_tpu_torch.utils.profiling import annotate
+
 BODY_AXIS = "bodies"
 # how long the other ranks wait for rank 0's host-side verdict (Compute's QA
 # and drift checks run the oracle on rank 0 alone): beyond any check, so the
@@ -190,10 +192,11 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The shards `x` (nloc, ...) of every rank, concatenated in rank order:
     a tiled all-gather along rows (``jax.lax.all_gather(..., tiled=True)``).
     Synchronous: on the card, the current stream waits for it."""
-    x = x.contiguous()
-    out = x.new_empty((mesh.size * x.shape[0], *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=mesh.group)
-    return out
+    with annotate("nbody.allgather"):
+        x = x.contiguous()
+        out = x.new_empty((mesh.size * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=mesh.group)
+        return out
 
 
 def make_mesh_2d(rows: int, cols: int, *, axes=("rows", "cols"), device=None) -> Mesh2D:

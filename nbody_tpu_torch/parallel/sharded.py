@@ -83,6 +83,7 @@ from nbody_tpu_torch.ops import cuda_kernel as ck
 from nbody_tpu_torch.ops import ds, reference
 from nbody_tpu_torch.parallel import sym
 from nbody_tpu_torch.parallel.mesh import Mesh, Mesh2D, all_gather_rows
+from nbody_tpu_torch.utils.profiling import annotate
 
 BODY_AXIS = "bodies"
 
@@ -126,10 +127,11 @@ def _ring(mesh: Mesh, shard: torch.Tensor):
             if len(bufs) < 2:
                 bufs.append(torch.empty_like(shard))
             nxt = bufs[k % 2]
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, cur, send_to, mesh.group),
-                dist.P2POp(dist.irecv, nxt, recv_from, mesh.group),
-            ])
+            with annotate("nbody.ring.exchange", f"hop={k + 1}"):
+                reqs = dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, cur, send_to, mesh.group),
+                    dist.P2POp(dist.irecv, nxt, recv_from, mesh.group),
+                ])
         yield cur
         for req in reqs:
             req.wait()
@@ -162,15 +164,17 @@ def ring_reduce_scatter(mesh: Mesh, fields, add) -> tuple:
         k %= d
         return tuple(f[k * m:(k + 1) * m] for f in fields)
 
-    acc = tuple(t.contiguous() for t in chunk(c - 1))
-    for s in range(1, d):
-        got = tuple(torch.empty_like(t) for t in acc)
-        ops = ([dist.P2POp(dist.isend, t, send_to, mesh.group) for t in acc]
-               + [dist.P2POp(dist.irecv, t, recv_from, mesh.group) for t in got])
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        acc = tuple(t.contiguous() for t in add(got, chunk(c - s - 1)))
-    return acc
+    with annotate("nbody.reduce_scatter"):
+        acc = tuple(t.contiguous() for t in chunk(c - 1))
+        for s in range(1, d):
+            got = tuple(torch.empty_like(t) for t in acc)
+            ops = ([dist.P2POp(dist.isend, t, send_to, mesh.group) for t in acc]
+                   + [dist.P2POp(dist.irecv, t, recv_from, mesh.group) for t in got])
+            with annotate("nbody.ring.exchange", f"hop={s}"):
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            acc = tuple(t.contiguous() for t in add(got, chunk(c - s - 1)))
+        return acc
 
 
 def _gather_planes(mesh: Mesh, *planes) -> torch.Tensor:
@@ -281,16 +285,17 @@ class ShardedStep:
     def _step_vs(self, pos, vel, pos_j, dt, soft, damp):
         """The fused Euler step of the i-shard under the gathered j-set, in
         the variant's kernel (nbody_tpu/parallel/sharded.py:458-467)."""
-        if self.variant in reference.MXU_VARIANTS:
+        with annotate("nbody.force"):
+            if self.variant in reference.MXU_VARIANTS:
+                if self.backend == "cuda":
+                    return ck.nbody_step_mxu_cuda_vs(pos, vel, pos_j, dt, soft, damp,
+                                                     variant=self.variant)
+                return reference.nbody_step_mxu_vs(pos, vel, pos_j, dt, soft, damp,
+                                                   mxu_dtype=reference.MXU_DTYPES[self.variant])
             if self.backend == "cuda":
-                return ck.nbody_step_mxu_cuda_vs(pos, vel, pos_j, dt, soft, damp,
-                                                 variant=self.variant)
-            return reference.nbody_step_mxu_vs(pos, vel, pos_j, dt, soft, damp,
-                                               mxu_dtype=reference.MXU_DTYPES[self.variant])
-        if self.backend == "cuda":
-            return ck.nbody_step_cuda_vs(pos, vel, pos_j, dt, soft, damp,
-                                         block_size=self.block_size)
-        return reference.nbody_step_vs(pos, vel, pos_j, dt, soft, damp)
+                return ck.nbody_step_cuda_vs(pos, vel, pos_j, dt, soft, damp,
+                                             block_size=self.block_size)
+            return reference.nbody_step_vs(pos, vel, pos_j, dt, soft, damp)
 
     def _sym(self, sets, softening) -> torch.Tensor:
         """Each pair once across the mesh (``parallel/sym.py``): `sets` is
@@ -308,28 +313,30 @@ class ShardedStep:
 
     def accel(self, pos, softening):
         """(nloc,3) acceleration of the shard `pos` from every body."""
-        if self.strategy == "sym":
-            return self._sym((pos,), softening)
-        if self.strategy == "ring_fused":
-            return ck.ring_accel_fused_cuda(pos, softening, self._fused_ring(pos.shape[0]))
-        if self._ring_on(pos):
-            return _ring_sum(self.mesh, pos, lambda j: self._accel_vs(pos, j, softening),
-                             torch.add)
-        return self._accel_vs(pos, all_gather_rows(self.mesh, pos), softening)
+        with annotate("nbody.force"):
+            if self.strategy == "sym":
+                return self._sym((pos,), softening)
+            if self.strategy == "ring_fused":
+                return ck.ring_accel_fused_cuda(pos, softening, self._fused_ring(pos.shape[0]))
+            if self._ring_on(pos):
+                return _ring_sum(self.mesh, pos, lambda j: self._accel_vs(pos, j, softening),
+                                 torch.add)
+            return self._accel_vs(pos, all_gather_rows(self.mesh, pos), softening)
 
     def accel_jerk(self, pos, vel, softening):
         """(acc, jerk), each (nloc,3), of the shard from every body: the
         positions and velocities travel together (also for ring_fused, whose
         kernel computes the force only)."""
-        if self.strategy == "sym":
-            total = self._sym((pos, vel), softening)
-            return total[:, :3], total[:, 3:]
-        if self._ring_on(pos):
-            return _ring_sum(self.mesh, torch.stack((pos, vel)),
-                             lambda j: self._aj_vs(pos, vel, j[0], j[1], softening),
-                             lambda x, y: (x[0] + y[0], x[1] + y[1]))
-        j = _gather_planes(self.mesh, pos, vel)
-        return self._aj_vs(pos, vel, j[0], j[1], softening)
+        with annotate("nbody.force"):
+            if self.strategy == "sym":
+                total = self._sym((pos, vel), softening)
+                return total[:, :3], total[:, 3:]
+            if self._ring_on(pos):
+                return _ring_sum(self.mesh, torch.stack((pos, vel)),
+                                 lambda j: self._aj_vs(pos, vel, j[0], j[1], softening),
+                                 lambda x, y: (x[0] + y[0], x[1] + y[1]))
+            j = _gather_planes(self.mesh, pos, vel)
+            return self._aj_vs(pos, vel, j[0], j[1], softening)
 
     def __call__(self, pos, vel, dt, softening, damping):
         if self.integrator == "hermite":
@@ -427,20 +434,22 @@ class ShardedDSStep:
 
     def accel(self, ph, plo, scal):
         """(acc_hi, acc_lo), each (nloc,3), of the shard from every body."""
-        if self.strategy == "ring":
-            return _ring_sum(self.mesh, torch.stack((ph, plo)),
-                             lambda j: self._accel_vs(ph, plo, j[0], j[1], scal), ds.ds_add)
-        j = _gather_planes(self.mesh, ph, plo)
-        return self._accel_vs(ph, plo, j[0], j[1], scal)
+        with annotate("nbody.force"):
+            if self.strategy == "ring":
+                return _ring_sum(self.mesh, torch.stack((ph, plo)),
+                                 lambda j: self._accel_vs(ph, plo, j[0], j[1], scal), ds.ds_add)
+            j = _gather_planes(self.mesh, ph, plo)
+            return self._accel_vs(ph, plo, j[0], j[1], scal)
 
     def accel_jerk(self, ph, plo, vh, vlo, scal):
         """(acc_hi, acc_lo, jerk_hi, jerk_lo), each (nloc,4) with w = 0, of
         the shard from every body: the four planes travel together."""
-        planes = (ph, plo, vh, vlo)
-        if self.strategy == "ring":
-            return _ring_sum(self.mesh, torch.stack(planes),
-                             lambda j: self._aj_vs(planes, tuple(j), scal), ds.ds_add_aj)
-        return self._aj_vs(planes, tuple(_gather_planes(self.mesh, *planes)), scal)
+        with annotate("nbody.force"):
+            planes = (ph, plo, vh, vlo)
+            if self.strategy == "ring":
+                return _ring_sum(self.mesh, torch.stack(planes),
+                                 lambda j: self._aj_vs(planes, tuple(j), scal), ds.ds_add_aj)
+            return self._aj_vs(planes, tuple(_gather_planes(self.mesh, *planes)), scal)
 
     def _integrate(self, planes, acc, scal):
         if self.backend == "cuda":
@@ -472,18 +481,20 @@ class ShardedDSStep:
                 # travel: two planes on the ring instead of four
                 hh, hl = ds.ds_half_drift(*planes, scal)
                 return ds.ds_leapfrog_finish(hh, hl, vh, vlo, self.accel(hh, hl, scal), scal)
-            j = _gather_planes(self.mesh, *planes)
-            if self.backend == "cuda":
-                return ck.nbody_step_ds_leapfrog_cuda_vs(*planes, *j, scal,
-                                                         block_size=self._bs(ph.shape[0]))
-            return ds.nbody_step_ds_leapfrog_vs(*planes, *j, scal)
+            with annotate("nbody.force"):
+                j = _gather_planes(self.mesh, *planes)
+                if self.backend == "cuda":
+                    return ck.nbody_step_ds_leapfrog_cuda_vs(*planes, *j, scal,
+                                                             block_size=self._bs(ph.shape[0]))
+                return ds.nbody_step_ds_leapfrog_vs(*planes, *j, scal)
         if ring:
             return self._integrate(planes, self.accel(ph, plo, scal), scal)
-        j = _gather_planes(self.mesh, ph, plo)
-        if self.backend == "cuda":
-            return ck.nbody_step_ds_cuda_vs(*planes, j[0], j[1], scal,
-                                            block_size=self._bs(ph.shape[0]))
-        return ds.nbody_step_ds_vs(*planes, j[0], j[1], scal)
+        with annotate("nbody.force"):
+            j = _gather_planes(self.mesh, ph, plo)
+            if self.backend == "cuda":
+                return ck.nbody_step_ds_cuda_vs(*planes, j[0], j[1], scal,
+                                                block_size=self._bs(ph.shape[0]))
+            return ds.nbody_step_ds_vs(*planes, j[0], j[1], scal)
 
 
 def make_sharded_ds_step(mesh: Mesh, *, axis: str = BODY_AXIS, backend: str = "auto",
@@ -532,18 +543,20 @@ class Sharded2DStep(ShardedStep):
     def accel(self, pos, softening):
         """(nloc,3): the row block's force under the column block, summed
         over the row's C ranks onto their chunks."""
-        i = all_gather_rows(self.mesh.along_cols, pos)
-        j = all_gather_rows(self.mesh.along_rows, pos)
-        (acc,) = ring_reduce_scatter(self.mesh.along_cols, (self._accel_vs(i, j, softening),),
-                                     reference.add_fields)
-        return acc
+        with annotate("nbody.force"):
+            i = all_gather_rows(self.mesh.along_cols, pos)
+            j = all_gather_rows(self.mesh.along_rows, pos)
+            (acc,) = ring_reduce_scatter(self.mesh.along_cols, (self._accel_vs(i, j, softening),),
+                                         reference.add_fields)
+            return acc
 
     def accel_jerk(self, pos, vel, softening):
-        i = _gather_planes(self.mesh.along_cols, pos, vel)
-        j = _gather_planes(self.mesh.along_rows, pos, vel)
-        return ring_reduce_scatter(self.mesh.along_cols,
-                                   self._aj_vs(i[0], i[1], j[0], j[1], softening),
-                                   reference.add_fields)
+        with annotate("nbody.force"):
+            i = _gather_planes(self.mesh.along_cols, pos, vel)
+            j = _gather_planes(self.mesh.along_rows, pos, vel)
+            return ring_reduce_scatter(self.mesh.along_cols,
+                                       self._aj_vs(i[0], i[1], j[0], j[1], softening),
+                                       reference.add_fields)
 
     def __call__(self, pos, vel, dt, softening, damping):
         if self.integrator == "euler":

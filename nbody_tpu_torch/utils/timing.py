@@ -13,17 +13,22 @@ import time
 
 import torch
 
-# reads of device values on the host by the adaptive and block rollouts, by
-# what read them (``host_read``)
+from nbody_tpu_torch.utils.profiling import annotate
+
+# blocking reads of device values on the host, by what read them
+# (``host_read``)
 HOST_READS: collections.Counter = collections.Counter()
 
 
 def host_read(t: torch.Tensor, what: str) -> list:
     """`t`'s values on the host as a (nested) list, counted in
-    ``HOST_READS[what]``: the one host synchronisation that an adaptive
-    segment (its stats) or a block macro step (its class counts) makes."""
+    ``HOST_READS[what]`` and spanned as ``nbody.host_read`` (`what` in its
+    args): the one host synchronisation that an adaptive segment (its
+    stats), a block macro step (its class counts) or a P3M ``update_many``
+    (its contract probe) makes."""
     HOST_READS[what] += 1
-    return t.tolist()
+    with annotate("nbody.host_read", f"what={what}"):
+        return t.tolist()
 
 
 def synchronize(device) -> None:

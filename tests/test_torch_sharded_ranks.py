@@ -220,6 +220,24 @@ def system(kind, num_bodies, params, kw, state, steps, ds_planes=None, mesh_rows
     return s.positions, s.velocities, acc, s.strategy, s.variant, planes
 
 
+def step_span_paths(strategy, params, state, steps):
+    """The nesting of the program's spans (``test_torch_spans.span_paths``)
+    in `steps` steps of a BodySystem on the mesh by `strategy` and one read
+    of its positions, under a CPU profiler, after an unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.models import BodySystem
+    from test_torch_spans import span_paths
+
+    s = BodySystem(state[0].shape[0], params, device="cpu", mesh=_mesh(), strategy=strategy,
+                   state=state)
+    s.update_many(1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.update_many(steps)
+        _ = s.positions
+    return sorted(span_paths(prof))
+
+
 def compute_checks(num_bodies, kw, drift_steps, mesh_rows=None):
     """Compute on the mesh (the grid of `mesh_rows` rows if given): the QA
     verdict and the drift check's result, each as every rank sees it."""
