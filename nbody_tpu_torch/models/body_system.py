@@ -86,6 +86,11 @@ implementation, so the algorithm has its own keyword):
     the step, or with ``p3m_auto_refresh`` rewinds to that state, re-sizes
     the capacity from it (``refresh_p3m_contract``) and runs the remaining
     steps (``p3m_refreshes`` lists each rewind).
+  On one CUDA device with backend "cuda", "pm" and "p3m" with the pair
+  kernel replay their force as a CUDA graph (``ops/force_graph.py``): the
+  first call under a key (N, grid, assignment, capacity, blk, softening)
+  runs eagerly, then captures; later calls replay. ``force_calls`` counts
+  the calls by kind. Meshes, the cell-list engine and backend "torch" run eagerly.
 
 Placements (the reference's BodySystemCUDA variants):
   * "device" — state stays in device memory between calls
@@ -146,10 +151,12 @@ from nbody_tpu_torch.ops.cuda_kernel import (
     potential_energy_per_row_cuda,
     sym_default_dispatch,
 )
+from nbody_tpu_torch.ops.force_graph import ForceGraphs, graph_engages
 from nbody_tpu_torch.ops.p3m import (
     check_short_range,
     make_sharded_p3m_step,
     p3m_accel,
+    p3m_kernel_blk,
     p3m_max_occupancy,
     p3m_overflow_count,
 )
@@ -407,6 +414,11 @@ class BodySystem:
         # the auto-refresh's rewinds: (step of the call, capacity before, after)
         self.p3m_refreshes = []
         self._p3m_contract_warned = False
+        # the one-device mesh-solver force, replayed as a CUDA graph where
+        # graph_engages allows; its calls by kind in force_calls
+        self._force_graphs = ForceGraphs(graph_engages(
+            self.device, mesh=mesh, kernel=kernel, backend=backend,
+            short_range=self.p3m_short_range))
         self.dtype = dtype
         self.placement = placement
         self.block_size = (DEFAULT_BLOCK_SIZE if block_size is None
@@ -591,14 +603,8 @@ class BodySystem:
         state's type."""
         with annotate("nbody.force"):
             soft = self.params.softening
-            if self.kernel == "pm":
-                return pm_accel(pos.to(torch.float32), grid=self.pm_grid,
-                                assignment=self.pm_assignment).to(pos.dtype)
-            if self.kernel == "p3m":
-                return p3m_accel(pos.to(torch.float32), soft, grid=self.pm_grid,
-                                 capacity=self.p3m_capacity, backend=self.backend,
-                                 assignment=self.pm_assignment,
-                                 short_range=self.p3m_short_range)[0].to(pos.dtype)
+            if self.kernel in ("pm", "p3m"):
+                return self._force_graphs(*self._mesh_solver_force(pos.shape[0], soft), pos)
             if self.variant == "sym":
                 if self.backend == "cuda":
                     return compute_accel_symmetric_blocked_cuda(pos, soft, tile=self.tile)
@@ -608,6 +614,27 @@ class BodySystem:
             if self.backend == "cuda":
                 return compute_accel_cuda(pos, pos, soft, block_size=self.block_size)
             return reference.compute_accel(pos, soft)
+
+    def _mesh_solver_force(self, n: int, soft):
+        """(key, fn) of the one-device mesh-solver force for ``ForceGraphs``:
+        fn maps an (N, 4) state to its float32 (N, 3) force, and the key
+        holds every value that its launches bake in."""
+        grid, assignment = self.pm_grid, self.pm_assignment
+        if self.kernel == "pm":
+            return ("pm", n, grid, assignment), lambda p: pm_accel(
+                p.to(torch.float32), grid=grid, assignment=assignment)
+        cap = self.p3m_capacity
+        blk = p3m_kernel_blk(cap)
+        return ("p3m", n, grid, assignment, cap, blk, float(soft)), lambda p: p3m_accel(
+            p.to(torch.float32), soft, grid=grid, capacity=cap, blk=blk, backend=self.backend,
+            assignment=assignment, short_range=self.p3m_short_range)[0]
+
+    @property
+    def force_calls(self) -> dict:
+        """The mesh-solver force's calls by kind (``ops/force_graph.py``):
+        {"eager", "replay"} force evaluations and the "capture"s that follow
+        a key's eager one; all-pairs forces are not counted."""
+        return self._force_graphs.calls
 
     def _accel_jerk(self, pos: torch.Tensor, vel: torch.Tensor):
         """(acc, jerk), each (N,3), of `pos`, `vel` with this system's

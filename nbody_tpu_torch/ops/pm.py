@@ -278,11 +278,12 @@ def _optimal_influence_factor(grid: int, sigma_cells, window_exp: int):
     return out
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _influence_table(grid: int, sigma_cells, window_exp: int, device: torch.device):
     """The optimal-influence table as a float32 tensor on `device`, copied
     there once per process (from pinned memory, so that the copy does not
-    wait on the host)."""
+    wait on the host). Never evicted: a captured force
+    (``ops/force_graph.py``) reads the table's memory at every replay."""
     with annotate("nbody.pm.influence_table"):
         table = torch.from_numpy(_optimal_influence_factor(grid, sigma_cells, window_exp))
         if torch.device(device).type == "cuda":

@@ -39,7 +39,8 @@ def trace(log_dir: Optional[str] = None):
 
 
 # The spans of the package, outermost first where they nest: a step holds a
-# force evaluation, which holds the P3M and PM stages and the exchanges of a
+# force evaluation, which holds a CUDA graph's capture (around the P3M and
+# PM stages) or replay, or the stages themselves, and the exchanges of a
 # mesh. Names are fixed; what varies (a segment, a hop, what a read is for)
 # goes in the span's args.
 SPANS = (
@@ -52,6 +53,8 @@ SPANS = (
     "nbody.pm.solve",             # the FFT solve
     "nbody.pm.gather",            # the mesh's force at the bodies
     "nbody.pm.influence_table",   # the optimal influence table (once)
+    "nbody.graph.capture",        # a force's capture into a CUDA graph (once a key)
+    "nbody.graph.replay",         # a force's replay: input copy, graph launch, output copy
     "nbody.p3m.probe",            # the capacity probe of each step, its read
     "nbody.p3m.refresh",          # a rewind and re-size of the P3M capacity
     "nbody.ring.exchange",        # a hop's send and receive

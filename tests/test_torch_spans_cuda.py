@@ -79,12 +79,17 @@ def test_p3m_spans_nest_on_the_card(dev):
     from test_torch_spans import span_paths
 
     s = _system(65536, dev, kernel="p3m", p3m_auto_refresh=True)
+    # a new softening is a new graph key: the first step's force runs
+    # eagerly, then captures; the second replays
+    s.update_params(DEMO_PARAMS[0].replace(softening=0.2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s.update_many(1)
+        s.update_many(2)
         s.synchronize()
     got = span_paths(prof)
     force = ("nbody.step", "nbody.force")
     for stage in ("nbody.p3m.tables", "nbody.p3m.pairs", "nbody.pm.deposit", "nbody.pm.solve",
                   "nbody.pm.gather"):
         assert force + (stage,) in got
+        assert force + ("nbody.graph.capture", stage) in got
+    assert force + ("nbody.graph.replay",) in got
     assert ("nbody.p3m.probe", "nbody.host_read") in got
