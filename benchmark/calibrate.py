@@ -8,10 +8,15 @@ once, and for each seed sets the seed's initial state and runs the window
 up to the last segment the check samples, then compares the sampled
 snapshots with the float64 reference as a run does (``harness/check.py``):
 the program's readings. For each --control seed it also puts the control in
-the program's place, the reference in TF32 (``reference.allpairs``), from
-the same start states, and reads the same number: the control's readings.
+the program's place, the configuration's own reference in TF32
+(``benchmark/reference/<solver>.py``), from the same start states, and
+reads the same number: the control's readings.
 Rank 0 prints a JSON line per seed and a summary: the largest program
-reading (the lower one) and the smallest control reading (the upper one).
+reading (the lower one) and the smallest over the control seeds of the
+control's ``dpos_rel``, its widest sampled segment as the check takes it
+(the upper one): a control whose later segments read as the program's,
+where the float32 rounding of far bodies' positions is all the gap, still
+fails the cell on the others.
 """
 
 import argparse
@@ -85,7 +90,7 @@ def main(argv=None, *, device: str = "cuda", n=None) -> int:
                                                rows=rows, group=group)
                 readings.append(gap / moved if moved > 0 else math.inf)
             line["control"] = readings
-            upper = min([upper] + readings)
+            upper = min(upper, max(readings))
         line["seconds"] = time.perf_counter() - t0
         if rank.rank == 0:
             print(json.dumps(line), flush=True)

@@ -11,21 +11,24 @@ Integrators (the configurations' own):
            v' = (v + dt/2 (a0 + a1) + dt^2/12 (j0 - j1)) * damping,
            x' = x + dt/2 (v + v') + dt^2/12 (a0 - a1).
 The mass (pos[:, 3]) and vel[:, 3] pass through.
+
+The force is the configuration's solver's: ``benchmark/reference/<solver>.py``,
+found by the name in the configuration's ``solver`` and loaded from its file,
+gives ``accel(pos, config, *, precision, rows=None)`` (and, for Hermite,
+``accel_jerk(pos, vel, softening, *, precision)``). A solver with no file
+raises: a later configuration brings its reference as a file of its own.
 """
 
 from __future__ import annotations
 
 import torch
 
-from benchmark.reference import allpairs, p3m
+from benchmark.harness import spec
 
 
-def _force(config: dict, precision: str):
-    soft = config["params"]["softening"]
-    if config["solver"] == "p3m":
-        grid = config["pm_grid"]
-        return lambda p, rows=None: p3m.accel(p, soft, grid=grid, precision=precision)
-    return lambda p, rows=None: allpairs.accel(p, soft, precision=precision, rows=rows)
+def solver(config: dict):
+    """The reference module of the configuration's solver."""
+    return spec.load_module("reference", config["solver"])
 
 
 def advance(pos, vel, steps: int, *, config: dict, integrator: str, precision: str = "fp64",
@@ -40,25 +43,25 @@ def advance(pos, vel, steps: int, *, config: dict, integrator: str, precision: s
     if rows is not None:
         if steps != 1 or integrator != "euler":
             raise ValueError("rows= takes one Euler step")
-        a = _force(config, precision)(pos, rows).to(dtype)
+        a = solver(config).accel(pos, config, precision=precision, rows=rows).to(dtype)
         v3 = (vel[rows, :3] + a * dt) * damping
         return torch.cat([pos[rows, :3] + v3 * dt, pos[rows, 3:]], 1)
     if integrator == "euler":
-        force = _force(config, precision)
+        mod = solver(config)
         for _ in range(steps):
-            v3 = (vel[:, :3] + force(pos).to(dtype) * dt) * damping
+            a = mod.accel(pos, config, precision=precision).to(dtype)
+            v3 = (vel[:, :3] + a * dt) * damping
             pos = torch.cat([pos[:, :3] + v3 * dt, pos[:, 3:]], 1)
             vel = torch.cat([v3, vel[:, 3:]], 1)
         return pos, vel
     if integrator == "hermite":
-        soft = par["softening"]
+        soft, accel_jerk = par["softening"], solver(config).accel_jerk
         for _ in range(steps):
             x0, v0 = pos[:, :3], vel[:, :3]
-            a0, j0 = (t.to(dtype) for t in allpairs.accel_jerk(pos, vel, soft,
-                                                                 precision=precision))
+            a0, j0 = (t.to(dtype) for t in accel_jerk(pos, vel, soft, precision=precision))
             xp = x0 + v0 * dt + a0 * (dt * dt / 2) + j0 * (dt * dt * dt / 6)
             vp = v0 + a0 * dt + j0 * (dt * dt / 2)
-            a1, j1 = (t.to(dtype) for t in allpairs.accel_jerk(
+            a1, j1 = (t.to(dtype) for t in accel_jerk(
                 torch.cat([xp, pos[:, 3:]], 1), torch.cat([vp, vel[:, 3:]], 1), soft,
                 precision=precision))
             v1 = (v0 + (dt / 2) * (a0 + a1) + (dt * dt / 12) * (j0 - j1)) * damping

@@ -106,7 +106,7 @@ def _accel_jerk_direct(xi, vi, xj, vj, mj, eps2):
     return torch.cat(accs), torch.cat(jerks)
 
 
-def accel(pos, softening, *, precision="fp64", rows=None):
+def force(pos, softening, *, precision="fp64", rows=None):
     """(len(rows) or N, 3) accelerations of the (N, 4) [x, y, z, m] state
     `pos` (the rows `rows` of it, a slice or index tensor, when given)."""
     eps2 = float(softening) ** 2
@@ -119,6 +119,11 @@ def accel(pos, softening, *, precision="fp64", rows=None):
         xi = p[:, :3] if rows is None else p[rows, :3]
         return _accel_direct(xi, p[:, :3], p[:, 3], eps2)
     raise ValueError(f"unknown precision {precision!r}")
+
+
+def accel(pos, config: dict, *, precision="fp64", rows=None):
+    """The solver's entry point: ``force`` at `config`'s softening."""
+    return force(pos, config["params"]["softening"], precision=precision, rows=rows)
 
 
 def accel_jerk(pos, vel, softening, *, precision="fp64"):

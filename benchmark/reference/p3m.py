@@ -16,6 +16,8 @@ centred):
                m_j d (R^-3 - s_lr(r^2)), with s_lr the solver's degree-10
                polynomial in y = r^2 / (2 sigma^2) over (sqrt2 sigma)^3.
 
+The box, the deposit, the padded solve and the gather are the PM
+reference's (``pm.py``), given this Green's function and influence.
 The polynomial is part of the solver's definition (its coefficients are the
 published pair kernel's), so it is kept here; the rest is written from the
 equations. Nothing of the program under test is imported, and nothing it
@@ -31,7 +33,7 @@ import math
 
 import torch
 
-from benchmark.reference.allpairs import round_tf32
+from benchmark.reference.pm import fit_box, long_range, typed
 
 SIGMA_CELLS = 1.5
 RCUT_SIGMAS = 4.0
@@ -50,34 +52,6 @@ SLR_POLY = (
 )
 # elements of one (i-rows x j-candidates) block of the short range's screen
 _BLOCK = 1 << 26
-
-
-def fit_box(p3, grid: int):
-    """(lo corner (3,), cell size h) of the particle-fitting box: two empty
-    cells of margin on each side of the bodies' span."""
-    lo_raw, hi_raw = p3.amin(0), p3.amax(0)
-    h = (hi_raw - lo_raw).amax() / (grid - 4) + 1e-30
-    return (lo_raw + hi_raw) / 2 - h * grid / 2, h
-
-
-def _cic(p3, lo, h, grid: int):
-    rel = (p3 - lo) / h
-    base = torch.floor(rel)
-    frac = rel - base
-    base = base.to(torch.int64)
-    idx, w = [], []
-    for corner in range(8):
-        off = [(corner >> 2) & 1, (corner >> 1) & 1, corner & 1]
-        flat = 0
-        weight = 1.0
-        for axis in range(3):
-            i = (base[:, axis] + off[axis]).clamp(0, grid - 1)
-            flat = flat * grid + i
-            f = frac[:, axis]
-            weight = weight * (f if off[axis] else 1.0 - f)
-        idx.append(flat)
-        w.append(weight)
-    return torch.stack(idx), torch.stack(w)
 
 
 def optimal_influence(grid: int, device, dtype=torch.float64):
@@ -116,35 +90,12 @@ def optimal_influence(grid: int, device, dtype=torch.float64):
     return torch.where(denom > 0, num / torch.where(denom > 0, denom, 1.0), 1.0)
 
 
-def long_range(p3, mass, grid: int):
-    """(N, 3) mesh accelerations of bodies at p3 with masses `mass`."""
-    dev, dt = p3.device, p3.dtype
-    lo, h = fit_box(p3, grid)
+def smoothed_green(r2, r, h):
+    """The Gaussian-smoothed Green's function erf(r / (sqrt2 sigma)) / r,
+    sqrt(2 / pi) / sigma at r = 0, sigma = 1.5 h."""
     sigma = SIGMA_CELLS * h
-    idx, w = _cic(p3, lo, h, grid)
-    rho = torch.zeros(grid ** 3, dtype=dt, device=dev).index_add_(
-        0, idx.reshape(-1), (w * mass[None, :]).reshape(-1))
-    gp = 2 * grid
-    rho_p = torch.zeros((gp, gp, gp), dtype=dt, device=dev)
-    rho_p[:grid, :grid, :grid] = rho.reshape(grid, grid, grid)
-    n = torch.arange(gp, device=dev)
-    d1 = torch.minimum(n, gp - n).to(dt) * h
-    r2 = d1[:, None, None] ** 2 + d1[None, :, None] ** 2 + d1[None, None, :] ** 2
-    r = r2.clamp(min=1e-300).sqrt()
-    kern = torch.where(r2 > 0, torch.special.erf(r / (math.sqrt(2.0) * sigma)) / r,
+    return torch.where(r2 > 0, torch.special.erf(r / (math.sqrt(2.0) * sigma)) / r,
                        math.sqrt(2.0 / math.pi) / sigma)
-    conv_k = torch.fft.rfftn(rho_p) * torch.fft.rfftn(kern)
-    conv_k = conv_k * optimal_influence(grid, dev, dt)
-    k1 = 2.0 * math.pi * torch.fft.fftfreq(gp, device=dev, dtype=dt) / h
-    kz = 2.0 * math.pi * torch.fft.rfftfreq(gp, device=dev, dtype=dt) / h
-    k1[gp // 2] = 0.0
-    kz[gp // 2] = 0.0
-    kvs = (k1[:, None, None], k1[None, :, None], kz[None, None, :])
-    out = []
-    for kv in kvs:
-        g = torch.fft.irfftn(conv_k * (1j * kv), s=(gp, gp, gp))[:grid, :grid, :grid]
-        out.append((g.reshape(-1)[idx] * w).sum(0))
-    return torch.stack(out, 1)
 
 
 def _s_sr(r2, eps2, sigma):
@@ -227,20 +178,25 @@ def short_range(p3, mass, eps2, rcut, sigma, *, forces: bool = True):
     return acc, int(near)
 
 
-def accel(pos, softening, *, grid: int, precision: str = "fp64"):
+def force(pos, softening, *, grid: int, precision: str = "fp64"):
     """(N, 3) P3M accelerations of the (N, 4) state `pos`."""
-    if precision == "fp64":
-        p = pos.to(torch.float64)
-    elif precision == "tf32":
-        p = round_tf32(pos)
-    else:
-        raise ValueError(f"unknown precision {precision!r}")
+    p = typed(pos, precision)
     p3, mass = p[:, :3], p[:, 3]
     _, h = fit_box(p3, grid)
     sigma = SIGMA_CELLS * h
     rcut = float(RCUT_SIGMAS * sigma)
     acc_sr, _ = short_range(p3, mass, float(softening) ** 2, rcut, sigma)
-    return long_range(p3, mass, grid) + acc_sr
+    return long_range(p3, mass, grid, smoothed_green,
+                      optimal_influence(grid, p3.device, p3.dtype)) + acc_sr
+
+
+def accel(pos, config: dict, *, precision: str = "fp64", rows=None):
+    """The solver's entry point: the (N, 3) accelerations of the (N, 4)
+    state under `config` (its rows `rows` when given: the cell lists and
+    the mesh need every body, so the whole force is worked out)."""
+    a = force(pos, config["params"]["softening"], grid=config["pm_grid"],
+              precision=precision)
+    return a if rows is None else a[rows]
 
 
 def near_pairs(pos, *, grid: int) -> int:

@@ -33,3 +33,11 @@ def test_p3m_count():
                / peaks.HBM_BYTES)
     got = mod.bound_s_per_step({"n": n}, {"pm_grid": g}, p)
     assert abs(got - by_hand) <= 1e-15
+
+
+def test_pm_count():
+    mod = spec.load_module("rooflines", "pm_cic_1m")
+    n, g = 2000, 16
+    by_hand = (n * 16 + g ** 3 * 4 + (2 * g) ** 3 * 16 + 3 * g ** 3 * 4 + n * 28 + n * 64) \
+        / peaks.HBM_BYTES
+    assert abs(mod.bound_s_per_step({"n": n}, {"pm_grid": g}, None) - by_hand) <= 1e-15
